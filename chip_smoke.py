@@ -8,7 +8,10 @@ source, started together), holds every kernel against its plain PyTorch
 version (bit-equal), reproduces the golden fuzz legs and the JAX fixture
 legs on the card, drives the flagship run (``fuzz --storm --clusters 4096
 --ticks 1024``, twice, through the CLI) and checks that it went through the
-kernels, then times each kernel beside its plain version and its bound.
+kernels, then times each kernel beside its plain version and its bound:
+``ms`` is the kernel's own device time per launch (torch.profiler, matched
+by the CUDA function's name), ``call_ms`` the wrapper's time per call as
+the host issues it back to back (CUDA events).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -60,20 +63,61 @@ def max_abs_err(a, b) -> float:
 
 
 def cuda_ms(fn, iters: int = 100, warmup: int = 5) -> float:
-    """Mean milliseconds of fn() over iters launches, by CUDA events."""
+    """Mean milliseconds of fn() over iters back-to-back calls, by CUDA
+    events: the call's time as the host issues it, wrapper included."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    for i in range(warmup):
+        fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(i)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, kernel: str, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device milliseconds of one launch of the CUDA kernel named
+    ``kernel`` over iters calls of fn(i), from torch.profiler's CUPTI
+    trace: the kernel's own execution, without the host's issue time or
+    any other kernel the wrapper launches."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    name = re.compile(rf"(^|::|\s){re.escape(kernel)}(\(|<|$)")
+    hits = [e for e in prof.key_averages() if name.search(e.key)]
+    count = sum(e.count for e in hits)
+    # CUPTI may drop an activity record now and then; the mean is over
+    # the launches it recorded
+    check(count >= iters * 9 // 10 and sum(_dev_us(e) for e in hits) > 0,
+          f"profiler saw {count} launches of {kernel} over {iters} calls: "
+          f"{[e.key[:80] for e in prof.key_averages()][:12]}")
+    return sum(_dev_us(e) for e in hits) / count / 1e3
+
+
+def rotations(nbytes_in: int) -> int:
+    """Copies of a kernel's inputs to cycle through so that each launch
+    reads its inputs from device memory (the 50 MB L2 cache holds none of
+    them), as the bytes bound assumes."""
+    return max(1, -(-2 * 50 * 2**20 // max(nbytes_in, 1)))
 
 
 def nbytes(*tensors) -> int:
@@ -101,8 +145,9 @@ def main() -> int:
     from madraft_tpu_torch.tpusim import config, engine, prng, state, step
 
     dev = torch.device("cuda")
-    errs = {"threefry_hash_pairs": 0.0, "threefry_tick_block": 0.0,
+    errs = {"threefry_hash_pairs": 0.0, "threefry_tick_blocks": 0.0,
             "oracle": 0.0}
+    edges = (1, 2, 1000, 2**20, 2**20 + 7, 2**31 - 1)
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -135,16 +180,25 @@ def main() -> int:
                 checked.append((name, flag, e))
         for n_nodes in (5, 7):
             total = step._block_total(n_nodes)
-            for t in (1, 2, 1000, 2**20, 2**20 + 7, 2**31 - 1):
+            # one chunk whose clusters start at the edge ticks in turn (the
+            # chunks from 2**31 - 1 wrap), then each edge tick alone
+            t0 = torch.tensor(edges, dtype=torch.int32).repeat(
+                4096 // len(edges) + 1)[:4096].to(dev)
+            e = max_abs_err(
+                K1.tick_blocks(kd, t0, engine.DRAW_CHUNK, total, flag),
+                K1.tick_blocks_plain(kd, t0, engine.DRAW_CHUNK, total, flag))
+            errs["threefry_tick_blocks"] = max(errs["threefry_tick_blocks"], e)
+            for t in edges:
                 tt = torch.full((4096,), t, dtype=torch.int32, device=dev)
                 e = max_abs_err(K1.tick_block(kd, tt, total, flag),
                                 K1.tick_block_plain(kd, tt, total, flag))
-                errs["threefry_tick_block"] = max(errs["threefry_tick_block"], e)
-    check(errs["threefry_hash_pairs"] == 0 and errs["threefry_tick_block"] == 0,
+                errs["threefry_tick_blocks"] = max(errs["threefry_tick_blocks"], e)
+    check(errs["threefry_hash_pairs"] == 0 and errs["threefry_tick_blocks"] == 0,
           f"threefry kernel differs from its plain version: {errs} {checked}")
     emit({"phase": "k1_vs_plain", "layouts": ["partitionable", "legacy"],
+          "n_nodes": [5, 7], "chunk_ticks": engine.DRAW_CHUNK,
           "max_abs_err": max(errs["threefry_hash_pairs"],
-                             errs["threefry_tick_block"])})
+                             errs["threefry_tick_blocks"])})
 
     # ---- 3. K2 against its plain version: storm states and planted ones
     storm = config.storm_profiles()["storm"][0]
@@ -156,21 +210,18 @@ def main() -> int:
     h = state.state_to_numpy(s)
     planted, want_bits = _plant(h)
 
-    def oracle_args(st):
-        return (st.alive, st.role, st.term, st.log_term, st.log_val,
-                st.log_len, st.base, st.commit, st.prefix_hash,
-                st.shadow_term, st.shadow_val, st.shadow_base, st.shadow_len,
-                st.shadow_prefix_hash)
-
     for label, src in (("storm", h), ("planted", planted)):
         st = state.state_from_numpy(src, dev)
         got = K2.oracle(*oracle_args(st))
         want = K2.oracle_plain(*oracle_args(st))
+        check(len(got) == len(want) == 9, "oracle returns 9 outputs")
         for a, b in zip(got, want):
             errs["oracle"] = max(errs["oracle"], max_abs_err(a, b))
         if label == "planted":
-            v = got[0].cpu().tolist()
-            missed = {c: bit for c, bit in want_bits.items() if not v[c] & bit}
+            v, fvt = got[0].cpu().tolist(), got[7].cpu().tolist()
+            t = int(src["tick"][0]) + 1
+            missed = {c: bit for c, bit in want_bits.items()
+                      if not v[c] & bit or fvt[c] != t}
             check(not missed, f"planted violations not flagged: {missed}")
     check(errs["oracle"] == 0, f"oracle kernel differs from plain: {errs['oracle']}")
     emit({"phase": "k2_vs_plain", "states": ["storm@150", "planted"],
@@ -203,7 +254,7 @@ def main() -> int:
                   "violating": rep.n_violating})
 
     # ---- 6. the flagship, through the CLI, counting kernel launches
-    for fn in (K1.hash_pairs, K1.tick_block, K2.oracle):
+    for fn in (K1.hash_pairs, K1.tick_blocks, K2.oracle):
         fn.launches = 0
     prng.set_partitionable(True)
     t0 = time.perf_counter()
@@ -211,16 +262,18 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"threefry_hash_pairs": K1.hash_pairs.launches,
-                "threefry_tick_block": K1.tick_block.launches,
+                "threefry_tick_blocks": K1.tick_blocks.launches,
                 "oracle": K2.oracle.launches}
     ticks = 1024 * FLAGSHIP_RUNS
+    chunks = -(-1024 // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
     check(rc == 0 and out["violating"] == 0, f"flagship rc {rc}: {out}")
     check(out.get("deterministic") is True, "flagship double run differs")
     check(out["first_leader_tick_mean"] > 0 and out["committed_mean"] > 0,
           f"flagship made no progress: {out}")
-    check(launches["threefry_tick_block"] == ticks
+    check(launches["threefry_tick_blocks"] == chunks
           and launches["oracle"] == ticks and launches["threefry_hash_pairs"] > 0,
-          f"flagship launches {launches}, want {ticks} per tick kernel")
+          f"flagship launches {launches}, want {chunks} tick_blocks (one per "
+          f"chunk of {engine.DRAW_CHUNK} ticks) and {ticks} oracle")
     tele = out["telemetry"]
     emit({"phase": "flagship", "argv": FLAGSHIP, "rc": rc,
           "cluster_steps_per_s": tele["steps_per_sec"],
@@ -237,7 +290,7 @@ def main() -> int:
     fs = state.init_cluster(_storm_cfg(), fk, fkn)
     for _ in range(200):
         fs = step.step_cluster(_storm_cfg(), fs, fk, fkn)
-    tt = fs.tick + 1
+    tt, chunk = fs.tick + 1, engine.DRAW_CHUNK
     hp_x = torch.arange(n_nodes, dtype=torch.int64, device=dev)
     hp_k, hp_z = fk, torch.zeros_like(hp_x)
     args2 = oracle_args(fs)
@@ -245,51 +298,73 @@ def main() -> int:
         errs["oracle"] = max(errs["oracle"], max_abs_err(a, bb))
     check(errs["oracle"] == 0, "oracle kernel differs at the flagship shape")
     k2_out = K2.oracle(*args2)
-    counts = {fn: fn.launches for fn in (K1.hash_pairs, K1.tick_block, K2.oracle)}
+    counts = {fn: fn.launches for fn in (K1.hash_pairs, K1.tick_blocks, K2.oracle)}
+    k2_rot = [args2] + [tuple(x.clone() for x in args2)
+                        for _ in range(rotations(nbytes(*args2)) - 1)]
+
+    def k2_call(i):
+        return K2.oracle(*k2_rot[i % len(k2_rot)])
+
+    def k2_plain(i):
+        return K2.oracle_plain(*k2_rot[i % len(k2_rot)])
+
+    # name: (device ms, call ms, plain ms, bytes, operations)
     timing = {
-        "threefry_tick_block": (
-            cuda_ms(lambda: K1.tick_block(fk, tt, total, True)),
-            cuda_ms(lambda: K1.tick_block_plain(fk, tt, total, True), iters=20),
-            nbytes(fk.to(torch.int32), tt) + b * total * 4,
-            b * (2 + total) * OPS_PER_HASH + b * total),
+        # one chunk: [chunk, b, total] int64 words, b * chunk rows of 2
+        # key folds and total hashes (partitionable layout) each
+        "threefry_tick_blocks": (
+            device_ms(lambda i: K1.tick_blocks(fk, tt, chunk, total, True),
+                      "tick_blocks_kernel"),
+            cuda_ms(lambda i: K1.tick_blocks(fk, tt, chunk, total, True)),
+            cuda_ms(lambda i: K1.tick_blocks_plain(fk, tt, chunk, total, True),
+                    iters=5, warmup=1),
+            nbytes(fk, tt) + chunk * b * total * 8,
+            chunk * b * ((2 + total) * OPS_PER_HASH + total)),
         "threefry_hash_pairs": (
-            cuda_ms(lambda: K1.hash_pairs(hp_k, hp_z, hp_x)),
-            cuda_ms(lambda: K1.hash_pairs_plain(hp_k, hp_z, hp_x), iters=20),
+            device_ms(lambda i: K1.hash_pairs(hp_k, hp_z, hp_x),
+                      "hash_pairs_kernel"),
+            cuda_ms(lambda i: K1.hash_pairs(hp_k, hp_z, hp_x)),
+            cuda_ms(lambda i: K1.hash_pairs_plain(hp_k, hp_z, hp_x), iters=20),
             nbytes(hp_k.to(torch.int32)) + 4 * b * n_nodes * 4,
             b * n_nodes * OPS_PER_HASH),
         "oracle": (
-            cuda_ms(lambda: K2.oracle(*args2)),
-            cuda_ms(lambda: K2.oracle_plain(*args2), iters=20),
+            device_ms(k2_call, "oracle_kernel"),
+            cuda_ms(k2_call),
+            cuda_ms(k2_plain, iters=20),
             nbytes(*args2) + nbytes(*k2_out),
-            # per cluster: n*n pairs x cap lanes x ~8 ops (log matching),
-            # n x cap x ~12 (shadow walk), cap x ~10 (window slide)
-            b * (n_nodes * n_nodes * 64 * 8 + n_nodes * 64 * 12 + 64 * 10)),
+            # per cluster: n(n-1)/2 pairs x cap lanes x ~8 ops (log
+            # matching), n x cap x ~12 (shadow walk), cap x ~10 (slide)
+            b * (n_nodes * (n_nodes - 1) // 2 * 64 * 8 + n_nodes * 64 * 12
+                 + 64 * 10)),
     }
+    del k2_rot
     for fn, c in counts.items():  # timing launches are not main-path launches
         fn.launches = c
-    emit({"phase": "timing", "clusters": b, "shapes": {
-        "tick_block": [b, total], "hash_pairs": [b, n_nodes],
-        "oracle_logs": [b, n_nodes, 64]}})
+    emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
+          "l2_cold_rotations": {"oracle": rotations(nbytes(*args2))},
+          "shapes": {"tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
+                     "oracle_logs": [b, n_nodes, 64]}})
 
-    # ---- 8. where a flagship tick's time goes (torch.profiler, 20 ticks)
-    emit(_profile_ticks(fs, fk, fkn, 20))
+    # ---- 8. where a flagship tick's time goes (torch.profiler, one chunk)
+    emit(_profile_ticks(fs, fk, fkn, chunk))
 
     sources = {
-        "threefry_tick_block":("madraft_tpu_torch/csrc/threefry.cu",
-                                "madraft_tpu/tpusim/step.py:128"),
+        "threefry_tick_blocks": ("madraft_tpu_torch/csrc/threefry.cu",
+                                 "madraft_tpu/tpusim/step.py:128"),
         "threefry_hash_pairs": ("madraft_tpu_torch/csrc/threefry.cu",
                                 "madraft_tpu/tpusim/engine.py:95"),
         "oracle": ("madraft_tpu_torch/csrc/oracle.cu",
                    "madraft_tpu/tpusim/step.py:961"),
     }
     rows = []
-    for name, (ms, plain_ms, nb, ops) in timing.items():
+    for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_OPS_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[name], "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
@@ -306,6 +381,16 @@ def main() -> int:
     return 0
 
 
+def oracle_args(st):
+    """K2's inputs from a state: the state itself stands in for the
+    mid-tick values, and the tick is st.tick + 1."""
+    return (st.alive, st.role, st.term, st.log_term, st.log_val, st.log_len,
+            st.base, st.commit, st.prefix_hash, st.shadow_term, st.shadow_val,
+            st.shadow_base, st.shadow_len, st.shadow_prefix_hash,
+            st.violations, st.first_violation_tick, st.first_leader_tick,
+            st.tick + 1)
+
+
 def _plant(h: dict):
     """Copy of a host state with one divergence planted per cluster:
     two live leaders in a term, a log-matching break, a changed committed
@@ -316,6 +401,8 @@ def _plant(h: dict):
     n_clusters = p["log_term"].shape[0]
     want = {}
     p["alive"][:] = True
+    p["violations"][:] = 0
+    p["first_violation_tick"][:] = -1
     p["role"][0, :2] = 2
     p["term"][0, 1] = p["term"][0, 0]
     want[0] = 1
@@ -347,35 +434,35 @@ def _plant(h: dict):
 def _profile_ticks(s, keys, kn, n_ticks: int) -> dict:
     """Wall time per flagship tick, the card's busy share over it, the
     kernels launched per tick, and the five kernels with the most device
-    time, from torch.profiler. Kernel launches here go to the counters'
-    saved values afterwards, like the timing phase's."""
+    time, from torch.profiler, over one chunk of n_ticks ticks drawn as the
+    engine draws them. Kernel launches here go to the counters' saved
+    values afterwards, like the timing phase's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import threefry as K1
-    from madraft_tpu_torch.tpusim import step
+    from madraft_tpu_torch.tpusim import prng, step
 
-    counts = {fn: fn.launches for fn in (K1.hash_pairs, K1.tick_block, K2.oracle)}
+    counts = {fn: fn.launches for fn in (K1.hash_pairs, K1.tick_blocks, K2.oracle)}
     cfg = _storm_cfg()
+    total = step._block_total(cfg.n_nodes)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            s = step.step_cluster(cfg, s, keys, kn)
+        words = K1.tick_blocks(keys, s.tick + 1, n_ticks, total,
+                               prng.partitionable())
+        for i in range(n_ticks):
+            s = step.step_cluster(cfg, s, keys, kn, words=words[i])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     for fn, c in counts.items():
         fn.launches = c
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+               if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_dev_us, reverse=True)[:5]
     return {
         "phase": "profile", "ticks": n_ticks, "clusters": int(s.tick.shape[0]),
         "wall_ms_per_tick": wall_ms / n_ticks,
@@ -383,7 +470,7 @@ def _profile_ticks(s, keys, kn, n_ticks: int) -> dict:
         "device_busy_share": busy_ms / wall_ms if kernels else None,
         "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
         "top_device_ms_per_tick": {
-            e.key[:60]: dev_us(e) / 1e3 / n_ticks for e in top},
+            e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in top},
     }
 
 

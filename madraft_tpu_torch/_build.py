@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` into ``build/torch_kernels/lib<name>-<hash>.so`` at first use; the
 library is loaded with ``ctypes``. The file name carries a hash of the
-source, so an edited kernel never loads a stale build. ``build_all`` starts
+source and of the shared ``csrc/*.cuh`` headers, so an edited kernel never
+loads a stale build. ``build_all`` starts
 one ``nvcc`` per source at once, which is how ``chip_smoke.py`` builds.
 """
 
@@ -39,8 +40,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include one
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list:

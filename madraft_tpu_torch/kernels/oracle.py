@@ -3,14 +3,17 @@
 Replaces the oracle block of the JAX reference's tick,
 ``madraft_tpu/tpusim/step.py`` ``step_cluster`` lines 961-1081 (metrics
 off): election safety (two live leaders in one term), log matching over the
-``[n, n, cap]`` ring overlap, the commit-durability shadow walk, and the
-prefix-hash checks. Source: ``csrc/oracle.cu``.
+``[n, n, cap]`` ring overlap, the commit-durability shadow walk, the
+prefix-hash checks, and the block's tail: ``violations |= viol``,
+``first_violation_tick`` and ``first_leader_tick``. Source:
+``csrc/oracle.cu``.
 
-Inputs are the state after commit advance plus the pre-tick shadow; outputs
-are the tick's violation bits (1, 2, 4, 512) and the new shadow. ``base``
-cannot change between the reference's ``abs_arr`` (step.py:584) and its
-oracle (compaction runs after), so the lane indices are rebuilt from
-``base`` here.
+Inputs are the state after commit advance, the pre-tick shadow, the
+pre-tick violation record and the tick ``t``; outputs are the tick's
+violation bits (1, 2, 4, 512), the new shadow and the new violation record.
+``base`` cannot change between the reference's ``abs_arr`` (step.py:584)
+and its oracle (compaction runs after), so the lane indices are rebuilt
+from ``base`` here.
 
 On a CPU tensor ``oracle`` runs ``oracle_plain``; on a CUDA tensor it
 launches the kernel or raises. ``oracle.launches`` counts launches.
@@ -31,12 +34,13 @@ VIOLATION_COMMIT_SHADOW = 4
 VIOLATION_PREFIX_DIVERGE = 512
 BIG = 1 << 30  # sentinel above any absolute log index
 MAX_NODES = 16
-MAX_CAP = 1024
+MAX_CAP = 256  # the kernel gives each ring lane one thread of a 256-thread block
 
 FIELDS_IN = (
     "alive", "role", "term", "log_term", "log_val", "log_len", "base",
     "commit", "prefix_hash", "shadow_term", "shadow_val", "shadow_base",
-    "shadow_len", "shadow_prefix_hash",
+    "shadow_len", "shadow_prefix_hash", "violations",
+    "first_violation_tick", "first_leader_tick", "t",
 )
 
 
@@ -66,11 +70,13 @@ def xor_reduce(x: torch.Tensor) -> torch.Tensor:
 
 def oracle_plain(alive, role, term, log_term, log_val, log_len, base, commit,
                  prefix_hash, shadow_term, shadow_val, shadow_base,
-                 shadow_len, shadow_prefix_hash):
+                 shadow_len, shadow_prefix_hash, violations,
+                 first_violation_tick, first_leader_tick, t):
     """The reference's oracle block on a batch. Shapes: per-node [B, n],
-    logs [B, n, cap], shadow [B, cap], shadow scalars [B]. Returns
-    (viol [B], shadow_term, shadow_val, shadow_base, shadow_len,
-    shadow_prefix_hash)."""
+    logs [B, n, cap], shadow [B, cap], scalars [B] (``t`` is the tick).
+    Returns (viol [B], shadow_term, shadow_val, shadow_base, shadow_len,
+    shadow_prefix_hash, violations, first_violation_tick,
+    first_leader_tick)."""
     n, cap = log_term.shape[-2], log_term.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=alive.device)
     zero = torch.zeros_like(shadow_base)
@@ -123,65 +129,79 @@ def oracle_plain(alive, role, term, log_term, log_val, log_len, base, commit,
                  & (prefix_hash != shadow_prefix_hash[:, None]))
     viol = viol | torch.where(
         vs_shadow.any(-1), VIOLATION_PREFIX_DIVERGE, zero)
-    return viol, st, sv, new_base, sl, new_hash
+    # the block's tail: the run's violation record
+    first_violation_tick = torch.where(
+        (first_violation_tick < 0) & (viol != 0), t, first_violation_tick)
+    first_leader_tick = torch.where(
+        (first_leader_tick < 0) & is_lead.any(-1), t, first_leader_tick)
+    return (viol, st, sv, new_base, sl, new_hash, violations | viol,
+            first_violation_tick, first_leader_tick)
 
 
 def _lib():
     lib = _build.library("oracle")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.oracle_launch.argtypes = [p] * 14 + [p] * 6 + [i, i, i, p]
+        lib.oracle_launch.argtypes = [p] * 18 + [p] * 9 + [i, i, i, p]
         lib.oracle_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
+def _want(b: int, n: int, cap: int) -> dict:
+    """(shape, dtype) of each input, by name."""
+    want = {"alive": ((b, n), torch.bool),
+            "log_term": ((b, n, cap), torch.int32),
+            "log_val": ((b, n, cap), torch.int32),
+            "shadow_term": ((b, cap), torch.int32),
+            "shadow_val": ((b, cap), torch.int32)}
+    for name in ("role", "term", "log_len", "base", "commit", "prefix_hash"):
+        want[name] = ((b, n), torch.int32)
+    for name in FIELDS_IN[11:]:
+        want[name] = ((b,), torch.int32)
+    return want
+
+
+_WANT: dict = {}
+
+
 def oracle(alive, role, term, log_term, log_val, log_len, base, commit,
            prefix_hash, shadow_term, shadow_val, shadow_base, shadow_len,
-           shadow_prefix_hash):
+           shadow_prefix_hash, violations, first_violation_tick,
+           first_leader_tick, t):
     """The oracle block: plain version on the CPU, kernel K2 on CUDA."""
     args = (alive, role, term, log_term, log_val, log_len, base, commit,
             prefix_hash, shadow_term, shadow_val, shadow_base, shadow_len,
-            shadow_prefix_hash)
+            shadow_prefix_hash, violations, first_violation_tick,
+            first_leader_tick, t)
     if alive.device.type == "cpu":
         return oracle_plain(*args)
     b, n, cap = log_term.shape
-    want = {
-        "alive": ((b, n), torch.bool), "log_term": ((b, n, cap), torch.int32),
-        "log_val": ((b, n, cap), torch.int32),
-        "shadow_term": ((b, cap), torch.int32),
-        "shadow_val": ((b, cap), torch.int32),
-    }
-    for name in ("role", "term", "log_len", "base", "commit", "prefix_hash"):
-        want[name] = ((b, n), torch.int32)
-    for name in ("shadow_base", "shadow_len", "shadow_prefix_hash"):
-        want[name] = ((b,), torch.int32)
-    for name, x in zip(FIELDS_IN, args):
-        shape, dtype = want[name]
-        if x.device.type != "cuda":
-            raise ValueError(f"oracle: {name} on {x.device}, expected CUDA")
-        if tuple(x.shape) != shape or x.dtype != dtype:
+    key = (b, n, cap)
+    if key not in _WANT:
+        if n > MAX_NODES or cap > MAX_CAP:
             raise ValueError(
-                f"oracle: {name} is {tuple(x.shape)} {x.dtype}, expected "
-                f"{shape} {dtype}")
-    if n > MAX_NODES or cap > MAX_CAP:
-        raise ValueError(
-            f"oracle kernel takes n <= {MAX_NODES} and cap <= {MAX_CAP}, "
-            f"got n={n} cap={cap}")
-    ins = [x.contiguous() for x in args]
+                f"oracle kernel takes n <= {MAX_NODES} and cap <= {MAX_CAP}, "
+                f"got n={n} cap={cap}")
+        _WANT[key] = tuple(_want(b, n, cap)[f] for f in FIELDS_IN)
     dev = alive.device
-    viol = torch.empty((b,), dtype=torch.int32, device=dev)
-    st = torch.empty((b, cap), dtype=torch.int32, device=dev)
-    sv = torch.empty_like(st)
-    sb = torch.empty_like(viol)
-    sl = torch.empty_like(viol)
-    sh = torch.empty_like(viol)
-    outs = (viol, st, sv, sb, sl, sh)
+    for name, x, (shape, dtype) in zip(FIELDS_IN, args, _WANT[key]):
+        if x.device != dev or x.shape != shape or x.dtype != dtype:
+            raise ValueError(
+                f"oracle: {name} is {tuple(x.shape)} {x.dtype} on {x.device},"
+                f" expected {shape} {dtype} on {dev}")
+    ins = [x if x.is_contiguous() else x.contiguous() for x in args]
+    # the nine outputs are views of one allocation: st, sv, then seven [B]
+    out = torch.empty((2 * b * cap + 7 * b,), dtype=torch.int32, device=dev)
+    st = out[:b * cap].view(b, cap)
+    sv = out[b * cap:2 * b * cap].view(b, cap)
+    viol, sb, sl, sh, vio, fvt, flt = out[2 * b * cap:].view(7, b).unbind(0)
+    outs = (viol, st, sv, sb, sl, sh, vio, fvt, flt)
     if b:
-        stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(_lib().oracle_launch(
             *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs),
-            b, n, cap, stream), "oracle_launch")
+            b, n, cap, torch.cuda.current_stream(dev).cuda_stream),
+            "oracle_launch")
         oracle.launches += 1
     return outs
 

@@ -10,13 +10,16 @@ Two entries, each with its plain PyTorch version beside it:
 
 - ``hash_pairs(keys, x0, x1)`` hashes counter pairs under per-row keys; the
   ``prng`` module builds ``fold_in``, ``split`` and ``bits`` on it.
-- ``tick_block(keys, t, total, partitionable)`` derives each cluster's tick
-  key and writes its whole ``[B, total]`` draw block in one launch.
+- ``tick_blocks(keys, t0, n_ticks, total, partitionable)`` derives each
+  cluster's key at ticks ``t0[b] .. t0[b] + n_ticks - 1`` and writes the
+  whole ``[n_ticks, B, total]`` chunk of draw words in one launch.
+  ``tick_block`` is its one-tick case.
 
 Words travel as int64 holding an unsigned 32-bit value (masked with
 ``0xFFFFFFFF``): the CPU's UInt32 tensors lack add, shifts and compares, and
 the step code then reads the same int64 words on both devices. The kernels
-compute in ``uint32``, store int32, and the wrappers widen.
+compute in ``uint32``. ``tick_blocks`` reads the int64 keys and writes the
+int64 words itself; ``hash_pairs`` goes through int32 copies.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its launches in its
@@ -90,14 +93,25 @@ def words_from_pairs(y0, y1, total: int, partitionable: bool):
     return torch.cat([y0, y1], dim=-1)[..., :total]
 
 
+def tick_blocks_plain(keys, t0, n_ticks: int, total: int, partitionable: bool):
+    """keys [B, 2] cluster keys, t0 [B] first ticks -> [n_ticks, B, total]
+    draw words; row (i, b) is fold_in(fold_in(keys[b], t0[b] + i), 0)'s
+    block (ticks wrap as u32, as JAX's int32 ticks do)."""
+    b = keys.shape[0]
+    i = torch.arange(n_ticks, dtype=torch.int64, device=keys.device)
+    t = (t0.to(torch.int64)[None, :] + i[:, None]) & MASK  # [n_ticks, B]
+    k = _fold_in_plain(keys.expand(n_ticks, b, 2).reshape(-1, 2), t.reshape(-1))
+    k = _fold_in_plain(k, torch.zeros_like(t.reshape(-1)))
+    x0, x1 = block_counters(total, partitionable, keys.device)
+    y0, y1 = hash_pairs_plain(k, x0, x1)
+    return words_from_pairs(y0, y1, total, partitionable).reshape(
+        n_ticks, b, total)
+
+
 def tick_block_plain(keys, t, total: int, partitionable: bool):
     """keys [B, 2] cluster keys, t [B] ticks -> [B, total] draw words of
     fold_in(fold_in(key, t), 0)."""
-    k = _fold_in_plain(keys, t.to(torch.int64) & MASK)
-    k = _fold_in_plain(k, torch.zeros_like(t, dtype=torch.int64))
-    x0, x1 = block_counters(total, partitionable, keys.device)
-    y0, y1 = hash_pairs_plain(k, x0, x1)
-    return words_from_pairs(y0, y1, total, partitionable)
+    return tick_blocks_plain(keys, t, 1, total, partitionable)[0]
 
 
 # ------------------------------------------------------------------ kernels
@@ -107,8 +121,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.threefry_hash_pairs.argtypes = [p, p, p, p, p, i, i, p]
         lib.threefry_hash_pairs.restype = ctypes.c_int
-        lib.threefry_tick_block.argtypes = [p, p, p, i, i, i, p]
-        lib.threefry_tick_block.restype = ctypes.c_int
+        lib.threefry_tick_blocks.argtypes = [p, p, p, i, i, i, i, p]
+        lib.threefry_tick_blocks.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -155,27 +169,39 @@ def hash_pairs(keys, x0, x1):
 hash_pairs.launches = 0
 
 
-def tick_block(keys, t, total: int, partitionable: bool):
-    """keys [B, 2] cluster keys (int64-held u32), t [B] int ticks -> the
-    [B, total] int64-held draw words of the tick, in one launch."""
+def tick_blocks(keys, t0, n_ticks: int, total: int, partitionable: bool):
+    """keys [B, 2] cluster keys (int64-held u32), t0 [B] int32 first ticks
+    -> the [n_ticks, B, total] int64-held draw words of ticks
+    t0 .. t0 + n_ticks - 1, in one launch."""
     if keys.device.type == "cpu":
-        return tick_block_plain(keys, t, total, partitionable)
-    _check_cuda(keys, t)
+        return tick_blocks_plain(keys, t0, n_ticks, total, partitionable)
+    _check_cuda(keys, t0)
     b = keys.shape[0]
-    if keys.shape != (b, 2) or t.shape != (b,):
+    if (keys.shape != (b, 2) or keys.dtype != torch.int64
+            or t0.shape != (b,) or t0.dtype != torch.int32):
         raise ValueError(
-            f"tick_block wants keys [B, 2] and t [B], got "
-            f"{tuple(keys.shape)} and {tuple(t.shape)}")
-    k = _as_i32(keys)
-    tt = _as_i32(t)
-    out = torch.empty((b, total), dtype=torch.int32, device=keys.device)
+            f"tick_blocks wants keys [B, 2] int64 and t0 [B] int32, got "
+            f"{tuple(keys.shape)} {keys.dtype} and {tuple(t0.shape)} {t0.dtype}")
+    if n_ticks < 1 or total < 1:
+        raise ValueError(f"tick_blocks: bad n_ticks={n_ticks} total={total}")
+    keys = keys if keys.is_contiguous() else keys.contiguous()
+    t0 = t0 if t0.is_contiguous() else t0.contiguous()
+    out = torch.empty((n_ticks, b, total), dtype=torch.int64, device=keys.device)
     if b:
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        _build.check(_lib().threefry_tick_block(
-            k.data_ptr(), tt.data_ptr(), out.data_ptr(), b, total,
-            int(bool(partitionable)), stream), "threefry_tick_block")
-        tick_block.launches += 1
-    return _widen(out)
+        _build.check(_lib().threefry_tick_blocks(
+            keys.data_ptr(), t0.data_ptr(), out.data_ptr(), b, n_ticks, total,
+            int(bool(partitionable)),
+            torch.cuda.current_stream(keys.device).cuda_stream),
+            "threefry_tick_blocks")
+        tick_blocks.launches += 1
+    return out
 
 
-tick_block.launches = 0
+tick_blocks.launches = 0
+
+
+def tick_block(keys, t, total: int, partitionable: bool):
+    """keys [B, 2] cluster keys (int64-held u32), t [B] int32 ticks -> the
+    [B, total] int64-held draw words of the tick: ``tick_blocks`` of one
+    tick (its launches count there)."""
+    return tick_blocks(keys, t, 1, total, partitionable)[0]

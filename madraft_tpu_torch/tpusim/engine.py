@@ -16,10 +16,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from madraft_tpu_torch.kernels import threefry
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim.config import Knobs, SimConfig
 from madraft_tpu_torch.tpusim.state import ClusterState, init_cluster, tree_bytes
-from madraft_tpu_torch.tpusim.step import step_cluster
+from madraft_tpu_torch.tpusim.step import _block_total, step_cluster
+
+# Ticks whose draw words one tick_blocks launch makes ahead. A chunk holds
+# DRAW_CHUNK x B x _block_total(n) int64 words: 139 MB at 32 x 4096 x 133.
+DRAW_CHUNK = 32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,9 +88,16 @@ def report(final: ClusterState) -> FuzzReport:
 
 
 def _run(cfg: SimConfig, keys: torch.Tensor, kn: Knobs, n_ticks: int):
+    """init, then n_ticks ticks; the draw words come a chunk of
+    DRAW_CHUNK ticks at a time."""
     state = init_cluster(cfg, keys, kn)
-    for _ in range(n_ticks):
-        state = step_cluster(cfg, state, keys, kn)
+    total = _block_total(cfg.n_nodes)
+    for done in range(0, n_ticks, DRAW_CHUNK):
+        m = min(DRAW_CHUNK, n_ticks - done)
+        words = threefry.tick_blocks(keys, state.tick + 1, m, total,
+                                     prng.partitionable())
+        for i in range(m):
+            state = step_cluster(cfg, state, keys, kn, words=words[i])
     return state
 
 

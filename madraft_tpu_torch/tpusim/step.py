@@ -12,9 +12,11 @@ cluster axis first: a ``[n]`` array there is ``[B, n]`` here, ``[n, n]`` is
 ``[B, n, n]``, a transpose ``.T`` swaps the last two axes, and a per-cluster
 scalar is ``[B]`` (``[:, None]`` / ``[:, None, None]`` to meet node axes).
 
-Two kernels carry the tick on the card: ``kernels.threefry.tick_block``
-draws the tick's words and ``kernels.oracle.oracle`` runs the safety
-oracle. Everything else is plain PyTorch for now.
+Two kernels carry the tick on the card: ``kernels.threefry.tick_blocks``
+draws the words (the engine draws a chunk of ticks at once and hands each
+tick its ``[B, total]`` slice; a tick called alone draws its own) and
+``kernels.oracle.oracle`` runs the safety oracle with its tail. Everything
+else is plain PyTorch for now.
 """
 
 from __future__ import annotations
@@ -139,11 +141,14 @@ def _first_true(mask, me):
 
 
 def step_cluster(
-    cfg: SimConfig, s: ClusterState, cluster_keys: torch.Tensor, kn=None
+    cfg: SimConfig, s: ClusterState, cluster_keys: torch.Tensor, kn=None,
+    words=None,
 ) -> ClusterState:
     """One tick of every cluster in the batch. ``cluster_keys`` [B, 2] are
     the per-cluster PRNG keys (``engine.cluster_keys``); ``kn`` the knobs
-    (from ``cfg`` when omitted)."""
+    (from ``cfg`` when omitted); ``words`` the tick's ``[B, total]`` draw
+    words when drawn ahead (``kernels.threefry.tick_blocks`` at ``s.tick +
+    1``), else the tick draws them itself."""
     if cfg.metrics:
         raise NotImplementedError(
             "the metrics plane is not ported yet (ROADMAP A7)")
@@ -153,8 +158,13 @@ def step_cluster(
     n, cap, ae_max = cfg.n_nodes, cfg.log_cap, cfg.ae_max
     t = s.tick + 1  # [B]
     t1, t2 = t[:, None], t[:, None, None]
-    blk = _DrawBlock(threefry.tick_block(
-        cluster_keys, t, _block_total(n), prng.partitionable()))
+    total = _block_total(n)
+    if words is None:
+        words = threefry.tick_block(cluster_keys, t, total, prng.partitionable())
+    elif words.shape != (t.shape[0], total):
+        raise ValueError(
+            f"words must be [B, {total}], got {tuple(words.shape)}")
+    blk = _DrawBlock(words)
     me = torch.arange(n, dtype=I32, device=dev)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     lane = torch.arange(cap, dtype=I32, device=dev)
@@ -604,18 +614,12 @@ def step_cluster(
     commit = torch.where(lead & cur_term_ok, torch.maximum(commit, kth), commit)
 
     # ------------------------------------------------------------------- oracle
-    viol, shadow_term, shadow_val, shadow_base, shadow_len, shadow_prefix_hash = \
-        oracle(alive, role, term, log_term, log_val, log_len, base, commit,
-               prefix_hash, s.shadow_term, s.shadow_val, s.shadow_base,
-               s.shadow_len, s.shadow_prefix_hash)
-    is_lead = alive & (role == LEADER)
-    violations = s.violations | viol
-    first_violation_tick = torch.where(
-        (s.first_violation_tick < 0) & (viol != 0), t, s.first_violation_tick
-    )
-    first_leader_tick = torch.where(
-        (s.first_leader_tick < 0) & is_lead.any(-1), t, s.first_leader_tick
-    )
+    (_, shadow_term, shadow_val, shadow_base, shadow_len, shadow_prefix_hash,
+     violations, first_violation_tick, first_leader_tick) = oracle(
+        alive, role, term, log_term, log_val, log_len, base, commit,
+        prefix_hash, s.shadow_term, s.shadow_val, s.shadow_base,
+        s.shadow_len, s.shadow_prefix_hash, s.violations,
+        s.first_violation_tick, s.first_leader_tick, t)
 
     # -------------------------------------------------------------- compaction
     boundary = torch.where(

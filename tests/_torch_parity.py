@@ -22,6 +22,7 @@ from madraft_tpu.tpusim.config import storm_profiles as jax_profiles
 from madraft_tpu.tpusim.state import ClusterState as JaxState
 from madraft_tpu.tpusim.state import init_cluster as jax_init
 from madraft_tpu.tpusim.step import step_cluster as jax_step_one
+from madraft_tpu_torch.kernels import threefry
 from madraft_tpu_torch.tpusim import engine as pengine
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim import state as pstate
@@ -104,18 +105,27 @@ class Pair:
         self.js = jax_to_device(h)
         self.ps = pstate.state_from_numpy(h)
 
-    def step(self):
+    def step(self, words=None):
         self.js = self._jstep(self.js, self.jkeys, self.jkn)
-        self.ps = pstep.step_cluster(self.pcfg, self.ps, self.pkeys, self.pkn)
+        self.ps = pstep.step_cluster(self.pcfg, self.ps, self.pkeys, self.pkn,
+                                     words=words)
         self.tick += 1
 
-    def run(self, n_ticks: int):
+    def run(self, n_ticks: int, chunk: int = 0):
         """Step both sides, comparing every leaf at every tick; returns the
-        first divergence (tick, leaf, clusters) or None."""
+        first divergence (tick, leaf, clusters) or None. With ``chunk`` the
+        port's draw words come ``chunk`` ticks at a time from one
+        ``tick_blocks`` call, as the engine draws them."""
+        total = pstep._block_total(self.pcfg.n_nodes)
         d = self.divergence()
-        for _ in range(n_ticks):
-            if d is not None:
-                return d
-            self.step()
-            d = self.divergence()
+        for done in range(0, n_ticks, chunk or 1):
+            m = min(chunk, n_ticks - done) if chunk else 1
+            words = threefry.tick_blocks(
+                self.pkeys, self.ps.tick + 1, m, total,
+                prng.partitionable()) if chunk else [None]
+            for i in range(m):
+                if d is not None:
+                    return d
+                self.step(words[i])
+                d = self.divergence()
         return d

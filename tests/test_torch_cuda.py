@@ -36,10 +36,40 @@ def test_tick_block_kernel_equals_plain(dev, n_nodes, partitionable):
     total = step._block_total(n_nodes)
     for t in (1, 300, 2**20 + 1, 2**31 - 1):
         tt = torch.full((1024,), t, dtype=torch.int32, device=dev)
-        before = K1.tick_block.launches
+        before = K1.tick_blocks.launches
         got = K1.tick_block(keys, tt, total, partitionable)
-        assert K1.tick_block.launches == before + 1
+        assert K1.tick_blocks.launches == before + 1
         assert torch.equal(got, K1.tick_block_plain(keys, tt, total, partitionable))
+
+
+@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("n_nodes", [5, 7])
+def test_tick_blocks_kernel_equals_plain(dev, n_nodes, partitionable):
+    # per-cluster first ticks, a chunk crossing 2^31, and a row count that
+    # leaves the last warp tile short
+    b, n_ticks = 1000, 9
+    keys = _keys(b).to(dev)
+    total = step._block_total(n_nodes)
+    t0 = torch.tensor([1, 300, 2**20 + 1, 2**31 - 4], dtype=torch.int32)
+    t0 = t0.repeat(b // 4).to(dev)
+    before = K1.tick_blocks.launches
+    got = K1.tick_blocks(keys, t0, n_ticks, total, partitionable)
+    assert K1.tick_blocks.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (n_ticks, b, total)
+    assert torch.equal(got, K1.tick_blocks_plain(keys, t0, n_ticks, total,
+                                                 partitionable))
+
+
+def test_kernel_wrappers_raise_on_what_they_do_not_take(dev):
+    keys = _keys(8).to(dev)
+    with pytest.raises(ValueError):
+        K1.tick_blocks(keys, torch.ones(8, dtype=torch.int64, device=dev), 2,
+                       133, True)
+    s = _storm_state(dev, 8, 0)
+    args = list(_oracle_args(s))
+    args[3] = args[3][:, :, :32]
+    with pytest.raises(ValueError):
+        K2.oracle(*args)
 
 
 def test_hash_pairs_kernel_equals_plain(dev):
@@ -50,27 +80,70 @@ def test_hash_pairs_kernel_equals_plain(dev):
         assert torch.equal(a, b)
 
 
-def test_oracle_kernel_equals_plain_on_a_storm_state(dev):
-    cfg = config.storm_profiles()["storm"][0]
-    keys = engine.cluster_keys(3, 256, dev)
+def _storm_state(dev, n_clusters, ticks, n_nodes=5):
+    cfg = config.storm_profiles()["storm"][0].replace(n_nodes=n_nodes)
+    keys = engine.cluster_keys(3, n_clusters, dev)
     kn = cfg.knobs(dev)
     s = state.init_cluster(cfg, keys, kn)
-    for _ in range(120):
+    for _ in range(ticks):
         s = step.step_cluster(cfg, s, keys, kn)
-    args = (s.alive, s.role, s.term, s.log_term, s.log_val, s.log_len, s.base,
+    return s
+
+
+def _oracle_args(s):
+    return (s.alive, s.role, s.term, s.log_term, s.log_val, s.log_len, s.base,
             s.commit, s.prefix_hash, s.shadow_term, s.shadow_val,
-            s.shadow_base, s.shadow_len, s.shadow_prefix_hash)
-    for a, b in zip(K2.oracle(*args), K2.oracle_plain(*args)):
+            s.shadow_base, s.shadow_len, s.shadow_prefix_hash, s.violations,
+            s.first_violation_tick, s.first_leader_tick, s.tick + 1)
+
+
+@pytest.mark.parametrize("n_clusters,n_nodes", [
+    (256, 5), (1001, 5), (256, 3), (256, 7), (256, 4), (256, 9)])
+def test_oracle_kernel_equals_plain_on_a_storm_state(dev, n_clusters, n_nodes):
+    # 1001 clusters leave the last group of the kernel short; the kernel is
+    # compiled for 3, 5 and 7 nodes exactly and for other counts up to 8
+    # and 16 with the count read at run time
+    args = _oracle_args(_storm_state(dev, n_clusters, 120, n_nodes))
+    got, want = K2.oracle(*args), K2.oracle_plain(*args)
+    assert len(got) == len(want) == 9
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_oracle_kernel_flags_planted_violations(dev):
+    # one divergence per cluster: each kernel output equals the plain one
+    # and the planted bits fire, with the tick recorded
+    s = _storm_state(dev, 64, 150)
+    h = state.state_to_numpy(s)
+    cap = h["log_term"].shape[-1]
+    h["alive"][:] = True
+    h["violations"][:] = 0
+    h["first_violation_tick"][:] = -1
+    h["role"][0, :2] = 2
+    h["term"][0, 1] = h["term"][0, 0]
+    h["base"][1, :2] = max(int(h["base"][1, 0]), 1)
+    h["prefix_hash"][1, 1] = h["prefix_hash"][1, 0] ^ 1
+    c = next(c for c in range(2, 64) if h["log_len"][c, 0] > h["base"][c, 0])
+    for f in ("log_term", "log_val", "log_len", "base"):
+        h[f][c, 1] = h[f][c, 0]
+    h["log_val"][c, 1, (int(h["log_len"][c, 0]) - 1) % cap] ^= 0x5A5A
+    args = _oracle_args(state.state_from_numpy(h, dev))
+    got, want = K2.oracle(*args), K2.oracle_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    viol, fvt = got[0].cpu(), got[7].cpu()
+    assert viol[0] & 1 and viol[1] & 512 and viol[c] & 2
+    assert (fvt[[0, 1, c]] == int(h["tick"][0]) + 1).all()
 
 
 def test_fuzz_on_the_card_equals_the_cpu(dev):
     cfg = config.storm_profiles()["durability"][0].replace(bug="ack_before_fsync")
     with prng.layout(True):
-        before = (K1.tick_block.launches, K2.oracle.launches)
+        before = (K1.tick_blocks.launches, K2.oracle.launches)
         gpu = engine.fuzz(cfg, 5, 32, 120, device=dev)
-        assert (K1.tick_block.launches - before[0],
-                K2.oracle.launches - before[1]) == (120, 120)
+        chunks = -(-120 // engine.DRAW_CHUNK)
+        assert (K1.tick_blocks.launches - before[0],
+                K2.oracle.launches - before[1]) == (chunks, 120)
         cpu = engine.fuzz(cfg, 5, 32, 120, device="cpu")
     for f in ("violations", "first_violation_tick", "first_leader_tick",
               "committed", "msg_count", "snap_installs"):

@@ -63,12 +63,13 @@ def test_kernel_wrappers_refuse_non_cuda_inputs_only_by_device():
     # a CPU tensor takes the plain version and counts no launch
     from madraft_tpu_torch.kernels import oracle, threefry
 
-    before = (threefry.hash_pairs.launches, threefry.tick_block.launches,
+    before = (threefry.hash_pairs.launches, threefry.tick_blocks.launches,
               oracle.oracle.launches)
     keys = torch.zeros((2, 2), dtype=torch.int64)
     threefry.hash_pairs(keys, torch.zeros(3, dtype=torch.int64),
                         torch.arange(3, dtype=torch.int64))
     threefry.tick_block(keys, torch.ones(2, dtype=torch.int32), 133, True)
-    after = (threefry.hash_pairs.launches, threefry.tick_block.launches,
+    threefry.tick_blocks(keys, torch.ones(2, dtype=torch.int32), 3, 133, True)
+    after = (threefry.hash_pairs.launches, threefry.tick_blocks.launches,
              oracle.oracle.launches)
     assert after == before

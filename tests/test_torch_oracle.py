@@ -16,6 +16,7 @@ import torch
 from _torch_parity import Pair, configs, jax_host, single_thread, threefry_layout
 from madraft_tpu_torch.kernels import oracle as oracle_k
 from madraft_tpu_torch.tpusim import state as pstate
+from madraft_tpu_torch.tpusim import step as pstep
 
 N_CLUSTERS = 16
 
@@ -106,13 +107,76 @@ def test_planted_divergences_match_reference(seed):
 
 def test_oracle_plain_is_the_step_oracle():
     # the oracle's own inputs/outputs on a real state: the plain version
-    # leaves a clean state clean and only grows the shadow
+    # leaves a clean state clean, only grows the shadow, and carries the
+    # violation record through
     with threefry_layout(True):
         pair, h = _quiet_pair(4)
     s = pstate.state_from_numpy(h)
-    viol, st, sv, sb, sl, sh = oracle_k.oracle(
+    t = s.tick + 1
+    viol, st, sv, sb, sl, sh, vio, fvt, flt = oracle_k.oracle(
         s.alive, s.role, s.term, s.log_term, s.log_val, s.log_len, s.base,
         s.commit, s.prefix_hash, s.shadow_term, s.shadow_val, s.shadow_base,
-        s.shadow_len, s.shadow_prefix_hash)
+        s.shadow_len, s.shadow_prefix_hash, s.violations,
+        s.first_violation_tick, s.first_leader_tick, t)
     assert viol.dtype == torch.int32 and (viol == 0).all()
     assert (sl >= s.shadow_len).all() and (sb >= s.shadow_base).all()
+    assert torch.equal(vio, s.violations)
+    assert torch.equal(fvt, s.first_violation_tick)
+    has_leader = (s.alive & (s.role == oracle_k.LEADER)).any(-1)
+    assert torch.equal(flt, torch.where(
+        (s.first_leader_tick < 0) & has_leader, t, s.first_leader_tick))
+
+
+class _Recorder:
+    """Stands in for the step's oracle and keeps each call's outputs."""
+
+    def __init__(self):
+        self.outs = []
+
+    def __call__(self, *args):
+        out = oracle_k.oracle(*args)
+        self.outs.append(out)
+        return out
+
+
+def _assert_tail_is_reference(rec, pair):
+    # the oracle's record outputs are the reference's next-state leaves
+    # (nothing after the oracle block touches them)
+    h = jax_host(pair.js)
+    vio, fvt, flt = rec.outs[-1][6:]
+    assert np.array_equal(vio.numpy(), h["violations"])
+    assert np.array_equal(fvt.numpy(), h["first_violation_tick"])
+    assert np.array_equal(flt.numpy(), h["first_leader_tick"])
+
+
+def test_oracle_tail_matches_reference_on_a_storm_run(monkeypatch):
+    # every tick of a run from init: leaders get elected on the way, and
+    # the planted quorum bug makes violations fire
+    rec = _Recorder()
+    monkeypatch.setattr(pstep, "oracle", rec)
+    with threefry_layout(True):
+        pair = Pair(*configs("storm", majority_override=2), seed=6,
+                    n_clusters=N_CLUSTERS)
+        for _ in range(90):
+            pair.step()
+            _assert_tail_is_reference(rec, pair)
+    h = jax_host(pair.js)
+    assert (h["first_leader_tick"] > 0).any()
+    assert (h["violations"] != 0).any() and (h["first_violation_tick"] > 0).any()
+
+
+@pytest.mark.parametrize("seed", [2, 9])
+def test_oracle_tail_matches_reference_on_planted_states(seed, monkeypatch):
+    rec = _Recorder()
+    monkeypatch.setattr(pstep, "oracle", rec)
+    with threefry_layout(True):
+        pair, h = _quiet_pair(seed)
+        want = _plant(h)
+        h["first_leader_tick"][::2] = -1  # some clusters see their first leader
+        pair.set_state(h)
+        pair.step()
+    _assert_tail_is_reference(rec, pair)
+    t = int(h["tick"][0]) + 1
+    fvt, flt = rec.outs[-1][7].numpy(), rec.outs[-1][8].numpy()
+    assert all(fvt[c] == t for c in want)  # the planted clusters fire now
+    assert (flt[::2] == t).any()

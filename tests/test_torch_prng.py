@@ -102,13 +102,35 @@ def test_tick_block_matches_draw_block(n_nodes, partitionable):
         want = np.asarray(jax.vmap(lambda k, t: _DrawBlock(
             jax.random.fold_in(jax.random.fold_in(k, t), 0), total).bits)(
                 jnp.asarray(keys), jnp.asarray(ticks))).astype(np.int64)
-        before = threefry.tick_block.launches
+        before = threefry.tick_blocks.launches
         got = threefry.tick_block(_port(keys), torch.from_numpy(ticks),
                                   total, prng.partitionable())
     assert got.shape == (len(ticks), total)
     assert np.array_equal(got.numpy(), want)
     # a CPU tensor runs the plain version and launches nothing
-    assert threefry.tick_block.launches == before
+    assert threefry.tick_blocks.launches == before
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("n_nodes", [5, 7])
+def test_tick_blocks_match_draw_block_every_tick(n_nodes, partitionable):
+    # a chunk of n_ticks ticks per cluster, each cluster from its own first
+    # tick; the last cluster's chunk crosses 2^31 (ticks wrap as u32)
+    keys = _keys()
+    total, n_ticks = _block_total(n_nodes), 5
+    t0 = np.array([1, 2, 300, 2**20, 2**31 - 3, 2**31 - 1], np.int64)
+    ticks = ((t0[None, :] + np.arange(n_ticks)[:, None]) % 2**32).astype(np.uint32)
+    with threefry_layout(partitionable):
+        want = np.asarray(jax.vmap(lambda k, t: jax.random.bits(
+            jax.random.fold_in(jax.random.fold_in(k, t), 0), (total,)))(
+                jnp.asarray(np.tile(keys, (n_ticks, 1))),
+                jnp.asarray(ticks.reshape(-1)))).astype(np.int64)
+        before = threefry.tick_blocks.launches
+        got = threefry.tick_blocks(_port(keys), torch.from_numpy(t0.astype(np.int32)),
+                                   n_ticks, total, prng.partitionable())
+    assert got.shape == (n_ticks, len(t0), total) and got.dtype == torch.int64
+    assert np.array_equal(got.reshape(-1, total).numpy(), want)
+    assert threefry.tick_blocks.launches == before
 
 
 def test_int32_multiply_wraps():

@@ -5,10 +5,13 @@
 
 Builds the CUDA kernels from ``madraft_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together), holds every kernel against its plain PyTorch
-version (bit-equal), reproduces the golden fuzz legs and the JAX fixture
-legs on the card, drives the flagship run (``fuzz --storm --clusters 4096
---ticks 1024``, twice, through the CLI) and checks that it went through the
-kernels, then times each kernel beside its plain version and its bound:
+version (bit-equal), reproduces the golden fuzz and pool legs and the JAX
+fixture legs on the card, drives the two main paths through the CLI and
+checks that each went through its kernels: the fuzz flagship (``fuzz
+--storm --clusters 4096 --ticks 1024``, twice) and the pool flagship
+(``pool --storm --clusters 4096 --ticks 512 --budget-ticks 1024``, twice),
+replays pool hits through ``replay``, then times each kernel beside its
+plain version and its bound:
 ``ms`` is the kernel's own device time per launch (torch.profiler, matched
 by the CUDA function's name), ``call_ms`` the wrapper's time per call as
 the host issues it back to back (CUDA events).
@@ -29,11 +32,22 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FLAGSHIP = ["fuzz", "--storm", "--clusters", "4096", "--ticks", "1024",
             "--seed", "12345", "--check-deterministic"]
 FLAGSHIP_RUNS = 2  # --check-deterministic runs the program twice
+POOL_FLAGSHIP = ["pool", "--storm", "--clusters", "4096", "--ticks", "512",
+                 "--budget-ticks", "1024", "--seed", "12345"]
+# a small pool whose broken quorum violates across refill generations
+REPLAY_POOL = ["pool", "--storm", "--majority-override", "2", "--clusters",
+               "64", "--ticks", "64", "--chunk-ticks", "32", "--budget-ticks",
+               "192", "--seed", "7", "--emit", "violations"]
+# run-to-run fields of a pool summary and its rows
+WALL = ("wall_s", "steps_per_sec", "effective_steps_per_sec",
+        "violations_per_s", "compile_s", "dispatch_gap_s", "device_wait_s",
+        "host_overlap_s")
 # H100 SXM peaks (published datasheet figures): HBM bytes/s, and the
 # non-tensor-core 32-bit rate (67 TFLOP/s float32), used here for the
 # kernels' 32-bit integer operations
@@ -124,13 +138,28 @@ def nbytes(*tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
-def run_cli(argv):
+def run_cli_lines(argv):
+    """rc and every JSON line the CLI printed (a pool's rows come from its
+    consumer thread; the redirect is process-wide, so they land here)."""
     from madraft_tpu_torch.__main__ import main
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(argv)
-    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+    return rc, [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+
+
+def run_cli(argv):
+    rc, lines = run_cli_lines(argv)
+    return rc, lines[-1]
+
+
+def _flag(argv, name: str) -> int:
+    return int(argv[argv.index(name) + 1])
+
+
+def deterministic(d: dict) -> dict:
+    return {k: v for k, v in d.items() if k not in WALL}
 
 
 def main() -> int:
@@ -141,12 +170,15 @@ def main() -> int:
         return 2
     from madraft_tpu_torch import _build
     from madraft_tpu_torch.kernels import oracle as K2
+    from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.tpusim import config, engine, prng, state, step
 
     dev = torch.device("cuda")
+    kernels = (K1.hash_pairs, K1.tick_blocks, K2.oracle, K3.pack_state,
+               K3.unpack_state)
     errs = {"threefry_hash_pairs": 0.0, "threefry_tick_blocks": 0.0,
-            "oracle": 0.0}
+            "oracle": 0.0, "pack_state": 0.0, "unpack_state": 0.0}
     edges = (1, 2, 1000, 2**20, 2**20 + 7, 2**31 - 1)
 
     # ---- 1. build
@@ -227,17 +259,44 @@ def main() -> int:
     emit({"phase": "k2_vs_plain", "states": ["storm@150", "planted"],
           "clusters": 512, "max_abs_err": errs["oracle"]})
 
+    # ---- 3b. K3 against its plain version (on the CPU, same inputs):
+    # n = 3, 5, 7; fresh clusters, storm@150, and a state at the edges of
+    # the packed bounds; unpack(pack(s)) == s on each
+    states_checked = []
+    for n_nodes in (3, 5, 7):
+        cfg = storm.replace(n_nodes=n_nodes)
+        ck = engine.cluster_keys(7, 256, dev)
+        kn = cfg.knobs(dev)
+        s0 = state.init_cluster(cfg, ck, kn)
+        h150 = state.state_to_numpy(engine._advance(cfg, s0, ck, kn, 150))
+        for label, h in (("init", state.state_to_numpy(s0)),
+                         ("storm@150", h150),
+                         ("edge", state.planted_edge_state(cfg, h150,
+                                                           n_nodes))):
+            _k3_vs_plain(cfg, h, dev, errs, f"n={n_nodes} {label}")
+            states_checked.append(f"n{n_nodes}:{label}")
+    check(errs["pack_state"] == 0 and errs["unpack_state"] == 0,
+          f"K3 differs from its plain version: {errs}")
+    emit({"phase": "k3_vs_plain", "states": states_checked, "clusters": 256,
+          "max_abs_err": max(errs["pack_state"], errs["unpack_state"])})
+
     # ---- 4. golden legs (legacy layout, as recorded)
     golden = json.loads((ROOT / "tests" / "golden_fuzz.json").read_text())
     with prng.layout(False):
-        for leg in ("clean", "bug"):
-            rec = golden[leg]["report"]
+        for leg in ("clean", "bug", "pool"):
+            rec = golden[leg].get("report") or golden[leg]["summary"]
             rc, out = run_cli(golden[leg]["argv"])
             bad = {k: (out.get(k), v) for k, v in rec.items() if out.get(k) != v}
             check(not bad, f"golden {leg} leg differs: {bad}")
-            check(rc == (1 if rec["violating"] else 0), f"golden {leg} rc {rc}")
+            found = rec.get("violating", rec.get("retired_violating"))
+            check(rc == (1 if found else 0), f"golden {leg} rc {rc}")
+            if leg == "pool":
+                check(out["state_layout"] == "packed"
+                      and out["bytes_per_lane"] == 2612.0,
+                      f"golden pool layout {out['state_layout']} "
+                      f"{out['bytes_per_lane']}")
             emit({"phase": f"golden_{leg}", "match": True, "rc": rc,
-                  "violating": out["violating"]})
+                  "violating": found})
 
     # ---- 5. JAX fixture legs (default layout), per-cluster bit-equal
     fixture = json.loads(
@@ -252,9 +311,29 @@ def main() -> int:
                       f"fixture leg {leg}: field {f} differs")
             emit({"phase": f"fixture_{leg}", "match": True,
                   "violating": rep.n_violating})
+    pool_fx = json.loads(
+        (ROOT / "tests" / "torch_fixtures" / "pool_legs.json").read_text())
+    with prng.layout(pool_fx["partitionable"]):
+        for leg, rec in pool_fx["legs"].items():
+            cfg = config.storm_profiles()[rec["profile"]][0].replace(bug=rec["bug"])
+            rows = []
+            out = engine.run_pool(
+                cfg, rec["seed"], pool_fx["lanes"], pool_fx["horizon"],
+                chunk_ticks=pool_fx["chunk_ticks"],
+                budget_ticks=pool_fx["budget_ticks"], devices=rec["devices"],
+                on_retired=rows.append, device=dev)
+            got = [[r[f] for f in pool_fx["row_fields"]] for r in rows]
+            check(got == rec["rows"], f"fixture pool leg {leg}: rows differ")
+            bad = {k: (out.get(k), v) for k, v in rec["summary"].items()
+                   if out.get(k) != v}
+            check(not bad, f"fixture pool leg {leg}: summary differs: {bad}")
+            emit({"phase": f"fixture_pool_{leg}", "match": True,
+                  "retired": out["retired"],
+                  "violating": out["retired_violating"],
+                  "state_layout": out["state_layout"]})
 
     # ---- 6. the flagship, through the CLI, counting kernel launches
-    for fn in (K1.hash_pairs, K1.tick_blocks, K2.oracle):
+    for fn in kernels:
         fn.launches = 0
     prng.set_partitionable(True)
     t0 = time.perf_counter()
@@ -264,8 +343,8 @@ def main() -> int:
     launches = {"threefry_hash_pairs": K1.hash_pairs.launches,
                 "threefry_tick_blocks": K1.tick_blocks.launches,
                 "oracle": K2.oracle.launches}
-    ticks = 1024 * FLAGSHIP_RUNS
-    chunks = -(-1024 // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
+    ticks = _flag(FLAGSHIP, "--ticks") * FLAGSHIP_RUNS
+    chunks = -(-_flag(FLAGSHIP, "--ticks") // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
     check(rc == 0 and out["violating"] == 0, f"flagship rc {rc}: {out}")
     check(out.get("deterministic") is True, "flagship double run differs")
     check(out["first_leader_tick_mean"] > 0 and out["committed_mean"] > 0,
@@ -281,6 +360,98 @@ def main() -> int:
           "launches": launches, "committed_mean": out["committed_mean"],
           "first_leader_tick_mean": out["first_leader_tick_mean"],
           "bytes_per_lane": tele["bytes_per_lane"]})
+
+    # ---- 6b. the pool flagship, through the CLI, twice, counting launches
+    cfg = _storm_cfg()
+    packed_bpl = state.tree_bytes(state.pack_state(cfg, state.init_cluster(
+        cfg, engine.cluster_keys(0, 8, "cpu")))) / 8
+    for fn in kernels:
+        fn.launches = 0
+    runs = []
+    # keep a host copy of the wide carry the first harvest packs (a few ms
+    # of the first run; no device memory kept), so phase 7 can hold K3
+    # against its plain version at this path's shape. The engine sees K3
+    # through a stand-in whose pack keeps that copy and calls the kernel's
+    # wrapper, which counts its launch as always
+    harvested = []
+
+    def pack_and_keep(cfg_, s_):
+        if not harvested:
+            harvested.append(state.state_to_numpy(s_))
+        return K3.pack_state(cfg_, s_)
+
+    engine.K3 = types.SimpleNamespace(pack_state=pack_and_keep,
+                                      unpack_state=K3.unpack_state)
+    try:
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            rc, lines = run_cli_lines(POOL_FLAGSHIP)
+            torch.cuda.synchronize()
+            runs.append((rc, lines[:-1], lines[-1],
+                         torch.cuda.max_memory_allocated()))
+    finally:
+        engine.K3 = K3
+    pool_launches = {"threefry_hash_pairs": K1.hash_pairs.launches,
+                     "threefry_tick_blocks": K1.tick_blocks.launches,
+                     "oracle": K2.oracle.launches,
+                     "pack_state": K3.pack_state.launches,
+                     "unpack_state": K3.unpack_state.launches}
+    (rc1, rows1, out1, peak1), (rc2, rows2, out2, peak2) = runs
+    lanes, horizon, budget = (_flag(POOL_FLAGSHIP, f) for f in
+                              ("--clusters", "--ticks", "--budget-ticks"))
+    chunk_ticks = engine.default_chunk_ticks(horizon)
+    gens = budget // chunk_ticks  # chunks per run
+    want = {"threefry_tick_blocks":
+                2 * gens * -(-chunk_ticks // engine.DRAW_CHUNK),
+            "oracle": 2 * budget, "pack_state": 2 * gens,
+            "unpack_state": 2 * (gens - 1)}
+    # a clean run retires every lane at each horizon it reaches
+    retired = lanes * (budget // horizon)
+    check(rc1 == rc2 == 0 and out1["retired"] == retired
+          and out1["retired_violating"] == 0, f"pool flagship: {out1}")
+    check([deterministic(r) for r in rows1] == [deterministic(r) for r in rows2]
+          and deterministic(out1) == deterministic(out2),
+          "pool flagship double run differs")
+    check(len(rows1) == retired, f"pool flagship streamed {len(rows1)} rows")
+    check(out1["state_layout"] == "packed"
+          and out1["bytes_per_lane"] == packed_bpl,
+          f"pool flagship layout {out1['state_layout']} "
+          f"{out1['bytes_per_lane']} vs {packed_bpl}")
+    check(all(pool_launches[k] == v for k, v in want.items())
+          and pool_launches["threefry_hash_pairs"] > 0,
+          f"pool flagship launches {pool_launches}, want {want} (a pack "
+          "per harvest, an unpack per chunk but the first)")
+    emit({"phase": "pool_flagship", "argv": POOL_FLAGSHIP, "rc": rc1,
+          "retired": out1["retired"], "launches": pool_launches,
+          "runs": [{k: o[k] for k in ("wall_s", "steps_per_sec",
+                                      "effective_steps_per_sec",
+                                      "dispatch_gap_s", "device_wait_s",
+                                      "host_overlap_s", "compile_s")}
+                   | {"peak_memory_bytes": pk}
+                   for o, pk in ((out1, peak1), (out2, peak2))],
+          "state_layout": out1["state_layout"],
+          "state_hbm_bytes": out1["state_hbm_bytes"],
+          "bytes_per_lane": out1["bytes_per_lane"]})
+
+    # ---- 6c. pool hits replay through the CLI's replay
+    rc, lines = run_cli_lines(REPLAY_POOL)
+    hits = lines[:-1]
+    lanes = _flag(REPLAY_POOL, "--clusters")
+    later = [r for r in hits if r["cluster_id"] >= lanes]
+    check(rc == 1 and hits and later,
+          f"replay pool: rc {rc}, hits {[r['cluster_id'] for r in hits]}")
+    replayed = []
+    for r in hits[:2] + later[:2]:
+        rc, out = run_cli(["replay", "--storm", "--majority-override", "2",
+                           "--seed", "7", "--cluster", str(r["cluster_id"]),
+                           "--ticks", str(r["ticks_run"])])
+        check(rc == 1 and out["state_layout"] == "packed"
+              and all(out[k] == r[k] for k in
+                      ("violations", "first_violation_tick", "committed")),
+              f"pool hit {r} replays as {out}")
+        replayed.append(r["cluster_id"])
+    emit({"phase": "pool_replay", "hits": len(hits), "replayed": replayed,
+          "generations": sorted({c // lanes for c in replayed})})
 
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
@@ -298,9 +469,30 @@ def main() -> int:
         errs["oracle"] = max(errs["oracle"], max_abs_err(a, bb))
     check(errs["oracle"] == 0, "oracle kernel differs at the flagship shape")
     k2_out = K2.oracle(*args2)
-    counts = {fn: fn.launches for fn in (K1.hash_pairs, K1.tick_blocks, K2.oracle)}
+    counts = {fn: fn.launches for fn in kernels}
     k2_rot = [args2] + [tuple(x.clone() for x in args2)
                         for _ in range(rotations(nbytes(*args2)) - 1)]
+    fcfg = _storm_cfg()
+    # K3 at the shape the pool flagship gives it: the wide carry its first
+    # harvest packed, and a copy planted at the packed bounds' edges (every
+    # lane at its own tick)
+    check(len(harvested) == 1 and harvested[0]["tick"].shape[0] == b,
+          f"pool flagship carry not kept: {len(harvested)}")
+    h_pool = harvested.pop()
+    for label, h in (("pool_harvest", h_pool),
+                     ("pool_edge", state.planted_edge_state(fcfg, h_pool, b))):
+        _k3_vs_plain(fcfg, h, dev, errs, label)
+    emit({"phase": "k3_vs_plain_pool_shape", "clusters": b,
+          "n_nodes": n_nodes, "states": ["pool_harvest", "pool_edge"],
+          "max_abs_err": max(errs["pack_state"], errs["unpack_state"])})
+    del h_pool
+    fp = K3.pack_state(fcfg, fs)
+    k3p_rot = [fs] + [state.ClusterState(*(x.clone() for x in fs))
+                      for _ in range(rotations(nbytes(*fs)) - 1)]
+    k3u_rot = [fp] + [state.PackedClusterState(*(x.clone() for x in fp))
+                      for _ in range(rotations(nbytes(*fp)) - 1)]
+    # one operation per element read or written; the bytes bound it
+    k3_ops = sum(x.numel() for x in fs) + sum(x.numel() for x in fp)
 
     def k2_call(i):
         return K2.oracle(*k2_rot[i % len(k2_rot)])
@@ -336,17 +528,46 @@ def main() -> int:
             # matching), n x cap x ~12 (shadow walk), cap x ~10 (slide)
             b * (n_nodes * (n_nodes - 1) // 2 * 64 * 8 + n_nodes * 64 * 12
                  + 64 * 10)),
+        # one direction reads one form and writes the other
+        "pack_state": (
+            device_ms(lambda i: K3.pack_state(fcfg, k3p_rot[i % len(k3p_rot)]),
+                      "pack_kernel"),
+            cuda_ms(lambda i: K3.pack_state(fcfg, k3p_rot[i % len(k3p_rot)])),
+            cuda_ms(lambda i: state.pack_state(fcfg, k3p_rot[i % len(k3p_rot)]),
+                    iters=20),
+            nbytes(*fs) + nbytes(*fp), k3_ops),
+        "unpack_state": (
+            device_ms(lambda i: K3.unpack_state(fcfg, k3u_rot[i % len(k3u_rot)]),
+                      "unpack_kernel"),
+            cuda_ms(lambda i: K3.unpack_state(fcfg, k3u_rot[i % len(k3u_rot)])),
+            cuda_ms(lambda i: state.unpack_state(fcfg,
+                                                 k3u_rot[i % len(k3u_rot)]),
+                    iters=20),
+            nbytes(*fs) + nbytes(*fp), k3_ops),
     }
-    del k2_rot
+    del k2_rot, k3p_rot, k3u_rot
     for fn, c in counts.items():  # timing launches are not main-path launches
         fn.launches = c
     emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
-          "l2_cold_rotations": {"oracle": rotations(nbytes(*args2))},
+          "l2_cold_rotations": {"oracle": rotations(nbytes(*args2)),
+                                "pack_state": rotations(nbytes(*fs)),
+                                "unpack_state": rotations(nbytes(*fp))},
           "shapes": {"tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
-                     "oracle_logs": [b, n_nodes, 64]}})
+                     "oracle_logs": [b, n_nodes, 64],
+                     "pack_bytes": [nbytes(*fs), nbytes(*fp)]}})
 
-    # ---- 8. where a flagship tick's time goes (torch.profiler, one chunk)
+    # ---- 8. where a flagship tick's and a pool harvest's time goes
+    # (torch.profiler), and the bytes behind B2-rest's bound
     emit(_profile_ticks(fs, fk, fkn, chunk))
+    wide_bpl, packed_bpl = nbytes(*fs) / b, nbytes(*fp) / b
+    emit({"phase": "bytes", "wide_bytes_per_lane": wide_bpl,
+          "packed_bytes_per_lane": packed_bpl,
+          "draw_bytes_per_lane_tick": total * 8,
+          # the wide state read and written once per tick, plus the tick's
+          # draw words
+          "b2_rest_bound_ms_per_tick":
+              b * (2 * wide_bpl + total * 8) / PEAK_BYTES_S * 1e3})
+    emit(_profile_harvest(fs, fk, fkn))
 
     sources = {
         "threefry_tick_blocks": ("madraft_tpu_torch/csrc/threefry.cu",
@@ -355,7 +576,15 @@ def main() -> int:
                                 "madraft_tpu/tpusim/engine.py:95"),
         "oracle": ("madraft_tpu_torch/csrc/oracle.cu",
                    "madraft_tpu/tpusim/step.py:961"),
+        "pack_state": ("madraft_tpu_torch/csrc/pack.cu",
+                       "madraft_tpu/tpusim/state.py:561"),
+        "unpack_state": ("madraft_tpu_torch/csrc/pack.cu",
+                         "madraft_tpu/tpusim/state.py:656"),
     }
+    # each kernel's launches on the main path that runs it: the fuzz
+    # flagship for K1 and K2, the pool flagship for K3
+    launches.update({k: pool_launches[k] for k in ("pack_state",
+                                                   "unpack_state")})
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
@@ -429,6 +658,75 @@ def _plant(h: dict):
     want[c] = 512
     check(sorted(want.values()) == [1, 2, 4, 512], f"could not plant: {want}")
     return p, want
+
+
+def _k3_vs_plain(cfg, h: dict, dev, errs: dict, label: str) -> None:
+    """K3's pack and unpack on the card against their plain versions on
+    the CPU, same inputs (a wide host state ``h``): every leaf bit-equal,
+    dtypes included, and unpack(pack(h)) == h. Raises on a difference;
+    ``errs`` keeps the largest absolute error per direction."""
+    from madraft_tpu_torch.kernels import pack as K3
+    from madraft_tpu_torch.tpusim import state
+
+    p = K3.pack_state(cfg, state.state_from_numpy(h, dev))
+    w = K3.unpack_state(cfg, p)
+    want_p = state.pack_state(cfg, state.state_from_numpy(h))
+    want_w = state.unpack_state(cfg, want_p)
+    for key, got, want in (("pack_state", p, want_p),
+                           ("unpack_state", w, want_w)):
+        for f, a, b in zip(type(got)._fields, got, want):
+            check(a.dtype == b.dtype, f"K3 {key} {f} dtype {a.dtype} at {label}")
+            errs[key] = max(errs[key], max_abs_err(a.cpu(), b))
+    check(errs["pack_state"] == 0 and errs["unpack_state"] == 0,
+          f"K3 differs from its plain version at {label}: {errs}")
+    check(state.first_divergence(0, h, state.state_to_numpy(w)) is None,
+          f"K3 round trip differs at {label}")
+
+
+def _profile_harvest(s, keys, kn) -> dict:
+    """Device operations and time of one pool harvest at the flagship
+    shape (retire mask, ids, snapshot, fresh lanes, the K3 pack and the
+    host fetch), from torch.profiler; the kernels' counters get their
+    saved values back afterwards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from madraft_tpu_torch.kernels import oracle as K2
+    from madraft_tpu_torch.kernels import pack as K3
+    from madraft_tpu_torch.kernels import threefry as K1
+    from madraft_tpu_torch.tpusim import engine
+
+    fns = (K1.hash_pairs, K1.tick_blocks, K2.oracle, K3.pack_state,
+           K3.unpack_state)
+    counts = {fn: fn.launches for fn in fns}
+    cfg = _storm_cfg()
+    b = int(s.tick.shape[0])
+    ids = torch.arange(b, dtype=torch.int32, device=s.tick.device)
+    # horizon 200: every lane of the tick-200 state retires and refills
+    c = engine._Carry(None, keys, ids, torch.tensor(b, dtype=torch.int32,
+                                                    device=ids.device))
+    c.wide = s
+    engine._harvest(cfg, kn, c, 12345, 200, False, True)  # warm
+    c.wide = s
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h = engine._harvest(cfg, kn, c, 12345, 200, False, True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for fn, n in counts.items():
+        fn.launches = n
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_dev_us, reverse=True)[:5]
+    return {
+        "phase": "profile_harvest", "clusters": b,
+        "retired": int(h.retired.sum()), "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if kernels else None,
+        "device_ops": sum(e.count for e in kernels),
+        "top_device_ms": {e.key[:60]: _dev_us(e) / 1e3 for e in top},
+    }
 
 
 def _profile_ticks(s, keys, kn, n_ticks: int) -> dict:

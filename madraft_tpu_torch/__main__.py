@@ -1,16 +1,19 @@
 """madtpu CLI on the PyTorch port (raw-raft verbs).
 
     python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm]
+    python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm]
     python -m madraft_tpu_torch fuzz --list-profiles
 
 The verbs take the JAX CLI's flags and print its JSON keys, so a report
-from either package reads the same; ``replay`` reports ``state_layout``
-``"wide"`` (the port has no packed carry yet). Runs go to the CUDA card
-unless ``--platform cpu`` is given; without a card the run fails rather
-than fall back. Exit codes: 0 clean, 1 violation found (or a failed
-``--check-deterministic``), 2 usage error. The JAX CLI's other verbs and
-``--mesh``/``--metrics`` exit 2: they are not ported yet.
+from either package reads the same; ``pool`` streams one JSONL row per
+retired cluster and then its summary line. Runs go to the CUDA card unless
+``--platform cpu`` is given; without a card the run fails rather than fall
+back. Exit codes: 0 clean, 1 violation found (or a failed
+``--check-deterministic``), 2 usage error. The JAX CLI's other verbs, and
+the flags of paths not ported yet (``--mesh``, ``--metrics``, pool's
+``--devices N>1``, ``--coverage*``, ``--heartbeat``, ``--digest-every``),
+exit 2 naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,10 +24,9 @@ import os
 import sys
 
 NOT_PORTED_VERBS = (
-    "pool", "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "sweep", "explain",
+    "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "sweep", "explain",
     "bridge", "stats", "lint",
 )
-STATE_SCHEMA_VERSION = 4  # the reference's schema; metrics-off leaves match
 
 
 def _storm(cfg):
@@ -206,6 +208,25 @@ def cmd_fuzz(args) -> int:
     return 1 if (rep.n_violating or det_failed) else 0
 
 
+def _state_schema(cfg, knobs, ticks: int, device) -> dict:
+    """The replay artifact's schema stamp: the schema version and the
+    layout a pool of this run would carry (``packed_layout_reason``, the
+    rule ``run_pool`` applies; the replayed state is the same in either).
+    Called after the replay succeeded, so the knobs are known-valid."""
+    from madraft_tpu_torch.tpusim.engine import resolve_knobs
+    from madraft_tpu_torch.tpusim.state import (
+        STATE_SCHEMA_VERSION,
+        packed_layout_reason,
+    )
+
+    kn = resolve_knobs(cfg, knobs, device)
+    packed = packed_layout_reason(cfg, kn, ticks) is None
+    return {
+        "state_schema_version": STATE_SCHEMA_VERSION,
+        "state_layout": "packed" if packed else "wide",
+    }
+
+
 def cmd_replay(args) -> int:
     from madraft_tpu_torch.tpusim.config import violation_names
     from madraft_tpu_torch.tpusim.engine import replay_cluster
@@ -222,8 +243,7 @@ def cmd_replay(args) -> int:
     print(json.dumps({
         "seed": args.seed,
         "cluster": args.cluster,
-        "state_schema_version": STATE_SCHEMA_VERSION,
-        "state_layout": "wide",
+        **_state_schema(cfg, knobs, args.ticks, dev),
         "violations": viol,
         "violation_names": violation_names(viol),
         "first_violation_tick": int(st.first_violation_tick[0]),
@@ -231,6 +251,65 @@ def cmd_replay(args) -> int:
         "terms": st.term[0].cpu().tolist(),
     }))
     return 1 if viol else 0
+
+
+def cmd_pool(args) -> int:
+    """Continuous fuzzing pool (retire-and-refill): --clusters lanes stay
+    resident; a lane retires when its cluster violated or reached the
+    --ticks horizon and is refilled under a new global id, so any streamed
+    hit replays like a fuzz hit. Streams one JSONL line per retired
+    cluster, then a summary line; exit 1 iff a violation was found.
+    --devices 1 runs the lane-partitioned id scheme (lane l's generation-g
+    cluster owns id g*lanes + l)."""
+    import torch
+
+    from madraft_tpu_torch.tpusim.engine import run_pool
+
+    def usage_error(msg):
+        # exit 2, not 1: for pool, exit 1 is the "violation found" signal
+        _usage_error(f"pool: {msg}")
+
+    for flag, on, item in (
+            ("--mesh", args.mesh, "A6"),
+            ("--coverage", args.coverage, "A8"),
+            ("--coverage-random", args.coverage_random, "A8"),
+            ("--coverage-bits", args.coverage_bits is not None, "A8"),
+            ("--heartbeat", args.heartbeat, "A15"),
+            ("--digest-every", args.digest_every, "A15")):
+        if on:
+            usage_error(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.devices < 0:
+        usage_error(f"--devices {args.devices} must be >= 1 (0 = unset)")
+    if args.devices > 1:
+        usage_error(f"--devices {args.devices} is not ported yet (ROADMAP "
+                    "A6: one device only)")
+    if args.ticks < 1:
+        usage_error(f"--ticks {args.ticks}: the horizon must be >= 1 tick")
+    devices = args.devices or None
+    cfg = _sim_config(args)
+    dev = _device(args)
+    budget_ticks = args.budget_ticks if args.budget_ticks > 0 else None
+    budget_seconds = args.budget_seconds if args.budget_seconds > 0 else None
+    emit_all = args.emit == "all"
+
+    def on_retired(row):
+        if emit_all or row["violations"]:
+            print(json.dumps(row), flush=True)
+
+    summary = run_pool(
+        cfg, args.seed, args.clusters, args.ticks,
+        chunk_ticks=args.chunk_ticks, budget_ticks=budget_ticks,
+        budget_seconds=budget_seconds, devices=devices,
+        on_retired=on_retired, device=dev,
+    )
+    summary.update({
+        "seed": args.seed,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "backend": dev.type,
+    })
+    print(json.dumps(summary))
+    return 1 if summary["retired_violating"] else 0
 
 
 def main(argv=None) -> int:
@@ -280,6 +359,46 @@ def main(argv=None) -> int:
                     help="run twice, demand a bit-identical report (also "
                          "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
     sp.set_defaults(fn=cmd_fuzz)
+
+    sp = sub.add_parser(
+        "pool",
+        help="continuous fuzzing pool: retire violated/horizon-reached "
+             "clusters and refill their lanes under new global ids "
+             "(--ticks is the per-cluster horizon); streams retired-cluster "
+             "reports as JSONL + a summary line",
+    )
+    common(sp, 4096)
+    sp.add_argument("--mesh", action="store_true",
+                    help="shard over all devices (not ported yet: exits 2)")
+    sp.add_argument("--devices", type=int, default=0,
+                    help="1 = the lane-partitioned global-id scheme (lane "
+                         "l's generation-g cluster owns id g*lanes + l); "
+                         "0 = the monotone-id pool; more than 1 is not "
+                         "ported yet (exits 2)")
+    sp.add_argument("--chunk-ticks", type=int, default=0,
+                    help="ticks per chunk between harvests (0 = the horizon "
+                         "split into equal chunks of at most 256 ticks)")
+    sp.add_argument("--budget-ticks", type=int, default=0,
+                    help="stop once every lane has run this many ticks, "
+                         "rounded up to whole chunks (0 = unset; with "
+                         "--budget-seconds also unset, one horizon)")
+    sp.add_argument("--budget-seconds", type=float, default=0.0,
+                    help="stop at the first harvest past this wall-clock "
+                         "budget (0 = unset)")
+    sp.add_argument("--emit", default="all", choices=["all", "violations"],
+                    help="stream every retired-cluster report, or only "
+                         "violating ones")
+    sp.add_argument("--coverage", action="store_true",
+                    help="coverage-guided refill (not ported yet: exits 2)")
+    sp.add_argument("--coverage-bits", type=int, default=None,
+                    help="seen-set bitmap size (not ported yet: exits 2)")
+    sp.add_argument("--coverage-random", action="store_true",
+                    help="coverage baseline (not ported yet: exits 2)")
+    sp.add_argument("--heartbeat", default="",
+                    help="live-telemetry stream (not ported yet: exits 2)")
+    sp.add_argument("--digest-every", type=int, default=0,
+                    help="progress digest (not ported yet: exits 2)")
+    sp.set_defaults(fn=cmd_pool)
 
     sp = sub.add_parser("replay", help="re-run ONE cluster exactly")
     common(sp, 1)

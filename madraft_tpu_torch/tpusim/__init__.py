@@ -1,12 +1,23 @@
 """The batched lockstep Raft simulator in PyTorch (twin of
-``madraft_tpu.tpusim``, raw-raft fuzz/replay path)."""
+``madraft_tpu.tpusim``, raw-raft fuzz/replay/pool paths)."""
 
 from madraft_tpu_torch.tpusim.config import SimConfig
-from madraft_tpu_torch.tpusim.engine import FuzzReport, fuzz, make_fuzz_fn, replay_cluster
-from madraft_tpu_torch.tpusim.state import ClusterState, init_cluster
+from madraft_tpu_torch.tpusim.engine import (
+    FuzzReport,
+    fuzz,
+    make_fuzz_fn,
+    replay_cluster,
+    run_pool,
+)
+from madraft_tpu_torch.tpusim.state import (
+    ClusterState,
+    PackedClusterState,
+    init_cluster,
+)
 from madraft_tpu_torch.tpusim.step import step_cluster
 
 __all__ = [
-    "ClusterState", "FuzzReport", "SimConfig", "fuzz", "init_cluster",
-    "make_fuzz_fn", "replay_cluster", "step_cluster",
+    "ClusterState", "FuzzReport", "PackedClusterState", "SimConfig", "fuzz",
+    "init_cluster", "make_fuzz_fn", "replay_cluster", "run_pool",
+    "step_cluster",
 ]

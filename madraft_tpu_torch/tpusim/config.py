@@ -1,7 +1,7 @@
 """Simulation configuration for the PyTorch port: static shape knobs plus the
 dynamic runtime knobs, as a JAX-free twin of ``madraft_tpu/tpusim/config.py``.
 
-Only what the raw-raft ``fuzz``/``replay`` path reads is here. Field names,
+Only what the raw-raft ``fuzz``/``replay``/``pool`` paths read is here. Field names,
 defaults, validation and the scenario registry are copied verbatim, so a
 config built for one package means the same run in the other
 (``tests/test_torch_config.py`` checks every field and default).
@@ -233,6 +233,62 @@ class Knobs(NamedTuple):
 
     def to(self, device) -> "Knobs":
         return Knobs(*(x.to(device) for x in self))
+
+
+class PackedBounds(NamedTuple):
+    """Largest value each packed field class must represent (inclusive),
+    as in the reference's ``config.packed_bounds`` (its comment derives
+    each bound from ``max_lane_ticks``)."""
+
+    tick: int       # tick, next_cmd
+    term: int       # every term-valued field
+    index: int      # every absolute log-index field
+    cmd: int        # log_val/shadow_val payloads (NOOP excluded)
+    rel_stamp: int  # mailbox stamp minus cluster tick (0 = empty slot)
+    event: int      # any ev_counts counter
+
+
+def packed_bounds(cfg: SimConfig) -> PackedBounds:
+    t = cfg.max_lane_ticks
+    return PackedBounds(
+        tick=t,
+        term=t,
+        index=2 * t + 1,
+        cmd=cfg.n_nodes * (t + 1),
+        rel_stamp=254,  # u8 with 0 reserved for "empty" => delay_max <= 253
+        event=cfg.n_nodes * t,
+    )
+
+
+# Pool id rules under the lane-partitioned scheme (the reference's
+# config.pool_*): lane l's generation-g cluster owns global id g * lanes + l,
+# and shard s of an n-shard pool owns the contiguous lanes
+# [s * lanes/n, (s+1) * lanes/n).
+def pool_lane(cluster_id: int, n_lanes: int) -> int:
+    """Lane slot that ran ``cluster_id`` under the lane-partitioned scheme."""
+    return int(cluster_id) % n_lanes
+
+
+def pool_generation(cluster_id: int, n_lanes: int) -> int:
+    """Refill generation of ``cluster_id`` (0 = initial batch) under the
+    lane-partitioned scheme."""
+    return int(cluster_id) // n_lanes
+
+
+def pool_lanes_per_shard(n_lanes: int, n_shards: int) -> int:
+    """Lanes per shard; the lanes must divide evenly over the shards."""
+    if n_lanes % n_shards:
+        raise ValueError(
+            f"lanes ({n_lanes}) must divide evenly over shards ({n_shards})"
+        )
+    return n_lanes // n_shards
+
+
+def pool_shard(cluster_id: int, n_lanes: int, n_shards: int) -> int:
+    """Shard that ran ``cluster_id`` in an ``n_shards``-shard pool."""
+    return pool_lane(cluster_id, n_lanes) // pool_lanes_per_shard(
+        n_lanes, n_shards
+    )
 
 
 HIST_BUCKETS = 16

@@ -1,11 +1,13 @@
-"""Batch drivers for the PyTorch port: keys, init, the tick loop, reports.
+"""Batch drivers for the PyTorch port: keys, init, the tick loop, reports,
+and the continuous fuzzing pool.
 
 The twin of the raw-raft part of ``madraft_tpu/tpusim/engine.py``. Every
 entry point takes a ``device``: None means the CUDA card, and a missing
 card raises instead of falling back to the CPU; ``device="cpu"`` runs the
 kernels' plain versions. The (seed, cluster_id) replay contract is the
 reference's: cluster ``c`` of seed ``s`` draws from
-``fold_in(PRNGKey(s), c)``, so a fuzz hit replays alone, bit for bit.
+``fold_in(PRNGKey(s), c)``, so a fuzz or pool hit replays alone, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -16,10 +18,22 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry
 from madraft_tpu_torch.tpusim import prng
-from madraft_tpu_torch.tpusim.config import Knobs, SimConfig
-from madraft_tpu_torch.tpusim.state import ClusterState, init_cluster, tree_bytes
+from madraft_tpu_torch.tpusim.config import (
+    Knobs,
+    SimConfig,
+    pool_lanes_per_shard,
+    violation_names,
+)
+from madraft_tpu_torch.tpusim.state import (
+    ClusterState,
+    PackedClusterState,
+    init_cluster,
+    packed_layout_reason,
+    tree_bytes,
+)
 from madraft_tpu_torch.tpusim.step import _block_total, step_cluster
 
 # Ticks whose draw words one tick_blocks launch makes ahead. A chunk holds
@@ -87,10 +101,10 @@ def report(final: ClusterState) -> FuzzReport:
     )
 
 
-def _run(cfg: SimConfig, keys: torch.Tensor, kn: Knobs, n_ticks: int):
-    """init, then n_ticks ticks; the draw words come a chunk of
-    DRAW_CHUNK ticks at a time."""
-    state = init_cluster(cfg, keys, kn)
+def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
+             kn: Knobs, n_ticks: int) -> ClusterState:
+    """n_ticks ticks of a wide batch; the draw words come a chunk of
+    DRAW_CHUNK ticks at a time, from each cluster's own tick on."""
     total = _block_total(cfg.n_nodes)
     for done in range(0, n_ticks, DRAW_CHUNK):
         m = min(DRAW_CHUNK, n_ticks - done)
@@ -99,6 +113,23 @@ def _run(cfg: SimConfig, keys: torch.Tensor, kn: Knobs, n_ticks: int):
         for i in range(m):
             state = step_cluster(cfg, state, keys, kn, words=words[i])
     return state
+
+
+def _run(cfg: SimConfig, keys: torch.Tensor, kn: Knobs, n_ticks: int):
+    """init, then n_ticks ticks."""
+    return _advance(cfg, init_cluster(cfg, keys, kn), keys, kn, n_ticks)
+
+
+def _build_kernels(device: torch.device) -> float:
+    """Build the CUDA kernels when they are not built yet (the port's
+    set-up before a first tick); returns the wall seconds it took."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        from madraft_tpu_torch import _build
+
+        for name in _build.SOURCES:
+            _build.library(name)
+    return time.perf_counter() - t0
 
 
 class FuzzProgram:
@@ -120,13 +151,7 @@ class FuzzProgram:
 
     def compile_timed(self, seed) -> float:
         if self.compile_s is None:
-            t0 = time.perf_counter()
-            if self.device.type == "cuda":
-                from madraft_tpu_torch import _build
-
-                for name in _build.SOURCES:
-                    _build.library(name)
-            self.compile_s = time.perf_counter() - t0
+            self.compile_s = _build_kernels(self.device)
         return self.compile_s
 
     def __call__(self, seed) -> ClusterState:
@@ -258,9 +283,430 @@ def resolve_knobs(cfg: SimConfig, knobs, device=None) -> Knobs:
 def replay_cluster(cfg: SimConfig, seed: int, cluster_id: int, n_ticks: int,
                    knobs=None, device=None) -> ClusterState:
     """Re-run one cluster alone (a batch of one) from its (seed, cluster_id)
-    stream, with an optional knob override; returns its final state with
-    the batch axis of length 1."""
+    stream, with an optional knob override; returns its final wide state
+    with the batch axis of length 1. The result is the same in either
+    carry layout, so the replay ticks the wide state throughout."""
     dev = resolve_device(device)
     kn = resolve_knobs(cfg, knobs, dev)
     keys = cluster_keys(seed, 1, dev, id0=int(cluster_id))
     return _run(cfg, keys, kn, n_ticks)
+
+
+# --------------------------------------------------------------------------
+# The continuous fuzzing pool (retire-and-refill), the twin of the
+# reference's run_pool with coverage, metrics and heartbeat off.
+#
+# n_clusters lanes stay resident. Between chunks the carry is the packed
+# schema whenever it is exact for the run (the reference's layout rule);
+# a chunk is one K3 unpack (none for the first chunk, which runs on the
+# fresh wide batch), chunk_ticks wide ticks, the harvest on the wide view
+# (retire mask, ids, the small per-lane report snapshot, fresh
+# init_cluster lanes under fold_in(PRNGKey(seed), id) selected in with
+# torch.where) and one K3 pack. The reference widens on use every tick; the
+# two orders are bit-identical because the round trip is exact inside
+# config.packed_bounds. Retired lanes take new GLOBAL ids, by a monotone
+# counter (default) or the lane-partitioned scheme (devices=1: lane l's
+# generation-g cluster owns id g * lanes + l), so every pool hit replays
+# through replay_cluster(seed, id) like a fuzz hit.
+# --------------------------------------------------------------------------
+
+# Ticks per pool chunk at most (the reference's CHUNK_TICKS).
+CHUNK_TICKS = 256
+
+
+def default_chunk_ticks(horizon: int) -> int:
+    """The pool's default chunk size: the horizon split into equal chunks
+    no larger than CHUNK_TICKS, so lanes retire at the horizon."""
+    k = -(-horizon // CHUNK_TICKS)
+    return -(-horizon // k)
+
+
+class PoolHarvest(NamedTuple):
+    """Per-lane report arrays fetched at each harvest (numpy, length
+    n_lanes; PRE-refill values: the retiring cluster's final numbers)."""
+
+    retired: np.ndarray            # bool: violated or horizon-reached
+    ids: np.ndarray                # i32 global cluster id of the lane
+    violations: np.ndarray         # i32 sticky bitmask
+    first_violation_tick: np.ndarray
+    first_leader_tick: np.ndarray
+    committed: np.ndarray          # shadow_len
+    msg_count: np.ndarray
+    snap_installs: np.ndarray
+    ticks_run: np.ndarray          # the cluster's age (= state.tick)
+
+
+def _retired_row(h: PoolHarvest, lane: int, wall: float,
+                 viol_total: int) -> dict:
+    """One retired-cluster report dict (the streaming JSONL schema)."""
+    mask = int(h.violations[lane])
+    return {
+        "cluster_id": int(h.ids[lane]),
+        "ticks_run": int(h.ticks_run[lane]),
+        "violations": mask,
+        "violation_names": violation_names(mask),
+        "first_violation_tick": int(h.first_violation_tick[lane]),
+        "first_leader_tick": int(h.first_leader_tick[lane]),
+        "committed": int(h.committed[lane]),
+        "msg_count": int(h.msg_count[lane]),
+        "snap_installs": int(h.snap_installs[lane]),
+        "wall_s": round(wall, 3),
+        "violations_per_s": (
+            round(viol_total / wall, 3) if wall > 0 else None
+        ),
+    }
+
+
+class _PoolAccount:
+    """Host-side harvest accounting: retirement counters, the effective-
+    steps convention (post-violation ticks inside the retirement chunk are
+    waste, not coverage) and row emission. ``consume`` runs only on
+    _pipeline's consumer thread, in harvest order, and ``finish`` after
+    that thread joins, so no locking is needed."""
+
+    def __init__(self, on_retired):
+        self.on_retired = on_retired
+        self.retired_total = 0
+        self.viol_total = 0
+        self.effective = 0
+        self.union = 0
+        self.viol_clusters: list = []
+        self.last = None
+
+    def consume(self, h: PoolHarvest, wall: float) -> None:
+        self.last = h
+        for lane in np.nonzero(h.retired)[0]:
+            mask = int(h.violations[lane])
+            self.retired_total += 1
+            self.effective += (int(h.first_violation_tick[lane]) if mask
+                               else int(h.ticks_run[lane]))
+            if mask:
+                self.viol_total += 1
+                self.union |= mask
+                self.viol_clusters.append(int(h.ids[lane]))
+            if self.on_retired is not None:
+                self.on_retired(_retired_row(h, lane, wall, self.viol_total))
+
+    def finish(self) -> None:
+        """In-flight lanes at shutdown are clean (violated => retired):
+        their ticks so far are honest pre-violation coverage."""
+        h = self.last
+        self.effective += int(h.ticks_run[~h.retired].sum())
+
+
+def _pipeline(launch_chunk, launch_harvest, acct: _PoolAccount,
+              chunk_ticks: int, budget_ticks: Optional[int],
+              budget_seconds: Optional[float]) -> tuple:
+    """The chunk -> harvest loop with the reference's consumer thread.
+
+    The main thread issues chunk k and harvest k and fetches harvest k's
+    small per-lane arrays (``launch_harvest`` returns them on the host);
+    a worker thread consumes fetched harvests in order (accounting, row
+    emission) while the main thread issues chunk k+1. The worker touches
+    numpy only. Timers, as the reference defines them:
+    - ``device_wait_s``: main-thread wall inside issue and fetch (with the
+      eager tick this is mostly the host issuing the tick's operations);
+    - ``dispatch_gap_s``: the rest of the main thread's wall, plus the
+      end-of-run drain;
+    - ``host_overlap_s``: consumer wall that ran while the main thread was
+      still issuing.
+
+    Returns ``(lane_ticks, wall, dispatch_gap_s, device_wait_s,
+    host_overlap_s)``."""
+    import queue as queue_mod
+    import threading
+
+    t0 = time.perf_counter()
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=8)
+    host_work = [0.0]
+    exc: list = []
+
+    def consumer():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            h, wall_at_fetch = item
+            t1 = time.perf_counter()
+            try:
+                acct.consume(h, wall_at_fetch)
+            except BaseException as e:  # surface on the main thread
+                exc.append(e)
+                return
+            finally:
+                host_work[0] += time.perf_counter() - t1
+
+    worker = threading.Thread(target=consumer, name="pool-harvest-consumer")
+    worker.start()
+    lane_ticks = 0
+    device_s = 0.0
+    t_loop = t0
+    try:
+        while True:
+            t1 = time.perf_counter()
+            launch_chunk()
+            h = launch_harvest()
+            t2 = time.perf_counter()
+            device_s += t2 - t1
+            lane_ticks += chunk_ticks
+            wall = t2 - t0
+            stop = (
+                (budget_ticks is not None and lane_ticks >= budget_ticks)
+                or (budget_seconds is not None and wall >= budget_seconds)
+            )
+            while not exc:  # a dead worker must not deadlock the put
+                try:
+                    q.put((h, wall), timeout=1.0)
+                    break
+                except queue_mod.Full:
+                    continue
+            if stop or exc:
+                break
+    finally:
+        while worker.is_alive():  # a full queue must not deadlock shutdown
+            try:
+                q.put(None, timeout=1.0)
+                break
+            except queue_mod.Full:
+                continue
+        t_loop = time.perf_counter()
+        worker.join()
+        if exc:
+            raise exc[0]
+    t_end = time.perf_counter()
+    drain = t_end - t_loop
+    gap = max(0.0, (t_loop - t0) - device_s) + drain
+    overlap = max(0.0, host_work[0] - drain)
+    return lane_ticks, t_end - t0, gap, device_s, overlap
+
+
+def _retire_and_reseed(states: ClusterState, ids, next_id, seed, horizon):
+    """The monotone id scheme: the retirement rule, left-to-right ids
+    next_id, next_id + 1, ... over retired lanes (a batch-wide int32
+    cumsum), and key = fold_in(PRNGKey(seed), id) for every lane (the old
+    key on kept lanes, the fresh one on refilled ones)."""
+    retired = (states.violations != 0) | (states.tick >= horizon)
+    r32 = retired.to(torch.int32)
+    rank = torch.cumsum(r32, 0, dtype=torch.int32) - 1
+    new_ids = torch.where(retired, next_id + rank, ids)
+    new_keys = prng.fold_in(prng.PRNGKey(seed, ids.device), new_ids)
+    return retired, new_ids, new_keys, next_id + r32.sum(dtype=torch.int32)
+
+
+def _lane_reseed(states: ClusterState, ids, gens, seed, horizon):
+    """The lane-partitioned id scheme: per-lane generation counters, lane
+    l's generation-g cluster owns id g * n_lanes + l."""
+    n_lanes = ids.shape[0]
+    retired = (states.violations != 0) | (states.tick >= horizon)
+    gens_new = gens + retired.to(torch.int32)
+    lane = torch.arange(n_lanes, dtype=torch.int32, device=ids.device)
+    new_ids = torch.where(retired, gens_new * n_lanes + lane, ids)
+    new_keys = prng.fold_in(prng.PRNGKey(seed, ids.device), new_ids)
+    return retired, new_ids, new_keys, gens_new
+
+
+def _pool_snapshot(states: ClusterState, retired, ids) -> torch.Tensor:
+    """The per-lane report arrays of a harvest as one [9, B] int32 tensor,
+    so the host fetches them in one copy (PoolHarvest's field order)."""
+    return torch.stack([
+        retired.to(torch.int32), ids, states.violations,
+        states.first_violation_tick, states.first_leader_tick,
+        states.shadow_len, states.msg_count, states.snap_install_count,
+        states.tick,
+    ])
+
+
+def _fetch(snapshot: torch.Tensor) -> PoolHarvest:
+    h = snapshot.cpu().numpy()
+    return PoolHarvest(h[0].astype(bool), *h[1:])
+
+
+def _scatter_fresh(retired, fresh: ClusterState,
+                   states: ClusterState) -> ClusterState:
+    """Fresh init_cluster lanes into the retired lanes (torch.where)."""
+
+    def sel(f, s):
+        return torch.where(retired.reshape((-1,) + (1,) * (f.dim() - 1)), f, s)
+
+    return ClusterState(*(sel(f, s) for f, s in zip(fresh, states)))
+
+
+def _pool_mesh(n_clusters: int, devices: int, device: torch.device) -> None:
+    """Validate a pool ``devices`` request (the reference's checks). One
+    device runs the lane-partitioned scheme unsharded; more are not
+    ported yet."""
+    avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    if devices < 1:
+        raise ValueError(f"pool devices must be >= 1, got {devices}")
+    if devices > avail:
+        raise ValueError(
+            f"pool devices={devices} exceeds the {avail} attached "
+            f"device(s)"
+        )
+    pool_lanes_per_shard(n_clusters, devices)
+    if devices > 1:
+        raise NotImplementedError(
+            "pool over more than one device is not ported yet (ROADMAP A6)")
+
+
+def _summary_fields(compile_s: float, gap: float, wait: float,
+                    overlap: float, devices: Optional[int], book,
+                    n_clusters: int, layout: str, state_bytes: int) -> tuple:
+    """The pipeline-telemetry and id-scheme summary fields. ``book`` is the
+    final id bookkeeping: per-lane generations (lane scheme) or the
+    monotone next-id scalar. ``state_bytes`` is measured from the live
+    carry tensors after the first harvest."""
+    tele = {
+        "compile_s": round(compile_s, 4),
+        "dispatch_gap_s": round(gap, 4),
+        "device_wait_s": round(wait, 4),
+        "host_overlap_s": round(overlap, 4),
+        "state_layout": layout,
+        "state_hbm_bytes": state_bytes,
+        "bytes_per_lane": round(state_bytes / n_clusters, 1),
+    }
+    if devices is not None:
+        watermark = (int(book.max()) + 1) * n_clusters
+        id_fields = {"id_scheme": "lane", "devices": devices,
+                     "id_watermark": watermark}
+    else:
+        id_fields = {"next_cluster_id": int(book)}
+    return tele, id_fields
+
+
+def _pool_summary(n_clusters: int, horizon: int, chunk_ticks: int,
+                  lane_ticks: int, acct: _PoolAccount, wall: float,
+                  tele: dict, id_fields: dict) -> dict:
+    """The pool summary dict, the reference's keys in its order."""
+    dispatched = lane_ticks * n_clusters
+    return {
+        "lanes": n_clusters,
+        "horizon": horizon,
+        "chunk_ticks": chunk_ticks,
+        "lane_ticks": lane_ticks,
+        "ticks_dispatched": dispatched,
+        "retired": acct.retired_total,
+        "retired_violating": acct.viol_total,
+        "violating_clusters": acct.viol_clusters[:16],
+        "violating_clusters_total": len(acct.viol_clusters),
+        "violation_names": violation_names(acct.union),
+        "effective_cluster_steps": int(acct.effective),
+        "wall_s": round(wall, 3),
+        "steps_per_sec": round(dispatched / wall, 1) if wall > 0 else None,
+        "effective_steps_per_sec": (
+            round(acct.effective / wall, 1) if wall > 0 else None
+        ),
+        "violations_per_s": (
+            round(acct.viol_total / wall, 3) if wall > 0 else None
+        ),
+        **tele,
+        **id_fields,
+    }
+
+
+class _Carry:
+    """The pool's state between launches: the resident lanes (wide at
+    birth, then packed after each harvest when the run packs), their keys
+    and ids, and the id bookkeeping."""
+
+    def __init__(self, states, keys, ids, book):
+        self.states, self.keys, self.ids, self.book = states, keys, ids, book
+        self.wide = None  # the chunk's wide result, until the harvest
+        self.state_bytes = None  # the resident carry's bytes after a harvest
+
+
+def _harvest(cfg: SimConfig, kn: Knobs, c: _Carry, seed, horizon: int,
+             lane_ids: bool, packed: bool) -> PoolHarvest:
+    """Harvest + refill of the chunk's wide result ``c.wide``: retire mask
+    and new ids, the report snapshot (PRE-refill), fresh lanes selected in,
+    then the carry packed (one K3 launch) when the run packs. Returns the
+    snapshot fetched to the host, the loop's one device-to-host copy."""
+    wide, c.wide = c.wide, None
+    reseed = _lane_reseed if lane_ids else _retire_and_reseed
+    retired, new_ids, new_keys, book = reseed(wide, c.ids, c.book, seed,
+                                              horizon)
+    snapshot = _pool_snapshot(wide, retired, c.ids)
+    wide = _scatter_fresh(retired, init_cluster(cfg, new_keys, kn), wide)
+    c.states = K3.pack_state(cfg, wide) if packed else wide
+    c.keys, c.ids, c.book = new_keys, new_ids, book
+    if c.state_bytes is None:
+        c.state_bytes = tree_bytes(c.states)  # live resident carry tensors
+    return _fetch(snapshot)
+
+
+def run_pool(
+    cfg: SimConfig,
+    seed: int,
+    n_clusters: int,
+    horizon: int,
+    *,
+    chunk_ticks: int = 0,
+    budget_ticks: Optional[int] = None,
+    budget_seconds: Optional[float] = None,
+    devices: Optional[int] = None,
+    on_retired=None,
+    device=None,
+) -> dict:
+    """Continuous fuzzing pool: chunk -> harvest -> refill until the budget
+    is spent (the reference's run_pool, coverage/metrics/heartbeat off).
+
+    A lane retires when its cluster violated or reached ``horizon`` ticks
+    (seen at chunk boundaries) and is refilled under a new global id.
+    ``on_retired`` gets one report dict per retired cluster, in retirement
+    order, on the pool's consumer thread. ``budget_ticks`` stops once every
+    lane has run that many ticks (rounded up to whole chunks),
+    ``budget_seconds`` at the first harvest past the wall budget; neither
+    given = one horizon. ``devices=None`` is the monotone-id pool,
+    ``devices=1`` the lane-partitioned scheme on one device. The carry is
+    packed between chunks whenever ``packed_layout_reason`` finds the
+    packed schema exact for ``horizon + chunk_ticks`` per-lane ticks, and
+    stays wide otherwise. Returns the summary dict; ``compile_s`` is the
+    kernels' build before the timed window."""
+    if horizon < 1:
+        raise ValueError(f"pool horizon must be >= 1 tick, got {horizon}")
+    if chunk_ticks <= 0:
+        chunk_ticks = default_chunk_ticks(horizon)
+    if budget_ticks is None and budget_seconds is None:
+        budget_ticks = horizon
+    dev = resolve_device(device)
+    if devices is not None:
+        _pool_mesh(n_clusters, devices, dev)
+    kn = cfg.knobs(dev)
+    packed = packed_layout_reason(cfg, kn, horizon + chunk_ticks) is None
+    lane_ids = devices is not None
+    compile_s = _build_kernels(dev)
+
+    ids = torch.arange(n_clusters, dtype=torch.int32, device=dev)
+    keys = cluster_keys(seed, n_clusters, dev)
+    book = (torch.zeros(n_clusters, dtype=torch.int32, device=dev) if lane_ids
+            else torch.tensor(n_clusters, dtype=torch.int32, device=dev))
+    # the first chunk runs on the fresh batch wide; the carry holds the
+    # only reference to it
+    c = _Carry(init_cluster(cfg, keys, kn), keys, ids, book)
+
+    def widen() -> ClusterState:
+        # the chunk's input leaves the carry, so that no state outlives the
+        # tick that replaces it (the device's peak memory)
+        carry, c.states = c.states, None
+        if isinstance(carry, PackedClusterState):
+            return K3.unpack_state(cfg, carry)
+        return carry
+
+    def launch_chunk():
+        c.wide = _advance(cfg, widen(), c.keys, kn, chunk_ticks)
+
+    def launch_harvest() -> PoolHarvest:
+        return _harvest(cfg, kn, c, seed, horizon, lane_ids, packed)
+
+    acct = _PoolAccount(on_retired)
+    lane_ticks, wall, gap, wait, overlap = _pipeline(
+        launch_chunk, launch_harvest, acct, chunk_ticks, budget_ticks,
+        budget_seconds,
+    )
+    acct.finish()
+    tele, id_fields = _summary_fields(
+        compile_s, gap, wait, overlap, devices, c.book.cpu().numpy(),
+        n_clusters, "packed" if packed else "wide", c.state_bytes,
+    )
+    return _pool_summary(n_clusters, horizon, chunk_ticks, lane_ticks, acct,
+                         wall, tele, id_fields)

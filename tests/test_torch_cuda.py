@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from madraft_tpu_torch.kernels import oracle as K2
+from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry as K1
 from madraft_tpu_torch.tpusim import config, engine, prng, state, step
 
@@ -148,3 +149,73 @@ def test_fuzz_on_the_card_equals_the_cpu(dev):
     for f in ("violations", "first_violation_tick", "first_leader_tick",
               "committed", "msg_count", "snap_installs"):
         assert (getattr(gpu, f) == getattr(cpu, f)).all(), f
+
+
+def _numpy(tree):
+    return [x.cpu().numpy() for x in tree]
+
+
+@pytest.mark.parametrize("kind", ["init", "storm", "edge"])
+@pytest.mark.parametrize("n_nodes", [3, 5, 7])
+def test_pack_kernels_equal_plain(dev, n_nodes, kind):
+    # 1000 lanes leave every leaf's last block short
+    cfg = config.storm_profiles()["storm"][0].replace(n_nodes=n_nodes)
+    s = _storm_state(dev, 1000, 0 if kind == "init" else 60, n_nodes)
+    h = state.state_to_numpy(s)
+    if kind == "edge":
+        h = state.planted_edge_state(cfg, h, n_nodes)
+    s, cpu = state.state_from_numpy(h, dev), state.state_from_numpy(h)
+    before = (K3.pack_state.launches, K3.unpack_state.launches)
+    p = K3.pack_state(cfg, s)
+    back = K3.unpack_state(cfg, p)
+    assert (K3.pack_state.launches - before[0],
+            K3.unpack_state.launches - before[1]) == (1, 1)
+    want = state.pack_state(cfg, cpu)
+    for f, a, b in zip(state.PackedClusterState._fields, _numpy(p),
+                       _numpy(want)):
+        assert a.dtype == b.dtype and (a == b).all(), f
+    for f, a, b in zip(state.ClusterState._fields, _numpy(back),
+                       _numpy(state.unpack_state(cfg, want))):
+        assert a.dtype == b.dtype and (a == b).all(), f
+    assert state.first_divergence(0, h, state.state_to_numpy(back)) is None
+
+
+def test_pack_kernels_refuse_what_they_do_not_take(dev):
+    cfg = config.storm_profiles()["storm"][0]
+    s = _storm_state(dev, 8, 0)
+    with pytest.raises(ValueError):
+        K3.pack_state(cfg, s._replace(term=s.term.to(torch.int64)))
+    p = K3.pack_state(cfg, s)
+    with pytest.raises(ValueError):
+        K3.unpack_state(cfg, p._replace(log_val=p.log_val[:, :, :32]))
+    with pytest.raises(ValueError):
+        K3.unpack_state(cfg, p._replace(log_term=p.log_term.cpu()))
+
+
+def test_pool_on_the_card_equals_the_cpu(dev):
+    cfg = config.storm_profiles()["storm"][0].replace(majority_override=2)
+    runs = {}
+    with prng.layout(True):
+        for where in (dev, "cpu"):
+            rows = []
+            before = (K1.tick_blocks.launches, K3.pack_state.launches,
+                      K3.unpack_state.launches)
+            s = engine.run_pool(cfg, 7, 64, 64, chunk_ticks=32,
+                                budget_ticks=128, on_retired=rows.append,
+                                device=where)
+            launched = (K1.tick_blocks.launches - before[0],
+                        K3.pack_state.launches - before[1],
+                        K3.unpack_state.launches - before[2])
+            runs[str(where)] = (rows, s, launched)
+    (rows_g, s_g, launched), (rows_c, s_c, _) = runs["cuda"], runs["cpu"]
+    # four chunks: a draw launch and a harvest's pack each; an unpack for
+    # each chunk after the first, which runs on the fresh wide batch
+    assert launched == (4, 4, 3)
+    drop = ("wall_s", "violations_per_s")
+    assert [{k: v for k, v in r.items() if k not in drop} for r in rows_g] \
+        == [{k: v for k, v in r.items() if k not in drop} for r in rows_c]
+    for k in ("retired", "retired_violating", "violating_clusters",
+              "effective_cluster_steps", "next_cluster_id", "state_layout",
+              "bytes_per_lane"):
+        assert s_g[k] == s_c[k], k
+    assert s_g["retired_violating"] > 0

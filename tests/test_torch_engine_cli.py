@@ -1,9 +1,9 @@
 """The port's engine and CLI against the live JAX package at 64 clusters x
 300 ticks, default (partitionable) threefry layout: per-cluster fuzz
-reports, the fuzz and replay JSON lines, and the exit codes 0 / 1 / 2.
-Tolerance: exact equality of every field, apart from wall-time telemetry
-and replay's ``state_layout`` (the port carries the wide layout; ROADMAP
-queue C)."""
+reports, the fuzz and replay JSON lines (replay's ``state_layout`` and
+``state_schema_version`` included), and the exit codes 0 / 1 / 2.
+Tolerance: exact equality of every field, apart from wall-time
+telemetry."""
 
 import contextlib
 import io
@@ -71,8 +71,7 @@ def test_cli_fuzz_and_replay_match_reference():
     rc_j, want, _ = run(jax_main, replay)
     rc_p, got, _ = port(replay)
     assert rc_j == rc_p == 1
-    assert got.pop("state_layout") == "wide"
-    want.pop("state_layout")
+    assert got["state_layout"] == "packed"
     assert got == want
     assert got["violations"] != 0
 
@@ -102,7 +101,7 @@ def test_cli_usage_errors_exit_2_like_reference(argv):
 @pytest.mark.parametrize("argv", [
     ["fuzz", "--mesh", "--clusters", "4", "--ticks", "2"],
     ["fuzz", "--metrics", "--clusters", "4", "--ticks", "2"],
-    ["pool", "--clusters", "4"],
+    ["pool", "--devices", "2", "--clusters", "4"],
     ["sweep"],
 ])
 def test_cli_unported_paths_exit_2(argv):

@@ -1,11 +1,13 @@
-"""The reference fixture in tests/torch_fixtures/fuzz_legs.json still equals
-the live JAX package's output.
+"""The reference fixtures in tests/torch_fixtures/ still equal the live JAX
+package's output.
 
-The fixture holds per-cluster fuzz report arrays of a few storm legs under
+``fuzz_legs.json`` holds per-cluster fuzz report arrays of a few storm legs,
+``pool_legs.json`` the retired rows (in retirement order) and the
+deterministic summary fields of pool legs under both id schemes, all under
 the default (partitionable) threefry layout, recorded from the JAX package
-on the CPU. ``chip_smoke.py`` holds the port's CUDA run to it bit for bit,
-on a machine with no JAX. Regenerate it (only after a deliberate change to
-the reference's semantics) with
+on the CPU. ``chip_smoke.py`` holds the port's CUDA runs to them bit for
+bit, on a machine with no JAX. Regenerate them (only after a deliberate
+change to the reference's semantics) with
 
     JAX_PLATFORMS=cpu python tests/test_torch_fixture.py
 
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 
 FIXTURE = pathlib.Path(__file__).parent / "torch_fixtures" / "fuzz_legs.json"
+POOL_FIXTURE = FIXTURE.with_name("pool_legs.json")
 LEGS = {
     "storm": ("storm", "", 5),
     "durability_ack_before_fsync": ("durability", "ack_before_fsync", 5),
@@ -73,10 +76,87 @@ def test_fixture_equals_live_reference(leg):
         assert rec["report"][f] == live[f], f"{leg}: {f} drifted"
 
 
+# pool legs: (profile, bug, seed, devices); devices None = the monotone id
+# scheme, 1 = the lane-partitioned one
+POOL_LEGS = {
+    "storm_monotone": ("storm", "", 5, None),
+    "storm_lane": ("storm", "", 5, 1),
+    "durability_ack_before_fsync_monotone": (
+        "durability", "ack_before_fsync", 5, None),
+    "durability_ack_before_fsync_lane": (
+        "durability", "ack_before_fsync", 5, 1),
+}
+POOL_SHAPE = {"lanes": 64, "horizon": 300, "chunk_ticks": 100,
+              "budget_ticks": 600}
+ROW_FIELDS = ("cluster_id", "ticks_run", "violations", "first_violation_tick",
+              "first_leader_tick", "committed", "msg_count", "snap_installs")
+SUMMARY_FIELDS = (
+    "lanes", "horizon", "chunk_ticks", "lane_ticks", "ticks_dispatched",
+    "retired", "retired_violating", "violating_clusters",
+    "violating_clusters_total", "violation_names", "effective_cluster_steps",
+    "state_layout", "state_hbm_bytes", "bytes_per_lane", "next_cluster_id",
+    "id_scheme", "devices", "id_watermark")
+
+
+def live_pool(profile, bug, seed, devices):
+    import jax
+
+    from madraft_tpu.tpusim.config import storm_profiles
+    from madraft_tpu.tpusim.engine import run_pool
+
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        cfg = storm_profiles()[profile][0].replace(bug=bug)
+        rows = []
+        s = run_pool(cfg, seed, POOL_SHAPE["lanes"], POOL_SHAPE["horizon"],
+                     chunk_ticks=POOL_SHAPE["chunk_ticks"],
+                     budget_ticks=POOL_SHAPE["budget_ticks"], devices=devices,
+                     on_retired=rows.append)
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
+    return {"rows": [[r[f] for f in ROW_FIELDS] for r in rows],
+            "summary": {k: s[k] for k in SUMMARY_FIELDS if k in s}}
+
+
+def record_pool() -> dict:
+    legs = {}
+    for name, (profile, bug, seed, devices) in POOL_LEGS.items():
+        legs[name] = {"profile": profile, "bug": bug, "seed": seed,
+                      "devices": devices,
+                      **live_pool(profile, bug, seed, devices)}
+    return {
+        "_comment": "Pool runs of the JAX package (CPU, "
+                    "jax_threefry_partitionable=True): retired rows in "
+                    "retirement order (row_fields) and the deterministic "
+                    "summary fields; written by tests/test_torch_fixture.py, "
+                    "read by chip_smoke.py.",
+        "partitionable": True,
+        **POOL_SHAPE,
+        "row_fields": list(ROW_FIELDS),
+        "legs": legs,
+    }
+
+
+@pytest.mark.parametrize("leg", list(POOL_LEGS))
+def test_pool_fixture_equals_live_reference(leg):
+    doc = json.loads(POOL_FIXTURE.read_text())
+    assert doc["partitionable"] is True
+    assert {k: doc[k] for k in POOL_SHAPE} == POOL_SHAPE
+    assert doc["row_fields"] == list(ROW_FIELDS)
+    rec = doc["legs"][leg]
+    assert (rec["profile"], rec["bug"], rec["seed"],
+            rec["devices"]) == POOL_LEGS[leg]
+    live = live_pool(*POOL_LEGS[leg])
+    assert rec["rows"] == live["rows"], f"{leg}: retired rows drifted"
+    assert rec["summary"] == live["summary"], f"{leg}: summary drifted"
+
+
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     FIXTURE.parent.mkdir(exist_ok=True)
-    FIXTURE.write_text(json.dumps(record(), indent=1) + "\n")
-    print(f"wrote {FIXTURE}")
+    for path, doc in ((FIXTURE, record()), (POOL_FIXTURE, record_pool())):
+        path.write_text(json.dumps(doc, indent=1) + "\n")
+        print(f"wrote {path}")

@@ -1,8 +1,10 @@
-"""The port reproduces the golden fuzz legs of tests/golden_fuzz.json on
-the CPU under the legacy threefry layout the golden file was recorded with
-(jax_threefry_partitionable=False). Every recorded report field must match
-exactly; the port's extra telemetry keys are ignored, as in the
-reference's own golden guard."""
+"""The port reproduces the golden legs of tests/golden_fuzz.json (the two
+fuzz legs and the pool leg) on the CPU under the legacy threefry layout the
+golden file was recorded with (jax_threefry_partitionable=False). Every
+recorded report or summary field must match exactly; the port's extra
+telemetry keys are ignored, as in the reference's own golden guard. The
+pool leg also carries the reference's packed layout and its 2612 bytes per
+lane."""
 
 import contextlib
 import io
@@ -19,13 +21,18 @@ GOLDEN = json.loads(
     (pathlib.Path(__file__).parent / "golden_fuzz.json").read_text())
 
 
-@pytest.mark.parametrize("leg", ["clean", "bug"])
+@pytest.mark.parametrize("leg", ["clean", "bug", "pool"])
 def test_golden_leg_reproduces_under_legacy_layout(leg):
     rec = GOLDEN[leg]
+    want = rec.get("report") or rec["summary"]
     buf = io.StringIO()
     with single_thread(), prng.layout(False), contextlib.redirect_stdout(buf):
         rc = port_main(rec["argv"] + ["--platform", "cpu"])
     live = json.loads(buf.getvalue().strip().splitlines()[-1])
-    assert rc == (1 if rec["report"]["violating"] else 0)
-    for key, want in rec["report"].items():
-        assert live[key] == want, f"{leg}: {key} {live[key]!r} != {want!r}"
+    found = want.get("violating", want.get("retired_violating"))
+    assert rc == (1 if found else 0)
+    for key, value in want.items():
+        assert live[key] == value, f"{leg}: {key} {live[key]!r} != {value!r}"
+    if leg == "pool":
+        assert live["state_layout"] == "packed"
+        assert live["bytes_per_lane"] == 2612.0

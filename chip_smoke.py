@@ -6,12 +6,14 @@
 Builds the CUDA kernels from ``madraft_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together), holds every kernel against its plain PyTorch
 version (bit-equal), reproduces the golden fuzz and pool legs and the JAX
-fixture legs on the card, drives the two main paths through the CLI and
+fixture legs on the card, drives the main paths through the CLI and
 checks that each went through its kernels: the fuzz flagship (``fuzz
 --storm --clusters 4096 --ticks 1024``, twice) and the pool flagship
 (``pool --storm --clusters 4096 --ticks 512 --budget-ticks 1024``, twice),
-replays pool hits through ``replay``, then times each kernel beside its
-plain version and its bound:
+each again with ``--metrics`` (the metrics plane: the oracle's metrics
+instance and the latency fold K4), replays pool hits through ``replay``,
+runs the nine raft-layer game-day gates with metrics on, then times each
+kernel beside its plain version and its bound:
 ``ms`` is the kernel's own device time per launch (torch.profiler, matched
 by the CUDA function's name), ``call_ms`` the wrapper's time per call as
 the host issues it back to back (CUDA events).
@@ -40,6 +42,12 @@ FLAGSHIP = ["fuzz", "--storm", "--clusters", "4096", "--ticks", "1024",
 FLAGSHIP_RUNS = 2  # --check-deterministic runs the program twice
 POOL_FLAGSHIP = ["pool", "--storm", "--clusters", "4096", "--ticks", "512",
                  "--budget-ticks", "1024", "--seed", "12345"]
+METRICS_FLAGSHIP = FLAGSHIP + ["--metrics"]
+METRICS_POOL_FLAGSHIP = POOL_FLAGSHIP + ["--metrics"]
+# the report keys the metrics plane adds
+METRIC_KEYS = ("latency", "events", "worst_op")
+# the metrics-on packed carry at n = 5, cap = 64 (the reference's pin)
+METRICS_BYTES_PER_LANE = 3600
 # a small pool whose broken quorum violates across refill generations
 REPLAY_POOL = ["pool", "--storm", "--majority-override", "2", "--clusters",
                "64", "--ticks", "64", "--chunk-ticks", "32", "--budget-ticks",
@@ -162,6 +170,46 @@ def deterministic(d: dict) -> dict:
     return {k: v for k, v in d.items() if k not in WALL}
 
 
+def counters():
+    """Every kernel launch counter, by name: the wrappers' ``launches``
+    and the oracle's count of metrics-instance launches."""
+    from madraft_tpu_torch.kernels import metrics as K4
+    from madraft_tpu_torch.kernels import oracle as K2
+    from madraft_tpu_torch.kernels import pack as K3
+    from madraft_tpu_torch.kernels import threefry as K1
+
+    return {"threefry_hash_pairs": (K1.hash_pairs, "launches"),
+            "threefry_tick_blocks": (K1.tick_blocks, "launches"),
+            "oracle": (K2.oracle, "launches"),
+            "oracle_metrics": (K2.oracle, "metrics_launches"),
+            "pack_state": (K3.pack_state, "launches"),
+            "unpack_state": (K3.unpack_state, "launches"),
+            "latency_fold": (K4.latency_fold, "launches")}
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, a) for k, (fn, a) in counters().items()}
+
+
+def set_counts(values=None) -> None:
+    """Set every counter to 0, or back to the values of ``read_counts``."""
+    for k, (fn, a) in counters().items():
+        setattr(fn, a, 0 if values is None else values[k])
+
+
+class KeepFirst:
+    """A stand-in for a function the engine or the CLI calls: it keeps
+    ``keep(args)`` of the first call and returns what the function does."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.kept = fn, keep, []
+
+    def __call__(self, *args):
+        if not self.kept:
+            self.kept.append(self.keep(*args))
+        return self.fn(*args)
+
+
 def main() -> int:
     import torch
 
@@ -169,16 +217,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
-    from madraft_tpu_torch.tpusim import config, engine, prng, state, step
+    from madraft_tpu_torch.tpusim import (
+        config,
+        engine,
+        metrics,
+        prng,
+        state,
+        step,
+    )
 
     dev = torch.device("cuda")
-    kernels = (K1.hash_pairs, K1.tick_blocks, K2.oracle, K3.pack_state,
-               K3.unpack_state)
-    errs = {"threefry_hash_pairs": 0.0, "threefry_tick_blocks": 0.0,
-            "oracle": 0.0, "pack_state": 0.0, "unpack_state": 0.0}
+    errs = {k: 0.0 for k in counters()}
     edges = (1, 2, 1000, 2**20, 2**20 + 7, 2**31 - 1)
 
     # ---- 1. build
@@ -259,6 +312,34 @@ def main() -> int:
     emit({"phase": "k2_vs_plain", "states": ["storm@150", "planted"],
           "clusters": 512, "max_abs_err": errs["oracle"]})
 
+    # ---- 3a. K2's metrics instance against its plain version, shadow_sub
+    # included: metrics-on storm states at n = 3, 5, 7 and a planted copy
+    checked = []
+    for n_nodes in (3, 5, 7):
+        cfg = storm.replace(n_nodes=n_nodes, metrics=True)
+        ck = engine.cluster_keys(7, 512, dev)
+        kn = cfg.knobs(dev)
+        hm = state.state_to_numpy(engine._advance(
+            cfg, state.init_cluster(cfg, ck, kn), ck, kn, 150))
+        srcs = [("storm@150", hm)]
+        if n_nodes == 5:
+            srcs.append(("planted", _plant(hm)[0]))
+        for label, src in srcs:
+            _k2m_vs_plain(state.state_from_numpy(src, dev), errs,
+                          f"n={n_nodes} {label}")
+            checked.append(f"n{n_nodes}:{label}")
+    emit({"phase": "k2_metrics_vs_plain", "states": checked, "clusters": 512,
+          "max_abs_err": errs["oracle_metrics"]})
+
+    # ---- 3b'. K4 against its plain version on planted inputs: every
+    # bucket edge, ties, all and no ops masked, held registers, int32 wrap
+    shapes = ((4096, 64, 4), (1001, 64, 4), (64, 33, 5), (9, 1, 0))
+    for b_, m_, p_ in shapes:
+        _k4_vs_plain(metrics.planted_fold_inputs(b_, m_, p_, b_ + m_), dev,
+                     errs, f"planted {b_}x{m_}x{p_}")
+    emit({"phase": "k4_vs_plain_planted", "shapes": shapes,
+          "max_abs_err": errs["latency_fold"]})
+
     # ---- 3b. K3 against its plain version (on the CPU, same inputs):
     # n = 3, 5, 7; fresh clusters, storm@150, and a state at the edges of
     # the packed bounds; unpack(pack(s)) == s on each
@@ -331,18 +412,23 @@ def main() -> int:
                   "retired": out["retired"],
                   "violating": out["retired_violating"],
                   "state_layout": out["state_layout"]})
+    _metrics_fixture_legs(dev)
 
-    # ---- 6. the flagship, through the CLI, counting kernel launches
-    for fn in kernels:
-        fn.launches = 0
+    # ---- 6. the flagship, through the CLI, counting kernel launches; the
+    # final state of its first run is kept on the host (metric leaves
+    # aside) for the metrics flagship to be held against
+    set_counts()
     prng.set_partitionable(True)
-    t0 = time.perf_counter()
-    rc, out = run_cli(FLAGSHIP)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"threefry_hash_pairs": K1.hash_pairs.launches,
-                "threefry_tick_blocks": K1.tick_blocks.launches,
-                "oracle": K2.oracle.launches}
+    final_off = KeepFirst(engine.report, _non_metric_leaves)
+    engine.report = final_off
+    try:
+        t0 = time.perf_counter()
+        rc, out = run_cli(FLAGSHIP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.report = final_off.fn
+    launches = read_counts()
     ticks = _flag(FLAGSHIP, "--ticks") * FLAGSHIP_RUNS
     chunks = -(-_flag(FLAGSHIP, "--ticks") // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
     check(rc == 0 and out["violating"] == 0, f"flagship rc {rc}: {out}")
@@ -350,9 +436,11 @@ def main() -> int:
     check(out["first_leader_tick_mean"] > 0 and out["committed_mean"] > 0,
           f"flagship made no progress: {out}")
     check(launches["threefry_tick_blocks"] == chunks
-          and launches["oracle"] == ticks and launches["threefry_hash_pairs"] > 0,
+          and launches["oracle"] == ticks and launches["threefry_hash_pairs"] > 0
+          and launches["oracle_metrics"] == launches["latency_fold"] == 0,
           f"flagship launches {launches}, want {chunks} tick_blocks (one per "
-          f"chunk of {engine.DRAW_CHUNK} ticks) and {ticks} oracle")
+          f"chunk of {engine.DRAW_CHUNK} ticks), {ticks} oracle and no "
+          "metrics launch")
     tele = out["telemetry"]
     emit({"phase": "flagship", "argv": FLAGSHIP, "rc": rc,
           "cluster_steps_per_s": tele["steps_per_sec"],
@@ -361,26 +449,63 @@ def main() -> int:
           "first_leader_tick_mean": out["first_leader_tick_mean"],
           "bytes_per_lane": tele["bytes_per_lane"]})
 
+    # ---- 6m. the metrics flagship: the same run with --metrics. Every
+    # non-metric leaf of its final state and every non-metric report field
+    # equals the flagship's; K4 and K2's metrics instance run once a tick
+    set_counts()
+    final_on = KeepFirst(engine.report, _non_metric_leaves)
+    engine.report = final_on
+    try:
+        t0 = time.perf_counter()
+        rc_m, out_m = run_cli(METRICS_FLAGSHIP)
+        torch.cuda.synchronize()
+        wall_m = time.perf_counter() - t0
+    finally:
+        engine.report = final_on.fn
+    launches_m = read_counts()
+    check(rc_m == 0 and out_m.get("deterministic") is True,
+          f"metrics flagship rc {rc_m} or double run differs: {out_m}")
+    same = {k: v for k, v in out_m.items()
+            if k not in METRIC_KEYS and k != "telemetry"}
+    want_same = {k: v for k, v in out.items() if k != "telemetry"}
+    check(same == want_same,
+          f"metrics changed the flagship's report: {same} vs {want_same}")
+    bad = [f for f, a in final_off.kept[0].items()
+           if not (a.dtype == final_on.kept[0][f].dtype
+                   and (a == final_on.kept[0][f]).all())]
+    check(not bad, f"metrics changed the flagship's final leaves {bad}")
+    _check_latency_mass(out_m["latency"], "metrics flagship")
+    check(launches_m["latency_fold"] == ticks
+          and launches_m["oracle_metrics"] == launches_m["oracle"] == ticks
+          and launches_m["threefry_tick_blocks"] == chunks,
+          f"metrics flagship launches {launches_m}, want {ticks} "
+          f"latency_fold and metrics oracle, {chunks} tick_blocks")
+    tele_m = out_m["telemetry"]
+    emit({"phase": "metrics_flagship", "argv": METRICS_FLAGSHIP, "rc": rc_m,
+          "cluster_steps_per_s": tele_m["steps_per_sec"],
+          "execute_s": tele_m["execute_s"],
+          "wall_s_both_runs": round(wall_m, 3), "launches": launches_m,
+          "latency": {k: out_m["latency"][k] for k in
+                      ("ops", "p50_ticks", "p99_ticks", "ticks_total")},
+          "worst_op": out_m["worst_op"], "events": out_m["events"],
+          "bytes_per_lane": tele_m["bytes_per_lane"],
+          "trajectory_unchanged": True})
+    del final_off, final_on
+
     # ---- 6b. the pool flagship, through the CLI, twice, counting launches
     cfg = _storm_cfg()
     packed_bpl = state.tree_bytes(state.pack_state(cfg, state.init_cluster(
         cfg, engine.cluster_keys(0, 8, "cpu")))) / 8
-    for fn in kernels:
-        fn.launches = 0
+    set_counts()
     runs = []
     # keep a host copy of the wide carry the first harvest packs (a few ms
     # of the first run; no device memory kept), so phase 7 can hold K3
     # against its plain version at this path's shape. The engine sees K3
     # through a stand-in whose pack keeps that copy and calls the kernel's
     # wrapper, which counts its launch as always
-    harvested = []
-
-    def pack_and_keep(cfg_, s_):
-        if not harvested:
-            harvested.append(state.state_to_numpy(s_))
-        return K3.pack_state(cfg_, s_)
-
-    engine.K3 = types.SimpleNamespace(pack_state=pack_and_keep,
+    harvested = KeepFirst(K3.pack_state,
+                          lambda cfg_, s_: state.state_to_numpy(s_))
+    engine.K3 = types.SimpleNamespace(pack_state=harvested,
                                       unpack_state=K3.unpack_state)
     try:
         for _ in range(2):
@@ -391,11 +516,7 @@ def main() -> int:
                          torch.cuda.max_memory_allocated()))
     finally:
         engine.K3 = K3
-    pool_launches = {"threefry_hash_pairs": K1.hash_pairs.launches,
-                     "threefry_tick_blocks": K1.tick_blocks.launches,
-                     "oracle": K2.oracle.launches,
-                     "pack_state": K3.pack_state.launches,
-                     "unpack_state": K3.unpack_state.launches}
+    pool_launches = read_counts()
     (rc1, rows1, out1, peak1), (rc2, rows2, out2, peak2) = runs
     lanes, horizon, budget = (_flag(POOL_FLAGSHIP, f) for f in
                               ("--clusters", "--ticks", "--budget-ticks"))
@@ -433,6 +554,61 @@ def main() -> int:
           "state_hbm_bytes": out1["state_hbm_bytes"],
           "bytes_per_lane": out1["bytes_per_lane"]})
 
+    # ---- 6m'. the metrics pool flagship, twice: deterministic, its rows
+    # and summary equal to the pool flagship's but for the metric columns,
+    # the histogram mass invariants, K4 once a tick
+    set_counts()
+    mruns = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        rc, lines = run_cli_lines(METRICS_POOL_FLAGSHIP)
+        torch.cuda.synchronize()
+        mruns.append((rc, lines[:-1], lines[-1],
+                      torch.cuda.max_memory_allocated()))
+    mpool_launches = read_counts()
+    (mrc1, mrows1, mout1, mpeak1), (mrc2, mrows2, mout2, mpeak2) = mruns
+    check(mrc1 == mrc2 == 0, f"metrics pool flagship rc {mrc1} {mrc2}")
+    check([deterministic(r) for r in mrows1] == [deterministic(r) for r in mrows2]
+          and deterministic(mout1) == deterministic(mout2),
+          "metrics pool flagship double run differs")
+    row_cols = ("latency_hist", "events", "latency_phases", "worst_op")
+    check([deterministic({k: v for k, v in r.items() if k not in row_cols})
+           for r in mrows1] == [deterministic(r) for r in rows1],
+          "metrics changed the pool flagship's rows")
+    plain_keys = ("state_hbm_bytes", "bytes_per_lane")
+    check({k: v for k, v in deterministic(mout1).items()
+           if k not in METRIC_KEYS + plain_keys}
+          == {k: v for k, v in deterministic(out1).items()
+              if k not in plain_keys},
+          "metrics changed the pool flagship's summary")
+    check(mout1["state_layout"] == "packed"
+          and mout1["bytes_per_lane"] == METRICS_BYTES_PER_LANE,
+          f"metrics pool carry {mout1['state_layout']} "
+          f"{mout1['bytes_per_lane']} B a lane")
+    _check_latency_mass(mout1["latency"], "metrics pool flagship")
+    for r in mrows1:
+        check(all(sum(h) == sum(r["latency_hist"])
+                  for h in r["latency_phases"].values()),
+              f"pool row {r['cluster_id']}: phase rows' mass differs")
+    check(sum(sum(r["latency_hist"]) for r in mrows1) <= mout1["latency"]["ops"],
+          "pool rows hold more ops than the summary")
+    mwant = dict(want, latency_fold=2 * budget, oracle_metrics=2 * budget)
+    check(all(mpool_launches[k] == v for k, v in mwant.items()),
+          f"metrics pool flagship launches {mpool_launches}, want {mwant}")
+    emit({"phase": "metrics_pool_flagship", "argv": METRICS_POOL_FLAGSHIP,
+          "rc": mrc1, "retired": mout1["retired"], "launches": mpool_launches,
+          "runs": [{k: o[k] for k in ("wall_s", "steps_per_sec",
+                                      "dispatch_gap_s", "device_wait_s",
+                                      "host_overlap_s", "compile_s")}
+                   | {"peak_memory_bytes": pk}
+                   for o, pk in ((mout1, mpeak1), (mout2, mpeak2))],
+          "latency": {k: mout1["latency"][k] for k in
+                      ("ops", "p50_ticks", "p99_ticks", "ticks_total")},
+          "worst_op": mout1["worst_op"],
+          "state_hbm_bytes": mout1["state_hbm_bytes"],
+          "bytes_per_lane": mout1["bytes_per_lane"]})
+    del mruns, mrows1, mrows2
+
     # ---- 6c. pool hits replay through the CLI's replay
     rc, lines = run_cli_lines(REPLAY_POOL)
     hits = lines[:-1]
@@ -453,6 +629,30 @@ def main() -> int:
     emit({"phase": "pool_replay", "hits": len(hits), "replayed": replayed,
           "generations": sorted({c // lanes for c in replayed})})
 
+    # ---- 6g. the raft layer's game-day gates (config.profile_gates) with
+    # metrics on at their bench scale: no violation, liveness (acked ops a
+    # lane) at or above the floor, p99 at or below the ceiling
+    gates = {}
+    with prng.layout(True):
+        for name, g in config.profile_gates().items():
+            if g["workload"]:
+                gates[name] = {"skipped": "a kv workload (ROADMAP A11)"}
+                continue
+            cfg = config.storm_profiles()[name][0].replace(metrics=True)
+            lanes_g, ticks_g = g["bench_scale"]
+            rep_g = engine.fuzz(cfg, 12345, lanes_g, ticks_g, device=dev)
+            lat = metrics.latency_summary(rep_g.lat_hist.sum(axis=0))
+            live = round(lat["ops"] / lanes_g, 2)
+            gates[name] = {"violating": rep_g.n_violating, "liveness": live,
+                           "floor": g["liveness_floor"],
+                           "p99_ticks": lat["p99_ticks"],
+                           "ceiling": g["p99_ceiling"]}
+            check(rep_g.n_violating == 0 and live >= g["liveness_floor"]
+                  and lat["p99_ticks"] is not None
+                  and lat["p99_ticks"] <= g["p99_ceiling"],
+                  f"profile gate {name} fails: {gates[name]}")
+    emit({"phase": "profile_gates", "seed": 12345, "gates": gates})
+
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
     total = step._block_total(n_nodes)
@@ -469,16 +669,54 @@ def main() -> int:
         errs["oracle"] = max(errs["oracle"], max_abs_err(a, bb))
     check(errs["oracle"] == 0, "oracle kernel differs at the flagship shape")
     k2_out = K2.oracle(*args2)
-    counts = {fn: fn.launches for fn in kernels}
+    counts = read_counts()
     k2_rot = [args2] + [tuple(x.clone() for x in args2)
                         for _ in range(rotations(nbytes(*args2)) - 1)]
     fcfg = _storm_cfg()
+
+    # the metrics flagship's shape: a metrics-on state after 200 ticks, the
+    # latency fold's inputs of its last tick kept as the tick gives them
+    mcfg = fcfg.replace(metrics=True)
+    ms_ = state.init_cluster(mcfg, fk, fkn)
+    for _ in range(199):
+        ms_ = step.step_cluster(mcfg, ms_, fk, fkn)
+    fold_in = KeepFirst(K4.latency_fold, lambda *a: a)
+    K4.latency_fold = fold_in
+    try:
+        ms_ = step.step_cluster(mcfg, ms_, fk, fkn)
+    finally:
+        K4.latency_fold = fold_in.fn
+    k4_args = fold_in.kept[0]
+    _k4_vs_plain(_to(k4_args, "cpu"), dev, errs, "storm tick 200")
+    emit({"phase": "k4_vs_plain_storm_tick", "clusters": b, "tick": 200,
+          "ops_folded": int(k4_args[1].sum()),
+          "max_abs_err": errs["latency_fold"]})
+    args2m = oracle_args(ms_)
+    _k2m_vs_plain(ms_, errs, "flagship shape")
+    k2m_out = K2.oracle(*args2m, log_tick=ms_.log_tick)
+    k2m_rot = [(args2m, ms_.log_tick)] + [
+        (tuple(x.clone() for x in args2m), ms_.log_tick.clone())
+        for _ in range(rotations(nbytes(*args2m, ms_.log_tick)) - 1)]
+    k4_rot = [k4_args] + [_clone(k4_args) for _ in range(
+        rotations(nbytes(*_flat(k4_args))) - 1)]
+    hm_ = state.state_to_numpy(ms_)
+    for label, h in (("metrics_storm@200", hm_),
+                     ("metrics_edge", state.planted_edge_state(mcfg, hm_, b))):
+        _k3_vs_plain(mcfg, h, dev, errs, label)
+    mp = K3.pack_state(mcfg, ms_)
+    check(nbytes(*mp) == METRICS_BYTES_PER_LANE * b,
+          f"metrics-on packed carry {nbytes(*mp) / b} B a lane")
+    emit({"phase": "k3_vs_plain_metrics_carry", "clusters": b,
+          "states": ["metrics_storm@200", "metrics_edge"],
+          "packed_bytes_per_lane": nbytes(*mp) / b,
+          "max_abs_err": max(errs["pack_state"], errs["unpack_state"])})
+    del hm_, mp
     # K3 at the shape the pool flagship gives it: the wide carry its first
     # harvest packed, and a copy planted at the packed bounds' edges (every
     # lane at its own tick)
-    check(len(harvested) == 1 and harvested[0]["tick"].shape[0] == b,
-          f"pool flagship carry not kept: {len(harvested)}")
-    h_pool = harvested.pop()
+    check(len(harvested.kept) == 1 and harvested.kept[0]["tick"].shape[0] == b,
+          f"pool flagship carry not kept: {len(harvested.kept)}")
+    h_pool = harvested.kept.pop()
     for label, h in (("pool_harvest", h_pool),
                      ("pool_edge", state.planted_edge_state(fcfg, h_pool, b))):
         _k3_vs_plain(fcfg, h, dev, errs, label)
@@ -499,6 +737,23 @@ def main() -> int:
 
     def k2_plain(i):
         return K2.oracle_plain(*k2_rot[i % len(k2_rot)])
+
+    def k2m_call(i):
+        a, lt = k2m_rot[i % len(k2m_rot)]
+        return K2.oracle(*a, log_tick=lt)
+
+    def k2m_plain(i):
+        a, lt = k2m_rot[i % len(k2m_rot)]
+        return K2.oracle_plain(*a, log_tick=lt)
+
+    def k4_call(i):
+        return K4.latency_fold(*k4_rot[i % len(k4_rot)])
+
+    def k4_plain(i):
+        return metrics.latency_fold_plain(*k4_rot[i % len(k4_rot)])
+
+    k4_out = _flat(K4.latency_fold(*k4_args))
+    n_ph = k4_args[2].shape[1]
 
     # name: (device ms, call ms, plain ms, bytes, operations)
     timing = {
@@ -528,6 +783,23 @@ def main() -> int:
             # matching), n x cap x ~12 (shadow walk), cap x ~10 (slide)
             b * (n_nodes * (n_nodes - 1) // 2 * 64 * 8 + n_nodes * 64 * 12
                  + 64 * 10)),
+        # the metrics instance also reads log_tick and writes shadow_sub;
+        # one more operation per node and lane in the walk
+        "oracle_metrics": (
+            device_ms(k2m_call, "oracle_kernel"),
+            cuda_ms(k2m_call),
+            cuda_ms(k2m_plain, iters=20),
+            nbytes(*args2m, ms_.log_tick) + nbytes(*k2m_out),
+            b * (n_nodes * (n_nodes - 1) // 2 * 64 * 8 + n_nodes * 64 * 13
+                 + 64 * 10)),
+        # per op: (1 + P) rows of a bucket (about 4 operations) and a sum,
+        # 3 for the argmax; the bytes bound it
+        "latency_fold": (
+            device_ms(k4_call, "latency_fold_kernel"),
+            cuda_ms(k4_call),
+            cuda_ms(k4_plain, iters=20),
+            nbytes(*_flat(k4_args)) + nbytes(*k4_out),
+            b * 64 * ((1 + n_ph) * 5 + 3)),
         # one direction reads one form and writes the other
         "pack_state": (
             device_ms(lambda i: K3.pack_state(fcfg, k3p_rot[i % len(k3p_rot)]),
@@ -545,28 +817,37 @@ def main() -> int:
                     iters=20),
             nbytes(*fs) + nbytes(*fp), k3_ops),
     }
-    del k2_rot, k3p_rot, k3u_rot
-    for fn, c in counts.items():  # timing launches are not main-path launches
-        fn.launches = c
+    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot
+    set_counts(counts)  # timing launches are not main-path launches
     emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
           "l2_cold_rotations": {"oracle": rotations(nbytes(*args2)),
+                                "latency_fold": rotations(
+                                    nbytes(*_flat(k4_args))),
                                 "pack_state": rotations(nbytes(*fs)),
                                 "unpack_state": rotations(nbytes(*fp))},
           "shapes": {"tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
                      "oracle_logs": [b, n_nodes, 64],
+                     "latency_fold": [b, 64, n_ph],
                      "pack_bytes": [nbytes(*fs), nbytes(*fp)]}})
 
     # ---- 8. where a flagship tick's and a pool harvest's time goes
     # (torch.profiler), and the bytes behind B2-rest's bound
-    emit(_profile_ticks(fs, fk, fkn, chunk))
+    emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
+    emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_metrics"))
     wide_bpl, packed_bpl = nbytes(*fs) / b, nbytes(*fp) / b
+    # a harvest reads the chunk's wide state, ids and keys once and writes
+    # the packed carry, the [B, 9] snapshot and the new ids and keys once
+    harvest_bpl = wide_bpl + packed_bpl + 9 * 4 + 2 * (4 + 16)
     emit({"phase": "bytes", "wide_bytes_per_lane": wide_bpl,
           "packed_bytes_per_lane": packed_bpl,
+          "metrics_wide_bytes_per_lane": nbytes(*ms_) / b,
           "draw_bytes_per_lane_tick": total * 8,
           # the wide state read and written once per tick, plus the tick's
           # draw words
           "b2_rest_bound_ms_per_tick":
-              b * (2 * wide_bpl + total * 8) / PEAK_BYTES_S * 1e3})
+              b * (2 * wide_bpl + total * 8) / PEAK_BYTES_S * 1e3,
+          "b4_harvest_bytes_per_lane": harvest_bpl,
+          "b4_harvest_bound_ms": b * harvest_bpl / PEAK_BYTES_S * 1e3})
     emit(_profile_harvest(fs, fk, fkn))
 
     sources = {
@@ -576,15 +857,22 @@ def main() -> int:
                                 "madraft_tpu/tpusim/engine.py:95"),
         "oracle": ("madraft_tpu_torch/csrc/oracle.cu",
                    "madraft_tpu/tpusim/step.py:961"),
+        "oracle_metrics": ("madraft_tpu_torch/csrc/oracle.cu",
+                           "madraft_tpu/tpusim/step.py:1008"),
+        "latency_fold": ("madraft_tpu_torch/csrc/metrics.cu",
+                         "madraft_tpu/tpusim/metrics.py:45"),
         "pack_state": ("madraft_tpu_torch/csrc/pack.cu",
                        "madraft_tpu/tpusim/state.py:561"),
         "unpack_state": ("madraft_tpu_torch/csrc/pack.cu",
                          "madraft_tpu/tpusim/state.py:656"),
     }
     # each kernel's launches on the main path that runs it: the fuzz
-    # flagship for K1 and K2, the pool flagship for K3
+    # flagship for K1 and K2, the pool flagship for K3, the metrics
+    # flagship for K2's metrics instance and K4
     launches.update({k: pool_launches[k] for k in ("pack_state",
                                                    "unpack_state")})
+    launches.update({k: launches_m[k] for k in ("oracle_metrics",
+                                                "latency_fold")})
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
@@ -660,6 +948,115 @@ def _plant(h: dict):
     return p, want
 
 
+def _to(args, dev):
+    """The latency fold's argument tuple (its last item a tuple) on dev."""
+    return tuple(_to(x, dev) if isinstance(x, tuple) else x.to(dev)
+                 for x in args)
+
+
+def _clone(args):
+    return tuple(_clone(x) if isinstance(x, tuple) else x.clone()
+                 for x in args)
+
+
+def _flat(args) -> list:
+    return [y for x in args
+            for y in (_flat(x) if isinstance(x, tuple) else [x])]
+
+
+def _k4_vs_plain(cpu_args, dev, errs: dict, label: str) -> None:
+    """K4 on the card against its plain version on the CPU, same inputs:
+    every output register bit-equal, dtypes included."""
+    from madraft_tpu_torch.kernels import metrics as K4
+    from madraft_tpu_torch.tpusim import metrics
+
+    got = _flat(K4.latency_fold(*_to(cpu_args, dev)))
+    want = _flat(metrics.latency_fold_plain(*cpu_args))
+    check(len(got) == len(want) == 9, "latency_fold returns 9 registers")
+    for a, b in zip(got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"K4 output {a.dtype}{tuple(a.shape)} vs plain "
+              f"{b.dtype}{tuple(b.shape)} at {label}")
+        errs["latency_fold"] = max(errs["latency_fold"],
+                                   max_abs_err(a.cpu(), b))
+    check(errs["latency_fold"] == 0,
+          f"K4 differs from its plain version at {label}")
+
+
+def _k2m_vs_plain(st, errs: dict, label: str) -> None:
+    """K2's metrics instance against its plain version on a metrics-on
+    state (on the card): the ten outputs, shadow_sub last, bit-equal."""
+    from madraft_tpu_torch.kernels import oracle as K2
+
+    args = oracle_args(st)
+    got = K2.oracle(*args, log_tick=st.log_tick)
+    want = K2.oracle_plain(*args, log_tick=st.log_tick)
+    check(len(got) == len(want) == 10, "the metrics oracle returns 10 outputs")
+    for a, b in zip(got, want):
+        errs["oracle_metrics"] = max(errs["oracle_metrics"], max_abs_err(a, b))
+    check(errs["oracle_metrics"] == 0,
+          f"K2's metrics instance differs from its plain version at {label}")
+
+
+def _check_latency_mass(lat: dict, label: str) -> None:
+    """The metrics plane's invariants on a report's latency block: every
+    phase row holds the acked ops, and the phases' tick totals add up to
+    the end-to-end total."""
+    check(lat["ops"] > 0, f"{label}: no op was acked")
+    check(all(d["ops"] == lat["ops"] for d in lat["phases"].values()),
+          f"{label}: phase rows' mass differs from {lat['ops']} ops")
+    check(sum(d["ticks_total"] for d in lat["phases"].values())
+          == lat["ticks_total"],
+          f"{label}: phase ticks do not add up to {lat['ticks_total']}")
+
+
+def _non_metric_leaves(final) -> dict:
+    """A final state's leaves on the host, the metric ones aside."""
+    from madraft_tpu_torch.tpusim import state
+
+    h = state.state_to_numpy(final)
+    return {f: h[f] for f in state.ClusterState._fields[:state.METRIC_LEAF0]}
+
+
+def _metrics_fixture_legs(dev) -> None:
+    """The JAX package's metrics legs (tests/torch_fixtures/
+    metrics_legs.json) on the card: the storm fuzz report's per-cluster
+    arrays, metric rows included, and the durability + ack_before_fsync
+    pool's rows and deterministic summary, all bit-equal."""
+    from madraft_tpu_torch.tpusim import config, engine, prng
+
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                     "metrics_legs.json").read_text())
+    with prng.layout(fx["partitionable"]):
+        rec = fx["fuzz"]
+        cfg = config.storm_profiles()[rec["profile"]][0].replace(
+            bug=rec["bug"], metrics=True)
+        rep = engine.fuzz(cfg, rec["seed"], rec["n_clusters"], rec["n_ticks"],
+                          device=dev)
+        for f, want in rec["report"].items():
+            check(getattr(rep, f).tolist() == want,
+                  f"metrics fixture fuzz leg: field {f} differs")
+        emit({"phase": "fixture_metrics_fuzz", "match": True,
+              "ops": int(rep.lat_hist.sum())})
+        rec = fx["pool"]
+        cfg = config.storm_profiles()[rec["profile"]][0].replace(
+            bug=rec["bug"], metrics=True)
+        rows = []
+        out = engine.run_pool(cfg, rec["seed"], rec["lanes"], rec["horizon"],
+                              chunk_ticks=rec["chunk_ticks"],
+                              budget_ticks=rec["budget_ticks"],
+                              on_retired=rows.append, device=dev)
+        got = [deterministic(r) for r in rows]
+        check(got == rec["rows"], "metrics fixture pool leg: rows differ")
+        bad = {k: (out.get(k), v) for k, v in rec["summary"].items()
+               if out.get(k) != v}
+        check(not bad, f"metrics fixture pool leg: summary differs: {bad}")
+        emit({"phase": "fixture_metrics_pool", "match": True,
+              "retired": out["retired"],
+              "violating": out["retired_violating"],
+              "ops": out["latency"]["ops"]})
+
+
 def _k3_vs_plain(cfg, h: dict, dev, errs: dict, label: str) -> None:
     """K3's pack and unpack on the card against their plain versions on
     the CPU, same inputs (a wide host state ``h``): every leaf bit-equal,
@@ -691,14 +1088,9 @@ def _profile_harvest(s, keys, kn) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from madraft_tpu_torch.kernels import oracle as K2
-    from madraft_tpu_torch.kernels import pack as K3
-    from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.tpusim import engine
 
-    fns = (K1.hash_pairs, K1.tick_blocks, K2.oracle, K3.pack_state,
-           K3.unpack_state)
-    counts = {fn: fn.launches for fn in fns}
+    counts = read_counts()
     cfg = _storm_cfg()
     b = int(s.tick.shape[0])
     ids = torch.arange(b, dtype=torch.int32, device=s.tick.device)
@@ -714,8 +1106,7 @@ def _profile_harvest(s, keys, kn) -> dict:
         h = engine._harvest(cfg, kn, c, 12345, 200, False, True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    for fn, n in counts.items():
-        fn.launches = n
+    set_counts(counts)
     kernels = [e for e in prof.key_averages()
                if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
@@ -729,21 +1120,19 @@ def _profile_harvest(s, keys, kn) -> dict:
     }
 
 
-def _profile_ticks(s, keys, kn, n_ticks: int) -> dict:
-    """Wall time per flagship tick, the card's busy share over it, the
-    kernels launched per tick, and the five kernels with the most device
-    time, from torch.profiler, over one chunk of n_ticks ticks drawn as the
-    engine draws them. Kernel launches here go to the counters' saved
-    values afterwards, like the timing phase's."""
+def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str) -> dict:
+    """Wall time per tick of ``cfg`` from state ``s``, the card's busy
+    share over it, the kernels launched per tick, and the five kernels with
+    the most device time, from torch.profiler, over one chunk of n_ticks
+    ticks drawn as the engine draws them. Kernel launches here go to the
+    counters' saved values afterwards, like the timing phase's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.tpusim import prng, step
 
-    counts = {fn: fn.launches for fn in (K1.hash_pairs, K1.tick_blocks, K2.oracle)}
-    cfg = _storm_cfg()
+    counts = read_counts()
     total = step._block_total(cfg.n_nodes)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -754,15 +1143,14 @@ def _profile_ticks(s, keys, kn, n_ticks: int) -> dict:
             s = step.step_cluster(cfg, s, keys, kn, words=words[i])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    for fn, c in counts.items():
-        fn.launches = c
+    set_counts(counts)
 
     kernels = [e for e in prof.key_averages()
                if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:5]
     return {
-        "phase": "profile", "ticks": n_ticks, "clusters": int(s.tick.shape[0]),
+        "phase": phase, "ticks": n_ticks, "clusters": int(s.tick.shape[0]),
         "wall_ms_per_tick": wall_ms / n_ticks,
         "device_busy_ms_per_tick": busy_ms / n_ticks if kernels else None,
         "device_busy_share": busy_ms / wall_ms if kernels else None,

@@ -1,19 +1,23 @@
 """madtpu CLI on the PyTorch port (raw-raft verbs).
 
-    python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm]
+    python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm] [--metrics]
     python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm]
+    python -m madraft_tpu_torch stats  REPORT.json [POOL.jsonl ...] [--json]
     python -m madraft_tpu_torch fuzz --list-profiles
 
 The verbs take the JAX CLI's flags and print its JSON keys, so a report
 from either package reads the same; ``pool`` streams one JSONL row per
-retired cluster and then its summary line. Runs go to the CUDA card unless
-``--platform cpu`` is given; without a card the run fails rather than fall
-back. Exit codes: 0 clean, 1 violation found (or a failed
-``--check-deterministic``), 2 usage error. The JAX CLI's other verbs, and
-the flags of paths not ported yet (``--mesh``, ``--metrics``, pool's
-``--devices N>1``, ``--coverage*``, ``--heartbeat``, ``--digest-every``),
-exit 2 naming the ROADMAP item.
+retired cluster and then its summary line. ``--metrics`` turns on the
+on-device metrics plane (submit->commit latency histograms, phase
+attribution, the worst op, event counters); ``stats`` merges and renders
+the metrics of any mix of those outputs on the host. Runs go to the CUDA
+card unless ``--platform cpu`` is given; without a card the run fails
+rather than fall back. Exit codes: 0 clean, 1 violation found (or a failed
+``--check-deterministic``), 2 usage error (``stats``: input without
+metrics). The JAX CLI's other verbs, and the flags of paths not ported yet
+(``--mesh``, pool's ``--devices N>1``, ``--coverage*``, ``--heartbeat``,
+``--digest-every``, ``stats --follow``), exit 2 naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import sys
 
 NOT_PORTED_VERBS = (
     "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "sweep", "explain",
-    "bridge", "stats", "lint",
+    "bridge", "lint",
 )
 
 
@@ -80,6 +84,8 @@ def _sim_config(args):
         cfg = cfg.replace(fsync_every=args.fsync_every)
     if args.lose_unsynced >= 0:
         cfg = cfg.replace(p_lose_unsynced=args.lose_unsynced)
+    if args.metrics:
+        cfg = cfg.replace(metrics=True)
     return cfg
 
 
@@ -176,10 +182,28 @@ def _report_json(rep, extra=None):
     }
     for f in rep._fields:
         v = getattr(rep, f)
+        # the metric rows (2-d, or None) get decoded blocks below
         if v is None or getattr(v, "ndim", 0) > 1:
             continue
         if hasattr(v, "mean"):
             out[f"{f}_mean"] = round(float(v.mean()), 2)
+    if rep.lat_hist is not None:
+        # rows merge across clusters by plain addition
+        from madraft_tpu_torch.tpusim.metrics import (
+            event_summary,
+            latency_summary,
+            merge_worst_registers,
+            phases_summary,
+        )
+
+        out["latency"] = latency_summary(rep.lat_hist.sum(axis=0))
+        out["latency"]["phases"] = phases_summary(
+            rep.phase_hist.sum(axis=0), rep.phase_ticks.sum(axis=0))
+        out["latency"]["ticks_total"] = int(rep.lat_ticks.sum())
+        out["worst_op"] = merge_worst_registers(
+            rep.worst_lat, rep.worst_phases, rep.worst_key,
+            rep.worst_client, rep.worst_sub)
+        out["events"] = event_summary(rep.ev_counts.sum(axis=0))
     if extra:
         out.update(extra)
     print(json.dumps(out))
@@ -308,8 +332,299 @@ def cmd_pool(args) -> int:
                    else "cpu"),
         "backend": dev.type,
     })
+    if "latency" in summary:
+        # the client experience in one line, on stderr so stdout stays JSONL
+        lat = summary["latency"]
+        print(
+            f"pool: latency p50={lat['p50_ticks']} p99={lat['p99_ticks']} "
+            f"ticks over {lat['ops']} ops; "
+            f"{summary['violations_per_s']} violations/s",
+            file=sys.stderr,
+        )
     print(json.dumps(summary))
     return 1 if summary["retired_violating"] else 0
+
+
+class _StatsMerge:
+    """What ``stats`` pulls out of its input streams: the merged latency
+    histogram and event counters, the per-stream source counts (so the
+    exit-2 message names the inputs that carried nothing), phase rows
+    merged by name, the per-key/per-client axes, the worst op, and each
+    stream's last heartbeat row."""
+
+    def __init__(self, hist_buckets: int, n_events: int):
+        import numpy as np
+
+        self.hist = np.zeros(hist_buckets, np.int64)
+        self.events = np.zeros(n_events, np.int64)
+        self.seen = 0
+        self.seen_per_stream: list = []
+        self.phases: dict = {}    # name -> (hist row, ticks_total)
+        self.by_key: dict = {}    # key -> hist row
+        self.by_client: dict = {}  # client -> hist row
+        self.worst = None
+        self.live_per_stream: list = []
+        self.paths: list = []
+
+
+def _merge_axis(table: dict, key, hist_row) -> None:
+    import numpy as np
+
+    row = np.asarray(hist_row, np.int64)
+    table[key] = table[key] + row if key in table else row
+
+
+def _collect_stats(streams) -> _StatsMerge:
+    """Merge every histogram and counter of the metrics plane found in
+    report JSON streams (one list of lines per input): fuzz reports and
+    pool summaries ({"latency": {...}, "events": {...}}), pool JSONL rows
+    ({"latency_hist": [...], "events": {...}}) and heartbeat rows. All of
+    it merges by addition over the fixed buckets; phase rows and the
+    key/client axes merge by name; worst ops by ``merge_worst``. A pool
+    stream holds both its rows and a summary that already merged them, so
+    within one stream a summary-level "latency" suppresses the bare row
+    columns (a rows-only stream still merges in full)."""
+    import numpy as np
+
+    from madraft_tpu_torch.tpusim.config import HIST_BUCKETS, METRIC_EVENTS
+    from madraft_tpu_torch.tpusim.metrics import merge_worst
+
+    m = _StatsMerge(HIST_BUCKETS, len(METRIC_EVENTS))
+    for lines in streams:
+        docs = []
+        for raw in lines:
+            raw = raw.strip()
+            if not raw:
+                continue
+            try:
+                doc = json.loads(raw)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(doc, dict):
+                docs.append(doc)
+        use_rows = not any(
+            isinstance(d.get("latency"), dict) and d["latency"].get("hist")
+            for d in docs
+        )
+        stream_seen = 0
+        last_hb = None
+        for doc in docs:
+            if doc.get("hb") == 1:
+                # a heartbeat row: its window histograms sum to the run's
+                last_hb = doc
+                hlat = (doc.get("det") or {}).get("latency")
+                m.seen += 1
+                stream_seen += 1
+                if isinstance(hlat, dict) and hlat.get("hist_w") and \
+                        len(hlat["hist_w"]) == HIST_BUCKETS:
+                    m.hist += np.asarray(hlat["hist_w"], np.int64)
+                    for name, t in (hlat.get("phase_ticks_w") or {}).items():
+                        old_h, old_t = m.phases.get(
+                            name, (np.zeros(HIST_BUCKETS, np.int64), 0))
+                        m.phases[name] = (old_h, old_t + int(t))
+                continue
+            lat = doc.get("latency")
+            row_hist = None
+            row_phases = None
+            from_summary = False
+            if isinstance(lat, dict) and lat.get("hist"):
+                row_hist = lat["hist"]
+                from_summary = True
+                if isinstance(lat.get("phases"), dict):
+                    row_phases = {
+                        name: (d.get("hist"), d.get("ticks_total", 0))
+                        for name, d in lat["phases"].items()
+                        if isinstance(d, dict)
+                    }
+            elif use_rows and doc.get("latency_hist"):
+                row_hist = doc["latency_hist"]
+                if isinstance(doc.get("latency_phases"), dict):
+                    # rows carry no exact tick totals: ticks_total 0
+                    row_phases = {
+                        name: (h, 0)
+                        for name, h in doc["latency_phases"].items()
+                    }
+            # an events-only report still merges; a pool row suppressed by
+            # its stream's summary contributes nothing
+            ev_only = (
+                "latency_hist" not in doc
+                and not isinstance(lat, dict)
+                and isinstance(doc.get("events"), dict)
+            )
+            if row_hist is None and not ev_only:
+                continue
+            m.seen += 1
+            stream_seen += 1
+            if row_hist is not None and len(row_hist) == HIST_BUCKETS:
+                m.hist += np.asarray(row_hist, np.int64)
+            if row_phases:
+                for name, (h, ticks) in row_phases.items():
+                    if h is None or len(h) != HIST_BUCKETS:
+                        continue
+                    old_h, old_t = m.phases.get(
+                        name, (np.zeros(HIST_BUCKETS, np.int64), 0))
+                    m.phases[name] = (old_h + np.asarray(h, np.int64),
+                                      old_t + int(ticks))
+            if from_summary or use_rows:
+                for src, table in (("by_key", m.by_key),
+                                   ("by_client", m.by_client)):
+                    ax = lat.get(src) if isinstance(lat, dict) else None
+                    if isinstance(ax, dict):
+                        for k, d in ax.items():
+                            if isinstance(d, dict) and d.get("hist"):
+                                _merge_axis(table, str(k), d["hist"])
+                w = doc.get("worst_op")
+                if isinstance(w, dict):
+                    # a pool row's cluster id rides the row, not the dict
+                    m.worst = merge_worst(m.worst, w,
+                                          b_id=doc.get("cluster_id"))
+            row_ev = doc.get("events")
+            if isinstance(row_ev, dict):
+                for i, name in enumerate(METRIC_EVENTS):
+                    m.events[i] += int(row_ev.get(name, 0))
+        m.seen_per_stream.append(stream_seen)
+        m.live_per_stream.append(last_hb)
+    return m
+
+
+def _top_axis(table: dict, top: int) -> list:
+    """The top-N rows of a per-key/per-client axis, worst p99 first."""
+    from madraft_tpu_torch.tpusim.metrics import latency_summary
+
+    rows = [(k, latency_summary(h)) for k, h in table.items()]
+    rows.sort(key=lambda kv: (-(kv[1]["p99_ticks"] or 0), -kv[1]["ops"]))
+    return rows[:top]
+
+
+def _print_stats(args, m: _StatsMerge, lat: dict) -> None:
+    from madraft_tpu_torch.tpusim.config import METRIC_EVENTS
+    from madraft_tpu_torch.tpusim.metrics import (
+        latency_summary,
+        render_histogram,
+    )
+
+    print(f"sources merged: {m.seen}")
+    for p, hbr in zip(m.paths, m.live_per_stream):
+        if hbr is None:
+            continue
+        # a heartbeat stream's newest row: counters, then wall-clock parts
+        det, t = hbr.get("det", {}), hbr.get("t", {})
+        bits = [f"gen {hbr.get('gen')}"]
+        if hbr.get("lane_ticks") is not None:
+            bits.append(f"lane_ticks {hbr['lane_ticks']}")
+        if det.get("retired") is not None:
+            bits.append(f"retired {det['retired']} "
+                        f"({det.get('violating', 0)} violating)")
+        if det.get("new_fps") is not None:
+            bits.append(f"fingerprints {det['new_fps']}")
+        if t.get("budget_frac") is not None:
+            bits.append(f"{100.0 * t['budget_frac']:.0f}% of budget")
+        if t.get("wall_s") is not None:
+            bits.append(f"wall {t['wall_s']}s")
+        state = "final" if hbr.get("final") else "live"
+        name = "stdin" if p == "-" else p
+        print(f"pool {name} [{state}]: " + " · ".join(bits))
+    print(f"latency: ops={lat['ops']} p50={lat['p50_ticks']} "
+          f"p99={lat['p99_ticks']} (ticks; log-spaced buckets, quantile = "
+          f"bucket upper edge)")
+    for line in render_histogram(m.hist):
+        print(line)
+    if m.phases:
+        # share = the phase's exact tick total over all phases' (0 when
+        # the inputs were raw rows without tick totals)
+        total_ticks = sum(t for _, t in m.phases.values())
+        print("phases (sum of phase durations == e2e latency, per op):")
+        width = max(len(n) for n in m.phases)
+        for name, (h, ticks) in m.phases.items():
+            d = latency_summary(h)
+            share = (f"  {100.0 * ticks / total_ticks:5.1f}% of ticks"
+                     if total_ticks else "")
+            print(f"  {name:<{width}}  ops={d['ops']:>8}  "
+                  f"p50={str(d['p50_ticks']):>6} p99={str(d['p99_ticks']):>6}"
+                  f"{share}")
+    for flag, label, table in (("by_key", "key", m.by_key),
+                               ("by_client", "client", m.by_client)):
+        if getattr(args, flag, False) and table:
+            print(f"top {label}s by p99:")
+            for k, d in _top_axis(table, args.top):
+                print(f"  {label} {k:>4}  ops={d['ops']:>8}  "
+                      f"p50={str(d['p50_ticks']):>6} "
+                      f"p99={str(d['p99_ticks']):>6}")
+    if m.worst is not None:
+        ph = ", ".join(f"{k}={v}" for k, v in m.worst["phases"].items()
+                       if v)
+        print(f"worst op: {m.worst['latency_ticks']} ticks "
+              f"(submit tick {m.worst['submit_tick']}, "
+              f"key {m.worst['key']}, client {m.worst['client']}"
+              + (f", cluster {m.worst['cluster_id']}"
+                 if "cluster_id" in m.worst else "")
+              + f") — {ph or 'all phases 0'}")
+    if m.events.any():
+        print("events:")
+        width = max(len(n) for n in METRIC_EVENTS)
+        for i, name in enumerate(METRIC_EVENTS):
+            print(f"  {name:<{width}}  {int(m.events[i])}")
+    if args.json:
+        doc = {
+            "sources": m.seen,
+            "latency": lat,
+            "events": {n: int(m.events[i])
+                       for i, n in enumerate(METRIC_EVENTS)},
+        }
+        if m.phases:
+            doc["latency"]["phases"] = {
+                name: {**latency_summary(h), "ticks_total": int(t)}
+                for name, (h, t) in m.phases.items()
+            }
+        if m.by_key:
+            doc["latency"]["by_key"] = {
+                k: latency_summary(h) for k, h in m.by_key.items()}
+        if m.by_client:
+            doc["latency"]["by_client"] = {
+                k: latency_summary(h) for k, h in m.by_client.items()}
+        if m.worst is not None:
+            doc["worst_op"] = m.worst
+        print(json.dumps(doc))
+
+
+def cmd_stats(args) -> int:
+    """Render the metrics plane of report artifacts: a fuzz report, a pool
+    summary and its JSONL rows, or any mix of files (or stdin). Merges
+    every histogram and counter it finds and prints the latency
+    distribution, p50/p99, the phase table, the worst op and the event
+    counters. Exit 0 when metrics were found, 2 when the inputs carry none
+    (naming them)."""
+    from madraft_tpu_torch.tpusim.metrics import latency_summary
+
+    if args.follow:
+        _usage_error("stats: --follow is not ported yet (ROADMAP A15)")
+    paths = args.inputs or ["-"]
+    streams = []
+    for path in paths:
+        if path == "-":
+            streams.append(sys.stdin.read().splitlines())
+        else:
+            try:
+                with open(path) as f:
+                    streams.append(f.read().splitlines())
+            except OSError as e:
+                _usage_error(f"stats: {e}")
+    m = _collect_stats(streams)
+    m.paths = list(paths)
+    empty = [p for p, n in zip(paths, m.seen_per_stream) if n == 0]
+    which = ", ".join("stdin" if p == "-" else p for p in empty)
+    if not m.seen:
+        print(f"stats: no metrics found in: {which} — was the run made "
+              "with --metrics?", file=sys.stderr)
+        return 2
+    if empty:
+        print(f"stats: warning: no metrics blocks in: {which} (merged the "
+              f"other {m.seen} source(s))", file=sys.stderr)
+    try:
+        _print_stats(args, m, latency_summary(m.hist))
+    except BrokenPipeError:  # e.g. `stats ... | head`
+        pass
+    return 0
 
 
 def main(argv=None) -> int:
@@ -343,8 +658,11 @@ def main(argv=None) -> int:
         sp.add_argument("--bug", default="",
                         help="raft-layer planted bug (config.RAFT_BUGS)")
         sp.add_argument("--metrics", action="store_true",
-                        help="on-device metrics plane (not ported yet: "
-                             "exits 2)")
+                        help="on-device metrics plane: per-lane "
+                             "submit->commit latency histograms, phase "
+                             "attribution, the worst op and liveness-event "
+                             "counters; reports gain latency, events and "
+                             "worst_op")
         sp.add_argument("--profile", default="",
                         help="named scenario from config.storm_profiles() "
                              "(see --list-profiles)")
@@ -407,7 +725,32 @@ def main(argv=None) -> int:
                     help="JSON object of dynamic-knob overrides")
     sp.set_defaults(fn=cmd_replay)
 
+    sp = sub.add_parser(
+        "stats",
+        help="render the metrics plane of any report artifact: merges the "
+             "latency histograms and event counters found in fuzz reports, "
+             "pool summaries and pool JSONL rows (files or stdin), prints "
+             "the distribution, p50/p99 and the counter table",
+    )
+    sp.add_argument("inputs", nargs="*", metavar="FILE",
+                    help="report/JSONL files to merge ('-' or none = stdin)")
+    sp.add_argument("--json", action="store_true",
+                    help="also print the merged digest as one JSON line")
+    sp.add_argument("--by-key", action="store_true", dest="by_key",
+                    help="the top-N per-key latency rows (reports with a "
+                         "per-key axis)")
+    sp.add_argument("--by-client", action="store_true", dest="by_client",
+                    help="the top-N per-client latency rows")
+    sp.add_argument("--top", type=int, default=5,
+                    help="N for --by-key/--by-client (default 5)")
+    sp.add_argument("--follow", action="store_true",
+                    help="tail live heartbeat inputs (not ported yet: "
+                         "exits 2)")
+    sp.set_defaults(fn=cmd_stats)
+
     args = p.parse_args(argv)
+    if args.cmd == "stats":  # a host-side renderer: no device, no config
+        return args.fn(args)
     if args.list_profiles:
         return cmd_list_profiles(args)
     if args.profile:
@@ -420,10 +763,6 @@ def main(argv=None) -> int:
                 + " ".join(names), file=sys.stderr,
             )
             return 2
-    if args.metrics:
-        print("madtpu: --metrics is not ported yet (ROADMAP A7)",
-              file=sys.stderr)
-        return 2
     try:
         return args.fn(args)
     except SystemExit as e:

@@ -1,10 +1,14 @@
 // Kernel K2: the per-tick safety oracle for the PyTorch port.
 //
 // Replaces the oracle block of the JAX reference's tick,
-// madraft_tpu/tpusim/step.py step_cluster lines 961-1081 (metrics off):
-// election safety, log matching over the ring overlap, the commit-durability
-// shadow walk, the prefix-hash checks, and the block's tail (violations |=,
-// first_violation_tick, first_leader_tick). The Python side is
+// madraft_tpu/tpusim/step.py step_cluster lines 961-1081: election
+// safety, log matching over the ring overlap, the commit-durability shadow
+// walk, the prefix-hash checks, and the block's tail (violations |=,
+// first_violation_tick, first_leader_tick). With the metrics plane on
+// (ref step.py:1008-1023) the walk also carries the entries' submit stamps:
+// it takes log_tick [B, n, cap] and writes shadow_sub [B, cap], this tick's
+// scratch, 0 except where a lane is newly recorded, which copies the
+// recording node's stamp. The Python side is
 // madraft_tpu_torch/kernels/oracle.py, which holds the plain version.
 //
 // Bound: memory. Per cluster it reads the two [n, cap] logs, the [cap]
@@ -43,7 +47,12 @@
 // turn took 6.6k, and 17.1 us a launch.
 // Node rows are cached in registers: the kernel is compiled for n = 3, 5
 // and 7 exactly (every pair check unrolled), and for up to 8 or 16 nodes
-// with the count read at run time.
+// with the count read at run time; each of these five comes with and
+// without the metrics plane (a template flag). The metrics instance stages
+// log_tick beside the logs (a third [n, cap] span a cluster) and reads a
+// node's stamp from shared memory only where the walk records a lane, so
+// the stamps take no register row; it moves 1.5 x the log bytes of the
+// plain instance, and writes the [cap] scratch.
 // _entry_mix is computed in uint32 (signed overflow is undefined in C++)
 // and the result reinterpreted as int32.
 
@@ -67,9 +76,11 @@ struct OracleArgs {
   const int *prefix_hash, *shadow_term, *shadow_val, *shadow_base;
   const int *shadow_len, *shadow_prefix_hash, *violations, *first_viol;
   const int *first_leader, *tick;
+  const int *log_tick;  // metrics instance only: [B, n, cap] submit stamps
   // outputs
   int *viol, *st, *sv, *sb, *sl, *sh, *violations_out, *first_viol_out;
   int *first_leader_out;
+  int *shadow_sub;      // metrics instance only: [B, cap]
   int b, n, cap, group, groups;
 };
 
@@ -77,7 +88,7 @@ struct OracleArgs {
 // aligned. The per-cluster spans of a group are contiguous in device
 // memory, so each array of a group is one copy.
 struct Layout {
-  int lt, lv, st, sv, role, term, len, base, commit, hash;
+  int lt, lv, lk, st, sv, role, term, len, base, commit, hash;
   int sbase, slen, shash, viol, fvt, flt, tick, alive, size;
 
   __host__ __device__ static int take(int &o, int ints) {
@@ -86,10 +97,11 @@ struct Layout {
     return at;
   }
 
-  __host__ __device__ Layout(int g, int n, int cap) {
+  __host__ __device__ Layout(int g, int n, int cap, bool metrics) {
     int o = 0;
     lt = take(o, g * n * cap);
     lv = take(o, g * n * cap);
+    lk = take(o, metrics ? g * n * cap : 0);
     st = take(o, g * cap);
     sv = take(o, g * cap);
     role = take(o, g * n);
@@ -131,6 +143,7 @@ __device__ __forceinline__ void copy_ints(int *dst, const int *src, int count,
 // the caller commits the batch. Every thread copies the logs, which are
 // most of the bytes; each of the sixteen small spans goes to one warp, so
 // that a thread spends a few instructions on them, not a loop per span.
+template <bool kMetrics>
 __device__ __forceinline__ void stage_group(const OracleArgs &a,
                                             const Layout &L, int *buf, int g) {
   const int G = a.group, n = a.n, cap = a.cap;
@@ -139,6 +152,9 @@ __device__ __forceinline__ void stage_group(const OracleArgs &a,
   const int64_t nc = (int64_t)c0 * n, nl = nc * cap, cl = (int64_t)c0 * cap;
   copy_ints(buf + L.lt, a.log_term + nl, gc * n * cap, threadIdx.x, blockDim.x);
   copy_ints(buf + L.lv, a.log_val + nl, gc * n * cap, threadIdx.x, blockDim.x);
+  if (kMetrics)
+    copy_ints(buf + L.lk, a.log_tick + nl, gc * n * cap, threadIdx.x,
+              blockDim.x);
   for (int q = threadIdx.x >> 5; q < 16; q += blockDim.x >> 5) {
     int *dst;
     const int *src;
@@ -186,14 +202,15 @@ __device__ __forceinline__ int entry_mix(int term, int val, int abs_idx) {
   return static_cast<int>(h ^ (static_cast<uint32_t>(term) * 0xC2B2AE35u));
 }
 
-// N: node rows cached in registers; kExact: n == N, known when compiled
-template <int N, bool kExact>
+// N: node rows cached in registers; kExact: n == N, known when compiled;
+// kMetrics: the walk carries the submit stamps into shadow_sub
+template <int N, bool kExact, bool kMetrics>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     oracle_kernel(const OracleArgs a) {
   extern __shared__ int4 smem4[];
   int *smem = reinterpret_cast<int *>(smem4);
   const int G = a.group, n = kExact ? N : a.n, cap = a.cap;
-  const Layout L(G, n, cap);
+  const Layout L(G, n, cap, kMetrics);
   const int npairs = n * (n - 1) / 2;
   const int parts = (cap + 31) / 32;   // warps (or warp segments) per cluster
   const int seg = cap < 32 ? cap : 32; // a cluster's lanes in one warp
@@ -210,14 +227,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       seg == 32 ? 0xffffffffu : ((1u << seg) - 1) << ((tid & 31) & ~(seg - 1));
 
   int g = blockIdx.x;
-  if (g < a.groups) stage_group(a, L, smem, g);
+  if (g < a.groups) stage_group<kMetrics>(a, L, smem, g);
   __pipeline_commit();
   for (int it = 0; g < a.groups; g += gridDim.x, ++it) {
     const int *s = smem + (it & 1) * L.size;
     __pipeline_wait_prior(0);
     __syncthreads();  // group g staged; the other buffer is free again
     if (g + (int)gridDim.x < a.groups)
-      stage_group(a, L, smem + ((it + 1) & 1) * L.size, g + gridDim.x);
+      stage_group<kMetrics>(a, L, smem + ((it + 1) & 1) * L.size,
+                            g + gridDim.x);
     __pipeline_commit();
 
     const int c0 = g * G;
@@ -272,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       unsigned mix = old_abs <= min(new_base, old_len)
                          ? static_cast<unsigned>(entry_mix(st, sv, old_abs)) : 0u;
       const int sh_abs = lane_abs(new_base, k, cap);
-      int sl = old_len;
+      int sl = old_len, ss = 0;
       unsigned differ = 0;
 #pragma unroll
       for (int i = 0; i < N; ++i) {
@@ -284,6 +302,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             if (sh_abs > sl && sh_abs <= ci) {
               st = lt[i];
               sv = lv[i];
+              if (kMetrics) ss = s[L.lk + (cn + i) * cap + k];
             }
           }
           sl = max(sl, ci);
@@ -291,6 +310,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
       a.st[(int64_t)c0 * cap + tid] = st;
       a.sv[(int64_t)c0 * cap + tid] = sv;
+      if (kMetrics) a.shadow_sub[(int64_t)c0 * cap + tid] = ss;
       mix = __reduce_xor_sync(seg_mask, mix);
       differ = __reduce_or_sync(seg_mask, differ);
       if (head) {
@@ -368,10 +388,10 @@ struct GridCache {
   int dev = -1, smem = -1, blocks = 0;
 };
 
-template <int N, bool kExact>
+template <int N, bool kExact, bool kMetrics>
 cudaError_t launch(const OracleArgs &a, cudaStream_t stream) {
   static GridCache cache;
-  const Layout L(a.group, a.n, a.cap);
+  const Layout L(a.group, a.n, a.cap, kMetrics);
   const int parts = (a.cap + 31) / 32;
   const size_t smem = sizeof(int) * (2 * (size_t)L.size +
                                      (size_t)a.group * parts * (2 * N * N + 2));
@@ -380,7 +400,7 @@ cudaError_t launch(const OracleArgs &a, cudaStream_t stream) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (cache.dev != dev || cache.smem != static_cast<int>(smem)) {
-    e = cudaFuncSetAttribute(oracle_kernel<N, kExact>,
+    e = cudaFuncSetAttribute(oracle_kernel<N, kExact, kMetrics>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return e;
@@ -388,7 +408,7 @@ cudaError_t launch(const OracleArgs &a, cudaStream_t stream) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, oracle_kernel<N, kExact>, kThreads, smem);
+        &per_sm, oracle_kernel<N, kExact, kMetrics>, kThreads, smem);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cache.dev = dev;
@@ -396,8 +416,20 @@ cudaError_t launch(const OracleArgs &a, cudaStream_t stream) {
     cache.blocks = sms * per_sm;
   }
   const int grid = a.groups < cache.blocks ? a.groups : cache.blocks;
-  oracle_kernel<N, kExact><<<grid, kThreads, smem, stream>>>(a);
+  oracle_kernel<N, kExact, kMetrics><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kMetrics>
+cudaError_t dispatch(const OracleArgs &a, cudaStream_t s) {
+  switch (a.n) {
+    case 3: return launch<3, true, kMetrics>(a, s);
+    case 5: return launch<5, true, kMetrics>(a, s);
+    case 7: return launch<7, true, kMetrics>(a, s);
+    default:
+      return a.n <= 8 ? launch<8, false, kMetrics>(a, s)
+                      : launch<16, false, kMetrics>(a, s);
+  }
 }
 
 }  // namespace
@@ -409,11 +441,15 @@ extern "C" int oracle_launch(
     const void *shadow_term, const void *shadow_val, const void *shadow_base,
     const void *shadow_len, const void *shadow_prefix_hash,
     const void *violations, const void *first_violation_tick,
-    const void *first_leader_tick, const void *tick, void *viol, void *st,
-    void *sv, void *sb, void *sl, void *sh, void *violations_out,
-    void *first_violation_tick_out, void *first_leader_tick_out, int b,
-    int n, int cap, void *stream) {
+    const void *first_leader_tick, const void *tick, const void *log_tick,
+    void *viol, void *st, void *sv, void *sb, void *sl, void *sh,
+    void *violations_out, void *first_violation_tick_out,
+    void *first_leader_tick_out, void *shadow_sub, int b, int n, int cap,
+    void *stream) {
+  // log_tick and shadow_sub: both given (the metrics instance) or both null
   if (n < 1 || n > kMaxNodes || cap < 1 || (cap & (cap - 1)) || cap > kMaxCap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((log_tick == nullptr) != (shadow_sub == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   OracleArgs a;
   a.alive = static_cast<const uint8_t *>(alive);
@@ -434,6 +470,7 @@ extern "C" int oracle_launch(
   a.first_viol = static_cast<const int *>(first_violation_tick);
   a.first_leader = static_cast<const int *>(first_leader_tick);
   a.tick = static_cast<const int *>(tick);
+  a.log_tick = static_cast<const int *>(log_tick);
   a.viol = static_cast<int *>(viol);
   a.st = static_cast<int *>(st);
   a.sv = static_cast<int *>(sv);
@@ -443,6 +480,7 @@ extern "C" int oracle_launch(
   a.violations_out = static_cast<int *>(violations_out);
   a.first_viol_out = static_cast<int *>(first_violation_tick_out);
   a.first_leader_out = static_cast<int *>(first_leader_tick_out);
+  a.shadow_sub = static_cast<int *>(shadow_sub);
   a.b = b;
   a.n = n;
   a.cap = cap;
@@ -450,12 +488,6 @@ extern "C" int oracle_launch(
   a.groups = (b + a.group - 1) / a.group;
   if (b == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case 3: return static_cast<int>(launch<3, true>(a, s));
-    case 5: return static_cast<int>(launch<5, true>(a, s));
-    case 7: return static_cast<int>(launch<7, true>(a, s));
-    default:
-      return static_cast<int>(n <= 8 ? launch<8, false>(a, s)
-                                     : launch<16, false>(a, s));
-  }
+  return static_cast<int>(log_tick != nullptr ? dispatch<true>(a, s)
+                                              : dispatch<false>(a, s));
 }

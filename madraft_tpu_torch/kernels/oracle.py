@@ -1,12 +1,19 @@
 """Kernel K2: the per-tick safety oracle.
 
 Replaces the oracle block of the JAX reference's tick,
-``madraft_tpu/tpusim/step.py`` ``step_cluster`` lines 961-1081 (metrics
-off): election safety (two live leaders in one term), log matching over the
-``[n, n, cap]`` ring overlap, the commit-durability shadow walk, the
-prefix-hash checks, and the block's tail: ``violations |= viol``,
+``madraft_tpu/tpusim/step.py`` ``step_cluster`` lines 961-1081: election
+safety (two live leaders in one term), log matching over the ``[n, n,
+cap]`` ring overlap, the commit-durability shadow walk, the prefix-hash
+checks, and the block's tail: ``violations |= viol``,
 ``first_violation_tick`` and ``first_leader_tick``. Source:
 ``csrc/oracle.cu``.
+
+With the metrics plane on, the caller also passes ``log_tick`` [B, n, cap]
+(the entries' submit stamps) and gets a tenth output, ``shadow_sub`` [B,
+cap]: this tick's scratch, 0 except on the lanes the walk newly records,
+which copy the recording node's stamp (ref step.py:1008-1023). That is the
+same kernel's metrics instance, a template flag; without ``log_tick`` the
+kernel computes what it computed before.
 
 Inputs are the state after commit advance, the pre-tick shadow, the
 pre-tick violation record and the tick ``t``; outputs are the tick's
@@ -16,7 +23,8 @@ and its oracle (compaction runs after), so the lane indices are rebuilt
 from ``base`` here.
 
 On a CPU tensor ``oracle`` runs ``oracle_plain``; on a CUDA tensor it
-launches the kernel or raises. ``oracle.launches`` counts launches.
+launches the kernel or raises. ``oracle.launches`` counts launches, and
+``oracle.metrics_launches`` those of them that ran the metrics instance.
 """
 
 from __future__ import annotations
@@ -71,12 +79,13 @@ def xor_reduce(x: torch.Tensor) -> torch.Tensor:
 def oracle_plain(alive, role, term, log_term, log_val, log_len, base, commit,
                  prefix_hash, shadow_term, shadow_val, shadow_base,
                  shadow_len, shadow_prefix_hash, violations,
-                 first_violation_tick, first_leader_tick, t):
+                 first_violation_tick, first_leader_tick, t, log_tick=None):
     """The reference's oracle block on a batch. Shapes: per-node [B, n],
     logs [B, n, cap], shadow [B, cap], scalars [B] (``t`` is the tick).
     Returns (viol [B], shadow_term, shadow_val, shadow_base, shadow_len,
     shadow_prefix_hash, violations, first_violation_tick,
-    first_leader_tick)."""
+    first_leader_tick), and ``shadow_sub`` [B, cap] after them when
+    ``log_tick`` is given."""
     n, cap = log_term.shape[-2], log_term.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=alive.device)
     zero = torch.zeros_like(shadow_base)
@@ -108,6 +117,7 @@ def oracle_plain(alive, role, term, log_term, log_val, log_len, base, commit,
         slide, entry_mix(shadow_term, shadow_val, old_abs), 0))
     sh_abs = lane_abs(new_base, cap)
     st, sv, sl = shadow_term, shadow_val, shadow_len
+    ss = None if log_tick is None else torch.zeros_like(shadow_term)
     for i in range(n):  # sequential in node order
         c = commit[:, i]
         agree = sh_abs == abs_arr[:, i]
@@ -118,6 +128,8 @@ def oracle_plain(alive, role, term, log_term, log_val, log_len, base, commit,
         new = agree & (sh_abs > sl[:, None]) & (sh_abs <= c[:, None])
         st = torch.where(new, log_term[:, i], st)
         sv = torch.where(new, log_val[:, i], sv)
+        if ss is not None:
+            ss = torch.where(new, log_tick[:, i], ss)
         sl = torch.maximum(sl, c)
     # prefix durability: equal boundaries must mean equal prefix hashes
     same_base = ((base[:, :, None] == base[:, None, :]) & (base[:, :, None] > 0)
@@ -134,15 +146,16 @@ def oracle_plain(alive, role, term, log_term, log_val, log_len, base, commit,
         (first_violation_tick < 0) & (viol != 0), t, first_violation_tick)
     first_leader_tick = torch.where(
         (first_leader_tick < 0) & is_lead.any(-1), t, first_leader_tick)
-    return (viol, st, sv, new_base, sl, new_hash, violations | viol,
+    outs = (viol, st, sv, new_base, sl, new_hash, violations | viol,
             first_violation_tick, first_leader_tick)
+    return outs if ss is None else outs + (ss,)
 
 
 def _lib():
     lib = _build.library("oracle")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.oracle_launch.argtypes = [p] * 18 + [p] * 9 + [i, i, i, p]
+        lib.oracle_launch.argtypes = [p] * 19 + [p] * 10 + [i, i, i, p]
         lib.oracle_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -168,14 +181,15 @@ _WANT: dict = {}
 def oracle(alive, role, term, log_term, log_val, log_len, base, commit,
            prefix_hash, shadow_term, shadow_val, shadow_base, shadow_len,
            shadow_prefix_hash, violations, first_violation_tick,
-           first_leader_tick, t):
-    """The oracle block: plain version on the CPU, kernel K2 on CUDA."""
+           first_leader_tick, t, log_tick=None):
+    """The oracle block: plain version on the CPU, kernel K2 on CUDA (its
+    metrics instance when ``log_tick`` is given)."""
     args = (alive, role, term, log_term, log_val, log_len, base, commit,
             prefix_hash, shadow_term, shadow_val, shadow_base, shadow_len,
             shadow_prefix_hash, violations, first_violation_tick,
             first_leader_tick, t)
     if alive.device.type == "cpu":
-        return oracle_plain(*args)
+        return oracle_plain(*args, log_tick=log_tick)
     b, n, cap = log_term.shape
     key = (b, n, cap)
     if key not in _WANT:
@@ -185,25 +199,38 @@ def oracle(alive, role, term, log_term, log_val, log_len, base, commit,
                 f"got n={n} cap={cap}")
         _WANT[key] = tuple(_want(b, n, cap)[f] for f in FIELDS_IN)
     dev = alive.device
-    for name, x, (shape, dtype) in zip(FIELDS_IN, args, _WANT[key]):
+    names, wants = FIELDS_IN, _WANT[key]
+    metrics = log_tick is not None
+    if metrics:
+        args += (log_tick,)
+        names += ("log_tick",)
+        wants += (wants[3],)  # log_term's shape and dtype
+    for name, x, (shape, dtype) in zip(names, args, wants):
         if x.device != dev or x.shape != shape or x.dtype != dtype:
             raise ValueError(
                 f"oracle: {name} is {tuple(x.shape)} {x.dtype} on {x.device},"
                 f" expected {shape} {dtype} on {dev}")
     ins = [x if x.is_contiguous() else x.contiguous() for x in args]
-    # the nine outputs are views of one allocation: st, sv, then seven [B]
-    out = torch.empty((2 * b * cap + 7 * b,), dtype=torch.int32, device=dev)
-    st = out[:b * cap].view(b, cap)
-    sv = out[b * cap:2 * b * cap].view(b, cap)
-    viol, sb, sl, sh, vio, fvt, flt = out[2 * b * cap:].view(7, b).unbind(0)
-    outs = (viol, st, sv, sb, sl, sh, vio, fvt, flt)
+    # the outputs are views of one allocation: st, sv (and shadow_sub),
+    # then seven [B]
+    rows = 3 if metrics else 2
+    out = torch.empty((rows * b * cap + 7 * b,), dtype=torch.int32,
+                      device=dev)
+    st, sv, *ss = out[:rows * b * cap].view(rows, b, cap).unbind(0)
+    viol, sb, sl, sh, vio, fvt, flt = out[rows * b * cap:].view(7, b).unbind(0)
+    outs = (viol, st, sv, sb, sl, sh, vio, fvt, flt, *ss)
     if b:
+        ptr = [x.data_ptr() for x in ins]
+        optr = [x.data_ptr() for x in outs]
         _build.check(_lib().oracle_launch(
-            *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs),
-            b, n, cap, torch.cuda.current_stream(dev).cuda_stream),
+            *ptr[:18], ptr[18] if metrics else None, *optr[:9],
+            optr[9] if metrics else None, b, n, cap,
+            torch.cuda.current_stream(dev).cuda_stream),
             "oracle_launch")
         oracle.launches += 1
+        oracle.metrics_launches += int(metrics)
     return outs
 
 
 oracle.launches = 0
+oracle.metrics_launches = 0

@@ -36,7 +36,7 @@ class SimConfig:
     n_nodes: int = 5
     log_cap: int = 64        # ring capacity (power of two)
     ae_max: int = 4          # max entries carried per AppendEntries message
-    metrics: bool = False    # on-device metrics plane (not ported yet)
+    metrics: bool = False    # on-device metrics plane (tpusim/metrics.py)
     fuse_packed_step: bool = False  # packed-carry layout knob (not ported yet)
     max_lane_ticks: int = 4096      # packed-state tick ceiling
 
@@ -291,8 +291,23 @@ def pool_shard(cluster_id: int, n_lanes: int, n_shards: int) -> int:
     )
 
 
+# The metrics plane's layout: fixed log-spaced latency buckets
+# (tpusim/metrics.py), the phases every submit->ack latency splits into
+# (the raft layer folds its whole commit latency into "replicate"; shardkv
+# adds "migration"), and the per-lane event counters in ev_counts order.
 HIST_BUCKETS = 16
 LATENCY_PHASES = ("leader_wait", "replicate", "apply", "ack")
+SHARDKV_PHASES = LATENCY_PHASES + ("migration",)
+
+
+def phase_names(n_phases: int) -> tuple:
+    """Phase names for a phase axis of this length (the decoders see only
+    the array; the two taxonomies differ in length)."""
+    if n_phases == len(SHARDKV_PHASES):
+        return SHARDKV_PHASES
+    return LATENCY_PHASES[:n_phases]
+
+
 METRIC_EVENTS = (
     "elections_won", "term_bumps", "crashes", "restarts",
     "rv_req_delivered", "rv_rsp_delivered", "ae_req_delivered",
@@ -302,7 +317,8 @@ METRIC_EVENTS = (
 
 def metrics_dims(cfg: SimConfig) -> tuple:
     """(hist_buckets, n_events, stamp_cap, n_phases, reg): the metric
-    leaves' shapes, all zero with metrics off (the only mode ported)."""
+    leaves' shapes, all zero with metrics off, so a metrics-off state
+    carries zero-size metric leaves and no extra bytes."""
     if not cfg.metrics:
         return 0, 0, 0, 0, 0
     return HIST_BUCKETS, len(METRIC_EVENTS), cfg.log_cap, \

@@ -20,10 +20,12 @@ import torch
 
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry
+from madraft_tpu_torch.tpusim import metrics as _metrics
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim.config import (
     Knobs,
     SimConfig,
+    phase_names,
     pool_lanes_per_shard,
     violation_names,
 )
@@ -61,7 +63,8 @@ class FuzzReport(NamedTuple):
     committed: np.ndarray             # entries ever committed (shadow length)
     msg_count: np.ndarray             # delivered messages
     snap_installs: np.ndarray         # install-snapshot deliveries
-    # metrics plane: None (metrics are not ported yet)
+    # metrics plane: None with cfg.metrics off, else per-cluster rows
+    # ([B, HB], [B, len(METRIC_EVENTS)], [B, P, HB], [B, P], [B, 1] ...)
     lat_hist: Optional[np.ndarray] = None
     ev_counts: Optional[np.ndarray] = None
     phase_hist: Optional[np.ndarray] = None
@@ -88,8 +91,13 @@ def cluster_keys(seed, n_clusters: int, device, id0: int = 0) -> torch.Tensor:
 
 
 def report(final: ClusterState) -> FuzzReport:
+    has_metrics = final.lat_hist.numel() > 0
+
     def h(x):
         return x.cpu().numpy()
+
+    def m(x):
+        return h(x) if has_metrics else None
 
     return FuzzReport(
         violations=h(final.violations),
@@ -98,6 +106,16 @@ def report(final: ClusterState) -> FuzzReport:
         committed=h(final.shadow_len),
         msg_count=h(final.msg_count),
         snap_installs=h(final.snap_install_count),
+        lat_hist=m(final.lat_hist),
+        ev_counts=m(final.ev_counts),
+        phase_hist=m(final.phase_hist),
+        phase_ticks=m(final.phase_ticks),
+        lat_ticks=m(final.lat_ticks),
+        worst_lat=m(final.worst_lat),
+        worst_phases=m(final.worst_phases),
+        worst_key=m(final.worst_key),
+        worst_client=m(final.worst_client),
+        worst_sub=m(final.worst_sub),
     )
 
 
@@ -294,7 +312,7 @@ def replay_cluster(cfg: SimConfig, seed: int, cluster_id: int, n_ticks: int,
 
 # --------------------------------------------------------------------------
 # The continuous fuzzing pool (retire-and-refill), the twin of the
-# reference's run_pool with coverage, metrics and heartbeat off.
+# reference's run_pool with coverage and heartbeat off.
 #
 # n_clusters lanes stay resident. Between chunks the carry is the packed
 # schema whenever it is exact for the run (the reference's layout rule);
@@ -334,13 +352,34 @@ class PoolHarvest(NamedTuple):
     msg_count: np.ndarray
     snap_installs: np.ndarray
     ticks_run: np.ndarray          # the cluster's age (= state.tick)
+    # metrics plane: per-lane rows, zero-size trailing axes with metrics off
+    lat_hist: np.ndarray           # [n, HB]
+    ev_counts: np.ndarray          # [n, len(METRIC_EVENTS)]
+    phase_hist: np.ndarray         # [n, P, HB]
+    phase_ticks: np.ndarray        # [n, P]
+    lat_ticks: np.ndarray          # [n, 1]
+    worst_lat: np.ndarray          # [n, 1]
+    worst_phases: np.ndarray       # [n, P]
+    worst_key: np.ndarray          # [n, 1]
+    worst_client: np.ndarray       # [n, 1]
+    worst_sub: np.ndarray          # [n, 1]
+
+
+# the state leaves a harvest snapshots per lane beside its nine scalars
+_METRIC_ROWS = PoolHarvest._fields[9:]
+
+
+def _worst_rows(h: PoolHarvest, lanes) -> tuple:
+    return (h.worst_lat[lanes], h.worst_phases[lanes], h.worst_key[lanes],
+            h.worst_client[lanes], h.worst_sub[lanes])
 
 
 def _retired_row(h: PoolHarvest, lane: int, wall: float,
                  viol_total: int) -> dict:
-    """One retired-cluster report dict (the streaming JSONL schema)."""
+    """One retired-cluster report dict (the streaming JSONL schema); with
+    metrics on it carries the lane's whole-life metric rows."""
     mask = int(h.violations[lane])
-    return {
+    row = {
         "cluster_id": int(h.ids[lane]),
         "ticks_run": int(h.ticks_run[lane]),
         "violations": mask,
@@ -355,6 +394,16 @@ def _retired_row(h: PoolHarvest, lane: int, wall: float,
             round(viol_total / wall, 3) if wall > 0 else None
         ),
     }
+    if h.lat_hist.shape[-1]:
+        row["latency_hist"] = [int(x) for x in h.lat_hist[lane]]
+        row["events"] = _metrics.event_summary(h.ev_counts[lane])
+        row["latency_phases"] = {
+            name: [int(x) for x in h.phase_hist[lane, p]]
+            for p, name in enumerate(phase_names(h.phase_hist.shape[-2]))
+        }
+        row["worst_op"] = _metrics.worst_op_dict(
+            *(x[0] for x in _worst_rows(h, [lane])))
+    return row
 
 
 class _PoolAccount:
@@ -362,7 +411,10 @@ class _PoolAccount:
     steps convention (post-violation ticks inside the retirement chunk are
     waste, not coverage) and row emission. ``consume`` runs only on
     _pipeline's consumer thread, in harvest order, and ``finish`` after
-    that thread joins, so no locking is needed."""
+    that thread joins, so no locking is needed. With metrics on, retired
+    lanes' histogram and counter rows merge by sum and their worst ops by
+    ``metrics.merge_worst_registers``; ``finish`` adds the lanes still
+    running."""
 
     def __init__(self, on_retired):
         self.on_retired = on_retired
@@ -372,9 +424,34 @@ class _PoolAccount:
         self.union = 0
         self.viol_clusters: list = []
         self.last = None
+        # metrics sums (None on metrics-off harvests)
+        self.hist_total: Optional[np.ndarray] = None
+        self.ev_total: Optional[np.ndarray] = None
+        self.phase_total: Optional[np.ndarray] = None
+        self.phase_ticks_total: Optional[np.ndarray] = None
+        self.lat_ticks_total = 0
+        self.worst: Optional[dict] = None
+
+    def _merge_metrics(self, h: PoolHarvest, lanes) -> None:
+        """Add the metric rows of the lanes selected by ``lanes``."""
+        self.hist_total += h.lat_hist[lanes].sum(axis=0)
+        self.ev_total += h.ev_counts[lanes].sum(axis=0)
+        self.phase_total += h.phase_hist[lanes].sum(axis=0)
+        self.phase_ticks_total += h.phase_ticks[lanes].sum(axis=0)
+        self.lat_ticks_total += int(h.lat_ticks[lanes].sum())
+        self.worst = _metrics.merge_worst_registers(
+            *_worst_rows(h, lanes), ids=h.ids[lanes], into=self.worst)
 
     def consume(self, h: PoolHarvest, wall: float) -> None:
         self.last = h
+        if h.lat_hist.shape[-1] and self.hist_total is None:
+            self.hist_total = np.zeros(h.lat_hist.shape[-1], np.int64)
+            self.ev_total = np.zeros(h.ev_counts.shape[-1], np.int64)
+            self.phase_total = np.zeros(h.phase_hist.shape[-2:], np.int64)
+            self.phase_ticks_total = np.zeros(h.phase_ticks.shape[-1],
+                                              np.int64)
+        if self.hist_total is not None and h.retired.any():
+            self._merge_metrics(h, h.retired)
         for lane in np.nonzero(h.retired)[0]:
             mask = int(h.violations[lane])
             self.retired_total += 1
@@ -392,6 +469,8 @@ class _PoolAccount:
         their ticks so far are honest pre-violation coverage."""
         h = self.last
         self.effective += int(h.ticks_run[~h.retired].sum())
+        if self.hist_total is not None:
+            self._merge_metrics(h, ~h.retired)
 
 
 def _pipeline(launch_chunk, launch_harvest, acct: _PoolAccount,
@@ -505,20 +584,33 @@ def _lane_reseed(states: ClusterState, ids, gens, seed, horizon):
     return retired, new_ids, new_keys, gens_new
 
 
-def _pool_snapshot(states: ClusterState, retired, ids) -> torch.Tensor:
-    """The per-lane report arrays of a harvest as one [9, B] int32 tensor,
-    so the host fetches them in one copy (PoolHarvest's field order)."""
-    return torch.stack([
+def _pool_snapshot(states: ClusterState, retired, ids) -> tuple:
+    """The per-lane report arrays of a harvest as one [B, K] int32 tensor,
+    so the host fetches them in one copy: nine scalars in PoolHarvest's
+    field order, then each metric row flattened. Returns (tensor, the
+    metric rows' per-lane shapes)."""
+    rows = [getattr(states, f) for f in _METRIC_ROWS]
+    scalars = torch.stack([
         retired.to(torch.int32), ids, states.violations,
         states.first_violation_tick, states.first_leader_tick,
         states.shadow_len, states.msg_count, states.snap_install_count,
         states.tick,
-    ])
+    ], dim=1)
+    b = scalars.shape[0]
+    return (torch.cat([scalars] + [x.reshape(b, -1) for x in rows], dim=1),
+            tuple(tuple(x.shape[1:]) for x in rows))
 
 
-def _fetch(snapshot: torch.Tensor) -> PoolHarvest:
-    h = snapshot.cpu().numpy()
-    return PoolHarvest(h[0].astype(bool), *h[1:])
+def _fetch(snapshot: tuple) -> PoolHarvest:
+    t, shapes = snapshot
+    h = t.cpu().numpy()
+    b = h.shape[0]
+    rows, at = [], 9
+    for shape in shapes:
+        size = int(np.prod(shape))
+        rows.append(h[:, at:at + size].reshape((b, *shape)))
+        at += size
+    return PoolHarvest(h[:, 0].astype(bool), *h[:, 1:9].T, *rows)
 
 
 def _scatter_fresh(retired, fresh: ClusterState,
@@ -577,8 +669,18 @@ def _summary_fields(compile_s: float, gap: float, wait: float,
 def _pool_summary(n_clusters: int, horizon: int, chunk_ticks: int,
                   lane_ticks: int, acct: _PoolAccount, wall: float,
                   tele: dict, id_fields: dict) -> dict:
-    """The pool summary dict, the reference's keys in its order."""
+    """The pool summary dict, the reference's keys in its order; with
+    metrics on it ends with ``latency`` (its ``phases`` and
+    ``ticks_total``), ``events`` and ``worst_op``."""
     dispatched = lane_ticks * n_clusters
+    extra = {}
+    if acct.hist_total is not None:
+        extra["latency"] = _metrics.latency_summary(acct.hist_total)
+        extra["latency"]["phases"] = _metrics.phases_summary(
+            acct.phase_total, acct.phase_ticks_total)
+        extra["latency"]["ticks_total"] = acct.lat_ticks_total
+        extra["events"] = _metrics.event_summary(acct.ev_total)
+        extra["worst_op"] = acct.worst
     return {
         "lanes": n_clusters,
         "horizon": horizon,
@@ -601,6 +703,7 @@ def _pool_summary(n_clusters: int, horizon: int, chunk_ticks: int,
         ),
         **tele,
         **id_fields,
+        **extra,
     }
 
 
@@ -648,7 +751,8 @@ def run_pool(
     device=None,
 ) -> dict:
     """Continuous fuzzing pool: chunk -> harvest -> refill until the budget
-    is spent (the reference's run_pool, coverage/metrics/heartbeat off).
+    is spent (the reference's run_pool, coverage and heartbeat off; the
+    metrics plane follows ``cfg.metrics``).
 
     A lane retires when its cluster violated or reached ``horizon`` ticks
     (seen at chunk boundaries) and is refilled under a new global id.

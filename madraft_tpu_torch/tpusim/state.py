@@ -4,8 +4,8 @@
 (``madraft_tpu/tpusim/state.py`` ``ClusterState``), each with a leading
 cluster axis: where the reference's single-cluster leaf is ``[N]`` the
 port's is ``[B, N]``, and a scalar becomes ``[B]``. Integers are int32 and
-flags bool, as there. The metric leaves are zero-size (metrics off, the
-only mode this package runs yet).
+flags bool, as there. The metric leaves (``log_tick`` .. ``worst_sub``)
+have the shapes of ``config.metrics_dims``: zero-size with metrics off.
 
 The log is the reference's canonical ring: absolute (1-based) index ``a``
 lives in lane ``(a - 1) mod log_cap``; ``base`` is the snapshot boundary.
@@ -106,27 +106,30 @@ class ClusterState(NamedTuple):
     first_leader_tick: torch.Tensor     # [B] -1 = none
     msg_count: torch.Tensor       # [B] delivered messages
     snap_install_count: torch.Tensor  # [B]
-    # metrics plane: zero-size with metrics off
-    log_tick: torch.Tensor
-    shadow_sub: torch.Tensor
-    lat_hist: torch.Tensor
-    ev_counts: torch.Tensor
-    phase_hist: torch.Tensor
-    phase_ticks: torch.Tensor
-    lat_ticks: torch.Tensor
-    worst_lat: torch.Tensor
-    worst_phases: torch.Tensor
-    worst_key: torch.Tensor
-    worst_client: torch.Tensor
-    worst_sub: torch.Tensor
+    # metrics plane (config.metrics_dims; zero-size with metrics off)
+    log_tick: torch.Tensor        # [B, N, CAP] submit stamp of each entry
+    #                               (0 = no-op or not a client command)
+    shadow_sub: torch.Tensor      # [B, CAP] this tick's shadow-record
+    #                               stamps (a per-tick scratch)
+    lat_hist: torch.Tensor        # [B, HB] submit->commit latency buckets
+    ev_counts: torch.Tensor       # [B, len(METRIC_EVENTS)] event counters
+    phase_hist: torch.Tensor      # [B, P, HB] per-phase histograms
+    phase_ticks: torch.Tensor     # [B, P] exact ticks per phase
+    lat_ticks: torch.Tensor       # [B, 1] exact latency ticks
+    worst_lat: torch.Tensor       # [B, 1] the worst op's latency
+    worst_phases: torch.Tensor    # [B, P] its phases
+    worst_key: torch.Tensor       # [B, 1] its key (-1: raft command)
+    worst_client: torch.Tensor    # [B, 1] its client (-1: raft command)
+    worst_sub: torch.Tensor       # [B, 1] its submit tick (0 = empty)
+
+
+# the metric leaves are ClusterState's last fields, from this index on
+METRIC_LEAF0 = ClusterState._fields.index("log_tick")
 
 
 def init_cluster(cfg: SimConfig, keys: torch.Tensor, kn=None) -> ClusterState:
     """Fresh clusters at tick 0, one per key row of ``keys`` [B, 2], with
     election timers drawn by ``randint`` like the reference's init."""
-    if cfg.metrics:
-        raise NotImplementedError(
-            "the metrics plane is not ported yet (ROADMAP A7)")
     dev = keys.device
     if kn is None:
         kn = cfg.knobs(dev)
@@ -701,7 +704,15 @@ def planted_edge_state(cfg: SimConfig, h: dict, seed: int) -> dict:
             "prefix_hash": (-2**31, 2**31 - 1),
             "shadow_prefix_hash": (-2**31, 2**31 - 1),
             "violations": (0, 2**16 - 1), "msg_count": (0, 2**31 - 1),
-            "snap_install_count": (0, 2**31 - 1)}
+            "snap_install_count": (0, 2**31 - 1),
+            # metric leaves: stamps and latencies in the tick dtype,
+            # counters in the event dtype, sums and keys kept i32
+            "log_tick": (0, b.tick), "shadow_sub": (0, b.tick),
+            "worst_lat": (0, b.tick), "worst_phases": (0, b.tick),
+            "worst_sub": (0, b.tick), "ev_counts": (0, b.event),
+            "phase_ticks": (-2**31, 2**31 - 1),
+            "lat_ticks": (-2**31, 2**31 - 1),
+            "worst_key": (-1, 2**31 - 1), "worst_client": (-1, 2**31 - 1)}
     p = {}
     for f, a in h.items():
         lo, hi = span.get(f, (0, b.index))

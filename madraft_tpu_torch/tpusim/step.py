@@ -12,11 +12,14 @@ cluster axis first: a ``[n]`` array there is ``[B, n]`` here, ``[n, n]`` is
 ``[B, n, n]``, a transpose ``.T`` swaps the last two axes, and a per-cluster
 scalar is ``[B]`` (``[:, None]`` / ``[:, None, None]`` to meet node axes).
 
-Two kernels carry the tick on the card: ``kernels.threefry.tick_blocks``
+Kernels carry the tick on the card: ``kernels.threefry.tick_blocks``
 draws the words (the engine draws a chunk of ticks at once and hands each
-tick its ``[B, total]`` slice; a tick called alone draws its own) and
-``kernels.oracle.oracle`` runs the safety oracle with its tail. Everything
-else is plain PyTorch for now.
+tick its ``[B, total]`` slice; a tick called alone draws its own),
+``kernels.oracle.oracle`` runs the safety oracle with its tail, and with
+the metrics plane on (``cfg.metrics``) the oracle's metrics instance
+carries the submit stamps and ``kernels.metrics.latency_fold`` (K4) folds the
+commit latencies. Everything else, the metrics plane's stamp updates and
+event counters among it, is plain PyTorch for now.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ from __future__ import annotations
 import torch
 
 from madraft_tpu_torch.kernels import threefry
+from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels.oracle import entry_mix, lane_abs, oracle, xor_reduce
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim.config import (
     CANDIDATE,
     FOLLOWER,
+    LATENCY_PHASES,
     LEADER,
     NOOP_CMD,
     SimConfig,
@@ -149,9 +154,10 @@ def step_cluster(
     (from ``cfg`` when omitted); ``words`` the tick's ``[B, total]`` draw
     words when drawn ahead (``kernels.threefry.tick_blocks`` at ``s.tick +
     1``), else the tick draws them itself."""
-    if cfg.metrics:
-        raise NotImplementedError(
-            "the metrics plane is not ported yet (ROADMAP A7)")
+    metrics = cfg.metrics
+    # the event counters' pre-tick baselines, taken before the suffix-loss
+    # rollback, so a bump is counted net of it
+    term0, commit0 = s.term, s.commit
     dev = s.term.device
     if kn is None:
         kn = cfg.knobs(dev)
@@ -259,6 +265,7 @@ def step_cluster(
     log_len = torch.where(lose, s.durable_len, s.log_len)
 
     log_term, log_val = s.log_term, s.log_val
+    log_tick = s.log_tick  # metrics: submit stamps ride with the log
     base, snap_term, prefix_hash = s.base, s.snap_term, s.prefix_hash
     durable_len = s.durable_len
     durable_term, durable_voted_for = s.durable_term, s.durable_voted_for
@@ -292,7 +299,8 @@ def step_cluster(
     stale = rv_rsp_t <= t2
     rv_rsp_t = torch.where(defer, t2 + 1, torch.where(stale, 0, rv_rsp_t))
     got = pick.any(-1)
-    delivered = delivered + count(pick)
+    d_rv_rsp = count(pick)
+    delivered = delivered + d_rv_rsp
     mterm = picked(pick, rv_rsp_term)
     higher = got & (mterm > term)
     term = torch.where(higher, mterm, term)
@@ -309,7 +317,8 @@ def step_cluster(
     stale = ae_rsp_t <= t2
     ae_rsp_t = torch.where(defer, t2 + 1, torch.where(stale, 0, ae_rsp_t))
     got = pick.any(-1)
-    delivered = delivered + count(pick)
+    d_ae_rsp = count(pick)
+    delivered = delivered + d_ae_rsp
     mterm = picked(pick, ae_rsp_term)
     higher = got & (mterm > term)
     term = torch.where(higher, mterm, term)
@@ -337,7 +346,8 @@ def step_cluster(
     sn_req_t = torch.where((s.sn_req_t == t2) & ~defer, 0, s.sn_req_t)
     sn_req_t = torch.where(defer, t2 + 1, sn_req_t)
     got = pick.any(-1)
-    delivered = delivered + count(pick)
+    d_sn = count(pick)
+    delivered = delivered + d_sn
     mterm = picked(pick, s.sn_req_term)
     higher = got & (mterm > term)
     term = torch.where(higher, mterm, term)
@@ -375,7 +385,8 @@ def step_cluster(
     rv_req_t = torch.where((s.rv_req_t == t2) & ~defer, 0, s.rv_req_t)
     rv_req_t = torch.where(defer, t2 + 1, rv_req_t)
     got = pick.any(-1)
-    delivered = delivered + count(pick)
+    d_rv_req = count(pick)
+    delivered = delivered + d_rv_req
     mterm = picked(pick, s.rv_req_term)
     higher = got & (mterm > term)
     term = torch.where(higher, mterm, term)
@@ -413,7 +424,8 @@ def step_cluster(
     ae_req_t = torch.where((s.ae_req_t == t2) & ~defer, 0, s.ae_req_t)
     ae_req_t = torch.where(defer, t2 + 1, ae_req_t)
     got = pick.any(-1)
-    delivered = delivered + count(pick)
+    d_ae_req = count(pick)
+    delivered = delivered + d_ae_req
     mterm = picked(pick, s.ae_req_term)
     higher = got & (mterm > term)
     term = torch.where(higher, mterm, term)
@@ -475,6 +487,14 @@ def step_cluster(
     log_val = torch.where(
         any_hit, torch.where(hit, ent_v[..., None], 0).sum(-2, dtype=I32), log_val
     )
+    if metrics:
+        # the submit stamp replicates with the entry: the picked sender's
+        # stamp ring at delivery, through the payload's own one-hots
+        plog_s = torch.where(pick4, log_tick[:, None], 0).sum(-2, dtype=I32)
+        ent_s = torch.where(slot_oh, plog_s[:, :, None, :], 0).sum(-1, dtype=I32)
+        log_tick = torch.where(
+            any_hit, torch.where(hit, ent_s[..., None], 0).sum(-2, dtype=I32),
+            log_tick)
     batch_end = torch.minimum(prev + nent, base + cap)  # ring overflow: drop tail
     log_len = torch.where(
         success,
@@ -523,6 +543,8 @@ def step_cluster(
     nop_hit = cols(nop) & (lane == _slot(log_len + 1, cap)[..., None])
     log_term = torch.where(nop_hit, cols(term), log_term)
     log_val = torch.where(nop_hit, NOOP_CMD, log_val)
+    if metrics:  # a no-op is not a client op: stamp 0
+        log_tick = torch.where(nop_hit, 0, log_tick)
     log_len = torch.where(nop, log_len + 1, log_len)
     durable_len = torch.where(nop, log_len, durable_len)
 
@@ -561,6 +583,8 @@ def step_cluster(
     inj_hit = cols(inject) & (lane == _slot(log_len + 1, cap)[..., None])
     log_term = torch.where(inj_hit, cols(term), log_term)
     log_val = torch.where(inj_hit, cols(cmd_val), log_val)
+    if metrics:  # the submit stamp: the tick the command entered
+        log_tick = torch.where(inj_hit, t2, log_tick)
     log_len = torch.where(inject, log_len + 1, log_len)
     durable_len = torch.where(inject, log_len, durable_len)
     next_cmd = s.next_cmd + inject.any(-1).to(I32)
@@ -615,11 +639,34 @@ def step_cluster(
 
     # ------------------------------------------------------------------- oracle
     (_, shadow_term, shadow_val, shadow_base, shadow_len, shadow_prefix_hash,
-     violations, first_violation_tick, first_leader_tick) = oracle(
+     violations, first_violation_tick, first_leader_tick, *shadow_sub) = oracle(
         alive, role, term, log_term, log_val, log_len, base, commit,
         prefix_hash, s.shadow_term, s.shadow_val, s.shadow_base,
         s.shadow_len, s.shadow_prefix_hash, s.violations,
-        s.first_violation_tick, s.first_leader_tick, t)
+        s.first_violation_tick, s.first_leader_tick, t,
+        **({"log_tick": log_tick} if metrics else {}))
+    metric_leaves = {}
+    if metrics:
+        # the commit-latency fold: an injected command's ack is the tick the
+        # shadow first records it; no-ops carry stamp 0 and are skipped. Its
+        # whole latency is the replicate phase (born at a leader, acked at
+        # commit), the other rows fold zeros
+        shadow_sub = shadow_sub[0]
+        lats = t1 - shadow_sub
+        zeros = torch.zeros_like(lats)
+        phases = torch.stack([lats if name == "replicate" else zeros
+                              for name in LATENCY_PHASES], dim=1)
+        none = torch.full_like(lats, -1)
+        lat_hist, phase_hist, phase_ticks, lat_ticks, worst = K4.latency_fold(
+            lats, shadow_sub > 0, phases, none, none, shadow_sub, s.lat_hist,
+            s.phase_hist, s.phase_ticks, s.lat_ticks,
+            (s.worst_lat, s.worst_phases, s.worst_key, s.worst_client,
+             s.worst_sub))
+        metric_leaves = dict(
+            log_tick=log_tick, shadow_sub=shadow_sub, lat_hist=lat_hist,
+            phase_hist=phase_hist, phase_ticks=phase_ticks,
+            lat_ticks=lat_ticks, worst_lat=worst[0], worst_phases=worst[1],
+            worst_key=worst[2], worst_client=worst[3], worst_sub=worst[4])
 
     # -------------------------------------------------------------- compaction
     boundary = torch.where(
@@ -654,6 +701,16 @@ def step_cluster(
     durable_term = torch.where(do_fsync, term, durable_term)
     durable_voted_for = torch.where(do_fsync, voted_for, durable_voted_for)
 
+    if metrics:  # one increment per node per event per tick
+        metric_leaves["ev_counts"] = s.ev_counts + torch.stack([
+            win.sum(-1, dtype=I32),                  # elections_won
+            (term > term0).sum(-1, dtype=I32),       # term_bumps
+            crash.sum(-1, dtype=I32),                # crashes
+            restart.sum(-1, dtype=I32),              # restarts
+            d_rv_req, d_rv_rsp, d_ae_req, d_ae_rsp, d_sn,
+            (commit > commit0).sum(-1, dtype=I32),   # commit_advances
+        ], dim=1)
+
     return s._replace(
         tick=t,
         term=term, voted_for=voted_for, role=role, timer=timer, hb=hb, alive=alive,
@@ -683,4 +740,5 @@ def step_cluster(
         first_leader_tick=first_leader_tick,
         msg_count=s.msg_count + delivered,
         snap_install_count=snap_install_count,
+        **metric_leaves,
     )

@@ -10,10 +10,11 @@ Tolerance: exact equality (integer kernels)."""
 import pytest
 import torch
 
+from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels import oracle as K2
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry as K1
-from madraft_tpu_torch.tpusim import config, engine, prng, state, step
+from madraft_tpu_torch.tpusim import config, engine, metrics, prng, state, step
 
 pytestmark = pytest.mark.cuda
 
@@ -81,8 +82,9 @@ def test_hash_pairs_kernel_equals_plain(dev):
         assert torch.equal(a, b)
 
 
-def _storm_state(dev, n_clusters, ticks, n_nodes=5):
-    cfg = config.storm_profiles()["storm"][0].replace(n_nodes=n_nodes)
+def _storm_state(dev, n_clusters, ticks, n_nodes=5, metrics_on=False):
+    cfg = config.storm_profiles()["storm"][0].replace(n_nodes=n_nodes,
+                                                      metrics=metrics_on)
     keys = engine.cluster_keys(3, n_clusters, dev)
     kn = cfg.knobs(dev)
     s = state.init_cluster(cfg, keys, kn)
@@ -219,3 +221,109 @@ def test_pool_on_the_card_equals_the_cpu(dev):
               "bytes_per_lane"):
         assert s_g[k] == s_c[k], k
     assert s_g["retired_violating"] > 0
+
+
+@pytest.mark.parametrize("n_clusters,n_nodes", [
+    (256, 5), (1001, 5), (256, 3), (256, 7), (256, 4), (256, 9)])
+def test_oracle_metrics_instance_equals_plain(dev, n_clusters, n_nodes):
+    # the metrics instance of each template: shadow_sub as the tenth output
+    s = _storm_state(dev, n_clusters, 120, n_nodes, metrics_on=True)
+    args = _oracle_args(s)
+    before = (K2.oracle.launches, K2.oracle.metrics_launches)
+    got = K2.oracle(*args, log_tick=s.log_tick)
+    assert (K2.oracle.launches - before[0],
+            K2.oracle.metrics_launches - before[1]) == (1, 1)
+    want = K2.oracle_plain(*args, log_tick=s.log_tick)
+    assert len(got) == len(want) == 10
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the metrics-off instance on the same state computes the nine as before
+    for a, b in zip(K2.oracle(*args), want[:9]):
+        assert torch.equal(a, b)
+
+
+def _fold_args_to(args, dev):
+    return tuple(_fold_args_to(x, dev) if isinstance(x, tuple) else x.to(dev)
+                 for x in args)
+
+
+def _fold_equal(got, want):
+    flat = lambda r: [*r[:4], *r[4]]  # noqa: E731
+    for a, b in zip(flat(got), flat(want)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("b,m,p", [(4096, 64, 4), (1001, 64, 4), (64, 33, 5),
+                                   (9, 1, 0)])
+def test_latency_fold_kernel_equals_plain_on_planted_inputs(dev, b, m, p):
+    cpu = metrics.planted_fold_inputs(b, m, p, seed=b + m)
+    before = K4.latency_fold.launches
+    got = K4.latency_fold(*_fold_args_to(cpu, dev))
+    assert K4.latency_fold.launches == before + 1
+    _fold_equal(got, metrics.latency_fold_plain(*cpu))
+
+
+def test_latency_fold_kernel_equals_plain_on_a_storm_tick(dev):
+    # the inputs one metrics-on tick gives the fold, captured at the call
+    cfg = config.storm_profiles()["storm"][0].replace(metrics=True)
+    keys = engine.cluster_keys(3, 512, dev)
+    kn = cfg.knobs(dev)
+    s = state.init_cluster(cfg, keys, kn)
+    seen = []
+
+    def keep(*args):
+        seen.append(args)
+        return fold(*args)
+
+    fold = K4.latency_fold
+    K4.latency_fold = keep
+    try:
+        for _ in range(120):
+            s = step.step_cluster(cfg, s, keys, kn)
+    finally:
+        K4.latency_fold = fold
+    assert len(seen) == 120
+    assert sum(int((a[1]).sum()) for a in seen) > 0  # commits were folded
+    for args in seen[-20:]:
+        _fold_equal(K4.latency_fold(*args),
+                    metrics.latency_fold_plain(*_fold_args_to(args, "cpu")))
+
+
+def test_latency_fold_refuses_what_it_does_not_take(dev):
+    args = list(_fold_args_to(metrics.planted_fold_inputs(8, 16, 4, 1), dev))
+    with pytest.raises(ValueError):
+        K4.latency_fold(*args[:1], args[1].to(torch.int32), *args[2:])
+    with pytest.raises(ValueError):
+        K4.latency_fold(*args[:6], args[6][:, :8], *args[7:])
+    with pytest.raises(ValueError):
+        K4.latency_fold(args[0].cpu(), *args[1:])
+
+
+def test_fuzz_with_metrics_on_the_card_equals_the_cpu(dev):
+    cfg = config.storm_profiles()["gray_storm"][0].replace(metrics=True)
+    with prng.layout(True):
+        before = (K4.latency_fold.launches, K2.oracle.metrics_launches)
+        gpu = engine.fuzz(cfg, 5, 32, 120, device=dev)
+        assert (K4.latency_fold.launches - before[0],
+                K2.oracle.metrics_launches - before[1]) == (120, 120)
+        cpu = engine.fuzz(cfg, 5, 32, 120, device="cpu")
+    for f in gpu._fields:
+        assert (getattr(gpu, f) == getattr(cpu, f)).all(), f
+    assert gpu.lat_hist.sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["storm", "edge"])
+def test_pack_kernels_equal_plain_with_metrics_on(dev, kind):
+    cfg = config.storm_profiles()["storm"][0].replace(metrics=True)
+    h = state.state_to_numpy(_storm_state(dev, 1000, 60, metrics_on=True))
+    if kind == "edge":
+        h = state.planted_edge_state(cfg, h, 5)
+    s, cpu = state.state_from_numpy(h, dev), state.state_from_numpy(h)
+    p = K3.pack_state(cfg, s)
+    back = K3.unpack_state(cfg, p)
+    want = state.pack_state(cfg, cpu)
+    assert state.tree_bytes(p) == 3600 * 1000
+    for f, a, b in zip(state.PackedClusterState._fields, _numpy(p),
+                       _numpy(want)):
+        assert a.dtype == b.dtype and (a == b).all(), f
+    assert state.first_divergence(0, h, state.state_to_numpy(back)) is None

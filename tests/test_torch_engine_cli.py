@@ -100,7 +100,7 @@ def test_cli_usage_errors_exit_2_like_reference(argv):
 
 @pytest.mark.parametrize("argv", [
     ["fuzz", "--mesh", "--clusters", "4", "--ticks", "2"],
-    ["fuzz", "--metrics", "--clusters", "4", "--ticks", "2"],
+    ["pool", "--metrics", "--heartbeat", "hb.jsonl", "--clusters", "4"],
     ["pool", "--devices", "2", "--clusters", "4"],
     ["sweep"],
 ])

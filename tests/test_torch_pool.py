@@ -199,7 +199,7 @@ def test_cli_pool_exit_code_is_1_iff_a_violation(majority, want_rc):
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"], ["--mesh"], ["--coverage"], ["--coverage-random"],
     ["--coverage-bits", "64"], ["--heartbeat", "hb.jsonl"],
-    ["--digest-every", "2"], ["--metrics"],
+    ["--digest-every", "2"], ["--metrics", "--coverage"],
 ])
 def test_cli_pool_unported_flags_exit_2(flags):
     rc, lines, err = _cli(["pool", "--clusters", "4", "--ticks", "8", *flags])

@@ -10,10 +10,16 @@ fixture legs on the card, drives the main paths through the CLI and
 checks that each went through its kernels: the fuzz flagship (``fuzz
 --storm --clusters 4096 --ticks 1024``, twice) and the pool flagship
 (``pool --storm --clusters 4096 --ticks 512 --budget-ticks 1024``, twice),
-each again with ``--metrics`` (the metrics plane: the oracle's metrics
-instance and the latency fold K4), replays pool hits through ``replay``,
-runs the nine raft-layer game-day gates with metrics on, then times each
-kernel beside its plain version and its bound:
+each again with ``--metrics`` at half the depth (the metrics plane: the
+oracle's metrics instance and the latency fold K4), the coverage pool
+flagship (the pool flagship with ``--coverage``, twice: the fingerprint
+and seen-set kernel K5 every tick, the biased refill) and the sweep
+flagships (``sweep --storm`` at 4096 clusters x 1024 ticks on the CLI's
+default 12-cell grid, the per-cluster dispatch, and on an 8-cell grid, the
+uniform dispatch, again forced per-cluster), replays pool hits and mutated
+coverage rows
+through ``replay``, runs the nine raft-layer game-day gates with metrics
+on, then times each kernel beside its plain version and its bound:
 ``ms`` is the kernel's own device time per launch (torch.profiler, matched
 by the CUDA function's name), ``call_ms`` the wrapper's time per call as
 the host issues it back to back (CUDA events).
@@ -28,6 +34,7 @@ result, when no CUDA card is visible. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import pathlib
@@ -42,8 +49,24 @@ FLAGSHIP = ["fuzz", "--storm", "--clusters", "4096", "--ticks", "1024",
 FLAGSHIP_RUNS = 2  # --check-deterministic runs the program twice
 POOL_FLAGSHIP = ["pool", "--storm", "--clusters", "4096", "--ticks", "512",
                  "--budget-ticks", "1024", "--seed", "12345"]
-METRICS_FLAGSHIP = FLAGSHIP + ["--metrics"]
-METRICS_POOL_FLAGSHIP = POOL_FLAGSHIP + ["--metrics"]
+# the metrics flagships at half the depth (the script's time): the fuzz
+# flagship's first 512 ticks, the pool flagship's first horizon
+METRICS_TICKS = 512
+METRICS_FLAGSHIP = ["fuzz", "--storm", "--clusters", "4096", "--ticks",
+                    str(METRICS_TICKS), "--seed", "12345",
+                    "--check-deterministic", "--metrics"]
+METRICS_POOL_FLAGSHIP = ["pool", "--storm", "--clusters", "4096", "--ticks",
+                         "512", "--budget-ticks", "512", "--seed", "12345",
+                         "--metrics"]
+COVERAGE_POOL_FLAGSHIP = POOL_FLAGSHIP + ["--coverage"]
+# the CLI's default grid (12 cells: the per-cluster dispatch) and an 8-cell
+# grid (at most engine.SWEEP_UNIFORM_MAX_CELLS: the uniform dispatch)
+SWEEP_FLAGSHIP = ["sweep", "--storm", "--clusters", "4096", "--ticks", "1024",
+                  "--seed", "12345"]
+SWEEP_UNIFORM_FLAGSHIP = SWEEP_FLAGSHIP + [
+    "--loss", "0,0.1", "--crash", "0,0.01", "--repartition", "0,0.02"]
+# mutated coverage rows replayed through the CLI
+REPLAY_MUTATED = 3
 # the report keys the metrics plane adds
 METRIC_KEYS = ("latency", "events", "worst_op")
 # the metrics-on packed carry at n = 5, cap = 64 (the reference's pin)
@@ -66,7 +89,14 @@ PEAK_OPS_S = 67e12
 OPS_PER_HASH = 2 + 20 * 5 + 5 * 3 + 2
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds
+    since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -173,6 +203,7 @@ def deterministic(d: dict) -> dict:
 def counters():
     """Every kernel launch counter, by name: the wrappers' ``launches``
     and the oracle's count of metrics-instance launches."""
+    from madraft_tpu_torch.kernels import coverage as K5
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
@@ -184,7 +215,8 @@ def counters():
             "oracle_metrics": (K2.oracle, "metrics_launches"),
             "pack_state": (K3.pack_state, "launches"),
             "unpack_state": (K3.unpack_state, "launches"),
-            "latency_fold": (K4.latency_fold, "launches")}
+            "latency_fold": (K4.latency_fold, "launches"),
+            "seen_update": (K5.seen_update, "launches")}
 
 
 def read_counts() -> dict:
@@ -199,15 +231,23 @@ def set_counts(values=None) -> None:
 
 class KeepFirst:
     """A stand-in for a function the engine or the CLI calls: it keeps
-    ``keep(args)`` of the first call and returns what the function does."""
+    ``keep(args)`` of the first call (or of call number ``at``; with
+    ``result``, ``keep`` of what that call returned) and returns what the
+    function does."""
 
-    def __init__(self, fn, keep):
+    def __init__(self, fn, keep, at: int = 0, result: bool = False):
         self.fn, self.keep, self.kept = fn, keep, []
+        self.at, self.calls, self.result = at, 0, result
 
-    def __call__(self, *args):
-        if not self.kept:
+    def __call__(self, *args, **kwargs):
+        at = self.calls == self.at
+        self.calls += 1
+        if at and not self.result:
             self.kept.append(self.keep(*args))
-        return self.fn(*args)
+        out = self.fn(*args, **kwargs)
+        if at and self.result:
+            self.kept.append(self.keep(out))
+        return out
 
 
 def main() -> int:
@@ -217,12 +257,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import coverage as K5
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.tpusim import (
         config,
+        coverage,
         engine,
         metrics,
         prng,
@@ -340,6 +382,48 @@ def main() -> int:
     emit({"phase": "k4_vs_plain_planted", "shapes": shapes,
           "max_abs_err": errs["latency_fold"]})
 
+    # ---- 3c. K5 against its plain version on planted batches: n = 3, 5,
+    # 7; identity (the ground-truth alphabet) and hashed seen-sets (65536
+    # bits, and 16 bits where many lanes collide); violated lanes; eight
+    # lanes on one code a tick; one row, a [1, bits] sharded row, 4 rows
+    gt_cfg, gt_ccfg, gt_horizon = config.coverage_ground_truth()
+    checked = []
+    for n_nodes in (3, 5, 7):
+        for mode, ccfg in (("identity", gt_ccfg),
+                           ("hashed", config.CoverageConfig()),
+                           ("hashed16", config.CoverageConfig(bitmap_bits=16))):
+            if mode == "identity":
+                space = coverage.code_space(n_nodes, ccfg)
+                if space > 1 << 23:
+                    continue
+                ccfg = ccfg.replace(bitmap_bits=1 << (space - 1).bit_length())
+            for shards in (None, 1, 4):
+                cpu_in = coverage.planted_fingerprint_inputs(n_nodes, 4096,
+                                                             n_nodes)
+                _k5_vs_plain(ccfg, cpu_in, shards, dev, errs,
+                             f"n={n_nodes} {mode} shards={shards}")
+                checked.append(f"n{n_nodes}:{mode}:{shards}")
+    emit({"phase": "k5_vs_plain_planted", "lanes": 4096, "cases": checked,
+          "ticks_each": 3, "max_abs_err": errs["seen_update"]})
+
+    # ---- 3d. the refill's float32 arithmetic (XLA's exp2 and FMA as the
+    # plain version forms them) on the card over all 2^23 uniforms, held
+    # against the SHA-256 of the JAX package's results
+    cov_fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                         "coverage_legs.json").read_text())
+    grid = {}
+    for name, ccfg in (("default", config.CoverageConfig()),
+                       ("ground_truth", gt_ccfg)):
+        mut, fresh = coverage.refill_grid(ccfg, dev)
+        digest = coverage.grid_sha256([mut.cpu(), fresh.cpu()])
+        check(digest == cov_fx["exp_grid"][name]["sha256"],
+              f"refill arithmetic on the card differs from the JAX "
+              f"package's over the uniform grid ({name})")
+        grid[name] = digest[:16]
+    del mut, fresh
+    emit({"phase": "refill_grid", "values": 1 << 23, "sha256_prefix": grid,
+          "match": True})
+
     # ---- 3b. K3 against its plain version (on the CPU, same inputs):
     # n = 3, 5, 7; fresh clusters, storm@150, and a state at the edges of
     # the packed bounds; unpack(pack(s)) == s on each
@@ -413,21 +497,23 @@ def main() -> int:
                   "violating": out["retired_violating"],
                   "state_layout": out["state_layout"]})
     _metrics_fixture_legs(dev)
+    _coverage_fixture_legs(dev, cov_fx)
 
     # ---- 6. the flagship, through the CLI, counting kernel launches; the
-    # final state of its first run is kept on the host (metric leaves
-    # aside) for the metrics flagship to be held against
+    # state of its first run at tick METRICS_TICKS is kept on the host
+    # (metric leaves aside) for the metrics flagship to be held against
     set_counts()
     prng.set_partitionable(True)
-    final_off = KeepFirst(engine.report, _non_metric_leaves)
-    engine.report = final_off
+    final_off = KeepFirst(engine.step_cluster, _non_metric_leaves,
+                          at=METRICS_TICKS - 1, result=True)
+    engine.step_cluster = final_off
     try:
         t0 = time.perf_counter()
         rc, out = run_cli(FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        engine.report = final_off.fn
+        engine.step_cluster = final_off.fn
     launches = read_counts()
     ticks = _flag(FLAGSHIP, "--ticks") * FLAGSHIP_RUNS
     chunks = -(-_flag(FLAGSHIP, "--ticks") // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
@@ -449,9 +535,10 @@ def main() -> int:
           "first_leader_tick_mean": out["first_leader_tick_mean"],
           "bytes_per_lane": tele["bytes_per_lane"]})
 
-    # ---- 6m. the metrics flagship: the same run with --metrics. Every
-    # non-metric leaf of its final state and every non-metric report field
-    # equals the flagship's; K4 and K2's metrics instance run once a tick
+    # ---- 6m. the metrics flagship: the flagship's first METRICS_TICKS
+    # ticks with --metrics. Every non-metric leaf of its final state equals
+    # the flagship's at that tick (the report's fields are read off those
+    # leaves); K4 and K2's metrics instance run once a tick
     set_counts()
     final_on = KeepFirst(engine.report, _non_metric_leaves)
     engine.report = final_on
@@ -465,21 +552,20 @@ def main() -> int:
     launches_m = read_counts()
     check(rc_m == 0 and out_m.get("deterministic") is True,
           f"metrics flagship rc {rc_m} or double run differs: {out_m}")
-    same = {k: v for k, v in out_m.items()
-            if k not in METRIC_KEYS and k != "telemetry"}
-    want_same = {k: v for k, v in out.items() if k != "telemetry"}
-    check(same == want_same,
-          f"metrics changed the flagship's report: {same} vs {want_same}")
+    check(set(out_m) - set(METRIC_KEYS) == set(out),
+          f"metrics changed the flagship's report keys: {sorted(out_m)}")
     bad = [f for f, a in final_off.kept[0].items()
            if not (a.dtype == final_on.kept[0][f].dtype
                    and (a == final_on.kept[0][f]).all())]
     check(not bad, f"metrics changed the flagship's final leaves {bad}")
     _check_latency_mass(out_m["latency"], "metrics flagship")
-    check(launches_m["latency_fold"] == ticks
-          and launches_m["oracle_metrics"] == launches_m["oracle"] == ticks
-          and launches_m["threefry_tick_blocks"] == chunks,
-          f"metrics flagship launches {launches_m}, want {ticks} "
-          f"latency_fold and metrics oracle, {chunks} tick_blocks")
+    ticks_m = METRICS_TICKS * FLAGSHIP_RUNS
+    chunks_m = -(-METRICS_TICKS // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
+    check(launches_m["latency_fold"] == ticks_m
+          and launches_m["oracle_metrics"] == launches_m["oracle"] == ticks_m
+          and launches_m["threefry_tick_blocks"] == chunks_m,
+          f"metrics flagship launches {launches_m}, want {ticks_m} "
+          f"latency_fold and metrics oracle, {chunks_m} tick_blocks")
     tele_m = out_m["telemetry"]
     emit({"phase": "metrics_flagship", "argv": METRICS_FLAGSHIP, "rc": rc_m,
           "cluster_steps_per_s": tele_m["steps_per_sec"],
@@ -554,9 +640,10 @@ def main() -> int:
           "state_hbm_bytes": out1["state_hbm_bytes"],
           "bytes_per_lane": out1["bytes_per_lane"]})
 
-    # ---- 6m'. the metrics pool flagship, twice: deterministic, its rows
-    # and summary equal to the pool flagship's but for the metric columns,
-    # the histogram mass invariants, K4 once a tick
+    # ---- 6m'. the metrics pool flagship (the pool flagship's first
+    # horizon), twice: deterministic, its rows equal to the pool flagship's
+    # first generation but for the metric columns, the histogram mass
+    # invariants, K4 once a tick
     set_counts()
     mruns = []
     for _ in range(2):
@@ -572,15 +659,14 @@ def main() -> int:
           and deterministic(mout1) == deterministic(mout2),
           "metrics pool flagship double run differs")
     row_cols = ("latency_hist", "events", "latency_phases", "worst_op")
+    m_lanes = _flag(METRICS_POOL_FLAGSHIP, "--clusters")
     check([deterministic({k: v for k, v in r.items() if k not in row_cols})
-           for r in mrows1] == [deterministic(r) for r in rows1],
+           for r in mrows1] == [deterministic(r) for r in rows1
+                                if r["cluster_id"] < m_lanes],
           "metrics changed the pool flagship's rows")
-    plain_keys = ("state_hbm_bytes", "bytes_per_lane")
-    check({k: v for k, v in deterministic(mout1).items()
-           if k not in METRIC_KEYS + plain_keys}
-          == {k: v for k, v in deterministic(out1).items()
-              if k not in plain_keys},
-          "metrics changed the pool flagship's summary")
+    check(mout1["retired"] == m_lanes and mout1["retired_violating"] == 0
+          and set(mout1) - set(METRIC_KEYS) == set(out1),
+          f"metrics pool flagship summary: {deterministic(mout1)}")
     check(mout1["state_layout"] == "packed"
           and mout1["bytes_per_lane"] == METRICS_BYTES_PER_LANE,
           f"metrics pool carry {mout1['state_layout']} "
@@ -592,7 +678,13 @@ def main() -> int:
               f"pool row {r['cluster_id']}: phase rows' mass differs")
     check(sum(sum(r["latency_hist"]) for r in mrows1) <= mout1["latency"]["ops"],
           "pool rows hold more ops than the summary")
-    mwant = dict(want, latency_fold=2 * budget, oracle_metrics=2 * budget)
+    m_budget = _flag(METRICS_POOL_FLAGSHIP, "--budget-ticks")
+    m_gens = m_budget // chunk_ticks
+    mwant = {"threefry_tick_blocks":
+                 2 * m_gens * -(-chunk_ticks // engine.DRAW_CHUNK),
+             "oracle": 2 * m_budget, "pack_state": 2 * m_gens,
+             "unpack_state": 2 * (m_gens - 1),
+             "latency_fold": 2 * m_budget, "oracle_metrics": 2 * m_budget}
     check(all(mpool_launches[k] == v for k, v in mwant.items()),
           f"metrics pool flagship launches {mpool_launches}, want {mwant}")
     emit({"phase": "metrics_pool_flagship", "argv": METRICS_POOL_FLAGSHIP,
@@ -628,6 +720,135 @@ def main() -> int:
         replayed.append(r["cluster_id"])
     emit({"phase": "pool_replay", "hits": len(hits), "replayed": replayed,
           "generations": sorted({c // lanes for c in replayed})})
+
+    # ---- 6v. the coverage pool flagship, twice: deterministic, K5 once a
+    # tick, the pool flagship's K3 and draw launches; its first harvest's
+    # rows equal the pool flagship's but for the coverage columns; mutated
+    # rows replay bit-exactly through the CLI's replay --knobs-json; the
+    # inputs K5 takes at the first tick are kept for phase 7
+    set_counts()
+    cruns = []
+    # the inputs of the first run's 200th tick, for phase 7
+    k5_in = KeepFirst(K5.seen_update,
+                      lambda ccfg_, *a: (ccfg_, *(x.clone() if hasattr(
+                          x, "clone") else x for x in a)), at=199)
+    engine.K5 = types.SimpleNamespace(seen_update=k5_in)
+    try:
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc, lines = run_cli_lines(COVERAGE_POOL_FLAGSHIP)
+            torch.cuda.synchronize()
+            cruns.append((rc, lines[:-1], lines[-1],
+                          torch.cuda.max_memory_allocated(),
+                          time.perf_counter() - t0))
+    finally:
+        engine.K5 = K5
+    cov_launches = read_counts()
+    (crc1, crows1, cout1, cpeak1, _), (crc2, crows2, cout2, cpeak2, _) = cruns
+    check(crc1 == crc2 == 0 and cout1["retired"] == retired,
+          f"coverage pool flagship: rc {crc1} {crc2}, {cout1}")
+    check([deterministic(r) for r in crows1] == [deterministic(r) for r in crows2]
+          and _cov_deterministic(cout1) == _cov_deterministic(cout2),
+          "coverage pool flagship double run differs")
+    cov_cols = ("new_fingerprints", "refill", "knobs")
+    pool_lanes = _flag(POOL_FLAGSHIP, "--clusters")
+    first_gen = [deterministic({k: v for k, v in r.items() if k not in cov_cols})
+                 for r in crows1 if r["cluster_id"] < pool_lanes]
+    check(first_gen == [deterministic(r) for r in rows1
+                        if r["cluster_id"] < pool_lanes],
+          "coverage changed the pool flagship's first generation")
+    cdict = cout1["coverage"]
+    check(cdict["seen_fingerprints"] > 0 and cdict["refills_mutated"] > 0
+          and cdict["generations"] == gens
+          and sum(cdict["new_fp_per_gen"]) == cdict["seen_fingerprints"],
+          f"coverage pool flagship's coverage: {cdict}")
+    cwant = dict(want, seen_update=2 * budget)
+    check(all(cov_launches[k] == v for k, v in cwant.items()),
+          f"coverage pool flagship launches {cov_launches}, want {cwant} "
+          "(one K5 launch a tick)")
+    mutated = [r for r in crows1 if r["refill"] == "mutate"]
+    check(len(mutated) >= REPLAY_MUTATED, f"{len(mutated)} mutated rows")
+    replayed = []
+    for r in mutated[::max(1, len(mutated) // REPLAY_MUTATED)][:REPLAY_MUTATED]:
+        rc, out = run_cli(["replay", "--storm", "--seed", "12345", "--cluster",
+                           str(r["cluster_id"]), "--ticks",
+                           str(r["ticks_run"]), "--knobs-json",
+                           json.dumps(r["knobs"])])
+        check(rc == (1 if r["violations"] else 0)
+              and all(out[k] == r[k] for k in
+                      ("violations", "first_violation_tick", "committed")),
+              f"mutated row {r['cluster_id']} replays as {out}")
+        replayed.append(r["cluster_id"])
+    emit({"phase": "coverage_pool_flagship", "argv": COVERAGE_POOL_FLAGSHIP,
+          "rc": crc1, "retired": cout1["retired"], "launches": cov_launches,
+          "runs": [{k: o[k] for k in ("wall_s", "steps_per_sec",
+                                      "effective_steps_per_sec",
+                                      "dispatch_gap_s", "device_wait_s",
+                                      "host_overlap_s", "compile_s")}
+                   | {"peak_memory_bytes": pk,
+                      "seen_fingerprints": o["coverage"]["seen_fingerprints"],
+                      "new_fingerprints_per_s":
+                          o["coverage"]["new_fingerprints_per_s"]}
+                   for o, pk in ((cout1, cpeak1), (cout2, cpeak2))],
+          "coverage": {k: cdict[k] for k in (
+              "bitmap_bits", "identity", "seen_fingerprints",
+              "lane_new_fps_total", "generations", "new_fp_per_gen",
+              "refills_mutated", "refills_fresh")},
+          "mutated_rows": len(mutated), "replayed": replayed,
+          "pool_flagship_steps_per_sec": [out1["steps_per_sec"],
+                                          out2["steps_per_sec"]],
+          "state_layout": cout1["state_layout"],
+          "bytes_per_lane": cout1["bytes_per_lane"]})
+    del cruns, crows1, crows2, rows1, rows2
+
+    # ---- 6s. the sweep flagships through the CLI: the default 12-cell grid
+    # (per-cluster dispatch) and an 8-cell grid (uniform dispatch), that one
+    # again with the per-cluster layout forced: both layouts' reports equal
+    sweeps = {}
+    for label, argv, force in (("per_cluster", SWEEP_FLAGSHIP, False),
+                               ("uniform", SWEEP_UNIFORM_FLAGSHIP, False),
+                               ("uniform_forced", SWEEP_UNIFORM_FLAGSHIP, True)):
+        set_counts()
+        make = engine.make_sweep_fn
+        if force:
+            engine.make_sweep_fn = functools.partial(make, uniform_max_cells=0)
+        try:
+            t0 = time.perf_counter()
+            rc, out = run_cli(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            engine.make_sweep_fn = make
+        sl = read_counts()
+        cells = len(out["cells"])
+        runs_ = cells if out["dispatch"] == "uniform" else 1
+        chunks_ = runs_ * -(-_flag(argv, "--ticks") // engine.DRAW_CHUNK)
+        check(rc == 0 and out["violating"] == 0
+              and out["clusters_run"]
+              == _flag(argv, "--clusters") // cells * cells
+              and out["dispatch"] == ("per_cluster" if force or cells > 8
+                                      else "uniform"),
+              f"sweep {label}: rc {rc}, {out['dispatch']}, {out['violating']}")
+        check(sl["oracle"] == _flag(argv, "--ticks") * runs_
+              and sl["threefry_tick_blocks"] == chunks_,
+              f"sweep {label} launches {sl}")
+        check(all(c["live"] > 0 for c in out["cells"]), f"sweep {label}: "
+              "a cell made no progress")
+        sweeps[label] = out
+        tele = out["telemetry"]
+        emit({"phase": f"sweep_{label}", "argv": argv, "rc": rc,
+              "dispatch": out["dispatch"], "cells": cells,
+              "cluster_steps_per_s": tele["steps_per_sec"],
+              "execute_s": tele["execute_s"], "wall_s": round(wall, 3),
+              "launches": sl,
+              "committed_mean_by_cell": [c["committed_mean"]
+                                         for c in out["cells"]]})
+    same = {k: v for k, v in sweeps["uniform"].items()
+            if k not in ("telemetry", "dispatch")}
+    check(same == {k: v for k, v in sweeps["uniform_forced"].items()
+                   if k not in ("telemetry", "dispatch")},
+          "the sweep's two layouts report differently")
 
     # ---- 6g. the raft layer's game-day gates (config.profile_gates) with
     # metrics on at their bench scale: no violation, liveness (acked ops a
@@ -755,6 +976,37 @@ def main() -> int:
     k4_out = _flat(K4.latency_fold(*k4_args))
     n_ph = k4_args[2].shape[1]
 
+    # K5 at the coverage pool flagship's shape: the inputs its 200th tick
+    # gave the kernel, against the plain version on the same inputs
+    check(len(k5_in.kept) == 1, "the coverage flagship's K5 inputs not kept")
+    ccfg5, *k5_args = k5_in.kept.pop()
+    k5_node, k5_rows, k5_seen, k5_nf, k5_t = (k5_args[:5], k5_args[5],
+                                             k5_args[6], k5_args[7],
+                                             k5_args[8])
+    got = K5.seen_update(ccfg5, *k5_node, k5_rows, k5_seen.clone(),
+                         k5_nf.clone(), k5_t)
+    want5 = coverage.seen_update_plain(ccfg5, *k5_node, k5_rows,
+                                       k5_seen.clone(), k5_nf.clone(), k5_t)
+    for a, bb in zip(got, want5):
+        errs["seen_update"] = max(errs["seen_update"], max_abs_err(a, bb))
+    check(errs["seen_update"] == 0,
+          "K5 differs from its plain version on the coverage flagship's tick")
+    emit({"phase": "k5_vs_plain_coverage_tick", "clusters": b,
+          "tick": k5_t + 1, "seen_bits": int(coverage.seen_bits(k5_seen)),
+          "credited": int((want5[1] - k5_nf).sum()),
+          "max_abs_err": errs["seen_update"]})
+    k5_rot = [tuple(k5_node)] + [tuple(x.clone() for x in k5_node)
+                                 for _ in range(rotations(nbytes(*k5_node)) - 1)]
+    k5_ok = int((k5_node[4] == 0).sum())
+
+    def k5_call(i):
+        return K5.seen_update(ccfg5, *k5_rot[i % len(k5_rot)], None, k5_seen,
+                              k5_nf, k5_t + 1 + i)
+
+    def k5_plain(i):
+        return coverage.seen_update_plain(ccfg5, *k5_rot[i % len(k5_rot)],
+                                          None, k5_seen, k5_nf, k5_t + 1 + i)
+
     # name: (device ms, call ms, plain ms, bytes, operations)
     timing = {
         # one chunk: [chunk, b, total] int64 words, b * chunk rows of 2
@@ -800,6 +1052,16 @@ def main() -> int:
             cuda_ms(k4_plain, iters=20),
             nbytes(*_flat(k4_args)) + nbytes(*k4_out),
             b * 64 * ((1 + n_ph) * 5 + 3)),
+        # the node rows and violation word read once, each credit read and
+        # written, one stamp read and written a clean lane; per lane n^2
+        # compares, about 12 operations a node (quantize, fold) and 12 for
+        # the hash
+        "seen_update": (
+            device_ms(k5_call, "seen_update_kernel"),
+            cuda_ms(k5_call),
+            cuda_ms(k5_plain, iters=20),
+            nbytes(*k5_node) + 2 * nbytes(k5_nf) + 8 * k5_ok,
+            b * (n_nodes * n_nodes + 12 * n_nodes + 12)),
         # one direction reads one form and writes the other
         "pack_state": (
             device_ms(lambda i: K3.pack_state(fcfg, k3p_rot[i % len(k3p_rot)]),
@@ -817,23 +1079,40 @@ def main() -> int:
                     iters=20),
             nbytes(*fs) + nbytes(*fp), k3_ops),
     }
-    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot
+    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot
     set_counts(counts)  # timing launches are not main-path launches
     emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
           "l2_cold_rotations": {"oracle": rotations(nbytes(*args2)),
                                 "latency_fold": rotations(
                                     nbytes(*_flat(k4_args))),
+                                "seen_update": rotations(nbytes(*k5_node)),
                                 "pack_state": rotations(nbytes(*fs)),
                                 "unpack_state": rotations(nbytes(*fp))},
           "shapes": {"tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
                      "oracle_logs": [b, n_nodes, 64],
                      "latency_fold": [b, 64, n_ph],
+                     "seen_update": [b, n_nodes, ccfg5.bitmap_bits],
                      "pack_bytes": [nbytes(*fs), nbytes(*fp)]}})
 
     # ---- 8. where a flagship tick's and a pool harvest's time goes
     # (torch.profiler), and the bytes behind B2-rest's bound
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_metrics"))
+    # a coverage tick: the flagship tick under [B] knob rows, then K5
+    cov_seen = torch.full((1, config.CoverageConfig().bitmap_bits),
+                          coverage.UNSEEN, dtype=torch.int32, device=dev)
+    cov_nf = torch.zeros(b, dtype=torch.int32, device=dev)
+    cov_t = [0]
+
+    def fingerprint(st):
+        K5.seen_update(config.CoverageConfig(), st.role, st.alive, st.term,
+                       st.commit, st.violations, None, cov_seen, cov_nf,
+                       cov_t[0])
+        cov_t[0] += 1
+
+    emit(_profile_ticks(fcfg, fs, fk, fkn.broadcast(b), chunk,
+                        "profile_coverage", after_tick=fingerprint))
+    del cov_seen
     wide_bpl, packed_bpl = nbytes(*fs) / b, nbytes(*fp) / b
     # a harvest reads the chunk's wide state, ids and keys once and writes
     # the packed carry, the [B, 9] snapshot and the new ids and keys once
@@ -849,6 +1128,7 @@ def main() -> int:
           "b4_harvest_bytes_per_lane": harvest_bpl,
           "b4_harvest_bound_ms": b * harvest_bpl / PEAK_BYTES_S * 1e3})
     emit(_profile_harvest(fs, fk, fkn))
+    emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
 
     sources = {
         "threefry_tick_blocks": ("madraft_tpu_torch/csrc/threefry.cu",
@@ -861,6 +1141,8 @@ def main() -> int:
                            "madraft_tpu/tpusim/step.py:1008"),
         "latency_fold": ("madraft_tpu_torch/csrc/metrics.cu",
                          "madraft_tpu/tpusim/metrics.py:45"),
+        "seen_update": ("madraft_tpu_torch/csrc/coverage.cu",
+                        "madraft_tpu/tpusim/coverage.py:100"),
         "pack_state": ("madraft_tpu_torch/csrc/pack.cu",
                        "madraft_tpu/tpusim/state.py:561"),
         "unpack_state": ("madraft_tpu_torch/csrc/pack.cu",
@@ -873,6 +1155,7 @@ def main() -> int:
                                                    "unpack_state")})
     launches.update({k: launches_m[k] for k in ("oracle_metrics",
                                                 "latency_fold")})
+    launches["seen_update"] = cov_launches["seen_update"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
@@ -1080,39 +1363,54 @@ def _k3_vs_plain(cfg, h: dict, dev, errs: dict, label: str) -> None:
           f"K3 round trip differs at {label}")
 
 
-def _profile_harvest(s, keys, kn) -> dict:
+def _profile_harvest(s, keys, kn, ccfg=None) -> dict:
     """Device operations and time of one pool harvest at the flagship
     shape (retire mask, ids, snapshot, fresh lanes, the K3 pack and the
-    host fetch), from torch.profiler; the kernels' counters get their
-    saved values back afterwards."""
+    host fetch; with ``ccfg`` the coverage harvest, its knob rows refilled
+    by the guided rule, half the lanes productive), from torch.profiler;
+    the kernels' counters get their saved values back afterwards."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from madraft_tpu_torch.tpusim import engine
+    from madraft_tpu_torch.tpusim import coverage, engine
 
     counts = read_counts()
     cfg = _storm_cfg()
     b = int(s.tick.shape[0])
-    ids = torch.arange(b, dtype=torch.int32, device=s.tick.device)
+    dev = s.tick.device
+    ids = torch.arange(b, dtype=torch.int32, device=dev)
     # horizon 200: every lane of the tick-200 state retires and refills
     c = engine._Carry(None, keys, ids, torch.tensor(b, dtype=torch.int32,
-                                                    device=ids.device))
-    c.wide = s
-    engine._harvest(cfg, kn, c, 12345, 200, False, True)  # warm
-    c.wide = s
+                                                    device=dev))
+
+    def arm():
+        c.wide = s
+        if ccfg is not None:
+            c.kn_lanes = kn.broadcast(b)
+            c.kinds = torch.zeros(b, dtype=torch.int32, device=dev)
+            c.new_fps = ids % 2
+            c.seen = torch.full((1, ccfg.bitmap_bits), coverage.UNSEEN,
+                                dtype=torch.int32, device=dev)
+
+    arm()
+    engine._harvest(cfg, kn, c, 12345, 200, False, True, ccfg)  # warm
+    arm()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        h = engine._harvest(cfg, kn, c, 12345, 200, False, True)
+        h = engine._harvest(cfg, kn, c, 12345, 200, False, True, ccfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     set_counts(counts)
+    if ccfg is not None:
+        h = h.pool
     kernels = [e for e in prof.key_averages()
                if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:5]
     return {
-        "phase": "profile_harvest", "clusters": b,
+        "phase": "profile_harvest" if ccfg is None
+                 else "profile_coverage_harvest", "clusters": b,
         "retired": int(h.retired.sum()), "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kernels else None,
         "device_ops": sum(e.count for e in kernels),
@@ -1120,11 +1418,13 @@ def _profile_harvest(s, keys, kn) -> dict:
     }
 
 
-def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str) -> dict:
+def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
+                   after_tick=None) -> dict:
     """Wall time per tick of ``cfg`` from state ``s``, the card's busy
     share over it, the kernels launched per tick, and the five kernels with
     the most device time, from torch.profiler, over one chunk of n_ticks
-    ticks drawn as the engine draws them. Kernel launches here go to the
+    ticks drawn as the engine draws them (``after_tick(state)`` after each,
+    as the coverage chunk runs K5). Kernel launches here go to the
     counters' saved values afterwards, like the timing phase's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1141,6 +1441,8 @@ def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str) -> dict:
                                prng.partitionable())
         for i in range(n_ticks):
             s = step.step_cluster(cfg, s, keys, kn, words=words[i])
+            if after_tick is not None:
+                after_tick(s)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     set_counts(counts)
@@ -1158,6 +1460,114 @@ def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str) -> dict:
         "top_device_ms_per_tick": {
             e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in top},
     }
+
+
+def _cov_deterministic(summary: dict) -> dict:
+    """A coverage pool summary without its run-to-run fields."""
+    out = deterministic(summary)
+    out["coverage"] = {k: v for k, v in summary["coverage"].items()
+                       if k != "new_fingerprints_per_s"}
+    return out
+
+
+def _k5_vs_plain(ccfg, cpu_in, shards, dev, errs: dict, label: str) -> None:
+    """K5 on the card against its plain version on the CPU, same planted
+    inputs, over three ticks (half the lanes' terms move on between them):
+    the stamps and the credits bit-equal after each."""
+    import torch
+
+    from madraft_tpu_torch.kernels import coverage as K5
+    from madraft_tpu_torch.tpusim import coverage
+
+    b = cpu_in[0].shape[0]
+    rows_c = None if shards is None else coverage.lane_shards(b, shards)
+    rows_g = None if rows_c is None else rows_c.to(dev)
+    seen_c = torch.full((shards or 1, ccfg.bitmap_bits), coverage.UNSEEN,
+                        dtype=torch.int32)
+    nf_c = torch.zeros(b, dtype=torch.int32)
+    seen_g, nf_g = seen_c.to(dev), nf_c.to(dev)
+    cpu_in = list(cpu_in)
+    for t in range(3):
+        K5.seen_update(ccfg, *(x.to(dev) for x in cpu_in), rows_g, seen_g,
+                       nf_g, t)
+        coverage.seen_update_plain(ccfg, *cpu_in, rows_c, seen_c, nf_c, t)
+        errs["seen_update"] = max(errs["seen_update"],
+                                  max_abs_err(seen_g.cpu(), seen_c),
+                                  max_abs_err(nf_g.cpu(), nf_c))
+        check(errs["seen_update"] == 0,
+              f"K5 differs from its plain version at {label}, tick {t}")
+        cpu_in[2] = torch.where(torch.arange(b)[:, None] % 2 == 1,
+                                cpu_in[2] + 1, cpu_in[2])
+    check(int(nf_c[8:16].min()) >= 1 and int(nf_c[16:24].max()) == 0,
+          f"K5 planted credits at {label}: {nf_c[:32].tolist()}")
+
+
+def _coverage_fixture_legs(dev, fx: dict) -> None:
+    """The JAX package's coverage legs (tests/torch_fixtures/
+    coverage_legs.json) on the card: the coverage pools' rows and
+    summaries (guided, random, lane ids; metrics off and on), the
+    ground-truth guided and random seen counts, and the sweep legs' CLI
+    output and per-cluster reports, all bit-equal."""
+    from madraft_tpu_torch.tpusim import config, engine, prng
+
+    shape = fx["pool_shape"]
+    with prng.layout(fx["partitionable"]):
+        for name, leg in fx["legs"].items():
+            cfg = config.storm_profiles()[fx["profile"]][0].replace(
+                metrics=leg["metrics"])
+            if leg["majority_override"]:
+                cfg = cfg.replace(majority_override=leg["majority_override"])
+            rows = []
+            out = engine.run_pool(
+                cfg, fx["seed"], leg["lanes"], shape["horizon"],
+                chunk_ticks=shape["chunk_ticks"],
+                budget_ticks=shape["budget_ticks"], devices=leg["devices"],
+                on_retired=rows.append,
+                coverage=config.CoverageConfig(guided=leg["guided"]),
+                device=dev)
+            check([deterministic(r) for r in rows] == leg["rows"],
+                  f"coverage fixture leg {name}: rows differ")
+            got = _cov_deterministic(out)
+            bad = {k: (got.get(k), v) for k, v in leg["summary"].items()
+                   if got.get(k) != v}
+            check(not bad, f"coverage fixture leg {name}: summary differs: "
+                  f"{bad}")
+            emit({"phase": f"fixture_coverage_{name}", "match": True,
+                  "retired": out["retired"],
+                  "violating": out["retired_violating"],
+                  "seen_fingerprints": out["coverage"]["seen_fingerprints"],
+                  "refills_mutated": out["coverage"]["refills_mutated"]})
+        gt = fx["ground_truth"]
+        cfg, ccfg, horizon = config.coverage_ground_truth()
+        seen = {}
+        for name, guided in (("guided", True), ("random", False)):
+            out = engine.run_pool(cfg, gt["seed"], gt["lanes"], horizon,
+                                  budget_ticks=gt["budget_ticks"],
+                                  coverage=ccfg.replace(guided=guided),
+                                  device=dev)
+            check(_cov_deterministic(out)["coverage"] == gt[name],
+                  f"ground-truth {name} pool differs")
+            seen[name] = out["coverage"]["seen_fingerprints"]
+        check(0 < seen["random"] < seen["guided"] <= gt["enumerated"],
+              f"ground truth: {seen}, {gt['enumerated']} enumerated")
+        emit({"phase": "fixture_coverage_ground_truth", "match": True,
+              "seen": seen, "enumerated": gt["enumerated"]})
+        for name, leg in fx["sweeps"].items():
+            kept = KeepFirst(engine.report, lambda f: f)
+            engine.report = kept
+            try:
+                rc, out = run_cli(leg["argv"])
+            finally:
+                engine.report = kept.fn
+            out.pop("telemetry")
+            rep = engine.report(kept.kept[0])
+            check(rc == leg["rc"] and out == leg["output"],
+                  f"sweep fixture leg {name}: output differs")
+            for f, want in leg["report"].items():
+                check(getattr(rep, f).tolist() == want,
+                      f"sweep fixture leg {name}: field {f} differs")
+            emit({"phase": f"fixture_sweep_{name}", "match": True,
+                  "dispatch": out["dispatch"], "cells": len(out["cells"])})
 
 
 def _storm_cfg():

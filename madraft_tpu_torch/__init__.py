@@ -2,11 +2,13 @@
 CUDA, held bit for bit against the JAX package ``madraft_tpu``.
 
 - ``madraft_tpu_torch.tpusim``: config, PRNG, state (wide and packed), the
-  batched tick, and the fuzz/replay/pool engine.
+  batched tick, the metrics plane, coverage, and the fuzz/replay/pool/
+  sweep engine.
 - ``madraft_tpu_torch.kernels``: the hand-written CUDA kernels of the hot
-  path (threefry draws, safety oracle, packed-carry pack/unpack), each with
-  its plain PyTorch version.
-- ``python -m madraft_tpu_torch fuzz|pool|replay``: the CLI.
+  path (threefry draws, safety oracle, packed-carry pack/unpack, latency
+  fold, coverage fingerprint / seen-set), each with its plain PyTorch
+  version.
+- ``python -m madraft_tpu_torch fuzz|pool|sweep|replay|stats``: the CLI.
 
 This package imports no JAX and nothing of ``madraft_tpu``.
 """

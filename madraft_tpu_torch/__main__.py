@@ -1,22 +1,27 @@
 """madtpu CLI on the PyTorch port (raw-raft verbs).
 
     python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm] [--metrics]
-    python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024
-    python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm]
+    python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024 [--coverage]
+    python -m madraft_tpu_torch sweep  --loss 0,0.1,0.3 --crash 0,0.02 --repartition 0,0.05
+    python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm] [--knobs-json ROW]
     python -m madraft_tpu_torch stats  REPORT.json [POOL.jsonl ...] [--json]
     python -m madraft_tpu_torch fuzz --list-profiles
 
 The verbs take the JAX CLI's flags and print its JSON keys, so a report
 from either package reads the same; ``pool`` streams one JSONL row per
-retired cluster and then its summary line. ``--metrics`` turns on the
-on-device metrics plane (submit->commit latency histograms, phase
-attribution, the worst op, event counters); ``stats`` merges and renders
-the metrics of any mix of those outputs on the host. Runs go to the CUDA
-card unless ``--platform cpu`` is given; without a card the run fails
-rather than fall back. Exit codes: 0 clean, 1 violation found (or a failed
-``--check-deterministic``), 2 usage error (``stats``: input without
-metrics). The JAX CLI's other verbs, and the flags of paths not ported yet
-(``--mesh``, pool's ``--devices N>1``, ``--coverage*``, ``--heartbeat``,
+retired cluster and then its summary line; ``pool --coverage`` is the
+coverage-guided pool (abstract-state fingerprints in an on-device
+seen-set, a biased knob refill; rows gain ``new_fingerprints``/``refill``/
+``knobs``, which ``replay --knobs-json`` replays). ``sweep`` runs a
+fault-parameter grid, a knob row per cluster, and reports each cell.
+``--metrics`` turns on the on-device metrics plane (submit->commit latency
+histograms, phase attribution, the worst op, event counters); ``stats``
+merges and renders the metrics of any mix of those outputs on the host.
+Runs go to the CUDA card unless ``--platform cpu`` is given; without a
+card the run fails rather than fall back. Exit codes: 0 clean, 1 violation
+found (or a failed ``--check-deterministic``), 2 usage error (``stats``:
+input without metrics). The JAX CLI's other verbs, and the flags of paths
+not ported yet (``--mesh``, pool's ``--devices N>1``, ``--heartbeat``,
 ``--digest-every``, ``stats --follow``), exit 2 naming the ROADMAP item.
 """
 
@@ -28,8 +33,7 @@ import os
 import sys
 
 NOT_PORTED_VERBS = (
-    "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "sweep", "explain",
-    "bridge", "lint",
+    "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "explain", "bridge", "lint",
 )
 
 
@@ -295,9 +299,6 @@ def cmd_pool(args) -> int:
 
     for flag, on, item in (
             ("--mesh", args.mesh, "A6"),
-            ("--coverage", args.coverage, "A8"),
-            ("--coverage-random", args.coverage_random, "A8"),
-            ("--coverage-bits", args.coverage_bits is not None, "A8"),
             ("--heartbeat", args.heartbeat, "A15"),
             ("--digest-every", args.digest_every, "A15")):
         if on:
@@ -309,6 +310,23 @@ def cmd_pool(args) -> int:
                     "A6: one device only)")
     if args.ticks < 1:
         usage_error(f"--ticks {args.ticks}: the horizon must be >= 1 tick")
+    ccfg = None
+    if not args.coverage and (args.coverage_random
+                              or args.coverage_bits is not None):
+        # a modifier ignored in silence would run the plain pool
+        usage_error(
+            "--coverage-random/--coverage-bits modify --coverage — add "
+            "--coverage (or drop them)"
+        )
+    if args.coverage:
+        from madraft_tpu_torch.tpusim.config import CoverageConfig
+
+        bits = {} if args.coverage_bits is None else \
+            {"bitmap_bits": args.coverage_bits}
+        try:
+            ccfg = CoverageConfig(guided=not args.coverage_random, **bits)
+        except ValueError as e:  # e.g. --coverage-bits 100
+            usage_error(str(e))
     devices = args.devices or None
     cfg = _sim_config(args)
     dev = _device(args)
@@ -324,7 +342,7 @@ def cmd_pool(args) -> int:
         cfg, args.seed, args.clusters, args.ticks,
         chunk_ticks=args.chunk_ticks, budget_ticks=budget_ticks,
         budget_seconds=budget_seconds, devices=devices,
-        on_retired=on_retired, device=dev,
+        on_retired=on_retired, coverage=ccfg, device=dev,
     )
     summary.update({
         "seed": args.seed,
@@ -343,6 +361,87 @@ def cmd_pool(args) -> int:
         )
     print(json.dumps(summary))
     return 1 if summary["retired_violating"] else 0
+
+
+def cmd_sweep(args) -> int:
+    """Fault-parameter grid (engine.make_sweep_fn): the cartesian product
+    of --loss x --crash x --repartition tiles across the cluster batch,
+    each cluster under its cell's knob row; per-cell safety and liveness
+    are reported. Grids of up to engine.SWEEP_UNIFORM_MAX_CELLS cells run
+    cell by cell (``dispatch`` "uniform"), larger ones as one batch of
+    knob rows ("per_cluster")."""
+    import itertools
+
+    import torch
+
+    from madraft_tpu_torch.tpusim.engine import (
+        make_sweep_fn,
+        report,
+        run_telemetry,
+    )
+
+    if args.mesh:
+        _usage_error("sweep: --mesh is not ported yet (ROADMAP A6)")
+    cfg = _sim_config(args)
+    try:
+        axes = {
+            "loss_prob": [float(x) for x in args.loss.split(",")],
+            "p_crash": [float(x) for x in args.crash.split(",")],
+            "p_repartition": [float(x) for x in args.repartition.split(",")],
+        }
+    except ValueError as e:
+        _usage_error(f"sweep: {e}")
+    combos = list(itertools.product(*axes.values()))
+    per = args.clusters // len(combos)
+    if per == 0:
+        _usage_error(f"sweep: --clusters {args.clusters} < {len(combos)} "
+                     "grid cells")
+    n = per * len(combos)
+    if any(c[1] > 0 for c in combos) and cfg.max_dead == 0:
+        # crash cells are inert without a dead-node budget + restarts
+        cfg = cfg.replace(max_dead=2, p_restart=max(cfg.p_restart, 0.2))
+    if any(c[2] > 0 for c in combos) and cfg.p_heal == 0.0:
+        cfg = cfg.replace(p_heal=0.05)
+    dev = _device(args)
+
+    def tile(i):
+        return torch.tensor([c[i] for c in combos],
+                            dtype=torch.float32).repeat_interleave(per)
+
+    kn = cfg.knobs()._replace(**{name: tile(i) for i, name in enumerate(axes)})
+    try:
+        fn = make_sweep_fn(cfg, kn, n, args.ticks, device=dev)
+    except ValueError as e:
+        _usage_error(f"sweep: {e}")
+
+    rep, tele = run_telemetry(fn, report, args.seed, n * args.ticks,
+                              n_lanes=n)
+
+    def rerun():
+        return report(fn(args.seed))
+
+    extra, det_failed = _det_check(args, rep, rerun)
+    extra["telemetry"] = tele
+    cells = []
+    for i, c in enumerate(combos):
+        sl = slice(i * per, (i + 1) * per)
+        cells.append({
+            "loss": c[0], "crash": c[1], "repartition": c[2],
+            "clusters": per,
+            "violating": int((rep.violations[sl] != 0).sum()),
+            "live": int((rep.committed[sl] > 0).sum()),
+            "committed_mean": round(float(rep.committed[sl].mean()), 1),
+        })
+    print(json.dumps({
+        "violating": int(rep.n_violating),
+        # --clusters rounded down to a multiple of the cell count
+        "clusters_run": n,
+        "dispatch": fn.dispatch,
+        "cells": cells,
+        "seed": args.seed,
+        **extra,
+    }))
+    return 1 if (rep.n_violating or det_failed) else 0
 
 
 class _StatsMerge:
@@ -707,22 +806,49 @@ def main(argv=None) -> int:
                     help="stream every retired-cluster report, or only "
                          "violating ones")
     sp.add_argument("--coverage", action="store_true",
-                    help="coverage-guided refill (not ported yet: exits 2)")
+                    help="coverage-guided pool: every tick each lane's "
+                         "abstract-state fingerprint updates an on-device "
+                         "seen-set, and retiring lanes that found new "
+                         "fingerprints respawn with mutated storm knobs "
+                         "(rows gain new_fingerprints/refill/knobs, the "
+                         "summary a coverage dict)")
     sp.add_argument("--coverage-bits", type=int, default=None,
-                    help="seen-set bitmap size (not ported yet: exits 2)")
+                    help="seen-set size in bits (power of two, default "
+                         "65536)")
     sp.add_argument("--coverage-random", action="store_true",
-                    help="coverage baseline (not ported yet: exits 2)")
+                    help="with --coverage: count coverage but refill at "
+                         "the base knobs (the random baseline)")
     sp.add_argument("--heartbeat", default="",
                     help="live-telemetry stream (not ported yet: exits 2)")
     sp.add_argument("--digest-every", type=int, default=0,
                     help="progress digest (not ported yet: exits 2)")
     sp.set_defaults(fn=cmd_pool)
 
+    sp = sub.add_parser(
+        "sweep", help="fault-parameter grid, a knob row per cluster "
+                      "(per-cell report)"
+    )
+    common(sp, 4096)
+    sp.add_argument("--mesh", action="store_true",
+                    help="shard over all devices (not ported yet: exits 2)")
+    sp.add_argument("--check-deterministic", action="store_true",
+                    help="run twice, demand a bit-identical report (also "
+                         "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
+    sp.add_argument("--loss", default="0,0.1,0.3",
+                    help="comma list of loss_prob values")
+    sp.add_argument("--crash", default="0,0.02",
+                    help="comma list of p_crash values")
+    sp.add_argument("--repartition", default="0,0.05",
+                    help="comma list of p_repartition values")
+    sp.set_defaults(fn=cmd_sweep)
+
     sp = sub.add_parser("replay", help="re-run ONE cluster exactly")
     common(sp, 1)
     sp.add_argument("--cluster", type=int, required=True)
     sp.add_argument("--knobs-json", default="",
-                    help="JSON object of dynamic-knob overrides")
+                    help="JSON object of dynamic-knob overrides (field -> "
+                         "value): a coverage pool row's \"knobs\" replays "
+                         "that lane bit-exactly")
     sp.set_defaults(fn=cmd_replay)
 
     sp = sub.add_parser(

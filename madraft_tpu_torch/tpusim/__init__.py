@@ -1,5 +1,5 @@
 """The batched lockstep Raft simulator in PyTorch (twin of
-``madraft_tpu.tpusim``, raw-raft fuzz/replay/pool paths)."""
+``madraft_tpu.tpusim``, raw-raft fuzz/replay/pool/sweep paths)."""
 
 from madraft_tpu_torch.tpusim.config import SimConfig
 from madraft_tpu_torch.tpusim.engine import (

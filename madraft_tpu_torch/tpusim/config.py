@@ -7,9 +7,11 @@ config built for one package means the same run in the other
 (``tests/test_torch_config.py`` checks every field and default).
 
 ``Knobs`` carries the dynamic knobs as 0-d tensors of the reference's dtypes:
-float32 probabilities, int32 counts and a bool. The dtypes matter: the tick
-compares float32 uniforms against float32 sums of these probabilities, and a
-float64 anywhere would move a comparison.
+float32 probabilities, int32 counts and a bool, or as ``[B]`` rows of those
+dtypes, one value a cluster (``Knobs.broadcast``; the coverage pool and the
+sweep's per-cluster layout). The dtypes matter: the tick compares float32
+uniforms against float32 sums of these probabilities, and a float64
+anywhere would move a comparison.
 """
 
 from __future__ import annotations
@@ -199,8 +201,16 @@ class SimConfig:
         )
 
 
+def lane_view(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A knob against a [B, ...] operand of ``ndim`` dims: a 0-d (uniform)
+    knob untouched, so the uniform tick adds no operation, a [B]
+    row (one value a cluster) as a [B, 1, ...] view."""
+    return x if x.dim() == 0 else x.view(-1, *(1,) * (ndim - 1))
+
+
 class Knobs(NamedTuple):
-    """Dynamic simulation knobs, one 0-d tensor per field."""
+    """Dynamic simulation knobs, one 0-d tensor (uniform) or [B] row (one
+    value a cluster) per field."""
 
     loss_prob: torch.Tensor
     p_crash: torch.Tensor
@@ -233,6 +243,16 @@ class Knobs(NamedTuple):
 
     def to(self, device) -> "Knobs":
         return Knobs(*(x.to(device) for x in self))
+
+    def lanes(self, ndim: int) -> "Knobs":
+        """Each field viewed against a [B, ...] operand of ``ndim`` dims
+        (``lane_view``): a 0-d field as it is, a [B] row as [B, 1, ...]."""
+        return Knobs(*(lane_view(x, ndim) for x in self))
+
+    def broadcast(self, n_clusters: int) -> "Knobs":
+        """Per-cluster rows: every field ``[n_clusters]``, one value a lane
+        (the tick takes a field either 0-d or as such a row)."""
+        return Knobs(*(x.expand(n_clusters).clone() for x in self))
 
 
 class PackedBounds(NamedTuple):
@@ -463,3 +483,71 @@ def profile_gates() -> dict:
         ),
         "gray_storm": gate(2.0, 511, bridge="unsupported"),
     }
+
+
+# ---------------------------------------------------------------------------
+# Coverage-guided schedule search (the reference's CoverageConfig; the
+# subsystem lives in coverage.py, the corpus scheduler in engine.run_pool).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CoverageConfig:
+    """Static knobs of the coverage subsystem (coverage.py), identical to
+    the reference's: the seen-set size, the quantization of the per-node
+    abstract state, and the shape of the biased refill (the reference's
+    docstring explains each field)."""
+
+    bitmap_bits: int = 1 << 16
+    term_rank_levels: int = 3
+    commit_delta_levels: int = 3
+    guided: bool = True
+    mut_span: float = 2.0
+    fresh_lo: float = 0.25
+    fresh_hi: float = 2.5
+
+    def __post_init__(self):
+        if self.bitmap_bits <= 0 or self.bitmap_bits & (self.bitmap_bits - 1):
+            raise ValueError(
+                f"bitmap_bits must be a power of two, got {self.bitmap_bits}"
+            )
+        if self.term_rank_levels < 2 or self.commit_delta_levels < 2:
+            raise ValueError(
+                "term_rank_levels and commit_delta_levels must be >= 2 "
+                f"(got {self.term_rank_levels}, {self.commit_delta_levels})"
+            )
+        if self.mut_span <= 1.0:
+            raise ValueError(f"mut_span must be > 1, got {self.mut_span}")
+        if not 0.0 <= self.fresh_lo <= self.fresh_hi:
+            raise ValueError(
+                f"fresh span empty: [{self.fresh_lo}, {self.fresh_hi}]"
+            )
+
+    def replace(self, **kw) -> "CoverageConfig":
+        return dataclasses.replace(self, **kw)
+
+    def fingerprint_key(self) -> "CoverageConfig":
+        """The config with only the fields the fingerprint reads (bitmap
+        size and quantization levels)."""
+        return CoverageConfig(
+            bitmap_bits=self.bitmap_bits,
+            term_rank_levels=self.term_rank_levels,
+            commit_delta_levels=self.commit_delta_levels,
+        )
+
+
+def coverage_ground_truth() -> tuple:
+    """The reference's 3-node validation config, whose abstract-state space
+    ``coverage.enumerate_abstract_codes`` enumerates and whose seen-set maps
+    each code to its own bit: (SimConfig, CoverageConfig, horizon_ticks)."""
+    cfg = SimConfig(
+        n_nodes=3, log_cap=16, ae_max=2, compact_every=4,
+        p_client_cmd=0.2, loss_prob=0.02, p_crash=0.01, p_restart=0.3,
+        max_dead=1, p_repartition=0.01, p_heal=0.05,
+    )
+    # per-node alphabet 3*2*2*2 = 24; 24^3 = 13824 codes <= 2^14 bits
+    ccfg = CoverageConfig(
+        bitmap_bits=1 << 14, term_rank_levels=2, commit_delta_levels=2,
+        fresh_lo=0.0, fresh_hi=8.0,
+    )
+    return cfg, ccfg, 64

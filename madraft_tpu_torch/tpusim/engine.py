@@ -18,11 +18,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry
+from madraft_tpu_torch.tpusim import coverage as _cov
 from madraft_tpu_torch.tpusim import metrics as _metrics
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim.config import (
+    CoverageConfig,
     Knobs,
     SimConfig,
     phase_names,
@@ -120,9 +123,10 @@ def report(final: ClusterState) -> FuzzReport:
 
 
 def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-             kn: Knobs, n_ticks: int) -> ClusterState:
+             kn: Knobs, n_ticks: int, after_tick=None) -> ClusterState:
     """n_ticks ticks of a wide batch; the draw words come a chunk of
-    DRAW_CHUNK ticks at a time, from each cluster's own tick on."""
+    DRAW_CHUNK ticks at a time, from each cluster's own tick on.
+    ``after_tick(state)``, when given, sees each tick's result."""
     total = _block_total(cfg.n_nodes)
     for done in range(0, n_ticks, DRAW_CHUNK):
         m = min(DRAW_CHUNK, n_ticks - done)
@@ -130,6 +134,8 @@ def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                                      prng.partitionable())
         for i in range(m):
             state = step_cluster(cfg, state, keys, kn, words=words[i])
+            if after_tick is not None:
+                after_tick(state)
     return state
 
 
@@ -156,14 +162,16 @@ class FuzzProgram:
     ``compile_timed(seed)`` does the set-up a run needs before its first
     tick — building the CUDA kernels when they are not built yet — and
     returns the wall seconds it took, so a later call times the run alone.
+    ``kn`` overrides the config's knobs (the sweep's [B] knob rows).
     """
 
-    def __init__(self, cfg: SimConfig, n_clusters: int, n_ticks: int, device):
+    def __init__(self, cfg: SimConfig, n_clusters: int, n_ticks: int, device,
+                 kn: Optional[Knobs] = None):
         self.cfg = cfg
         self.n_clusters = n_clusters
         self.n_ticks = n_ticks
         self.device = resolve_device(device)
-        self.kn = cfg.knobs(self.device)
+        self.kn = cfg.knobs(self.device) if kn is None else kn.to(self.device)
         _validate_knobs(self.kn)
         self.compile_s = None
 
@@ -311,8 +319,83 @@ def replay_cluster(cfg: SimConfig, seed: int, cluster_id: int, n_ticks: int,
 
 
 # --------------------------------------------------------------------------
+# Sweep: a fault-parameter grid, each cluster under its own knob row (the
+# reference's make_sweep_fn). A small grid runs as one uniform-knob run per
+# contiguous cell over its global ids [id0, id0 + n); a larger one as one
+# run of the whole batch with [B] knob rows. Both layouts give the same
+# report: the same knob values reach the same (seed, cluster_id) streams.
+# --------------------------------------------------------------------------
+
+# Grids of at most this many contiguous knob cells run cell by cell.
+SWEEP_UNIFORM_MAX_CELLS = 8
+
+
+def _knob_runs(kb: Knobs, n_clusters: int) -> list:
+    """Contiguous runs of identical per-cluster knob rows, as
+    [(start, length), ...]."""
+    cols = np.stack(
+        [x.cpu().numpy().astype(np.float64) for x in kb], axis=1
+    )  # i32/bool knob values are exact in f64
+    change = np.any(cols[1:] != cols[:-1], axis=1)
+    starts = np.concatenate([[0], np.nonzero(change)[0] + 1])
+    lengths = np.diff(np.concatenate([starts, [n_clusters]]))
+    return list(zip(starts.tolist(), lengths.tolist()))
+
+
+class _UniformSweepDispatch:
+    """One uniform-knob run per contiguous cell of the grid, over the
+    cell's global ids; ``fn(seed)`` returns the cells' final states
+    concatenated back into one batch, as the per-cluster layout does."""
+
+    dispatch = "uniform"
+
+    def __init__(self, cfg: SimConfig, kb: Knobs, runs: list, n_ticks: int,
+                 device: torch.device):
+        self.cfg, self.n_ticks, self.device = cfg, n_ticks, device
+        # each cell's knobs as 0-d tensors: the uniform tick
+        self._cells = [(start, length, Knobs(*(x[start] for x in kb)))
+                       for start, length in runs]
+        self.compile_s = None
+
+    def compile_timed(self, seed) -> float:
+        if self.compile_s is None:
+            self.compile_s = _build_kernels(self.device)
+        return self.compile_s
+
+    def __call__(self, seed) -> ClusterState:
+        finals = [
+            _run(self.cfg, cluster_keys(seed, length, self.device, id0=start),
+                 kn, self.n_ticks)
+            for start, length, kn in self._cells]
+        return ClusterState(*(torch.cat(xs) for xs in zip(*finals)))
+
+
+def make_sweep_fn(cfg: SimConfig, knobs: Knobs, n_clusters: int,
+                  n_ticks: int,
+                  uniform_max_cells: int = SWEEP_UNIFORM_MAX_CELLS,
+                  device=None):
+    """Like make_fuzz_fn, but each cluster runs its own knob row
+    (``knobs`` fields 0-d or [n_clusters]). A grid of at most
+    ``uniform_max_cells`` contiguous cells runs cell by cell; the returned
+    callable's ``dispatch`` says which layout was taken
+    ("uniform" | "per_cluster"); ``uniform_max_cells=0`` forces the
+    per-cluster layout."""
+    dev = resolve_device(device)
+    knobs = knobs.to(dev)
+    _validate_knobs(knobs)
+    kb = knobs.broadcast(n_clusters)
+    if uniform_max_cells:
+        runs = _knob_runs(kb, n_clusters)
+        if len(runs) <= uniform_max_cells:
+            return _UniformSweepDispatch(cfg, kb, runs, n_ticks, dev)
+    fn = FuzzProgram(cfg, n_clusters, n_ticks, dev, kn=kb)
+    fn.dispatch = "per_cluster"
+    return fn
+
+
+# --------------------------------------------------------------------------
 # The continuous fuzzing pool (retire-and-refill), the twin of the
-# reference's run_pool with coverage and heartbeat off.
+# reference's run_pool with the heartbeat off (coverage: run_pool below).
 #
 # n_clusters lanes stay resident. Between chunks the carry is the packed
 # schema whenever it is exact for the run (the reference's layout rule);
@@ -369,6 +452,18 @@ class PoolHarvest(NamedTuple):
 _METRIC_ROWS = PoolHarvest._fields[9:]
 
 
+class CovHarvest(NamedTuple):
+    """PoolHarvest plus the coverage columns (numpy, PRE-refill)."""
+
+    pool: PoolHarvest
+    new_fps: np.ndarray       # i32 [n]: new fingerprints the lane found in
+    #                           its life (since its refill)
+    refill_kind: np.ndarray   # i32 [n]: how the lane's knobs were produced
+    #                           (coverage.REFILL_SEED / _FRESH / _MUTATE)
+    seen_bits: int            # seen-set popcount (union over rows)
+    knobs: dict               # MUTABLE_KNOBS name -> f32 [n] knob rows
+
+
 def _worst_rows(h: PoolHarvest, lanes) -> tuple:
     return (h.worst_lat[lanes], h.worst_phases[lanes], h.worst_key[lanes],
             h.worst_client[lanes], h.worst_sub[lanes])
@@ -416,8 +511,9 @@ class _PoolAccount:
     ``metrics.merge_worst_registers``; ``finish`` adds the lanes still
     running."""
 
-    def __init__(self, on_retired):
+    def __init__(self, on_retired, guided: bool = False):
         self.on_retired = on_retired
+        self.guided = guided
         self.retired_total = 0
         self.viol_total = 0
         self.effective = 0
@@ -431,6 +527,13 @@ class _PoolAccount:
         self.phase_ticks_total: Optional[np.ndarray] = None
         self.lat_ticks_total = 0
         self.worst: Optional[dict] = None
+        # coverage extras (stay zero on plain harvests)
+        self.seen_prev = 0
+        self.new_fp_per_gen: list = []
+        self.refills_mutated = 0
+        self.refills_fresh = 0
+        self.lane_new_fps_total = 0
+        self.last_new_fps: Optional[np.ndarray] = None
 
     def _merge_metrics(self, h: PoolHarvest, lanes) -> None:
         """Add the metric rows of the lanes selected by ``lanes``."""
@@ -442,7 +545,15 @@ class _PoolAccount:
         self.worst = _metrics.merge_worst_registers(
             *_worst_rows(h, lanes), ids=h.ids[lanes], into=self.worst)
 
-    def consume(self, h: PoolHarvest, wall: float) -> None:
+    def consume(self, h, wall: float, children_ran: bool) -> None:
+        """Account one fetched harvest (a PoolHarvest, or a CovHarvest in
+        the coverage pool). ``children_ran`` is True iff a chunk followed
+        it, so its refilled lanes ran: the refills_* fields count those."""
+        cov = isinstance(h, CovHarvest)
+        if cov:
+            c, h = h, h.pool
+            self.new_fp_per_gen.append(c.seen_bits - self.seen_prev)
+            self.seen_prev = c.seen_bits
         self.last = h
         if h.lat_hist.shape[-1] and self.hist_total is None:
             self.hist_total = np.zeros(h.lat_hist.shape[-1], np.int64)
@@ -457,18 +568,34 @@ class _PoolAccount:
             self.retired_total += 1
             self.effective += (int(h.first_violation_tick[lane]) if mask
                                else int(h.ticks_run[lane]))
+            if cov:
+                self.lane_new_fps_total += int(c.new_fps[lane])
             if mask:
                 self.viol_total += 1
                 self.union |= mask
                 self.viol_clusters.append(int(h.ids[lane]))
             if self.on_retired is not None:
-                self.on_retired(_retired_row(h, lane, wall, self.viol_total))
+                row = _retired_row(h, lane, wall, self.viol_total)
+                if cov:
+                    row["new_fingerprints"] = int(c.new_fps[lane])
+                    row["refill"] = _cov.REFILL_NAMES[int(c.refill_kind[lane])]
+                    row["knobs"] = {name: float(v[lane])
+                                    for name, v in c.knobs.items()}
+                self.on_retired(row)
+        if cov:
+            self.last_new_fps = c.new_fps
+            if children_ran and self.guided:
+                productive = h.retired & (c.new_fps > 0)
+                self.refills_mutated += int(productive.sum())
+                self.refills_fresh += int((h.retired & ~productive).sum())
 
     def finish(self) -> None:
         """In-flight lanes at shutdown are clean (violated => retired):
         their ticks so far are honest pre-violation coverage."""
         h = self.last
         self.effective += int(h.ticks_run[~h.retired].sum())
+        if self.last_new_fps is not None:
+            self.lane_new_fps_total += int(self.last_new_fps[~h.retired].sum())
         if self.hist_total is not None:
             self._merge_metrics(h, ~h.retired)
 
@@ -505,10 +632,10 @@ def _pipeline(launch_chunk, launch_harvest, acct: _PoolAccount,
             item = q.get()
             if item is None:
                 return
-            h, wall_at_fetch = item
+            h, wall_at_fetch, children_ran = item
             t1 = time.perf_counter()
             try:
-                acct.consume(h, wall_at_fetch)
+                acct.consume(h, wall_at_fetch, children_ran)
             except BaseException as e:  # surface on the main thread
                 exc.append(e)
                 return
@@ -535,7 +662,7 @@ def _pipeline(launch_chunk, launch_harvest, acct: _PoolAccount,
             )
             while not exc:  # a dead worker must not deadlock the put
                 try:
-                    q.put((h, wall), timeout=1.0)
+                    q.put((h, wall, not stop), timeout=1.0)
                     break
                 except queue_mod.Full:
                     continue
@@ -584,11 +711,11 @@ def _lane_reseed(states: ClusterState, ids, gens, seed, horizon):
     return retired, new_ids, new_keys, gens_new
 
 
-def _pool_snapshot(states: ClusterState, retired, ids) -> tuple:
+def _pool_snapshot(states: ClusterState, retired, ids, extra=()) -> tuple:
     """The per-lane report arrays of a harvest as one [B, K] int32 tensor,
     so the host fetches them in one copy: nine scalars in PoolHarvest's
-    field order, then each metric row flattened. Returns (tensor, the
-    metric rows' per-lane shapes)."""
+    field order, each metric row flattened, then the ``extra`` [B, k]
+    int32 columns. Returns (tensor, the metric rows' per-lane shapes)."""
     rows = [getattr(states, f) for f in _METRIC_ROWS]
     scalars = torch.stack([
         retired.to(torch.int32), ids, states.violations,
@@ -597,11 +724,13 @@ def _pool_snapshot(states: ClusterState, retired, ids) -> tuple:
         states.tick,
     ], dim=1)
     b = scalars.shape[0]
-    return (torch.cat([scalars] + [x.reshape(b, -1) for x in rows], dim=1),
+    return (torch.cat([scalars] + [x.reshape(b, -1) for x in rows]
+                      + list(extra), dim=1),
             tuple(tuple(x.shape[1:]) for x in rows))
 
 
-def _fetch(snapshot: tuple) -> PoolHarvest:
+def _fetch(snapshot: tuple) -> tuple:
+    """(PoolHarvest, the extra columns) of a snapshot, on the host."""
     t, shapes = snapshot
     h = t.cpu().numpy()
     b = h.shape[0]
@@ -610,7 +739,7 @@ def _fetch(snapshot: tuple) -> PoolHarvest:
         size = int(np.prod(shape))
         rows.append(h[:, at:at + size].reshape((b, *shape)))
         at += size
-    return PoolHarvest(h[:, 0].astype(bool), *h[:, 1:9].T, *rows)
+    return PoolHarvest(h[:, 0].astype(bool), *h[:, 1:9].T, *rows), h[:, at:]
 
 
 def _scatter_fresh(retired, fresh: ClusterState,
@@ -710,31 +839,61 @@ def _pool_summary(n_clusters: int, horizon: int, chunk_ticks: int,
 class _Carry:
     """The pool's state between launches: the resident lanes (wide at
     birth, then packed after each harvest when the run packs), their keys
-    and ids, and the id bookkeeping."""
+    and ids, and the id bookkeeping; in the coverage pool also each lane's
+    knob row, refill kind and new-fingerprint count, the seen-set stamps
+    and the run-wide tick."""
 
     def __init__(self, states, keys, ids, book):
         self.states, self.keys, self.ids, self.book = states, keys, ids, book
         self.wide = None  # the chunk's wide result, until the harvest
         self.state_bytes = None  # the resident carry's bytes after a harvest
+        self.kn_lanes = self.kinds = self.new_fps = self.seen = None
+        self.t = 0
 
 
 def _harvest(cfg: SimConfig, kn: Knobs, c: _Carry, seed, horizon: int,
-             lane_ids: bool, packed: bool) -> PoolHarvest:
+             lane_ids: bool, packed: bool,
+             ccfg: Optional[CoverageConfig] = None):
     """Harvest + refill of the chunk's wide result ``c.wide``: retire mask
     and new ids, the report snapshot (PRE-refill), fresh lanes selected in,
     then the carry packed (one K3 launch) when the run packs. Returns the
-    snapshot fetched to the host, the loop's one device-to-host copy."""
+    snapshot fetched to the host, the loop's one device-to-host copy: a
+    PoolHarvest, or with ``ccfg`` (the coverage pool) a CovHarvest, whose
+    refill follows ``coverage.refill_knobs`` when ``ccfg.guided``."""
     wide, c.wide = c.wide, None
     reseed = _lane_reseed if lane_ids else _retire_and_reseed
     retired, new_ids, new_keys, book = reseed(wide, c.ids, c.book, seed,
                                               horizon)
-    snapshot = _pool_snapshot(wide, retired, c.ids)
-    wide = _scatter_fresh(retired, init_cluster(cfg, new_keys, kn), wide)
+    extra = ()
+    kn_new = kn
+    if ccfg is not None:
+        b = retired.shape[0]
+        knob_rows = torch.stack([getattr(c.kn_lanes, name)
+                                 for name in _cov.MUTABLE_KNOBS], dim=1)
+        extra = (c.new_fps[:, None], c.kinds[:, None],
+                 _cov.seen_bits(c.seen).expand(b)[:, None],
+                 knob_rows.view(torch.int32))
+        kn_new, kinds_new = c.kn_lanes, c.kinds
+        if ccfg.guided:
+            productive = retired & (c.new_fps > 0)
+            kn_new, drawn = _cov.refill_knobs(ccfg, c.kn_lanes, kn, retired,
+                                              productive, new_ids, seed)
+            kinds_new = torch.where(retired, drawn, c.kinds)
+    snapshot = _pool_snapshot(wide, retired, c.ids, extra)
+    wide = _scatter_fresh(retired, init_cluster(cfg, new_keys, kn_new), wide)
     c.states = K3.pack_state(cfg, wide) if packed else wide
     c.keys, c.ids, c.book = new_keys, new_ids, book
+    if ccfg is not None:
+        c.kn_lanes, c.kinds = kn_new, kinds_new
+        c.new_fps = torch.where(retired, 0, c.new_fps)
     if c.state_bytes is None:
         c.state_bytes = tree_bytes(c.states)  # live resident carry tensors
-    return _fetch(snapshot)
+    h, cols = _fetch(snapshot)
+    if ccfg is None:
+        return h
+    return CovHarvest(h, cols[:, 0], cols[:, 1], int(cols[0, 2]), {
+        name: cols[:, 3 + j].view(np.float32)
+        for j, name in enumerate(_cov.MUTABLE_KNOBS)})
 
 
 def run_pool(
@@ -748,11 +907,12 @@ def run_pool(
     budget_seconds: Optional[float] = None,
     devices: Optional[int] = None,
     on_retired=None,
+    coverage: Optional[CoverageConfig] = None,
     device=None,
 ) -> dict:
     """Continuous fuzzing pool: chunk -> harvest -> refill until the budget
-    is spent (the reference's run_pool, coverage and heartbeat off; the
-    metrics plane follows ``cfg.metrics``).
+    is spent (the reference's run_pool with the heartbeat off; the metrics
+    plane follows ``cfg.metrics``).
 
     A lane retires when its cluster violated or reached ``horizon`` ticks
     (seen at chunk boundaries) and is refilled under a new global id.
@@ -764,8 +924,18 @@ def run_pool(
     ``devices=1`` the lane-partitioned scheme on one device. The carry is
     packed between chunks whenever ``packed_layout_reason`` finds the
     packed schema exact for ``horizon + chunk_ticks`` per-lane ticks, and
-    stays wide otherwise. Returns the summary dict; ``compile_s`` is the
-    kernels' build before the timed window."""
+    stays wide otherwise.
+
+    ``coverage`` runs the coverage-guided pool (the reference's
+    ``_run_pool_coverage``, whose docstring gives the contract): each tick
+    of a chunk runs under per-lane knob rows and ends in K5, which folds
+    every lane's abstract-state fingerprint into the seen-set (one row, or
+    one row per shard under the lane scheme) and credits the lanes that
+    found a new one; each retired row gains ``new_fingerprints``,
+    ``refill`` and ``knobs`` (replayable through ``replay_cluster(...,
+    knobs=row["knobs"])``), the summary a ``coverage`` dict. Returns the
+    summary dict; ``compile_s`` is the kernels' build before the timed
+    window."""
     if horizon < 1:
         raise ValueError(f"pool horizon must be >= 1 tick, got {horizon}")
     if chunk_ticks <= 0:
@@ -784,9 +954,26 @@ def run_pool(
     keys = cluster_keys(seed, n_clusters, dev)
     book = (torch.zeros(n_clusters, dtype=torch.int32, device=dev) if lane_ids
             else torch.tensor(n_clusters, dtype=torch.int32, device=dev))
-    # the first chunk runs on the fresh batch wide; the carry holds the
-    # only reference to it
+    # the first chunk runs on the fresh batch wide, born under the base
+    # knobs; the carry holds the only reference to it
     c = _Carry(init_cluster(cfg, keys, kn), keys, ids, book)
+    after_tick, shard_rows = None, None
+    if coverage is not None:
+        c.kn_lanes = kn.broadcast(n_clusters)
+        c.kinds = torch.full((n_clusters,), _cov.REFILL_SEED,
+                             dtype=torch.int32, device=dev)
+        c.new_fps = torch.zeros(n_clusters, dtype=torch.int32, device=dev)
+        # one seen-set row, or one per shard (a [1, bits] row at devices=1)
+        c.seen = torch.full((devices or 1, coverage.bitmap_bits), _cov.UNSEEN,
+                            dtype=torch.int32, device=dev)
+        if lane_ids:
+            shard_rows = _cov.lane_shards(n_clusters, devices, dev)
+        fp_cfg = coverage.fingerprint_key()
+
+        def after_tick(st: ClusterState) -> None:
+            K5.seen_update(fp_cfg, st.role, st.alive, st.term, st.commit,
+                           st.violations, shard_rows, c.seen, c.new_fps, c.t)
+            c.t += 1
 
     def widen() -> ClusterState:
         # the chunk's input leaves the carry, so that no state outlives the
@@ -797,12 +984,15 @@ def run_pool(
         return carry
 
     def launch_chunk():
-        c.wide = _advance(cfg, widen(), c.keys, kn, chunk_ticks)
+        c.wide = _advance(cfg, widen(), c.keys,
+                          kn if c.kn_lanes is None else c.kn_lanes,
+                          chunk_ticks, after_tick)
 
-    def launch_harvest() -> PoolHarvest:
-        return _harvest(cfg, kn, c, seed, horizon, lane_ids, packed)
+    def launch_harvest():
+        return _harvest(cfg, kn, c, seed, horizon, lane_ids, packed, coverage)
 
-    acct = _PoolAccount(on_retired)
+    acct = _PoolAccount(on_retired,
+                        guided=coverage is not None and coverage.guided)
     lane_ticks, wall, gap, wait, overlap = _pipeline(
         launch_chunk, launch_harvest, acct, chunk_ticks, budget_ticks,
         budget_seconds,
@@ -812,5 +1002,32 @@ def run_pool(
         compile_s, gap, wait, overlap, devices, c.book.cpu().numpy(),
         n_clusters, "packed" if packed else "wide", c.state_bytes,
     )
-    return _pool_summary(n_clusters, horizon, chunk_ticks, lane_ticks, acct,
-                         wall, tele, id_fields)
+    summary = _pool_summary(n_clusters, horizon, chunk_ticks, lane_ticks,
+                            acct, wall, tele, id_fields)
+    if coverage is not None:
+        summary["coverage"] = _coverage_summary(cfg, coverage, acct, wall,
+                                                devices)
+    return summary
+
+
+def _coverage_summary(cfg: SimConfig, ccfg: CoverageConfig,
+                      acct: _PoolAccount, wall: float,
+                      devices: Optional[int]) -> dict:
+    """The coverage pool summary's ``coverage`` dict, the reference's keys
+    in its order (``seen_fingerprints`` is the union over the rows)."""
+    return {
+        "bitmap_bits": ccfg.bitmap_bits,
+        "identity": _cov.identity_mapped(cfg.n_nodes, ccfg),
+        "guided": ccfg.guided,
+        "seen_fingerprints": acct.seen_prev,
+        "new_fingerprints_per_s": (
+            round(acct.seen_prev / wall, 2) if wall > 0 else None
+        ),
+        "lane_new_fps_total": acct.lane_new_fps_total,
+        "generations": len(acct.new_fp_per_gen),
+        # cut like violating_clusters[:16]; "generations" has the count
+        "new_fp_per_gen": acct.new_fp_per_gen[:64],
+        "refills_mutated": acct.refills_mutated,
+        "refills_fresh": acct.refills_fresh,
+        **({"shards": devices} if devices is not None else {}),
+    }

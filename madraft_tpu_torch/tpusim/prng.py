@@ -135,3 +135,13 @@ def randint(keys: torch.Tensor, size: int, minval, maxval) -> torch.Tensor:
     off = (off + (lo % span)) & MASK
     off = off % span
     return _wrap_i32(minval + off)
+
+
+def uniform(keys: torch.Tensor, size: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (size,))`` (float32 on [0, 1)) per key ->
+    float32 [..., size]: the top 23 bits of each word as the mantissa of a
+    float in [1, 2), minus 1, floored at 0 as JAX's ``max(minval, .)``
+    does."""
+    w = bits(keys, size)
+    one = (w >> 9) | 0x3F800000  # < 2^31: exact as int32
+    return torch.clamp(one.to(torch.int32).view(torch.float32) - 1.0, min=0.0)

@@ -127,9 +127,33 @@ class ClusterState(NamedTuple):
 METRIC_LEAF0 = ClusterState._fields.index("log_tick")
 
 
+def term_rank_commit_delta(term, commit, term_rank_levels: int,
+                           commit_delta_levels: int) -> tuple:
+    """The quantized term order and commit lag of node rows [B, n]: the
+    count of nodes with a strictly smaller term, and commit - min(commit),
+    each clipped below its level count."""
+    rank = torch.clamp(
+        (term[:, None, :] < term[:, :, None]).sum(-1, dtype=I32),
+        0, term_rank_levels - 1)
+    delta = torch.clamp(commit - commit.amin(-1, keepdim=True),
+                        0, commit_delta_levels - 1)
+    return rank, delta
+
+
+def abstract_node_tuple(s: ClusterState, term_rank_levels: int,
+                        commit_delta_levels: int) -> tuple:
+    """The per-node abstract state the coverage fingerprint folds (the
+    reference's ``abstract_node_tuple``, whose docstring explains it):
+    role, alive, term-rank and commit-delta, four int32 [B, n] tensors."""
+    rank, delta = term_rank_commit_delta(s.term, s.commit, term_rank_levels,
+                                         commit_delta_levels)
+    return s.role, s.alive.to(I32), rank, delta
+
+
 def init_cluster(cfg: SimConfig, keys: torch.Tensor, kn=None) -> ClusterState:
     """Fresh clusters at tick 0, one per key row of ``keys`` [B, 2], with
-    election timers drawn by ``randint`` like the reference's init."""
+    election timers drawn by ``randint`` like the reference's init; ``kn``
+    may hold [B] knob rows (one value a cluster)."""
     dev = keys.device
     if kn is None:
         kn = cfg.knobs(dev)
@@ -140,8 +164,9 @@ def init_cluster(cfg: SimConfig, keys: torch.Tensor, kn=None) -> ClusterState:
     def full(shape, v, dtype=I32):
         return torch.full((b, *shape), v, dtype=dtype, device=dev)
 
-    timer = prng.randint(keys, n, kn.eto_min, kn.eto_max + 1) \
-        + torch.arange(n, dtype=I32, device=dev) * kn.eto_skew.to(I32)
+    k2 = kn.lanes(2)  # a knob row meets the [B, n] draws as [B, 1]
+    timer = prng.randint(keys, n, k2.eto_min, k2.eto_max + 1) \
+        + torch.arange(n, dtype=I32, device=dev) * k2.eto_skew.to(I32)
     return ClusterState(
         tick=full((), 0),
         term=full((n,), 0),

@@ -37,6 +37,7 @@ from madraft_tpu_torch.tpusim.config import (
     LEADER,
     NOOP_CMD,
     SimConfig,
+    lane_view,
 )
 from madraft_tpu_torch.tpusim.state import ClusterState
 
@@ -151,9 +152,11 @@ def step_cluster(
 ) -> ClusterState:
     """One tick of every cluster in the batch. ``cluster_keys`` [B, 2] are
     the per-cluster PRNG keys (``engine.cluster_keys``); ``kn`` the knobs
-    (from ``cfg`` when omitted); ``words`` the tick's ``[B, total]`` draw
-    words when drawn ahead (``kernels.threefry.tick_blocks`` at ``s.tick +
-    1``), else the tick draws them itself."""
+    (from ``cfg`` when omitted), each field 0-d or a [B] row of per-cluster
+    values (the reference's per-cluster knob layout); ``words`` the tick's
+    ``[B, total]`` draw words when drawn ahead
+    (``kernels.threefry.tick_blocks`` at ``s.tick + 1``), else the tick
+    draws them itself."""
     metrics = cfg.metrics
     # the event counters' pre-tick baselines, taken before the suffix-loss
     # rollback, so a bump is counted net of it
@@ -161,6 +164,9 @@ def step_cluster(
     dev = s.term.device
     if kn is None:
         kn = cfg.knobs(dev)
+    # each knob is 0-d (uniform) or a [B] row: k2 / k3 view it against
+    # [B, n] / [B, n, n] operands, kn itself meets [B] ones
+    k2, k3 = kn.lanes(2), kn.lanes(3)
     n, cap, ae_max = cfg.n_nodes, cfg.log_cap, cfg.ae_max
     t = s.tick + 1  # [B]
     t1, t2 = t[:, None], t[:, None, None]
@@ -174,7 +180,7 @@ def step_cluster(
     me = torch.arange(n, dtype=I32, device=dev)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     lane = torch.arange(cap, dtype=I32, device=dev)
-    skew = me * kn.eto_skew
+    skew = me * k2.eto_skew
 
     def rows(x):  # [B, n] per-node value -> [B, 1, n] along the src axis
         return x[:, None, :]
@@ -186,15 +192,15 @@ def step_cluster(
     rp = torch.clamp(kn.rolling_period, min=1)
     wave = t // rp
     wave_i = wave[:, None] - ((wave[:, None] - me) % n)
-    age = t1 - wave_i * rp
-    roll_on = kn.rolling_period > 0
+    age = t1 - wave_i * lane_view(rp, 2)
+    roll_on = k2.rolling_period > 0
     roll_sched = roll_on & (wave_i >= 0)
-    roll_down = roll_sched & (age < kn.rolling_down)
-    roll_up = roll_sched & (age == kn.rolling_down)
+    roll_down = roll_sched & (age < k2.rolling_down)
+    roll_up = roll_sched & (age == k2.rolling_down)
 
-    restart_draw, w_restart = blk.bern_w(kn.p_restart, (n,))
+    restart_draw, w_restart = blk.bern_w(k2.p_restart, (n,))
     restart = (~s.alive) & ((restart_draw & ~roll_down) | roll_up)
-    crash_draw, w_crash = blk.bern_w(kn.p_crash, (n,))
+    crash_draw, w_crash = blk.bern_w(k2.p_crash, (n,))
     crash_bern = s.alive & crash_draw
     dead_after_restart = ((~s.alive) & (~restart)).sum(-1, dtype=I32)
     budget = kn.max_dead - dead_after_restart
@@ -205,7 +211,7 @@ def step_cluster(
     role = torch.where(restart, FOLLOWER, s.role)
     if cfg.bug == "forget_voted_for":
         s = s._replace(voted_for=torch.where(restart, -1, s.voted_for))
-    rst_tmr, w_rst_tmr = blk.randint_w(kn.eto_min, kn.eto_max + 1, (n,))
+    rst_tmr, w_rst_tmr = blk.randint_w(k2.eto_min, k2.eto_max + 1, (n,))
     timer = torch.where(restart, rst_tmr + skew, s.timer)
     hb = torch.where(restart, 0, s.hb)
     commit = torch.where(restart, s.base, s.commit)
@@ -215,13 +221,13 @@ def step_cluster(
     match_idx = torch.where(cols(restart), 0, s.match_idx)
 
     # limping nodes: draws ride the free low bytes of the words above
-    limp_on = alive & (kn.limp_mult_max >= 2) & _bern8(w_crash, kn.p_limp)
-    limp_mult = _randint8(w_restart, 2, kn.limp_mult_max - 1)
+    limp_on = alive & (k2.limp_mult_max >= 2) & _bern8(w_crash, k2.p_limp)
+    limp_mult = _randint8(w_restart, 2, k2.limp_mult_max - 1)
     limp = torch.where(
         restart, 1,
         torch.where(
             limp_on, limp_mult,
-            torch.where(_bern8(w_rst_tmr, kn.p_limp_heal), 1, s.limp),
+            torch.where(_bern8(w_rst_tmr, k2.p_limp_heal), 1, s.limp),
         ),
     )
 
@@ -259,7 +265,7 @@ def step_cluster(
     )
 
     # lossy persistence: a crash may drop the un-fsynced suffix
-    lose = crash & (_bern8(w_colors, kn.p_lose_unsynced))
+    lose = crash & (_bern8(w_colors, k2.p_lose_unsynced))
     term = torch.where(lose, s.durable_term, s.term)
     voted_for = torch.where(lose, s.durable_voted_for, s.voted_for)
     log_len = torch.where(lose, s.durable_len, s.log_len)
@@ -355,7 +361,7 @@ def step_cluster(
     voted_for = torch.where(higher, -1, voted_for)
     acc = got & (mterm == term)
     role = torch.where(acc & (role == CANDIDATE), FOLLOWER, role)
-    snap_tmr, w_snap_tmr = blk.randint_w(kn.eto_min, kn.eto_max + 1, (n,))
+    snap_tmr, w_snap_tmr = blk.randint_w(k2.eto_min, k2.eto_max + 1, (n,))
     timer = torch.where(acc, snap_tmr + skew, timer)
     slen = picked(pick, rows(s.base))
     sterm_snap = picked(pick, rows(s.snap_term))
@@ -405,13 +411,13 @@ def step_cluster(
         (voted_for == -1) | (voted_for == src_id)
     ) & log_ok
     voted_for = torch.where(grant, src_id, voted_for)
-    grant_tmr, w_grant_tmr = blk.randint_w(kn.eto_min, kn.eto_max + 1, (n,))
+    grant_tmr, w_grant_tmr = blk.randint_w(k2.eto_min, k2.eto_max + 1, (n,))
     timer = torch.where(grant, grant_tmr + skew, timer)
     if cfg.bug != "ack_before_fsync":
         durable_term = torch.where(got, term, durable_term)
         durable_voted_for = torch.where(got, voted_for, durable_voted_for)
         durable_len = torch.where(got, log_len, durable_len)
-    delay, lost = _net_draws(kn, blk, (n,))
+    delay, lost = _net_draws(k2, blk, (n,))
     delay = delay * limp
     send = got & ~lost
     resp = pick.transpose(-1, -2) & rows(send)  # slot [candidate, voter]
@@ -433,7 +439,7 @@ def step_cluster(
     voted_for = torch.where(higher, -1, voted_for)
     acc = got & (mterm == term)
     role = torch.where(acc & (role == CANDIDATE), FOLLOWER, role)
-    timer = torch.where(acc, _timeout_draw(kn, blk, (n,), skew), timer)
+    timer = torch.where(acc, _timeout_draw(k2, blk, (n,), skew), timer)
     prev = picked(pick, s.ae_req_prev)
     mprev_term = picked(pick, s.ae_req_prev_term)
     prev_ok = (prev <= log_len) & (
@@ -523,7 +529,7 @@ def step_cluster(
         durable_len = torch.where(got, log_len, durable_len)
         durable_term = torch.where(got, term, durable_term)
         durable_voted_for = torch.where(got, voted_for, durable_voted_for)
-    delay, lost = _net_draws(kn, blk, (n,))
+    delay, lost = _net_draws(k2, blk, (n,))
     delay = delay * limp
     send = got & ~lost
     # keep-oldest: an occupied response slot keeps its message
@@ -534,7 +540,7 @@ def step_cluster(
     ae_rsp_match = torch.where(resp, rows(rsp_match), ae_rsp_match)
 
     # candidate -> leader on majority, with a current-term no-op
-    win = alive & (role == CANDIDATE) & (votes.sum(-1, dtype=I32) >= kn.majority)
+    win = alive & (role == CANDIDATE) & (votes.sum(-1, dtype=I32) >= k2.majority)
     role = torch.where(win, LEADER, role)
     next_idx = torch.where(cols(win), cols(log_len + 1), next_idx)
     match_idx = torch.where(cols(win), 0, match_idx)
@@ -556,7 +562,7 @@ def step_cluster(
     role = torch.where(fired, CANDIDATE, role)
     voted_for = torch.where(fired, me, voted_for)
     votes = torch.where(cols(fired), eye, votes)
-    timer = torch.where(fired, _timeout_draw(kn, blk, (n,), skew), timer)
+    timer = torch.where(fired, _timeout_draw(k2, blk, (n,), skew), timer)
     durable_term = torch.where(fired, term, durable_term)
     durable_voted_for = torch.where(fired, voted_for, durable_voted_for)
     durable_len = torch.where(fired, log_len, durable_len)
@@ -564,7 +570,7 @@ def step_cluster(
     llt = torch.where(
         log_len > base, _row_gather(log_term, _slot(log_len, cap), cap), snap_term
     )
-    delay, lost = _net_draws(kn, blk, (n, n))
+    delay, lost = _net_draws(k3, blk, (n, n))
     delay = delay * rows(limp)  # src is the column axis
     send_rv = rows(fired) & ~eye & adj & ~lost  # [dst, src]
     rv_req_t = torch.where(send_rv, t2 + delay, rv_req_t)
@@ -575,9 +581,9 @@ def step_cluster(
     # --------------------------------------- client command injection at leaders
     lead = alive & (role == LEADER)
     inject = (
-        lead & blk.bern(kn.p_client_cmd, (n,))
+        lead & blk.bern(k2.p_client_cmd, (n,))
         & (log_len - base < cap)
-        & (log_len - commit < kn.flow_cap)
+        & (log_len - commit < k2.flow_cap)
     )
     cmd_val = s.next_cmd[:, None] * n + me + 1
     inj_hit = cols(inject) & (lane == _slot(log_len + 1, cap)[..., None])
@@ -592,7 +598,7 @@ def step_cluster(
     # -------------------------------------------- leader heartbeat / replication
     hb = torch.where(lead, hb - 1, hb)
     fire_hb = lead & (hb <= 0)
-    hb = torch.where(fire_hb, kn.heartbeat_ticks, hb)
+    hb = torch.where(fire_hb, k2.heartbeat_ticks, hb)
     next_t = next_idx.transpose(-1, -2)  # [dst, src]
     need_snap = next_t <= rows(base)
     prev_m = next_t - 1
@@ -603,7 +609,7 @@ def step_cluster(
         torch.where(oh_p, log_term[:, None], 0).sum(-1, dtype=I32),
         rows(snap_term),
     )
-    delay, lost = _net_draws(kn, blk, (n, n))
+    delay, lost = _net_draws(k3, blk, (n, n))
     delay = delay * rows(limp)
     pending = rows(lead) & (next_t <= rows(log_len))
     send_ae = (
@@ -616,7 +622,7 @@ def step_cluster(
     ae_req_prev_term = torch.where(send_ae, prev_term_m, s.ae_req_prev_term)
     ae_req_n = torch.where(send_ae, n_m, s.ae_req_n)
     ae_req_commit = torch.where(send_ae, rows(commit), s.ae_req_commit)
-    delay_sn, lost_sn = _net_draws(kn, blk, (n, n))
+    delay_sn, lost_sn = _net_draws(k3, blk, (n, n))
     delay_sn = delay_sn * rows(limp)
     send_sn = (
         rows(fire_hb) & ~eye & adj & ~lost_sn & need_snap & (sn_req_t == 0)
@@ -628,8 +634,11 @@ def step_cluster(
     # ------------------------------------------------------------ commit advance
     mi = torch.where(eye, cols(log_len), match_idx)
     srt = torch.sort(mi, dim=-1, descending=True).values
-    kth_at = torch.clamp(kn.majority - 1, 0, n - 1).to(torch.int64).reshape(1)
-    kth = torch.index_select(srt, -1, kth_at)[..., 0]
+    kth_at = torch.clamp(kn.majority - 1, 0, n - 1).to(torch.int64)
+    if kth_at.dim():  # one quorum a cluster: gather each row's own rank
+        kth = srt.gather(-1, kth_at.view(-1, 1, 1).expand(-1, n, 1))[..., 0]
+    else:
+        kth = torch.index_select(srt, -1, kth_at.reshape(1))[..., 0]
     cur_term_ok = (kth > base) & (
         _term_at(log_term, snap_term, base, kth, cap) == term
     )
@@ -670,9 +679,9 @@ def step_cluster(
 
     # -------------------------------------------------------------- compaction
     boundary = torch.where(
-        kn.compact_at_commit, commit, torch.minimum(compact_floor, commit)
+        k2.compact_at_commit, commit, torch.minimum(compact_floor, commit)
     )
-    do_compact = alive & (boundary - base >= kn.compact_every)
+    do_compact = alive & (boundary - base >= k2.compact_every)
     new_snap_term = _term_at(log_term, snap_term, base, boundary, cap)
     out_lanes = cols(do_compact) & (abs_arr <= cols(boundary))
     prefix_hash = prefix_hash ^ xor_reduce(
@@ -686,17 +695,17 @@ def step_cluster(
 
     # ------------------------------------------------------- background fsync
     stall_on = (
-        alive & (kn.fsync_stall_ticks >= 1)
-        & _bern8(w_snap_tmr, kn.p_fsync_stall)
+        alive & (k2.fsync_stall_ticks >= 1)
+        & _bern8(w_snap_tmr, k2.p_fsync_stall)
     )
     fsync_stall = torch.where(
         restart, 0,
         torch.where(
-            stall_on, _randint8(w_grant_tmr, 1, kn.fsync_stall_ticks),
+            stall_on, _randint8(w_grant_tmr, 1, k2.fsync_stall_ticks),
             torch.clamp(s.fsync_stall - 1, min=0),
         ),
     )
-    do_fsync = alive & ((t1 + me) % kn.fsync_every == 0) & (fsync_stall == 0)
+    do_fsync = alive & ((t1 + me) % k2.fsync_every == 0) & (fsync_stall == 0)
     durable_len = torch.where(do_fsync, log_len, durable_len)
     durable_term = torch.where(do_fsync, term, durable_term)
     durable_voted_for = torch.where(do_fsync, voted_for, durable_voted_for)

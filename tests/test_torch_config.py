@@ -1,7 +1,8 @@
 """The port's JAX-free config twin against ``madraft_tpu.tpusim.config``:
 every SimConfig field and default, the scenario registry, the gate table,
-the violation-name decoder, and the knob dtypes (float32 probabilities,
-int32 counts). Tolerance: exact equality."""
+the violation-name decoder, the knob dtypes (float32 probabilities, int32
+counts), and CoverageConfig with the coverage ground-truth config.
+Tolerance: exact equality."""
 
 import dataclasses
 
@@ -61,3 +62,21 @@ def test_config_validation_matches():
             jcfg.SimConfig(**bad)
         with pytest.raises(ValueError):
             pcfg.SimConfig(**bad)
+
+
+def test_coverage_config_matches_reference():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jcfg.CoverageConfig)]
+    pf = [(f.name, f.default) for f in dataclasses.fields(pcfg.CoverageConfig)]
+    assert pf == jf
+    (jc, jcc, jh), (pc, pcc, ph) = (jcfg.coverage_ground_truth(),
+                                    pcfg.coverage_ground_truth())
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+    assert dataclasses.asdict(pcc) == dataclasses.asdict(jcc) and ph == jh
+    assert dataclasses.asdict(pcc.fingerprint_key()) \
+        == dataclasses.asdict(jcc.fingerprint_key())
+    for bad in (dict(bitmap_bits=100), dict(term_rank_levels=1),
+                dict(mut_span=1.0), dict(fresh_lo=3.0, fresh_hi=2.0)):
+        with pytest.raises(ValueError):
+            jcfg.CoverageConfig(**bad)
+        with pytest.raises(ValueError):
+            pcfg.CoverageConfig(**bad)

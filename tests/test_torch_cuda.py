@@ -7,14 +7,26 @@ only torch and the port, so it also runs on a machine without JAX:
 
 Tolerance: exact equality (integer kernels)."""
 
+import json
+import pathlib
+
 import pytest
 import torch
 
+from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels import oracle as K2
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry as K1
-from madraft_tpu_torch.tpusim import config, engine, metrics, prng, state, step
+from madraft_tpu_torch.tpusim import (
+    config,
+    coverage,
+    engine,
+    metrics,
+    prng,
+    state,
+    step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +339,122 @@ def test_pack_kernels_equal_plain_with_metrics_on(dev, kind):
                        _numpy(want)):
         assert a.dtype == b.dtype and (a == b).all(), f
     assert state.first_divergence(0, h, state.state_to_numpy(back)) is None
+
+
+def _seen_pair(ccfg, b, shards, dev):
+    fresh = torch.full((shards, ccfg.bitmap_bits), coverage.UNSEEN,
+                       dtype=torch.int32)
+    return ((fresh.to(dev), torch.zeros(b, dtype=torch.int32, device=dev)),
+            (fresh.clone(), torch.zeros(b, dtype=torch.int32)))
+
+
+@pytest.mark.parametrize("n_nodes,mode", [
+    (3, "identity"), (5, "identity"), (3, "hashed"), (5, "hashed"),
+    (7, "hashed"), (5, "hashed_small"), (7, "hashed_small")])
+@pytest.mark.parametrize("shards", [None, 1, 4])
+def test_seen_update_kernel_equals_plain(dev, n_nodes, mode, shards):
+    # planted lanes (random rows, 8 lanes on one code, violated lanes,
+    # int32 extremes) over three ticks: the stamps and every credit equal
+    # the plain version's; a 16-bit seen-set makes many lanes collide. The
+    # identity mode takes the ground-truth alphabet, its seen-set sized to
+    # the code space (2^14 bits at n = 3, 2^23 at n = 5)
+    ccfg = {"identity": config.coverage_ground_truth()[1],
+            "hashed": config.CoverageConfig(),
+            "hashed_small": config.CoverageConfig(bitmap_bits=16)}[mode]
+    if mode == "identity":
+        space = coverage.code_space(n_nodes, ccfg)
+        ccfg = ccfg.replace(bitmap_bits=1 << (space - 1).bit_length())
+        assert coverage.identity_mapped(n_nodes, ccfg)
+    b = 1000
+    cpu_in = coverage.planted_fingerprint_inputs(n_nodes, b, n_nodes)
+    rows_c = None if shards is None else coverage.lane_shards(b, shards)
+    (seen_g, nf_g), (seen_c, nf_c) = _seen_pair(ccfg, b, shards or 1, dev)
+    gpu_in = [x.to(dev) for x in cpu_in]
+    rows_g = None if rows_c is None else rows_c.to(dev)
+    for t in (0, 1, 2):
+        before = K5.seen_update.launches
+        K5.seen_update(ccfg, *gpu_in, rows_g, seen_g, nf_g, t)
+        assert K5.seen_update.launches == before + 1
+        coverage.seen_update_plain(ccfg, *cpu_in, rows_c, seen_c, nf_c, t)
+        assert torch.equal(seen_g.cpu(), seen_c) and torch.equal(nf_g.cpu(), nf_c)
+        # the next tick's rows: half the lanes move on
+        cpu_in = list(cpu_in)
+        cpu_in[2] = torch.where(torch.arange(b)[:, None] % 2 == 1,
+                                cpu_in[2] + 1, cpu_in[2])
+        gpu_in = [x.to(dev) for x in cpu_in]
+    assert int(nf_c[8:16].min()) >= 1  # all lanes on one new code earn it
+    assert int(nf_c[16:24].max()) == 0  # violated lanes neither
+
+
+def test_seen_update_kernel_refuses_what_it_does_not_take(dev):
+    ccfg = config.CoverageConfig()
+    args = [x.to(dev) for x in coverage.planted_fingerprint_inputs(5, 64, 1)]
+    (seen, nf), _ = _seen_pair(ccfg, 64, 1, dev)
+    with pytest.raises(ValueError):
+        K5.seen_update(ccfg, args[0].to(torch.int64), *args[1:], None, seen,
+                       nf, 0)
+    with pytest.raises(ValueError):
+        K5.seen_update(ccfg, *args, None, seen[:, :1024], nf, 0)
+    with pytest.raises(ValueError):
+        K5.seen_update(ccfg, *args, None, seen.cpu(), nf, 0)
+    with pytest.raises(ValueError):
+        K5.seen_update(ccfg, *args, None, seen, nf, coverage.UNSEEN)
+
+
+def test_refill_grid_on_the_card_matches_the_reference_hash():
+    # the plain exp2 / FMA arithmetic on the card over all 2^23 uniforms,
+    # against the SHA-256 of the JAX package's results (recorded on the CPU)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fx = json.loads((pathlib.Path(__file__).parent / "torch_fixtures" /
+                     "coverage_legs.json").read_text())["exp_grid"]
+    gt = config.coverage_ground_truth()[1]
+    for name, ccfg in (("default", config.CoverageConfig()),
+                       ("ground_truth", gt)):
+        mut, fresh = coverage.refill_grid(ccfg, "cuda")
+        assert coverage.grid_sha256([mut.cpu(), fresh.cpu()]) \
+            == fx[name]["sha256"], name
+
+
+@pytest.mark.parametrize("devices,metrics_on", [(None, False), (1, True)])
+def test_coverage_pool_on_the_card_equals_the_cpu(dev, devices, metrics_on):
+    cfg = config.storm_profiles()["storm"][0].replace(metrics=metrics_on)
+    runs = {}
+    with prng.layout(True):
+        for where in (dev, "cpu"):
+            rows = []
+            before = K5.seen_update.launches
+            s = engine.run_pool(cfg, 7, 64, 64, chunk_ticks=32,
+                                budget_ticks=192, on_retired=rows.append,
+                                devices=devices,
+                                coverage=config.CoverageConfig(), device=where)
+            runs[str(where)] = (rows, s, K5.seen_update.launches - before)
+    (rows_g, s_g, launched), (rows_c, s_c, _) = runs["cuda"], runs["cpu"]
+    assert launched == 192  # one K5 launch a tick
+    drop = ("wall_s", "violations_per_s")
+    assert [{k: v for k, v in r.items() if k not in drop} for r in rows_g] \
+        == [{k: v for k, v in r.items() if k not in drop} for r in rows_c]
+    cov_g, cov_c = (dict(x["coverage"]) for x in (s_g, s_c))
+    cov_g.pop("new_fingerprints_per_s")
+    cov_c.pop("new_fingerprints_per_s")
+    assert cov_g == cov_c
+    assert cov_g["refills_mutated"] > 0
+
+
+def test_sweep_on_the_card_equals_the_cpu(dev):
+    cfg = config.SimConfig().replace(max_dead=2, p_restart=0.2, p_heal=0.05)
+    loss = torch.tensor([0.0, 0.1, 0.3], dtype=torch.float32)
+    kn = cfg.knobs()._replace(loss_prob=loss.repeat_interleave(8))
+    reps = {}
+    with prng.layout(True):
+        for where, umc in ((dev, 8), (dev, 0), ("cpu", 0)):
+            fn = engine.make_sweep_fn(cfg, kn, 24, 100, uniform_max_cells=umc,
+                                      device=where)
+            reps[(str(where), fn.dispatch)] = engine.report(fn(11))
+    assert set(reps) == {("cuda", "uniform"), ("cuda", "per_cluster"),
+                         ("cpu", "per_cluster")}
+    want = reps[("cpu", "per_cluster")]
+    for rep in reps.values():
+        for f in ("violations", "first_violation_tick", "first_leader_tick",
+                  "committed", "msg_count", "snap_installs"):
+            assert (getattr(rep, f) == getattr(want, f)).all(), f

@@ -102,7 +102,7 @@ def test_cli_usage_errors_exit_2_like_reference(argv):
     ["fuzz", "--mesh", "--clusters", "4", "--ticks", "2"],
     ["pool", "--metrics", "--heartbeat", "hb.jsonl", "--clusters", "4"],
     ["pool", "--devices", "2", "--clusters", "4"],
-    ["sweep"],
+    ["sweep", "--mesh", "--clusters", "12", "--ticks", "2"],
 ])
 def test_cli_unported_paths_exit_2(argv):
     rc, out, err = port(argv)

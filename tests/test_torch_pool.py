@@ -197,9 +197,11 @@ def test_cli_pool_exit_code_is_1_iff_a_violation(majority, want_rc):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--mesh"], ["--coverage"], ["--coverage-random"],
-    ["--coverage-bits", "64"], ["--heartbeat", "hb.jsonl"],
-    ["--digest-every", "2"], ["--metrics", "--coverage"],
+    ["--devices", "2"], ["--mesh"], ["--coverage", "--devices", "2"],
+    ["--coverage", "--heartbeat", "hb.jsonl"],
+    ["--coverage", "--coverage-bits", "64", "--digest-every", "2"],
+    ["--heartbeat", "hb.jsonl"], ["--digest-every", "2"],
+    ["--metrics", "--coverage", "--mesh"],
 ])
 def test_cli_pool_unported_flags_exit_2(flags):
     rc, lines, err = _cli(["pool", "--clusters", "4", "--ticks", "8", *flags])

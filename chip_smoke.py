@@ -5,21 +5,24 @@
 
 Builds the CUDA kernels from ``madraft_tpu_torch/csrc`` (one ``nvcc`` per
 source, started together), holds every kernel against its plain PyTorch
-version (bit-equal), reproduces the golden fuzz and pool legs and the JAX
-fixture legs on the card, drives the main paths through the CLI and
-checks that each went through its kernels: the fuzz flagship (``fuzz
---storm --clusters 4096 --ticks 1024``, twice) and the pool flagship
-(``pool --storm --clusters 4096 --ticks 512 --budget-ticks 1024``, twice),
-each again with ``--metrics`` at half the depth (the metrics plane: the
-oracle's metrics instance and the latency fold K4), the coverage pool
-flagship (the pool flagship with ``--coverage``, twice: the fingerprint
-and seen-set kernel K5 every tick, the biased refill) and the sweep
-flagships (``sweep --storm`` at 4096 clusters x 1024 ticks on the CLI's
-default 12-cell grid, the per-cluster dispatch, and on an 8-cell grid, the
+version (bit-equal; K6, the tick, on every leaf after every chunk at n =
+3, 5, 7 under every planted bug, with [B] knob rows, ragged chunks and a
+pool state at mixed lane ticks), reproduces the golden fuzz and pool legs
+and the JAX fixture legs on the card, drives the main paths through the
+CLI and checks that each went through its kernels: the fuzz flagship
+(``fuzz --storm --clusters 4096 --ticks 1024``, twice) and the pool
+flagship (``pool --storm --clusters 4096 --ticks 512 --budget-ticks
+1024``, twice), both one K6 launch a chunk of 32 ticks, each again with
+``--metrics`` at half the depth (the eager tick: the oracle's metrics
+instance and the latency fold K4), the coverage pool flagship (the pool
+flagship with ``--coverage``, twice: the eager tick, the fingerprint and
+seen-set kernel K5 every tick, the biased refill) and the sweep flagships
+(``sweep --storm`` at 4096 clusters x 1024 ticks on the CLI's default
+12-cell grid, the per-cluster dispatch, and on an 8-cell grid, the
 uniform dispatch, again forced per-cluster), replays pool hits and mutated
-coverage rows
-through ``replay``, runs the nine raft-layer game-day gates with metrics
-on, then times each kernel beside its plain version and its bound:
+coverage rows through ``replay``, runs the fuzz flagship through the eager
+tick and through K6 in turns, runs the nine raft-layer game-day gates with
+metrics on, then times each kernel beside its plain version and its bound:
 ``ms`` is the kernel's own device time per launch (torch.profiler, matched
 by the CUDA function's name), ``call_ms`` the wrapper's time per call as
 the host issues it back to back (CUDA events).
@@ -67,6 +70,11 @@ SWEEP_UNIFORM_FLAGSHIP = SWEEP_FLAGSHIP + [
     "--loss", "0,0.1", "--crash", "0,0.01", "--repartition", "0,0.02"]
 # mutated coverage rows replayed through the CLI
 REPLAY_MUTATED = 3
+# ticks of each K6-vs-plain case (phase tick_chunk)
+K6_TICKS = 256
+# the eager runs of the fuzz flagship's eager-vs-K6 A/B, cut to hold the
+# script's time (the eager tick is host-bound, its rate flat in depth)
+AB_EAGER_TICKS = 256
 # the report keys the metrics plane adds
 METRIC_KEYS = ("latency", "events", "worst_op")
 # the metrics-on packed carry at n = 5, cap = 64 (the reference's pin)
@@ -208,6 +216,7 @@ def counters():
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
+    from madraft_tpu_torch.kernels import tick as K6
 
     return {"threefry_hash_pairs": (K1.hash_pairs, "launches"),
             "threefry_tick_blocks": (K1.tick_blocks, "launches"),
@@ -216,7 +225,8 @@ def counters():
             "pack_state": (K3.pack_state, "launches"),
             "unpack_state": (K3.unpack_state, "launches"),
             "latency_fold": (K4.latency_fold, "launches"),
-            "seen_update": (K5.seen_update, "launches")}
+            "seen_update": (K5.seen_update, "launches"),
+            "tick_chunk": (K6.tick_chunk, "launches")}
 
 
 def read_counts() -> dict:
@@ -262,6 +272,7 @@ def main() -> int:
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
+    from madraft_tpu_torch.kernels import tick as K6
     from madraft_tpu_torch.tpusim import (
         config,
         coverage,
@@ -445,6 +456,45 @@ def main() -> int:
     emit({"phase": "k3_vs_plain", "states": states_checked, "clusters": 256,
           "max_abs_err": max(errs["pack_state"], errs["unpack_state"])})
 
+    # ---- 3e. K6 against its plain version (the eager tick looped over the
+    # chunk), every leaf after every chunk: n = 3, 5, 7 under every planted
+    # bug (--storm, 0-d knobs, chunks of 32), [B] knob rows in ragged
+    # chunks of 7, a pool state at mixed per-lane ticks and keys, a broken
+    # quorum that violates; the flagship's shape is held in phase 7
+    cases = [(f"n{n_nodes}:{bug or 'clean'}",
+              storm.replace(n_nodes=n_nodes, bug=bug), 128, 32, None, False)
+             for n_nodes in (3, 5, 7) for bug in config.RAFT_BUGS]
+    cases += [("n5:knob_rows:chunk7", storm, 256, 7, "rows", False),
+              ("n5:pool_mixed_ticks", storm, 256, 32, None, True),
+              ("n5:majority2", storm.replace(majority_override=2), 256, 32,
+               None, False)]
+    k6_cases = {}
+    with prng.layout(True):
+        for label, cfg, b_, chunk_, rows_, mixed in cases:
+            ck = engine.cluster_keys(7, b_, dev)
+            kn = _knob_rows(b_, dev) if rows_ else cfg.knobs(dev)
+            s6 = state.init_cluster(cfg, ck, kn)
+            if mixed:  # two lanes in three 90 ticks on, under other keys
+                ck2 = engine.cluster_keys(7, b_, dev, id0=b_)
+                later = engine._advance(cfg, state.init_cluster(cfg, ck2, kn),
+                                        ck2, kn, 90)
+                sel = torch.arange(b_, device=dev) % 3 != 0
+                s6 = state.ClusterState(*(
+                    torch.where(sel.view(-1, *(1,) * (x.dim() - 1)), y, x)
+                    if x.numel() else x for x, y in zip(s6, later)))
+                ck = torch.where(sel[:, None], ck2, ck)
+            s6 = _k6_vs_plain(cfg, s6, ck, kn, K6_TICKS, chunk_, errs, label)
+            k6_cases[label] = [int((s6.violations != 0).sum()),
+                               int(s6.shadow_len.sum()),
+                               int(s6.snap_install_count.sum())]
+    check(k6_cases["n5:majority2"][0] > 0,
+          f"the broken quorum did not violate: {k6_cases['n5:majority2']}")
+    emit({"phase": "tick_chunk", "ticks": K6_TICKS,
+          "cases": {k: {"violating": v[0], "committed": v[1], "installs": v[2]}
+                    for k, v in k6_cases.items()},
+          "max_abs_err": errs["tick_chunk"]})
+    del s6
+
     # ---- 4. golden legs (legacy layout, as recorded)
     golden = json.loads((ROOT / "tests" / "golden_fuzz.json").read_text())
     with prng.layout(False):
@@ -500,33 +550,34 @@ def main() -> int:
     _coverage_fixture_legs(dev, cov_fx)
 
     # ---- 6. the flagship, through the CLI, counting kernel launches; the
-    # state of its first run at tick METRICS_TICKS is kept on the host
-    # (metric leaves aside) for the metrics flagship to be held against
+    # state of its first run at tick METRICS_TICKS (the end of a K6 chunk)
+    # is kept on the host (metric leaves aside) for the metrics flagship to
+    # be held against
     set_counts()
     prng.set_partitionable(True)
-    final_off = KeepFirst(engine.step_cluster, _non_metric_leaves,
-                          at=METRICS_TICKS - 1, result=True)
-    engine.step_cluster = final_off
+    final_off = KeepFirst(K6.tick_chunk, _non_metric_leaves,
+                          at=METRICS_TICKS // engine.DRAW_CHUNK - 1,
+                          result=True)
+    engine.K6 = types.SimpleNamespace(tick_chunk=final_off)
     try:
         t0 = time.perf_counter()
         rc, out = run_cli(FLAGSHIP)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        engine.step_cluster = final_off.fn
+        engine.K6 = K6
     launches = read_counts()
-    ticks = _flag(FLAGSHIP, "--ticks") * FLAGSHIP_RUNS
     chunks = -(-_flag(FLAGSHIP, "--ticks") // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
     check(rc == 0 and out["violating"] == 0, f"flagship rc {rc}: {out}")
     check(out.get("deterministic") is True, "flagship double run differs")
     check(out["first_leader_tick_mean"] > 0 and out["committed_mean"] > 0,
           f"flagship made no progress: {out}")
-    check(launches["threefry_tick_blocks"] == chunks
-          and launches["oracle"] == ticks and launches["threefry_hash_pairs"] > 0
+    check(launches["threefry_tick_blocks"] == launches["tick_chunk"] == chunks
+          and launches["oracle"] == 0 and launches["threefry_hash_pairs"] > 0
           and launches["oracle_metrics"] == launches["latency_fold"] == 0,
-          f"flagship launches {launches}, want {chunks} tick_blocks (one per "
-          f"chunk of {engine.DRAW_CHUNK} ticks), {ticks} oracle and no "
-          "metrics launch")
+          f"flagship launches {launches}, want {chunks} tick_blocks and "
+          f"{chunks} tick_chunk (one each per chunk of {engine.DRAW_CHUNK} "
+          "ticks), no oracle and no metrics launch")
     tele = out["telemetry"]
     emit({"phase": "flagship", "argv": FLAGSHIP, "rc": rc,
           "cluster_steps_per_s": tele["steps_per_sec"],
@@ -563,7 +614,8 @@ def main() -> int:
     chunks_m = -(-METRICS_TICKS // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
     check(launches_m["latency_fold"] == ticks_m
           and launches_m["oracle_metrics"] == launches_m["oracle"] == ticks_m
-          and launches_m["threefry_tick_blocks"] == chunks_m,
+          and launches_m["threefry_tick_blocks"] == chunks_m
+          and launches_m["tick_chunk"] == 0,
           f"metrics flagship launches {launches_m}, want {ticks_m} "
           f"latency_fold and metrics oracle, {chunks_m} tick_blocks")
     tele_m = out_m["telemetry"]
@@ -608,9 +660,9 @@ def main() -> int:
                               ("--clusters", "--ticks", "--budget-ticks"))
     chunk_ticks = engine.default_chunk_ticks(horizon)
     gens = budget // chunk_ticks  # chunks per run
-    want = {"threefry_tick_blocks":
-                2 * gens * -(-chunk_ticks // engine.DRAW_CHUNK),
-            "oracle": 2 * budget, "pack_state": 2 * gens,
+    chunk_draws = 2 * gens * -(-chunk_ticks // engine.DRAW_CHUNK)
+    want = {"threefry_tick_blocks": chunk_draws, "tick_chunk": chunk_draws,
+            "oracle": 0, "pack_state": 2 * gens,
             "unpack_state": 2 * (gens - 1)}
     # a clean run retires every lane at each horizon it reaches
     retired = lanes * (budget // horizon)
@@ -626,8 +678,9 @@ def main() -> int:
           f"{out1['bytes_per_lane']} vs {packed_bpl}")
     check(all(pool_launches[k] == v for k, v in want.items())
           and pool_launches["threefry_hash_pairs"] > 0,
-          f"pool flagship launches {pool_launches}, want {want} (a pack "
-          "per harvest, an unpack per chunk but the first)")
+          f"pool flagship launches {pool_launches}, want {want} (a K6 "
+          "launch per draw chunk, a pack per harvest, an unpack per chunk "
+          "but the first)")
     emit({"phase": "pool_flagship", "argv": POOL_FLAGSHIP, "rc": rc1,
           "retired": out1["retired"], "launches": pool_launches,
           "runs": [{k: o[k] for k in ("wall_s", "steps_per_sec",
@@ -684,7 +737,8 @@ def main() -> int:
                  2 * m_gens * -(-chunk_ticks // engine.DRAW_CHUNK),
              "oracle": 2 * m_budget, "pack_state": 2 * m_gens,
              "unpack_state": 2 * (m_gens - 1),
-             "latency_fold": 2 * m_budget, "oracle_metrics": 2 * m_budget}
+             "latency_fold": 2 * m_budget, "oracle_metrics": 2 * m_budget,
+             "tick_chunk": 0}
     check(all(mpool_launches[k] == v for k, v in mwant.items()),
           f"metrics pool flagship launches {mpool_launches}, want {mwant}")
     emit({"phase": "metrics_pool_flagship", "argv": METRICS_POOL_FLAGSHIP,
@@ -763,10 +817,10 @@ def main() -> int:
           and cdict["generations"] == gens
           and sum(cdict["new_fp_per_gen"]) == cdict["seen_fingerprints"],
           f"coverage pool flagship's coverage: {cdict}")
-    cwant = dict(want, seen_update=2 * budget)
+    cwant = dict(want, seen_update=2 * budget, oracle=2 * budget, tick_chunk=0)
     check(all(cov_launches[k] == v for k, v in cwant.items()),
           f"coverage pool flagship launches {cov_launches}, want {cwant} "
-          "(one K5 launch a tick)")
+          "(the eager tick: one K2 and one K5 launch a tick)")
     mutated = [r for r in crows1 if r["refill"] == "mutate"]
     check(len(mutated) >= REPLAY_MUTATED, f"{len(mutated)} mutated rows")
     replayed = []
@@ -830,7 +884,7 @@ def main() -> int:
               and out["dispatch"] == ("per_cluster" if force or cells > 8
                                       else "uniform"),
               f"sweep {label}: rc {rc}, {out['dispatch']}, {out['violating']}")
-        check(sl["oracle"] == _flag(argv, "--ticks") * runs_
+        check(sl["oracle"] == 0 and sl["tick_chunk"] == chunks_
               and sl["threefry_tick_blocks"] == chunks_,
               f"sweep {label} launches {sl}")
         check(all(c["live"] > 0 for c in out["cells"]), f"sweep {label}: "
@@ -849,6 +903,35 @@ def main() -> int:
     check(same == {k: v for k, v in sweeps["uniform_forced"].items()
                    if k not in ("telemetry", "dispatch")},
           "the sweep's two layouts report differently")
+
+    # ---- 6ab. the fuzz flagship through the eager tick and through K6
+    # (engine._advance's tick=), in turns eager, kernel, kernel, eager on
+    # this card; the eager runs are cut to AB_EAGER_TICKS ticks
+    ab = []
+    advance = engine._advance
+    for route in ("eager", "kernel", "kernel", "eager"):
+        n_ab = AB_EAGER_TICKS if route == "eager" else _flag(FLAGSHIP,
+                                                             "--ticks")
+        argv = FLAGSHIP[:FLAGSHIP.index("--ticks") + 1] + [str(n_ab),
+                                                           "--seed", "12345"]
+        set_counts()
+        engine._advance = functools.partial(advance, tick=route)
+        try:
+            rc, out = run_cli(argv)
+        finally:
+            engine._advance = advance
+        ran = read_counts()
+        check(rc == 0 and out["violating"] == 0
+              and (ran["tick_chunk"] > 0) == (route == "kernel")
+              and (ran["oracle"] == n_ab) == (route == "eager"),
+              f"A/B {route} run: rc {rc}, launches {ran}")
+        ab.append({"route": route, "ticks": n_ab,
+                   "cluster_steps_per_s": out["telemetry"]["steps_per_sec"],
+                   "execute_s": out["telemetry"]["execute_s"]})
+    rate = {r: sum(x["cluster_steps_per_s"] for x in ab if x["route"] == r) / 2
+            for r in ("eager", "kernel")}
+    emit({"phase": "ab_eager_vs_kernel", "card": _smi(), "clusters": 4096,
+          "runs": ab, "kernel_over_eager": rate["kernel"] / rate["eager"]})
 
     # ---- 6g. the raft layer's game-day gates (config.profile_gates) with
     # metrics on at their bench scale: no violation, liveness (acked ops a
@@ -890,6 +973,15 @@ def main() -> int:
         errs["oracle"] = max(errs["oracle"], max_abs_err(a, bb))
     check(errs["oracle"] == 0, "oracle kernel differs at the flagship shape")
     k2_out = K2.oracle(*args2)
+    # K6 at the flagship's shape: one chunk from the storm state at tick 200
+    k6_words = K1.tick_blocks(fk, tt, chunk, total, True)
+    fs_out = _k6_vs_plain(_storm_cfg(), fs, fk, fkn, chunk, chunk, errs,
+                          "flagship shape", words=k6_words)
+    emit({"phase": "tick_chunk_flagship_shape", "clusters": b,
+          "from_tick": int(fs.tick[0]), "ticks": chunk,
+          "max_abs_err": errs["tick_chunk"]})
+    fs_bytes = nbytes(*fs[:state.METRIC_LEAF0])
+    del fs_out
     counts = read_counts()
     k2_rot = [args2] + [tuple(x.clone() for x in args2)
                         for _ in range(rotations(nbytes(*args2)) - 1)]
@@ -1007,8 +1099,25 @@ def main() -> int:
         return coverage.seen_update_plain(ccfg5, *k5_rot[i % len(k5_rot)],
                                           None, k5_seen, k5_nf, k5_t + 1 + i)
 
+    def k6_call(i):
+        return K6.tick_chunk(fcfg, fs, fk, fkn, k6_words)
+
     # name: (device ms, call ms, plain ms, bytes, operations)
     timing = {
+        # one chunk: the wide state read and written once, the chunk's
+        # words read once, the knob rows; per cluster and tick about
+        # n(n-1)/2 x cap x 8 (log matching) + n x cap x 15 (shadow walk,
+        # compaction, the AppendEntries hint) + 60 n^2 (delivery, sends)
+        # + 40 n operations
+        "tick_chunk": (
+            device_ms(k6_call, "tick_chunk_kernel", iters=20),
+            cuda_ms(k6_call, iters=20),
+            cuda_ms(lambda i: K6.tick_chunk_plain(fcfg, fs, fk, fkn, k6_words),
+                    iters=2, warmup=1),
+            2 * fs_bytes + nbytes(k6_words) + b * 28 * 4,
+            b * chunk * (n_nodes * (n_nodes - 1) // 2 * 64 * 8
+                         + n_nodes * 64 * 15 + 60 * n_nodes ** 2
+                         + 40 * n_nodes)),
         # one chunk: [chunk, b, total] int64 words, b * chunk rows of 2
         # key folds and total hashes (partitionable layout) each
         "threefry_tick_blocks": (
@@ -1079,7 +1188,7 @@ def main() -> int:
                     iters=20),
             nbytes(*fs) + nbytes(*fp), k3_ops),
     }
-    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot
+    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot, k6_words
     set_counts(counts)  # timing launches are not main-path launches
     emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
           "l2_cold_rotations": {"oracle": rotations(nbytes(*args2)),
@@ -1088,7 +1197,8 @@ def main() -> int:
                                 "seen_update": rotations(nbytes(*k5_node)),
                                 "pack_state": rotations(nbytes(*fs)),
                                 "unpack_state": rotations(nbytes(*fp))},
-          "shapes": {"tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
+          "shapes": {"tick_chunk": [chunk, b, fs_bytes // b],
+                     "tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
                      "oracle_logs": [b, n_nodes, 64],
                      "latency_fold": [b, 64, n_ph],
                      "seen_update": [b, n_nodes, ccfg5.bitmap_bits],
@@ -1096,6 +1206,7 @@ def main() -> int:
 
     # ---- 8. where a flagship tick's and a pool harvest's time goes
     # (torch.profiler), and the bytes behind B2-rest's bound
+    emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_metrics"))
     # a coverage tick: the flagship tick under [B] knob rows, then K5
@@ -1131,6 +1242,8 @@ def main() -> int:
     emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
 
     sources = {
+        "tick_chunk": ("madraft_tpu_torch/csrc/tick.cu",
+                       "madraft_tpu/tpusim/step.py:293"),
         "threefry_tick_blocks": ("madraft_tpu_torch/csrc/threefry.cu",
                                  "madraft_tpu/tpusim/step.py:128"),
         "threefry_hash_pairs": ("madraft_tpu_torch/csrc/threefry.cu",
@@ -1149,11 +1262,12 @@ def main() -> int:
                          "madraft_tpu/tpusim/state.py:656"),
     }
     # each kernel's launches on the main path that runs it: the fuzz
-    # flagship for K1 and K2, the pool flagship for K3, the metrics
-    # flagship for K2's metrics instance and K4
+    # flagship for K1 and K6, the pool flagship for K3, the metrics
+    # flagship for K2 (with the metrics plane, the eager tick's oracle), its
+    # metrics instance and K4, the coverage pool flagship for K5
     launches.update({k: pool_launches[k] for k in ("pack_state",
                                                    "unpack_state")})
-    launches.update({k: launches_m[k] for k in ("oracle_metrics",
+    launches.update({k: launches_m[k] for k in ("oracle", "oracle_metrics",
                                                 "latency_fold")})
     launches["seen_update"] = cov_launches["seen_update"]
     rows = []
@@ -1171,14 +1285,66 @@ def main() -> int:
         })
     emit({"kernels": rows})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip() or "nvidia-smi: not available", flush=True)
+    print(_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() or "nvidia-smi: not available"
+
+
+def _knob_rows(b: int, dev):
+    """[B] knob rows: four storm profiles in turn, the quorum and the
+    compaction rule varied across lanes."""
+    import torch
+
+    from madraft_tpu_torch.tpusim import config
+
+    profiles = ("storm", "gray_storm", "limp", "fsync_stall")
+    kns = [config.storm_profiles()[profiles[i % 4]][0].knobs()
+           for i in range(b)]
+    kn = config.Knobs(*(torch.stack(xs) for xs in zip(*kns)))
+    lane = torch.arange(b)
+    kn = kn._replace(
+        majority=torch.tensor([3, 2, 3, 4], dtype=torch.int32)[lane % 4],
+        compact_at_commit=lane % 2 == 0)
+    return kn.to(dev)
+
+
+def _k6_vs_plain(cfg, s, keys, kn, ticks: int, chunk: int, errs: dict,
+                 label: str, words=None):
+    """K6 against its plain version from state ``s`` over ``ticks`` ticks in
+    chunks of ``chunk`` (the draw words of each chunk as the engine draws
+    them, or ``words`` for one chunk): every leaf bit-equal after every
+    chunk. Returns the final state."""
+    from madraft_tpu_torch.kernels import threefry as K1
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import prng, state, step
+
+    total = step._block_total(cfg.n_nodes)
+    done = 0
+    while done < ticks:
+        m = min(chunk, ticks - done)
+        w = words if words is not None else K1.tick_blocks(
+            keys, s.tick + 1, m, total, prng.partitionable())
+        got = K6.tick_chunk(cfg, s, keys, kn, w)
+        want = K6.tick_chunk_plain(cfg, s, keys, kn, w)
+        done += m
+        for a, b in zip(got, want):
+            check(a.dtype == b.dtype, f"K6 leaf dtype {a.dtype} at {label}")
+            errs["tick_chunk"] = max(errs["tick_chunk"], max_abs_err(a, b))
+        check(errs["tick_chunk"] == 0,
+              f"K6 differs from its plain version at {label}: "
+              f"{state.first_divergence(done, state.state_to_numpy(want), state.state_to_numpy(got))}")
+        s = want
+    return s
 
 
 def oracle_args(st):
@@ -1419,17 +1585,19 @@ def _profile_harvest(s, keys, kn, ccfg=None) -> dict:
 
 
 def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
-                   after_tick=None) -> dict:
+                   after_tick=None, tick: str = "eager") -> dict:
     """Wall time per tick of ``cfg`` from state ``s``, the card's busy
     share over it, the kernels launched per tick, and the five kernels with
     the most device time, from torch.profiler, over one chunk of n_ticks
     ticks drawn as the engine draws them (``after_tick(state)`` after each,
-    as the coverage chunk runs K5). Kernel launches here go to the
-    counters' saved values afterwards, like the timing phase's."""
+    as the coverage chunk runs K5), or with ``tick="kernel"`` as one K6
+    launch. Kernel launches here go to the counters' saved values
+    afterwards, like the timing phase's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from madraft_tpu_torch.kernels import threefry as K1
+    from madraft_tpu_torch.kernels import tick as K6
     from madraft_tpu_torch.tpusim import prng, step
 
     counts = read_counts()
@@ -1439,7 +1607,9 @@ def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
         t0 = time.perf_counter()
         words = K1.tick_blocks(keys, s.tick + 1, n_ticks, total,
                                prng.partitionable())
-        for i in range(n_ticks):
+        if tick == "kernel":
+            s = K6.tick_chunk(cfg, s, keys, kn, words)
+        for i in range(n_ticks if tick == "eager" else 0):
             s = step.step_cluster(cfg, s, keys, kn, words=words[i])
             if after_tick is not None:
                 after_tick(s)

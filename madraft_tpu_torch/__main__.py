@@ -217,7 +217,7 @@ def cmd_fuzz(args) -> int:
     from madraft_tpu_torch.tpusim.engine import make_fuzz_fn, report, run_telemetry
 
     if args.mesh:
-        _usage_error("fuzz: --mesh is not ported yet (ROADMAP queue C)")
+        _usage_error("fuzz: --mesh is not ported yet (ROADMAP A6)")
     cfg = _sim_config(args)
     try:
         fn = make_fuzz_fn(cfg, args.clusters, args.ticks, device=_device(args))

@@ -18,7 +18,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage")
+SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (

@@ -20,6 +20,7 @@ import torch
 
 from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import pack as K3
+from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.kernels import threefry
 from madraft_tpu_torch.tpusim import coverage as _cov
 from madraft_tpu_torch.tpusim import metrics as _metrics
@@ -41,8 +42,9 @@ from madraft_tpu_torch.tpusim.state import (
 )
 from madraft_tpu_torch.tpusim.step import _block_total, step_cluster
 
-# Ticks whose draw words one tick_blocks launch makes ahead. A chunk holds
-# DRAW_CHUNK x B x _block_total(n) int64 words: 139 MB at 32 x 4096 x 133.
+# Ticks whose draw words one tick_blocks launch makes ahead, and that one
+# K6 launch runs (tick_route). A chunk holds DRAW_CHUNK x B x
+# _block_total(n) int64 words: 139 MB at 32 x 4096 x 133.
 DRAW_CHUNK = 32
 
 
@@ -122,16 +124,36 @@ def report(final: ClusterState) -> FuzzReport:
     )
 
 
+def tick_route(cfg: SimConfig, device: torch.device, after_tick=None,
+               tick: str = "kernel") -> str:
+    """How ``_advance`` runs a chunk: ``"kernel"``, one K6 launch, on a
+    CUDA device with the metrics plane off and no per-tick hook; else
+    ``"eager"``, ``step_cluster`` once a tick. ``tick="eager"`` asks for
+    the per-tick loop everywhere."""
+    if tick not in ("kernel", "eager"):
+        raise ValueError(f"tick must be 'kernel' or 'eager', got {tick!r}")
+    if (tick == "kernel" and device.type == "cuda" and not cfg.metrics
+            and after_tick is None):
+        return "kernel"
+    return "eager"
+
+
 def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-             kn: Knobs, n_ticks: int, after_tick=None) -> ClusterState:
+             kn: Knobs, n_ticks: int, after_tick=None,
+             tick: str = "kernel") -> ClusterState:
     """n_ticks ticks of a wide batch; the draw words come a chunk of
-    DRAW_CHUNK ticks at a time, from each cluster's own tick on.
-    ``after_tick(state)``, when given, sees each tick's result."""
+    DRAW_CHUNK ticks at a time, from each cluster's own tick on. The chunk
+    runs as ``tick_route`` says: one K6 launch, or the eager tick once a
+    tick; ``after_tick(state)``, when given, sees each tick's result."""
     total = _block_total(cfg.n_nodes)
+    route = tick_route(cfg, state.tick.device, after_tick, tick)
     for done in range(0, n_ticks, DRAW_CHUNK):
         m = min(DRAW_CHUNK, n_ticks - done)
         words = threefry.tick_blocks(keys, state.tick + 1, m, total,
                                      prng.partitionable())
+        if route == "kernel":
+            state = K6.tick_chunk(cfg, state, keys, kn, words)
+            continue
         for i in range(m):
             state = step_cluster(cfg, state, keys, kn, words=words[i])
             if after_tick is not None:

@@ -18,6 +18,7 @@ from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels import oracle as K2
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry as K1
+from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.tpusim import (
     config,
     coverage,
@@ -154,11 +155,14 @@ def test_oracle_kernel_flags_planted_violations(dev):
 def test_fuzz_on_the_card_equals_the_cpu(dev):
     cfg = config.storm_profiles()["durability"][0].replace(bug="ack_before_fsync")
     with prng.layout(True):
-        before = (K1.tick_blocks.launches, K2.oracle.launches)
+        before = (K1.tick_blocks.launches, K6.tick_chunk.launches,
+                  K2.oracle.launches)
         gpu = engine.fuzz(cfg, 5, 32, 120, device=dev)
         chunks = -(-120 // engine.DRAW_CHUNK)
+        # one draw and one K6 launch a chunk; the oracle runs inside K6
         assert (K1.tick_blocks.launches - before[0],
-                K2.oracle.launches - before[1]) == (chunks, 120)
+                K6.tick_chunk.launches - before[1],
+                K2.oracle.launches - before[2]) == (chunks, chunks, 0)
         cpu = engine.fuzz(cfg, 5, 32, 120, device="cpu")
     for f in ("violations", "first_violation_tick", "first_leader_tick",
               "committed", "msg_count", "snap_installs"):
@@ -458,3 +462,73 @@ def test_sweep_on_the_card_equals_the_cpu(dev):
         for f in ("violations", "first_violation_tick", "first_leader_tick",
                   "committed", "msg_count", "snap_installs"):
             assert (getattr(rep, f) == getattr(want, f)).all(), f
+
+
+def _k6_start(cfg, b, seed, dev, kn=None, mixed=False):
+    """A batch at tick 0, or with two lanes in three 45 ticks on (lanes at
+    their own ticks, as the pool's after a harvest); built on the CPU."""
+    keys = engine.cluster_keys(seed, b, "cpu")
+    kn = cfg.knobs() if kn is None else kn
+    s = state.init_cluster(cfg, keys, kn)
+    if mixed:
+        later = engine._advance(cfg, s, keys, kn, 45)
+        sel = torch.arange(b) % 3 != 0
+        s = state.ClusterState(*(
+            torch.where(sel.view(-1, *(1,) * (x.dim() - 1)), y, x)
+            if x.numel() else x for x, y in zip(s, later)))
+    return s.__class__(*(x.to(dev) for x in s)), keys.to(dev), kn.to(dev)
+
+
+def _k6_rows(b):
+    """[B] knob rows: four storm profiles in turn, the quorum varied."""
+    profiles = ("storm", "gray_storm", "limp", "fsync_stall")
+    kns = [config.storm_profiles()[profiles[i % 4]][0].knobs()
+           for i in range(b)]
+    kn = config.Knobs(*(torch.stack(xs) for xs in zip(*kns)))
+    return kn._replace(majority=torch.tensor([3, 2, 3, 4],
+                                             dtype=torch.int32).repeat(b // 4))
+
+
+@pytest.mark.parametrize("case", [
+    "n3", "n5", "n7", "n5_rows_ragged", "n5_mixed", "n7_grant_any_vote",
+    "n5_no_truncate", "n5_majority2"])
+def test_tick_kernel_equals_plain_every_chunk(dev, case):
+    storm = config.storm_profiles()["storm"][0]
+    n = int(case[1])
+    cfg = storm.replace(n_nodes=n)
+    if case.endswith(("grant_any_vote", "no_truncate")):
+        cfg = cfg.replace(bug=case.split("_", 1)[1])
+    if case.endswith("majority2"):
+        cfg = cfg.replace(majority_override=2)
+    b = 128
+    kn = _k6_rows(b) if "rows" in case else None
+    s, keys, kn = _k6_start(cfg, b, 7, dev, kn, mixed="mixed" in case)
+    chunk = 7 if "ragged" in case else 32
+    total = step._block_total(n)
+    done = 0
+    while done < 160:
+        m = min(chunk, 160 - done)
+        words = K1.tick_blocks(keys, s.tick + 1, m, total, True)
+        before = K6.tick_chunk.launches
+        got = K6.tick_chunk(cfg, s, keys, kn, words)
+        assert K6.tick_chunk.launches == before + 1
+        want = K6.tick_chunk_plain(cfg, s, keys, kn, words)
+        done += m
+        d = state.first_divergence(done, state.state_to_numpy(want),
+                                   state.state_to_numpy(got))
+        assert d is None, d
+        s = want
+    assert int(s.msg_count.sum()) > 0
+
+
+def test_tick_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.storm_profiles()["storm"][0]
+    s, keys, kn = _k6_start(cfg, 8, 1, dev)
+    words = K1.tick_blocks(keys, s.tick + 1, 2, step._block_total(5), True)
+    with pytest.raises(ValueError, match="metrics plane"):
+        K6.tick_chunk(cfg.replace(metrics=True), s, keys, kn, words)
+    with pytest.raises(ValueError, match="words are"):
+        K6.tick_chunk(cfg, s, keys, kn, words[:, :4])
+    with pytest.raises(ValueError, match="words are"):
+        K6.tick_chunk(cfg, s, keys, kn, words.cpu())
+

@@ -4,28 +4,35 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Builds the CUDA kernels from ``madraft_tpu_torch/csrc`` (one ``nvcc`` per
-source, started together), holds every kernel against its plain PyTorch
-version (bit-equal; K6, the tick, on every leaf after every chunk at n =
-3, 5, 7 under every planted bug, with [B] knob rows, ragged chunks and a
-pool state at mixed lane ticks), reproduces the golden fuzz and pool legs
-and the JAX fixture legs on the card, drives the main paths through the
-CLI and checks that each went through its kernels: the fuzz flagship
-(``fuzz --storm --clusters 4096 --ticks 1024``, twice) and the pool
-flagship (``pool --storm --clusters 4096 --ticks 512 --budget-ticks
-1024``, twice), both one K6 launch a chunk of 32 ticks, each again with
-``--metrics`` at half the depth (the eager tick: the oracle's metrics
-instance and the latency fold K4), the coverage pool flagship (the pool
-flagship with ``--coverage``, twice: the eager tick, the fingerprint and
-seen-set kernel K5 every tick, the biased refill) and the sweep flagships
-(``sweep --storm`` at 4096 clusters x 1024 ticks on the CLI's default
-12-cell grid, the per-cluster dispatch, and on an 8-cell grid, the
-uniform dispatch, again forced per-cluster), replays pool hits and mutated
-coverage rows through ``replay``, runs the fuzz flagship through the eager
-tick and through K6 in turns, runs the nine raft-layer game-day gates with
-metrics on, then times each kernel beside its plain version and its bound:
-``ms`` is the kernel's own device time per launch (torch.profiler, matched
-by the CUDA function's name), ``call_ms`` the wrapper's time per call as
-the host issues it back to back (CUDA events).
+source, and one for K6's profile build, started together), holds every
+kernel against its plain PyTorch version (bit-equal; K6, the tick with its
+draws, on every leaf after every chunk at n = 3, 5, 7 under every planted
+bug, with [B] knob rows, ragged chunks, a pool state at mixed lane ticks,
+every template instance and the runtime one under both threefry layouts,
+and ticks across the int32 and u32 wraps), reproduces the golden fuzz and
+pool legs and the JAX fixture legs on the card, drives the main paths
+through the CLI and checks that each went through its kernels: the fuzz
+flagship (``fuzz --storm --clusters 4096 --ticks 1024``, twice) and the
+pool flagship (``pool --storm --clusters 4096 --ticks 512 --budget-ticks
+1024``, twice), both K6 launches of up to 256 ticks and no draw launch,
+each again with ``--metrics`` at half the depth (the eager tick: K1's
+draw chunks, the oracle's metrics instance and the latency fold K4), the
+coverage pool flagship (the pool flagship with ``--coverage``, twice: the
+eager tick, the fingerprint and seen-set kernel K5 every tick, the biased
+refill) and the sweep flagships (``sweep --storm`` at 4096 clusters x 1024
+ticks on the CLI's default 12-cell grid, the per-cluster dispatch, and on
+an 8-cell grid, the uniform dispatch, again forced per-cluster), replays
+pool hits and mutated coverage rows through ``replay``, runs the fuzz
+flagship through the eager tick and through K6 in turns, runs the nine
+raft-layer game-day gates with metrics on, then times each kernel beside
+its plain version and its bound: ``ms`` is the kernel's own device time
+per launch (torch.profiler, matched by the CUDA function's name),
+``call_ms`` the wrapper's time per call as the host issues it back to
+back (CUDA events); ``share`` is the bound over ``ms``, the bound the
+larger of the bytes over the HBM rate and the 32-bit operations over the
+card's integer rate (phase ``card``). K6's clock64() split by phase group
+(``k6_phases``, its profile build) and its time as the warps an SM grow
+(``k6_scaling``) follow; ``k6_only()`` runs just those two.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -70,8 +77,10 @@ SWEEP_UNIFORM_FLAGSHIP = SWEEP_FLAGSHIP + [
     "--loss", "0,0.1", "--crash", "0,0.01", "--repartition", "0,0.02"]
 # mutated coverage rows replayed through the CLI
 REPLAY_MUTATED = 3
-# ticks of each K6-vs-plain case (phase tick_chunk)
+# ticks of each K6-vs-plain case (phase tick_chunk), and of each case that
+# holds a template instance under one threefry layout
 K6_TICKS = 256
+K6_SHAPE_TICKS = 128
 # the eager runs of the fuzz flagship's eager-vs-K6 A/B, cut to hold the
 # script's time (the eager tick is host-bound, its rate flat in depth)
 AB_EAGER_TICKS = 256
@@ -87,14 +96,21 @@ REPLAY_POOL = ["pool", "--storm", "--majority-override", "2", "--clusters",
 WALL = ("wall_s", "steps_per_sec", "effective_steps_per_sec",
         "violations_per_s", "compile_s", "dispatch_gap_s", "device_wait_s",
         "host_overlap_s")
-# H100 SXM peaks (published datasheet figures): HBM bytes/s, and the
-# non-tensor-core 32-bit rate (67 TFLOP/s float32), used here for the
-# kernels' 32-bit integer operations
+# H100 SXM peak HBM rate (published datasheet figure), bytes/s
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-# 32-bit operations of one threefry2x32 hash: 2 initial key adds, 20 rounds
-# of (add, shl, shr, or, xor), 5 key injections of 3 adds, 2 xors for ks[2]
-OPS_PER_HASH = 2 + 20 * 5 + 5 * 3 + 2
+# 32-bit integer lanes of an SM (Hopper: 16 in each of 4 sub-partitions);
+# the kernels' integer bound is INT_LANES_PER_SM x SMs x the SM clock
+# (nvidia-smi clocks.max.sm), 16.7 T operations/s at 132 x 1.98 GHz
+INT_LANES_PER_SM = 64
+# Integer ALU instructions of one threefry2x32 hash as ptxas issues it
+# for sm_90a (cuobjdump -sass of threefry.cu's tick_blocks_kernel, the
+# partitionable hash: 78 instructions): 20 SHF.L.W (a rotation is one
+# funnel shift) and 21 LOP3 (20 xors and the key schedule's ks[2]) on the
+# ALU pipe. The other 36 are adds (31 IMAD, which threefry.cuh's mad_one
+# puts on the FMA pipe beside it, and 5 VIADD for ks + round) and are left
+# out, so the bound stays a lower one (K1 runs faster than all 78 at the
+# ALU rate would allow); the partitionable word's y0 ^ y1 is counted apart
+OPS_PER_HASH = 20 + 21
 
 
 T0 = time.perf_counter()
@@ -289,10 +305,9 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    per_source = _build.build_all()
+    per_source = _build.build_all(_build.SOURCES + tuple(_build.VARIANTS))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}})
-
     # ---- 2. K1 against its plain version, both layouts
     g = torch.Generator().manual_seed(2026)
     keys = torch.randint(0, 2**32, (4096, 2), generator=g, dtype=torch.int64)
@@ -456,23 +471,52 @@ def main() -> int:
     emit({"phase": "k3_vs_plain", "states": states_checked, "clusters": 256,
           "max_abs_err": max(errs["pack_state"], errs["unpack_state"])})
 
-    # ---- 3e. K6 against its plain version (the eager tick looped over the
-    # chunk), every leaf after every chunk: n = 3, 5, 7 under every planted
-    # bug (--storm, 0-d knobs, chunks of 32), [B] knob rows in ragged
-    # chunks of 7, a pool state at mixed per-lane ticks and keys, a broken
-    # quorum that violates; the flagship's shape is held in phase 7
+    # ---- 3e. K6 against its plain version (its words drawn, the eager
+    # tick looped over the chunk), every leaf after every chunk: n = 3, 5,
+    # 7 under every planted bug (--storm, 0-d knobs, chunks of 32), [B]
+    # knob rows in ragged chunks of 7, a pool state at mixed per-lane ticks
+    # and keys, a broken quorum that violates (the partitionable layout),
+    # then every template instance and the runtime one, each under both
+    # threefry layouts, and lanes across the int32 and u32 tick wraps; the
+    # flagship's shape is held in phase 7
+    cap16 = dict(log_cap=16, compact_every=4, uncommitted_cap=4)
     cases = [(f"n{n_nodes}:{bug or 'clean'}",
-              storm.replace(n_nodes=n_nodes, bug=bug), 128, 32, None, False)
+              storm.replace(n_nodes=n_nodes, bug=bug), 128, 32, None, False,
+              True, K6_TICKS)
              for n_nodes in (3, 5, 7) for bug in config.RAFT_BUGS]
-    cases += [("n5:knob_rows:chunk7", storm, 256, 7, "rows", False),
-              ("n5:pool_mixed_ticks", storm, 256, 32, None, True),
+    cases += [("n5:knob_rows:chunk7", storm, 256, 7, "rows", False, True,
+               K6_TICKS),
+              ("n5:pool_mixed_ticks", storm, 256, 32, None, True, True,
+               K6_TICKS),
               ("n5:majority2", storm.replace(majority_override=2), 256, 32,
-               None, False)]
+               None, False, True, K6_TICKS)]
+    shapes = [(f"n{n_nodes}:cap{cap}", storm.replace(
+        n_nodes=n_nodes, **(cap16 if cap == 16 else {})))
+        for n_nodes, cap in K6.SHAPES]
+    # the runtime instance: a shape with none, and the flagship's shape
+    # with one more entry a message than the instances take
+    shapes += [("n4:cap32:runtime", storm.replace(
+        n_nodes=4, log_cap=32, compact_every=8)),
+        (f"n5:cap64:ae{K6.SHAPE_AE + 1}:runtime",
+         storm.replace(ae_max=K6.SHAPE_AE + 1))]
+    cases += [(f"{label}:{'partitionable' if flag else 'legacy'}", cfg, 128,
+               32, None, False, flag, K6_SHAPE_TICKS)
+              for label, cfg in shapes for flag in (True, False)]
+    rolling = config.storm_profiles()["rolling_wave"][0]
+    cases += [("n5:tick_wraps", storm, 128, 32, "wrap", False, True,
+               K6_SHAPE_TICKS),
+              ("n5:rolling_wave", rolling, 128, 32, None, False, True,
+               K6_SHAPE_TICKS),
+              ("n5:rolling_wave:tick_wraps", rolling, 128, 32, "wrap", False,
+               True, K6_SHAPE_TICKS),
+              ("n5:127_lanes", storm, 127, 32, None, False, True,
+               K6_SHAPE_TICKS)]
     k6_cases = {}
-    with prng.layout(True):
-        for label, cfg, b_, chunk_, rows_, mixed in cases:
+    instances = set()
+    for label, cfg, b_, chunk_, rows_, mixed, flag, ticks_ in cases:
+        with prng.layout(flag):
             ck = engine.cluster_keys(7, b_, dev)
-            kn = _knob_rows(b_, dev) if rows_ else cfg.knobs(dev)
+            kn = _knob_rows(b_, dev) if rows_ == "rows" else cfg.knobs(dev)
             s6 = state.init_cluster(cfg, ck, kn)
             if mixed:  # two lanes in three 90 ticks on, under other keys
                 ck2 = engine.cluster_keys(7, b_, dev, id0=b_)
@@ -483,13 +527,21 @@ def main() -> int:
                     torch.where(sel.view(-1, *(1,) * (x.dim() - 1)), y, x)
                     if x.numel() else x for x, y in zip(s6, later)))
                 ck = torch.where(sel[:, None], ck2, ck)
-            s6 = _k6_vs_plain(cfg, s6, ck, kn, K6_TICKS, chunk_, errs, label)
+            if rows_ == "wrap":
+                s6 = s6._replace(tick=torch.tensor(
+                    [(2**31 - 10, -20, 1000)[i % 3] for i in range(b_)],
+                    dtype=torch.int32, device=dev))
+            s6 = _k6_vs_plain(cfg, s6, ck, kn, ticks_, chunk_, errs, label)
+            instances.add(K6.instance(cfg))
             k6_cases[label] = [int((s6.violations != 0).sum()),
                                int(s6.shadow_len.sum()),
                                int(s6.snap_install_count.sum())]
     check(k6_cases["n5:majority2"][0] > 0,
           f"the broken quorum did not violate: {k6_cases['n5:majority2']}")
+    check(instances == set(range(len(K6.SHAPES) + 1)),
+          f"the cases ran instances {sorted(instances)}")
     emit({"phase": "tick_chunk", "ticks": K6_TICKS,
+          "shape_ticks": K6_SHAPE_TICKS, "instances": sorted(instances),
           "cases": {k: {"violating": v[0], "committed": v[1], "installs": v[2]}
                     for k, v in k6_cases.items()},
           "max_abs_err": errs["tick_chunk"]})
@@ -556,9 +608,10 @@ def main() -> int:
     set_counts()
     prng.set_partitionable(True)
     final_off = KeepFirst(K6.tick_chunk, _non_metric_leaves,
-                          at=METRICS_TICKS // engine.DRAW_CHUNK - 1,
+                          at=METRICS_TICKS // engine.KERNEL_CHUNK - 1,
                           result=True)
-    engine.K6 = types.SimpleNamespace(tick_chunk=final_off)
+    engine.K6 = types.SimpleNamespace(tick_chunk=final_off,
+                                      knob_table=K6.knob_table)
     try:
         t0 = time.perf_counter()
         rc, out = run_cli(FLAGSHIP)
@@ -567,17 +620,18 @@ def main() -> int:
     finally:
         engine.K6 = K6
     launches = read_counts()
-    chunks = -(-_flag(FLAGSHIP, "--ticks") // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
+    chunks = -(-_flag(FLAGSHIP, "--ticks") // engine.KERNEL_CHUNK) * FLAGSHIP_RUNS
     check(rc == 0 and out["violating"] == 0, f"flagship rc {rc}: {out}")
     check(out.get("deterministic") is True, "flagship double run differs")
     check(out["first_leader_tick_mean"] > 0 and out["committed_mean"] > 0,
           f"flagship made no progress: {out}")
-    check(launches["threefry_tick_blocks"] == launches["tick_chunk"] == chunks
-          and launches["oracle"] == 0 and launches["threefry_hash_pairs"] > 0
+    check(launches["tick_chunk"] == chunks
+          and launches["threefry_tick_blocks"] == launches["oracle"] == 0
+          and launches["threefry_hash_pairs"] > 0
           and launches["oracle_metrics"] == launches["latency_fold"] == 0,
-          f"flagship launches {launches}, want {chunks} tick_blocks and "
-          f"{chunks} tick_chunk (one each per chunk of {engine.DRAW_CHUNK} "
-          "ticks), no oracle and no metrics launch")
+          f"flagship launches {launches}, want {chunks} tick_chunk (one a "
+          f"chunk of {engine.KERNEL_CHUNK} ticks), no tick_blocks, no "
+          "oracle and no metrics launch")
     tele = out["telemetry"]
     emit({"phase": "flagship", "argv": FLAGSHIP, "rc": rc,
           "cluster_steps_per_s": tele["steps_per_sec"],
@@ -661,7 +715,8 @@ def main() -> int:
     chunk_ticks = engine.default_chunk_ticks(horizon)
     gens = budget // chunk_ticks  # chunks per run
     chunk_draws = 2 * gens * -(-chunk_ticks // engine.DRAW_CHUNK)
-    want = {"threefry_tick_blocks": chunk_draws, "tick_chunk": chunk_draws,
+    want = {"threefry_tick_blocks": 0,
+            "tick_chunk": 2 * gens * -(-chunk_ticks // engine.KERNEL_CHUNK),
             "oracle": 0, "pack_state": 2 * gens,
             "unpack_state": 2 * (gens - 1)}
     # a clean run retires every lane at each horizon it reaches
@@ -679,7 +734,7 @@ def main() -> int:
     check(all(pool_launches[k] == v for k, v in want.items())
           and pool_launches["threefry_hash_pairs"] > 0,
           f"pool flagship launches {pool_launches}, want {want} (a K6 "
-          "launch per draw chunk, a pack per harvest, an unpack per chunk "
+          "launch per pool chunk, a pack per harvest, an unpack per chunk "
           "but the first)")
     emit({"phase": "pool_flagship", "argv": POOL_FLAGSHIP, "rc": rc1,
           "retired": out1["retired"], "launches": pool_launches,
@@ -817,7 +872,8 @@ def main() -> int:
           and cdict["generations"] == gens
           and sum(cdict["new_fp_per_gen"]) == cdict["seen_fingerprints"],
           f"coverage pool flagship's coverage: {cdict}")
-    cwant = dict(want, seen_update=2 * budget, oracle=2 * budget, tick_chunk=0)
+    cwant = dict(want, seen_update=2 * budget, oracle=2 * budget, tick_chunk=0,
+                 threefry_tick_blocks=chunk_draws)
     check(all(cov_launches[k] == v for k, v in cwant.items()),
           f"coverage pool flagship launches {cov_launches}, want {cwant} "
           "(the eager tick: one K2 and one K5 launch a tick)")
@@ -877,15 +933,15 @@ def main() -> int:
         sl = read_counts()
         cells = len(out["cells"])
         runs_ = cells if out["dispatch"] == "uniform" else 1
-        chunks_ = runs_ * -(-_flag(argv, "--ticks") // engine.DRAW_CHUNK)
+        chunks_ = runs_ * -(-_flag(argv, "--ticks") // engine.KERNEL_CHUNK)
         check(rc == 0 and out["violating"] == 0
               and out["clusters_run"]
               == _flag(argv, "--clusters") // cells * cells
               and out["dispatch"] == ("per_cluster" if force or cells > 8
                                       else "uniform"),
               f"sweep {label}: rc {rc}, {out['dispatch']}, {out['violating']}")
-        check(sl["oracle"] == 0 and sl["tick_chunk"] == chunks_
-              and sl["threefry_tick_blocks"] == chunks_,
+        check(sl["oracle"] == sl["threefry_tick_blocks"] == 0
+              and sl["tick_chunk"] == chunks_,
               f"sweep {label} launches {sl}")
         check(all(c["live"] > 0 for c in out["cells"]), f"sweep {label}: "
               "a cell made no progress")
@@ -960,11 +1016,7 @@ def main() -> int:
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
     total = step._block_total(n_nodes)
-    fk = engine.cluster_keys(12345, b, dev)
-    fkn = _storm_cfg().knobs(dev)
-    fs = state.init_cluster(_storm_cfg(), fk, fkn)
-    for _ in range(200):
-        fs = step.step_cluster(_storm_cfg(), fs, fk, fkn)
+    fcfg, fs, fk, fkn = _flagship_state(dev, b)
     tt, chunk = fs.tick + 1, engine.DRAW_CHUNK
     hp_x = torch.arange(n_nodes, dtype=torch.int64, device=dev)
     hp_k, hp_z = fk, torch.zeros_like(hp_x)
@@ -973,19 +1025,24 @@ def main() -> int:
         errs["oracle"] = max(errs["oracle"], max_abs_err(a, bb))
     check(errs["oracle"] == 0, "oracle kernel differs at the flagship shape")
     k2_out = K2.oracle(*args2)
-    # K6 at the flagship's shape: one chunk from the storm state at tick 200
-    k6_words = K1.tick_blocks(fk, tt, chunk, total, True)
-    fs_out = _k6_vs_plain(_storm_cfg(), fs, fk, fkn, chunk, chunk, errs,
-                          "flagship shape", words=k6_words)
+    # K6 at the flagship's shape: one chunk from the storm state at tick
+    # 200, its template instance and (one more entry a message) the
+    # runtime one, both layouts
+    rcfg = fcfg.replace(ae_max=K6.SHAPE_AE + 1)
+    for flag in (True, False):
+        with prng.layout(flag):
+            for c in (fcfg, rcfg):
+                _k6_vs_plain(c, fs, fk, fkn, chunk, chunk, errs,
+                             f"flagship shape {flag} ae_max {c.ae_max}")
     emit({"phase": "tick_chunk_flagship_shape", "clusters": b,
           "from_tick": int(fs.tick[0]), "ticks": chunk,
+          "instances": [K6.instance(fcfg), K6.instance(rcfg)],
+          "layouts": ["partitionable", "legacy"],
           "max_abs_err": errs["tick_chunk"]})
     fs_bytes = nbytes(*fs[:state.METRIC_LEAF0])
-    del fs_out
     counts = read_counts()
     k2_rot = [args2] + [tuple(x.clone() for x in args2)
                         for _ in range(rotations(nbytes(*args2)) - 1)]
-    fcfg = _storm_cfg()
 
     # the metrics flagship's shape: a metrics-on state after 200 ticks, the
     # latency fold's inputs of its last tick kept as the tick gives them
@@ -1099,25 +1156,42 @@ def main() -> int:
         return coverage.seen_update_plain(ccfg5, *k5_rot[i % len(k5_rot)],
                                           None, k5_seen, k5_nf, k5_t + 1 + i)
 
-    def k6_call(i):
-        return K6.tick_chunk(fcfg, fs, fk, fkn, k6_words)
+    k6_table = K6.knob_table(fkn, b)
+    k6_m = engine.KERNEL_CHUNK  # ticks a launch, as the engine launches K6
+
+    def k6_call(m):
+        return lambda i: K6.tick_chunk(fcfg, fs, fk, fkn, m, k6_table)
+
+    # K6's bytes: the wide state read and written once, the keys and knob
+    # rows read once
+    k6_bytes = 2 * fs_bytes + nbytes(fk) + b * 28 * 4
+
+    def k6_ops(m):
+        """K6's counted operations for m ticks: per cluster and tick the
+        tick's total + 2 hashes and total xors. The raft logic around them
+        is left out of the bound (k6_raft_ops)."""
+        return b * m * ((2 + total) * OPS_PER_HASH + total)
+
+    def k6_raft_ops(m):
+        """An estimate of the raft logic's operations for m ticks, not
+        counted from the code: per cluster and tick n(n-1)/2 x cap x 8
+        (log matching) + n x cap x 15 (shadow walk, compaction, the
+        AppendEntries hint, as if each ran every tick) + 60 n^2 (delivery,
+        sends) + 40 n."""
+        return b * m * (n_nodes * (n_nodes - 1) // 2 * 64 * 8
+                        + n_nodes * 64 * 15 + 60 * n_nodes ** 2
+                        + 40 * n_nodes)
 
     # name: (device ms, call ms, plain ms, bytes, operations)
     timing = {
-        # one chunk: the wide state read and written once, the chunk's
-        # words read once, the knob rows; per cluster and tick about
-        # n(n-1)/2 x cap x 8 (log matching) + n x cap x 15 (shadow walk,
-        # compaction, the AppendEntries hint) + 60 n^2 (delivery, sends)
-        # + 40 n operations
+        # one launch of the engine's KERNEL_CHUNK ticks
         "tick_chunk": (
-            device_ms(k6_call, "tick_chunk_kernel", iters=20),
-            cuda_ms(k6_call, iters=20),
-            cuda_ms(lambda i: K6.tick_chunk_plain(fcfg, fs, fk, fkn, k6_words),
-                    iters=2, warmup=1),
-            2 * fs_bytes + nbytes(k6_words) + b * 28 * 4,
-            b * chunk * (n_nodes * (n_nodes - 1) // 2 * 64 * 8
-                         + n_nodes * 64 * 15 + 60 * n_nodes ** 2
-                         + 40 * n_nodes)),
+            device_ms(k6_call(k6_m), "tick_chunk_kernel", iters=5,
+                      warmup=1),
+            cuda_ms(k6_call(k6_m), iters=5, warmup=1),
+            cuda_ms(lambda i: K6.tick_chunk_plain(fcfg, fs, fk, fkn, k6_m),
+                    iters=1, warmup=0),
+            k6_bytes, k6_ops(k6_m)),
         # one chunk: [chunk, b, total] int64 words, b * chunk rows of 2
         # key folds and total hashes (partitionable layout) each
         "threefry_tick_blocks": (
@@ -1188,7 +1262,22 @@ def main() -> int:
                     iters=20),
             nbytes(*fs) + nbytes(*fp), k3_ops),
     }
-    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot, k6_words
+    card = _card()
+
+    def k6_bounds(m):
+        """K6's bound for m ticks, and the bound if the raft estimate
+        counted."""
+        t_bytes, ops_s = k6_bytes / PEAK_BYTES_S, card["int32_ops_per_s"]
+        return {"bound_ms": max(t_bytes, k6_ops(m) / ops_s) * 1e3,
+                "bound_ms_with_raft_estimate": max(
+                    t_bytes, (k6_ops(m) + k6_raft_ops(m)) / ops_s) * 1e3}
+
+    # K6 a 32-tick chunk, PR 6's unit
+    k6_32 = {"ticks": chunk,
+             "ms": device_ms(k6_call(chunk), "tick_chunk_kernel", iters=20),
+             "call_ms": cuda_ms(k6_call(chunk), iters=20),
+             **k6_bounds(chunk)}
+    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot
     set_counts(counts)  # timing launches are not main-path launches
     emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
           "l2_cold_rotations": {"oracle": rotations(nbytes(*args2)),
@@ -1197,7 +1286,9 @@ def main() -> int:
                                 "seen_update": rotations(nbytes(*k5_node)),
                                 "pack_state": rotations(nbytes(*fs)),
                                 "unpack_state": rotations(nbytes(*fp))},
-          "shapes": {"tick_chunk": [chunk, b, fs_bytes // b],
+          "tick_chunk_32": k6_32,
+          "tick_chunk_launch": {"ticks": k6_m, **k6_bounds(k6_m)},
+          "shapes": {"tick_chunk": [k6_m, b, fs_bytes // b],
                      "tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
                      "oracle_logs": [b, n_nodes, 64],
                      "latency_fold": [b, 64, n_ph],
@@ -1206,6 +1297,8 @@ def main() -> int:
 
     # ---- 8. where a flagship tick's and a pool harvest's time goes
     # (torch.profiler), and the bytes behind B2-rest's bound
+    emit(_k6_phases(fcfg, fs, fk, fkn, chunk))
+    emit(_k6_scaling(fcfg, fs, fk, fkn, chunk))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_metrics"))
@@ -1241,6 +1334,7 @@ def main() -> int:
     emit(_profile_harvest(fs, fk, fkn))
     emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
 
+    emit(card)
     sources = {
         "tick_chunk": ("madraft_tpu_torch/csrc/tick.cu",
                        "madraft_tpu/tpusim/step.py:293"),
@@ -1262,18 +1356,18 @@ def main() -> int:
                          "madraft_tpu/tpusim/state.py:656"),
     }
     # each kernel's launches on the main path that runs it: the fuzz
-    # flagship for K1 and K6, the pool flagship for K3, the metrics
-    # flagship for K2 (with the metrics plane, the eager tick's oracle), its
+    # flagship for K6 and K1's key hashes, the pool flagship for K3, the
+    # metrics flagship (the eager tick) for K1's draw chunks, K2, its
     # metrics instance and K4, the coverage pool flagship for K5
     launches.update({k: pool_launches[k] for k in ("pack_state",
                                                    "unpack_state")})
-    launches.update({k: launches_m[k] for k in ("oracle", "oracle_metrics",
-                                                "latency_fold")})
+    launches.update({k: launches_m[k] for k in (
+        "threefry_tick_blocks", "oracle", "oracle_metrics", "latency_fold")})
     launches["seen_update"] = cov_launches["seen_update"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
-        t_ops = ops / PEAK_OPS_S * 1e3
+        t_ops = ops / card["int32_ops_per_s"] * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
@@ -1281,6 +1375,7 @@ def main() -> int:
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share": max(t_bytes, t_ops) / ms,
             "library_ms": None,
         })
     emit({"kernels": rows})
@@ -1290,6 +1385,160 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _flagship_state(dev, b: int = 4096, ticks: int = 200):
+    """The fuzz flagship's batch (seed 12345, --storm, n = 5, cap = 64)
+    after ``ticks`` eager ticks: (cfg, state, keys, knobs)."""
+    from madraft_tpu_torch.tpusim import engine, state, step
+
+    cfg = _storm_cfg()
+    keys = engine.cluster_keys(12345, b, dev)
+    kn = cfg.knobs(dev)
+    s = state.init_cluster(cfg, keys, kn)
+    for _ in range(ticks):
+        s = step.step_cluster(cfg, s, keys, kn)
+    return cfg, s, keys, kn
+
+
+def k6_only() -> int:
+    """K6's measurements alone, for comparing two trees in one call: the
+    build of K6 and its profile instance, then phases ``k6_phases`` and
+    ``k6_scaling`` at the flagship's shape and the card's clocks; no
+    result line. Run from the repository root:
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.k6_only())'
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from madraft_tpu_torch import _build
+
+    _build.build_all(("tick", "tick_profile"))
+    fcfg, fs, fk, fkn = _flagship_state(torch.device("cuda"))
+    emit(_k6_phases(fcfg, fs, fk, fkn, 32))
+    emit(_k6_scaling(fcfg, fs, fk, fkn, 32))
+    emit(_card())
+    print(_smi(), flush=True)
+    return 0
+
+
+def _k6_grid(cfg) -> dict:
+    """How K6 lays cfg's clusters out on the card (``tick_grid``):
+    clusters a warp, warps a block, clusters a block, shared bytes a
+    block."""
+    import ctypes
+
+    from madraft_tpu_torch.kernels import tick as K6
+
+    lib = K6._lib()
+    lib.tick_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.tick_grid.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check(lib.tick_grid(cfg.n_nodes, cfg.log_cap, cfg.ae_max, out) == 0,
+          "tick_grid refused the flagship's shape")
+    return {"clusters_a_warp": out[0], "warps_a_block": out[1],
+            "clusters_a_block": out[0] * out[1], "shared_bytes": out[2]}
+
+
+def _k6_load(grid: dict, b: int, sms: int) -> dict:
+    """What B clusters put on the card: blocks, the SMs that get one,
+    and the warps on each of those (a mean, the blocks spread
+    breadth-first)."""
+    blocks = -(-b // grid["clusters_a_block"])
+    busy = min(blocks, sms)
+    warps = -(-b // grid["clusters_a_warp"])
+    return {"clusters": b, "blocks": blocks, "busy_sms": busy,
+            "warps_per_busy_sm": warps / busy}
+
+
+def _k6_phases(cfg, s, keys, kn, m: int) -> dict:
+    """Where one K6 chunk's time goes: the profile instance's clock64()
+    cycles per phase group, a tick of a cluster (mean over the clusters),
+    at the whole batch and at one block an SM (a warp a scheduler, so
+    each warp's own chain with little issue contention), each run's state
+    held against the kernel's own."""
+    import torch
+
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import state
+
+    counts = read_counts()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = _k6_grid(cfg)
+    out = {"phase": "k6_phases", "ticks": m, "instance": K6.instance(cfg),
+           "grid": grid}
+    for label, b in (("batch", int(s.tick.shape[0])),
+                     ("one_block_an_sm", sms * grid["clusters_a_block"])):
+        sb = state.ClusterState(*(x[:b].contiguous() for x in s))
+        kb = keys[:b].contiguous()
+        got, prof = K6.tick_chunk_profiled(cfg, sb, kb, kn, m)
+        want = K6.tick_chunk(cfg, sb, kb, kn, m)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              "K6's profile instance differs from the kernel")
+        cyc = prof.to(torch.float64).sum(0) / b / m
+        per = {k: float(cyc[i]) for i, k in enumerate(K6.PHASES)}
+        tick_total = sum(v for k, v in per.items() if k != "stage")
+        out[label] = {**_k6_load(grid, b, sms),
+                      "cycles_per_cluster_tick": per,
+                      "tick_cycles": tick_total,
+                      "share_of_tick": {k: v / tick_total
+                                        for k, v in per.items()
+                                        if k != "stage"}}
+    set_counts(counts)
+    return out
+
+
+def _k6_scaling(cfg, s, keys, kn, m: int) -> dict:
+    """K6's device ms a chunk from the flagship's state as the load on
+    each SM grows: one warp on one SM, then one, two and three blocks on
+    every SM, then the whole batch. Flat in the warps an SM means each
+    warp's dependent chain sets the time (latency-bound), linear means
+    the issue slots do."""
+    import torch
+
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import state
+
+    counts = read_counts()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = _k6_grid(cfg)
+    whole = int(s.tick.shape[0])
+    points = []
+    for b in (grid["clusters_a_warp"],
+              *(min(sms * grid["clusters_a_block"] * k, whole)
+                for k in (1, 2, 3)), whole):
+        sb = state.ClusterState(*(x[:b].contiguous() for x in s))
+        kb = keys[:b].contiguous()
+        table = K6.knob_table(kn, b)
+        ms = device_ms(lambda i: K6.tick_chunk(cfg, sb, kb, kn, m, table),
+                       "tick_chunk_kernel", iters=10, warmup=2)
+        points.append({**_k6_load(grid, b, sms), "ms": ms,
+                       "us_per_tick": ms * 1e3 / m})
+    set_counts(counts)
+    return {"phase": "k6_scaling", "sms": sms, "ticks": m, "grid": grid,
+            "points": points,
+            "ms_ratio_batch_over_one_block_an_sm":
+                points[-1]["ms"] / points[1]["ms"]}
+
+
+def _card() -> dict:
+    """The card's name, power limit and top SM clock (nvidia-smi), and the
+    32-bit integer rate the bounds use: 64 lanes an SM a clock."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    name, limit, mhz = (x.strip() for x in smi.stdout.strip().split(","))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"phase": "card", "name": name, "power_limit_w": float(limit),
+            "clocks_max_sm_mhz": float(mhz), "sms": sms,
+            "int32_ops_per_s": INT_LANES_PER_SM * sms * float(mhz) * 1e6}
 
 
 def _smi() -> str:
@@ -1319,23 +1568,18 @@ def _knob_rows(b: int, dev):
 
 
 def _k6_vs_plain(cfg, s, keys, kn, ticks: int, chunk: int, errs: dict,
-                 label: str, words=None):
-    """K6 against its plain version from state ``s`` over ``ticks`` ticks in
-    chunks of ``chunk`` (the draw words of each chunk as the engine draws
-    them, or ``words`` for one chunk): every leaf bit-equal after every
-    chunk. Returns the final state."""
-    from madraft_tpu_torch.kernels import threefry as K1
+                 label: str):
+    """K6 against its plain version from state ``s`` over ``ticks`` ticks
+    in chunks of ``chunk``, under the current threefry layout: every leaf
+    bit-equal after every chunk. Returns the final state."""
     from madraft_tpu_torch.kernels import tick as K6
-    from madraft_tpu_torch.tpusim import prng, state, step
+    from madraft_tpu_torch.tpusim import state
 
-    total = step._block_total(cfg.n_nodes)
     done = 0
     while done < ticks:
         m = min(chunk, ticks - done)
-        w = words if words is not None else K1.tick_blocks(
-            keys, s.tick + 1, m, total, prng.partitionable())
-        got = K6.tick_chunk(cfg, s, keys, kn, w)
-        want = K6.tick_chunk_plain(cfg, s, keys, kn, w)
+        got = K6.tick_chunk(cfg, s, keys, kn, m)
+        want = K6.tick_chunk_plain(cfg, s, keys, kn, m)
         done += m
         for a, b in zip(got, want):
             check(a.dtype == b.dtype, f"K6 leaf dtype {a.dtype} at {label}")
@@ -1590,29 +1834,30 @@ def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
     share over it, the kernels launched per tick, and the five kernels with
     the most device time, from torch.profiler, over one chunk of n_ticks
     ticks drawn as the engine draws them (``after_tick(state)`` after each,
-    as the coverage chunk runs K5), or with ``tick="kernel"`` as one K6
-    launch. Kernel launches here go to the counters' saved values
-    afterwards, like the timing phase's."""
+    as the coverage chunk runs K5), or with ``tick="kernel"`` through the
+    engine's K6 route (one launch; the kernel draws the words). Kernel
+    launches here go to the counters' saved values afterwards, like the
+    timing phase's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from madraft_tpu_torch.kernels import threefry as K1
-    from madraft_tpu_torch.kernels import tick as K6
-    from madraft_tpu_torch.tpusim import prng, step
+    from madraft_tpu_torch.tpusim import engine, prng, step
 
     counts = read_counts()
     total = step._block_total(cfg.n_nodes)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        words = K1.tick_blocks(keys, s.tick + 1, n_ticks, total,
-                               prng.partitionable())
         if tick == "kernel":
-            s = K6.tick_chunk(cfg, s, keys, kn, words)
-        for i in range(n_ticks if tick == "eager" else 0):
-            s = step.step_cluster(cfg, s, keys, kn, words=words[i])
-            if after_tick is not None:
-                after_tick(s)
+            s = engine._advance(cfg, s, keys, kn, n_ticks, tick="kernel")
+        else:
+            words = K1.tick_blocks(keys, s.tick + 1, n_ticks, total,
+                                   prng.partitionable())
+            for i in range(n_ticks):
+                s = step.step_cluster(cfg, s, keys, kn, words=words[i])
+                if after_tick is not None:
+                    after_tick(s)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     set_counts(counts)

@@ -19,6 +19,10 @@ import time
 from pathlib import Path
 
 SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick")
+# builds of a source with extra flags: name -> (source, flags). The K6
+# profile instance (clock64() per phase group) is launched only by
+# chip_smoke.py
+VARIANTS = {"tick_profile": ("tick", ("-DMADRAFT_K6_PROFILE",))}
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -39,24 +43,33 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str) -> tuple:
+    return VARIANTS.get(name, (name, ()))
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    src, flags = _source(name)
+    h = hashlib.sha1((CSRC / f"{src}.cu").read_bytes())
+    h.update(" ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):  # any source may include one
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    src, flags = _source(name)
+    return [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out),
+            str(CSRC / f"{src}.cu")]
 
 
-def build_all() -> dict:
-    """Compile every kernel source that has no current build, one ``nvcc``
-    per source, all started together. Returns {name: seconds} for the
-    sources it compiled; raises with the compiler's output on a failure."""
+def build_all(names=SOURCES) -> dict:
+    """Compile each of ``names`` (a source or a variant) that has no
+    current build, one ``nvcc`` each, all started together. Returns
+    {name: seconds} for those it compiled; raises with the compiler's
+    output on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in SOURCES:
+    for name in names:
         out = _target(name)
         if out.exists():
             continue
@@ -84,7 +97,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         out = _target(name)
         if not out.exists():
-            build_all()
+            build_all(SOURCES if name in SOURCES else (name,))
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
     return lib

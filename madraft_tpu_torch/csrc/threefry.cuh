@@ -1,5 +1,7 @@
 // threefry2x32 (20 rounds) as device functions, shared by the kernels that
-// draw the simulator's random words (threefry.cu, and a fused tick later).
+// draw the simulator's random words (threefry.cu, and K6's tick in
+// tick.cuh, which the host tests also build with g++: the two intrinsics
+// have host twins).
 //
 // Bit-exact with JAX's threefry2x32 (jax/_src/prng.py). All arithmetic is
 // uint32, where wrap-around is defined; a rotation is one funnel shift.
@@ -19,15 +21,23 @@
 namespace madraft {
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+#ifdef __CUDA_ARCH__
   return __funnelshift_l(x, x, r);
+#else
+  return (x << r) | (x >> (32 - r));  // r is 6..29
+#endif
 }
 
 // a * one + c, as one multiply-add
 __device__ __forceinline__ uint32_t mad_one(uint32_t a, uint32_t one,
                                             uint32_t c) {
+#ifdef __CUDA_ARCH__
   uint32_t d;
   asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(one), "r"(c));
   return d;
+#else
+  return a * one + c;
+#endif
 }
 
 // Hashes the counter pair (x0, x1) in place under the key (k0, k1).

@@ -1,41 +1,55 @@
-// Kernel K6: a chunk of raft ticks for a batch of clusters, one launch.
+// Kernel K6: a chunk of raft ticks for a batch of clusters, one launch,
+// the tick's threefry words drawn inside it.
 //
 // Replaces the rest of the JAX reference's tick (B2-rest),
 // madraft_tpu/tpusim/step.py step_cluster lines 293-960 and 1082-1156:
 // faults, the five delivery passes, election win, timers, client
 // injection, heartbeat and replication, commit advance, compaction and
 // fsync; the oracle block (961-1081, kernel K2 on its own) runs inside it
-// as device code. It runs m ticks in a row for every cluster with the
-// metrics plane off. The port's twin is tpusim/step.py step_cluster; the
-// Python side is kernels/tick.py, which holds the plain version (that
-// step looped over the chunk), and the device code is tick.cuh.
+// as device code, and so does the tick's draw (_DrawBlock.__init__,
+// step.py:128, kernel K1's tick_blocks on its own). It runs m ticks in a
+// row for every cluster with the metrics plane off. The port's twin is
+// tpusim/step.py step_cluster; the Python side is kernels/tick.py, which
+// holds the plain version (the chunk's words drawn by
+// threefry.tick_blocks_plain, that step looped over the chunk), and the
+// device code is tick.cuh.
 //
 // Bound. Per chunk K6 reads the wide state once and writes it once (5477
-// B a lane each way at n = 5, cap = 64) and reads each tick's draw words
-// (133 int64 words, 1064 B, a tick a cluster); the knob rows add 112 B a
-// lane. At B = 4096 and m = 32 that is 4096 x (2 x 5477 + 112 + 32 x 1064)
-// = 184.8 MB a chunk, 55.2 us at 3.35 TB/s, so 1.72 us a tick. Its
-// integer work is about 11600 32-bit operations a cluster a tick at n = 5
-// (the oracle's pair scan, 10 pairs x 64 lanes x ~8; the shadow walk,
-// compaction and the AppendEntries hint, 5 x 64 x ~15; the deliveries and
-// sends, ~60 n^2): 4096 x 32 x 11620 = 1.52 G operations a chunk, 22.7 us
-// at 67 T/s. The bytes bound it: 55.2 us a chunk.
+// B a lane each way at n = 5, cap = 64), reads the cluster's key and knob
+// rows (128 B): at B = 4096 that is 45.4 MB, 13.5 us at 3.35 TB/s. Its
+// hashes take longer: each tick hashes total + 2 counter pairs (135 at n
+// = 5; 41 ALU-pipe instructions a hash as ptxas issues threefry2x32, the
+// adds going to the FMA pipe), 0.74 G operations a 32-tick chunk at B =
+// 4096: 44 us at 64 lanes x 132 SMs x 1.98 GHz. So the operations bound
+// it. The raft logic around them is not counted from the code and is
+// left out of the bound; chip_smoke.py prints an estimate of it beside.
 //
-// Design, for correctness first:
-// - one warp per cluster; the cluster's state and knob rows are staged
-//   into shared memory at the chunk's start and written back at its end,
-//   so device memory is touched at chunk edges and by the draw words;
-// - inside a tick lanes stride over nodes, the [n, n] pairs and the cap
-//   ring slots, with __syncwarp() between phases (tick.cuh); serial steps
-//   (the crash budget's running count, the first live leader, the commit
-//   rank) run on each node's lane over the n nodes;
-// - a block holds up to kWarps clusters, as many as fit in shared memory
-//   (dynamic, raised above 48 KB with cudaFuncSetAttribute);
-// - the node count, ring size and bug are runtime values: one kernel
-//   serves every n <= 16 and power-of-two cap <= 256.
-// What this design leaves: most lanes idle in the per-node phases (5 of
-// 32 at n = 5), the per-tick words read from device memory, and K1's
-// int64 words themselves (ROADMAP: threefry inside K6).
+// Design. A first version (a warp a cluster, its words read from a K1
+// buffer, runtime shapes, one lane walking each ring) was bound by each
+// warp's dependent chain; once steps 1-3 below shortened the chain, the
+// flagship's 31 warps an SM saturated the issue slots instead (clock64
+// splits and 1-31 warp scaling runs in chip_smoke.py, PERF.md §6):
+// - the cluster's state and knob rows are staged into shared memory at
+//   the chunk's start and written back at its end, so device memory is
+//   touched at chunk edges only;
+// - 1. the tick's words are hashed into shared memory at the tick's start
+//   by the cluster's lanes, from per-tick keys the lanes derive a tile's
+//   width of ticks at a time; no draw buffer exists;
+// - 2. the tick is a template on n, cap and an ae_max bound: the six
+//   shapes the repository runs (n = 3, 5, 7; cap 16, 64; ae_max <= 4)
+//   unroll their node, pair and slot loops, drop the divisions and find
+//   every shared slot at a compile-time offset; a runtime instance serves
+//   every other n <= 16, power-of-two cap <= 256;
+// - 3. the ring scans take all the cluster's lanes (a lane per ring slot,
+//   then a reduction), node values no other lane reads stay in registers
+//   for the chunk, per-node flags go by ballot, fewer phases need a sync;
+// - 4. the template instances pack two clusters a warp, 16 lanes each, so
+//   the node phases (n of the lanes busy) cost half the issue slots a
+//   cluster; the runtime instance keeps a warp a cluster;
+// - a block holds up to kWarps warps, as many as fit in shared memory
+//   (dynamic, raised above 48 KB with cudaFuncSetAttribute).
+// The profile build (-DMADRAFT_K6_PROFILE) adds tick_launch_profile, the
+// same kernel with clock64() sums per phase group.
 //
 // In place or not: the kernel stages a cluster fully before it writes, so
 // out may alias in; the wrapper writes one fresh allocation, because
@@ -49,29 +63,72 @@
 
 namespace {
 
-constexpr int kWarps = 4;              // clusters a block at most
+constexpr int kWarps = 4;              // warps a block at most
 constexpr int kMaxShared = 227 * 1024; // dynamic shared memory a block
 
-__global__ void __launch_bounds__(kWarps * k6::kWarp)
-    tick_chunk_kernel(const __grid_constant__ k6::Params p) {
+// Lanes a cluster takes: k6::kTile in the template instances (two
+// clusters a warp), the whole warp in the runtime one
+template <int N_>
+constexpr int kTileOf = N_ ? k6::kTile : k6::kWarp;
+// Blocks an SM should hold: 32 clusters (shared memory holds as many at
+// n = 5, cap = 64), which caps the registers a thread at 65536 / (32 x
+// kTileOf) per cluster lane
+template <int N_>
+constexpr int kBlocksPerSm = 32 * kTileOf<N_> / (kWarps * k6::kWarp);
+
+template <int N_, int CAP_, int AE_, bool kProf>
+__global__ void __launch_bounds__(kWarps * k6::kWarp, kBlocksPerSm<N_>)
+    tick_chunk_kernel(const __grid_constant__ k6::Params p, long long *prof) {
+  constexpr int kTile = kTileOf<N_>, kPerWarp = k6::kWarp / kTile;
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / k6::kWarp, lane = threadIdx.x % k6::kWarp;
-  const int b = blockIdx.x * (blockDim.x / k6::kWarp) + warp;
-  if (b >= p.b) return;  // the whole warp leaves together
-  k6::run_cluster(p, smem + static_cast<size_t>(warp) * p.cluster_bytes, b,
-                  lane);
+  const int first = (blockIdx.x * (blockDim.x / k6::kWarp) + warp) * kPerWarp;
+  if (first >= p.b) return;  // the whole warp leaves together
+  const int tile = lane / kTile, b = first + tile;
+  const bool active = b < p.b;  // else a copy of the last cluster, unwritten
+  k6::run_cluster<N_, CAP_, AE_, kTile, kProf>(
+      p, smem + static_cast<size_t>(warp * kPerWarp + tile) * p.cluster_bytes,
+      active ? b : p.b - 1, active, k6::Tile<kTile>{lane % kTile, tile * kTile},
+      prof);
 }
 
-}  // namespace
+// Warps a block: as many clusters' shared memory as fits, at most kWarps
+// warps (0 when not one warp's clusters fit); tile: lanes a cluster
+int warps_a_block(const k6::Params &p, int tile) {
+  const int warps = kMaxShared / (k6::kWarp / tile * p.cluster_bytes);
+  return warps < kWarps ? warps : kWarps;
+}
 
-// kinds: the wrapper's leaf table (shape class, + 8 for a bool leaf), held
-// against the one compiled here; draws: each draw's offset in a tick's
-// words. Returns cudaGetLastError() after the launch.
-extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
-                           const int *kinds, int n_leaves, const void *words,
-                           const void *kf, const void *ki, const int *draws,
-                           int n_draws, int b, int n, int cap, int ae_max,
-                           int m, int bug, void *stream) {
+template <int N_, int CAP_, int AE_, bool kProf>
+int go(const k6::Params &p, cudaStream_t stream, long long *prof) {
+  constexpr int kPerWarp = k6::kWarp / kTileOf<N_>;
+  const int warps = warps_a_block(p, kTileOf<N_>);
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int shared = warps * kPerWarp * p.cluster_bytes;
+  auto kernel = tick_chunk_kernel<N_, CAP_, AE_, kProf>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per_block = warps * kPerWarp;
+  const int blocks = (p.b + per_block - 1) / per_block;
+  kernel<<<blocks, warps * k6::kWarp, shared, stream>>>(p, prof);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int I, bool kProf>
+int go_shape(const k6::Params &p, cudaStream_t stream, long long *prof) {
+  return go<k6::shape_n(I), k6::shape_cap(I), k6::kShapeAe, kProf>(p, stream,
+                                                                  prof);
+}
+
+// Checks the arguments, fills the parameters and launches the instance
+// that takes the shape
+template <bool kProf>
+int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
+           int n_leaves, const void *keys, const void *kf, const void *ki,
+           const int *draws, int n_draws, int b, int n, int cap, int ae_max,
+           int m, int bug, int partitionable, void *stream,
+           long long *prof) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws || b < 1 || m < 1 ||
       n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
       (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe || bug < 0 ||
@@ -85,27 +142,85 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
     p.in[l] = reinterpret_cast<const void *>(ins[l]);
     p.out[l] = reinterpret_cast<void *>(outs[l]);
   }
-  for (int i = 0; i < k6::kDraws; ++i) p.draw[i] = draws[i];
-  p.words = static_cast<const long long *>(words);
+  const int inst = k6::instance(n, cap, ae_max);
+  if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, draws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
   p.ki = static_cast<const int *>(ki);
   p.b = b;
-  p.n = n;
-  p.cap = cap;
-  p.ae_max = ae_max;
   p.m = m;
   p.bug = bug;
-  p.total = 11 * n + 3 + 3 * n * n;  // step._block_total
-  p.cluster_bytes = k6::layout(n, cap, ae_max, p.off);
-  int warps = kMaxShared / p.cluster_bytes;
-  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  warps = warps < kWarps ? warps : kWarps;
-  const int shared = warps * p.cluster_bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      tick_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (b + warps - 1) / warps;
-  tick_chunk_kernel<<<blocks, warps * k6::kWarp, shared,
-                      static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.partitionable = partitionable;
+  p.one = 1u;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (inst) {
+    case 1: return go_shape<0, kProf>(p, st, prof);
+    case 2: return go_shape<1, kProf>(p, st, prof);
+    case 3: return go_shape<2, kProf>(p, st, prof);
+    case 4: return go_shape<3, kProf>(p, st, prof);
+    case 5: return go_shape<4, kProf>(p, st, prof);
+    case 6: return go_shape<5, kProf>(p, st, prof);
+    default: return go<0, 0, 0, kProf>(p, st, prof);
+  }
 }
+
+}  // namespace
+
+// kinds: the wrapper's leaf table (shape class, + 8 for a bool leaf), held
+// against the one compiled here; keys: [b, 2] int64-held u32 cluster keys;
+// draws: each draw's offset in a tick's words, held against tick.cuh's;
+// partitionable: the threefry counter layout. Returns cudaGetLastError()
+// after the launch.
+extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
+                           const int *kinds, int n_leaves, const void *keys,
+                           const void *kf, const void *ki, const int *draws,
+                           int n_draws, int b, int n, int cap, int ae_max,
+                           int m, int bug, int partitionable,
+                           void *stream) {
+  return launch<false>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
+                       n_draws, b, n, cap, ae_max, m, bug, partitionable,
+                       stream, nullptr);
+}
+
+// The instance tick_launch runs for a shape: 1 + its index in tick.cuh's
+// shape list, 0 for the runtime one
+extern "C" int tick_instance(int n, int cap, int ae_max) {
+  return k6::instance(n, cap, ae_max);
+}
+
+// How tick_launch lays a shape's clusters out: out[0] clusters a warp,
+// out[1] warps a block, out[2] dynamic shared bytes a block. Returns 0,
+// or cudaErrorInvalidValue for a shape it does not take
+extern "C" int tick_grid(int n, int cap, int ae_max, int *out) {
+  if (n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
+      (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int draws[k6::kDraws];
+  for (int i = 0; i < k6::kDraws; ++i) draws[i] = k6::draw_offset(i, n);
+  const int inst = k6::instance(n, cap, ae_max);
+  k6::Params p;
+  k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, draws);
+  const int tile = inst ? k6::kTile : k6::kWarp;
+  out[0] = k6::kWarp / tile;
+  out[1] = warps_a_block(p, tile);
+  out[2] = out[1] * out[0] * p.cluster_bytes;
+  return out[1] < 1 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+#ifdef MADRAFT_K6_PROFILE
+// The profile build's entry: tick_launch, and each cluster's clock64()
+// cycles per phase group summed over the chunk into prof [b, kPhases]
+extern "C" int tick_launch_profile(const int64_t *ins, const int64_t *outs,
+                                   const int *kinds, int n_leaves,
+                                   const void *keys, const void *kf,
+                                   const void *ki, const int *draws,
+                                   int n_draws, int b, int n, int cap,
+                                   int ae_max, int m, int bug,
+                                   int partitionable, void *stream,
+                                   void *prof) {
+  return launch<true>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
+                      n_draws, b, n, cap, ae_max, m, bug, partitionable,
+                      stream, static_cast<long long *>(prof));
+}
+#endif

@@ -1,25 +1,41 @@
-// Kernel K6's device code: raft ticks of one cluster, run by one warp on
-// the cluster's state staged in shared memory. The kernel and its launch
-// are in tick.cu, whose header note gives the region K6 replaces and its
-// bound; the Python side (kernels/tick.py) holds the tables this file's
-// enums mirror and the plain version, step.py step_cluster looped.
+// Kernel K6's device code: raft ticks of one cluster, run by a tile of a
+// warp on the cluster's state staged in shared memory, each tick's
+// threefry words drawn by the tile itself. The kernel and its launch are in tick.cu,
+// whose header note gives the region K6 replaces, its bound and its
+// design; the Python side (kernels/tick.py) holds the tables this file's
+// enums mirror and the plain version (the chunk's words drawn, step.py
+// step_cluster looped).
 //
 // The phases follow the port's step.py step_cluster line for line, in its
-// order; each comment names the lines. Lanes stride over nodes (lane d is
-// node d: n <= 16 < 32), over the (dst, src) pairs of the [n, n] mailboxes
-// and over the cap ring slots; __syncwarp() parts a phase's reads of
-// another lane's values from that lane's writes. A phase that reads a
-// node's values while that node's lane rewrites them (install-snapshot,
-// AppendEntries) computes first, syncs, then writes.
+// order; each comment names the lines. A cluster takes a tile of the warp
+// (Tile: 16 lanes in a template instance, the whole warp in the runtime
+// one). Tile lane d is node d (n <= 16); the lanes also stride over the
+// (dst, src) pairs of the [n, n] mailboxes and over the cap ring slots. A node's values that no other lane reads stay
+// in its lane's registers for the whole chunk (Own); per-node flags other
+// lanes need travel as warp ballots; __syncwarp() parts a phase's reads of
+// another lane's shared values from that lane's writes. A phase that reads
+// a node's values while that node's lane rewrites them (install-snapshot,
+// AppendEntries) computes first, syncs, then writes. The scans over a
+// node's ring (the AppendEntries hint, the compaction hash, log matching)
+// take the whole tile: each lane a few slots, then a tile reduction.
 //
-// Arithmetic as the reference's: int32 wraps where it wraps there (the
-// entry hash is computed in uint32 and reinterpreted), float32 uniforms
-// are exact, and the float products and sums go through __fmul_rn /
-// __fadd_rn so that nothing is contracted.
+// Shapes: the tick is a template on the node count N, the ring size CAP
+// and a bound AE on ae_max; 0 means the value comes at run time. tick.cu
+// instantiates the configurations the repository runs and one runtime
+// instance for the rest; a template instance lays its block out for AE
+// and finds each slot at a compile-time offset.
+//
+// Arithmetic as the reference's: int32 wraps where it wraps there (sums
+// that can wrap go through uint32, the entry hash too), floor division and
+// modulo where Python's apply, float32 uniforms are exact, and the float
+// products and sums go through __fmul_rn / __fadd_rn so that nothing is
+// contracted.
 
 #pragma once
 
 #include <cstdint>
+
+#include "threefry.cuh"
 
 namespace k6 {
 
@@ -66,14 +82,31 @@ constexpr int kLeafKind[kLeaves] = {
     kNN | kBool, kNN, kNN, kNN, kN, kN, kOne, kC, kC, kOne, kOne, kOne,
     kOne, kOne, kOne, kOne, kOne};
 
+// kLeafKind four bits a leaf, sixteen to a word: device code may read
+// scalar constexpr values only, so the compile-time layout reads these
+constexpr uint64_t pack_kinds(int w) {
+  uint64_t r = 0;
+  for (int i = 0; i < 16 && 16 * w + i < kLeaves; ++i)
+    r |= static_cast<uint64_t>(kLeafKind[16 * w + i]) << (4 * i);
+  return r;
+}
+constexpr uint64_t kKinds0 = pack_kinds(0), kKinds1 = pack_kinds(1);
+constexpr uint64_t kKinds2 = pack_kinds(2), kKinds3 = pack_kinds(3);
+__host__ __device__ constexpr int leaf_kind(int l) {
+  const uint64_t w = l < 16 ? kKinds0 : l < 32 ? kKinds1
+                     : l < 48 ? kKinds2 : kKinds3;
+  return static_cast<int>(w >> (4 * (l % 16)) & 15u);
+}
+
 // Scratch slots after the leaves in a cluster's shared block: the knob
-// rows, per-node values that cross lanes, a delivery's entries
+// rows, what a vote request carries, a delivery's entries, the tick's
+// draw words
 enum Scratch {
-  S_KF = kLeaves,  // float32 knobs (KNOB_F32 order)
-  S_KI,            // int32 knobs (KNOB_I32 order)
-  S_RESTART, S_CRASH_BERN, S_ROLL_DOWN, S_NEW_ALIVE, S_LEAD_PRE, S_FIRED,
-  S_LLT, S_LLI, S_LEAD, S_FIRE_HB, S_INJECT,
+  S_KF = kLeaves,    // float32 knobs (KNOB_F32 order)
+  S_KI,              // int32 knobs (KNOB_I32 order)
+  S_LLT, S_LLI,      // [n]
   S_ENT_T, S_ENT_V,  // [n, ae_max]
+  S_WORDS,           // [total] u32
   kSlots
 };
 
@@ -87,26 +120,82 @@ enum KnobI { KI_FSYNC_EVERY, KI_ETO_MIN, KI_ETO_MAX, KI_DELAY_MIN,
              KI_ETO_SKEW, KI_FSYNC_STALL_TICKS, KI_ROLLING_PERIOD,
              KI_ROLLING_DOWN, kKnobI };
 
-// The tick's draws in _DrawBlock._take order (kernels/tick.py DRAWS); the
-// offsets come from the wrapper
+// The tick's draws in _DrawBlock._take order (kernels/tick.py DRAWS)
 enum Draw { D_RESTART, D_CRASH, D_RST_TMR, D_U_PART, D_COLORS, D_ASYM_DST,
             D_ASYM_OFF, D_SNAP_TMR, D_GRANT_TMR, D_RV_RSP_NET, D_AE_TMR,
             D_AE_RSP_NET, D_ELECT_TMR, D_RV_REQ_NET, D_CLIENT, D_AE_REQ_NET,
             D_SN_REQ_NET, kDraws };
 
+// Words a draw takes at n nodes, and its offset in the tick's words (the
+// launch holds these against the wrapper's draw_offsets);
+// draw_offset(kDraws, n) is the tick's total, step._block_total
+__host__ __device__ constexpr int draw_size(int d, int n) {
+  return d == D_U_PART || d == D_ASYM_DST || d == D_ASYM_OFF ? 1
+         : d == D_RV_REQ_NET || d == D_AE_REQ_NET || d == D_SN_REQ_NET
+             ? n * n
+             : n;
+}
+__host__ __device__ constexpr int draw_offset(int d, int n) {
+  int o = 0;
+  for (int i = 0; i < d; ++i) o += draw_size(i, n);
+  return o;
+}
+
+// The template instances tick.cu compiles: (N, CAP) = (3 | 5 | 7, 16 |
+// 64), each for ae_max <= kShapeAe; instance 0 takes its shape at run time
+constexpr int kShapes = 6;
+constexpr int kShapeAe = 4;
+__host__ __device__ constexpr int shape_n(int i) { return 3 + 2 * (i / 2); }
+__host__ __device__ constexpr int shape_cap(int i) {
+  return i % 2 ? 64 : 16;
+}
+// The instance that runs (n, cap, ae_max): 1 + its index, or 0
+__host__ __device__ constexpr int instance(int n, int cap, int ae_max) {
+  for (int i = 0; i < kShapes; ++i)
+    if (n == shape_n(i) && cap == shape_cap(i) && ae_max <= kShapeAe)
+      return 1 + i;
+  return 0;
+}
+
+// The profile instance's phase groups (kernels/tick.py PHASES): the lanes'
+// clock64() time in each, summed over the chunk's ticks
+enum Phase { P_STAGE, P_DRAWS, P_FAULTS, P_RV_RSP, P_AE_RSP, P_SNAP,
+             P_RV_REQ, P_AE_REQ, P_ELECT, P_SENDS, P_COMMIT, P_ORACLE,
+             P_COMPACT, kPhases };
+
+// Per-phase clock64() sums, kept only in the profile instance, which also
+// syncs the warp at each mark so that a phase's time is the warp's
+template <bool kOn>
+struct Clock {
+  long long last = 0, acc[kPhases] = {};
+  __device__ __forceinline__ void start() {
+    if constexpr (kOn) last = clock64();
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    if constexpr (kOn) {
+      __syncwarp();
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  }
+};
+
 struct Params {
   const void *in[kLeaves];   // [B, ...] leaves of the state in
   void *out[kLeaves];        // and of the state out (may alias in)
-  const long long *words;    // [m, B, total] int64-held u32 draw words
+  const long long *keys;     // [B, 2] int64-held u32 cluster keys
   const float *kf;           // [B, kKnobF]
   const int *ki;             // [B, kKnobI]
   int kind[kLeaves];         // each leaf's kind (kLeafKind)
   int off[kSlots];           // byte offset of each slot in a cluster block
   int draw[kDraws];          // offset of each draw in a tick's words
   int b, n, cap, ae_max, m, bug, total, cluster_bytes;
+  int partitionable;         // the threefry counter layout (prng)
+  unsigned one;              // 1, unknown to the compiler (threefry.cuh)
 };
 
-__host__ __device__ inline int shape_elems(int kind, int n, int cap) {
+__host__ __device__ constexpr int shape_elems(int kind, int n, int cap) {
   switch (kind & 7) {
     case kOne: return 1;
     case kN: return n;
@@ -116,28 +205,67 @@ __host__ __device__ inline int shape_elems(int kind, int n, int cap) {
   }
 }
 
-// A cluster block's layout: each slot 16-byte aligned; returns its bytes
-inline int layout(int n, int cap, int ae_max, int *off) {
+// A cluster block's layout: slot s's bytes, 16-byte aligned, and its
+// offset; ae is the delivery entries' row length (ae_max, or the template
+// instance's bound)
+__host__ __device__ constexpr int slot_bytes(int s, int n, int cap, int ae) {
+  if (s < kLeaves) {
+    const int e = shape_elems(leaf_kind(s), n, cap);
+    return ((leaf_kind(s) & kBool ? e : 4 * e) + 15) & ~15;
+  }
+  const int e = s == S_KF      ? kKnobF
+                : s == S_KI    ? kKnobI
+                : s == S_WORDS ? draw_offset(kDraws, n)
+                : s >= S_ENT_T ? n * ae
+                               : n;
+  return (4 * e + 15) & ~15;
+}
+__host__ __device__ constexpr int slot_offset(int s, int n, int cap,
+                                              int ae) {
   int o = 0;
-  for (int l = 0; l < kLeaves; ++l) {
-    off[l] = o;
-    const int e = shape_elems(kLeafKind[l], n, cap);
-    o += ((kLeafKind[l] & kBool ? e : 4 * e) + 15) & ~15;
-  }
-  for (int s = kLeaves; s < kSlots; ++s) {
-    off[s] = o;
-    const int e = s == S_KF ? kKnobF : s == S_KI ? kKnobI
-                  : s >= S_ENT_T ? n * ae_max : n;
-    o += (4 * e + 15) & ~15;
-  }
+  for (int i = 0; i < s; ++i) o += slot_bytes(i, n, cap, ae);
   return o;
+}
+// Slot S's offset in a template instance's block, fixed at compile time
+template <int N, int CAP, int AE, int S>
+inline constexpr int kSlotOffset = slot_offset(S, N, CAP, AE);
+
+// Fills off with every slot's offset; returns the block's bytes
+inline int layout(int n, int cap, int ae, int *off) {
+  for (int s = 0; s < kSlots; ++s) off[s] = slot_offset(s, n, cap, ae);
+  return slot_offset(kSlots, n, cap, ae);
+}
+
+// Fills p's shape, layout (entry rows of ae_layout) and draw table for
+// (n, cap, ae_max) from the wrapper's draw offsets; false if they are not
+// this file's
+inline bool set_shape(Params &p, int n, int cap, int ae_max, int ae_layout,
+                      const int *draws) {
+  for (int i = 0; i < kDraws; ++i) {
+    if (draws[i] != draw_offset(i, n)) return false;
+    p.draw[i] = draws[i];
+  }
+  p.n = n;
+  p.cap = cap;
+  p.ae_max = ae_max;
+  p.total = draw_offset(kDraws, n);
+  p.cluster_bytes = layout(n, cap, ae_layout, p.off);
+  return true;
 }
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+// a + b with int32 wrap-around
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
 __device__ __forceinline__ int pmod(int a, int m) {  // Python's a % m
   const int r = a % m;
   return r < 0 ? r + m : r;
+}
+__device__ __forceinline__ int fdiv(int a, int m) {  // Python's a // m, m > 0
+  const int q = a / m;
+  return q * m != a && a < 0 ? q - 1 : q;
 }
 
 // u32 word -> exact float32 uniform in [0, 1) from bits 8..31
@@ -183,12 +311,75 @@ __device__ __forceinline__ int entry_mix(int term, int val, int abs_idx) {
                 (static_cast<uint32_t>(abs_idx) * 0x9E3779B9u)) * 0x85EBCA6Bu;
   return static_cast<int>(h ^ (static_cast<uint32_t>(term) * 0xC2B2AE35u));
 }
-__device__ __forceinline__ int xor_all(int v) {
-  for (int m = kWarp / 2; m; m >>= 1) v ^= __shfl_xor_sync(kFull, v, m);
-  return v;
-}
+__device__ __forceinline__ bool bit(unsigned m, int i) { return m >> i & 1u; }
 
-// One cluster's block in shared memory
+// Lanes a cluster takes in a template instance: two clusters a warp
+// (16 and 8 lanes ran alike at the flagship, 16 with the shorter chain
+// and fewer registers: PERF.md §6)
+constexpr int kTile = 16;
+
+// A cluster's lanes: TILE consecutive lanes of the warp (kTile in the
+// template instances, the whole warp in the runtime one). The warp's
+// collectives run on all 32 lanes at once and each tile takes its part:
+// its bits of a ballot or a match, a shuffle from its own lanes, a
+// reduction over its lanes (one REDUX for a whole-warp tile, else a
+// butterfly of shuffles that stays inside the tile)
+template <int TILE>
+struct Tile {
+  static constexpr unsigned kMask =
+      TILE == kWarp ? kFull : (1u << TILE) - 1u;
+  int lane;  // in the tile
+  int base;  // the tile's first lane in the warp
+  __device__ __forceinline__ unsigned ballot(bool pred) const {
+    return __ballot_sync(kFull, pred) >> base & kMask;
+  }
+  // true when pred holds on any lane of the warp (a loop every tile steps)
+  __device__ __forceinline__ bool any_lane(bool pred) const {
+    return __ballot_sync(kFull, pred) != 0u;
+  }
+  template <typename T>
+  __device__ __forceinline__ T shfl(T v, int j) const {
+    return __shfl_sync(kFull, v, base + j);
+  }
+  __device__ __forceinline__ unsigned match(uint64_t key) const {
+    return __match_any_sync(kFull, key) >> base & kMask;
+  }
+  template <typename F>
+  __device__ __forceinline__ int fold(int v, F f) const {
+#pragma unroll
+    for (int m = TILE / 2; m; m >>= 1) v = f(v, __shfl_xor_sync(kFull, v, m));
+    return v;
+  }
+  __device__ __forceinline__ int min(int v) const {
+    if constexpr (TILE == kWarp) return __reduce_min_sync(kFull, v);
+    else return fold(v, [](int a, int b) { return a < b ? a : b; });
+  }
+  __device__ __forceinline__ int max(int v) const {
+    if constexpr (TILE == kWarp) return __reduce_max_sync(kFull, v);
+    else return fold(v, [](int a, int b) { return a > b ? a : b; });
+  }
+  __device__ __forceinline__ int sum(int v) const {
+    if constexpr (TILE == kWarp) return __reduce_add_sync(kFull, v);
+    else return fold(v, [](int a, int b) { return wadd(a, b); });
+  }
+  __device__ __forceinline__ int any_bits(int v) const {
+    if constexpr (TILE == kWarp)
+      return static_cast<int>(
+          __reduce_or_sync(kFull, static_cast<unsigned>(v)));
+    else return fold(v, [](int a, int b) { return a | b; });
+  }
+  __device__ __forceinline__ int xor_all(int v) const {
+    if constexpr (TILE == kWarp)
+      return static_cast<int>(
+          __reduce_xor_sync(kFull, static_cast<unsigned>(v)));
+    else return fold(v, [](int a, int b) { return a ^ b; });
+  }
+};
+
+// One cluster's block in shared memory: a slot's address by its runtime
+// offset (I, B, F), or by a compile-time one in a template instance (the
+// free I<S>, B<S>, F<S>, U<S>, which then read no parameter)
+template <int N_, int CAP_, int AE_>
 struct Block {
   const Params &p;
   uint8_t *cl;
@@ -199,11 +390,36 @@ struct Block {
   __device__ float *F(int slot) const {
     return reinterpret_cast<float *>(cl + p.off[slot]);
   }
+  template <int S>
+  __device__ __forceinline__ uint8_t *at() const {
+    if constexpr (N_ > 0)
+      return cl + kSlotOffset<N_, CAP_, AE_, S>;
+    else
+      return cl + p.off[S];
+  }
 };
+template <int S, typename Blk>
+__device__ __forceinline__ int *I(const Blk &s) {
+  return reinterpret_cast<int *>(s.template at<S>());
+}
+template <int S, typename Blk>
+__device__ __forceinline__ uint8_t *B(const Blk &s) {
+  return s.template at<S>();
+}
+template <int S, typename Blk>
+__device__ __forceinline__ float *F(const Blk &s) {
+  return reinterpret_cast<float *>(s.template at<S>());
+}
+template <int S, typename Blk>
+__device__ __forceinline__ uint32_t *U(const Blk &s) {
+  return reinterpret_cast<uint32_t *>(s.template at<S>());
+}
 
-// Stage the cluster's leaves and knob rows in (load) or its leaves out
-__device__ void stage(const Params &p, const Block &s, int b, int lane,
-                      bool load) {
+// Stage the cluster's leaves and knob rows in (load) or, for a tile that
+// holds a cluster (active), its leaves out; TILE lanes stride the rows
+template <int TILE, typename Blk>
+__device__ void stage(const Params &p, const Blk &s, int b, int lane,
+                      bool load, bool active) {
   for (int l = 0; l < kLeaves; ++l) {
     const int e = shape_elems(p.kind[l], p.n, p.cap);
     const size_t row = static_cast<size_t>(b) * e;
@@ -211,44 +427,136 @@ __device__ void stage(const Params &p, const Block &s, int b, int lane,
       uint8_t *sh = s.B(l);
       if (load) {
         const uint8_t *g = static_cast<const uint8_t *>(p.in[l]) + row;
-        for (int i = lane; i < e; i += kWarp) sh[i] = g[i];
-      } else {
+        for (int i = lane; i < e; i += TILE) sh[i] = g[i];
+      } else if (active) {
         uint8_t *g = static_cast<uint8_t *>(p.out[l]) + row;
-        for (int i = lane; i < e; i += kWarp) g[i] = sh[i];
+        for (int i = lane; i < e; i += TILE) g[i] = sh[i];
       }
     } else {
       int *sh = s.I(l);
       if (load) {
         const int *g = static_cast<const int *>(p.in[l]) + row;
-        for (int i = lane; i < e; i += kWarp) sh[i] = g[i];
-      } else {
+        for (int i = lane; i < e; i += TILE) sh[i] = g[i];
+      } else if (active) {
         int *g = static_cast<int *>(p.out[l]) + row;
-        for (int i = lane; i < e; i += kWarp) g[i] = sh[i];
+        for (int i = lane; i < e; i += TILE) g[i] = sh[i];
       }
     }
   }
   if (load) {
-    for (int i = lane; i < kKnobF; i += kWarp)
+    for (int i = lane; i < kKnobF; i += TILE)
       s.F(S_KF)[i] = p.kf[static_cast<size_t>(b) * kKnobF + i];
-    for (int i = lane; i < kKnobI; i += kWarp)
+    for (int i = lane; i < kKnobI; i += TILE)
       s.I(S_KI)[i] = p.ki[static_cast<size_t>(b) * kKnobI + i];
   }
   __syncwarp();
 }
 
-// The picked source of a mailbox row: among the messages due now at a
+// A node's values that only its own lane reads, in that lane's registers
+// for the chunk; votes as a bit per voter
+struct Own {
+  int voted_for = 0, timer = 0, hb = 0, durable_len = 0, durable_term = 0;
+  int durable_voted_for = 0, fsync_stall = 0, compact_floor = 0;
+  unsigned votes = 0u;
+  int delivered = 0, installs = 0;  // the node's, summed at the chunk's end
+};
+
+template <typename Blk>
+__device__ void own_load(const Blk &s, Own &o, int d, int n) {
+  o.voted_for = I<L_VOTED_FOR>(s)[d];
+  o.timer = I<L_TIMER>(s)[d];
+  o.hb = I<L_HB>(s)[d];
+  o.durable_len = I<L_DURABLE_LEN>(s)[d];
+  o.durable_term = I<L_DURABLE_TERM>(s)[d];
+  o.durable_voted_for = I<L_DURABLE_VOTED_FOR>(s)[d];
+  o.fsync_stall = I<L_FSYNC_STALL>(s)[d];
+  o.compact_floor = I<L_COMPACT_FLOOR>(s)[d];
+  o.votes = 0u;
+  for (int j = 0; j < n; ++j)
+    o.votes |= static_cast<unsigned>(B<L_VOTES>(s)[d * n + j] != 0) << j;
+}
+
+template <typename Blk>
+__device__ void own_store(const Blk &s, const Own &o, int d, int n) {
+  I<L_VOTED_FOR>(s)[d] = o.voted_for;
+  I<L_TIMER>(s)[d] = o.timer;
+  I<L_HB>(s)[d] = o.hb;
+  I<L_DURABLE_LEN>(s)[d] = o.durable_len;
+  I<L_DURABLE_TERM>(s)[d] = o.durable_term;
+  I<L_DURABLE_VOTED_FOR>(s)[d] = o.durable_voted_for;
+  I<L_FSYNC_STALL>(s)[d] = o.fsync_stall;
+  I<L_COMPACT_FLOOR>(s)[d] = o.compact_floor;
+  for (int j = 0; j < n; ++j) B<L_VOTES>(s)[d * n + j] = bit(o.votes, j);
+}
+
+// The keys of a chunk's ticks t1, t1 + 1, ...: every TILE ticks tile lane
+// l derives the key of tick t1 + i + l (fold_in(fold_in(key, t), 0), the
+// tick as u32), and a shuffle hands tick i's key to the tile's lanes
+template <int TILE>
+struct TickKeys {
+  uint32_t c0, c1, t1, k0 = 0u, k1 = 0u;
+  __device__ __forceinline__ void get(int i, const Tile<TILE> &tile,
+                                      uint32_t &tk0, uint32_t &tk1) {
+    if ((i & (TILE - 1)) == 0) {
+      k0 = c0;
+      k1 = c1;
+      madraft::tick_key(k0, k1, t1 + static_cast<uint32_t>(i + tile.lane));
+    }
+    tk0 = tile.shfl(k0, i & (TILE - 1));
+    tk1 = tile.shfl(k1, i & (TILE - 1));
+  }
+};
+
+// The tick's draw words under its key (k0, k1), the tile's lanes taking
+// the counter pairs in turn (threefry.tick_blocks_plain's layouts):
+// partitionable, pair j = (0, j) gives word j = y0 ^ y1; legacy, pair j =
+// (j, j + h) gives words j and j + h, h = ceil(total / 2)
+template <int N_, int TILE>
+__device__ __forceinline__ void draw_words(const Params &p, uint32_t *w,
+                                           uint32_t k0, uint32_t k1,
+                                           int lane) {
+  const int total = N_ ? draw_offset(kDraws, N_) : p.total;
+  const uint32_t one = p.one;
+  if (p.partitionable) {
+#pragma unroll
+    for (int j0 = 0; j0 < total; j0 += TILE) {
+      const int j = j0 + lane;
+      if (j < total) {
+        uint32_t x0 = 0u, x1 = static_cast<uint32_t>(j);
+        madraft::threefry2x32(k0, k1, x0, x1, one);
+        w[j] = x0 ^ x1;
+      }
+    }
+  } else {
+    const int h = (total + 1) / 2;
+#pragma unroll
+    for (int j0 = 0; j0 < h; j0 += TILE) {
+      const int j = j0 + lane;
+      if (j < h) {
+        const bool hi = j + h < total;
+        uint32_t x0 = static_cast<uint32_t>(j);
+        uint32_t x1 = hi ? static_cast<uint32_t>(j + h) : 0u;
+        madraft::threefry2x32(k0, k1, x0, x1, one);
+        w[j] = x0;
+        if (hi) w[j + h] = x1;
+      }
+    }
+  }
+}
+
+// The picked source of mailbox row d: among the messages due now at a
 // live dst over a usable link (and, for install-snapshot, from a live
 // src), the one whose tick-rotated rank (src + t) mod n is least; -1 if
 // none (step.py pick_one)
 __device__ __forceinline__ int pick_src(const int *mail_t, const uint8_t *adj,
-                                        const uint8_t *alive, int d, int n,
-                                        int t, bool src_alive) {
-  if (!alive[d]) return -1;
+                                        unsigned alive, int d, int n, int t,
+                                        bool src_alive) {
+  if (!bit(alive, d)) return -1;
   int best = -1, best_rank = n;
   for (int s = 0; s < n; ++s) {
     if (mail_t[d * n + s] != t || !adj[d * n + s]) continue;
-    if (src_alive && !alive[s]) continue;
-    const int rank = pmod(s + t, n);
+    if (src_alive && !bit(alive, s)) continue;
+    const int rank = pmod(wadd(s, t), n);
     if (rank < best_rank) best_rank = rank, best = s;
   }
   return best;
@@ -261,101 +569,197 @@ __device__ __forceinline__ int term_at(const int *log_term,
   return a <= base[d] ? snap_term[d] : log_term[d * cap + slot(a, cap)];
 }
 
-// One tick of the cluster (step.py step_cluster with cfg.metrics off);
-// w are this cluster's words of the tick
-__device__ void tick(const Params &p, const Block &s, const long long *w,
-                     int lane) {
-  const int n = p.n, cap = p.cap, ae_max = p.ae_max, nn = n * n;
-  const int *dr = p.draw;
+// The oracle's ring checks at a shape a template instance knows, over the
+// lane's ring slots: log matching over each unordered pair's overlap
+// (kViolLogMatch) and the commit shadow's walk (kViolShadow), the shadow
+// slid to new_base and the entries that slid out folded into xh. Each
+// slot's entries of every node are loaded once, and the slot's checks are
+// selects, not branches. A pair violates iff some lane's least mismatch
+// is at most the tile's greatest term match (both as ring offsets 1..CAP
+// from node i's base: an overlap index of the pair lies in (base_i,
+// base_i + CAP]), so each pair takes one maximum over the tile
+template <int N, int CAP, int TILE, typename Blk>
+__device__ __forceinline__ int ring_checks(const Blk &s,
+                                           const Tile<TILE> &tile, int sb,
+                                           int sl0, int new_base, int &xh) {
+  constexpr int kPairs = N * (N - 1) / 2;
+  const int lane = tile.lane;
+  const int *log_term = I<L_LOG_TERM>(s), *log_val = I<L_LOG_VAL>(s);
+  int *st = I<L_SHADOW_TERM>(s), *sv = I<L_SHADOW_VAL>(s);
+  int bs[N], ls[N], cs[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    bs[i] = I<L_BASE>(s)[i];
+    ls[i] = I<L_LOG_LEN>(s)[i];
+    cs[i] = I<L_COMMIT>(s)[i];
+  }
+  int max_tm[kPairs], min_bad[kPairs];
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) max_tm[q] = 0, min_bad[q] = kBig;
+  bool shadow_bad = false;
+#pragma unroll
+  for (int k0 = 0; k0 < CAP; k0 += TILE) {
+    const int k = k0 + lane;
+    if (k >= CAP) continue;
+    int a[N], lt_i[N], lv_i[N];
+    bool in[N];  // the slot's index is in node i's log
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      a[i] = lane_abs(bs[i], k, CAP);
+      in[i] = a[i] <= ls[i];
+      lt_i[i] = log_term[i * CAP + k];
+      lv_i[i] = log_val[i * CAP + k];
+    }
+    int q = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = a[i] - bs[i];  // 1..CAP
+#pragma unroll
+      for (int j = i + 1; j < N; ++j, ++q) {
+        const bool both = a[i] == a[j] && in[i] && in[j];
+        const bool t_eq = lt_i[i] == lt_i[j];
+        max_tm[q] = both && t_eq ? imax(max_tm[q], r) : max_tm[q];
+        min_bad[q] = both && !(t_eq && lv_i[i] == lv_i[j])
+                         ? imin(min_bad[q], r)
+                         : min_bad[q];
+      }
+    }
+    const int old_abs = lane_abs(sb, k, CAP);
+    int lt = st[k], lv = sv[k];
+    if (old_abs <= imin(new_base, sl0)) xh ^= entry_mix(lt, lv, old_abs);
+    const int sh_abs = lane_abs(new_base, k, CAP);
+    int sl = sl0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool at = sh_abs == a[i];
+      shadow_bad |= at && sh_abs <= imin(cs[i], sl) &&
+                    (lt != lt_i[i] || lv != lv_i[i]);
+      const bool take = at && sh_abs > sl && sh_abs <= cs[i];
+      lt = take ? lt_i[i] : lt;
+      lv = take ? lv_i[i] : lv;
+      sl = imax(sl, cs[i]);
+    }
+    st[k] = lt;
+    sv[k] = lv;
+  }
+  int viol = shadow_bad ? kViolShadow : 0;
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q)
+    if (min_bad[q] <= tile.max(max_tm[q])) viol |= kViolLogMatch;
+  return viol;
+}
+
+// One tick of the cluster (step.py step_cluster with cfg.metrics off)
+// under the tick's key (tk0, tk1); alive is the warp's mask of live nodes,
+// carried from tick to tick
+template <int N_, int CAP_, int AE_, int TILE, bool kProf>
+__device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
+                     unsigned &alive,
+                     const Tile<TILE> &tile, Clock<kProf> &clk, uint32_t tk0,
+                     uint32_t tk1) {
+  const int lane = tile.lane;
+  const int n = N_ ? N_ : p.n, cap = CAP_ ? CAP_ : p.cap;
+  // ae_lim bounds the entry loops; ent is the entry rows' stride
+  const int ae_max = p.ae_max, ae_lim = AE_ ? AE_ : p.ae_max, ent = ae_lim;
+  const int nn = n * n;
+  uint32_t *w = U<S_WORDS>(s);
   auto word = [&](int draw, int i) {
-    return static_cast<uint32_t>(w[dr[draw] + i]);
+    return w[(N_ ? draw_offset(draw, N_) : p.draw[draw]) + i];
   };
-  const float *kf = s.F(S_KF);
-  const int *ki = s.I(S_KI);
-  int *term = s.I(L_TERM), *voted_for = s.I(L_VOTED_FOR);
-  int *role = s.I(L_ROLE), *timer = s.I(L_TIMER), *hb = s.I(L_HB);
-  uint8_t *alive = s.B(L_ALIVE);
-  int *limp = s.I(L_LIMP), *fsync_stall = s.I(L_FSYNC_STALL);
-  int *log_term = s.I(L_LOG_TERM), *log_val = s.I(L_LOG_VAL);
-  int *log_len = s.I(L_LOG_LEN), *base = s.I(L_BASE);
-  int *snap_term = s.I(L_SNAP_TERM), *prefix_hash = s.I(L_PREFIX_HASH);
-  int *commit = s.I(L_COMMIT), *durable_len = s.I(L_DURABLE_LEN);
-  int *durable_term = s.I(L_DURABLE_TERM);
-  int *durable_voted_for = s.I(L_DURABLE_VOTED_FOR);
-  int *compact_floor = s.I(L_COMPACT_FLOOR);
-  uint8_t *votes = s.B(L_VOTES), *adj = s.B(L_ADJ);
-  int *next_idx = s.I(L_NEXT_IDX), *match_idx = s.I(L_MATCH_IDX);
-  const int t = s.I(L_TICK)[0] + 1;
+  const float *kf = F<S_KF>(s);
+  const int *ki = I<S_KI>(s);
+  int *term = I<L_TERM>(s), *role = I<L_ROLE>(s);
+  int *limp = I<L_LIMP>(s);
+  int *log_term = I<L_LOG_TERM>(s), *log_val = I<L_LOG_VAL>(s);
+  int *log_len = I<L_LOG_LEN>(s), *base = I<L_BASE>(s);
+  int *snap_term = I<L_SNAP_TERM>(s), *prefix_hash = I<L_PREFIX_HASH>(s);
+  int *commit = I<L_COMMIT>(s);
+  uint8_t *adj = B<L_ADJ>(s);
+  int *next_idx = I<L_NEXT_IDX>(s), *match_idx = I<L_MATCH_IDX>(s);
+  const int t = wadd(I<L_TICK>(s)[0], 1);
   const int me = lane, d = lane;  // a node lane's node
   const bool node = lane < n;
   const int skew = me * ki[KI_ETO_SKEW];
-  int delivered = 0, installs = 0;  // this lane's node's, summed at the end
+  int &delivered = o.delivered, &installs = o.installs;
 
-  // ---------------------------------------------- faults (step.py 191-221)
-  if (node) {
-    const int period = ki[KI_ROLLING_PERIOD];
-    const int rp = imax(period, 1);
-    const int wave = t / rp;
-    const int wave_i = wave - pmod(wave - me, n);
-    const int age = t - wave_i * rp;
-    const bool sched = period > 0 && wave_i >= 0;
-    const bool down = sched && age < ki[KI_ROLLING_DOWN];
-    const bool up = sched && age == ki[KI_ROLLING_DOWN];
-    const bool was = alive[d];
-    s.I(S_RESTART)[d] =
-        !was && ((u01(word(D_RESTART, d)) < kf[KF_P_RESTART] && !down) || up);
-    s.I(S_CRASH_BERN)[d] = was && u01(word(D_CRASH, d)) < kf[KF_P_CRASH];
-    s.I(S_ROLL_DOWN)[d] = down;
-  }
+  // -------------------------------------------------- the tick's words
+  draw_words<N_, TILE>(p, w, tk0, tk1, lane);
   __syncwarp();
-  if (node) {
-    const int *restart_v = s.I(S_RESTART), *cb = s.I(S_CRASH_BERN);
-    int dead = 0, cum = 0;
-    for (int j = 0; j < n; ++j) {
-      dead += !alive[j] && !restart_v[j];
-      cum += j <= d && cb[j];
+  clk.mark(P_DRAWS);
+
+  // ---------------------------------------------- faults (step.py 198-271)
+  bool restart = false;
+  {
+    const unsigned was = alive;
+    bool crash_bern = false, down = false;
+    if (node) {
+      const int period = ki[KI_ROLLING_PERIOD];
+      bool up = false;
+      if (period > 0) {  // the rolling wave (its divisions) only when on
+        const int wave = fdiv(t, period);
+        const int wave_i = wadd(wave, -pmod(wadd(wave, -me), n));
+        const int age = static_cast<int>(
+            static_cast<uint32_t>(t) -
+            static_cast<uint32_t>(wave_i) * static_cast<uint32_t>(period));
+        const bool sched = wave_i >= 0;
+        down = sched && age < ki[KI_ROLLING_DOWN];
+        up = sched && age == ki[KI_ROLLING_DOWN];
+      }
+      restart = !bit(was, d) &&
+                ((u01(word(D_RESTART, d)) < kf[KF_P_RESTART] && !down) || up);
+      crash_bern = bit(was, d) && u01(word(D_CRASH, d)) < kf[KF_P_CRASH];
     }
-    const bool restart = restart_v[d];
-    const bool was = alive[d];
-    const bool crash = (cb[d] && cum <= ki[KI_MAX_DEAD] - dead) ||
-                       (was && s.I(S_ROLL_DOWN)[d]);
-    const bool now = (was || restart) && !crash;
-    s.I(S_NEW_ALIVE)[d] = now;
-    s.I(S_LEAD_PRE)[d] = now && role[d] == kLeader;  // the tick-start role
-    if (restart) role[d] = kFollower;
-    if (p.bug == kForgetVotedFor && restart) voted_for[d] = -1;
-    const uint32_t w_restart = word(D_RESTART, d), w_crash = word(D_CRASH, d);
-    const uint32_t w_rst_tmr = word(D_RST_TMR, d);
-    if (restart) {
-      timer[d] = randint(w_rst_tmr, ki[KI_ETO_MIN], ki[KI_ETO_MAX] + 1) + skew;
-      hb[d] = 0;
-      commit[d] = base[d];
-      compact_floor[d] = base[d];
-      for (int j = 0; j < n; ++j) {
-        votes[d * n + j] = 0;
-        next_idx[d * n + j] = 1;
-        match_idx[d * n + j] = 0;
+    const unsigned restart_m = tile.ballot(restart);
+    const unsigned crash_m = tile.ballot(crash_bern);
+    bool now = false, crash = false, lead_pre = false;
+    if (node) {
+      const unsigned nodes = (1u << n) - 1u;
+      const int dead = __popc(nodes & ~was & ~restart_m);
+      const int cum = __popc(crash_m & ((2u << d) - 1u));
+      crash = (crash_bern && cum <= ki[KI_MAX_DEAD] - dead) ||
+              (bit(was, d) && down);
+      now = (bit(was, d) || restart) && !crash;
+      lead_pre = now && role[d] == kLeader;  // the tick-start role
+    }
+    alive = tile.ballot(now);
+    const unsigned lead_pre_m = tile.ballot(lead_pre);
+    if (node) {
+      B<L_ALIVE>(s)[d] = now;
+      if (restart) role[d] = kFollower;
+      if (p.bug == kForgetVotedFor && restart) o.voted_for = -1;
+      const uint32_t w_restart = word(D_RESTART, d);
+      const uint32_t w_crash = word(D_CRASH, d);
+      const uint32_t w_rst_tmr = word(D_RST_TMR, d);
+      if (restart) {
+        o.timer =
+            randint(w_rst_tmr, ki[KI_ETO_MIN], ki[KI_ETO_MAX] + 1) + skew;
+        o.hb = 0;
+        commit[d] = base[d];
+        o.compact_floor = base[d];
+        o.votes = 0u;
+        for (int j = 0; j < n; ++j) {
+          next_idx[d * n + j] = 1;
+          match_idx[d * n + j] = 0;
+        }
+      }
+      // limping nodes (222-232): draws from the free low bytes
+      const int mult_max = ki[KI_LIMP_MULT_MAX];
+      const bool limp_on =
+          now && mult_max >= 2 && bern8(w_crash, kf[KF_P_LIMP]);
+      if (restart)
+        limp[d] = 1;
+      else if (limp_on)
+        limp[d] = randint8(w_restart, 2, mult_max - 1);
+      else if (bern8(w_rst_tmr, kf[KF_P_LIMP_HEAL]))
+        limp[d] = 1;
+      // lossy persistence (267-271)
+      if (crash && bern8(word(D_COLORS, d), kf[KF_P_LOSE_UNSYNCED])) {
+        term[d] = o.durable_term;
+        o.voted_for = o.durable_voted_for;
+        log_len[d] = o.durable_len;
       }
     }
-    // limping nodes (222-232): draws from the free low bytes
-    const int mult_max = ki[KI_LIMP_MULT_MAX];
-    const bool limp_on = now && mult_max >= 2 && bern8(w_crash, kf[KF_P_LIMP]);
-    if (restart)
-      limp[d] = 1;
-    else if (limp_on)
-      limp[d] = randint8(w_restart, 2, mult_max - 1);
-    else if (bern8(w_rst_tmr, kf[KF_P_LIMP_HEAL]))
-      limp[d] = 1;
-    // lossy persistence (267-271)
-    if (crash && bern8(word(D_COLORS, d), kf[KF_P_LOSE_UNSYNCED])) {
-      term[d] = durable_term[d];
-      voted_for[d] = durable_voted_for[d];
-      log_len[d] = durable_len[d];
-    }
-  }
-  __syncwarp();
-  {  // partitions (234-265): one mutually exclusive event a tick
-    if (node) alive[d] = s.I(S_NEW_ALIVE)[d];
+    // partitions (240-265): one mutually exclusive event a tick
     const float u_part = u01(word(D_U_PART, 0));
     const int asym_dst = randint(word(D_ASYM_DST, 0), 0, n);
     const int asym_off = randint(word(D_ASYM_OFF, 0), 1, n);
@@ -365,15 +769,13 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
     const float th4 = __fadd_rn(th3, kf[KF_P_ASYM_CUT]);
     const bool do_part = u_part < th1;
     const bool do_heal = !do_part && u_part < th2;
-    int lid = -1;
-    for (int j = n - 1; j >= 0; --j)
-      if (s.I(S_LEAD_PRE)[j]) lid = j;
-    const bool do_lpart = u_part >= th2 && u_part < th3 && lid >= 0;
-    lid = imax(lid, 0);
+    const bool do_lpart = u_part >= th2 && u_part < th3 && lead_pre_m != 0u;
+    const int lid = lead_pre_m ? __ffs(lead_pre_m) - 1 : 0;
+    const int lid1 = lid + 1 == n ? 0 : lid + 1;
     const bool do_asym = u_part >= th3 && u_part < th4;
     const int cut_src = (asym_dst + asym_off) % n;
-    for (int q = lane; q < nn; q += kWarp) {
-      const int dst = q / n, src = q % n;
+    for (int q = lane; q < nn; q += TILE) {
+      const int dst = q / n, src = q - dst * n;
       bool a;
       if (do_part) {
         a = (u01(word(D_COLORS, dst)) < 0.5f) ==
@@ -381,9 +783,7 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
       } else if (do_heal) {
         a = true;
       } else if (do_lpart) {
-        const bool ld = dst == lid || dst == (lid + 1) % n;
-        const bool ls = src == lid || src == (lid + 1) % n;
-        a = ld == ls;
+        a = (dst == lid || dst == lid1) == (src == lid || src == lid1);
       } else {
         a = adj[q] && !(do_asym && dst == asym_dst && src == cut_src);
       }
@@ -391,91 +791,92 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
     }
   }
   __syncwarp();
+  clk.mark(P_FAULTS);
 
-  // ------------------------------- deliver: RV responses (step.py 303-319)
-  {
-    int *mail = s.I(L_RV_RSP_T);
-    if (node) {
-      const int ps = pick_src(mail, adj, alive, d, n, t, false);
-      for (int j = 0; j < n; ++j) {
-        const int v = mail[d * n + j];
-        const bool ok = alive[d] && v == t && adj[d * n + j];
-        mail[d * n + j] = ok && j != ps ? t + 1 : v <= t ? 0 : v;
+  // Deliveries: up to install-snapshot's sync each lane reads and rewrites
+  // only its own mailbox rows and its own node
+
+  // ------------------------------- deliver: RV responses (step.py 311-330)
+  if (node) {
+    int *mail = I<L_RV_RSP_T>(s);
+    const int ps = pick_src(mail, adj, alive, d, n, t, false);
+    for (int j = 0; j < n; ++j) {
+      const int v = mail[d * n + j];
+      const bool ok = bit(alive, d) && v == t && adj[d * n + j];
+      mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v <= t ? 0 : v;
+    }
+    if (ps >= 0) {
+      ++delivered;
+      const int mterm = I<L_RV_RSP_TERM>(s)[d * n + ps];
+      if (mterm > term[d]) {
+        term[d] = mterm;
+        role[d] = kFollower;
+        o.voted_for = -1;
       }
-      if (ps >= 0) {
-        ++delivered;
-        const int mterm = s.I(L_RV_RSP_TERM)[d * n + ps];
-        if (mterm > term[d]) {
-          term[d] = mterm;
-          role[d] = kFollower;
-          voted_for[d] = -1;
+      if (B<L_RV_RSP_GRANTED>(s)[d * n + ps] && role[d] == kCandidate &&
+          mterm == term[d])
+        o.votes |= 1u << ps;
+    }
+  }
+  clk.mark(P_RV_RSP);
+
+  // ------------------------------- deliver: AE responses (step.py 332-359)
+  if (node) {
+    int *mail = I<L_AE_RSP_T>(s);
+    const int ps = pick_src(mail, adj, alive, d, n, t, false);
+    for (int j = 0; j < n; ++j) {
+      const int v = mail[d * n + j];
+      const bool ok = bit(alive, d) && v == t && adj[d * n + j];
+      mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v <= t ? 0 : v;
+    }
+    if (ps >= 0) {
+      ++delivered;
+      const int q = d * n + ps;
+      const int mterm = I<L_AE_RSP_TERM>(s)[q];
+      if (mterm > term[d]) {
+        term[d] = mterm;
+        role[d] = kFollower;
+        o.voted_for = -1;
+      }
+      if (role[d] == kLeader && mterm == term[d]) {
+        const int m = I<L_AE_RSP_MATCH>(s)[q];
+        if (B<L_AE_RSP_SUCCESS>(s)[q]) {
+          match_idx[q] = imax(match_idx[q], m);
+          next_idx[q] = imax(next_idx[q], m + 1);
+        } else {
+          next_idx[q] = imax(imin(next_idx[q], m + 1), 1);
         }
-        if (s.B(L_RV_RSP_GRANTED)[d * n + ps] && role[d] == kCandidate &&
-            mterm == term[d])
-          votes[d * n + ps] = 1;
       }
     }
   }
-  __syncwarp();
+  clk.mark(P_AE_RSP);
 
-  // ------------------------------- deliver: AE responses (step.py 321-348)
-  {
-    int *mail = s.I(L_AE_RSP_T);
-    if (node) {
-      const int ps = pick_src(mail, adj, alive, d, n, t, false);
-      for (int j = 0; j < n; ++j) {
-        const int v = mail[d * n + j];
-        const bool ok = alive[d] && v == t && adj[d * n + j];
-        mail[d * n + j] = ok && j != ps ? t + 1 : v <= t ? 0 : v;
-      }
-      if (ps >= 0) {
-        ++delivered;
-        const int q = d * n + ps;
-        const int mterm = s.I(L_AE_RSP_TERM)[q];
-        if (mterm > term[d]) {
-          term[d] = mterm;
-          role[d] = kFollower;
-          voted_for[d] = -1;
-        }
-        if (role[d] == kLeader && mterm == term[d]) {
-          const int m = s.I(L_AE_RSP_MATCH)[q];
-          if (s.B(L_AE_RSP_SUCCESS)[q]) {
-            match_idx[q] = imax(match_idx[q], m);
-            next_idx[q] = imax(next_idx[q], m + 1);
-          } else {
-            next_idx[q] = imax(imin(next_idx[q], m + 1), 1);
-          }
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // ------------------------- deliver: install-snapshot (step.py 350-384)
+  // ------------------------- deliver: install-snapshot (step.py 361-395)
   {
     int ps = -1, slen = 0, sterm = 0, shash = 0;
     bool inst = false, keep = false;
     if (node) {
-      int *mail = s.I(L_SN_REQ_T);
+      int *mail = I<L_SN_REQ_T>(s);
       ps = pick_src(mail, adj, alive, d, n, t, true);
       for (int j = 0; j < n; ++j) {
         const int v = mail[d * n + j];
-        const bool ok = alive[d] && v == t && adj[d * n + j] && alive[j];
-        mail[d * n + j] = ok && j != ps ? t + 1 : v == t ? 0 : v;
+        const bool ok =
+            bit(alive, d) && v == t && adj[d * n + j] && bit(alive, j);
+        mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v == t ? 0 : v;
       }
       if (ps >= 0) {
         ++delivered;
-        const int mterm = s.I(L_SN_REQ_TERM)[d * n + ps];
+        const int mterm = I<L_SN_REQ_TERM>(s)[d * n + ps];
         if (mterm > term[d]) {
           term[d] = mterm;
           role[d] = kFollower;
-          voted_for[d] = -1;
+          o.voted_for = -1;
         }
         const bool acc = mterm == term[d];
         if (acc && role[d] == kCandidate) role[d] = kFollower;
         if (acc)
-          timer[d] = randint(word(D_SNAP_TMR, d), ki[KI_ETO_MIN],
-                             ki[KI_ETO_MAX] + 1) + skew;
+          o.timer = randint(word(D_SNAP_TMR, d), ki[KI_ETO_MIN],
+                            ki[KI_ETO_MAX] + 1) + skew;
         slen = base[ps];
         sterm = snap_term[ps];
         shash = prefix_hash[ps];
@@ -492,96 +893,98 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
         snap_term[d] = sterm;
         prefix_hash[d] = shash;
         commit[d] = imax(commit[d], slen);
-        compact_floor[d] = slen;
-        durable_len[d] = log_len[d];
-        durable_term[d] = term[d];
-        durable_voted_for[d] = voted_for[d];
+        o.compact_floor = slen;
+        o.durable_len = log_len[d];
+        o.durable_term = term[d];
+        o.durable_voted_for = o.voted_for;
         ++installs;
       }
-      s.I(L_SNAP_INSTALLED_SRC)[d] = inst ? ps : -1;
-      s.I(L_SNAP_INSTALLED_LEN)[d] = inst ? slen : 0;
+      I<L_SNAP_INSTALLED_SRC>(s)[d] = inst ? ps : -1;
+      I<L_SNAP_INSTALLED_LEN>(s)[d] = inst ? slen : 0;
     }
   }
-  __syncwarp();
+  clk.mark(P_SNAP);
 
-  // ------------------------------ deliver: RV requests (step.py 389-426)
+  // ------------------------------ deliver: RV requests (step.py 400-437)
   if (node) {
-    int *mail = s.I(L_RV_REQ_T);
+    int *mail = I<L_RV_REQ_T>(s);
     const int ps = pick_src(mail, adj, alive, d, n, t, false);
     for (int j = 0; j < n; ++j) {
       const int v = mail[d * n + j];
-      const bool ok = alive[d] && v == t && adj[d * n + j];
-      mail[d * n + j] = ok && j != ps ? t + 1 : v == t ? 0 : v;
+      const bool ok = bit(alive, d) && v == t && adj[d * n + j];
+      mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v == t ? 0 : v;
     }
     if (ps >= 0) {
       ++delivered;
       const int q = d * n + ps;
-      const int mterm = s.I(L_RV_REQ_TERM)[q];
+      const int mterm = I<L_RV_REQ_TERM>(s)[q];
       if (mterm > term[d]) {
         term[d] = mterm;
         role[d] = kFollower;
-        voted_for[d] = -1;
+        o.voted_for = -1;
       }
       const int my_llt = log_len[d] > base[d]
                              ? log_term[d * cap + slot(log_len[d], cap)]
                              : snap_term[d];
-      const int cand_llt = s.I(L_RV_REQ_LLT)[q];
-      const int cand_lli = s.I(L_RV_REQ_LLI)[q];
+      const int cand_llt = I<L_RV_REQ_LLT>(s)[q];
+      const int cand_lli = I<L_RV_REQ_LLI>(s)[q];
       const bool log_ok = p.bug == kGrantAnyVote || cand_llt > my_llt ||
                           (cand_llt == my_llt && cand_lli >= log_len[d]);
       const bool grant = mterm == term[d] &&
-                         (voted_for[d] == -1 || voted_for[d] == ps) && log_ok;
+                         (o.voted_for == -1 || o.voted_for == ps) && log_ok;
       if (grant) {
-        voted_for[d] = ps;
-        timer[d] = randint(word(D_GRANT_TMR, d), ki[KI_ETO_MIN],
-                           ki[KI_ETO_MAX] + 1) + skew;
+        o.voted_for = ps;
+        o.timer = randint(word(D_GRANT_TMR, d), ki[KI_ETO_MIN],
+                          ki[KI_ETO_MAX] + 1) + skew;
       }
       if (p.bug != kAckBeforeFsync) {
-        durable_term[d] = term[d];
-        durable_voted_for[d] = voted_for[d];
-        durable_len[d] = log_len[d];
+        o.durable_term = term[d];
+        o.durable_voted_for = o.voted_for;
+        o.durable_len = log_len[d];
       }
-      // the vote goes back in slot [candidate, voter]
+      // the vote goes back in slot [candidate, voter], in a row the
+      // candidate's lane read before install-snapshot's sync
       const uint32_t wn = word(D_RV_RSP_NET, d);
       if (!lost(wn, kf)) {
         const int r = ps * n + d;
-        s.I(L_RV_RSP_T)[r] = t + net_delay(wn, ki) * limp[d];
-        s.I(L_RV_RSP_TERM)[r] = term[d];
-        s.B(L_RV_RSP_GRANTED)[r] = grant;
+        I<L_RV_RSP_T>(s)[r] = wadd(t, net_delay(wn, ki) * limp[d]);
+        I<L_RV_RSP_TERM>(s)[r] = term[d];
+        B<L_RV_RSP_GRANTED>(s)[r] = grant;
       }
     }
   }
-  __syncwarp();
+  __syncwarp();  // the installed snapshots are written
+  clk.mark(P_RV_REQ);
 
-  // ------------------------------ deliver: AE requests (step.py 428-540)
+  // ------------------------------ deliver: AE requests (step.py 439-551)
   {
     int ps = -1, prev = 0, nent = 0, batch_end = 0, ae_commit = 0;
     bool success = false, conflict = false;
     uint64_t in_batch = 0;
     if (node) {
-      int *mail = s.I(L_AE_REQ_T);
+      int *mail = I<L_AE_REQ_T>(s);
       ps = pick_src(mail, adj, alive, d, n, t, false);
       for (int j = 0; j < n; ++j) {
         const int v = mail[d * n + j];
-        const bool ok = alive[d] && v == t && adj[d * n + j];
-        mail[d * n + j] = ok && j != ps ? t + 1 : v == t ? 0 : v;
+        const bool ok = bit(alive, d) && v == t && adj[d * n + j];
+        mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v == t ? 0 : v;
       }
       if (ps >= 0) {
         ++delivered;
         const int q = d * n + ps;
-        const int mterm = s.I(L_AE_REQ_TERM)[q];
+        const int mterm = I<L_AE_REQ_TERM>(s)[q];
         if (mterm > term[d]) {
           term[d] = mterm;
           role[d] = kFollower;
-          voted_for[d] = -1;
+          o.voted_for = -1;
         }
         const bool acc = mterm == term[d];
         if (acc && role[d] == kCandidate) role[d] = kFollower;
         if (acc)
-          timer[d] = randint(word(D_AE_TMR, d), ki[KI_ETO_MIN],
-                             ki[KI_ETO_MAX] + 1) + skew;
-        prev = s.I(L_AE_REQ_PREV)[q];
-        const int mprev_term = s.I(L_AE_REQ_PREV_TERM)[q];
+          o.timer = randint(word(D_AE_TMR, d), ki[KI_ETO_MIN],
+                            ki[KI_ETO_MAX] + 1) + skew;
+        prev = I<L_AE_REQ_PREV>(s)[q];
+        const int mprev_term = I<L_AE_REQ_PREV_TERM>(s)[q];
         const int len = log_len[d], my_base = base[d];
         success = acc && prev <= len &&
                   (prev <= my_base ||
@@ -594,18 +997,20 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
                                       : log_term[ps * cap + slot(prev, cap)];
         const bool still = src_base <= prev && prev <= src_len &&
                            cur_prev_term == mprev_term;
-        nent = still ? imin(imax(imin(s.I(L_AE_REQ_N)[q], src_len - prev), 0),
+        nent = still ? imin(imax(imin(I<L_AE_REQ_N>(s)[q], src_len - prev), 0),
                             ae_max)
                      : 0;
         int first_conf = kBig;
-        for (int e = 0; e < ae_max; ++e) {
+#pragma unroll
+        for (int e = 0; e < ae_lim; ++e) {
+          if (e >= ae_max) break;
           const int a = prev + e + 1;
           bool inb = success && e < nent && a > my_base && a <= my_base + cap;
           if (p.bug == kNoTruncate) inb = inb && a > len;
           const int k = slot(a, cap);
           const int et = log_term[ps * cap + k];
-          s.I(S_ENT_T)[d * ae_max + e] = et;
-          s.I(S_ENT_V)[d * ae_max + e] = log_val[ps * cap + k];
+          I<S_ENT_T>(s)[d * ent + e] = et;
+          I<S_ENT_V>(s)[d * ent + e] = log_val[ps * cap + k];
           if (inb) {
             in_batch |= uint64_t{1} << e;
             if (a <= len && log_term[d * cap + k] != et) {
@@ -615,164 +1020,181 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
           }
         }
         if (conflict)
-          durable_len[d] = imin(durable_len[d], first_conf - 1);
+          o.durable_len = imin(o.durable_len, first_conf - 1);
         // ring overflow: drop the tail
         batch_end = imin(prev + nent, my_base + cap);
-        ae_commit = s.I(L_AE_REQ_COMMIT)[q];
+        ae_commit = I<L_AE_REQ_COMMIT>(s)[q];
       }
     }
     __syncwarp();  // the senders' logs are read
     if (node && ps >= 0) {
-      for (int e = 0; e < ae_max; ++e) {
+#pragma unroll
+      for (int e = 0; e < ae_lim; ++e) {
+        if (e >= ae_max) break;
         if (!(in_batch >> e & 1)) continue;
         const int k = slot(prev + e + 1, cap);
-        log_term[d * cap + k] = s.I(S_ENT_T)[d * ae_max + e];
-        log_val[d * cap + k] = s.I(S_ENT_V)[d * ae_max + e];
+        log_term[d * cap + k] = I<S_ENT_T>(s)[d * ent + e];
+        log_val[d * cap + k] = I<S_ENT_V>(s)[d * ent + e];
       }
       if (success) {
         log_len[d] = conflict ? batch_end : imax(log_len[d], batch_end);
         commit[d] = imax(commit[d], imin(ae_commit, batch_end));
       }
-      // failure hint for fast backtracking (term skip)
-      int hint;
-      if (prev > log_len[d]) {
-        hint = log_len[d];
-      } else {
-        const int conf_term = term_at(log_term, snap_term, base, d, prev, cap);
-        int first_abs = kBig;
-        for (int k = 0; k < cap; ++k) {
-          const int a = lane_abs(base[d], k, cap);
-          if (a <= log_len[d] && log_term[d * cap + k] == conf_term)
+    }
+    __syncwarp();  // the receivers' logs are written
+    // failure hint for fast backtracking (term skip), which only a failed
+    // append sends: the first index of the conflicting term in the
+    // receiver's ring, the warp scanning the ring of each receiver that
+    // needs one
+    const bool scan = node && ps >= 0 && !success && prev <= log_len[d];
+    const int conf_term =
+        scan ? term_at(log_term, snap_term, base, d, prev, cap) : 0;
+    int hint = node && ps >= 0 ? log_len[d] : 0;
+    // every tile steps while any has a receiver left (the shuffles and
+    // reductions run on the whole warp)
+    for (unsigned pend = tile.ballot(scan); tile.any_lane(pend != 0u);
+         pend &= pend - 1u) {
+      const int j = pend ? __ffs(pend) - 1 : 0;
+      const int ct = tile.shfl(conf_term, j);
+      const int bj = base[j], lj = log_len[j];
+      int first_abs = kBig;
+#pragma unroll
+      for (int k0 = 0; k0 < cap; k0 += TILE) {
+        const int k = k0 + lane;
+        if (k < cap) {
+          const int a = lane_abs(bj, k, cap);
+          if (a <= lj && log_term[j * cap + k] == ct)
             first_abs = imin(first_abs, a);
         }
-        hint = imax(first_abs < kBig ? first_abs - 1 : base[d], base[d]);
       }
+      first_abs = tile.min(first_abs);
+      if (pend && lane == j)
+        hint = imax(first_abs < kBig ? first_abs - 1 : bj, bj);
+    }
+    __syncwarp();  // the receivers' rings are read
+    if (node && ps >= 0) {
       const int rsp_match = success ? batch_end : hint;
       if (p.bug != kAckBeforeFsync) {
-        durable_len[d] = log_len[d];
-        durable_term[d] = term[d];
-        durable_voted_for[d] = voted_for[d];
+        o.durable_len = log_len[d];
+        o.durable_term = term[d];
+        o.durable_voted_for = o.voted_for;
       }
       // keep-oldest: an occupied response slot keeps its message
       const uint32_t wn = word(D_AE_RSP_NET, d);
       const int r = ps * n + d;
-      if (!lost(wn, kf) && s.I(L_AE_RSP_T)[r] == 0) {
-        s.I(L_AE_RSP_T)[r] = t + net_delay(wn, ki) * limp[d];
-        s.I(L_AE_RSP_TERM)[r] = term[d];
-        s.B(L_AE_RSP_SUCCESS)[r] = success;
-        s.I(L_AE_RSP_MATCH)[r] = rsp_match;
+      if (!lost(wn, kf) && I<L_AE_RSP_T>(s)[r] == 0) {
+        I<L_AE_RSP_T>(s)[r] = wadd(t, net_delay(wn, ki) * limp[d]);
+        I<L_AE_RSP_TERM>(s)[r] = term[d];
+        B<L_AE_RSP_SUCCESS>(s)[r] = success;
+        I<L_AE_RSP_MATCH>(s)[r] = rsp_match;
       }
     }
   }
-  __syncwarp();
+  clk.mark(P_AE_REQ);
 
-  // ------- election win, timers, client injection, heartbeat (542-601)
+  // ------- election win, timers, client injection, heartbeat (553-612)
+  bool fired = false, inject = false, lead = false, fire_hb = false;
   if (node) {
-    int nvotes = 0;
-    for (int j = 0; j < n; ++j) nvotes += votes[d * n + j];
-    if (alive[d] && role[d] == kCandidate && nvotes >= ki[KI_MAJORITY]) {
+    if (bit(alive, d) && role[d] == kCandidate &&
+        __popc(o.votes) >= ki[KI_MAJORITY]) {
       role[d] = kLeader;
       for (int j = 0; j < n; ++j) {
         next_idx[d * n + j] = log_len[d] + 1;
         match_idx[d * n + j] = 0;
       }
-      hb[d] = 0;
+      o.hb = 0;
       if (log_len[d] - base[d] < cap) {  // the current-term no-op
         const int k = slot(log_len[d] + 1, cap);
         log_term[d * cap + k] = term[d];
         log_val[d * cap + k] = kNoopCmd;
-        durable_len[d] = ++log_len[d];
+        o.durable_len = ++log_len[d];
       }
     }
-    // election timeout (557-568)
-    const bool running = alive[d] && role[d] != kLeader;
-    if (running) --timer[d];
-    const bool fired = running && timer[d] <= 0;
+    // election timeout (568-579)
+    const bool running = bit(alive, d) && role[d] != kLeader;
+    if (running) --o.timer;
+    fired = running && o.timer <= 0;
     if (fired) {
       ++term[d];
       role[d] = kCandidate;
-      voted_for[d] = me;
-      for (int j = 0; j < n; ++j) votes[d * n + j] = j == d;
-      timer[d] = randint(word(D_ELECT_TMR, d), ki[KI_ETO_MIN],
-                         ki[KI_ETO_MAX] + 1) + skew;
-      durable_term[d] = term[d];
-      durable_voted_for[d] = voted_for[d];
-      durable_len[d] = log_len[d];
+      o.voted_for = me;
+      o.votes = 1u << d;
+      o.timer = randint(word(D_ELECT_TMR, d), ki[KI_ETO_MIN],
+                        ki[KI_ETO_MAX] + 1) + skew;
+      o.durable_term = term[d];
+      o.durable_voted_for = o.voted_for;
+      o.durable_len = log_len[d];
     }
-    s.I(S_FIRED)[d] = fired;
-    s.I(S_LLI)[d] = log_len[d];  // what a vote request carries: pre-inject
-    s.I(S_LLT)[d] = log_len[d] > base[d]
+    I<S_LLI>(s)[d] = log_len[d];  // what a vote request carries: pre-inject
+    I<S_LLT>(s)[d] = log_len[d] > base[d]
                         ? log_term[d * cap + slot(log_len[d], cap)]
                         : snap_term[d];
-    // client command injection at leaders (581-596)
-    const bool lead = alive[d] && role[d] == kLeader;
-    const bool inject = lead && u01(word(D_CLIENT, d)) < kf[KF_P_CLIENT_CMD] &&
-                        log_len[d] - base[d] < cap &&
-                        log_len[d] - commit[d] < ki[KI_FLOW_CAP];
+    // client command injection at leaders (592-607)
+    lead = bit(alive, d) && role[d] == kLeader;
+    inject = lead && u01(word(D_CLIENT, d)) < kf[KF_P_CLIENT_CMD] &&
+             log_len[d] - base[d] < cap &&
+             log_len[d] - commit[d] < ki[KI_FLOW_CAP];
     if (inject) {
       const int k = slot(log_len[d] + 1, cap);
       log_term[d * cap + k] = term[d];
-      log_val[d * cap + k] = s.I(L_NEXT_CMD)[0] * n + me + 1;
-      durable_len[d] = ++log_len[d];
+      log_val[d * cap + k] = I<L_NEXT_CMD>(s)[0] * n + me + 1;
+      o.durable_len = ++log_len[d];
     }
-    s.I(S_INJECT)[d] = inject;
-    // heartbeat (599-601)
-    if (lead) --hb[d];
-    const bool fire_hb = lead && hb[d] <= 0;
-    if (fire_hb) hb[d] = ki[KI_HEARTBEAT_TICKS];
-    s.I(S_LEAD)[d] = lead;
-    s.I(S_FIRE_HB)[d] = fire_hb;
+    // heartbeat (610-612)
+    if (lead) --o.hb;
+    fire_hb = lead && o.hb <= 0;
+    if (fire_hb) o.hb = ki[KI_HEARTBEAT_TICKS];
   }
-  __syncwarp();
+  const unsigned fired_m = tile.ballot(fired);
+  const unsigned lead_m = tile.ballot(lead);
+  const unsigned fire_hb_m = tile.ballot(fire_hb);
+  const bool any_inject = tile.ballot(inject) != 0u;
+  __syncwarp();  // the candidates' and leaders' values are written
+  clk.mark(P_ELECT);
 
-  // ------------- sends per (dst, src): vote requests (573-579), append
-  // entries and install-snapshot from leaders (602-632)
-  {
-    for (int q = lane; q < nn; q += kWarp) {
-      const int dst = q / n, src = q % n;
-      const bool link = dst != src && adj[q];
-      uint32_t wn = word(D_RV_REQ_NET, q);
-      if (s.I(S_FIRED)[src] && link && !lost(wn, kf)) {
-        s.I(L_RV_REQ_T)[q] = t + net_delay(wn, ki) * limp[src];
-        s.I(L_RV_REQ_TERM)[q] = term[src];
-        s.I(L_RV_REQ_LLI)[q] = s.I(S_LLI)[src];
-        s.I(L_RV_REQ_LLT)[q] = s.I(S_LLT)[src];
-      }
-      const int r = src * n + dst;  // the leader's next index for dst
-      const int next_t = next_idx[r];
-      const bool need_snap = next_t <= base[src];
-      const int prev_m = next_t - 1;
-      wn = word(D_AE_REQ_NET, q);
-      const bool pending = s.I(S_LEAD)[src] && next_t <= log_len[src];
-      if ((s.I(S_FIRE_HB)[src] || pending) && link && !lost(wn, kf) &&
-          !need_snap && s.I(L_AE_REQ_T)[q] == 0) {
-        s.I(L_AE_REQ_T)[q] = t + net_delay(wn, ki) * limp[src];
-        s.I(L_AE_REQ_TERM)[q] = term[src];
-        s.I(L_AE_REQ_PREV)[q] = prev_m;
-        s.I(L_AE_REQ_PREV_TERM)[q] =
-            prev_m > base[src] ? log_term[src * cap + slot(prev_m, cap)]
-                               : snap_term[src];
-        s.I(L_AE_REQ_N)[q] = imin(imax(log_len[src] - prev_m, 0), ae_max);
-        s.I(L_AE_REQ_COMMIT)[q] = commit[src];
-      }
-      wn = word(D_SN_REQ_NET, q);
-      if (s.I(S_FIRE_HB)[src] && link && !lost(wn, kf) && need_snap &&
-          s.I(L_SN_REQ_T)[q] == 0) {
-        s.I(L_SN_REQ_T)[q] = t + net_delay(wn, ki) * limp[src];
-        s.I(L_SN_REQ_TERM)[q] = term[src];
-        next_idx[r] = base[src] + 1;
-      }
+  // ------------- sends per (dst, src): vote requests (584-590), append
+  // entries and install-snapshot from leaders (613-643)
+  for (int q = lane; q < nn; q += TILE) {
+    const int dst = q / n, src = q - dst * n;
+    const bool link = dst != src && adj[q];
+    uint32_t wn = word(D_RV_REQ_NET, q);
+    if (bit(fired_m, src) && link && !lost(wn, kf)) {
+      I<L_RV_REQ_T>(s)[q] = wadd(t, net_delay(wn, ki) * limp[src]);
+      I<L_RV_REQ_TERM>(s)[q] = term[src];
+      I<L_RV_REQ_LLI>(s)[q] = I<S_LLI>(s)[src];
+      I<L_RV_REQ_LLT>(s)[q] = I<S_LLT>(s)[src];
     }
-    if (lane == 0) {
-      int any = 0;
-      for (int j = 0; j < n; ++j) any |= s.I(S_INJECT)[j];
-      s.I(L_NEXT_CMD)[0] += any;
+    const int r = src * n + dst;  // the leader's next index for dst
+    const int next_t = next_idx[r];
+    const bool need_snap = next_t <= base[src];
+    const int prev_m = next_t - 1;
+    wn = word(D_AE_REQ_NET, q);
+    const bool pending = bit(lead_m, src) && next_t <= log_len[src];
+    if ((bit(fire_hb_m, src) || pending) && link && !lost(wn, kf) &&
+        !need_snap && I<L_AE_REQ_T>(s)[q] == 0) {
+      I<L_AE_REQ_T>(s)[q] = wadd(t, net_delay(wn, ki) * limp[src]);
+      I<L_AE_REQ_TERM>(s)[q] = term[src];
+      I<L_AE_REQ_PREV>(s)[q] = prev_m;
+      I<L_AE_REQ_PREV_TERM>(s)[q] =
+          prev_m > base[src] ? log_term[src * cap + slot(prev_m, cap)]
+                             : snap_term[src];
+      I<L_AE_REQ_N>(s)[q] = imin(imax(log_len[src] - prev_m, 0), ae_max);
+      I<L_AE_REQ_COMMIT>(s)[q] = commit[src];
+    }
+    wn = word(D_SN_REQ_NET, q);
+    if (bit(fire_hb_m, src) && link && !lost(wn, kf) && need_snap &&
+        I<L_SN_REQ_T>(s)[q] == 0) {
+      I<L_SN_REQ_T>(s)[q] = wadd(t, net_delay(wn, ki) * limp[src]);
+      I<L_SN_REQ_TERM>(s)[q] = term[src];
+      next_idx[r] = base[src] + 1;
     }
   }
-  __syncwarp();
+  if (lane == 0) I<L_NEXT_CMD>(s)[0] += any_inject;
+  __syncwarp();  // the leaders' commits are read
+  clk.mark(P_SENDS);
 
-  // ---------------------------------- commit advance (step.py 634-647)
-  if (node && s.I(S_LEAD)[d]) {
+  // ---------------------------------- commit advance (step.py 645-658)
+  if (node && bit(lead_m, d)) {
     // the rank-th largest of the row, log_len on the diagonal
     const int rank = imin(imax(ki[KI_MAJORITY] - 1, 0), n - 1);
     int kth = 0;
@@ -792,142 +1214,230 @@ __device__ void tick(const Params &p, const Block &s, const long long *w,
     if (ok) commit[d] = imax(commit[d], kth);
   }
   __syncwarp();
+  clk.mark(P_COMMIT);
 
-  // -------------------------------- oracle (step.py 649-656; oracle.py)
+  // -------------------------------- oracle (step.py 660-667; oracle.py)
   {
     int viol = 0, xh = 0;
-    if (node) {
-      const bool lead = alive[d] && role[d] == kLeader;
-      for (int j = 0; j < n; ++j) {
-        if (j == d) continue;
-        if (lead && alive[j] && role[j] == kLeader && term[j] == term[d])
-          viol |= kViolDual;
-        if (alive[d] && alive[j] && base[d] == base[j] && base[d] > 0 &&
-            prefix_hash[d] != prefix_hash[j])
-          viol |= kViolPrefix;
-      }
-      if (alive[d] && base[d] == s.I(L_SHADOW_BASE)[0] && base[d] > 0 &&
-          prefix_hash[d] != s.I(L_SHADOW_PREFIX_HASH)[0])
+    {
+      // two live leaders in one term; two live nodes at one snapshot
+      // boundary with other prefix hashes. A match gives the tile's lanes
+      // holding the same key; a lane out of the check holds a key no
+      // node's can equal
+      const uint64_t other = (uint64_t{1} << 32) | static_cast<uint32_t>(lane);
+      const bool lead_d = node && bit(alive, d) && role[d] == kLeader;
+      const unsigned same_term = tile.match(
+          lead_d ? static_cast<uint64_t>(static_cast<uint32_t>(term[d]))
+                 : other);
+      if (lead_d && __popc(same_term) > 1) viol |= kViolDual;
+      const bool snap_d = node && bit(alive, d) && base[d] > 0;
+      const uint64_t b64 = static_cast<uint32_t>(snap_d ? base[d] : 0);
+      const unsigned same_base = tile.match(snap_d ? b64 : other);
+      const unsigned same_hash = tile.match(
+          snap_d ? b64 << 32 | static_cast<uint32_t>(prefix_hash[d])
+                 : static_cast<uint64_t>(lane));
+      if (snap_d && (same_base & ~same_hash) != 0u) viol |= kViolPrefix;
+      if (snap_d && base[d] == I<L_SHADOW_BASE>(s)[0] &&
+          prefix_hash[d] != I<L_SHADOW_PREFIX_HASH>(s)[0])
         viol |= kViolPrefix;
     }
-    // log matching over each unordered pair's ring overlap
-    const int pairs = n * (n - 1) / 2;
-    for (int q = lane; q < pairs; q += kWarp) {
-      int i = 0, r = q;
-      while (r >= n - 1 - i) r -= n - 1 - i, ++i;
-      const int j = i + 1 + r;
-      int min_bad = kBig, max_tm = 0;
-      for (int k = 0; k < cap; ++k) {
-        const int a = lane_abs(base[i], k, cap);
-        if (a != lane_abs(base[j], k, cap) || a > log_len[i] || a > log_len[j])
-          continue;
-        const bool t_eq = log_term[i * cap + k] == log_term[j * cap + k];
-        const bool v_eq = log_val[i * cap + k] == log_val[j * cap + k];
-        if (t_eq) max_tm = imax(max_tm, a);
-        if (!(t_eq && v_eq)) min_bad = imin(min_bad, a);
-      }
-      if (min_bad <= max_tm) viol |= kViolLogMatch;
-    }
     // commit durability: slide the shadow window, fold what slid out, then
-    // walk the nodes in order over each ring lane
-    const int sb = s.I(L_SHADOW_BASE)[0], sl0 = s.I(L_SHADOW_LEN)[0];
-    int need = 0;
-    for (int j = 0; j < n; ++j)
-      if (alive[j]) need = imax(need, commit[j]);
-    const int new_base = imax(sb, need - cap);
-    int *st = s.I(L_SHADOW_TERM), *sv = s.I(L_SHADOW_VAL);
-    int sl = sl0;
-    for (int k = lane; k < cap; k += kWarp) {
-      const int old_abs = lane_abs(sb, k, cap);
-      if (old_abs <= imin(new_base, sl0))
-        xh ^= entry_mix(st[k], sv[k], old_abs);
-      const int sh_abs = lane_abs(new_base, k, cap);
-      int lt = st[k], lv = sv[k];
-      sl = sl0;
-      for (int i = 0; i < n; ++i) {
-        const int c = commit[i];
-        if (sh_abs == lane_abs(base[i], k, cap)) {
-          const int it = log_term[i * cap + k], iv = log_val[i * cap + k];
-          if (sh_abs <= imin(c, sl) && (lt != it || lv != iv))
-            viol |= kViolShadow;
-          if (sh_abs > sl && sh_abs <= c) lt = it, lv = iv;
-        }
-        sl = imax(sl, c);
-      }
-      st[k] = lt;
-      sv[k] = lv;
+    // walk the nodes in order over each ring lane; log matching over each
+    // unordered pair's ring overlap
+    const int sb = I<L_SHADOW_BASE>(s)[0], sl0 = I<L_SHADOW_LEN>(s)[0];
+    int need = 0, sl = sl0;
+    for (int j = 0; j < n; ++j) {
+      if (bit(alive, j)) need = imax(need, commit[j]);
+      sl = imax(sl, commit[j]);
     }
-    for (int i = 0; i < n; ++i) sl = imax(sl, commit[i]);  // every lane's
-    viol = static_cast<int>(
-        __reduce_or_sync(kFull, static_cast<unsigned>(viol)));
-    xh = xor_all(xh);
-    int any_lead = 0;
-    for (int j = 0; j < n; ++j) any_lead |= alive[j] && role[j] == kLeader;
+    const int new_base = imax(sb, need - cap);
+    if constexpr (N_ > 0 && CAP_ > 0) {
+      viol |= ring_checks<N_, CAP_, TILE>(s, tile, sb, sl0, new_base, xh);
+    } else {
+      // the runtime shape: each lane a few ring slots, the pair's least
+      // mismatch and greatest term match reduced over the warp
+      for (int i = 0; i < n; ++i) {
+        const int bi = base[i], li = log_len[i];
+        for (int j = i + 1; j < n; ++j) {
+          const int bj = base[j], lj = log_len[j];
+          int min_bad = kBig, max_tm = 0;
+          for (int k = lane; k < cap; k += TILE) {
+            const int a = lane_abs(bi, k, cap);
+            if (a == lane_abs(bj, k, cap) && a <= li && a <= lj) {
+              const bool t_eq = log_term[i * cap + k] == log_term[j * cap + k];
+              const bool v_eq = log_val[i * cap + k] == log_val[j * cap + k];
+              if (t_eq) max_tm = imax(max_tm, a);
+              if (!(t_eq && v_eq)) min_bad = imin(min_bad, a);
+            }
+          }
+          min_bad = tile.min(min_bad);
+          max_tm = tile.max(max_tm);
+          if (min_bad <= max_tm) viol |= kViolLogMatch;
+        }
+      }
+      int *st = I<L_SHADOW_TERM>(s), *sv = I<L_SHADOW_VAL>(s);
+      for (int k = lane; k < cap; k += TILE) {
+        const int old_abs = lane_abs(sb, k, cap);
+        if (old_abs <= imin(new_base, sl0))
+          xh ^= entry_mix(st[k], sv[k], old_abs);
+        const int sh_abs = lane_abs(new_base, k, cap);
+        int lt = st[k], lv = sv[k], slw = sl0;
+        for (int i = 0; i < n; ++i) {
+          const int c = commit[i];
+          if (sh_abs == lane_abs(base[i], k, cap)) {
+            const int it = log_term[i * cap + k], iv = log_val[i * cap + k];
+            if (sh_abs <= imin(c, slw) && (lt != it || lv != iv))
+              viol |= kViolShadow;
+            if (sh_abs > slw && sh_abs <= c) lt = it, lv = iv;
+          }
+          slw = imax(slw, c);
+        }
+        st[k] = lt;
+        sv[k] = lv;
+      }
+    }
+    viol = tile.any_bits(viol);
+    xh = tile.xor_all(xh);
     __syncwarp();  // the old shadow scalars are read
     if (lane == 0) {
-      s.I(L_SHADOW_BASE)[0] = new_base;
-      s.I(L_SHADOW_LEN)[0] = sl;
-      s.I(L_SHADOW_PREFIX_HASH)[0] ^= xh;
-      s.I(L_VIOLATIONS)[0] |= viol;
-      int *fvt = s.I(L_FIRST_VIOLATION_TICK), *flt = s.I(L_FIRST_LEADER_TICK);
+      I<L_SHADOW_BASE>(s)[0] = new_base;
+      I<L_SHADOW_LEN>(s)[0] = sl;
+      I<L_SHADOW_PREFIX_HASH>(s)[0] ^= xh;
+      I<L_VIOLATIONS>(s)[0] |= viol;
+      int *fvt = I<L_FIRST_VIOLATION_TICK>(s), *flt = I<L_FIRST_LEADER_TICK>(s);
       if (fvt[0] < 0 && viol != 0) fvt[0] = t;
-      if (flt[0] < 0 && any_lead) flt[0] = t;
+      if (flt[0] < 0 && lead_m != 0u) flt[0] = t;
     }
   }
   __syncwarp();
+  clk.mark(P_ORACLE);
 
-  // ------------------ compaction (680-694), background fsync (696-711)
-  if (node) {
-    const int boundary = ki[KI_COMPACT_AT_COMMIT]
-                             ? commit[d]
-                             : imin(compact_floor[d], commit[d]);
-    if (alive[d] && boundary - base[d] >= ki[KI_COMPACT_EVERY]) {
-      const int snap = term_at(log_term, snap_term, base, d, boundary, cap);
-      int h = 0;
-      for (int k = 0; k < cap; ++k) {
-        const int a = lane_abs(base[d], k, cap);
-        if (a <= boundary)
-          h ^= entry_mix(log_term[d * cap + k], log_val[d * cap + k], a);
+  // ------------------ compaction (691-705), background fsync (707-722)
+  {
+    int boundary = 0;
+    bool compact = false;
+    if (node) {
+      boundary = ki[KI_COMPACT_AT_COMMIT]
+                     ? commit[d]
+                     : imin(o.compact_floor, commit[d]);
+      compact = bit(alive, d) && boundary - base[d] >= ki[KI_COMPACT_EVERY];
+    }
+    // the prefix hash of each compacting node's cut, the warp over its ring
+    int h = 0;
+    for (unsigned pend = tile.ballot(compact); tile.any_lane(pend != 0u);
+         pend &= pend - 1u) {
+      const int j = pend ? __ffs(pend) - 1 : 0;
+      const int bd = tile.shfl(boundary, j);
+      const int bj = base[j];
+      int x = 0;
+#pragma unroll
+      for (int k0 = 0; k0 < cap; k0 += TILE) {
+        const int k = k0 + lane;
+        if (k < cap) {
+          const int a = lane_abs(bj, k, cap);
+          if (a <= bd)
+            x ^= entry_mix(log_term[j * cap + k], log_val[j * cap + k], a);
+        }
       }
-      prefix_hash[d] ^= h;
-      snap_term[d] = snap;
-      base[d] = boundary;
-      durable_len[d] = imax(durable_len[d], boundary);
+      x = tile.xor_all(x);
+      if (pend && lane == j) h = x;
     }
-    const bool stall_on = alive[d] && ki[KI_FSYNC_STALL_TICKS] >= 1 &&
-                          bern8(word(D_SNAP_TMR, d), kf[KF_P_FSYNC_STALL]);
-    int stall;
-    if (s.I(S_RESTART)[d])
-      stall = 0;
-    else if (stall_on)
-      stall = randint8(word(D_GRANT_TMR, d), 1, ki[KI_FSYNC_STALL_TICKS]);
-    else
-      stall = imax(fsync_stall[d] - 1, 0);
-    fsync_stall[d] = stall;
-    if (alive[d] && (t + me) % ki[KI_FSYNC_EVERY] == 0 && stall == 0) {
-      durable_len[d] = log_len[d];
-      durable_term[d] = term[d];
-      durable_voted_for[d] = voted_for[d];
+    __syncwarp();  // the rings and bases are read
+    if (node) {
+      if (compact) {
+        const int snap = term_at(log_term, snap_term, base, d, boundary, cap);
+        prefix_hash[d] ^= h;
+        snap_term[d] = snap;
+        base[d] = boundary;
+        o.durable_len = imax(o.durable_len, boundary);
+      }
+      const bool stall_on = bit(alive, d) && ki[KI_FSYNC_STALL_TICKS] >= 1 &&
+                            bern8(word(D_SNAP_TMR, d), kf[KF_P_FSYNC_STALL]);
+      if (restart)
+        o.fsync_stall = 0;
+      else if (stall_on)
+        o.fsync_stall =
+            randint8(word(D_GRANT_TMR, d), 1, ki[KI_FSYNC_STALL_TICKS]);
+      else
+        o.fsync_stall = imax(o.fsync_stall - 1, 0);
+      if (bit(alive, d) && wadd(t, me) % ki[KI_FSYNC_EVERY] == 0 &&
+          o.fsync_stall == 0) {
+        o.durable_len = log_len[d];
+        o.durable_term = term[d];
+        o.durable_voted_for = o.voted_for;
+      }
     }
   }
-  delivered = __reduce_add_sync(kFull, delivered);
-  installs = __reduce_add_sync(kFull, installs);
-  __syncwarp();
-  if (lane == 0) {
-    s.I(L_MSG_COUNT)[0] += delivered;
-    s.I(L_SNAP_INSTALL_COUNT)[0] += installs;
-    s.I(L_TICK)[0] = t;
-  }
-  __syncwarp();
+  if (lane == 0) I<L_TICK>(s)[0] = t;
+  __syncwarp();  // the tick's words and scalars are read
+  clk.mark(P_COMPACT);
 }
 
-// The chunk for cluster b: stage in, m ticks, stage out
-__device__ void run_cluster(const Params &p, uint8_t *cl, int b, int lane) {
-  const Block s{p, cl};
-  stage(p, s, b, lane, true);
-  for (int i = 0; i < p.m; ++i)
-    tick(p, s, p.words + (static_cast<size_t>(i) * p.b + b) * p.total, lane);
-  stage(p, s, b, lane, false);
+// The chunk for cluster b on a tile: stage in, m ticks, stage out (a
+// tile past the batch's end, !active, runs a copy of the last cluster and
+// writes nothing); the profile instance writes its per-phase sums to
+// prof[b, kPhases]
+template <int N_, int CAP_, int AE_, int TILE, bool kProf>
+__device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
+                            const Tile<TILE> &tile, long long *prof) {
+  const Block<N_, CAP_, AE_> s{p, cl};
+  const int n = N_ ? N_ : p.n, lane = tile.lane;
+  Clock<kProf> clk;
+  clk.start();
+  stage<TILE>(p, s, b, lane, true, active);
+  Own o;
+  if (lane < n) own_load(s, o, lane, n);
+  unsigned alive = tile.ballot(lane < n && B<L_ALIVE>(s)[lane]);
+  TickKeys<TILE> keys{
+      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]),
+      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]),
+      static_cast<uint32_t>(I<L_TICK>(s)[0]) + 1u};
+  clk.mark(P_STAGE);
+  for (int i = 0; i < p.m; ++i) {
+    uint32_t tk0, tk1;
+    keys.get(i, tile, tk0, tk1);
+    tick<N_, CAP_, AE_, TILE, kProf>(p, s, o, alive, tile, clk, tk0, tk1);
+  }
+  if (lane < n) own_store(s, o, lane, n);
+  const int delivered = tile.sum(o.delivered);
+  const int installs = tile.sum(o.installs);
+  if (lane == 0) {  // the chunk's deliveries and installs (int32 wrap)
+    I<L_MSG_COUNT>(s)[0] = wadd(I<L_MSG_COUNT>(s)[0], delivered);
+    I<L_SNAP_INSTALL_COUNT>(s)[0] =
+        wadd(I<L_SNAP_INSTALL_COUNT>(s)[0], installs);
+  }
+  __syncwarp();
+  stage<TILE>(p, s, b, lane, false, active);
+  clk.mark(P_STAGE);
+  if constexpr (kProf) {
+    if (lane == 0 && active)
+      for (int i = 0; i < kPhases; ++i) prof[b * kPhases + i] = clk.acc[i];
+  }
+}
+
+// The chunk's draw words alone, drawn as run_cluster draws them, for
+// cluster b from tick t1 on into words [m, B, total] (the host build's
+// tests hold them against the plain draw)
+template <int N_, int TILE>
+__device__ void draw_chunk(const Params &p, uint8_t *cl, int b, int t1,
+                           bool active, const Tile<TILE> &tile,
+                           uint32_t *words) {
+  const Block<0, 0, 0> s{p, cl};  // the words' slot by its runtime offset
+  const int total = N_ ? draw_offset(kDraws, N_) : p.total;
+  TickKeys<TILE> keys{
+      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]),
+      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]),
+      static_cast<uint32_t>(t1)};
+  for (int i = 0; i < p.m; ++i) {
+    uint32_t tk0, tk1;
+    keys.get(i, tile, tk0, tk1);
+    draw_words<N_, TILE>(p, U<S_WORDS>(s), tk0, tk1, tile.lane);
+    __syncwarp();
+    uint32_t *row = words + (static_cast<size_t>(i) * p.b + b) * total;
+    for (int j = tile.lane; active && j < total; j += TILE)
+      row[j] = U<S_WORDS>(s)[j];
+    __syncwarp();
+  }
 }
 
 }  // namespace k6

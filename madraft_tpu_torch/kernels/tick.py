@@ -1,25 +1,33 @@
-"""Kernel K6: a chunk of raft ticks for a batch of clusters, one launch.
+"""Kernel K6: a chunk of raft ticks for a batch of clusters, one launch,
+the tick's threefry words drawn inside it.
 
 Replaces the rest of the JAX reference's tick (B2-rest),
 ``madraft_tpu/tpusim/step.py`` ``step_cluster`` lines 293-960 and
 1082-1156: faults, the five delivery passes, election win, timers, client
 injection, heartbeat and replication, commit advance, compaction and
-fsync, with the oracle block (961-1081) run inside it as device code.
+fsync, with the oracle block (961-1081) and the tick's draw
+(``_DrawBlock.__init__``, step.py:128) run inside it as device code.
 ``tick_chunk`` runs ``m`` ticks in a row for every cluster with the
 metrics plane off; the port's twin is ``tpusim/step.py`` ``step_cluster``.
 Sources: ``csrc/tick.cu`` (the kernel and its launch, with the note on its
-bound) and ``csrc/tick.cuh`` (the tick's device code).
+bound and design) and ``csrc/tick.cuh`` (the tick's device code).
 
-The kernel reads K1's chunk of draw words as it is (``[m, B, total]``
-int64-held u32 words), the state leaves of ``LEAVES`` and the knobs as one
-float32 and one int32 ``[B, k]`` table (``knob_table``), and takes the
-offset of each draw in a tick's words from ``draw_offsets``. The planted
-bug is the index of ``cfg.bug`` in ``config.RAFT_BUGS``.
+The kernel reads the clusters' keys (``[B, 2]`` int64-held u32), the state
+leaves of ``LEAVES`` and the knobs as one float32 and one int32 ``[B, k]``
+table (``knob_table``, which a caller running several chunks builds once
+and passes as ``table``). It hashes each tick's words itself, under
+``prng.partitionable()``'s counter layout, and checks the offset of each
+draw in them against ``draw_offsets``. The planted bug is the index of
+``cfg.bug`` in ``config.RAFT_BUGS``. The shapes in ``SHAPES`` (with
+``ae_max <= SHAPE_AE``) run a template instance compiled for them, every
+other shape a runtime one.
 
-On CPU tensors ``tick_chunk`` runs ``tick_chunk_plain``, which loops
-``step.step_cluster`` over the chunk; on CUDA tensors it launches K6 or
-raises. ``tick_chunk.launches`` counts launches. The result is one fresh
-allocation of the state (the callers keep their input).
+On CPU tensors ``tick_chunk`` runs ``tick_chunk_plain``: the chunk's words
+from ``threefry.tick_blocks_plain``, then ``step.step_cluster`` once a
+tick; on CUDA tensors it launches K6 or raises. ``tick_chunk.launches``
+counts launches. The result is one fresh allocation of the state (the
+callers keep their input). ``tick_chunk_profiled`` runs the profile build
+(clock64() cycles per phase group of ``PHASES``), for ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -31,13 +39,18 @@ import numpy as np
 import torch
 
 from madraft_tpu_torch import _build
-from madraft_tpu_torch.tpusim import step
+from madraft_tpu_torch.kernels import threefry
+from madraft_tpu_torch.tpusim import prng, step
 from madraft_tpu_torch.tpusim.config import RAFT_BUGS, Knobs, SimConfig
 from madraft_tpu_torch.tpusim.state import ClusterState, METRIC_LEAF0
 
 MAX_NODES = 16
 MAX_CAP = 256
 MAX_AE = 64  # the kernel keeps a delivery's in-batch entries as one u64 mask
+# (n, cap) of the template instances (csrc/tick.cuh shape_n / shape_cap),
+# each for ae_max <= SHAPE_AE; instance i + 1, the runtime instance 0
+SHAPES = ((3, 16), (3, 64), (5, 16), (5, 64), (7, 16), (7, 64))
+SHAPE_AE = 4
 
 # Per-lane shape classes of csrc/tick.cuh (kOne .. kCap)
 ONE, N, NC, NN, C = range(5)
@@ -81,6 +94,12 @@ DRAWS = (
     ("sn_req_net", NN),
 )
 
+# The profile instance's phase groups (csrc/tick.cuh Phase): staging in and
+# out, the tick's draws, the faults, the five delivery passes, election /
+# timers / injection, the sends, commit, the oracle, compaction and fsync
+PHASES = ("stage", "draws", "faults", "rv_rsp", "ae_rsp", "snap", "rv_req",
+          "ae_req", "elect", "sends", "commit", "oracle", "compact")
+
 # The knob table's columns: the float32 knobs, then the int32 and bool
 # ones (a bool as 0 / 1), each in Knobs field order
 KNOB_F32 = ("loss_prob", "p_crash", "p_restart", "p_repartition", "p_heal",
@@ -115,27 +134,44 @@ def knob_table(kn: Knobs, b: int) -> tuple:
     return f, i
 
 
+def instance(cfg: SimConfig) -> int:
+    """The template instance that runs cfg's shape: 1 + its index in
+    SHAPES, or 0 for the runtime one."""
+    shape = (cfg.n_nodes, cfg.log_cap)
+    if cfg.ae_max > SHAPE_AE or shape not in SHAPES:
+        return 0
+    return 1 + SHAPES.index(shape)
+
+
 def tick_chunk_plain(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-                     kn: Knobs, words: torch.Tensor) -> ClusterState:
-    """The chunk as the eager tick runs it: ``step.step_cluster`` once per
-    tick, on that tick's ``[B, total]`` slice of ``words``."""
-    for i in range(words.shape[0]):
+                     kn: Knobs, m: int) -> ClusterState:
+    """The chunk as the eager tick runs it: the words of the m ticks from
+    each cluster's own tick on (``threefry.tick_blocks_plain`` under
+    ``prng.partitionable()``), then ``step.step_cluster`` once a tick on
+    its ``[B, total]`` slice."""
+    words = threefry.tick_blocks_plain(
+        keys, state.tick + 1, m, step._block_total(cfg.n_nodes),
+        prng.partitionable())
+    for i in range(m):
         state = step.step_cluster(cfg, state, keys, kn, words=words[i])
     return state
 
 
-def _lib():
-    lib = _build.library("tick")
+def _lib(name: str = "tick"):
+    lib = _build.library(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tick_launch.argtypes = [p, p, p, i, p, p, p, p, i,
-                                    i, i, i, i, i, i, p]
+        args = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.tick_launch.argtypes = args
         lib.tick_launch.restype = ctypes.c_int
+        if name == "tick_profile":
+            lib.tick_launch_profile.argtypes = args + [p]
+            lib.tick_launch_profile.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def _check(cfg: SimConfig, state: ClusterState, words: torch.Tensor) -> None:
+def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor) -> None:
     n, cap = cfg.n_nodes, cfg.log_cap
     if cfg.metrics:
         raise ValueError("tick_chunk runs the tick with the metrics plane "
@@ -151,19 +187,20 @@ def _check(cfg: SimConfig, state: ClusterState, words: torch.Tensor) -> None:
             raise ValueError(
                 f"tick_chunk: {name} is {tuple(x.shape)} {x.dtype} on "
                 f"{x.device}, expected {shape} {dtype} on {dev}")
-    total = step._block_total(n)
-    if (words.device != dev or words.dtype != torch.int64 or words.dim() != 3
-            or tuple(words.shape[1:]) != (b, total)):
+    if (keys.device != dev or keys.dtype != torch.int64
+            or tuple(keys.shape) != (b, 2)):
         raise ValueError(
-            f"tick_chunk: words are {tuple(words.shape)} {words.dtype} on "
-            f"{words.device}, expected [m, {b}, {total}] int64 on {dev}")
+            f"tick_chunk: keys are {tuple(keys.shape)} {keys.dtype} on "
+            f"{keys.device}, expected [{b}, 2] int64 on {dev}")
 
 
-def _launch(cfg: SimConfig, state: ClusterState, kn: Knobs,
-            words: torch.Tensor, lib, stream) -> tuple:
+def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
+            kn: Knobs, m: int, lib, stream, prof=None,
+            table=None) -> tuple:
     """Check the inputs, allocate the new state and launch ``lib``'s
-    ``tick_launch`` on ``stream``; returns (new state, launched)."""
-    _check(cfg, state, words)
+    ``tick_launch`` for m ticks on ``stream`` (``tick_launch_profile``
+    into ``prof`` when given); returns (new state, launched)."""
+    _check(cfg, state, keys)
     dev, b = state.tick.device, state.tick.shape[0]
     n, cap = cfg.n_nodes, cfg.log_cap
     # the new state: one allocation, each leaf a 16-byte aligned view
@@ -178,24 +215,27 @@ def _launch(cfg: SimConfig, state: ClusterState, kn: Knobs,
     for (name, shape_class, dtype), x, at in zip(LEAVES, state, offs):
         size = x.numel() * (1 if dtype == BOOL else 4)
         outs.append(buf[at:at + size].view(dtype).view(x.shape))
-    m = words.shape[0]
     launched = bool(b and m)
     if launched:
         ins = [x if x.is_contiguous() else x.contiguous()
                for x in state[:METRIC_LEAF0]]
-        words = words if words.is_contiguous() else words.contiguous()
-        kf, ki = knob_table(kn.to(dev), b)
+        keys = keys if keys.is_contiguous() else keys.contiguous()
+        kf, ki = knob_table(kn.to(dev), b) if table is None else table
         ptr_in = np.asarray([x.data_ptr() for x in ins], dtype=np.int64)
         ptr_out = np.asarray([y.data_ptr() for y in outs], dtype=np.int64)
         kinds = np.asarray([sc + (8 if dt == BOOL else 0)
                             for _, sc, dt in LEAVES], dtype=np.int32)
         draws = np.asarray([off for _, off, _ in draw_offsets(n)],
                            dtype=np.int32)
-        _build.check(lib.tick_launch(
-            ptr_in.ctypes.data, ptr_out.ctypes.data, kinds.ctypes.data,
-            len(LEAVES), words.data_ptr(), kf.data_ptr(), ki.data_ptr(),
-            draws.ctypes.data, len(draws), b, n, cap, cfg.ae_max, m,
-            RAFT_BUGS.index(cfg.bug), stream), "tick_launch")
+        args = (ptr_in.ctypes.data, ptr_out.ctypes.data, kinds.ctypes.data,
+                len(LEAVES), keys.data_ptr(), kf.data_ptr(), ki.data_ptr(),
+                draws.ctypes.data, len(draws), b, n, cap, cfg.ae_max, m,
+                RAFT_BUGS.index(cfg.bug), int(prng.partitionable()), stream)
+        if prof is None:
+            _build.check(lib.tick_launch(*args), "tick_launch")
+        else:
+            _build.check(lib.tick_launch_profile(*args, prof.data_ptr()),
+                         "tick_launch_profile")
     else:  # nothing to tick: the new state is the old one's copy
         for y, x in zip(outs, state):
             y.copy_(x)
@@ -203,20 +243,35 @@ def _launch(cfg: SimConfig, state: ClusterState, kn: Knobs,
 
 
 def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-               kn: Knobs, words: torch.Tensor) -> ClusterState:
-    """``words.shape[0]`` ticks of every cluster: plain version on the CPU,
-    kernel K6 on CUDA. ``keys`` are the clusters' PRNG keys (the plain
-    version's tick takes them; the kernel reads only ``words``), ``kn``
-    the knobs, each field 0-d or a [B] row."""
+               kn: Knobs, m: int, table=None) -> ClusterState:
+    """m ticks of every cluster: plain version on the CPU, kernel K6 on
+    CUDA. ``keys`` are the clusters' PRNG keys, ``kn`` the knobs, each
+    field 0-d or a [B] row; ``table`` is ``knob_table(kn, B)`` on the
+    device when the caller has it."""
     dev = state.tick.device
     if dev.type == "cpu":
-        return tick_chunk_plain(cfg, state, keys, kn, words)
+        return tick_chunk_plain(cfg, state, keys, kn, m)
     if dev.type != "cuda":
         raise ValueError(f"tick_chunk: expected CPU or CUDA tensors, got {dev}")
-    out, launched = _launch(cfg, state, kn, words, _lib(),
-                            torch.cuda.current_stream(dev).cuda_stream)
+    out, launched = _launch(cfg, state, keys, kn, m, _lib(),
+                            torch.cuda.current_stream(dev).cuda_stream,
+                            table=table)
     tick_chunk.launches += int(launched)
     return out
 
 
 tick_chunk.launches = 0
+
+
+def tick_chunk_profiled(cfg: SimConfig, state: ClusterState,
+                        keys: torch.Tensor, kn: Knobs, m: int) -> tuple:
+    """K6's profile instance on CUDA tensors (a measurement, not counted in
+    ``tick_chunk.launches``): the chunk's new state and each cluster's
+    clock64() cycles per phase group, int64 [B, len(PHASES)]."""
+    dev, b = state.tick.device, state.tick.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"tick_chunk_profiled runs on CUDA, got {dev}")
+    prof = torch.zeros((b, len(PHASES)), dtype=torch.int64, device=dev)
+    out, _ = _launch(cfg, state, keys, kn, m, _lib("tick_profile"),
+                     torch.cuda.current_stream(dev).cuda_stream, prof)
+    return out, prof

@@ -42,10 +42,11 @@ from madraft_tpu_torch.tpusim.state import (
 )
 from madraft_tpu_torch.tpusim.step import _block_total, step_cluster
 
-# Ticks whose draw words one tick_blocks launch makes ahead, and that one
-# K6 launch runs (tick_route). A chunk holds DRAW_CHUNK x B x
-# _block_total(n) int64 words: 139 MB at 32 x 4096 x 133.
+# Ticks whose draw words one tick_blocks launch makes ahead on the eager
+# route (tick_route); K6 draws its own
 DRAW_CHUNK = 32
+# Ticks one K6 launch runs at most (its launches stay a few ms long)
+KERNEL_CHUNK = 256
 
 
 def resolve_device(device=None) -> torch.device:
@@ -141,19 +142,23 @@ def tick_route(cfg: SimConfig, device: torch.device, after_tick=None,
 def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
              kn: Knobs, n_ticks: int, after_tick=None,
              tick: str = "kernel") -> ClusterState:
-    """n_ticks ticks of a wide batch; the draw words come a chunk of
-    DRAW_CHUNK ticks at a time, from each cluster's own tick on. The chunk
-    runs as ``tick_route`` says: one K6 launch, or the eager tick once a
-    tick; ``after_tick(state)``, when given, sees each tick's result."""
+    """n_ticks ticks of a wide batch, each cluster from its own tick on,
+    run as ``tick_route`` says: K6 launches of up to KERNEL_CHUNK ticks
+    (the kernel draws each tick's words; the knob table is built once
+    here), or the eager tick once a tick on draw words made a chunk of
+    DRAW_CHUNK ticks at a time; ``after_tick(state)``, when given, sees
+    each tick's result."""
+    if tick_route(cfg, state.tick.device, after_tick, tick) == "kernel":
+        table = K6.knob_table(kn.to(state.tick.device), state.tick.shape[0])
+        for done in range(0, n_ticks, KERNEL_CHUNK):
+            state = K6.tick_chunk(cfg, state, keys, kn,
+                                  min(KERNEL_CHUNK, n_ticks - done), table)
+        return state
     total = _block_total(cfg.n_nodes)
-    route = tick_route(cfg, state.tick.device, after_tick, tick)
     for done in range(0, n_ticks, DRAW_CHUNK):
         m = min(DRAW_CHUNK, n_ticks - done)
         words = threefry.tick_blocks(keys, state.tick + 1, m, total,
                                      prng.partitionable())
-        if route == "kernel":
-            state = K6.tick_chunk(cfg, state, keys, kn, words)
-            continue
         for i in range(m):
             state = step_cluster(cfg, state, keys, kn, words=words[i])
             if after_tick is not None:

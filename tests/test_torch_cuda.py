@@ -158,11 +158,11 @@ def test_fuzz_on_the_card_equals_the_cpu(dev):
         before = (K1.tick_blocks.launches, K6.tick_chunk.launches,
                   K2.oracle.launches)
         gpu = engine.fuzz(cfg, 5, 32, 120, device=dev)
-        chunks = -(-120 // engine.DRAW_CHUNK)
-        # one draw and one K6 launch a chunk; the oracle runs inside K6
+        chunks = -(-120 // engine.KERNEL_CHUNK)
+        # one K6 launch a chunk; the draws and the oracle run inside K6
         assert (K1.tick_blocks.launches - before[0],
                 K6.tick_chunk.launches - before[1],
-                K2.oracle.launches - before[2]) == (chunks, chunks, 0)
+                K2.oracle.launches - before[2]) == (0, chunks, 0)
         cpu = engine.fuzz(cfg, 5, 32, 120, device="cpu")
     for f in ("violations", "first_violation_tick", "first_leader_tick",
               "committed", "msg_count", "snap_installs"):
@@ -226,9 +226,9 @@ def test_pool_on_the_card_equals_the_cpu(dev):
                         K3.unpack_state.launches - before[2])
             runs[str(where)] = (rows, s, launched)
     (rows_g, s_g, launched), (rows_c, s_c, _) = runs["cuda"], runs["cpu"]
-    # four chunks: a draw launch and a harvest's pack each; an unpack for
-    # each chunk after the first, which runs on the fresh wide batch
-    assert launched == (4, 4, 3)
+    # four chunks: a harvest's pack each (K6 draws the words); an unpack
+    # for each chunk after the first, which runs on the fresh wide batch
+    assert launched == (0, 4, 3)
     drop = ("wall_s", "violations_per_s")
     assert [{k: v for k, v in r.items() if k not in drop} for r in rows_g] \
         == [{k: v for k, v in r.items() if k not in drop} for r in rows_c]
@@ -489,46 +489,59 @@ def _k6_rows(b):
                                              dtype=torch.int32).repeat(b // 4))
 
 
+_CAP16 = dict(log_cap=16, compact_every=4, uncommitted_cap=4)
+
+
 @pytest.mark.parametrize("case", [
     "n3", "n5", "n7", "n5_rows_ragged", "n5_mixed", "n7_grant_any_vote",
-    "n5_no_truncate", "n5_majority2"])
+    "n5_no_truncate", "n5_majority2", "n3_cap16", "n5_cap16", "n7_cap16",
+    "n4_cap32_runtime", "n5_forced_runtime", "n5_legacy", "n7_legacy_cap16",
+    "n5_wrap", "n5_rolling", "n5_rolling_wrap", "n5_b127"])
 def test_tick_kernel_equals_plain_every_chunk(dev, case):
-    storm = config.storm_profiles()["storm"][0]
+    storm = config.storm_profiles()[
+        "rolling_wave" if "rolling" in case else "storm"][0]
     n = int(case[1])
     cfg = storm.replace(n_nodes=n)
     if case.endswith(("grant_any_vote", "no_truncate")):
         cfg = cfg.replace(bug=case.split("_", 1)[1])
     if case.endswith("majority2"):
         cfg = cfg.replace(majority_override=2)
-    b = 128
+    if "cap16" in case:
+        cfg = cfg.replace(**_CAP16)
+    if "cap32" in case:
+        cfg = cfg.replace(log_cap=32, compact_every=8)
+    if case.endswith("forced_runtime"):  # one more entry a message
+        cfg = cfg.replace(ae_max=K6.SHAPE_AE + 1)
+    assert (K6.instance(cfg) == 0) == ("runtime" in case)
+    b = 127 if case.endswith("b127") else 128  # 127: a warp's last tile idle
     kn = _k6_rows(b) if "rows" in case else None
     s, keys, kn = _k6_start(cfg, b, 7, dev, kn, mixed="mixed" in case)
+    if "wrap" in case:  # ticks across the int32 and the u32 wraps
+        s = s._replace(tick=torch.tensor([2**31 - 10, -20, 1000] * 43,
+                                         dtype=torch.int32)[:b].to(dev))
     chunk = 7 if "ragged" in case else 32
-    total = step._block_total(n)
     done = 0
-    while done < 160:
-        m = min(chunk, 160 - done)
-        words = K1.tick_blocks(keys, s.tick + 1, m, total, True)
-        before = K6.tick_chunk.launches
-        got = K6.tick_chunk(cfg, s, keys, kn, words)
-        assert K6.tick_chunk.launches == before + 1
-        want = K6.tick_chunk_plain(cfg, s, keys, kn, words)
-        done += m
-        d = state.first_divergence(done, state.state_to_numpy(want),
-                                   state.state_to_numpy(got))
-        assert d is None, d
-        s = want
+    with prng.layout("legacy" not in case):
+        while done < 160:
+            m = min(chunk, 160 - done)
+            before = K6.tick_chunk.launches
+            got = K6.tick_chunk(cfg, s, keys, kn, m)
+            assert K6.tick_chunk.launches == before + 1
+            want = K6.tick_chunk_plain(cfg, s, keys, kn, m)
+            done += m
+            d = state.first_divergence(done, state.state_to_numpy(want),
+                                       state.state_to_numpy(got))
+            assert d is None, d
+            s = want
     assert int(s.msg_count.sum()) > 0
 
 
 def test_tick_kernel_refuses_what_it_does_not_take(dev):
     cfg = config.storm_profiles()["storm"][0]
     s, keys, kn = _k6_start(cfg, 8, 1, dev)
-    words = K1.tick_blocks(keys, s.tick + 1, 2, step._block_total(5), True)
     with pytest.raises(ValueError, match="metrics plane"):
-        K6.tick_chunk(cfg.replace(metrics=True), s, keys, kn, words)
-    with pytest.raises(ValueError, match="words are"):
-        K6.tick_chunk(cfg, s, keys, kn, words[:, :4])
-    with pytest.raises(ValueError, match="words are"):
-        K6.tick_chunk(cfg, s, keys, kn, words.cpu())
-
+        K6.tick_chunk(cfg.replace(metrics=True), s, keys, kn, 2)
+    with pytest.raises(ValueError, match="keys are"):
+        K6.tick_chunk(cfg, s, keys[:4], kn, 2)
+    with pytest.raises(ValueError, match="keys are"):
+        K6.tick_chunk(cfg, s, keys.cpu(), kn, 2)

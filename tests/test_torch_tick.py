@@ -14,7 +14,10 @@ chunk against the live JAX reference.
   and [B] knobs, under an explicit threefry layout;
 - the kernel's device code built for the host (``tests/tick_host_emu.cpp``,
   a warp as 32 threads) equals the plain version, through the wrapper's
-  own marshalling.
+  own marshalling: every template instance and the runtime one, both
+  threefry layouts, lanes at their own ticks and ticks across the int32
+  and u32 wraps; the words it draws equal ``tick_blocks_plain``'s, and it
+  picks the instance ``K6.instance`` names.
 Tolerance: exact equality."""
 
 import ctypes
@@ -23,6 +26,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+import types
 
 import jax
 import jax.numpy as jnp
@@ -197,13 +201,10 @@ def _jax_row_programs(static_cfg):
 
 def _chunks(pcfg_, keys, kn, state, ticks: int, chunk: int):
     """(tick, state) after each chunk of the port's tick_chunk."""
-    total = pstep._block_total(pcfg_.n_nodes)
     done = 0
     while done < ticks:
         m = min(chunk, ticks - done)
-        words = threefry.tick_blocks(keys, state.tick + 1, m, total,
-                                     prng.partitionable())
-        state = K6.tick_chunk(pcfg_, state, keys, kn, words)
+        state = K6.tick_chunk(pcfg_, state, keys, kn, m)
         done += m
         yield done, state
 
@@ -252,14 +253,18 @@ def test_launch_marshals_the_state_and_refuses_what_it_cannot_run():
     cfg = pcfg.storm_profiles()["storm"][0].replace(bug="no_truncate")
     keys = pengine.cluster_keys(5, 4, "cpu")
     s = pstate.init_cluster(cfg, keys)
-    words = threefry.tick_blocks(keys, s.tick + 1, 3, pstep._block_total(5),
-                                 True)
     lib = _Lib()
-    out, launched = K6._launch(cfg, s, cfg.knobs(), words, lib, None)
+    with threefry_layout(False):
+        out, launched = K6._launch(cfg, s, keys, cfg.knobs(), 3, lib, None)
     assert launched
     a = lib.args
     assert a[3] == len(K6.LEAVES) and a[8] == len(K6.DRAWS)
-    assert a[9:15] == (4, 5, 64, cfg.ae_max, 3, pcfg.RAFT_BUGS.index("no_truncate"))
+    assert a[4] == keys.data_ptr()
+    assert a[9:16] == (4, 5, 64, cfg.ae_max, 3,
+                       pcfg.RAFT_BUGS.index("no_truncate"), 0)
+    assert len(a) == 17 and a[16] is None  # the stream
+    K6._launch(cfg, s, keys, cfg.knobs(), 3, lib, None)
+    assert lib.args[15] == int(prng.partitionable())
     # the new state: every leaf a view of one fresh allocation
     base = out.tick.untyped_storage().data_ptr()
     for (name, _, dtype), x, y in zip(K6.LEAVES, s, out):
@@ -268,11 +273,12 @@ def test_launch_marshals_the_state_and_refuses_what_it_cannot_run():
         assert y.data_ptr() % 16 == 0 and y.data_ptr() != x.data_ptr(), name
     assert out[pstate.METRIC_LEAF0:] == s[pstate.METRIC_LEAF0:]
     with pytest.raises(ValueError, match="metrics plane"):
-        K6._launch(cfg.replace(metrics=True), s, cfg.knobs(), words, lib, None)
-    with pytest.raises(ValueError, match="words are"):
-        K6._launch(cfg, s, cfg.knobs(), words[:, :2], lib, None)
+        K6._launch(cfg.replace(metrics=True), s, keys, cfg.knobs(), 3, lib,
+                   None)
+    with pytest.raises(ValueError, match="keys are"):
+        K6._launch(cfg, s, keys[:2], cfg.knobs(), 3, lib, None)
     with pytest.raises(ValueError, match="n <= 16"):
-        K6._check(cfg.replace(n_nodes=17), s, words)
+        K6._check(cfg.replace(n_nodes=17), s, keys)
 
 
 @pytest.fixture(scope="module")
@@ -289,22 +295,87 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tick_launch.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.tick_launch.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i,
+                                i, p]
     lib.tick_launch.restype = ctypes.c_int
+    lib.tick_instance.argtypes = [i, i, i]
+    lib.tick_instance.restype = ctypes.c_int
+    lib.tick_words.argtypes = [p, p, i, i, i, i, i, i, p]
+    lib.tick_words.restype = ctypes.c_int
     return lib
 
 
-@pytest.mark.parametrize("case", ["storm", "rows_ragged", "n7_bug", "mixed"])
+def test_instance_table_mirrors_the_header(host_lib):
+    for n in range(1, 17):
+        for cap in (4, 8, 16, 32, 64, 128, 256):
+            for ae_max in (0, 1, 4, 5, 64):
+                cfg = types.SimpleNamespace(n_nodes=n, log_cap=cap,
+                                            ae_max=ae_max)
+                assert K6.instance(cfg) == host_lib.tick_instance(
+                    n, cap, ae_max), (n, cap, ae_max)
+    assert sorted(K6.instance(types.SimpleNamespace(
+        n_nodes=n, log_cap=cap, ae_max=4)) for n, cap in K6.SHAPES) == [
+            1, 2, 3, 4, 5, 6]
+
+
+# lanes whose ticks cross the int32 wrap, the u32 wrap, and neither
+WRAP_TICKS = (2**31 - 10, -20, 1000)
+
+
+@pytest.mark.parametrize("n_nodes", [3, 5, 7, 4])
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_in_kernel_words_equal_the_plain_draw(host_lib, n_nodes,
+                                              partitionable):
+    b, m = 6, 40  # 40 ticks: the lanes derive a second batch of tick keys
+    keys = pengine.cluster_keys(SEED, b, "cpu")
+    t1 = torch.tensor([WRAP_TICKS[i % 3] + i for i in range(b)],
+                      dtype=torch.int32)
+    total = pstep._block_total(n_nodes)
+    want = threefry.tick_blocks_plain(keys, t1, m, total, partitionable)
+    for ae_max in (K6.SHAPE_AE, K6.SHAPE_AE + 1):  # instance, runtime one
+        got = torch.zeros((m, b, total), dtype=torch.int32)
+        assert host_lib.tick_words(keys.data_ptr(), t1.data_ptr(), b, n_nodes,
+                                   64, ae_max, m, int(partitionable),
+                                   got.data_ptr()) == 0
+        assert torch.equal(got.to(torch.int64) & threefry.MASK, want)
+
+
+_CAP16 = dict(log_cap=16, compact_every=4, uncommitted_cap=4)
+
+
+@pytest.mark.parametrize("case", [
+    "storm", "rows_ragged", "n7_bug", "mixed", "legacy", "wrap", "n3",
+    "n3_cap16", "n5_cap16", "n7_cap16", "n4_cap32_runtime",
+    "n5_forced_runtime", "rolling", "rolling_wrap", "majority2", "planted"])
 def test_device_code_on_the_host_equals_plain(host_lib, case):
     storm = pcfg.storm_profiles()["storm"][0]
     cfg, b, ticks, chunk = storm, 8, 64, 32
     kn = storm.knobs()
-    if case == "rows_ragged":
+    if case == "majority2":  # a broken quorum: every oracle bit fires
+        cfg, b, ticks = storm.replace(majority_override=2), 16, 128
+        kn = cfg.knobs()
+    elif case.startswith("rolling"):  # the rolling wave's schedule
+        cfg = pcfg.storm_profiles()["rolling_wave"][0]
+        kn = cfg.knobs()
+    elif case == "rows_ragged":
         b, chunk = LANES, 7
         kn = port_rows(knob_rows())
     elif case == "n7_bug":
         cfg = storm.replace(n_nodes=7, bug="grant_any_vote")
         kn = cfg.knobs()
+    elif case.startswith("n") and case[1].isdigit() and case != "n7_bug":
+        shape = _CAP16 if "cap16" in case else (
+            dict(log_cap=32, compact_every=8) if "cap32" in case else {})
+        cfg = storm.replace(n_nodes=int(case[1]), **shape)
+        kn = cfg.knobs()
+    if case in ("n3", "legacy"):  # warps of four clusters with tiles left
+        b = {"n3": 7, "legacy": 6}[case]
+    if case.endswith("forced_runtime"):  # the flagship's shape, one more
+        cfg = cfg.replace(ae_max=K6.SHAPE_AE + 1)  # entry a message
+        kn = cfg.knobs()
+    want_instance = 0 if "runtime" in case else 1 + K6.SHAPES.index(
+        (cfg.n_nodes, cfg.log_cap))
+    assert K6.instance(cfg) == want_instance
     keys = pengine.cluster_keys(SEED, b, "cpu")
     s = pstate.init_cluster(cfg, keys, kn)
     if case == "mixed":  # lanes at their own ticks, as after a harvest
@@ -313,16 +384,35 @@ def test_device_code_on_the_host_equals_plain(host_lib, case):
         s = pstate.ClusterState(*(
             torch.where(sel.view(-1, *(1,) * (x.dim() - 1)), y, x)
             if x.numel() else x for x, y in zip(s, later)))
-    total = pstep._block_total(cfg.n_nodes)
+    if case == "planted":  # two leaders of one term; two prefix hashes
+        h = pstate.state_to_numpy(pengine._advance(cfg, s, keys, kn, 45))
+        h["alive"][:] = True
+        top = int(h["term"].max()) + 100
+        for c in range(0, b, 2):
+            h["role"][c, :2] = 2
+            h["term"][c, :2] = top
+        for c in range(1, b, 2):
+            h["base"][c, :2] = max(int(h["base"][c, 0]), 1)
+            h["prefix_hash"][c, 1] = h["prefix_hash"][c, 0] ^ 1
+        s = pstate.state_from_numpy(h)
+    if case.endswith("wrap"):  # ticks that cross the int32 and u32 wraps
+        s = s._replace(tick=torch.tensor(
+            [WRAP_TICKS[i % 3] for i in range(b)], dtype=torch.int32))
     done = 0
-    while done < ticks:
-        m = min(chunk, ticks - done)
-        words = threefry.tick_blocks(keys, s.tick + 1, m, total, True)
-        got, _ = K6._launch(cfg, s, kn, words, host_lib, None)
-        want = K6.tick_chunk_plain(cfg, s, keys, kn, words)
-        done += m
-        d = pstate.first_divergence(done, pstate.state_to_numpy(want),
-                                    pstate.state_to_numpy(got))
-        assert d is None, d
-        s = want
-    assert int(pstate.state_to_numpy(s)["msg_count"].sum()) > 0
+    with threefry_layout(case != "legacy"):
+        while done < ticks:
+            m = min(chunk, ticks - done)
+            got, _ = K6._launch(cfg, s, keys, kn, m, host_lib, None)
+            want = K6.tick_chunk_plain(cfg, s, keys, kn, m)
+            done += m
+            d = pstate.first_divergence(done, pstate.state_to_numpy(want),
+                                        pstate.state_to_numpy(got))
+            assert d is None, d
+            s = want
+    final = pstate.state_to_numpy(s)
+    assert int(final["msg_count"].sum()) > 0
+    if case == "majority2":
+        assert np.bitwise_or.reduce(final["violations"]) & 7 == 7
+    if case == "planted":
+        assert (final["violations"][0::2] & 1).any()
+        assert (final["violations"][1::2] & 512).any()

@@ -1,9 +1,12 @@
 // K6's device code (madraft_tpu_torch/csrc/tick.cuh) built for the host, so
-// that the CPU tests can run the kernel's own arithmetic: each cluster's
-// warp is 32 std::threads, a barrier stands in for __syncwarp() and the
-// warp collectives exchange through a buffer between two barriers. The
-// entry point has tick_launch's signature (the stream is ignored) and runs
-// the clusters one after another.
+// that the CPU tests can run the kernel's own arithmetic, draws included:
+// a warp is 32 std::threads (four clusters of eight lanes in the template
+// instances, one cluster in the runtime one, as in the kernel), a barrier
+// stands in for __syncwarp() and the warp collectives exchange through a
+// buffer between two barriers. tick_launch has the kernel entry's
+// signature (the stream is ignored), picks the same template instance and
+// runs the warps one after another; tick_words draws a chunk's words as
+// the kernel does.
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared
 //       -I madraft_tpu_torch/csrc -o libtick_host.so tests/tick_host_emu.cpp
@@ -11,6 +14,7 @@
 // (tests/test_torch_tick.py builds it so.)
 
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <thread>
@@ -42,10 +46,38 @@ inline unsigned exchange(unsigned v, Fold fold) {
   return r;
 }
 
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return exchange(pred ? 1u : 0u, [](const unsigned *b) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= b[i] << i;
+    return r;
+  });
+}
+
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  return static_cast<T>(exchange(static_cast<unsigned>(v),
+                                 [&](const unsigned *b) { return b[src]; }));
+}
+
+inline int __shfl_xor_sync(unsigned, int v, int m) {
+  const int lane = warp.lane;
+  return static_cast<int>(exchange(
+      static_cast<unsigned>(v), [&](const unsigned *b) { return b[lane ^ m]; }));
+}
+
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   return exchange(v, [](const unsigned *b) {
     unsigned r = 0;
     for (int i = 0; i < 32; ++i) r |= b[i];
+    return r;
+  });
+}
+
+inline unsigned __reduce_xor_sync(unsigned, unsigned v) {
+  return exchange(v, [](const unsigned *b) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r ^= b[i];
     return r;
   });
 }
@@ -60,11 +92,52 @@ inline int __reduce_add_sync(unsigned, int v) {
   return static_cast<int>(sum);
 }
 
-inline int __shfl_xor_sync(unsigned, int v, int m) {
-  const int lane = warp.lane;
-  const unsigned r = exchange(static_cast<unsigned>(v),
-                              [&](const unsigned *b) { return b[lane ^ m]; });
-  return static_cast<int>(r);
+inline int __reduce_min_sync(unsigned, int v) {
+  return static_cast<int>(
+      exchange(static_cast<unsigned>(v), [](const unsigned *b) {
+        int r = static_cast<int>(b[0]);
+        for (int i = 1; i < 32; ++i)
+          r = static_cast<int>(b[i]) < r ? static_cast<int>(b[i]) : r;
+        return static_cast<unsigned>(r);
+      }));
+}
+
+inline int __reduce_max_sync(unsigned, int v) {
+  return static_cast<int>(
+      exchange(static_cast<unsigned>(v), [](const unsigned *b) {
+        int r = static_cast<int>(b[0]);
+        for (int i = 1; i < 32; ++i)
+          r = static_cast<int>(b[i]) > r ? static_cast<int>(b[i]) : r;
+        return static_cast<unsigned>(r);
+      }));
+}
+
+// the lanes whose value equals this lane's (64-bit values in two rounds)
+template <typename T>
+inline unsigned __match_any_sync(unsigned, T v) {
+  const auto u = static_cast<unsigned long long>(v);
+  unsigned lo[32], hi[32];
+  exchange(static_cast<unsigned>(u), [&](const unsigned *b) {
+    for (int i = 0; i < 32; ++i) lo[i] = b[i];
+    return 0u;
+  });
+  exchange(static_cast<unsigned>(u >> 32), [&](const unsigned *b) {
+    for (int i = 0; i < 32; ++i) hi[i] = b[i];
+    return 0u;
+  });
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i)
+    if (lo[i] == static_cast<unsigned>(u) &&
+        hi[i] == static_cast<unsigned>(u >> 32))
+      m |= 1u << i;
+  return m;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
 }
 
 // -ffp-contract=off keeps these single roundings
@@ -73,11 +146,62 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 
 #include "tick.cuh"
 
+namespace {
+
+// Each warp of TILE-lane tiles in turn, as 32 threads: tile t of warp w
+// runs body(c, active, tile, its block) on cluster c = w * (32 / TILE) + t,
+// or on a copy of the last one when the batch ends first (as the kernel)
+template <int TILE, typename Body>
+void each_warp(const k6::Params &p, Body body) {
+  constexpr int kPerWarp = 32 / TILE;
+  std::vector<uint8_t> blocks(static_cast<size_t>(kPerWarp) * p.cluster_bytes);
+  for (int first = 0; first < p.b; first += kPerWarp) {
+    std::barrier<> bar(32);
+    unsigned buf[32];
+    std::vector<std::thread> lanes;
+    for (int lane = 0; lane < 32; ++lane)
+      lanes.emplace_back([&, lane] {
+        warp = Warp{&bar, buf, lane};
+        const int t = lane / TILE, c = first + t;
+        body(c < p.b ? c : p.b - 1, c < p.b,
+             k6::Tile<TILE>{lane % TILE, t * TILE},
+             blocks.data() + static_cast<size_t>(t) * p.cluster_bytes);
+      });
+    for (auto &x : lanes) x.join();
+  }
+}
+
+template <int N_, int CAP_, int AE_>
+void run(const k6::Params &p) {
+  constexpr int kTile = N_ ? k6::kTile : 32;
+  each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
+                          uint8_t *cl) {
+    k6::run_cluster<N_, CAP_, AE_, kTile, false>(p, cl, c, active, tile,
+                                                 nullptr);
+  });
+}
+
+template <int I>
+void run_shape(const k6::Params &p) {
+  run<k6::shape_n(I), k6::shape_cap(I), k6::kShapeAe>(p);
+}
+
+template <int N_>
+void words(const k6::Params &p, const int *t1, uint32_t *out) {
+  constexpr int kTile = N_ ? k6::kTile : 32;
+  each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
+                          uint8_t *cl) {
+    k6::draw_chunk<N_, kTile>(p, cl, c, t1[c], active, tile, out);
+  });
+}
+
+}  // namespace
+
 extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
-                           const int *kinds, int n_leaves, const void *words,
+                           const int *kinds, int n_leaves, const void *keys,
                            const void *kf, const void *ki, const int *draws,
                            int n_draws, int b, int n, int cap, int ae_max,
-                           int m, int bug, void *) {
+                           int m, int bug, int partitionable, void *) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws) return 1;
   k6::Params p;
   for (int l = 0; l < k6::kLeaves; ++l) {
@@ -86,29 +210,57 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
     p.in[l] = reinterpret_cast<const void *>(ins[l]);
     p.out[l] = reinterpret_cast<void *>(outs[l]);
   }
-  for (int i = 0; i < k6::kDraws; ++i) p.draw[i] = draws[i];
-  p.words = static_cast<const long long *>(words);
+  const int inst = k6::instance(n, cap, ae_max);
+  if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, draws))
+    return 1;
+  p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
   p.ki = static_cast<const int *>(ki);
   p.b = b;
-  p.n = n;
-  p.cap = cap;
-  p.ae_max = ae_max;
   p.m = m;
   p.bug = bug;
-  p.total = 11 * n + 3 + 3 * n * n;
-  p.cluster_bytes = k6::layout(n, cap, ae_max, p.off);
-  std::vector<uint8_t> block(p.cluster_bytes);
-  for (int c = 0; c < b; ++c) {
-    std::barrier<> bar(32);
-    unsigned buf[32];
-    std::vector<std::thread> lanes;
-    for (int lane = 0; lane < 32; ++lane)
-      lanes.emplace_back([&, lane] {
-        warp = Warp{&bar, buf, lane};
-        k6::run_cluster(p, block.data(), c, lane);
-      });
-    for (auto &x : lanes) x.join();
+  p.partitionable = partitionable;
+  p.one = 1u;
+  switch (inst) {
+    case 1: run_shape<0>(p); break;
+    case 2: run_shape<1>(p); break;
+    case 3: run_shape<2>(p); break;
+    case 4: run_shape<3>(p); break;
+    case 5: run_shape<4>(p); break;
+    case 6: run_shape<5>(p); break;
+    default: run<0, 0, 0>(p);
   }
+  return 0;
+}
+
+extern "C" int tick_instance(int n, int cap, int ae_max) {
+  return k6::instance(n, cap, ae_max);
+}
+
+// keys [b, 2] int64-held u32, t1 [b] each cluster's first tick -> out
+// [m, b, total] u32: the words run_cluster draws for those ticks in the
+// instance tick_launch runs at (n, cap, ae_max)
+extern "C" int tick_words(const void *keys, const int *t1, int b, int n,
+                          int cap, int ae_max, int m, int partitionable,
+                          void *out) {
+  k6::Params p;
+  int draws[k6::kDraws];
+  for (int i = 0; i < k6::kDraws; ++i) draws[i] = k6::draw_offset(i, n);
+  k6::set_shape(p, n, 16, 0, 0, draws);
+  p.keys = static_cast<const long long *>(keys);
+  p.b = b;
+  p.m = m;
+  p.partitionable = partitionable;
+  p.one = 1u;
+  auto *w = static_cast<uint32_t *>(out);
+  const bool shaped = k6::instance(n, cap, ae_max) != 0;
+  if (shaped && n == 5)
+    words<5>(p, t1, w);
+  else if (shaped && n == 3)
+    words<3>(p, t1, w);
+  else if (shaped && n == 7)
+    words<7>(p, t1, w);
+  else
+    words<0>(p, t1, w);
   return 0;
 }

@@ -4,35 +4,41 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Builds the CUDA kernels from ``madraft_tpu_torch/csrc`` (one ``nvcc`` per
-source, and one for K6's profile build, started together), holds every
-kernel against its plain PyTorch version (bit-equal; K6, the tick with its
-draws, on every leaf after every chunk at n = 3, 5, 7 under every planted
-bug, with [B] knob rows, ragged chunks, a pool state at mixed lane ticks,
-every template instance and the runtime one under both threefry layouts,
-and ticks across the int32 and u32 wraps), reproduces the golden fuzz and
-pool legs and the JAX fixture legs on the card, drives the main paths
-through the CLI and checks that each went through its kernels: the fuzz
-flagship (``fuzz --storm --clusters 4096 --ticks 1024``, twice) and the
-pool flagship (``pool --storm --clusters 4096 --ticks 512 --budget-ticks
-1024``, twice), both K6 launches of up to 256 ticks and no draw launch,
-each again with ``--metrics`` at half the depth (the eager tick: K1's
-draw chunks, the oracle's metrics instance and the latency fold K4), the
-coverage pool flagship (the pool flagship with ``--coverage``, twice: the
-eager tick, the fingerprint and seen-set kernel K5 every tick, the biased
-refill) and the sweep flagships (``sweep --storm`` at 4096 clusters x 1024
-ticks on the CLI's default 12-cell grid, the per-cluster dispatch, and on
-an 8-cell grid, the uniform dispatch, again forced per-cluster), replays
-pool hits and mutated coverage rows through ``replay``, runs the fuzz
-flagship through the eager tick and through K6 in turns, runs the nine
-raft-layer game-day gates with metrics on, then times each kernel beside
-its plain version and its bound: ``ms`` is the kernel's own device time
-per launch (torch.profiler, matched by the CUDA function's name),
-``call_ms`` the wrapper's time per call as the host issues it back to
-back (CUDA events); ``share`` is the bound over ``ms``, the bound the
-larger of the bytes over the HBM rate and the 32-bit operations over the
-card's integer rate (phase ``card``). K6's clock64() split by phase group
-(``k6_phases``, its profile build) and its time as the warps an SM grow
-(``k6_scaling``) follow; ``k6_only()`` runs just those two.
+source, and one for each of K6's builds: metrics, coverage, both, profile,
+started together), holds every kernel against its plain PyTorch version
+(bit-equal; K6, the tick with its draws, on every leaf after every chunk
+at n = 3, 5, 7 under every planted bug, with [B] knob rows, ragged chunks,
+a pool state at mixed lane ticks, every template instance and the runtime
+one under both threefry layouts, and ticks across the int32 and u32
+wraps; K6-metrics, the tick with the metrics plane, on every leaf with the
+metric leaves, every instance, both layouts, the wraps and planted metric
+leaves; K6-coverage and its credit pass on the seen-set stamps and the
+credits, one row, shard rows, the identity map, violated lanes and with
+metrics), reproduces the golden fuzz and pool legs and the JAX fixture
+legs on the card, drives the main paths through the CLI and checks that
+each went through its kernels: the fuzz flagship (``fuzz --storm
+--clusters 4096 --ticks 1024``, twice) and the pool flagship (``pool
+--storm --clusters 4096 --ticks 512 --budget-ticks 1024``, twice), both K6
+launches of up to 256 ticks and no draw launch, each again with
+``--metrics`` at half the depth (K6-metrics: no K4, K2 or draw launch), the
+coverage pool flagship (the pool flagship with ``--coverage``, twice:
+K6-coverage and a credit pass a chunk, no K5 launch, the biased refill)
+and the sweep flagships (``sweep --storm`` at 4096 clusters x 1024 ticks
+on the CLI's default 12-cell grid, the per-cluster dispatch, and on an
+8-cell grid, the uniform dispatch, again forced per-cluster), replays pool
+hits and mutated coverage rows through ``replay``, runs the fuzz flagship,
+the metrics fuzz flagship and the coverage pool flagship through the eager
+tick (K1's draw chunks, K2, K2-metrics, K4, K5: the eager route's kernels)
+and through K6 in turns, runs the nine raft-layer game-day gates with
+metrics on, then times each kernel beside its plain version and its
+bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
+matched by the CUDA function's name), ``call_ms`` the wrapper's time per
+call as the host issues it back to back (CUDA events); ``share`` is the
+bound over ``ms``, the bound the larger of the bytes over the HBM rate and
+the 32-bit operations over the card's integer rate (phase ``card``). K6's
+clock64() split by phase group (``k6_phases``, its profile build) and its
+time as the warps an SM grow (``k6_scaling``) follow; ``k6_only()`` runs
+just those two.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -225,8 +231,9 @@ def deterministic(d: dict) -> dict:
 
 
 def counters():
-    """Every kernel launch counter, by name: the wrappers' ``launches``
-    and the oracle's count of metrics-instance launches."""
+    """Every kernel launch counter, by name: the wrappers' ``launches``,
+    the oracle's count of metrics-instance launches and K6's of its
+    metrics and coverage variants."""
     from madraft_tpu_torch.kernels import coverage as K5
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
@@ -242,7 +249,10 @@ def counters():
             "unpack_state": (K3.unpack_state, "launches"),
             "latency_fold": (K4.latency_fold, "launches"),
             "seen_update": (K5.seen_update, "launches"),
-            "tick_chunk": (K6.tick_chunk, "launches")}
+            "tick_chunk": (K6.tick_chunk, "launches"),
+            "tick_chunk_metrics": (K6.tick_chunk, "metrics_launches"),
+            "tick_chunk_coverage": (K6.tick_chunk, "coverage_launches"),
+            "credit_pass": (K5.credit_pass, "launches")}
 
 
 def read_counts() -> dict:
@@ -547,6 +557,98 @@ def main() -> int:
           "max_abs_err": errs["tick_chunk"]})
     del s6
 
+    # ---- 3f. K6-metrics against its plain version (the eager tick with
+    # metrics), every leaf, the metric leaves included, after every chunk:
+    # all seven instances (the runtime one at the flagship's shape, one more
+    # entry a message), both threefry layouts, 256-tick launches at the
+    # flagship's shape, lanes across the int32 and u32 tick wraps, [B] knob
+    # rows under a planted bug, and metric leaves planted at their edges
+    # (stale stamps in every ring slot, sums at the int32 wrap, empty, held
+    # and kept worst-op registers); the grid and resident clusters an SM
+    mstorm = storm.replace(metrics=True)
+    mcases = [(f"n{n_nodes}:cap{cap}", mstorm.replace(
+        n_nodes=n_nodes, **(cap16 if cap == 16 else {})), True, None, 128)
+        for n_nodes, cap in K6.SHAPES]
+    mcases += [("n5:cap64:runtime", mstorm.replace(ae_max=K6.SHAPE_AE + 1),
+                True, None, K6_TICKS),
+               ("n5:cap64:legacy", mstorm, False, None, K6_TICKS),
+               ("n5:cap64:runtime:legacy",
+                mstorm.replace(ae_max=K6.SHAPE_AE + 1), False, None, 128),
+               ("n5:tick_wraps", mstorm, True, "wrap", 128),
+               ("n5:planted_registers", mstorm, True, "registers", K6_TICKS),
+               ("n5:knob_rows:commit_any_term",
+                mstorm.replace(bug="commit_any_term"), True, "rows", 128)]
+    minstances, mops = set(), {}
+    for label, cfg, flag, special, ticks_ in mcases:
+        with prng.layout(flag):
+            b_ = 128
+            ck = engine.cluster_keys(7, b_, dev)
+            kn = _knob_rows(b_, dev) if special == "rows" else cfg.knobs(dev)
+            s6 = state.init_cluster(cfg, ck, kn)
+            if special == "wrap":
+                s6 = s6._replace(tick=torch.tensor(
+                    [(2**31 - 10, -20, 1000)[i % 3] for i in range(b_)],
+                    dtype=torch.int32, device=dev))
+            if special == "registers":
+                s6 = _plant_metric_leaves(s6)
+            hist0 = s6.lat_hist.to(torch.int64)
+            s6 = _k6_variant_vs_plain(cfg, s6, ck, kn, ticks_, ticks_, errs,
+                                      label)
+            minstances.add(K6.instance(cfg))
+            # the ops the case acked (the planted sums wrap int32)
+            mops[label] = int(((s6.lat_hist.to(torch.int64) - hist0)
+                               % 2**32).sum())
+    check(minstances == set(range(len(K6.SHAPES) + 1)),
+          f"the metrics cases ran instances {sorted(minstances)}")
+    check(all(v > 0 for v in mops.values()), f"a case acked no op: {mops}")
+    emit({"phase": "k6_metrics_vs_plain", "clusters": 128,
+          "instances": sorted(minstances), "acked_ops": mops,
+          "grid_flagship_shape": _k6_grid(_storm_cfg(), "tick_metrics"),
+          "grid_flagship_shape_metrics_off": _k6_grid(_storm_cfg()),
+          "max_abs_err": errs["tick_chunk_metrics"]})
+
+    # ---- 3g. K6-coverage and the credit pass against the per-tick plain
+    # fingerprint (seen_update_plain after each eager tick): the state, the
+    # seen-set stamps and the credits after every chunk. One row; shard
+    # rows on a 16-bit seen-set (many lanes on one bit a tick, and every
+    # lane on one code at tick 1); the identity map (the ground-truth
+    # config); violated lanes (a broken quorum); the combined variant with
+    # metrics; a 256-tick launch at the flagship's shape
+    gt_cfg_, gt_ccfg_, _ = config.coverage_ground_truth()
+    ccases = [("one_row", storm, config.CoverageConfig(), None, K6_TICKS),
+              ("shards4_16bits", storm, config.CoverageConfig(bitmap_bits=16),
+               4, 128),
+              ("identity", gt_cfg_, gt_ccfg_, None, 128),
+              ("violated", storm.replace(majority_override=2),
+               config.CoverageConfig(), None, K6_TICKS),
+              ("metrics_shards2", mstorm, config.CoverageConfig(), 2, 128)]
+    cstats = {}
+    for label, cfg, ccfg, shards, ticks_ in ccases:
+        with prng.layout(True):
+            b_ = 512
+            ck = engine.cluster_keys(7, b_, dev)
+            kn = cfg.knobs(dev)
+            s6 = state.init_cluster(cfg, ck, kn)
+            rows_ = (None if shards is None
+                     else coverage.lane_shards(b_, shards, dev))
+            seen6 = torch.full((shards or 1, ccfg.bitmap_bits),
+                               coverage.UNSEEN, dtype=torch.int32, device=dev)
+            cov6 = K6.Seen(ccfg.fingerprint_key(), seen6, rows_,
+                           torch.zeros(b_, dtype=torch.int32, device=dev), 0)
+            s6, cov6 = _k6_variant_vs_plain(cfg, s6, ck, kn, ticks_, ticks_,
+                                            errs, label, cov6)
+            cstats[label] = {
+                "seen_bits": int((cov6.seen != coverage.UNSEEN).sum()),
+                "credits": int(cov6.new_fps.sum()),
+                "violating": int((s6.violations != 0).sum())}
+    check(cstats["violated"]["violating"] > 0
+          and all(v["seen_bits"] > 1 for v in cstats.values()),
+          f"coverage cases: {cstats}")
+    emit({"phase": "k6_coverage_vs_plain", "clusters": 512, "cases": cstats,
+          "max_abs_err": max(errs["tick_chunk_coverage"],
+                             errs["credit_pass"])})
+    del s6
+
     # ---- 4. golden legs (legacy layout, as recorded)
     golden = json.loads((ROOT / "tests" / "golden_fuzz.json").read_text())
     with prng.layout(False):
@@ -610,8 +712,7 @@ def main() -> int:
     final_off = KeepFirst(K6.tick_chunk, _non_metric_leaves,
                           at=METRICS_TICKS // engine.KERNEL_CHUNK - 1,
                           result=True)
-    engine.K6 = types.SimpleNamespace(tick_chunk=final_off,
-                                      knob_table=K6.knob_table)
+    engine.K6 = _k6_standin(final_off)
     try:
         t0 = time.perf_counter()
         rc, out = run_cli(FLAGSHIP)
@@ -628,10 +729,12 @@ def main() -> int:
     check(launches["tick_chunk"] == chunks
           and launches["threefry_tick_blocks"] == launches["oracle"] == 0
           and launches["threefry_hash_pairs"] > 0
-          and launches["oracle_metrics"] == launches["latency_fold"] == 0,
+          and launches["oracle_metrics"] == launches["latency_fold"] == 0
+          and launches["tick_chunk_metrics"] == 0
+          and launches["tick_chunk_coverage"] == launches["credit_pass"] == 0,
           f"flagship launches {launches}, want {chunks} tick_chunk (one a "
           f"chunk of {engine.KERNEL_CHUNK} ticks), no tick_blocks, no "
-          "oracle and no metrics launch")
+          "oracle and no metrics or coverage launch")
     tele = out["telemetry"]
     emit({"phase": "flagship", "argv": FLAGSHIP, "rc": rc,
           "cluster_steps_per_s": tele["steps_per_sec"],
@@ -643,7 +746,7 @@ def main() -> int:
     # ---- 6m. the metrics flagship: the flagship's first METRICS_TICKS
     # ticks with --metrics. Every non-metric leaf of its final state equals
     # the flagship's at that tick (the report's fields are read off those
-    # leaves); K4 and K2's metrics instance run once a tick
+    # leaves); K6-metrics runs it, no K4, K2 or draw launch
     set_counts()
     final_on = KeepFirst(engine.report, _non_metric_leaves)
     engine.report = final_on
@@ -664,14 +767,13 @@ def main() -> int:
                    and (a == final_on.kept[0][f]).all())]
     check(not bad, f"metrics changed the flagship's final leaves {bad}")
     _check_latency_mass(out_m["latency"], "metrics flagship")
-    ticks_m = METRICS_TICKS * FLAGSHIP_RUNS
-    chunks_m = -(-METRICS_TICKS // engine.DRAW_CHUNK) * FLAGSHIP_RUNS
-    check(launches_m["latency_fold"] == ticks_m
-          and launches_m["oracle_metrics"] == launches_m["oracle"] == ticks_m
-          and launches_m["threefry_tick_blocks"] == chunks_m
-          and launches_m["tick_chunk"] == 0,
-          f"metrics flagship launches {launches_m}, want {ticks_m} "
-          f"latency_fold and metrics oracle, {chunks_m} tick_blocks")
+    chunks_m = -(-METRICS_TICKS // engine.KERNEL_CHUNK) * FLAGSHIP_RUNS
+    check(launches_m["tick_chunk"] == launches_m["tick_chunk_metrics"]
+          == chunks_m
+          and launches_m["latency_fold"] == launches_m["oracle_metrics"]
+          == launches_m["oracle"] == launches_m["threefry_tick_blocks"] == 0,
+          f"metrics flagship launches {launches_m}, want {chunks_m} "
+          "K6-metrics launches and no K4, K2 or tick_blocks launch")
     tele_m = out_m["telemetry"]
     emit({"phase": "metrics_flagship", "argv": METRICS_FLAGSHIP, "rc": rc_m,
           "cluster_steps_per_s": tele_m["steps_per_sec"],
@@ -714,7 +816,6 @@ def main() -> int:
                               ("--clusters", "--ticks", "--budget-ticks"))
     chunk_ticks = engine.default_chunk_ticks(horizon)
     gens = budget // chunk_ticks  # chunks per run
-    chunk_draws = 2 * gens * -(-chunk_ticks // engine.DRAW_CHUNK)
     want = {"threefry_tick_blocks": 0,
             "tick_chunk": 2 * gens * -(-chunk_ticks // engine.KERNEL_CHUNK),
             "oracle": 0, "pack_state": 2 * gens,
@@ -788,12 +889,11 @@ def main() -> int:
           "pool rows hold more ops than the summary")
     m_budget = _flag(METRICS_POOL_FLAGSHIP, "--budget-ticks")
     m_gens = m_budget // chunk_ticks
-    mwant = {"threefry_tick_blocks":
-                 2 * m_gens * -(-chunk_ticks // engine.DRAW_CHUNK),
-             "oracle": 2 * m_budget, "pack_state": 2 * m_gens,
-             "unpack_state": 2 * (m_gens - 1),
-             "latency_fold": 2 * m_budget, "oracle_metrics": 2 * m_budget,
-             "tick_chunk": 0}
+    m_chunks = 2 * m_gens * -(-chunk_ticks // engine.KERNEL_CHUNK)
+    mwant = {"threefry_tick_blocks": 0, "oracle": 0,
+             "pack_state": 2 * m_gens, "unpack_state": 2 * (m_gens - 1),
+             "latency_fold": 0, "oracle_metrics": 0,
+             "tick_chunk": m_chunks, "tick_chunk_metrics": m_chunks}
     check(all(mpool_launches[k] == v for k, v in mwant.items()),
           f"metrics pool flagship launches {mpool_launches}, want {mwant}")
     emit({"phase": "metrics_pool_flagship", "argv": METRICS_POOL_FLAGSHIP,
@@ -830,29 +930,21 @@ def main() -> int:
     emit({"phase": "pool_replay", "hits": len(hits), "replayed": replayed,
           "generations": sorted({c // lanes for c in replayed})})
 
-    # ---- 6v. the coverage pool flagship, twice: deterministic, K5 once a
-    # tick, the pool flagship's K3 and draw launches; its first harvest's
-    # rows equal the pool flagship's but for the coverage columns; mutated
-    # rows replay bit-exactly through the CLI's replay --knobs-json; the
-    # inputs K5 takes at the first tick are kept for phase 7
+    # ---- 6v. the coverage pool flagship, twice: deterministic, K6-coverage
+    # and a credit pass a chunk (no K5 launch), the pool flagship's K3
+    # launches; its first harvest's rows equal the pool flagship's but for
+    # the coverage columns; mutated rows replay bit-exactly through the
+    # CLI's replay --knobs-json
     set_counts()
     cruns = []
-    # the inputs of the first run's 200th tick, for phase 7
-    k5_in = KeepFirst(K5.seen_update,
-                      lambda ccfg_, *a: (ccfg_, *(x.clone() if hasattr(
-                          x, "clone") else x for x in a)), at=199)
-    engine.K5 = types.SimpleNamespace(seen_update=k5_in)
-    try:
-        for _ in range(2):
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            rc, lines = run_cli_lines(COVERAGE_POOL_FLAGSHIP)
-            torch.cuda.synchronize()
-            cruns.append((rc, lines[:-1], lines[-1],
-                          torch.cuda.max_memory_allocated(),
-                          time.perf_counter() - t0))
-    finally:
-        engine.K5 = K5
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc, lines = run_cli_lines(COVERAGE_POOL_FLAGSHIP)
+        torch.cuda.synchronize()
+        cruns.append((rc, lines[:-1], lines[-1],
+                      torch.cuda.max_memory_allocated(),
+                      time.perf_counter() - t0))
     cov_launches = read_counts()
     (crc1, crows1, cout1, cpeak1, _), (crc2, crows2, cout2, cpeak2, _) = cruns
     check(crc1 == crc2 == 0 and cout1["retired"] == retired,
@@ -872,11 +964,13 @@ def main() -> int:
           and cdict["generations"] == gens
           and sum(cdict["new_fp_per_gen"]) == cdict["seen_fingerprints"],
           f"coverage pool flagship's coverage: {cdict}")
-    cwant = dict(want, seen_update=2 * budget, oracle=2 * budget, tick_chunk=0,
-                 threefry_tick_blocks=chunk_draws)
+    cwant = dict(want, seen_update=0, oracle=0,
+                 tick_chunk_coverage=want["tick_chunk"],
+                 credit_pass=want["tick_chunk"], tick_chunk_metrics=0,
+                 threefry_tick_blocks=0)
     check(all(cov_launches[k] == v for k, v in cwant.items()),
           f"coverage pool flagship launches {cov_launches}, want {cwant} "
-          "(the eager tick: one K2 and one K5 launch a tick)")
+          "(K6-coverage and a credit pass a chunk, no K5 or K2 launch)")
     mutated = [r for r in crows1 if r["refill"] == "mutate"]
     check(len(mutated) >= REPLAY_MUTATED, f"{len(mutated)} mutated rows")
     replayed = []
@@ -960,34 +1054,60 @@ def main() -> int:
                    if k not in ("telemetry", "dispatch")},
           "the sweep's two layouts report differently")
 
-    # ---- 6ab. the fuzz flagship through the eager tick and through K6
+    # ---- 6ab. the fuzz flagship, the metrics fuzz flagship and the
+    # coverage pool flagship each through the eager tick and through K6
     # (engine._advance's tick=), in turns eager, kernel, kernel, eager on
-    # this card; the eager runs are cut to AB_EAGER_TICKS ticks
-    ab = []
+    # this card; the eager runs are cut to AB_EAGER_TICKS ticks (the pool's
+    # to one chunk: --budget-ticks)
+    pairs = {
+        "fuzz": (FLAGSHIP[:FLAGSHIP.index("--check-deterministic")],
+                 "--ticks"),
+        "metrics": ([x for x in METRICS_FLAGSHIP
+                     if x != "--check-deterministic"], "--ticks"),
+        "coverage_pool": (COVERAGE_POOL_FLAGSHIP, "--budget-ticks"),
+    }
+    ab_out = {"phase": "ab_eager_vs_kernel", "card": _smi(), "clusters": 4096}
+    eager_launches = {}  # each pair's first eager run: the eager route's
     advance = engine._advance
-    for route in ("eager", "kernel", "kernel", "eager"):
-        n_ab = AB_EAGER_TICKS if route == "eager" else _flag(FLAGSHIP,
-                                                             "--ticks")
-        argv = FLAGSHIP[:FLAGSHIP.index("--ticks") + 1] + [str(n_ab),
-                                                           "--seed", "12345"]
-        set_counts()
-        engine._advance = functools.partial(advance, tick=route)
-        try:
-            rc, out = run_cli(argv)
-        finally:
-            engine._advance = advance
-        ran = read_counts()
-        check(rc == 0 and out["violating"] == 0
-              and (ran["tick_chunk"] > 0) == (route == "kernel")
-              and (ran["oracle"] == n_ab) == (route == "eager"),
-              f"A/B {route} run: rc {rc}, launches {ran}")
-        ab.append({"route": route, "ticks": n_ab,
-                   "cluster_steps_per_s": out["telemetry"]["steps_per_sec"],
-                   "execute_s": out["telemetry"]["execute_s"]})
-    rate = {r: sum(x["cluster_steps_per_s"] for x in ab if x["route"] == r) / 2
-            for r in ("eager", "kernel")}
-    emit({"phase": "ab_eager_vs_kernel", "card": _smi(), "clusters": 4096,
-          "runs": ab, "kernel_over_eager": rate["kernel"] / rate["eager"]})
+    for pair, (argv0, depth) in pairs.items():
+        ab = []
+        for route in ("eager", "kernel", "kernel", "eager"):
+            n_ab = (AB_EAGER_TICKS if route == "eager"
+                    else _flag(FLAGSHIP, "--ticks"))
+            at = argv0.index(depth) + 1
+            argv = argv0[:at] + [str(n_ab)] + argv0[at + 1:]
+            set_counts()
+            engine._advance = functools.partial(advance, tick=route)
+            try:
+                rc, lines = run_cli_lines(argv)
+            finally:
+                engine._advance = advance
+            out = lines[-1]
+            ran = read_counts()
+            ticks_run = out.get("lane_ticks", n_ab)  # a pool's whole chunks
+            check(rc == 0 and out.get("violating",
+                                      out.get("retired_violating")) == 0
+                  and (ran["tick_chunk"] > 0) == (route == "kernel")
+                  and (ran["oracle"] == ticks_run) == (route == "eager"),
+                  f"A/B {pair} {route} run: rc {rc}, launches {ran}")
+            if route == "eager":
+                eager_launches.setdefault(pair, (ran, ticks_run))
+            tele = out.get("telemetry", out)
+            ab.append({"route": route, "ticks": n_ab,
+                       "cluster_steps_per_s": tele["steps_per_sec"],
+                       "wall_s": tele.get("execute_s", out.get("wall_s")),
+                       "launches": {k: v for k, v in ran.items() if v}})
+        rate = {r: sum(x["cluster_steps_per_s"] for x in ab
+                       if x["route"] == r) / 2 for r in ("eager", "kernel")}
+        ab_out[pair] = {"argv": argv0, "runs": ab,
+                        "kernel_over_eager": rate["kernel"] / rate["eager"]}
+    (em, em_ticks), (ec, ec_ticks) = (eager_launches["metrics"],
+                                      eager_launches["coverage_pool"])
+    check(em["latency_fold"] == em["oracle_metrics"] == em_ticks
+          and em["threefry_tick_blocks"] == -(-em_ticks // engine.DRAW_CHUNK)
+          and ec["seen_update"] == ec_ticks and em["tick_chunk"] == 0,
+          f"the eager route's launches: metrics {em}, coverage pool {ec}")
+    emit(ab_out)
 
     # ---- 6g. the raft layer's game-day gates (config.profile_gates) with
     # metrics on at their bench scale: no violation, liveness (acked ops a
@@ -1125,13 +1245,24 @@ def main() -> int:
     k4_out = _flat(K4.latency_fold(*k4_args))
     n_ph = k4_args[2].shape[1]
 
-    # K5 at the coverage pool flagship's shape: the inputs its 200th tick
-    # gave the kernel, against the plain version on the same inputs
-    check(len(k5_in.kept) == 1, "the coverage flagship's K5 inputs not kept")
-    ccfg5, *k5_args = k5_in.kept.pop()
-    k5_node, k5_rows, k5_seen, k5_nf, k5_t = (k5_args[:5], k5_args[5],
-                                             k5_args[6], k5_args[7],
-                                             k5_args[8])
+    # K5 at the coverage pool flagship's shape (K5 runs on its eager
+    # route): the inputs the pool's 200th tick gives it, its first 199
+    # ticks' fingerprints stamped by K6-coverage (the first generation's
+    # lanes are the fuzz flagship's clusters under the base knobs, so its
+    # tick-200 state is fs), against the plain version on the same inputs
+    ccfg5 = config.CoverageConfig().fingerprint_key()
+    k5_seen = torch.full((1, ccfg5.bitmap_bits), coverage.UNSEEN,
+                         dtype=torch.int32, device=dev)
+    k5_nf = torch.zeros(b, dtype=torch.int32, device=dev)
+    s199 = engine._advance(fcfg, state.init_cluster(fcfg, fk, fkn), fk, fkn,
+                           199, K6.Seen(ccfg5, k5_seen, None, k5_nf, 0))
+    s200 = engine._advance(fcfg, s199, fk, fkn, 1)
+    check(all(torch.equal(x, y) for x, y in zip(s200, fs)),
+          "the coverage pool's tick-200 state differs from the flagship's")
+    del s199, s200
+    k5_t = 199
+    k5_node = [fs.role, fs.alive, fs.term, fs.commit, fs.violations]
+    k5_rows = None
     got = K5.seen_update(ccfg5, *k5_node, k5_rows, k5_seen.clone(),
                          k5_nf.clone(), k5_t)
     want5 = coverage.seen_update_plain(ccfg5, *k5_node, k5_rows,
@@ -1166,6 +1297,45 @@ def main() -> int:
     # rows read once
     k6_bytes = 2 * fs_bytes + nbytes(fk) + b * 28 * 4
 
+    # K6-metrics at the metrics flagship's shape (ms_, the metrics-on state
+    # at tick 200) and K6-coverage at the coverage pool flagship's (fs under
+    # [B] knob rows, the seen-set of its first 199 ticks, run-wide tick
+    # 200), each held against its plain version over a chunk first; the
+    # credit pass on the indices of one 256-tick K6-coverage launch
+    _k6_variant_vs_plain(mcfg, ms_, fk, fkn, chunk, chunk, errs,
+                         "metrics flagship shape")
+    cov_kn = fkn.broadcast(b)
+    cov_table = K6.knob_table(cov_kn, b)
+    cov_at = K6.Seen(ccfg5, k5_seen.clone(), None, k5_nf.clone(), k5_t + 1)
+    _k6_variant_vs_plain(fcfg, fs, fk, cov_kn, chunk, chunk, errs,
+                         "coverage flagship shape", cov_at._replace(
+                             seen=cov_at.seen.clone(),
+                             new_fps=cov_at.new_fps.clone()))
+    fp_buf = torch.empty((k6_m, b), dtype=torch.int32, device=dev)
+    K6._launch(fcfg, fs, fk, cov_kn, k6_m, K6._lib(K6.variant(False, True)),
+               torch.cuda.current_stream(dev).cuda_stream, table=cov_table,
+               cov=cov_at, fp=fp_buf)
+    fp_ok = int((fp_buf >= 0).sum())
+    k6m_bytes = 2 * nbytes(*ms_) + nbytes(fk) + b * 28 * 4
+
+    def k6m_call(m):
+        return lambda i: K6.tick_chunk(mcfg, ms_, fk, fkn, m, k6_table)
+
+    def k6c_call(m):
+        return lambda i: K6.tick_chunk(fcfg, fs, fk, cov_kn, m, cov_table,
+                                       cov_at)
+
+    def k6c_bytes(m):
+        """K6-coverage's bytes for m ticks: K6's, the fp row written each
+        tick, and a clean lane-tick's stamp read and written."""
+        return k6_bytes + 4 * m * b + 8 * fp_ok * m // k6_m
+
+    def credit_call(i):
+        return K5.credit_pass(fp_buf, cov_at.seen, cov_at.new_fps, k5_t + 1)
+
+    def credit_plain(i):
+        return K5.credit_plain(fp_buf, cov_at.seen, cov_at.new_fps, k5_t + 1)
+
     def k6_ops(m):
         """K6's counted operations for m ticks: per cluster and tick the
         tick's total + 2 hashes and total xors. The raft logic around them
@@ -1184,6 +1354,37 @@ def main() -> int:
 
     # name: (device ms, call ms, plain ms, bytes, operations)
     timing = {
+        # one launch of the engine's KERNEL_CHUNK ticks, as K6's row; the
+        # metric leaves add their bytes, the fold a few operations a slot
+        # (left out: the bound counts the hashes, as K6's)
+        "tick_chunk_metrics": (
+            device_ms(k6m_call(k6_m), "tick_chunk_kernel", iters=5,
+                      warmup=1),
+            cuda_ms(k6m_call(k6_m), iters=5, warmup=1),
+            cuda_ms(lambda i: K6.tick_chunk_plain(mcfg, ms_, fk, fkn, k6_m),
+                    iters=1, warmup=0),
+            k6m_bytes, k6_ops(k6_m)),
+        # the fingerprint adds per lane-tick n^2 compares, about 12
+        # operations a node and 12 for the hash (K5's count)
+        "tick_chunk_coverage": (
+            device_ms(k6c_call(k6_m), "tick_chunk_kernel", iters=5,
+                      warmup=1),
+            cuda_ms(k6c_call(k6_m), iters=5, warmup=1),
+            cuda_ms(lambda i: K6.tick_chunk_plain(
+                fcfg, fs, fk, cov_kn, k6_m, cov_at._replace(
+                    seen=cov_at.seen.clone(),
+                    new_fps=cov_at.new_fps.clone())), iters=1, warmup=0),
+            k6c_bytes(k6_m),
+            k6_ops(k6_m) + k6_m * b * (n_nodes * n_nodes + 12 * n_nodes
+                                       + 12)),
+        # fp read once, a stamp read for each clean lane-tick, the credits
+        # read and written; about 4 operations a lane-tick
+        "credit_pass": (
+            device_ms(credit_call, "credit_kernel"),
+            cuda_ms(credit_call),
+            cuda_ms(credit_plain, iters=20),
+            nbytes(fp_buf) + 4 * fp_ok + 2 * nbytes(cov_at.new_fps),
+            4 * k6_m * b),
         # one launch of the engine's KERNEL_CHUNK ticks
         "tick_chunk": (
             device_ms(k6_call(k6_m), "tick_chunk_kernel", iters=5,
@@ -1277,7 +1478,7 @@ def main() -> int:
              "ms": device_ms(k6_call(chunk), "tick_chunk_kernel", iters=20),
              "call_ms": cuda_ms(k6_call(chunk), iters=20),
              **k6_bounds(chunk)}
-    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot
+    del k2_rot, k3p_rot, k3u_rot, k2m_rot, k4_rot, k5_rot, fp_buf
     set_counts(counts)  # timing launches are not main-path launches
     emit({"phase": "timing", "clusters": b, "device_ms_from": "torch.profiler",
           "l2_cold_rotations": {"oracle": rotations(nbytes(*args2)),
@@ -1288,6 +1489,7 @@ def main() -> int:
                                 "unpack_state": rotations(nbytes(*fp))},
           "tick_chunk_32": k6_32,
           "tick_chunk_launch": {"ticks": k6_m, **k6_bounds(k6_m)},
+          "coverage_clean_lane_ticks": fp_ok,
           "shapes": {"tick_chunk": [k6_m, b, fs_bytes // b],
                      "tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
                      "oracle_logs": [b, n_nodes, 64],
@@ -1301,22 +1503,16 @@ def main() -> int:
     emit(_k6_scaling(fcfg, fs, fk, fkn, chunk))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
+    emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
+                        tick="kernel"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_metrics"))
-    # a coverage tick: the flagship tick under [B] knob rows, then K5
-    cov_seen = torch.full((1, config.CoverageConfig().bitmap_bits),
-                          coverage.UNSEEN, dtype=torch.int32, device=dev)
-    cov_nf = torch.zeros(b, dtype=torch.int32, device=dev)
-    cov_t = [0]
-
-    def fingerprint(st):
-        K5.seen_update(config.CoverageConfig(), st.role, st.alive, st.term,
-                       st.commit, st.violations, None, cov_seen, cov_nf,
-                       cov_t[0])
-        cov_t[0] += 1
-
-    emit(_profile_ticks(fcfg, fs, fk, fkn.broadcast(b), chunk,
-                        "profile_coverage", after_tick=fingerprint))
-    del cov_seen
+    # a coverage tick: the flagship tick under [B] knob rows, then its
+    # fingerprints: inside K6-coverage (and the credit pass), or K5
+    for phase, route in (("profile_k6_coverage", "kernel"),
+                         ("profile_coverage", "eager")):
+        emit(_profile_ticks(fcfg, fs, fk, cov_kn, chunk, phase, tick=route,
+                            cov=cov_at))
+    del cov_at
     wide_bpl, packed_bpl = nbytes(*fs) / b, nbytes(*fp) / b
     # a harvest reads the chunk's wide state, ids and keys once and writes
     # the packed carry, the [B, 9] snapshot and the new ids and keys once
@@ -1335,42 +1531,57 @@ def main() -> int:
     emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
 
     emit(card)
+    # name: (label, source, the reference region it replaces)
     sources = {
-        "tick_chunk": ("madraft_tpu_torch/csrc/tick.cu",
+        "tick_chunk": ("K6", "madraft_tpu_torch/csrc/tick.cu",
                        "madraft_tpu/tpusim/step.py:293"),
-        "threefry_tick_blocks": ("madraft_tpu_torch/csrc/threefry.cu",
+        "tick_chunk_metrics": ("K6-metrics", "madraft_tpu_torch/csrc/tick.cu",
+                               "madraft_tpu/tpusim/step.py:1008"),
+        "tick_chunk_coverage": ("K6-coverage",
+                                "madraft_tpu_torch/csrc/tick.cu",
+                                "madraft_tpu/tpusim/engine.py:1342"),
+        "credit_pass": ("credit pass", "madraft_tpu_torch/csrc/tick.cu",
+                        "madraft_tpu/tpusim/engine.py:1356"),
+        "threefry_tick_blocks": ("K1", "madraft_tpu_torch/csrc/threefry.cu",
                                  "madraft_tpu/tpusim/step.py:128"),
-        "threefry_hash_pairs": ("madraft_tpu_torch/csrc/threefry.cu",
+        "threefry_hash_pairs": ("K1", "madraft_tpu_torch/csrc/threefry.cu",
                                 "madraft_tpu/tpusim/engine.py:95"),
-        "oracle": ("madraft_tpu_torch/csrc/oracle.cu",
+        "oracle": ("K2", "madraft_tpu_torch/csrc/oracle.cu",
                    "madraft_tpu/tpusim/step.py:961"),
-        "oracle_metrics": ("madraft_tpu_torch/csrc/oracle.cu",
+        "oracle_metrics": ("K2-metrics", "madraft_tpu_torch/csrc/oracle.cu",
                            "madraft_tpu/tpusim/step.py:1008"),
-        "latency_fold": ("madraft_tpu_torch/csrc/metrics.cu",
+        "latency_fold": ("K4", "madraft_tpu_torch/csrc/metrics.cu",
                          "madraft_tpu/tpusim/metrics.py:45"),
-        "seen_update": ("madraft_tpu_torch/csrc/coverage.cu",
+        "seen_update": ("K5", "madraft_tpu_torch/csrc/coverage.cu",
                         "madraft_tpu/tpusim/coverage.py:100"),
-        "pack_state": ("madraft_tpu_torch/csrc/pack.cu",
+        "pack_state": ("K3", "madraft_tpu_torch/csrc/pack.cu",
                        "madraft_tpu/tpusim/state.py:561"),
-        "unpack_state": ("madraft_tpu_torch/csrc/pack.cu",
+        "unpack_state": ("K3", "madraft_tpu_torch/csrc/pack.cu",
                          "madraft_tpu/tpusim/state.py:656"),
     }
-    # each kernel's launches on the main path that runs it: the fuzz
-    # flagship for K6 and K1's key hashes, the pool flagship for K3, the
-    # metrics flagship (the eager tick) for K1's draw chunks, K2, its
-    # metrics instance and K4, the coverage pool flagship for K5
+    # each kernel's launches on the path that runs it: the fuzz flagship
+    # for K6 and K1's key hashes, the pool flagship for K3, the metrics
+    # flagship for K6-metrics, the coverage pool flagship for K6-coverage
+    # and the credit pass. K1's draw chunks, K2, its metrics instance and
+    # K4 run on the eager route only (0 launches on the flagships): their
+    # counts come from the metrics pair's first eager run of the A/B, K5's
+    # from the coverage pool pair's
     launches.update({k: pool_launches[k] for k in ("pack_state",
                                                    "unpack_state")})
-    launches.update({k: launches_m[k] for k in (
+    launches["tick_chunk_metrics"] = launches_m["tick_chunk_metrics"]
+    launches.update({k: cov_launches[k] for k in (
+        "tick_chunk_coverage", "credit_pass")})
+    launches.update({k: em[k] for k in (
         "threefry_tick_blocks", "oracle", "oracle_metrics", "latency_fold")})
-    launches["seen_update"] = cov_launches["seen_update"]
+    launches["seen_update"] = ec["seen_update"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
         t_ops = ops / card["int32_ops_per_s"] * 1e3
         rows.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "label": sources[name][0], "route": "cuda",
+            "source": sources[name][1], "replaces": sources[name][2],
+            "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -1425,22 +1636,30 @@ def k6_only() -> int:
     return 0
 
 
-def _k6_grid(cfg) -> dict:
-    """How K6 lays cfg's clusters out on the card (``tick_grid``):
-    clusters a warp, warps a block, clusters a block, shared bytes a
-    block."""
+def _k6_grid(cfg, build: str = "tick") -> dict:
+    """How a build of K6 (``_build.VARIANTS``) lays cfg's clusters out on
+    the card (``tick_grid``): clusters a warp, warps a block, clusters a
+    block, shared bytes a block and a cluster, the blocks and clusters an
+    SM holds (the occupancy API), and the waves 4096 clusters take."""
     import ctypes
+
+    import torch
 
     from madraft_tpu_torch.kernels import tick as K6
 
-    lib = K6._lib()
+    lib = K6._lib(build)
     lib.tick_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.tick_grid.restype = ctypes.c_int
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     check(lib.tick_grid(cfg.n_nodes, cfg.log_cap, cfg.ae_max, out) == 0,
-          "tick_grid refused the flagship's shape")
-    return {"clusters_a_warp": out[0], "warps_a_block": out[1],
-            "clusters_a_block": out[0] * out[1], "shared_bytes": out[2]}
+          f"tick_grid of {build} refused the shape")
+    per_block = out[0] * out[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"build": build, "clusters_a_warp": out[0], "warps_a_block": out[1],
+            "clusters_a_block": per_block, "shared_bytes": out[2],
+            "cluster_bytes": out[2] // per_block, "blocks_an_sm": out[3],
+            "clusters_an_sm": out[3] * per_block,
+            "waves_at_4096": -(-4096 // (out[3] * per_block * sms))}
 
 
 def _k6_load(grid: dict, b: int, sms: int) -> dict:
@@ -1589,6 +1808,81 @@ def _k6_vs_plain(cfg, s, keys, kn, ticks: int, chunk: int, errs: dict,
               f"{state.first_divergence(done, state.state_to_numpy(want), state.state_to_numpy(got))}")
         s = want
     return s
+
+
+def _k6_standin(tick_chunk):
+    """kernels.tick as the engine sees it, with ``tick_chunk`` in place of
+    the wrapper (a hook that keeps what a call gives or returns)."""
+    from madraft_tpu_torch.kernels import tick as K6
+
+    return types.SimpleNamespace(tick_chunk=tick_chunk,
+                                 knob_table=K6.knob_table,
+                                 variant=K6.variant, Seen=K6.Seen)
+
+
+def _plant_metric_leaves(s):
+    """A copy of a metrics-on state with its metric leaves planted at their
+    edges: stale submit stamps 1..5 in every ring slot (a no-op clears its
+    slot's, an install-snapshot keeps them), sums a few counts below the
+    int32 wrap, and lanes in turn with an empty worst-op register holding a
+    large latency, a held one every op beats, and one above every op."""
+    import torch
+
+    g = torch.Generator(device=s.tick.device).manual_seed(5)
+    dev, b = s.tick.device, s.tick.shape[0]
+
+    def near(x):
+        return (2**31 - 1 - torch.randint(0, 4, x.shape, generator=g,
+                                          device=dev)).to(torch.int32)
+
+    kind = torch.arange(b, device=dev) % 3
+    return s._replace(
+        log_tick=torch.randint(1, 6, s.log_tick.shape, generator=g,
+                               device=dev, dtype=torch.int32),
+        lat_hist=near(s.lat_hist), ev_counts=near(s.ev_counts),
+        phase_hist=near(s.phase_hist), phase_ticks=near(s.phase_ticks),
+        lat_ticks=near(s.lat_ticks),
+        worst_lat=torch.where(kind == 2, 2**30, torch.where(
+            kind == 0, 10**6, 0)).to(torch.int32)[:, None],
+        worst_sub=torch.where(kind == 0, 0, 5).to(torch.int32)[:, None])
+
+
+def _k6_variant_vs_plain(cfg, s, keys, kn, ticks: int, chunk: int,
+                         errs: dict, label: str, cov=None):
+    """K6's metrics / coverage variant (cfg.metrics, ``cov``) against its
+    plain version from state ``s`` over ``ticks`` ticks in chunks of
+    ``chunk``: every leaf, and with ``cov`` (a K6.Seen from run-wide tick
+    cov.t) the seen-set stamps and the credits, bit-equal after every
+    chunk. Returns the final state, and with ``cov`` the plain side's
+    seen-set after it."""
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import state
+
+    key = "tick_chunk_coverage" if cov is not None else "tick_chunk_metrics"
+    cov_p = None if cov is None else cov._replace(
+        seen=cov.seen.clone(), new_fps=cov.new_fps.clone())
+    done = 0
+    while done < ticks:
+        m = min(chunk, ticks - done)
+        t = None if cov is None else cov.t + done
+        got = K6.tick_chunk(cfg, s, keys, kn, m,
+                            cov=None if cov is None else cov._replace(t=t))
+        want = K6.tick_chunk_plain(
+            cfg, s, keys, kn, m, cov=None if cov is None else cov_p._replace(
+                t=t))
+        done += m
+        for a, b in zip(got, want):
+            check(a.dtype == b.dtype, f"{key} leaf dtype {a.dtype} at {label}")
+            errs[key] = max(errs[key], max_abs_err(a, b))
+        if cov is not None:
+            errs[key] = max(errs[key], max_abs_err(cov.seen, cov_p.seen))
+            errs["credit_pass"] = max(errs["credit_pass"],
+                                      max_abs_err(cov.new_fps, cov_p.new_fps))
+        check(errs[key] == 0 and errs["credit_pass"] == 0,
+              f"{key} differs from its plain version at {label}, tick {done}: "
+              f"{state.first_divergence(done, state.state_to_numpy(want), state.state_to_numpy(got))}")
+        s = want
+    return s if cov is None else (s, cov_p)
 
 
 def oracle_args(st):
@@ -1829,35 +2123,27 @@ def _profile_harvest(s, keys, kn, ccfg=None) -> dict:
 
 
 def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
-                   after_tick=None, tick: str = "eager") -> dict:
+                   tick: str = "eager", cov=None) -> dict:
     """Wall time per tick of ``cfg`` from state ``s``, the card's busy
     share over it, the kernels launched per tick, and the five kernels with
     the most device time, from torch.profiler, over one chunk of n_ticks
-    ticks drawn as the engine draws them (``after_tick(state)`` after each,
-    as the coverage chunk runs K5), or with ``tick="kernel"`` through the
-    engine's K6 route (one launch; the kernel draws the words). Kernel
-    launches here go to the counters' saved values afterwards, like the
-    timing phase's."""
+    ticks through ``engine._advance`` on route ``tick``: the eager tick
+    (the words drawn a chunk at a time, K5 after each tick with ``cov``)
+    or K6's launch (its variant for cfg.metrics and ``cov``, the kernel
+    drawing the words). Kernel launches here go to the counters' saved
+    values afterwards, like the timing phase's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from madraft_tpu_torch.kernels import threefry as K1
-    from madraft_tpu_torch.tpusim import engine, prng, step
+    from madraft_tpu_torch.tpusim import engine
 
     counts = read_counts()
-    total = step._block_total(cfg.n_nodes)
+    if cov is not None:  # the caller's seen-set stays as it was
+        cov = cov._replace(seen=cov.seen.clone(), new_fps=cov.new_fps.clone())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if tick == "kernel":
-            s = engine._advance(cfg, s, keys, kn, n_ticks, tick="kernel")
-        else:
-            words = K1.tick_blocks(keys, s.tick + 1, n_ticks, total,
-                                   prng.partitionable())
-            for i in range(n_ticks):
-                s = step.step_cluster(cfg, s, keys, kn, words=words[i])
-                if after_tick is not None:
-                    after_tick(s)
+        s = engine._advance(cfg, s, keys, kn, n_ticks, cov, tick=tick)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     set_counts(counts)

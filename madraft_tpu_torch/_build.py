@@ -19,10 +19,18 @@ import time
 from pathlib import Path
 
 SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick")
-# builds of a source with extra flags: name -> (source, flags). The K6
-# profile instance (clock64() per phase group) is launched only by
+# builds of a source with extra flags: name -> (source, flags). K6's
+# metrics and coverage variants (kernels/tick.py variant) are built at
+# their first use or by the engine's set-up before a run that takes them;
+# the profile instance (clock64() per phase group) is launched only by
 # chip_smoke.py
-VARIANTS = {"tick_profile": ("tick", ("-DMADRAFT_K6_PROFILE",))}
+VARIANTS = {
+    "tick_metrics": ("tick", ("-DMADRAFT_K6_METRICS",)),
+    "tick_coverage": ("tick", ("-DMADRAFT_K6_COVERAGE",)),
+    "tick_metrics_coverage": ("tick", ("-DMADRAFT_K6_METRICS",
+                                       "-DMADRAFT_K6_COVERAGE")),
+    "tick_profile": ("tick", ("-DMADRAFT_K6_PROFILE",)),
+}
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (

@@ -8,7 +8,8 @@
 // madraft_tpu_torch/kernels/coverage.py; the plain version is
 // madraft_tpu_torch/tpusim/coverage.py seen_update_plain.
 //
-// Per lane c, from its post-step node rows role, alive, term, commit [n]:
+// Per lane c, from its post-step node rows role, alive, term, commit [n]
+// (the arithmetic in coverage.cuh, which K6's coverage variant shares):
 //   rank_i  = #{j : term_j < term_i}, clipped to levels_r - 1;
 //   delta_i = commit_i - min(commit), clipped to levels_c - 1;
 //   node_i  = ((role_i * 2 + alive_i) * levels_r + rank_i) * levels_c
@@ -35,6 +36,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coverage.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -47,12 +50,6 @@ struct SeenArgs {
   int b, levels_r, levels_c, bits, identity, t;
   unsigned alphabet;
 };
-
-__device__ __forceinline__ unsigned mix32(unsigned x) {
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
 
 template <int N>
 __global__ void __launch_bounds__(kThreads)
@@ -75,15 +72,11 @@ __global__ void __launch_bounds__(kThreads)
     int rank = 0;
 #pragma unroll
     for (int j = 0; j < N; ++j) rank += term[j] < term[i];
-    rank = min(rank, a.levels_r - 1);
-    const int delta = min(max(commit[i] - cmin, 0), a.levels_c - 1);
-    const int node =
-        ((a.role[base + i] * 2 + a.alive[base + i]) * a.levels_r + rank) *
-            a.levels_c + delta;
-    code = code * a.alphabet + static_cast<unsigned>(node);
+    code = code * a.alphabet +
+           cov::node_code(a.role[base + i], a.alive[base + i], rank,
+                          commit[i] - cmin, a.levels_r, a.levels_c);
   }
-  const unsigned idx =
-      a.identity ? code : (mix32(code) & static_cast<unsigned>(a.bits - 1));
+  const unsigned idx = cov::bit_index(code, a.identity, a.bits);
   const long row = a.rows ? a.rows[c] : 0;
   const int old = atomicMin(&a.seen[row * a.bits + idx], a.t);
   if (old >= a.t) a.new_fps[c] += 1;

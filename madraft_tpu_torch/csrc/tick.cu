@@ -8,7 +8,8 @@
 // fsync; the oracle block (961-1081, kernel K2 on its own) runs inside it
 // as device code, and so does the tick's draw (_DrawBlock.__init__,
 // step.py:128, kernel K1's tick_blocks on its own). It runs m ticks in a
-// row for every cluster with the metrics plane off. The port's twin is
+// row for every cluster; its variants add the metrics plane and the
+// coverage fingerprint (below). The port's twin is
 // tpusim/step.py step_cluster; the Python side is kernels/tick.py, which
 // holds the plain version (the chunk's words drawn by
 // threefry.tick_blocks_plain, that step looped over the chunk), and the
@@ -51,6 +52,28 @@
 // The profile build (-DMADRAFT_K6_PROFILE) adds tick_launch_profile, the
 // same kernel with clock64() sums per phase group.
 //
+// Variants (B2-metrics, B2-coverage). -DMADRAFT_K6_METRICS builds K6-metrics:
+// the tick with the metrics plane (reference step.py 748-760, 838-842,
+// 886-889, the shadow record and fold 1008-1056, the event counters
+// 1141-1153; the eager tick runs them with K2's metrics instance and K4).
+// The stamp ring log_tick [n, cap], the shadow's record stamps [cap] and a
+// delivery's stamps join the cluster's shared block (+1616 B at n = 5,
+// cap = 64, ae 4: 8576 B, so 3 blocks, 24 clusters, fit an SM where 4
+// blocks fit without them); the fold's sums, histogram (a bucket a lane),
+// event counts and worst-op register stay in registers and are written
+// once at the chunk's end. Bound: the metric leaves add 1948 B a lane read
+// and written at n = 5; the fold adds a few operations a ring slot a tick.
+// -DMADRAFT_K6_COVERAGE builds K6-coverage: after each tick the cluster's
+// coverage fingerprint (K5's function, coverage.cuh) and its seen-set
+// stamp, atomicMin with the run-wide tick, and each lane-tick's flat
+// index into fp [m, B]; credit_launch then counts the credits (the credit
+// pass, tick.cuh credits()). A lane-tick credited at its own stamp would
+// be wrong here: within a launch the warps run their ticks in no common
+// order, so a later tick's stamp may land first. Bound: per lane-tick an
+// atomic on the seen-set and a 4-byte fp write (4 MB for 256 ticks at B =
+// 4096, read again by the credit pass with the stamps it names), about 40
+// operations for the code and hash. Both flags give K6-metrics-coverage.
+//
 // In place or not: the kernel stages a cluster fully before it writes, so
 // out may alias in; the wrapper writes one fresh allocation, because
 // chip_smoke.py and the tests hold the input state beside the result.
@@ -76,6 +99,18 @@ constexpr int kTileOf = N_ ? k6::kTile : k6::kWarp;
 template <int N_>
 constexpr int kBlocksPerSm = 32 * kTileOf<N_> / (kWarps * k6::kWarp);
 
+// The variant this file builds (see the header note)
+#ifdef MADRAFT_K6_METRICS
+constexpr bool kMet = true;
+#else
+constexpr bool kMet = false;
+#endif
+#ifdef MADRAFT_K6_COVERAGE
+constexpr bool kCov = true;
+#else
+constexpr bool kCov = false;
+#endif
+
 template <int N_, int CAP_, int AE_, bool kProf>
 __global__ void __launch_bounds__(kWarps * k6::kWarp, kBlocksPerSm<N_>)
     tick_chunk_kernel(const __grid_constant__ k6::Params p, long long *prof) {
@@ -86,7 +121,7 @@ __global__ void __launch_bounds__(kWarps * k6::kWarp, kBlocksPerSm<N_>)
   if (first >= p.b) return;  // the whole warp leaves together
   const int tile = lane / kTile, b = first + tile;
   const bool active = b < p.b;  // else a copy of the last cluster, unwritten
-  k6::run_cluster<N_, CAP_, AE_, kTile, kProf>(
+  k6::run_cluster<N_, CAP_, AE_, kTile, kProf, kMet, kCov>(
       p, smem + static_cast<size_t>(warp * kPerWarp + tile) * p.cluster_bytes,
       active ? b : p.b - 1, active, k6::Tile<kTile>{lane % kTile, tile * kTile},
       prof);
@@ -99,8 +134,11 @@ int warps_a_block(const k6::Params &p, int tile) {
   return warps < kWarps ? warps : kWarps;
 }
 
+// Launches the instance on p, or with occ, launches nothing and writes
+// the blocks an SM can hold (the occupancy API) there
 template <int N_, int CAP_, int AE_, bool kProf>
-int go(const k6::Params &p, cudaStream_t stream, long long *prof) {
+int go(const k6::Params &p, cudaStream_t stream, long long *prof,
+       int *occ = nullptr) {
   constexpr int kPerWarp = k6::kWarp / kTileOf<N_>;
   const int warps = warps_a_block(p, kTileOf<N_>);
   if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -109,6 +147,9 @@ int go(const k6::Params &p, cudaStream_t stream, long long *prof) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (occ)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, kernel, warps * k6::kWarp, shared));
   const int per_block = warps * kPerWarp;
   const int blocks = (p.b + per_block - 1) / per_block;
   kernel<<<blocks, warps * k6::kWarp, shared, stream>>>(p, prof);
@@ -116,9 +157,25 @@ int go(const k6::Params &p, cudaStream_t stream, long long *prof) {
 }
 
 template <int I, bool kProf>
-int go_shape(const k6::Params &p, cudaStream_t stream, long long *prof) {
-  return go<k6::shape_n(I), k6::shape_cap(I), k6::kShapeAe, kProf>(p, stream,
-                                                                  prof);
+int go_shape(const k6::Params &p, cudaStream_t stream, long long *prof,
+             int *occ) {
+  return go<k6::shape_n(I), k6::shape_cap(I), k6::kShapeAe, kProf>(
+      p, stream, prof, occ);
+}
+
+// The instance that takes p's shape (launched, or its occupancy into occ)
+template <bool kProf>
+int dispatch(const k6::Params &p, cudaStream_t st, long long *prof,
+             int *occ) {
+  switch (k6::instance(p.n, p.cap, p.ae_max)) {
+    case 1: return go_shape<0, kProf>(p, st, prof, occ);
+    case 2: return go_shape<1, kProf>(p, st, prof, occ);
+    case 3: return go_shape<2, kProf>(p, st, prof, occ);
+    case 4: return go_shape<3, kProf>(p, st, prof, occ);
+    case 5: return go_shape<4, kProf>(p, st, prof, occ);
+    case 6: return go_shape<5, kProf>(p, st, prof, occ);
+    default: return go<0, 0, 0, kProf>(p, st, prof, occ);
+  }
 }
 
 // Checks the arguments, fills the parameters and launches the instance
@@ -127,8 +184,8 @@ template <bool kProf>
 int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
            int n_leaves, const void *keys, const void *kf, const void *ki,
            const int *draws, int n_draws, int b, int n, int cap, int ae_max,
-           int m, int bug, int partitionable, void *stream,
-           long long *prof) {
+           int m, int bug, int partitionable, const int64_t *mptrs,
+           const int64_t *cov, void *stream, long long *prof) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws || b < 1 || m < 1 ||
       n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
       (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe || bug < 0 ||
@@ -143,7 +200,10 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
     p.out[l] = reinterpret_cast<void *>(outs[l]);
   }
   const int inst = k6::instance(n, cap, ae_max);
-  if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, draws))
+  if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
+                     draws) ||
+      (mptrs != nullptr) != kMet || (cov != nullptr) != kCov ||
+      !k6::set_variant(p, mptrs, cov))
     return static_cast<int>(cudaErrorInvalidValue);
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
@@ -153,16 +213,19 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
   p.bug = bug;
   p.partitionable = partitionable;
   p.one = 1u;
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (inst) {
-    case 1: return go_shape<0, kProf>(p, st, prof);
-    case 2: return go_shape<1, kProf>(p, st, prof);
-    case 3: return go_shape<2, kProf>(p, st, prof);
-    case 4: return go_shape<3, kProf>(p, st, prof);
-    case 5: return go_shape<4, kProf>(p, st, prof);
-    case 6: return go_shape<5, kProf>(p, st, prof);
-    default: return go<0, 0, 0, kProf>(p, st, prof);
-  }
+  return dispatch<kProf>(p, static_cast<cudaStream_t>(stream), prof,
+                         nullptr);
+}
+
+constexpr int kCreditThreads = 256;
+
+// The credit pass after a K6-coverage launch: a thread a cluster adds its
+// lane-ticks' credits (k6::credits) to new_fps
+__global__ void __launch_bounds__(kCreditThreads)
+    credit_kernel(const int *fp, const int *seen, int *new_fps, int b, int m,
+                  int t0) {
+  const int c = blockIdx.x * kCreditThreads + threadIdx.x;
+  if (c < b) new_fps[c] += k6::credits(fp, seen, b, c, m, t0);
 }
 
 }  // namespace
@@ -170,17 +233,32 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
 // kinds: the wrapper's leaf table (shape class, + 8 for a bool leaf), held
 // against the one compiled here; keys: [b, 2] int64-held u32 cluster keys;
 // draws: each draw's offset in a tick's words, held against tick.cuh's;
-// partitionable: the threefry counter layout. Returns cudaGetLastError()
-// after the launch.
+// partitionable: the threefry counter layout; mptrs: the metric leaves'
+// pointers in and out (the metrics variant's, else null); cov: the
+// coverage arguments (the coverage variant's, else null: set_variant).
+// Returns cudaGetLastError() after the launch.
 extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            const int *kinds, int n_leaves, const void *keys,
                            const void *kf, const void *ki, const int *draws,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
+                           const int64_t *mptrs, const int64_t *cov,
                            void *stream) {
   return launch<false>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                        n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                       stream, nullptr);
+                       mptrs, cov, stream, nullptr);
+}
+
+// The credit pass: fp [m, b] the launch's flat seen indices (-1: none),
+// seen the stamps after it, new_fps [b] += each cluster's credits
+extern "C" int credit_launch(const void *fp, const void *seen, void *new_fps,
+                             int b, int m, int t0, void *stream) {
+  if (b < 1 || m < 1 || t0 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  credit_kernel<<<(b + kCreditThreads - 1) / kCreditThreads, kCreditThreads,
+                  0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int *>(fp), static_cast<const int *>(seen),
+      static_cast<int *>(new_fps), b, m, t0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The instance tick_launch runs for a shape: 1 + its index in tick.cuh's
@@ -189,9 +267,10 @@ extern "C" int tick_instance(int n, int cap, int ae_max) {
   return k6::instance(n, cap, ae_max);
 }
 
-// How tick_launch lays a shape's clusters out: out[0] clusters a warp,
-// out[1] warps a block, out[2] dynamic shared bytes a block. Returns 0,
-// or cudaErrorInvalidValue for a shape it does not take
+// How tick_launch lays a shape's clusters out in this build: out[0]
+// clusters a warp, out[1] warps a block, out[2] dynamic shared bytes a
+// block, out[3] the blocks an SM holds (the occupancy API). Returns 0, or
+// a CUDA error (cudaErrorInvalidValue for a shape it does not take)
 extern "C" int tick_grid(int n, int cap, int ae_max, int *out) {
   if (n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
       (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe)
@@ -200,12 +279,14 @@ extern "C" int tick_grid(int n, int cap, int ae_max, int *out) {
   for (int i = 0; i < k6::kDraws; ++i) draws[i] = k6::draw_offset(i, n);
   const int inst = k6::instance(n, cap, ae_max);
   k6::Params p;
-  k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, draws);
+  k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
+                draws);
   const int tile = inst ? k6::kTile : k6::kWarp;
   out[0] = k6::kWarp / tile;
   out[1] = warps_a_block(p, tile);
   out[2] = out[1] * out[0] * p.cluster_bytes;
-  return out[1] < 1 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+  if (out[1] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(p, nullptr, nullptr, out + 3);
 }
 
 #ifdef MADRAFT_K6_PROFILE
@@ -217,10 +298,11 @@ extern "C" int tick_launch_profile(const int64_t *ins, const int64_t *outs,
                                    const void *ki, const int *draws,
                                    int n_draws, int b, int n, int cap,
                                    int ae_max, int m, int bug,
-                                   int partitionable, void *stream,
+                                   int partitionable, const int64_t *mptrs,
+                                   const int64_t *cov, void *stream,
                                    void *prof) {
   return launch<true>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                       n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                      stream, static_cast<long long *>(prof));
+                      mptrs, cov, stream, static_cast<long long *>(prof));
 }
 #endif

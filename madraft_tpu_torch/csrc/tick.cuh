@@ -25,6 +25,13 @@
 // instance for the rest; a template instance lays its block out for AE
 // and finds each slot at a compile-time offset.
 //
+// Variants: two more template flags add the metrics plane (kMet: the
+// submit-stamp ring beside the log, the shadow's record stamps, the
+// commit-latency fold and the event counters, step.py's cfg.metrics) and
+// the coverage fingerprint (kCov: after each tick the cluster's seen-set
+// bit is stamped with the run-wide tick and the bit's flat index kept for
+// the credit pass, credits()); tick.cu compiles each as its own build.
+//
 // Arithmetic as the reference's: int32 wraps where it wraps there (sums
 // that can wrap go through uint32, the entry hash too), floor division and
 // modulo where Python's apply, float32 uniforms are exact, and the float
@@ -35,6 +42,7 @@
 
 #include <cstdint>
 
+#include "coverage.cuh"
 #include "threefry.cuh"
 
 namespace k6 {
@@ -45,6 +53,7 @@ constexpr int kMaxAe = 64;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBig = 1 << 30;  // sentinel above any absolute log index
+constexpr int kIntMin = -2147483647 - 1;
 constexpr int kFollower = 0, kCandidate = 1, kLeader = 2;
 constexpr int kNoopCmd = 1 << 30;
 constexpr int kViolDual = 1, kViolLogMatch = 2, kViolShadow = 4;
@@ -100,14 +109,36 @@ __host__ __device__ constexpr int leaf_kind(int l) {
 
 // Scratch slots after the leaves in a cluster's shared block: the knob
 // rows, what a vote request carries, a delivery's entries, the tick's
-// draw words
+// draw words; in the metrics variant (else empty) the submit-stamp ring,
+// the shadow's record stamps and a delivery's stamps
 enum Scratch {
   S_KF = kLeaves,    // float32 knobs (KNOB_F32 order)
   S_KI,              // int32 knobs (KNOB_I32 order)
   S_LLT, S_LLI,      // [n]
   S_ENT_T, S_ENT_V,  // [n, ae_max]
   S_WORDS,           // [total] u32
+  S_LOG_TICK,        // [n, cap] the log_tick leaf
+  S_SHADOW_SUB,      // [cap] the shadow_sub leaf
+  S_ENT_S,           // [n, ae_max]
   kSlots
+};
+
+// The metric leaves, in ClusterState order (kernels/tick.py
+// METRIC_LEAVES), and their per-lane sizes past the stamp rings
+enum MetricLeaf {
+  M_LOG_TICK, M_SHADOW_SUB, M_LAT_HIST, M_EV_COUNTS, M_PHASE_HIST,
+  M_PHASE_TICKS, M_LAT_TICKS, M_WORST_LAT, M_WORST_PHASES, M_WORST_KEY,
+  M_WORST_CLIENT, M_WORST_SUB, kMetricLeaves
+};
+constexpr int kHist = 16;       // config.HIST_BUCKETS
+constexpr int kLatPhases = 4;   // config.LATENCY_PHASES
+constexpr int kReplicate = 1;   // the phase a raft command's latency takes
+
+// The event counters, in config.METRIC_EVENTS order
+enum Event {
+  E_ELECTIONS_WON, E_TERM_BUMPS, E_CRASHES, E_RESTARTS, E_RV_REQ_DELIVERED,
+  E_RV_RSP_DELIVERED, E_AE_REQ_DELIVERED, E_AE_RSP_DELIVERED,
+  E_SNAP_DELIVERED, E_COMMIT_ADVANCES, kEvents
 };
 
 enum KnobF { KF_LOSS_PROB, KF_P_CRASH, KF_P_RESTART, KF_P_REPARTITION,
@@ -184,6 +215,8 @@ struct Clock {
 struct Params {
   const void *in[kLeaves];   // [B, ...] leaves of the state in
   void *out[kLeaves];        // and of the state out (may alias in)
+  const int *m_in[kMetricLeaves];  // metrics: [B, ...] metric leaves in
+  int *m_out[kMetricLeaves];       // and out
   const long long *keys;     // [B, 2] int64-held u32 cluster keys
   const float *kf;           // [B, kKnobF]
   const int *ki;             // [B, kKnobI]
@@ -193,6 +226,13 @@ struct Params {
   int b, n, cap, ae_max, m, bug, total, cluster_bytes;
   int partitionable;         // the threefry counter layout (prng)
   unsigned one;              // 1, unknown to the compiler (threefry.cuh)
+  // coverage: seen [rows, bits] first-tick stamps, fp [m, B] each
+  // lane-tick's flat seen index (-1: violated), rows [B] each cluster's
+  // seen-set row (null: row 0), t0 the run-wide tick of the chunk's first
+  int *seen, *fp;
+  const int *rows;
+  int bits, levels_r, levels_c, identity, t0;
+  unsigned alphabet;
 };
 
 __host__ __device__ constexpr int shape_elems(int kind, int n, int cap) {
@@ -207,40 +247,44 @@ __host__ __device__ constexpr int shape_elems(int kind, int n, int cap) {
 
 // A cluster block's layout: slot s's bytes, 16-byte aligned, and its
 // offset; ae is the delivery entries' row length (ae_max, or the template
-// instance's bound)
-__host__ __device__ constexpr int slot_bytes(int s, int n, int cap, int ae) {
+// instance's bound), met whether the metrics variant's slots are there
+__host__ __device__ constexpr int slot_bytes(int s, int n, int cap, int ae,
+                                            bool met) {
   if (s < kLeaves) {
     const int e = shape_elems(leaf_kind(s), n, cap);
     return ((leaf_kind(s) & kBool ? e : 4 * e) + 15) & ~15;
   }
-  const int e = s == S_KF      ? kKnobF
-                : s == S_KI    ? kKnobI
-                : s == S_WORDS ? draw_offset(kDraws, n)
-                : s >= S_ENT_T ? n * ae
-                               : n;
+  const int e = s == S_KF           ? kKnobF
+                : s == S_KI         ? kKnobI
+                : s == S_WORDS      ? draw_offset(kDraws, n)
+                : s == S_LOG_TICK   ? (met ? n * cap : 0)
+                : s == S_SHADOW_SUB ? (met ? cap : 0)
+                : s == S_ENT_S      ? (met ? n * ae : 0)
+                : s >= S_ENT_T      ? n * ae
+                                    : n;
   return (4 * e + 15) & ~15;
 }
-__host__ __device__ constexpr int slot_offset(int s, int n, int cap,
-                                              int ae) {
+__host__ __device__ constexpr int slot_offset(int s, int n, int cap, int ae,
+                                              bool met) {
   int o = 0;
-  for (int i = 0; i < s; ++i) o += slot_bytes(i, n, cap, ae);
+  for (int i = 0; i < s; ++i) o += slot_bytes(i, n, cap, ae, met);
   return o;
 }
 // Slot S's offset in a template instance's block, fixed at compile time
-template <int N, int CAP, int AE, int S>
-inline constexpr int kSlotOffset = slot_offset(S, N, CAP, AE);
+template <int N, int CAP, int AE, bool MET, int S>
+inline constexpr int kSlotOffset = slot_offset(S, N, CAP, AE, MET);
 
 // Fills off with every slot's offset; returns the block's bytes
-inline int layout(int n, int cap, int ae, int *off) {
-  for (int s = 0; s < kSlots; ++s) off[s] = slot_offset(s, n, cap, ae);
-  return slot_offset(kSlots, n, cap, ae);
+inline int layout(int n, int cap, int ae, bool met, int *off) {
+  for (int s = 0; s < kSlots; ++s) off[s] = slot_offset(s, n, cap, ae, met);
+  return slot_offset(kSlots, n, cap, ae, met);
 }
 
-// Fills p's shape, layout (entry rows of ae_layout) and draw table for
-// (n, cap, ae_max) from the wrapper's draw offsets; false if they are not
-// this file's
+// Fills p's shape, layout (entry rows of ae_layout; the metrics variant's
+// slots when met) and draw table for (n, cap, ae_max) from the wrapper's
+// draw offsets; false if they are not this file's
 inline bool set_shape(Params &p, int n, int cap, int ae_max, int ae_layout,
-                      const int *draws) {
+                      bool met, const int *draws) {
   for (int i = 0; i < kDraws; ++i) {
     if (draws[i] != draw_offset(i, n)) return false;
     p.draw[i] = draws[i];
@@ -249,8 +293,30 @@ inline bool set_shape(Params &p, int n, int cap, int ae_max, int ae_layout,
   p.cap = cap;
   p.ae_max = ae_max;
   p.total = draw_offset(kDraws, n);
-  p.cluster_bytes = layout(n, cap, ae_layout, p.off);
+  p.cluster_bytes = layout(n, cap, ae_layout, met, p.off);
   return true;
+}
+
+// Fills p's metric leaves from mptrs (the kMetricLeaves in, then out) and
+// coverage arguments from cov (seen, fp, rows or 0, bits, levels_r,
+// levels_c, alphabet, identity, t0), each null when the build has no such
+// variant; false if the coverage arguments are out of range
+inline bool set_variant(Params &p, const int64_t *mptrs, const int64_t *cov) {
+  for (int l = 0; l < kMetricLeaves; ++l) {
+    p.m_in[l] = mptrs ? reinterpret_cast<const int *>(mptrs[l]) : nullptr;
+    p.m_out[l] =
+        mptrs ? reinterpret_cast<int *>(mptrs[kMetricLeaves + l]) : nullptr;
+  }
+  p.seen = cov ? reinterpret_cast<int *>(cov[0]) : nullptr;
+  p.fp = cov ? reinterpret_cast<int *>(cov[1]) : nullptr;
+  p.rows = cov ? reinterpret_cast<const int *>(cov[2]) : nullptr;
+  p.bits = cov ? static_cast<int>(cov[3]) : 1;
+  p.levels_r = cov ? static_cast<int>(cov[4]) : 1;
+  p.levels_c = cov ? static_cast<int>(cov[5]) : 1;
+  p.alphabet = cov ? static_cast<unsigned>(cov[6]) : 1u;
+  p.identity = cov ? static_cast<int>(cov[7]) : 0;
+  p.t0 = cov ? static_cast<int>(cov[8]) : 0;
+  return !cov || (p.bits > 0 && !(p.bits & (p.bits - 1)) && p.t0 >= 0);
 }
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -312,6 +378,16 @@ __device__ __forceinline__ int entry_mix(int term, int val, int abs_idx) {
   return static_cast<int>(h ^ (static_cast<uint32_t>(term) * 0xC2B2AE35u));
 }
 __device__ __forceinline__ bool bit(unsigned m, int i) { return m >> i & 1u; }
+// t - sub with int32 wrap-around
+__device__ __forceinline__ int wsub(int t, int sub) {
+  return static_cast<int>(static_cast<uint32_t>(t) -
+                          static_cast<uint32_t>(sub));
+}
+// A latency's histogram bucket: the count of edges 2^1 .. 2^15 at or below
+// it (metrics.bucket_of)
+__device__ __forceinline__ int bucket_of(int lat) {
+  return lat < 2 ? 0 : imin(31 - __clz(lat), kHist - 1);
+}
 
 // Lanes a cluster takes in a template instance: two clusters a warp
 // (16 and 8 lanes ran alike at the flagship, 16 with the shorter chain
@@ -378,8 +454,9 @@ struct Tile {
 
 // One cluster's block in shared memory: a slot's address by its runtime
 // offset (I, B, F), or by a compile-time one in a template instance (the
-// free I<S>, B<S>, F<S>, U<S>, which then read no parameter)
-template <int N_, int CAP_, int AE_>
+// free I<S>, B<S>, F<S>, U<S>, which then read no parameter); MET_ lays
+// out the metrics variant's slots
+template <int N_, int CAP_, int AE_, bool MET_ = false>
 struct Block {
   const Params &p;
   uint8_t *cl;
@@ -393,7 +470,7 @@ struct Block {
   template <int S>
   __device__ __forceinline__ uint8_t *at() const {
     if constexpr (N_ > 0)
-      return cl + kSlotOffset<N_, CAP_, AE_, S>;
+      return cl + kSlotOffset<N_, CAP_, AE_, MET_, S>;
     else
       return cl + p.off[S];
   }
@@ -459,6 +536,17 @@ struct Own {
   int durable_voted_for = 0, fsync_stall = 0, compact_floor = 0;
   unsigned votes = 0u;
   int delivered = 0, installs = 0;  // the node's, summed at the chunk's end
+};
+
+// The metrics plane's sums over a chunk, in a lane's registers (the
+// metrics variant): its node's event counts, its ring slots' acks and
+// their latencies' sum, the tile's acks in histogram bucket `lane` (lanes
+// below kHist), and the worst-op register, the same on the tile's lanes
+struct Meter {
+  int ev[kEvents] = {};
+  int acked = 0, lat_sum = 0, hist = 0;
+  int worst_lat = 0, worst_sub = 0;
+  bool worst_new = false;  // the register changed in this chunk
 };
 
 template <typename Blk>
@@ -578,7 +666,7 @@ __device__ __forceinline__ int term_at(const int *log_term,
 // is at most the tile's greatest term match (both as ring offsets 1..CAP
 // from node i's base: an overlap index of the pair lies in (base_i,
 // base_i + CAP]), so each pair takes one maximum over the tile
-template <int N, int CAP, int TILE, typename Blk>
+template <int N, int CAP, int TILE, bool kMet, typename Blk>
 __device__ __forceinline__ int ring_checks(const Blk &s,
                                            const Tile<TILE> &tile, int sb,
                                            int sl0, int new_base, int &xh) {
@@ -628,7 +716,7 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
     int lt = st[k], lv = sv[k];
     if (old_abs <= imin(new_base, sl0)) xh ^= entry_mix(lt, lv, old_abs);
     const int sh_abs = lane_abs(new_base, k, CAP);
-    int sl = sl0;
+    int sl = sl0, ss = 0;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const bool at = sh_abs == a[i];
@@ -637,10 +725,13 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
       const bool take = at && sh_abs > sl && sh_abs <= cs[i];
       lt = take ? lt_i[i] : lt;
       lv = take ? lv_i[i] : lv;
+      if constexpr (kMet)  // the record's stamp, a later node's winning
+        ss = take ? I<S_LOG_TICK>(s)[i * CAP + k] : ss;
       sl = imax(sl, cs[i]);
     }
     st[k] = lt;
     sv[k] = lv;
+    if constexpr (kMet) I<S_SHADOW_SUB>(s)[k] = ss;
   }
   int viol = shadow_bad ? kViolShadow : 0;
 #pragma unroll
@@ -649,12 +740,69 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
   return viol;
 }
 
-// One tick of the cluster (step.py step_cluster with cfg.metrics off)
+// The tick's commit-latency fold (step.py 663-690; K4's function, which
+// the eager tick launches), on the shadow's record stamps the oracle just
+// wrote: each ring slot with a stamp sub > 0 acks an op of latency t - sub
+// (int32 wrap). Each lane sums its slots' acks and latencies; a slot's
+// histogram bucket goes to the lane of that bucket by a shuffle per acked
+// slot; the worst-op candidate is the argmax over the slots of (acked ?
+// latency : -1), the lowest slot on ties (a maximum over the tile, then
+// the least slot that holds it), and it replaces the register when it is
+// greater or the register is empty (worst_sub 0). A warp with no ack this
+// tick only scans its slots
+template <int CAP_, int TILE, typename Blk>
+__device__ void fold(const Params &p, const Blk &s, const Tile<TILE> &tile,
+                     int t, Meter &mt) {
+  const int cap = CAP_ ? CAP_ : p.cap, lane = tile.lane;
+  const int *ss = I<S_SHADOW_SUB>(s);
+  int best = kIntMin, best_k = kBig;  // best_k kBig: the lane has no slot
+  bool mine = false;
+#pragma unroll
+  for (int k0 = 0; k0 < cap; k0 += TILE) {
+    const int k = k0 + lane;
+    if (k >= cap) continue;
+    const int sub = ss[k];
+    const int lat = wsub(t, sub);
+    const int key = sub > 0 ? lat : -1;
+    if (best_k == kBig || key > best) best = key, best_k = k;
+    if (sub > 0) {
+      mine = true;
+      ++mt.acked;
+      mt.lat_sum = wadd(mt.lat_sum, lat);
+    }
+  }
+  if (!tile.any_lane(mine)) return;  // the whole warp together
+  const bool any = tile.ballot(mine) != 0u;
+  const int top = tile.max(best);
+  const int at = tile.min(best == top ? best_k : kBig);
+  if (any) {
+    const int cand = wsub(t, ss[at]);
+    if (cand > mt.worst_lat || mt.worst_sub == 0) {
+      mt.worst_lat = cand;
+      mt.worst_sub = ss[at];
+      mt.worst_new = true;
+    }
+  }
+#pragma unroll
+  for (int k0 = 0; k0 < cap; k0 += TILE) {
+    const int k = k0 + lane;
+    const int sub = k < cap ? ss[k] : 0;
+    const int bk = sub > 0 ? bucket_of(wsub(t, sub)) : 0;
+    for (unsigned pend = tile.ballot(sub > 0); tile.any_lane(pend != 0u);
+         pend &= pend - 1u) {
+      const int j = pend ? __ffs(pend) - 1 : 0;
+      const int bj = tile.shfl(bk, j);
+      if (pend && lane == bj) ++mt.hist;
+    }
+  }
+}
+
+// One tick of the cluster (step.py step_cluster, with cfg.metrics as kMet)
 // under the tick's key (tk0, tk1); alive is the warp's mask of live nodes,
 // carried from tick to tick
-template <int N_, int CAP_, int AE_, int TILE, bool kProf>
-__device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
-                     unsigned &alive,
+template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet>
+__device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
+                     Own &o, Meter &mt, unsigned &alive,
                      const Tile<TILE> &tile, Clock<kProf> &clk, uint32_t tk0,
                      uint32_t tk1) {
   const int lane = tile.lane;
@@ -681,6 +829,9 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
   const bool node = lane < n;
   const int skew = me * ki[KI_ETO_SKEW];
   int &delivered = o.delivered, &installs = o.installs;
+  // the event counters' baselines, taken before the suffix-loss rollback
+  [[maybe_unused]] const int term0 = node ? term[d] : 0;
+  [[maybe_unused]] const int commit0 = node ? commit[d] : 0;
 
   // -------------------------------------------------- the tick's words
   draw_words<N_, TILE>(p, w, tk0, tk1, lane);
@@ -720,6 +871,10 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
               (bit(was, d) && down);
       now = (bit(was, d) || restart) && !crash;
       lead_pre = now && role[d] == kLeader;  // the tick-start role
+      if constexpr (kMet) {
+        mt.ev[E_CRASHES] += crash;
+        mt.ev[E_RESTARTS] += restart;
+      }
     }
     alive = tile.ballot(now);
     const unsigned lead_pre_m = tile.ballot(lead_pre);
@@ -807,6 +962,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
     }
     if (ps >= 0) {
       ++delivered;
+      if constexpr (kMet) ++mt.ev[E_RV_RSP_DELIVERED];
       const int mterm = I<L_RV_RSP_TERM>(s)[d * n + ps];
       if (mterm > term[d]) {
         term[d] = mterm;
@@ -831,6 +987,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
     }
     if (ps >= 0) {
       ++delivered;
+      if constexpr (kMet) ++mt.ev[E_AE_RSP_DELIVERED];
       const int q = d * n + ps;
       const int mterm = I<L_AE_RSP_TERM>(s)[q];
       if (mterm > term[d]) {
@@ -866,6 +1023,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
       }
       if (ps >= 0) {
         ++delivered;
+        if constexpr (kMet) ++mt.ev[E_SNAP_DELIVERED];
         const int mterm = I<L_SN_REQ_TERM>(s)[d * n + ps];
         if (mterm > term[d]) {
           term[d] = mterm;
@@ -916,6 +1074,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
     }
     if (ps >= 0) {
       ++delivered;
+      if constexpr (kMet) ++mt.ev[E_RV_REQ_DELIVERED];
       const int q = d * n + ps;
       const int mterm = I<L_RV_REQ_TERM>(s)[q];
       if (mterm > term[d]) {
@@ -971,6 +1130,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
       }
       if (ps >= 0) {
         ++delivered;
+        if constexpr (kMet) ++mt.ev[E_AE_REQ_DELIVERED];
         const int q = d * n + ps;
         const int mterm = I<L_AE_REQ_TERM>(s)[q];
         if (mterm > term[d]) {
@@ -1011,6 +1171,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
           const int et = log_term[ps * cap + k];
           I<S_ENT_T>(s)[d * ent + e] = et;
           I<S_ENT_V>(s)[d * ent + e] = log_val[ps * cap + k];
+          if constexpr (kMet)  // the submit stamp replicates with the entry
+            I<S_ENT_S>(s)[d * ent + e] = I<S_LOG_TICK>(s)[ps * cap + k];
           if (inb) {
             in_batch |= uint64_t{1} << e;
             if (a <= len && log_term[d * cap + k] != et) {
@@ -1035,6 +1197,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
         const int k = slot(prev + e + 1, cap);
         log_term[d * cap + k] = I<S_ENT_T>(s)[d * ent + e];
         log_val[d * cap + k] = I<S_ENT_V>(s)[d * ent + e];
+        if constexpr (kMet)
+          I<S_LOG_TICK>(s)[d * cap + k] = I<S_ENT_S>(s)[d * ent + e];
       }
       if (success) {
         log_len[d] = conflict ? batch_end : imax(log_len[d], batch_end);
@@ -1098,6 +1262,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
     if (bit(alive, d) && role[d] == kCandidate &&
         __popc(o.votes) >= ki[KI_MAJORITY]) {
       role[d] = kLeader;
+      if constexpr (kMet) ++mt.ev[E_ELECTIONS_WON];
       for (int j = 0; j < n; ++j) {
         next_idx[d * n + j] = log_len[d] + 1;
         match_idx[d * n + j] = 0;
@@ -1107,6 +1272,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
         const int k = slot(log_len[d] + 1, cap);
         log_term[d * cap + k] = term[d];
         log_val[d * cap + k] = kNoopCmd;
+        if constexpr (kMet) I<S_LOG_TICK>(s)[d * cap + k] = 0;  // not a client op
         o.durable_len = ++log_len[d];
       }
     }
@@ -1138,6 +1304,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
       const int k = slot(log_len[d] + 1, cap);
       log_term[d * cap + k] = term[d];
       log_val[d * cap + k] = I<L_NEXT_CMD>(s)[0] * n + me + 1;
+      if constexpr (kMet) I<S_LOG_TICK>(s)[d * cap + k] = t;  // submitted now
       o.durable_len = ++log_len[d];
     }
     // heartbeat (610-612)
@@ -1252,7 +1419,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
     }
     const int new_base = imax(sb, need - cap);
     if constexpr (N_ > 0 && CAP_ > 0) {
-      viol |= ring_checks<N_, CAP_, TILE>(s, tile, sb, sl0, new_base, xh);
+      viol |= ring_checks<N_, CAP_, TILE, kMet>(s, tile, sb, sl0, new_base,
+                                                xh);
     } else {
       // the runtime shape: each lane a few ring slots, the pair's least
       // mismatch and greatest term match reduced over the warp
@@ -1281,19 +1449,23 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
         if (old_abs <= imin(new_base, sl0))
           xh ^= entry_mix(st[k], sv[k], old_abs);
         const int sh_abs = lane_abs(new_base, k, cap);
-        int lt = st[k], lv = sv[k], slw = sl0;
+        int lt = st[k], lv = sv[k], slw = sl0, ss = 0;
         for (int i = 0; i < n; ++i) {
           const int c = commit[i];
           if (sh_abs == lane_abs(base[i], k, cap)) {
             const int it = log_term[i * cap + k], iv = log_val[i * cap + k];
             if (sh_abs <= imin(c, slw) && (lt != it || lv != iv))
               viol |= kViolShadow;
-            if (sh_abs > slw && sh_abs <= c) lt = it, lv = iv;
+            if (sh_abs > slw && sh_abs <= c) {
+              lt = it, lv = iv;
+              if constexpr (kMet) ss = I<S_LOG_TICK>(s)[i * cap + k];
+            }
           }
           slw = imax(slw, c);
         }
         st[k] = lt;
         sv[k] = lv;
+        if constexpr (kMet) I<S_SHADOW_SUB>(s)[k] = ss;
       }
     }
     viol = tile.any_bits(viol);
@@ -1310,6 +1482,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
     }
   }
   __syncwarp();
+  if constexpr (kMet) fold<CAP_>(p, s, tile, t, mt);
   clk.mark(P_ORACLE);
 
   // ------------------ compaction (691-705), background fsync (707-722)
@@ -1368,25 +1541,164 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_> &s, Own &o,
       }
     }
   }
+  if constexpr (kMet) {
+    if (node) {
+      mt.ev[E_TERM_BUMPS] += term[d] > term0;
+      mt.ev[E_COMMIT_ADVANCES] += commit[d] > commit0;
+    }
+  }
   if (lane == 0) I<L_TICK>(s)[0] = t;
   __syncwarp();  // the tick's words and scalars are read
   clk.mark(P_COMPACT);
 }
 
+// The metrics variant's stamp rings in (load: log_tick; shadow_sub is
+// the tick's own) or out (a tile that holds a cluster: both)
+template <int TILE, typename Blk>
+__device__ void stage_metrics(const Params &p, const Blk &s, int b, int lane,
+                              bool load, bool active) {
+  const int nc = p.n * p.cap;
+  int *lt = s.I(S_LOG_TICK), *ss = s.I(S_SHADOW_SUB);
+  if (load) {
+    const int *g = p.m_in[M_LOG_TICK] + static_cast<size_t>(b) * nc;
+    for (int i = lane; i < nc; i += TILE) lt[i] = g[i];
+  } else if (active) {
+    int *g = p.m_out[M_LOG_TICK] + static_cast<size_t>(b) * nc;
+    for (int i = lane; i < nc; i += TILE) g[i] = lt[i];
+    g = p.m_out[M_SHADOW_SUB] + static_cast<size_t>(b) * p.cap;
+    for (int i = lane; i < p.cap; i += TILE) g[i] = ss[i];
+  }
+  __syncwarp();
+}
+
+// The chunk's metric registers out: each register leaf of cluster b is its
+// input plus the chunk's sums (int32 wrap, as the eager tick's), or, for
+// the worst op, the register the chunk left. A replicate-phase latency is
+// the whole latency and the other phases fold zeros (bucket 0), so each
+// phase row's mass is the acked count (step.py 666-685)
+template <int TILE>
+__device__ void write_metrics(const Params &p, int b, bool active,
+                              const Tile<TILE> &tile, const Meter &mt) {
+  const int lane = tile.lane;
+  int ev = 0;
+#pragma unroll
+  for (int e = 0; e < kEvents; ++e) {
+    const int sum = tile.sum(mt.ev[e]);
+    if (lane == e) ev = sum;
+  }
+  const int acked = tile.sum(mt.acked), lat_sum = tile.sum(mt.lat_sum);
+  if (!active) return;
+  const size_t c = b;
+  auto in = [&](int leaf, size_t i) { return p.m_in[leaf][i]; };
+  auto out = [&](int leaf, size_t i, int v) { p.m_out[leaf][i] = v; };
+  if (lane < kHist) {
+    out(M_LAT_HIST, c * kHist + lane,
+        wadd(in(M_LAT_HIST, c * kHist + lane), mt.hist));
+    for (int ph = 0; ph < kLatPhases; ++ph) {
+      const size_t i = (c * kLatPhases + ph) * kHist + lane;
+      const int add = ph == kReplicate ? mt.hist : lane == 0 ? acked : 0;
+      out(M_PHASE_HIST, i, wadd(in(M_PHASE_HIST, i), add));
+    }
+  }
+  if (lane < kEvents)
+    out(M_EV_COUNTS, c * kEvents + lane,
+        wadd(in(M_EV_COUNTS, c * kEvents + lane), ev));
+  if (lane < kLatPhases) {
+    const size_t i = c * kLatPhases + lane;
+    out(M_PHASE_TICKS, i,
+        wadd(in(M_PHASE_TICKS, i), lane == kReplicate ? lat_sum : 0));
+    out(M_WORST_PHASES, i,
+        mt.worst_new ? (lane == kReplicate ? mt.worst_lat : 0)
+                     : in(M_WORST_PHASES, i));
+  }
+  if (lane == 0) {
+    out(M_LAT_TICKS, c, wadd(in(M_LAT_TICKS, c), lat_sum));
+    out(M_WORST_LAT, c, mt.worst_new ? mt.worst_lat : in(M_WORST_LAT, c));
+    out(M_WORST_KEY, c, mt.worst_new ? -1 : in(M_WORST_KEY, c));
+    out(M_WORST_CLIENT, c, mt.worst_new ? -1 : in(M_WORST_CLIENT, c));
+    out(M_WORST_SUB, c, mt.worst_new ? mt.worst_sub : in(M_WORST_SUB, c));
+  }
+}
+
+// The coverage variant after tick i of the chunk (K5's function, engine.py
+// 1342-1361 in the reference): the cluster's code from its post-tick node
+// rows, each node lane's code times its weight pw = alphabet^(n-1-node)
+// summed over the tile (u32 wrap, Horner's value); a cluster with no
+// violation stamps its bit of its seen-set row with the run-wide tick
+// (atomicMin: a stamp only falls). Every lane-tick's flat index, -1 when
+// violated, goes to fp for the credit pass, which needs the launch's
+// final stamps: warps and blocks run their ticks in no common order
+template <int N_, int TILE, typename Blk>
+__device__ void stamp(const Params &p, const Blk &s, const Tile<TILE> &tile,
+                      unsigned alive, uint32_t pw, int b, bool active,
+                      int i) {
+  const int n = N_ ? N_ : p.n, lane = tile.lane;
+  const bool node = lane < n;
+  const int *term = I<L_TERM>(s), *commit = I<L_COMMIT>(s);
+  int rank = 0;
+  if (node)
+    for (int j = 0; j < n; ++j) rank += term[j] < term[lane];
+  const int cmin = tile.min(node ? commit[lane] : 0x7fffffff);
+  const uint32_t part =
+      node ? cov::node_code(I<L_ROLE>(s)[lane], bit(alive, lane), rank,
+                            commit[lane] - cmin, p.levels_r, p.levels_c) *
+                 pw
+           : 0u;
+  const uint32_t code =
+      static_cast<uint32_t>(tile.sum(static_cast<int>(part)));
+  if (lane == 0 && active) {
+    const int row = p.rows ? p.rows[b] : 0;
+    const int flat = static_cast<int>(
+        static_cast<uint32_t>(row) * static_cast<uint32_t>(p.bits) +
+        cov::bit_index(code, p.identity, p.bits));
+    const bool ok = I<L_VIOLATIONS>(s)[0] == 0;
+    if (ok) atomicMin(p.seen + flat, p.t0 + i);
+    p.fp[static_cast<size_t>(i) * p.b + b] = ok ? flat : -1;
+  }
+}
+
+// The credits of cluster c over a launch of m ticks (the credit pass):
+// lane-tick (c, i) earns one iff it stamped (fp >= 0) and its bit's final
+// stamp is its own tick t0 + i. Stamps only fall and earlier launches' are
+// below t0, so that holds exactly when no stamp of an earlier tick reached
+// the bit: the bit was unset before the tick, the reference's rule
+// (engine.py:1356, ok & ~bm[idx]), whatever order the lanes ran in
+__host__ __device__ inline int credits(const int *fp, const int *seen, int b,
+                                       int c, int m, int t0) {
+  int k = 0;
+  for (int i = 0; i < m; ++i) {
+    const int f = fp[static_cast<size_t>(i) * b + c];
+    k += f >= 0 && seen[f] == t0 + i;
+  }
+  return k;
+}
+
 // The chunk for cluster b on a tile: stage in, m ticks, stage out (a
 // tile past the batch's end, !active, runs a copy of the last cluster and
-// writes nothing); the profile instance writes its per-phase sums to
+// writes nothing); the metrics variant also stages its stamp rings and
+// writes the metric registers, the coverage variant stamps the seen-set
+// after each tick; the profile instance writes its per-phase sums to
 // prof[b, kPhases]
-template <int N_, int CAP_, int AE_, int TILE, bool kProf>
+template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet,
+          bool kCov>
 __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
                             const Tile<TILE> &tile, long long *prof) {
-  const Block<N_, CAP_, AE_> s{p, cl};
+  const Block<N_, CAP_, AE_, kMet> s{p, cl};
   const int n = N_ ? N_ : p.n, lane = tile.lane;
   Clock<kProf> clk;
   clk.start();
   stage<TILE>(p, s, b, lane, true, active);
+  if constexpr (kMet) stage_metrics<TILE>(p, s, b, lane, true, active);
   Own o;
   if (lane < n) own_load(s, o, lane, n);
+  Meter mt;
+  if constexpr (kMet) {
+    mt.worst_lat = p.m_in[M_WORST_LAT][b];
+    mt.worst_sub = p.m_in[M_WORST_SUB][b];
+  }
+  uint32_t pw = 1u;  // the coverage code's weight of the lane's node
+  if constexpr (kCov)
+    for (int j = lane + 1; j < n; ++j) pw *= p.alphabet;
   unsigned alive = tile.ballot(lane < n && B<L_ALIVE>(s)[lane]);
   TickKeys<TILE> keys{
       static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]),
@@ -1396,7 +1708,9 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   for (int i = 0; i < p.m; ++i) {
     uint32_t tk0, tk1;
     keys.get(i, tile, tk0, tk1);
-    tick<N_, CAP_, AE_, TILE, kProf>(p, s, o, alive, tile, clk, tk0, tk1);
+    tick<N_, CAP_, AE_, TILE, kProf, kMet>(p, s, o, mt, alive, tile, clk, tk0,
+                                           tk1);
+    if constexpr (kCov) stamp<N_>(p, s, tile, alive, pw, b, active, i);
   }
   if (lane < n) own_store(s, o, lane, n);
   const int delivered = tile.sum(o.delivered);
@@ -1408,6 +1722,10 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   }
   __syncwarp();
   stage<TILE>(p, s, b, lane, false, active);
+  if constexpr (kMet) {
+    stage_metrics<TILE>(p, s, b, lane, false, active);
+    write_metrics<TILE>(p, b, active, tile, mt);
+  }
   clk.mark(P_STAGE);
   if constexpr (kProf) {
     if (lane == 0 && active)

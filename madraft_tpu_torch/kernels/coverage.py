@@ -16,7 +16,16 @@ are updated in place and returned.
 
 On CPU tensors ``seen_update`` runs the plain version
 (``tpusim.coverage.seen_update_plain``); on CUDA tensors it launches the
-kernel or raises. ``seen_update.launches`` counts launches.
+kernel or raises. ``seen_update.launches`` counts launches. On the K6
+route the fingerprint runs inside the tick (``kernels.tick``'s coverage
+variant), so ``seen_update`` serves the eager tick only.
+
+``credit_pass`` is the second launch after a K6-coverage chunk: from the
+chunk's flat seen indices ``fp`` [m, B] (-1: a violated lane-tick) and the
+stamps the chunk left, it credits lane-tick (b, i) iff ``seen`` holds its
+own run-wide tick ``t0 + i`` at its bit (``credit_plain``, the plain
+version; the kernel is ``credit_kernel`` in ``csrc/tick.cu``, which the
+note there bounds). ``credit_pass.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -104,3 +113,49 @@ seen_update.launches = 0
 # the count lives on the wrapper itself, also while a hook that captures
 # the update's inputs stands in for the module's name
 _counted = seen_update
+
+
+def credit_plain(fp, seen, new_fps, t0: int):
+    """The credit pass's plain version: ``new_fps`` [B] += the lane-ticks
+    (b, i) of ``fp`` [m, B] whose flat index f >= 0 has ``seen.view(-1)[f]
+    == t0 + i``. Updates ``new_fps`` in place and returns it."""
+    m = fp.shape[0]
+    ticks = t0 + torch.arange(m, dtype=torch.int32, device=fp.device)
+    stamped = seen.view(-1)[fp.clamp(min=0).to(torch.int64)]
+    hit = (fp >= 0) & (stamped == ticks[:, None])
+    new_fps += hit.sum(0, dtype=torch.int32)
+    return new_fps
+
+
+def credit_pass(fp, seen, new_fps, t0: int, lib=None):
+    """The credits of a K6-coverage chunk: the plain version on the CPU,
+    the credit kernel of ``lib`` (a build of ``csrc/tick.cu``; the coverage
+    variant's by default) on CUDA."""
+    dev = fp.device
+    for name, x in (("seen", seen), ("new_fps", new_fps)):
+        if x.device != dev:
+            raise ValueError(f"credit_pass: {name} is on {x.device}, fp on "
+                             f"{dev}")
+    if dev.type == "cpu":
+        return credit_plain(fp, seen, new_fps, t0)
+    m, b = fp.shape
+    for name, x in (("fp", fp), ("seen", seen), ("new_fps", new_fps)):
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"credit_pass: {name} must be contiguous int32, "
+                             f"got {x.dtype}")
+    if tuple(new_fps.shape) != (b,):
+        raise ValueError(f"credit_pass: new_fps is {tuple(new_fps.shape)}, "
+                         f"expected ({b},)")
+    if b and m:
+        if lib is None:
+            from madraft_tpu_torch.kernels import tick as K6
+
+            lib = K6._lib(K6.variant(False, True))
+        _build.check(lib.credit_launch(
+            fp.data_ptr(), seen.data_ptr(), new_fps.data_ptr(), b, m, int(t0),
+            torch.cuda.current_stream(dev).cuda_stream), "credit_launch")
+        credit_pass.launches += 1
+    return new_fps
+
+
+credit_pass.launches = 0

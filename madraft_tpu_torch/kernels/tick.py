@@ -7,10 +7,19 @@ Replaces the rest of the JAX reference's tick (B2-rest),
 injection, heartbeat and replication, commit advance, compaction and
 fsync, with the oracle block (961-1081) and the tick's draw
 (``_DrawBlock.__init__``, step.py:128) run inside it as device code.
-``tick_chunk`` runs ``m`` ticks in a row for every cluster with the
-metrics plane off; the port's twin is ``tpusim/step.py`` ``step_cluster``.
-Sources: ``csrc/tick.cu`` (the kernel and its launch, with the note on its
-bound and design) and ``csrc/tick.cuh`` (the tick's device code).
+``tick_chunk`` runs ``m`` ticks in a row for every cluster; the port's
+twin is ``tpusim/step.py`` ``step_cluster``. Sources: ``csrc/tick.cu``
+(the kernel and its launch, with the note on its bound and design) and
+``csrc/tick.cuh`` (the tick's device code).
+
+Variants, each its own build of ``csrc/tick.cu`` (``variant``): with
+``cfg.metrics`` K6-metrics carries the metrics plane inside the tick
+(B2-metrics: the submit stamps, the shadow's record stamps, the latency
+fold, the event counters; the metric leaves of ``METRIC_LEAVES`` are read
+and written like the others); with ``cov`` (a ``Seen``) K6-coverage stamps
+every lane's coverage fingerprint into the seen-set after each tick
+(B2-coverage), then the credit pass (``coverage.credit_pass``) adds the
+credits to ``cov.new_fps``. Both together give K6-metrics-coverage.
 
 The kernel reads the clusters' keys (``[B, 2]`` int64-held u32), the state
 leaves of ``LEAVES`` and the knobs as one float32 and one int32 ``[B, k]``
@@ -24,24 +33,35 @@ other shape a runtime one.
 
 On CPU tensors ``tick_chunk`` runs ``tick_chunk_plain``: the chunk's words
 from ``threefry.tick_blocks_plain``, then ``step.step_cluster`` once a
-tick; on CUDA tensors it launches K6 or raises. ``tick_chunk.launches``
-counts launches. The result is one fresh allocation of the state (the
-callers keep their input). ``tick_chunk_profiled`` runs the profile build
-(clock64() cycles per phase group of ``PHASES``), for ``chip_smoke.py``.
+tick (and ``coverage.seen_update_plain`` after it with ``cov``); on CUDA
+tensors it launches K6's variant or raises. ``tick_chunk.launches`` counts
+launches of every variant, ``metrics_launches`` and ``coverage_launches``
+those of the metrics and coverage ones. The result is one fresh
+allocation of the state (the callers keep their input).
+``tick_chunk_profiled`` runs the profile build (clock64() cycles per phase
+group of ``PHASES``), for ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from madraft_tpu_torch import _build
+from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import threefry
-from madraft_tpu_torch.tpusim import prng, step
-from madraft_tpu_torch.tpusim.config import RAFT_BUGS, Knobs, SimConfig
+from madraft_tpu_torch.tpusim import coverage, prng, step
+from madraft_tpu_torch.tpusim.config import (
+    RAFT_BUGS,
+    CoverageConfig,
+    Knobs,
+    SimConfig,
+    metrics_dims,
+)
 from madraft_tpu_torch.tpusim.state import ClusterState, METRIC_LEAF0
 
 MAX_NODES = 16
@@ -56,8 +76,8 @@ SHAPE_AE = 4
 ONE, N, NC, NN, C = range(5)
 I32, BOOL = torch.int32, torch.bool
 
-# Every ClusterState leaf K6 reads and writes, in field order: (field, shape
-# class, dtype); the metric leaves pass through untouched
+# Every non-metric ClusterState leaf K6 reads and writes, in field order:
+# (field, shape class, dtype)
 LEAVES = (
     ("tick", ONE, I32), ("term", N, I32), ("voted_for", N, I32),
     ("role", N, I32), ("timer", N, I32), ("hb", N, I32), ("alive", N, BOOL),
@@ -82,6 +102,26 @@ LEAVES = (
     ("first_violation_tick", ONE, I32), ("first_leader_tick", ONE, I32),
     ("msg_count", ONE, I32), ("snap_install_count", ONE, I32),
 )
+
+# The metric leaves (csrc/tick.cuh MetricLeaf), all int32, which the
+# metrics variant reads and writes and the others pass through
+METRIC_LEAVES = ClusterState._fields[METRIC_LEAF0:]
+
+
+class Seen(NamedTuple):
+    """What K6-coverage needs of the coverage pool's seen-set for a chunk:
+    ``fp`` the fingerprint's config (``CoverageConfig.fingerprint_key()``),
+    ``seen`` int32 [R, bits] first-tick stamps and ``new_fps`` int32 [B]
+    credits (both updated in place), ``rows`` int32 [B] each lane's
+    seen-set row or None (row 0), ``t`` the run-wide tick of the chunk's
+    first tick (``seen_update``'s ``t``)."""
+
+    fp: CoverageConfig
+    seen: torch.Tensor
+    rows: Optional[torch.Tensor]
+    new_fps: torch.Tensor
+    t: int
+
 
 # The tick's draws in the order step._DrawBlock._take consumes them, each
 # a node row (N), one word (ONE) or a [dst, src] matrix (NN); the kernel
@@ -115,6 +155,20 @@ def _lane_shape(shape_class: int, n: int, cap: int) -> tuple:
     return {ONE: (), N: (n,), NC: (n, cap), NN: (n, n), C: (cap,)}[shape_class]
 
 
+def metric_shapes(cfg: SimConfig) -> tuple:
+    """Each metric leaf's per-lane shape under cfg (state.init_cluster's)."""
+    hb, evn, mcap, nph, reg = metrics_dims(cfg)
+    n = cfg.n_nodes
+    return ((n, mcap), (mcap,), (hb,), (evn,), (nph, hb), (nph,), (reg,),
+            (reg,), (nph,), (reg,), (reg,), (reg,))
+
+
+def variant(metrics: bool, cov: bool) -> str:
+    """The build of csrc/tick.cu that runs the tick with the metrics plane
+    and / or the coverage fingerprint (``_build.VARIANTS``)."""
+    return "tick" + "_metrics" * bool(metrics) + "_coverage" * bool(cov)
+
+
 def draw_offsets(n: int) -> tuple:
     """(name, offset, size) of each draw of a tick's words at n nodes."""
     out, off = [], 0
@@ -144,16 +198,23 @@ def instance(cfg: SimConfig) -> int:
 
 
 def tick_chunk_plain(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-                     kn: Knobs, m: int) -> ClusterState:
+                     kn: Knobs, m: int, cov: Optional[Seen] = None
+                     ) -> ClusterState:
     """The chunk as the eager tick runs it: the words of the m ticks from
     each cluster's own tick on (``threefry.tick_blocks_plain`` under
     ``prng.partitionable()``), then ``step.step_cluster`` once a tick on
-    its ``[B, total]`` slice."""
+    its ``[B, total]`` slice (the metrics plane as ``cfg.metrics`` says),
+    and with ``cov`` each tick's fingerprints into the seen-set by
+    ``coverage.seen_update_plain`` at run-wide tick ``cov.t + i``."""
     words = threefry.tick_blocks_plain(
         keys, state.tick + 1, m, step._block_total(cfg.n_nodes),
         prng.partitionable())
     for i in range(m):
         state = step.step_cluster(cfg, state, keys, kn, words=words[i])
+        if cov is not None:
+            coverage.seen_update_plain(
+                cov.fp, state.role, state.alive, state.term, state.commit,
+                state.violations, cov.rows, cov.seen, cov.new_fps, cov.t + i)
     return state
 
 
@@ -161,9 +222,11 @@ def _lib(name: str = "tick"):
     lib = _build.library(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        args = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        args = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
         lib.tick_launch.argtypes = args
         lib.tick_launch.restype = ctypes.c_int
+        lib.credit_launch.argtypes = [p, p, p, i, i, i, p]
+        lib.credit_launch.restype = ctypes.c_int
         if name == "tick_profile":
             lib.tick_launch_profile.argtypes = args + [p]
             lib.tick_launch_profile.restype = ctypes.c_int
@@ -171,11 +234,9 @@ def _lib(name: str = "tick"):
     return lib
 
 
-def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor) -> None:
+def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
+           m: int = 0, cov: Optional[Seen] = None) -> None:
     n, cap = cfg.n_nodes, cfg.log_cap
-    if cfg.metrics:
-        raise ValueError("tick_chunk runs the tick with the metrics plane "
-                         "off (cfg.metrics must be False)")
     if not 1 <= n <= MAX_NODES or cap > MAX_CAP or cfg.ae_max > MAX_AE:
         raise ValueError(
             f"tick kernel takes n <= {MAX_NODES}, cap <= {MAX_CAP} and "
@@ -187,42 +248,88 @@ def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor) -> None:
             raise ValueError(
                 f"tick_chunk: {name} is {tuple(x.shape)} {x.dtype} on "
                 f"{x.device}, expected {shape} {dtype} on {dev}")
+    for name, x, lane in zip(METRIC_LEAVES, state[METRIC_LEAF0:],
+                             metric_shapes(cfg)):
+        shape = (b, *lane)
+        if x.device != dev or tuple(x.shape) != shape or x.dtype != I32:
+            raise ValueError(
+                f"tick_chunk: the metrics plane's {name} is "
+                f"{tuple(x.shape)} {x.dtype} on {x.device}, expected {shape} "
+                f"int32 on {dev} (cfg.metrics={cfg.metrics})")
     if (keys.device != dev or keys.dtype != torch.int64
             or tuple(keys.shape) != (b, 2)):
         raise ValueError(
             f"tick_chunk: keys are {tuple(keys.shape)} {keys.dtype} on "
             f"{keys.device}, expected [{b}, 2] int64 on {dev}")
+    if cov is None:
+        return
+    bits = cov.fp.bitmap_bits
+    named = {"seen": (cov.seen, (cov.seen.shape[0], bits)),
+             "new_fps": (cov.new_fps, (b,))}
+    if cov.rows is not None:
+        named["rows"] = (cov.rows, (b,))
+    for name, (x, shape) in named.items():
+        if (x.device != dev or tuple(x.shape) != shape or x.dtype != I32
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"tick_chunk: cov.{name} is {tuple(x.shape)} {x.dtype} on "
+                f"{x.device}, expected contiguous {shape} int32 on {dev}")
+    if bits & (bits - 1) or cov.seen.numel() >= 2**31:
+        raise ValueError(f"tick_chunk: a seen-set of {cov.seen.shape[0]} x "
+                         f"{bits} bits (a power of two, below 2^31 in all)")
+    if not 0 <= cov.t <= coverage.UNSEEN - m:
+        raise ValueError(f"tick_chunk: run-wide ticks {cov.t} .. "
+                         f"{cov.t + m - 1} outside [0, {coverage.UNSEEN})")
 
 
 def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
             kn: Knobs, m: int, lib, stream, prof=None,
-            table=None) -> tuple:
+            table=None, cov: Optional[Seen] = None, fp=None) -> tuple:
     """Check the inputs, allocate the new state and launch ``lib``'s
     ``tick_launch`` for m ticks on ``stream`` (``tick_launch_profile``
-    into ``prof`` when given); returns (new state, launched)."""
-    _check(cfg, state, keys)
+    into ``prof`` when given): with ``cfg.metrics`` the metric leaves go
+    in and come out too, with ``cov`` the coverage arguments go in and
+    ``fp`` (int32 [m, B]) gets each lane-tick's flat seen index. Returns
+    (new state, launched)."""
+    _check(cfg, state, keys, m, cov)
     dev, b = state.tick.device, state.tick.shape[0]
     n, cap = cfg.n_nodes, cfg.log_cap
-    # the new state: one allocation, each leaf a 16-byte aligned view
+    metrics = cfg.metrics
+    # the new state: one allocation, each leaf a 16-byte aligned view (the
+    # metric leaves too when the kernel writes them)
+    written = list(state[:METRIC_LEAF0] if not metrics else state)
     offs, nbytes = [], 0
-    for name, shape_class, dtype in LEAVES:
+    for x in written:
         offs.append(nbytes)
-        size = b * math.prod(_lane_shape(shape_class, n, cap)) * (
-            1 if dtype == BOOL else 4)
-        nbytes += -(-size // 16) * 16
+        nbytes += -(-x.numel() * x.element_size() // 16) * 16
     buf = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-    outs = []
-    for (name, shape_class, dtype), x, at in zip(LEAVES, state, offs):
-        size = x.numel() * (1 if dtype == BOOL else 4)
-        outs.append(buf[at:at + size].view(dtype).view(x.shape))
+    outs = [buf[at:at + x.numel() * x.element_size()].view(x.dtype)
+            .view(x.shape) for x, at in zip(written, offs)]
     launched = bool(b and m)
     if launched:
-        ins = [x if x.is_contiguous() else x.contiguous()
-               for x in state[:METRIC_LEAF0]]
+        ins = [x if x.is_contiguous() else x.contiguous() for x in written]
         keys = keys if keys.is_contiguous() else keys.contiguous()
         kf, ki = knob_table(kn.to(dev), b) if table is None else table
-        ptr_in = np.asarray([x.data_ptr() for x in ins], dtype=np.int64)
-        ptr_out = np.asarray([y.data_ptr() for y in outs], dtype=np.int64)
+        ptr_in = np.asarray([x.data_ptr() for x in ins[:METRIC_LEAF0]],
+                            dtype=np.int64)
+        ptr_out = np.asarray([y.data_ptr() for y in outs[:METRIC_LEAF0]],
+                             dtype=np.int64)
+        mptrs = None
+        if metrics:  # the metric leaves in, then out
+            mptrs = np.asarray(
+                [x.data_ptr() for x in ins[METRIC_LEAF0:]]
+                + [y.data_ptr() for y in outs[METRIC_LEAF0:]],
+                dtype=np.int64)
+        cargs = None
+        if cov is not None:
+            ccfg, rows = cov.fp, cov.rows
+            cargs = np.asarray(
+                [cov.seen.data_ptr(), fp.data_ptr(),
+                 0 if rows is None else rows.data_ptr(), ccfg.bitmap_bits,
+                 ccfg.term_rank_levels, ccfg.commit_delta_levels,
+                 coverage.node_alphabet(ccfg) & 0xFFFFFFFF,
+                 int(coverage.identity_mapped(n, ccfg)), cov.t],
+                dtype=np.int64)
         kinds = np.asarray([sc + (8 if dt == BOOL else 0)
                             for _, sc, dt in LEAVES], dtype=np.int32)
         draws = np.asarray([off for _, off, _ in draw_offsets(n)],
@@ -230,7 +337,9 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         args = (ptr_in.ctypes.data, ptr_out.ctypes.data, kinds.ctypes.data,
                 len(LEAVES), keys.data_ptr(), kf.data_ptr(), ki.data_ptr(),
                 draws.ctypes.data, len(draws), b, n, cap, cfg.ae_max, m,
-                RAFT_BUGS.index(cfg.bug), int(prng.partitionable()), stream)
+                RAFT_BUGS.index(cfg.bug), int(prng.partitionable()),
+                None if mptrs is None else mptrs.ctypes.data,
+                None if cargs is None else cargs.ctypes.data, stream)
         if prof is None:
             _build.check(lib.tick_launch(*args), "tick_launch")
         else:
@@ -239,28 +348,41 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
     else:  # nothing to tick: the new state is the old one's copy
         for y, x in zip(outs, state):
             y.copy_(x)
-    return ClusterState(*outs, *state[METRIC_LEAF0:]), launched
+    return ClusterState(*outs, *state[len(outs):]), launched
 
 
 def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-               kn: Knobs, m: int, table=None) -> ClusterState:
-    """m ticks of every cluster: plain version on the CPU, kernel K6 on
-    CUDA. ``keys`` are the clusters' PRNG keys, ``kn`` the knobs, each
-    field 0-d or a [B] row; ``table`` is ``knob_table(kn, B)`` on the
-    device when the caller has it."""
+               kn: Knobs, m: int, table=None,
+               cov: Optional[Seen] = None) -> ClusterState:
+    """m ticks of every cluster: plain version on the CPU, kernel K6's
+    variant on CUDA (``variant``; with ``cov``, then the credit pass).
+    ``keys`` are the clusters' PRNG keys, ``kn`` the knobs, each field 0-d
+    or a [B] row; ``table`` is ``knob_table(kn, B)`` on the device when the
+    caller has it; ``cov`` the coverage pool's seen-set, whose ``seen``
+    and ``new_fps`` are updated in place."""
     dev = state.tick.device
     if dev.type == "cpu":
-        return tick_chunk_plain(cfg, state, keys, kn, m)
+        return tick_chunk_plain(cfg, state, keys, kn, m, cov)
     if dev.type != "cuda":
         raise ValueError(f"tick_chunk: expected CPU or CUDA tensors, got {dev}")
-    out, launched = _launch(cfg, state, keys, kn, m, _lib(),
-                            torch.cuda.current_stream(dev).cuda_stream,
-                            table=table)
-    tick_chunk.launches += int(launched)
+    lib = _lib(variant(cfg.metrics, cov is not None))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fp = None if cov is None else torch.empty(
+        (m, state.tick.shape[0]), dtype=I32, device=dev)
+    out, launched = _launch(cfg, state, keys, kn, m, lib, stream,
+                            table=table, cov=cov, fp=fp)
+    if launched:
+        tick_chunk.launches += 1
+        tick_chunk.metrics_launches += int(cfg.metrics)
+        tick_chunk.coverage_launches += int(cov is not None)
+        if cov is not None:
+            K5.credit_pass(fp, cov.seen, cov.new_fps, cov.t, lib)
     return out
 
 
 tick_chunk.launches = 0
+tick_chunk.metrics_launches = 0
+tick_chunk.coverage_launches = 0
 
 
 def tick_chunk_profiled(cfg: SimConfig, state: ClusterState,

@@ -125,34 +125,35 @@ def report(final: ClusterState) -> FuzzReport:
     )
 
 
-def tick_route(cfg: SimConfig, device: torch.device, after_tick=None,
-               tick: str = "kernel") -> str:
-    """How ``_advance`` runs a chunk: ``"kernel"``, one K6 launch, on a
-    CUDA device with the metrics plane off and no per-tick hook; else
-    ``"eager"``, ``step_cluster`` once a tick. ``tick="eager"`` asks for
-    the per-tick loop everywhere."""
+def tick_route(device: torch.device, tick: str = "kernel") -> str:
+    """How ``_advance`` runs a chunk: ``"kernel"``, K6 launches (the
+    variant for the metrics plane and the coverage fingerprint), on a CUDA
+    device, whatever the config; else ``"eager"``, ``step_cluster`` once a
+    tick: on the CPU, or where the caller asks for it with ``tick="eager"``
+    (the A/B's baseline)."""
     if tick not in ("kernel", "eager"):
         raise ValueError(f"tick must be 'kernel' or 'eager', got {tick!r}")
-    if (tick == "kernel" and device.type == "cuda" and not cfg.metrics
-            and after_tick is None):
+    if tick == "kernel" and device.type == "cuda":
         return "kernel"
     return "eager"
 
 
 def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-             kn: Knobs, n_ticks: int, after_tick=None,
+             kn: Knobs, n_ticks: int, cov: Optional[K6.Seen] = None,
              tick: str = "kernel") -> ClusterState:
     """n_ticks ticks of a wide batch, each cluster from its own tick on,
     run as ``tick_route`` says: K6 launches of up to KERNEL_CHUNK ticks
     (the kernel draws each tick's words; the knob table is built once
     here), or the eager tick once a tick on draw words made a chunk of
-    DRAW_CHUNK ticks at a time; ``after_tick(state)``, when given, sees
-    each tick's result."""
-    if tick_route(cfg, state.tick.device, after_tick, tick) == "kernel":
+    DRAW_CHUNK ticks at a time. ``cov``, the coverage pool's seen-set from
+    run-wide tick ``cov.t`` on, takes every tick's fingerprints: inside
+    K6's coverage variant, or K5 once a tick on the eager route."""
+    if tick_route(state.tick.device, tick) == "kernel":
         table = K6.knob_table(kn.to(state.tick.device), state.tick.shape[0])
         for done in range(0, n_ticks, KERNEL_CHUNK):
-            state = K6.tick_chunk(cfg, state, keys, kn,
-                                  min(KERNEL_CHUNK, n_ticks - done), table)
+            state = K6.tick_chunk(
+                cfg, state, keys, kn, min(KERNEL_CHUNK, n_ticks - done),
+                table, None if cov is None else cov._replace(t=cov.t + done))
         return state
     total = _block_total(cfg.n_nodes)
     for done in range(0, n_ticks, DRAW_CHUNK):
@@ -161,8 +162,10 @@ def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                                      prng.partitionable())
         for i in range(m):
             state = step_cluster(cfg, state, keys, kn, words=words[i])
-            if after_tick is not None:
-                after_tick(state)
+            if cov is not None:
+                K5.seen_update(cov.fp, state.role, state.alive, state.term,
+                               state.commit, state.violations, cov.rows,
+                               cov.seen, cov.new_fps, cov.t + done + i)
     return state
 
 
@@ -171,14 +174,19 @@ def _run(cfg: SimConfig, keys: torch.Tensor, kn: Knobs, n_ticks: int):
     return _advance(cfg, init_cluster(cfg, keys, kn), keys, kn, n_ticks)
 
 
-def _build_kernels(device: torch.device) -> float:
-    """Build the CUDA kernels when they are not built yet (the port's
+def _build_kernels(device: torch.device, metrics: bool = False,
+                   cov: bool = False) -> float:
+    """Build the CUDA kernels when they are not built yet, K6's variant for
+    the metrics plane and the coverage fingerprint among them (the port's
     set-up before a first tick); returns the wall seconds it took."""
     t0 = time.perf_counter()
     if device.type == "cuda":
         from madraft_tpu_torch import _build
 
-        for name in _build.SOURCES:
+        names = tuple(dict.fromkeys(
+            (*_build.SOURCES, K6.variant(metrics, cov))))
+        _build.build_all(names)
+        for name in names:
             _build.library(name)
     return time.perf_counter() - t0
 
@@ -204,7 +212,7 @@ class FuzzProgram:
 
     def compile_timed(self, seed) -> float:
         if self.compile_s is None:
-            self.compile_s = _build_kernels(self.device)
+            self.compile_s = _build_kernels(self.device, self.cfg.metrics)
         return self.compile_s
 
     def __call__(self, seed) -> ClusterState:
@@ -386,7 +394,7 @@ class _UniformSweepDispatch:
 
     def compile_timed(self, seed) -> float:
         if self.compile_s is None:
-            self.compile_s = _build_kernels(self.device)
+            self.compile_s = _build_kernels(self.device, self.cfg.metrics)
         return self.compile_s
 
     def __call__(self, seed) -> ClusterState:
@@ -955,10 +963,11 @@ def run_pool(
 
     ``coverage`` runs the coverage-guided pool (the reference's
     ``_run_pool_coverage``, whose docstring gives the contract): each tick
-    of a chunk runs under per-lane knob rows and ends in K5, which folds
-    every lane's abstract-state fingerprint into the seen-set (one row, or
-    one row per shard under the lane scheme) and credits the lanes that
-    found a new one; each retired row gains ``new_fingerprints``,
+    of a chunk runs under per-lane knob rows and ends in the fingerprint
+    (inside K6's coverage variant on the card, K5 on the eager route),
+    which folds every lane's abstract-state fingerprint into the seen-set
+    (one row, or one row per shard under the lane scheme) and credits the
+    lanes that found a new one; each retired row gains ``new_fingerprints``,
     ``refill`` and ``knobs`` (replayable through ``replay_cluster(...,
     knobs=row["knobs"])``), the summary a ``coverage`` dict. Returns the
     summary dict; ``compile_s`` is the kernels' build before the timed
@@ -975,7 +984,7 @@ def run_pool(
     kn = cfg.knobs(dev)
     packed = packed_layout_reason(cfg, kn, horizon + chunk_ticks) is None
     lane_ids = devices is not None
-    compile_s = _build_kernels(dev)
+    compile_s = _build_kernels(dev, cfg.metrics, coverage is not None)
 
     ids = torch.arange(n_clusters, dtype=torch.int32, device=dev)
     keys = cluster_keys(seed, n_clusters, dev)
@@ -984,7 +993,7 @@ def run_pool(
     # the first chunk runs on the fresh batch wide, born under the base
     # knobs; the carry holds the only reference to it
     c = _Carry(init_cluster(cfg, keys, kn), keys, ids, book)
-    after_tick, shard_rows = None, None
+    shard_rows = None
     if coverage is not None:
         c.kn_lanes = kn.broadcast(n_clusters)
         c.kinds = torch.full((n_clusters,), _cov.REFILL_SEED,
@@ -997,11 +1006,6 @@ def run_pool(
             shard_rows = _cov.lane_shards(n_clusters, devices, dev)
         fp_cfg = coverage.fingerprint_key()
 
-        def after_tick(st: ClusterState) -> None:
-            K5.seen_update(fp_cfg, st.role, st.alive, st.term, st.commit,
-                           st.violations, shard_rows, c.seen, c.new_fps, c.t)
-            c.t += 1
-
     def widen() -> ClusterState:
         # the chunk's input leaves the carry, so that no state outlives the
         # tick that replaces it (the device's peak memory)
@@ -1011,9 +1015,12 @@ def run_pool(
         return carry
 
     def launch_chunk():
+        cov = None if coverage is None else K6.Seen(
+            fp_cfg, c.seen, shard_rows, c.new_fps, c.t)
         c.wide = _advance(cfg, widen(), c.keys,
                           kn if c.kn_lanes is None else c.kn_lanes,
-                          chunk_ticks, after_tick)
+                          chunk_ticks, cov)
+        c.t += chunk_ticks if coverage is not None else 0
 
     def launch_harvest():
         return _harvest(cfg, kn, c, seed, horizon, lane_ids, packed, coverage)

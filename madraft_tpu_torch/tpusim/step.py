@@ -12,21 +12,21 @@ cluster axis first: a ``[n]`` array there is ``[B, n]`` here, ``[n, n]`` is
 ``[B, n, n]``, a transpose ``.T`` swaps the last two axes, and a per-cluster
 scalar is ``[B]`` (``[:, None]`` / ``[:, None, None]`` to meet node axes).
 
-Kernels carry the tick on the card. On the paths whose chunk needs nothing
-between ticks (``engine.tick_route``: metrics off, no per-tick hook; that
-is fuzz, replay, the plain pool and both sweep dispatches) the engine runs
-a chunk of ticks as one launch of ``kernels.tick.tick_chunk`` (K6), the
-whole of this function in CUDA, oracle included; this function is K6's
-plain version. Elsewhere (the metrics plane, the coverage pool's per-tick
-fingerprint, the CPU) the engine calls this function once a tick, and
-kernels carry parts of it: ``kernels.threefry.tick_blocks`` draws the
-words (a chunk of ticks at once, each tick given its ``[B, total]``
-slice; a tick called alone draws its own), ``kernels.oracle.oracle`` (K2)
-runs the safety oracle with its tail, and with the metrics plane on
-(``cfg.metrics``) the oracle's metrics instance carries the submit stamps
-and ``kernels.metrics.latency_fold`` (K4) folds the commit latencies. The
-rest of that tick, the metrics plane's stamp updates and event counters
-among it, is plain PyTorch.
+Kernels carry the tick on the card. On every path there
+(``engine.tick_route``) the engine runs a chunk of ticks as one launch of
+``kernels.tick.tick_chunk`` (K6), the whole of this function in CUDA,
+oracle included, and with the metrics plane on (``cfg.metrics``) its
+metrics variant, which also carries the submit stamps, the latency fold
+and the event counters; this function is K6's plain version. On the eager
+route (the CPU, or ``tick="eager"``) the engine calls this function once
+a tick, and kernels carry parts of it: ``kernels.threefry.tick_blocks``
+draws the words (a chunk of ticks at once, each tick given its ``[B,
+total]`` slice; a tick called alone draws its own),
+``kernels.oracle.oracle`` (K2) runs the safety oracle with its tail, and
+with the metrics plane on the oracle's metrics instance carries the
+submit stamps and ``kernels.metrics.latency_fold`` (K4) folds the commit
+latencies. The rest of that tick, the metrics plane's stamp updates and
+event counters among it, is plain PyTorch.
 """
 
 from __future__ import annotations

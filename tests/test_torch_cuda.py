@@ -318,10 +318,13 @@ def test_latency_fold_refuses_what_it_does_not_take(dev):
 def test_fuzz_with_metrics_on_the_card_equals_the_cpu(dev):
     cfg = config.storm_profiles()["gray_storm"][0].replace(metrics=True)
     with prng.layout(True):
-        before = (K4.latency_fold.launches, K2.oracle.metrics_launches)
+        before = (K4.latency_fold.launches, K2.oracle.metrics_launches,
+                  K6.tick_chunk.metrics_launches)
         gpu = engine.fuzz(cfg, 5, 32, 120, device=dev)
+        # K6-metrics, one launch: no K4 or K2-metrics launch a tick
         assert (K4.latency_fold.launches - before[0],
-                K2.oracle.metrics_launches - before[1]) == (120, 120)
+                K2.oracle.metrics_launches - before[1],
+                K6.tick_chunk.metrics_launches - before[2]) == (0, 0, 1)
         cpu = engine.fuzz(cfg, 5, 32, 120, device="cpu")
     for f in gpu._fields:
         assert (getattr(gpu, f) == getattr(cpu, f)).all(), f
@@ -427,14 +430,18 @@ def test_coverage_pool_on_the_card_equals_the_cpu(dev, devices, metrics_on):
     with prng.layout(True):
         for where in (dev, "cpu"):
             rows = []
-            before = K5.seen_update.launches
+            before = (K5.seen_update.launches,
+                      K6.tick_chunk.coverage_launches, K5.credit_pass.launches)
             s = engine.run_pool(cfg, 7, 64, 64, chunk_ticks=32,
                                 budget_ticks=192, on_retired=rows.append,
                                 devices=devices,
                                 coverage=config.CoverageConfig(), device=where)
-            runs[str(where)] = (rows, s, K5.seen_update.launches - before)
+            runs[str(where)] = (rows, s, (
+                K5.seen_update.launches - before[0],
+                K6.tick_chunk.coverage_launches - before[1],
+                K5.credit_pass.launches - before[2]))
     (rows_g, s_g, launched), (rows_c, s_c, _) = runs["cuda"], runs["cpu"]
-    assert launched == 192  # one K5 launch a tick
+    assert launched == (0, 6, 6)  # K6-coverage and a credit pass a chunk
     drop = ("wall_s", "violations_per_s")
     assert [{k: v for k, v in r.items() if k not in drop} for r in rows_g] \
         == [{k: v for k, v in r.items() if k not in drop} for r in rows_c]
@@ -545,3 +552,117 @@ def test_tick_kernel_refuses_what_it_does_not_take(dev):
         K6.tick_chunk(cfg, s, keys[:4], kn, 2)
     with pytest.raises(ValueError, match="keys are"):
         K6.tick_chunk(cfg, s, keys.cpu(), kn, 2)
+
+
+def _plant_metric_registers(s):
+    """Stale submit stamps in every ring slot and metric sums a few counts
+    below the int32 wrap; lanes in turn with an empty, a held and a kept
+    worst-op register (on the CPU)."""
+    b = s.tick.shape[0]
+    g = torch.Generator().manual_seed(5)
+    top = 2**31 - 1
+
+    def near(x):
+        return (top - torch.randint(0, 4, x.shape, generator=g)).to(
+            torch.int32)
+
+    kind = torch.arange(b) % 3
+    return s._replace(
+        log_tick=torch.randint(1, 6, s.log_tick.shape, generator=g,
+                               dtype=torch.int32),
+        lat_hist=near(s.lat_hist), ev_counts=near(s.ev_counts),
+        phase_hist=near(s.phase_hist), phase_ticks=near(s.phase_ticks),
+        lat_ticks=near(s.lat_ticks),
+        worst_lat=torch.where(kind == 2, 2**30, torch.where(
+            kind == 0, 10**6, 0)).to(torch.int32)[:, None],
+        worst_sub=torch.where(kind == 0, 0, 5).to(torch.int32)[:, None])
+
+
+@pytest.mark.parametrize("case", [
+    "n3", "n5", "n7", "n3_cap16", "n5_cap16", "n7_cap16", "n5_forced_runtime",
+    "n5_legacy", "n5_wrap", "n5_registers", "n5_rows_bug"])
+def test_tick_metrics_kernel_equals_plain_every_chunk(dev, case):
+    storm = config.storm_profiles()["storm"][0].replace(metrics=True)
+    cfg = storm.replace(n_nodes=int(case[1]),
+                        **(_CAP16 if "cap16" in case else {}))
+    if case.endswith("forced_runtime"):
+        cfg = cfg.replace(ae_max=K6.SHAPE_AE + 1)
+    if case.endswith("bug"):
+        cfg = cfg.replace(bug="commit_any_term")
+    b = 128
+    s, keys, kn = _k6_start(cfg, b, 7, "cpu",
+                            _k6_rows(b) if "rows" in case else None)
+    if "registers" in case:
+        s = _plant_metric_registers(s)
+    if "wrap" in case:
+        s = s._replace(tick=torch.tensor([2**31 - 10, -20, 1000] * 43,
+                                         dtype=torch.int32)[:b])
+    s = s.__class__(*(x.to(dev) for x in s))
+    keys, kn = keys.to(dev), kn.to(dev)
+    done = 0
+    with prng.layout("legacy" not in case):
+        while done < 160:
+            m = min(64, 160 - done)
+            before = K6.tick_chunk.metrics_launches
+            got = K6.tick_chunk(cfg, s, keys, kn, m)
+            assert K6.tick_chunk.metrics_launches == before + 1
+            want = K6.tick_chunk_plain(cfg, s, keys, kn, m)
+            done += m
+            d = state.first_divergence(done, state.state_to_numpy(want),
+                                       state.state_to_numpy(got))
+            assert d is None, d
+            s = want
+    assert int(s.lat_hist.sum()) != 0
+
+
+@pytest.mark.parametrize("case", [
+    "one_row", "shards_16bits", "identity", "violated", "metrics"])
+def test_tick_coverage_kernel_equals_plain_every_chunk(dev, case):
+    cfg, ccfg, shards = (config.storm_profiles()["storm"][0],
+                         config.CoverageConfig(), None)
+    if case == "shards_16bits":
+        ccfg, shards = config.CoverageConfig(bitmap_bits=16), 4
+    elif case == "identity":
+        cfg, ccfg, _ = config.coverage_ground_truth()
+    elif case == "violated":
+        cfg = cfg.replace(majority_override=2)
+    elif case == "metrics":
+        cfg, shards = cfg.replace(metrics=True), 2
+    b = 256
+    s, keys, kn = _k6_start(cfg, b, 7, dev)
+    rows = None if shards is None else coverage.lane_shards(b, shards, dev)
+    fp_cfg = ccfg.fingerprint_key()
+    seen_k = torch.full((shards or 1, ccfg.bitmap_bits), coverage.UNSEEN,
+                        dtype=torch.int32, device=dev)
+    nf_k = torch.zeros(b, dtype=torch.int32, device=dev)
+    seen_p, nf_p = seen_k.clone(), nf_k.clone()
+    done = 0
+    with prng.layout(True):
+        while done < 160:
+            m = min(64, 160 - done)
+            before = (K6.tick_chunk.coverage_launches,
+                      K5.credit_pass.launches)
+            got = K6.tick_chunk(cfg, s, keys, kn, m, cov=K6.Seen(
+                fp_cfg, seen_k, rows, nf_k, done))
+            assert (K6.tick_chunk.coverage_launches,
+                    K5.credit_pass.launches) == (before[0] + 1, before[1] + 1)
+            want = K6.tick_chunk_plain(cfg, s, keys, kn, m, cov=K6.Seen(
+                fp_cfg, seen_p, rows, nf_p, done))
+            done += m
+            d = state.first_divergence(done, state.state_to_numpy(want),
+                                       state.state_to_numpy(got))
+            assert d is None, d
+            assert torch.equal(seen_k, seen_p) and torch.equal(nf_k, nf_p)
+            s = want
+    assert int(nf_p.sum()) >= int((seen_p != coverage.UNSEEN).sum()) > 1
+
+
+def test_credit_pass_kernel_equals_plain(dev):
+    g = torch.Generator().manual_seed(3)
+    m, b, bits = 256, 4096, 1 << 12
+    seen = torch.randint(0, m + 8, (2, bits), generator=g, dtype=torch.int32)
+    fp = torch.randint(-1, 2 * bits, (m, b), generator=g, dtype=torch.int32)
+    nf = torch.randint(0, 9, (b,), generator=g, dtype=torch.int32)
+    want = K5.credit_plain(fp, seen, nf.clone(), 4)
+    got = K5.credit_pass(fp.to(dev), seen.to(dev), nf.to(dev), 4)
+    assert torch.equal(got.cpu(), want) and int((want - nf).sum()) > 0

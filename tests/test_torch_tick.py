@@ -7,8 +7,8 @@ chunk against the live JAX reference.
 - the knob table round-trips ``Knobs``, 0-d and [B], bit for bit;
 - the leaf table covers every non-metric ``ClusterState`` leaf with its
   dtype and shape, and ``csrc/tick.cuh``'s enums mirror the tables;
-- ``engine.tick_route`` picks K6 on a CUDA device with metrics off and no
-  per-tick hook, the eager tick otherwise;
+- ``engine.tick_route`` picks K6 on a CUDA device for every config, the
+  eager tick on the CPU or when asked for;
 - ``tick_chunk`` on the CPU (its plain version) over three chunks, the last
   one ragged, equals the JAX reference at every chunk edge, with uniform
   and [B] knobs, under an explicit threefry layout;
@@ -20,12 +20,9 @@ chunk against the live JAX reference.
   picks the instance ``K6.instance`` names.
 Tolerance: exact equality."""
 
-import ctypes
 import functools
 import pathlib
 import re
-import shutil
-import subprocess
 import types
 
 import jax
@@ -34,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import _tick_host
 from _torch_parity import (
     Pair,
     configs,
@@ -172,22 +170,19 @@ def test_header_enums_mirror_the_tables():
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 
 
-@pytest.mark.parametrize("device,metrics,hook,tick,want", [
-    (CUDA, False, False, "kernel", "kernel"),
-    (CUDA, True, False, "kernel", "eager"),
-    (CUDA, False, True, "kernel", "eager"),
-    (CUDA, False, False, "eager", "eager"),
-    (CPU, False, False, "kernel", "eager"),
+@pytest.mark.parametrize("device,tick,want", [
+    (CUDA, "kernel", "kernel"),
+    (CUDA, "eager", "eager"),
+    (CPU, "kernel", "eager"),
+    (CPU, "eager", "eager"),
 ])
-def test_tick_route(device, metrics, hook, tick, want):
-    cfg = pcfg.SimConfig(metrics=metrics)
-    after = (lambda s: None) if hook else None
-    assert pengine.tick_route(cfg, device, after, tick) == want
+def test_tick_route(device, tick, want):
+    assert pengine.tick_route(device, tick) == want
 
 
 def test_tick_route_refuses_an_unknown_route():
     with pytest.raises(ValueError, match="tick must be"):
-        pengine.tick_route(pcfg.SimConfig(), CUDA, None, "graph")
+        pengine.tick_route(CUDA, "graph")
 
 
 @functools.lru_cache(maxsize=None)
@@ -262,7 +257,8 @@ def test_launch_marshals_the_state_and_refuses_what_it_cannot_run():
     assert a[4] == keys.data_ptr()
     assert a[9:16] == (4, 5, 64, cfg.ae_max, 3,
                        pcfg.RAFT_BUGS.index("no_truncate"), 0)
-    assert len(a) == 17 and a[16] is None  # the stream
+    assert a[16] is None and a[17] is None  # no metric leaves, no seen-set
+    assert len(a) == 19 and a[18] is None  # the stream
     K6._launch(cfg, s, keys, cfg.knobs(), 3, lib, None)
     assert lib.args[15] == int(prng.partitionable())
     # the new state: every leaf a view of one fresh allocation
@@ -284,25 +280,8 @@ def test_launch_marshals_the_state_and_refuses_what_it_cannot_run():
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """The kernel's device code built for the host with g++."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel's device code for the host")
-    out = tmp_path_factory.mktemp("tick_host") / "libtick_host.so"
-    subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-I", str(HEADER.parent), "-o", str(out),
-         str(ROOT / "tests" / "tick_host_emu.cpp")],
-        check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tick_launch.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i,
-                                i, p]
-    lib.tick_launch.restype = ctypes.c_int
-    lib.tick_instance.argtypes = [i, i, i]
-    lib.tick_instance.restype = ctypes.c_int
-    lib.tick_words.argtypes = [p, p, i, i, i, i, i, i, p]
-    lib.tick_words.restype = ctypes.c_int
-    return lib
+    return _tick_host.build(tmp_path_factory.mktemp("tick_host"),
+                            ("tick",))["tick"]
 
 
 def test_instance_table_mirrors_the_header(host_lib):

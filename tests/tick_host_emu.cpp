@@ -1,18 +1,23 @@
 // K6's device code (madraft_tpu_torch/csrc/tick.cuh) built for the host, so
 // that the CPU tests can run the kernel's own arithmetic, draws included:
-// a warp is 32 std::threads (four clusters of eight lanes in the template
-// instances, one cluster in the runtime one, as in the kernel), a barrier
-// stands in for __syncwarp() and the warp collectives exchange through a
-// buffer between two barriers. tick_launch has the kernel entry's
-// signature (the stream is ignored), picks the same template instance and
-// runs the warps one after another; tick_words draws a chunk's words as
-// the kernel does.
+// a warp is 32 std::threads (two clusters of 16 lanes in the template
+// instances, tick.cuh kTile, one cluster in the runtime one, as in the
+// kernel), a barrier stands in for __syncwarp() and the warp collectives
+// exchange through a buffer between two barriers. tick_launch and
+// credit_launch have the kernel entries' signatures (the stream is
+// ignored); tick_launch picks the same template instance and runs the
+// warps one after another (so a later warp's cluster stamps the coverage
+// seen-set after an earlier warp's whole chunk: the order a credit rule
+// must not depend on); tick_words draws a chunk's words as the kernel
+// does. -DMADRAFT_K6_METRICS and -DMADRAFT_K6_COVERAGE build the variants,
+// as for tick.cu:
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared
 //       -I madraft_tpu_torch/csrc -o libtick_host.so tests/tick_host_emu.cpp
 //
-// (tests/test_torch_tick.py builds it so.)
+// (tests/_tick_host.py builds it so.)
 
+#include <atomic>
 #include <barrier>
 #include <chrono>
 #include <cmath>
@@ -135,6 +140,18 @@ inline unsigned __match_any_sync(unsigned, T v) {
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __clz(int x) {
+  return x ? __builtin_clz(static_cast<unsigned>(x)) : 32;
+}
+
+// the two tiles of a warp stamp the seen-set from two threads
+inline int atomicMin(int *a, int v) {
+  std::atomic_ref<int> r(*a);
+  int old = r.load();
+  while (v < old && !r.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
 
 inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();
@@ -147,6 +164,17 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 #include "tick.cuh"
 
 namespace {
+
+#ifdef MADRAFT_K6_METRICS
+constexpr bool kMet = true;
+#else
+constexpr bool kMet = false;
+#endif
+#ifdef MADRAFT_K6_COVERAGE
+constexpr bool kCov = true;
+#else
+constexpr bool kCov = false;
+#endif
 
 // Each warp of TILE-lane tiles in turn, as 32 threads: tile t of warp w
 // runs body(c, active, tile, its block) on cluster c = w * (32 / TILE) + t,
@@ -176,8 +204,8 @@ void run(const k6::Params &p) {
   constexpr int kTile = N_ ? k6::kTile : 32;
   each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
                           uint8_t *cl) {
-    k6::run_cluster<N_, CAP_, AE_, kTile, false>(p, cl, c, active, tile,
-                                                 nullptr);
+    k6::run_cluster<N_, CAP_, AE_, kTile, false, kMet, kCov>(
+        p, cl, c, active, tile, nullptr);
   });
 }
 
@@ -201,9 +229,12 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            const int *kinds, int n_leaves, const void *keys,
                            const void *kf, const void *ki, const int *draws,
                            int n_draws, int b, int n, int cap, int ae_max,
-                           int m, int bug, int partitionable, void *) {
+                           int m, int bug, int partitionable,
+                           const int64_t *mptrs, const int64_t *cov, void *) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws) return 1;
+  if ((mptrs != nullptr) != kMet || (cov != nullptr) != kCov) return 1;
   k6::Params p;
+  if (!k6::set_variant(p, mptrs, cov)) return 1;
   for (int l = 0; l < k6::kLeaves; ++l) {
     if (kinds[l] != k6::kLeafKind[l]) return 1;
     p.kind[l] = kinds[l];
@@ -211,7 +242,8 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
     p.out[l] = reinterpret_cast<void *>(outs[l]);
   }
   const int inst = k6::instance(n, cap, ae_max);
-  if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, draws))
+  if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
+                     draws))
     return 1;
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
@@ -237,6 +269,16 @@ extern "C" int tick_instance(int n, int cap, int ae_max) {
   return k6::instance(n, cap, ae_max);
 }
 
+extern "C" int credit_launch(const void *fp, const void *seen, void *new_fps,
+                             int b, int m, int t0, void *) {
+  if (b < 1 || m < 1 || t0 < 0) return 1;
+  for (int c = 0; c < b; ++c)
+    static_cast<int *>(new_fps)[c] += k6::credits(
+        static_cast<const int *>(fp), static_cast<const int *>(seen), b, c, m,
+        t0);
+  return 0;
+}
+
 // keys [b, 2] int64-held u32, t1 [b] each cluster's first tick -> out
 // [m, b, total] u32: the words run_cluster draws for those ticks in the
 // instance tick_launch runs at (n, cap, ae_max)
@@ -246,7 +288,7 @@ extern "C" int tick_words(const void *keys, const int *t1, int b, int n,
   k6::Params p;
   int draws[k6::kDraws];
   for (int i = 0; i < k6::kDraws; ++i) draws[i] = k6::draw_offset(i, n);
-  k6::set_shape(p, n, 16, 0, 0, draws);
+  k6::set_shape(p, n, 16, 0, 0, false, draws);
   p.keys = static_cast<const long long *>(keys);
   p.b = b;
   p.m = m;

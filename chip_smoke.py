@@ -29,9 +29,16 @@ on the CLI's default 12-cell grid, the per-cluster dispatch, and on an
 hits and mutated coverage rows through ``replay``, runs the fuzz flagship,
 the metrics fuzz flagship and the coverage pool flagship through the eager
 tick (K1's draw chunks, K2, K2-metrics, K4, K5: the eager route's kernels)
-and through K6 in turns, runs the nine raft-layer game-day gates with
-metrics on, then times each kernel beside its plain version and its
-bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
+and through K6 in turns (the pool's harvests through K7 and through its
+plain version), runs the nine raft-layer game-day gates with metrics on,
+holds K7, the pool harvest, against its plain version on planted batches
+(every output, both id schemes, plain and coverage refills, metrics on and
+off, both threefry layouts) and through the engine at the flagship's
+shape, packed and wide, and its refill grid against the CPU twin's
+SHA-256; drives ``explain`` on a planted-bug cluster (K6 one tick a
+launch, K8's trace row after each) and holds K8 against its plain version
+at every tick of a storm and a bug cluster, metrics on and off, then
+times each kernel beside its plain version and its bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
 matched by the CUDA function's name), ``call_ms`` the wrapper's time per
 call as the host issues it back to back (CUDA events); ``share`` is the
 bound over ``ms``, the bound the larger of the bytes over the HBM rate and
@@ -83,10 +90,21 @@ SWEEP_UNIFORM_FLAGSHIP = SWEEP_FLAGSHIP + [
     "--loss", "0,0.1", "--crash", "0,0.01", "--repartition", "0,0.02"]
 # mutated coverage rows replayed through the CLI
 REPLAY_MUTATED = 3
+# explain's main path: a planted-bug cluster whose first violation lands at
+# tick 87 (the durability profile's ack_before_fsync, seed 5, cluster 32),
+# traced for EXPLAIN_TICKS ticks; the storm cluster K8 is also held on
+EXPLAIN_TICKS = 200
+EXPLAIN = ["explain", "--profile", "durability", "--bug", "ack_before_fsync",
+           "--seed", "5", "--cluster", "32", "--ticks", str(EXPLAIN_TICKS)]
+EXPLAIN_FVT = 87
+EXPLAIN_STORM = ("storm", "", 12345, 5)
 # ticks of each K6-vs-plain case (phase tick_chunk), and of each case that
 # holds a template instance under one threefry layout
 K6_TICKS = 256
 K6_SHAPE_TICKS = 128
+# the device operations of one packed pool harvest: K7's scan and lane
+# kernels, K3's pack and the snapshot's copy to the host
+HARVEST_OPS = ("ids_kernel", "lane_kernel", "pack_kernel", "Memcpy DtoH")
 # the eager runs of the fuzz flagship's eager-vs-K6 A/B, cut to hold the
 # script's time (the eager tick is host-bound, its rate flat in depth)
 AB_EAGER_TICKS = 256
@@ -167,32 +185,44 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, kernel: str, iters: int = 50, warmup: int = 3) -> float:
+def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
+              attempts: int = 5) -> float:
     """Mean device milliseconds of one launch of the CUDA kernel named
-    ``kernel`` over iters calls of fn(i), from torch.profiler's CUPTI
-    trace: the kernel's own execution, without the host's issue time or
-    any other kernel the wrapper launches."""
+    ``kernel`` (or the sum over a tuple of names, the launches of one
+    call) over iters calls of fn(i), from torch.profiler's CUPTI trace:
+    the kernels' own execution, without the host's issue time or any
+    other kernel the wrapper launches. CUPTI now and then hands a window
+    few or none of its kernel records (after long profiled windows), so
+    such a window is measured again, up to ``attempts`` times."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for i in range(warmup):
         fn(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.5)  # CUPTI's buffers come back asynchronously
         torch.cuda.synchronize()
-    name = re.compile(rf"(^|::|\s){re.escape(kernel)}(\(|<|$)")
-    hits = [e for e in prof.key_averages() if name.search(e.key)]
-    count = sum(e.count for e in hits)
-    # CUPTI may drop an activity record now and then; the mean is over
-    # the launches it recorded
-    check(count >= iters * 9 // 10 and sum(_dev_us(e) for e in hits) > 0,
-          f"profiler saw {count} launches of {kernel} over {iters} calls: "
-          f"{[e.key[:80] for e in prof.key_averages()][:12]}")
-    return sum(_dev_us(e) for e in hits) / count / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        seen = {}
+        for k in names:
+            name = re.compile(rf"(^|::|\s){re.escape(k)}(\(|<|$)")
+            hits = [e for e in avgs if name.search(e.key)]
+            seen[k] = (sum(e.count for e in hits),
+                       sum(_dev_us(e) for e in hits))
+        # CUPTI may drop an activity record now and then; the mean is over
+        # the launches it recorded
+        if all(n >= iters * 9 // 10 and us > 0 for n, us in seen.values()):
+            return sum(us / n for n, us in seen.values()) / 1e3
+    check(False, f"profiler saw {seen} launches of {names} over {iters} "
+          f"calls in {attempts} windows: {[e.key[:80] for e in avgs][:12]}")
 
 
 def rotations(nbytes_in: int) -> int:
@@ -235,11 +265,13 @@ def counters():
     the oracle's count of metrics-instance launches and K6's of its
     metrics and coverage variants."""
     from madraft_tpu_torch.kernels import coverage as K5
+    from madraft_tpu_torch.kernels import harvest as K7
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.kernels import trace as K8
 
     return {"threefry_hash_pairs": (K1.hash_pairs, "launches"),
             "threefry_tick_blocks": (K1.tick_blocks, "launches"),
@@ -252,7 +284,9 @@ def counters():
             "tick_chunk": (K6.tick_chunk, "launches"),
             "tick_chunk_metrics": (K6.tick_chunk, "metrics_launches"),
             "tick_chunk_coverage": (K6.tick_chunk, "coverage_launches"),
-            "credit_pass": (K5.credit_pass, "launches")}
+            "credit_pass": (K5.credit_pass, "launches"),
+            "harvest": (K7.harvest, "launches"),
+            "record": (K8.record, "launches")}
 
 
 def read_counts() -> dict:
@@ -294,11 +328,13 @@ def main() -> int:
         return 2
     from madraft_tpu_torch import _build
     from madraft_tpu_torch.kernels import coverage as K5
+    from madraft_tpu_torch.kernels import harvest as K7
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
     from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.kernels import trace as K8
     from madraft_tpu_torch.tpusim import (
         config,
         coverage,
@@ -308,6 +344,7 @@ def main() -> int:
         state,
         step,
     )
+    from madraft_tpu_torch.tpusim import trace
 
     dev = torch.device("cuda")
     errs = {k: 0.0 for k in counters()}
@@ -455,10 +492,16 @@ def main() -> int:
         check(digest == cov_fx["exp_grid"][name]["sha256"],
               f"refill arithmetic on the card differs from the JAX "
               f"package's over the uniform grid ({name})")
+        # K7's refill (true FMAs on the card) against the CPU twin's
+        mut, fresh = K7.refill_grid(ccfg, dev)
+        k7_digest = coverage.grid_sha256([mut.cpu(), fresh.cpu()])
+        check(k7_digest == coverage.grid_sha256(coverage.refill_grid(ccfg))
+              == digest, f"K7's refill grid differs from the CPU twin's "
+              f"({name})")
         grid[name] = digest[:16]
     del mut, fresh
     emit({"phase": "refill_grid", "values": 1 << 23, "sha256_prefix": grid,
-          "match": True})
+          "k7_match": True, "match": True})
 
     # ---- 3b. K3 against its plain version (on the CPU, same inputs):
     # n = 3, 5, 7; fresh clusters, storm@150, and a state at the edges of
@@ -649,6 +692,46 @@ def main() -> int:
                              errs["credit_pass"])})
     del s6
 
+    # ---- 3h. K7 against its plain version (on the CPU, same inputs), every
+    # output (state, keys, ids, book, snapshot, knob rows, kinds, credits):
+    # planted batches (every leaf random, a quarter of the lanes violated)
+    # where some, all or no lanes retire, and where the election timeout
+    # span is empty or eto_max + 1 wraps; both id schemes next to the int32
+    # wrap, the plain pool and the coverage pool guided and unguided,
+    # metrics on and off, both threefry layouts; the mixed case at the
+    # flagship's 4096 lanes, the others at 1100 (the monotone ranks carry
+    # across the scan's 1024-lane tiles)
+    k7_cases = []
+    for case in ("mixed", "all", "none", "eto_edge"):
+        b_ = 4096 if case == "mixed" else 1100
+        for cov_mode in (None, "guided", "random"):
+            for lane_ids in (False, True):
+                for m_on in (False, True):
+                    cfg = storm.replace(metrics=m_on)
+                    for flag in (True, False):
+                        with prng.layout(flag):
+                            args = K7.planted_inputs(cfg, b_, case, lane_ids,
+                                                     cov_mode, 9)
+                            want = K7.harvest_plain(cfg, *args)
+                            got = K7.harvest(cfg, *K7.inputs_to(args, dev))
+                            bad = K7.differences(want, got)
+                        check(not bad, f"K7 differs from its plain version "
+                              f"({case}, {cov_mode}, lane_ids {lane_ids}, "
+                              f"metrics {m_on}, partitionable {flag}): {bad}")
+                        for a, bb in ((got.snapshot, want.snapshot),
+                                      (got.ids, want.ids),
+                                      (got.keys, want.keys),
+                                      (got.book, want.book)):
+                            errs["harvest"] = max(errs["harvest"],
+                                                  max_abs_err(a.cpu(), bb))
+                        k7_cases.append(int(want.snapshot[:, 0].sum()))
+    check(0 in k7_cases and 1100 in k7_cases,
+          f"K7 cases retired {sorted(set(k7_cases))}")
+    emit({"phase": "k7_vs_plain", "cases": len(k7_cases),
+          "clusters": [4096, 1100], "retired_counts": sorted(set(k7_cases)),
+          "max_abs_err": errs["harvest"]})
+    del args, want, got
+
     # ---- 4. golden legs (legacy layout, as recorded)
     golden = json.loads((ROOT / "tests" / "golden_fuzz.json").read_text())
     with prng.layout(False):
@@ -686,11 +769,15 @@ def main() -> int:
         for leg, rec in pool_fx["legs"].items():
             cfg = config.storm_profiles()[rec["profile"]][0].replace(bug=rec["bug"])
             rows = []
+            before = K7.harvest.launches
             out = engine.run_pool(
                 cfg, rec["seed"], pool_fx["lanes"], pool_fx["horizon"],
                 chunk_ticks=pool_fx["chunk_ticks"],
                 budget_ticks=pool_fx["budget_ticks"], devices=rec["devices"],
                 on_retired=rows.append, device=dev)
+            check(K7.harvest.launches - before == pool_fx["budget_ticks"]
+                  // pool_fx["chunk_ticks"], f"fixture pool leg {leg}: "
+                  f"{K7.harvest.launches - before} K7 launches")
             got = [[r[f] for f in pool_fx["row_fields"]] for r in rows]
             check(got == rec["rows"], f"fixture pool leg {leg}: rows differ")
             bad = {k: (out.get(k), v) for k, v in rec["summary"].items()
@@ -819,7 +906,7 @@ def main() -> int:
     want = {"threefry_tick_blocks": 0,
             "tick_chunk": 2 * gens * -(-chunk_ticks // engine.KERNEL_CHUNK),
             "oracle": 0, "pack_state": 2 * gens,
-            "unpack_state": 2 * (gens - 1)}
+            "unpack_state": 2 * (gens - 1), "harvest": 2 * gens}
     # a clean run retires every lane at each horizon it reaches
     retired = lanes * (budget // horizon)
     check(rc1 == rc2 == 0 and out1["retired"] == retired
@@ -835,8 +922,8 @@ def main() -> int:
     check(all(pool_launches[k] == v for k, v in want.items())
           and pool_launches["threefry_hash_pairs"] > 0,
           f"pool flagship launches {pool_launches}, want {want} (a K6 "
-          "launch per pool chunk, a pack per harvest, an unpack per chunk "
-          "but the first)")
+          "launch per pool chunk, a K7 harvest and a pack per harvest, an "
+          "unpack per chunk but the first)")
     emit({"phase": "pool_flagship", "argv": POOL_FLAGSHIP, "rc": rc1,
           "retired": out1["retired"], "launches": pool_launches,
           "runs": [{k: o[k] for k in ("wall_s", "steps_per_sec",
@@ -892,6 +979,7 @@ def main() -> int:
     m_chunks = 2 * m_gens * -(-chunk_ticks // engine.KERNEL_CHUNK)
     mwant = {"threefry_tick_blocks": 0, "oracle": 0,
              "pack_state": 2 * m_gens, "unpack_state": 2 * (m_gens - 1),
+             "harvest": 2 * m_gens,
              "latency_fold": 0, "oracle_metrics": 0,
              "tick_chunk": m_chunks, "tick_chunk_metrics": m_chunks}
     check(all(mpool_launches[k] == v for k, v in mwant.items()),
@@ -929,6 +1017,82 @@ def main() -> int:
         replayed.append(r["cluster_id"])
     emit({"phase": "pool_replay", "hits": len(hits), "replayed": replayed,
           "generations": sorted({c // lanes for c in replayed})})
+
+    # ---- 6e. explain on the card, through the CLI: the bug cluster's
+    # traced replay (K6 one tick a launch, K8's row after each), its header
+    # against the CLI's replay of the same cluster (K6 at 256 ticks a
+    # launch); then K8 against its plain version at every tick of the
+    # storm and the bug cluster, metrics on and off, each traced final
+    # state against replay_cluster's, and the traced replay's time a tick
+    set_counts()
+    t0 = time.perf_counter()
+    rc, lines = run_cli_lines(EXPLAIN)
+    torch.cuda.synchronize()
+    explain_wall = time.perf_counter() - t0
+    explain_launches = read_counts()
+    head, events = lines[0], lines[1:]
+    check(rc == 0 and head["violations"] != 0
+          and head["first_violation_tick"] == EXPLAIN_FVT
+          and head["events_shown"] == len(events)
+          and any(e["event"] == "violation" for e in events),
+          f"explain on the card: rc {rc}, {head}")
+    check(explain_launches["tick_chunk"] == explain_launches["record"]
+          == EXPLAIN_TICKS and explain_launches["harvest"] == 0,
+          f"explain launches {explain_launches}, want {EXPLAIN_TICKS} K6 "
+          "and K8 launches")
+    rc_r, rep = run_cli(["replay" if x == "explain" else x for x in EXPLAIN])
+    check(rc_r == 1 and all(rep[k] == head[k] for k in (
+        "violations", "first_violation_tick", "committed", "state_layout")),
+        f"explain header {head} vs replay {rep}")
+    saved = read_counts()
+    record_cases = {}
+
+    def checked_record(cfg_, prev, nxt, out):
+        K8.record(cfg_, prev, nxt, out)
+        errs["record"] = max(errs["record"], max_abs_err(
+            out, K8.record_plain(prev, nxt)))
+
+    trace.K8 = types.SimpleNamespace(record=checked_record,
+                                     record_width=K8.record_width,
+                                     decode=K8.decode)
+    try:
+        for (profile, bug, seed_, cl), label in (
+                (EXPLAIN_STORM, "storm"),
+                (("durability", "ack_before_fsync", 5, 32), "bug")):
+            for m_on in (False, True):
+                cfg = config.storm_profiles()[profile][0].replace(
+                    bug=bug, metrics=m_on)
+                with prng.layout(True):
+                    final, rec = trace.replay_cluster_traced(
+                        cfg, seed_, cl, EXPLAIN_TICKS, device=dev)
+                    plain = engine.replay_cluster(cfg, seed_, cl,
+                                                  EXPLAIN_TICKS, device=dev)
+                check(all(torch.equal(a, b) for a, b in zip(final, plain)),
+                      f"traced final state differs from replay_cluster's "
+                      f"({label}, metrics {m_on})")
+                record_cases[f"{label}:metrics_{m_on}"] = {
+                    "events": len(trace.decode_events(rec)),
+                    "first_violation_tick": int(final.first_violation_tick[0])}
+    finally:
+        trace.K8 = K8
+    check(errs["record"] == 0, f"K8 differs from its plain version: "
+          f"{errs['record']}")
+    set_counts(saved)
+    # the traced replay's time a tick, the kernels' launches included
+    with prng.layout(True):
+        cfg = config.storm_profiles()["durability"][0].replace(
+            bug="ack_before_fsync")
+        trace.replay_cluster_traced(cfg, 5, 32, 8, device=dev)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace.replay_cluster_traced(cfg, 5, 32, EXPLAIN_TICKS, device=dev)
+        traced_ms_per_tick = (time.perf_counter() - t0) * 1e3 / EXPLAIN_TICKS
+    set_counts(saved)
+    emit({"phase": "explain", "argv": EXPLAIN, "rc": rc,
+          "header": head, "wall_s": round(explain_wall, 3),
+          "launches": explain_launches, "record_cases": record_cases,
+          "traced_replay_ms_per_tick": traced_ms_per_tick,
+          "max_abs_err": errs["record"]})
 
     # ---- 6v. the coverage pool flagship, twice: deterministic, K6-coverage
     # and a credit pass a chunk (no K5 launch), the pool flagship's K3
@@ -970,7 +1134,8 @@ def main() -> int:
                  threefry_tick_blocks=0)
     check(all(cov_launches[k] == v for k, v in cwant.items()),
           f"coverage pool flagship launches {cov_launches}, want {cwant} "
-          "(K6-coverage and a credit pass a chunk, no K5 or K2 launch)")
+          "(K6-coverage, a credit pass and a K7 harvest a chunk, no K5 or "
+          "K2 launch)")
     mutated = [r for r in crows1 if r["refill"] == "mutate"]
     check(len(mutated) >= REPLAY_MUTATED, f"{len(mutated)} mutated rows")
     replayed = []
@@ -1068,7 +1233,7 @@ def main() -> int:
     }
     ab_out = {"phase": "ab_eager_vs_kernel", "card": _smi(), "clusters": 4096}
     eager_launches = {}  # each pair's first eager run: the eager route's
-    advance = engine._advance
+    advance, harvest = engine._advance, engine._harvest
     for pair, (argv0, depth) in pairs.items():
         ab = []
         for route in ("eager", "kernel", "kernel", "eager"):
@@ -1077,17 +1242,22 @@ def main() -> int:
             at = argv0.index(depth) + 1
             argv = argv0[:at] + [str(n_ab)] + argv0[at + 1:]
             set_counts()
+            # every verb's chunks go through _advance, a pool's harvests
+            # through _harvest (K7 or the plain one)
             engine._advance = functools.partial(advance, tick=route)
+            engine._harvest = functools.partial(harvest, tick=route)
             try:
                 rc, lines = run_cli_lines(argv)
             finally:
-                engine._advance = advance
+                engine._advance, engine._harvest = advance, harvest
             out = lines[-1]
             ran = read_counts()
             ticks_run = out.get("lane_ticks", n_ab)  # a pool's whole chunks
             check(rc == 0 and out.get("violating",
                                       out.get("retired_violating")) == 0
                   and (ran["tick_chunk"] > 0) == (route == "kernel")
+                  and (ran["harvest"] > 0) == (route == "kernel"
+                                               and "pool" in pair)
                   and (ran["oracle"] == ticks_run) == (route == "eager"),
                   f"A/B {pair} {route} run: rc {rc}, launches {ran}")
             if route == "eager":
@@ -1463,6 +1633,89 @@ def main() -> int:
                     iters=20),
             nbytes(*fs) + nbytes(*fp), k3_ops),
     }
+    # K7 at the pool flagship's harvest: the tick-200 state with every lane
+    # retiring (horizon 0, so each call refills the whole batch; the kernel
+    # writes the refilled lanes into its copy of the state), the plain pool
+    # and the guided coverage pool (half the lanes productive, restored
+    # before each call)
+    k7_state = state.ClusterState(*(x.contiguous().clone() for x in fs))
+    k7_ids = torch.arange(b, dtype=torch.int32, device=dev)
+    k7_book = torch.tensor(b, dtype=torch.int32, device=dev)
+    k7_fps = k7_ids % 2
+    k7_cov = K7.Cov(config.CoverageConfig(), fkn.broadcast(b),
+                    torch.zeros(b, dtype=torch.int32, device=dev),
+                    k7_fps.clone(), torch.full(
+                        (1, 1 << 16), coverage.UNSEEN, dtype=torch.int32,
+                        device=dev))
+    k7_cov.seen[0, ::3] = 5
+
+    def k7_call(i):
+        return K7.harvest(fcfg, k7_state, k7_ids, k7_book, 12345, 0, fkn,
+                          False)
+
+    def k7c_call(i):
+        k7_cov.new_fps.copy_(k7_fps)
+        return K7.harvest(fcfg, k7_state, k7_ids, k7_book, 12345, 0, fkn,
+                          False, k7_cov)
+
+    def k7_plain(i, cov=None):
+        return K7.harvest_plain(fcfg, k7_state, k7_ids, k7_book, 12345, 0,
+                                fkn, False, cov)
+
+    k7_cols = K7.snapshot_cols(fs, False)
+    # read: violations, tick and the other 5 scalars, the ids; written:
+    # the snapshot row, new ids and keys, the fresh state (every lane)
+    k7_bytes = b * (7 * 4 + 4 + 4 * k7_cols + 4 + 16) + 8 + fs_bytes
+    # a lane's hashes: its key, then 4 for each election timer (the split
+    # and the two bit streams); the coverage refill adds 2 a knob (the
+    # salted key, the word) and about 40 float operations of the exp
+    k7_ops = b * (1 + 4 * n_nodes) * OPS_PER_HASH
+    k7c_bytes = (k7_bytes + b * 4 * 13 + nbytes(k7_cov.seen)
+                 + b * 2 * (4 * 9 + 8))
+    k7c_ops = k7_ops + b * 9 * (2 * OPS_PER_HASH + 40)
+    # K8 at explain's shape: one cluster, the bug cluster's tick 87 -> 88
+    with prng.layout(True):
+        k8_cfg = config.storm_profiles()["durability"][0].replace(
+            bug="ack_before_fsync")
+        k8_keys = engine.cluster_keys(5, 1, dev, id0=32)
+        k8_kn = k8_cfg.knobs(dev)
+        k8_prev = engine._advance(k8_cfg, state.init_cluster(
+            k8_cfg, k8_keys, k8_kn), k8_keys, k8_kn, EXPLAIN_FVT)
+        k8_nxt = K6.tick_chunk(k8_cfg, k8_prev, k8_keys, k8_kn, 1)
+    k8_out = torch.empty((1, K8.record_width(k8_cfg)), dtype=torch.int32,
+                         device=dev)
+    K8.record(k8_cfg, k8_prev, k8_nxt, k8_out)
+    errs["record"] = max(errs["record"], max_abs_err(
+        k8_out, K8.record_plain(k8_prev, k8_nxt)))
+    check(errs["record"] == 0, "K8 differs from plain at explain's shape")
+    k8_copied = [getattr(k8_nxt, f) for f in K8.NODE_ROWS + K8.LATER]
+    # read: the copied post-tick leaves, adj, the five pre-tick mailboxes
+    # and the tick; written: the row. Per mailbox n^2 compares of 4
+    # operations, a row mask of n
+    k8_bytes = (nbytes(*k8_copied, k8_nxt.adj, k8_nxt.tick, k8_out)
+                + sum(nbytes(getattr(k8_prev, m)) for m in K8.MAILS))
+    k8_ops = 5 * 4 * k8_cfg.n_nodes ** 2 + 2 * k8_cfg.n_nodes ** 2
+    timing["harvest"] = (
+        device_ms(k7_call, ("ids_kernel", "lane_kernel"), iters=20),
+        cuda_ms(k7_call, iters=20),
+        cuda_ms(k7_plain, iters=5, warmup=1),
+        k7_bytes, k7_ops)
+    timing["harvest_coverage"] = (
+        device_ms(k7c_call, ("ids_kernel", "lane_kernel"), iters=20),
+        cuda_ms(k7c_call, iters=20),
+        cuda_ms(lambda i: k7_plain(i, k7_cov), iters=5, warmup=1),
+        k7c_bytes, k7c_ops)
+    timing["record"] = (
+        device_ms(lambda i: K8.record(k8_cfg, k8_prev, k8_nxt, k8_out),
+                  "record_kernel"),
+        cuda_ms(lambda i: K8.record(k8_cfg, k8_prev, k8_nxt, k8_out)),
+        cuda_ms(lambda i: K8.record_plain(k8_prev, k8_nxt), iters=20),
+        k8_bytes, k8_ops)
+    # K6 one tick a launch at explain's shape, as the traced replay runs it
+    k6_one_tick_ms = device_ms(
+        lambda i: K6.tick_chunk(k8_cfg, k8_prev, k8_keys, k8_kn, 1),
+        "tick_chunk_kernel")
+    del k7_state
     card = _card()
 
     def k6_bounds(m):
@@ -1489,8 +1742,11 @@ def main() -> int:
                                 "unpack_state": rotations(nbytes(*fp))},
           "tick_chunk_32": k6_32,
           "tick_chunk_launch": {"ticks": k6_m, **k6_bounds(k6_m)},
+          "tick_chunk_one_tick_one_cluster_ms": k6_one_tick_ms,
           "coverage_clean_lane_ticks": fp_ok,
           "shapes": {"tick_chunk": [k6_m, b, fs_bytes // b],
+                     "harvest": [b, k7_cols, fs_bytes // b],
+                     "record": [1, K8.record_width(k8_cfg)],
                      "tick_blocks": [chunk, b, total], "hash_pairs": [b, n_nodes],
                      "oracle_logs": [b, n_nodes, 64],
                      "latency_fold": [b, 64, n_ph],
@@ -1501,6 +1757,11 @@ def main() -> int:
     # (torch.profiler), and the bytes behind B2-rest's bound
     emit(_k6_phases(fcfg, fs, fk, fkn, chunk))
     emit(_k6_scaling(fcfg, fs, fk, fkn, chunk))
+    emit(_k6_sass(card, k6_m, b, timing["tick_chunk"][0], k6_bytes))
+    # a harvest's device operations, before the eager tick's long profiled
+    # windows (after those CUPTI handed the harvest's short one no record)
+    emit(_profile_harvest(fs, fk, fkn))
+    emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
@@ -1527,8 +1788,7 @@ def main() -> int:
               b * (2 * wide_bpl + total * 8) / PEAK_BYTES_S * 1e3,
           "b4_harvest_bytes_per_lane": harvest_bpl,
           "b4_harvest_bound_ms": b * harvest_bpl / PEAK_BYTES_S * 1e3})
-    emit(_profile_harvest(fs, fk, fkn))
-    emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
+    emit(_harvest_routes(fs, fk, fkn, errs))
 
     emit(card)
     # name: (label, source, the reference region it replaces)
@@ -1558,6 +1818,13 @@ def main() -> int:
                        "madraft_tpu/tpusim/state.py:561"),
         "unpack_state": ("K3", "madraft_tpu_torch/csrc/pack.cu",
                          "madraft_tpu/tpusim/state.py:656"),
+        "harvest": ("K7", "madraft_tpu_torch/csrc/harvest.cu",
+                    "madraft_tpu/tpusim/engine.py:837"),
+        "harvest_coverage": ("K7-coverage",
+                             "madraft_tpu_torch/csrc/harvest.cu",
+                             "madraft_tpu/tpusim/engine.py:1368"),
+        "record": ("K8", "madraft_tpu_torch/csrc/trace.cu",
+                   "madraft_tpu/tpusim/trace.py:138"),
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -1574,6 +1841,12 @@ def main() -> int:
     launches.update({k: em[k] for k in (
         "threefry_tick_blocks", "oracle", "oracle_metrics", "latency_fold")})
     launches["seen_update"] = ec["seen_update"]
+    # K7's from the pool flagship and the coverage pool flagship, K8's
+    # from explain
+    launches["harvest"] = pool_launches["harvest"]
+    launches["harvest_coverage"] = cov_launches["harvest"]
+    launches["record"] = explain_launches["record"]
+    errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
         t_bytes = nb / PEAK_BYTES_S * 1e3
@@ -1634,6 +1907,118 @@ def k6_only() -> int:
     emit(_card())
     print(_smi(), flush=True)
     return 0
+
+
+# SASS opcode classes for _k6_sass: the 32-bit integer pipe's, the FMA
+# pipe's (IMAD and the float ops), memory, warp collectives, control
+SASS_CLASSES = {
+    "alu": ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "IMNMX", "LEA", "PRMT",
+            "POPC", "FLO", "BREV", "VIADD", "VIMNMX", "IABS", "PLOP3", "P2R",
+            "R2P", "LOP", "ISCADD", "BMSK", "SGXT", "VIADDMNMX", "IADD"),
+    "fma": ("IMAD", "FFMA", "FADD", "FMUL", "FSETP", "FMNMX", "I2F", "F2I",
+            "FSEL", "IDP", "FRND"),
+    "memory": ("LDS", "STS", "LDG", "STG", "LD", "ST", "LDL", "STL", "ATOM",
+               "ATOMS", "ATOMG", "RED", "LDC", "LDSM"),
+    "collective": ("SHFL", "VOTE", "MATCH", "REDUX", "BAR", "WARPSYNC"),
+    "control": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "BREAK",
+                "JMP", "NOP", "YIELD"),
+}
+
+
+def _sass(path) -> dict:
+    """{mangled kernel name: [instruction text, ...]} of a library's
+    sm_90a code, from cuobjdump -sass."""
+    import re
+
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=600).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            cur.append(m.group(1).strip())
+    return funcs
+
+
+def _opcode(ins: str) -> str:
+    return (ins.split()[1] if ins.startswith("@") else ins.split()[0]
+            ).split(".")[0]
+
+
+def _sass_class(ins: str) -> str:
+    op = _opcode(ins)
+    return next((k for k, ops in SASS_CLASSES.items() if op in ops), "other")
+
+
+def _k6_sass(card: dict, m: int, b: int, k6_ms: float, k6_bytes: int
+             ) -> dict:
+    """K6's instructions at the flagship's shape, read off the SASS
+    (cuobjdump) of the n = 5, cap = 64, ae 4 template instance: their
+    static count by opcode class in the kernel, and in the profile build
+    the instructions between its clock64() reads, a phase group each (the
+    tick's regions in PHASES order), by class. A warp instruction serves
+    two clusters (16 lanes each), so a cluster-tick costs half of its
+    tick's warp instructions in issue slots (4 an SM a clock) and 16
+    lanes of the integer ALU pipe (64 an SM a clock) for each ALU-class
+    instruction. The bound from these counts is the larger of the bytes,
+    the ALU lanes and the issue slots; the counts are static (an unrolled
+    loop counts each pass, a loop that is not counts once, both arms of a
+    branch count, the profile build adds its clock reads), so they
+    estimate the work rather than bound it from below."""
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import tick as K6
+
+    inst = "ILi5ELi64ELi4ELb{}EE"
+    out = {"phase": "k6_sass", "instance": "n=5 cap=64 ae=4"}
+    funcs = _sass(_build._target("tick"))
+    name = next((f for f in funcs if "tick_chunk_kernel" in f
+                 and inst.format(0) in f), None)
+    check(name is not None, f"no K6 n5 cap64 instance in {list(funcs)[:8]}")
+    classes = {k: 0 for k in (*SASS_CLASSES, "other")}
+    for ins in funcs[name]:
+        classes[_sass_class(ins)] += 1
+    out["static_instructions"] = len(funcs[name])
+    out["by_class"] = classes
+    funcs_p = _sass(_build._target("tick_profile"))
+    name_p = next((f for f in funcs_p if "tick_chunk_kernel" in f
+                   and inst.format(1) in f), None)
+    check(name_p is not None, "no K6 n5 cap64 profile instance")
+    code = funcs_p[name_p]
+    reads = [i for i, ins in enumerate(code) if "SR_CLOCKLO" in ins]
+    out["profile_clock_reads"] = len(reads)
+    # start, stage, the 12 tick phases, stage: 15 reads, 14 regions
+    check(len(reads) == len(K6.PHASES) + 2,
+          f"{len(reads)} clock reads in K6's profile instance")
+    regions = {}
+    for phase, lo, hi in zip(K6.PHASES[1:], reads[1:-2], reads[2:-1]):
+        count = {k: 0 for k in classes}
+        for ins in code[lo:hi]:
+            count[_sass_class(ins)] += 1
+        regions[phase] = count
+    out["by_phase"] = {p: sum(c.values()) for p, c in regions.items()}
+    out["alu_by_phase"] = {p: c["alu"] for p, c in regions.items()}
+    tick_ins = sum(out["by_phase"].values())
+    alu_ins = sum(out["alu_by_phase"].values())
+    hz = card["clocks_max_sm_mhz"] * 1e6
+    t_alu = b * m * 16 * alu_ins / card["int32_ops_per_s"] * 1e3
+    t_issue = b * m * tick_ins / 2 / (4 * card["sms"] * hz) * 1e3
+    t_bytes = k6_bytes / PEAK_BYTES_S * 1e3
+    bound = max(t_alu, t_issue, t_bytes)
+    out.update({
+        "tick_instructions": tick_ins, "tick_alu_instructions": alu_ins,
+        "alu_lane_ops_per_cluster_tick": 16 * alu_ins,
+        "issue_slots_per_cluster_tick": tick_ins / 2,
+        "bound_ms_alu": t_alu, "bound_ms_issue": t_issue,
+        "bound_ms_bytes": t_bytes, "bound_ms_256_ticks": bound,
+        "bound_by": ("alu" if bound == t_alu else "issue" if bound == t_issue
+                     else "bytes"),
+        "k6_ms_256_ticks": k6_ms, "share": bound / k6_ms})
+    return out
 
 
 def _k6_grid(cfg, build: str = "tick") -> dict:
@@ -2067,16 +2452,70 @@ def _k3_vs_plain(cfg, h: dict, dev, errs: dict, label: str) -> None:
           f"K3 round trip differs at {label}")
 
 
+def _profiled(run, arm=None, cpu: bool = True, attempts: int = 5,
+              expect: tuple = ()) -> tuple:
+    """(run()'s result, the kernel averages that have device time, wall
+    ms, all averages, attempts) of run() under torch.profiler (CUDA
+    activities, and CPU ones with ``cpu``), synchronized on both sides.
+    After a long profiled window of the eager tick CUPTI now and then
+    hands a short one no device record at all, or drops some of them
+    (after the script's earlier windows it dropped a harvest's first
+    kernel in ten windows of ten), so each window opens with a warm-up
+    step (``arm()``, which sets run()'s inputs up; nothing it launches is
+    kept) and a spin kernel before run() (both left out of the result,
+    with the step's own annotation), and an attempt that saw nothing, or
+    missed one of the device operations named in ``expect``, is made
+    again; after the last one a missing name fails the check."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = {k: re.compile(rf"(^|::|\s){re.escape(k)}(\(|<|\s|$)")
+             for k in expect}
+
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    for attempt in range(1, attempts + 1):
+        if attempt > 1:
+            time.sleep(0.5)  # CUPTI's buffers come back asynchronously
+        with profile(activities=acts, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            if arm is not None:
+                arm()
+            torch.cuda.synchronize()
+            prof.step()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        avgs = [e for e in prof.key_averages() if "spin_kernel" not in e.key
+                and not e.key.startswith("ProfilerStep")]
+        kernels = [e for e in avgs if "CUDA" in str(getattr(
+            e, "device_type", "")) and _dev_us(e) > 0]
+        missing = [k for k, name in names.items()
+                   if not any(name.search(e.key) for e in kernels)]
+        if kernels and not missing:
+            break
+    check(not missing, f"the profiler saw no {missing} in {attempts} "
+          f"windows: {[e.key[:80] for e in kernels]}")
+    return out, kernels, wall_ms, avgs, attempt
+
+
 def _profile_harvest(s, keys, kn, ccfg=None) -> dict:
     """Device operations and time of one pool harvest at the flagship
-    shape (retire mask, ids, snapshot, fresh lanes, the K3 pack and the
-    host fetch; with ``ccfg`` the coverage harvest, its knob rows refilled
-    by the guided rule, half the lanes productive), from torch.profiler;
-    the kernels' counters get their saved values back afterwards."""
+    shape (K7: retire mask, ids, snapshot, fresh lanes; then the K3 pack
+    and the host fetch; with ``ccfg`` the coverage harvest, its knob rows
+    refilled by the guided rule, half the lanes productive), from
+    torch.profiler, beside the same harvest through its plain version
+    (``tick="eager"``, None where the profiler recorded nothing); a copy
+    from the host among K7's fails the check. The kernels' counters get
+    their saved values back afterwards."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from madraft_tpu_torch.tpusim import coverage, engine
+    from madraft_tpu_torch.tpusim import coverage, engine, state
 
     counts = read_counts()
     cfg = _storm_cfg()
@@ -2088,7 +2527,8 @@ def _profile_harvest(s, keys, kn, ccfg=None) -> dict:
                                                     device=dev))
 
     def arm():
-        c.wide = s
+        # K7 writes the refilled lanes in place: a copy of the state
+        c.wide = state.ClusterState(*(x.contiguous().clone() for x in s))
         if ccfg is not None:
             c.kn_lanes = kn.broadcast(b)
             c.kinds = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -2096,30 +2536,110 @@ def _profile_harvest(s, keys, kn, ccfg=None) -> dict:
             c.seen = torch.full((1, ccfg.bitmap_bits), coverage.UNSEEN,
                                 dtype=torch.int32, device=dev)
 
+    def harvest(tick):
+        return engine._harvest(cfg, kn, c, 12345, 200, False, True, ccfg,
+                               tick)
+
     arm()
-    engine._harvest(cfg, kn, c, 12345, 200, False, True, ccfg)  # warm
-    arm()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        h = engine._harvest(cfg, kn, c, 12345, 200, False, True, ccfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    harvest("kernel")  # warm
+    h, kernels, wall_ms, avgs, attempts = _profiled(
+        lambda: harvest("kernel"), arm, cpu=False, attempts=10,
+        expect=HARVEST_OPS)
+    _, plain, plain_wall_ms, _, _ = _profiled(lambda: harvest("eager"), arm,
+                                              cpu=False)
     set_counts(counts)
     if ccfg is not None:
         h = h.pool
-    kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:5]
+    htod = [e.key for e in avgs if "HtoD" in e.key]
+    check(kernels, "the profiler saw no device record of a harvest")
+    check(not htod, f"a harvest copies from the host: {htod}")
+    check(int(h.retired.sum()) == b, f"{int(h.retired.sum())} lanes retired")
     return {
         "phase": "profile_harvest" if ccfg is None
                  else "profile_coverage_harvest", "clusters": b,
         "retired": int(h.retired.sum()), "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kernels else None,
         "device_ops": sum(e.count for e in kernels),
+        "memcpy_htod": len(htod), "profiler_attempts": attempts,
         "top_device_ms": {e.key[:60]: _dev_us(e) / 1e3 for e in top},
+        "plain": {"wall_ms": plain_wall_ms,
+                  "device_ops": sum(e.count for e in plain) if plain
+                  else None,
+                  "device_busy_ms": sum(_dev_us(e) for e in plain) / 1e3
+                  if plain else None},
     }
+
+
+def _harvest_routes(s, keys, kn, errs: dict) -> dict:
+    """engine._harvest at the flagship shape (the tick-200 state, horizon
+    200: every lane retires) through K7 and through its plain version
+    (tick="eager"), packed and wide, plain and with the guided and the
+    unguided coverage refill, both id schemes: the carries (the K3-packed
+    state, keys, ids, book, knob rows, kinds, credits) and the fetched
+    snapshot equal."""
+    import numpy as np
+    import torch
+
+    from madraft_tpu_torch.tpusim import config, coverage, engine, state
+
+    counts = read_counts()
+    cfg = _storm_cfg()
+    b = int(s.tick.shape[0])
+    dev = s.tick.device
+    cases = []
+    for ccfg in (None, config.CoverageConfig(),
+                 config.CoverageConfig(guided=False)):
+        for packed in (True, False):
+            for lane_ids in (False, True):
+                out = []
+                for tick in ("kernel", "eager"):
+                    ids = torch.arange(b, dtype=torch.int32, device=dev)
+                    book = (torch.zeros(b, dtype=torch.int32, device=dev)
+                            if lane_ids else torch.tensor(
+                                b, dtype=torch.int32, device=dev))
+                    c = engine._Carry(None, keys, ids, book)
+                    c.wide = state.ClusterState(
+                        *(x.contiguous().clone() for x in s))
+                    if ccfg is not None:
+                        c.kn_lanes = kn.broadcast(b)
+                        c.kinds = torch.zeros(b, dtype=torch.int32,
+                                              device=dev)
+                        c.new_fps = ids % 2
+                        c.seen = torch.full((1, ccfg.bitmap_bits),
+                                            coverage.UNSEEN,
+                                            dtype=torch.int32, device=dev)
+                        c.seen[0, ::5] = 7
+                    h = engine._harvest(cfg, kn, c, 12345, 200, lane_ids,
+                                        packed, ccfg, tick)
+                    carry = [c.keys, c.ids, c.book, *c.states]
+                    if ccfg is not None:
+                        carry += [c.kinds, c.new_fps, *c.kn_lanes]
+                    out.append((h, [x.cpu() for x in carry]))
+                (hk, ck), (he, ce) = out
+                for a, bb in zip(ck, ce):
+                    check(a.dtype == bb.dtype and torch.equal(a, bb),
+                          f"K7 route differs from the plain one (coverage "
+                          f"{ccfg}, packed {packed}, lane ids {lane_ids})")
+                    errs["harvest"] = max(errs["harvest"], max_abs_err(a, bb))
+                hk_ = hk.pool if ccfg is not None else hk
+                he_ = he.pool if ccfg is not None else he
+                check(all(np.array_equal(x, y) for x, y in zip(hk_, he_)),
+                      "K7 route's snapshot differs from the plain one's")
+                if ccfg is not None:
+                    check(hk.seen_bits == he.seen_bits
+                          and np.array_equal(hk.new_fps, he.new_fps)
+                          and all(np.array_equal(hk.knobs[k], he.knobs[k])
+                                  for k in hk.knobs),
+                          "K7 route's coverage columns differ")
+                cases.append(f"{'cov' if ccfg else 'plain'}"
+                             f"{'' if ccfg is None or ccfg.guided else '_random'}"
+                             f":{'packed' if packed else 'wide'}"
+                             f":{'lane' if lane_ids else 'monotone'}")
+    set_counts(counts)
+    return {"phase": "k7_routes_flagship_shape", "clusters": b,
+            "cases": cases, "max_abs_err": errs["harvest"]}
 
 
 def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
@@ -2132,29 +2652,25 @@ def _profile_ticks(cfg, s, keys, kn, n_ticks: int, phase: str,
     or K6's launch (its variant for cfg.metrics and ``cov``, the kernel
     drawing the words). Kernel launches here go to the counters' saved
     values afterwards, like the timing phase's."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from madraft_tpu_torch.tpusim import engine
 
     counts = read_counts()
-    if cov is not None:  # the caller's seen-set stays as it was
-        cov = cov._replace(seen=cov.seen.clone(), new_fps=cov.new_fps.clone())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s = engine._advance(cfg, s, keys, kn, n_ticks, cov, tick=tick)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    set_counts(counts)
+    runs = [cov]
 
-    kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
+    def arm():  # the caller's seen-set stays as it was
+        if cov is not None:
+            runs[0] = cov._replace(seen=cov.seen.clone(),
+                                   new_fps=cov.new_fps.clone())
+
+    s, kernels, wall_ms, _, attempts = _profiled(
+        lambda: engine._advance(cfg, s, keys, kn, n_ticks, runs[0],
+                                tick=tick), arm)
+    set_counts(counts)
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:5]
     return {
         "phase": phase, "ticks": n_ticks, "clusters": int(s.tick.shape[0]),
-        "wall_ms_per_tick": wall_ms / n_ticks,
+        "profiler_attempts": attempts, "wall_ms_per_tick": wall_ms / n_ticks,
         "device_busy_ms_per_tick": busy_ms / n_ticks if kernels else None,
         "device_busy_share": busy_ms / wall_ms if kernels else None,
         "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
@@ -2208,7 +2724,9 @@ def _coverage_fixture_legs(dev, fx: dict) -> None:
     coverage_legs.json) on the card: the coverage pools' rows and
     summaries (guided, random, lane ids; metrics off and on), the
     ground-truth guided and random seen counts, and the sweep legs' CLI
-    output and per-cluster reports, all bit-equal."""
+    output and per-cluster reports, all bit-equal; each pool harvest a K7
+    launch."""
+    from madraft_tpu_torch.kernels import harvest as K7
     from madraft_tpu_torch.tpusim import config, engine, prng
 
     shape = fx["pool_shape"]
@@ -2219,6 +2737,7 @@ def _coverage_fixture_legs(dev, fx: dict) -> None:
             if leg["majority_override"]:
                 cfg = cfg.replace(majority_override=leg["majority_override"])
             rows = []
+            before = K7.harvest.launches
             out = engine.run_pool(
                 cfg, fx["seed"], leg["lanes"], shape["horizon"],
                 chunk_ticks=shape["chunk_ticks"],
@@ -2226,6 +2745,9 @@ def _coverage_fixture_legs(dev, fx: dict) -> None:
                 on_retired=rows.append,
                 coverage=config.CoverageConfig(guided=leg["guided"]),
                 device=dev)
+            check(K7.harvest.launches - before == -(-shape["budget_ticks"]
+                  // shape["chunk_ticks"]), f"coverage fixture leg {name}: "
+                  f"{K7.harvest.launches - before} K7 launches")
             check([deterministic(r) for r in rows] == leg["rows"],
                   f"coverage fixture leg {name}: rows differ")
             got = _cov_deterministic(out)

@@ -4,6 +4,7 @@
     python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024 [--coverage]
     python -m madraft_tpu_torch sweep  --loss 0,0.1,0.3 --crash 0,0.02 --repartition 0,0.05
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm] [--knobs-json ROW]
+    python -m madraft_tpu_torch explain --seed S --cluster C --ticks T [--format jsonl|chrome] [--out F]
     python -m madraft_tpu_torch stats  REPORT.json [POOL.jsonl ...] [--json]
     python -m madraft_tpu_torch fuzz --list-profiles
 
@@ -12,7 +13,9 @@ from either package reads the same; ``pool`` streams one JSONL row per
 retired cluster and then its summary line; ``pool --coverage`` is the
 coverage-guided pool (abstract-state fingerprints in an on-device
 seen-set, a biased knob refill; rows gain ``new_fingerprints``/``refill``/
-``knobs``, which ``replay --knobs-json`` replays). ``sweep`` runs a
+``knobs``, which ``replay --knobs-json`` replays). ``explain`` replays
+one cluster with the flight recorder on and prints its event timeline
+(JSONL around the first violation) or a Perfetto trace. ``sweep`` runs a
 fault-parameter grid, a knob row per cluster, and reports each cell.
 ``--metrics`` turns on the on-device metrics plane (submit->commit latency
 histograms, phase attribution, the worst op, event counters); ``stats``
@@ -22,7 +25,8 @@ card the run fails rather than fall back. Exit codes: 0 clean, 1 violation
 found (or a failed ``--check-deterministic``), 2 usage error (``stats``:
 input without metrics). The JAX CLI's other verbs, and the flags of paths
 not ported yet (``--mesh``, pool's ``--devices N>1``, ``--heartbeat``,
-``--digest-every``, ``stats --follow``), exit 2 naming the ROADMAP item.
+``--digest-every``, ``stats --follow``, ``explain --heartbeat``), exit 2
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import os
 import sys
 
 NOT_PORTED_VERBS = (
-    "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "explain", "bridge", "lint",
+    "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "bridge", "lint",
 )
 
 
@@ -279,6 +283,72 @@ def cmd_replay(args) -> int:
         "terms": st.term[0].cpu().tolist(),
     }))
     return 1 if viol else 0
+
+
+def cmd_explain(args) -> int:
+    """Flight-recorder replay of ONE cluster: its decoded event timeline
+    (JSONL: a header, then the events within --window ticks of the first
+    violation) or a Perfetto-loadable chrome trace. A debugging tool, not
+    a checker: exit 0 whenever the replay ran, violations or not."""
+    from madraft_tpu_torch.tpusim.config import violation_names
+    from madraft_tpu_torch.tpusim.trace import (
+        chrome_trace,
+        decode_events,
+        events_in_window,
+        replay_cluster_traced,
+    )
+
+    if args.heartbeat:
+        _usage_error("explain: --heartbeat (the pool's host timeline) is not "
+                     "ported yet (ROADMAP A15)")
+    if args.cluster is None:
+        _usage_error("explain: --cluster is required (or --heartbeat PATH for "
+                     "the pool host timeline)")
+    cfg = _sim_config(args)
+    knobs = _knobs_json("explain", args.knobs_json)
+    dev = _device(args)
+    try:
+        final, rec = replay_cluster_traced(cfg, args.seed, args.cluster,
+                                           args.ticks, knobs=knobs,
+                                           device=dev)
+    except ValueError as e:
+        _usage_error(f"explain: {e}")
+    events = decode_events(rec)
+    viol = int(final.violations[0])
+    fvt = int(final.first_violation_tick[0])
+    header = {
+        "seed": args.seed,
+        "cluster": args.cluster,
+        "ticks": args.ticks,
+        **_state_schema(cfg, knobs, args.ticks, dev),
+        "violations": viol,
+        "violation_names": violation_names(viol),
+        "first_violation_tick": fvt,
+        "committed": int(final.shadow_len[0]),
+        "events_total": len(events),
+    }
+    if args.format == "chrome":
+        doc = chrome_trace(
+            rec, cfg.ms_per_tick, events,
+            label=f"madtpu cluster {args.cluster} seed {args.seed}",
+        )
+        text = json.dumps(doc)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(text)
+            header["trace_file"] = args.out
+            header["trace_events"] = len(doc["traceEvents"])
+            print(json.dumps(header))
+        else:
+            print(text)
+        return 0
+    shown = events_in_window(events, fvt if fvt >= 0 else None, args.window)
+    header["window"] = args.window
+    header["events_shown"] = len(shown)
+    print(json.dumps(header))
+    for e in shown:
+        print(json.dumps(e))
+    return 0
 
 
 def cmd_pool(args) -> int:
@@ -850,6 +920,32 @@ def main(argv=None) -> int:
                          "value): a coverage pool row's \"knobs\" replays "
                          "that lane bit-exactly")
     sp.set_defaults(fn=cmd_replay)
+
+    sp = sub.add_parser(
+        "explain",
+        help="flight-recorder replay of ONE cluster: decoded event timeline "
+             "(JSONL) around the first violation, or a Perfetto export",
+    )
+    common(sp, 1)
+    sp.add_argument("--cluster", type=int, default=None,
+                    help="cluster id to replay (required)")
+    sp.add_argument("--heartbeat", default="",
+                    help="the pool host timeline (not ported yet: exits 2)")
+    sp.add_argument("--window", type=int, default=60,
+                    help="+-ticks around first_violation_tick to print "
+                         "(<= 0 = the full timeline; violation events are "
+                         "always shown)")
+    sp.add_argument("--format", default="jsonl", choices=["jsonl", "chrome"],
+                    help="jsonl = header line + one event per line; chrome "
+                         "= Perfetto/chrome://tracing trace JSON (one track "
+                         "per node: role spans + instant events)")
+    sp.add_argument("--out", default="",
+                    help="with --format chrome: write the trace JSON to "
+                         "this file (a summary line goes to stdout)")
+    sp.add_argument("--knobs-json", default="",
+                    help="JSON object of dynamic-knob overrides: a coverage "
+                         "pool row's \"knobs\" decodes that lane's run")
+    sp.set_defaults(fn=cmd_explain)
 
     sp = sub.add_parser(
         "stats",

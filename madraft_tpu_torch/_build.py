@@ -18,7 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick")
+SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick",
+           "harvest", "trace")
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
 # their first use or by the engine's set-up before a run that takes them;

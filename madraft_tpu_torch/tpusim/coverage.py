@@ -231,34 +231,49 @@ def seen_bits(seen: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _f32(v: float) -> float:
+    """A Python float rounded to float32 (the value a float32 constant
+    holds), so that an operation with a tensor takes it as a scalar
+    argument and the card gets no host-built tensor."""
+    return float(np.float32(v))
+
+
 def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """fl32(a * b + c) for float32 operands: the product of two float32
-    values is exact in float64, the sum is rounded there and then once more
-    to float32 (equal to a true FMA unless the float64 sum lands on a
-    float32 rounding midpoint)."""
+    """fl32(a * b + c) for float32 operands (tensors or float32-exact
+    Python floats): the product of two float32 values is exact in
+    float64, the sum is rounded there and then once more to float32
+    (equal to a true FMA unless the float64 sum lands on a float32
+    rounding midpoint)."""
     a64 = a.to(F64)
-    b64 = torch.as_tensor(b, dtype=F32, device=a.device).to(F64)
-    c64 = torch.as_tensor(c, dtype=F32, device=a.device).to(F64)
+    b64 = b.to(F64) if isinstance(b, torch.Tensor) else b
+    c64 = c.to(F64) if isinstance(c, torch.Tensor) else c
     return (a64 * b64 + c64).to(F32)
 
 
 # Cephes expf, as XLA's CPU backend evaluates it
 _LOG2E = 1.44269504088896341
 _C1, _C2 = -0.693359375, 2.12194440e-4
+_P0 = 1.9875691500e-4
 _POLY = (1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
          1.6666665459e-1, 5.0000001201e-1)
 _LN2_F32 = 0.693147182
+# the float32 constants of xla_exp_f32 and xla_exp2_f32 in the order K7
+# takes them (csrc/harvest.cuh Consts): log2e, C1, C2, P0, the polynomial,
+# ln2
+EXP_CONSTANTS = tuple(_f32(v) for v in (_LOG2E, _C1, _C2, _P0, *_POLY,
+                                        _LN2_F32))
 
 
 def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``exp`` (CPU): m = floor(x log2e + 1/2), the reduced
     argument in two steps, a degree-6 polynomial by FMAs, times 2^m. Valid
     for |x| < 87 (the refill's arguments stay within +-ln2 * log2(mut_span))."""
-    m = torch.floor(fma_f32(x, _LOG2E, 0.5))
-    r = fma_f32(m, _C1, x)
-    r = fma_f32(m, _C2, r)
-    p = torch.full_like(x, 1.9875691500e-4)
-    for c in _POLY:
+    log2e, c1, c2, p0, *poly, _ = EXP_CONSTANTS
+    m = torch.floor(fma_f32(x, log2e, 0.5))
+    r = fma_f32(m, c1, x)
+    r = fma_f32(m, c2, r)
+    p = torch.full_like(x, p0)
+    for c in poly:
         p = fma_f32(p, r, c)
     y = fma_f32(p, r * r, r) + 1.0
     scale = ((m.to(torch.int32) + 127) << 23).view(F32)  # 2^m, exact
@@ -267,20 +282,19 @@ def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
 
 def xla_exp2_f32(x: torch.Tensor) -> torch.Tensor:
     """``jnp.exp2`` as XLA lowers it: exp(fl32(ln2 * x))."""
-    return xla_exp_f32(x * torch.tensor(_LN2_F32, dtype=F32))
+    return xla_exp_f32(x * EXP_CONSTANTS[-1])
 
 
-def _refill_constants(ccfg: CoverageConfig) -> tuple:
+def refill_constants(ccfg: CoverageConfig) -> tuple:
     """(span, fresh_lo, fresh_hi - fresh_lo) as the float32 constants the
     reference's expressions weakly type them to (each taken in Python
-    double first, as there)."""
-    return (torch.tensor(float(np.log2(ccfg.mut_span)), dtype=F32),
-            torch.tensor(ccfg.fresh_lo, dtype=F32),
-            torch.tensor(ccfg.fresh_hi - ccfg.fresh_lo, dtype=F32))
+    double first, as there), as float32-exact Python floats."""
+    return (_f32(np.log2(ccfg.mut_span)), _f32(ccfg.fresh_lo),
+            _f32(ccfg.fresh_hi - ccfg.fresh_lo))
 
 
-def _mutation_factor(u: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
-    return xla_exp2_f32((u * 2.0 - 1.0) * span.to(u.device))
+def _mutation_factor(u: torch.Tensor, span: float) -> torch.Tensor:
+    return xla_exp2_f32((u * 2.0 - 1.0) * span)
 
 
 def refill_grid(ccfg: CoverageConfig, device=None) -> tuple:
@@ -289,7 +303,7 @@ def refill_grid(ccfg: CoverageConfig, device=None) -> tuple:
     fresh factor fresh_lo + u (fresh_hi - fresh_lo), in u order."""
     k = torch.arange(1 << 23, dtype=torch.int32, device=device)
     u = (k | 0x3F800000).view(F32) - 1.0
-    span, lo, width = _refill_constants(ccfg)
+    span, lo, width = refill_constants(ccfg)
     return _mutation_factor(u, span), fma_f32(u, width, lo)
 
 
@@ -311,7 +325,7 @@ def refill_knobs(ccfg: CoverageConfig, kn_lanes: Knobs, base_kn: Knobs,
     draws are ``uniform(fold_in(PRNGKey(seed ^ _COV_SALT), new_id), 9)``."""
     base = prng.PRNGKey((int(seed) & MASK) ^ _COV_SALT, new_ids.device)
     u = prng.uniform(prng.fold_in(base, new_ids), len(MUTABLE_KNOBS))
-    span, lo, width = _refill_constants(ccfg)
+    span, lo, width = refill_constants(ccfg)
     updates = {}
     for j, name in enumerate(MUTABLE_KNOBS):
         parent = getattr(kn_lanes, name)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from madraft_tpu_torch.kernels import coverage as K5
+from madraft_tpu_torch.kernels import harvest as K7
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.kernels import threefry
@@ -436,9 +437,9 @@ def make_sweep_fn(cfg: SimConfig, knobs: Knobs, n_clusters: int,
 # schema whenever it is exact for the run (the reference's layout rule);
 # a chunk is one K3 unpack (none for the first chunk, which runs on the
 # fresh wide batch), chunk_ticks wide ticks, the harvest on the wide view
-# (retire mask, ids, the small per-lane report snapshot, fresh
-# init_cluster lanes under fold_in(PRNGKey(seed), id) selected in with
-# torch.where) and one K3 pack. The reference widens on use every tick; the
+# (K7: retire mask, ids, the small per-lane report snapshot, fresh
+# init_cluster lanes under fold_in(PRNGKey(seed), id) written into the
+# retired lanes) and one K3 pack. The reference widens on use every tick; the
 # two orders are bit-identical because the round trip is exact inside
 # config.packed_bounds. Retired lanes take new GLOBAL ids, by a monotone
 # counter (default) or the lane-partitioned scheme (devices=1: lane l's
@@ -484,6 +485,7 @@ class PoolHarvest(NamedTuple):
 
 
 # the state leaves a harvest snapshots per lane beside its nine scalars
+# (K7.METRIC_ROWS names the same leaves)
 _METRIC_ROWS = PoolHarvest._fields[9:]
 
 
@@ -721,53 +723,11 @@ def _pipeline(launch_chunk, launch_harvest, acct: _PoolAccount,
     return lane_ticks, t_end - t0, gap, device_s, overlap
 
 
-def _retire_and_reseed(states: ClusterState, ids, next_id, seed, horizon):
-    """The monotone id scheme: the retirement rule, left-to-right ids
-    next_id, next_id + 1, ... over retired lanes (a batch-wide int32
-    cumsum), and key = fold_in(PRNGKey(seed), id) for every lane (the old
-    key on kept lanes, the fresh one on refilled ones)."""
-    retired = (states.violations != 0) | (states.tick >= horizon)
-    r32 = retired.to(torch.int32)
-    rank = torch.cumsum(r32, 0, dtype=torch.int32) - 1
-    new_ids = torch.where(retired, next_id + rank, ids)
-    new_keys = prng.fold_in(prng.PRNGKey(seed, ids.device), new_ids)
-    return retired, new_ids, new_keys, next_id + r32.sum(dtype=torch.int32)
-
-
-def _lane_reseed(states: ClusterState, ids, gens, seed, horizon):
-    """The lane-partitioned id scheme: per-lane generation counters, lane
-    l's generation-g cluster owns id g * n_lanes + l."""
-    n_lanes = ids.shape[0]
-    retired = (states.violations != 0) | (states.tick >= horizon)
-    gens_new = gens + retired.to(torch.int32)
-    lane = torch.arange(n_lanes, dtype=torch.int32, device=ids.device)
-    new_ids = torch.where(retired, gens_new * n_lanes + lane, ids)
-    new_keys = prng.fold_in(prng.PRNGKey(seed, ids.device), new_ids)
-    return retired, new_ids, new_keys, gens_new
-
-
-def _pool_snapshot(states: ClusterState, retired, ids, extra=()) -> tuple:
-    """The per-lane report arrays of a harvest as one [B, K] int32 tensor,
-    so the host fetches them in one copy: nine scalars in PoolHarvest's
-    field order, each metric row flattened, then the ``extra`` [B, k]
-    int32 columns. Returns (tensor, the metric rows' per-lane shapes)."""
-    rows = [getattr(states, f) for f in _METRIC_ROWS]
-    scalars = torch.stack([
-        retired.to(torch.int32), ids, states.violations,
-        states.first_violation_tick, states.first_leader_tick,
-        states.shadow_len, states.msg_count, states.snap_install_count,
-        states.tick,
-    ], dim=1)
-    b = scalars.shape[0]
-    return (torch.cat([scalars] + [x.reshape(b, -1) for x in rows]
-                      + list(extra), dim=1),
-            tuple(tuple(x.shape[1:]) for x in rows))
-
-
-def _fetch(snapshot: tuple) -> tuple:
-    """(PoolHarvest, the extra columns) of a snapshot, on the host."""
-    t, shapes = snapshot
-    h = t.cpu().numpy()
+def _fetch(snapshot: torch.Tensor, shapes: tuple) -> tuple:
+    """(PoolHarvest, the columns after its rows) of a harvest's [B, K]
+    snapshot, on the host in one copy; ``shapes`` are the metric rows'
+    per-lane shapes."""
+    h = snapshot.cpu().numpy()
     b = h.shape[0]
     rows, at = [], 9
     for shape in shapes:
@@ -775,16 +735,6 @@ def _fetch(snapshot: tuple) -> tuple:
         rows.append(h[:, at:at + size].reshape((b, *shape)))
         at += size
     return PoolHarvest(h[:, 0].astype(bool), *h[:, 1:9].T, *rows), h[:, at:]
-
-
-def _scatter_fresh(retired, fresh: ClusterState,
-                   states: ClusterState) -> ClusterState:
-    """Fresh init_cluster lanes into the retired lanes (torch.where)."""
-
-    def sel(f, s):
-        return torch.where(retired.reshape((-1,) + (1,) * (f.dim() - 1)), f, s)
-
-    return ClusterState(*(sel(f, s) for f, s in zip(fresh, states)))
 
 
 def _pool_mesh(n_clusters: int, devices: int, device: torch.device) -> None:
@@ -888,42 +838,29 @@ class _Carry:
 
 def _harvest(cfg: SimConfig, kn: Knobs, c: _Carry, seed, horizon: int,
              lane_ids: bool, packed: bool,
-             ccfg: Optional[CoverageConfig] = None):
-    """Harvest + refill of the chunk's wide result ``c.wide``: retire mask
-    and new ids, the report snapshot (PRE-refill), fresh lanes selected in,
-    then the carry packed (one K3 launch) when the run packs. Returns the
-    snapshot fetched to the host, the loop's one device-to-host copy: a
-    PoolHarvest, or with ``ccfg`` (the coverage pool) a CovHarvest, whose
-    refill follows ``coverage.refill_knobs`` when ``ccfg.guided``."""
+             ccfg: Optional[CoverageConfig] = None, tick: str = "kernel"):
+    """Harvest + refill of the chunk's wide result ``c.wide`` by
+    ``K7.harvest`` (its plain version with ``tick="eager"``, the A/B's
+    baseline); then the carry packed (one K3 launch) when the run packs.
+    Returns the snapshot fetched to the host, the loop's one
+    device-to-host copy: a PoolHarvest, or with ``ccfg`` (the coverage
+    pool) a CovHarvest, whose refill follows ``coverage.refill_knobs``
+    when ``ccfg.guided``."""
+    if tick not in ("kernel", "eager"):
+        raise ValueError(f"tick must be 'kernel' or 'eager', got {tick!r}")
     wide, c.wide = c.wide, None
-    reseed = _lane_reseed if lane_ids else _retire_and_reseed
-    retired, new_ids, new_keys, book = reseed(wide, c.ids, c.book, seed,
-                                              horizon)
-    extra = ()
-    kn_new = kn
+    cov = None if ccfg is None else K7.Cov(ccfg, c.kn_lanes, c.kinds,
+                                           c.new_fps, c.seen)
+    shapes = tuple(tuple(getattr(wide, f).shape[1:]) for f in _METRIC_ROWS)
+    out = K7.harvest(cfg, wide, c.ids, c.book, seed, horizon, kn, lane_ids,
+                     cov, plain=tick == "eager")
+    c.states = K3.pack_state(cfg, out.state) if packed else out.state
+    c.keys, c.ids, c.book = out.keys, out.ids, out.book
     if ccfg is not None:
-        b = retired.shape[0]
-        knob_rows = torch.stack([getattr(c.kn_lanes, name)
-                                 for name in _cov.MUTABLE_KNOBS], dim=1)
-        extra = (c.new_fps[:, None], c.kinds[:, None],
-                 _cov.seen_bits(c.seen).expand(b)[:, None],
-                 knob_rows.view(torch.int32))
-        kn_new, kinds_new = c.kn_lanes, c.kinds
-        if ccfg.guided:
-            productive = retired & (c.new_fps > 0)
-            kn_new, drawn = _cov.refill_knobs(ccfg, c.kn_lanes, kn, retired,
-                                              productive, new_ids, seed)
-            kinds_new = torch.where(retired, drawn, c.kinds)
-    snapshot = _pool_snapshot(wide, retired, c.ids, extra)
-    wide = _scatter_fresh(retired, init_cluster(cfg, new_keys, kn_new), wide)
-    c.states = K3.pack_state(cfg, wide) if packed else wide
-    c.keys, c.ids, c.book = new_keys, new_ids, book
-    if ccfg is not None:
-        c.kn_lanes, c.kinds = kn_new, kinds_new
-        c.new_fps = torch.where(retired, 0, c.new_fps)
+        c.kn_lanes, c.kinds, c.new_fps = out.kn_lanes, out.kinds, out.new_fps
     if c.state_bytes is None:
         c.state_bytes = tree_bytes(c.states)  # live resident carry tensors
-    h, cols = _fetch(snapshot)
+    h, cols = _fetch(out.snapshot, shapes)
     if ccfg is None:
         return h
     return CovHarvest(h, cols[:, 0], cols[:, 1], int(cols[0, 2]), {

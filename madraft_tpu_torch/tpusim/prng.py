@@ -63,6 +63,8 @@ def layout(flag: bool):
 
 
 def _u32(x, device=None) -> torch.Tensor:
+    if isinstance(x, int):  # a fill on the device, no copy from the host
+        return torch.full((), x & MASK, dtype=torch.int64, device=device)
     return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK
 
 

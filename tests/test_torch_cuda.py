@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from madraft_tpu_torch.kernels import coverage as K5
+from madraft_tpu_torch.kernels import harvest as K7
 from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels import oracle as K2
 from madraft_tpu_torch.kernels import pack as K3
 from madraft_tpu_torch.kernels import threefry as K1
 from madraft_tpu_torch.kernels import tick as K6
+from madraft_tpu_torch.kernels import trace as K8
 from madraft_tpu_torch.tpusim import (
     config,
     coverage,
@@ -27,6 +29,7 @@ from madraft_tpu_torch.tpusim import (
     prng,
     state,
     step,
+    trace,
 )
 
 pytestmark = pytest.mark.cuda
@@ -431,7 +434,8 @@ def test_coverage_pool_on_the_card_equals_the_cpu(dev, devices, metrics_on):
         for where in (dev, "cpu"):
             rows = []
             before = (K5.seen_update.launches,
-                      K6.tick_chunk.coverage_launches, K5.credit_pass.launches)
+                      K6.tick_chunk.coverage_launches, K5.credit_pass.launches,
+                      K7.harvest.launches)
             s = engine.run_pool(cfg, 7, 64, 64, chunk_ticks=32,
                                 budget_ticks=192, on_retired=rows.append,
                                 devices=devices,
@@ -439,9 +443,11 @@ def test_coverage_pool_on_the_card_equals_the_cpu(dev, devices, metrics_on):
             runs[str(where)] = (rows, s, (
                 K5.seen_update.launches - before[0],
                 K6.tick_chunk.coverage_launches - before[1],
-                K5.credit_pass.launches - before[2]))
+                K5.credit_pass.launches - before[2],
+                K7.harvest.launches - before[3]))
     (rows_g, s_g, launched), (rows_c, s_c, _) = runs["cuda"], runs["cpu"]
-    assert launched == (0, 6, 6)  # K6-coverage and a credit pass a chunk
+    # K6-coverage, a credit pass and a K7 harvest a chunk
+    assert launched == (0, 6, 6, 6)
     drop = ("wall_s", "violations_per_s")
     assert [{k: v for k, v in r.items() if k not in drop} for r in rows_g] \
         == [{k: v for k, v in r.items() if k not in drop} for r in rows_c]
@@ -666,3 +672,107 @@ def test_credit_pass_kernel_equals_plain(dev):
     want = K5.credit_plain(fp, seen, nf.clone(), 4)
     got = K5.credit_pass(fp.to(dev), seen.to(dev), nf.to(dev), 4)
     assert torch.equal(got.cpu(), want) and int((want - nf).sum()) > 0
+
+
+# ---- K7, the pool harvest
+@pytest.mark.parametrize("case", ["mixed", "all", "none", "eto_edge"])
+@pytest.mark.parametrize("cov_mode", [None, "guided", "random"])
+@pytest.mark.parametrize("lane_ids", [False, True])
+def test_harvest_kernel_equals_plain(dev, case, cov_mode, lane_ids):
+    # 1100 lanes: the monotone ranks carry across the scan's 1024-lane
+    # tiles; metrics on and off, both threefry layouts
+    for metrics_on in (False, True):
+        cfg = config.storm_profiles()["storm"][0].replace(metrics=metrics_on)
+        for flag in (True, False):
+            with prng.layout(flag):
+                args = K7.planted_inputs(cfg, 1100, case, lane_ids, cov_mode,
+                                         11)
+                want = K7.harvest_plain(cfg, *args)
+                before = K7.harvest.launches
+                got = K7.harvest(cfg, *K7.inputs_to(args, dev))
+                assert K7.harvest.launches == before + 1
+                assert not K7.differences(want, got), (metrics_on, flag)
+
+
+def test_harvest_refill_grid_kernel_matches_the_plain_hash():
+    # K7's refill arithmetic (true FMAs) over all 2^23 uniforms against the
+    # plain version's on the CPU, at the default and ground-truth configs
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for ccfg in (config.CoverageConfig(), config.coverage_ground_truth()[1]):
+        mut, fresh = K7.refill_grid(ccfg, "cuda")
+        assert coverage.grid_sha256([mut.cpu(), fresh.cpu()]) \
+            == coverage.grid_sha256(coverage.refill_grid(ccfg)), ccfg
+
+
+def test_harvest_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.storm_profiles()["storm"][0]
+    args = K7.inputs_to(K7.planted_inputs(cfg, 8, "mixed", False, None, 1),
+                        dev)
+    s = args[0]
+    bad = s._replace(next_idx=s.next_idx.transpose(1, 2))
+    with pytest.raises(ValueError):
+        K7.harvest(cfg, bad, *args[1:])
+    with pytest.raises(ValueError):
+        K7.harvest(cfg, s, args[1].cpu(), *args[2:])
+
+
+@pytest.mark.parametrize("devices,metrics_on", [(None, False), (1, True)])
+def test_pool_on_the_card_runs_the_harvest_kernel(dev, devices, metrics_on):
+    cfg = config.storm_profiles()["storm"][0].replace(
+        metrics=metrics_on, majority_override=2)
+    runs = {}
+    with prng.layout(True):
+        for where in (dev, "cpu"):
+            rows = []
+            before = K7.harvest.launches
+            s = engine.run_pool(cfg, 7, 64, 64, chunk_ticks=32,
+                                budget_ticks=192, on_retired=rows.append,
+                                devices=devices, device=where)
+            runs[str(where)] = (rows, s, K7.harvest.launches - before)
+    drop = ("wall_s", "violations_per_s")
+    (rows_g, s_g, n_g), (rows_c, s_c, n_c) = runs["cuda"], runs["cpu"]
+    assert (n_g, n_c) == (6, 0)
+    assert [{k: v for k, v in r.items() if k not in drop} for r in rows_g] \
+        == [{k: v for k, v in r.items() if k not in drop} for r in rows_c]
+    assert s_g["retired_violating"] > 0
+    wall = ("wall_s", "steps_per_sec", "effective_steps_per_sec",
+            "violations_per_s", "compile_s", "dispatch_gap_s",
+            "device_wait_s", "host_overlap_s")
+    assert {k: v for k, v in s_g.items() if k not in wall} \
+        == {k: v for k, v in s_c.items() if k not in wall}
+
+
+# ---- K8, the flight recorder's row, and the traced replay
+@pytest.mark.parametrize("metrics_on", [False, True])
+def test_record_kernel_equals_plain(dev, metrics_on):
+    cfg = config.storm_profiles()["storm"][0].replace(metrics=metrics_on)
+    keys = engine.cluster_keys(3, 256, dev)
+    kn = cfg.knobs(dev)
+    s = state.init_cluster(cfg, keys, kn)
+    out = torch.empty((256, K8.record_width(cfg)), dtype=torch.int32,
+                      device=dev)
+    for _ in range(40):
+        nxt = K6.tick_chunk(cfg, s, keys, kn, 1)
+        before = K8.record.launches
+        K8.record(cfg, s, nxt, out)
+        assert K8.record.launches == before + 1
+        assert torch.equal(out, K8.record_plain(s, nxt))
+        s = nxt
+
+
+@pytest.mark.parametrize("bug,metrics_on", [("", False), ("", True),
+                                            ("forget_voted_for", False)])
+def test_traced_replay_on_the_card_equals_the_cpu(dev, bug, metrics_on):
+    cfg = config.storm_profiles()["storm"][0].replace(metrics=metrics_on,
+                                                      bug=bug)
+    with prng.layout(True):
+        fg, rg = trace.replay_cluster_traced(cfg, 12345, 5, 150, device=dev)
+        fc, rc = trace.replay_cluster_traced(cfg, 12345, 5, 150,
+                                             device="cpu")
+        final = engine.replay_cluster(cfg, 12345, 5, 150, device=dev)
+    for a, b, c in zip(fg, fc, final):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+    for f in rg._fields:
+        assert (getattr(rg, f) == getattr(rc, f)).all(), f
+    assert trace.decode_events(rg) == trace.decode_events(rc)

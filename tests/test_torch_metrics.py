@@ -19,6 +19,7 @@ from _torch_parity import Pair, configs, single_thread, threefry_layout
 from madraft_tpu.tpusim import config as jcfg_mod
 from madraft_tpu.tpusim import metrics as jm
 from madraft_tpu.tpusim import state as jst
+from madraft_tpu_torch.kernels import harvest as K7
 from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.tpusim import config as pcfg_mod
 from madraft_tpu_torch.tpusim import engine, state
@@ -252,7 +253,7 @@ def test_fresh_lanes_start_with_zero_metric_rows():
         s, _ = _run(cfg, 60)
     keys = engine.cluster_keys(99, N_CLUSTERS, "cpu")
     retired = torch.arange(N_CLUSTERS) % 2 == 0
-    out = engine._scatter_fresh(retired, state.init_cluster(cfg, keys), s)
+    out = K7._scatter_fresh(retired, state.init_cluster(cfg, keys), s)
     k = state.METRIC_LEAF0
     for f, x, old in zip(state.ClusterState._fields[k:], out[k:], s[k:]):
         fill = -1 if f in ("worst_key", "worst_client") else 0

@@ -37,15 +37,25 @@ off, both threefry layouts) and through the engine at the flagship's
 shape, packed and wide, and its refill grid against the CPU twin's
 SHA-256; drives ``explain`` on a planted-bug cluster (K6 one tick a
 launch, K8's trace row after each) and holds K8 against its plain version
-at every tick of a storm and a bug cluster, metrics on and off, then
+at every tick of a storm and a bug cluster, metrics on and off; holds K9,
+the kv service tick, and K9-metrics against their plain version on every
+leaf after every tick (phase ``kv_k9``: n = 3, 5, 7, every kv bug, Puts,
+hints with ``retry_wait``, the open loop with the Zipf key, [B] knob rows
+mixing the bugs, states at mixed ticks, 32 clients and 64 keys, both
+layouts, 1100 clusters),
+drives the kv flagship (``kv-fuzz --storm --clusters 1024 --ticks 512``,
+twice, then with ``--metrics``: K6 and K9 once a tick, no draw chunk, K2,
+K4 or K5) and its eager-vs-kernel A/B (``kv_ab``), runs the
+``hot_key_openloop`` gate as a kv leg beside the raft gates, then
 times each kernel beside its plain version and its bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
 matched by the CUDA function's name), ``call_ms`` the wrapper's time per
 call as the host issues it back to back (CUDA events); ``share`` is the
 bound over ``ms``, the bound the larger of the bytes over the HBM rate and
 the 32-bit operations over the card's integer rate (phase ``card``). K6's
 clock64() split by phase group (``k6_phases``, its profile build) and its
-time as the warps an SM grow (``k6_scaling``) follow; ``k6_only()`` runs
-just those two.
+time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
+split by phase (``kv_phases``, its profile build) and the kv tick's
+(``profile_kv_tick``); ``k6_only()`` runs just K6's two.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -110,6 +120,45 @@ HARVEST_OPS = ("ids_kernel", "lane_kernel", "pack_kernel", "Memcpy DtoH")
 AB_EAGER_TICKS = 256
 # the report keys the metrics plane adds
 METRIC_KEYS = ("latency", "events", "worst_op")
+# the kv flagship's eager-vs-kernel A/B: the four runs' depth (the eager
+# route is host-bound, about 30 ms a tick at 1024 clusters, its rate flat
+# in depth)
+KV_AB_TICKS = 32
+# the kv flagship (bench.py's kv row at the flagship's depth), twice, and
+# with the metrics plane
+KV_FLAGSHIP = ["kv-fuzz", "--storm", "--clusters", "1024", "--ticks", "512",
+               "--seed", "12345", "--check-deterministic"]
+KV_METRICS_FLAGSHIP = KV_FLAGSHIP + ["--metrics"]
+# K9 against its plain version (phase kv_k9): clusters (past a whole
+# number of 4-cluster blocks), the ticks a case runs on K6 and K9 first
+# (past the first elections, so that the compared ticks ack ops), the
+# ticks it compares, and the cases: (name, n, kv knobs, metrics,
+# partitionable layout); the card tests compare from the first tick
+KV_K9_CLUSTERS, KV_K9_WARM, KV_K9_TICKS = 1100, 32, 24
+KV_K9_CASES = (
+    ("n3", 3, {}, False, True),
+    ("n5_puts", 5, {"p_put": 0.2}, True, True),
+    ("n7_legacy", 7, {"p_put": 0.2}, False, False),
+    ("skip_dedup", 5, {"bug_skip_dedup": True}, True, True),
+    ("apply_uncommitted", 5, {"bug_apply_uncommitted": True}, False, False),
+    ("stale_read", 5, {"bug_stale_read": True, "p_get": 0.5, "p_put": 0.2},
+     True, True),
+    ("stale_hint", 5, {"bug_stale_hint": True, "p_follow_hint": 0.9,
+                       "retry_wait": 3}, True, False),
+    ("hints_retry_wait", 5, {"p_follow_hint": 0.9, "retry_wait": 3}, False,
+     True),
+    ("hot_key_openloop", 5, "hot_key", True, True),
+    ("hot_key_openloop_legacy", 5, "hot_key", False, False),
+    ("zipf_nk8", 5, {"n_keys": 8, "zipf_a": 2.0}, True, True),
+    ("zipf_nk16", 5, {"n_keys": 16, "zipf_a": 1.5}, False, False),
+    ("mixed_rows", 5, "rows", True, True),
+    ("mixed_rows_legacy", 7, "rows", False, False),
+    ("storm_mixed_ticks", 5, {"p_put": 0.2, "bug_stale_read": True}, True,
+     True),
+    # 32 clients and 64 keys: K9's shared region past 48 KB a block
+    ("wide_tables", 7, {"n_clients": 32, "n_keys": 64, "p_put": 0.2}, True,
+     True),
+)
 # the metrics-on packed carry at n = 5, cap = 64 (the reference's pin)
 METRICS_BYTES_PER_LANE = 3600
 # a small pool whose broken quorum violates across refill generations
@@ -266,6 +315,7 @@ def counters():
     metrics and coverage variants."""
     from madraft_tpu_torch.kernels import coverage as K5
     from madraft_tpu_torch.kernels import harvest as K7
+    from madraft_tpu_torch.kernels import kv as K9
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
@@ -286,7 +336,9 @@ def counters():
             "tick_chunk_coverage": (K6.tick_chunk, "coverage_launches"),
             "credit_pass": (K5.credit_pass, "launches"),
             "harvest": (K7.harvest, "launches"),
-            "record": (K8.record, "launches")}
+            "record": (K8.record, "launches"),
+            "kv_tick": (K9.kv_tick, "launches"),
+            "kv_tick_metrics": (K9.kv_tick, "metrics_launches")}
 
 
 def read_counts() -> dict:
@@ -339,6 +391,7 @@ def main() -> int:
         config,
         coverage,
         engine,
+        kv,
         metrics,
         prng,
         state,
@@ -352,7 +405,8 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    per_source = _build.build_all(_build.SOURCES + tuple(_build.VARIANTS))
+    per_source = _build.build_all(_build.SOURCES + (_build.KV,)
+                                 + tuple(_build.VARIANTS))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}})
     # ---- 2. K1 against its plain version, both layouts
@@ -1282,26 +1336,38 @@ def main() -> int:
     # ---- 6g. the raft layer's game-day gates (config.profile_gates) with
     # metrics on at their bench scale: no violation, liveness (acked ops a
     # lane) at or above the floor, p99 at or below the ceiling
+    # (a profile with a workload runs as a kv leg, as bench.py runs it)
     gates = {}
     with prng.layout(True):
         for name, g in config.profile_gates().items():
-            if g["workload"]:
-                gates[name] = {"skipped": "a kv workload (ROADMAP A11)"}
-                continue
             cfg = config.storm_profiles()[name][0].replace(metrics=True)
             lanes_g, ticks_g = g["bench_scale"]
-            rep_g = engine.fuzz(cfg, 12345, lanes_g, ticks_g, device=dev)
+            if g["workload"]:
+                rep_g = kv.kv_fuzz(
+                    cfg.replace(p_client_cmd=0.0, compact_at_commit=False),
+                    kv.KvConfig(p_get=0.3, p_put=0.2, **g["workload"]),
+                    12345, lanes_g, ticks_g, device=dev)
+            else:
+                rep_g = engine.fuzz(cfg, 12345, lanes_g, ticks_g, device=dev)
             lat = metrics.latency_summary(rep_g.lat_hist.sum(axis=0))
             live = round(lat["ops"] / lanes_g, 2)
             gates[name] = {"violating": rep_g.n_violating, "liveness": live,
                            "floor": g["liveness_floor"],
                            "p99_ticks": lat["p99_ticks"],
-                           "ceiling": g["p99_ceiling"]}
+                           "ceiling": g["p99_ceiling"],
+                           **({"workload": g["workload"]} if g["workload"]
+                              else {})}
             check(rep_g.n_violating == 0 and live >= g["liveness_floor"]
                   and lat["p99_ticks"] is not None
                   and lat["p99_ticks"] <= g["p99_ceiling"],
                   f"profile gate {name} fails: {gates[name]}")
     emit({"phase": "profile_gates", "seed": 12345, "gates": gates})
+
+    # ---- 6k. the kv path: K9 and K9-metrics against the plain service
+    # tick, then the kv flagships through the CLI (K6 and K9 once a tick)
+    # and the eager-vs-kernel A/B
+    emit(_kv_k9(dev, errs))
+    kv_launches, kv_launches_m = _kv_path(dev)
 
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
@@ -1711,6 +1777,9 @@ def main() -> int:
         cuda_ms(lambda i: K8.record(k8_cfg, k8_prev, k8_nxt, k8_out)),
         cuda_ms(lambda i: K8.record_plain(k8_prev, k8_nxt), iters=20),
         k8_bytes, k8_ops)
+    # K9 and K9-metrics at the kv flagship's shape
+    kv_timing, kv_bytes = _kv_timing(dev)
+    timing.update(kv_timing)
     # K6 one tick a launch at explain's shape, as the traced replay runs it
     k6_one_tick_ms = device_ms(
         lambda i: K6.tick_chunk(k8_cfg, k8_prev, k8_keys, k8_kn, 1),
@@ -1744,6 +1813,7 @@ def main() -> int:
           "tick_chunk_launch": {"ticks": k6_m, **k6_bounds(k6_m)},
           "tick_chunk_one_tick_one_cluster_ms": k6_one_tick_ms,
           "coverage_clean_lane_ticks": fp_ok,
+          "kv_tick_bytes": kv_bytes,
           "shapes": {"tick_chunk": [k6_m, b, fs_bytes // b],
                      "harvest": [b, k7_cols, fs_bytes // b],
                      "record": [1, K8.record_width(k8_cfg)],
@@ -1762,6 +1832,9 @@ def main() -> int:
     # windows (after those CUPTI handed the harvest's short one no record)
     emit(_profile_harvest(fs, fk, fkn))
     emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
+    emit(_kv_phases(dev))
+    emit(_profile_kv_tick(dev, False))
+    emit(_profile_kv_tick(dev, True))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
@@ -1825,6 +1898,10 @@ def main() -> int:
                              "madraft_tpu/tpusim/engine.py:1368"),
         "record": ("K8", "madraft_tpu_torch/csrc/trace.cu",
                    "madraft_tpu/tpusim/trace.py:138"),
+        "kv_tick": ("K9", "madraft_tpu_torch/csrc/kv.cu",
+                    "madraft_tpu/tpusim/kv.py:425"),
+        "kv_tick_metrics": ("K9-metrics", "madraft_tpu_torch/csrc/kv.cu",
+                            "madraft_tpu/tpusim/metrics.py:65"),
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -1846,6 +1923,9 @@ def main() -> int:
     launches["harvest"] = pool_launches["harvest"]
     launches["harvest_coverage"] = cov_launches["harvest"]
     launches["record"] = explain_launches["record"]
+    # K9's from the kv flagship, K9-metrics' from the kv metrics flagship
+    launches["kv_tick"] = kv_launches["kv_tick"]
+    launches["kv_tick_metrics"] = kv_launches_m["kv_tick_metrics"]
     errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
@@ -2169,6 +2249,28 @@ def _knob_rows(b: int, dev):
         majority=torch.tensor([3, 2, 3, 4], dtype=torch.int32)[lane % 4],
         compact_at_commit=lane % 2 == 0)
     return kn.to(dev)
+
+
+def kv_knob_rows(kcfg, b: int):
+    """[B] kv knob rows (on the CPU) that mix every planted bug, the
+    Get/Put split, hint following with ``retry_wait``, the open loop and
+    the Zipf key across the batch; lanes 0, 5, 10, ... plant no bug. For
+    holding K9 against its plain version (phase ``kv_k9`` and the K9 host
+    build's tests)."""
+    import torch
+
+    kk = kcfg.knobs().broadcast(b)
+    i = torch.arange(b)
+    return kk._replace(
+        bug_skip_dedup=i % 5 == 1, bug_apply_uncommitted=i % 5 == 2,
+        bug_stale_read=i % 5 == 3, bug_stale_hint=i % 5 == 4,
+        p_get=torch.where(i % 2 == 0, 0.5, 0.2).float(),
+        p_put=torch.where(i % 3 == 0, 0.3, 0.1).float(),
+        p_follow_hint=torch.where(i % 4 == 0, 0.9, 0.0).float(),
+        retry_wait=(i % 3).int(),
+        open_queue_cap=torch.where(i % 6 == 5, 8, 0).int(),
+        open_rate=torch.where(i % 6 == 5, 0.25, 0.0).float(),
+        zipf_a=torch.where(i % 4 == 1, 3.0, 1.0).float())
 
 
 def _k6_vs_plain(cfg, s, keys, kn, ticks: int, chunk: int, errs: dict,
@@ -2791,6 +2893,383 @@ def _coverage_fixture_legs(dev, fx: dict) -> None:
                       f"sweep fixture leg {name}: field {f} differs")
             emit({"phase": f"fixture_sweep_{name}", "match": True,
                   "dispatch": out["dispatch"], "cells": len(out["cells"])})
+
+
+# ------------------------------------------------------------ the kv path
+def _kv_leaves(ks) -> list:
+    """Every leaf of a kv state: the raft leaves, then the service ones."""
+    return list(ks.raft) + list(ks[1:])
+
+
+def _kv_err(a, b) -> float:
+    return max(max_abs_err(x, y) for x, y in zip(_kv_leaves(a),
+                                                   _kv_leaves(b)))
+
+
+def _kv_cli_cfg(metrics: bool = False):
+    """kv-fuzz --storm's configs: the raft config with the service's
+    changes and KvConfig(p_get=0.3, p_put=0.2) (the CLI's defaults)."""
+    from madraft_tpu_torch.tpusim import kv
+
+    cfg = _storm_cfg().replace(p_client_cmd=0.0, compact_at_commit=False,
+                               compact_every=16, metrics=metrics)
+    return cfg, kv.KvConfig(p_get=0.3, p_put=0.2)
+
+
+def _kv_k9(dev, errs: dict) -> dict:
+    """Phase kv_k9: K9 and K9-metrics against the plain service tick on
+    the card, every leaf after every one of KV_K9_TICKS ticks (the raft
+    tick by K6) from a state KV_K9_WARM ticks in, KV_K9_CLUSTERS clusters
+    (past a whole number of blocks), in the cases of KV_K9_CASES, each
+    acking ops in the compared ticks; the zipf map on the card against
+    the CPU's over the Zipf grid. Launches here are not main-path
+    launches."""
+    import torch
+
+    from madraft_tpu_torch.kernels import kv as K9
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import config, engine, kv, prng
+
+    counts = read_counts()
+    b = KV_K9_CLUSTERS
+    hot = dict(config.profile_gates()["hot_key_openloop"]["workload"],
+               p_get=0.3, p_put=0.2)
+    done = []
+    for name, n, kw, metrics_on, flag in KV_K9_CASES:
+        kw = hot if kw == "hot_key" else kw
+        cfg, _ = _kv_cli_cfg(metrics_on)
+        cfg = cfg.replace(n_nodes=n)
+        if name.startswith("hot_key"):
+            cfg = config.storm_profiles()["hot_key_openloop"][0].replace(
+                p_client_cmd=0.0, compact_at_commit=False,
+                metrics=metrics_on)
+        kcfg = kv.KvConfig(**({} if kw == "rows" else kw))
+        with prng.layout(flag):
+            keys = engine.cluster_keys(11, b, dev)
+            kn = cfg.knobs(dev)
+            kkn = (kv_knob_rows(kcfg, b).to(dev) if kw == "rows"
+                   else kcfg.knobs(dev))
+            ks = kv.init_kv_cluster(cfg, kcfg, keys, kn)
+            if name != "storm_mixed_ticks":
+                ks = kv._advance_kv(cfg, kcfg, ks, keys, kn, kkn,
+                                    KV_K9_WARM)
+            else:
+                # two halves run to different ticks (a pool's lanes)
+                h = b // 2
+                ks = kv._advance_kv(cfg, kcfg, ks, keys, kn, kkn, 31)
+                tail = kv._advance_kv(
+                    cfg, kcfg, kv.init_kv_cluster(cfg, kcfg, keys[h:], kn),
+                    keys[h:], kn, kkn, 97)
+                ks = kv.KvState(*(
+                    type(x)(*(torch.cat([p[:h], q]) for p, q in zip(x, y)))
+                    if isinstance(x, tuple) else torch.cat([x[:h], y])
+                    for x, y in zip(ks, tail)))
+            table = K9.knob_table(kn, kkn, b)
+            err, acked0 = 0.0, int(ks.clerk_acked.sum())
+            for _ in range(KV_K9_TICKS):
+                pre = ks.raft
+                s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+                want = kv._kv_service_tick(cfg, kcfg, ks, pre.alive,
+                                           pre.base, pre.shadow_len, s, keys,
+                                           kn, kkn)
+                got = K9.kv_tick(cfg, kcfg, ks, pre.alive, pre.base,
+                                 pre.shadow_len, s, keys, kn, kkn, table)
+                err = max(err, _kv_err(got, want))
+                ks = want
+        key = "kv_tick_metrics" if metrics_on else "kv_tick"
+        errs[key] = max(errs[key], err)
+        check(err == 0, f"K9 differs from its plain version: case {name}")
+        acked = int(ks.clerk_acked.sum()) - acked0
+        check(acked > 0, f"kv_k9 case {name}: no op acked in its ticks")
+        done.append({"case": name, "n_nodes": n, "metrics": metrics_on,
+                     "partitionable": flag,
+                     "violating": int((ks.raft.violations != 0).sum()),
+                     "acked_in_compared_ticks": acked})
+    # config.zipf_map on the card against the CPU, every draw of the grid
+    zipf = []
+    for nk in (4, 8, 16):
+        d = torch.arange(nk, dtype=torch.int32)
+        for a in (1.0, 1.5, 2.0, 3.0):
+            at = torch.tensor(a, dtype=torch.float32)
+            got = config.zipf_map(d.to(dev), nk, at.to(dev)).cpu()
+            zipf.append([nk, a, int((got != config.zipf_map(d, nk, at)).sum())])
+    check(all(x[2] == 0 for x in zipf), f"zipf_map card vs CPU: {zipf}")
+    set_counts(counts)
+    return {"phase": "kv_k9", "clusters": b, "ticks": KV_K9_TICKS,
+            "cases": done, "zipf_grid_cells_differing": zipf,
+            "max_abs_err": max(errs["kv_tick"], errs["kv_tick_metrics"])}
+
+
+def _kv_path(dev) -> tuple:
+    """The kv main path through the CLI: the kv flagship twice
+    (--check-deterministic), then with --metrics; the eager-vs-kernel A/B
+    at KV_AB_TICKS ticks. Returns (the flagship's launches, the
+    metrics flagship's)."""
+    from madraft_tpu_torch.tpusim import engine, kv, prng
+
+    prng.set_partitionable(True)
+    ticks, b = _flag(KV_FLAGSHIP, "--ticks"), _flag(KV_FLAGSHIP, "--clusters")
+    eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
+                 "latency_fold", "seen_update")
+    runs = {}
+    for label, argv in (("kv_flagship", KV_FLAGSHIP),
+                        ("kv_metrics_flagship", KV_METRICS_FLAGSHIP)):
+        metrics_on = "--metrics" in argv
+        set_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        wall = time.perf_counter() - t0
+        ran = read_counts()
+        want = ticks * FLAGSHIP_RUNS
+        check(rc == 0 and out["violating"] == 0
+              and out.get("deterministic") is True
+              and out["acked_ops_mean"] > 0,
+              f"{label} rc {rc}: {out}")
+        check(ran["tick_chunk"] == ran["kv_tick"] == want
+              and ran["tick_chunk_metrics"] == want * metrics_on
+              and ran["kv_tick_metrics"] == want * metrics_on
+              and all(ran[k] == 0 for k in eager_off)
+              and ran["harvest"] == ran["record"] == 0,
+              f"{label} launches {ran}: want K6 and K9 once a tick ({want}),"
+              " no draw chunk, K2, K4 or K5 launch")
+        tele = out["telemetry"]
+        row = {"phase": label, "argv": argv, "rc": rc,
+               "cluster_steps_per_s": tele["steps_per_sec"],
+               "execute_s": tele["execute_s"],
+               "wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+               "wall_s_both_runs": round(wall, 3),
+               "compile_s": tele["compile_s"],
+               "bytes_per_lane": tele["bytes_per_lane"],
+               "acked_ops_mean": out["acked_ops_mean"],
+               "launches": {k: v for k, v in ran.items() if v}}
+        if metrics_on:
+            lat = out["latency"]
+            check(all(k in out for k in METRIC_KEYS)
+                  and all(k in lat for k in ("phases", "by_key",
+                                             "by_client"))
+                  and all("retries" in d for d in lat["by_client"].values()),
+                  f"kv metrics report lacks a block: {sorted(out)} "
+                  f"{sorted(lat)}")
+            # the latency mass is the acked ops, on each axis too
+            ops = lat["ops"]
+            check(round(ops / b, 2) == out["acked_ops_mean"]
+                  and sum(d["ops"] for d in lat["by_key"].values()) == ops
+                  and sum(d["ops"] for d in lat["by_client"].values()) == ops
+                  and all(d["ops"] == ops for d in lat["phases"].values()),
+                  f"kv latency mass {ops} vs acked {out['acked_ops_mean']}")
+            row.update(p50_ticks=lat["p50_ticks"], p99_ticks=lat["p99_ticks"],
+                       ops=ops)
+        emit(row)
+        runs[label] = ran
+
+    # the A/B: the flagship's shape at KV_AB_TICKS ticks, eager (the
+    # eager tick, the plain service tick) and kernel (K6 and K9) in turns
+    cfg, kcfg = _kv_cli_cfg()
+    ab, reps = [], []
+    advance = kv._advance_kv  # every kv run's ticks go through it
+    for route in ("eager", "kernel", "kernel", "eager"):
+        set_counts()
+        kv._advance_kv = functools.partial(advance, tick=route)
+        try:
+            fn = kv.make_kv_fuzz_fn(cfg, kcfg, b, KV_AB_TICKS, dev)
+            rep, tele = engine.run_telemetry(fn, kv.kv_report, 12345,
+                                             b * KV_AB_TICKS, n_lanes=b)
+        finally:
+            kv._advance_kv = advance
+        ran = read_counts()
+        kernel = route == "kernel"
+        check((ran["tick_chunk"] == ran["kv_tick"] == KV_AB_TICKS * kernel)
+              and (ran["oracle"] == KV_AB_TICKS * (not kernel)),
+              f"kv A/B {route} launches {ran}")
+        reps.append(rep)
+        ab.append({"route": route, "ticks": KV_AB_TICKS,
+                   "cluster_steps_per_s": tele["steps_per_sec"],
+                   "wall_ms_per_tick": tele["execute_s"] / KV_AB_TICKS
+                   * 1e3,
+                   "launches": {k: v for k, v in ran.items() if v}})
+    from madraft_tpu_torch.__main__ import _reports_equal
+
+    check(all(_reports_equal(reps[0], r) for r in reps[1:]),
+          "kv A/B: the eager and the kernel route's reports differ")
+    rate = {r: sum(x["cluster_steps_per_s"] for x in ab
+                   if x["route"] == r) / 2 for r in ("eager", "kernel")}
+    emit({"phase": "kv_ab", "card": _smi(), "clusters": b, "runs": ab,
+          "reports_equal": True,
+          "kernel_over_eager": rate["kernel"] / rate["eager"]})
+
+    return runs["kv_flagship"], runs["kv_metrics_flagship"]
+
+
+def _kv_state(dev, metrics_on: bool, ticks: int = 200):
+    """The kv flagship's batch after ``ticks`` ticks on K6 and K9, and
+    its configs, keys and knobs."""
+    from madraft_tpu_torch.tpusim import engine, kv
+
+    cfg, kcfg = _kv_cli_cfg(metrics_on)
+    b = _flag(KV_FLAGSHIP, "--clusters")
+    keys = engine.cluster_keys(12345, b, dev)
+    kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = kv._advance_kv(cfg, kcfg, kv.init_kv_cluster(cfg, kcfg, keys, kn),
+                        keys, kn, kkn, ticks)
+    return cfg, kcfg, ks, keys, kn, kkn
+
+
+def _kv_bytes(cfg, kcfg, ks, s, keys, table, written) -> dict:
+    """The bytes one service tick must move (``_kv_timing``): every
+    service leaf and every raft leaf it writes read once and written once,
+    the stepped raft leaves it reads, the pre-tick views, keys and knob
+    rows read once, except the two [n, cap] log rows, of which the tick
+    reads only the log_val slots its apply rounds reach (this run's
+    count) and writes only the appended entries (a term and a value
+    each)."""
+    import torch
+
+    from madraft_tpu_torch.kernels import kv as K9
+    from madraft_tpu_torch.tpusim import kv
+
+    pre = ks.raft
+    logs = ("log_term", "log_val")
+    state = ([getattr(ks, f) for f in kv.SERVICE]
+             + [getattr(s, f) for f in K9.RAFT_WRITES if f not in logs])
+    reads = ([getattr(s, f) for f in K9.RAFT_READS]
+             + [pre.alive, pre.base, pre.shadow_len, keys, *table])
+    # the apply rounds that ran: each advanced a cursor from its start
+    # (the snapshot's base after a crash or an install)
+    reset = (~pre.alive | ~s.alive | (s.snap_installed_src >= 0))
+    start = torch.where(reset, s.base, ks.applied)
+    rounds = int((written.applied - start).sum())
+    appends = int((written.raft.log_len - s.log_len).sum())
+    out = {"state_read_and_written": 2 * nbytes(*state),
+           "reads": nbytes(*reads), "log_val_slots_read": rounds,
+           "log_entries_appended": appends}
+    out["total"] = (out["state_read_and_written"] + out["reads"]
+                    + 4 * rounds + 8 * appends)
+    return out
+
+
+def _kv_timing(dev) -> tuple:
+    """K9's and K9-metrics' times at the kv flagship's shape (tick 200 to
+    201): (name -> (device ms, call ms, plain ms, bytes, operations), the
+    timing phase's tuple; name -> ``_kv_bytes``' count). Each launch reads
+    its inputs from device memory (copies in rotation); the operations are
+    the tick's 57 threefry hashes a cluster, the shadow and log scans (8 a
+    lane) and the apply rounds (30 a node a round)."""
+    import torch
+
+    from madraft_tpu_torch.kernels import kv as K9
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import kv
+
+    counts = read_counts()
+    out, counted = {}, {}
+    for name, metrics_on in (("kv_tick", False), ("kv_tick_metrics", True)):
+        cfg, kcfg, ks, keys, kn, kkn = _kv_state(dev, metrics_on)
+        b, n, cap = keys.shape[0], cfg.n_nodes, cfg.log_cap
+        pre = ks.raft
+        s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+        table = K9.knob_table(kn, kkn, b)
+        inputs = (_kv_leaves(ks)[len(pre):] + [
+            getattr(s, f) for f in K9.RAFT_READS + K9.RAFT_WRITES] + [
+            pre.alive, pre.base, pre.shadow_len, keys, *table])
+        written = K9.kv_tick(cfg, kcfg, ks, pre.alive, pre.base,
+                             pre.shadow_len, s, keys, kn, kkn, table)
+        counted[name] = _kv_bytes(cfg, kcfg, ks, s, keys, table, written)
+        n_in = nbytes(*inputs)
+        rot = [(ks, s)] + [
+            (kv.KvState(*(type(x)(*(y.clone() for y in x))
+                          if isinstance(x, tuple) else x.clone()
+                          for x in ks)),
+             type(s)(*(x.clone() for x in s)))
+            for _ in range(rotations(n_in) - 1)]
+
+        def call(i, plain=False):
+            k, st = rot[i % len(rot)]
+            return K9.kv_tick(cfg, kcfg, k, pre.alive, pre.base,
+                              pre.shadow_len, st, keys, kn, kkn, table,
+                              plain=plain)
+
+        ops = b * (57 * OPS_PER_HASH + 8 * cap
+                   + kcfg.n_clients * cap * 2 + 30 * n * kcfg.apply_max)
+        out[name] = (device_ms(call, "kv_kernel"), cuda_ms(call),
+                     cuda_ms(lambda i: call(i, True), iters=20),
+                     counted[name]["total"], ops)
+        del rot
+    set_counts(counts)
+    return out, counted
+
+
+def _kv_phases(dev) -> dict:
+    """Where a K9 launch's time goes at the kv flagship's shape (tick 200
+    to 201): the profile build's clock64() cycles a phase from each warp's
+    start (kernels/kv.py PHASES), median and max over the clusters; the
+    profile build's state held against K9's."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from madraft_tpu_torch.kernels import kv as K9
+    from madraft_tpu_torch.kernels import tick as K6
+
+    counts = read_counts()
+    cfg, kcfg, ks, keys, kn, kkn = _kv_state(dev, False)
+    b, pre = int(keys.shape[0]), ks.raft
+    s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+    table = K9.knob_table(kn, kkn, b)
+    lib = K9._lib("kv_profile")
+    lib.kv_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.kv_phase_cycles.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for _ in range(3):  # the last launch's cycles, past the first's misses
+        got = K9._launch(cfg, kcfg, ks, pre.alive, pre.base, pre.shadow_len,
+                         s, keys, table, lib, stream)
+    torch.cuda.synchronize()
+    want = K9.kv_tick(cfg, kcfg, ks, pre.alive, pre.base, pre.shadow_len, s,
+                      keys, kn, kkn, table)
+    check(_kv_err(got, want) == 0, "K9's profile build differs from K9")
+    ends = np.zeros((b, len(K9.PHASES)), dtype=np.int64)
+    check(lib.kv_phase_cycles(ends.ctypes.data, b) == 0, "kv_phase_cycles")
+    per = np.diff(ends, axis=1, prepend=0)
+    set_counts(counts)
+    return {"phase": "kv_phases", "clusters": b,
+            "median_cycles": dict(zip(K9.PHASES,
+                                      np.median(per, 0).tolist())),
+            "max_cycles": dict(zip(K9.PHASES, per.max(0).tolist())),
+            "median_total_cycles": float(np.median(ends[:, -1]))}
+
+
+def _profile_kv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
+    """Where a kv flagship tick's wall goes (torch.profiler, the window
+    retry of ``_profiled``): the device operations a tick, the card's busy
+    share of the wall, and K6's and K9's shares, over n_ticks ticks from
+    tick 200 on K6 and K9."""
+    from madraft_tpu_torch.tpusim import kv
+
+    cfg, kcfg, ks, keys, kn, kkn = _kv_state(dev, metrics_on)
+    counts = read_counts()
+    _, kernels, wall_ms, _, attempts = _profiled(
+        lambda: kv._advance_kv(cfg, kcfg, ks, keys, kn, kkn, n_ticks),
+        expect=("tick_chunk_kernel", "kv_kernel"))
+    set_counts(counts)
+
+    def share(name):
+        us = sum(_dev_us(e) for e in kernels if name in e.key)
+        return us / 1e3 / wall_ms
+
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    return {"phase": "profile_kv_tick" + "_metrics" * metrics_on,
+            "ticks": n_ticks, "clusters": int(keys.shape[0]),
+            "profiler_attempts": attempts,
+            "wall_ms_per_tick": wall_ms / n_ticks,
+            "device_busy_ms_per_tick": busy_ms / n_ticks,
+            "device_busy_share": busy_ms / wall_ms,
+            "k6_share": share("tick_chunk_kernel"),
+            "k9_share": share("kv_kernel"),
+            "host_share": 1 - busy_ms / wall_ms,
+            "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
+            "top_device_ms_per_tick": {
+                e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(
+                    kernels, key=_dev_us, reverse=True)[:5]}}
 
 
 def _storm_cfg():

@@ -1,6 +1,7 @@
-"""madtpu CLI on the PyTorch port (raw-raft verbs).
+"""madtpu CLI on the PyTorch port (the raw-raft verbs and kv-fuzz).
 
     python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm] [--metrics]
+    python -m madraft_tpu_torch kv-fuzz --clusters 512 --ticks 512 [--service-bug stale_read]
     python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024 [--coverage]
     python -m madraft_tpu_torch sweep  --loss 0,0.1,0.3 --crash 0,0.02 --repartition 0,0.05
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm] [--knobs-json ROW]
@@ -17,6 +18,10 @@ seen-set, a biased knob refill; rows gain ``new_fingerprints``/``refill``/
 one cluster with the flight recorder on and prints its event timeline
 (JSONL around the first violation) or a Perfetto trace. ``sweep`` runs a
 fault-parameter grid, a knob row per cluster, and reports each cell.
+``kv-fuzz`` fuzzes the kv service layer (clerks, apply machines, the kv
+oracles) on top of the raft tick, with an optional planted service bug
+(``--service-bug``); with ``--metrics`` its report adds the clerks'
+submit->ack latency per key and per client.
 ``--metrics`` turns on the on-device metrics plane (submit->commit latency
 histograms, phase attribution, the worst op, event counters); ``stats``
 merges and renders the metrics of any mix of those outputs on the host.
@@ -36,9 +41,7 @@ import json
 import os
 import sys
 
-NOT_PORTED_VERBS = (
-    "kv-fuzz", "ctrler-fuzz", "shardkv-fuzz", "bridge", "lint",
-)
+NOT_PORTED_VERBS = ("ctrler-fuzz", "shardkv-fuzz", "bridge", "lint")
 
 
 def _storm(cfg):
@@ -174,19 +177,54 @@ def _det_check(args, rep, rerun):
     return {"deterministic": bool(same)}, not same
 
 
-def _report_json(rep, extra=None):
+def _violation_union(rep) -> int:
+    """OR of every violation bitmask in the report (a report with
+    per-group ``raft_violations`` included), as the reference's."""
     import numpy as np
 
+    union = 0
+    for field in ("violations", "raft_violations"):
+        v = np.asarray(getattr(rep, field, np.zeros(0, np.int64))).ravel()
+        if v.size:
+            union |= int(np.bitwise_or.reduce(v))
+    return union
+
+
+def _axis_blocks(rep) -> dict:
+    """The per-key / per-client latency blocks of a kv report (the
+    reference's ``by_key`` / ``by_client``): a row with acked ops, and a
+    client with retries even at zero ops, each with its ``retries``."""
+    from madraft_tpu_torch.tpusim.metrics import latency_summary
+
+    out = {}
+    retries = getattr(rep, "client_retries", None)
+    r = retries.sum(axis=0) if retries is not None else None
+    for field, key in (("key_hist", "by_key"), ("client_hist", "by_client")):
+        axes = getattr(rep, field, None)
+        if axes is None:
+            continue
+        merged = axes.sum(axis=0)  # [rows, HB]
+        want_c = key == "by_client" and r is not None
+        out[key] = {
+            str(k): latency_summary(merged[k])
+            for k in range(merged.shape[0])
+            if merged[k].sum() or (want_c and r[k])
+        }
+        if want_c:
+            for k, d in out[key].items():
+                d["retries"] = int(r[int(k)])
+    return out
+
+
+def _report_json(rep, extra=None):
     from madraft_tpu_torch.tpusim.config import violation_names
 
     bad = rep.violating_clusters()
-    union = int(np.bitwise_or.reduce(rep.violations.ravel())) \
-        if rep.violations.size else 0
     out = {
         "violating": int(rep.n_violating),
         "violating_clusters": [int(c) for c in bad[:16]],
         "violating_clusters_total": int(bad.size),
-        "violation_names": violation_names(union),
+        "violation_names": violation_names(_violation_union(rep)),
     }
     for f in rep._fields:
         v = getattr(rep, f)
@@ -208,6 +246,7 @@ def _report_json(rep, extra=None):
         out["latency"]["phases"] = phases_summary(
             rep.phase_hist.sum(axis=0), rep.phase_ticks.sum(axis=0))
         out["latency"]["ticks_total"] = int(rep.lat_ticks.sum())
+        out["latency"].update(_axis_blocks(rep))
         out["worst_op"] = merge_worst_registers(
             rep.worst_lat, rep.worst_phases, rep.worst_key,
             rep.worst_client, rep.worst_sub)
@@ -234,6 +273,59 @@ def cmd_fuzz(args) -> int:
 
     def rerun():
         return report(fn(args.seed))
+
+    extra, det_failed = _det_check(args, rep, rerun)
+    _report_json(rep, {"seed": args.seed, "telemetry": tele, **extra})
+    return 1 if (rep.n_violating or det_failed) else 0
+
+
+def _service_bugs(cfg_cls) -> set:
+    """A service layer's planted-bug names, from its config dataclass's
+    ``bug_*`` fields."""
+    import dataclasses
+
+    return {f.name[len("bug_"):] for f in dataclasses.fields(cfg_cls)
+            if f.name.startswith("bug_")}
+
+
+def _with_service_bug(kcfg, name):
+    """Set the layer's planted-bug knob named by --service-bug ('' =
+    none); an unknown name exits with the valid list, in the reference's
+    words."""
+    if not name:
+        return kcfg
+    known = _service_bugs(type(kcfg))
+    if name not in known:
+        raise SystemExit(
+            f"unknown service bug {name!r}; this layer knows: {sorted(known)}"
+        )
+    return kcfg.replace(**{f"bug_{name}": True})
+
+
+def cmd_kv_fuzz(args) -> int:
+    from madraft_tpu_torch.tpusim.engine import run_telemetry
+    from madraft_tpu_torch.tpusim.kv import KvConfig, kv_report, make_kv_fuzz_fn
+
+    if args.mesh:
+        _usage_error("kv-fuzz: --mesh is not ported yet (ROADMAP A6)")
+    cfg = _sim_config(args).replace(
+        p_client_cmd=0.0, compact_at_commit=False, compact_every=16)
+    kcfg = _with_service_bug(
+        KvConfig(p_get=args.p_get, p_put=args.p_put,
+                 p_follow_hint=args.p_follow_hint,
+                 retry_wait=args.retry_wait),
+        args.service_bug)
+    try:
+        fn = make_kv_fuzz_fn(cfg, kcfg, args.clusters, args.ticks,
+                             device=_device(args))
+    except ValueError as e:
+        _usage_error(f"kv-fuzz: {e}")
+    rep, tele = run_telemetry(fn, kv_report, args.seed,
+                              args.clusters * args.ticks,
+                              n_lanes=args.clusters)
+
+    def rerun():
+        return kv_report(fn(args.seed))
 
     extra, det_failed = _det_check(args, rep, rerun)
     _report_json(rep, {"seed": args.seed, "telemetry": tele, **extra})
@@ -847,6 +939,27 @@ def main(argv=None) -> int:
                          "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
     sp.set_defaults(fn=cmd_fuzz)
 
+    sp = sub.add_parser("kv-fuzz", help="KV service fuzz (Lab 3)")
+    common(sp, 512)
+    sp.add_argument("--mesh", action="store_true",
+                    help="shard over all devices (not ported yet: exits 2)")
+    sp.add_argument("--check-deterministic", action="store_true",
+                    help="run twice, demand a bit-identical report (also "
+                         "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
+    sp.add_argument("--service-bug", default="",
+                    help="plant one of this layer's service bugs (an "
+                         "unknown name lists the valid set)")
+    sp.add_argument("--p-get", type=float, default=0.3)
+    sp.add_argument("--p-put", type=float, default=0.2)
+    sp.add_argument("--p-follow-hint", type=float, default=0.0,
+                    help="prob a clerk targets its believed leader (the "
+                         "NotLeader{hint} model) instead of a random node; "
+                         "0 = random routing")
+    sp.add_argument("--retry-wait", type=int, default=0,
+                    help="ticks a clerk pauses after a submit landed at a "
+                         "leader (the call-timeout pacing)")
+    sp.set_defaults(fn=cmd_kv_fuzz)
+
     sp = sub.add_parser(
         "pool",
         help="continuous fuzzing pool: retire violated/horizon-reached "
@@ -988,7 +1101,11 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     except SystemExit as e:
-        return e.code if isinstance(e.code, int) else 2
+        if e.code is None or isinstance(e.code, int):
+            return e.code or 0
+        # a message, as Python's own exit prints it: on stderr, status 1
+        print(e.code, file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

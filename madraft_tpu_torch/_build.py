@@ -18,8 +18,12 @@ import subprocess
 import time
 from pathlib import Path
 
+# the raft verbs' sources, built by the engine's set-up before a run
 SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick",
            "harvest", "trace")
+# K9's source: a kv run's set-up builds it or K9-metrics (kernels/kv.py
+# variant), and nothing else of the raft verbs' set-up builds it
+KV = "kv"
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
 # their first use or by the engine's set-up before a run that takes them;
@@ -31,6 +35,11 @@ VARIANTS = {
     "tick_metrics_coverage": ("tick", ("-DMADRAFT_K6_METRICS",
                                        "-DMADRAFT_K6_COVERAGE")),
     "tick_profile": ("tick", ("-DMADRAFT_K6_PROFILE",)),
+    # K9-metrics (kernels/kv.py variant): the kv service tick with the
+    # clerks' latency folds
+    "kv_metrics": ("kv", ("-DMADRAFT_K9_METRICS",)),
+    # K9's profile build (clock64() a phase), launched only by chip_smoke.py
+    "kv_profile": ("kv", ("-DMADRAFT_K9_PROFILE",)),
 }
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"

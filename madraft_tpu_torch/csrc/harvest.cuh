@@ -169,15 +169,10 @@ __device__ __forceinline__ float ffma(float a, float b, float c) {
 #endif
 }
 
-__device__ __forceinline__ float as_float(uint32_t w) {
-#ifdef __CUDA_ARCH__
-  return __uint_as_float(w);
-#else
-  float f;
-  std::memcpy(&f, &w, 4);
-  return f;
-#endif
-}
+using madraft::as_float;
+using madraft::bits_word;
+using madraft::randint_elem;
+using madraft::uniform;
 
 // XLA's float32 exp on the CPU (coverage.xla_exp_f32): m = floor(x log2e
 // + 1/2), the reduced argument in two steps, a degree-6 polynomial by
@@ -204,67 +199,6 @@ __device__ __forceinline__ float mutation_factor(float u, const Consts &k) {
 // fresh_lo + u (fresh_hi - fresh_lo), contracted into one FMA as XLA does
 __device__ __forceinline__ float fresh_factor(float u, const Consts &k) {
   return ffma(u, k.width, k.lo);
-}
-
-// jax.random.uniform's float32 on [0, 1) from a word
-__device__ __forceinline__ float uniform(uint32_t w) {
-  const float u = fadd(as_float((w >> 9) | 0x3F800000u), -1.0f);
-  return u > 0.0f ? u : 0.0f;
-}
-
-// ----------------------------------------------------------- the PRNG ops
-// Word i of jax.random.bits(key, (total,)): partitionable, pair (0, i)
-// gives y0 ^ y1; legacy, counters 0..total-1 (a 0 pads an odd count) in
-// halves of h, word i < h is y0 of pair (i, i + h), word i >= h y1 of
-// pair (i - h, i)
-__device__ __forceinline__ uint32_t bits_word(uint32_t k0, uint32_t k1,
-                                              int i, int total, int part) {
-  if (part) {
-    uint32_t x0 = 0u, x1 = static_cast<uint32_t>(i);
-    madraft::threefry2x32(k0, k1, x0, x1);
-    return x0 ^ x1;
-  }
-  const int h = (total + 1) / 2;
-  const int j = i < h ? i : i - h;
-  uint32_t x0 = static_cast<uint32_t>(j);
-  uint32_t x1 = static_cast<uint32_t>(j + h < total ? j + h : 0);
-  madraft::threefry2x32(k0, k1, x0, x1);
-  return i < h ? x0 : x1;
-}
-
-// jax.random.split(key, 2): partitionable, key j = hash of (0, j);
-// legacy, the pairs (0, 2), (1, 3), key 0 = their y0s, key 1 their y1s
-__device__ __forceinline__ void split2(uint32_t k0, uint32_t k1, int part,
-                                       uint32_t out[4]) {
-  uint32_t a0 = 0u, a1 = part ? 0u : 2u;
-  uint32_t b0 = part ? 0u : 1u, b1 = part ? 1u : 3u;
-  madraft::threefry2x32(k0, k1, a0, a1);
-  madraft::threefry2x32(k0, k1, b0, b1);
-  if (part) {
-    out[0] = a0, out[1] = a1, out[2] = b0, out[3] = b1;
-  } else {
-    out[0] = a0, out[1] = b0, out[2] = a1, out[3] = b1;
-  }
-}
-
-// Element i of jax.random.randint(key, (size,), minval, maxval) (int32):
-// two bit streams from split(key) and the u32 rem reduction, no
-// rejection (prng.randint)
-__device__ __forceinline__ int32_t randint_elem(uint32_t k0, uint32_t k1,
-                                                int i, int size,
-                                                int32_t minval,
-                                                int32_t maxval, int part) {
-  uint32_t ks[4];
-  split2(k0, k1, part, ks);
-  const uint32_t hi = bits_word(ks[0], ks[1], i, size, part);
-  const uint32_t lo = bits_word(ks[2], ks[3], i, size, part);
-  uint32_t span = static_cast<uint32_t>(maxval) - static_cast<uint32_t>(minval);
-  if (maxval <= minval) span = 1u;
-  uint32_t mult = (1u << 16) % span;
-  mult = (mult * mult) % span;
-  uint32_t off = (hi % span) * mult;
-  off = (off + lo % span) % span;
-  return static_cast<int32_t>(static_cast<uint32_t>(minval) + off);
 }
 
 // ----------------------------------------------------------- the harvest

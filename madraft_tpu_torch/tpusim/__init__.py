@@ -1,5 +1,6 @@
 """The batched lockstep Raft simulator in PyTorch (twin of
-``madraft_tpu.tpusim``, raw-raft fuzz/replay/pool/sweep paths)."""
+``madraft_tpu.tpusim``: the raw-raft fuzz/replay/pool/sweep paths and the
+kv service layer, ``tpusim.kv``)."""
 
 from madraft_tpu_torch.tpusim.config import SimConfig
 from madraft_tpu_torch.tpusim.engine import (

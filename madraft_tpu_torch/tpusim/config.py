@@ -485,6 +485,26 @@ def profile_gates() -> dict:
     }
 
 
+# Static capacity of the open-loop pending-arrival stamp ring of the kv
+# clerks (the reference's config.OPEN_QUEUE_SLOTS): the knob
+# open_queue_cap is validated against it.
+OPEN_QUEUE_SLOTS = 8
+
+
+def zipf_map(draw: torch.Tensor, n_vals: int, a) -> torch.Tensor:
+    """The reference's ``zipf_map``: a uniform int32 draw in [0, n_vals)
+    onto a Zipf-like hot-key id, ``floor(n_vals * u ** a)`` in float32 with
+    ``u = (draw + 0.5) / n_vals``, clipped to [0, n_vals). ``a`` is a
+    float32 tensor (0-d, or broadcasting against ``draw``); a == 1.0 is
+    the identity, taken explicitly as the reference takes it."""
+    f32 = torch.float32
+    u = (draw.to(f32) + 0.5) / torch.tensor(n_vals, dtype=f32,
+                                            device=draw.device)
+    skewed = torch.clamp(
+        torch.floor(n_vals * torch.pow(u, a)).to(torch.int32), 0, n_vals - 1)
+    return torch.where(a == 1.0, draw, skewed)
+
+
 # ---------------------------------------------------------------------------
 # Coverage-guided schedule search (the reference's CoverageConfig; the
 # subsystem lives in coverage.py, the corpus scheduler in engine.run_pool).

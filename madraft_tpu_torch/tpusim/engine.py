@@ -176,16 +176,17 @@ def _run(cfg: SimConfig, keys: torch.Tensor, kn: Knobs, n_ticks: int):
 
 
 def _build_kernels(device: torch.device, metrics: bool = False,
-                   cov: bool = False) -> float:
+                   cov: bool = False, extra: tuple = ()) -> float:
     """Build the CUDA kernels when they are not built yet, K6's variant for
-    the metrics plane and the coverage fingerprint among them (the port's
-    set-up before a first tick); returns the wall seconds it took."""
+    the metrics plane and the coverage fingerprint among them, and the
+    builds named in ``extra`` (the port's set-up before a first tick);
+    returns the wall seconds it took."""
     t0 = time.perf_counter()
     if device.type == "cuda":
         from madraft_tpu_torch import _build
 
         names = tuple(dict.fromkeys(
-            (*_build.SOURCES, K6.variant(metrics, cov))))
+            (*_build.SOURCES, K6.variant(metrics, cov), *extra)))
         _build.build_all(names)
         for name in names:
             _build.library(name)
@@ -307,6 +308,42 @@ def _validate_knobs(kn: Knobs) -> None:
         raise ValueError(
             "rolling_down must stay < rolling_period (a wave's node must "
             "come back up before the next wave starts)"
+        )
+
+
+def validate_probs(k, names, layer: str) -> None:
+    """The [0, 1] range check of a layer's probability knobs (``k`` holds
+    numpy arrays), in the reference's words."""
+    for name in names:
+        v = getattr(k, name)
+        if (v < 0).any() or (v > 1).any():
+            raise ValueError(f"{layer} knob {name} outside [0, 1]: {v}")
+
+
+def validate_bool_bugs(k, names, layer: str) -> None:
+    """The bool-dtype check of a layer's planted-bug knobs (``k`` holds
+    numpy arrays), in the reference's words."""
+    for name in names:
+        if getattr(k, name).dtype != np.bool_:
+            raise ValueError(
+                f"{layer} bug knob {name} must be boolean (got "
+                f"{getattr(k, name).dtype}); an int 0/1 matrix would fail "
+                "deep inside the compiled loop with a carry-dtype error"
+            )
+
+
+def validate_service_raft_knobs(kn: Knobs) -> None:
+    """A service layer's raft knobs must leave command injection and the
+    compaction boundary to the service (the reference's checks)."""
+    if (kn.p_client_cmd != 0).any():
+        raise ValueError(
+            "service-layer sweeps need p_client_cmd == 0 in the raft knobs "
+            "(the service layer owns command injection)"
+        )
+    if kn.compact_at_commit.any():
+        raise ValueError(
+            "service-layer sweeps need compact_at_commit=False in the raft "
+            "knobs (the compaction boundary must follow the apply cursor)"
         )
 
 

@@ -51,6 +51,32 @@ def fold_latencies(hist: torch.Tensor, lat: torch.Tensor,
     return hist + (oh & mask[..., None]).sum(-2, dtype=I32)
 
 
+def fold_latencies_by(hist2d: torch.Tensor, lat: torch.Tensor,
+                      mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Add each masked latency's bucket to row ``idx`` of ``hist2d``: the
+    per-key / per-client axes. hist2d [B, rows, HB], lat/mask/idx [B, m]
+    -> [B, rows, HB]; a two-way one-hot sum, as the reference's."""
+    rows = hist2d.shape[-2]
+    dev = lat.device
+    b_oh = (bucket_of(lat)[..., None]
+            == torch.arange(HIST_BUCKETS, dtype=I32, device=dev))  # [B, m, HB]
+    r_oh = idx[..., None] == torch.arange(rows, dtype=I32, device=dev)
+    hit = r_oh[..., :, None] & b_oh[..., None, :] & mask[..., None, None]
+    return hist2d + hit.sum(-3, dtype=I32)
+
+
+def clerk_phase_matrix(t, sub, app, cmt, apl, is_get) -> torch.Tensor:
+    """The exact 4-phase split [B, 4, m] of the latency ``t - sub`` from a
+    clerk's boundary stamps (``config.LATENCY_PHASES`` order), the stamps
+    clamped monotone so that the rows telescope to ``t - sub``. ``t`` is
+    [B, 1] or broadcasts against the [B, m] stamps."""
+    app_e = torch.maximum(app, sub)
+    cmt_e = torch.maximum(cmt, app_e)
+    b3 = torch.where(is_get, torch.maximum(apl, cmt_e), cmt_e)
+    return torch.stack([app_e - sub, cmt_e - app_e, b3 - cmt_e, t - b3],
+                       dim=-2)
+
+
 def fold_phases(phase_hist, phase_ticks, lat_ticks, phases, lat, mask):
     """Fold each phase duration of every masked op into that phase's
     histogram row (zeros land in bucket 0, so each row's mass equals the

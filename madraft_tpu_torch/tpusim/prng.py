@@ -1,4 +1,4 @@
-"""The ``jax.random`` operations the raw-raft path calls, on threefry2x32.
+"""The ``jax.random`` operations the port calls, on threefry2x32.
 
 Keys are int64 tensors ``[..., 2]`` holding two unsigned 32-bit words, and
 every draw is an int64 tensor of u32 words (see ``kernels/threefry.py``).
@@ -147,3 +147,13 @@ def uniform(keys: torch.Tensor, size: int) -> torch.Tensor:
     w = bits(keys, size)
     one = (w >> 9) | 0x3F800000  # < 2^31: exact as int32
     return torch.clamp(one.to(torch.int32).view(torch.float32) - 1.0, min=0.0)
+
+
+def bernoulli(keys: torch.Tensor, p, size: int) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (size,))`` per key -> bool [..., size]:
+    ``uniform < p`` in float32. ``p`` is a float32 tensor, 0-d or one value
+    a key (``[...]``, the keys' leading shape)."""
+    p = torch.as_tensor(p, dtype=torch.float32, device=keys.device)
+    if p.dim():
+        p = p[..., None]
+    return uniform(keys, size) < p

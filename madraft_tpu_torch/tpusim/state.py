@@ -233,10 +233,18 @@ def init_cluster(cfg: SimConfig, keys: torch.Tensor, kn=None) -> ClusterState:
 
 
 def tree_bytes(s) -> int:
-    """Total bytes of every leaf of a wide or packed state (the
-    state-footprint telemetry: live buffer sizes, never a schema
-    estimate)."""
-    return int(sum(x.numel() * x.element_size() for x in s))
+    """Total bytes of every leaf of a wide or packed state, or of a state
+    that nests one (the kv state's raft part): the state-footprint
+    telemetry, live buffer sizes, never a schema estimate."""
+    return int(sum(tree_bytes(x) if isinstance(x, tuple)
+                   else x.numel() * x.element_size() for x in s))
+
+
+def durable_after_append(s: ClusterState, new_len: torch.Tensor
+                         ) -> torch.Tensor:
+    """The fsync watermark after a service layer's submits: it follows the
+    log where the log grew (persist at append, the reference's rule)."""
+    return torch.where(new_len > s.log_len, new_len, s.durable_len)
 
 
 def state_from_numpy(arrays, device=None) -> ClusterState:
@@ -264,13 +272,14 @@ def state_to_numpy(s: ClusterState) -> dict:
     return {f: getattr(s, f).cpu().numpy() for f in ClusterState._fields}
 
 
-def first_divergence(tick: int, want: dict, got: dict):
-    """The first leaf, in field order, where two host states (field ->
+def first_divergence(tick: int, want: dict, got: dict,
+                     fields=ClusterState._fields):
+    """The first leaf, in ``fields`` order, where two host states (field ->
     array with a leading cluster axis) differ in dtype, shape or any value.
     Returns None when they are identical, else a dict naming the tick, the
     leaf, the diverging clusters and the first one's two values — what a
     parity failure should print."""
-    for name in ClusterState._fields:
+    for name in fields:
         a, b = np.asarray(want[name]), np.asarray(got[name])
         if a.dtype != b.dtype or a.shape != b.shape:
             return {"tick": tick, "leaf": name,

@@ -1,7 +1,8 @@
 """K7's and K8's device code built for the host (``tests/kernel_host_emu.cpp``)
-with g++. The library has the kernel entries' C signatures, so
-``kernels.harvest._launch`` and ``kernels.trace._launch`` drive it as they
-drive the card's."""
+with g++, and K9's (``tests/kv_host_emu.cpp``, ``build_kv``). The
+libraries have the kernel entries' C signatures, so
+``kernels.harvest._launch``, ``kernels.trace._launch`` and
+``kernels.kv._launch`` drive them as they drive the card's."""
 
 from __future__ import annotations
 
@@ -16,19 +17,24 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "madraft_tpu_torch" / "csrc"
 
 
-def build(out_dir: pathlib.Path) -> ctypes.CDLL:
-    """The host library; skips the test when there is no g++."""
+def _compile(source: str, out: pathlib.Path, flags=()) -> ctypes.CDLL:
+    """g++ of tests/<source> into the shared library ``out``, loaded;
+    skips the test when there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code for the host")
-    out = out_dir / "libkernel_host.so"
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", "-I", str(CSRC), "-o", str(out),
-         str(ROOT / "tests" / "kernel_host_emu.cpp")],
+         "-pthread", *flags, "-I", str(CSRC), "-o", str(out),
+         str(ROOT / "tests" / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     assert proc.returncode == 0, f"g++ failed:\n{proc.stdout}"
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def build(out_dir: pathlib.Path) -> ctypes.CDLL:
+    """K7's and K8's host library."""
+    lib = _compile("kernel_host_emu.cpp", out_dir / "libkernel_host.so")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.harvest_launch.argtypes = [p, i, p, p]
     lib.harvest_launch.restype = i
@@ -38,4 +44,14 @@ def build(out_dir: pathlib.Path) -> ctypes.CDLL:
     lib.record_launch.restype = i
     lib.harvest_host_threads.argtypes = [i]
     lib.harvest_host_threads.restype = None
+    return lib
+
+
+def build_kv(out_dir: pathlib.Path, metrics: bool) -> ctypes.CDLL:
+    """K9's host library, its metrics build with ``metrics``."""
+    name = "kv_metrics" if metrics else "kv"
+    lib = _compile("kv_host_emu.cpp", out_dir / f"lib{name}_host.so",
+                   ["-DMADRAFT_K9_METRICS"] if metrics else [])
+    lib.kv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.kv_launch.restype = ctypes.c_int
     return lib

@@ -15,6 +15,7 @@ import torch
 
 from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import harvest as K7
+from madraft_tpu_torch.kernels import kv as K9
 from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels import oracle as K2
 from madraft_tpu_torch.kernels import pack as K3
@@ -25,6 +26,7 @@ from madraft_tpu_torch.tpusim import (
     config,
     coverage,
     engine,
+    kv,
     metrics,
     prng,
     state,
@@ -776,3 +778,84 @@ def test_traced_replay_on_the_card_equals_the_cpu(dev, bug, metrics_on):
     for f in rg._fields:
         assert (getattr(rg, f) == getattr(rc, f)).all(), f
     assert trace.decode_events(rg) == trace.decode_events(rc)
+
+
+# ---- K9, the kv service tick, and the kv path on the card
+KV_BASE = dict(p_client_cmd=0.0, compact_at_commit=False, loss_prob=0.1,
+               p_crash=0.01, p_restart=0.2, max_dead=2, p_repartition=0.02,
+               p_heal=0.05, log_cap=64, compact_every=16)
+
+
+@pytest.mark.parametrize("n_nodes,kw,metrics_on,partitionable", [
+    (5, {}, False, True),
+    (3, {"p_put": 0.2, "bug_skip_dedup": True}, True, False),
+    (7, {"bug_apply_uncommitted": True}, False, True),
+    (5, {"bug_stale_read": True, "p_get": 0.5, "p_put": 0.2}, True, True),
+    (5, {"bug_stale_hint": True, "p_follow_hint": 0.9, "retry_wait": 3},
+     True, False),
+    (5, {"open_rate": 0.25, "zipf_a": 3.0, "open_queue_cap": 8,
+         "p_get": 0.3, "p_put": 0.2}, True, True),
+    # the widest tables: a cluster's shared region past 48 KB a block
+    (7, {"n_clients": 32, "n_keys": 64, "p_put": 0.2}, True, True),
+])
+def test_kv_kernel_equals_plain_every_tick(dev, n_nodes, kw, metrics_on,
+                                           partitionable):
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=metrics_on, **KV_BASE)
+    kcfg = kv.KvConfig(**kw)
+    b = 1100  # past a whole number of blocks: the grid's ragged edge
+    with prng.layout(partitionable):
+        keys = engine.cluster_keys(7, b, dev)
+        kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
+        ks = kv.init_kv_cluster(cfg, kcfg, keys, kn)
+        for t in range(60):
+            pre = ks.raft
+            s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+            want = kv._kv_service_tick(cfg, kcfg, ks, pre.alive, pre.base,
+                                       pre.shadow_len, s, keys, kn, kkn)
+            before = (K9.kv_tick.launches, K9.kv_tick.metrics_launches)
+            got = K9.kv_tick(cfg, kcfg, ks, pre.alive, pre.base,
+                             pre.shadow_len, s, keys, kn, kkn)
+            assert (K9.kv_tick.launches, K9.kv_tick.metrics_launches) == (
+                before[0] + 1, before[1] + int(metrics_on))
+            d = kv.first_divergence(t, kv.kv_state_to_numpy(want),
+                                    kv.kv_state_to_numpy(got))
+            assert d is None, d
+            ks = got
+    assert ks.clerk_acked.sum() > 0
+
+
+def test_kv_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.SimConfig(n_nodes=5, **KV_BASE)
+    kcfg = kv.KvConfig()
+    keys = engine.cluster_keys(1, 8, dev)
+    kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = kv.init_kv_cluster(cfg, kcfg, keys, kn)
+    s = K6.tick_chunk(cfg, ks.raft, keys, kn, 1)
+    pre = (ks.raft.alive, ks.raft.base, ks.raft.shadow_len)
+    before = K9.kv_tick.launches
+    with pytest.raises(ValueError, match="clerk_key"):
+        K9.kv_tick(cfg, kcfg, ks._replace(clerk_key=ks.clerk_key.cpu()),
+                   *pre, s, keys, kn, kkn)
+    with pytest.raises(ValueError, match="n_clients"):
+        K9.kv_tick(cfg, kcfg.replace(n_clients=40), ks, *pre, s, keys, kn,
+                   kkn)
+    # the metrics build refuses a metrics-off state
+    with pytest.raises(RuntimeError, match="kv_launch"):
+        K9._launch(cfg, kcfg, ks, *pre, s, keys,
+                   K9.knob_table(kn, kkn, 8), K9._lib("kv_metrics"),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    assert K9.kv_tick.launches == before
+
+
+@pytest.mark.parametrize("metrics_on", [False, True])
+def test_kv_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
+    cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **KV_BASE)
+    kcfg = kv.KvConfig(p_put=0.2, bug_stale_read=True)
+    launches = (K6.tick_chunk.launches, K9.kv_tick.launches)
+    got = kv.kv_fuzz(cfg, kcfg, 5, 64, 120, device=dev)
+    assert (K6.tick_chunk.launches - launches[0],
+            K9.kv_tick.launches - launches[1]) == (120, 120)
+    want = kv.kv_fuzz(cfg, kcfg, 5, 64, 120, device="cpu")
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None and b is None) or (a == b).all(), f

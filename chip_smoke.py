@@ -42,10 +42,16 @@ the kv service tick, and K9-metrics against their plain version on every
 leaf after every tick (phase ``kv_k9``: n = 3, 5, 7, every kv bug, Puts,
 hints with ``retry_wait``, the open loop with the Zipf key, [B] knob rows
 mixing the bugs, states at mixed ticks, 32 clients and 64 keys, both
-layouts, 1100 clusters),
+layouts, 1100 clusters), and K10, the shard controller's service tick,
+and K10-metrics the same way (phase ``ctrler_k10``: n = 3, 5, 7, each
+planted controller bug, 2 and 10 gids, one and three gids an op, a
+history that fills, [B] knob rows mixing the bugs, states at mixed ticks,
+32 clients, both layouts),
 drives the kv flagship (``kv-fuzz --storm --clusters 1024 --ticks 512``,
 twice, then with ``--metrics``: K6 and K9 once a tick, no draw chunk, K2,
-K4 or K5) and its eager-vs-kernel A/B (``kv_ab``), runs the
+K4 or K5) and its eager-vs-kernel A/B (``kv_ab``), the ctrler flagship
+(``ctrler-fuzz --storm --clusters 1024 --ticks 512``, twice, then with
+``--metrics``: K6 and K10 once a tick) and its A/B (``ctrler_ab``), runs the
 ``hot_key_openloop`` gate as a kv leg beside the raft gates, then
 times each kernel beside its plain version and its bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
 matched by the CUDA function's name), ``call_ms`` the wrapper's time per
@@ -55,7 +61,8 @@ the 32-bit operations over the card's integer rate (phase ``card``). K6's
 clock64() split by phase group (``k6_phases``, its profile build) and its
 time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
 split by phase (``kv_phases``, its profile build) and the kv tick's
-(``profile_kv_tick``); ``k6_only()`` runs just K6's two.
+(``profile_kv_tick``) and the ctrler tick's (``profile_ctrler_tick``);
+``k6_only()`` runs just K6's two.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -158,6 +165,35 @@ KV_K9_CASES = (
     # 32 clients and 64 keys: K9's shared region past 48 KB a block
     ("wide_tables", 7, {"n_clients": 32, "n_keys": 64, "p_put": 0.2}, True,
      True),
+)
+# the ctrler flagship (bench.py's ctrler row: its 1024 clusters at the
+# kv flagship's depth), twice, and with the metrics plane
+CTRLER_FLAGSHIP = ["ctrler-fuzz", "--storm", "--clusters", "1024", "--ticks",
+                   "512", "--seed", "12345", "--check-deterministic"]
+CTRLER_METRICS_FLAGSHIP = CTRLER_FLAGSHIP + ["--metrics"]
+# the ctrler flagship's eager-vs-kernel A/B: the four runs' depth
+CTRLER_AB_TICKS = 32
+# K10 against its plain version (phase ctrler_k10): clusters, the ticks a
+# case runs on K6 and K10 first (past the first elections and configs),
+# the ticks it compares, and the cases: (name, n, ctrler config ("rows":
+# the mixed knob rows), metrics, partitionable layout)
+CTRLER_K10_CLUSTERS, CTRLER_K10_WARM, CTRLER_K10_TICKS = 1100, 48, 24
+CTRLER_K10_CASES = (
+    ("n3", 3, {}, False, True),
+    ("n5_metrics", 5, {}, True, True),
+    ("n7_legacy", 7, {}, False, False),
+    ("rotate_tiebreak", 5, {"bug_rotate_tiebreak": True}, True, True),
+    ("greedy_rebalance", 5, {"bug_greedy_rebalance": True}, False, False),
+    ("full_reshuffle", 5, {"bug_full_reshuffle": True}, True, False),
+    ("ng2_jm1", 5, {"n_gids": 2, "join_max": 1}, False, True),
+    ("ng10_jm3", 7, {"n_gids": 10, "join_max": 3}, True, True),
+    # a history of six configs: most clusters fill it, the room gate closes
+    ("full_history", 5, {"n_configs": 6, "p_move": 0.3}, True, False),
+    ("mixed_rows", 5, "rows", True, True),
+    ("mixed_rows_legacy", 7, "rows", False, False),
+    ("storm_mixed_ticks", 5, {"bug_rotate_tiebreak": True}, True, True),
+    # 32 clients: a warp's every lane a clerk
+    ("clients_32", 7, {"n_clients": 32, "n_gids": 10}, True, True),
 )
 # the metrics-on packed carry at n = 5, cap = 64 (the reference's pin)
 METRICS_BYTES_PER_LANE = 3600
@@ -314,6 +350,7 @@ def counters():
     the oracle's count of metrics-instance launches and K6's of its
     metrics and coverage variants."""
     from madraft_tpu_torch.kernels import coverage as K5
+    from madraft_tpu_torch.kernels import ctrler as K10
     from madraft_tpu_torch.kernels import harvest as K7
     from madraft_tpu_torch.kernels import kv as K9
     from madraft_tpu_torch.kernels import metrics as K4
@@ -338,7 +375,9 @@ def counters():
             "harvest": (K7.harvest, "launches"),
             "record": (K8.record, "launches"),
             "kv_tick": (K9.kv_tick, "launches"),
-            "kv_tick_metrics": (K9.kv_tick, "metrics_launches")}
+            "kv_tick_metrics": (K9.kv_tick, "metrics_launches"),
+            "ctrler_tick": (K10.ctrler_tick, "launches"),
+            "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches")}
 
 
 def read_counts() -> dict:
@@ -405,7 +444,7 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    per_source = _build.build_all(_build.SOURCES + (_build.KV,)
+    per_source = _build.build_all(_build.SOURCES + (_build.KV, _build.CTRLER)
                                  + tuple(_build.VARIANTS))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}})
@@ -1369,6 +1408,12 @@ def main() -> int:
     emit(_kv_k9(dev, errs))
     kv_launches, kv_launches_m = _kv_path(dev)
 
+    # ---- 6l. the ctrler path: K10 and K10-metrics against the plain
+    # service tick, then the ctrler flagships through the CLI (K6 and K10
+    # once a tick) and the eager-vs-kernel A/B
+    emit(_ctrler_k10(dev, errs))
+    ctrler_launches, ctrler_launches_m = _ctrler_path(dev)
+
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
     total = step._block_total(n_nodes)
@@ -1780,6 +1825,9 @@ def main() -> int:
     # K9 and K9-metrics at the kv flagship's shape
     kv_timing, kv_bytes = _kv_timing(dev)
     timing.update(kv_timing)
+    # K10 and K10-metrics at the ctrler flagship's shape
+    ctrler_timing, ctrler_bytes = _ctrler_timing(dev)
+    timing.update(ctrler_timing)
     # K6 one tick a launch at explain's shape, as the traced replay runs it
     k6_one_tick_ms = device_ms(
         lambda i: K6.tick_chunk(k8_cfg, k8_prev, k8_keys, k8_kn, 1),
@@ -1814,6 +1862,7 @@ def main() -> int:
           "tick_chunk_one_tick_one_cluster_ms": k6_one_tick_ms,
           "coverage_clean_lane_ticks": fp_ok,
           "kv_tick_bytes": kv_bytes,
+          "ctrler_tick_bytes": ctrler_bytes,
           "shapes": {"tick_chunk": [k6_m, b, fs_bytes // b],
                      "harvest": [b, k7_cols, fs_bytes // b],
                      "record": [1, K8.record_width(k8_cfg)],
@@ -1835,6 +1884,7 @@ def main() -> int:
     emit(_kv_phases(dev))
     emit(_profile_kv_tick(dev, False))
     emit(_profile_kv_tick(dev, True))
+    emit(_profile_ctrler_tick(dev, False))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
@@ -1902,6 +1952,11 @@ def main() -> int:
                     "madraft_tpu/tpusim/kv.py:425"),
         "kv_tick_metrics": ("K9-metrics", "madraft_tpu_torch/csrc/kv.cu",
                             "madraft_tpu/tpusim/metrics.py:65"),
+        "ctrler_tick": ("K10", "madraft_tpu_torch/csrc/ctrler.cu",
+                        "madraft_tpu/tpusim/ctrler.py:593"),
+        "ctrler_tick_metrics": ("K10-metrics",
+                                "madraft_tpu_torch/csrc/ctrler.cu",
+                                "madraft_tpu/tpusim/ctrler.py:750"),
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -1926,6 +1981,9 @@ def main() -> int:
     # K9's from the kv flagship, K9-metrics' from the kv metrics flagship
     launches["kv_tick"] = kv_launches["kv_tick"]
     launches["kv_tick_metrics"] = kv_launches_m["kv_tick_metrics"]
+    # K10's from the ctrler flagship, K10-metrics' from its metrics run
+    launches["ctrler_tick"] = ctrler_launches["ctrler_tick"]
+    launches["ctrler_tick_metrics"] = ctrler_launches_m["ctrler_tick_metrics"]
     errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
@@ -2895,6 +2953,25 @@ def _coverage_fixture_legs(dev, fx: dict) -> None:
                   "dispatch": out["dispatch"], "cells": len(out["cells"])})
 
 
+def ctrler_knob_rows(kcfg, b: int):
+    """[B] ctrler knob rows (on the CPU) that mix the three planted bugs,
+    alone and together, the op mix and the retry rate across the batch;
+    lanes 0, 5, 10, ... plant no bug. For holding K10 against its plain
+    version (phase ``ctrler_k10`` and the K10 host build's tests)."""
+    import torch
+
+    kk = kcfg.knobs().broadcast(b)
+    i = torch.arange(b)
+    return kk._replace(
+        bug_rotate_tiebreak=(i % 5 == 1) | (i % 5 == 4),
+        bug_greedy_rebalance=i % 5 == 2,
+        bug_full_reshuffle=(i % 5 == 3) | (i % 5 == 4),
+        p_query=torch.where(i % 2 == 0, 0.3, 0.1).float(),
+        p_move=torch.where(i % 3 == 0, 0.3, 0.1).float(),
+        p_op=torch.where(i % 4 == 3, 0.6, 0.3).float(),
+        p_retry=torch.where(i % 3 == 1, 0.9, 0.5).float())
+
+
 # ------------------------------------------------------------ the kv path
 def _kv_leaves(ks) -> list:
     """Every leaf of a kv state: the raft leaves, then the service ones."""
@@ -3266,6 +3343,355 @@ def _profile_kv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
             "k6_share": share("tick_chunk_kernel"),
             "k9_share": share("kv_kernel"),
             "host_share": 1 - busy_ms / wall_ms,
+            "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
+            "top_device_ms_per_tick": {
+                e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(
+                    kernels, key=_dev_us, reverse=True)[:5]}}
+
+
+# -------------------------------------------------------- the ctrler path
+def _ctrler_cli_cfg(metrics: bool = False):
+    """ctrler-fuzz --storm's configs: the raft config with the service's
+    changes (log_cap 32, compact_every 8) and CtrlerConfig(p_query=0.3,
+    p_move=0.1) (the CLI's defaults)."""
+    from madraft_tpu_torch.tpusim import ctrler
+
+    cfg = _storm_cfg().replace(p_client_cmd=0.0, compact_at_commit=False,
+                               log_cap=32, compact_every=8, metrics=metrics)
+    return cfg, ctrler.CtrlerConfig(p_query=0.3, p_move=0.1)
+
+
+def _ctrler_k10(dev, errs: dict) -> dict:
+    """Phase ctrler_k10: K10 and K10-metrics against the plain service
+    tick on the card, every leaf after every one of CTRLER_K10_TICKS ticks
+    (the raft tick by K6) from a state CTRLER_K10_WARM ticks in,
+    CTRLER_K10_CLUSTERS clusters (past a whole number of blocks), in the
+    cases of CTRLER_K10_CASES, each creating configs and completing
+    Queries in the compared ticks. Launches here are not main-path
+    launches."""
+    import torch
+
+    from madraft_tpu_torch.kernels import ctrler as K10
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import ctrler, engine, prng
+
+    counts = read_counts()
+    b = CTRLER_K10_CLUSTERS
+    done = []
+    for name, n, kw, metrics_on, flag in CTRLER_K10_CASES:
+        cfg, _ = _ctrler_cli_cfg(metrics_on)
+        cfg = cfg.replace(n_nodes=n)
+        kcfg = ctrler.CtrlerConfig(**({} if kw == "rows" else kw))
+        with prng.layout(flag):
+            keys = engine.cluster_keys(11, b, dev)
+            kn = cfg.knobs(dev)
+            ckn = (ctrler_knob_rows(kcfg, b).to(dev) if kw == "rows"
+                   else kcfg.knobs(dev))
+            ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+            if name != "storm_mixed_ticks":
+                ks = ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn,
+                                            CTRLER_K10_WARM)
+            else:
+                # two halves run to different ticks (a pool's lanes)
+                h = b // 2
+                ks = ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn, 31)
+                tail = ctrler._advance_ctrler(
+                    cfg, kcfg,
+                    ctrler.init_ctrler_cluster(cfg, kcfg, keys[h:], kn),
+                    keys[h:], kn, ckn, 97)
+                ks = ctrler.CtrlerState(*(
+                    type(x)(*(torch.cat([p[:h], q]) for p, q in zip(x, y)))
+                    if isinstance(x, tuple) else torch.cat([x[:h], y])
+                    for x, y in zip(ks, tail)))
+            table = K10.knob_table(kn, ckn, b)
+            err = 0.0
+            start = [int(x.sum()) for x in (ks.clerk_acked, ks.w_cfg_num,
+                                            ks.queries_done)]
+            for _ in range(CTRLER_K10_TICKS):
+                pre = ks.raft
+                s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+                want = ctrler._ctrler_service_tick(cfg, kcfg, ks, pre.alive,
+                                                   pre.base, s, keys, kn, ckn)
+                got = K10.ctrler_tick(cfg, kcfg, ks, pre.alive, pre.base, s,
+                                      keys, kn, ckn, table)
+                err = max(err, _kv_err(got, want))
+                ks = want
+        key = "ctrler_tick_metrics" if metrics_on else "ctrler_tick"
+        errs[key] = max(errs[key], err)
+        check(err == 0, f"K10 differs from its plain version: case {name}")
+        acked, configs, queries = (
+            int(x.sum()) - s0 for x, s0 in zip(
+                (ks.clerk_acked, ks.w_cfg_num, ks.queries_done), start))
+        check(acked > 0 and configs > 0 and queries > 0,
+              f"ctrler_k10 case {name}: in its compared ticks {acked} acks, "
+              f"{configs} configs, {queries} Queries")
+        done.append({"case": name, "n_nodes": n, "metrics": metrics_on,
+                     "partitionable": flag,
+                     "violating": int((ks.raft.violations != 0).sum()),
+                     "configs_in_compared_ticks": configs,
+                     "queries_in_compared_ticks": queries,
+                     "history_full": int((ks.w_cfg_num
+                                          == kcfg.n_configs - 1).sum())})
+    set_counts(counts)
+    return {"phase": "ctrler_k10", "clusters": b, "ticks": CTRLER_K10_TICKS,
+            "cases": done,
+            "max_abs_err": max(errs["ctrler_tick"],
+                               errs["ctrler_tick_metrics"])}
+
+
+def _ctrler_path(dev) -> tuple:
+    """The ctrler main path through the CLI: the ctrler flagship twice
+    (--check-deterministic), then with --metrics; the eager-vs-kernel A/B
+    at CTRLER_AB_TICKS ticks. Returns (the flagship's launches, the
+    metrics flagship's)."""
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import ctrler, engine, prng
+
+    prng.set_partitionable(True)
+    ticks = _flag(CTRLER_FLAGSHIP, "--ticks")
+    b = _flag(CTRLER_FLAGSHIP, "--clusters")
+    eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
+                 "latency_fold", "seen_update", "kv_tick", "harvest",
+                 "record")
+    runs = {}
+    for label, argv in (("ctrler_flagship", CTRLER_FLAGSHIP),
+                        ("ctrler_metrics_flagship", CTRLER_METRICS_FLAGSHIP)):
+        metrics_on = "--metrics" in argv
+        set_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        wall = time.perf_counter() - t0
+        ran = read_counts()
+        want = ticks * FLAGSHIP_RUNS
+        check(rc == 0 and out["violating"] == 0
+              and out.get("deterministic") is True
+              and out["acked_ops_mean"] > 0
+              and out["configs_created_mean"] > 0
+              and out["queries_done_mean"] > 0
+              and out["walker_stalled_mean"] == 0,
+              f"{label} rc {rc}: {out}")
+        check(ran["tick_chunk"] == ran["ctrler_tick"] == want
+              and ran["tick_chunk_metrics"] == want * metrics_on
+              and ran["ctrler_tick_metrics"] == want * metrics_on
+              and all(ran[k] == 0 for k in eager_off),
+              f"{label} launches {ran}: want K6 and K10 once a tick "
+              f"({want}), no draw chunk, K2, K4, K5 or K9 launch")
+        tele = out["telemetry"]
+        row = {"phase": label, "argv": argv, "rc": rc,
+               "cluster_steps_per_s": tele["steps_per_sec"],
+               "execute_s": tele["execute_s"],
+               "wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+               "wall_s_both_runs": round(wall, 3),
+               "compile_s": tele["compile_s"],
+               "bytes_per_lane": tele["bytes_per_lane"],
+               "tick_instance": K6.instance(_ctrler_cli_cfg()[0]),
+               "acked_ops_mean": out["acked_ops_mean"],
+               "configs_created_mean": out["configs_created_mean"],
+               "queries_done_mean": out["queries_done_mean"],
+               "launches": {k: v for k, v in ran.items() if v}}
+        if metrics_on:
+            lat = out["latency"]
+            check(all(k in out for k in METRIC_KEYS) and "phases" in lat,
+                  f"ctrler metrics report lacks a block: {sorted(out)}")
+            # the latency mass is the acked ops, on every phase row too
+            ops = lat["ops"]
+            check(round(ops / b, 2) == out["acked_ops_mean"]
+                  and all(d["ops"] == ops for d in lat["phases"].values())
+                  and out["worst_op"]["key"] == -1,
+                  f"ctrler latency mass {ops} vs acked "
+                  f"{out['acked_ops_mean']}, worst op {out['worst_op']}")
+            row.update(p50_ticks=lat["p50_ticks"], p99_ticks=lat["p99_ticks"],
+                       ops=ops)
+        emit(row)
+        runs[label] = ran
+
+    # the A/B: the flagship's shape at CTRLER_AB_TICKS ticks, eager (the
+    # eager tick, the plain service tick) and kernel (K6 and K10) in turns
+    cfg, kcfg = _ctrler_cli_cfg()
+    ab, reps = [], []
+    advance = ctrler._advance_ctrler  # every ctrler run's ticks go through it
+    for route in ("eager", "kernel", "kernel", "eager"):
+        set_counts()
+        ctrler._advance_ctrler = functools.partial(advance, tick=route)
+        try:
+            fn = ctrler.make_ctrler_fuzz_fn(cfg, kcfg, b, CTRLER_AB_TICKS, dev)
+            rep, tele = engine.run_telemetry(fn, ctrler.ctrler_report, 12345,
+                                             b * CTRLER_AB_TICKS, n_lanes=b)
+        finally:
+            ctrler._advance_ctrler = advance
+        ran = read_counts()
+        kernel = route == "kernel"
+        check((ran["tick_chunk"] == ran["ctrler_tick"]
+               == CTRLER_AB_TICKS * kernel)
+              and (ran["oracle"] == CTRLER_AB_TICKS * (not kernel)),
+              f"ctrler A/B {route} launches {ran}")
+        reps.append(rep)
+        ab.append({"route": route, "ticks": CTRLER_AB_TICKS,
+                   "cluster_steps_per_s": tele["steps_per_sec"],
+                   "wall_ms_per_tick": tele["execute_s"] / CTRLER_AB_TICKS
+                   * 1e3,
+                   "launches": {k: v for k, v in ran.items() if v}})
+    from madraft_tpu_torch.__main__ import _reports_equal
+
+    check(all(_reports_equal(reps[0], r) for r in reps[1:]),
+          "ctrler A/B: the eager and the kernel route's reports differ")
+    rate = {r: sum(x["cluster_steps_per_s"] for x in ab
+                   if x["route"] == r) / 2 for r in ("eager", "kernel")}
+    emit({"phase": "ctrler_ab", "card": _smi(), "clusters": b, "runs": ab,
+          "reports_equal": True,
+          "kernel_over_eager": rate["kernel"] / rate["eager"]})
+    return runs["ctrler_flagship"], runs["ctrler_metrics_flagship"]
+
+
+def _ctrler_state(dev, metrics_on: bool, ticks: int = 200):
+    """The ctrler flagship's batch after ``ticks`` ticks on K6 and K10,
+    and its configs, keys and knobs."""
+    from madraft_tpu_torch.tpusim import ctrler, engine
+
+    cfg, kcfg = _ctrler_cli_cfg(metrics_on)
+    b = _flag(CTRLER_FLAGSHIP, "--clusters")
+    keys = engine.cluster_keys(12345, b, dev)
+    kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = ctrler._advance_ctrler(
+        cfg, kcfg, ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn), keys, kn,
+        ckn, ticks)
+    return cfg, kcfg, ks, keys, kn, ckn
+
+
+def _ctrler_bytes(cfg, kcfg, ks, s, keys, table, written) -> dict:
+    """The bytes one ctrler service tick must move (``_ctrler_timing``),
+    counted as ``_kv_bytes`` counts K9's: every service leaf and every
+    raft leaf it writes read once and written once, the stepped raft
+    leaves it reads, the pre-tick views, keys and knob rows read once,
+    except the two [n, cap] log rows, of which the tick reads only the
+    log_val slots its apply rounds reach (this run's count) and writes
+    only the appended entries (a term and a value each)."""
+    import torch
+
+    from madraft_tpu_torch.kernels import ctrler as K10
+    from madraft_tpu_torch.tpusim import ctrler
+
+    pre = ks.raft
+    logs = ("log_term", "log_val")
+    state = ([getattr(ks, f) for f in ctrler.SERVICE]
+             + [getattr(s, f) for f in K10.RAFT_WRITES if f not in logs])
+    reads = ([getattr(s, f) for f in K10.RAFT_READS]
+             + [pre.alive, pre.base, keys, *table])
+    reset = (~pre.alive | ~s.alive | (s.snap_installed_src >= 0))
+    start = torch.where(reset, s.base, ks.applied)
+    rounds = int((written.applied - start).sum())
+    appends = int((written.raft.log_len - s.log_len).sum())
+    out = {"state_read_and_written": 2 * nbytes(*state),
+           "reads": nbytes(*reads), "log_val_slots_read": rounds,
+           "log_entries_appended": appends}
+    out["total"] = (out["state_read_and_written"] + out["reads"]
+                    + 4 * rounds + 8 * appends)
+    return out
+
+
+def _ctrler_ops(cfg, kcfg, ks, written, rounds: int) -> int:
+    """The 32-bit operations one ctrler service tick does on this run's
+    data (``_ctrler_timing``): the threefry hashes (the eight draw keys a
+    cluster, two fold-ins and a split each; a clerk's start word; a
+    started op's kind word, its arg draw (4 hashes a randint) and its
+    Query num or gid set; an outstanding clerk's retry word and target),
+    the clerks' shadow search (2 a (clerk, slot) pair), the node tables'
+    restore (4 a cell), and the apply rounds and walker steps (a
+    rebalance and its oracles each: 12 operations a (shard, gid) pair, 40
+    for the rest)."""
+    b, n, cap, nc = ks.clerk_seq.shape[0], cfg.n_nodes, cfg.log_cap, \
+        kcfg.n_clients
+    ng, jm = kcfg.n_gids, kcfg.join_max
+    started = int((written.clerk_seq != ks.clerk_seq).sum())
+    outstanding = int(written.clerk_out.sum())
+    hashes = (b * (8 * 3 + nc) + started * (1 + 4 + 4 + 4 * jm)
+              + outstanding * (1 + 4))
+    steps = int((written.w_frontier - ks.w_frontier).sum())
+    cells = n * (2 * nc + 2 * ng + 2 * 10 + 2 + 2 * kcfg.n_configs)
+    return (hashes * OPS_PER_HASH + b * (2 * nc * cap + 4 * cells)
+            + (rounds + steps) * (12 * 10 * ng + 40))
+
+
+def _ctrler_timing(dev) -> tuple:
+    """K10's and K10-metrics' times at the ctrler flagship's shape (tick
+    200 to 201): (name -> (device ms, call ms, plain ms, bytes,
+    operations), the timing phase's tuple; name -> ``_ctrler_bytes``'
+    count). Each launch reads its inputs from device memory (copies in
+    rotation)."""
+    from madraft_tpu_torch.kernels import ctrler as K10
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import ctrler
+
+    counts = read_counts()
+    out, counted = {}, {}
+    for name, metrics_on in (("ctrler_tick", False),
+                             ("ctrler_tick_metrics", True)):
+        cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, metrics_on)
+        b = keys.shape[0]
+        pre = ks.raft
+        s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+        table = K10.knob_table(kn, ckn, b)
+        inputs = (_kv_leaves(ks)[len(pre):] + [
+            getattr(s, f) for f in K10.RAFT_READS + K10.RAFT_WRITES] + [
+            pre.alive, pre.base, keys, *table])
+        written = K10.ctrler_tick(cfg, kcfg, ks, pre.alive, pre.base, s,
+                                  keys, kn, ckn, table)
+        counted[name] = _ctrler_bytes(cfg, kcfg, ks, s, keys, table, written)
+        ops = _ctrler_ops(cfg, kcfg, ks, written,
+                          counted[name]["log_val_slots_read"])
+        counted[name]["operations"] = ops
+        n_in = nbytes(*inputs)
+        rot = [(ks, s)] + [
+            (ctrler.CtrlerState(*(type(x)(*(y.clone() for y in x))
+                                  if isinstance(x, tuple) else x.clone()
+                                  for x in ks)),
+             type(s)(*(x.clone() for x in s)))
+            for _ in range(rotations(n_in) - 1)]
+
+        def call(i, plain=False):
+            k, st = rot[i % len(rot)]
+            return K10.ctrler_tick(cfg, kcfg, k, pre.alive, pre.base, st,
+                                   keys, kn, ckn, table, plain=plain)
+
+        out[name] = (device_ms(call, "ctrler_kernel"), cuda_ms(call),
+                     cuda_ms(lambda i: call(i, True), iters=20),
+                     counted[name]["total"], ops)
+        del rot
+    set_counts(counts)
+    return out, counted
+
+
+def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
+    """Where a ctrler flagship tick's wall goes (torch.profiler, the window
+    retry of ``_profiled``): the device operations a tick, the card's busy
+    share of the wall and the host's, K6's and K10's shares and device
+    ms a tick, over n_ticks ticks from tick 200 on K6 and K10."""
+    from madraft_tpu_torch.tpusim import ctrler
+
+    cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, metrics_on)
+    counts = read_counts()
+    _, kernels, wall_ms, _, attempts = _profiled(
+        lambda: ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn,
+                                       n_ticks),
+        expect=("tick_chunk_kernel", "ctrler_kernel"))
+    set_counts(counts)
+
+    def dev_ms(name):
+        return sum(_dev_us(e) for e in kernels if name in e.key) / 1e3
+
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    return {"phase": "profile_ctrler_tick" + "_metrics" * metrics_on,
+            "card": _smi(), "ticks": n_ticks,
+            "clusters": int(keys.shape[0]),
+            "profiler_attempts": attempts,
+            "wall_ms_per_tick": wall_ms / n_ticks,
+            "device_busy_ms_per_tick": busy_ms / n_ticks,
+            "device_busy_share": busy_ms / wall_ms,
+            "host_share": 1 - busy_ms / wall_ms,
+            "k6_ms_per_tick": dev_ms("tick_chunk_kernel") / n_ticks,
+            "k10_ms_per_tick": dev_ms("ctrler_kernel") / n_ticks,
+            "k6_share": dev_ms("tick_chunk_kernel") / wall_ms,
+            "k10_share": dev_ms("ctrler_kernel") / wall_ms,
             "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
             "top_device_ms_per_tick": {
                 e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(

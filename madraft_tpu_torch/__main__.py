@@ -1,7 +1,9 @@
-"""madtpu CLI on the PyTorch port (the raw-raft verbs and kv-fuzz).
+"""madtpu CLI on the PyTorch port (the raw-raft verbs, kv-fuzz and
+ctrler-fuzz).
 
     python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm] [--metrics]
     python -m madraft_tpu_torch kv-fuzz --clusters 512 --ticks 512 [--service-bug stale_read]
+    python -m madraft_tpu_torch ctrler-fuzz --clusters 512 --ticks 512 [--service-bug rotate_tiebreak]
     python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024 [--coverage]
     python -m madraft_tpu_torch sweep  --loss 0,0.1,0.3 --crash 0,0.02 --repartition 0,0.05
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm] [--knobs-json ROW]
@@ -21,7 +23,11 @@ fault-parameter grid, a knob row per cluster, and reports each cell.
 ``kv-fuzz`` fuzzes the kv service layer (clerks, apply machines, the kv
 oracles) on top of the raft tick, with an optional planted service bug
 (``--service-bug``); with ``--metrics`` its report adds the clerks'
-submit->ack latency per key and per client.
+submit->ack latency per key and per client. ``ctrler-fuzz`` fuzzes the
+shard controller's config service (Join / Leave / Move / Query, the
+canonical rebalance, the truth walker and the four controller oracles)
+the same way (``--service-bug rotate_tiebreak | greedy_rebalance |
+full_reshuffle``).
 ``--metrics`` turns on the on-device metrics plane (submit->commit latency
 histograms, phase attribution, the worst op, event counters); ``stats``
 merges and renders the metrics of any mix of those outputs on the host.
@@ -41,7 +47,7 @@ import json
 import os
 import sys
 
-NOT_PORTED_VERBS = ("ctrler-fuzz", "shardkv-fuzz", "bridge", "lint")
+NOT_PORTED_VERBS = ("shardkv-fuzz", "bridge", "lint")
 
 
 def _storm(cfg):
@@ -256,8 +262,26 @@ def _report_json(rep, extra=None):
     print(json.dumps(out))
 
 
+def _finish_fuzz(args, fn, rep_fn) -> int:
+    """Set up and run the fuzz program ``fn`` (timed), optionally run it
+    again for the determinism check, print the JSON report with the run's
+    telemetry; the exit code (1 on a violation or a failed check)."""
+    from madraft_tpu_torch.tpusim.engine import run_telemetry
+
+    rep, tele = run_telemetry(fn, rep_fn, args.seed,
+                              args.clusters * args.ticks,
+                              n_lanes=args.clusters)
+
+    def rerun():
+        return rep_fn(fn(args.seed))
+
+    extra, det_failed = _det_check(args, rep, rerun)
+    _report_json(rep, {"seed": args.seed, "telemetry": tele, **extra})
+    return 1 if (rep.n_violating or det_failed) else 0
+
+
 def cmd_fuzz(args) -> int:
-    from madraft_tpu_torch.tpusim.engine import make_fuzz_fn, report, run_telemetry
+    from madraft_tpu_torch.tpusim.engine import make_fuzz_fn, report
 
     if args.mesh:
         _usage_error("fuzz: --mesh is not ported yet (ROADMAP A6)")
@@ -266,17 +290,7 @@ def cmd_fuzz(args) -> int:
         fn = make_fuzz_fn(cfg, args.clusters, args.ticks, device=_device(args))
     except ValueError as e:
         _usage_error(f"fuzz: {e}")
-    rep, tele = run_telemetry(
-        fn, report, args.seed, args.clusters * args.ticks,
-        n_lanes=args.clusters,
-    )
-
-    def rerun():
-        return report(fn(args.seed))
-
-    extra, det_failed = _det_check(args, rep, rerun)
-    _report_json(rep, {"seed": args.seed, "telemetry": tele, **extra})
-    return 1 if (rep.n_violating or det_failed) else 0
+    return _finish_fuzz(args, fn, report)
 
 
 def _service_bugs(cfg_cls) -> set:
@@ -303,7 +317,6 @@ def _with_service_bug(kcfg, name):
 
 
 def cmd_kv_fuzz(args) -> int:
-    from madraft_tpu_torch.tpusim.engine import run_telemetry
     from madraft_tpu_torch.tpusim.kv import KvConfig, kv_report, make_kv_fuzz_fn
 
     if args.mesh:
@@ -320,16 +333,30 @@ def cmd_kv_fuzz(args) -> int:
                              device=_device(args))
     except ValueError as e:
         _usage_error(f"kv-fuzz: {e}")
-    rep, tele = run_telemetry(fn, kv_report, args.seed,
-                              args.clusters * args.ticks,
-                              n_lanes=args.clusters)
+    return _finish_fuzz(args, fn, kv_report)
 
-    def rerun():
-        return kv_report(fn(args.seed))
 
-    extra, det_failed = _det_check(args, rep, rerun)
-    _report_json(rep, {"seed": args.seed, "telemetry": tele, **extra})
-    return 1 if (rep.n_violating or det_failed) else 0
+def cmd_ctrler_fuzz(args) -> int:
+    from madraft_tpu_torch.tpusim.ctrler import (
+        CtrlerConfig,
+        ctrler_report,
+        make_ctrler_fuzz_fn,
+    )
+
+    if args.mesh:
+        _usage_error("ctrler-fuzz: --mesh is not ported yet (ROADMAP A6)")
+    cfg = _sim_config(args).replace(
+        p_client_cmd=0.0, compact_at_commit=False, log_cap=32,
+        compact_every=8)
+    kcfg = _with_service_bug(
+        CtrlerConfig(p_query=args.p_query, p_move=args.p_move),
+        args.service_bug)
+    try:
+        fn = make_ctrler_fuzz_fn(cfg, kcfg, args.clusters, args.ticks,
+                                 device=_device(args))
+    except ValueError as e:
+        _usage_error(f"ctrler-fuzz: {e}")
+    return _finish_fuzz(args, fn, ctrler_report)
 
 
 def _state_schema(cfg, knobs, ticks: int, device) -> dict:
@@ -939,16 +966,20 @@ def main(argv=None) -> int:
                          "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
     sp.set_defaults(fn=cmd_fuzz)
 
+    def service_common(sp):
+        common(sp, 512)
+        sp.add_argument("--mesh", action="store_true",
+                        help="shard over all devices (not ported yet: exits "
+                             "2)")
+        sp.add_argument("--check-deterministic", action="store_true",
+                        help="run twice, demand a bit-identical report (also "
+                             "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
+        sp.add_argument("--service-bug", default="",
+                        help="plant one of this layer's service bugs (an "
+                             "unknown name lists the valid set)")
+
     sp = sub.add_parser("kv-fuzz", help="KV service fuzz (Lab 3)")
-    common(sp, 512)
-    sp.add_argument("--mesh", action="store_true",
-                    help="shard over all devices (not ported yet: exits 2)")
-    sp.add_argument("--check-deterministic", action="store_true",
-                    help="run twice, demand a bit-identical report (also "
-                         "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
-    sp.add_argument("--service-bug", default="",
-                    help="plant one of this layer's service bugs (an "
-                         "unknown name lists the valid set)")
+    service_common(sp)
     sp.add_argument("--p-get", type=float, default=0.3)
     sp.add_argument("--p-put", type=float, default=0.2)
     sp.add_argument("--p-follow-hint", type=float, default=0.0,
@@ -959,6 +990,13 @@ def main(argv=None) -> int:
                     help="ticks a clerk pauses after a submit landed at a "
                          "leader (the call-timeout pacing)")
     sp.set_defaults(fn=cmd_kv_fuzz)
+
+    sp = sub.add_parser(
+        "ctrler-fuzz", help="shard-controller config service (Lab 4A)")
+    service_common(sp)
+    sp.add_argument("--p-query", type=float, default=0.3)
+    sp.add_argument("--p-move", type=float, default=0.1)
+    sp.set_defaults(fn=cmd_ctrler_fuzz)
 
     sp = sub.add_parser(
         "pool",

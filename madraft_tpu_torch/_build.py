@@ -24,6 +24,9 @@ SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick",
 # K9's source: a kv run's set-up builds it or K9-metrics (kernels/kv.py
 # variant), and nothing else of the raft verbs' set-up builds it
 KV = "kv"
+# K10's source: a ctrler run's set-up builds it or K10-metrics
+# (kernels/ctrler.py variant), as a kv run's builds K9
+CTRLER = "ctrler"
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
 # their first use or by the engine's set-up before a run that takes them;
@@ -40,6 +43,9 @@ VARIANTS = {
     "kv_metrics": ("kv", ("-DMADRAFT_K9_METRICS",)),
     # K9's profile build (clock64() a phase), launched only by chip_smoke.py
     "kv_profile": ("kv", ("-DMADRAFT_K9_PROFILE",)),
+    # K10-metrics (kernels/ctrler.py variant): the ctrler service tick with
+    # the clerks' latency and phase folds
+    "ctrler_metrics": ("ctrler", ("-DMADRAFT_K10_METRICS",)),
 }
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"

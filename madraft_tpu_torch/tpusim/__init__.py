@@ -1,8 +1,18 @@
 """The batched lockstep Raft simulator in PyTorch (twin of
-``madraft_tpu.tpusim``: the raw-raft fuzz/replay/pool/sweep paths and the
-kv service layer, ``tpusim.kv``)."""
+``madraft_tpu.tpusim``: the raw-raft fuzz/replay/pool/sweep paths, the
+kv service layer, ``tpusim.kv``, and the shard controller,
+``tpusim.ctrler``)."""
 
 from madraft_tpu_torch.tpusim.config import SimConfig
+from madraft_tpu_torch.tpusim.ctrler import (
+    CtrlerConfig,
+    CtrlerFuzzReport,
+    CtrlerState,
+    ctrler_fuzz,
+    ctrler_replay_cluster,
+    make_ctrler_fuzz_fn,
+    make_ctrler_sweep_fn,
+)
 from madraft_tpu_torch.tpusim.engine import (
     FuzzReport,
     fuzz,
@@ -18,7 +28,9 @@ from madraft_tpu_torch.tpusim.state import (
 from madraft_tpu_torch.tpusim.step import step_cluster
 
 __all__ = [
-    "ClusterState", "FuzzReport", "PackedClusterState", "SimConfig", "fuzz",
-    "init_cluster", "make_fuzz_fn", "replay_cluster", "run_pool",
+    "ClusterState", "CtrlerConfig", "CtrlerFuzzReport", "CtrlerState",
+    "FuzzReport", "PackedClusterState", "SimConfig", "ctrler_fuzz",
+    "ctrler_replay_cluster", "fuzz", "init_cluster", "make_ctrler_fuzz_fn",
+    "make_ctrler_sweep_fn", "make_fuzz_fn", "replay_cluster", "run_pool",
     "step_cluster",
 ]

@@ -201,6 +201,20 @@ class SimConfig:
         )
 
 
+def check_service_cfg(cfg: "SimConfig", layer: str) -> None:
+    """A service layer (kv, ctrler) owns command injection and moves the
+    compaction boundary with its apply cursor: refuse a raft config that
+    injects commands or compacts at the commit index."""
+    if cfg.p_client_cmd != 0.0:
+        raise ValueError(f"{layer} layer owns command injection: the raft "
+                         "config needs p_client_cmd=0.0")
+    if cfg.compact_at_commit:
+        raise ValueError(
+            f"{layer} fuzzing needs cfg.compact_at_commit=False: the "
+            "compaction boundary must follow the apply cursor, not the "
+            "commit index")
+
+
 def lane_view(x: torch.Tensor, ndim: int) -> torch.Tensor:
     """A knob against a [B, ...] operand of ``ndim`` dims: a 0-d (uniform)
     knob untouched, so the uniform tick adds no operation, a [B]

@@ -39,6 +39,7 @@ from madraft_tpu_torch.tpusim.config import (
     LEADER,
     NOOP_CMD,
     OPEN_QUEUE_SLOTS,
+    check_service_cfg,
     Knobs,
     SimConfig,
     lane_view,
@@ -49,8 +50,8 @@ from madraft_tpu_torch.tpusim.state import (
     ClusterState,
     durable_after_append,
     init_cluster,
-    state_from_numpy,
-    state_to_numpy,
+    service_state_from_numpy,
+    service_state_to_numpy,
 )
 from madraft_tpu_torch.tpusim.step import (
     _first_true,
@@ -235,16 +236,6 @@ SERVICE = KvState._fields[1:]
 # every leaf of a kv state as one flat name space: the raft leaves, then
 # the service leaves (kv_state_to_numpy / first_divergence)
 KV_FIELDS = ClusterState._fields + SERVICE
-
-
-def _check_kv_cfg(cfg: SimConfig) -> None:
-    if cfg.p_client_cmd != 0.0:
-        raise ValueError("KV layer owns command injection: the raft config "
-                         "needs p_client_cmd=0.0")
-    if cfg.compact_at_commit:
-        raise ValueError(
-            "KV fuzzing needs cfg.compact_at_commit=False: the compaction "
-            "boundary must follow the apply cursor, not the commit index")
 
 
 def _pack(cfg: KvConfig, client, seq, key, kind):
@@ -760,7 +751,7 @@ class KvFuzzProgram:
             resolve_device,
         )
 
-        _check_kv_cfg(cfg)
+        check_service_cfg(cfg, "KV")
         self.cfg, self.kcfg = cfg, kcfg
         self.n_clusters, self.n_ticks = n_clusters, n_ticks
         self.device = resolve_device(device)
@@ -847,7 +838,7 @@ def make_kv_sweep_fn(cfg: SimConfig, knobs: Knobs, kknobs: KvKnobs,
         validate_service_raft_knobs,
     )
 
-    _check_kv_cfg(cfg)
+    check_service_cfg(cfg, "KV")
     dev = resolve_device(device)
     knobs, kknobs = knobs.to(dev), kknobs.to(dev)
     _validate_knobs(knobs)
@@ -864,7 +855,7 @@ def kv_replay_cluster(cfg: SimConfig, kcfg: KvConfig, seed: int,
     final state with a batch axis of 1."""
     from madraft_tpu_torch.tpusim.engine import cluster_keys, resolve_device
 
-    _check_kv_cfg(cfg)
+    check_service_cfg(cfg, "KV")
     dev = resolve_device(device)
     kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
     keys = cluster_keys(seed, 1, dev, id0=int(cluster_id))
@@ -873,28 +864,14 @@ def kv_replay_cluster(cfg: SimConfig, kcfg: KvConfig, seed: int,
 
 
 # ---------------------------------------------------------- carry-across
-def kv_state_to_numpy(ks: KvState) -> dict:
-    """A kv state as one flat mapping of field -> host numpy array
-    (``KV_FIELDS``: the raft leaves by their names, then the service
-    leaves)."""
-    out = state_to_numpy(ks.raft)
-    out.update({f: getattr(ks, f).cpu().numpy() for f in SERVICE})
-    return out
+# a kv state as one flat mapping of field -> host numpy array (KV_FIELDS:
+# the raft leaves by their names, then the service leaves), and back
+kv_state_to_numpy = service_state_to_numpy
 
 
 def kv_state_from_numpy(arrays: dict, device=None) -> KvState:
-    """The inverse of ``kv_state_to_numpy``: a ``KvState`` from a flat
-    mapping of field -> array with a leading cluster axis (e.g. a JAX kv
-    state's leaves through ``np.asarray``). int32 and bool leaves only."""
-    raft = state_from_numpy({f: arrays[f] for f in ClusterState._fields},
-                            device)
-    service = []
-    for name in SERVICE:
-        a = np.asarray(arrays[name])
-        if a.dtype not in (np.int32, np.bool_):
-            raise ValueError(f"leaf {name} has dtype {a.dtype}, not int32/bool")
-        service.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
-    return KvState(raft, *service)
+    """``state.service_state_from_numpy`` of a ``KvState``."""
+    return service_state_from_numpy(KvState, arrays, device)
 
 
 def first_divergence(tick: int, want: dict, got: dict):

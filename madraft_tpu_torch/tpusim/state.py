@@ -272,6 +272,32 @@ def state_to_numpy(s: ClusterState) -> dict:
     return {f: getattr(s, f).cpu().numpy() for f in ClusterState._fields}
 
 
+def service_state_to_numpy(ks) -> dict:
+    """A service layer's state (``raft``, then the service leaves: a
+    ``kv.KvState`` or ``ctrler.CtrlerState``) as one flat mapping of field
+    -> host numpy array, the raft leaves by their names, then the service
+    leaves."""
+    out = state_to_numpy(ks.raft)
+    out.update({f: getattr(ks, f).cpu().numpy() for f in ks._fields[1:]})
+    return out
+
+
+def service_state_from_numpy(cls, arrays: dict, device=None):
+    """The inverse of ``service_state_to_numpy``: a state of the service
+    state class ``cls`` from a flat mapping of field -> array with a
+    leading cluster axis (e.g. a JAX service state's leaves through
+    ``np.asarray``). int32 and bool leaves only."""
+    raft = state_from_numpy({f: arrays[f] for f in ClusterState._fields},
+                            device)
+    service = []
+    for name in cls._fields[1:]:
+        a = np.asarray(arrays[name])
+        if a.dtype not in (np.int32, np.bool_):
+            raise ValueError(f"leaf {name} has dtype {a.dtype}, not int32/bool")
+        service.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return cls(raft, *service)
+
+
 def first_divergence(tick: int, want: dict, got: dict,
                      fields=ClusterState._fields):
     """The first leaf, in ``fields`` order, where two host states (field ->

@@ -1,8 +1,9 @@
 """K7's and K8's device code built for the host (``tests/kernel_host_emu.cpp``)
-with g++, and K9's (``tests/kv_host_emu.cpp``, ``build_kv``). The
-libraries have the kernel entries' C signatures, so
-``kernels.harvest._launch``, ``kernels.trace._launch`` and
-``kernels.kv._launch`` drive them as they drive the card's."""
+with g++, K9's (``tests/kv_host_emu.cpp``, ``build_kv``) and K10's
+(``tests/ctrler_host_emu.cpp``, ``build_ctrler``). The libraries have the
+kernel entries' C signatures, so ``kernels.harvest._launch``,
+``kernels.trace._launch``, ``kernels.kv._launch`` and
+``kernels.ctrler._launch`` drive them as they drive the card's."""
 
 from __future__ import annotations
 
@@ -54,4 +55,15 @@ def build_kv(out_dir: pathlib.Path, metrics: bool) -> ctypes.CDLL:
                    ["-DMADRAFT_K9_METRICS"] if metrics else [])
     lib.kv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.kv_launch.restype = ctypes.c_int
+    return lib
+
+
+def build_ctrler(out_dir: pathlib.Path, metrics: bool) -> ctypes.CDLL:
+    """K10's host library, its metrics build with ``metrics``."""
+    name = "ctrler_metrics" if metrics else "ctrler"
+    lib = _compile("ctrler_host_emu.cpp", out_dir / f"lib{name}_host.so",
+                   ["-DMADRAFT_K10_METRICS"] if metrics else [])
+    lib.ctrler_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p]
+    lib.ctrler_launch.restype = ctypes.c_int
     return lib

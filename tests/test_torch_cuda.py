@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from madraft_tpu_torch.kernels import coverage as K5
+from madraft_tpu_torch.kernels import ctrler as K10
 from madraft_tpu_torch.kernels import harvest as K7
 from madraft_tpu_torch.kernels import kv as K9
 from madraft_tpu_torch.kernels import metrics as K4
@@ -25,6 +26,7 @@ from madraft_tpu_torch.kernels import trace as K8
 from madraft_tpu_torch.tpusim import (
     config,
     coverage,
+    ctrler,
     engine,
     kv,
     metrics,
@@ -859,3 +861,88 @@ def test_kv_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
     for f in want._fields:
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
+
+
+# ---- K10, the shard controller's service tick, and the ctrler path
+CTRLER_BASE = dict(p_client_cmd=0.0, compact_at_commit=False, loss_prob=0.1,
+                   p_crash=0.01, p_restart=0.2, max_dead=2, p_repartition=0.02,
+                   p_heal=0.05, log_cap=32, compact_every=8)
+
+
+@pytest.mark.parametrize("n_nodes,kw,metrics_on,partitionable", [
+    (5, {}, False, True),
+    (3, {"bug_rotate_tiebreak": True}, True, False),
+    (7, {"bug_greedy_rebalance": True}, False, True),
+    (5, {"bug_full_reshuffle": True}, True, True),
+    # ten gids, one an op, and a history that fills
+    (5, {"n_gids": 10, "join_max": 1, "n_configs": 6, "p_move": 0.2}, True,
+     False),
+    # 32 clients: a warp's every lane a clerk
+    (7, {"n_clients": 32, "n_gids": 10}, True, True),
+])
+def test_ctrler_kernel_equals_plain_every_tick(dev, n_nodes, kw, metrics_on,
+                                               partitionable):
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=metrics_on,
+                           **CTRLER_BASE)
+    kcfg = ctrler.CtrlerConfig(**kw)
+    b = 1100  # past a whole number of blocks: the grid's ragged edge
+    with prng.layout(partitionable):
+        keys = engine.cluster_keys(7, b, dev)
+        kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+        ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+        for t in range(80):
+            pre = ks.raft
+            s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+            want = ctrler._ctrler_service_tick(cfg, kcfg, ks, pre.alive,
+                                               pre.base, s, keys, kn, ckn)
+            before = (K10.ctrler_tick.launches,
+                      K10.ctrler_tick.metrics_launches)
+            got = K10.ctrler_tick(cfg, kcfg, ks, pre.alive, pre.base, s,
+                                  keys, kn, ckn)
+            assert (K10.ctrler_tick.launches,
+                    K10.ctrler_tick.metrics_launches) == (
+                before[0] + 1, before[1] + int(metrics_on))
+            d = ctrler.first_divergence(t, ctrler.ctrler_state_to_numpy(want),
+                                        ctrler.ctrler_state_to_numpy(got))
+            assert d is None, d
+            ks = got
+    assert ks.clerk_acked.sum() > 0 and ks.w_cfg_num.sum() > 0
+    assert ks.queries_done.sum() > 0
+
+
+def test_ctrler_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.SimConfig(n_nodes=5, **CTRLER_BASE)
+    kcfg = ctrler.CtrlerConfig()
+    keys = engine.cluster_keys(1, 8, dev)
+    kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+    s = K6.tick_chunk(cfg, ks.raft, keys, kn, 1)
+    pre = (ks.raft.alive, ks.raft.base)
+    before = K10.ctrler_tick.launches
+    with pytest.raises(ValueError, match="clerk_arg"):
+        K10.ctrler_tick(cfg, kcfg, ks._replace(clerk_arg=ks.clerk_arg.cpu()),
+                        *pre, s, keys, kn, ckn)
+    with pytest.raises(ValueError, match="n_clients"):
+        K10.ctrler_tick(cfg, kcfg.replace(n_clients=40), ks, *pre, s, keys,
+                        kn, ckn)
+    # the metrics build refuses a metrics-off state
+    with pytest.raises(RuntimeError, match="ctrler_launch"):
+        K10._launch(cfg, kcfg, ks, *pre, s, keys,
+                    K10.knob_table(kn, ckn, 8), K10._lib("ctrler_metrics"),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    assert K10.ctrler_tick.launches == before
+
+
+@pytest.mark.parametrize("metrics_on", [False, True])
+def test_ctrler_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
+    cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **CTRLER_BASE)
+    kcfg = ctrler.CtrlerConfig(bug_rotate_tiebreak=True)
+    launches = (K6.tick_chunk.launches, K10.ctrler_tick.launches)
+    got = ctrler.ctrler_fuzz(cfg, kcfg, 5, 64, 160, device=dev)
+    assert (K6.tick_chunk.launches - launches[0],
+            K10.ctrler_tick.launches - launches[1]) == (160, 160)
+    want = ctrler.ctrler_fuzz(cfg, kcfg, 5, 64, 160, device="cpu")
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None and b is None) or (a == b).all(), f
+    assert want.n_violating > 0

@@ -78,7 +78,7 @@ def test_kv_fuzz_exit_codes_and_usage_errors():
     assert "apply_uncommitted" in err
     rc, _, err = run(port_main, ["kv-fuzz", "--mesh", "--platform", "cpu"])
     assert rc == 2 and "A6" in err
-    for verb in ("ctrler-fuzz", "shardkv-fuzz", "bridge", "lint"):
+    for verb in ("shardkv-fuzz", "bridge", "lint"):
         rc, _, err = run(port_main, [verb])
         assert rc == 2 and "ROADMAP queue A" in err, verb
 

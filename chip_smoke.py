@@ -195,6 +195,28 @@ CTRLER_K10_CASES = (
     # 32 clients: a warp's every lane a clerk
     ("clients_32", 7, {"n_clients": 32, "n_gids": 10}, True, True),
 )
+# the shardkv flagship (the CLI's deployment: n = 5, cap 64, 3 groups, 10
+# shards, 4 clerks, 6 configs; 1024 deployments, so 3072 group clusters a
+# tick, at the kv and ctrler flagships' depth: cfg_interval 60 puts
+# config 5 near tick 300), twice; then once with the metrics plane
+SHARDKV_FLAGSHIP = ["shardkv-fuzz", "--storm", "--clusters", "1024",
+                    "--ticks", "512", "--seed", "12345",
+                    "--check-deterministic"]
+SHARDKV_METRICS_FLAGSHIP = SHARDKV_FLAGSHIP[:-1] + ["--metrics"]
+# the shardkv flagship's eager-vs-kernel A/B: the four runs' depth
+SHARDKV_AB_TICKS = 32
+# K11 against its plain version (phase shardkv_k11): the flagship's batch
+# from tick SHARDKV_K11_WARM (the cases as [B] rows, shardkv_knob_rows),
+# K11 under the partitionable layout and K11-metrics under the legacy
+# one, and a small edge batch (deployments, n, shardkv config, warm
+# ticks: five groups of seven, 32 clerks, a ragged batch), each compared
+# for SHARDKV_K11_TICKS ticks
+SHARDKV_K11_WARM, SHARDKV_K11_TICKS = 200, 24
+SHARDKV_K11_EDGE = (37, 7, {"n_groups": 5, "n_clients": 32, "p_put": 0.2,
+                            "cfg_interval": 20}, 60)
+# the row cases of shardkv_knob_rows, deployment d taking case d % 7
+SHARDKV_ROW_CASES = ("clean", "skip_freeze", "drop_dup_table",
+                     "serve_frozen", "puts", "open_zipf", "requery")
 # the metrics-on packed carry at n = 5, cap = 64 (the reference's pin)
 METRICS_BYTES_PER_LANE = 3600
 # a small pool whose broken quorum violates across refill generations
@@ -276,25 +298,35 @@ def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
     ``kernel`` (or the sum over a tuple of names, the launches of one
     call) over iters calls of fn(i), from torch.profiler's CUPTI trace:
     the kernels' own execution, without the host's issue time or any
-    other kernel the wrapper launches. CUPTI now and then hands a window
-    few or none of its kernel records (after long profiled windows), so
-    such a window is measured again, up to ``attempts`` times."""
+    other kernel the wrapper launches. After the script's long profiled
+    windows CUPTI drops the first records of a window that starts cold (it
+    saw 43 of a window's 50 K11 launches, five windows in a row), so each
+    window opens, as ``_profiled``'s do, with a warm-up step (the warmup
+    calls; nothing they launch is kept) and a spin kernel before the timed
+    calls, and a window that still saw few or none of them is measured
+    again, up to ``attempts`` times."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
-    for i in range(warmup):
-        fn(i)
     for attempt in range(attempts):
         if attempt:
             time.sleep(0.5)  # CUPTI's buffers come back asynchronously
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for i in range(warmup):
+                fn(i)
+            torch.cuda.synchronize()
+            prof.step()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
+            prof.step()
         avgs = prof.key_averages()
         seen = {}
         for k in names:
@@ -356,6 +388,7 @@ def counters():
     from madraft_tpu_torch.kernels import metrics as K4
     from madraft_tpu_torch.kernels import oracle as K2
     from madraft_tpu_torch.kernels import pack as K3
+    from madraft_tpu_torch.kernels import shardkv as K11
     from madraft_tpu_torch.kernels import threefry as K1
     from madraft_tpu_torch.kernels import tick as K6
     from madraft_tpu_torch.kernels import trace as K8
@@ -377,7 +410,9 @@ def counters():
             "kv_tick": (K9.kv_tick, "launches"),
             "kv_tick_metrics": (K9.kv_tick, "metrics_launches"),
             "ctrler_tick": (K10.ctrler_tick, "launches"),
-            "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches")}
+            "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches"),
+            "shardkv_tick": (K11.shardkv_tick, "launches"),
+            "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches")}
 
 
 def read_counts() -> dict:
@@ -444,8 +479,8 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    per_source = _build.build_all(_build.SOURCES + (_build.KV, _build.CTRLER)
-                                 + tuple(_build.VARIANTS))
+    per_source = _build.build_all(_build.SOURCES + (
+        _build.KV, _build.CTRLER, _build.SHARDKV) + tuple(_build.VARIANTS))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}})
     # ---- 2. K1 against its plain version, both layouts
@@ -1414,6 +1449,12 @@ def main() -> int:
     emit(_ctrler_k10(dev, errs))
     ctrler_launches, ctrler_launches_m = _ctrler_path(dev)
 
+    # ---- 6m. the shardkv path: K11 and K11-metrics against the plain
+    # service tick, then the shardkv flagships through the CLI (K6 over
+    # the groups and K11 once a tick) and the eager-vs-kernel A/B
+    emit(_shardkv_k11(dev, errs))
+    shardkv_launches, shardkv_launches_m = _shardkv_path(dev)
+
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
     total = step._block_total(n_nodes)
@@ -1912,6 +1953,16 @@ def main() -> int:
           "b4_harvest_bytes_per_lane": harvest_bpl,
           "b4_harvest_bound_ms": b * harvest_bpl / PEAK_BYTES_S * 1e3})
     emit(_harvest_routes(fs, fk, fkn, errs))
+    # K11 and K11-metrics at the shardkv flagship's shape, and where a
+    # shardkv tick's time goes: after K6's profiled phases, whose short
+    # windows lose CUPTI records more often after many long ones
+    shardkv_timing, shardkv_bytes = _shardkv_timing(dev)
+    timing.update(shardkv_timing)
+    emit({"phase": "shardkv_timing", "card": _smi(),
+          "shardkv_tick_bytes": shardkv_bytes,
+          **{k: dict(zip(("ms", "call_ms", "plain_ms", "bytes", "operations"),
+                         v)) for k, v in shardkv_timing.items()}})
+    emit(_profile_shardkv_tick(dev, False))
 
     emit(card)
     # name: (label, source, the reference region it replaces)
@@ -1957,6 +2008,11 @@ def main() -> int:
         "ctrler_tick_metrics": ("K10-metrics",
                                 "madraft_tpu_torch/csrc/ctrler.cu",
                                 "madraft_tpu/tpusim/ctrler.py:750"),
+        "shardkv_tick": ("K11", "madraft_tpu_torch/csrc/shardkv.cu",
+                         "madraft_tpu/tpusim/shardkv.py:907"),
+        "shardkv_tick_metrics": ("K11-metrics",
+                                 "madraft_tpu_torch/csrc/shardkv.cu",
+                                 "madraft_tpu/tpusim/shardkv.py:1768"),
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -1984,6 +2040,10 @@ def main() -> int:
     # K10's from the ctrler flagship, K10-metrics' from its metrics run
     launches["ctrler_tick"] = ctrler_launches["ctrler_tick"]
     launches["ctrler_tick_metrics"] = ctrler_launches_m["ctrler_tick_metrics"]
+    # K11's from the shardkv flagship, K11-metrics' from its metrics run
+    launches["shardkv_tick"] = shardkv_launches["shardkv_tick"]
+    launches["shardkv_tick_metrics"] = shardkv_launches_m[
+        "shardkv_tick_metrics"]
     errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
@@ -2257,7 +2317,7 @@ def _k6_scaling(cfg, s, keys, kn, m: int) -> dict:
         kb = keys[:b].contiguous()
         table = K6.knob_table(kn, b)
         ms = device_ms(lambda i: K6.tick_chunk(cfg, sb, kb, kn, m, table),
-                       "tick_chunk_kernel", iters=10, warmup=2)
+                       "tick_chunk_kernel", iters=20, warmup=2)
         points.append({**_k6_load(grid, b, sms), "ms": ms,
                        "us_per_tick": ms * 1e3 / m})
     set_counts(counts)
@@ -3692,6 +3752,430 @@ def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
             "k10_ms_per_tick": dev_ms("ctrler_kernel") / n_ticks,
             "k6_share": dev_ms("tick_chunk_kernel") / wall_ms,
             "k10_share": dev_ms("ctrler_kernel") / wall_ms,
+            "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
+            "top_device_ms_per_tick": {
+                e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(
+                    kernels, key=_dev_us, reverse=True)[:5]}}
+
+
+# ------------------------------------------------------- the shardkv path
+def shardkv_knob_rows(kcfg, b: int):
+    """[B] shardkv knob rows (on the CPU) that put deployment d in case
+    SHARDKV_ROW_CASES[d % 7]: clean, each planted bug, Puts, open-loop
+    arrivals with the Zipf shard draw, the WrongGroup re-query. For
+    holding K11 against its plain version (phase ``shardkv_k11``) and the
+    port against the reference (``tests/test_torch_shardkv.py``)."""
+    import torch
+
+    kk = kcfg.knobs().broadcast(b)
+    c = torch.arange(b) % len(SHARDKV_ROW_CASES)
+    return kk._replace(
+        bug_skip_freeze=c == 1, bug_drop_dup_table=c == 2,
+        bug_serve_frozen=c == 3,
+        p_put=torch.where((c == 4) | (c == 5), 0.3, 0.0).float(),
+        open_rate=torch.where(c == 5, 0.3, 0.0).float(),
+        open_queue_cap=torch.where(c == 5, 4, 0).int(),
+        zipf_a=torch.where(c == 5, 1.6, 1.0).float(),
+        requery_wrong_group=c == 6)
+
+
+def _shardkv_cli_cfg(metrics: bool = False):
+    """shardkv-fuzz --storm's configs: the raft config the verb builds
+    (n = 5, cap 64, compact_every 16, loss 0.1, crash 0.01, one dead at
+    most) and ShardKvConfig(p_get=0.3, p_put=0.2) (the CLI's defaults)."""
+    from madraft_tpu_torch.tpusim import shardkv
+    from madraft_tpu_torch.tpusim.config import SimConfig
+
+    cfg = SimConfig(n_nodes=5, p_client_cmd=0.0, compact_at_commit=False,
+                    log_cap=64, compact_every=16, loss_prob=0.1, p_crash=0.01,
+                    p_restart=0.2, max_dead=1, metrics=metrics)
+    return cfg, shardkv.ShardKvConfig(p_get=0.3, p_put=0.2)
+
+
+def _shardkv_err(a, b) -> float:
+    import torch
+
+    from madraft_tpu_torch.tpusim import shardkv
+
+    x, y = shardkv.shardkv_state_to_numpy(a), shardkv.shardkv_state_to_numpy(b)
+    return max(max_abs_err(torch.from_numpy(x[f]), torch.from_numpy(y[f]))
+               for f in shardkv.SHARDKV_FIELDS)
+
+
+def _shardkv_k11(dev, errs: dict) -> dict:
+    """Phase shardkv_k11: K11 and K11-metrics against the plain service
+    tick on the card, every leaf after every one of SHARDKV_K11_TICKS
+    ticks (the raft tick by K6 over the groups): the flagship's batch
+    from tick SHARDKV_K11_WARM with the cases of SHARDKV_ROW_CASES as
+    [B] knob rows, metrics off (partitionable) and on (legacy), then the
+    edge batch SHARDKV_K11_EDGE; and config.zipf_map on the card against
+    the CPU over every shard draw. Reports, for each case, the migrations
+    (installs) and GCs (deletes) the compared ticks walked. Launches here
+    are not main-path launches."""
+    import torch
+
+    from madraft_tpu_torch.kernels import shardkv as K11
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import config, engine, prng, shardkv
+
+    counts = read_counts()
+    b_flag = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    eb, en, ekw, ewarm = SHARDKV_K11_EDGE
+    runs = (("flagship_rows", b_flag, 5, "rows", False, True,
+             SHARDKV_K11_WARM),
+            ("flagship_rows_metrics_legacy", b_flag, 5, "rows", True, False,
+             SHARDKV_K11_WARM),
+            ("edge_g5_n7_clients32", eb, en, ekw, True, True, ewarm))
+    done = []
+    for name, b, n, kw, metrics_on, flag, warm in runs:
+        cfg, kcfg = _shardkv_cli_cfg(metrics_on)
+        cfg = cfg.replace(n_nodes=n)
+        if kw != "rows":
+            kcfg = kcfg.replace(**kw)
+        g = kcfg.n_groups
+        with prng.layout(flag):
+            keys = engine.cluster_keys(12345, b, dev)
+            kn = cfg.knobs(dev)
+            skn = (shardkv_knob_rows(kcfg, b).to(dev) if kw == "rows"
+                   else kcfg.knobs(dev))
+            st = shardkv._advance_shardkv(
+                cfg, kcfg, shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn,
+                                                        skn),
+                keys, kn, skn, warm)
+            start = st
+            gkeys = shardkv.group_keys(keys, g).reshape(-1, 2)
+            gkn = shardkv._group_knobs(kn, g)
+            table = K11.knob_table(kn, skn, b)
+            err = 0.0
+            for _ in range(SHARDKV_K11_TICKS):
+                pre = st.rafts
+                s = shardkv._unflat(K6.tick_chunk(cfg, shardkv._flat(pre),
+                                                  gkeys, gkn, 1), b)
+                want = shardkv._shardkv_service_tick(
+                    cfg, kcfg, st, pre.alive, pre.base, s, keys, kn, skn)
+                got = K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base, s,
+                                       keys, kn, skn, table)
+                err = max(err, _shardkv_err(got, want))
+                st = want
+        key = "shardkv_tick_metrics" if metrics_on else "shardkv_tick"
+        errs[key] = max(errs[key], err)
+        check(err == 0, f"K11 differs from its plain version: {name}")
+        case = (torch.arange(b, device=dev) % len(SHARDKV_ROW_CASES)
+                if kw == "rows" else torch.zeros(b, dtype=torch.int64,
+                                                 device=dev))
+        names = SHARDKV_ROW_CASES if kw == "rows" else ("edge",)
+        per_case = {}
+        for i, cname in enumerate(names):
+            m = case == i
+            per_case[cname] = {
+                "deployments": int(m.sum()),
+                "violating": int(((st.violations != 0) & m).sum()),
+                "installs_in_compared_ticks": int(
+                    ((st.installs_done - start.installs_done) * m).sum()),
+                "deletes_in_compared_ticks": int(
+                    ((st.deletes_done - start.deletes_done) * m).sum()),
+                "acks_in_compared_ticks": int(
+                    ((st.clerk_acked - start.clerk_acked).sum(-1) * m).sum())}
+        walked = {k: sum(d[f"{k}_in_compared_ticks"]
+                         for d in per_case.values())
+                  for k in ("installs", "deletes", "acks")}
+        # the flagship's rows migrate and GC in their compared ticks; the
+        # small edge batch need only ack
+        check(walked["acks"] > 0 and (kw != "rows" or (
+            walked["installs"] > 0 and walked["deletes"] > 0)),
+              f"shardkv_k11 {name}: the compared ticks walked {per_case}")
+        done.append({"run": name, "deployments": b, "n_nodes": n,
+                     "groups": g, "metrics": metrics_on,
+                     "partitionable": flag, "from_tick": warm,
+                     "cases": per_case})
+    # config.zipf_map on the card against the CPU, every shard draw
+    zipf = []
+    d = torch.arange(10, dtype=torch.int32)
+    for a in (1.0, 1.5, 1.6, 2.0, 3.0):
+        at = torch.tensor(a, dtype=torch.float32)
+        got = config.zipf_map(d.to(dev), 10, at.to(dev)).cpu()
+        zipf.append([10, a, int((got != config.zipf_map(d, 10, at)).sum())])
+    check(all(x[2] == 0 for x in zipf), f"zipf_map card vs CPU: {zipf}")
+    set_counts(counts)
+    return {"phase": "shardkv_k11", "ticks": SHARDKV_K11_TICKS, "runs": done,
+            "zipf_grid_cells_differing": zipf,
+            "max_abs_err": max(errs["shardkv_tick"],
+                               errs["shardkv_tick_metrics"])}
+
+
+def _shardkv_path(dev) -> tuple:
+    """The shardkv main path through the CLI: the shardkv flagship twice
+    (--check-deterministic), then once with --metrics; the eager-vs-kernel
+    A/B at SHARDKV_AB_TICKS ticks. Returns (the flagship's launches, the
+    metrics flagship's)."""
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import engine, prng, shardkv
+
+    prng.set_partitionable(True)
+    ticks = _flag(SHARDKV_FLAGSHIP, "--ticks")
+    b = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
+                 "latency_fold", "seen_update", "kv_tick", "ctrler_tick",
+                 "harvest", "record")
+    runs = {}
+    for label, argv, n_runs in (
+            ("shardkv_flagship", SHARDKV_FLAGSHIP, FLAGSHIP_RUNS),
+            ("shardkv_metrics_flagship", SHARDKV_METRICS_FLAGSHIP, 1)):
+        metrics_on = "--metrics" in argv
+        set_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        wall = time.perf_counter() - t0
+        ran = read_counts()
+        want = ticks * n_runs
+        check(rc == 0 and out["violating"] == 0
+              and out.get("deterministic", n_runs == 1) is True
+              and out["acked_ops_mean"] > 0 and out["installs_mean"] > 0
+              and out["deletes_mean"] > 0 and out["final_cfg_mean"] > 0,
+              f"{label} rc {rc}: {out}")
+        check(ran["tick_chunk"] == ran["shardkv_tick"] == want
+              and ran["tick_chunk_metrics"] == want * metrics_on
+              and ran["shardkv_tick_metrics"] == want * metrics_on
+              and all(ran[k] == 0 for k in eager_off),
+              f"{label} launches {ran}: want K6 and K11 once a tick "
+              f"({want}), no draw chunk, K2, K4, K5, K9 or K10 launch")
+        tele = out["telemetry"]
+        row = {"phase": label, "argv": argv, "rc": rc,
+               "deployment_steps_per_s": tele["steps_per_sec"],
+               "execute_s": tele["execute_s"],
+               "wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+               "wall_s_all_runs": round(wall, 3),
+               "compile_s": tele["compile_s"],
+               "bytes_per_deployment": tele["bytes_per_lane"],
+               "tick_instance": K6.instance(_shardkv_cli_cfg()[0]),
+               "acked_ops_mean": out["acked_ops_mean"],
+               "installs_mean": out["installs_mean"],
+               "deletes_mean": out["deletes_mean"],
+               "final_cfg_mean": out["final_cfg_mean"],
+               "frozen_left_mean": out["frozen_left_mean"],
+               "launches": {k: v for k, v in ran.items() if v}}
+        if metrics_on:
+            lat = out["latency"]
+            check(all(k in out for k in METRIC_KEYS) and "phases" in lat,
+                  f"shardkv metrics report lacks a block: {sorted(out)}")
+            # the latency mass is the acked ops, on every phase row too
+            ops = lat["ops"]
+            check(round(ops / b, 2) == out["acked_ops_mean"]
+                  and all(d["ops"] == ops for d in lat["phases"].values())
+                  and "migration" in lat["phases"]
+                  and sum(d["ops"] for d in lat["by_key"].values()) == ops,
+                  f"shardkv latency mass {ops} vs acked "
+                  f"{out['acked_ops_mean']}, phases {list(lat['phases'])}")
+            row.update(p50_ticks=lat["p50_ticks"], p99_ticks=lat["p99_ticks"],
+                       ops=ops, migration_ticks=lat["phases"]["migration"][
+                           "ticks_total"])
+        emit(row)
+        runs[label] = ran
+
+    # the A/B: the flagship's shape at SHARDKV_AB_TICKS ticks, eager (the
+    # eager tick, the plain service tick) and kernel (K6 and K11) in turns
+    cfg, kcfg = _shardkv_cli_cfg()
+    ab, reps = [], []
+    advance = shardkv._advance_shardkv  # every shardkv run's ticks
+    for route in ("eager", "kernel", "kernel", "eager"):
+        set_counts()
+        shardkv._advance_shardkv = functools.partial(advance, tick=route)
+        try:
+            fn = shardkv.make_shardkv_fuzz_fn(cfg, kcfg, b, SHARDKV_AB_TICKS,
+                                              dev)
+            rep, tele = engine.run_telemetry(fn, shardkv.shardkv_report,
+                                             12345, b * SHARDKV_AB_TICKS,
+                                             n_lanes=b)
+        finally:
+            shardkv._advance_shardkv = advance
+        ran = read_counts()
+        kernel = route == "kernel"
+        check((ran["tick_chunk"] == ran["shardkv_tick"]
+               == SHARDKV_AB_TICKS * kernel)
+              and (ran["oracle"] == SHARDKV_AB_TICKS * (not kernel)),
+              f"shardkv A/B {route} launches {ran}")
+        reps.append(rep)
+        ab.append({"route": route, "ticks": SHARDKV_AB_TICKS,
+                   "deployment_steps_per_s": tele["steps_per_sec"],
+                   "wall_ms_per_tick": tele["execute_s"] / SHARDKV_AB_TICKS
+                   * 1e3,
+                   "launches": {k: v for k, v in ran.items() if v}})
+    from madraft_tpu_torch.__main__ import _reports_equal
+
+    check(all(_reports_equal(reps[0], r) for r in reps[1:]),
+          "shardkv A/B: the eager and the kernel route's reports differ")
+    rate = {r: sum(x["deployment_steps_per_s"] for x in ab
+                   if x["route"] == r) / 2 for r in ("eager", "kernel")}
+    emit({"phase": "shardkv_ab", "card": _smi(), "deployments": b,
+          "runs": ab, "reports_equal": True,
+          "kernel_over_eager": rate["kernel"] / rate["eager"]})
+    return runs["shardkv_flagship"], runs["shardkv_metrics_flagship"]
+
+
+def _shardkv_state(dev, metrics_on: bool, ticks: int = 200):
+    """The shardkv flagship's batch after ``ticks`` ticks on K6 and K11,
+    and its configs, keys and knobs."""
+    from madraft_tpu_torch.tpusim import engine, shardkv
+
+    cfg, kcfg = _shardkv_cli_cfg(metrics_on)
+    b = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    keys = engine.cluster_keys(12345, b, dev)
+    kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+    st = shardkv._advance_shardkv(
+        cfg, kcfg, shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn),
+        keys, kn, skn, ticks)
+    return cfg, kcfg, st, keys, kn, skn
+
+
+def _shardkv_bytes(cfg, kcfg, st, s, keys, table, written) -> dict:
+    """The bytes one shardkv service tick must move (``_shardkv_timing``),
+    counted as ``_kv_bytes`` counts K9's: every service leaf and every
+    raft leaf it writes read once and written once, the stepped raft rows
+    it reads, the pre-tick views, the schedule, keys and knob rows read
+    once, except the two [G, n, cap] log rows and the [G, cap] shadow
+    rows, of which the tick reads only the log_val slots its apply rounds
+    reach and the shadow slots its walker steps over (this run's counts)
+    and writes only the appended entries (a term and a value each)."""
+    import torch
+
+    from madraft_tpu_torch.kernels import shardkv as K11
+
+    pre = st.rafts
+    logs = ("log_term", "log_val")
+    state = ([getattr(st, f) for f in K11.SERVICE_WRITES]
+             + [getattr(s, f) for f in K11.RAFT_WRITES if f not in logs])
+    reads = ([getattr(s, f) for f in K11.RAFT_READS if f != "shadow_val"]
+             + [pre.alive, pre.base, st.cfg_tick, st.cfg_owner, keys, *table])
+    reset = (~pre.alive | ~s.alive | (s.snap_installed_src >= 0))
+    start = torch.where(reset, s.base, st.applied)
+    rounds = int((written.applied - start).sum())
+    steps = int((written.w_frontier - st.w_frontier).sum())
+    appends = int((written.rafts.log_len - s.log_len).sum())
+    out = {"state_read_and_written": 2 * nbytes(*state),
+           "reads": nbytes(*reads), "log_val_slots_read": rounds,
+           "shadow_slots_read": steps, "log_entries_appended": appends}
+    out["total"] = (out["state_read_and_written"] + out["reads"]
+                    + 4 * (rounds + steps) + 8 * appends)
+    return out
+
+
+def _shardkv_ops(cfg, kcfg, st, written, rounds: int, steps: int) -> int:
+    """The 32-bit operations one shardkv service tick does on this run's
+    data (``_shardkv_timing``): the threefry hashes (the 14 draw keys a
+    deployment, two fold-ins and a split each; a group's poll word; a
+    clerk's learn and start words; a started op's shard draw (4 hashes a
+    randint) and kind word; an outstanding clerk's retry word and target;
+    a (group, shard) pair's pull and GC poll words where its leader pulls
+    or holds a frozen copy), the restore (4 a table cell), the apply
+    rounds and walker steps (an entry's decode and update, 20, and a
+    CONFIG's pass over the shards, 6 a shard), and the leader views,
+    mailbox scans and oracles (4 a (group, node, shard) cell and a
+    (dst, src, shard) box)."""
+    from madraft_tpu_torch.tpusim.shardkv import FROZEN, PULLING
+
+    b, g, n = st.clerk_seq.shape[0], kcfg.n_groups, cfg.n_nodes
+    ns, nc = kcfg.n_shards, kcfg.n_clients
+    started = int((written.clerk_seq != st.clerk_seq).sum())
+    outstanding = int(written.clerk_out.sum())
+    # the pairs whose leader pulls or holds a frozen copy, by the walker's
+    # view of the groups
+    moving = int(((written.w_phase == PULLING)
+                  | (written.w_phase == FROZEN)).sum())
+    hashes = (b * (14 * 3 + g + 2 * nc) + started * (4 + 1)
+              + outstanding * (1 + 4) + 2 * moving)
+    cells = g * n * (3 * ns + ns * nc + 2)
+    boxes = g * g * ns * (6 + nc)
+    return (hashes * OPS_PER_HASH + b * 4 * (2 * cells + boxes)
+            + (rounds + steps) * (20 + 6 * ns))
+
+
+def _shardkv_timing(dev) -> tuple:
+    """K11's and K11-metrics' times at the shardkv flagship's shape (tick
+    200 to 201): (name -> (device ms, call ms, plain ms, bytes,
+    operations), the timing phase's tuple; name -> ``_shardkv_bytes``'
+    count). Each launch reads its inputs from device memory (copies in
+    rotation)."""
+    from madraft_tpu_torch.kernels import shardkv as K11
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import shardkv
+
+    counts = read_counts()
+    out, counted = {}, {}
+    for name, metrics_on in (("shardkv_tick", False),
+                             ("shardkv_tick_metrics", True)):
+        cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on)
+        b, g = keys.shape[0], kcfg.n_groups
+        pre = st.rafts
+        s = shardkv._unflat(K6.tick_chunk(
+            cfg, shardkv._flat(pre), shardkv.group_keys(keys, g).reshape(
+                -1, 2), shardkv._group_knobs(kn, g), 1), b)
+        table = K11.knob_table(kn, skn, b)
+        written = K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base, s,
+                                   keys, kn, skn, table)
+        counted[name] = _shardkv_bytes(cfg, kcfg, st, s, keys, table, written)
+        ops = _shardkv_ops(cfg, kcfg, st, written,
+                           counted[name]["log_val_slots_read"],
+                           counted[name]["shadow_slots_read"])
+        counted[name]["operations"] = ops
+        inputs = ([getattr(st, f) for f in K11.SERVICE_WRITES]
+                  + [getattr(s, f) for f in K11.RAFT_READS + K11.RAFT_WRITES]
+                  + [pre.alive, pre.base, st.cfg_tick, st.cfg_owner, keys,
+                     *table])
+        n_in = nbytes(*inputs)
+
+        def clone(x):
+            return (type(x)(*(clone(y) for y in x)) if isinstance(x, tuple)
+                    else x.clone())
+
+        rot = [(st, s)] + [(clone(st), clone(s))
+                           for _ in range(rotations(n_in) - 1)]
+
+        def call(i, plain=False):
+            k, r = rot[i % len(rot)]
+            return K11.shardkv_tick(cfg, kcfg, k, pre.alive, pre.base, r,
+                                    keys, kn, skn, table, plain=plain)
+
+        out[name] = (device_ms(call, "shardkv_kernel"), cuda_ms(call),
+                     cuda_ms(lambda i: call(i, True), iters=5, warmup=1),
+                     counted[name]["total"], ops)
+        del rot
+    set_counts(counts)
+    return out, counted
+
+
+def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
+    """Where a shardkv flagship tick's wall goes (torch.profiler, the
+    window retry of ``_profiled``): the device operations a tick, the
+    card's busy share of the wall and the host's, K6's and K11's shares
+    and device ms a tick, over n_ticks ticks from tick 200 on K6 and
+    K11."""
+    from madraft_tpu_torch.tpusim import shardkv
+
+    cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on)
+    counts = read_counts()
+    _, kernels, wall_ms, _, attempts = _profiled(
+        lambda: shardkv._advance_shardkv(cfg, kcfg, st, keys, kn, skn,
+                                         n_ticks),
+        expect=("tick_chunk_kernel", "shardkv_kernel"))
+    set_counts(counts)
+
+    def dev_ms(name):
+        return sum(_dev_us(e) for e in kernels if name in e.key) / 1e3
+
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    return {"phase": "profile_shardkv_tick" + "_metrics" * metrics_on,
+            "card": _smi(), "ticks": n_ticks,
+            "deployments": int(keys.shape[0]),
+            "group_clusters": int(keys.shape[0]) * kcfg.n_groups,
+            "profiler_attempts": attempts,
+            "wall_ms_per_tick": wall_ms / n_ticks,
+            "device_busy_ms_per_tick": busy_ms / n_ticks,
+            "device_busy_share": busy_ms / wall_ms,
+            "host_share": 1 - busy_ms / wall_ms,
+            "k6_ms_per_tick": dev_ms("tick_chunk_kernel") / n_ticks,
+            "k11_ms_per_tick": dev_ms("shardkv_kernel") / n_ticks,
+            "k6_share": dev_ms("tick_chunk_kernel") / wall_ms,
+            "k11_share": dev_ms("shardkv_kernel") / wall_ms,
             "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
             "top_device_ms_per_tick": {
                 e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(

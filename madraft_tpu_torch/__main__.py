@@ -1,9 +1,10 @@
-"""madtpu CLI on the PyTorch port (the raw-raft verbs, kv-fuzz and
-ctrler-fuzz).
+"""madtpu CLI on the PyTorch port (the raw-raft verbs, kv-fuzz,
+ctrler-fuzz and shardkv-fuzz).
 
     python -m madraft_tpu_torch fuzz   --clusters 4096 --ticks 1024 [--storm] [--metrics]
     python -m madraft_tpu_torch kv-fuzz --clusters 512 --ticks 512 [--service-bug stale_read]
     python -m madraft_tpu_torch ctrler-fuzz --clusters 512 --ticks 512 [--service-bug rotate_tiebreak]
+    python -m madraft_tpu_torch shardkv-fuzz --clusters 64 --ticks 512 [--service-bug skip_freeze]
     python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024 [--coverage]
     python -m madraft_tpu_torch sweep  --loss 0,0.1,0.3 --crash 0,0.02 --repartition 0,0.05
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm] [--knobs-json ROW]
@@ -27,7 +28,12 @@ submit->ack latency per key and per client. ``ctrler-fuzz`` fuzzes the
 shard controller's config service (Join / Leave / Move / Query, the
 canonical rebalance, the truth walker and the four controller oracles)
 the same way (``--service-bug rotate_tiebreak | greedy_rebalance |
-full_reshuffle``).
+full_reshuffle``). ``shardkv-fuzz`` fuzzes the multi-group sharded kv
+service (G raft groups a deployment, the pre-drawn config schedule, shard
+migration with pulls, installs and GC, the truth walker and the shardkv
+oracles; ``--service-bug skip_freeze | drop_dup_table | serve_frozen``);
+its two controller modes (``--live-ctrler``, ``--computed-ctrler``) exit
+2 naming ROADMAP A13b.
 ``--metrics`` turns on the on-device metrics plane (submit->commit latency
 histograms, phase attribution, the worst op, event counters); ``stats``
 merges and renders the metrics of any mix of those outputs on the host.
@@ -47,7 +53,7 @@ import json
 import os
 import sys
 
-NOT_PORTED_VERBS = ("shardkv-fuzz", "bridge", "lint")
+NOT_PORTED_VERBS = ("bridge", "lint")
 
 
 def _storm(cfg):
@@ -357,6 +363,53 @@ def cmd_ctrler_fuzz(args) -> int:
     except ValueError as e:
         _usage_error(f"ctrler-fuzz: {e}")
     return _finish_fuzz(args, fn, ctrler_report)
+
+
+def cmd_shardkv_fuzz(args) -> int:
+    from madraft_tpu_torch.tpusim.config import SimConfig
+    from madraft_tpu_torch.tpusim.shardkv import (
+        ShardKvConfig,
+        make_shardkv_fuzz_fn,
+        shardkv_report,
+    )
+
+    if args.mesh:
+        _usage_error("shardkv-fuzz: --mesh is not ported yet (ROADMAP A6)")
+    for flag, on in (("--live-ctrler", args.live_ctrler),
+                     ("--computed-ctrler", args.computed_ctrler)):
+        if on:
+            _usage_error(f"shardkv-fuzz: {flag} is not ported yet (ROADMAP "
+                         "A13b: the port runs the schedule mode)")
+    # the reference builds this verb's SimConfig from scratch: it owns the
+    # fault shape
+    cfg = SimConfig(
+        n_nodes=args.nodes, p_client_cmd=0.0, compact_at_commit=False,
+        log_cap=64, compact_every=16,
+        loss_prob=0.1 if args.storm else 0.05,
+        p_crash=0.01 if args.storm else 0.0,
+        p_restart=0.2, max_dead=1 if args.storm else 0,
+        bug=args.bug, metrics=args.metrics,
+    )
+    # the controller-mode bugs without their mode, in the reference's words
+    if args.service_bug == "stale_ctrler_read":
+        raise SystemExit(
+            "--service-bug stale_ctrler_read needs --live-ctrler: the bug "
+            "lives in the query path to the on-device replicated controller"
+        )
+    if args.service_bug == "rotate_tiebreak":
+        raise SystemExit(
+            "--service-bug rotate_tiebreak needs --computed-ctrler: the bug "
+            "rotates each controller replica's rebalance order, which only "
+            "exists when config content is computed on-device"
+        )
+    kcfg = _with_service_bug(
+        ShardKvConfig(p_get=args.p_get, p_put=args.p_put), args.service_bug)
+    try:
+        fn = make_shardkv_fuzz_fn(cfg, kcfg, args.clusters, args.ticks,
+                                  device=_device(args))
+    except ValueError as e:
+        _usage_error(f"shardkv-fuzz: {e}")
+    return _finish_fuzz(args, fn, shardkv_report)
 
 
 def _state_schema(cfg, knobs, ticks: int, device) -> dict:
@@ -966,8 +1019,8 @@ def main(argv=None) -> int:
                          "enabled by MADTPU_TEST_CHECK_DETERMINISTIC)")
     sp.set_defaults(fn=cmd_fuzz)
 
-    def service_common(sp):
-        common(sp, 512)
+    def service_common(sp, clusters=512):
+        common(sp, clusters)
         sp.add_argument("--mesh", action="store_true",
                         help="shard over all devices (not ported yet: exits "
                              "2)")
@@ -997,6 +1050,19 @@ def main(argv=None) -> int:
     sp.add_argument("--p-query", type=float, default=0.3)
     sp.add_argument("--p-move", type=float, default=0.1)
     sp.set_defaults(fn=cmd_ctrler_fuzz)
+
+    sp = sub.add_parser("shardkv-fuzz",
+                        help="multi-group sharded KV (Lab 4B)")
+    service_common(sp, 64)
+    sp.add_argument("--p-get", type=float, default=0.3)
+    sp.add_argument("--p-put", type=float, default=0.2)
+    sp.add_argument("--live-ctrler", action="store_true",
+                    help="configs ride a replicated controller cluster "
+                         "(not ported yet: exits 2)")
+    sp.add_argument("--computed-ctrler", action="store_true",
+                    help="config content computed by the controller's "
+                         "4A state machine (not ported yet: exits 2)")
+    sp.set_defaults(fn=cmd_shardkv_fuzz)
 
     sp = sub.add_parser(
         "pool",

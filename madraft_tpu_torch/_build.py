@@ -27,6 +27,9 @@ KV = "kv"
 # K10's source: a ctrler run's set-up builds it or K10-metrics
 # (kernels/ctrler.py variant), as a kv run's builds K9
 CTRLER = "ctrler"
+# K11's source: a shardkv run's set-up builds it or K11-metrics
+# (kernels/shardkv.py variant), as a ctrler run's builds K10
+SHARDKV = "shardkv"
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
 # their first use or by the engine's set-up before a run that takes them;
@@ -46,6 +49,9 @@ VARIANTS = {
     # K10-metrics (kernels/ctrler.py variant): the ctrler service tick with
     # the clerks' latency and phase folds
     "ctrler_metrics": ("ctrler", ("-DMADRAFT_K10_METRICS",)),
+    # K11-metrics (kernels/shardkv.py variant): the shardkv service tick
+    # with the clerks' latency, phase and per-shard / per-client folds
+    "shardkv_metrics": ("shardkv", ("-DMADRAFT_K11_METRICS",)),
 }
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"

@@ -1,0 +1,242 @@
+"""Kernel K11: the shardkv service tick (schedule mode) of a batch of
+deployments, one launch a tick.
+
+Replaces the JAX reference's service tick (B9),
+``madraft_tpu/tpusim/shardkv.py`` ``_shardkv_service_tick`` (907-2140,
+without its ``live_ctrler`` / ``computed_ctrler`` branches), and with the
+metrics plane (K11-metrics, the build ``variant`` names) the clerks'
+latency folds inside it (shardkv.py 1768-2118 with ``metrics.py``
+``fold_latencies``, ``fold_latencies_by``, ``fold_phases``,
+``update_worst`` and ``_shardkv_phase_matrix`` 678-695). Sources:
+``csrc/shardkv.cu`` (the kernel, its launch and the note on its bound and
+design) and ``csrc/shardkv.cuh`` (the device code).
+
+``shardkv_tick(cfg, kcfg, st, pre_alive, pre_base, s, keys, kn, skn)`` is
+the service share of one deployment tick: ``st`` the pre-tick shardkv
+state, ``s`` its group rafts after the raft tick ([B, G, ...]), the
+pre-tick views the rafts before it. On CPU tensors, or with
+``plain=True`` (the eager route's baseline on the card), it returns the
+plain version's result (``tpusim.shardkv._shardkv_service_tick``); on
+CUDA tensors it launches K11 or raises. The kernel writes a new state
+(the inputs stay as they were; the leaves the tick leaves alone are
+passed through) and hashes the tick's draws itself.
+``shardkv_tick.launches`` counts its launches,
+``shardkv_tick.metrics_launches`` those of K11-metrics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from madraft_tpu_torch import _build
+from madraft_tpu_torch.tpusim import prng
+from madraft_tpu_torch.tpusim.config import SimConfig
+
+I32, BOOL = torch.int32, torch.bool
+
+# csrc/shardkv.cuh limits
+MAX_GROUPS = 8
+MAX_NODES = 16
+MAX_CAP = 256
+MAX_SHARDS = 32
+MAX_CLIENTS = 32
+MAX_CONFIGS = 64
+
+# The service leaves the schedule mode's tick writes (the order of
+# csrc/shardkv.cuh Leaf), then the raft leaves it writes
+SERVICE_WRITES = (
+    "node_src", "snap_src", "applied", "node_cfg", "phase", "key_hash",
+    "key_count", "last_seq", "snap_cfg", "snap_phase", "snap_hash",
+    "snap_count", "snap_last_seq", "staged_cfg", "staged_hash",
+    "staged_count", "staged_last_seq", "pull_req_t", "pull_req_cfg",
+    "pull_rsp_t", "pull_rsp_cfg", "pull_rsp_hash", "pull_rsp_count",
+    "pull_rsp_last_seq", "gcq_req_t", "gcq_req_cfg", "gcq_rsp_t",
+    "gcq_rsp_cfg", "clerk_seq", "clerk_out", "clerk_shard", "clerk_kind",
+    "clerk_cfg", "clerk_wrong", "clerk_acked", "clerk_get_lo",
+    "clerk_get_obs", "gets_done", "open_arr", "open_srv", "open_drop",
+    "open_stamp", "clerk_sub", "lat_hist", "clerk_app", "clerk_cmt",
+    "clerk_apl", "clerk_mig", "client_retries", "phase_hist", "phase_ticks",
+    "lat_ticks", "worst_lat", "worst_phases", "worst_key", "worst_client",
+    "worst_sub", "key_lat_hist", "client_lat_hist", "w_frontier", "w_cfg",
+    "w_phase", "w_hash", "w_count", "w_last_seq", "frz_cfg", "frz_hash",
+    "frz_count", "frz_last_seq", "truth_count", "w_clerk_acked",
+    "installs_done", "deletes_done", "max_cfg_lag", "violations",
+    "first_violation_tick",
+)
+RAFT_WRITES = ("log_term", "log_val", "log_len", "durable_len",
+               "compact_floor")
+# The stepped group rafts' leaves the kernel reads (csrc/shardkv.cuh
+# Read), then come the pre-tick views, the schedule, the keys and the knob
+# table
+RAFT_READS = ("tick", "term", "role", "alive", "base", "commit",
+              "snap_installed_src", "shadow_val", "shadow_base",
+              "shadow_len")
+
+# The knob table's columns: the shardkv layer's float32 knobs, then its
+# int32 ones (bools as 0 / 1) with the raft knob flow_cap last
+KNOB_F32 = ("p_op", "p_get", "p_put", "p_retry", "p_cfg_learn", "p_pull",
+            "p_ack", "pull_loss", "open_rate", "zipf_a")
+KNOB_I32 = ("pull_delay_min", "pull_delay_max", "bug_skip_freeze",
+            "bug_drop_dup_table", "bug_serve_frozen", "requery_wrong_group",
+            "open_queue_cap")
+
+
+def variant(metrics: bool) -> str:
+    """The build of csrc/shardkv.cu for a run (``_build.VARIANTS``)."""
+    return "shardkv_metrics" if metrics else "shardkv"
+
+
+def knob_table(kn, skn, b: int) -> tuple:
+    """The knobs as per-deployment rows: (float32 [B, 10], int32 [B, 8]),
+    columns in KNOB_F32 / KNOB_I32 order then flow_cap; 0-d knobs are
+    broadcast. A caller running many ticks builds it once."""
+    f = torch.stack([getattr(skn, k).to(torch.float32).expand(b)
+                     for k in KNOB_F32], dim=1).contiguous()
+    cols = [getattr(skn, k).to(I32).expand(b) for k in KNOB_I32]
+    cols.append(kn.flow_cap.to(I32).to(f.device).expand(b))
+    return f, torch.stack(cols, dim=1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def leaf_shapes(cfg: SimConfig, kcfg) -> dict:
+    """name -> (per-deployment shape, dtype) of every leaf the kernel
+    writes or reads from the state, as ``init_shardkv_cluster`` makes them
+    for (cfg, kcfg)."""
+    from madraft_tpu_torch.tpusim.shardkv import init_shardkv_cluster
+
+    st = init_shardkv_cluster(cfg, kcfg, torch.zeros((1, 2),
+                                                     dtype=torch.int64))
+    out = {f: (tuple(getattr(st, f).shape[1:]), getattr(st, f).dtype)
+           for f in SERVICE_WRITES + ("cfg_tick", "cfg_owner")}
+    out.update({f: (tuple(getattr(st.rafts, f).shape[1:]),
+                    getattr(st.rafts, f).dtype)
+                for f in RAFT_WRITES + RAFT_READS})
+    return out
+
+
+def _lib(name: str):
+    lib = _build.library(name)
+    if not getattr(lib, "_typed", False):
+        lib.shardkv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p]
+        lib.shardkv_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
+    if (x.device != dev or tuple(x.shape) != shape or x.dtype != dtype
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"shardkv_tick: {name} is {tuple(x.shape)} {x.dtype} on "
+            f"{x.device}, expected contiguous {shape} {dtype} on {dev}")
+
+
+def check_shape(cfg: SimConfig, kcfg) -> None:
+    """Refuse a shape past what csrc/shardkv.cuh takes, naming the
+    limit (the kernel never hands a shape to the plain version)."""
+    g, n, cap = kcfg.n_groups, cfg.n_nodes, cfg.log_cap
+    ns, nc, ncfg = kcfg.n_shards, kcfg.n_clients, kcfg.n_configs
+    if (not 1 <= g <= MAX_GROUPS or not 1 <= n <= MAX_NODES
+            or cap > MAX_CAP or cap & (cap - 1)
+            or not 1 <= ns <= MAX_SHARDS or not 1 <= nc <= MAX_CLIENTS
+            or not 1 <= ncfg <= MAX_CONFIGS):
+        raise ValueError(
+            f"shardkv_tick takes n_groups <= {MAX_GROUPS}, n <= "
+            f"{MAX_NODES}, a power-of-two cap <= {MAX_CAP}, n_shards <= "
+            f"{MAX_SHARDS}, n_clients <= {MAX_CLIENTS} and n_configs <= "
+            f"{MAX_CONFIGS}, got n_groups={g} n={n} cap={cap} n_shards={ns} "
+            f"n_clients={nc} n_configs={ncfg}")
+    if kcfg.live_ctrler or kcfg.computed_ctrler:
+        raise ValueError("shardkv_tick runs the schedule mode: the "
+                         "controller modes are ROADMAP A13b")
+
+
+def _launch(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys, table,
+            lib, stream):
+    """Check the inputs, allocate the new state and launch ``lib``'s
+    ``shardkv_launch``. Returns the new ShardKvState."""
+    check_shape(cfg, kcfg)
+    g, n, cap = kcfg.n_groups, cfg.n_nodes, cfg.log_cap
+    dev, b = s.tick.device, s.tick.shape[0]
+    if b == 0:
+        raise ValueError("shardkv_tick: an empty batch")
+    shapes = leaf_shapes(cfg, kcfg)
+    ins = ([getattr(st, f) for f in SERVICE_WRITES]
+           + [getattr(s, f) for f in RAFT_WRITES])
+    names = SERVICE_WRITES + RAFT_WRITES
+    for name, x in zip(names, ins):
+        lane, dtype = shapes[name]
+        _check(name, x, (b, *lane), dtype, dev)
+    for name in RAFT_READS:
+        lane, dtype = shapes[name]
+        _check(name, getattr(s, name), (b, *lane), dtype, dev)
+    for name in ("cfg_tick", "cfg_owner"):
+        lane, dtype = shapes[name]
+        _check(name, getattr(st, name), (b, *lane), dtype, dev)
+    _check("pre_alive", pre_alive, (b, g, n), BOOL, dev)
+    _check("pre_base", pre_base, (b, g, n), I32, dev)
+    _check("keys", keys, (b, 2), torch.int64, dev)
+    kf, ki = table
+    _check("knob table (float32)", kf, (b, len(KNOB_F32)), torch.float32, dev)
+    _check("knob table (int32)", ki, (b, len(KNOB_I32) + 1), I32, dev)
+    # the new state: one allocation, each leaf a 16-byte aligned view
+    offs, nbytes = [], 0
+    for x in ins:
+        offs.append(nbytes)
+        nbytes += -(-x.numel() * x.element_size() // 16) * 16
+    buf = torch.empty((max(nbytes, 16),), dtype=torch.uint8, device=dev)
+    outs = [buf[at:at + x.numel() * x.element_size()].view(x.dtype)
+            .view(x.shape) for x, at in zip(ins, offs)]
+    reads = [getattr(s, f).data_ptr() for f in RAFT_READS] + [
+        pre_alive.data_ptr(), pre_base.data_ptr(), st.cfg_tick.data_ptr(),
+        st.cfg_owner.data_ptr(), keys.data_ptr(), kf.data_ptr(),
+        ki.data_ptr()]
+    hb = st.lat_hist.shape[1] if cfg.metrics else 0
+    head = [b, g, n, cap, kcfg.n_shards, kcfg.n_clients, kcfg.n_configs,
+            kcfg.apply_max, kcfg.walk_max, hb, int(prng.partitionable()),
+            int(cfg.metrics)]
+    leaves = []
+    for x, y in zip(ins, outs):
+        leaves += [x.data_ptr(), y.data_ptr(), x[0].numel(),
+                   x.element_size()]
+    desc = np.asarray(head + reads + leaves, dtype=np.int64)
+    _build.check(lib.shardkv_launch(desc.ctypes.data, len(desc), stream),
+                 "shardkv_launch")
+    new = dict(zip(names, outs))
+    rafts = s._replace(**{f: new[f] for f in RAFT_WRITES})
+    return st._replace(rafts=rafts, **{f: new[f] for f in SERVICE_WRITES})
+
+
+def shardkv_tick(cfg: SimConfig, kcfg, st, pre_alive: torch.Tensor,
+                 pre_base: torch.Tensor, s, keys, kn, skn, table=None,
+                 plain: bool = False):
+    """The service share of one deployment tick: the plain version on the
+    CPU (or with ``plain``), kernel K11's build for ``cfg.metrics`` on
+    CUDA. ``table`` is ``knob_table(kn, skn, B)`` on the device when the
+    caller has it."""
+    dev = s.tick.device
+    if dev.type == "cpu" or plain:
+        from madraft_tpu_torch.tpusim.shardkv import _shardkv_service_tick
+
+        return _shardkv_service_tick(cfg, kcfg, st, pre_alive, pre_base, s,
+                                     keys, kn, skn)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"shardkv_tick: expected CPU or CUDA tensors, got {dev}")
+    if table is None:
+        table = knob_table(kn.to(dev), skn.to(dev), s.tick.shape[0])
+    out = _launch(cfg, kcfg, st, pre_alive, pre_base, s, keys, table,
+                  _lib(variant(cfg.metrics)),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    shardkv_tick.launches += 1
+    shardkv_tick.metrics_launches += int(cfg.metrics)
+    return out
+
+
+shardkv_tick.launches = 0
+shardkv_tick.metrics_launches = 0

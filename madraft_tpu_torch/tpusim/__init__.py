@@ -1,7 +1,8 @@
 """The batched lockstep Raft simulator in PyTorch (twin of
 ``madraft_tpu.tpusim``: the raw-raft fuzz/replay/pool/sweep paths, the
-kv service layer, ``tpusim.kv``, and the shard controller,
-``tpusim.ctrler``)."""
+kv service layer, ``tpusim.kv``, the shard controller,
+``tpusim.ctrler``, and the sharded kv in its schedule mode,
+``tpusim.shardkv``)."""
 
 from madraft_tpu_torch.tpusim.config import SimConfig
 from madraft_tpu_torch.tpusim.ctrler import (
@@ -20,6 +21,14 @@ from madraft_tpu_torch.tpusim.engine import (
     replay_cluster,
     run_pool,
 )
+from madraft_tpu_torch.tpusim.shardkv import (
+    ShardKvConfig,
+    ShardKvFuzzReport,
+    ShardKvState,
+    make_shardkv_fuzz_fn,
+    make_shardkv_sweep_fn,
+    shardkv_fuzz,
+)
 from madraft_tpu_torch.tpusim.state import (
     ClusterState,
     PackedClusterState,
@@ -31,6 +40,7 @@ __all__ = [
     "ClusterState", "CtrlerConfig", "CtrlerFuzzReport", "CtrlerState",
     "FuzzReport", "PackedClusterState", "SimConfig", "ctrler_fuzz",
     "ctrler_replay_cluster", "fuzz", "init_cluster", "make_ctrler_fuzz_fn",
-    "make_ctrler_sweep_fn", "make_fuzz_fn", "replay_cluster", "run_pool",
-    "step_cluster",
+    "make_ctrler_sweep_fn", "make_fuzz_fn", "make_shardkv_fuzz_fn",
+    "make_shardkv_sweep_fn", "replay_cluster", "run_pool", "ShardKvConfig",
+    "ShardKvFuzzReport", "ShardKvState", "shardkv_fuzz", "step_cluster",
 ]

@@ -298,6 +298,38 @@ def service_state_from_numpy(cls, arrays: dict, device=None):
     return cls(raft, *service)
 
 
+def nested_state_to_numpy(st, clusters: tuple) -> dict:
+    """A service state that nests several ``ClusterState``s (the shardkv
+    state's ``rafts`` and ``ctrl``) as one flat mapping of field -> host
+    numpy array: each nested cluster's leaves as ``<name>.<field>``, then
+    the other leaves by their names."""
+    out = {}
+    for c in clusters:
+        out.update({f"{c}.{f}": a
+                    for f, a in state_to_numpy(getattr(st, c)).items()})
+    out.update({f: getattr(st, f).cpu().numpy() for f in st._fields
+                if f not in clusters})
+    return out
+
+
+def nested_state_from_numpy(cls, arrays: dict, clusters: tuple,
+                            device=None):
+    """The inverse of ``nested_state_to_numpy``: a state of class ``cls``
+    from a flat mapping with a leading batch axis. int32 and bool leaves
+    only; a nested cluster's leaves keep their shapes."""
+    kw = {c: state_from_numpy({f: arrays[f"{c}.{f}"]
+                               for f in ClusterState._fields}, device)
+          for c in clusters}
+    for name in cls._fields:
+        if name in clusters:
+            continue
+        a = np.asarray(arrays[name])
+        if a.dtype not in (np.int32, np.bool_):
+            raise ValueError(f"leaf {name} has dtype {a.dtype}, not int32/bool")
+        kw[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return cls(**kw)
+
+
 def first_divergence(tick: int, want: dict, got: dict,
                      fields=ClusterState._fields):
     """The first leaf, in ``fields`` order, where two host states (field ->

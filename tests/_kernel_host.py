@@ -1,9 +1,11 @@
 """K7's and K8's device code built for the host (``tests/kernel_host_emu.cpp``)
-with g++, K9's (``tests/kv_host_emu.cpp``, ``build_kv``) and K10's
-(``tests/ctrler_host_emu.cpp``, ``build_ctrler``). The libraries have the
-kernel entries' C signatures, so ``kernels.harvest._launch``,
-``kernels.trace._launch``, ``kernels.kv._launch`` and
-``kernels.ctrler._launch`` drive them as they drive the card's."""
+with g++, K9's (``tests/kv_host_emu.cpp``, ``build_kv``), K10's
+(``tests/ctrler_host_emu.cpp``, ``build_ctrler``) and K11's
+(``tests/shardkv_host_emu.cpp``, ``build_shardkv``). The libraries have
+the kernel entries' C signatures, so ``kernels.harvest._launch``,
+``kernels.trace._launch``, ``kernels.kv._launch``,
+``kernels.ctrler._launch`` and ``kernels.shardkv._launch`` drive them as
+they drive the card's."""
 
 from __future__ import annotations
 
@@ -66,4 +68,15 @@ def build_ctrler(out_dir: pathlib.Path, metrics: bool) -> ctypes.CDLL:
     lib.ctrler_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_void_p]
     lib.ctrler_launch.restype = ctypes.c_int
+    return lib
+
+
+def build_shardkv(out_dir: pathlib.Path, metrics: bool) -> ctypes.CDLL:
+    """K11's host library, its metrics build with ``metrics``."""
+    name = "shardkv_metrics" if metrics else "shardkv"
+    lib = _compile("shardkv_host_emu.cpp", out_dir / f"lib{name}_host.so",
+                   ["-DMADRAFT_K11_METRICS"] if metrics else [])
+    lib.shardkv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p]
+    lib.shardkv_launch.restype = ctypes.c_int
     return lib

@@ -20,6 +20,7 @@ from madraft_tpu_torch.kernels import kv as K9
 from madraft_tpu_torch.kernels import metrics as K4
 from madraft_tpu_torch.kernels import oracle as K2
 from madraft_tpu_torch.kernels import pack as K3
+from madraft_tpu_torch.kernels import shardkv as K11
 from madraft_tpu_torch.kernels import threefry as K1
 from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.kernels import trace as K8
@@ -31,6 +32,7 @@ from madraft_tpu_torch.tpusim import (
     kv,
     metrics,
     prng,
+    shardkv,
     state,
     step,
     trace,
@@ -946,3 +948,96 @@ def test_ctrler_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
     assert want.n_violating > 0
+
+
+# ---- K11, the shardkv service tick, and the shardkv path
+SHARDKV_BASE = dict(p_client_cmd=0.0, compact_at_commit=False, log_cap=64,
+                    compact_every=16, loss_prob=0.1, p_crash=0.01,
+                    p_restart=0.2, max_dead=1)
+
+
+@pytest.mark.parametrize("n_nodes,kw,metrics_on,partitionable", [
+    (5, {}, False, True),
+    (3, {"bug_skip_freeze": True}, True, False),
+    (5, {"bug_drop_dup_table": True}, False, True),
+    (5, {"bug_serve_frozen": True}, True, True),
+    (3, {"p_put": 0.3, "requery_wrong_group": True}, True, False),
+    (5, {"open_rate": 0.3, "open_queue_cap": 4, "zipf_a": 1.6}, True, True),
+    # five groups of seven, 32 clients: a warp's every lane a clerk
+    (7, {"n_groups": 5, "n_clients": 32, "p_put": 0.2}, True, False),
+])
+def test_shardkv_kernel_equals_plain_every_tick(dev, n_nodes, kw, metrics_on,
+                                                partitionable):
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=metrics_on,
+                           **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=20, **kw)
+    b = 1100  # past a whole number of blocks: the grid's ragged edge
+    g = kcfg.n_groups
+    with prng.layout(partitionable):
+        keys = engine.cluster_keys(7, b, dev)
+        kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+        gkeys = shardkv.group_keys(keys, g).reshape(-1, 2)
+        st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+        for t in range(60):
+            pre = st.rafts
+            s = shardkv._unflat(K6.tick_chunk(cfg, shardkv._flat(pre), gkeys,
+                                              kn, 1), b)
+            want = shardkv._shardkv_service_tick(cfg, kcfg, st, pre.alive,
+                                                 pre.base, s, keys, kn, skn)
+            before = (K11.shardkv_tick.launches,
+                      K11.shardkv_tick.metrics_launches)
+            got = K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base, s,
+                                   keys, kn, skn)
+            assert (K11.shardkv_tick.launches,
+                    K11.shardkv_tick.metrics_launches) == (
+                before[0] + 1, before[1] + int(metrics_on))
+            d = shardkv.first_divergence(
+                t, shardkv.shardkv_state_to_numpy(want),
+                shardkv.shardkv_state_to_numpy(got))
+            assert d is None, d
+            st = got
+    assert st.clerk_acked.sum() > 0
+    if kw.get("bug_skip_freeze"):
+        # no shard freezes, so no pull is answered: the walker diverges
+        assert (st.violations & shardkv.VIOLATION_SHARD_DIVERGE).any()
+    else:
+        assert st.installs_done.sum() > 0
+
+
+def test_shardkv_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.SimConfig(n_nodes=5, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig()
+    keys = engine.cluster_keys(1, 8, dev)
+    kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+    st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+    s = st.rafts
+    pre = (s.alive, s.base)
+    before = K11.shardkv_tick.launches
+    with pytest.raises(ValueError, match="clerk_shard"):
+        K11.shardkv_tick(cfg, kcfg,
+                         st._replace(clerk_shard=st.clerk_shard.cpu()),
+                         *pre, s, keys, kn, skn)
+    with pytest.raises(ValueError, match="n_clients"):
+        K11.shardkv_tick(cfg, kcfg.replace(n_clients=40), st, *pre, s, keys,
+                         kn, skn)
+    # the metrics build refuses a metrics-off state
+    with pytest.raises(RuntimeError, match="shardkv_launch"):
+        K11._launch(cfg, kcfg, st, *pre, s, keys,
+                    K11.knob_table(kn, skn, 8), K11._lib("shardkv_metrics"),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    assert K11.shardkv_tick.launches == before
+
+
+@pytest.mark.parametrize("metrics_on", [False, True])
+def test_shardkv_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
+    cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=20, bug_serve_frozen=True)
+    launches = (K6.tick_chunk.launches, K11.shardkv_tick.launches)
+    got = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device=dev)
+    assert (K6.tick_chunk.launches - launches[0],
+            K11.shardkv_tick.launches - launches[1]) == (160, 160)
+    want = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device="cpu")
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None and b is None) or (a == b).all(), f
+    assert want.n_violating > 0 and want.installs.sum() > 0

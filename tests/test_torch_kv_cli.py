@@ -3,7 +3,8 @@ CPU: the JSON report (every field but the wall-time telemetry) clean and
 with ``--service-bug stale_read``, metrics off and on (the per-key and
 per-client blocks with the clients' retries), the exit codes (0 clean, 1
 on a violation, the reference's message for an unknown bug, 2 for
-``--mesh`` and for the verbs not ported yet), one run through ``python -m
+``--mesh``, for the verbs not ported yet and for ``shardkv-fuzz
+--live-ctrler``), one run through ``python -m
 madraft_tpu_torch kv-fuzz``, and ``stats --by-key --by-client`` over the
 port's ``--metrics`` report against the JAX CLI's. Tolerance: exact
 equality."""
@@ -78,9 +79,13 @@ def test_kv_fuzz_exit_codes_and_usage_errors():
     assert "apply_uncommitted" in err
     rc, _, err = run(port_main, ["kv-fuzz", "--mesh", "--platform", "cpu"])
     assert rc == 2 and "A6" in err
-    for verb in ("shardkv-fuzz", "bridge", "lint"):
+    for verb in ("bridge", "lint"):
         rc, _, err = run(port_main, [verb])
         assert rc == 2 and "ROADMAP queue A" in err, verb
+    # shardkv-fuzz runs; its controller modes are the next slice
+    rc, _, err = run(port_main, ["shardkv-fuzz", "--live-ctrler",
+                                 "--platform", "cpu"])
+    assert rc == 2 and "A13b" in err
 
 
 def test_kv_fuzz_runs_as_a_module_and_checks_determinism():

@@ -51,8 +51,17 @@ drives the kv flagship (``kv-fuzz --storm --clusters 1024 --ticks 512``,
 twice, then with ``--metrics``: K6 and K9 once a tick, no draw chunk, K2,
 K4 or K5) and its eager-vs-kernel A/B (``kv_ab``), the ctrler flagship
 (``ctrler-fuzz --storm --clusters 1024 --ticks 512``, twice, then with
-``--metrics``: K6 and K10 once a tick) and its A/B (``ctrler_ab``), runs the
-``hot_key_openloop`` gate as a kv leg beside the raft gates, then
+``--metrics``: K6 and K10 once a tick) and its A/B (``ctrler_ab``), holds
+K11, the shardkv service tick, and K11-metrics against their plain version
+(phase ``shardkv_k11``: the schedule mode's cases as [B] rows; phase
+``shardkv_ctrl_k11``: the live and computed controller modes with their
+bugs as rows, and an edge batch with the controller walker's planted
+stall), drives the shardkv flagship (``shardkv-fuzz --storm --clusters 1024
+--ticks 512``, twice, then with ``--metrics``: K6 over the groups and K11
+once a tick) and the same with ``--live-ctrler`` and with
+``--computed-ctrler`` (K6 twice a tick, the groups' and the controller
+clusters', K11 once), each with its A/B, runs the ``hot_key_openloop``
+gate as a kv leg beside the raft gates, then
 times each kernel beside its plain version and its bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
 matched by the CUDA function's name), ``call_ms`` the wrapper's time per
 call as the host issues it back to back (CUDA events); ``share`` is the
@@ -61,7 +70,8 @@ the 32-bit operations over the card's integer rate (phase ``card``). K6's
 clock64() split by phase group (``k6_phases``, its profile build) and its
 time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
 split by phase (``kv_phases``, its profile build) and the kv tick's
-(``profile_kv_tick``) and the ctrler tick's (``profile_ctrler_tick``);
+(``profile_kv_tick``), the ctrler tick's (``profile_ctrler_tick``) and the
+shardkv tick's in each mode (``profile_shardkv_tick[_live|_computed]``);
 ``k6_only()`` runs just K6's two.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
@@ -214,6 +224,23 @@ SHARDKV_AB_TICKS = 32
 SHARDKV_K11_WARM, SHARDKV_K11_TICKS = 200, 24
 SHARDKV_K11_EDGE = (37, 7, {"n_groups": 5, "n_clients": 32, "p_put": 0.2,
                             "cfg_interval": 20}, 60)
+# K11's controller branches against the plain version (phase
+# shardkv_ctrl_k11): the controller flagships' batches from tick
+# SHARDKV_K11_WARM with the mode's cases as [B] rows (shardkv_knob_rows),
+# K11 under the partitionable layout and K11-metrics under the legacy one,
+# compared for SHARDKV_K11_TICKS ticks; then an edge batch a mode
+# (deployments, n, the raft config's changes, shardkv config, warm ticks):
+# cap 16, two walker steps a tick, 16 configs due every few ticks (the
+# controller's log fills: it never compacts), its controller shadow slid
+# past the walker on every other deployment after the warm ticks (the
+# sticky stall: a run's own commits never slide a controller's shadow)
+SHARDKV_CTRL_EDGE = (37, 5, {"log_cap": 16, "compact_every": 4,
+                             "uncommitted_cap": 4},
+                     {"walk_max": 2, "n_configs": 16, "cfg_interval": 4,
+                      "p_phantom": 0.5}, 60)
+# the controller flagships: the shardkv flagship with --live-ctrler or
+# --computed-ctrler
+SHARDKV_CTRL_FLAG = {"live": "--live-ctrler", "computed": "--computed-ctrler"}
 # the row cases of shardkv_knob_rows, deployment d taking case d % 7
 SHARDKV_ROW_CASES = ("clean", "skip_freeze", "drop_dup_table",
                      "serve_frozen", "puts", "open_zipf", "requery")
@@ -412,7 +439,10 @@ def counters():
             "ctrler_tick": (K10.ctrler_tick, "launches"),
             "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches"),
             "shardkv_tick": (K11.shardkv_tick, "launches"),
-            "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches")}
+            "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches"),
+            "shardkv_tick_live": (K11.shardkv_tick, "live_launches"),
+            "shardkv_tick_computed": (K11.shardkv_tick,
+                                      "computed_launches")}
 
 
 def read_counts() -> dict:
@@ -1455,6 +1485,13 @@ def main() -> int:
     emit(_shardkv_k11(dev, errs))
     shardkv_launches, shardkv_launches_m = _shardkv_path(dev)
 
+    # ---- 6n. the shardkv controller modes: K11's controller branches
+    # against the plain service tick, then the live and computed
+    # controller flagships through the CLI (K6 over the groups and over
+    # the controller clusters, K11 once a tick) and each mode's A/B
+    emit(_shardkv_ctrl_k11(dev, errs))
+    ctrl_launches = _shardkv_ctrl_path(dev)
+
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
     total = step._block_total(n_nodes)
@@ -1963,6 +2000,8 @@ def main() -> int:
           **{k: dict(zip(("ms", "call_ms", "plain_ms", "bytes", "operations"),
                          v)) for k, v in shardkv_timing.items()}})
     emit(_profile_shardkv_tick(dev, False))
+    for mode in SHARDKV_CTRL_FLAG:
+        emit(_profile_shardkv_tick(dev, False, mode=mode))
 
     emit(card)
     # name: (label, source, the reference region it replaces)
@@ -2013,6 +2052,12 @@ def main() -> int:
         "shardkv_tick_metrics": ("K11-metrics",
                                  "madraft_tpu_torch/csrc/shardkv.cu",
                                  "madraft_tpu/tpusim/shardkv.py:1768"),
+        "shardkv_tick_live": ("K11 live controller",
+                              "madraft_tpu_torch/csrc/shardkv.cu",
+                              "madraft_tpu/tpusim/shardkv.py:942"),
+        "shardkv_tick_computed": ("K11 computed controller",
+                                  "madraft_tpu_torch/csrc/shardkv.cu",
+                                  "madraft_tpu/tpusim/shardkv.py:969"),
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -2044,6 +2089,9 @@ def main() -> int:
     launches["shardkv_tick"] = shardkv_launches["shardkv_tick"]
     launches["shardkv_tick_metrics"] = shardkv_launches_m[
         "shardkv_tick_metrics"]
+    # K11's controller rows from their modes' flagships
+    for mode, (ran, _) in ctrl_launches.items():
+        launches[f"shardkv_tick_{mode}"] = ran[f"shardkv_tick_{mode}"]
     errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
@@ -3759,17 +3807,29 @@ def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
 
 
 # ------------------------------------------------------- the shardkv path
+def shardkv_row_cases(kcfg) -> tuple:
+    """The row cases of ``shardkv_knob_rows`` for kcfg's mode: the
+    schedule mode's SHARDKV_ROW_CASES, and in a controller mode the
+    mode's planted bug as an eighth case ("ctrl_bug":
+    ``bug_stale_ctrler_read`` live, ``bug_rotate_tiebreak`` computed)."""
+    if kcfg.live_ctrler or kcfg.computed_ctrler:
+        return SHARDKV_ROW_CASES + ("ctrl_bug",)
+    return SHARDKV_ROW_CASES
+
+
 def shardkv_knob_rows(kcfg, b: int):
     """[B] shardkv knob rows (on the CPU) that put deployment d in case
-    SHARDKV_ROW_CASES[d % 7]: clean, each planted bug, Puts, open-loop
-    arrivals with the Zipf shard draw, the WrongGroup re-query. For
-    holding K11 against its plain version (phase ``shardkv_k11``) and the
-    port against the reference (``tests/test_torch_shardkv.py``)."""
+    ``shardkv_row_cases(kcfg)[d % 7]`` (d % 8 in a controller mode):
+    clean, each planted bug, Puts, open-loop arrivals with the Zipf shard
+    draw, the WrongGroup re-query, the controller mode's bug. For holding
+    K11 against its plain version (phases ``shardkv_k11`` and
+    ``shardkv_ctrl_k11``) and the port against the reference
+    (``tests/test_torch_shardkv*.py``)."""
     import torch
 
     kk = kcfg.knobs().broadcast(b)
-    c = torch.arange(b) % len(SHARDKV_ROW_CASES)
-    return kk._replace(
+    c = torch.arange(b) % len(shardkv_row_cases(kcfg))
+    rows = kk._replace(
         bug_skip_freeze=c == 1, bug_drop_dup_table=c == 2,
         bug_serve_frozen=c == 3,
         p_put=torch.where((c == 4) | (c == 5), 0.3, 0.0).float(),
@@ -3777,19 +3837,28 @@ def shardkv_knob_rows(kcfg, b: int):
         open_queue_cap=torch.where(c == 5, 4, 0).int(),
         zipf_a=torch.where(c == 5, 1.6, 1.0).float(),
         requery_wrong_group=c == 6)
+    if kcfg.live_ctrler:
+        rows = rows._replace(bug_stale_ctrler_read=c == 7)
+    elif kcfg.computed_ctrler:
+        rows = rows._replace(bug_rotate_tiebreak=c == 7)
+    return rows
 
 
-def _shardkv_cli_cfg(metrics: bool = False):
+def _shardkv_cli_cfg(metrics: bool = False, mode: str = "schedule"):
     """shardkv-fuzz --storm's configs: the raft config the verb builds
     (n = 5, cap 64, compact_every 16, loss 0.1, crash 0.01, one dead at
-    most) and ShardKvConfig(p_get=0.3, p_put=0.2) (the CLI's defaults)."""
+    most) and ShardKvConfig(p_get=0.3, p_put=0.2) (the CLI's defaults),
+    in ``mode`` ("schedule", "live": --live-ctrler, "computed":
+    --computed-ctrler)."""
     from madraft_tpu_torch.tpusim import shardkv
     from madraft_tpu_torch.tpusim.config import SimConfig
 
     cfg = SimConfig(n_nodes=5, p_client_cmd=0.0, compact_at_commit=False,
                     log_cap=64, compact_every=16, loss_prob=0.1, p_crash=0.01,
                     p_restart=0.2, max_dead=1, metrics=metrics)
-    return cfg, shardkv.ShardKvConfig(p_get=0.3, p_put=0.2)
+    return cfg, shardkv.ShardKvConfig(p_get=0.3, p_put=0.2,
+                                      live_ctrler=mode == "live",
+                                      computed_ctrler=mode == "computed")
 
 
 def _shardkv_err(a, b) -> float:
@@ -4012,12 +4081,268 @@ def _shardkv_path(dev) -> tuple:
     return runs["shardkv_flagship"], runs["shardkv_metrics_flagship"]
 
 
-def _shardkv_state(dev, metrics_on: bool, ticks: int = 200):
-    """The shardkv flagship's batch after ``ticks`` ticks on K6 and K11,
-    and its configs, keys and knobs."""
+def _ctrl_case_report(st, start, case, names) -> dict:
+    """Per row case of a compared run: deployments, how many violate and
+    the union of their bits, how many raise CTRL_STALE, the controller's
+    mean resolved frontier, and the migrations, GCs and acks the compared
+    ticks walked."""
+    import torch
+
+    from madraft_tpu_torch.tpusim import shardkv
+
+    resolved = torch.cumprod((st.win_var >= 0).int(), -1).sum(-1) - 1
+    out = {}
+    for i, cname in enumerate(names):
+        m = case == i
+        v = torch.where(m, st.violations, 0)
+        bits = 0
+        for x in v.unique().tolist():
+            bits |= int(x)
+        out[cname] = {
+            "deployments": int(m.sum()),
+            "violating": int(((st.violations != 0) & m).sum()),
+            "violation_bits": bits,
+            "ctrl_stale": int(((st.violations
+                                & shardkv.VIOLATION_SHARD_CTRL_STALE) != 0)
+                              [m].sum()),
+            "walker_stalled": int(st.ctrl_w_stalled[m].sum()),
+            "resolved_mean": float(resolved[m].float().mean()),
+            "installs_in_compared_ticks": int(
+                ((st.installs_done - start.installs_done) * m).sum()),
+            "deletes_in_compared_ticks": int(
+                ((st.deletes_done - start.deletes_done) * m).sum()),
+            "acks_in_compared_ticks": int(
+                ((st.clerk_acked - start.clerk_acked).sum(-1) * m).sum())}
+    return out
+
+
+def _shardkv_ctrl_k11(dev, errs: dict) -> dict:
+    """Phase shardkv_ctrl_k11: K11's controller branches (both modes, K11
+    and K11-metrics) against the plain service tick on the card, every
+    leaf after every one of SHARDKV_K11_TICKS ticks (the raft ticks by K6
+    over the groups and over the controller clusters): each controller
+    flagship's batch from tick SHARDKV_K11_WARM with the mode's cases as
+    [B] knob rows (shardkv_row_cases: clean, the schedule mode's bugs,
+    Puts, open-loop Zipf traffic, the re-query, the mode's bug), then the
+    mode's edge batch SHARDKV_CTRL_EDGE with the planted walker stall.
+    Reports, for each case, how many deployments violate and with which
+    bits. Launches here are not main-path launches."""
+    import torch
+
+    from madraft_tpu_torch.kernels import shardkv as K11
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import engine, prng, shardkv
+
+    counts = read_counts()
+    b_flag = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    eb, en, eraft, ekw, ewarm = SHARDKV_CTRL_EDGE
+    done = []
+    for mode in ("live", "computed"):
+        runs = ((f"{mode}_flagship_rows", b_flag, False, True, "rows"),
+                (f"{mode}_flagship_rows_metrics_legacy", b_flag, True,
+                 False, "rows"),
+                (f"{mode}_edge_stall", eb, True, True, "edge"))
+        for name, b, metrics_on, flag, kind in runs:
+            cfg, kcfg = _shardkv_cli_cfg(metrics_on, mode)
+            warm = SHARDKV_K11_WARM
+            if kind == "edge":
+                cfg = cfg.replace(n_nodes=en, **eraft)
+                kcfg = kcfg.replace(**ekw)
+                warm = ewarm
+            g = kcfg.n_groups
+            with prng.layout(flag):
+                keys = engine.cluster_keys(12345, b, dev)
+                kn = cfg.knobs(dev)
+                skn = shardkv_knob_rows(kcfg, b).to(dev)
+                st = shardkv._advance_shardkv(
+                    cfg, kcfg, shardkv.init_shardkv_cluster(cfg, kcfg, keys,
+                                                            kn, skn),
+                    keys, kn, skn, warm)
+                if kind == "edge":
+                    # every other controller's shadow slid past the
+                    # walker's next entry
+                    c, odd = st.ctrl, torch.arange(b, device=dev) % 2 == 0
+                    base = torch.where(odd, torch.maximum(
+                        c.shadow_base, st.ctrl_w_frontier + 1), c.shadow_base)
+                    st = st._replace(ctrl=c._replace(
+                        shadow_base=base,
+                        shadow_len=torch.where(odd, torch.maximum(
+                            c.shadow_len, base + 5), c.shadow_len)))
+                start = st
+                gkeys = shardkv.group_keys(keys, g).reshape(-1, 2)
+                ckeys = shardkv.ctrl_keys(keys)
+                gkn = shardkv._group_knobs(kn, g)
+                table = K11.knob_table(kn, skn, b)
+                err = 0.0
+                for _ in range(SHARDKV_K11_TICKS):
+                    pre = st.rafts
+                    s = shardkv._unflat(K6.tick_chunk(
+                        cfg, shardkv._flat(pre), gkeys, gkn, 1), b)
+                    ctrl = K6.tick_chunk(cfg, st.ctrl, ckeys, kn, 1)
+                    want = shardkv._shardkv_service_tick(
+                        cfg, kcfg, st, pre.alive, pre.base, s, keys, kn, skn,
+                        ctrl)
+                    got = K11.shardkv_tick(cfg, kcfg, st, pre.alive,
+                                           pre.base, s, keys, kn, skn, table,
+                                           ctrl=ctrl)
+                    err = max(err, _shardkv_err(got, want))
+                    st = want
+            key = f"shardkv_tick_{mode}"
+            errs[key] = max(errs[key], err)
+            errs["shardkv_tick_metrics"] = max(
+                errs["shardkv_tick_metrics"], err * metrics_on)
+            check(err == 0, f"K11 differs from its plain version: {name}")
+            names = shardkv_row_cases(kcfg)
+            case = torch.arange(b, device=dev) % len(names)
+            per_case = _ctrl_case_report(st, start, case, names)
+            walked = {k: sum(d[f"{k}_in_compared_ticks"]
+                             for d in per_case.values())
+                      for k in ("installs", "acks")}
+            check(walked["acks"] > 0 and (kind != "rows"
+                                          or walked["installs"] > 0),
+                  f"shardkv_ctrl_k11 {name}: the compared ticks walked "
+                  f"{per_case}")
+            if kind == "edge":
+                check(bool(st.ctrl_w_stalled[::2].all()),
+                      f"{name}: the planted walker stall did not stick")
+            done.append({"run": name, "mode": mode, "deployments": b,
+                         "n_nodes": cfg.n_nodes, "log_cap": cfg.log_cap,
+                         "walk_max": kcfg.walk_max, "metrics": metrics_on,
+                         "partitionable": flag, "from_tick": warm,
+                         "cases": per_case})
+    set_counts(counts)
+    return {"phase": "shardkv_ctrl_k11", "ticks": SHARDKV_K11_TICKS,
+            "runs": done,
+            "max_abs_err": max(errs["shardkv_tick_live"],
+                               errs["shardkv_tick_computed"])}
+
+
+def _shardkv_ctrl_path(dev) -> dict:
+    """The controller modes' main path through the CLI: each controller
+    flagship twice (--check-deterministic; K6 over the B x G group
+    clusters and over the B controller clusters, K11 once a tick), then
+    once with --metrics; each mode's eager-vs-kernel A/B at
+    SHARDKV_AB_TICKS ticks. Returns mode -> (the flagship's launches, the
+    metrics flagship's)."""
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import engine, prng, shardkv
+
+    prng.set_partitionable(True)
+    ticks = _flag(SHARDKV_FLAGSHIP, "--ticks")
+    b = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
+                 "latency_fold", "seen_update", "kv_tick", "ctrler_tick",
+                 "harvest", "record")
+    out = {}
+    for mode, flag in SHARDKV_CTRL_FLAG.items():
+        other = "computed" if mode == "live" else "live"
+        runs = {}
+        for label, argv, n_runs in (
+                (f"shardkv_{mode}_flagship", SHARDKV_FLAGSHIP + [flag],
+                 FLAGSHIP_RUNS),
+                (f"shardkv_{mode}_metrics_flagship",
+                 SHARDKV_METRICS_FLAGSHIP + [flag], 1)):
+            metrics_on = "--metrics" in argv
+            set_counts()
+            t0 = time.perf_counter()
+            rc, rep = run_cli(argv)
+            wall = time.perf_counter() - t0
+            ran = read_counts()
+            want = ticks * n_runs
+            check(rc == 0 and rep["violating"] == 0
+                  and rep.get("deterministic", n_runs == 1) is True
+                  and rep["acked_ops_mean"] > 0 and rep["installs_mean"] > 0
+                  and rep["ann_resolved_mean"] > 0
+                  and rep["final_cfg_mean"] > 0,
+                  f"{label} rc {rc}: {rep}")
+            check(ran["tick_chunk"] == 2 * want
+                  and ran["shardkv_tick"] == ran[f"shardkv_tick_{mode}"]
+                  == want and ran[f"shardkv_tick_{other}"] == 0
+                  and ran["tick_chunk_metrics"] == 2 * want * metrics_on
+                  and ran["shardkv_tick_metrics"] == want * metrics_on
+                  and all(ran[k] == 0 for k in eager_off),
+                  f"{label} launches {ran}: want K6 twice a tick (the "
+                  f"groups, the controllers) and K11 once ({want}), no draw "
+                  "chunk, K2, K4, K5, K9 or K10 launch")
+            tele = rep["telemetry"]
+            row = {"phase": label, "argv": argv, "rc": rc, "mode": mode,
+                   "deployment_steps_per_s": tele["steps_per_sec"],
+                   "execute_s": tele["execute_s"],
+                   "wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+                   "wall_s_all_runs": round(wall, 3),
+                   "compile_s": tele["compile_s"],
+                   "bytes_per_deployment": tele["bytes_per_lane"],
+                   "tick_instance": K6.instance(_shardkv_cli_cfg()[0]),
+                   "acked_ops_mean": rep["acked_ops_mean"],
+                   "installs_mean": rep["installs_mean"],
+                   "deletes_mean": rep["deletes_mean"],
+                   "final_cfg_mean": rep["final_cfg_mean"],
+                   "ann_resolved_mean": rep["ann_resolved_mean"],
+                   "ctrl_walker_stalled_mean":
+                       rep["ctrl_walker_stalled_mean"],
+                   "max_cfg_lag_mean": rep["max_cfg_lag_mean"],
+                   "launches": {k: v for k, v in ran.items() if v}}
+            if metrics_on:
+                lat = rep["latency"]
+                check(all(k in rep for k in METRIC_KEYS)
+                      and round(lat["ops"] / b, 2) == rep["acked_ops_mean"],
+                      f"{label} metrics report: {sorted(rep)}")
+                row.update(p50_ticks=lat["p50_ticks"],
+                           p99_ticks=lat["p99_ticks"], ops=lat["ops"],
+                           migration_ticks=lat["phases"]["migration"][
+                               "ticks_total"])
+            emit(row)
+            runs[label] = ran
+        # the A/B: the flagship's shape at SHARDKV_AB_TICKS ticks, eager
+        # and kernel in turns
+        cfg, kcfg = _shardkv_cli_cfg(False, mode)
+        ab, reps = [], []
+        advance = shardkv._advance_shardkv
+        for route in ("eager", "kernel", "kernel", "eager"):
+            set_counts()
+            shardkv._advance_shardkv = functools.partial(advance, tick=route)
+            try:
+                fn = shardkv.make_shardkv_fuzz_fn(cfg, kcfg, b,
+                                                  SHARDKV_AB_TICKS, dev)
+                rep, tele = engine.run_telemetry(fn, shardkv.shardkv_report,
+                                                 12345, b * SHARDKV_AB_TICKS,
+                                                 n_lanes=b)
+            finally:
+                shardkv._advance_shardkv = advance
+            ran = read_counts()
+            kernel = route == "kernel"
+            check((ran["tick_chunk"] == 2 * SHARDKV_AB_TICKS * kernel)
+                  and ran["shardkv_tick"] == SHARDKV_AB_TICKS * kernel
+                  and (ran["oracle"] == 2 * SHARDKV_AB_TICKS * (not kernel)),
+                  f"shardkv {mode} A/B {route} launches {ran}")
+            reps.append(rep)
+            ab.append({"route": route, "ticks": SHARDKV_AB_TICKS,
+                       "deployment_steps_per_s": tele["steps_per_sec"],
+                       "wall_ms_per_tick": tele["execute_s"]
+                       / SHARDKV_AB_TICKS * 1e3,
+                       "launches": {k: v for k, v in ran.items() if v}})
+        from madraft_tpu_torch.__main__ import _reports_equal
+
+        check(all(_reports_equal(reps[0], r) for r in reps[1:]),
+              f"shardkv {mode} A/B: the eager and the kernel route's "
+              "reports differ")
+        rate = {r: sum(x["deployment_steps_per_s"] for x in ab
+                       if x["route"] == r) / 2 for r in ("eager", "kernel")}
+        emit({"phase": f"shardkv_{mode}_ab", "card": _smi(),
+              "deployments": b, "runs": ab, "reports_equal": True,
+              "kernel_over_eager": rate["kernel"] / rate["eager"]})
+        out[mode] = (runs[f"shardkv_{mode}_flagship"],
+                     runs[f"shardkv_{mode}_metrics_flagship"])
+    return out
+
+
+def _shardkv_state(dev, metrics_on: bool, ticks: int = 200,
+                   mode: str = "schedule"):
+    """The shardkv flagship's batch (in ``mode``, _shardkv_cli_cfg) after
+    ``ticks`` ticks on K6 and K11, and its configs, keys and knobs."""
     from madraft_tpu_torch.tpusim import engine, shardkv
 
-    cfg, kcfg = _shardkv_cli_cfg(metrics_on)
+    cfg, kcfg = _shardkv_cli_cfg(metrics_on, mode)
     b = _flag(SHARDKV_FLAGSHIP, "--clusters")
     keys = engine.cluster_keys(12345, b, dev)
     kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
@@ -4027,39 +4352,79 @@ def _shardkv_state(dev, metrics_on: bool, ticks: int = 200):
     return cfg, kcfg, st, keys, kn, skn
 
 
-def _shardkv_bytes(cfg, kcfg, st, s, keys, table, written) -> dict:
+def _shardkv_bytes(cfg, kcfg, st, s, keys, table, written,
+                   ctrl=None) -> dict:
     """The bytes one shardkv service tick must move (``_shardkv_timing``),
     counted as ``_kv_bytes`` counts K9's: every service leaf and every
-    raft leaf it writes read once and written once, the stepped raft rows
-    it reads, the pre-tick views, the schedule, keys and knob rows read
-    once, except the two [G, n, cap] log rows and the [G, cap] shadow
-    rows, of which the tick reads only the log_val slots its apply rounds
-    reach and the shadow slots its walker steps over (this run's counts)
-    and writes only the appended entries (a term and a value each)."""
+    raft leaf it writes in kcfg's mode (``K11.writes``) read once and
+    written once, the stepped raft rows it reads, the pre-tick views, the
+    schedule, keys and knob rows read once, except the [G, n, cap] log
+    rows and the [G, cap] shadow rows, of which the tick reads only the
+    log_val slots its apply rounds reach and the shadow slots its walker
+    steps over (this run's counts) and writes only the appended entries
+    (a term and a value each). In a controller mode (``ctrl`` the stepped
+    controller cluster) likewise the controller's rows, its log rows and
+    its shadow row, of which the tick reads the slots its walker steps
+    over and, for each Query arriving at a controller node, the node's
+    shadow row (its uncovered announces) and, under the stale-read bug,
+    its log row."""
     import torch
 
     from madraft_tpu_torch.kernels import shardkv as K11
 
     pre = st.rafts
     logs = ("log_term", "log_val")
-    state = ([getattr(st, f) for f in K11.SERVICE_WRITES]
-             + [getattr(s, f) for f in K11.RAFT_WRITES if f not in logs])
+    src = {"st": st, "s": s, "ctrl": ctrl}
+    state = [getattr(src[w], f) for w, f in K11.writes(kcfg)
+             if w == "st" or f not in logs]
     reads = ([getattr(s, f) for f in K11.RAFT_READS if f != "shadow_val"]
-             + [pre.alive, pre.base, st.cfg_tick, st.cfg_owner, keys, *table])
+             + [pre.alive, pre.base, st.cfg_tick, keys, *table])
+    if not kcfg.computed_ctrler:
+        reads.append(st.cfg_owner)
     reset = (~pre.alive | ~s.alive | (s.snap_installed_src >= 0))
     start = torch.where(reset, s.base, st.applied)
     rounds = int((written.applied - start).sum())
     steps = int((written.w_frontier - st.w_frontier).sum())
     appends = int((written.rafts.log_len - s.log_len).sum())
-    out = {"state_read_and_written": 2 * nbytes(*state),
-           "reads": nbytes(*reads), "log_val_slots_read": rounds,
-           "shadow_slots_read": steps, "log_entries_appended": appends}
+    out = {"log_val_slots_read": rounds, "shadow_slots_read": steps,
+           "log_entries_appended": appends}
+    extra = 0
+    if ctrl is not None:
+        reads += [getattr(ctrl, f) for f in K11.CTRL_READS
+                  if f != "shadow_val"]
+        if kcfg.computed_ctrler:
+            reads += [st.flip_a, st.flip_b]
+        t = s.tick[:, :1]
+        arrive = ((st.cq_req_t == t) & (st.cq_req_node >= 0)
+                  & (st.cq_req_node < cfg.n_nodes))
+        stale = arrive & (table[1][:, K11.KNOB_I32.index(
+            "bug_stale_ctrler_read")] != 0)[:, None]
+        out.update(
+            ctrl_shadow_slots_read=int(
+                (written.ctrl_w_frontier - st.ctrl_w_frontier).sum())
+            + cfg.log_cap * int(arrive.sum()),
+            ctrl_log_slots_read=cfg.log_cap * int(stale.sum()),
+            ctrl_entries_appended=int(
+                (written.ctrl.log_len - ctrl.log_len).sum()))
+        extra = (4 * (out["ctrl_shadow_slots_read"]
+                      + out["ctrl_log_slots_read"])
+                 + 8 * out["ctrl_entries_appended"])
+    out.update(state_read_and_written=2 * nbytes(*state),
+               reads=nbytes(*reads))
     out["total"] = (out["state_read_and_written"] + out["reads"]
-                    + 4 * (rounds + steps) + 8 * appends)
+                    + 4 * (rounds + steps) + 8 * appends + extra)
     return out
 
 
-def _shardkv_ops(cfg, kcfg, st, written, rounds: int, steps: int) -> int:
+# 32-bit operations of one computed-controller rebalance on a lane
+# (csrc/ctrler.cuh rebalance at 3 groups, 10 shards: the retained loads
+# and targets, the keep set and the deficit slots, some 30 operations a
+# shard and group pair)
+REBALANCE_OPS = 30 * 10 * 3
+
+
+def _shardkv_ops(cfg, kcfg, st, written, rounds: int, steps: int,
+                 ctrl_count=None) -> int:
     """The 32-bit operations one shardkv service tick does on this run's
     data (``_shardkv_timing``): the threefry hashes (the 14 draw keys a
     deployment, two fold-ins and a split each; a group's poll word; a
@@ -4070,7 +4435,12 @@ def _shardkv_ops(cfg, kcfg, st, written, rounds: int, steps: int) -> int:
     rounds and walker steps (an entry's decode and update, 20, and a
     CONFIG's pass over the shards, 6 a shard), and the leader views,
     mailbox scans and oracles (4 a (group, node, shard) cell and a
-    (dst, src, shard) box)."""
+    (dst, src, shard) box). In a controller mode (``ctrl_count`` the
+    bytes count of ``_shardkv_bytes``) also the 8 controller draw keys,
+    the announcers' draws (2 words, 2 randints), a group's Query hop
+    words (1, and 5 where it asks), the controller walker's steps (20
+    each), the Query scans (6 a slot) and a resolving slot's rebalance on
+    each replica (REBALANCE_OPS)."""
     from madraft_tpu_torch.tpusim.shardkv import FROZEN, PULLING
 
     b, g, n = st.clerk_seq.shape[0], kcfg.n_groups, cfg.n_nodes
@@ -4085,55 +4455,83 @@ def _shardkv_ops(cfg, kcfg, st, written, rounds: int, steps: int) -> int:
               + outstanding * (1 + 4) + 2 * moving)
     cells = g * n * (3 * ns + ns * nc + 2)
     boxes = g * g * ns * (6 + nc)
-    return (hashes * OPS_PER_HASH + b * 4 * (2 * cells + boxes)
-            + (rounds + steps) * (20 + 6 * ns))
+    ops = b * 4 * (2 * cells + boxes) + (rounds + steps) * (20 + 6 * ns)
+    if ctrl_count is not None:
+        asks = int(((written.cq_req_t != 0)
+                    & (written.cq_req_t != st.cq_req_t)).sum())
+        hashes += b * (8 * 3 + 2 + 2 * 4 + g) + 5 * asks
+        resolved = 0
+        if kcfg.computed_ctrler:
+            resolved = int((written.slot_tick != st.slot_tick).any(-1).sum())
+        ops += (20 * ctrl_count["ctrl_shadow_slots_read"]
+                + 6 * ctrl_count["ctrl_log_slots_read"]
+                + resolved * n * REBALANCE_OPS)
+    return hashes * OPS_PER_HASH + ops
+
+
+# the modes of _shardkv_timing's rows: name -> (metrics, mode)
+SHARDKV_TIMED = {"shardkv_tick": (False, "schedule"),
+                 "shardkv_tick_metrics": (True, "schedule"),
+                 "shardkv_tick_live": (False, "live"),
+                 "shardkv_tick_computed": (False, "computed")}
 
 
 def _shardkv_timing(dev) -> tuple:
-    """K11's and K11-metrics' times at the shardkv flagship's shape (tick
-    200 to 201): (name -> (device ms, call ms, plain ms, bytes,
-    operations), the timing phase's tuple; name -> ``_shardkv_bytes``'
-    count). Each launch reads its inputs from device memory (copies in
-    rotation)."""
+    """K11's times at the shardkv flagship's shape (tick 200 to 201) in
+    each row of SHARDKV_TIMED: K11 and K11-metrics in schedule mode, K11
+    in the live and the computed controller modes: (name -> (device ms,
+    call ms, plain ms, bytes, operations), the timing phase's tuple; name
+    -> ``_shardkv_bytes``' count). Each launch reads its inputs from
+    device memory (copies in rotation)."""
     from madraft_tpu_torch.kernels import shardkv as K11
     from madraft_tpu_torch.kernels import tick as K6
     from madraft_tpu_torch.tpusim import shardkv
 
     counts = read_counts()
     out, counted = {}, {}
-    for name, metrics_on in (("shardkv_tick", False),
-                             ("shardkv_tick_metrics", True)):
-        cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on)
+    for name, (metrics_on, mode) in SHARDKV_TIMED.items():
+        cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on,
+                                                      mode=mode)
         b, g = keys.shape[0], kcfg.n_groups
         pre = st.rafts
         s = shardkv._unflat(K6.tick_chunk(
             cfg, shardkv._flat(pre), shardkv.group_keys(keys, g).reshape(
                 -1, 2), shardkv._group_knobs(kn, g), 1), b)
+        ctrl = (K6.tick_chunk(cfg, st.ctrl, shardkv.ctrl_keys(keys), kn, 1)
+                if mode != "schedule" else None)
         table = K11.knob_table(kn, skn, b)
         written = K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base, s,
-                                   keys, kn, skn, table)
-        counted[name] = _shardkv_bytes(cfg, kcfg, st, s, keys, table, written)
+                                   keys, kn, skn, table, ctrl=ctrl)
+        counted[name] = _shardkv_bytes(cfg, kcfg, st, s, keys, table,
+                                       written, ctrl)
         ops = _shardkv_ops(cfg, kcfg, st, written,
                            counted[name]["log_val_slots_read"],
-                           counted[name]["shadow_slots_read"])
+                           counted[name]["shadow_slots_read"],
+                           counted[name] if ctrl is not None else None)
         counted[name]["operations"] = ops
-        inputs = ([getattr(st, f) for f in K11.SERVICE_WRITES]
+        inputs = ([getattr(st, f) for f in K11.SERVICE_WRITES
+                   + K11.CTRL_WRITES]
                   + [getattr(s, f) for f in K11.RAFT_READS + K11.RAFT_WRITES]
                   + [pre.alive, pre.base, st.cfg_tick, st.cfg_owner, keys,
                      *table])
+        if ctrl is not None:
+            inputs += [getattr(ctrl, f) for f in set(
+                K11.CTRL_READS + K11.CTRL_RAFT_WRITES)]
         n_in = nbytes(*inputs)
 
         def clone(x):
             return (type(x)(*(clone(y) for y in x)) if isinstance(x, tuple)
                     else x.clone())
 
-        rot = [(st, s)] + [(clone(st), clone(s))
-                           for _ in range(rotations(n_in) - 1)]
+        rot = [(st, s, ctrl)] + [
+            (clone(st), clone(s), None if ctrl is None else clone(ctrl))
+            for _ in range(rotations(n_in) - 1)]
 
         def call(i, plain=False):
-            k, r = rot[i % len(rot)]
+            k, r, c = rot[i % len(rot)]
             return K11.shardkv_tick(cfg, kcfg, k, pre.alive, pre.base, r,
-                                    keys, kn, skn, table, plain=plain)
+                                    keys, kn, skn, table, plain=plain,
+                                    ctrl=c)
 
         out[name] = (device_ms(call, "shardkv_kernel"), cuda_ms(call),
                      cuda_ms(lambda i: call(i, True), iters=5, warmup=1),
@@ -4143,15 +4541,18 @@ def _shardkv_timing(dev) -> tuple:
     return out, counted
 
 
-def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
+def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32,
+                          mode: str = "schedule") -> dict:
     """Where a shardkv flagship tick's wall goes (torch.profiler, the
-    window retry of ``_profiled``): the device operations a tick, the
-    card's busy share of the wall and the host's, K6's and K11's shares
-    and device ms a tick, over n_ticks ticks from tick 200 on K6 and
-    K11."""
+    window retry of ``_profiled``), in ``mode``: the device operations a
+    tick, the card's busy share of the wall and the host's, K6's (over
+    the groups, and in a controller mode a second launch over the
+    controller clusters) and K11's shares and device ms a tick, over
+    n_ticks ticks from tick 200 on K6 and K11."""
     from madraft_tpu_torch.tpusim import shardkv
 
-    cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on)
+    cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on,
+                                                  mode=mode)
     counts = read_counts()
     _, kernels, wall_ms, _, attempts = _profiled(
         lambda: shardkv._advance_shardkv(cfg, kcfg, st, keys, kn, skn,
@@ -4162,17 +4563,24 @@ def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
     def dev_ms(name):
         return sum(_dev_us(e) for e in kernels if name in e.key) / 1e3
 
+    def calls(name):
+        return sum(e.count for e in kernels if name in e.key)
+
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
-    return {"phase": "profile_shardkv_tick" + "_metrics" * metrics_on,
-            "card": _smi(), "ticks": n_ticks,
+    suffix = "_metrics" * metrics_on + ("" if mode == "schedule"
+                                        else f"_{mode}")
+    return {"phase": "profile_shardkv_tick" + suffix,
+            "card": _smi(), "ticks": n_ticks, "mode": mode,
             "deployments": int(keys.shape[0]),
             "group_clusters": int(keys.shape[0]) * kcfg.n_groups,
+            "controller_clusters": int(keys.shape[0]) * (mode != "schedule"),
             "profiler_attempts": attempts,
             "wall_ms_per_tick": wall_ms / n_ticks,
             "device_busy_ms_per_tick": busy_ms / n_ticks,
             "device_busy_share": busy_ms / wall_ms,
             "host_share": 1 - busy_ms / wall_ms,
             "k6_ms_per_tick": dev_ms("tick_chunk_kernel") / n_ticks,
+            "k6_launches_per_tick": calls("tick_chunk_kernel") / n_ticks,
             "k11_ms_per_tick": dev_ms("shardkv_kernel") / n_ticks,
             "k6_share": dev_ms("tick_chunk_kernel") / wall_ms,
             "k11_share": dev_ms("shardkv_kernel") / wall_ms,

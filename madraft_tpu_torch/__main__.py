@@ -5,6 +5,7 @@ ctrler-fuzz and shardkv-fuzz).
     python -m madraft_tpu_torch kv-fuzz --clusters 512 --ticks 512 [--service-bug stale_read]
     python -m madraft_tpu_torch ctrler-fuzz --clusters 512 --ticks 512 [--service-bug rotate_tiebreak]
     python -m madraft_tpu_torch shardkv-fuzz --clusters 64 --ticks 512 [--service-bug skip_freeze]
+    python -m madraft_tpu_torch shardkv-fuzz --live-ctrler | --computed-ctrler [--service-bug stale_ctrler_read | rotate_tiebreak]
     python -m madraft_tpu_torch pool   --clusters 4096 --ticks 512 --budget-ticks 1024 [--coverage]
     python -m madraft_tpu_torch sweep  --loss 0,0.1,0.3 --crash 0,0.02 --repartition 0,0.05
     python -m madraft_tpu_torch replay --seed S --cluster C --ticks T [--storm] [--knobs-json ROW]
@@ -31,9 +32,11 @@ the same way (``--service-bug rotate_tiebreak | greedy_rebalance |
 full_reshuffle``). ``shardkv-fuzz`` fuzzes the multi-group sharded kv
 service (G raft groups a deployment, the pre-drawn config schedule, shard
 migration with pulls, installs and GC, the truth walker and the shardkv
-oracles; ``--service-bug skip_freeze | drop_dup_table | serve_frozen``);
-its two controller modes (``--live-ctrler``, ``--computed-ctrler``) exit
-2 naming ROADMAP A13b.
+oracles; ``--service-bug skip_freeze | drop_dup_table | serve_frozen``),
+or with ``--live-ctrler`` its configs' announces through a replicated
+controller raft cluster (``--service-bug stale_ctrler_read``), or with
+``--computed-ctrler`` its configs computed by the controller's 4A
+rebalance (``--service-bug rotate_tiebreak``); both flags at once exit 2.
 ``--metrics`` turns on the on-device metrics plane (submit->commit latency
 histograms, phase attribution, the worst op, event counters); ``stats``
 merges and renders the metrics of any mix of those outputs on the host.
@@ -375,11 +378,6 @@ def cmd_shardkv_fuzz(args) -> int:
 
     if args.mesh:
         _usage_error("shardkv-fuzz: --mesh is not ported yet (ROADMAP A6)")
-    for flag, on in (("--live-ctrler", args.live_ctrler),
-                     ("--computed-ctrler", args.computed_ctrler)):
-        if on:
-            _usage_error(f"shardkv-fuzz: {flag} is not ported yet (ROADMAP "
-                         "A13b: the port runs the schedule mode)")
     # the reference builds this verb's SimConfig from scratch: it owns the
     # fault shape
     cfg = SimConfig(
@@ -391,19 +389,26 @@ def cmd_shardkv_fuzz(args) -> int:
         bug=args.bug, metrics=args.metrics,
     )
     # the controller-mode bugs without their mode, in the reference's words
-    if args.service_bug == "stale_ctrler_read":
+    if args.service_bug == "stale_ctrler_read" and not args.live_ctrler:
         raise SystemExit(
             "--service-bug stale_ctrler_read needs --live-ctrler: the bug "
             "lives in the query path to the on-device replicated controller"
         )
-    if args.service_bug == "rotate_tiebreak":
+    if args.service_bug == "rotate_tiebreak" and not args.computed_ctrler:
         raise SystemExit(
             "--service-bug rotate_tiebreak needs --computed-ctrler: the bug "
             "rotates each controller replica's rebalance order, which only "
             "exists when config content is computed on-device"
         )
-    kcfg = _with_service_bug(
-        ShardKvConfig(p_get=args.p_get, p_put=args.p_put), args.service_bug)
+    # both modes at once: the config's own check (the reference lets its
+    # ValueError escape), as a usage error
+    try:
+        kcfg = ShardKvConfig(p_get=args.p_get, p_put=args.p_put,
+                             live_ctrler=args.live_ctrler,
+                             computed_ctrler=args.computed_ctrler)
+    except ValueError as e:
+        _usage_error(f"shardkv-fuzz: {e}")
+    kcfg = _with_service_bug(kcfg, args.service_bug)
     try:
         fn = make_shardkv_fuzz_fn(cfg, kcfg, args.clusters, args.ticks,
                                   device=_device(args))
@@ -1057,11 +1062,14 @@ def main(argv=None) -> int:
     sp.add_argument("--p-get", type=float, default=0.3)
     sp.add_argument("--p-put", type=float, default=0.2)
     sp.add_argument("--live-ctrler", action="store_true",
-                    help="configs ride a replicated controller cluster "
-                         "(not ported yet: exits 2)")
+                    help="configs ride an on-device replicated controller "
+                         "raft cluster (announce/query protocol) instead of "
+                         "the schedule tensor")
     sp.add_argument("--computed-ctrler", action="store_true",
-                    help="config content computed by the controller's "
-                         "4A state machine (not ported yet: exits 2)")
+                    help="the controller cluster's apply machine IS the 4A "
+                         "state machine: membership flips ride its raft and "
+                         "config content is computed by the shared 4A "
+                         "rebalance (supersedes --live-ctrler)")
     sp.set_defaults(fn=cmd_shardkv_fuzz)
 
     sp = sub.add_parser(

@@ -1,12 +1,14 @@
-// K11's device code: one shardkv service tick (schedule mode) of one
-// deployment, by the 32 lanes of a warp (shardkv.cu holds the kernel, its
-// launch and the note on what it replaces, its bound and design). Built by
-// nvcc through shardkv.cu, and by g++ through tests/shardkv_host_emu.cpp.
+// K11's device code: one shardkv service tick of one deployment, in any of
+// the three config modes (schedule, live controller, computed controller),
+// by the 32 lanes of a warp (shardkv.cu holds the kernel, its launch and
+// the note on what it replaces, its bound and design). Built by nvcc
+// through shardkv.cu, and by g++ through tests/shardkv_host_emu.cpp.
 //
-// The tick runs as nine phases (Phase), a warp barrier after each. Within
-// a phase the lanes share nothing but commutative updates of the warp's
-// shared region (atomic add, or): so the host runs a phase's 32 lanes one
-// after another, then the next phase, and gets the card's result.
+// The tick runs as eleven phases (Phase), a warp barrier after each.
+// Within a phase the lanes share nothing but commutative updates of the
+// warp's shared region (atomic add, or) and rows of device memory each
+// lane owns: so the host runs a phase's 32 lanes one after another, then
+// the next phase, and gets the card's result.
 //
 // The arithmetic is the plain version's (tpusim/shardkv.py
 // _shardkv_service_tick), written per deployment: int32 values that may
@@ -20,6 +22,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "ctrler.cuh"  // k10::rebalance, the computed controller's apply
 #include "threefry.cuh"
 
 namespace k11 {
@@ -43,17 +46,27 @@ constexpr int kPhases = 5;       // config.SHARDKV_PHASES
 constexpr int kQueueSlots = 8;   // config.OPEN_QUEUE_SLOTS
 constexpr int32_t kSeqLim = 1 << 13;
 constexpr int32_t kLeader = 2;
+constexpr int32_t kNoop = 1 << 30;  // config.NOOP_CMD
+constexpr int32_t kBig = 1 << 30;
 constexpr int kAppend = 0, kConfig = 1, kInstall = 2, kDelete = 3, kGet = 4,
               kPut = 5;
 constexpr int32_t kAbsent = 0, kOwned = 1, kPulling = 2, kFrozen = 3;
 constexpr int32_t kViolDiverge = 64, kViolOwnership = 128,
-                  kViolStorage = 256, kViolStaleRead = 1024;
-constexpr uint32_t kSitePull = 17, kSiteClerk = 18, kSiteNet = 20;
+                  kViolStorage = 256, kViolStaleRead = 1024,
+                  kViolCtrlStale = 32768;
+constexpr uint32_t kSitePull = 17, kSiteClerk = 18, kSiteNet = 20,
+                   kSiteAnn = 22;
+// The config modes (kernels/shardkv.py mode): the pre-drawn schedule, the
+// live controller (announces through a controller raft cluster), the
+// computed controller (the 4A rebalance over committed flips)
+enum Mode { kSchedule, kLive, kComputed };
 constexpr uint32_t kHashW = 1000003u;
 
-// The leaves K11 writes: the service leaves the schedule mode's tick
-// changes, in ShardKvState order, then the raft leaves it writes
-// (kernels/shardkv.py WRITES)
+// The leaves K11 writes: the service leaves every mode's tick changes, in
+// ShardKvState order, the controller modes' service leaves, the group
+// raft leaves it writes, then the controller cluster's (kernels/shardkv.py
+// LEAVES). A leaf the mode leaves alone has count 0: nothing of it is
+// staged, read or written
 enum Leaf {
   kNodeSrc, kSnapSrc, kApplied, kNodeCfg, kPhase, kKeyHash, kKeyCount,
   kLastSeq, kSnapCfg, kSnapPhase, kSnapHash, kSnapCount, kSnapLastSeq,
@@ -68,43 +81,52 @@ enum Leaf {
   kClientLatHist, kWFrontier, kWCfg, kWPhase, kWHash, kWCount, kWLastSeq,
   kFrzCfg, kFrzHash, kFrzCount, kFrzLastSeq, kTruthCount, kWClerkAcked,
   kInstallsDone, kDeletesDone, kMaxCfgLag, kViolations, kFirstViolation,
+  kCtrlWFrontier, kCtrlWStalled, kWinVar, kSlotTick, kCmem, kCtrlNodeOwner,
+  kCtrlMaps, kCfgOwnerW, kWSrc, kCqReqT, kCqReqNode, kCqReqJ, kCqRspT,
+  kCqRspJ, kCqRspFound, kCqRspVar,
   kLogTerm, kLogVal, kLogLen, kDurableLen, kCompactFloor,
+  kCLogTerm, kCLogVal, kCLogLen, kCDurableLen,
   kLeaves
 };
 
-// The read-only inputs: the stepped group rafts' leaves, the pre-tick
-// views, the schedule, the keys and the knob table (kernels/shardkv.py
-// READS)
+// The read-only inputs: the stepped group rafts' leaves, the stepped
+// controller cluster's, the pre-tick views, the schedule, the flip
+// schedule, the keys and the knob table (kernels/shardkv.py READS)
 enum Read {
   kTick, kTerm, kRole, kAlive, kBase, kCommit, kSnapInst, kShadowVal,
-  kShadowBase, kShadowLen, kPreAlive, kPreBase, kCfgTick, kCfgOwner, kKeys,
-  kKnobF, kKnobI,
+  kShadowBase, kShadowLen, kCTerm, kCRole, kCAlive, kCBase, kCCommit,
+  kCShadowVal, kCShadowBase, kCShadowLen, kPreAlive, kPreBase, kCfgTick,
+  kCfgOwner, kFlipA, kFlipB, kKeys, kKnobF, kKnobI,
   kReads
 };
 
 // The knob table's columns (kernels/shardkv.py KNOB_F32 / KNOB_I32)
 enum KnobF { kPOp, kPGet, kPPut, kPRetry, kPCfgLearn, kPPull, kPAck,
-             kPullLoss, kOpenRate, kZipfA, kNF };
+             kPullLoss, kOpenRate, kZipfA, kPAnnounce, kPPhantom, kNF };
 enum KnobI { kDelayMin, kDelayMax, kBugSkipFreeze, kBugDropDup,
-             kBugServeFrozen, kRequery, kQueueCap, kFlowCap, kNI };
+             kBugServeFrozen, kRequery, kQueueCap, kBugStaleCtrl,
+             kBugRotate, kFlowCap, kNI };
 
 // The wrapper's descriptor (kernels/shardkv.py _launch): this header, the
 // kReads pointers, then 4 words a leaf (in, out, count a deployment, bytes
 // an element)
 enum Desc {
   kB, kG, kN, kCap, kNs, kNc, kNcfg, kApplyMax, kWalkMax, kHb,
-  kPartitionable, kMetricsOn,
+  kPartitionable, kMetricsOn, kModeOf,
   kHeader
 };
 
 // The phases of a tick, in order (run_phase)
-enum Phase { kStage, kRestore, kApply, kOracle, kMailbox, kClerks,
-             kAppendLog, kLanded, kWriteBack, kTickPhases };
+enum Phase { kStage, kCtrlWalk, kCtrlApply, kRestore, kApply, kOracle,
+             kMailbox, kClerks, kAppendLog, kLanded, kWriteBack, kTickPhases };
 
 // The tick's draw keys (fold_in(deployment key, t), then a site and a
 // split): kp 0-3 (site 17, four), knet 0-3 (site 20, the first four of
-// six) and kc 0-5 (site 18, six)
-constexpr int kKp = 0, kKnet = 4, kKc = 8, kDrawKeys = 14;
+// six), kc 0-5 (site 18, six), and in a controller mode knet 4-5 (the
+// Query hops) and ka 0-5 (site 22, six: the announcers and the Query
+// targets)
+constexpr int kKp = 0, kKnet = 4, kKc = 8, kKnetQ = 14, kKa = 16,
+              kDrawKeys = 22;
 
 // A worst-op candidate's words in the warp's region: mask, lat, key, sub,
 // then the kPhases phases
@@ -138,8 +160,22 @@ struct Params {
   LeafRef leaf[kLeaves];
   const void *read[kReads];
   int b, g, n, cap, ns, nc, ncfg, apply_max, walk_max, hb, partitionable;
+  int mode;        // Mode
+  int src_lim;     // a CONFIG payload's source range: n computed, else 2
   int viol;        // the tick's violation bits
-  int owner;       // [ncfg, ns] the schedule's owner maps
+  int owner;       // [ncfg, ns] the owner maps: the schedule's (staged from
+                   // the input), or in computed mode the cfg_owner leaf's
+                   // staged row, which the controller's resolution writes
+  int view;        // the controller's view of the latest config: the
+                   // schedule's active config, or the controller's
+                   // committed frontier
+  int cfound;      // computed mode: a slot resolved this tick
+  int cflip;       // its committed flip's gid
+  int cmem;        // the member mask after it (bit g: group g)
+  int cslot;       // the slot it resolved (resolved + 1, clipped)
+  int ann;         // [4] the announcers' draws: truth submits, its
+                   // target, phantom submits, its target
+  int adopt;       // [g] the source a group's CONFIG append adopts
   int raft;        // [kRaftRows, g * n] the stepped raft rows (RaftRow)
   int first;       // [g * n, nc] the apply round an applier answered the
                    // clerk's Get (apply_max when none)
@@ -179,6 +215,11 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   p.walk_max = static_cast<int>(d[kWalkMax]);
   p.hb = static_cast<int>(d[kHb]);
   p.partitionable = static_cast<int>(d[kPartitionable]);
+  p.mode = static_cast<int>(d[kModeOf]);
+  p.src_lim = p.mode == kComputed ? p.n : 2;
+  if (p.mode < kSchedule || p.mode > kComputed ||
+      (p.mode == kComputed && (p.ns != k10::kShards || p.g > k10::kMaxGids)))
+    return false;
   if (p.b < 1 || p.g < 1 || p.g > kMaxGroups || p.n < 1 ||
       p.n > kMaxNodes || p.cap < 1 || p.cap > kMaxCap ||
       (p.cap & (p.cap - 1)) || p.ns < 1 || p.ns > kMaxShards || p.nc < 1 ||
@@ -192,7 +233,8 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   int words = 0;
   for (int l = 0; l < kLeaves; ++l) {
     const int64_t *q = d + kHeader + kReads + 4 * l;
-    const bool log_row = l == kLogTerm || l == kLogVal;
+    const bool log_row =
+        l == kLogTerm || l == kLogVal || l == kCLogTerm || l == kCLogVal;
     p.leaf[l] = {ptr_of<const void>(q[0]), ptr_of<void>(q[1]),
                  static_cast<int>(q[2]), static_cast<int>(q[3]),
                  log_row ? -1 : words};
@@ -201,9 +243,31 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
     if (!log_row) words += (p.leaf[l].count * p.leaf[l].bytes + 3) / 4;
   }
   const int gn = p.g * p.n, gs = p.g * p.ns;
+  // a controller leaf is written in its modes and only there
+  for (int l = kCtrlWFrontier; l <= kCqRspVar; ++l) {
+    const bool computed_only = l == kSlotTick || l == kCmem ||
+                               l == kCtrlNodeOwner || l == kCtrlMaps ||
+                               l == kCfgOwnerW || l == kWSrc;
+    const bool on = p.mode == kComputed ||
+                    (p.mode == kLive && !computed_only);
+    if ((p.leaf[l].count != 0) != on) return false;
+  }
+  for (int l = kCLogTerm; l <= kCDurableLen; ++l)
+    if ((p.leaf[l].count != 0) != (p.mode != kSchedule)) return false;
+  if (p.mode == kComputed &&
+      (p.leaf[kCfgOwnerW].count != p.ncfg * p.ns ||
+       p.leaf[kCtrlMaps].count != p.n * p.ncfg * p.ns))
+    return false;
   p.viol = words;
-  p.owner = p.viol + 1;
-  p.raft = p.owner + p.ncfg * p.ns;
+  p.owner = p.mode == kComputed ? p.leaf[kCfgOwnerW].off : p.viol + 1;
+  p.view = p.viol + 1 + p.ncfg * p.ns;
+  p.cfound = p.view + 1;
+  p.cflip = p.cfound + 1;
+  p.cmem = p.cflip + 1;
+  p.cslot = p.cmem + 1;
+  p.ann = p.cslot + 1;
+  p.adopt = p.ann + 4;
+  p.raft = p.adopt + p.g;
   p.first = p.raft + kRaftRows * gn;
   p.first_obs = p.first + gn * p.nc;
   p.lead = p.first_obs + gn * p.nc;
@@ -290,12 +354,14 @@ __device__ __forceinline__ void shared_or(int32_t *a, int32_t v) {
 #endif
 }
 
-// A log value's fields (shardkv.py _unpack, src_lim 2), client clipped
+// A log value's fields (shardkv.py _unpack), client clipped; a CONFIG's
+// payload is cfg_c * src_lim + var
 struct Entry {
-  int32_t kind, client, seq, shard, cfg_c, cfg_i;
+  int32_t kind, client, seq, shard, cfg_c, cfg_i, var;
 };
 
-__device__ __forceinline__ Entry unpack(int32_t val, int ns, int nc) {
+__device__ __forceinline__ Entry unpack(int32_t val, int ns, int nc,
+                                        int src_lim) {
   const int32_t v = wrap_sub(val, 1);
   Entry e;
   e.kind = floor_mod(v, 8);
@@ -304,7 +370,8 @@ __device__ __forceinline__ Entry unpack(int32_t val, int ns, int nc) {
   const int32_t cs = floor_div(payload, ns);
   e.client = clampi(floor_div(cs, kSeqLim), 0, nc - 1);
   e.seq = floor_mod(cs, kSeqLim);
-  e.cfg_c = floor_div(payload, 2);
+  e.cfg_c = floor_div(payload, src_lim);
+  e.var = floor_mod(payload, src_lim);
   e.cfg_i = floor_div(payload, ns);
   return e;
 }
@@ -318,11 +385,14 @@ __device__ __forceinline__ int32_t pack_op(int32_t client, int32_t seq,
   return static_cast<int32_t>(v * 8u + static_cast<uint32_t>(kind) + 1u);
 }
 
-// CONFIG (cfg_idx, variant 0), INSTALL and DELETE (cfg_idx, shard)
+// CONFIG (cfg_idx, adopted source `shard`: payload cfg_idx * src_lim +
+// source), INSTALL and DELETE (cfg_idx, shard)
 __device__ __forceinline__ int32_t pack_marker(int32_t cfg_idx, int32_t shard,
-                                               int32_t kind, int ns) {
+                                               int32_t kind, int ns,
+                                               int src_lim) {
   const uint32_t payload =
-      kind == kConfig ? static_cast<uint32_t>(cfg_idx) * 2u
+      kind == kConfig ? static_cast<uint32_t>(cfg_idx) * src_lim +
+                            static_cast<uint32_t>(shard)
                       : static_cast<uint32_t>(cfg_idx) * ns +
                             static_cast<uint32_t>(shard);
   return static_cast<int32_t>(payload * 8u + static_cast<uint32_t>(kind) +
@@ -446,6 +516,36 @@ __device__ __forceinline__ int32_t owner_at(const Params &p,
   return ws[p.owner + clampi(j, 0, p.ncfg - 1) * p.ns + s];
 }
 
+// Replica src's computed owner map of config j at shard s (shardkv.py
+// _map_at; src and j clipped), from the staged write-once history
+__device__ __forceinline__ int32_t map_at(const Params &p, const int32_t *ws,
+                                          int32_t src, int32_t j, int s) {
+  return ws[p.leaf[kCtrlMaps].off +
+            (clampi(src, 0, p.n - 1) * p.ncfg + clampi(j, 0, p.ncfg - 1)) *
+                p.ns +
+            s];
+}
+
+// The owner of shard s a CONFIG(cfg_c) from source var installs, and the
+// one before it (the adopter's previous config prev_cfg from source
+// prev_src): the adopted replica's maps in computed mode, else the
+// schedule's rows cfg_c and cfg_c - 1
+__device__ __forceinline__ int32_t new_owner(const Params &p,
+                                             const int32_t *ws, int32_t var,
+                                             int32_t cfg_c, int s) {
+  return p.mode == kComputed ? map_at(p, ws, var, cfg_c, s)
+                             : owner_at(p, ws, cfg_c, s);
+}
+
+__device__ __forceinline__ int32_t prev_owner(const Params &p,
+                                              const int32_t *ws,
+                                              int32_t prev_src,
+                                              int32_t prev_cfg, int32_t cfg_c,
+                                              int s) {
+  return p.mode == kComputed ? map_at(p, ws, prev_src, prev_cfg, s)
+                             : owner_at(p, ws, wrap_sub(cfg_c, 1), s);
+}
+
 // The latest config c <= view whose adoption moved shard s away from
 // group g (shardkv.py _freeze_epoch); 0 when none
 __device__ __forceinline__ int32_t freeze_epoch(const Params &p,
@@ -533,22 +633,30 @@ __device__ __forceinline__ void store_elem(const LeafRef &g,
 
 // ------------------------------------------------------- the service tick
 // Phase kStage: every leaf's row from its input into the warp's region
-// (the two log rows straight to their outputs), the stepped raft rows,
-// the schedule's owner maps and the tick's draw keys, the scratch set.
+// (the log rows straight to their outputs), the stepped raft rows, the
+// owner maps and the tick's draw keys, the scratch set.
 // The tick then updates the region, and reads pre-tick values from the
 // inputs where the plain version reads them.
 __device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
                                       int32_t *ws, int c, int lane) {
   const int gn = p.g * p.n;
-  // the tick's keys, a key a lane while the loads are in flight
-  if (lane < kDrawKeys) {
+  // the tick's keys, a key a lane while the loads are in flight (the
+  // controller's only in a controller mode)
+  if (lane < (p.mode != kSchedule ? kDrawKeys : kKnetQ)) {
     const Ro<uint32_t> key = read_row<uint32_t>(p, kKeys, c, 4);
     uint32_t k0 = key[0], k1 = key[2];  // the int64 words' low halves
     fold_in(k0, k1, static_cast<uint32_t>(tick_of(p, c)));
-    const uint32_t site = lane < kKnet ? kSitePull
-                          : lane < kKc ? kSiteNet : kSiteClerk;
+    const uint32_t site = lane < kKnet    ? kSitePull
+                          : lane < kKc    ? kSiteNet
+                          : lane < kKnetQ ? kSiteClerk
+                          : lane < kKa    ? kSiteNet
+                                          : kSiteAnn;
     const int num = lane < kKnet ? 4 : 6;
-    const int j = lane < kKnet ? lane : lane < kKc ? lane - kKnet : lane - kKc;
+    const int j = lane < kKnet    ? lane
+                  : lane < kKc    ? lane - kKnet
+                  : lane < kKnetQ ? lane - kKc
+                  : lane < kKa    ? lane - kKnetQ + 4
+                                  : lane - kKa;
     fold_in(k0, k1, site);
     uint32_t d0, d1;
     split_key(k0, k1, num, j, p.partitionable, d0, d1);
@@ -567,9 +675,13 @@ __device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
         read_row<uint8_t>(p, kPreAlive, c, gn)[x] != 0;
     ws[p.raft + kRPreBase * gn + x] = read_row<int32_t>(p, kPreBase, c, gn)[x];
   }
+  // the schedule's owner maps (in computed mode the cfg_owner leaf's row,
+  // staged with the leaves)
   const Ro<int32_t> owner = read_row<int32_t>(p, kCfgOwner, c,
                                               p.ncfg * p.ns);
-  for (int x = lane; x < p.ncfg * p.ns; x += kLanes) ws[p.owner + x] = owner[x];
+  if (p.mode != kComputed)
+    for (int x = lane; x < p.ncfg * p.ns; x += kLanes)
+      ws[p.owner + x] = owner[x];
   // every staged row's element `lane`, kGroup leaves' loads in flight at
   // once, then the rows' elements from kLanes on and the log rows
 #pragma unroll 1
@@ -606,6 +718,155 @@ __device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
   for (int x = lane; x < gn * p.nc; x += kLanes) ws[p.first + x] = p.apply_max;
   for (int cl = lane; cl < p.nc; cl += kLanes) ws[p.landed + cl] = 0;
   if (lane == 0) ws[p.viol] = 0;
+}
+
+// ------------------------------------------------------- the controller
+// The resolved prefix of win_var, less one: the controller's committed
+// frontier (announces resolve in slot order)
+__device__ __forceinline__ int32_t resolved_prefix(const Params &p,
+                                                   const int32_t *win_var) {
+  int32_t k = 0;
+  while (k < p.ncfg && win_var[k] >= 0) ++k;
+  return k - 1;
+}
+
+// Phase kCtrlWalk. In schedule mode lane 0 sets the view, the schedule's
+// active config. In a controller mode lane 31 runs the controller walker's
+// walk_max steps over the stepped controller cluster's commit shadow, with
+// the sticky stall (the entry it needs slid out of the shadow window):
+// live, the first committed announce of a config sets its variant;
+// computed, the one flip that resolves the next slot (at most one a tick)
+// is found and the canonical member mask flipped (never emptied); the
+// view is then the committed frontier. Lanes 0-3 draw the announcers'
+// submits and targets.
+__device__ __forceinline__ void ctrl_walk(const Params &p, int32_t *ws, int c,
+                                          int lane) {
+  if (p.mode == kSchedule) {
+    if (lane == 0) ws[p.view] = active_cfg(p, c, tick_of(p, c));
+    return;
+  }
+  const int cap = p.cap;
+  if (lane < 4) {
+    const int k = kKa + lane;
+    const uint32_t k0 = static_cast<uint32_t>(ws[p.draws + 2 * k]);
+    const uint32_t k1 = static_cast<uint32_t>(ws[p.draws + 2 * k + 1]);
+    const Ro<float> kf = read_row<float>(p, kKnobF, c, kNF);
+    ws[p.ann + lane] =
+        lane % 2 == 0
+            ? madraft::uniform(bits_word(k0, k1, 0, 1, p.partitionable)) <
+                  kf[lane == 0 ? kPAnnounce : kPPhantom]
+            : randint_elem(k0, k1, 0, 1, 0, p.n, p.partitionable);
+  }
+  if (lane != kWalkerLane) return;
+  const Ro<int32_t> sval = read_row<int32_t>(p, kCShadowVal, c, cap);
+  const int32_t sbase = read_row<int32_t>(p, kCShadowBase, c, 1)[0];
+  const int32_t slen = read_row<int32_t>(p, kCShadowLen, c, 1)[0];
+  int32_t &frontier = work<int32_t>(p, ws, kCtrlWFrontier)[0];
+  uint8_t &stalled = work<uint8_t>(p, ws, kCtrlWStalled)[0];
+  int32_t *win_var = work<int32_t>(p, ws, kWinVar);
+  const int32_t resolved = resolved_prefix(p, win_var);
+  bool found = false;
+  int32_t flip = 0;
+  for (int step = 0; step < p.walk_max; ++step) {
+    const int32_t f1 = wrap_add(frontier, 1);
+    const int pos = slot_of(f1, cap);
+    const bool in_win = shadow_abs(sbase, pos, cap) == f1;
+    bool canw = frontier < slen;
+    if (canw && !in_win) stalled = 1;
+    canw = canw && in_win;
+    const int32_t val = sval[pos];
+    const bool is_op = canw && val > 0 && val != kNoop;
+    const int32_t v1 = wrap_sub(val, 1);
+    if (p.mode == kLive) {
+      const int32_t aj = clampi(floor_div(v1, 2), 0, p.ncfg - 1);
+      if (is_op && win_var[aj] < 0) win_var[aj] = floor_mod(v1, 2);
+    } else if (is_op && !found && floor_div(v1, p.g) == resolved + 1 &&
+               resolved + 1 < p.ncfg) {
+      flip = clampi(floor_mod(v1, p.g), 0, p.g - 1);
+      found = true;
+    }
+    if (canw) frontier = f1;
+  }
+  if (p.mode == kLive) {
+    ws[p.view] = resolved_prefix(p, win_var);
+    return;
+  }
+  const uint8_t *cmem = work<uint8_t>(p, ws, kCmem);
+  uint32_t mem = 0;
+  for (int g = 0; g < p.g; ++g)
+    mem |= static_cast<uint32_t>(cmem[g] != 0) << g;
+  uint32_t flipped = mem ^ (1u << flip);
+  if (flipped == 0) flipped = mem;
+  ws[p.cfound] = found;
+  ws[p.cflip] = flip;
+  ws[p.cmem] = static_cast<int32_t>(found ? flipped : mem);
+  ws[p.cslot] = clampi(resolved + 1, 0, p.ncfg - 1);
+  ws[p.view] = found ? resolved + 1 : resolved;
+}
+
+// Phase kCtrlApply, a controller node a lane (controller modes). Computed
+// mode, when a slot resolved: replica i's 4A rebalance of its own owner
+// chain under the new member mask, its ties rotated by i under
+// bug_rotate_tiebreak (k10::rebalance), into its chain and its write-once
+// map of the slot; replica 0's is the canonical config (cfg_owner), and
+// lane 0 records the slot's flip, tick and the member mask. Then node i's
+// announcer appends, the truth's proposal then the phantom's for the slot
+// after the view (live: ANNOUNCE(j, variant); computed: FLIP(j, gid),
+// the two competing flips), each where node i is its target, an alive
+// leader, with room, into the controller's log rows in device memory.
+__device__ __forceinline__ void ctrl_apply(const Params &p, int32_t *ws,
+                                           int c, int lane) {
+  if (p.mode == kSchedule || lane >= p.n) return;
+  const int i = lane, cap = p.cap, ns = p.ns;
+  const int32_t t = tick_of(p, c);
+  const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
+  if (p.mode == kComputed && ws[p.cfound]) {
+    int32_t *own = work<int32_t>(p, ws, kCtrlNodeOwner) + i * ns;
+    int32_t out[k10::kShards];
+    k10::rebalance(p.g, static_cast<uint32_t>(ws[p.cmem]), own,
+                   ki[kBugRotate] ? i : 0, false, false, out);
+    const int slot = ws[p.cslot];
+    int32_t *map = work<int32_t>(p, ws, kCtrlMaps) + (i * p.ncfg + slot) * ns;
+    for (int s = 0; s < ns; ++s) own[s] = map[s] = out[s];
+    if (i == 0) {
+      for (int s = 0; s < ns; ++s) ws[p.owner + slot * ns + s] = out[s];
+      work<int32_t>(p, ws, kWinVar)[slot] = ws[p.cflip];
+      work<int32_t>(p, ws, kSlotTick)[slot] = t;
+      uint8_t *cmem = work<uint8_t>(p, ws, kCmem);
+      for (int g = 0; g < p.g; ++g) cmem[g] = (ws[p.cmem] >> g) & 1;
+    }
+  }
+  const int32_t view = ws[p.view];
+  const int32_t jnext = clampi(wrap_add(view, 1), 0, p.ncfg - 1);
+  const bool can_ann =
+      view + 1 < p.ncfg &&
+      read_row<int32_t>(p, kCfgTick, c, p.ncfg)[jnext] <= t;
+  const bool leader = read_row<uint8_t>(p, kCAlive, c, p.n)[i] != 0 &&
+                      read_row<int32_t>(p, kCRole, c, p.n)[i] == kLeader;
+  const int32_t base = read_row<int32_t>(p, kCBase, c, p.n)[i];
+  const int32_t commit = read_row<int32_t>(p, kCCommit, c, p.n)[i];
+  const int32_t term = read_row<int32_t>(p, kCTerm, c, p.n)[i];
+  int32_t &len = work<int32_t>(p, ws, kCLogLen)[i];
+  const int32_t len0 = len;
+  int32_t *log_term = out_row<int32_t>(p, kCLogTerm, c) + i * cap;
+  int32_t *log_val = out_row<int32_t>(p, kCLogVal, c) + i * cap;
+  for (int vb = 0; vb < 2; ++vb) {
+    if (!(can_ann && ws[p.ann + 2 * vb] && ws[p.ann + 2 * vb + 1] == i &&
+          leader && wrap_sub(len, base) < cap &&
+          wrap_sub(len, commit) < ki[kFlowCap]))
+      continue;
+    const int32_t av =
+        p.mode == kComputed
+            ? jnext * p.g +
+                  read_row<int32_t>(p, vb ? kFlipB : kFlipA, c, p.ncfg)[jnext] +
+                  1
+            : jnext * 2 + vb + 1;
+    const int pos = slot_of(wrap_add(len, 1), cap);
+    log_term[pos] = term;
+    log_val[pos] = av;
+    len = wrap_add(len, 1);
+  }
+  if (len > len0) work<int32_t>(p, ws, kCDurableLen)[i] = len;
 }
 
 // One node table of the restore (live rows `live`, their snapshot `snap`,
@@ -672,7 +933,7 @@ __device__ __forceinline__ void restore(const Params &p, int32_t *ws, int c,
   restore_table<int32_t>(p, ws, c, lane, kLastSeq, kSnapLastSeq, ns * p.nc);
   if (lane == 0) {
     // a restarting node's missed configs, against its reset config
-    const int32_t ac = active_cfg(p, c, tick_of(p, c));
+    const int32_t ac = ws[p.view];
     const Ro<int32_t> snap_cfg0 = in_row<int32_t>(p, kSnapCfg, c);
     int32_t lag = 0;
     for (int x = 0; x < gn; ++x) {
@@ -713,7 +974,7 @@ __device__ __forceinline__ void apply_node(const Params &p, int32_t *ws,
   for (int round = 0; round < p.apply_max && alive[gi] && applied < commit;
        ++round) {
     const int32_t val = log_val0[slot_of(wrap_add(applied, 1), cap)];
-    const Entry e = unpack(val, ns, nc);
+    const Entry e = unpack(val, ns, nc, p.src_lim);
     const int s = e.shard;
     if (e.kind == kAppend || e.kind == kPut || e.kind == kGet) {
       int32_t &ls = last_seq[s * nc + e.client];
@@ -731,15 +992,20 @@ __device__ __forceinline__ void apply_node(const Params &p, int32_t *ws,
         ls = e.seq;
       }
     } else if (e.kind == kConfig && e.cfg_c == wrap_add(node_cfg, 1)) {
+      // computed mode: the adopted replica's map, and the node's own last
+      // adoption before it
+      int32_t &node_src = work<int32_t>(p, ws, kNodeSrc)[gi];
       for (int x = 0; x < ns; ++x) {
-        const int32_t now = owner_at(p, ws, e.cfg_c, x);
-        const int32_t before = owner_at(p, ws, wrap_sub(e.cfg_c, 1), x);
+        const int32_t now = new_owner(p, ws, e.var, e.cfg_c, x);
+        const int32_t before =
+            prev_owner(p, ws, node_src, node_cfg, e.cfg_c, x);
         if (now == g && phase[x] == kAbsent)
           phase[x] = before == now ? kOwned : kPulling;
         else if (now != g && phase[x] == kOwned && !skip_freeze)
           phase[x] = kFrozen;
       }
       node_cfg = e.cfg_c;
+      if (p.mode == kComputed) node_src = clampi(e.var, 0, p.n - 1);
     } else if (e.kind == kInstall && stg_cfg0[g * ns + s] == e.cfg_i &&
                phase[s] == kPulling) {
       hash[s] = stg_hash0[g * ns + s];
@@ -759,9 +1025,13 @@ __device__ __forceinline__ void apply_node(const Params &p, int32_t *ws,
 }
 
 // The truth walker's walk_max steps over every group's commit shadow (the
-// plain version's order within a step: every group's entry and its
-// Append / Put / Get accept, then the freeze snapshots of every CONFIG,
-// then each group's phases, INSTALL and DELETE)
+// plain version's order within a step: every group's entry, its
+// controller check and its Append / Put / Get accept, then the freeze
+// snapshots of every CONFIG, then each group's phases, INSTALL and
+// DELETE). A CONFIG's owners are new_owner / prev_owner's; in a
+// controller mode its adopted source is checked against the controller's
+// decision: live, the variant must be the first-committed announce's;
+// computed, the adopted map must be the canonical one (replica 0's).
 __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
   const int G = p.g, ns = p.ns, nc = p.nc, cap = p.cap;
   const Ro<int32_t> sh_val = read_row<int32_t>(p, kShadowVal, c, G * cap);
@@ -781,14 +1051,18 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
   int32_t *w_acked = work<int32_t>(p, ws, kWClerkAcked);
   int32_t &installs = work<int32_t>(p, ws, kInstallsDone)[0];
   int32_t &deletes = work<int32_t>(p, ws, kDeletesDone)[0];
+  int32_t *w_src = p.mode == kComputed ? work<int32_t>(p, ws, kWSrc) : nullptr;
+  const int32_t *win_var =
+      p.mode == kLive ? work<int32_t>(p, ws, kWinVar) : nullptr;
   Entry ent[kMaxGroups];
   bool canw[kMaxGroups], is_cfg[kMaxGroups];
+  int32_t viol = 0;
   for (int step = 0; step < p.walk_max; ++step) {
     for (int g = 0; g < G; ++g) {
       const int32_t f1 = wrap_add(frontier[g], 1);
       const int pos = slot_of(f1, cap);
       const int32_t val = sh_val[g * cap + pos];
-      const Entry e = unpack(val, ns, nc);
+      const Entry e = unpack(val, ns, nc, p.src_lim);
       const int s = e.shard;
       bool can = frontier[g] < sh_len[g] &&
                  shadow_abs(sh_base[g], pos, cap) == f1;
@@ -813,13 +1087,20 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
       ent[g] = e;
       canw[g] = can;
       is_cfg[g] = can && e.kind == kConfig && e.cfg_c == wrap_add(w_cfg[g], 1);
+      if (is_cfg[g] && p.mode == kLive &&
+          e.var != win_var[clampi(e.cfg_c, 0, p.ncfg - 1)])
+        viol |= kViolCtrlStale;
+      if (is_cfg[g] && p.mode == kComputed)
+        for (int x = 0; x < ns; ++x)
+          if (map_at(p, ws, e.var, e.cfg_c, x) != owner_at(p, ws, e.cfg_c, x))
+            viol |= kViolCtrlStale;
     }
     // the freeze snapshots: a shard a CONFIG takes from its owner
     for (int s = 0; s < ns; ++s) {
       bool any = false;
       int32_t fc = -1, fh = 0, fn = 0;
       for (int g = 0; g < G; ++g) {
-        if (!is_cfg[g] || owner_at(p, ws, ent[g].cfg_c, s) == g ||
+        if (!is_cfg[g] || new_owner(p, ws, ent[g].var, ent[g].cfg_c, s) == g ||
             w_phase[g * ns + s] != kOwned)
           continue;
         any = true;
@@ -834,7 +1115,8 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
       for (int cl = 0; cl < nc; ++cl) {
         int32_t v = 0;
         for (int g = 0; g < G; ++g)
-          if (is_cfg[g] && owner_at(p, ws, ent[g].cfg_c, s) != g &&
+          if (is_cfg[g] &&
+              new_owner(p, ws, ent[g].var, ent[g].cfg_c, s) != g &&
               w_phase[g * ns + s] == kOwned)
             v = wrap_add(v, w_ls[(g * ns + s) * nc + cl]);
         frz_ls[s * nc + cl] = v;
@@ -845,15 +1127,17 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
       const int s = e.shard;
       int32_t *ph = w_phase + g * ns;
       if (is_cfg[g]) {
+        const int32_t src0 = w_src ? w_src[g] : 0;
         for (int x = 0; x < ns; ++x) {
-          const int32_t now = owner_at(p, ws, e.cfg_c, x);
-          const int32_t before = owner_at(p, ws, wrap_sub(e.cfg_c, 1), x);
+          const int32_t now = new_owner(p, ws, e.var, e.cfg_c, x);
+          const int32_t before = prev_owner(p, ws, src0, w_cfg[g], e.cfg_c, x);
           if (now == g && ph[x] == kAbsent)
             ph[x] = before == now ? kOwned : kPulling;
           else if (now != g && ph[x] == kOwned)
             ph[x] = kFrozen;
         }
         w_cfg[g] = e.cfg_c;
+        if (w_src) w_src[g] = clampi(e.var, 0, p.n - 1);
       }
       if (canw[g] && e.kind == kInstall && ph[s] == kPulling) {
         w_hash[g * ns + s] = frz_hash[s];
@@ -873,6 +1157,7 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
       if (canw[g]) frontier[g] = wrap_add(frontier[g], 1);
     }
   }
+  if (viol) shared_or(ws + p.viol, viol);
 }
 
 // Phase kApply: apply_max rounds of the apply loop, an applier (group,
@@ -1108,8 +1393,104 @@ __device__ __forceinline__ void mailbox_pair(const Params &p, int32_t *ws,
   }
 }
 
-// Group g's CONFIG advance: a poll, once the leader's pulls are done and
-// no FROZEN shard of its would come back to it
+// Group g's Query protocol to the controller (controller modes), one
+// outstanding Query a group: a response arriving that says config
+// l_cfg + 1 exists lets the gated leader append its CONFIG, adopting the
+// source it names; a request arriving at an alive controller node is
+// answered, over a lossy delayed hop, from the node's committed prefix
+// (live, under bug_stale_ctrler_read, from the first announce of the
+// asked config in its log tail, the announcers' appends included;
+// computed, the answer is the replica itself); an idle group with a
+// leader and a poll asks a random node for config l_cfg + 1
+__device__ __forceinline__ void query(const Params &p, int32_t *ws, int c,
+                                      int g, int32_t t, bool gate, bool poll,
+                                      int32_t l_cfg) {
+  const int cap = p.cap, n = p.n;
+  int32_t &req_t = work<int32_t>(p, ws, kCqReqT)[g];
+  int32_t &req_node = work<int32_t>(p, ws, kCqReqNode)[g];
+  int32_t &req_j = work<int32_t>(p, ws, kCqReqJ)[g];
+  int32_t &rsp_t = work<int32_t>(p, ws, kCqRspT)[g];
+  int32_t &rsp_j = work<int32_t>(p, ws, kCqRspJ)[g];
+  uint8_t &rsp_found = work<uint8_t>(p, ws, kCqRspFound)[g];
+  int32_t &rsp_var = work<int32_t>(p, ws, kCqRspVar)[g];
+  const int32_t *win_var = work<int32_t>(p, ws, kWinVar);
+  const int32_t view = ws[p.view];
+  const bool rsp_arr = rsp_t == t;
+  const bool adopt =
+      rsp_arr && rsp_found != 0 && rsp_j == wrap_add(l_cfg, 1);
+  ws[p.can_adv + g] = gate && adopt;
+  ws[p.adopt + g] = adopt ? rsp_var : 0;
+  if (rsp_arr) rsp_t = 0;
+  const bool req_arr = req_t == t;
+  const int32_t node = req_node, jreq = req_j;
+  const bool in_range = node >= 0 && node < n;
+  int32_t cnt_at = 0;
+  bool alive_at = false;
+  if (in_range) {
+    // the committed announces the node has not yet covered
+    const Ro<int32_t> sval = read_row<int32_t>(p, kCShadowVal, c, cap);
+    const int32_t sbase = read_row<int32_t>(p, kCShadowBase, c, 1)[0];
+    const int32_t slen = read_row<int32_t>(p, kCShadowLen, c, 1)[0];
+    const int32_t commit = read_row<int32_t>(p, kCCommit, c, n)[node];
+    int32_t above = 0;
+    for (int x = 0; x < cap; ++x) {
+      const int32_t v = sval[x];
+      const int32_t a = shadow_abs(sbase, x, cap);
+      above += v > 0 && v != kNoop && a <= slen && a > commit;
+    }
+    const int32_t cnt = wrap_sub(view, above);
+    cnt_at = cnt < 0 ? 0 : (cnt > view ? view : cnt);
+    alive_at = read_row<uint8_t>(p, kCAlive, c, n)[node] != 0;
+  }
+  const int32_t wv = win_var[clampi(jreq, 0, p.ncfg - 1)];
+  bool found = jreq <= cnt_at && wv >= 0;
+  int32_t var = wv > 0 ? wv : 0;
+  if (p.mode == kComputed) {
+    var = clampi(node, 0, n - 1);
+  } else if (read_row<int32_t>(p, kKnobI, c, kNI)[kBugStaleCtrl] &&
+             in_range) {
+    // the node's first log occurrence of announce jreq
+    const int32_t *lval = out_row<int32_t>(p, kCLogVal, c) + node * cap;
+    const int32_t base = read_row<int32_t>(p, kCBase, c, n)[node];
+    const int32_t len = work<int32_t>(p, ws, kCLogLen)[node];
+    int32_t amin = kBig, tail = 0;
+    for (int x = 0; x < cap; ++x) {
+      const int32_t v = lval[x];
+      const int32_t a = shadow_abs(base, x, cap);
+      if (v > 0 && v != kNoop && a <= len &&
+          floor_div(wrap_sub(v, 1), 2) == jreq && a < amin) {
+        amin = a;
+        tail = floor_mod(wrap_sub(v, 1), 2);
+      }
+    }
+    if (amin < kBig) {
+      found = true;
+      var = tail;
+    }
+  }
+  const uint32_t rw = draw_word(p, ws, kKnetQ + 0, g, p.g);
+  if (req_arr && alive_at && !net_lost(p, c, rw)) {
+    rsp_t = wrap_add(t, net_delay(p, c, rw));
+    rsp_j = jreq;
+    rsp_found = found;
+    rsp_var = var;
+  }
+  if (req_arr) req_t = 0;
+  if (ws[p.lead_any + g] && poll && req_t == 0 && rsp_t == 0 &&
+      wrap_add(l_cfg, 1) < p.ncfg) {
+    const uint32_t qw = draw_word(p, ws, kKnetQ + 1, g, p.g);
+    if (!net_lost(p, c, qw)) {
+      req_t = wrap_add(t, net_delay(p, c, qw));
+      req_node = draw_randint(p, ws, kKa + 4, g, p.g, 0, n);
+      req_j = wrap_add(l_cfg, 1);
+    }
+  }
+}
+
+// Group g's CONFIG advance, once the leader's pulls are done and no
+// FROZEN shard of its would come back to it: in schedule mode on a poll
+// while the schedule is ahead, in a controller mode by the Query protocol
+// (query)
 __device__ __forceinline__ void advance_gate(const Params &p, int32_t *ws,
                                              int c, int g) {
   const int ns = p.ns;
@@ -1123,7 +1504,12 @@ __device__ __forceinline__ void advance_gate(const Params &p, int32_t *ws,
   const float p_learn = read_row<float>(p, kKnobF, c, kNF)[kPCfgLearn];
   const bool poll =
       madraft::uniform(draw_word(p, ws, kKp + 0, g, p.g)) < p_learn;
-  ws[p.can_adv + g] = gate && poll && l_cfg < active_cfg(p, c, t);
+  if (p.mode == kSchedule) {
+    ws[p.can_adv + g] = gate && poll && l_cfg < ws[p.view];
+    ws[p.adopt + g] = 0;
+  } else {
+    query(p, ws, c, g, t, gate, poll, l_cfg);
+  }
 }
 
 // Phase kMailbox: a thread a (group, shard) pair (mailbox_pair), then a
@@ -1242,7 +1628,7 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
       madraft::uniform(draw_word(p, ws, kKc + 0, cl, nc)) < kf[kPCfgLearn] ||
       (ki[kRequery] != 0 && wrong0);
   const int32_t ccfg =
-      learn ? active_cfg(p, c, t) : in_row<int32_t>(p, kClerkCfg, c)[cl];
+      learn ? ws[p.view] : in_row<int32_t>(p, kClerkCfg, c)[cl];
   const uint32_t w = draw_word(p, ws, kKc + 1, cl, nc);
   const bool openloop = ki[kQueueCap] > 0;
   const bool arrive = openloop &&
@@ -1402,14 +1788,16 @@ __device__ __forceinline__ void append_log(const Params &p, int32_t *ws,
         const int32_t node_cfg = work<int32_t>(p, ws, kNodeCfg)[gi];
         const int32_t l_cfg = node_cfg;
         if (ws[p.can_adv + g])
-          append(pack_marker(wrap_add(node_cfg, 1), 0, kConfig, ns));
+          append(pack_marker(wrap_add(node_cfg, 1), ws[p.adopt + g], kConfig,
+                             ns, p.src_lim));
         for (int s = 0; s < ns; ++s)
           if (ws[p.want_pull + g * ns + s] &&
               work<int32_t>(p, ws, kStagedCfg)[g * ns + s] == l_cfg)
-            append(pack_marker(node_cfg, s, kInstall, ns));
+            append(pack_marker(node_cfg, s, kInstall, ns, p.src_lim));
         for (int s = 0; s < ns; ++s)
           if (ws[p.ack_del + g * ns + s])
-            append(pack_marker(ws[p.frz_epoch + g * ns + s], s, kDelete, ns));
+            append(pack_marker(ws[p.frz_epoch + g * ns + s], s, kDelete, ns,
+                               p.src_lim));
       }
       for (int cl = 0; cl < nc; ++cl) {
         if (!ws[p.retry + cl] || ws[p.grp + cl] != g ||
@@ -1478,6 +1866,8 @@ __device__ __forceinline__ void run_phase(const Params &p,
                                           int c, int lane, int phase) {
   switch (phase) {
     case kStage: stage(p, tab, ws, c, lane); break;
+    case kCtrlWalk: ctrl_walk(p, ws, c, lane); break;
+    case kCtrlApply: ctrl_apply(p, ws, c, lane); break;
     case kRestore: restore(p, ws, c, lane); break;
     case kApply: apply(p, ws, c, lane); break;
     case kOracle: oracle(p, ws, lane); break;

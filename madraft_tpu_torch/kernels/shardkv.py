@@ -1,27 +1,33 @@
-"""Kernel K11: the shardkv service tick (schedule mode) of a batch of
-deployments, one launch a tick.
+"""Kernel K11: the shardkv service tick of a batch of deployments, in any
+of the three config modes (the schedule, the live controller, the
+computed controller), one launch a tick.
 
-Replaces the JAX reference's service tick (B9),
-``madraft_tpu/tpusim/shardkv.py`` ``_shardkv_service_tick`` (907-2140,
-without its ``live_ctrler`` / ``computed_ctrler`` branches), and with the
-metrics plane (K11-metrics, the build ``variant`` names) the clerks'
-latency folds inside it (shardkv.py 1768-2118 with ``metrics.py``
-``fold_latencies``, ``fold_latencies_by``, ``fold_phases``,
-``update_worst`` and ``_shardkv_phase_matrix`` 678-695). Sources:
-``csrc/shardkv.cu`` (the kernel, its launch and the note on its bound and
-design) and ``csrc/shardkv.cuh`` (the device code).
+Replaces the JAX reference's service tick (B9, and its controller
+branches, B9-rest), ``madraft_tpu/tpusim/shardkv.py``
+``_shardkv_service_tick`` (907-2140), with the 4A rebalance of the
+computed controller (``ctrler.py`` ``_rebalance`` 270-343, through
+``csrc/ctrler.cuh``'s ``rebalance``), and with the metrics plane
+(K11-metrics, the build ``variant`` names) the clerks' latency folds inside
+it (shardkv.py 1768-2118 with ``metrics.py`` ``fold_latencies``,
+``fold_latencies_by``, ``fold_phases``, ``update_worst`` and
+``_shardkv_phase_matrix`` 678-695). Sources: ``csrc/shardkv.cu`` (the
+kernel, its launch and the note on its bound and design) and
+``csrc/shardkv.cuh`` (the device code). The mode is a field of the launch's
+descriptor, so the builds stay two.
 
-``shardkv_tick(cfg, kcfg, st, pre_alive, pre_base, s, keys, kn, skn)`` is
-the service share of one deployment tick: ``st`` the pre-tick shardkv
-state, ``s`` its group rafts after the raft tick ([B, G, ...]), the
-pre-tick views the rafts before it. On CPU tensors, or with
+``shardkv_tick(cfg, kcfg, st, pre_alive, pre_base, s, keys, kn, skn,
+ctrl=...)`` is the service share of one deployment tick: ``st`` the
+pre-tick shardkv state, ``s`` its group rafts after the raft tick ([B, G,
+...]), the pre-tick views the rafts before it, ``ctrl`` in a controller
+mode the controller cluster after its raft tick. On CPU tensors, or with
 ``plain=True`` (the eager route's baseline on the card), it returns the
 plain version's result (``tpusim.shardkv._shardkv_service_tick``); on
 CUDA tensors it launches K11 or raises. The kernel writes a new state
-(the inputs stay as they were; the leaves the tick leaves alone are
-passed through) and hashes the tick's draws itself.
+(the inputs stay as they were; the leaves the tick leaves alone in the
+mode are passed through) and hashes the tick's draws itself.
 ``shardkv_tick.launches`` counts its launches,
-``shardkv_tick.metrics_launches`` those of K11-metrics.
+``shardkv_tick.metrics_launches`` those of K11-metrics,
+``live_launches`` / ``computed_launches`` those in a controller mode.
 """
 
 from __future__ import annotations
@@ -46,8 +52,9 @@ MAX_SHARDS = 32
 MAX_CLIENTS = 32
 MAX_CONFIGS = 64
 
-# The service leaves the schedule mode's tick writes (the order of
-# csrc/shardkv.cuh Leaf), then the raft leaves it writes
+# The service leaves every mode's tick writes (the order of
+# csrc/shardkv.cuh Leaf), the controller modes' service leaves, then the
+# group raft leaves it writes and the controller cluster's
 SERVICE_WRITES = (
     "node_src", "snap_src", "applied", "node_cfg", "phase", "key_hash",
     "key_count", "last_seq", "snap_cfg", "snap_phase", "snap_hash",
@@ -67,22 +74,43 @@ SERVICE_WRITES = (
     "installs_done", "deletes_done", "max_cfg_lag", "violations",
     "first_violation_tick",
 )
+# the controller modes' service leaves; COMPUTED_ONLY are written in
+# computed mode only
+CTRL_WRITES = (
+    "ctrl_w_frontier", "ctrl_w_stalled", "win_var", "slot_tick", "cmem",
+    "ctrl_node_owner", "ctrl_maps", "cfg_owner", "w_src", "cq_req_t",
+    "cq_req_node", "cq_req_j", "cq_rsp_t", "cq_rsp_j", "cq_rsp_found",
+    "cq_rsp_var",
+)
+COMPUTED_ONLY = ("slot_tick", "cmem", "ctrl_node_owner", "ctrl_maps",
+                 "cfg_owner", "w_src")
 RAFT_WRITES = ("log_term", "log_val", "log_len", "durable_len",
                "compact_floor")
+CTRL_RAFT_WRITES = ("log_term", "log_val", "log_len", "durable_len")
+# every leaf, as (where, name): "st" a service leaf, "s" a group raft
+# leaf, "ctrl" a controller cluster leaf
+LEAVES = (tuple(("st", f) for f in SERVICE_WRITES + CTRL_WRITES)
+          + tuple(("s", f) for f in RAFT_WRITES)
+          + tuple(("ctrl", f) for f in CTRL_RAFT_WRITES))
+MODES = ("schedule", "live", "computed")
 # The stepped group rafts' leaves the kernel reads (csrc/shardkv.cuh
 # Read), then come the pre-tick views, the schedule, the keys and the knob
 # table
 RAFT_READS = ("tick", "term", "role", "alive", "base", "commit",
               "snap_installed_src", "shadow_val", "shadow_base",
               "shadow_len")
+# the stepped controller cluster's leaves the kernel reads, after them
+CTRL_READS = ("term", "role", "alive", "base", "commit", "shadow_val",
+              "shadow_base", "shadow_len")
 
 # The knob table's columns: the shardkv layer's float32 knobs, then its
 # int32 ones (bools as 0 / 1) with the raft knob flow_cap last
 KNOB_F32 = ("p_op", "p_get", "p_put", "p_retry", "p_cfg_learn", "p_pull",
-            "p_ack", "pull_loss", "open_rate", "zipf_a")
+            "p_ack", "pull_loss", "open_rate", "zipf_a", "p_announce",
+            "p_phantom")
 KNOB_I32 = ("pull_delay_min", "pull_delay_max", "bug_skip_freeze",
             "bug_drop_dup_table", "bug_serve_frozen", "requery_wrong_group",
-            "open_queue_cap")
+            "open_queue_cap", "bug_stale_ctrler_read", "bug_rotate_tiebreak")
 
 
 def variant(metrics: bool) -> str:
@@ -90,8 +118,25 @@ def variant(metrics: bool) -> str:
     return "shardkv_metrics" if metrics else "shardkv"
 
 
+def mode(kcfg) -> int:
+    """kcfg's config mode, the descriptor's (csrc/shardkv.cuh Mode)."""
+    return (MODES.index("computed") if kcfg.computed_ctrler
+            else MODES.index("live") if kcfg.live_ctrler else 0)
+
+
+def writes(kcfg) -> tuple:
+    """The leaves of LEAVES the tick writes in kcfg's mode (the others
+    pass through)."""
+    m = MODES[mode(kcfg)]
+    return tuple(
+        (w, f) for w, f in LEAVES
+        if (w == "st" and (f in SERVICE_WRITES or m == "computed"
+                           or (m == "live" and f not in COMPUTED_ONLY)))
+        or w == "s" or (w == "ctrl" and m != "schedule"))
+
+
 def knob_table(kn, skn, b: int) -> tuple:
-    """The knobs as per-deployment rows: (float32 [B, 10], int32 [B, 8]),
+    """The knobs as per-deployment rows: (float32 [B, 12], int32 [B, 10]),
     columns in KNOB_F32 / KNOB_I32 order then flow_cap; 0-d knobs are
     broadcast. A caller running many ticks builds it once."""
     f = torch.stack([getattr(skn, k).to(torch.float32).expand(b)
@@ -110,11 +155,13 @@ def leaf_shapes(cfg: SimConfig, kcfg) -> dict:
 
     st = init_shardkv_cluster(cfg, kcfg, torch.zeros((1, 2),
                                                      dtype=torch.int64))
-    out = {f: (tuple(getattr(st, f).shape[1:]), getattr(st, f).dtype)
-           for f in SERVICE_WRITES + ("cfg_tick", "cfg_owner")}
-    out.update({f: (tuple(getattr(st.rafts, f).shape[1:]),
-                    getattr(st.rafts, f).dtype)
-                for f in RAFT_WRITES + RAFT_READS})
+    out = {("st", f): (tuple(getattr(st, f).shape[1:]), getattr(st, f).dtype)
+           for f in SERVICE_WRITES + CTRL_WRITES + ("cfg_tick", "flip_a",
+                                                     "flip_b")}
+    for w, x, names in (("s", st.rafts, RAFT_WRITES + RAFT_READS),
+                        ("ctrl", st.ctrl, CTRL_RAFT_WRITES + CTRL_READS)):
+        out.update({(w, f): (tuple(getattr(x, f).shape[1:]),
+                             getattr(x, f).dtype) for f in names})
     return out
 
 
@@ -151,92 +198,116 @@ def check_shape(cfg: SimConfig, kcfg) -> None:
             f"{MAX_SHARDS}, n_clients <= {MAX_CLIENTS} and n_configs <= "
             f"{MAX_CONFIGS}, got n_groups={g} n={n} cap={cap} n_shards={ns} "
             f"n_clients={nc} n_configs={ncfg}")
-    if kcfg.live_ctrler or kcfg.computed_ctrler:
-        raise ValueError("shardkv_tick runs the schedule mode: the "
-                         "controller modes are ROADMAP A13b")
+    if kcfg.computed_ctrler and (ns != 10 or g > 10):
+        raise ValueError(
+            "shardkv_tick's computed controller runs csrc/ctrler.cuh's "
+            f"rebalance: n_shards 10 and n_groups <= 10, got n_shards={ns} "
+            f"n_groups={g}")
 
 
 def _launch(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys, table,
-            lib, stream):
+            lib, stream, ctrl=None):
     """Check the inputs, allocate the new state and launch ``lib``'s
-    ``shardkv_launch``. Returns the new ShardKvState."""
+    ``shardkv_launch``. ``ctrl`` is the stepped controller cluster in a
+    controller mode (None: ``st.ctrl``, the schedule mode's placeholder,
+    which the kernel then never reads). Returns the new ShardKvState."""
     check_shape(cfg, kcfg)
+    if ctrl is None:
+        ctrl = st.ctrl
     g, n, cap = kcfg.n_groups, cfg.n_nodes, cfg.log_cap
     dev, b = s.tick.device, s.tick.shape[0]
     if b == 0:
         raise ValueError("shardkv_tick: an empty batch")
     shapes = leaf_shapes(cfg, kcfg)
-    ins = ([getattr(st, f) for f in SERVICE_WRITES]
-           + [getattr(s, f) for f in RAFT_WRITES])
-    names = SERVICE_WRITES + RAFT_WRITES
-    for name, x in zip(names, ins):
-        lane, dtype = shapes[name]
-        _check(name, x, (b, *lane), dtype, dev)
-    for name in RAFT_READS:
-        lane, dtype = shapes[name]
-        _check(name, getattr(s, name), (b, *lane), dtype, dev)
-    for name in ("cfg_tick", "cfg_owner"):
-        lane, dtype = shapes[name]
-        _check(name, getattr(st, name), (b, *lane), dtype, dev)
+    src = {"st": st, "s": s, "ctrl": ctrl}
+    for w, f in writes(kcfg):
+        lane, dtype = shapes[(w, f)]
+        _check(f"{w}.{f}", getattr(src[w], f), (b, *lane), dtype, dev)
+    for w, names in (("s", RAFT_READS), ("ctrl", CTRL_READS)):
+        for f in names:
+            if w == "ctrl" and mode(kcfg) == 0:
+                continue
+            lane, dtype = shapes[(w, f)]
+            _check(f"{w}.{f}", getattr(src[w], f), (b, *lane), dtype, dev)
+    for f in ("cfg_tick", "cfg_owner", "flip_a", "flip_b"):
+        lane, dtype = shapes[("st", f)]
+        _check(f, getattr(st, f), (b, *lane), dtype, dev)
     _check("pre_alive", pre_alive, (b, g, n), BOOL, dev)
     _check("pre_base", pre_base, (b, g, n), I32, dev)
     _check("keys", keys, (b, 2), torch.int64, dev)
     kf, ki = table
     _check("knob table (float32)", kf, (b, len(KNOB_F32)), torch.float32, dev)
     _check("knob table (int32)", ki, (b, len(KNOB_I32) + 1), I32, dev)
-    # the new state: one allocation, each leaf a 16-byte aligned view
-    offs, nbytes = [], 0
-    for x in ins:
-        offs.append(nbytes)
-        nbytes += -(-x.numel() * x.element_size() // 16) * 16
+    # the new state: one allocation, each written leaf a 16-byte aligned
+    # view
+    ins = {k: getattr(src[k[0]], k[1]) for k in LEAVES}
+    offs, nbytes = {}, 0
+    for k in writes(kcfg):
+        offs[k] = nbytes
+        nbytes += -(-ins[k].numel() * ins[k].element_size() // 16) * 16
     buf = torch.empty((max(nbytes, 16),), dtype=torch.uint8, device=dev)
-    outs = [buf[at:at + x.numel() * x.element_size()].view(x.dtype)
-            .view(x.shape) for x, at in zip(ins, offs)]
-    reads = [getattr(s, f).data_ptr() for f in RAFT_READS] + [
-        pre_alive.data_ptr(), pre_base.data_ptr(), st.cfg_tick.data_ptr(),
-        st.cfg_owner.data_ptr(), keys.data_ptr(), kf.data_ptr(),
-        ki.data_ptr()]
+    outs = {k: buf[at:at + ins[k].numel() * ins[k].element_size()]
+            .view(ins[k].dtype).view(ins[k].shape) for k, at in offs.items()}
+    reads = ([getattr(s, f).data_ptr() for f in RAFT_READS]
+             + [getattr(ctrl, f).data_ptr() for f in CTRL_READS]
+             + [pre_alive.data_ptr(), pre_base.data_ptr(),
+                st.cfg_tick.data_ptr(), st.cfg_owner.data_ptr(),
+                st.flip_a.data_ptr(), st.flip_b.data_ptr(), keys.data_ptr(),
+                kf.data_ptr(), ki.data_ptr()])
     hb = st.lat_hist.shape[1] if cfg.metrics else 0
     head = [b, g, n, cap, kcfg.n_shards, kcfg.n_clients, kcfg.n_configs,
             kcfg.apply_max, kcfg.walk_max, hb, int(prng.partitionable()),
-            int(cfg.metrics)]
+            int(cfg.metrics), mode(kcfg)]
     leaves = []
-    for x, y in zip(ins, outs):
-        leaves += [x.data_ptr(), y.data_ptr(), x[0].numel(),
-                   x.element_size()]
+    for k, x in ins.items():
+        # a leaf the mode leaves alone: count 0, never touched
+        y = outs.get(k, x)
+        leaves += [x.data_ptr(), y.data_ptr(), x[0].numel() if k in outs
+                   else 0, x.element_size()]
     desc = np.asarray(head + reads + leaves, dtype=np.int64)
     _build.check(lib.shardkv_launch(desc.ctypes.data, len(desc), stream),
                  "shardkv_launch")
-    new = dict(zip(names, outs))
-    rafts = s._replace(**{f: new[f] for f in RAFT_WRITES})
-    return st._replace(rafts=rafts, **{f: new[f] for f in SERVICE_WRITES})
+    new = {w: {f: y for (w2, f), y in outs.items() if w2 == w}
+           for w in src}
+    out = st._replace(rafts=s._replace(**new["s"]), **new["st"])
+    if mode(kcfg):
+        out = out._replace(ctrl=ctrl._replace(**new["ctrl"]))
+    return out
 
 
 def shardkv_tick(cfg: SimConfig, kcfg, st, pre_alive: torch.Tensor,
                  pre_base: torch.Tensor, s, keys, kn, skn, table=None,
-                 plain: bool = False):
+                 plain: bool = False, ctrl=None):
     """The service share of one deployment tick: the plain version on the
     CPU (or with ``plain``), kernel K11's build for ``cfg.metrics`` on
     CUDA. ``table`` is ``knob_table(kn, skn, B)`` on the device when the
-    caller has it."""
+    caller has it; ``ctrl`` the stepped controller cluster in a controller
+    mode."""
     dev = s.tick.device
     if dev.type == "cpu" or plain:
         from madraft_tpu_torch.tpusim.shardkv import _shardkv_service_tick
 
         return _shardkv_service_tick(cfg, kcfg, st, pre_alive, pre_base, s,
-                                     keys, kn, skn)
+                                     keys, kn, skn, ctrl)
     if dev.type != "cuda":
         raise ValueError(
             f"shardkv_tick: expected CPU or CUDA tensors, got {dev}")
     if table is None:
         table = knob_table(kn.to(dev), skn.to(dev), s.tick.shape[0])
+    if (ctrl is None) != (mode(kcfg) == 0):
+        raise ValueError("shardkv_tick: a controller mode takes the stepped "
+                         "controller cluster (ctrl=), the schedule mode none")
     out = _launch(cfg, kcfg, st, pre_alive, pre_base, s, keys, table,
                   _lib(variant(cfg.metrics)),
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  torch.cuda.current_stream(dev).cuda_stream, ctrl)
     shardkv_tick.launches += 1
     shardkv_tick.metrics_launches += int(cfg.metrics)
+    shardkv_tick.live_launches += int(kcfg.live_ctrler)
+    shardkv_tick.computed_launches += int(kcfg.computed_ctrler)
     return out
 
 
 shardkv_tick.launches = 0
 shardkv_tick.metrics_launches = 0
+shardkv_tick.live_launches = 0
+shardkv_tick.computed_launches = 0

@@ -1,8 +1,8 @@
 """The batched lockstep Raft simulator in PyTorch (twin of
 ``madraft_tpu.tpusim``: the raw-raft fuzz/replay/pool/sweep paths, the
 kv service layer, ``tpusim.kv``, the shard controller,
-``tpusim.ctrler``, and the sharded kv in its schedule mode,
-``tpusim.shardkv``)."""
+``tpusim.ctrler``, and the sharded kv with its schedule, live-controller
+and computed-controller modes, ``tpusim.shardkv``)."""
 
 from madraft_tpu_torch.tpusim.config import SimConfig
 from madraft_tpu_torch.tpusim.ctrler import (

@@ -1,32 +1,41 @@
 """The multi-group sharded-kv service layer (Lab 4B) on top of the raft
-tick, in its schedule mode: G raft groups a deployment, the pre-drawn
-config schedule, shard migration (pull, install, GC), the clerks, the
-truth walker and the shardkv oracles, for a batch of deployments. The
-twin of the reference's ``madraft_tpu/tpusim/shardkv.py`` (whose module
-docstring explains the model and whose comments explain each step).
+tick: G raft groups a deployment, the config source, shard migration
+(pull, install, GC), the clerks, the truth walker and the shardkv oracles,
+for a batch of deployments. The twin of the reference's
+``madraft_tpu/tpusim/shardkv.py`` (whose module docstring explains the
+model and whose comments explain each step).
 
-A deployment tick is the raft tick of every group, then the service tick
-(``_shardkv_service_tick``). On the card (``engine.tick_route``) the raft
-tick is one launch of kernel K6 over the deployments' groups viewed as
-B x G clusters (``kernels.tick.tick_chunk`` with m = 1, each group keyed
-by ``fold_in(key, 100 + g)``), and the service tick one launch of kernel
-K11 (``kernels.shardkv.shardkv_tick``; K11-metrics with the metrics plane
-on). On the CPU, or with ``tick="eager"``, the raft tick is
-``step.step_cluster`` over the same view and the service tick this
+The config source is one of three modes (``ShardKvConfig``): the
+pre-drawn schedule (the default); ``live_ctrler``, where the configs'
+announces ride a replicated controller raft cluster and groups learn them
+through Query mailboxes; ``computed_ctrler``, where the controller's
+apply machine is the 4A rebalance (``ctrler._rebalance``) over committed
+membership flips. In a controller mode ``ctrl`` is a full raft cluster of
+the deployment's ``SimConfig``, keyed ``fold_in(key, 21)``; in schedule
+mode it is the reference's one-node placeholder, carried and never
+stepped (``_ctrl_sim_cfg``).
+
+A deployment tick is the raft tick of every group (and of the controller
+cluster in a controller mode), then the service tick
+(``_shardkv_service_tick``). On the card (``engine.tick_route``) the
+groups' raft tick is one launch of kernel K6 over the deployments' groups
+viewed as B x G clusters (``kernels.tick.tick_chunk`` with m = 1, each
+group keyed by ``fold_in(key, 100 + g)``), the controllers' a second K6
+launch over the B controller clusters, and the service tick one launch of
+kernel K11 (``kernels.shardkv.shardkv_tick``; K11-metrics with the
+metrics plane on). On the CPU, or with ``tick="eager"``, the raft ticks
+are ``step.step_cluster`` over the same views and the service tick this
 module's ``_shardkv_service_tick``, K11's plain version.
 
 Batch-first like the rest of the port: a reference leaf ``[G, N, NS]`` is
-``[B, G, N, NS]`` here, a scalar leaf is ``[B]``, and ``rafts`` is a
-``ClusterState`` of ``[B, G, ...]`` leaves. Every knob of
-``ShardKvKnobs`` (and of the raft ``Knobs``) is 0-d, one value for the
-batch, or a ``[B]`` row, one value a deployment
+``[B, G, N, NS]`` here, a scalar leaf is ``[B]``, ``rafts`` is a
+``ClusterState`` of ``[B, G, ...]`` leaves and ``ctrl`` one of ``[B,
+...]`` leaves. Every knob of ``ShardKvKnobs`` (and of the raft ``Knobs``)
+is 0-d, one value for the batch, or a ``[B]`` row, one value a deployment
 (``make_shardkv_sweep_fn``).
 
-Not ported here: the two controller modes (``live_ctrler``,
-``computed_ctrler``), whose configs the tick refuses, and the packed
-deployment carry (the port ticks the wide state and reports
-``"state_layout": "wide"``). In schedule mode the controller cluster
-``ctrl`` is the reference's one-node placeholder: carried, never stepped.
+Not ported here: the packed deployment carry (the port ticks the wide
+state and reports ``"state_layout": "wide"``).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from madraft_tpu_torch.tpusim.config import (
 from madraft_tpu_torch.tpusim.kv import _wrap_i32
 from madraft_tpu_torch.tpusim.state import (
     ClusterState,
+    durable_after_append,
     init_cluster,
     nested_state_from_numpy,
     nested_state_to_numpy,
@@ -88,7 +98,9 @@ _S_PULL = 17
 _S_CLERK = 18
 _S_CFGGEN = 19
 _S_NET_PULL = 20
-_S_CTRL = 21
+_S_CTRL = 21  # the controller cluster's raft stream
+_S_ANN = 22   # the announcers' and the Query targets' draws
+_S_FLIP = 23  # the computed controller's flip schedule, at init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,10 +286,12 @@ def _pack_op(cfg: ShardKvConfig, client, seq, shard, kind):
     return (((client * _SEQ_LIM + seq) * cfg.n_shards + shard) * 8 + kind) + 1
 
 
-def _pack_config(cfg_idx):
-    """CONFIG(cfg_idx) as the schedule mode appends it: the reference's
-    payload cfg_idx * 2 + variant, the variant 0."""
-    return ((cfg_idx * 2) * 8 + _CONFIG) + 1
+def _pack_config(cfg_idx, var=0, src_lim=2):
+    """CONFIG(cfg_idx) with payload cfg_idx * src_lim + var: ``var`` the
+    adopted source, the announce variant in live mode (src_lim 2) or the
+    controller replica in computed mode (src_lim n), 0 in schedule mode
+    (the reference's ``_pack_config``)."""
+    return ((cfg_idx * src_lim + var) * 8 + _CONFIG) + 1
 
 
 def _pack_install(cfg: ShardKvConfig, cfg_idx, shard):
@@ -288,30 +302,35 @@ def _pack_delete(cfg: ShardKvConfig, cfg_idx, shard):
     return ((cfg_idx * cfg.n_shards + shard) * 8 + _DELETE) + 1
 
 
-def _unpack(cfg: ShardKvConfig, val):
-    """(kind, client, seq, shard, cfg_idx_c, cfg_idx_i) of log values,
-    floor division and modulo as the reference's ``//`` and ``%`` (fields
-    valid per kind; CONFIG's payload is cfg_idx * 2 + variant; an empty
-    slot's 0 and the no-op decode as kind 7, which matches nothing)."""
-    def fdiv(a, b):
-        return torch.div(a, b, rounding_mode="floor")
+def _fdiv(a, b):
+    """Python's ``//`` (floor division) of int tensors."""
+    return torch.div(a, b, rounding_mode="floor")
 
+
+def _unpack(cfg: ShardKvConfig, val, src_lim=2):
+    """(kind, client, seq, shard, cfg_idx_c, cfg_idx_i, var_c) of log
+    values, floor division and modulo as the reference's ``//`` and ``%``
+    (fields valid per kind; CONFIG's payload is cfg_idx * src_lim + var,
+    ``_pack_config``; an empty slot's 0 and the no-op decode as kind 7,
+    which matches nothing)."""
     v = val - 1
     kind = torch.remainder(v, 8)
-    payload = fdiv(v, 8)
+    payload = _fdiv(v, 8)
     shard = torch.remainder(payload, cfg.n_shards)
-    cs = fdiv(payload, cfg.n_shards)
-    return (kind, fdiv(cs, _SEQ_LIM), torch.remainder(cs, _SEQ_LIM), shard,
-            fdiv(payload, 2), fdiv(payload, cfg.n_shards))
+    cs = _fdiv(payload, cfg.n_shards)
+    return (kind, _fdiv(cs, _SEQ_LIM), torch.remainder(cs, _SEQ_LIM), shard,
+            _fdiv(payload, src_lim), _fdiv(payload, cfg.n_shards),
+            torch.remainder(payload, src_lim))
 
 
 class ShardKvState(NamedTuple):
     """A batch of deployments: the reference's ``ShardKvState`` with a
     leading deployment axis (its comments explain each leaf). ``rafts``
     holds the G group clusters ([B, G, ...] leaves), ``ctrl`` the
-    schedule mode's one-node placeholder controller ([B, ...]). The
-    controller-mode leaves are carried as the reference's schedule mode
-    makes them; the metric leaves are zero-size with metrics off."""
+    controller cluster ([B, ...]: the full cluster in a controller mode,
+    the one-node placeholder in schedule mode). The controller-mode
+    leaves are carried unchanged outside their modes, as the reference
+    carries them; the metric leaves are zero-size with metrics off."""
 
     rafts: ClusterState
     cfg_tick: torch.Tensor          # [B, NCFG]
@@ -422,19 +441,23 @@ SHARDKV_FIELDS = (tuple(f"rafts.{f}" for f in ClusterState._fields)
                   + SERVICE)
 
 
-def _ctrl_sim_cfg(cfg: SimConfig) -> SimConfig:
-    """The SimConfig of the schedule mode's placeholder controller cluster:
-    the reference's smallest legal one (its ``_ctrl_sim_cfg``)."""
+def _ctrl_mode(kcfg: ShardKvConfig) -> bool:
+    return kcfg.live_ctrler or kcfg.computed_ctrler
+
+
+def _ctrl_sim_cfg(cfg: SimConfig, kcfg: ShardKvConfig) -> SimConfig:
+    """The SimConfig of the deployment's controller cluster: the real one
+    in a controller mode, else the reference's smallest legal placeholder
+    (its ``_ctrl_sim_cfg``)."""
+    if _ctrl_mode(kcfg):
+        return cfg
     return cfg.replace(n_nodes=1, log_cap=4, uncommitted_cap=1,
                        compact_every=1)
 
 
-def _check_mode(kcfg: ShardKvConfig) -> None:
-    if kcfg.live_ctrler or kcfg.computed_ctrler:
-        raise ValueError(
-            "the shardkv controller modes (live_ctrler, computed_ctrler) "
-            "are not ported yet (ROADMAP A13b): the port runs the schedule "
-            "mode")
+def ctrl_keys(keys: torch.Tensor) -> torch.Tensor:
+    """[B, 2] the controller clusters' raft keys, ``fold_in(key, 21)``."""
+    return prng.fold_in(keys, _S_CTRL)
 
 
 def group_keys(keys: torch.Tensor, n_groups: int) -> torch.Tensor:
@@ -535,7 +558,6 @@ def init_shardkv_cluster(cfg: SimConfig, kcfg: ShardKvConfig,
                          skn=None) -> ShardKvState:
     """Fresh deployments at tick 0, one per key row of ``keys`` [B, 2];
     ``kn`` / ``skn`` may hold [B] knob rows."""
-    _check_mode(kcfg)
     dev = keys.device
     b = keys.shape[0]
     if kn is None:
@@ -556,7 +578,10 @@ def init_shardkv_cluster(cfg: SimConfig, kcfg: ShardKvConfig,
     gid = torch.arange(g, dtype=I32, device=dev)
     phase0 = torch.where(owner0[:, None, None, :] == gid[None, :, None, None],
                          OWNED, ABSENT).expand(b, g, n, ns).to(I32)
-    ctrl = init_cluster(_ctrl_sim_cfg(cfg), prng.fold_in(keys, _S_CTRL))
+    if _ctrl_mode(kcfg):
+        ctrl = init_cluster(cfg, ctrl_keys(keys), kn)
+    else:
+        ctrl = init_cluster(_ctrl_sim_cfg(cfg, kcfg), ctrl_keys(keys))
 
     def full(shape, v=0, dtype=I32):
         return torch.full((b, *shape), v, dtype=dtype, device=dev)
@@ -566,13 +591,24 @@ def init_shardkv_cluster(cfg: SimConfig, kcfg: ShardKvConfig,
         x[:, 0] = 0
         return x
 
+    flip_a, flip_b = full((ncfg,)), full((ncfg,))
+    if kcfg.computed_ctrler:
+        # config content comes from the controller's apply machine: the
+        # rows past config 0 are placeholders the walker overwrites as
+        # slots resolve; the two announcers' competing flips per slot
+        cfg_owner = owner0[:, None, :].expand(b, ncfg, ns).clone()
+        kf = prng.split(prng.fold_in(keys, _S_FLIP), 2)
+        flip_a = prng.randint(kf[:, 0], ncfg, 0, g)
+        flip_b = torch.remainder(
+            flip_a + 1 + prng.randint(kf[:, 1], ncfg, 0, max(g - 1, 1)),
+            g).to(I32)
     ctrl_maps = full((n, ncfg, ns))
     ctrl_maps[:, :, 0, :] = owner0[:, None, :]
     return ShardKvState(
         rafts=rafts, cfg_tick=cfg_tick, cfg_owner=cfg_owner, ctrl=ctrl,
         ctrl_w_frontier=full(()), ctrl_w_stalled=full((), False, BOOL),
-        win_var=neg_first((ncfg,)), flip_a=full((ncfg,)),
-        flip_b=full((ncfg,)), slot_tick=neg_first((ncfg,)),
+        win_var=neg_first((ncfg,)), flip_a=flip_a,
+        flip_b=flip_b, slot_tick=neg_first((ncfg,)),
         cmem=full((g,), True, BOOL),
         ctrl_node_owner=owner0[:, None, :].expand(b, n, ns).clone(),
         ctrl_maps=ctrl_maps, node_src=full((g, n)), snap_src=full((g, n)),
@@ -679,17 +715,224 @@ def _net_pair(keys, skn2, size: int):
     return delay.to(I32), lost
 
 
+def _ctrl_walk(kcfg: ShardKvConfig, cap: int, st: ShardKvState,
+               ctrl: ClusterState):
+    """The controller walker's walk_max steps over the stepped controller
+    cluster's commit shadow, as the reference's live and computed walkers
+    (pass 1) take them: returns (frontier, stalled, win_var, found,
+    found_flip), ``win_var`` updated in live mode, ``found`` /
+    ``found_flip`` the computed mode's resolving flip (at most one a
+    tick)."""
+    ncfg, g = kcfg.n_configs, kcfg.n_groups
+    dev = ctrl.tick.device
+    b = ctrl.tick.shape[0]
+    win_var = st.win_var
+    frontier, stalled = st.ctrl_w_frontier, st.ctrl_w_stalled
+    csh_abs = lane_abs(ctrl.shadow_base, cap)  # [B, cap]
+    resolved = torch.cumprod((win_var >= 0).to(I32), -1).sum(-1,
+                                                               dtype=I32) - 1
+    found = torch.zeros(b, dtype=BOOL, device=dev)
+    found_flip = torch.zeros(b, dtype=I32, device=dev)
+    slots = torch.arange(ncfg, dtype=I32, device=dev)
+    for _ in range(kcfg.walk_max):
+        canw = frontier < ctrl.shadow_len
+        posw = _slot(frontier + 1, cap)
+        in_win = _row_gather(csh_abs, posw, cap) == frontier + 1
+        stalled = stalled | (canw & ~in_win)
+        canw = canw & in_win
+        val = _row_gather(ctrl.shadow_val, posw, cap)
+        is_op = canw & (val > 0) & (val != NOOP_CMD)
+        if kcfg.live_ctrler:
+            aj = torch.clamp(_fdiv(val - 1, 2), 0, ncfg - 1)
+            av = torch.remainder(val - 1, 2)
+            win_var = torch.where((slots == aj[:, None]) & is_op[:, None]
+                                  & (win_var < 0), av[:, None], win_var)
+        else:
+            applies = (is_op & ~found & (_fdiv(val - 1, g) == resolved + 1)
+                       & (resolved + 1 < ncfg))
+            flip = torch.clamp(torch.remainder(val - 1, g), 0, g - 1)
+            found_flip = torch.where(applies, flip, found_flip)
+            found = found | applies
+        frontier = torch.where(canw, frontier + 1, frontier)
+    return frontier, stalled, win_var.to(I32), found, found_flip.to(I32)
+
+
+def _ctrl_resolve(kcfg: ShardKvConfig, n: int, st: ShardKvState, t,
+                  found, found_flip, skn: ShardKvKnobs) -> dict:
+    """The computed controller's pass 2: the single resolution of a tick
+    (``found``) flips the canonical member mask (never empty), runs the 4A
+    rebalance once per replica with its tie rotation (node id under
+    ``bug_rotate_tiebreak``, else 0) and writes the maps, replica 0's as
+    the canonical config. Returns the new leaves."""
+    g, ncfg = kcfg.n_groups, kcfg.n_configs
+    dev = st.cmem.device
+    gid = torch.arange(g, dtype=I32, device=dev)
+    cmem = st.cmem
+    resolved = torch.cumprod((st.win_var >= 0).to(I32), -1).sum(
+        -1, dtype=I32) - 1
+    nm = torch.where(gid == found_flip[:, None], ~cmem, cmem)
+    nm = torch.where(nm.any(-1, keepdim=True), nm, cmem)
+    new_mem = torch.where(found[:, None], nm, cmem)
+    rot = (torch.arange(n, dtype=I32, device=dev)
+           * lane_view(skn.bug_rotate_tiebreak, 2).to(I32))  # [B, n]
+    b = cmem.shape[0]
+    reb = _ctrler._rebalance(g, new_mem[:, None, :].expand(b, n, g),
+                             st.ctrl_node_owner, rot, False, False)
+    f1 = found[:, None]
+    slot_oh = (torch.arange(ncfg, dtype=I32, device=dev)
+               == torch.clamp(resolved + 1, 0, ncfg - 1)[:, None]) & f1
+    return dict(
+        cmem=new_mem,
+        ctrl_node_owner=torch.where(found[:, None, None], reb,
+                                    st.ctrl_node_owner),
+        ctrl_maps=torch.where(slot_oh[:, None, :, None], reb[:, :, None],
+                              st.ctrl_maps),
+        cfg_owner=torch.where(slot_oh[..., None], reb[:, None, 0],
+                              st.cfg_owner),
+        win_var=torch.where(slot_oh, found_flip[:, None], st.win_var),
+        slot_tick=torch.where(slot_oh, t[:, None], st.slot_tick),
+    )
+
+
+def _announce(kcfg: ShardKvConfig, cap: int, st: ShardKvState,
+              ctrl: ClusterState, frontier, t, key, kn: Knobs,
+              skn: ShardKvKnobs) -> tuple:
+    """The announcers: the truth (variant 0) and the phantom (variant 1)
+    each submit the slot-(frontier + 1) proposal to a random controller
+    node, once the schedule says the config is due; it lands where that
+    node is an alive leader with room. Live mode proposes ANNOUNCE(j,
+    variant), computed mode FLIP(j, gid) with the two competing flips.
+    Returns the controller cluster with the appends and the draw keys
+    ``ka`` ([B, 6, 2])."""
+    ncfg, g, n = kcfg.n_configs, kcfg.n_groups, ctrl.term.shape[1]
+    dev = ctrl.tick.device
+    ka = prng.split(prng.fold_in(key, _S_ANN), 6)
+    jnext = torch.clamp(frontier + 1, 0, ncfg - 1)
+    can_ann = (frontier + 1 < ncfg) & (_at(st.cfg_tick, jnext) <= t)
+    c_term, c_val, c_len = ctrl.log_term, ctrl.log_val, ctrl.log_len
+    me = torch.arange(n, dtype=I32, device=dev)
+    lane = torch.arange(cap, dtype=I32, device=dev)
+    flow_cap = lane_view(kn.flow_cap, 2)
+    for var_bit, p_sub in ((0, skn.p_announce), (1, skn.p_phantom)):
+        sub = can_ann & prng.bernoulli(ka[:, 2 * var_bit], p_sub, 1)[:, 0]
+        tgt = prng.randint(ka[:, 2 * var_bit + 1], 1, 0, n)
+        ok = ((me == tgt) & sub[:, None] & ctrl.alive
+              & (ctrl.role == LEADER) & (c_len - ctrl.base < cap)
+              & (c_len - ctrl.commit < flow_cap))
+        if kcfg.computed_ctrler:
+            flips = st.flip_b if var_bit else st.flip_a
+            av = jnext * g + _at(flips, jnext) + 1
+        else:
+            av = jnext * 2 + var_bit + 1
+        hit = ok[..., None] & (lane == _slot(c_len + 1, cap)[..., None])
+        c_term = torch.where(hit, ctrl.term[..., None], c_term)
+        c_val = torch.where(hit, av[:, None, None], c_val)
+        c_len = torch.where(ok, c_len + 1, c_len)
+    return ctrl._replace(log_term=c_term, log_val=c_val, log_len=c_len,
+                         durable_len=durable_after_append(ctrl, c_len)), ka
+
+
+def _query(kcfg: ShardKvConfig, cap: int, st: ShardKvState,
+           ctrl: ClusterState, cst: dict, frontier, t, ka, knet, k2,
+           gate_advance, lead_any, poll, l_cfg) -> tuple:
+    """The Query protocol to the controller, one outstanding Query a group
+    ([B, G]): a response that says config l_cfg + 1 exists lets the leader
+    advance, adopting the source it names; requests arriving at an alive
+    controller node are answered from its committed prefix (or, under
+    ``bug_stale_ctrler_read``, from the first announce of the asked
+    config in its log tail; in computed mode the answer is the replica
+    itself), each hop lossy and delayed; idle groups with a leader and a
+    poll ask a random node for config l_cfg + 1. Returns (can_advance,
+    adopt_var, the new cq_* leaves)."""
+    ncfg, n, g = kcfg.n_configs, ctrl.term.shape[1], l_cfg.shape[1]
+    dev = ctrl.tick.device
+    t2 = t[:, None]
+    win_var = cst["win_var"]
+    rsp_arr = st.cq_rsp_t == t2
+    adopt = rsp_arr & st.cq_rsp_found & (st.cq_rsp_j == l_cfg + 1)
+    can_advance = gate_advance & adopt
+    adopt_var = torch.where(adopt, st.cq_rsp_var, 0)
+    cq_rsp_t = torch.where(rsp_arr, 0, st.cq_rsp_t)
+    # requests arriving at controller nodes
+    req_arr = st.cq_req_t == t2
+    me = torch.arange(n, dtype=I32, device=dev)
+    node_oh = me == st.cq_req_node[..., None]  # [B, G, N]
+    csh_abs = lane_abs(ctrl.shadow_base, cap)  # [B, cap]
+    ann_in_win = ((ctrl.shadow_val > 0) & (ctrl.shadow_val != NOOP_CMD)
+                  & (csh_abs <= ctrl.shadow_len[:, None]))
+    above = (ann_in_win[:, None, :] & (csh_abs[:, None, :]
+                                       > ctrl.commit[..., None])).sum(
+        -1, dtype=I32)  # [B, N]: committed announces the node lacks
+    f1 = frontier[:, None]
+    cnt_node = torch.minimum(torch.clamp(f1 - above, min=0), f1)
+    cnt_at = torch.where(node_oh, cnt_node[:, None, :], 0).sum(-1, dtype=I32)
+    jreq = st.cq_req_j
+    wv_req = _at(win_var[:, None, :], torch.clamp(jreq, 0, ncfg - 1))
+    found_ok = (jreq <= cnt_at) & (wv_req >= 0)
+    if kcfg.computed_ctrler:
+        found_rep = found_ok
+        var_rep = torch.clamp(st.cq_req_node, 0, n - 1)
+    else:
+        labs = lane_abs(ctrl.base, cap)  # [B, N, cap]
+        lval = ctrl.log_val
+        is_ann = ((lval > 0) & (lval != NOOP_CMD)
+                  & (labs <= ctrl.log_len[..., None]))
+        m = (node_oh[..., None] & is_ann[:, None]
+             & (_fdiv(lval - 1, 2)[:, None] == jreq[..., None, None]))
+        has_tail = m.any((2, 3))
+        amin = torch.where(m, labs[:, None], _BIG).amin((2, 3))
+        var_tail = torch.where(m & (labs[:, None] == amin[..., None, None]),
+                               torch.remainder(lval - 1, 2)[:, None],
+                               0).sum((2, 3), dtype=I32)
+        bug = k2.bug_stale_ctrler_read
+        found_rep = torch.where(bug, has_tail | found_ok, found_ok)
+        var_rep = torch.where(bug & has_tail, var_tail,
+                              torch.clamp(wv_req, min=0))
+    alive_at = (node_oh & ctrl.alive[:, None, :]).any(-1)
+    rdelay, rlost = _net_pair(knet[:, 4], k2, g)
+    send = req_arr & alive_at & ~rlost
+    cq_rsp_t = torch.where(send, t2 + rdelay, cq_rsp_t)
+    cq_rsp_j = torch.where(send, jreq, st.cq_rsp_j)
+    cq_rsp_found = torch.where(send, found_rep, st.cq_rsp_found)
+    cq_rsp_var = torch.where(send, var_rep, st.cq_rsp_var).to(I32)
+    cq_req_t = torch.where(req_arr, 0, st.cq_req_t)
+    # fresh Queries from idle groups
+    idle = (cq_req_t == 0) & (cq_rsp_t == 0)
+    ask = lead_any & poll & idle & (l_cfg + 1 < ncfg)
+    tgtq = prng.randint(ka[:, 4], g, 0, n)
+    qdelay, qlost = _net_pair(knet[:, 5], k2, g)
+    sendq = ask & ~qlost
+    return can_advance, adopt_var.to(I32), dict(
+        cq_req_t=torch.where(sendq, t2 + qdelay, cq_req_t).to(I32),
+        cq_req_node=torch.where(sendq, tgtq, st.cq_req_node).to(I32),
+        cq_req_j=torch.where(sendq, l_cfg + 1, st.cq_req_j).to(I32),
+        cq_rsp_t=cq_rsp_t.to(I32), cq_rsp_j=cq_rsp_j.to(I32),
+        cq_rsp_found=cq_rsp_found, cq_rsp_var=cq_rsp_var)
+
+
+def _map_at(ctrl_maps: torch.Tensor, src, cj) -> torch.Tensor:
+    """Replica ``src``'s computed owner map of config ``cj`` (both clipped
+    to range): ctrl_maps [B, N, NCFG, NS], src / cj [B, ...] ->
+    [B, ..., NS] (the reference's ``map_at``)."""
+    b, n, ncfg, ns = ctrl_maps.shape
+    idx = (torch.clamp(src, 0, n - 1) * ncfg + torch.clamp(cj, 0, ncfg - 1))
+    flat = idx.reshape(b, -1).long()
+    out = ctrl_maps.reshape(b, n * ncfg, ns).gather(
+        1, flat[..., None].expand(-1, -1, ns))
+    return out.reshape(*idx.shape, ns)
+
+
 def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
                           st: ShardKvState, pre_alive: torch.Tensor,
                           pre_base: torch.Tensor, s: ClusterState,
                           keys: torch.Tensor, kn: Knobs,
-                          skn: ShardKvKnobs) -> ShardKvState:
+                          skn: ShardKvKnobs, ctrl=None) -> ShardKvState:
     """The service share of one tick for every deployment, given the
-    stepped group rafts ``s`` ([B, G, ...]) and the pre-tick ``alive`` /
-    ``base`` ([B, G, N]): the reference's ``_shardkv_service_tick`` in
-    schedule mode (its comments explain each step), batch-first. Kernel
-    K11's plain version."""
-    _check_mode(kcfg)
+    stepped group rafts ``s`` ([B, G, ...]), the pre-tick ``alive`` /
+    ``base`` ([B, G, N]) and, in a controller mode, the stepped controller
+    cluster ``ctrl`` ([B, ...]; None: ``st.ctrl``, the schedule mode's
+    placeholder): the reference's ``_shardkv_service_tick`` (its comments
+    explain each step), batch-first. Kernel K11's plain version."""
     g, n, cap = kcfg.n_groups, cfg.n_nodes, cfg.log_cap
     ns, nc, ncfg = kcfg.n_shards, kcfg.n_clients, kcfg.n_configs
     dev = s.tick.device
@@ -705,8 +948,30 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
     me = torch.arange(n, dtype=I32, device=dev)
     sh_ids = torch.arange(ns, dtype=I32, device=dev)
     cl_ids = torch.arange(nc, dtype=I32, device=dev)
+    computed = kcfg.computed_ctrler
+    src_lim = n if computed else 2
+    if ctrl is None:
+        ctrl = st.ctrl
 
     active_cfg = (st.cfg_tick <= t1).sum(-1, dtype=I32) - 1
+    # the controller: its walker, the computed mode's resolution, the
+    # announcers (the controller's committed frontier replaces the
+    # schedule as the controller's view)
+    cst = {}
+    if _ctrl_mode(kcfg):
+        frontier, stalled, win_var, found, found_flip = _ctrl_walk(
+            kcfg, cap, st, ctrl)
+        cst = dict(ctrl_w_frontier=frontier, ctrl_w_stalled=stalled,
+                   win_var=win_var)
+        if computed:
+            cst.update(_ctrl_resolve(kcfg, n, st, t, found, found_flip, skn))
+            cfg_owner = cst["cfg_owner"]
+        active_cfg = torch.cumprod((cst["win_var"] >= 0).to(I32), -1).sum(
+            -1, dtype=I32) - 1
+        ctrl, ka = _announce(kcfg, cap, st._replace(**cst), ctrl,
+                             active_cfg, t, key, kn, skn)
+    win_var = cst.get("win_var", st.win_var)
+    ctrl_maps = cst.get("ctrl_maps", st.ctrl_maps)
 
     # 1. crash / restart: the live service state resets to the snapshot
     fresh = (~pre_alive & s.alive) | ~s.alive  # [B, G, N]
@@ -766,7 +1031,8 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
     for _ in range(kcfg.apply_max):
         can = s.alive & (applied < s.commit)
         val = _row_gather(s.log_val, _slot(applied + 1, cap), cap)  # [B, G, N]
-        kind, client, seq, shard, cfg_c, cfg_i = _unpack(kcfg, val)
+        kind, client, seq, shard, cfg_c, cfg_i, var_c = _unpack(kcfg, val,
+                                                                src_lim)
         client = torch.clamp(client, 0, nc - 1)
         sh_oh = sh_ids == shard[..., None]  # [B, G, N, NS]
         cl_oh = cl_ids == client[..., None]  # [B, G, N, NC]
@@ -793,8 +1059,13 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
                                     clerk_get_obs)
 
         is_cfg = can & (kind == _CONFIG) & (cfg_c == node_cfg + 1)
-        new_owner = _rows_of(cfg_owner, cfg_c)
-        prev_owner = _rows_of(cfg_owner, cfg_c - 1)
+        if computed:
+            # the adopted replica's map, and the node's own last adoption
+            new_owner = _map_at(ctrl_maps, var_c, cfg_c)
+            prev_owner = _map_at(ctrl_maps, node_src, node_cfg)
+        else:
+            new_owner = _rows_of(cfg_owner, cfg_c)
+            prev_owner = _rows_of(cfg_owner, cfg_c - 1)
         gains = (new_owner == my_g) & (phase == ABSENT)
         loses = (new_owner != my_g) & (phase == OWNED)
         from_nobody = prev_owner == new_owner
@@ -803,6 +1074,9 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
         phase = torch.where(is_cfg[..., None] & loses & ~skip_freeze, FROZEN,
                             phase).to(I32)
         node_cfg = torch.where(is_cfg, cfg_c, node_cfg)
+        if computed:
+            node_src = torch.where(is_cfg, torch.clamp(var_c, 0, n - 1),
+                                   node_src)
 
         stg_cfg_at = torch.where(sh_oh, st.staged_cfg[:, :, None, :],
                                  0).sum(-1, dtype=I32)
@@ -835,6 +1109,7 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
     frz_count, frz_last_seq = st.frz_count, st.frz_last_seq
     truth_count, w_clerk_acked = st.truth_count, st.w_clerk_acked
     installs_done, deletes_done = st.installs_done, st.deletes_done
+    w_src = st.w_src
     sh_abs = lane_abs(s.shadow_base, cap)  # [B, G, cap]
     my_gv = gid[None, :, None]
     for _ in range(kcfg.walk_max):
@@ -843,7 +1118,8 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
         in_win = _row_gather(sh_abs, posw, cap) == w_frontier + 1
         val = _row_gather(s.shadow_val, posw, cap)  # [B, G]
         canw = canw & in_win
-        kind, client, seq, shard, cfg_c, cfg_i = _unpack(kcfg, val)
+        kind, client, seq, shard, cfg_c, cfg_i, var_c = _unpack(kcfg, val,
+                                                                src_lim)
         client = torch.clamp(client, 0, nc - 1)
         sh_oh = sh_ids == shard[..., None]  # [B, G, NS]
         cl_oh = cl_ids == client[..., None]  # [B, G, NC]
@@ -852,6 +1128,14 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
         stall = (canw & (kind == _INSTALL) & (cur_phase == PULLING)
                  & (frz_at != cfg_i))
         canw = canw & ~stall
+        if kcfg.live_ctrler:
+            # the adopted announce variant must be the controller's
+            # first-committed one
+            stale = (canw & (kind == _CONFIG) & (cfg_c == w_cfg + 1)
+                     & (var_c != _at(win_var[:, None, :],
+                                     torch.clamp(cfg_c, 0, ncfg - 1))))
+            viol |= torch.where(stale.any(-1), VIOLATION_SHARD_CTRL_STALE,
+                                0).to(I32)
         prev_seq = torch.where(sh_oh[..., None] & cl_oh[:, :, None, :],
                                w_last_seq, 0).sum((-2, -1), dtype=I32)
         is_rw = canw & ((kind == _APPEND) | (kind == _PUT) | (kind == _GET))
@@ -870,8 +1154,17 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
             cl_oh & acc_rw[..., None], seq[..., None], 0).amax(1))
 
         is_cfg = canw & (kind == _CONFIG) & (cfg_c == w_cfg + 1)
-        new_owner = _rows_of(cfg_owner, cfg_c)  # [B, G, NS]
-        prev_owner = _rows_of(cfg_owner, cfg_c - 1)
+        if computed:
+            new_owner = _map_at(ctrl_maps, var_c, cfg_c)  # [B, G, NS]
+            prev_owner = _map_at(ctrl_maps, w_src, w_cfg)
+            # the adopted map must be the canonical decision (replica 0's)
+            stale = is_cfg & (new_owner != _rows_of(cfg_owner, cfg_c)).any(-1)
+            viol |= torch.where(stale.any(-1), VIOLATION_SHARD_CTRL_STALE,
+                                0).to(I32)
+            w_src = torch.where(is_cfg, torch.clamp(var_c, 0, n - 1), w_src)
+        else:
+            new_owner = _rows_of(cfg_owner, cfg_c)  # [B, G, NS]
+            prev_owner = _rows_of(cfg_owner, cfg_c - 1)
         gains = (new_owner == my_gv) & (w_phase == ABSENT)
         loses = (new_owner != my_gv) & (w_phase == OWNED)
         from_nobody = prev_owner == new_owner
@@ -1009,7 +1302,15 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
     regain_blocked = ((l_phase == FROZEN) & (next_owner_l == my_gv)).any(-1)
     gate_advance = (lead_any & ~(l_phase == PULLING).any(-1)
                     & ~regain_blocked)
-    can_advance = gate_advance & poll & (l_cfg < active_cfg[:, None])
+    adopt_var = torch.zeros((b, g), dtype=I32, device=dev)
+    if _ctrl_mode(kcfg):
+        can_advance, adopt_var, cq = _query(kcfg, cap, st, ctrl, cst,
+                                            active_cfg, t, ka, knet, k2,
+                                            gate_advance, lead_any, poll,
+                                            l_cfg)
+        cst.update(cq)
+    else:
+        can_advance = gate_advance & poll & (l_cfg < active_cfg[:, None])
     want_pull = (l_phase == PULLING) & lead_any[..., None]
     pull_draw = prng.bernoulli(kp[:, 1], skn.p_pull, g * ns).view(b, g, ns)
     prev_owner_l = _rows_of(cfg_owner, l_cfg - 1)
@@ -1142,7 +1443,8 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
 
     lead_sel = ln_oh & is_lead
     log_term, log_val, log_len, _ = append_at(
-        lead_sel & can_advance[..., None], _pack_config(node_cfg + 1),
+        lead_sel & can_advance[..., None],
+        _pack_config(node_cfg + 1, adopt_var[..., None], src_lim),
         log_term, log_val, log_len)
     inst_ready = want_pull & (staged_cfg == l_cfg[..., None])
     for sh in range(ns):
@@ -1215,8 +1517,10 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
         durable_len=torch.where(log_len > s.log_len, log_len, s.durable_len),
         compact_floor=applied,
     )
+    if _ctrl_mode(kcfg):
+        cst.update(ctrl=ctrl, w_src=w_src)
     return st._replace(
-        rafts=rafts, node_src=node_src, snap_src=snap_src,
+        **cst, rafts=rafts, node_src=node_src, snap_src=snap_src,
         applied=applied, node_cfg=node_cfg, phase=phase, key_hash=key_hash,
         key_count=key_count, last_seq=last_seq, snap_cfg=snap_cfg,
         snap_phase=snap_phase, snap_hash=snap_hash, snap_count=snap_count,
@@ -1253,14 +1557,17 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
 def shardkv_step(cfg: SimConfig, kcfg: ShardKvConfig, st: ShardKvState,
                  keys: torch.Tensor, kn: Knobs, skn: ShardKvKnobs,
                  tick: str = "kernel", gkeys=None, table=None,
-                 stable=None) -> ShardKvState:
-    """One tick of every deployment: the raft tick of its groups, then the
-    service tick, routed by ``engine.tick_route``: on the card K6 over the
-    B x G group clusters (one tick) and K11; on the CPU, or with
-    ``tick="eager"``, ``step_cluster`` over the same view and the plain
-    service tick. ``gkeys`` ([B x G, 2], ``group_keys``), ``table`` (K6's
-    knob table of the group clusters) and ``stable`` (K11's) are what a
-    caller running many ticks builds once."""
+                 stable=None, ckeys=None, ctable=None) -> ShardKvState:
+    """One tick of every deployment: the raft tick of its groups (and, in
+    a controller mode, of its controller cluster), then the service tick,
+    routed by ``engine.tick_route``: on the card K6 over the B x G group
+    clusters (one tick), K6 over the B controller clusters and K11; on
+    the CPU, or with ``tick="eager"``, ``step_cluster`` over the same
+    views and the plain service tick. ``gkeys`` ([B x G, 2],
+    ``group_keys``), ``ckeys`` ([B, 2], ``ctrl_keys``), ``table`` and
+    ``ctable`` (K6's knob tables of the group and the controller
+    clusters) and ``stable`` (K11's) are what a caller running many
+    ticks builds once."""
     from madraft_tpu_torch.tpusim.engine import tick_route
 
     b, g = keys.shape[0], kcfg.n_groups
@@ -1274,39 +1581,49 @@ def shardkv_step(cfg: SimConfig, kcfg: ShardKvConfig, st: ShardKvState,
         s = K6.tick_chunk(cfg, flat, gkeys, gkn, 1, table)
     else:
         s = step_cluster(cfg, flat, gkeys, gkn)
+    ctrl = None
+    if _ctrl_mode(kcfg):
+        if ckeys is None:
+            ckeys = ctrl_keys(keys)
+        ctrl = (K6.tick_chunk(cfg, st.ctrl, ckeys, kn, 1, ctable) if kernel
+                else step_cluster(cfg, st.ctrl, ckeys, kn))
     # K6 returns a new state, so the pre-tick views are the old tensors
     return K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base,
                             _unflat(s, b), keys, kn, skn, stable,
-                            plain=not kernel)
+                            plain=not kernel, ctrl=ctrl)
 
 
 def _advance_shardkv(cfg: SimConfig, kcfg: ShardKvConfig, st: ShardKvState,
                      keys: torch.Tensor, kn: Knobs, skn: ShardKvKnobs,
                      n_ticks: int, tick: str = "kernel") -> ShardKvState:
     """n_ticks deployment ticks, routed as ``shardkv_step`` says; the
-    group keys, and on the card both knob tables, are built once here.
-    Every shardkv run goes through this function, so
+    group and controller keys, and on the card the knob tables, are built
+    once here. Every shardkv run goes through this function, so
     ``functools.partial(_advance_shardkv, tick="eager")`` in its place
     runs a whole program on the eager route (the A/B's baseline)."""
     from madraft_tpu_torch.tpusim.engine import tick_route
 
     b, g = keys.shape[0], kcfg.n_groups
     gkeys = group_keys(keys, g).reshape(-1, 2)
-    table = stable = None
+    ckeys = ctrl_keys(keys)
+    table = stable = ctable = None
     if tick_route(st.rafts.tick.device, tick) == "kernel":
         table = K6.knob_table(_group_knobs(kn, g), b * g)
         stable = K11.knob_table(kn, skn, b)
+        if _ctrl_mode(kcfg):
+            ctable = K6.knob_table(kn, b)
     for _ in range(n_ticks):
         st = shardkv_step(cfg, kcfg, st, keys, kn, skn, tick, gkeys, table,
-                          stable)
+                          stable, ckeys, ctable)
     return st
 
 
 # ------------------------------------------------------------------- drivers
 class ShardKvFuzzReport(NamedTuple):
     """Host-side summary of one shardkv fuzz run, the reference's fields
-    (``ann_resolved`` 0 and ``ctrl_walker_stalled`` False in schedule
-    mode, as there)."""
+    (``ann_resolved`` the controller's committed frontier and
+    ``ctrl_walker_stalled`` its walker's sticky stall in a controller
+    mode; 0 and False in schedule mode, as there)."""
 
     violations: np.ndarray
     raft_violations: np.ndarray
@@ -1398,7 +1715,6 @@ class ShardKvFuzzProgram:
         )
 
         check_service_cfg(cfg, "shardkv")
-        _check_mode(kcfg)
         self.cfg, self.kcfg = cfg, kcfg
         self.n_clusters, self.n_ticks = n_clusters, n_ticks
         self.device = resolve_device(device)

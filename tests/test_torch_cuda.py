@@ -1041,3 +1041,117 @@ def test_shardkv_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
     assert want.n_violating > 0 and want.installs.sum() > 0
+
+
+# ---- K11's controller branches and the controller modes' path
+@pytest.mark.parametrize("n_nodes,kw,metrics_on,partitionable", [
+    (5, {"live_ctrler": True}, False, True),
+    (3, {"live_ctrler": True, "bug_stale_ctrler_read": True,
+         "p_phantom": 0.5, "p_put": 0.2}, True, False),
+    (5, {"computed_ctrler": True, "requery_wrong_group": True}, True, True),
+    (3, {"computed_ctrler": True, "bug_rotate_tiebreak": True}, False,
+     False),
+    (7, {"computed_ctrler": True, "n_groups": 5, "n_clients": 32,
+         "bug_serve_frozen": True}, True, True),
+])
+def test_shardkv_ctrl_kernel_equals_plain_every_tick(dev, n_nodes, kw,
+                                                     metrics_on,
+                                                     partitionable):
+    """K11 in a controller mode against the plain service tick on the
+    card, every leaf after every tick, the controller cluster ticking on
+    K6 beside the groups."""
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=metrics_on,
+                           **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=16, **kw)
+    b = 301  # past a whole number of blocks: the grid's ragged edge
+    g = kcfg.n_groups
+    with prng.layout(partitionable):
+        keys = engine.cluster_keys(7, b, dev)
+        kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+        gkeys = shardkv.group_keys(keys, g).reshape(-1, 2)
+        ckeys = shardkv.ctrl_keys(keys)
+        st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+        for t in range(60):
+            pre = st.rafts
+            s = shardkv._unflat(K6.tick_chunk(cfg, shardkv._flat(pre), gkeys,
+                                              kn, 1), b)
+            ctrl = K6.tick_chunk(cfg, st.ctrl, ckeys, kn, 1)
+            want = shardkv._shardkv_service_tick(cfg, kcfg, st, pre.alive,
+                                                 pre.base, s, keys, kn, skn,
+                                                 ctrl)
+            before = K11.shardkv_tick.launches
+            got = K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base, s,
+                                   keys, kn, skn, ctrl=ctrl)
+            assert K11.shardkv_tick.launches == before + 1
+            d = shardkv.first_divergence(
+                t, shardkv.shardkv_state_to_numpy(want),
+                shardkv.shardkv_state_to_numpy(got))
+            assert d is None, d
+            st = got
+    assert st.clerk_acked.sum() > 0 and (st.win_var[:, 1] >= 0).any()
+    # five groups reconfigure slower: their installs come after the run
+    assert kcfg.n_groups > 3 or st.installs_done.sum() > 0
+    if kw.get("bug_stale_ctrler_read") or kw.get("bug_rotate_tiebreak"):
+        assert (st.violations & shardkv.VIOLATION_SHARD_CTRL_STALE).any()
+
+
+@pytest.mark.parametrize("kw", [{"live_ctrler": True},
+                                {"computed_ctrler": True}])
+def test_shardkv_ctrl_kernel_walker_stall(dev, kw):
+    """A planted slid controller shadow: K11 raises the sticky walker
+    stall with the plain version, every leaf equal for 12 ticks."""
+    cfg = config.SimConfig(n_nodes=5, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=16, **kw)
+    keys = engine.cluster_keys(3, 64, dev)
+    kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+    st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+    c = st.ctrl
+    st = st._replace(ctrl=c._replace(
+        shadow_len=torch.full_like(c.shadow_len, cfg.log_cap + 5),
+        shadow_base=torch.full_like(c.shadow_base, 5)))
+    for t in range(12):
+        want = shardkv.shardkv_step(cfg, kcfg, st, keys, kn, skn,
+                                    tick="eager")
+        got = shardkv.shardkv_step(cfg, kcfg, st, keys, kn, skn)
+        d = shardkv.first_divergence(t, shardkv.shardkv_state_to_numpy(want),
+                                     shardkv.shardkv_state_to_numpy(got))
+        assert d is None, d
+        st = got
+    assert st.ctrl_w_stalled.all() and (st.ctrl_w_frontier == 0).all()
+
+
+def test_shardkv_ctrl_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.SimConfig(n_nodes=5, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(live_ctrler=True)
+    keys = engine.cluster_keys(1, 8, dev)
+    kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+    st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+    s = st.rafts
+    before = K11.shardkv_tick.launches
+    # a controller mode needs the stepped controller cluster
+    with pytest.raises(ValueError, match="ctrl="):
+        K11.shardkv_tick(cfg, kcfg, st, s.alive, s.base, s, keys, kn, skn)
+    with pytest.raises(ValueError, match="win_var"):
+        K11.shardkv_tick(cfg, kcfg, st._replace(win_var=st.win_var.cpu()),
+                         s.alive, s.base, s, keys, kn, skn, ctrl=st.ctrl)
+    assert K11.shardkv_tick.launches == before
+
+
+@pytest.mark.parametrize("kw", [
+    {"live_ctrler": True, "bug_stale_ctrler_read": True, "p_phantom": 0.5},
+    {"computed_ctrler": True, "bug_rotate_tiebreak": True}])
+def test_shardkv_ctrl_fuzz_on_the_card_equals_the_cpu(dev, kw):
+    """A controller mode's run on the card (K6 over the groups and K6 over
+    the controller clusters, then K11, every tick) reports what the CPU's
+    reports."""
+    cfg = config.SimConfig(n_nodes=5, metrics=True, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=16, **kw)
+    launches = (K6.tick_chunk.launches, K11.shardkv_tick.launches)
+    got = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device=dev)
+    assert (K6.tick_chunk.launches - launches[0],
+            K11.shardkv_tick.launches - launches[1]) == (320, 160)
+    want = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device="cpu")
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None and b is None) or (a == b).all(), f
+    assert want.n_violating > 0 and (want.ann_resolved >= 2).any()

@@ -4,7 +4,7 @@ with ``--service-bug stale_read``, metrics off and on (the per-key and
 per-client blocks with the clients' retries), the exit codes (0 clean, 1
 on a violation, the reference's message for an unknown bug, 2 for
 ``--mesh``, for the verbs not ported yet and for ``shardkv-fuzz
---live-ctrler``), one run through ``python -m
+--live-ctrler --computed-ctrler``), one run through ``python -m
 madraft_tpu_torch kv-fuzz``, and ``stats --by-key --by-client`` over the
 port's ``--metrics`` report against the JAX CLI's. Tolerance: exact
 equality."""
@@ -82,10 +82,10 @@ def test_kv_fuzz_exit_codes_and_usage_errors():
     for verb in ("bridge", "lint"):
         rc, _, err = run(port_main, [verb])
         assert rc == 2 and "ROADMAP queue A" in err, verb
-    # shardkv-fuzz runs; its controller modes are the next slice
+    # shardkv-fuzz runs in each controller mode, not in both at once
     rc, _, err = run(port_main, ["shardkv-fuzz", "--live-ctrler",
-                                 "--platform", "cpu"])
-    assert rc == 2 and "A13b" in err
+                                 "--computed-ctrler", "--platform", "cpu"])
+    assert rc == 2 and "supersedes" in err
 
 
 def test_kv_fuzz_runs_as_a_module_and_checks_determinism():

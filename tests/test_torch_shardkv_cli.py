@@ -6,7 +6,9 @@ with ``--service-bug serve_frozen`` and metrics on (the five-phase split
 with the migration row, the per-shard and per-client blocks); the exit
 codes (0 clean, 1 on a violation, the reference's
 messages for an unknown bug and for a controller-mode bug without its
-mode, 2 for ``--mesh`` and the two controller modes); one run through
+mode, 2 for ``--mesh`` and for both controller modes at once, whose
+config check the reference lets escape as a ValueError;
+``test_torch_shardkv_ctrl_cli.py`` runs the controller modes); one run through
 ``python -m madraft_tpu_torch shardkv-fuzz --check-deterministic``; and
 ``stats`` over the port's ``--metrics`` report against the JAX CLI's.
 Tolerance: exact equality."""
@@ -66,11 +68,17 @@ def test_shardkv_fuzz_exit_codes_and_usage_errors():
         rc_p, _, err = run(port_main, argv + ["--platform", "cpu"])
         # the reference exits with the message (status 1 from a process)
         assert rc_p == 1 and err.strip() == rc_j, bug
-    for flag, item in (("--mesh", "A6"), ("--live-ctrler", "A13b"),
-                       ("--computed-ctrler", "A13b")):
-        rc, _, err = run(port_main, ["shardkv-fuzz", flag, "--platform",
-                                     "cpu"])
-        assert rc == 2 and item in err, flag
+    rc, _, err = run(port_main, ["shardkv-fuzz", "--mesh", "--platform",
+                                 "cpu"])
+    assert rc == 2 and "A6" in err
+    # both controller modes: the reference's config check raises, the
+    # port makes its message a usage error
+    both = ["shardkv-fuzz", "--live-ctrler", "--computed-ctrler",
+            "--clusters", "2", "--ticks", "2"]
+    with pytest.raises(ValueError, match="supersedes") as e:
+        jax_main(both)
+    rc, _, err = run(port_main, both + ["--platform", "cpu"])
+    assert rc == 2 and str(e.value) in err
 
 
 def test_shardkv_fuzz_runs_as_a_module_and_checks_determinism():

@@ -1,12 +1,13 @@
 """The shardkv layer's drivers against the live JAX package, on the CPU:
 ``_gen_schedule`` over many keys and shapes under both threefry layouts
 (``cfg_interval`` a [B] row), ``shardkv_report`` of the port's final
-state against the reference's report of the same state, the knob
+state against the reference's report of the same state (the schedule
+mode, and both controller modes with a planted walker stall), the knob
 validators' refusals in the reference's words, ``config.zipf_map`` over
 every shard draw at the CLI's ``n_shards`` = 10, ``make_shardkv_sweep_fn``
 (each deployment of a [B] knob-row sweep equals a uniform run of its own
-row), and the nested state's numpy round trip. Tolerance: exact
-equality."""
+row), the nested state's numpy round trip, and the controller modes'
+refusals in the reference's words. Tolerance: exact equality."""
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +91,30 @@ def test_report_equals_the_reference_report_of_the_same_state(metrics):
                                 psk.shardkv_state_to_numpy(back)) is None
 
 
+@pytest.mark.parametrize("kw", [
+    {"live_ctrler": True, "bug_stale_ctrler_read": True, "p_phantom": 0.5},
+    {"computed_ctrler": True, "bug_rotate_tiebreak": True}])
+def test_controller_mode_report_equals_the_reference_report(kw):
+    """A controller mode's final state, its walker stall planted on some
+    deployments: every report field the reference's, the announces'
+    resolved frontier (``ann_resolved``) and the sticky stall among
+    them."""
+    cfg = SimConfig(n_nodes=3, metrics=True, **BASE)
+    kcfg = psk.ShardKvConfig(cfg_interval=16, **kw)
+    final = psk.make_shardkv_fuzz_fn(cfg, kcfg, 6, 90, "cpu")(7)
+    final = final._replace(
+        ctrl_w_stalled=torch.arange(6) % 3 == 0)
+    got = psk.shardkv_report(final)
+    want = jsk.shardkv_report(_as_jax(final))
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert np.asarray(a).dtype == np.asarray(b).dtype, f
+            assert np.array_equal(a, b), f
+    assert (got.ann_resolved >= 2).any() and got.ctrl_walker_stalled.sum() == 2
+
+
 @pytest.mark.parametrize("case", [
     "prob_range", "p_get_plus_p_put", "queue_cap", "zipf_a", "delay_span",
     "cfg_interval", "bug_dtype"])
@@ -156,12 +181,28 @@ def test_sweep_deployments_equal_uniform_runs_of_their_rows():
 
 
 def test_controller_modes_are_refused_naming_the_item():
+    """The controller modes build and run (their reports carry the
+    controller's fields); what is refused is refused as the reference
+    refuses it, naming the item: both modes at once, a computed mode the
+    4A rebalance cannot run, a controller bug without its mode (the
+    config, and the sweep's knob rows)."""
     cfg = SimConfig(n_nodes=3, **BASE)
     for kw in ({"live_ctrler": True}, {"computed_ctrler": True}):
-        with pytest.raises(ValueError, match="A13b"):
-            psk.make_shardkv_fuzz_fn(cfg, psk.ShardKvConfig(**kw), 2, 2, "cpu")
+        rep = psk.shardkv_report(psk.make_shardkv_fuzz_fn(
+            cfg, psk.ShardKvConfig(**kw), 2, 2, "cpu")(1))
+        assert (rep.ann_resolved == 0).all()
+        assert not rep.ctrl_walker_stalled.any()
+    kcfg = psk.ShardKvConfig(live_ctrler=True)
+    rows = kcfg.knobs().broadcast(2)._replace(
+        bug_rotate_tiebreak=torch.tensor([False, True]))
+    with pytest.raises(ValueError, match="computed_ctrler"):
+        psk.make_shardkv_sweep_fn(cfg, cfg.knobs(), rows, kcfg, 2, 2, "cpu")
     # the reference's config checks, copied
-    for kw, msg in (({"computed_ctrler": True, "n_groups": 1}, "n_groups"),
+    for kw, msg in (({"computed_ctrler": True, "live_ctrler": True},
+                     "supersedes"),
+                    ({"computed_ctrler": True, "bug_stale_ctrler_read": True},
+                     "live_ctrler-mode"),
+                    ({"computed_ctrler": True, "n_groups": 1}, "n_groups"),
                     ({"computed_ctrler": True, "n_shards": 8}, "N_SHARDS"),
                     ({"bug_rotate_tiebreak": True}, "computed_ctrler"),
                     ({"p_get": 0.7, "p_put": 0.5}, "p_get"),

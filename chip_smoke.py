@@ -442,7 +442,11 @@ def counters():
             "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches"),
             "shardkv_tick_live": (K11.shardkv_tick, "live_launches"),
             "shardkv_tick_computed": (K11.shardkv_tick,
-                                      "computed_launches")}
+                                      "computed_launches"),
+            "shardkv_tick_metrics_live": (K11.shardkv_tick,
+                                          "live_metrics_launches"),
+            "shardkv_tick_metrics_computed": (K11.shardkv_tick,
+                                              "computed_metrics_launches")}
 
 
 def read_counts() -> dict:
@@ -1960,6 +1964,7 @@ def main() -> int:
     emit(_profile_harvest(fs, fk, fkn))
     emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
     emit(_kv_phases(dev))
+    emit(_ctrler_phases(dev))
     emit(_profile_kv_tick(dev, False))
     emit(_profile_kv_tick(dev, True))
     emit(_profile_ctrler_tick(dev, False))
@@ -1999,6 +2004,7 @@ def main() -> int:
           "shardkv_tick_bytes": shardkv_bytes,
           **{k: dict(zip(("ms", "call_ms", "plain_ms", "bytes", "operations"),
                          v)) for k, v in shardkv_timing.items()}})
+    emit(_shardkv_phases(dev))
     emit(_profile_shardkv_tick(dev, False))
     for mode in SHARDKV_CTRL_FLAG:
         emit(_profile_shardkv_tick(dev, False, mode=mode))
@@ -2058,6 +2064,13 @@ def main() -> int:
         "shardkv_tick_computed": ("K11 computed controller",
                                   "madraft_tpu_torch/csrc/shardkv.cu",
                                   "madraft_tpu/tpusim/shardkv.py:969"),
+        "shardkv_tick_metrics_live": ("K11-metrics live controller",
+                                      "madraft_tpu_torch/csrc/shardkv.cu",
+                                      "madraft_tpu/tpusim/shardkv.py:1768"),
+        "shardkv_tick_metrics_computed": (
+            "K11-metrics computed controller",
+            "madraft_tpu_torch/csrc/shardkv.cu",
+            "madraft_tpu/tpusim/shardkv.py:1768"),
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -2089,9 +2102,12 @@ def main() -> int:
     launches["shardkv_tick"] = shardkv_launches["shardkv_tick"]
     launches["shardkv_tick_metrics"] = shardkv_launches_m[
         "shardkv_tick_metrics"]
-    # K11's controller rows from their modes' flagships
-    for mode, (ran, _) in ctrl_launches.items():
+    # K11's controller rows from their modes' flagships, K11-metrics' in
+    # each mode from the mode's metrics run
+    for mode, (ran, ran_m) in ctrl_launches.items():
         launches[f"shardkv_tick_{mode}"] = ran[f"shardkv_tick_{mode}"]
+        launches[f"shardkv_tick_metrics_{mode}"] = ran_m[
+            f"shardkv_tick_metrics_{mode}"]
     errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
@@ -2152,6 +2168,97 @@ def k6_only() -> int:
     emit(_k6_scaling(fcfg, fs, fk, fkn, 32))
     emit(_card())
     print(_smi(), flush=True)
+    return 0
+
+
+def service_timing(dev) -> dict:
+    """K10's and K11's builds timed at their flagships' shapes (tick 200
+    to 201, ``_ctrler_timing`` and ``_shardkv_timing``): each row's ms,
+    call ms, bound and share of it."""
+    card = _card()
+    rows = {}
+    for timed, _ in (_ctrler_timing(dev), _shardkv_timing(dev)):
+        for name, (ms, call_ms, plain_ms, nb, ops) in timed.items():
+            bound = max(nb / PEAK_BYTES_S, ops / card["int32_ops_per_s"]) * 1e3
+            rows[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "share": bound / ms}
+    return {"phase": "service_timing", "card": _smi(), "rows": rows}
+
+
+def service_only() -> int:
+    """K10's and K11's measurements alone, for comparing two trees in one
+    call: the builds, phases ``ctrler_phases`` and ``shardkv_phases``,
+    then ``service_timing``; no result line. Run from the repository
+    root:
+
+        python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.service_only())'
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from madraft_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    per_source = _build.build_all(_build.SOURCES + (
+        _build.CTRLER, _build.SHARDKV, "ctrler_metrics", "ctrler_profile",
+        "shardkv_metrics", "shardkv_profile"))
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "nvcc_seconds": {k: round(v, 3) for k, v in per_source.items()}})
+    emit(_ctrler_phases(dev))
+    emit(_shardkv_phases(dev))
+    emit(service_timing(dev))
+    print(_smi(), flush=True)
+    return 0
+
+
+def service_leg(label: str, tree: str = "") -> int:
+    """One leg of an A/B of K10's and K11's builds between two trees in one
+    call: the madraft_tpu_torch package of ``tree`` (a ``git archive`` of
+    another commit; this checkout's when empty), its kernels built into
+    its own build directory, measured by this script's ``service_timing``
+    and by the service flagships' wall a tick (one run each, 1024 x 512);
+    prints one JSON line. Run in turns, for example parent, change,
+    change, parent:
+
+        python3 chip_smoke.py --service-leg parent _proof/parent
+        python3 chip_smoke.py --service-leg change
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    if tree:
+        sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import madraft_tpu_torch
+    from madraft_tpu_torch import _build
+
+    root = pathlib.Path(tree).resolve() if tree else ROOT
+    check(pathlib.Path(madraft_tpu_torch.__file__).is_relative_to(root),
+          f"service_leg measures {madraft_tpu_torch.__file__}, not {root}")
+    for k, (fn, a) in counters().items():  # an older tree's lack some
+        if not hasattr(fn, a):
+            setattr(fn, a, 0)
+    _build.build_all(_build.SOURCES + (
+        _build.CTRLER, _build.SHARDKV, "ctrler_metrics", "shardkv_metrics"))
+    out = {"leg": label, **service_timing(torch.device("cuda")),
+           "flagship_walls": {}}
+    for name, argv in (
+            ("ctrler", CTRLER_FLAGSHIP[:-1]),
+            ("shardkv", SHARDKV_FLAGSHIP[:-1]),
+            ("shardkv_live", SHARDKV_FLAGSHIP[:-1] + ["--live-ctrler"]),
+            ("shardkv_computed",
+             SHARDKV_FLAGSHIP[:-1] + ["--computed-ctrler"])):
+        rc, rep = run_cli(argv)
+        check(rc == 0 and rep["violating"] == 0, f"{name} flagship rc {rc}")
+        tele = rep["telemetry"]
+        out["flagship_walls"][name] = {
+            "wall_ms_per_tick": tele["execute_s"] / _flag(argv, "--ticks")
+            * 1e3, "steps_per_sec": tele["steps_per_sec"]}
+    emit(out)
     return 0
 
 
@@ -3806,6 +3913,87 @@ def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
                     kernels, key=_dev_us, reverse=True)[:5]}}
 
 
+def _phase_cycles(lib, entry: str, b: int, phases) -> dict:
+    """The profile build's clock64() cycles of the last launch (csrc
+    ``<entry>``: each phase's end from the block's start, then the truth
+    walker's own cycles in the apply phase): median and max a phase over
+    the b clusters or deployments, the walker's, and the total's."""
+    import ctypes
+
+    import numpy as np
+
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    ends = np.zeros((b, len(phases) + 1), dtype=np.int64)
+    check(fn(ends.ctypes.data, b) == 0, entry)
+    per = np.diff(ends[:, :-1], axis=1, prepend=0)
+    return {"median_cycles": dict(zip(phases, np.median(per, 0).tolist())),
+            "max_cycles": dict(zip(phases, per.max(0).tolist())),
+            "walker_median_cycles": float(np.median(ends[:, -1])),
+            "walker_max_cycles": int(ends[:, -1].max()),
+            "median_total_cycles": float(np.median(ends[:, -2])),
+            "max_total_cycles": int(ends[:, -2].max())}
+
+
+def _resident(grid: dict, units: int, per_block: int) -> dict:
+    """The warps an SM holds at a launch of ``units`` clusters or
+    deployments: the occupancy limit and what the batch puts there."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-units // per_block)
+    warps = grid["threads_a_block"] // 32
+    return {**grid, "blocks": blocks,
+            "resident_warps_an_sm": min(grid["blocks_an_sm"],
+                                        -(-blocks // sms)) * warps,
+            "waves": -(-blocks // (grid["blocks_an_sm"] * sms))}
+
+
+def _ctrler_phases(dev) -> dict:
+    """Where a K10 launch's time goes at the ctrler flagship's shape (tick
+    200 to 201): the profile build's clock64() cycles a phase from each
+    block's start (kernels/ctrler.py PHASES) and the truth walker's own,
+    median and max over the clusters, the profile build's state held
+    against K10's; then each build's ptxas report (registers, stack,
+    spills) and its layout at that batch (threads a block, the blocks
+    and warps an SM holds)."""
+    import torch
+
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import ctrler as K10
+    from madraft_tpu_torch.kernels import tick as K6
+
+    counts = read_counts()
+    out = {"phase": "ctrler_phases", "card": _smi(), "builds": {}}
+    for build, metrics_on in (("ctrler", False), ("ctrler_metrics", True)):
+        cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, metrics_on)
+        b, pre = int(keys.shape[0]), ks.raft
+        s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+        table = K10.knob_table(kn, ckn, b)
+        grid = K10.grid(cfg, kcfg, ks, pre.alive, pre.base, s, keys, table,
+                        K10._lib(build))
+        out["builds"][build] = {
+            "ptxas": _build.ptxas(build),
+            "grid": _resident(grid, b, grid["clusters_a_block"])}
+        if metrics_on:
+            continue
+        lib = K10._lib("ctrler_profile")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for _ in range(3):  # the last launch's cycles, past the first's misses
+            got = K10._launch(cfg, kcfg, ks, pre.alive, pre.base, s, keys,
+                              table, lib, stream)
+        torch.cuda.synchronize()
+        want = K10.ctrler_tick(cfg, kcfg, ks, pre.alive, pre.base, s, keys,
+                               kn, ckn, table)
+        check(_kv_err(got, want) == 0, "K10's profile build differs from K10")
+        out.update(clusters=b, **_phase_cycles(lib, "ctrler_phase_cycles", b,
+                                                K10.PHASES))
+    out["builds"]["ctrler_profile"] = {"ptxas": _build.ptxas("ctrler_profile")}
+    set_counts(counts)
+    return out
+
+
 # ------------------------------------------------------- the shardkv path
 def shardkv_row_cases(kcfg) -> tuple:
     """The row cases of ``shardkv_knob_rows`` for kcfg's mode: the
@@ -4187,10 +4375,9 @@ def _shardkv_ctrl_k11(dev, errs: dict) -> dict:
                                            ctrl=ctrl)
                     err = max(err, _shardkv_err(got, want))
                     st = want
-            key = f"shardkv_tick_{mode}"
+            key = (f"shardkv_tick_metrics_{mode}" if metrics_on
+                   else f"shardkv_tick_{mode}")
             errs[key] = max(errs[key], err)
-            errs["shardkv_tick_metrics"] = max(
-                errs["shardkv_tick_metrics"], err * metrics_on)
             check(err == 0, f"K11 differs from its plain version: {name}")
             names = shardkv_row_cases(kcfg)
             case = torch.arange(b, device=dev) % len(names)
@@ -4213,8 +4400,9 @@ def _shardkv_ctrl_k11(dev, errs: dict) -> dict:
     set_counts(counts)
     return {"phase": "shardkv_ctrl_k11", "ticks": SHARDKV_K11_TICKS,
             "runs": done,
-            "max_abs_err": max(errs["shardkv_tick_live"],
-                               errs["shardkv_tick_computed"])}
+            "max_abs_err": max(errs[f"shardkv_tick{m}_{mode}"]
+                               for m in ("", "_metrics")
+                               for mode in ("live", "computed"))}
 
 
 def _shardkv_ctrl_path(dev) -> dict:
@@ -4259,7 +4447,9 @@ def _shardkv_ctrl_path(dev) -> dict:
                   and ran["shardkv_tick"] == ran[f"shardkv_tick_{mode}"]
                   == want and ran[f"shardkv_tick_{other}"] == 0
                   and ran["tick_chunk_metrics"] == 2 * want * metrics_on
-                  and ran["shardkv_tick_metrics"] == want * metrics_on
+                  and ran["shardkv_tick_metrics"]
+                  == ran[f"shardkv_tick_metrics_{mode}"] == want * metrics_on
+                  and ran[f"shardkv_tick_metrics_{other}"] == 0
                   and all(ran[k] == 0 for k in eager_off),
                   f"{label} launches {ran}: want K6 twice a tick (the "
                   f"groups, the controllers) and K11 once ({want}), no draw "
@@ -4473,13 +4663,15 @@ def _shardkv_ops(cfg, kcfg, st, written, rounds: int, steps: int,
 SHARDKV_TIMED = {"shardkv_tick": (False, "schedule"),
                  "shardkv_tick_metrics": (True, "schedule"),
                  "shardkv_tick_live": (False, "live"),
-                 "shardkv_tick_computed": (False, "computed")}
+                 "shardkv_tick_computed": (False, "computed"),
+                 "shardkv_tick_metrics_live": (True, "live"),
+                 "shardkv_tick_metrics_computed": (True, "computed")}
 
 
 def _shardkv_timing(dev) -> tuple:
     """K11's times at the shardkv flagship's shape (tick 200 to 201) in
-    each row of SHARDKV_TIMED: K11 and K11-metrics in schedule mode, K11
-    in the live and the computed controller modes: (name -> (device ms,
+    each row of SHARDKV_TIMED: K11 and K11-metrics in each of the three
+    modes: (name -> (device ms,
     call ms, plain ms, bytes, operations), the timing phase's tuple; name
     -> ``_shardkv_bytes``' count). Each launch reads its inputs from
     device memory (copies in rotation)."""
@@ -4590,6 +4782,59 @@ def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32,
                     kernels, key=_dev_us, reverse=True)[:5]}}
 
 
+def _shardkv_phases(dev) -> dict:
+    """Where a K11 launch's time goes at the shardkv flagship's shape (tick
+    200 to 201), in each mode: the profile build's clock64() cycles a
+    phase from each block's start (kernels/shardkv.py PHASES) and the
+    truth walker's own, median and max over the deployments, the profile
+    build's state held against K11's; then each build's ptxas report
+    (registers, stack, spills) and its layout at that batch in each mode
+    (threads a block, the blocks and warps an SM holds)."""
+    import torch
+
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import shardkv as K11
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import shardkv
+
+    counts = read_counts()
+    out = {"phase": "shardkv_phases", "card": _smi(), "modes": {},
+           "builds": {b: {"ptxas": _build.ptxas(b), "grid": {}} for b in (
+               "shardkv", "shardkv_metrics", "shardkv_profile")}}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for mode in ("schedule", "live", "computed"):
+        for build, metrics_on in (("shardkv", False),
+                                  ("shardkv_metrics", True)):
+            cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on,
+                                                          mode=mode)
+            b, g, pre = int(keys.shape[0]), kcfg.n_groups, st.rafts
+            s = shardkv._unflat(K6.tick_chunk(
+                cfg, shardkv._flat(pre), shardkv.group_keys(keys, g).reshape(
+                    -1, 2), shardkv._group_knobs(kn, g), 1), b)
+            ctrl = (K6.tick_chunk(cfg, st.ctrl, shardkv.ctrl_keys(keys), kn,
+                                  1) if mode != "schedule" else None)
+            table = K11.knob_table(kn, skn, b)
+            grid = K11.grid(cfg, kcfg, st, pre.alive, pre.base, s, keys,
+                            table, K11._lib(build), ctrl)
+            out["builds"][build]["grid"][mode] = _resident(
+                grid, b, grid["deployments_a_block"])
+            if metrics_on:
+                continue
+            lib = K11._lib("shardkv_profile")
+            for _ in range(3):
+                got = K11._launch(cfg, kcfg, st, pre.alive, pre.base, s, keys,
+                                  table, lib, stream, ctrl)
+            torch.cuda.synchronize()
+            want = K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base, s,
+                                    keys, kn, skn, table, ctrl=ctrl)
+            check(_shardkv_err(got, want) == 0,
+                  f"K11's profile build differs from K11 ({mode})")
+            out["modes"][mode] = {"deployments": b, **_phase_cycles(
+                lib, "shardkv_phase_cycles", b, K11.PHASES)}
+    set_counts(counts)
+    return out
+
+
 def _storm_cfg():
     """The flagship's config: --storm on the default 5-node SimConfig."""
     from madraft_tpu_torch.__main__ import _storm
@@ -4599,4 +4844,6 @@ def _storm_cfg():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--service-leg"]:
+        sys.exit(service_leg(*sys.argv[2:4]))
     sys.exit(main())

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,15 +50,21 @@ VARIANTS = {
     # K10-metrics (kernels/ctrler.py variant): the ctrler service tick with
     # the clerks' latency and phase folds
     "ctrler_metrics": ("ctrler", ("-DMADRAFT_K10_METRICS",)),
+    # K10's profile build (clock64() a phase, and the walker's own cycles),
+    # launched only by chip_smoke.py
+    "ctrler_profile": ("ctrler", ("-DMADRAFT_K10_PROFILE",)),
     # K11-metrics (kernels/shardkv.py variant): the shardkv service tick
     # with the clerks' latency, phase and per-shard / per-client folds
     "shardkv_metrics": ("shardkv", ("-DMADRAFT_K11_METRICS",)),
+    # K11's profile build (clock64() a phase, and the truth walker's own
+    # cycles), launched only by chip_smoke.py
+    "shardkv_profile": ("shardkv", ("-DMADRAFT_K11_PROFILE",)),
 }
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict = {}
@@ -116,6 +123,7 @@ def build_all(names=SOURCES) -> dict:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)  # ptxas's -v report
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
@@ -138,3 +146,32 @@ def check(status: int, what: str) -> None:
     of ``cudaGetLastError()`` right after its launch)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def ptxas(name: str) -> dict:
+    """What ptxas reported for build ``name`` (built first if needed),
+    from the compiler's -v output kept beside the library: the registers
+    of each kernel entry, the largest stack frame of any function, and
+    the spill stores and loads summed over every function (the entries
+    and the functions they call)."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        _target(name).unlink(missing_ok=True)
+        build_all((name,))
+    out = {"registers": {}, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+    entry = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out["stack"] = max(out["stack"], int(m.group(1)))
+            out["spill_stores"] += int(m.group(2))
+            out["spill_loads"] += int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out["registers"][entry] = int(m.group(1))
+            entry = None
+    return out

@@ -38,23 +38,38 @@
 // rounds and walker steps with a rebalance each) come to well under that
 // at the card's integer rate. So bytes bound it.
 //
-// Design. K9's (kv.cu): a warp a cluster, the tick in six phases with a
-// warp barrier after each (ctrler.cuh Phase). The lanes stage every
-// leaf's row but the two log rows in the warp's region of shared memory,
-// and copy the log rows to their outputs (the state is written out of
-// place, so the pre-tick values the tick reads stay in the inputs: the
-// install path adopts the PRE-tick snapshots after the compaction capture
-// rewrote them, and the Query match reads the pre-tick clerk_seq). Then
-// the lanes stride the clerks' shadow search (nc x cap) and the node
-// tables' restore (n x (nc + ng + 10 + 1 + n_configs) cells); a lane a
+// Design. A block of kThreads (64) threads a cluster, the tick in six phases
+// with a block barrier after each (ctrler.cuh Phase); a launch of the
+// flagship's 1024 clusters is one wave (the launch bounds ask for 8 blocks
+// an SM, 16 warps), so its time is its slowest block's chain of phases, the
+// truth walker's chain of rebalances the longest. Blocks of 128 threads took
+// the same time and spilled at the 64 registers eight of them leave a thread
+// (PERF.md section 6). The stage issues every copy at once and waits once:
+// the staged rows by the plan of stage.cuh (TMA bulk copies on the block's
+// mbarrier for the aligned rows of 128 bytes or more, cp.async words for the
+// other 4-byte rows, byte loads for the byte rows) and the shadow window by
+// cp.async words, while the threads copy the two log rows to their outputs
+// in 16-byte quads, stage the stepped raft rows and hash the tick's draw
+// keys; the write-back stores the region the same way. The state is written
+// out of place, so the pre-tick values the tick reads stay in the inputs;
+// the restore reads the staged rows where a cell reads only itself and the
+// input for an install (the PRE-tick snapshot of the sender), and the Query
+// match reads the staged pre-tick clerk rows. Then the threads stride the
+// clerks' shadow search (nc x cap) and the node tables' restore; a thread a
 // node runs the apply rounds (sequential for a node, independent across
 // nodes), each node noting the round it answered each clerk's Query, while
-// the last lane runs the truth walker (sequential over the shadow); a
-// lane a node checks the divergence oracle and a lane a clerk runs the
-// clerks, taking the Query answer of the first round any node gave one
-// (the largest there); one lane appends the submits, one clerk after
-// another; the lanes write the region back. The rebalance runs on a
-// lane's registers over the 10 shards and at most 10 gids.
+// the last thread (another warp's) runs the truth walker over the staged
+// shadow; a thread a node checks the divergence oracle while a thread a
+// clerk of the second warp runs the clerks, taking the Query answer of the
+// first round any node gave one (the largest there); one thread appends the
+// submits, one clerk after another. The rebalance and the minimal-move count
+// (a Join or Leave's, the walker's chain of them its longest path) keep
+// their per-gid and per-shard counts as nibble rows in registers
+// (ctrler.cuh).
+//
+// Where the time goes (the profile build, -DMADRAFT_K10_PROFILE:
+// clock64() after each phase and the walker's own cycles, read by
+// ctrler_phase_cycles; chip_smoke.py ctrler_phases; PERF.md section 6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,27 +78,70 @@
 
 namespace {
 
-constexpr int kWarps = 4;                 // clusters a block, at most
 constexpr int kSmemMax = 227 * 1024;      // shared bytes a block may take
 constexpr int kSmemDefault = 48 * 1024;   // without the opt-in
+// The blocks an SM must hold for the flagship's 1024 clusters to run in
+// one wave on 132 SMs (the launch bounds cap the registers to fit them)
+constexpr int kMinBlocks = 8;
 
-__global__ void __launch_bounds__(kWarps * 32)
+#ifdef MADRAFT_K10_PROFILE
+// The profile build, for the first kProfile clusters of a launch: the
+// SM's clock64() at the block's start, at each phase's end, and at the
+// walker thread's start and end of the apply phase (stored as read, so
+// that no register holds a clock across the tick)
+constexpr int kProfile = 4096;
+constexpr int kProfileCols = k10::kTickPhases + 3;
+__device__ long long g_cycles[kProfile][kProfileCols];
+#endif
+
+__global__ void __launch_bounds__(k10::kThreads, kMinBlocks)
     ctrler_kernel(const __grid_constant__ k10::Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k10::LeafRef *tab = reinterpret_cast<k10::LeafRef *>(smem);
-  for (int l = threadIdx.x; l < k10::kLeaves; l += blockDim.x)
-    tab[l] = p.leaf[l];
+  __shared__ uint64_t bar;
+  k10::Plan *pl = reinterpret_cast<k10::Plan *>(smem);
+  {
+    const int32_t *src = reinterpret_cast<const int32_t *>(&p.plan);
+    int32_t *dst = reinterpret_cast<int32_t *>(smem);
+    for (int w = threadIdx.x; w < static_cast<int>(sizeof(k10::Plan)) / 4;
+         w += k10::kThreads)
+      dst[w] = src[w];
+  }
+  if (threadIdx.x == 0) stage::arm(&bar, p.plan.bulk_bytes);
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = blockIdx.x * (blockDim.x / 32) + warp;
-  if (c >= p.b) return;  // the whole warp: no barrier waits on it
-  int32_t *ws = reinterpret_cast<int32_t *>(smem + k10::kTableBytes) +
-                warp * p.words;
+  const int tid = threadIdx.x, c = blockIdx.x;
+  int32_t *ws = reinterpret_cast<int32_t *>(smem + k10::kPlanBytes);
+#ifdef MADRAFT_K10_PROFILE
+  if (tid == 0 && c < kProfile) g_cycles[c][k10::kTickPhases] = clock64();
+#endif
 #pragma unroll 1
   for (int phase = 0; phase < k10::kTickPhases; ++phase) {
-    k10::run_phase(p, tab, ws, c, lane, phase);
-    __syncwarp();
+#ifdef MADRAFT_K10_PROFILE
+    if (phase == k10::kApply && tid == k10::kWalker && c < kProfile)
+      g_cycles[c][k10::kTickPhases + 1] = clock64();
+#endif
+    k10::run_phase(p, *pl, ws, &bar, c, tid, phase);
+#ifdef MADRAFT_K10_PROFILE
+    if (phase == k10::kApply && tid == k10::kWalker && c < kProfile)
+      g_cycles[c][k10::kTickPhases + 2] = clock64();
+#endif
+    __syncthreads();
+#ifdef MADRAFT_K10_PROFILE
+    if (tid == 0 && c < kProfile) g_cycles[c][phase] = clock64();
+#endif
   }
+}
+
+// The launch's shared bytes a block, after the opt-in above 48 KB; < 0 a
+// CUDA error, 0 a region past what a block may take
+int shared_bytes(const k10::Params &p) {
+  const int smem = k10::kPlanBytes + p.words * 4;
+  if (smem > kSmemMax) return 0;
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ctrler_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+  }
+  return smem;
 }
 
 }  // namespace
@@ -96,18 +154,46 @@ extern "C" int ctrler_launch(const int64_t *desc, int n_desc, void *stream) {
   k10::Params p;
   if (!k10::set_params(p, desc, n_desc))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = p.words * 4;
-  if (k10::kTableBytes + bytes > kSmemMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int warps = kWarps;
-  while (warps > 1 && k10::kTableBytes + warps * bytes > kSmemMax) --warps;
-  const int smem = k10::kTableBytes + warps * bytes;
-  if (smem > kSmemDefault) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ctrler_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ctrler_kernel<<<(p.b + warps - 1) / warps, warps * 32, smem,
+  const int smem = shared_bytes(p);
+  if (smem <= 0)
+    return smem < 0 ? -smem : static_cast<int>(cudaErrorInvalidValue);
+  ctrler_kernel<<<p.b, k10::kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The launch's layout: out = [threads a block, clusters a block, shared
+// bytes a block, blocks an SM holds (the occupancy API)]
+extern "C" int ctrler_grid(const int64_t *desc, int n_desc, int *out) {
+  k10::Params p;
+  if (!k10::set_params(p, desc, n_desc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = shared_bytes(p);
+  if (smem <= 0)
+    return smem < 0 ? -smem : static_cast<int>(cudaErrorInvalidValue);
+  out[0] = k10::kThreads;
+  out[1] = 1;
+  out[2] = smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 3, ctrler_kernel, k10::kThreads, smem));
+}
+
+#ifdef MADRAFT_K10_PROFILE
+// The profile build's cycles of the last launch's first b clusters (at
+// most kProfile): out is [b, kTickPhases + 1] int64 on the host, each
+// phase's end from the block's start, then the walker's own cycles
+extern "C" int ctrler_phase_cycles(int64_t *out, int b) {
+  if (b < 1 || b > kProfile) return static_cast<int>(cudaErrorInvalidValue);
+  static long long raw[kProfile][kProfileCols];
+  const cudaError_t e = cudaMemcpyFromSymbol(
+      raw, g_cycles, sizeof(long long) * kProfileCols * b);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr int n = k10::kTickPhases;
+  for (int c = 0; c < b; ++c) {
+    for (int ph = 0; ph < n; ++ph)
+      out[c * (n + 1) + ph] = raw[c][ph] - raw[c][n];
+    out[c * (n + 1) + n] = raw[c][n + 2] - raw[c][n + 1];
+  }
+  return 0;
+}
+#endif

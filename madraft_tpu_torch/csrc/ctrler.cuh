@@ -1,12 +1,13 @@
 // K10's device code: one shard-controller service tick of one cluster, by
-// the 32 lanes of a warp (ctrler.cu holds the kernel, its launch and the
-// note on what it replaces, its bound and design). Built by nvcc through
-// ctrler.cu, and by g++ through tests/ctrler_host_emu.cpp.
+// the kThreads threads of a block (ctrler.cu holds the kernel, its launch
+// and the note on what it replaces, its bound and design). Built by nvcc
+// through ctrler.cu, and by g++ through tests/ctrler_host_emu.cpp.
 //
-// The tick runs as six phases (Phase), a warp barrier after each. Within a
-// phase the lanes share nothing but commutative updates of the warp's
-// shared region (atomic add, or): so the host runs a phase's 32 lanes one
-// after another, then the next phase, and gets the card's result.
+// The tick runs as six phases (Phase), a block barrier after each. Within
+// a phase the threads share nothing but commutative updates of the
+// block's shared region (atomic add, or): so the host runs a phase's
+// threads one after another, then the next phase, and gets the card's
+// result.
 //
 // The arithmetic is the plain version's (tpusim/ctrler.py
 // _ctrler_service_tick), written per cluster: int32 values that may wrap
@@ -19,6 +20,7 @@
 
 #include <cstdint>
 
+#include "stage.cuh"
 #include "threefry.cuh"
 
 namespace k10 {
@@ -29,11 +31,15 @@ constexpr bool kMetrics = true;
 constexpr bool kMetrics = false;
 #endif
 
-constexpr int kLanes = 32;
-constexpr int kMaxNodes = 16;    // a node a lane in kApply; the walker on
-                                 // the last lane
+// A cluster's block: two warps (four took the same time and spilled at
+// the 64 registers that eight blocks of four warps leave a thread)
+constexpr int kThreads = 64;
+constexpr int kWalker = kThreads - 1;  // the truth walker's thread
+constexpr int kClerk0 = 32;      // the first clerk's thread in kClerks
+static_assert(kThreads >= 64 && kThreads % 32 == 0, "two warps or more");
+constexpr int kMaxNodes = 16;    // a node a thread in kApply
 constexpr int kMaxCap = 256;
-constexpr int kMaxClients = 32;  // a clerk a lane in kClerks
+constexpr int kMaxClients = 32;  // a clerk a thread in kClerks
 constexpr int kShards = 10;      // ctrler.N_SHARDS
 constexpr int kMaxGids = kShards;
 constexpr int kMaxConfigs = 256;
@@ -87,7 +93,7 @@ enum Desc {
 enum Phase { kStage, kRestore, kApply, kClerks, kSubmit, kWriteBack,
              kTickPhases };
 
-// A worst-op candidate's words in the warp's region: mask, lat, key, sub,
+// A worst-op candidate's words in the block's region: mask, lat, key, sub,
 // then the kPhases phases
 constexpr int kWorstWords = 4 + kPhases;
 
@@ -96,33 +102,34 @@ constexpr int kWorstWords = 4 + kPhases;
 // the gid set, the gid count) and site 27 (the op's kind)
 constexpr int kDrawKeys = 8;
 
-// The stepped raft rows the tick reads by node, staged in the warp's
-// region (alive as 0 / 1)
-enum RaftRow { kRTerm, kRRole, kRAlive, kRBase, kRCommit, kRaftRows };
+// The stepped raft rows the tick reads by node, the install sources and
+// the pre-tick views, staged in the block's region (alive as 0 / 1)
+enum RaftRow { kRTerm, kRRole, kRAlive, kRBase, kRCommit, kRSnapSrc,
+               kRPreAlive, kRPreBase, kRaftRows };
 
 // A leaf: its input and output, its count of elements a cluster, its
-// bytes an element, and its row's offset in a warp's region (-1 for a log
-// row: see Params)
+// bytes an element, and its row's offset in words in the block's region
+// (-1 for a log row: see Params)
 struct LeafRef {
   const void *in;
   void *out;
   int count, bytes, off;
 };
 
-// The leaf table's copy in shared memory, before the warps' regions: the
-// copy loops read a leaf's fields at a runtime index, which the kernel's
-// parameters serve slowly
-constexpr int kTableBytes = (kLeaves * static_cast<int>(sizeof(LeafRef)) +
-                             15) / 16 * 16;
-// The leaves whose loads the copy loops keep in flight at once
-constexpr int kGroup = 8;
+using Plan = stage::Plan<kLeaves>;
 
-// The warp's shared region, in int32 words: every leaf but the two log
+// The staging plan's copy in shared memory, before the block's region: the
+// copy loops read a row's fields at a runtime index, which the kernel's
+// parameters serve slowly
+constexpr int kPlanBytes = (static_cast<int>(sizeof(Plan)) + 15) / 16 * 16;
+
+// The block's shared region, in int32 words: every leaf but the two log
 // rows staged at its off (-1 for the log rows, which stay in device
 // memory: the tick reads n * apply_max of their slots and appends at most
-// nc), then the tick's scratch
+// nc; a bulk row's off a multiple of 4), then the tick's scratch
 struct Params {
   LeafRef leaf[kLeaves];
+  Plan plan;       // the staged rows' copies (stage.cuh)
   const void *read[kReads];
   int b, n, cap, nc, ng, ncfg, join_max, arg_lim, apply_max, walk_max, hb,
       nph, partitionable;
@@ -137,6 +144,8 @@ struct Params {
   int worst;      // [nc, kWorstWords] the acks' worst-op candidates
   int draws;      // [kDrawKeys, 2] the tick's draw keys
   int raft;       // [kRaftRows, n] the stepped raft rows (RaftRow)
+  int log_quads;  // the two log rows' 16-byte quads a cluster (0: copied
+                  // by words)
   int words;      // the region's size
 };
 
@@ -172,16 +181,30 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   for (int r = 0; r < kReads; ++r)
     p.read[r] = ptr_of<const void>(d[kHeader + r]);
   int words = 0;
+  stage::Row rows[kLeaves];
+  int n_rows = 0;
   for (int l = 0; l < kLeaves; ++l) {
     const int64_t *g = d + kHeader + kReads + 4 * l;
     const bool log_row = l == kLogTerm || l == kLogVal;
-    p.leaf[l] = {ptr_of<const void>(g[0]), ptr_of<void>(g[1]),
-                 static_cast<int>(g[2]), static_cast<int>(g[3]),
-                 log_row ? -1 : words};
-    if (p.leaf[l].bytes != 1 && p.leaf[l].bytes != 4) return false;
-    if (p.leaf[l].count < 0 || p.leaf[l].count > (1 << 16)) return false;
-    if (!log_row) words += (p.leaf[l].count * p.leaf[l].bytes + 3) / 4;
+    LeafRef &x = p.leaf[l];
+    x = {ptr_of<const void>(g[0]), ptr_of<void>(g[1]),
+         static_cast<int>(g[2]), static_cast<int>(g[3]), -1};
+    if (x.bytes != 1 && x.bytes != 4) return false;
+    if (x.count < 0 || x.count > (1 << 16)) return false;
+    if (log_row) continue;
+    if (stage::bulk(x.in, x.out, x.count, x.bytes)) words = (words + 3) & ~3;
+    x.off = words;
+    rows[n_rows++] = {x.in, x.out, x.count, x.bytes, 4 * x.off, 0};
+    words += (x.count * x.bytes + 3) / 4;
   }
+  if (!stage::plan(p.plan, rows, n_rows)) return false;
+  // the log rows move in quads where both are 16-byte rows at 16-byte
+  // aligned inputs and outputs
+  bool quads = p.n * p.cap % 4 == 0;
+  for (int l = kLogTerm; l <= kLogVal; ++l)
+    quads = quads && (reinterpret_cast<uintptr_t>(p.leaf[l].in) |
+                      reinterpret_cast<uintptr_t>(p.leaf[l].out)) % 16 == 0;
+  p.log_quads = quads ? p.n * p.cap / 4 : 0;
   p.sh_val = words;
   p.viol = p.sh_val + p.cap;
   p.flag = p.viol + 1;
@@ -242,8 +265,8 @@ __device__ __forceinline__ float fmul(float a, float b) {
 #endif
 }
 
-// The lanes' commutative updates of a word of the warp's region (on the
-// host the lanes run one after another)
+// The threads' commutative updates of a word of the block's region (on
+// the host the threads run one after another)
 __device__ __forceinline__ void shared_add(int32_t *a, int32_t v) {
 #ifdef __CUDA_ARCH__
   atomicAdd(a, v);
@@ -304,7 +327,7 @@ __device__ __forceinline__ int32_t shadow_abs(int32_t base, int i, int cap) {
 
 // ------------------------------------------------------------- the draws
 // The hashes behind the tick's draws, each compiled once and called (a
-// warp runs the kernel's code once, so its time goes with the code's
+// block runs the kernel's code once, so its time goes with the code's
 // size; the inlined threefry rounds would be most of it)
 __device__ __noinline__ void fold_in(uint32_t &k0, uint32_t &k1,
                                      uint32_t data) {
@@ -342,133 +365,176 @@ __device__ __forceinline__ int32_t hash_config(uint32_t member,
 }
 
 __device__ __forceinline__ int popcount(uint32_t x, int ng) {
-  int k = 0;
-  for (int g = 0; g < ng; ++g) k += (x >> g) & 1u;
-  return k;
+  const uint32_t m = x & ((uint32_t{1} << ng) - 1u);
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
 }
 
-// The retained loads and balanced targets (ctrler.py _retained_targets):
-// the ceil targets to the r biggest retainers, ties by the lowest gid.
-// own0 is the owner with non-members cut to -1.
-__device__ __forceinline__ void retained_targets(int ng, uint32_t member,
-                                                 const int32_t own0[],
-                                                 int32_t retained[],
-                                                 int32_t target[]) {
-  const int k = popcount(member, ng);
-  const int ksafe = k > 1 ? k : 1;
-  const int q = kShards / ksafe, r = kShards % ksafe;
-  int32_t key[kMaxGids];
-  for (int g = 0; g < ng; ++g) {
-    retained[g] = 0;
-    for (int s = 0; s < kShards; ++s) retained[g] += own0[s] == g;
-    key[g] = (member >> g) & 1u ? (kShards - retained[g]) * ng + g : kBig;
-  }
-  for (int g = 0; g < ng; ++g) {
-    int rank = 0;
-    for (int h = 0; h < ng; ++h) rank += key[h] < key[g];
-    target[g] = (member >> g) & 1u ? q + (rank < r) : 0;
-  }
+// ------------------------------------------------ the rebalance in registers
+// The rebalance keeps its per-gid and per-shard arrays (at most ten small
+// counts each) as nibble rows: ten 4-bit fields of a uint64_t, field i at
+// bits 4i..4i+3, read and written at any index by shifts. So they stay in
+// registers where the arrays indexed by a runtime owner lived in local
+// memory.
+__device__ __forceinline__ int nib(uint64_t x, int i) {
+  return static_cast<int>((x >> (4 * i)) & 15u);
 }
 
-// owner with the shards whose owner is not a member cut to -1
-__device__ __forceinline__ void valid_owners(int ng, uint32_t member,
-                                             const int32_t owner[],
-                                             int32_t own0[]) {
+__device__ __forceinline__ uint64_t nib_at(int i, int v) {
+  return static_cast<uint64_t>(v) << (4 * i);
+}
+
+// owner with the shards whose owner is not a member cut: a nibble row of
+// the owner + 1 (0 for none)
+__device__ __forceinline__ uint64_t valid_owners(int ng, uint32_t member,
+                                                 const int32_t owner[]) {
+  uint64_t own0 = 0;
   for (int s = 0; s < kShards; ++s) {
     const int32_t o = owner[s];
-    own0[s] = o >= 0 && o < ng && ((member >> o) & 1u) ? o : -1;
+    if (o >= 0 && o < ng && ((member >> o) & 1u)) own0 |= nib_at(s, o + 1);
   }
+  return own0;
+}
+
+// The retained loads and balanced targets (ctrler.py _retained_targets) as
+// nibble rows by gid: the ceil targets to the r biggest retainers, ties by
+// the lowest gid
+__device__ __forceinline__ void retained_targets(int ng, uint32_t member,
+                                                 uint64_t own0, int k,
+                                                 uint64_t &retained,
+                                                 uint64_t &target) {
+  const int ksafe = k > 1 ? k : 1;
+  const int q = kShards / ksafe, r = kShards % ksafe;
+  retained = 0;
+  for (int s = 0; s < kShards; ++s) {
+    const int o = nib(own0, s);
+    if (o) retained += nib_at(o - 1, 1);
+  }
+  target = 0;
+  for (int g = 0; g < ng; ++g) {
+    if (!((member >> g) & 1u)) continue;
+    // the sort key (kShards - retained) * ng + gid, members only
+    const int key = (kShards - nib(retained, g)) * ng + g;
+    int rank = 0;
+    for (int h = 0; h < ng; ++h)
+      rank += ((member >> h) & 1u) && (kShards - nib(retained, h)) * ng + h < key;
+    target |= nib_at(g, q + (rank < r));
+  }
+}
+
+// What a membership's rebalance and its minimal move count share, from
+// the owners before it: the valid owners, the members' count, the
+// retained loads and the targets
+struct Loads {
+  uint64_t own0, retained, target;
+  int k;
+};
+
+__device__ __forceinline__ Loads loads_of(int ng, uint32_t member,
+                                          const int32_t owner[]) {
+  Loads l;
+  l.k = popcount(member, ng);
+  l.own0 = valid_owners(ng, member, owner);
+  retained_targets(ng, member, l.own0, l.k, l.retained, l.target);
+  return l;
 }
 
 // The canonical rebalance (ctrler.py _rebalance) of one instance, with the
-// two planted-bug variants
-__device__ __noinline__ void rebalance(int ng, uint32_t member,
-                                       const int32_t owner[], int tie_rot,
-                                       bool greedy, bool reshuffle,
-                                       int32_t out[]) {
-  const int k = popcount(member, ng);
+// two planted-bug variants: the new owners as a nibble row of owner + 1
+// (0 for none, every shard's when no gid is a member)
+__device__ __forceinline__ uint64_t rebalance(int ng, uint32_t member,
+                                              const Loads &l, int tie_rot,
+                                              bool greedy, bool reshuffle) {
+  const int k = l.k;
   const int ksafe = k > 1 ? k : 1;
-  int32_t own0[kShards], retained[kMaxGids], target[kMaxGids];
-  valid_owners(ng, member, owner, own0);
-  retained_targets(ng, member, own0, retained, target);
-  // members ordered by (gid + rot) mod ng
-  int32_t akey[kMaxGids];
+  const uint64_t own0 = l.own0, retained = l.retained, target = l.target;
+  // members ordered by (gid + rot) mod ng; 15 above every member
+  uint64_t akey = 0;
   for (int g = 0; g < ng; ++g)
-    akey[g] = (member >> g) & 1u ? (g + tie_rot) % ng : kBig;
+    akey |= nib_at(g, (member >> g) & 1u ? (g + tie_rot) % ng : 15);
+  uint64_t out = 0;
   if (reshuffle) {
     // shard s -> the (s mod k)-th member, round robin
-    for (int s = 0; s < kShards; ++s) {
-      int32_t dst = 0;
-      for (int g = 0; g < ng; ++g) {
-        if (!((member >> g) & 1u)) continue;
-        int rank = 0;
-        for (int h = 0; h < ng; ++h)
-          rank += ((member >> h) & 1u) && akey[h] < akey[g];
-        if (rank == s % ksafe) dst += g;
-      }
-      out[s] = k >= 1 ? dst : -1;
+    uint64_t rank = 0;
+    for (int g = 0; g < ng; ++g)
+      for (int h = 0; h < ng; ++h)
+        rank += nib_at(g, ((member >> h) & 1u) && nib(akey, h) < nib(akey, g));
+    for (int s = 0; s < kShards && k >= 1; ++s) {
+      int dst = 0;
+      for (int g = 0; g < ng; ++g)
+        if (((member >> g) & 1u) && nib(rank, g) == s % ksafe) dst += g;
+      out |= nib_at(s, dst + 1);
     }
-    return;
+    return out;
   }
   if (greedy) {
     // every orphan to the least-loaded member
-    int32_t gkey[kMaxGids], gmin = kBig;
+    int gmin = kBig, dst0 = 0;
     for (int g = 0; g < ng; ++g) {
-      gkey[g] = (member >> g) & 1u ? retained[g] * ng + akey[g] % ng : kBig;
-      if (gkey[g] < gmin) gmin = gkey[g];
+      if (!((member >> g) & 1u)) continue;
+      const int key = nib(retained, g) * ng + nib(akey, g) % ng;
+      if (key < gmin) {
+        gmin = key;
+        dst0 = g;
+      }
     }
-    int32_t dst0 = 0;
-    for (int g = 0; g < ng; ++g) dst0 += gkey[g] == gmin ? g : 0;
     for (int s = 0; s < kShards; ++s)
-      out[s] = own0[s] < 0 && k >= 1 ? dst0 : own0[s];
-    return;
+      out |= nib_at(s, nib(own0, s) == 0 && k >= 1 ? dst0 + 1 : nib(own0, s));
+    return out;
   }
   // the keep set: shard s stays iff its ordinal among its group's shards
-  // is below min(retained, target) of its group
-  int32_t seen[kMaxGids], need[kMaxGids], start[kMaxGids];
+  // is below min(retained, target) of its group; the m-th moving shard
+  // goes to the member at the m-th deficit slot
+  uint64_t need = 0, start = 0, seen = 0;
   for (int g = 0; g < ng; ++g) {
-    seen[g] = 0;
-    need[g] = target[g] - (retained[g] < target[g] ? retained[g] : target[g]);
+    const int rg = nib(retained, g), tg = nib(target, g);
+    need |= nib_at(g, tg - (rg < tg ? rg : tg));
   }
-  // the m-th moving shard goes to the member at the m-th deficit slot
   for (int g = 0; g < ng; ++g) {
-    start[g] = 0;
-    for (int h = 0; h < ng; ++h) start[g] += akey[h] < akey[g] ? need[h] : 0;
+    int st = 0;
+    for (int h = 0; h < ng; ++h)
+      st += nib(akey, h) < nib(akey, g) ? nib(need, h) : 0;
+    start |= nib_at(g, st);
   }
   int m = 0;
-  for (int s = 0; s < kShards; ++s) {
-    const int32_t o = own0[s];
+  for (int s = 0; s < kShards && k >= 1; ++s) {
+    const int o = nib(own0, s) - 1;
     if (o >= 0) {
-      const int32_t keep = retained[o] < target[o] ? retained[o] : target[o];
-      if (seen[o]++ < keep) {
-        out[s] = k >= 1 ? o : -1;
+      const int ro = nib(retained, o), to = nib(target, o);
+      const int n_seen = nib(seen, o);
+      seen += nib_at(o, 1);
+      if (n_seen < (ro < to ? ro : to)) {
+        out |= nib_at(s, o + 1);
         continue;
       }
     }
-    int32_t dst = 0;
+    int dst = 0;
     for (int g = 0; g < ng; ++g)
-      if (((member >> g) & 1u) && m >= start[g] && m < start[g] + need[g])
+      if (((member >> g) & 1u) && m >= nib(start, g) &&
+          m < nib(start, g) + nib(need, g))
         dst += g;
-    out[s] = k >= 1 ? dst : -1;
+    out |= nib_at(s, dst + 1);
     ++m;
   }
+  return out;
 }
 
 // The closed-form minimal move count (ctrler.py _min_moves)
-__device__ __noinline__ int32_t min_moves(int ng, uint32_t member,
-                                          const int32_t owner[]) {
-  int32_t own0[kShards], retained[kMaxGids], target[kMaxGids];
-  valid_owners(ng, member, owner, own0);
-  retained_targets(ng, member, own0, retained, target);
+__device__ __forceinline__ int32_t min_moves(int ng, uint32_t member,
+                                             const Loads &l) {
   int32_t moves = 0;
-  for (int s = 0; s < kShards; ++s) moves += own0[s] < 0;
-  for (int g = 0; g < ng; ++g)
-    if (((member >> g) & 1u) && retained[g] > target[g])
-      moves += retained[g] - target[g];
+  for (int s = 0; s < kShards; ++s) moves += nib(l.own0, s) == 0;
+  for (int g = 0; g < ng; ++g) {
+    const int rg = nib(l.retained, g), tg = nib(l.target, g);
+    if (((member >> g) & 1u) && rg > tg) moves += rg - tg;
+  }
   return moves;
 }
 
-// A controller state machine instance in the warp's region: a node's rows
+// A controller state machine instance in the block's region: a node's rows
 // or the walker's
 struct Machine {
   uint8_t *member;   // [ng] 0 / 1
@@ -510,43 +576,46 @@ __device__ __noinline__ Applied apply_entry(const Params &p, Machine m,
   if (num >= p.ncfg - 1) return a;  // the history is full
   uint32_t member = 0;
   for (int g = 0; g < ng; ++g) member |= (m.member[g] ? 1u : 0u) << g;
-  const uint32_t mask = static_cast<uint32_t>(o.arg) & ((1u << ng) - 1u);
-  int32_t owner[kShards], next[kShards];
-  for (int s = 0; s < kShards; ++s) owner[s] = next[s] = m.owner[s];
-  uint32_t next_member = member;
   if (o.kind == kMove) {
     const int32_t gid = o.arg % ng;
     const int32_t shard = o.arg / ng < kShards - 1 ? o.arg / ng : kShards - 1;
     if (!((member >> gid) & 1u)) return a;
-    next[shard] = gid;
-  } else {
-    if (o.kind == kJoin ? !(mask & ~member) : !(mask & member)) return a;
-    next_member = o.kind == kJoin ? member | mask : member & ~mask;
-    rebalance(ng, next_member, owner, tie_rot, greedy, reshuffle, next);
-    // the balance and minimality oracles (k >= 1)
-    if (popcount(next_member, ng) >= 1) {
-      bool owners_ok = true;
-      int32_t cmax = -1, cmin = kBig, moved = 0;
-      for (int s = 0; s < kShards; ++s) {
-        const int32_t x = next[s];
-        owners_ok &= x >= 0 && x < ng && ((next_member >> x) & 1u);
-        moved += x != owner[s];
-      }
-      for (int g = 0; g < ng; ++g) {
-        if (!((next_member >> g) & 1u)) continue;
-        int32_t c = 0;
-        for (int s = 0; s < kShards; ++s) c += next[s] == g;
-        cmax = c > cmax ? c : cmax;
-        cmin = c < cmin ? c : cmin;
-      }
-      if (!owners_ok || cmax - cmin > 1) a.viol |= kViolBalance;
-      if (moved != min_moves(ng, next_member, owner)) a.viol |= kViolMinimal;
+    m.owner[shard] = gid;
+    *m.cfg_num = num + 1;
+    m.hist[num + 1] = hash_config(member, m.owner, num + 1);
+    return a;
+  }
+  const uint32_t mask = static_cast<uint32_t>(o.arg) & ((1u << ng) - 1u);
+  if (o.kind == kJoin ? !(mask & ~member) : !(mask & member)) return a;
+  const uint32_t next_member = o.kind == kJoin ? member | mask : member & ~mask;
+  const Loads l = loads_of(ng, next_member, m.owner);
+  const uint64_t next = rebalance(ng, next_member, l, tie_rot, greedy,
+                                  reshuffle);
+  // the balance and minimality oracles (k >= 1), against the old owners
+  if (popcount(next_member, ng) >= 1) {
+    bool owners_ok = true;
+    int32_t moved = 0;
+    uint64_t load = 0;
+    for (int s = 0; s < kShards; ++s) {
+      const int x = nib(next, s) - 1;
+      owners_ok &= x >= 0 && x < ng && ((next_member >> x) & 1u);
+      moved += x != m.owner[s];
+      if (x >= 0) load += nib_at(x, 1);
     }
+    int32_t cmax = -1, cmin = kBig;
+    for (int g = 0; g < ng; ++g) {
+      if (!((next_member >> g) & 1u)) continue;
+      const int32_t c = nib(load, g);
+      cmax = c > cmax ? c : cmax;
+      cmin = c < cmin ? c : cmin;
+    }
+    if (!owners_ok || cmax - cmin > 1) a.viol |= kViolBalance;
+    if (moved != min_moves(ng, next_member, l)) a.viol |= kViolMinimal;
   }
   *m.cfg_num = num + 1;
-  m.hist[num + 1] = hash_config(next_member, next, num + 1);
+  for (int s = 0; s < kShards; ++s) m.owner[s] = nib(next, s) - 1;
+  m.hist[num + 1] = hash_config(next_member, m.owner, num + 1);
   for (int g = 0; g < ng; ++g) m.member[g] = (next_member >> g) & 1u;
-  for (int s = 0; s < kShards; ++s) m.owner[s] = next[s];
   return a;
 }
 
@@ -590,13 +659,13 @@ __device__ __forceinline__ Ro<T> read_row(const Params &p, int r, int c,
           static_cast<int64_t>(c) * count};
 }
 
-// The staged (new) row of leaf l in the warp's region ws
+// The staged (new) row of leaf l in the block's region ws
 template <typename T>
 __device__ __forceinline__ T *work(const Params &p, int32_t *ws, int l) {
   return reinterpret_cast<T *>(ws + p.leaf[l].off);
 }
 
-// A staged raft row (RaftRow) in the warp's region ws
+// A staged raft row (RaftRow) in the block's region ws
 __device__ __forceinline__ const int32_t *raft_row(const Params &p,
                                                    const int32_t *ws, int r) {
   return ws + p.raft + r * p.n;
@@ -646,185 +715,136 @@ __device__ __forceinline__ void worst_apply(const Params &p, int32_t *ws,
   for (int q = 0; q < kPhases; ++q) ph[q] = w[4 + q];
 }
 
-// Element e of cluster c's input row of leaf g
-__device__ __forceinline__ int32_t load_elem(const LeafRef &g, int c, int e) {
-  const int64_t at = static_cast<int64_t>(c) * g.count + e;
-  return g.bytes == 4 ? ld(static_cast<const int32_t *>(g.in) + at)
-                      : ld(static_cast<const uint8_t *>(g.in) + at);
-}
-
-// Element e of leaf g's staged row
-__device__ __forceinline__ void stage_elem(const LeafRef &g, int32_t *ws,
-                                           int e, int32_t v) {
-  if (g.bytes == 4)
-    ws[g.off + e] = v;
-  else
-    reinterpret_cast<uint8_t *>(ws + g.off)[e] = static_cast<uint8_t>(v);
-}
-
-// Element e of leaf g's staged row to cluster c's output row
-__device__ __forceinline__ void store_elem(const LeafRef &g,
-                                           const int32_t *ws, int c, int e) {
-  const int64_t at = static_cast<int64_t>(c) * g.count + e;
-  if (g.bytes == 4)
-    static_cast<int32_t *>(g.out)[at] = ws[g.off + e];
-  else
-    static_cast<uint8_t *>(g.out)[at] =
-        reinterpret_cast<const uint8_t *>(ws + g.off)[e];
-}
-
 // ------------------------------------------------------- the service tick
-// Phase kStage: every leaf's row from its input into the warp's region
-// (the two log rows straight to their outputs), the stepped raft rows,
-// the shadow window's values and the tick's draw keys, the scratch
-// cleared. The tick then updates the region, and reads the pre-tick
-// values from the inputs: the install path adopts the PRE-tick snapshots
-// after the compaction capture rewrote them, and the Query match reads
-// the pre-tick clerk_seq.
-__device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
-                                      int32_t *ws, int c, int lane) {
-  const int32_t sv = lane < p.cap ? read_row<int32_t>(p, kShadowVal, c,
-                                                      p.cap)[lane] : 0;
-  int32_t rr[kRaftRows] = {};
-  if (lane < p.n) {
-    rr[kRTerm] = read_row<int32_t>(p, kTerm, c, p.n)[lane];
-    rr[kRRole] = read_row<int32_t>(p, kRole, c, p.n)[lane];
-    rr[kRAlive] = read_row<uint8_t>(p, kAlive, c, p.n)[lane] != 0;
-    rr[kRBase] = read_row<int32_t>(p, kBase, c, p.n)[lane];
-    rr[kRCommit] = read_row<int32_t>(p, kCommit, c, p.n)[lane];
-  }
+// Phase kStage: every leaf's row from its input into the block's region
+// by the staging plan (stage.cuh), the shadow window's values by cp.async
+// words, the two log rows straight to their outputs, the stepped raft
+// rows and the tick's draw keys, the scratch cleared; then the wait for
+// the copies. The tick then updates the region, and reads the pre-tick
+// values from the inputs where a cell's value may already have changed:
+// the install path adopts the sender's PRE-tick snapshot after the
+// compaction capture rewrote it.
+__device__ __forceinline__ void stage(const Params &p, const Plan &pl,
+                                      int32_t *ws, uint64_t *bar, int c,
+                                      int tid) {
+  const int n = p.n;
+  stage::load(pl, reinterpret_cast<unsigned char *>(ws), bar, c, tid,
+              kThreads);
+  const int32_t *sv = static_cast<const int32_t *>(p.read[kShadowVal]) +
+                      static_cast<int64_t>(c) * p.cap;
+  for (int i = tid; i < p.cap; i += kThreads)
+    stage::word_load(ws + p.sh_val + i, sv + i);
+  stage::copy_row(p.leaf[kLogTerm].in, p.leaf[kLogTerm].out, p.n * p.cap, c,
+                  p.log_quads > 0, tid, kThreads);
+  stage::copy_row(p.leaf[kLogVal].in, p.leaf[kLogVal].out, p.n * p.cap, c,
+                  p.log_quads > 0, tid, kThreads);
   // the tick's keys (kDrawKeys): fold_in(key, t), then the sites, a key a
-  // lane while the loads are in flight
-  if (lane < kDrawKeys) {
+  // thread while the copies are in flight
+  if (tid < kDrawKeys) {
     const Ro<uint32_t> key = read_row<uint32_t>(p, kKeys, c, 4);
     uint32_t k0 = key[0], k1 = key[2];  // the int64 words' low halves
     fold_in(k0, k1, static_cast<uint32_t>(
         read_row<int32_t>(p, kTick, c, 1)[0]));
-    fold_in(k0, k1, lane < 7 ? kSiteStart : kSiteKind);
+    fold_in(k0, k1, tid < 7 ? kSiteStart : kSiteKind);
     uint32_t d0 = k0, d1 = k1;
-    if (lane < 7) split_key(k0, k1, 7, lane, p.partitionable, d0, d1);
-    ws[p.draws + 2 * lane] = static_cast<int32_t>(d0);
-    ws[p.draws + 2 * lane + 1] = static_cast<int32_t>(d1);
+    if (tid < 7) split_key(k0, k1, 7, tid, p.partitionable, d0, d1);
+    ws[p.draws + 2 * tid] = static_cast<int32_t>(d0);
+    ws[p.draws + 2 * tid + 1] = static_cast<int32_t>(d1);
   }
-  if (lane < p.cap) ws[p.sh_val + lane] = sv;
-  if (lane < p.n)
-    for (int r = 0; r < kRaftRows; ++r) ws[p.raft + r * p.n + lane] = rr[r];
-  // every staged row's element `lane`, kGroup leaves' loads in flight at
-  // once, then the rows' elements from kLanes on and the log rows
-#pragma unroll 1
-  for (int l0 = 0; l0 < kLeaves; l0 += kGroup) {
-    int32_t v[kGroup];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int l = l0 + k;
-      v[k] = l < kLeaves && tab[l].off >= 0 && lane < tab[l].count
-                 ? load_elem(tab[l], c, lane) : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int l = l0 + k;
-      if (l < kLeaves && tab[l].off >= 0 && lane < tab[l].count)
-        stage_elem(tab[l], ws, lane, v[k]);
-    }
+  for (int i = tid; i < n; i += kThreads) {
+    int32_t *rr = ws + p.raft + i;
+    rr[kRTerm * n] = read_row<int32_t>(p, kTerm, c, n)[i];
+    rr[kRRole * n] = read_row<int32_t>(p, kRole, c, n)[i];
+    rr[kRAlive * n] = read_row<uint8_t>(p, kAlive, c, n)[i] != 0;
+    rr[kRBase * n] = read_row<int32_t>(p, kBase, c, n)[i];
+    rr[kRCommit * n] = read_row<int32_t>(p, kCommit, c, n)[i];
+    rr[kRSnapSrc * n] = read_row<int32_t>(p, kSnapSrc, c, n)[i];
+    rr[kRPreAlive * n] = read_row<uint8_t>(p, kPreAlive, c, n)[i] != 0;
+    rr[kRPreBase * n] = read_row<int32_t>(p, kPreBase, c, n)[i];
   }
-#pragma unroll 1
-  for (int l = 0; l < kLeaves; ++l) {
-    const LeafRef g = tab[l];
-    if (g.off >= 0) {
-      for (int e = lane + kLanes; e < g.count; e += kLanes)
-        stage_elem(g, ws, e, load_elem(g, c, e));
-      continue;
-    }
-    const Ro<int32_t> src = {static_cast<const int32_t *>(g.in) +
-                             static_cast<int64_t>(c) * g.count};
-    int32_t *dst = static_cast<int32_t *>(g.out) +
-                   static_cast<int64_t>(c) * g.count;
-#pragma unroll 4
-    for (int e = lane; e < g.count; e += kLanes) dst[e] = src[e];
-  }
-  const Ro<int32_t> shadow_val = read_row<int32_t>(p, kShadowVal, c, p.cap);
-  for (int i = lane + kLanes; i < p.cap; i += kLanes)
-    ws[p.sh_val + i] = shadow_val[i];
-  for (int cl = lane; cl < p.nc; cl += kLanes) ws[p.flag + cl] = 0;
-  if (lane == 0) ws[p.viol] = 0;
+  for (int cl = tid; cl < p.nc; cl += kThreads) ws[p.flag + cl] = 0;
+  if (tid == 0) ws[p.viol] = 0;
+  stage::wait(bar, pl.bulk_bytes);
 }
 
 // One node table of the restore (the live rows `live`, their snapshot
-// `snap`, w elements a node): the crash reset to the persisted snapshot,
-// the compaction capture, and the install of the sender's PRE-tick
-// snapshot (`none` for a sender out of range), a cell a thread
+// `snap`, w elements a node), a cell a thread: the crash reset to the
+// persisted snapshot and the compaction capture from the staged rows (a
+// cell reads only itself), and the install of the sender's PRE-tick
+// snapshot from the input (`none` for a sender out of range)
 template <typename T>
 __device__ __forceinline__ void restore_table(const Params &p, int32_t *ws,
-                                              int c, int lane, int live,
+                                              int c, int tid, int live,
                                               int snap, int w, T none) {
   const int n = p.n;
   const int32_t *alive = raft_row(p, ws, kRAlive);
   const int32_t *base = raft_row(p, ws, kRBase);
-  const Ro<uint8_t> pre_alive = read_row<uint8_t>(p, kPreAlive, c, n);
-  const Ro<int32_t> pre_base = read_row<int32_t>(p, kPreBase, c, n);
-  const Ro<int32_t> snap_src = read_row<int32_t>(p, kSnapSrc, c, n);
+  const int32_t *pre_alive = raft_row(p, ws, kRPreAlive);
+  const int32_t *pre_base = raft_row(p, ws, kRPreBase);
+  const int32_t *snap_src = raft_row(p, ws, kRSnapSrc);
   const Ro<T> sn0 = in_row<T>(p, snap, c);
   T *lv = work<T>(p, ws, live);
   T *sn = work<T>(p, ws, snap);
-  for (int x = lane; x < n * w; x += kLanes) {
-    const int i = x / w, e = x % w;
-    const bool fresh = !pre_alive[i] || !alive[i];
+  for (int x = tid; x < n * w; x += kThreads) {
+    const int i = x / w;
     const int32_t src = snap_src[i];
-    const bool inst = src >= 0;
-    const bool comp = base[i] != pre_base[i] && !inst && alive[i];
-    if (fresh) lv[x] = sn0[x];
-    if (comp) sn[x] = lv[x];
-    if (inst) lv[x] = sn[x] = src < n ? sn0[src * w + e] : none;
+    if (src >= 0) {
+      lv[x] = sn[x] = src < n ? sn0[src * w + x % w] : none;
+      continue;
+    }
+    if (!pre_alive[i] || !alive[i]) lv[x] = sn[x];
+    if (base[i] != pre_base[i] && alive[i]) sn[x] = lv[x];
   }
 }
 
 // Phase kRestore: whether each clerk's op is in the live shadow (a
-// (clerk, slot) pair a thread), and the apply machines' crash reset,
-// compaction capture and install-snapshot (a table cell a thread)
+// (clerk, slot) pair a thread, the clerks' pre-tick rows from the region,
+// which no phase before kClerks writes), and the apply machines' crash
+// reset, compaction capture and install-snapshot (a table cell a thread)
 __device__ __forceinline__ void restore(const Params &p, int32_t *ws, int c,
-                                        int lane) {
+                                        int tid) {
   const int n = p.n, cap = p.cap, nc = p.nc;
   const int32_t *val = ws + p.sh_val;
   const int32_t sh_base = read_row<int32_t>(p, kShadowBase, c, 1)[0];
   const int32_t sh_len = read_row<int32_t>(p, kShadowLen, c, 1)[0];
-  const Ro<int32_t> clerk_seq0 = in_row<int32_t>(p, kClerkSeq, c);
-  const Ro<int32_t> clerk_arg0 = in_row<int32_t>(p, kClerkArg, c);
-  const Ro<int32_t> clerk_kind0 = in_row<int32_t>(p, kClerkKind, c);
-  for (int x = lane; x < nc * cap; x += kLanes) {
+  const int32_t *clerk_seq = work<int32_t>(p, ws, kClerkSeq);
+  const int32_t *clerk_arg = work<int32_t>(p, ws, kClerkArg);
+  const int32_t *clerk_kind = work<int32_t>(p, ws, kClerkKind);
+  for (int x = tid; x < nc * cap; x += kThreads) {
     const int cl = x / cap, i = x % cap;
-    const int32_t want = pack(cl, clerk_seq0[cl], clerk_arg0[cl],
-                              clerk_kind0[cl], p.arg_lim);
+    const int32_t want = pack(cl, clerk_seq[cl], clerk_arg[cl],
+                              clerk_kind[cl], p.arg_lim);
     if (val[i] == want && shadow_abs(sh_base, i, cap) <= sh_len)
       shared_or(ws + p.flag + cl, 1);
   }
   const int32_t *alive = raft_row(p, ws, kRAlive);
   const int32_t *base = raft_row(p, ws, kRBase);
-  const Ro<uint8_t> pre_alive = read_row<uint8_t>(p, kPreAlive, c, n);
-  const Ro<int32_t> snap_src = read_row<int32_t>(p, kSnapSrc, c, n);
-  for (int i = lane; i < n; i += kLanes)
+  const int32_t *pre_alive = raft_row(p, ws, kRPreAlive);
+  const int32_t *snap_src = raft_row(p, ws, kRSnapSrc);
+  for (int i = tid; i < n; i += kThreads)
     if (!pre_alive[i] || !alive[i] || snap_src[i] >= 0)
       work<int32_t>(p, ws, kApplied)[i] = base[i];
-  restore_table<int32_t>(p, ws, c, lane, kLastSeq, kSnapLastSeq, nc, 0);
-  restore_table<uint8_t>(p, ws, c, lane, kMember, kSnapMember, p.ng, 0);
-  restore_table<int32_t>(p, ws, c, lane, kOwner, kSnapOwner, kShards, -1);
-  restore_table<int32_t>(p, ws, c, lane, kCfgNum, kSnapCfgNum, 1, 0);
-  restore_table<int32_t>(p, ws, c, lane, kHist, kSnapHist, p.ncfg, 0);
+  restore_table<int32_t>(p, ws, c, tid, kLastSeq, kSnapLastSeq, nc, 0);
+  restore_table<uint8_t>(p, ws, c, tid, kMember, kSnapMember, p.ng, 0);
+  restore_table<int32_t>(p, ws, c, tid, kOwner, kSnapOwner, kShards, -1);
+  restore_table<int32_t>(p, ws, c, tid, kCfgNum, kSnapCfgNum, 1, 0);
+  restore_table<int32_t>(p, ws, c, tid, kHist, kSnapHist, p.ncfg, 0);
 }
 
 // Phase kApply: apply_max rounds of the apply loop, a node a thread (a
 // node's rounds are sequential, the nodes independent), each round's
 // Query answers to the scratch (first, first_obs) for the clerks; and on
-// the last lane the truth walker's walk_max steps over the shadow window,
-// with the sticky stall
+// the last thread (kWalker, the last warp) the truth walker's walk_max
+// steps over the staged shadow window, with the sticky stall
 __device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
-                                      int lane) {
+                                      int tid) {
   const int n = p.n, cap = p.cap, nc = p.nc;
   const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
   const bool greedy = ki[kBugGreedy] != 0;
   const bool reshuffle = ki[kBugReshuffle] != 0;
   int32_t viol = 0;
-  if (lane < n) {
-    const int i = lane;
+  if (tid < n) {
+    const int i = tid;
     const bool alive = raft_row(p, ws, kRAlive)[i] != 0;
     const int32_t commit = raft_row(p, ws, kRCommit)[i];
     const int rot = ki[kBugRotate] != 0 ? i : 0;
@@ -849,7 +869,7 @@ __device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
       applied = wrap_add(applied, 1);
     }
   }
-  if (lane == kLanes - 1) {
+  if (tid == kWalker) {
     const int32_t sh_base = read_row<int32_t>(p, kShadowBase, c, 1)[0];
     const int32_t sh_len = read_row<int32_t>(p, kShadowLen, c, 1)[0];
     const Machine w = machine(p, ws, -1);
@@ -895,16 +915,16 @@ __device__ __forceinline__ void diverge(const Params &p, int32_t *ws, int i) {
   if (!same) shared_or(ws + p.viol, kViolDiverge);
 }
 
-// Phase kClerks: the divergence oracle, a node a thread, and a clerk a
-// thread: the Query answer (the largest a node gave in the first round
-// any gave one), the ack, the query oracle, the metric folds, a fresh op
-// or a retry and its target
+// Phase kClerks: the divergence oracle, a node a thread of the first
+// warp, and a clerk a thread from kClerk0 on: the Query answer (the
+// largest a node gave in the first round any gave one), the ack, the
+// query oracle, the metric folds, a fresh op or a retry and its target
 __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
-                                       int lane) {
+                                       int tid) {
   const int n = p.n, nc = p.nc, ng = p.ng, part = p.partitionable;
-  if (lane < n) diverge(p, ws, lane);
-  if (lane >= nc) return;
-  const int cl = lane;
+  if (tid < n) diverge(p, ws, tid);
+  const int cl = tid - kClerk0;
+  if (cl < 0 || cl >= nc) return;
   const int32_t t = read_row<int32_t>(p, kTick, c, 1)[0];
   const Ro<float> kf = read_row<float>(p, kKnobF, c, kNF);
   int32_t viol = 0;
@@ -1090,41 +1110,22 @@ __device__ __forceinline__ void submit(const Params &p, int32_t *ws, int c) {
   }
 }
 
-// Phase kWriteBack: the region's rows to the leaves' outputs, kGroup
-// leaves at once, then the rows' elements from kLanes on
-__device__ __forceinline__ void write_back(const LeafRef *tab, int32_t *ws,
-                                           int c, int lane) {
-#pragma unroll 1
-  for (int l0 = 0; l0 < kLeaves; l0 += kGroup) {
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int l = l0 + k;
-      if (l < kLeaves && tab[l].off >= 0 && lane < tab[l].count)
-        store_elem(tab[l], ws, c, lane);
-    }
-  }
-#pragma unroll 1
-  for (int l = 0; l < kLeaves; ++l) {
-    const LeafRef g = tab[l];
-    if (g.off >= 0)
-      for (int e = lane + kLanes; e < g.count; e += kLanes)
-        store_elem(g, ws, c, e);
-  }
-}
-
-// Lane `lane` of cluster c's warp in phase `phase` (kSubmit runs on lane 0
-// alone); tab is the leaf table (p.leaf, or its copy in shared memory), ws
-// the warp's region of Params::words words
-__device__ __forceinline__ void run_phase(const Params &p,
-                                          const LeafRef *tab, int32_t *ws,
-                                          int c, int lane, int phase) {
+// Thread tid of cluster c's block in phase `phase` (kSubmit runs on
+// thread 0 alone); pl is the staging plan (its copy in shared memory), ws
+// the block's region of Params::words words, bar its mbarrier
+__device__ __forceinline__ void run_phase(const Params &p, const Plan &pl,
+                                          int32_t *ws, uint64_t *bar, int c,
+                                          int tid, int phase) {
   switch (phase) {
-    case kStage: stage(p, tab, ws, c, lane); break;
-    case kRestore: restore(p, ws, c, lane); break;
-    case kApply: apply(p, ws, c, lane); break;
-    case kClerks: clerks(p, ws, c, lane); break;
-    case kSubmit: if (lane == 0) submit(p, ws, c); break;
-    default: write_back(tab, ws, c, lane); break;
+    case kStage: stage(p, pl, ws, bar, c, tid); break;
+    case kRestore: restore(p, ws, c, tid); break;
+    case kApply: apply(p, ws, c, tid); break;
+    case kClerks: clerks(p, ws, c, tid); break;
+    case kSubmit: if (tid == 0) submit(p, ws, c); break;
+    default:
+      stage::store(pl, reinterpret_cast<const unsigned char *>(ws), c, tid,
+                   kThreads);
+      break;
   }
 }
 

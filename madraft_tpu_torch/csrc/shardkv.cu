@@ -58,26 +58,46 @@
 // resolving slot's rebalance on each replica) come to well under that at
 // the card's integer rate. So bytes bound it.
 //
-// Design. K10's (ctrler.cu): a warp a deployment, the tick in eleven
-// phases with a warp barrier after each (shardkv.cuh Phase). The lanes
-// stage every leaf's row but the log rows in the warp's region of shared
-// memory and copy the log rows to their outputs (the state is written out
-// of place, so the pre-tick values the tick reads stay in the inputs: the
-// apply rounds read the pre-tick staging and clerk seqs, the clerks the
-// pre-tick clerk rows). In a controller mode the controller walker is
-// sequential on the last lane while four lanes draw the announcers'
-// submits and targets; then a controller node a lane runs its replica's
-// rebalance and its announcers' appends. The restore is computed a cell a
-// thread from the inputs alone (the install adopts the sender's snapshot
-// as its own reset and capture left it); an applier a lane runs its apply
-// rounds while the last lane runs the walker (every group's entry of a
-// step, then the freeze snapshots, then the phases, as the plain version
-// orders them); a (group, shard) pair a lane runs the mailboxes (each
-// pair owns every box cell it writes) and a group a lane its CONFIG gate
-// and, in a controller mode, its Query mailboxes (the stale-read scan
-// reads the queried node's log row from device memory); a clerk a lane
-// runs the clerks, taking a Get's answer from the first round any applier
-// gave one (the largest there); a node a lane runs its appends in order.
+// Design. K10's (ctrler.cu): a block of kThreads threads a deployment (128;
+// 96 for K11-metrics, whose folds spill at the 64 registers eight blocks of
+// 128 leave a thread), the tick in eleven phases with a block barrier after
+// each (shardkv.cuh Phase), one kernel instance a config mode (the
+// schedule's carries no controller branch); the flagship's 1024 deployments
+// are one wave (8 blocks an SM, 32 or 24 warps), so a launch's time is its
+// slowest block's chain of phases. The stage issues every copy at once and
+// waits once: the staged rows by stage.cuh's plan (TMA bulk copies for the
+// aligned rows of 128 bytes or more, the dup tables among them, cp.async
+// words for the other 4-byte rows, byte loads for the byte rows), the
+// groups' and the controller's shadow windows and the schedule's owner maps
+// by cp.async words, while the threads copy the log rows to their outputs in
+// 16-byte quads (the controller's here, the groups' in the apply phase),
+// stage the stepped raft rows and hash the tick's draw keys; the write-back
+// stores the region the same way (the state is written out of place, so the
+// pre-tick values the tick reads stay in the inputs: the apply rounds read
+// the pre-tick staging and clerk seqs, the clerks the pre-tick clerk rows).
+// In a controller mode the controller walker is sequential on the last
+// thread over the staged controller shadow while four threads draw the
+// announcers' submits and targets; then a controller node a thread runs its
+// replica's rebalance (in registers, ctrler.cuh) and its announcers'
+// appends. The restore is a cell a thread from the staged rows (a cell reads
+// only itself) and, for an install, from the inputs (the sender's snapshot
+// as its own reset and capture left it); an applier a thread runs its apply
+// rounds while the warps between the appliers' and the last copy the groups'
+// log rows to their outputs and hash the clerks' draws, and the last thread
+// runs the walker over the staged shadows (every group's entry of a step,
+// then the freeze snapshots, then the phases, as the plain version orders
+// them; a step in which no group walks ends the walk); a (group, slot) pair
+// a thread counts the controller's announces above a queried node's commit
+// and, under the stale-read bug, the first log index of the asked announce
+// (shared adds and mins), a (group, shard) pair a thread runs the mailboxes
+// (each pair owns every box cell it writes) and a group a thread its CONFIG
+// gate and Query mailboxes; a clerk a thread runs the clerks, taking a Get's
+// answer from the first round any applier gave one (the largest there); a
+// node a thread runs its appends in order.
+//
+// Where the time goes (the profile build, -DMADRAFT_K11_PROFILE:
+// clock64() after each phase and the truth walker's own cycles, read by
+// shardkv_phase_cycles; chip_smoke.py shardkv_phases; PERF.md section 6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -86,27 +106,81 @@
 
 namespace {
 
-constexpr int kWarps = 4;                 // deployments a block, at most
 constexpr int kSmemMax = 227 * 1024;      // shared bytes a block may take
 constexpr int kSmemDefault = 48 * 1024;   // without the opt-in
+// The blocks an SM must hold for the flagship's 1024 deployments to run
+// in one wave on 132 SMs (the launch bounds cap the registers to fit them)
+constexpr int kMinBlocks = 8;
 
-__global__ void __launch_bounds__(kWarps * 32)
+#ifdef MADRAFT_K11_PROFILE
+// The profile build, for the first kProfile deployments of a launch: the
+// SM's clock64() at the block's start, at each phase's end, and at the
+// walker thread's start and end of the apply phase (stored as read, so
+// that no register holds a clock across the tick)
+constexpr int kProfile = 4096;
+constexpr int kProfileCols = k11::kTickPhases + 3;
+__device__ long long g_cycles[kProfile][kProfileCols];
+#endif
+
+// One instance a config mode M (k11::Mode): the schedule's carries no
+// controller branch
+template <int M>
+__global__ void __launch_bounds__(k11::kThreads, kMinBlocks)
     shardkv_kernel(const __grid_constant__ k11::Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k11::LeafRef *tab = reinterpret_cast<k11::LeafRef *>(smem);
-  for (int l = threadIdx.x; l < k11::kLeaves; l += blockDim.x)
-    tab[l] = p.leaf[l];
+  __shared__ uint64_t bar;
+  k11::Plan *pl = reinterpret_cast<k11::Plan *>(smem);
+  {
+    const int32_t *src = reinterpret_cast<const int32_t *>(&p.plan);
+    int32_t *dst = reinterpret_cast<int32_t *>(smem);
+    for (int w = threadIdx.x; w < static_cast<int>(sizeof(k11::Plan)) / 4;
+         w += k11::kThreads)
+      dst[w] = src[w];
+  }
+  if (threadIdx.x == 0) stage::arm(&bar, p.plan.bulk_bytes);
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = blockIdx.x * (blockDim.x / 32) + warp;
-  if (c >= p.b) return;  // the whole warp: no barrier waits on it
-  int32_t *ws = reinterpret_cast<int32_t *>(smem + k11::kTableBytes) +
-                warp * p.words;
+  const int tid = threadIdx.x, c = blockIdx.x;
+  int32_t *ws = reinterpret_cast<int32_t *>(smem + k11::kPlanBytes);
+#ifdef MADRAFT_K11_PROFILE
+  if (tid == 0 && c < kProfile) g_cycles[c][k11::kTickPhases] = clock64();
+#endif
 #pragma unroll 1
   for (int phase = 0; phase < k11::kTickPhases; ++phase) {
-    k11::run_phase(p, tab, ws, c, lane, phase);
-    __syncwarp();
+#ifdef MADRAFT_K11_PROFILE
+    if (phase == k11::kApply && tid == k11::kWalker && c < kProfile)
+      g_cycles[c][k11::kTickPhases + 1] = clock64();
+#endif
+    k11::run_phase<M>(p, *pl, ws, &bar, c, tid, phase);
+#ifdef MADRAFT_K11_PROFILE
+    if (phase == k11::kApply && tid == k11::kWalker && c < kProfile)
+      g_cycles[c][k11::kTickPhases + 2] = clock64();
+#endif
+    __syncthreads();
+#ifdef MADRAFT_K11_PROFILE
+    if (tid == 0 && c < kProfile) g_cycles[c][phase] = clock64();
+#endif
   }
+}
+
+using Kernel = void (*)(const k11::Params);
+
+Kernel kernel_of(int mode) {
+  return mode == k11::kSchedule ? shardkv_kernel<k11::kSchedule>
+         : mode == k11::kLive   ? shardkv_kernel<k11::kLive>
+                                : shardkv_kernel<k11::kComputed>;
+}
+
+// The launch's shared bytes a block, after the opt-in above 48 KB; < 0 a
+// CUDA error, 0 a region past what a block may take
+int shared_bytes(const k11::Params &p) {
+  const int smem = k11::kPlanBytes + p.words * 4;
+  if (smem > kSmemMax) return 0;
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel_of(p.mode), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+  }
+  return smem;
 }
 
 }  // namespace
@@ -119,18 +193,46 @@ extern "C" int shardkv_launch(const int64_t *desc, int n_desc, void *stream) {
   k11::Params p;
   if (!k11::set_params(p, desc, n_desc))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = p.words * 4;
-  if (k11::kTableBytes + bytes > kSmemMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int warps = kWarps;
-  while (warps > 1 && k11::kTableBytes + warps * bytes > kSmemMax) --warps;
-  const int smem = k11::kTableBytes + warps * bytes;
-  if (smem > kSmemDefault) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        shardkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  shardkv_kernel<<<(p.b + warps - 1) / warps, warps * 32, smem,
-                   static_cast<cudaStream_t>(stream)>>>(p);
+  const int smem = shared_bytes(p);
+  if (smem <= 0)
+    return smem < 0 ? -smem : static_cast<int>(cudaErrorInvalidValue);
+  kernel_of(p.mode)<<<p.b, k11::kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The launch's layout: out = [threads a block, deployments a block, shared
+// bytes a block, blocks an SM holds (the occupancy API)]
+extern "C" int shardkv_grid(const int64_t *desc, int n_desc, int *out) {
+  k11::Params p;
+  if (!k11::set_params(p, desc, n_desc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = shared_bytes(p);
+  if (smem <= 0)
+    return smem < 0 ? -smem : static_cast<int>(cudaErrorInvalidValue);
+  out[0] = k11::kThreads;
+  out[1] = 1;
+  out[2] = smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 3, kernel_of(p.mode), k11::kThreads, smem));
+}
+
+#ifdef MADRAFT_K11_PROFILE
+// The profile build's cycles of the last launch's first b deployments (at
+// most kProfile): out is [b, kTickPhases + 1] int64 on the host, each
+// phase's end from the block's start, then the walker's own cycles
+extern "C" int shardkv_phase_cycles(int64_t *out, int b) {
+  if (b < 1 || b > kProfile) return static_cast<int>(cudaErrorInvalidValue);
+  static long long raw[kProfile][kProfileCols];
+  const cudaError_t e = cudaMemcpyFromSymbol(
+      raw, g_cycles, sizeof(long long) * kProfileCols * b);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr int n = k11::kTickPhases;
+  for (int c = 0; c < b; ++c) {
+    for (int ph = 0; ph < n; ++ph)
+      out[c * (n + 1) + ph] = raw[c][ph] - raw[c][n];
+    out[c * (n + 1) + n] = raw[c][n + 2] - raw[c][n + 1];
+  }
+  return 0;
+}
+#endif

@@ -1,14 +1,16 @@
 // K11's device code: one shardkv service tick of one deployment, in any of
-// the three config modes (schedule, live controller, computed controller),
-// by the 32 lanes of a warp (shardkv.cu holds the kernel, its launch and
-// the note on what it replaces, its bound and design). Built by nvcc
-// through shardkv.cu, and by g++ through tests/shardkv_host_emu.cpp.
+// the three config modes (schedule, live controller, computed controller:
+// the template parameter M of the functions whose work differs by mode),
+// by the kThreads threads of a block (shardkv.cu holds the kernel, its
+// launch and the note on what it replaces, its bound and design). Built
+// by nvcc through shardkv.cu, and by g++ through
+// tests/shardkv_host_emu.cpp.
 //
-// The tick runs as eleven phases (Phase), a warp barrier after each.
-// Within a phase the lanes share nothing but commutative updates of the
-// warp's shared region (atomic add, or) and rows of device memory each
-// lane owns: so the host runs a phase's 32 lanes one after another, then
-// the next phase, and gets the card's result.
+// The tick runs as eleven phases (Phase), a block barrier after each.
+// Within a phase the threads share nothing but commutative updates of the
+// block's shared region (atomic add, or, min, max) and rows of device
+// memory each thread owns: so the host runs a phase's threads one after
+// another, then the next phase, and gets the card's result.
 //
 // The arithmetic is the plain version's (tpusim/shardkv.py
 // _shardkv_service_tick), written per deployment: int32 values that may
@@ -23,6 +25,7 @@
 #include <cstdint>
 
 #include "ctrler.cuh"  // k10::rebalance, the computed controller's apply
+#include "stage.cuh"
 #include "threefry.cuh"
 
 namespace k11 {
@@ -33,14 +36,19 @@ constexpr bool kMetrics = true;
 constexpr bool kMetrics = false;
 #endif
 
-constexpr int kLanes = 32;
-constexpr int kWalkerLane = kLanes - 1;  // the truth walker; the appliers
-                                         // stride over the other lanes
+// A deployment's block: four warps (three took 6% longer); three for
+// K11-metrics, whose folds spill at the 64 registers that eight blocks of
+// four warps leave a thread
+constexpr int kThreads = kMetrics ? 96 : 128;
+constexpr int kWalker = kThreads - 1;     // the truth walker's and the
+                                          // controller walker's thread; the
+                                          // appliers stride the others
+static_assert(kThreads >= 64 && kThreads % 32 == 0, "two warps or more");
 constexpr int kMaxGroups = 8;
 constexpr int kMaxNodes = 16;
 constexpr int kMaxCap = 256;
 constexpr int kMaxShards = 32;
-constexpr int kMaxClients = 32;  // a clerk a lane in kClerks
+constexpr int kMaxClients = 32;  // a clerk a thread in kClerks
 constexpr int kMaxConfigs = 64;
 constexpr int kPhases = 5;       // config.SHARDKV_PHASES
 constexpr int kQueueSlots = 8;   // config.OPEN_QUEUE_SLOTS
@@ -128,36 +136,41 @@ enum Phase { kStage, kCtrlWalk, kCtrlApply, kRestore, kApply, kOracle,
 constexpr int kKp = 0, kKnet = 4, kKc = 8, kKnetQ = 14, kKa = 16,
               kDrawKeys = 22;
 
-// A worst-op candidate's words in the warp's region: mask, lat, key, sub,
+// A worst-op candidate's words in the block's region: mask, lat, key, sub,
 // then the kPhases phases
 constexpr int kWorstWords = 4 + kPhases;
 
+// A clerk's draws, hashed ahead by the threads kApply leaves idle: the
+// split kKc + k for each (the learn word, the start word, the shard, the
+// retry word, the target, the kind word)
+constexpr int kClerkDraws = 6;
+
 // The stepped raft rows the tick reads by (group, node), staged in the
-// warp's region (alive as 0 / 1)
+// block's region (alive as 0 / 1)
 enum RaftRow { kRTerm, kRRole, kRAlive, kRBase, kRCommit, kRSnapInst,
                kRPreAlive, kRPreBase, kRaftRows };
 
 // A leaf: its input and output, its count of elements a deployment, its
-// bytes an element, and its row's offset in a warp's region (-1 for a log
-// row: see Params)
+// bytes an element, and its row's offset in words in the block's region
+// (-1 for a log row: see Params)
 struct LeafRef {
   const void *in;
   void *out;
   int count, bytes, off;
 };
 
-// The leaf table's copy in shared memory, before the warps' regions
-constexpr int kTableBytes = (kLeaves * static_cast<int>(sizeof(LeafRef)) +
-                             15) / 16 * 16;
-// The leaves whose loads the copy loops keep in flight at once
-constexpr int kGroup = 8;
+using Plan = stage::Plan<kLeaves>;
 
-// The warp's shared region, in int32 words: every leaf but the two log
-// rows staged at its off (the log rows stay in device memory: the tick
-// reads G * n * apply_max of their slots and appends a few), then the
-// tick's scratch
+// The staging plan's copy in shared memory, before the block's region
+constexpr int kPlanBytes = (static_cast<int>(sizeof(Plan)) + 15) / 16 * 16;
+
+// The block's shared region, in int32 words: every leaf but the log rows
+// staged at its off (a bulk row's a multiple of 4; the log rows stay in
+// device memory: the tick reads G * n * apply_max of their slots and
+// appends a few), then the tick's scratch
 struct Params {
   LeafRef leaf[kLeaves];
+  Plan plan;       // the staged rows' copies (stage.cuh)
   const void *read[kReads];
   int b, g, n, cap, ns, nc, ncfg, apply_max, walk_max, hb, partitionable;
   int mode;        // Mode
@@ -193,6 +206,17 @@ struct Params {
   int worst;       // [2, nc, kWorstWords] the acks' and the local serves'
                    // worst-op candidates
   int draws;       // [kDrawKeys, 2] the tick's draw keys
+  int cdraw;       // [nc, kClerkDraws] the clerks' draws
+  int sh_val;      // [g, cap] the groups' shadow windows
+  int sh_pos;      // [2, g] their bases, then their lengths
+  int csh_val;     // [cap] the controller's shadow window (controller
+                   // modes)
+  int lag;         // the restore's largest config lag of a restarting node
+  int q_above;     // [g] the committed announces above the queried node's
+                   // commit (controller modes)
+  int q_amin;      // [g] the queried node's first log index of the asked
+                   // announce (the stale-read bug)
+  bool log_quads;  // the log rows move in 16-byte quads
   int words;       // the region's size
 };
 
@@ -231,17 +255,33 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   for (int r = 0; r < kReads; ++r)
     p.read[r] = ptr_of<const void>(d[kHeader + r]);
   int words = 0;
+  stage::Row rows[kLeaves];
+  int n_rows = 0;
+  p.log_quads = true;
   for (int l = 0; l < kLeaves; ++l) {
     const int64_t *q = d + kHeader + kReads + 4 * l;
     const bool log_row =
         l == kLogTerm || l == kLogVal || l == kCLogTerm || l == kCLogVal;
-    p.leaf[l] = {ptr_of<const void>(q[0]), ptr_of<void>(q[1]),
-                 static_cast<int>(q[2]), static_cast<int>(q[3]),
-                 log_row ? -1 : words};
-    if (p.leaf[l].bytes != 1 && p.leaf[l].bytes != 4) return false;
-    if (p.leaf[l].count < 0 || p.leaf[l].count > (1 << 16)) return false;
-    if (!log_row) words += (p.leaf[l].count * p.leaf[l].bytes + 3) / 4;
+    LeafRef &x = p.leaf[l];
+    x = {ptr_of<const void>(q[0]), ptr_of<void>(q[1]),
+         static_cast<int>(q[2]), static_cast<int>(q[3]), -1};
+    if (x.bytes != 1 && x.bytes != 4) return false;
+    if (x.count < 0 || x.count > (1 << 16)) return false;
+    if (log_row) {
+      // quads where every log row the mode writes is 16-byte rows at
+      // aligned ends
+      if (x.count)
+        p.log_quads = p.log_quads && x.count % 4 == 0 &&
+                      (reinterpret_cast<uintptr_t>(x.in) |
+                       reinterpret_cast<uintptr_t>(x.out)) % 16 == 0;
+      continue;
+    }
+    if (stage::bulk(x.in, x.out, x.count, x.bytes)) words = (words + 3) & ~3;
+    x.off = words;
+    rows[n_rows++] = {x.in, x.out, x.count, x.bytes, 4 * x.off, 0};
+    words += (x.count * x.bytes + 3) / 4;
   }
+  if (!stage::plan(p.plan, rows, n_rows)) return false;
   const int gn = p.g * p.n, gs = p.g * p.ns;
   // a controller leaf is written in its modes and only there
   for (int l = kCtrlWFrontier; l <= kCqRspVar; ++l) {
@@ -282,7 +322,14 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   p.landed = p.retry + p.nc;
   p.worst = p.landed + p.nc;
   p.draws = p.worst + 2 * p.nc * kWorstWords;
-  p.words = p.draws + 2 * kDrawKeys;
+  p.cdraw = p.draws + 2 * kDrawKeys;
+  p.sh_val = p.cdraw + p.nc * kClerkDraws;
+  p.sh_pos = p.sh_val + p.g * p.cap;
+  p.csh_val = p.sh_pos + 2 * p.g;
+  p.lag = p.csh_val + p.cap;
+  p.q_above = p.lag + 1;
+  p.q_amin = p.q_above + p.g;
+  p.words = p.q_amin + p.g;
   return true;
 }
 
@@ -336,8 +383,8 @@ __device__ __forceinline__ float fdiv(float a, float b) {
 #endif
 }
 
-// The lanes' commutative updates of a word of the warp's region (on the
-// host the lanes run one after another)
+// The threads' commutative updates of a word of the block's region (on
+// the host the threads run one after another)
 __device__ __forceinline__ void shared_add(int32_t *a, int32_t v) {
 #ifdef __CUDA_ARCH__
   atomicAdd(a, v);
@@ -351,6 +398,22 @@ __device__ __forceinline__ void shared_or(int32_t *a, int32_t v) {
   atomicOr(a, v);
 #else
   *a |= v;
+#endif
+}
+
+__device__ __forceinline__ void shared_min(int32_t *a, int32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicMin(a, v);
+#else
+  *a = v < *a ? v : *a;
+#endif
+}
+
+__device__ __forceinline__ void shared_max(int32_t *a, int32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicMax(a, v);
+#else
+  *a = v > *a ? v : *a;
 #endif
 }
 
@@ -431,7 +494,8 @@ __device__ __forceinline__ int slot_of(int32_t abs_idx, int cap) {
 
 // ------------------------------------------------------------- the draws
 // The hashes behind the tick's draws, each compiled once and called (a
-// warp runs the kernel's code once, so its time goes with the code's size)
+// block runs the kernel's code once, so its time goes with the code's
+// size)
 __device__ __noinline__ void fold_in(uint32_t &k0, uint32_t &k1,
                                      uint32_t data) {
   madraft::fold_in(k0, k1, data);
@@ -493,13 +557,13 @@ __device__ __forceinline__ Ro<T> read_row(const Params &p, int r, int c,
           static_cast<int64_t>(c) * count};
 }
 
-// The staged (new) row of leaf l in the warp's region ws
+// The staged (new) row of leaf l in the block's region ws
 template <typename T>
 __device__ __forceinline__ T *work(const Params &p, int32_t *ws, int l) {
   return reinterpret_cast<T *>(ws + p.leaf[l].off);
 }
 
-// A staged raft row (RaftRow) in the warp's region ws, [g * n]
+// A staged raft row (RaftRow) in the block's region ws, [g * n]
 __device__ __forceinline__ const int32_t *raft_row(const Params &p,
                                                    const int32_t *ws, int r) {
   return ws + p.raft + r * p.g * p.n;
@@ -530,20 +594,22 @@ __device__ __forceinline__ int32_t map_at(const Params &p, const int32_t *ws,
 // one before it (the adopter's previous config prev_cfg from source
 // prev_src): the adopted replica's maps in computed mode, else the
 // schedule's rows cfg_c and cfg_c - 1
+template <int M>
 __device__ __forceinline__ int32_t new_owner(const Params &p,
                                              const int32_t *ws, int32_t var,
                                              int32_t cfg_c, int s) {
-  return p.mode == kComputed ? map_at(p, ws, var, cfg_c, s)
-                             : owner_at(p, ws, cfg_c, s);
+  return M == kComputed ? map_at(p, ws, var, cfg_c, s)
+                        : owner_at(p, ws, cfg_c, s);
 }
 
+template <int M>
 __device__ __forceinline__ int32_t prev_owner(const Params &p,
                                               const int32_t *ws,
                                               int32_t prev_src,
                                               int32_t prev_cfg, int32_t cfg_c,
                                               int s) {
-  return p.mode == kComputed ? map_at(p, ws, prev_src, prev_cfg, s)
-                             : owner_at(p, ws, wrap_sub(cfg_c, 1), s);
+  return M == kComputed ? map_at(p, ws, prev_src, prev_cfg, s)
+                        : owner_at(p, ws, wrap_sub(cfg_c, 1), s);
 }
 
 // The latest config c <= view whose adoption moved shard s away from
@@ -604,66 +670,71 @@ __device__ __forceinline__ int32_t net_delay(const Params &p, int c,
   return lo + static_cast<int32_t>((w & 0xFFu) % static_cast<uint32_t>(span));
 }
 
-// Element e of deployment c's input row of leaf g
-__device__ __forceinline__ int32_t load_elem(const LeafRef &g, int c, int e) {
-  const int64_t at = static_cast<int64_t>(c) * g.count + e;
-  return g.bytes == 4 ? ld(static_cast<const int32_t *>(g.in) + at)
-                      : ld(static_cast<const uint8_t *>(g.in) + at);
-}
-
-// Element e of leaf g's staged row
-__device__ __forceinline__ void stage_elem(const LeafRef &g, int32_t *ws,
-                                           int e, int32_t v) {
-  if (g.bytes == 4)
-    ws[g.off + e] = v;
-  else
-    reinterpret_cast<uint8_t *>(ws + g.off)[e] = static_cast<uint8_t>(v);
-}
-
-// Element e of leaf g's staged row to deployment c's output row
-__device__ __forceinline__ void store_elem(const LeafRef &g,
-                                           const int32_t *ws, int c, int e) {
-  const int64_t at = static_cast<int64_t>(c) * g.count + e;
-  if (g.bytes == 4)
-    static_cast<int32_t *>(g.out)[at] = ws[g.off + e];
-  else
-    static_cast<uint8_t *>(g.out)[at] =
-        reinterpret_cast<const uint8_t *>(ws + g.off)[e];
-}
-
 // ------------------------------------------------------- the service tick
-// Phase kStage: every leaf's row from its input into the warp's region
-// (the log rows straight to their outputs), the stepped raft rows, the
-// owner maps and the tick's draw keys, the scratch set.
-// The tick then updates the region, and reads pre-tick values from the
-// inputs where the plain version reads them.
-__device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
-                                      int32_t *ws, int c, int lane) {
+// Phase kStage: every leaf's row from its input into the block's region
+// by the staging plan (stage.cuh), the groups' shadow windows (and in a
+// controller mode the controller's) and the schedule's owner maps by
+// cp.async words, the controller's log rows straight to their outputs,
+// the stepped
+// raft rows, the shadows' bases and lengths and the tick's draw keys, the
+// scratch set; then the wait for the copies. The tick then updates the
+// region, and reads pre-tick values from the inputs where a cell's value
+// may already have changed in the phase that reads it.
+template <int M>
+__device__ __forceinline__ void stage(const Params &p, const Plan &pl,
+                                      int32_t *ws, uint64_t *bar, int c,
+                                      int tid) {
   const int gn = p.g * p.n;
-  // the tick's keys, a key a lane while the loads are in flight (the
+  stage::load(pl, reinterpret_cast<unsigned char *>(ws), bar, c, tid,
+              kThreads);
+  const int32_t *sv = static_cast<const int32_t *>(p.read[kShadowVal]) +
+                      static_cast<int64_t>(c) * p.g * p.cap;
+  for (int x = tid; x < p.g * p.cap; x += kThreads)
+    stage::word_load(ws + p.sh_val + x, sv + x);
+  if (M != kSchedule) {
+    const int32_t *cv = static_cast<const int32_t *>(p.read[kCShadowVal]) +
+                        static_cast<int64_t>(c) * p.cap;
+    for (int x = tid; x < p.cap; x += kThreads)
+      stage::word_load(ws + p.csh_val + x, cv + x);
+  }
+  // the schedule's owner maps (in computed mode the cfg_owner leaf's row,
+  // staged with the leaves)
+  if (M != kComputed) {
+    const int32_t *own = static_cast<const int32_t *>(p.read[kCfgOwner]) +
+                         static_cast<int64_t>(c) * p.ncfg * p.ns;
+    for (int x = tid; x < p.ncfg * p.ns; x += kThreads)
+      stage::word_load(ws + p.owner + x, own + x);
+  }
+  // the controller's log rows (the announcers append to them in
+  // kCtrlApply; the groups' move in kApply)
+  if (M != kSchedule)
+    for (int l = kCLogTerm; l <= kCLogVal; ++l)
+      stage::copy_row(p.leaf[l].in, p.leaf[l].out, p.leaf[l].count, c,
+                      p.log_quads, tid, kThreads);
+  // the tick's keys, a key a thread while the copies are in flight (the
   // controller's only in a controller mode)
-  if (lane < (p.mode != kSchedule ? kDrawKeys : kKnetQ)) {
+  if (tid < (M != kSchedule ? kDrawKeys : kKnetQ)) {
     const Ro<uint32_t> key = read_row<uint32_t>(p, kKeys, c, 4);
     uint32_t k0 = key[0], k1 = key[2];  // the int64 words' low halves
     fold_in(k0, k1, static_cast<uint32_t>(tick_of(p, c)));
-    const uint32_t site = lane < kKnet    ? kSitePull
-                          : lane < kKc    ? kSiteNet
-                          : lane < kKnetQ ? kSiteClerk
-                          : lane < kKa    ? kSiteNet
-                                          : kSiteAnn;
-    const int num = lane < kKnet ? 4 : 6;
-    const int j = lane < kKnet    ? lane
-                  : lane < kKc    ? lane - kKnet
-                  : lane < kKnetQ ? lane - kKc
-                  : lane < kKa    ? lane - kKnetQ + 4
-                                  : lane - kKa;
+    const uint32_t site = tid < kKnet    ? kSitePull
+                          : tid < kKc    ? kSiteNet
+                          : tid < kKnetQ ? kSiteClerk
+                          : tid < kKa    ? kSiteNet
+                                         : kSiteAnn;
+    const int num = tid < kKnet ? 4 : 6;
+    const int j = tid < kKnet    ? tid
+                  : tid < kKc    ? tid - kKnet
+                  : tid < kKnetQ ? tid - kKc
+                  : tid < kKa    ? tid - kKnetQ + 4
+                                 : tid - kKa;
     fold_in(k0, k1, site);
     uint32_t d0, d1;
     split_key(k0, k1, num, j, p.partitionable, d0, d1);
-    ws[p.draws + 2 * lane] = static_cast<int32_t>(d0);
-    ws[p.draws + 2 * lane + 1] = static_cast<int32_t>(d1);
+    ws[p.draws + 2 * tid] = static_cast<int32_t>(d0);
+    ws[p.draws + 2 * tid + 1] = static_cast<int32_t>(d1);
   }
-  for (int x = lane; x < gn; x += kLanes) {
+  for (int x = tid; x < gn; x += kThreads) {
     ws[p.raft + kRTerm * gn + x] = read_row<int32_t>(p, kTerm, c, gn)[x];
     ws[p.raft + kRRole * gn + x] = read_row<int32_t>(p, kRole, c, gn)[x];
     ws[p.raft + kRAlive * gn + x] = read_row<uint8_t>(p, kAlive, c, gn)[x] != 0;
@@ -675,49 +746,20 @@ __device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
         read_row<uint8_t>(p, kPreAlive, c, gn)[x] != 0;
     ws[p.raft + kRPreBase * gn + x] = read_row<int32_t>(p, kPreBase, c, gn)[x];
   }
-  // the schedule's owner maps (in computed mode the cfg_owner leaf's row,
-  // staged with the leaves)
-  const Ro<int32_t> owner = read_row<int32_t>(p, kCfgOwner, c,
-                                              p.ncfg * p.ns);
-  if (p.mode != kComputed)
-    for (int x = lane; x < p.ncfg * p.ns; x += kLanes)
-      ws[p.owner + x] = owner[x];
-  // every staged row's element `lane`, kGroup leaves' loads in flight at
-  // once, then the rows' elements from kLanes on and the log rows
-#pragma unroll 1
-  for (int l0 = 0; l0 < kLeaves; l0 += kGroup) {
-    int32_t v[kGroup];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int l = l0 + k;
-      v[k] = l < kLeaves && tab[l].off >= 0 && lane < tab[l].count
-                 ? load_elem(tab[l], c, lane) : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int l = l0 + k;
-      if (l < kLeaves && tab[l].off >= 0 && lane < tab[l].count)
-        stage_elem(tab[l], ws, lane, v[k]);
-    }
+  for (int g = tid; g < p.g; g += kThreads) {
+    ws[p.sh_pos + g] = read_row<int32_t>(p, kShadowBase, c, p.g)[g];
+    ws[p.sh_pos + p.g + g] = read_row<int32_t>(p, kShadowLen, c, p.g)[g];
+    ws[p.q_above + g] = 0;
+    ws[p.q_amin + g] = kBig;
   }
-#pragma unroll 1
-  for (int l = 0; l < kLeaves; ++l) {
-    const LeafRef g = tab[l];
-    if (g.off >= 0) {
-      for (int e = lane + kLanes; e < g.count; e += kLanes)
-        stage_elem(g, ws, e, load_elem(g, c, e));
-      continue;
-    }
-    const Ro<int32_t> src = {static_cast<const int32_t *>(g.in) +
-                             static_cast<int64_t>(c) * g.count};
-    int32_t *dst = static_cast<int32_t *>(g.out) +
-                   static_cast<int64_t>(c) * g.count;
-#pragma unroll 4
-    for (int e = lane; e < g.count; e += kLanes) dst[e] = src[e];
+  for (int x = tid; x < gn * p.nc; x += kThreads)
+    ws[p.first + x] = p.apply_max;
+  for (int cl = tid; cl < p.nc; cl += kThreads) ws[p.landed + cl] = 0;
+  if (tid == 0) {
+    ws[p.viol] = 0;
+    ws[p.lag] = INT32_MIN;
   }
-  for (int x = lane; x < gn * p.nc; x += kLanes) ws[p.first + x] = p.apply_max;
-  for (int cl = lane; cl < p.nc; cl += kLanes) ws[p.landed + cl] = 0;
-  if (lane == 0) ws[p.viol] = 0;
+  stage::wait(bar, pl.bulk_bytes);
 }
 
 // ------------------------------------------------------- the controller
@@ -730,35 +772,37 @@ __device__ __forceinline__ int32_t resolved_prefix(const Params &p,
   return k - 1;
 }
 
-// Phase kCtrlWalk. In schedule mode lane 0 sets the view, the schedule's
-// active config. In a controller mode lane 31 runs the controller walker's
-// walk_max steps over the stepped controller cluster's commit shadow, with
-// the sticky stall (the entry it needs slid out of the shadow window):
-// live, the first committed announce of a config sets its variant;
-// computed, the one flip that resolves the next slot (at most one a tick)
-// is found and the canonical member mask flipped (never emptied); the
-// view is then the committed frontier. Lanes 0-3 draw the announcers'
-// submits and targets.
+// Phase kCtrlWalk. In schedule mode thread 0 sets the view, the
+// schedule's active config. In a controller mode thread kWalker runs the
+// controller walker's walk_max steps over the stepped controller
+// cluster's staged commit shadow, with the sticky stall (the entry it
+// needs slid out of the shadow window): live, the first committed
+// announce of a config sets its variant; computed, the one flip that
+// resolves the next slot (at most one a tick) is found and the canonical
+// member mask flipped (never emptied); the view is then the committed
+// frontier. A step that cannot walk leaves the walker as it was, so the
+// walk stops there. Threads 0-3 draw the announcers' submits and targets.
+template <int M>
 __device__ __forceinline__ void ctrl_walk(const Params &p, int32_t *ws, int c,
-                                          int lane) {
-  if (p.mode == kSchedule) {
-    if (lane == 0) ws[p.view] = active_cfg(p, c, tick_of(p, c));
+                                          int tid) {
+  if (M == kSchedule) {
+    if (tid == 0) ws[p.view] = active_cfg(p, c, tick_of(p, c));
     return;
   }
   const int cap = p.cap;
-  if (lane < 4) {
-    const int k = kKa + lane;
+  if (tid < 4) {
+    const int k = kKa + tid;
     const uint32_t k0 = static_cast<uint32_t>(ws[p.draws + 2 * k]);
     const uint32_t k1 = static_cast<uint32_t>(ws[p.draws + 2 * k + 1]);
     const Ro<float> kf = read_row<float>(p, kKnobF, c, kNF);
-    ws[p.ann + lane] =
-        lane % 2 == 0
+    ws[p.ann + tid] =
+        tid % 2 == 0
             ? madraft::uniform(bits_word(k0, k1, 0, 1, p.partitionable)) <
-                  kf[lane == 0 ? kPAnnounce : kPPhantom]
+                  kf[tid == 0 ? kPAnnounce : kPPhantom]
             : randint_elem(k0, k1, 0, 1, 0, p.n, p.partitionable);
   }
-  if (lane != kWalkerLane) return;
-  const Ro<int32_t> sval = read_row<int32_t>(p, kCShadowVal, c, cap);
+  if (tid != kWalker) return;
+  const int32_t *sval = ws + p.csh_val;
   const int32_t sbase = read_row<int32_t>(p, kCShadowBase, c, 1)[0];
   const int32_t slen = read_row<int32_t>(p, kCShadowLen, c, 1)[0];
   int32_t &frontier = work<int32_t>(p, ws, kCtrlWFrontier)[0];
@@ -774,10 +818,11 @@ __device__ __forceinline__ void ctrl_walk(const Params &p, int32_t *ws, int c,
     bool canw = frontier < slen;
     if (canw && !in_win) stalled = 1;
     canw = canw && in_win;
+    if (!canw) break;
     const int32_t val = sval[pos];
-    const bool is_op = canw && val > 0 && val != kNoop;
+    const bool is_op = val > 0 && val != kNoop;
     const int32_t v1 = wrap_sub(val, 1);
-    if (p.mode == kLive) {
+    if (M == kLive) {
       const int32_t aj = clampi(floor_div(v1, 2), 0, p.ncfg - 1);
       if (is_op && win_var[aj] < 0) win_var[aj] = floor_mod(v1, 2);
     } else if (is_op && !found && floor_div(v1, p.g) == resolved + 1 &&
@@ -785,9 +830,9 @@ __device__ __forceinline__ void ctrl_walk(const Params &p, int32_t *ws, int c,
       flip = clampi(floor_mod(v1, p.g), 0, p.g - 1);
       found = true;
     }
-    if (canw) frontier = f1;
+    frontier = f1;
   }
-  if (p.mode == kLive) {
+  if (M == kLive) {
     ws[p.view] = resolved_prefix(p, win_var);
     return;
   }
@@ -804,32 +849,35 @@ __device__ __forceinline__ void ctrl_walk(const Params &p, int32_t *ws, int c,
   ws[p.view] = found ? resolved + 1 : resolved;
 }
 
-// Phase kCtrlApply, a controller node a lane (controller modes). Computed
-// mode, when a slot resolved: replica i's 4A rebalance of its own owner
-// chain under the new member mask, its ties rotated by i under
-// bug_rotate_tiebreak (k10::rebalance), into its chain and its write-once
-// map of the slot; replica 0's is the canonical config (cfg_owner), and
-// lane 0 records the slot's flip, tick and the member mask. Then node i's
+// Phase kCtrlApply, a controller node a thread (controller modes).
+// Computed mode, when a slot resolved: replica i's 4A rebalance of its
+// own owner chain under the new member mask, its ties rotated by i under
+// bug_rotate_tiebreak (k10::rebalance, in registers), into its chain and
+// its write-once map of the slot; replica 0's is the canonical config
+// (cfg_owner), and thread 0 records the slot's flip, tick and the member
+// mask. Then node i's
 // announcer appends, the truth's proposal then the phantom's for the slot
 // after the view (live: ANNOUNCE(j, variant); computed: FLIP(j, gid),
 // the two competing flips), each where node i is its target, an alive
 // leader, with room, into the controller's log rows in device memory.
+template <int M>
 __device__ __forceinline__ void ctrl_apply(const Params &p, int32_t *ws,
-                                           int c, int lane) {
-  if (p.mode == kSchedule || lane >= p.n) return;
-  const int i = lane, cap = p.cap, ns = p.ns;
+                                           int c, int tid) {
+  if (M == kSchedule || tid >= p.n) return;
+  const int i = tid, cap = p.cap, ns = p.ns;
   const int32_t t = tick_of(p, c);
   const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
-  if (p.mode == kComputed && ws[p.cfound]) {
+  if (M == kComputed && ws[p.cfound]) {
     int32_t *own = work<int32_t>(p, ws, kCtrlNodeOwner) + i * ns;
-    int32_t out[k10::kShards];
-    k10::rebalance(p.g, static_cast<uint32_t>(ws[p.cmem]), own,
-                   ki[kBugRotate] ? i : 0, false, false, out);
+    const uint32_t mem = static_cast<uint32_t>(ws[p.cmem]);
+    const uint64_t out =
+        k10::rebalance(p.g, mem, k10::loads_of(p.g, mem, own),
+                       ki[kBugRotate] ? i : 0, false, false);
     const int slot = ws[p.cslot];
     int32_t *map = work<int32_t>(p, ws, kCtrlMaps) + (i * p.ncfg + slot) * ns;
-    for (int s = 0; s < ns; ++s) own[s] = map[s] = out[s];
+    for (int s = 0; s < ns; ++s) own[s] = map[s] = k10::nib(out, s) - 1;
     if (i == 0) {
-      for (int s = 0; s < ns; ++s) ws[p.owner + slot * ns + s] = out[s];
+      for (int s = 0; s < ns; ++s) ws[p.owner + slot * ns + s] = own[s];
       work<int32_t>(p, ws, kWinVar)[slot] = ws[p.cflip];
       work<int32_t>(p, ws, kSlotTick)[slot] = t;
       uint8_t *cmem = work<uint8_t>(p, ws, kCmem);
@@ -856,7 +904,7 @@ __device__ __forceinline__ void ctrl_apply(const Params &p, int32_t *ws,
           wrap_sub(len, commit) < ki[kFlowCap]))
       continue;
     const int32_t av =
-        p.mode == kComputed
+        M == kComputed
             ? jnext * p.g +
                   read_row<int32_t>(p, vb ? kFlipB : kFlipA, c, p.ncfg)[jnext] +
                   1
@@ -870,12 +918,14 @@ __device__ __forceinline__ void ctrl_apply(const Params &p, int32_t *ws,
 }
 
 // One node table of the restore (live rows `live`, their snapshot `snap`,
-// w elements a node), a cell a thread, from the inputs alone: the crash
-// reset to the persisted snapshot, the compaction capture, then the
-// install of the in-group sender's snapshot as just captured
+// w elements a node), a cell a thread: the crash reset to the persisted
+// snapshot and the compaction capture from the staged rows (a cell reads
+// only itself there), then the install of the in-group sender's snapshot
+// as just captured, from the inputs (the sender's cells may change in this
+// phase)
 template <typename T>
 __device__ __forceinline__ void restore_table(const Params &p, int32_t *ws,
-                                              int c, int lane, int live,
+                                              int c, int tid, int live,
                                               int snap, int w) {
   const int n = p.n, gn = p.g * p.n;
   const int32_t *alive = raft_row(p, ws, kRAlive);
@@ -883,71 +933,64 @@ __device__ __forceinline__ void restore_table(const Params &p, int32_t *ws,
   const int32_t *base = raft_row(p, ws, kRBase);
   const int32_t *pre_base = raft_row(p, ws, kRPreBase);
   const int32_t *inst_src = raft_row(p, ws, kRSnapInst);
-  const Ro<T> lv0 = in_row<T>(p, live, c);
-  const Ro<T> sn0 = in_row<T>(p, snap, c);
   T *lv = work<T>(p, ws, live);
   T *sn = work<T>(p, ws, snap);
-  for (int x = lane; x < gn * w; x += kLanes) {
-    const int gi = x / w, e = x % w;
+  for (int x = tid; x < gn * w; x += kThreads) {
+    const int gi = x / w;
     const int32_t src = inst_src[gi];
     if (src >= 0) {
       // the sender's row after its own reset and capture
       T v = 0;
       if (src < n) {
-        const int j = gi - gi % n + src;
+        const int j = gi - gi % n + src, at = j * w + x % w;
+        const Ro<T> lv0 = in_row<T>(p, live, c), sn0 = in_row<T>(p, snap, c);
         const bool fresh = !pre_alive[j] || !alive[j];
         const bool comp = base[j] != pre_base[j] && inst_src[j] < 0 &&
                           alive[j];
-        const T live1 = fresh ? sn0[j * w + e] : lv0[j * w + e];
-        v = comp ? live1 : sn0[j * w + e];
+        v = comp && !fresh ? lv0[at] : sn0[at];
       }
       lv[x] = sn[x] = v;
       continue;
     }
     const bool fresh = !pre_alive[gi] || !alive[gi];
     const bool comp = base[gi] != pre_base[gi] && alive[gi];
-    const T live1 = fresh ? sn0[x] : lv0[x];
+    const T live1 = fresh ? sn[x] : lv[x];
     lv[x] = live1;
-    sn[x] = comp ? live1 : sn0[x];
+    if (comp) sn[x] = live1;
   }
 }
 
 // Phase kRestore: the apply machines' crash reset, compaction capture and
-// install-snapshot (a table cell a thread), and on lane 0 the largest
-// config lag of a restarting node
+// install-snapshot (a table cell a thread), and the largest config lag of
+// a restarting node (a shared max, applied in kApply)
 __device__ __forceinline__ void restore(const Params &p, int32_t *ws, int c,
-                                        int lane) {
+                                        int tid) {
   const int gn = p.g * p.n, ns = p.ns;
   const int32_t *alive = raft_row(p, ws, kRAlive);
   const int32_t *pre_alive = raft_row(p, ws, kRPreAlive);
   const int32_t *base = raft_row(p, ws, kRBase);
   const int32_t *inst_src = raft_row(p, ws, kRSnapInst);
-  for (int x = lane; x < gn; x += kLanes)
+  // a restarting node's missed configs, against its reset config (the
+  // pre-tick snapshot's, read before the table's restore below)
+  const int32_t ac = ws[p.view];
+  const int32_t *snap_cfg = work<int32_t>(p, ws, kSnapCfg);
+  for (int x = tid; x < gn; x += kThreads) {
+    shared_max(ws + p.lag, !pre_alive[x] && alive[x]
+                               ? wrap_sub(ac, snap_cfg[x]) : 0);
     if (!pre_alive[x] || !alive[x] || inst_src[x] >= 0)
       work<int32_t>(p, ws, kApplied)[x] = base[x];
-  restore_table<int32_t>(p, ws, c, lane, kNodeCfg, kSnapCfg, 1);
-  restore_table<int32_t>(p, ws, c, lane, kNodeSrc, kSnapSrc, 1);
-  restore_table<int32_t>(p, ws, c, lane, kPhase, kSnapPhase, ns);
-  restore_table<int32_t>(p, ws, c, lane, kKeyHash, kSnapHash, ns);
-  restore_table<int32_t>(p, ws, c, lane, kKeyCount, kSnapCount, ns);
-  restore_table<int32_t>(p, ws, c, lane, kLastSeq, kSnapLastSeq, ns * p.nc);
-  if (lane == 0) {
-    // a restarting node's missed configs, against its reset config
-    const int32_t ac = ws[p.view];
-    const Ro<int32_t> snap_cfg0 = in_row<int32_t>(p, kSnapCfg, c);
-    int32_t lag = 0;
-    for (int x = 0; x < gn; ++x) {
-      const int32_t v = !pre_alive[x] && alive[x] ? wrap_sub(ac, snap_cfg0[x])
-                                                  : 0;
-      lag = x == 0 || v > lag ? v : lag;
-    }
-    int32_t &m = work<int32_t>(p, ws, kMaxCfgLag)[0];
-    m = lag > m ? lag : m;
   }
+  restore_table<int32_t>(p, ws, c, tid, kNodeCfg, kSnapCfg, 1);
+  restore_table<int32_t>(p, ws, c, tid, kNodeSrc, kSnapSrc, 1);
+  restore_table<int32_t>(p, ws, c, tid, kPhase, kSnapPhase, ns);
+  restore_table<int32_t>(p, ws, c, tid, kKeyHash, kSnapHash, ns);
+  restore_table<int32_t>(p, ws, c, tid, kKeyCount, kSnapCount, ns);
+  restore_table<int32_t>(p, ws, c, tid, kLastSeq, kSnapLastSeq, ns * p.nc);
 }
 
 // One apply round's entry at applier (g, i): the service state machine's
 // Append / Put / Get, CONFIG, INSTALL and DELETE (shardkv.py's apply loop)
+template <int M>
 __device__ __forceinline__ void apply_node(const Params &p, int32_t *ws,
                                            int c, int gi) {
   const int n = p.n, ns = p.ns, nc = p.nc, cap = p.cap;
@@ -996,16 +1039,16 @@ __device__ __forceinline__ void apply_node(const Params &p, int32_t *ws,
       // adoption before it
       int32_t &node_src = work<int32_t>(p, ws, kNodeSrc)[gi];
       for (int x = 0; x < ns; ++x) {
-        const int32_t now = new_owner(p, ws, e.var, e.cfg_c, x);
+        const int32_t now = new_owner<M>(p, ws, e.var, e.cfg_c, x);
         const int32_t before =
-            prev_owner(p, ws, node_src, node_cfg, e.cfg_c, x);
+            prev_owner<M>(p, ws, node_src, node_cfg, e.cfg_c, x);
         if (now == g && phase[x] == kAbsent)
           phase[x] = before == now ? kOwned : kPulling;
         else if (now != g && phase[x] == kOwned && !skip_freeze)
           phase[x] = kFrozen;
       }
       node_cfg = e.cfg_c;
-      if (p.mode == kComputed) node_src = clampi(e.var, 0, p.n - 1);
+      if (M == kComputed) node_src = clampi(e.var, 0, p.n - 1);
     } else if (e.kind == kInstall && stg_cfg0[g * ns + s] == e.cfg_i &&
                phase[s] == kPulling) {
       hash[s] = stg_hash0[g * ns + s];
@@ -1031,12 +1074,15 @@ __device__ __forceinline__ void apply_node(const Params &p, int32_t *ws,
 // DELETE). A CONFIG's owners are new_owner / prev_owner's; in a
 // controller mode its adopted source is checked against the controller's
 // decision: live, the variant must be the first-committed announce's;
-// computed, the adopted map must be the canonical one (replica 0's).
-__device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
+// computed, the adopted map must be the canonical one (replica 0's). The
+// shadows are the staged ones; a step in which no group walks leaves the
+// walker as it was, so the walk stops there.
+template <int M>
+__device__ __forceinline__ void walk(const Params &p, int32_t *ws) {
   const int G = p.g, ns = p.ns, nc = p.nc, cap = p.cap;
-  const Ro<int32_t> sh_val = read_row<int32_t>(p, kShadowVal, c, G * cap);
-  const Ro<int32_t> sh_base = read_row<int32_t>(p, kShadowBase, c, G);
-  const Ro<int32_t> sh_len = read_row<int32_t>(p, kShadowLen, c, G);
+  const int32_t *sh_val = ws + p.sh_val;
+  const int32_t *sh_base = ws + p.sh_pos;
+  const int32_t *sh_len = ws + p.sh_pos + G;
   int32_t *frontier = work<int32_t>(p, ws, kWFrontier);
   int32_t *w_cfg = work<int32_t>(p, ws, kWCfg);
   int32_t *w_phase = work<int32_t>(p, ws, kWPhase);
@@ -1051,13 +1097,13 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
   int32_t *w_acked = work<int32_t>(p, ws, kWClerkAcked);
   int32_t &installs = work<int32_t>(p, ws, kInstallsDone)[0];
   int32_t &deletes = work<int32_t>(p, ws, kDeletesDone)[0];
-  int32_t *w_src = p.mode == kComputed ? work<int32_t>(p, ws, kWSrc) : nullptr;
+  int32_t *w_src = M == kComputed ? work<int32_t>(p, ws, kWSrc) : nullptr;
   const int32_t *win_var =
-      p.mode == kLive ? work<int32_t>(p, ws, kWinVar) : nullptr;
+      M == kLive ? work<int32_t>(p, ws, kWinVar) : nullptr;
   Entry ent[kMaxGroups];
-  bool canw[kMaxGroups], is_cfg[kMaxGroups];
   int32_t viol = 0;
   for (int step = 0; step < p.walk_max; ++step) {
+    uint32_t canw = 0, is_cfg = 0;  // bit g: group g walks, its CONFIG
     for (int g = 0; g < G; ++g) {
       const int32_t f1 = wrap_add(frontier[g], 1);
       const int pos = slot_of(f1, cap);
@@ -1085,22 +1131,26 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
         }
       }
       ent[g] = e;
-      canw[g] = can;
-      is_cfg[g] = can && e.kind == kConfig && e.cfg_c == wrap_add(w_cfg[g], 1);
-      if (is_cfg[g] && p.mode == kLive &&
+      const bool cfg = can && e.kind == kConfig &&
+                       e.cfg_c == wrap_add(w_cfg[g], 1);
+      canw |= static_cast<uint32_t>(can) << g;
+      is_cfg |= static_cast<uint32_t>(cfg) << g;
+      if (cfg && M == kLive &&
           e.var != win_var[clampi(e.cfg_c, 0, p.ncfg - 1)])
         viol |= kViolCtrlStale;
-      if (is_cfg[g] && p.mode == kComputed)
+      if (cfg && M == kComputed)
         for (int x = 0; x < ns; ++x)
           if (map_at(p, ws, e.var, e.cfg_c, x) != owner_at(p, ws, e.cfg_c, x))
             viol |= kViolCtrlStale;
     }
+    if (!canw) break;
     // the freeze snapshots: a shard a CONFIG takes from its owner
-    for (int s = 0; s < ns; ++s) {
+    for (int s = 0; s < ns && is_cfg; ++s) {
       bool any = false;
       int32_t fc = -1, fh = 0, fn = 0;
       for (int g = 0; g < G; ++g) {
-        if (!is_cfg[g] || new_owner(p, ws, ent[g].var, ent[g].cfg_c, s) == g ||
+        if (!((is_cfg >> g) & 1u) ||
+            new_owner<M>(p, ws, ent[g].var, ent[g].cfg_c, s) == g ||
             w_phase[g * ns + s] != kOwned)
           continue;
         any = true;
@@ -1115,22 +1165,24 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
       for (int cl = 0; cl < nc; ++cl) {
         int32_t v = 0;
         for (int g = 0; g < G; ++g)
-          if (is_cfg[g] &&
-              new_owner(p, ws, ent[g].var, ent[g].cfg_c, s) != g &&
+          if (((is_cfg >> g) & 1u) &&
+              new_owner<M>(p, ws, ent[g].var, ent[g].cfg_c, s) != g &&
               w_phase[g * ns + s] == kOwned)
             v = wrap_add(v, w_ls[(g * ns + s) * nc + cl]);
         frz_ls[s * nc + cl] = v;
       }
     }
     for (int g = 0; g < G; ++g) {
+      if (!((canw >> g) & 1u)) continue;
       const Entry &e = ent[g];
       const int s = e.shard;
       int32_t *ph = w_phase + g * ns;
-      if (is_cfg[g]) {
+      if ((is_cfg >> g) & 1u) {
         const int32_t src0 = w_src ? w_src[g] : 0;
         for (int x = 0; x < ns; ++x) {
-          const int32_t now = new_owner(p, ws, e.var, e.cfg_c, x);
-          const int32_t before = prev_owner(p, ws, src0, w_cfg[g], e.cfg_c, x);
+          const int32_t now = new_owner<M>(p, ws, e.var, e.cfg_c, x);
+          const int32_t before =
+              prev_owner<M>(p, ws, src0, w_cfg[g], e.cfg_c, x);
           if (now == g && ph[x] == kAbsent)
             ph[x] = before == now ? kOwned : kPulling;
           else if (now != g && ph[x] == kOwned)
@@ -1139,7 +1191,7 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
         w_cfg[g] = e.cfg_c;
         if (w_src) w_src[g] = clampi(e.var, 0, p.n - 1);
       }
-      if (canw[g] && e.kind == kInstall && ph[s] == kPulling) {
+      if (e.kind == kInstall && ph[s] == kPulling) {
         w_hash[g * ns + s] = frz_hash[s];
         w_count[g * ns + s] = frz_count[s];
         for (int cl = 0; cl < nc; ++cl)
@@ -1147,46 +1199,115 @@ __device__ __forceinline__ void walk(const Params &p, int32_t *ws, int c) {
         ph[s] = kOwned;
         installs = wrap_add(installs, 1);
       }
-      if (canw[g] && e.kind == kDelete &&
+      if (e.kind == kDelete &&
           e.cfg_i == freeze_epoch(p, ws, g, w_cfg[g], s) && ph[s] == kFrozen) {
         ph[s] = kAbsent;
         w_hash[g * ns + s] = w_count[g * ns + s] = 0;
         for (int cl = 0; cl < nc; ++cl) w_ls[(g * ns + s) * nc + cl] = 0;
         deletes = wrap_add(deletes, 1);
       }
-      if (canw[g]) frontier[g] = wrap_add(frontier[g], 1);
+      frontier[g] = wrap_add(frontier[g], 1);
     }
   }
   if (viol) shared_or(ws + p.viol, viol);
 }
 
+// The threads kApply leaves idle, the warps after the appliers' and
+// before the walker's (at least one warp): the groups' log rows straight
+// to their outputs (the appends of kAppendLog land on them; the apply
+// rounds read the inputs), then the clerks' draws (a pure function of the
+// tick's keys and the clerk, so the clerks phase reads what it would have
+// hashed)
+__device__ __forceinline__ void apply_helpers(const Params &p, int32_t *ws,
+                                              int c, int tid) {
+  const int gn = p.g * p.n, nc = p.nc, end = kThreads - 32;
+  const int h0 = (gn + 31) / 32 * 32 < end - 32 ? (gn + 31) / 32 * 32
+                                                : end - 32;
+  if (tid < h0 || tid >= end) return;
+  const int at = tid - h0, helpers = end - h0;
+  for (int l = kLogTerm; l <= kLogVal; ++l)
+    stage::copy_row(p.leaf[l].in, p.leaf[l].out, p.leaf[l].count, c,
+                    p.log_quads, at, helpers);
+  for (int u = at; u < nc * kClerkDraws; u += helpers) {
+    const int cl = u / kClerkDraws, k = u % kClerkDraws;
+    ws[p.cdraw + u] =
+        k == 2   ? draw_randint(p, ws, kKc + 2, cl, nc, 0, p.ns)
+        : k == 4 ? draw_randint(p, ws, kKc + 4, cl, nc, 0, p.n)
+                 : static_cast<int32_t>(draw_word(p, ws, kKc + k, cl, nc));
+  }
+}
+
 // Phase kApply: apply_max rounds of the apply loop, an applier (group,
-// node) a thread on the lanes but the last (an applier's rounds are
+// node) a thread on the threads but the last (an applier's rounds are
 // sequential, the appliers independent), each round's Get answers to the
-// scratch (first, first_obs) for the clerks; and on the last lane the
-// truth walker
+// scratch (first, first_obs) for the clerks; on thread kWalker (the last
+// warp) the truth walker; thread 0 also folds the restore's config lag
+// into max_cfg_lag; the idle threads' apply_helpers
+template <int M>
 __device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
-                                      int lane) {
-  if (lane == kWalkerLane) {
-    walk(p, ws, c);
+                                      int tid) {
+  if (tid == kWalker) {
+    walk<M>(p, ws);
     return;
   }
-  for (int gi = lane; gi < p.g * p.n; gi += kLanes - 1) apply_node(p, ws, c, gi);
+  apply_helpers(p, ws, c, tid);
+  if (tid == 0) {
+    int32_t &m = work<int32_t>(p, ws, kMaxCfgLag)[0];
+    m = ws[p.lag] > m ? ws[p.lag] : m;
+  }
+  for (int gi = tid; gi < p.g * p.n; gi += kThreads - 1)
+    apply_node<M>(p, ws, c, gi);
+}
+
+// The controller's scans for the Query mailboxes (controller modes), a
+// (group, slot) pair a thread: the committed announces of the staged
+// controller shadow above the queried node's commit, and under
+// bug_stale_ctrler_read (live) the least log index in the queried node's
+// log window (its row after this tick's announces) holding the asked
+// announce; shared adds and mins into q_above and q_amin
+template <int M>
+__device__ __forceinline__ void query_scan(const Params &p, int32_t *ws,
+                                           int c, int tid) {
+  if (M == kSchedule) return;
+  const int cap = p.cap, n = p.n;
+  const int32_t sbase = read_row<int32_t>(p, kCShadowBase, c, 1)[0];
+  const int32_t slen = read_row<int32_t>(p, kCShadowLen, c, 1)[0];
+  const bool stale =
+      M == kLive && read_row<int32_t>(p, kKnobI, c, kNI)[kBugStaleCtrl];
+  for (int u = tid; u < p.g * cap; u += kThreads) {
+    const int g = u / cap, x = u % cap;
+    const int32_t node = work<int32_t>(p, ws, kCqReqNode)[g];
+    if (node < 0 || node >= n) continue;
+    const int32_t v = ws[p.csh_val + x];
+    const int32_t a = shadow_abs(sbase, x, cap);
+    if (v > 0 && v != kNoop && a <= slen &&
+        a > read_row<int32_t>(p, kCCommit, c, n)[node])
+      shared_add(ws + p.q_above + g, 1);
+    if (!stale) continue;
+    const int32_t lv = out_row<int32_t>(p, kCLogVal, c)[node * cap + x];
+    const int32_t la =
+        shadow_abs(read_row<int32_t>(p, kCBase, c, n)[node], x, cap);
+    if (lv > 0 && lv != kNoop && la <= work<int32_t>(p, ws, kCLogLen)[node] &&
+        floor_div(wrap_sub(lv, 1), 2) == work<int32_t>(p, ws, kCqReqJ)[g])
+      shared_min(ws + p.q_amin + g, la);
+  }
 }
 
 // Phase kOracle: each applier's divergence (alive and at the walker's
 // frontier: its state must equal the walker's) and storage leak, a thread
-// an applier; the ownership check on lane 31; each group's leader view
-// (the alive leader with the most applied, the first on a tie; node 0
-// when there is none), a thread a group
-__device__ __forceinline__ void oracle(const Params &p, int32_t *ws,
-                                       int lane) {
+// an applier; the ownership check on thread kWalker; each group's leader
+// view (the alive leader with the most applied, the first on a tie; node
+// 0 when there is none), a thread a group; the controller's scans
+template <int M>
+__device__ __forceinline__ void oracle(const Params &p, int32_t *ws, int c,
+                                       int tid) {
+  query_scan<M>(p, ws, c, tid);
   const int n = p.n, ns = p.ns, nc = p.nc, gn = p.g * p.n;
   const int32_t *alive = raft_row(p, ws, kRAlive);
   const int32_t *role = raft_row(p, ws, kRRole);
   const int32_t *applied = work<int32_t>(p, ws, kApplied);
   int32_t viol = 0;
-  for (int gi = lane; gi < gn; gi += kLanes) {
+  for (int gi = tid; gi < gn; gi += kThreads) {
     if (!alive[gi]) continue;
     const int g = gi / n;
     const int32_t *phase = work<int32_t>(p, ws, kPhase) + gi * ns;
@@ -1209,7 +1330,7 @@ __device__ __forceinline__ void oracle(const Params &p, int32_t *ws,
     for (int x = 0; x < ns * nc; ++x) same &= ls[x] == w_ls[x];
     if (!same) viol |= kViolDiverge;
   }
-  if (lane == kWalkerLane) {
+  if (tid == kWalker) {
     const int32_t *w_phase = work<int32_t>(p, ws, kWPhase);
     for (int s = 0; s < ns; ++s) {
       int owned = 0;
@@ -1217,7 +1338,7 @@ __device__ __forceinline__ void oracle(const Params &p, int32_t *ws,
       if (owned > 1) viol |= kViolOwnership;
     }
   }
-  for (int g = lane; g < p.g; g += kLanes) {
+  for (int g = tid; g < p.g; g += kThreads) {
     int best = 0;
     int32_t score = -1;
     bool any = false;
@@ -1400,8 +1521,10 @@ __device__ __forceinline__ void mailbox_pair(const Params &p, int32_t *ws,
 // answered, over a lossy delayed hop, from the node's committed prefix
 // (live, under bug_stale_ctrler_read, from the first announce of the
 // asked config in its log tail, the announcers' appends included;
-// computed, the answer is the replica itself); an idle group with a
-// leader and a poll asks a random node for config l_cfg + 1
+// computed, the answer is the replica itself: the scans are query_scan's);
+// an idle group with a leader and a poll asks a random node for config
+// l_cfg + 1
+template <int M>
 __device__ __forceinline__ void query(const Params &p, int32_t *ws, int c,
                                       int g, int32_t t, bool gate, bool poll,
                                       int32_t l_cfg) {
@@ -1428,44 +1551,24 @@ __device__ __forceinline__ void query(const Params &p, int32_t *ws, int c,
   bool alive_at = false;
   if (in_range) {
     // the committed announces the node has not yet covered
-    const Ro<int32_t> sval = read_row<int32_t>(p, kCShadowVal, c, cap);
-    const int32_t sbase = read_row<int32_t>(p, kCShadowBase, c, 1)[0];
-    const int32_t slen = read_row<int32_t>(p, kCShadowLen, c, 1)[0];
-    const int32_t commit = read_row<int32_t>(p, kCCommit, c, n)[node];
-    int32_t above = 0;
-    for (int x = 0; x < cap; ++x) {
-      const int32_t v = sval[x];
-      const int32_t a = shadow_abs(sbase, x, cap);
-      above += v > 0 && v != kNoop && a <= slen && a > commit;
-    }
-    const int32_t cnt = wrap_sub(view, above);
+    const int32_t cnt = wrap_sub(view, ws[p.q_above + g]);
     cnt_at = cnt < 0 ? 0 : (cnt > view ? view : cnt);
     alive_at = read_row<uint8_t>(p, kCAlive, c, n)[node] != 0;
   }
   const int32_t wv = win_var[clampi(jreq, 0, p.ncfg - 1)];
   bool found = jreq <= cnt_at && wv >= 0;
   int32_t var = wv > 0 ? wv : 0;
-  if (p.mode == kComputed) {
+  if (M == kComputed) {
     var = clampi(node, 0, n - 1);
   } else if (read_row<int32_t>(p, kKnobI, c, kNI)[kBugStaleCtrl] &&
              in_range) {
-    // the node's first log occurrence of announce jreq
-    const int32_t *lval = out_row<int32_t>(p, kCLogVal, c) + node * cap;
-    const int32_t base = read_row<int32_t>(p, kCBase, c, n)[node];
-    const int32_t len = work<int32_t>(p, ws, kCLogLen)[node];
-    int32_t amin = kBig, tail = 0;
-    for (int x = 0; x < cap; ++x) {
-      const int32_t v = lval[x];
-      const int32_t a = shadow_abs(base, x, cap);
-      if (v > 0 && v != kNoop && a <= len &&
-          floor_div(wrap_sub(v, 1), 2) == jreq && a < amin) {
-        amin = a;
-        tail = floor_mod(wrap_sub(v, 1), 2);
-      }
-    }
+    // the node's first log occurrence of announce jreq: the variant in
+    // its slot
+    const int32_t amin = ws[p.q_amin + g];
     if (amin < kBig) {
       found = true;
-      var = tail;
+      var = floor_mod(wrap_sub(out_row<int32_t>(p, kCLogVal, c)[
+                                   node * cap + slot_of(amin, cap)], 1), 2);
     }
   }
   const uint32_t rw = draw_word(p, ws, kKnetQ + 0, g, p.g);
@@ -1491,6 +1594,7 @@ __device__ __forceinline__ void query(const Params &p, int32_t *ws, int c,
 // FROZEN shard of its would come back to it: in schedule mode on a poll
 // while the schedule is ahead, in a controller mode by the Query protocol
 // (query)
+template <int M>
 __device__ __forceinline__ void advance_gate(const Params &p, int32_t *ws,
                                              int c, int g) {
   const int ns = p.ns;
@@ -1504,24 +1608,25 @@ __device__ __forceinline__ void advance_gate(const Params &p, int32_t *ws,
   const float p_learn = read_row<float>(p, kKnobF, c, kNF)[kPCfgLearn];
   const bool poll =
       madraft::uniform(draw_word(p, ws, kKp + 0, g, p.g)) < p_learn;
-  if (p.mode == kSchedule) {
+  if (M == kSchedule) {
     ws[p.can_adv + g] = gate && poll && l_cfg < ws[p.view];
     ws[p.adopt + g] = 0;
   } else {
-    query(p, ws, c, g, t, gate, poll, l_cfg);
+    query<M>(p, ws, c, g, t, gate, poll, l_cfg);
   }
 }
 
 // Phase kMailbox: a thread a (group, shard) pair (mailbox_pair), then a
 // thread a group (advance_gate)
+template <int M>
 __device__ __forceinline__ void mailbox(const Params &p, int32_t *ws, int c,
-                                        int lane) {
+                                        int tid) {
   const int pairs = p.g * p.ns;
-  for (int u = lane; u < pairs + p.g; u += kLanes) {
+  for (int u = tid; u < pairs + p.g; u += kThreads) {
     if (u < pairs)
       mailbox_pair(p, ws, c, u / p.ns, u % p.ns);
     else
-      advance_gate(p, ws, c, u - pairs);
+      advance_gate<M>(p, ws, c, u - pairs);
   }
 }
 
@@ -1561,9 +1666,9 @@ __device__ __forceinline__ void fold_op(const Params &p, int32_t *ws,
 // fresh op or a retry and its target, the bug mode's local serve and the
 // WrongGroup mark
 __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
-                                       int lane) {
-  if (lane >= p.nc) return;
-  const int cl = lane, n = p.n, ns = p.ns, nc = p.nc, gn = p.g * p.n;
+                                       int tid) {
+  if (tid >= p.nc) return;
+  const int cl = tid, n = p.n, ns = p.ns, nc = p.nc, gn = p.g * p.n;
   const int32_t t = tick_of(p, c);
   const Ro<float> kf = read_row<float>(p, kKnobF, c, kNF);
   const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
@@ -1623,13 +1728,15 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
   }
 
   // the re-learn (a WrongGroup mark re-learns now), the start word (its
-  // low 9 bits the open-loop arrival), each other draw only where used
+  // low 9 bits the open-loop arrival), each other draw only where used;
+  // the draws hashed in kApply (apply_helpers)
+  const int32_t *dr = ws + p.cdraw + cl * kClerkDraws;
   const bool learn =
-      madraft::uniform(draw_word(p, ws, kKc + 0, cl, nc)) < kf[kPCfgLearn] ||
+      madraft::uniform(static_cast<uint32_t>(dr[0])) < kf[kPCfgLearn] ||
       (ki[kRequery] != 0 && wrong0);
   const int32_t ccfg =
       learn ? ws[p.view] : in_row<int32_t>(p, kClerkCfg, c)[cl];
-  const uint32_t w = draw_word(p, ws, kKc + 1, cl, nc);
+  const uint32_t w = static_cast<uint32_t>(dr[1]);
   const bool openloop = ki[kQueueCap] > 0;
   const bool arrive = openloop &&
                       fmul(static_cast<float>(w & 0x1FFu), 0.001953125f) <
@@ -1649,9 +1756,8 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
   const int32_t seq = start ? wrap_add(cs, 1) : cs;
   int32_t shard = shard0, kind = kind0;
   if (start) {
-    shard = zipf_map(draw_randint(p, ws, kKc + 2, cl, nc, 0, ns), ns,
-                     kf[kZipfA]);
-    const float u = madraft::uniform(draw_word(p, ws, kKc + 5, cl, nc));
+    shard = zipf_map(dr[2], ns, kf[kZipfA]);
+    const float u = madraft::uniform(static_cast<uint32_t>(dr[5]));
     kind = u < kf[kPGet] ? kGet
            : u < fadd(kf[kPGet], kf[kPPut]) ? kPut : kAppend;
     obs = -1;
@@ -1663,11 +1769,11 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
   const int32_t truth_new = truth[shard];
   const int32_t get_lo = start ? truth_new : get_lo0;
   cout = cout || start;
-  bool rt = cout && (start || madraft::uniform(draw_word(
-                                  p, ws, kKc + 3, cl, nc)) < kf[kPRetry]);
+  bool rt = cout && (start || madraft::uniform(static_cast<uint32_t>(
+                                  dr[3])) < kf[kPRetry]);
   const int32_t retries = kMetrics ? wrap_add(in_row<int32_t>(
                               p, kClientRetries, c)[cl], rt) : 0;
-  const int32_t tgt = draw_randint(p, ws, kKc + 4, cl, nc, 0, n);
+  const int32_t tgt = dr[4];
   const int32_t grp = owner_at(p, ws, ccfg, shard);
   const int at = (grp * n + tgt);
   const int32_t ph_at = work<int32_t>(p, ws, kPhase)[at * ns + shard];
@@ -1755,10 +1861,10 @@ __device__ __forceinline__ void worst_apply(const Params &p, int32_t *ws,
 // version's order (CONFIG, INSTALL for shards 0..ns-1, DELETE for shards
 // 0..ns-1 at the group's leader view node, then the clerks' ops 0..nc-1
 // that target it), each re-deriving its room from the running log_len
-// under the flow-cap gate, and the raft leaves they move; lane 0 then the
-// worst-op register and the violation bits
+// under the flow-cap gate, and the raft leaves they move; thread 0 then
+// the worst-op register and the violation bits
 __device__ __forceinline__ void append_log(const Params &p, int32_t *ws,
-                                           int c, int lane) {
+                                           int c, int tid) {
   const int n = p.n, ns = p.ns, nc = p.nc, cap = p.cap, gn = p.g * p.n;
   const int32_t *term = raft_row(p, ws, kRTerm);
   const int32_t *role = raft_row(p, ws, kRRole);
@@ -1768,7 +1874,7 @@ __device__ __forceinline__ void append_log(const Params &p, int32_t *ws,
   const int32_t flow_cap = read_row<int32_t>(p, kKnobI, c, kNI)[kFlowCap];
   int32_t *log_len = work<int32_t>(p, ws, kLogLen);
   const Ro<int32_t> log_len0 = in_row<int32_t>(p, kLogLen, c);
-  for (int gi = lane; gi < gn; gi += kLanes) {
+  for (int gi = tid; gi < gn; gi += kThreads) {
     const int g = gi / n, i = gi % n;
     int32_t len = log_len[gi];
     if (alive[gi] && role[gi] == kLeader) {
@@ -1813,7 +1919,7 @@ __device__ __forceinline__ void append_log(const Params &p, int32_t *ws,
     if (len > log_len0[gi]) work<int32_t>(p, ws, kDurableLen)[gi] = len;
     work<int32_t>(p, ws, kCompactFloor)[gi] = work<int32_t>(p, ws, kApplied)[gi];
   }
-  if (lane == 0) {
+  if (tid == 0) {
     if (kMetrics) {
       worst_apply(p, ws, ws + p.worst);
       worst_apply(p, ws, ws + p.worst + nc * kWorstWords);
@@ -1828,54 +1934,36 @@ __device__ __forceinline__ void append_log(const Params &p, int32_t *ws,
 // Phase kLanded, a clerk a thread: the leader_wait boundary stamp of an
 // op that landed at a leader this tick
 __device__ __forceinline__ void landed(const Params &p, int32_t *ws, int c,
-                                       int lane) {
-  if (!kMetrics || lane >= p.nc) return;
-  int32_t &app = work<int32_t>(p, ws, kClerkApp)[lane];
-  if (ws[p.landed + lane] && work<uint8_t>(p, ws, kClerkOut)[lane] &&
+                                       int tid) {
+  if (!kMetrics || tid >= p.nc) return;
+  int32_t &app = work<int32_t>(p, ws, kClerkApp)[tid];
+  if (ws[p.landed + tid] && work<uint8_t>(p, ws, kClerkOut)[tid] &&
       app == 0)
     app = tick_of(p, c);
 }
 
-// Phase kWriteBack: the region's rows to the leaves' outputs, kGroup
-// leaves at once, then the rows' elements from kLanes on
-__device__ __forceinline__ void write_back(const LeafRef *tab, int32_t *ws,
-                                           int c, int lane) {
-#pragma unroll 1
-  for (int l0 = 0; l0 < kLeaves; l0 += kGroup) {
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const int l = l0 + k;
-      if (l < kLeaves && tab[l].off >= 0 && lane < tab[l].count)
-        store_elem(tab[l], ws, c, lane);
-    }
-  }
-#pragma unroll 1
-  for (int l = 0; l < kLeaves; ++l) {
-    const LeafRef g = tab[l];
-    if (g.off >= 0)
-      for (int e = lane + kLanes; e < g.count; e += kLanes)
-        store_elem(g, ws, c, e);
-  }
-}
-
-// Lane `lane` of deployment c's warp in phase `phase`; tab is the leaf
-// table (p.leaf, or its copy in shared memory), ws the warp's region of
-// Params::words words
-__device__ __forceinline__ void run_phase(const Params &p,
-                                          const LeafRef *tab, int32_t *ws,
-                                          int c, int lane, int phase) {
+// Thread tid of deployment c's block in phase `phase`, in mode M; pl is
+// the staging plan (its copy in shared memory), ws the block's region of
+// Params::words words, bar its mbarrier
+template <int M>
+__device__ __forceinline__ void run_phase(const Params &p, const Plan &pl,
+                                          int32_t *ws, uint64_t *bar, int c,
+                                          int tid, int phase) {
   switch (phase) {
-    case kStage: stage(p, tab, ws, c, lane); break;
-    case kCtrlWalk: ctrl_walk(p, ws, c, lane); break;
-    case kCtrlApply: ctrl_apply(p, ws, c, lane); break;
-    case kRestore: restore(p, ws, c, lane); break;
-    case kApply: apply(p, ws, c, lane); break;
-    case kOracle: oracle(p, ws, lane); break;
-    case kMailbox: mailbox(p, ws, c, lane); break;
-    case kClerks: clerks(p, ws, c, lane); break;
-    case kAppendLog: append_log(p, ws, c, lane); break;
-    case kLanded: landed(p, ws, c, lane); break;
-    default: write_back(tab, ws, c, lane); break;
+    case kStage: stage<M>(p, pl, ws, bar, c, tid); break;
+    case kCtrlWalk: ctrl_walk<M>(p, ws, c, tid); break;
+    case kCtrlApply: ctrl_apply<M>(p, ws, c, tid); break;
+    case kRestore: restore(p, ws, c, tid); break;
+    case kApply: apply<M>(p, ws, c, tid); break;
+    case kOracle: oracle<M>(p, ws, c, tid); break;
+    case kMailbox: mailbox<M>(p, ws, c, tid); break;
+    case kClerks: clerks(p, ws, c, tid); break;
+    case kAppendLog: append_log(p, ws, c, tid); break;
+    case kLanded: landed(p, ws, c, tid); break;
+    default:
+      stage::store(pl, reinterpret_cast<const unsigned char *>(ws), c, tid,
+                   kThreads);
+      break;
   }
 }
 

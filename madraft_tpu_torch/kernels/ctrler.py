@@ -9,8 +9,8 @@ Replaces the JAX reference's service tick (B8),
 folds inside it (ctrler.py 750-795, 857-864, 897-901 with ``metrics.py``
 ``fold_latencies``, ``clerk_phase_matrix``, ``fold_phases`` and
 ``update_worst``). Sources: ``csrc/ctrler.cu`` (the kernel, its launch
-and the note on its bound and design) and ``csrc/ctrler.cuh`` (the device
-code).
+and the note on its bound and design), ``csrc/ctrler.cuh`` (the device
+code) and ``csrc/stage.cuh`` (the staging K11 shares).
 
 ``ctrler_tick(cfg, kcfg, ks, pre_alive, pre_base, s, keys, kn, ckn)`` is
 the service share of one ctrler tick: ``ks`` the pre-tick ctrler state,
@@ -63,6 +63,12 @@ KNOB_I32 = ("bug_rotate_tiebreak", "bug_greedy_rebalance",
             "bug_full_reshuffle")
 
 
+# The tick's phases (csrc/ctrler.cuh Phase), in order: the profile build
+# (``_build.VARIANTS`` ctrler_profile) times each, and the truth walker's
+# own cycles inside the apply phase ("walker")
+PHASES = ("stage", "restore", "apply", "clerks", "submit", "write_back")
+
+
 def variant(metrics: bool) -> str:
     """The build of csrc/ctrler.cu for a run (``_build.VARIANTS``)."""
     return "ctrler_metrics" if metrics else "ctrler"
@@ -111,10 +117,10 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
             f"{x.device}, expected contiguous {shape} {dtype} on {dev}")
 
 
-def _launch(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys, table,
-            lib, stream):
-    """Check the inputs, allocate the new state and launch ``lib``'s
-    ``ctrler_launch``. Returns the new CtrlerState."""
+def _descriptor(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys,
+                table):
+    """Check the inputs and allocate the new state: (the launch's
+    descriptor, the new CtrlerState)."""
     from madraft_tpu_torch.tpusim.ctrler import SERVICE, CtrlerState
 
     n, cap, nc = cfg.n_nodes, cfg.log_cap, kcfg.n_clients
@@ -167,11 +173,36 @@ def _launch(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys, table,
         leaves += [x.data_ptr(), y.data_ptr(), x[0].numel(),
                    x.element_size()]
     desc = np.asarray(head + reads + leaves, dtype=np.int64)
-    _build.check(lib.ctrler_launch(desc.ctypes.data, len(desc), stream),
-                 "ctrler_launch")
     new = dict(zip(names, outs))
     raft = s._replace(**{f: new[f] for f in RAFT_WRITES})
-    return CtrlerState(raft, *(new[f] for f in SERVICE))
+    return desc, CtrlerState(raft, *(new[f] for f in SERVICE))
+
+
+def _launch(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys, table,
+            lib, stream):
+    """Check the inputs, allocate the new state and launch ``lib``'s
+    ``ctrler_launch``. Returns the new CtrlerState."""
+    desc, out = _descriptor(cfg, kcfg, ks, pre_alive, pre_base, s, keys,
+                            table)
+    _build.check(lib.ctrler_launch(desc.ctypes.data, len(desc), stream),
+                 "ctrler_launch")
+    return out
+
+
+def grid(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys, table,
+         lib) -> dict:
+    """How ``lib`` lays a launch of these inputs out on the card
+    (``ctrler_grid``): threads and clusters a block, shared bytes a block
+    and the blocks an SM holds."""
+    desc, _ = _descriptor(cfg, kcfg, ks, pre_alive, pre_base, s, keys, table)
+    lib.ctrler_grid.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_void_p]
+    lib.ctrler_grid.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.ctrler_grid(desc.ctypes.data, len(desc), out),
+                 "ctrler_grid")
+    return dict(zip(("threads_a_block", "clusters_a_block", "shared_bytes",
+                     "blocks_an_sm"), out))
 
 
 def ctrler_tick(cfg: SimConfig, kcfg, ks, pre_alive: torch.Tensor,

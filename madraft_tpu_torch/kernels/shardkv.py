@@ -12,8 +12,10 @@ it (shardkv.py 1768-2118 with ``metrics.py`` ``fold_latencies``,
 ``fold_latencies_by``, ``fold_phases``, ``update_worst`` and
 ``_shardkv_phase_matrix`` 678-695). Sources: ``csrc/shardkv.cu`` (the
 kernel, its launch and the note on its bound and design) and
-``csrc/shardkv.cuh`` (the device code). The mode is a field of the launch's
-descriptor, so the builds stay two.
+``csrc/shardkv.cuh`` (the device code), with ``csrc/stage.cuh`` (the
+staging K10 shares). The mode is a field of the launch's descriptor that
+picks one of the kernel's three instances inside each build, so the builds
+stay two.
 
 ``shardkv_tick(cfg, kcfg, st, pre_alive, pre_base, s, keys, kn, skn,
 ctrl=...)`` is the service share of one deployment tick: ``st`` the
@@ -27,7 +29,9 @@ CUDA tensors it launches K11 or raises. The kernel writes a new state
 mode are passed through) and hashes the tick's draws itself.
 ``shardkv_tick.launches`` counts its launches,
 ``shardkv_tick.metrics_launches`` those of K11-metrics,
-``live_launches`` / ``computed_launches`` those in a controller mode.
+``live_launches`` / ``computed_launches`` those in a controller mode,
+``live_metrics_launches`` / ``computed_metrics_launches`` K11-metrics'
+there.
 """
 
 from __future__ import annotations
@@ -111,6 +115,13 @@ KNOB_F32 = ("p_op", "p_get", "p_put", "p_retry", "p_cfg_learn", "p_pull",
 KNOB_I32 = ("pull_delay_min", "pull_delay_max", "bug_skip_freeze",
             "bug_drop_dup_table", "bug_serve_frozen", "requery_wrong_group",
             "open_queue_cap", "bug_stale_ctrler_read", "bug_rotate_tiebreak")
+
+
+# The tick's phases (csrc/shardkv.cuh Phase), in order: the profile build
+# (``_build.VARIANTS`` shardkv_profile) times each, and the truth walker's
+# own cycles inside the apply phase ("walker")
+PHASES = ("stage", "ctrl_walk", "ctrl_apply", "restore", "apply", "oracle",
+          "mailbox", "clerks", "append_log", "landed", "write_back")
 
 
 def variant(metrics: bool) -> str:
@@ -205,12 +216,12 @@ def check_shape(cfg: SimConfig, kcfg) -> None:
             f"n_groups={g}")
 
 
-def _launch(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys, table,
-            lib, stream, ctrl=None):
-    """Check the inputs, allocate the new state and launch ``lib``'s
-    ``shardkv_launch``. ``ctrl`` is the stepped controller cluster in a
-    controller mode (None: ``st.ctrl``, the schedule mode's placeholder,
-    which the kernel then never reads). Returns the new ShardKvState."""
+def _descriptor(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys,
+                table, ctrl=None):
+    """Check the inputs and allocate the new state: (the launch's
+    descriptor, the new ShardKvState). ``ctrl`` is the stepped controller
+    cluster in a controller mode (None: ``st.ctrl``, the schedule mode's
+    placeholder, which the kernel then never reads)."""
     check_shape(cfg, kcfg)
     if ctrl is None:
         ctrl = st.ctrl
@@ -265,14 +276,41 @@ def _launch(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys, table,
         leaves += [x.data_ptr(), y.data_ptr(), x[0].numel() if k in outs
                    else 0, x.element_size()]
     desc = np.asarray(head + reads + leaves, dtype=np.int64)
-    _build.check(lib.shardkv_launch(desc.ctypes.data, len(desc), stream),
-                 "shardkv_launch")
     new = {w: {f: y for (w2, f), y in outs.items() if w2 == w}
            for w in src}
     out = st._replace(rafts=s._replace(**new["s"]), **new["st"])
     if mode(kcfg):
         out = out._replace(ctrl=ctrl._replace(**new["ctrl"]))
+    return desc, out
+
+
+def _launch(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys, table,
+            lib, stream, ctrl=None):
+    """Check the inputs, allocate the new state and launch ``lib``'s
+    ``shardkv_launch`` (``ctrl`` as ``_descriptor`` takes it). Returns the
+    new ShardKvState."""
+    desc, out = _descriptor(cfg, kcfg, st, pre_alive, pre_base, s, keys,
+                            table, ctrl)
+    _build.check(lib.shardkv_launch(desc.ctypes.data, len(desc), stream),
+                 "shardkv_launch")
     return out
+
+
+def grid(cfg: SimConfig, kcfg, st, pre_alive, pre_base, s, keys, table, lib,
+         ctrl=None) -> dict:
+    """How ``lib`` lays a launch of these inputs out on the card
+    (``shardkv_grid``): threads and deployments a block, shared bytes a
+    block and the blocks an SM holds."""
+    desc, _ = _descriptor(cfg, kcfg, st, pre_alive, pre_base, s, keys, table,
+                          ctrl)
+    lib.shardkv_grid.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.shardkv_grid.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.shardkv_grid(desc.ctypes.data, len(desc), out),
+                 "shardkv_grid")
+    return dict(zip(("threads_a_block", "deployments_a_block",
+                     "shared_bytes", "blocks_an_sm"), out))
 
 
 def shardkv_tick(cfg: SimConfig, kcfg, st, pre_alive: torch.Tensor,
@@ -304,6 +342,10 @@ def shardkv_tick(cfg: SimConfig, kcfg, st, pre_alive: torch.Tensor,
     shardkv_tick.metrics_launches += int(cfg.metrics)
     shardkv_tick.live_launches += int(kcfg.live_ctrler)
     shardkv_tick.computed_launches += int(kcfg.computed_ctrler)
+    shardkv_tick.live_metrics_launches += int(kcfg.live_ctrler
+                                              and cfg.metrics)
+    shardkv_tick.computed_metrics_launches += int(kcfg.computed_ctrler
+                                                  and cfg.metrics)
     return out
 
 
@@ -311,3 +353,5 @@ shardkv_tick.launches = 0
 shardkv_tick.metrics_launches = 0
 shardkv_tick.live_launches = 0
 shardkv_tick.computed_launches = 0
+shardkv_tick.live_metrics_launches = 0
+shardkv_tick.computed_metrics_launches = 0

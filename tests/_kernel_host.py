@@ -15,6 +15,7 @@ import shutil
 import subprocess
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "madraft_tpu_torch" / "csrc"
@@ -80,3 +81,18 @@ def build_shardkv(out_dir: pathlib.Path, metrics: bool) -> ctypes.CDLL:
                                    ctypes.c_void_p]
     lib.shardkv_launch.restype = ctypes.c_int
     return lib
+
+
+def misaligned(x):
+    """x (a tensor or a nested tuple of them) copied into views one element
+    past a fresh allocation: a 4-byte leaf's rows start 4 bytes off a
+    16-byte boundary (no row moves as a staging bulk row and the log rows
+    move in words, csrc/stage.cuh), a byte leaf's one byte off."""
+    if isinstance(x, tuple):
+        return type(x)(*(misaligned(y) for y in x))
+    if not isinstance(x, torch.Tensor):
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y

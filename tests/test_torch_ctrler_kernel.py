@@ -136,6 +136,40 @@ def test_ctrler_kernel_host_build_on_states_at_mixed_ticks(libs, metrics):
     assert d is None, d
 
 
+@pytest.mark.parametrize("n,misaligned", [(3, True), (7, False),
+                                           (7, True)])
+def test_ctrler_kernel_host_build_staging_edges(libs, n, misaligned):
+    """The staging plan at its edges through the host build: inputs one
+    element off their alignment (word and byte rows only, the log rows by
+    words) or aligned (the bulk rows), a ragged batch of five, K10-metrics
+    at ten gids (byte rows of 10 and n * 10 bytes, word rows of n words),
+    n = 3 and 7, every leaf after each of 20 ticks from tick 30."""
+    cfg = SimConfig(n_nodes=n, metrics=True, **BASE)
+    kcfg = pct.CtrlerConfig(n_gids=10, p_move=0.2)
+    b = 5
+    keys = engine.cluster_keys(17, b, "cpu")
+    kn, ckn = cfg.knobs(), kcfg.knobs()
+    ks = pct._advance_ctrler(cfg, kcfg, pct.init_ctrler_cluster(
+        cfg, kcfg, keys, kn), keys, kn, ckn, 30)
+    table = K10.knob_table(kn, ckn, b)
+    for t in range(20):
+        pre = ks.raft
+        s = step_cluster(cfg, pre, keys, kn)
+        want = pct._ctrler_service_tick(cfg, kcfg, ks, pre.alive, pre.base,
+                                        s, keys, kn, ckn)
+        ks_in, s_in = ((_kernel_host.misaligned(ks),
+                        _kernel_host.misaligned(s)) if misaligned
+                       else (ks, s))
+        got = K10._launch(cfg, kcfg, ks_in, ks_in.raft.alive,
+                          ks_in.raft.base, s_in, keys, table, libs[True],
+                          None)
+        d = pct.first_divergence(t, pct.ctrler_state_to_numpy(want),
+                                 pct.ctrler_state_to_numpy(got))
+        assert d is None, d
+        ks = want
+    assert ks.clerk_acked.sum() > 0
+
+
 def test_ctrler_kernel_host_build_on_the_walker_stall(libs):
     """The constructed slid-window state (shadow_base past the walker's
     frontier, the reference test's): the kernel raises the sticky stall

@@ -13,6 +13,7 @@ import pathlib
 import pytest
 import torch
 
+from _kernel_host import misaligned as misalign
 from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import ctrler as K10
 from madraft_tpu_torch.kernels import harvest as K7
@@ -950,6 +951,36 @@ def test_ctrler_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
     assert want.n_violating > 0
 
 
+@pytest.mark.parametrize("b,misaligned", [(1, True), (3, False), (131, True),
+                                          (133, False)])
+def test_ctrler_kernel_staging_edges(dev, b, misaligned):
+    """K10's staging at its edges: ragged batches (a block a cluster) and
+    inputs one element off their alignment, K10-metrics at ten gids (byte
+    rows of 10 and 50 bytes), every leaf after each of 24 ticks from tick
+    40 against the plain version on the same inputs."""
+    cfg = config.SimConfig(n_nodes=5, metrics=True, **CTRLER_BASE)
+    kcfg = ctrler.CtrlerConfig(n_gids=10, p_move=0.2)
+    keys = engine.cluster_keys(11, b, dev)
+    kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = ctrler._advance_ctrler(cfg, kcfg, ctrler.init_ctrler_cluster(
+        cfg, kcfg, keys, kn), keys, kn, ckn, 40)
+    for t in range(24):
+        pre = ks.raft
+        s = K6.tick_chunk(cfg, pre, keys, kn, 1)
+        want = ctrler._ctrler_service_tick(cfg, kcfg, ks, pre.alive,
+                                           pre.base, s, keys, kn, ckn)
+        ks_in, s_in = (misalign(ks), misalign(s)) if misaligned else (
+            ks, s)
+        assert not misaligned or ks_in.hist.data_ptr() % 16 == 4
+        got = K10.ctrler_tick(cfg, kcfg, ks_in, ks_in.raft.alive,
+                              ks_in.raft.base, s_in, keys, kn, ckn)
+        d = ctrler.first_divergence(t, ctrler.ctrler_state_to_numpy(want),
+                                    ctrler.ctrler_state_to_numpy(got))
+        assert d is None, d
+        ks = want
+    assert ks.clerk_acked.sum() > 0
+
+
 # ---- K11, the shardkv service tick, and the shardkv path
 SHARDKV_BASE = dict(p_client_cmd=0.0, compact_at_commit=False, log_cap=64,
                     compact_every=16, loss_prob=0.1, p_crash=0.01,
@@ -1093,6 +1124,46 @@ def test_shardkv_ctrl_kernel_equals_plain_every_tick(dev, n_nodes, kw,
     assert kcfg.n_groups > 3 or st.installs_done.sum() > 0
     if kw.get("bug_stale_ctrler_read") or kw.get("bug_rotate_tiebreak"):
         assert (st.violations & shardkv.VIOLATION_SHARD_CTRL_STALE).any()
+
+
+@pytest.mark.parametrize("mode,b,misaligned", [
+    ("schedule", 1, True), ("schedule", 67, False), ("live", 3, True),
+    ("live", 66, False), ("computed", 5, True), ("computed", 130, False)])
+def test_shardkv_kernel_staging_edges(dev, mode, b, misaligned):
+    """K11's staging at its edges, each mode's instance: ragged batches (a
+    block a deployment) and inputs one element off their alignment,
+    K11-metrics at n = 3, every leaf after each of 24 ticks from tick 40
+    against the plain version on the same inputs."""
+    cfg = config.SimConfig(n_nodes=3, metrics=True, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=8,
+                                 live_ctrler=mode == "live",
+                                 computed_ctrler=mode == "computed")
+    g = kcfg.n_groups
+    keys = engine.cluster_keys(13, b, dev)
+    kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+    gkeys = shardkv.group_keys(keys, g).reshape(-1, 2)
+    ckeys = shardkv.ctrl_keys(keys)
+    st = shardkv._advance_shardkv(cfg, kcfg, shardkv.init_shardkv_cluster(
+        cfg, kcfg, keys, kn, skn), keys, kn, skn, 40)
+    for t in range(24):
+        pre = st.rafts
+        s = shardkv._unflat(K6.tick_chunk(cfg, shardkv._flat(pre), gkeys,
+                                          kn, 1), b)
+        ctrl = (K6.tick_chunk(cfg, st.ctrl, ckeys, kn, 1)
+                if mode != "schedule" else None)
+        want = shardkv._shardkv_service_tick(cfg, kcfg, st, pre.alive,
+                                             pre.base, s, keys, kn, skn, ctrl)
+        args = (st, pre.alive, pre.base, s, ctrl)
+        if misaligned:
+            args = tuple(None if x is None else misalign(x) for x in args)
+            assert args[0].last_seq.data_ptr() % 16 == 4
+        got = K11.shardkv_tick(cfg, kcfg, *args[:4], keys, kn, skn,
+                               ctrl=args[4])
+        d = shardkv.first_divergence(t, shardkv.shardkv_state_to_numpy(want),
+                                     shardkv.shardkv_state_to_numpy(got))
+        assert d is None, d
+        st = want
+    assert st.clerk_acked.sum() > 0
 
 
 @pytest.mark.parametrize("kw", [{"live_ctrler": True},

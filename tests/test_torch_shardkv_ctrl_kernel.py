@@ -30,7 +30,7 @@ from madraft_tpu_torch.tpusim import engine, prng
 from madraft_tpu_torch.tpusim import shardkv as psk
 from madraft_tpu_torch.tpusim.config import SimConfig
 from madraft_tpu_torch.tpusim.step import step_cluster
-from test_torch_shardkv_kernel import BASE
+from test_torch_shardkv_kernel import BASE, staging_edges
 
 TICKS = 90
 LIVE = {"live_ctrler": True, "p_phantom": 0.5}
@@ -135,6 +135,20 @@ def test_shardkv_ctrl_kernel_host_build_walker_stall(libs, kw, n):
     assert d is None, d
     assert final.ctrl_w_stalled.all() and (final.ctrl_w_frontier == 0).all()
     assert (resolved(final) == 0).all()
+
+
+@pytest.mark.parametrize("kw,n,misaligned", [
+    (LIVE, 3, True), (LIVE, 7, False), (COMPUTED, 3, False),
+    (COMPUTED, 7, True)])
+def test_shardkv_ctrl_kernel_host_build_staging_edges(libs, kw, n,
+                                                      misaligned):
+    """The staging plan at its edges through the host build, each
+    controller mode's instance: inputs one element off their alignment or
+    aligned, a ragged batch of three, K11-metrics, n = 3 and 7."""
+    cfg = SimConfig(n_nodes=n, metrics=True, **BASE)
+    kcfg = psk.ShardKvConfig(cfg_interval=8, **kw)
+    final = staging_edges(libs, cfg, kcfg, 3, misaligned)
+    assert final.clerk_acked.sum() > 0
 
 
 def test_shardkv_ctrl_kernel_refuses_what_it_does_not_take(libs):

@@ -121,6 +121,52 @@ def test_shardkv_kernel_host_build_equals_plain_every_tick(libs, case):
         assert kcfg.n_groups > 3 or final.deletes_done.sum() > 0
 
 
+def staging_edges(libs, cfg, kcfg, b: int, misaligned: bool,
+                  ticks: int = 16):
+    """K11's host build against the plain version on a batch warmed for
+    30 ticks, its inputs (the controller cluster's among them) one element
+    off their alignment when ``misaligned``: every leaf after each tick."""
+    g = kcfg.n_groups
+    keys = engine.cluster_keys(19, b, "cpu")
+    kn, skn = cfg.knobs(), kcfg.knobs()
+    gkeys = psk.group_keys(keys, g).reshape(-1, 2)
+    gkn = psk._group_knobs(kn, g)
+    ckeys = psk.ctrl_keys(keys)
+    table = K11.knob_table(kn, skn, b)
+    ctrl_mode = kcfg.live_ctrler or kcfg.computed_ctrler
+    st = psk._advance_shardkv(cfg, kcfg, psk.init_shardkv_cluster(
+        cfg, kcfg, keys, kn, skn), keys, kn, skn, 30)
+    for t in range(ticks):
+        pre = st.rafts
+        s = psk._unflat(step_cluster(cfg, psk._flat(pre), gkeys, gkn), b)
+        ctrl = step_cluster(cfg, st.ctrl, ckeys, kn) if ctrl_mode else None
+        want = psk._shardkv_service_tick(cfg, kcfg, st, pre.alive, pre.base,
+                                         s, keys, kn, skn, ctrl)
+        args = (st, pre.alive, pre.base, s, ctrl)
+        if misaligned:
+            args = tuple(_kernel_host.misaligned(x) for x in args)
+        got = K11._launch(cfg, kcfg, *args[:4], keys, table,
+                          libs[cfg.metrics], None, args[4])
+        d = psk.first_divergence(t, psk.shardkv_state_to_numpy(want),
+                                 psk.shardkv_state_to_numpy(got))
+        assert d is None, d
+        st = want
+    return st
+
+
+@pytest.mark.parametrize("n,misaligned", [(3, True), (7, False),
+                                           (7, True)])
+def test_shardkv_kernel_host_build_staging_edges(libs, n, misaligned):
+    """The staging plan at its edges through the host build, the schedule
+    mode's instance: inputs one element off their alignment (word and byte
+    rows only, the log rows by words) or aligned (the bulk rows), a ragged
+    batch of three, K11-metrics, n = 3 and 7."""
+    cfg = SimConfig(n_nodes=n, metrics=True, **BASE)
+    kcfg = psk.ShardKvConfig(cfg_interval=8, p_put=0.2)
+    final = staging_edges(libs, cfg, kcfg, 3, misaligned)
+    assert final.clerk_acked.sum() > 0
+
+
 @pytest.mark.parametrize("metrics", [False, True])
 def test_shardkv_kernel_host_build_on_states_at_mixed_ticks(libs, metrics):
     """Two storm batches run to different ticks, side by side in one

@@ -35,9 +35,10 @@ holds K7, the pool harvest, against its plain version on planted batches
 (every output, both id schemes, plain and coverage refills, metrics on and
 off, both threefry layouts) and through the engine at the flagship's
 shape, packed and wide, and its refill grid against the CPU twin's
-SHA-256; drives ``explain`` on a planted-bug cluster (K6 one tick a
-launch, K8's trace row after each) and holds K8 against its plain version
-at every tick of a storm and a bug cluster, metrics on and off; holds K9,
+SHA-256; drives ``explain`` on a planted-bug cluster (K6-trace: one K6
+launch writes the 200 ticks' trace rows, no K8 launch) and holds
+K6-trace's rows and K8's against the plain version's at every tick of a
+storm and a bug cluster, metrics on and off; holds K9,
 the kv service tick, and K9-metrics against their plain version on every
 leaf after every tick (phase ``kv_k9``: n = 3, 5, 7, every kv bug, Puts,
 hints with ``retry_wait``, the open loop with the Zipf key, [B] knob rows
@@ -72,7 +73,10 @@ time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
 split by phase (``kv_phases``, its profile build) and the kv tick's
 (``profile_kv_tick``), the ctrler tick's (``profile_ctrler_tick``) and the
 shardkv tick's in each mode (``profile_shardkv_tick[_live|_computed]``);
-``k6_only()`` runs just K6's two.
+``k6_metrics_phases`` gives K6-metrics' split, grid, waves and ms a launch
+at 4096 clusters and at one wave, and ptxas's report of every K6 build;
+``k6_only()`` runs just those three K6 phases, and ``--k6-leg`` one leg of
+an A/B of K6's builds between two trees.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -431,6 +435,7 @@ def counters():
             "tick_chunk": (K6.tick_chunk, "launches"),
             "tick_chunk_metrics": (K6.tick_chunk, "metrics_launches"),
             "tick_chunk_coverage": (K6.tick_chunk, "coverage_launches"),
+            "tick_chunk_trace": (K6.tick_chunk, "trace_launches"),
             "credit_pass": (K5.credit_pass, "launches"),
             "harvest": (K7.harvest, "launches"),
             "record": (K8.record, "launches"),
@@ -806,9 +811,13 @@ def main() -> int:
     check(minstances == set(range(len(K6.SHAPES) + 1)),
           f"the metrics cases ran instances {sorted(minstances)}")
     check(all(v > 0 for v in mops.values()), f"a case acked no op: {mops}")
+    mgrid = _k6_grid(_storm_cfg(), "tick_metrics")
+    check(mgrid["waves_at_4096"] == 1,
+          f"K6-metrics takes {mgrid['waves_at_4096']} waves at 4096 "
+          f"clusters: {mgrid}")
     emit({"phase": "k6_metrics_vs_plain", "clusters": 128,
           "instances": sorted(minstances), "acked_ops": mops,
-          "grid_flagship_shape": _k6_grid(_storm_cfg(), "tick_metrics"),
+          "grid_flagship_shape": mgrid,
           "grid_flagship_shape_metrics_off": _k6_grid(_storm_cfg()),
           "max_abs_err": errs["tick_chunk_metrics"]})
 
@@ -1181,11 +1190,13 @@ def main() -> int:
           "generations": sorted({c // lanes for c in replayed})})
 
     # ---- 6e. explain on the card, through the CLI: the bug cluster's
-    # traced replay (K6 one tick a launch, K8's row after each), its header
-    # against the CLI's replay of the same cluster (K6 at 256 ticks a
-    # launch); then K8 against its plain version at every tick of the
-    # storm and the bug cluster, metrics on and off, each traced final
-    # state against replay_cluster's, and the traced replay's time a tick
+    # traced replay (K6-trace: launches of up to KERNEL_CHUNK ticks that
+    # write each tick's row, no K8 launch), its header against the CLI's
+    # replay of the same cluster; then K6-trace's rows against the eager
+    # tick's record_plain rows at every tick of the storm and the bug
+    # cluster, metrics on and off (K8 held against the same rows at every
+    # tick), each traced final state against replay_cluster's, and the
+    # traced replay's time a tick
     set_counts()
     t0 = time.perf_counter()
     rc, lines = run_cli_lines(EXPLAIN)
@@ -1198,48 +1209,51 @@ def main() -> int:
           and head["events_shown"] == len(events)
           and any(e["event"] == "violation" for e in events),
           f"explain on the card: rc {rc}, {head}")
-    check(explain_launches["tick_chunk"] == explain_launches["record"]
-          == EXPLAIN_TICKS and explain_launches["harvest"] == 0,
-          f"explain launches {explain_launches}, want {EXPLAIN_TICKS} K6 "
-          "and K8 launches")
+    explain_chunks = -(-EXPLAIN_TICKS // engine.KERNEL_CHUNK)
+    check(explain_launches["tick_chunk"]
+          == explain_launches["tick_chunk_trace"] == explain_chunks
+          and explain_launches["record"] == explain_launches["harvest"] == 0,
+          f"explain launches {explain_launches}, want {explain_chunks} "
+          "K6-trace launches and no K8 launch")
     rc_r, rep = run_cli(["replay" if x == "explain" else x for x in EXPLAIN])
     check(rc_r == 1 and all(rep[k] == head[k] for k in (
         "violations", "first_violation_tick", "committed", "state_layout")),
         f"explain header {head} vs replay {rep}")
     saved = read_counts()
     record_cases = {}
-
-    def checked_record(cfg_, prev, nxt, out):
-        K8.record(cfg_, prev, nxt, out)
-        errs["record"] = max(errs["record"], max_abs_err(
-            out, K8.record_plain(prev, nxt)))
-
-    trace.K8 = types.SimpleNamespace(record=checked_record,
-                                     record_width=K8.record_width,
-                                     decode=K8.decode)
-    try:
-        for (profile, bug, seed_, cl), label in (
-                (EXPLAIN_STORM, "storm"),
-                (("durability", "ack_before_fsync", 5, 32), "bug")):
-            for m_on in (False, True):
-                cfg = config.storm_profiles()[profile][0].replace(
-                    bug=bug, metrics=m_on)
-                with prng.layout(True):
-                    final, rec = trace.replay_cluster_traced(
-                        cfg, seed_, cl, EXPLAIN_TICKS, device=dev)
-                    plain = engine.replay_cluster(cfg, seed_, cl,
-                                                  EXPLAIN_TICKS, device=dev)
-                check(all(torch.equal(a, b) for a, b in zip(final, plain)),
-                      f"traced final state differs from replay_cluster's "
-                      f"({label}, metrics {m_on})")
-                record_cases[f"{label}:metrics_{m_on}"] = {
-                    "events": len(trace.decode_events(rec)),
-                    "first_violation_tick": int(final.first_violation_tick[0])}
-    finally:
-        trace.K8 = K8
-    check(errs["record"] == 0, f"K8 differs from its plain version: "
-          f"{errs['record']}")
+    for (profile, bug, seed_, cl), label in (
+            (EXPLAIN_STORM, "storm"),
+            (("durability", "ack_before_fsync", 5, 32), "bug")):
+        for m_on in (False, True):
+            cfg = config.storm_profiles()[profile][0].replace(
+                bug=bug, metrics=m_on)
+            with prng.layout(True):
+                final, rows = trace.traced_rows(cfg, seed_, cl,
+                                                EXPLAIN_TICKS, device=dev)
+                plain = engine.replay_cluster(cfg, seed_, cl, EXPLAIN_TICKS,
+                                              device=dev)
+                plain_rows, k8_rows, s_end = _trace_rows_plain(
+                    cfg, seed_, cl, EXPLAIN_TICKS, dev)
+            errs["tick_chunk_trace"] = max(errs["tick_chunk_trace"],
+                                           max_abs_err(rows, plain_rows))
+            errs["record"] = max(errs["record"],
+                                 max_abs_err(k8_rows, plain_rows))
+            check(errs["tick_chunk_trace"] == 0 and errs["record"] == 0,
+                  f"K6-trace or K8 rows differ from record_plain's ({label}, "
+                  f"metrics {m_on}): {errs['tick_chunk_trace']} "
+                  f"{errs['record']}")
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(final, plain, s_end)),
+                  f"traced final state differs from replay_cluster's "
+                  f"({label}, metrics {m_on})")
+            rec = trace.TickRecord(**K8.decode(cfg, rows[:, 0].cpu().numpy()))
+            record_cases[f"{label}:metrics_{m_on}"] = {
+                "events": len(trace.decode_events(rec)),
+                "first_violation_tick": int(final.first_violation_tick[0])}
     set_counts(saved)
+    emit({"phase": "k6_trace_vs_plain", "ticks": EXPLAIN_TICKS,
+          "cases": record_cases, "max_abs_err": errs["tick_chunk_trace"],
+          "k8_max_abs_err": errs["record"]})
     # the traced replay's time a tick, the kernels' launches included
     with prng.layout(True):
         cfg = config.storm_profiles()["durability"][0].replace(
@@ -1254,7 +1268,7 @@ def main() -> int:
           "header": head, "wall_s": round(explain_wall, 3),
           "launches": explain_launches, "record_cases": record_cases,
           "traced_replay_ms_per_tick": traced_ms_per_tick,
-          "max_abs_err": errs["record"]})
+          "max_abs_err": errs["tick_chunk_trace"]})
 
     # ---- 6v. the coverage pool flagship, twice: deterministic, K6-coverage
     # and a credit pass a chunk (no K5 launch), the pool flagship's K3
@@ -1904,6 +1918,34 @@ def main() -> int:
         cuda_ms(lambda i: K8.record(k8_cfg, k8_prev, k8_nxt, k8_out)),
         cuda_ms(lambda i: K8.record_plain(k8_prev, k8_nxt), iters=20),
         k8_bytes, k8_ops)
+    # K6-trace at explain's shape: one launch of EXPLAIN_TICKS ticks of the
+    # bug cluster from tick 0, each tick's row into a [T, 1, W] buffer, as
+    # the traced replay runs it. Bytes: the wide state read and written
+    # once, the key and knob rows, the rows written; operations: the
+    # hashes, as K6's bound counts them
+    with prng.layout(True):
+        k6t_s = state.init_cluster(k8_cfg, k8_keys, k8_kn)
+    k6t_table = K6.knob_table(k8_kn, 1)
+    k6t_rows = torch.empty((EXPLAIN_TICKS, 1, K8.record_width(k8_cfg)),
+                           dtype=torch.int32, device=dev)
+    k6t_plain_rows = torch.empty_like(k6t_rows)
+
+    def k6t_call(i):
+        return K6.tick_chunk(k8_cfg, k6t_s, k8_keys, k8_kn, EXPLAIN_TICKS,
+                             k6t_table, trace=k6t_rows)
+
+    timing["tick_chunk_trace"] = (
+        device_ms(k6t_call, "tick_chunk_kernel", iters=10, warmup=2),
+        cuda_ms(k6t_call, iters=10, warmup=2),
+        cuda_ms(lambda i: K6.tick_chunk_plain(
+            k8_cfg, k6t_s, k8_keys, k8_kn, EXPLAIN_TICKS,
+            trace=k6t_plain_rows), iters=1, warmup=0),
+        2 * nbytes(*k6t_s[:state.METRIC_LEAF0]) + nbytes(k8_keys) + 28 * 4
+        + nbytes(k6t_rows),
+        EXPLAIN_TICKS * ((2 + total) * OPS_PER_HASH + total))
+    check(torch.equal(k6t_rows, k6t_plain_rows),
+          "K6-trace's rows differ from the plain version's at explain's "
+          "shape")
     # K9 and K9-metrics at the kv flagship's shape
     kv_timing, kv_bytes = _kv_timing(dev)
     timing.update(kv_timing)
@@ -1958,7 +2000,12 @@ def main() -> int:
     # (torch.profiler), and the bytes behind B2-rest's bound
     emit(_k6_phases(fcfg, fs, fk, fkn, chunk))
     emit(_k6_scaling(fcfg, fs, fk, fkn, chunk))
+    emit(_k6_metrics_phases(fcfg, fs, mcfg, ms_, fk, fkn, chunk))
     emit(_k6_sass(card, k6_m, b, timing["tick_chunk"][0], k6_bytes))
+    emit(_k6_sass(card, k6_m, b, timing["tick_chunk_metrics"][0], k6m_bytes,
+                  "tick_metrics"))
+    emit(_k6_sass(card, k6_m, b, timing["tick_chunk_coverage"][0],
+                  k6c_bytes(k6_m), "tick_coverage"))
     # a harvest's device operations, before the eager tick's long profiled
     # windows (after those CUPTI handed the harvest's short one no record)
     emit(_profile_harvest(fs, fk, fkn))
@@ -2044,6 +2091,8 @@ def main() -> int:
                              "madraft_tpu/tpusim/engine.py:1368"),
         "record": ("K8", "madraft_tpu_torch/csrc/trace.cu",
                    "madraft_tpu/tpusim/trace.py:138"),
+        "tick_chunk_trace": ("K6-trace", "madraft_tpu_torch/csrc/tick.cu",
+                             "madraft_tpu/tpusim/trace.py:160"),
         "kv_tick": ("K9", "madraft_tpu_torch/csrc/kv.cu",
                     "madraft_tpu/tpusim/kv.py:425"),
         "kv_tick_metrics": ("K9-metrics", "madraft_tpu_torch/csrc/kv.cu",
@@ -2092,6 +2141,7 @@ def main() -> int:
     launches["harvest"] = pool_launches["harvest"]
     launches["harvest_coverage"] = cov_launches["harvest"]
     launches["record"] = explain_launches["record"]
+    launches["tick_chunk_trace"] = explain_launches["tick_chunk_trace"]
     # K9's from the kv flagship, K9-metrics' from the kv metrics flagship
     launches["kv_tick"] = kv_launches["kv_tick"]
     launches["kv_tick_metrics"] = kv_launches_m["kv_tick_metrics"]
@@ -2133,12 +2183,14 @@ def main() -> int:
     return 0
 
 
-def _flagship_state(dev, b: int = 4096, ticks: int = 200):
-    """The fuzz flagship's batch (seed 12345, --storm, n = 5, cap = 64)
-    after ``ticks`` eager ticks: (cfg, state, keys, knobs)."""
+def _flagship_state(dev, b: int = 4096, ticks: int = 200,
+                    metrics_on: bool = False):
+    """The fuzz flagship's batch (seed 12345, --storm, n = 5, cap = 64;
+    the metrics flagship's with ``metrics_on``) after ``ticks`` eager
+    ticks: (cfg, state, keys, knobs)."""
     from madraft_tpu_torch.tpusim import engine, state, step
 
-    cfg = _storm_cfg()
+    cfg = _storm_cfg().replace(metrics=metrics_on)
     keys = engine.cluster_keys(12345, b, dev)
     kn = cfg.knobs(dev)
     s = state.init_cluster(cfg, keys, kn)
@@ -2148,10 +2200,11 @@ def _flagship_state(dev, b: int = 4096, ticks: int = 200):
 
 
 def k6_only() -> int:
-    """K6's measurements alone, for comparing two trees in one call: the
-    build of K6 and its profile instance, then phases ``k6_phases`` and
-    ``k6_scaling`` at the flagship's shape and the card's clocks; no
-    result line. Run from the repository root:
+    """K6's and K6-metrics' measurements alone, for comparing two trees in
+    one call: the builds of K6, K6-metrics and their profile instances,
+    then phases ``k6_phases`` and ``k6_scaling`` at the flagship's shape,
+    ``k6_metrics_phases`` at the metrics flagship's, and the card's
+    clocks; no result line. Run from the repository root:
 
         python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.k6_only())'
     """
@@ -2162,10 +2215,13 @@ def k6_only() -> int:
         return 2
     from madraft_tpu_torch import _build
 
-    _build.build_all(("tick", "tick_profile"))
-    fcfg, fs, fk, fkn = _flagship_state(torch.device("cuda"))
+    dev = torch.device("cuda")
+    _build.build_all(K6_BUILDS)
+    fcfg, fs, fk, fkn = _flagship_state(dev)
     emit(_k6_phases(fcfg, fs, fk, fkn, 32))
     emit(_k6_scaling(fcfg, fs, fk, fkn, 32))
+    mcfg, ms, _, _ = _flagship_state(dev, metrics_on=True)
+    emit(_k6_metrics_phases(fcfg, fs, mcfg, ms, fk, fkn, 32))
     emit(_card())
     print(_smi(), flush=True)
     return 0
@@ -2262,6 +2318,96 @@ def service_leg(label: str, tree: str = "") -> int:
     return 0
 
 
+def k6_timing(dev) -> dict:
+    """K6, K6-metrics and K6-coverage timed at the flagships' tick-200
+    states (seed 12345, --storm, 4096 clusters): the device ms of one
+    KERNEL_CHUNK-tick launch of each (K6-coverage under [B] knob rows on
+    an empty seen-set at run-wide tick 200, as the coverage pool runs it),
+    K6-metrics' also at the clusters one wave of its grid holds, and the
+    grid of each build."""
+    import torch
+
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import config, coverage, engine
+
+    counts = read_counts()
+    fcfg, fs, fk, fkn = _flagship_state(dev)
+    mcfg, ms, _, _ = _flagship_state(dev, metrics_on=True)
+    b, m = int(fs.tick.shape[0]), engine.KERNEL_CHUNK
+    table = K6.knob_table(fkn, b)
+    cov_kn = fkn.broadcast(b)
+    cov_table = K6.knob_table(cov_kn, b)
+    ccfg = config.CoverageConfig().fingerprint_key()
+    seen = K6.Seen(ccfg, torch.full((1, ccfg.bitmap_bits), coverage.UNSEEN,
+                                    dtype=torch.int32, device=dev), None,
+                   torch.zeros(b, dtype=torch.int32, device=dev), 200)
+    grids = {name: _k6_grid(fcfg, name)
+             for name in ("tick", "tick_metrics", "tick_coverage")}
+    one_wave = min(grids["tick_metrics"]["clusters_an_sm"]
+                   * torch.cuda.get_device_properties(0).multi_processor_count,
+                   b)
+    ms_w = ms.__class__(*(x[:one_wave].contiguous() for x in ms))
+    kw, table_w = fk[:one_wave].contiguous(), K6.knob_table(fkn, one_wave)
+    rows = {
+        "tick_chunk": lambda i: K6.tick_chunk(fcfg, fs, fk, fkn, m, table),
+        "tick_chunk_metrics": lambda i: K6.tick_chunk(mcfg, ms, fk, fkn, m,
+                                                      table),
+        "tick_chunk_metrics_one_wave": lambda i: K6.tick_chunk(
+            mcfg, ms_w, kw, fkn, m, table_w),
+        "tick_chunk_coverage": lambda i: K6.tick_chunk(
+            fcfg, fs, fk, cov_kn, m, cov_table, seen),
+    }
+    out = {name: device_ms(call, "tick_chunk_kernel", iters=5, warmup=1)
+           for name, call in rows.items()}
+    set_counts(counts)
+    return {"ticks": m, "clusters": b, "one_wave_clusters": one_wave,
+            "ms": out, "grids": grids}
+
+
+def k6_leg(label: str, tree: str = "") -> int:
+    """One leg of an A/B of K6's builds between two trees in one call: the
+    madraft_tpu_torch package of ``tree`` (a ``git archive`` of another
+    commit; this checkout's when empty), its kernels built into its own
+    build directory, measured by ``k6_timing`` and by the fuzz and
+    metrics fuzz flagships' cluster-steps/s (one run each); prints one
+    JSON line. Run in turns, for example parent, change, change, parent:
+
+        python3 chip_smoke.py --k6-leg parent _proof/parent
+        python3 chip_smoke.py --k6-leg change
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    if tree:
+        sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import madraft_tpu_torch
+    from madraft_tpu_torch import _build
+
+    root = pathlib.Path(tree).resolve() if tree else ROOT
+    check(pathlib.Path(madraft_tpu_torch.__file__).is_relative_to(root),
+          f"k6_leg measures {madraft_tpu_torch.__file__}, not {root}")
+    for k, (fn, a) in counters().items():  # an older tree's lack some
+        if not hasattr(fn, a):
+            setattr(fn, a, 0)
+    _build.build_all(_build.SOURCES + ("tick_metrics", "tick_coverage"))
+    out = {"leg": label, "card": _smi(),
+           **k6_timing(torch.device("cuda")), "flagships": {}}
+    for name, argv in (("fuzz", FLAGSHIP[:-1]),
+                       ("metrics_fuzz", METRICS_FLAGSHIP[:-2] + ["--metrics"])):
+        rc, rep = run_cli(argv)
+        check(rc == 0 and rep["violating"] == 0, f"{name} flagship rc {rc}")
+        out["flagships"][name] = rep["telemetry"]["steps_per_sec"]
+    emit(out)
+    return 0
+
+
+# K6's builds (_build.VARIANTS): the kernel, its metrics, coverage and
+# metrics-coverage variants, and the profile instances of K6, K6-metrics
+# and K6-coverage
+K6_BUILDS = ("tick", "tick_metrics", "tick_coverage", "tick_metrics_coverage",
+             "tick_profile", "tick_metrics_profile", "tick_coverage_profile")
 # SASS opcode classes for _k6_sass: the 32-bit integer pipe's, the FMA
 # pipe's (IMAD and the float ops), memory, warp collectives, control
 SASS_CLASSES = {
@@ -2308,9 +2454,10 @@ def _sass_class(ins: str) -> str:
     return next((k for k, ops in SASS_CLASSES.items() if op in ops), "other")
 
 
-def _k6_sass(card: dict, m: int, b: int, k6_ms: float, k6_bytes: int
-             ) -> dict:
-    """K6's instructions at the flagship's shape, read off the SASS
+def _k6_sass(card: dict, m: int, b: int, k6_ms: float, k6_bytes: int,
+             build: str = "tick") -> dict:
+    """K6's instructions at the flagship's shape (those of its build
+    ``build``: K6-metrics, K6-coverage), read off the SASS
     (cuobjdump) of the n = 5, cap = 64, ae 4 template instance: their
     static count by opcode class in the kernel, and in the profile build
     the instructions between its clock64() reads, a phase group each (the
@@ -2322,13 +2469,16 @@ def _k6_sass(card: dict, m: int, b: int, k6_ms: float, k6_bytes: int
     the ALU lanes and the issue slots; the counts are static (an unrolled
     loop counts each pass, a loop that is not counts once, both arms of a
     branch count, the profile build adds its clock reads), so they
-    estimate the work rather than bound it from below."""
+    estimate the work rather than bound it from below. The coverage
+    build's profile marks once more a tick, after the fingerprint's
+    stamp, whose instructions count with compact."""
     from madraft_tpu_torch import _build
     from madraft_tpu_torch.kernels import tick as K6
 
     inst = "ILi5ELi64ELi4ELb{}EE"
-    out = {"phase": "k6_sass", "instance": "n=5 cap=64 ae=4"}
-    funcs = _sass(_build._target("tick"))
+    out = {"phase": "k6_sass" + build[len("tick"):], "build": build,
+           "instance": "n=5 cap=64 ae=4"}
+    funcs = _sass(_build._target(build))
     name = next((f for f in funcs if "tick_chunk_kernel" in f
                  and inst.format(0) in f), None)
     check(name is not None, f"no K6 n5 cap64 instance in {list(funcs)[:8]}")
@@ -2337,22 +2487,23 @@ def _k6_sass(card: dict, m: int, b: int, k6_ms: float, k6_bytes: int
         classes[_sass_class(ins)] += 1
     out["static_instructions"] = len(funcs[name])
     out["by_class"] = classes
-    funcs_p = _sass(_build._target("tick_profile"))
+    funcs_p = _sass(_build._target(build + "_profile"))
     name_p = next((f for f in funcs_p if "tick_chunk_kernel" in f
                    and inst.format(1) in f), None)
-    check(name_p is not None, "no K6 n5 cap64 profile instance")
+    check(name_p is not None, f"no {build} n5 cap64 profile instance")
     code = funcs_p[name_p]
     reads = [i for i, ins in enumerate(code) if "SR_CLOCKLO" in ins]
     out["profile_clock_reads"] = len(reads)
-    # start, stage, the 12 tick phases, stage: 15 reads, 14 regions
-    check(len(reads) == len(K6.PHASES) + 2,
-          f"{len(reads)} clock reads in K6's profile instance")
+    # start, stage, the 12 tick phases (and the stamp's mark), stage: 15
+    # reads (16), 14 regions (15); the loop's between the stage marks
+    phases = list(K6.PHASES[1:]) + ["compact"] * ("coverage" in build)
+    check(len(reads) == len(phases) + 3,
+          f"{len(reads)} clock reads in {build}'s profile instance")
     regions = {}
-    for phase, lo, hi in zip(K6.PHASES[1:], reads[1:-2], reads[2:-1]):
-        count = {k: 0 for k in classes}
+    for phase, lo, hi in zip(phases, reads[1:-2], reads[2:-1]):
+        count = regions.setdefault(phase, {k: 0 for k in classes})
         for ins in code[lo:hi]:
             count[_sass_class(ins)] += 1
-        regions[phase] = count
     out["by_phase"] = {p: sum(c.values()) for p, c in regions.items()}
     out["alu_by_phase"] = {p: c["alu"] for p, c in regions.items()}
     tick_ins = sum(out["by_phase"].values())
@@ -2411,12 +2562,12 @@ def _k6_load(grid: dict, b: int, sms: int) -> dict:
             "warps_per_busy_sm": warps / busy}
 
 
-def _k6_phases(cfg, s, keys, kn, m: int) -> dict:
-    """Where one K6 chunk's time goes: the profile instance's clock64()
-    cycles per phase group, a tick of a cluster (mean over the clusters),
-    at the whole batch and at one block an SM (a warp a scheduler, so
-    each warp's own chain with little issue contention), each run's state
-    held against the kernel's own."""
+def _k6_phases(cfg, s, keys, kn, m: int, phase: str = "k6_phases") -> dict:
+    """Where one K6 chunk's time goes (K6-metrics' with ``cfg.metrics``):
+    the profile instance's clock64() cycles per phase group, a tick of a
+    cluster (mean over the clusters), at the whole batch and at one block
+    an SM (a warp a scheduler, so each warp's own chain with little issue
+    contention), each run's state held against the kernel's own."""
     import torch
 
     from madraft_tpu_torch.kernels import tick as K6
@@ -2424,8 +2575,8 @@ def _k6_phases(cfg, s, keys, kn, m: int) -> dict:
 
     counts = read_counts()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    grid = _k6_grid(cfg)
-    out = {"phase": "k6_phases", "ticks": m, "instance": K6.instance(cfg),
+    grid = _k6_grid(cfg, K6.variant(cfg.metrics, False))
+    out = {"phase": phase, "ticks": m, "instance": K6.instance(cfg),
            "grid": grid}
     for label, b in (("batch", int(s.tick.shape[0])),
                      ("one_block_an_sm", sms * grid["clusters_a_block"])):
@@ -2435,7 +2586,7 @@ def _k6_phases(cfg, s, keys, kn, m: int) -> dict:
         want = K6.tick_chunk(cfg, sb, kb, kn, m)
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
-              "K6's profile instance differs from the kernel")
+              f"{phase}: the profile instance differs from the kernel")
         cyc = prof.to(torch.float64).sum(0) / b / m
         per = {k: float(cyc[i]) for i, k in enumerate(K6.PHASES)}
         tick_total = sum(v for k, v in per.items() if k != "stage")
@@ -2446,6 +2597,47 @@ def _k6_phases(cfg, s, keys, kn, m: int) -> dict:
                                         for k, v in per.items()
                                         if k != "stage"}}
     set_counts(counts)
+    return out
+
+
+def _k6_metrics_phases(fcfg, fs, mcfg, ms, keys, kn, m: int) -> dict:
+    """Where K6-metrics' time goes at the metrics flagship's state
+    (``ms``, metrics on, beside the fuzz flagship's ``fs``): its profile
+    instance's cycles by phase group (``_k6_phases``), its grid and the
+    waves 4096 clusters take, ptxas's report of every build of K6, and
+    the device ms of one KERNEL_CHUNK-tick launch of K6-metrics and of K6
+    at the whole batch and at the clusters one wave of K6-metrics holds
+    (what a second wave costs, apart from the metrics plane's own code)."""
+    import torch
+
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import engine, state
+
+    out = _k6_phases(mcfg, ms, keys, kn, m, "k6_metrics_phases")
+    counts = read_counts()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    whole = int(ms.tick.shape[0])
+    one_wave = min(out["grid"]["clusters_an_sm"] * sms, whole)
+    launch = {}
+    for label, cfg, s in (("tick_chunk_metrics", mcfg, ms),
+                          ("tick_chunk", fcfg, fs)):
+        for b in sorted({whole, one_wave}):
+            sb = state.ClusterState(*(x[:b].contiguous() for x in s))
+            kb = keys[:b].contiguous()
+            table = K6.knob_table(kn, b)
+            launch.setdefault(label, {})[str(b)] = device_ms(
+                lambda i: K6.tick_chunk(cfg, sb, kb, kn, engine.KERNEL_CHUNK,
+                                        table),
+                "tick_chunk_kernel", iters=5, warmup=1)
+    set_counts(counts)
+    out["ms_a_launch"] = {"ticks": engine.KERNEL_CHUNK,
+                          "one_wave_clusters": one_wave, **launch}
+    out["ptxas"] = {name: _build.ptxas(name) for name in K6_BUILDS}
+    spills = {name: r["spills"] for name, r in out["ptxas"].items()
+              if r["spills"]}
+    check(not spills, f"K6's builds spill: {spills}")
+    out["card"] = _smi()
     return out
 
 
@@ -2568,6 +2760,36 @@ def _k6_vs_plain(cfg, s, keys, kn, ticks: int, chunk: int, errs: dict,
               f"{state.first_divergence(done, state.state_to_numpy(want), state.state_to_numpy(got))}")
         s = want
     return s
+
+
+def _trace_rows_plain(cfg, seed: int, cluster: int, ticks: int, dev):
+    """The traced replay's rows by the plain version on ``dev``: the eager
+    tick on the chunk's words (``threefry.tick_blocks_plain``) and
+    ``record_plain`` after each tick, with K8 writing the same tick's row
+    beside it. Returns (rows, K8's rows, both [ticks, 1, W], the final
+    state)."""
+    import torch
+
+    from madraft_tpu_torch.kernels import threefry
+    from madraft_tpu_torch.kernels import trace as K8
+    from madraft_tpu_torch.tpusim import engine, prng, state, step
+
+    keys = engine.cluster_keys(seed, 1, dev, id0=cluster)
+    kn = cfg.knobs(dev)
+    s = state.init_cluster(cfg, keys, kn)
+    words = threefry.tick_blocks_plain(keys, s.tick + 1, ticks,
+                                       step._block_total(cfg.n_nodes),
+                                       prng.partitionable())
+    w = K8.record_width(cfg)
+    rows = torch.empty((ticks, 1, w), dtype=torch.int32, device=dev)
+    k8_rows = torch.empty_like(rows)
+    for i in range(ticks):
+        nxt = state.ClusterState(*(x.contiguous() for x in step.step_cluster(
+            cfg, s, keys, kn, words=words[i])))  # K8 takes contiguous leaves
+        rows[i] = K8.record_plain(s, nxt)
+        K8.record(cfg, s, nxt, k8_rows[i])
+        s = nxt
+    return rows, k8_rows, s
 
 
 def _k6_standin(tick_chunk):
@@ -4846,4 +5068,6 @@ def _storm_cfg():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--service-leg"]:
         sys.exit(service_leg(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--k6-leg"]:
+        sys.exit(k6_leg(*sys.argv[2:4]))
     sys.exit(main())

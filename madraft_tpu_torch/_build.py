@@ -34,14 +34,18 @@ SHARDKV = "shardkv"
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
 # their first use or by the engine's set-up before a run that takes them;
-# the profile instance (clock64() per phase group) is launched only by
-# chip_smoke.py
+# the profile instances of K6, K6-metrics and K6-coverage (clock64() per
+# phase group) are launched or read (their SASS) only by chip_smoke.py
 VARIANTS = {
     "tick_metrics": ("tick", ("-DMADRAFT_K6_METRICS",)),
     "tick_coverage": ("tick", ("-DMADRAFT_K6_COVERAGE",)),
     "tick_metrics_coverage": ("tick", ("-DMADRAFT_K6_METRICS",
                                        "-DMADRAFT_K6_COVERAGE")),
     "tick_profile": ("tick", ("-DMADRAFT_K6_PROFILE",)),
+    "tick_metrics_profile": ("tick", ("-DMADRAFT_K6_METRICS",
+                                      "-DMADRAFT_K6_PROFILE")),
+    "tick_coverage_profile": ("tick", ("-DMADRAFT_K6_COVERAGE",
+                                       "-DMADRAFT_K6_PROFILE")),
     # K9-metrics (kernels/kv.py variant): the kv service tick with the
     # clerks' latency folds
     "kv_metrics": ("kv", ("-DMADRAFT_K9_METRICS",)),
@@ -153,23 +157,30 @@ def ptxas(name: str) -> dict:
     from the compiler's -v output kept beside the library: the registers
     of each kernel entry, the largest stack frame of any function, and
     the spill stores and loads summed over every function (the entries
-    and the functions they call)."""
+    and the functions they call), and [stores, loads] of each function
+    that spills."""
     log = _target(name).with_suffix(".log")
     if not log.exists():
         _target(name).unlink(missing_ok=True)
         build_all((name,))
-    out = {"registers": {}, "stack": 0, "spill_stores": 0, "spill_loads": 0}
-    entry = None
+    out = {"registers": {}, "stack": 0, "spill_stores": 0, "spill_loads": 0,
+           "spills": {}}
+    entry = func = None
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            func = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
             out["stack"] = max(out["stack"], int(m.group(1)))
             out["spill_stores"] += int(m.group(2))
             out["spill_loads"] += int(m.group(3))
+            if int(m.group(2)) or int(m.group(3)):
+                out["spills"][func] = [int(m.group(2)), int(m.group(3))]
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             out["registers"][entry] = int(m.group(1))

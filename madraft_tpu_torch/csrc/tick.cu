@@ -44,9 +44,12 @@
 // - 3. the ring scans take all the cluster's lanes (a lane per ring slot,
 //   then a reduction), node values no other lane reads stay in registers
 //   for the chunk, per-node flags go by ballot, fewer phases need a sync;
-// - 4. the template instances pack two clusters a warp, 16 lanes each, so
-//   the node phases (n of the lanes busy) cost half the issue slots a
-//   cluster; the runtime instance keeps a warp a cluster;
+// - 4. every instance packs two clusters a warp, 16 lanes each (n <= 16),
+//   so the node phases (n of the lanes busy) cost half the issue slots a
+//   cluster, and the launch bounds cap a thread at 128 registers where
+//   32 clusters an SM fit (more where a shape's shared blocks fit fewer:
+//   blocks_per_sm), which holds every instance of every build free of
+//   spills;
 // - a block holds up to kWarps warps, as many as fit in shared memory
 //   (dynamic, raised above 48 KB with cudaFuncSetAttribute).
 // The profile build (-DMADRAFT_K6_PROFILE) adds tick_launch_profile, the
@@ -56,13 +59,20 @@
 // the tick with the metrics plane (reference step.py 748-760, 838-842,
 // 886-889, the shadow record and fold 1008-1056, the event counters
 // 1141-1153; the eager tick runs them with K2's metrics instance and K4).
-// The stamp ring log_tick [n, cap], the shadow's record stamps [cap] and a
-// delivery's stamps join the cluster's shared block (+1616 B at n = 5,
-// cap = 64, ae 4: 8576 B, so 3 blocks, 24 clusters, fit an SM where 4
-// blocks fit without them); the fold's sums, histogram (a bucket a lane),
-// event counts and worst-op register stay in registers and are written
-// once at the chunk's end. Bound: the metric leaves add 1948 B a lane read
-// and written at n = 5; the fold adds a few operations a ring slot a tick.
+// Only a delivery's stamps join the cluster's shared block (+80 B at n =
+// 5, cap = 64, ae 4: 7040 B, so 4 blocks, 32 clusters, fit an SM and the
+// 4096-cluster flagship runs in one wave). The stamp ring log_tick [n,
+// cap] and the shadow's record stamps [cap] stay in the state's own rows
+// in device memory (tick.cuh Stamps: 1.5 kB a cluster, in L2 at the
+// flagship), read and written where the shared copies were, so the tick
+// issues no more instructions for them; the latency is hidden by the
+// other warps of an SM, which the tick keeps issue-bound (in the shared
+// block the rings took it to 8576 B a cluster: 24 clusters an SM, and a
+// second wave at 4096 took 42% of a launch's time). The fold's sums,
+// histogram (a bucket a lane), event counts and worst-op register stay in
+// registers and are written once at the chunk's end. Bound: the metric
+// leaves add 1948 B a lane read and written at n = 5; the fold adds a few
+// operations a ring slot a tick.
 // -DMADRAFT_K6_COVERAGE builds K6-coverage: after each tick the cluster's
 // coverage fingerprint (K5's function, coverage.cuh) and its seen-set
 // stamp, atomicMin with the run-wide tick, and each lane-tick's flat
@@ -73,6 +83,14 @@
 // atomic on the seen-set and a 4-byte fp write (4 MB for 256 ticks at B =
 // 4096, read again by the credit pass with the stamps it names), about 40
 // operations for the code and hash. Both flags give K6-metrics-coverage.
+//
+// K6-trace (B10, the reference's traced scan, madraft_tpu/tpusim/trace.py
+// 160-195, with its per-tick record _pack_rows / _deliveries / _record
+// 108-158, kernel K8's function on its own): given a trace buffer, any
+// build writes each tick's flight-recorder row from inside the chunk
+// (tick.cuh record), so the traced replay of T ticks is ceil(T / 256)
+// launches and no K8 launch. Off that path the buffer is null and the
+// row costs one uniform branch a tick.
 //
 // In place or not: the kernel stages a cluster fully before it writes, so
 // out may alias in; the wrapper writes one fresh allocation, because
@@ -89,16 +107,6 @@ namespace {
 constexpr int kWarps = 4;              // warps a block at most
 constexpr int kMaxShared = 227 * 1024; // dynamic shared memory a block
 
-// Lanes a cluster takes: k6::kTile in the template instances (two
-// clusters a warp), the whole warp in the runtime one
-template <int N_>
-constexpr int kTileOf = N_ ? k6::kTile : k6::kWarp;
-// Blocks an SM should hold: 32 clusters (shared memory holds as many at
-// n = 5, cap = 64), which caps the registers a thread at 65536 / (32 x
-// kTileOf) per cluster lane
-template <int N_>
-constexpr int kBlocksPerSm = 32 * kTileOf<N_> / (kWarps * k6::kWarp);
-
 // The variant this file builds (see the header note)
 #ifdef MADRAFT_K6_METRICS
 constexpr bool kMet = true;
@@ -111,10 +119,33 @@ constexpr bool kCov = true;
 constexpr bool kCov = false;
 #endif
 
+// Lanes a cluster takes: k6::kTile (n <= 16), two clusters a warp
+constexpr int kTile = k6::kTile;
+// Blocks an SM should hold (the launch bounds): as many blocks of
+// kWarps warps as a template instance's shared blocks let an SM hold
+// (228 KB, 1 KB a block reserved), at most 4 (32 clusters, what n = 5,
+// cap = 64 fits); 4 for the runtime instance. That caps a thread at 128
+// registers where 4 blocks fit, and gives the shapes whose shared blocks
+// fit fewer the registers that their occupancy leaves
+template <int N_, int CAP_, int AE_>
+constexpr int blocks_per_sm() {
+  if constexpr (N_ == 0) {
+    return 4;
+  } else {
+    const int per_block = kWarps * (k6::kWarp / kTile) *
+                              k6::slot_offset(k6::kSlots, N_, CAP_, AE_,
+                                              kMet) +
+                          1024;
+    const int fit = 228 * 1024 / per_block;
+    return fit < 1 ? 1 : fit > 4 ? 4 : fit;
+  }
+}
+
 template <int N_, int CAP_, int AE_, bool kProf>
-__global__ void __launch_bounds__(kWarps * k6::kWarp, kBlocksPerSm<N_>)
+__global__ void __launch_bounds__(kWarps * k6::kWarp,
+                                  blocks_per_sm<N_, CAP_, AE_>())
     tick_chunk_kernel(const __grid_constant__ k6::Params p, long long *prof) {
-  constexpr int kTile = kTileOf<N_>, kPerWarp = k6::kWarp / kTile;
+  constexpr int kPerWarp = k6::kWarp / kTile;
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / k6::kWarp, lane = threadIdx.x % k6::kWarp;
   const int first = (blockIdx.x * (blockDim.x / k6::kWarp) + warp) * kPerWarp;
@@ -139,8 +170,8 @@ int warps_a_block(const k6::Params &p, int tile) {
 template <int N_, int CAP_, int AE_, bool kProf>
 int go(const k6::Params &p, cudaStream_t stream, long long *prof,
        int *occ = nullptr) {
-  constexpr int kPerWarp = k6::kWarp / kTileOf<N_>;
-  const int warps = warps_a_block(p, kTileOf<N_>);
+  constexpr int kPerWarp = k6::kWarp / kTile;
+  const int warps = warps_a_block(p, kTile);
   if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int shared = warps * kPerWarp * p.cluster_bytes;
   auto kernel = tick_chunk_kernel<N_, CAP_, AE_, kProf>;
@@ -185,11 +216,12 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
            int n_leaves, const void *keys, const void *kf, const void *ki,
            const int *draws, int n_draws, int b, int n, int cap, int ae_max,
            int m, int bug, int partitionable, const int64_t *mptrs,
-           const int64_t *cov, void *stream, long long *prof) {
+           const int64_t *cov, void *trace, int trace_w, void *stream,
+           long long *prof) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws || b < 1 || m < 1 ||
       n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
       (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe || bug < 0 ||
-      bug > k6::kAckBeforeFsync)
+      bug > k6::kAckBeforeFsync || (kMet && m > k6::kMaxMetricTicks))
     return static_cast<int>(cudaErrorInvalidValue);
   k6::Params p;
   for (int l = 0; l < k6::kLeaves; ++l) {
@@ -203,7 +235,8 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
   if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
                      draws) ||
       (mptrs != nullptr) != kMet || (cov != nullptr) != kCov ||
-      !k6::set_variant(p, mptrs, cov))
+      !k6::set_variant(p, mptrs, cov) ||
+      !k6::set_trace(p, trace, trace_w, kMet))
     return static_cast<int>(cudaErrorInvalidValue);
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
@@ -234,8 +267,10 @@ __global__ void __launch_bounds__(kCreditThreads)
 // against the one compiled here; keys: [b, 2] int64-held u32 cluster keys;
 // draws: each draw's offset in a tick's words, held against tick.cuh's;
 // partitionable: the threefry counter layout; mptrs: the metric leaves'
-// pointers in and out (the metrics variant's, else null); cov: the
-// coverage arguments (the coverage variant's, else null: set_variant).
+// pointers in and out, then the spare stamp rows (the metrics variant's,
+// else null); cov: the coverage arguments (the coverage variant's, else
+// null: set_variant); trace: int32 [m, b, trace_w] rows, each tick's
+// flight-recorder row (null: none; trace_w held against the row's width).
 // Returns cudaGetLastError() after the launch.
 extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            const int *kinds, int n_leaves, const void *keys,
@@ -243,10 +278,10 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
                            const int64_t *mptrs, const int64_t *cov,
-                           void *stream) {
+                           void *trace, int trace_w, void *stream) {
   return launch<false>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                        n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                       mptrs, cov, stream, nullptr);
+                       mptrs, cov, trace, trace_w, stream, nullptr);
 }
 
 // The credit pass: fp [m, b] the launch's flat seen indices (-1: none),
@@ -281,9 +316,8 @@ extern "C" int tick_grid(int n, int cap, int ae_max, int *out) {
   k6::Params p;
   k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
                 draws);
-  const int tile = inst ? k6::kTile : k6::kWarp;
-  out[0] = k6::kWarp / tile;
-  out[1] = warps_a_block(p, tile);
+  out[0] = k6::kWarp / kTile;
+  out[1] = warps_a_block(p, kTile);
   out[2] = out[1] * out[0] * p.cluster_bytes;
   if (out[1] < 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<false>(p, nullptr, nullptr, out + 3);
@@ -299,10 +333,11 @@ extern "C" int tick_launch_profile(const int64_t *ins, const int64_t *outs,
                                    int n_draws, int b, int n, int cap,
                                    int ae_max, int m, int bug,
                                    int partitionable, const int64_t *mptrs,
-                                   const int64_t *cov, void *stream,
-                                   void *prof) {
+                                   const int64_t *cov, void *trace,
+                                   int trace_w, void *stream, void *prof) {
   return launch<true>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                       n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                      mptrs, cov, stream, static_cast<long long *>(prof));
+                      mptrs, cov, trace, trace_w, stream,
+                      static_cast<long long *>(prof));
 }
 #endif

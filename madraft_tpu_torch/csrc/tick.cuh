@@ -8,8 +8,8 @@
 //
 // The phases follow the port's step.py step_cluster line for line, in its
 // order; each comment names the lines. A cluster takes a tile of the warp
-// (Tile: 16 lanes in a template instance, the whole warp in the runtime
-// one). Tile lane d is node d (n <= 16); the lanes also stride over the
+// (Tile: 16 lanes, two clusters a warp). Tile lane d is node d (n <= 16);
+// the lanes also stride over the
 // (dst, src) pairs of the [n, n] mailboxes and over the cap ring slots. A node's values that no other lane reads stay
 // in its lane's registers for the whole chunk (Own); per-node flags other
 // lanes need travel as warp ballots; __syncwarp() parts a phase's reads of
@@ -31,6 +31,8 @@
 // the coverage fingerprint (kCov: after each tick the cluster's seen-set
 // bit is stamped with the run-wide tick and the bit's flat index kept for
 // the credit pass, credits()); tick.cu compiles each as its own build.
+// In any build a trace buffer (Params::trace, null elsewhere) gets each
+// tick's flight-recorder row (record(): K6-trace).
 //
 // Arithmetic as the reference's: int32 wraps where it wraps there (sums
 // that can wrap go through uint32, the entry hash too), floor division and
@@ -109,16 +111,14 @@ __host__ __device__ constexpr int leaf_kind(int l) {
 
 // Scratch slots after the leaves in a cluster's shared block: the knob
 // rows, what a vote request carries, a delivery's entries, the tick's
-// draw words; in the metrics variant (else empty) the submit-stamp ring,
-// the shadow's record stamps and a delivery's stamps
+// draw words; in the metrics variant (else empty) a delivery's stamps
+// (the stamp rings themselves live in device memory: Stamps)
 enum Scratch {
   S_KF = kLeaves,    // float32 knobs (KNOB_F32 order)
   S_KI,              // int32 knobs (KNOB_I32 order)
   S_LLT, S_LLI,      // [n]
   S_ENT_T, S_ENT_V,  // [n, ae_max]
   S_WORDS,           // [total] u32
-  S_LOG_TICK,        // [n, cap] the log_tick leaf
-  S_SHADOW_SUB,      // [cap] the shadow_sub leaf
   S_ENT_S,           // [n, ae_max]
   kSlots
 };
@@ -140,6 +140,36 @@ enum Event {
   E_RV_RSP_DELIVERED, E_AE_REQ_DELIVERED, E_AE_RSP_DELIVERED,
   E_SNAP_DELIVERED, E_COMMIT_ADVANCES, kEvents
 };
+
+// The delivery passes, in the trace row's order (kernels/trace.py
+// DELIVERED): a node's bit of each in Own::dv
+enum Delivery { DV_RV_REQ, DV_RV_RSP, DV_AE_REQ, DV_AE_RSP, DV_SNAP,
+                kDeliveries };
+
+// The trace row's width (kernels/trace.py record_width): the node rows
+// role, term, commit, log_len, base, durable_len, alive and the adjacency
+// masks (8n), the deliveries, the install outcomes (2n), shadow_len,
+// msg_count, violations and, in the metrics variant, shadow_sub [cap],
+// lat_hist, ev_counts, phase_ticks, worst_lat, worst_phases, worst_key,
+// worst_client and worst_sub
+__host__ __device__ constexpr int trace_width(int n, int cap, bool met) {
+  return 10 * n + kDeliveries + 3 +
+         (met ? cap + kHist + kEvents + 2 * kLatPhases + 4 : 0);
+}
+// A metric leaf's first column in the trace row, -1 for the leaves the
+// row leaves out (phase_hist, lat_ticks) and the stamp rings'
+__host__ __device__ constexpr int trace_col(int leaf, int n, int cap) {
+  const int c = trace_width(n, cap, false) + cap;  // past shadow_sub
+  return leaf == M_LAT_HIST       ? c
+         : leaf == M_EV_COUNTS    ? c + kHist
+         : leaf == M_PHASE_TICKS  ? c + kHist + kEvents
+         : leaf == M_WORST_LAT    ? c + kHist + kEvents + kLatPhases
+         : leaf == M_WORST_PHASES ? c + kHist + kEvents + kLatPhases + 1
+         : leaf == M_WORST_KEY    ? c + kHist + kEvents + 2 * kLatPhases + 1
+         : leaf == M_WORST_CLIENT ? c + kHist + kEvents + 2 * kLatPhases + 2
+         : leaf == M_WORST_SUB    ? c + kHist + kEvents + 2 * kLatPhases + 3
+                                  : -1;
+}
 
 enum KnobF { KF_LOSS_PROB, KF_P_CRASH, KF_P_RESTART, KF_P_REPARTITION,
              KF_P_HEAL, KF_P_LEADER_PART, KF_P_ASYM_CUT, KF_P_CLIENT_CMD,
@@ -195,18 +225,25 @@ enum Phase { P_STAGE, P_DRAWS, P_FAULTS, P_RV_RSP, P_AE_RSP, P_SNAP,
              P_COMPACT, kPhases };
 
 // Per-phase clock64() sums, kept only in the profile instance, which also
-// syncs the warp at each mark so that a phase's time is the warp's
+// syncs the warp at each mark so that a phase's time is the warp's (its
+// lanes read the clock together): tile lane `phase` sums that phase, so a
+// lane holds one sum. A phase's cycles over a chunk stay far below 2^32
+// (a launch takes milliseconds), so clock differences and sums are 32-bit
 template <bool kOn>
 struct Clock {
-  long long last = 0, acc[kPhases] = {};
-  __device__ __forceinline__ void start() {
-    if constexpr (kOn) last = clock64();
+  unsigned last = 0u, acc = 0u;
+  int lane = 0;
+  __device__ __forceinline__ void start(int tile_lane) {
+    if constexpr (kOn) {
+      lane = tile_lane;
+      last = static_cast<unsigned>(clock64());
+    }
   }
   __device__ __forceinline__ void mark(int phase) {
     if constexpr (kOn) {
       __syncwarp();
-      const long long now = clock64();
-      acc[phase] += now - last;
+      const unsigned now = static_cast<unsigned>(clock64());
+      if (lane == phase) acc += now - last;
       last = now;
     }
   }
@@ -233,6 +270,13 @@ struct Params {
   const int *rows;
   int bits, levels_r, levels_c, identity, t0;
   unsigned alphabet;
+  // metrics: spare stamp rows [n * cap + cap] for a tile that holds no
+  // cluster (Stamps)
+  int *spare;
+  // K6-trace (null on every other path): rows [m, B, trace_w], each
+  // tick's flight-recorder row
+  int *trace;
+  int trace_w;
 };
 
 __host__ __device__ constexpr int shape_elems(int kind, int n, int cap) {
@@ -257,8 +301,6 @@ __host__ __device__ constexpr int slot_bytes(int s, int n, int cap, int ae,
   const int e = s == S_KF           ? kKnobF
                 : s == S_KI         ? kKnobI
                 : s == S_WORDS      ? draw_offset(kDraws, n)
-                : s == S_LOG_TICK   ? (met ? n * cap : 0)
-                : s == S_SHADOW_SUB ? (met ? cap : 0)
                 : s == S_ENT_S      ? (met ? n * ae : 0)
                 : s >= S_ENT_T      ? n * ae
                                     : n;
@@ -297,16 +339,19 @@ inline bool set_shape(Params &p, int n, int cap, int ae_max, int ae_layout,
   return true;
 }
 
-// Fills p's metric leaves from mptrs (the kMetricLeaves in, then out) and
-// coverage arguments from cov (seen, fp, rows or 0, bits, levels_r,
-// levels_c, alphabet, identity, t0), each null when the build has no such
-// variant; false if the coverage arguments are out of range
+// Fills p's metric leaves from mptrs (the kMetricLeaves in, then out,
+// then the spare stamp rows) and coverage arguments from cov (seen, fp,
+// rows or 0, bits, levels_r, levels_c, alphabet, identity, t0), each null
+// when the build has no such variant; false if the coverage arguments are
+// out of range
 inline bool set_variant(Params &p, const int64_t *mptrs, const int64_t *cov) {
   for (int l = 0; l < kMetricLeaves; ++l) {
     p.m_in[l] = mptrs ? reinterpret_cast<const int *>(mptrs[l]) : nullptr;
     p.m_out[l] =
         mptrs ? reinterpret_cast<int *>(mptrs[kMetricLeaves + l]) : nullptr;
   }
+  p.spare =
+      mptrs ? reinterpret_cast<int *>(mptrs[2 * kMetricLeaves]) : nullptr;
   p.seen = cov ? reinterpret_cast<int *>(cov[0]) : nullptr;
   p.fp = cov ? reinterpret_cast<int *>(cov[1]) : nullptr;
   p.rows = cov ? reinterpret_cast<const int *>(cov[2]) : nullptr;
@@ -317,6 +362,14 @@ inline bool set_variant(Params &p, const int64_t *mptrs, const int64_t *cov) {
   p.identity = cov ? static_cast<int>(cov[7]) : 0;
   p.t0 = cov ? static_cast<int>(cov[8]) : 0;
   return !cov || (p.bits > 0 && !(p.bits & (p.bits - 1)) && p.t0 >= 0);
+}
+
+// Fills p's trace rows (null: none) of width w; false if w is not the
+// row's width at p's shape (set_shape first)
+inline bool set_trace(Params &p, void *trace, int w, bool met) {
+  p.trace = static_cast<int *>(trace);
+  p.trace_w = w;
+  return !trace || w == trace_width(p.n, p.cap, met);
 }
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -389,13 +442,13 @@ __device__ __forceinline__ int bucket_of(int lat) {
   return lat < 2 ? 0 : imin(31 - __clz(lat), kHist - 1);
 }
 
-// Lanes a cluster takes in a template instance: two clusters a warp
-// (16 and 8 lanes ran alike at the flagship, 16 with the shorter chain
-// and fewer registers: PERF.md §6)
+// Lanes a cluster takes: two clusters a warp (16 and 8 lanes ran alike at
+// the flagship, 16 with the shorter chain and fewer registers: PERF.md
+// §6); every n <= kMaxNodes fits
 constexpr int kTile = 16;
 
-// A cluster's lanes: TILE consecutive lanes of the warp (kTile in the
-// template instances, the whole warp in the runtime one). The warp's
+// A cluster's lanes: TILE consecutive lanes of the warp (kTile; the tile
+// code also serves a whole-warp TILE). The warp's
 // collectives run on all 32 lanes at once and each tile takes its part:
 // its bits of a ballot or a match, a shuffle from its own lanes, a
 // reduction over its lanes (one REDUX for a whole-warp tile, else a
@@ -535,18 +588,52 @@ struct Own {
   int voted_for = 0, timer = 0, hb = 0, durable_len = 0, durable_term = 0;
   int durable_voted_for = 0, fsync_stall = 0, compact_floor = 0;
   unsigned votes = 0u;
-  int delivered = 0, installs = 0;  // the node's, summed at the chunk's end
+  unsigned dv = 0u;  // the passes that delivered to the node this tick
+};
+
+// The metrics variant's stamp rings in device memory, so that the shared
+// block holds 32 clusters an SM at n = 5, cap = 64: the cluster's rows of
+// the log_tick [n, cap] and shadow_sub [cap] leaves out (log_tick filled
+// from the state in at the chunk's start, shadow_sub written whole by the
+// oracle every tick), or the launch's spare rows for a tile that holds no
+// cluster. Replication, the no-op and injections write log_tick; the
+// shadow's walk reads it and writes shadow_sub, which the fold reads
+// back. A lane reads another's writes only across a __syncwarp, which
+// orders them in device memory as in shared
+struct Stamps {
+  const Params &p;
+  int b;        // the cluster
+  bool active;  // the tile holds it
+  // the rows' addresses, computed where they are used (held for the
+  // chunk they would take four registers)
+  __device__ __forceinline__ int *log_tick() const {
+    return active ? p.m_out[M_LOG_TICK] + static_cast<size_t>(b) * p.n * p.cap
+                  : p.spare;
+  }
+  __device__ __forceinline__ int *shadow_sub() const {
+    return active ? p.m_out[M_SHADOW_SUB] + static_cast<size_t>(b) * p.cap
+                  : p.spare + p.n * p.cap;
+  }
 };
 
 // The metrics plane's sums over a chunk, in a lane's registers (the
 // metrics variant): its node's event counts, its ring slots' acks and
 // their latencies' sum, the tile's acks in histogram bucket `lane` (lanes
-// below kHist), and the worst-op register, the same on the tile's lanes
+// below kHist), and the worst-op register, the same on the tile's lanes.
+// A node counts each event at most once a tick, so a count fits 16 bits
+// in a launch of up to kMaxMetricTicks ticks: two to a register
+constexpr int kMaxMetricTicks = 65535;
 struct Meter {
-  int ev[kEvents] = {};
+  unsigned ev2[(kEvents + 1) / 2] = {};
   int acked = 0, lat_sum = 0, hist = 0;
   int worst_lat = 0, worst_sub = 0;
   bool worst_new = false;  // the register changed in this chunk
+  __device__ __forceinline__ void add(int e, int x) {
+    ev2[e / 2] += static_cast<unsigned>(x) << (16 * (e % 2));
+  }
+  __device__ __forceinline__ int ev(int e) const {
+    return static_cast<int>(ev2[e / 2] >> (16 * (e % 2)) & 0xffffu);
+  }
 };
 
 template <typename Blk>
@@ -577,18 +664,20 @@ __device__ void own_store(const Blk &s, const Own &o, int d, int n) {
   for (int j = 0; j < n; ++j) B<L_VOTES>(s)[d * n + j] = bit(o.votes, j);
 }
 
-// The keys of a chunk's ticks t1, t1 + 1, ...: every TILE ticks tile lane
-// l derives the key of tick t1 + i + l (fold_in(fold_in(key, t), 0), the
-// tick as u32), and a shuffle hands tick i's key to the tile's lanes
+// The keys of a chunk's ticks: at tick i of the chunk, tick t (as u32),
+// and every TILE ticks, tile lane l derives the key of tick t + l
+// (fold_in(fold_in(key, t), 0)) from cluster b's key, and a shuffle hands
+// tick i's key to the tile's lanes
 template <int TILE>
 struct TickKeys {
-  uint32_t c0, c1, t1, k0 = 0u, k1 = 0u;
-  __device__ __forceinline__ void get(int i, const Tile<TILE> &tile,
+  uint32_t k0 = 0u, k1 = 0u;
+  __device__ __forceinline__ void get(const Params &p, int b, int i,
+                                      uint32_t t, const Tile<TILE> &tile,
                                       uint32_t &tk0, uint32_t &tk1) {
     if ((i & (TILE - 1)) == 0) {
-      k0 = c0;
-      k1 = c1;
-      madraft::tick_key(k0, k1, t1 + static_cast<uint32_t>(i + tile.lane));
+      k0 = static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]);
+      k1 = static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]);
+      madraft::tick_key(k0, k1, t + static_cast<uint32_t>(tile.lane));
     }
     tk0 = tile.shfl(k0, i & (TILE - 1));
     tk1 = tile.shfl(k1, i & (TILE - 1));
@@ -669,11 +758,12 @@ __device__ __forceinline__ int term_at(const int *log_term,
 template <int N, int CAP, int TILE, bool kMet, typename Blk>
 __device__ __forceinline__ int ring_checks(const Blk &s,
                                            const Tile<TILE> &tile, int sb,
-                                           int sl0, int new_base, int &xh) {
+                                           int sl0, int new_base, int &xh,
+                                           const Stamps &st) {
   constexpr int kPairs = N * (N - 1) / 2;
   const int lane = tile.lane;
   const int *log_term = I<L_LOG_TERM>(s), *log_val = I<L_LOG_VAL>(s);
-  int *st = I<L_SHADOW_TERM>(s), *sv = I<L_SHADOW_VAL>(s);
+  int *sht = I<L_SHADOW_TERM>(s), *sv = I<L_SHADOW_VAL>(s);
   int bs[N], ls[N], cs[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -713,10 +803,10 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
       }
     }
     const int old_abs = lane_abs(sb, k, CAP);
-    int lt = st[k], lv = sv[k];
+    int lt = sht[k], lv = sv[k];
     if (old_abs <= imin(new_base, sl0)) xh ^= entry_mix(lt, lv, old_abs);
     const int sh_abs = lane_abs(new_base, k, CAP);
-    int sl = sl0, ss = 0;
+    int sl = sl0, src = -1;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const bool at = sh_abs == a[i];
@@ -725,13 +815,13 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
       const bool take = at && sh_abs > sl && sh_abs <= cs[i];
       lt = take ? lt_i[i] : lt;
       lv = take ? lv_i[i] : lv;
-      if constexpr (kMet)  // the record's stamp, a later node's winning
-        ss = take ? I<S_LOG_TICK>(s)[i * CAP + k] : ss;
+      src = take ? i : src;  // a later node's winning
       sl = imax(sl, cs[i]);
     }
-    st[k] = lt;
+    sht[k] = lt;
     sv[k] = lv;
-    if constexpr (kMet) I<S_SHADOW_SUB>(s)[k] = ss;
+    if constexpr (kMet)  // the record's stamp: the winning node's
+      st.shadow_sub()[k] = src >= 0 ? st.log_tick()[src * CAP + k] : 0;
   }
   int viol = shadow_bad ? kViolShadow : 0;
 #pragma unroll
@@ -742,7 +832,8 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
 
 // The tick's commit-latency fold (step.py 663-690; K4's function, which
 // the eager tick launches), on the shadow's record stamps the oracle just
-// wrote: each ring slot with a stamp sub > 0 acks an op of latency t - sub
+// wrote (in device memory, Stamps): each ring slot with a stamp sub > 0
+// acks an op of latency t - sub
 // (int32 wrap). Each lane sums its slots' acks and latencies; a slot's
 // histogram bucket goes to the lane of that bucket by a shuffle per acked
 // slot; the worst-op candidate is the argmax over the slots of (acked ?
@@ -750,11 +841,11 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
 // the least slot that holds it), and it replaces the register when it is
 // greater or the register is empty (worst_sub 0). A warp with no ack this
 // tick only scans its slots
-template <int CAP_, int TILE, typename Blk>
-__device__ void fold(const Params &p, const Blk &s, const Tile<TILE> &tile,
-                     int t, Meter &mt) {
+template <int CAP_, int TILE>
+__device__ void fold(const Params &p, const Stamps &st,
+                     const Tile<TILE> &tile, int t, Meter &mt) {
   const int cap = CAP_ ? CAP_ : p.cap, lane = tile.lane;
-  const int *ss = I<S_SHADOW_SUB>(s);
+  const int *ss = st.shadow_sub();
   int best = kIntMin, best_k = kBig;  // best_k kBig: the lane has no slot
   bool mine = false;
 #pragma unroll
@@ -799,10 +890,10 @@ __device__ void fold(const Params &p, const Blk &s, const Tile<TILE> &tile,
 
 // One tick of the cluster (step.py step_cluster, with cfg.metrics as kMet)
 // under the tick's key (tk0, tk1); alive is the warp's mask of live nodes,
-// carried from tick to tick
+// carried from tick to tick; st the metrics variant's stamp rings
 template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet>
 __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
-                     Own &o, Meter &mt, unsigned &alive,
+                     const Stamps &st, Own &o, Meter &mt, unsigned &alive,
                      const Tile<TILE> &tile, Clock<kProf> &clk, uint32_t tk0,
                      uint32_t tk1) {
   const int lane = tile.lane;
@@ -828,7 +919,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
   const int me = lane, d = lane;  // a node lane's node
   const bool node = lane < n;
   const int skew = me * ki[KI_ETO_SKEW];
-  int &delivered = o.delivered, &installs = o.installs;
+  o.dv = 0u;
   // the event counters' baselines, taken before the suffix-loss rollback
   [[maybe_unused]] const int term0 = node ? term[d] : 0;
   [[maybe_unused]] const int commit0 = node ? commit[d] : 0;
@@ -872,8 +963,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
       now = (bit(was, d) || restart) && !crash;
       lead_pre = now && role[d] == kLeader;  // the tick-start role
       if constexpr (kMet) {
-        mt.ev[E_CRASHES] += crash;
-        mt.ev[E_RESTARTS] += restart;
+        mt.add(E_CRASHES, crash);
+        mt.add(E_RESTARTS, restart);
       }
     }
     alive = tile.ballot(now);
@@ -961,8 +1052,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
       mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v <= t ? 0 : v;
     }
     if (ps >= 0) {
-      ++delivered;
-      if constexpr (kMet) ++mt.ev[E_RV_RSP_DELIVERED];
+      o.dv |= 1u << DV_RV_RSP;
+      if constexpr (kMet) mt.add(E_RV_RSP_DELIVERED, 1);
       const int mterm = I<L_RV_RSP_TERM>(s)[d * n + ps];
       if (mterm > term[d]) {
         term[d] = mterm;
@@ -986,8 +1077,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
       mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v <= t ? 0 : v;
     }
     if (ps >= 0) {
-      ++delivered;
-      if constexpr (kMet) ++mt.ev[E_AE_RSP_DELIVERED];
+      o.dv |= 1u << DV_AE_RSP;
+      if constexpr (kMet) mt.add(E_AE_RSP_DELIVERED, 1);
       const int q = d * n + ps;
       const int mterm = I<L_AE_RSP_TERM>(s)[q];
       if (mterm > term[d]) {
@@ -1022,8 +1113,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
         mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v == t ? 0 : v;
       }
       if (ps >= 0) {
-        ++delivered;
-        if constexpr (kMet) ++mt.ev[E_SNAP_DELIVERED];
+        o.dv |= 1u << DV_SNAP;
+        if constexpr (kMet) mt.add(E_SNAP_DELIVERED, 1);
         const int mterm = I<L_SN_REQ_TERM>(s)[d * n + ps];
         if (mterm > term[d]) {
           term[d] = mterm;
@@ -1055,7 +1146,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
         o.durable_len = log_len[d];
         o.durable_term = term[d];
         o.durable_voted_for = o.voted_for;
-        ++installs;
+        atomicAdd(I<L_SNAP_INSTALL_COUNT>(s), 1);  // int32 wrap
       }
       I<L_SNAP_INSTALLED_SRC>(s)[d] = inst ? ps : -1;
       I<L_SNAP_INSTALLED_LEN>(s)[d] = inst ? slen : 0;
@@ -1073,8 +1164,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
       mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v == t ? 0 : v;
     }
     if (ps >= 0) {
-      ++delivered;
-      if constexpr (kMet) ++mt.ev[E_RV_REQ_DELIVERED];
+      o.dv |= 1u << DV_RV_REQ;
+      if constexpr (kMet) mt.add(E_RV_REQ_DELIVERED, 1);
       const int q = d * n + ps;
       const int mterm = I<L_RV_REQ_TERM>(s)[q];
       if (mterm > term[d]) {
@@ -1129,8 +1220,8 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
         mail[d * n + j] = ok && j != ps ? wadd(t, 1) : v == t ? 0 : v;
       }
       if (ps >= 0) {
-        ++delivered;
-        if constexpr (kMet) ++mt.ev[E_AE_REQ_DELIVERED];
+        o.dv |= 1u << DV_AE_REQ;
+        if constexpr (kMet) mt.add(E_AE_REQ_DELIVERED, 1);
         const int q = d * n + ps;
         const int mterm = I<L_AE_REQ_TERM>(s)[q];
         if (mterm > term[d]) {
@@ -1172,7 +1263,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
           I<S_ENT_T>(s)[d * ent + e] = et;
           I<S_ENT_V>(s)[d * ent + e] = log_val[ps * cap + k];
           if constexpr (kMet)  // the submit stamp replicates with the entry
-            I<S_ENT_S>(s)[d * ent + e] = I<S_LOG_TICK>(s)[ps * cap + k];
+            I<S_ENT_S>(s)[d * ent + e] = st.log_tick()[ps * cap + k];
           if (inb) {
             in_batch |= uint64_t{1} << e;
             if (a <= len && log_term[d * cap + k] != et) {
@@ -1198,7 +1289,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
         log_term[d * cap + k] = I<S_ENT_T>(s)[d * ent + e];
         log_val[d * cap + k] = I<S_ENT_V>(s)[d * ent + e];
         if constexpr (kMet)
-          I<S_LOG_TICK>(s)[d * cap + k] = I<S_ENT_S>(s)[d * ent + e];
+          st.log_tick()[d * cap + k] = I<S_ENT_S>(s)[d * ent + e];
       }
       if (success) {
         log_len[d] = conflict ? batch_end : imax(log_len[d], batch_end);
@@ -1262,7 +1353,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
     if (bit(alive, d) && role[d] == kCandidate &&
         __popc(o.votes) >= ki[KI_MAJORITY]) {
       role[d] = kLeader;
-      if constexpr (kMet) ++mt.ev[E_ELECTIONS_WON];
+      if constexpr (kMet) mt.add(E_ELECTIONS_WON, 1);
       for (int j = 0; j < n; ++j) {
         next_idx[d * n + j] = log_len[d] + 1;
         match_idx[d * n + j] = 0;
@@ -1272,7 +1363,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
         const int k = slot(log_len[d] + 1, cap);
         log_term[d * cap + k] = term[d];
         log_val[d * cap + k] = kNoopCmd;
-        if constexpr (kMet) I<S_LOG_TICK>(s)[d * cap + k] = 0;  // not a client op
+        if constexpr (kMet) st.log_tick()[d * cap + k] = 0;  // not a client op
         o.durable_len = ++log_len[d];
       }
     }
@@ -1304,7 +1395,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
       const int k = slot(log_len[d] + 1, cap);
       log_term[d * cap + k] = term[d];
       log_val[d * cap + k] = I<L_NEXT_CMD>(s)[0] * n + me + 1;
-      if constexpr (kMet) I<S_LOG_TICK>(s)[d * cap + k] = t;  // submitted now
+      if constexpr (kMet) st.log_tick()[d * cap + k] = t;  // submitted now
       o.durable_len = ++log_len[d];
     }
     // heartbeat (610-612)
@@ -1420,7 +1511,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
     const int new_base = imax(sb, need - cap);
     if constexpr (N_ > 0 && CAP_ > 0) {
       viol |= ring_checks<N_, CAP_, TILE, kMet>(s, tile, sb, sl0, new_base,
-                                                xh);
+                                                xh, st);
     } else {
       // the runtime shape: each lane a few ring slots, the pair's least
       // mismatch and greatest term match reduced over the warp
@@ -1443,29 +1534,27 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
           if (min_bad <= max_tm) viol |= kViolLogMatch;
         }
       }
-      int *st = I<L_SHADOW_TERM>(s), *sv = I<L_SHADOW_VAL>(s);
+      int *sht = I<L_SHADOW_TERM>(s), *sv = I<L_SHADOW_VAL>(s);
       for (int k = lane; k < cap; k += TILE) {
         const int old_abs = lane_abs(sb, k, cap);
         if (old_abs <= imin(new_base, sl0))
-          xh ^= entry_mix(st[k], sv[k], old_abs);
+          xh ^= entry_mix(sht[k], sv[k], old_abs);
         const int sh_abs = lane_abs(new_base, k, cap);
-        int lt = st[k], lv = sv[k], slw = sl0, ss = 0;
+        int lt = sht[k], lv = sv[k], slw = sl0, src = -1;
         for (int i = 0; i < n; ++i) {
           const int c = commit[i];
           if (sh_abs == lane_abs(base[i], k, cap)) {
             const int it = log_term[i * cap + k], iv = log_val[i * cap + k];
             if (sh_abs <= imin(c, slw) && (lt != it || lv != iv))
               viol |= kViolShadow;
-            if (sh_abs > slw && sh_abs <= c) {
-              lt = it, lv = iv;
-              if constexpr (kMet) ss = I<S_LOG_TICK>(s)[i * cap + k];
-            }
+            if (sh_abs > slw && sh_abs <= c) lt = it, lv = iv, src = i;
           }
           slw = imax(slw, c);
         }
-        st[k] = lt;
+        sht[k] = lt;
         sv[k] = lv;
-        if constexpr (kMet) I<S_SHADOW_SUB>(s)[k] = ss;
+        if constexpr (kMet)
+          st.shadow_sub()[k] = src >= 0 ? st.log_tick()[src * cap + k] : 0;
       }
     }
     viol = tile.any_bits(viol);
@@ -1482,7 +1571,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
     }
   }
   __syncwarp();
-  if constexpr (kMet) fold<CAP_>(p, s, tile, t, mt);
+  if constexpr (kMet) fold<CAP_>(p, st, tile, t, mt);
   clk.mark(P_ORACLE);
 
   // ------------------ compaction (691-705), background fsync (707-722)
@@ -1543,81 +1632,148 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
   }
   if constexpr (kMet) {
     if (node) {
-      mt.ev[E_TERM_BUMPS] += term[d] > term0;
-      mt.ev[E_COMMIT_ADVANCES] += commit[d] > commit0;
+      mt.add(E_TERM_BUMPS, term[d] > term0);
+      mt.add(E_COMMIT_ADVANCES, commit[d] > commit0);
     }
   }
+  if (o.dv) atomicAdd(I<L_MSG_COUNT>(s), __popc(o.dv));  // int32 wrap
   if (lane == 0) I<L_TICK>(s)[0] = t;
   __syncwarp();  // the tick's words and scalars are read
   clk.mark(P_COMPACT);
 }
 
-// The metrics variant's stamp rings in (load: log_tick; shadow_sub is
-// the tick's own) or out (a tile that holds a cluster: both)
-template <int TILE, typename Blk>
-__device__ void stage_metrics(const Params &p, const Blk &s, int b, int lane,
-                              bool load, bool active) {
-  const int nc = p.n * p.cap;
-  int *lt = s.I(S_LOG_TICK), *ss = s.I(S_SHADOW_SUB);
-  if (load) {
-    const int *g = p.m_in[M_LOG_TICK] + static_cast<size_t>(b) * nc;
-    for (int i = lane; i < nc; i += TILE) lt[i] = g[i];
-  } else if (active) {
-    int *g = p.m_out[M_LOG_TICK] + static_cast<size_t>(b) * nc;
-    for (int i = lane; i < nc; i += TILE) g[i] = lt[i];
-    g = p.m_out[M_SHADOW_SUB] + static_cast<size_t>(b) * p.cap;
-    for (int i = lane; i < p.cap; i += TILE) g[i] = ss[i];
-  }
+// The metrics variant's stamp rings for cluster b on a tile: log_tick
+// filled from the state in
+template <int TILE>
+__device__ void stamps_load(const Stamps &st, int lane) {
+  const int nc = st.p.n * st.p.cap;
+  const int *g = st.p.m_in[M_LOG_TICK] + static_cast<size_t>(st.b) * nc;
+  int *lt = st.log_tick();
+  for (int i = lane; i < nc; i += TILE) lt[i] = g[i];
   __syncwarp();
 }
 
-// The chunk's metric registers out: each register leaf of cluster b is its
-// input plus the chunk's sums (int32 wrap, as the eager tick's), or, for
-// the worst op, the register the chunk left. A replicate-phase latency is
-// the whole latency and the other phases fold zeros (bucket 0), so each
-// phase row's mass is the acked count (step.py 666-685)
-template <int TILE>
-__device__ void write_metrics(const Params &p, int b, bool active,
-                              const Tile<TILE> &tile, const Meter &mt) {
+// The chunk's metric registers so far: each register leaf of cluster b is
+// its input plus the chunk's sums (int32 wrap, as the eager tick's), or,
+// for the worst op, the register the chunk left. A replicate-phase
+// latency is the whole latency and the other phases fold zeros (bucket
+// 0), so each phase row's mass is the acked count (step.py 666-685).
+// out(leaf, i, v) takes element i of cluster b's row of the leaf; the
+// tile's lanes all call this (its sums are tile reductions), and only a
+// tile that holds a cluster (active) writes
+template <int TILE, typename Out>
+__device__ void metric_rows(const Params &p, int b, bool active,
+                            const Tile<TILE> &tile, const Meter &mt,
+                            Out out) {
   const int lane = tile.lane;
   int ev = 0;
 #pragma unroll
   for (int e = 0; e < kEvents; ++e) {
-    const int sum = tile.sum(mt.ev[e]);
+    const int sum = tile.sum(mt.ev(e));
     if (lane == e) ev = sum;
   }
   const int acked = tile.sum(mt.acked), lat_sum = tile.sum(mt.lat_sum);
   if (!active) return;
   const size_t c = b;
-  auto in = [&](int leaf, size_t i) { return p.m_in[leaf][i]; };
-  auto out = [&](int leaf, size_t i, int v) { p.m_out[leaf][i] = v; };
+  auto in = [&](int leaf, int size, int i) {
+    return p.m_in[leaf][c * size + i];
+  };
   if (lane < kHist) {
-    out(M_LAT_HIST, c * kHist + lane,
-        wadd(in(M_LAT_HIST, c * kHist + lane), mt.hist));
+    out(M_LAT_HIST, lane, wadd(in(M_LAT_HIST, kHist, lane), mt.hist));
     for (int ph = 0; ph < kLatPhases; ++ph) {
-      const size_t i = (c * kLatPhases + ph) * kHist + lane;
+      const int i = ph * kHist + lane;
       const int add = ph == kReplicate ? mt.hist : lane == 0 ? acked : 0;
-      out(M_PHASE_HIST, i, wadd(in(M_PHASE_HIST, i), add));
+      out(M_PHASE_HIST, i, wadd(in(M_PHASE_HIST, kLatPhases * kHist, i),
+                                add));
     }
   }
   if (lane < kEvents)
-    out(M_EV_COUNTS, c * kEvents + lane,
-        wadd(in(M_EV_COUNTS, c * kEvents + lane), ev));
+    out(M_EV_COUNTS, lane, wadd(in(M_EV_COUNTS, kEvents, lane), ev));
   if (lane < kLatPhases) {
-    const size_t i = c * kLatPhases + lane;
-    out(M_PHASE_TICKS, i,
-        wadd(in(M_PHASE_TICKS, i), lane == kReplicate ? lat_sum : 0));
-    out(M_WORST_PHASES, i,
+    out(M_PHASE_TICKS, lane,
+        wadd(in(M_PHASE_TICKS, kLatPhases, lane),
+             lane == kReplicate ? lat_sum : 0));
+    out(M_WORST_PHASES, lane,
         mt.worst_new ? (lane == kReplicate ? mt.worst_lat : 0)
-                     : in(M_WORST_PHASES, i));
+                     : in(M_WORST_PHASES, kLatPhases, lane));
   }
   if (lane == 0) {
-    out(M_LAT_TICKS, c, wadd(in(M_LAT_TICKS, c), lat_sum));
-    out(M_WORST_LAT, c, mt.worst_new ? mt.worst_lat : in(M_WORST_LAT, c));
-    out(M_WORST_KEY, c, mt.worst_new ? -1 : in(M_WORST_KEY, c));
-    out(M_WORST_CLIENT, c, mt.worst_new ? -1 : in(M_WORST_CLIENT, c));
-    out(M_WORST_SUB, c, mt.worst_new ? mt.worst_sub : in(M_WORST_SUB, c));
+    out(M_LAT_TICKS, 0, wadd(in(M_LAT_TICKS, 1, 0), lat_sum));
+    out(M_WORST_LAT, 0, mt.worst_new ? mt.worst_lat : in(M_WORST_LAT, 1, 0));
+    out(M_WORST_KEY, 0, mt.worst_new ? -1 : in(M_WORST_KEY, 1, 0));
+    out(M_WORST_CLIENT, 0, mt.worst_new ? -1 : in(M_WORST_CLIENT, 1, 0));
+    out(M_WORST_SUB, 0, mt.worst_new ? mt.worst_sub : in(M_WORST_SUB, 1, 0));
   }
+}
+
+// The chunk's metric registers out, into the metric leaves out
+template <int TILE>
+__device__ void write_metrics(const Params &p, int b, bool active,
+                              const Tile<TILE> &tile, const Meter &mt) {
+  const int per[kMetricLeaves] = {0, 0, kHist, kEvents, kLatPhases * kHist,
+                                  kLatPhases, 1, 1, kLatPhases, 1, 1, 1};
+  metric_rows(p, b, active, tile, mt, [&](int leaf, int i, int v) {
+    p.m_out[leaf][static_cast<size_t>(b) * per[leaf] + i] = v;
+  });
+}
+
+// K6-trace after tick i of the chunk: cluster b's flight-recorder row
+// (kernel K8's function, kernels/trace.py record_plain) into trace[i, b]:
+// the post-tick node rows role, term, commit, log_len and base from the
+// block, durable_len from the node lane's registers, alive, the
+// adjacency's row masks, the tick's deliveries by type, the install
+// outcomes, shadow_len, msg_count, violations and, in the metrics
+// variant, the record stamps and the metric registers so far. K8 counts a type's deliveries as the
+// destinations with a message due in its pre-tick mailbox over a link
+// that is up after the tick, the destination (and for install-snapshot
+// the sender) live after it. The tick's faults set liveness and links
+// before its delivery passes and nothing after them changes either, and
+// each pass reads its own mailbox before any pass writes it, so that is
+// the count of nodes the pass delivered to (Own::dv). A tile that holds
+// no cluster writes nothing
+template <int N_, int CAP_, int TILE, bool kMet, typename Blk>
+__device__ void record(const Params &p, const Blk &s, const Tile<TILE> &tile,
+                       const Own &o, const Meter &mt, const Stamps &st,
+                       unsigned alive, int b, bool active, int i) {
+  const int n = N_ ? N_ : p.n, cap = CAP_ ? CAP_ : p.cap, lane = tile.lane;
+  int *row = p.trace + (static_cast<size_t>(i) * p.b + b) * p.trace_w;
+  int count = 0;  // lane k: pass k's deliveries
+#pragma unroll
+  for (int k = 0; k < kDeliveries; ++k) {
+    const int c = __popc(tile.ballot(lane < n && (o.dv >> k & 1u)));
+    if (lane == k) count = c;
+  }
+  if constexpr (kMet) {
+    metric_rows(p, b, active, tile, mt, [&](int leaf, int j, int v) {
+      const int col = trace_col(leaf, n, cap);
+      if (col >= 0) row[col + j] = v;
+    });
+  }
+  if (!active) return;
+  if (lane < n) {
+    const int d = lane;
+    row[d] = I<L_ROLE>(s)[d];
+    row[n + d] = I<L_TERM>(s)[d];
+    row[2 * n + d] = I<L_COMMIT>(s)[d];
+    row[3 * n + d] = I<L_LOG_LEN>(s)[d];
+    row[4 * n + d] = I<L_BASE>(s)[d];
+    row[5 * n + d] = o.durable_len;
+    row[6 * n + d] = bit(alive, d);
+    int mask = 0;
+    for (int j = 0; j < n; ++j) mask |= (B<L_ADJ>(s)[d * n + j] != 0) << j;
+    row[7 * n + d] = mask;
+    row[8 * n + kDeliveries + d] = I<L_SNAP_INSTALLED_SRC>(s)[d];
+    row[9 * n + kDeliveries + d] = I<L_SNAP_INSTALLED_LEN>(s)[d];
+  }
+  if (lane < kDeliveries) row[8 * n + lane] = count;
+  const int c = 10 * n + kDeliveries;
+  if (lane == 0) {
+    row[c] = I<L_SHADOW_LEN>(s)[0];
+    row[c + 1] = I<L_MSG_COUNT>(s)[0];
+    row[c + 2] = I<L_VIOLATIONS>(s)[0];
+  }
+  if constexpr (kMet)
+    for (int k = lane; k < cap; k += TILE) row[c + 3 + k] = st.shadow_sub()[k];
 }
 
 // The coverage variant after tick i of the chunk (K5's function, engine.py
@@ -1630,10 +1786,11 @@ __device__ void write_metrics(const Params &p, int b, bool active,
 // final stamps: warps and blocks run their ticks in no common order
 template <int N_, int TILE, typename Blk>
 __device__ void stamp(const Params &p, const Blk &s, const Tile<TILE> &tile,
-                      unsigned alive, uint32_t pw, int b, bool active,
-                      int i) {
+                      unsigned alive, int b, bool active, int i) {
   const int n = N_ ? N_ : p.n, lane = tile.lane;
   const bool node = lane < n;
+  uint32_t pw = 1u;  // the lane's node's weight
+  for (int j = lane + 1; j < n; ++j) pw *= p.alphabet;
   const int *term = I<L_TERM>(s), *commit = I<L_COMMIT>(s);
   int rank = 0;
   if (node)
@@ -1675,10 +1832,10 @@ __host__ __device__ inline int credits(const int *fp, const int *seen, int b,
 
 // The chunk for cluster b on a tile: stage in, m ticks, stage out (a
 // tile past the batch's end, !active, runs a copy of the last cluster and
-// writes nothing); the metrics variant also stages its stamp rings and
+// writes nothing); the metrics variant also fills its stamp rings and
 // writes the metric registers, the coverage variant stamps the seen-set
-// after each tick; the profile instance writes its per-phase sums to
-// prof[b, kPhases]
+// after each tick, a trace buffer gets each tick's row; the profile
+// instance writes its per-phase sums to prof[b, kPhases]
 template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet,
           bool kCov>
 __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
@@ -1686,9 +1843,10 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   const Block<N_, CAP_, AE_, kMet> s{p, cl};
   const int n = N_ ? N_ : p.n, lane = tile.lane;
   Clock<kProf> clk;
-  clk.start();
+  clk.start(lane);
   stage<TILE>(p, s, b, lane, true, active);
-  if constexpr (kMet) stage_metrics<TILE>(p, s, b, lane, true, active);
+  const Stamps st{p, b, active};
+  if constexpr (kMet) stamps_load<TILE>(st, lane);
   Own o;
   if (lane < n) own_load(s, o, lane, n);
   Meter mt;
@@ -1696,40 +1854,30 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
     mt.worst_lat = p.m_in[M_WORST_LAT][b];
     mt.worst_sub = p.m_in[M_WORST_SUB][b];
   }
-  uint32_t pw = 1u;  // the coverage code's weight of the lane's node
-  if constexpr (kCov)
-    for (int j = lane + 1; j < n; ++j) pw *= p.alphabet;
   unsigned alive = tile.ballot(lane < n && B<L_ALIVE>(s)[lane]);
-  TickKeys<TILE> keys{
-      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]),
-      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]),
-      static_cast<uint32_t>(I<L_TICK>(s)[0]) + 1u};
+  TickKeys<TILE> keys;
   clk.mark(P_STAGE);
   for (int i = 0; i < p.m; ++i) {
-    uint32_t tk0, tk1;
-    keys.get(i, tile, tk0, tk1);
-    tick<N_, CAP_, AE_, TILE, kProf, kMet>(p, s, o, mt, alive, tile, clk, tk0,
-                                           tk1);
-    if constexpr (kCov) stamp<N_>(p, s, tile, alive, pw, b, active, i);
+    uint32_t tk0, tk1;  // the block's tick is the chunk's first + i
+    keys.get(p, b, i, static_cast<uint32_t>(I<L_TICK>(s)[0]) + 1u, tile, tk0,
+             tk1);
+    tick<N_, CAP_, AE_, TILE, kProf, kMet>(p, s, st, o, mt, alive, tile, clk,
+                                           tk0, tk1);
+    if constexpr (kCov) {  // the profile counts the stamp with compact
+      stamp<N_>(p, s, tile, alive, b, active, i);
+      clk.mark(P_COMPACT);
+    }
+    if (p.trace)  // the whole warp or none
+      record<N_, CAP_, TILE, kMet>(p, s, tile, o, mt, st, alive, b, active,
+                                   i);
   }
   if (lane < n) own_store(s, o, lane, n);
-  const int delivered = tile.sum(o.delivered);
-  const int installs = tile.sum(o.installs);
-  if (lane == 0) {  // the chunk's deliveries and installs (int32 wrap)
-    I<L_MSG_COUNT>(s)[0] = wadd(I<L_MSG_COUNT>(s)[0], delivered);
-    I<L_SNAP_INSTALL_COUNT>(s)[0] =
-        wadd(I<L_SNAP_INSTALL_COUNT>(s)[0], installs);
-  }
   __syncwarp();
   stage<TILE>(p, s, b, lane, false, active);
-  if constexpr (kMet) {
-    stage_metrics<TILE>(p, s, b, lane, false, active);
-    write_metrics<TILE>(p, b, active, tile, mt);
-  }
+  if constexpr (kMet) write_metrics<TILE>(p, b, active, tile, mt);
   clk.mark(P_STAGE);
   if constexpr (kProf) {
-    if (lane == 0 && active)
-      for (int i = 0; i < kPhases; ++i) prof[b * kPhases + i] = clk.acc[i];
+    if (lane < kPhases && active) prof[b * kPhases + lane] = clk.acc;
   }
 }
 
@@ -1742,13 +1890,11 @@ __device__ void draw_chunk(const Params &p, uint8_t *cl, int b, int t1,
                            uint32_t *words) {
   const Block<0, 0, 0> s{p, cl};  // the words' slot by its runtime offset
   const int total = N_ ? draw_offset(kDraws, N_) : p.total;
-  TickKeys<TILE> keys{
-      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]),
-      static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]),
-      static_cast<uint32_t>(t1)};
+  TickKeys<TILE> keys;
   for (int i = 0; i < p.m; ++i) {
     uint32_t tk0, tk1;
-    keys.get(i, tile, tk0, tk1);
+    keys.get(p, b, i, static_cast<uint32_t>(t1) + static_cast<uint32_t>(i),
+             tile, tk0, tk1);
     draw_words<N_, TILE>(p, U<S_WORDS>(s), tk0, tk1, tile.lane);
     __syncwarp();
     uint32_t *row = words + (static_cast<size_t>(i) * p.b + b) * total;

@@ -17,9 +17,10 @@
 // reads the post-tick rows it copies (about 240 B), the adjacency and the
 // five pre-tick mailboxes (6 x 100 B) and writes the row: under 1.1 kB a
 // cluster, a third of a nanosecond at 3.35 TB/s, and some 5 x 25 compares
-// for the deliveries. The traced replay runs one cluster, one launch a
-// tick, so the launch's latency is what it costs: a kernel that does more
-// a launch would not be faster.
+// for the deliveries. One cluster's tick is all a traced replay asks of
+// it, so the launch's latency is what it costs; the replay therefore
+// writes the same row from inside K6 (tick.cuh record, K6-trace), and
+// this kernel serves a caller that holds two states.
 //
 // Design. A warp a cluster, the row's columns shared out over its
 // threads; the row goes into a device buffer [T, B, W] the wrapper holds

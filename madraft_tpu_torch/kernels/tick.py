@@ -20,6 +20,10 @@ and written like the others); with ``cov`` (a ``Seen``) K6-coverage stamps
 every lane's coverage fingerprint into the seen-set after each tick
 (B2-coverage), then the credit pass (``coverage.credit_pass``) adds the
 credits to ``cov.new_fps``. Both together give K6-metrics-coverage.
+With ``trace`` (an int32 [m, B, W] tensor, W = ``kernels.trace.
+record_width(cfg)``) any build also writes each tick's flight-recorder
+row (K8's row, ``kernels.trace.record_plain``) into ``trace[i]``: K6-trace,
+which the traced replay runs instead of K8 a tick.
 
 The kernel reads the clusters' keys (``[B, 2]`` int64-held u32), the state
 leaves of ``LEAVES`` and the knobs as one float32 and one int32 ``[B, k]``
@@ -33,13 +37,15 @@ other shape a runtime one.
 
 On CPU tensors ``tick_chunk`` runs ``tick_chunk_plain``: the chunk's words
 from ``threefry.tick_blocks_plain``, then ``step.step_cluster`` once a
-tick (and ``coverage.seen_update_plain`` after it with ``cov``); on CUDA
-tensors it launches K6's variant or raises. ``tick_chunk.launches`` counts
-launches of every variant, ``metrics_launches`` and ``coverage_launches``
-those of the metrics and coverage ones. The result is one fresh
+tick (and ``coverage.seen_update_plain`` after it with ``cov``, the
+tick's ``record_plain`` row with ``trace``); on CUDA tensors it launches
+K6's variant or raises. ``tick_chunk.launches`` counts launches of every
+variant, ``metrics_launches``, ``coverage_launches`` and
+``trace_launches`` those of the metrics and coverage builds and those that
+wrote trace rows. The result is one fresh
 allocation of the state (the callers keep their input).
-``tick_chunk_profiled`` runs the profile build (clock64() cycles per phase
-group of ``PHASES``), for ``chip_smoke.py``.
+``tick_chunk_profiled`` runs the profile build of K6 or K6-metrics
+(clock64() cycles per phase group of ``PHASES``), for ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import torch
 from madraft_tpu_torch import _build
 from madraft_tpu_torch.kernels import coverage as K5
 from madraft_tpu_torch.kernels import threefry
+from madraft_tpu_torch.kernels import trace as K8
 from madraft_tpu_torch.tpusim import coverage, prng, step
 from madraft_tpu_torch.tpusim.config import (
     RAFT_BUGS,
@@ -67,6 +74,9 @@ from madraft_tpu_torch.tpusim.state import ClusterState, METRIC_LEAF0
 MAX_NODES = 16
 MAX_CAP = 256
 MAX_AE = 64  # the kernel keeps a delivery's in-batch entries as one u64 mask
+# K6-metrics' ticks a launch at most (csrc/tick.cuh kMaxMetricTicks: its
+# event counts are 16-bit in registers); the engine launches 256
+MAX_METRIC_TICKS = 65535
 # (n, cap) of the template instances (csrc/tick.cuh shape_n / shape_cap),
 # each for ae_max <= SHAPE_AE; instance i + 1, the runtime instance 0
 SHAPES = ((3, 16), (3, 64), (5, 16), (5, 64), (7, 16), (7, 64))
@@ -198,19 +208,23 @@ def instance(cfg: SimConfig) -> int:
 
 
 def tick_chunk_plain(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-                     kn: Knobs, m: int, cov: Optional[Seen] = None
-                     ) -> ClusterState:
+                     kn: Knobs, m: int, cov: Optional[Seen] = None,
+                     trace: Optional[torch.Tensor] = None) -> ClusterState:
     """The chunk as the eager tick runs it: the words of the m ticks from
     each cluster's own tick on (``threefry.tick_blocks_plain`` under
     ``prng.partitionable()``), then ``step.step_cluster`` once a tick on
     its ``[B, total]`` slice (the metrics plane as ``cfg.metrics`` says),
-    and with ``cov`` each tick's fingerprints into the seen-set by
-    ``coverage.seen_update_plain`` at run-wide tick ``cov.t + i``."""
+    with ``cov`` each tick's fingerprints into the seen-set by
+    ``coverage.seen_update_plain`` at run-wide tick ``cov.t + i``, and
+    with ``trace`` each tick's ``record_plain`` rows into ``trace[i]``."""
     words = threefry.tick_blocks_plain(
         keys, state.tick + 1, m, step._block_total(cfg.n_nodes),
         prng.partitionable())
     for i in range(m):
+        prev = state
         state = step.step_cluster(cfg, state, keys, kn, words=words[i])
+        if trace is not None:
+            trace[i].copy_(K8.record_plain(prev, state))
         if cov is not None:
             coverage.seen_update_plain(
                 cov.fp, state.role, state.alive, state.term, state.commit,
@@ -222,12 +236,13 @@ def _lib(name: str = "tick"):
     lib = _build.library(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        args = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+        args = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, i,
+                p]
         lib.tick_launch.argtypes = args
         lib.tick_launch.restype = ctypes.c_int
         lib.credit_launch.argtypes = [p, p, p, i, i, i, p]
         lib.credit_launch.restype = ctypes.c_int
-        if name == "tick_profile":
+        if name.endswith("_profile"):
             lib.tick_launch_profile.argtypes = args + [p]
             lib.tick_launch_profile.restype = ctypes.c_int
         lib._typed = True
@@ -235,7 +250,8 @@ def _lib(name: str = "tick"):
 
 
 def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-           m: int = 0, cov: Optional[Seen] = None) -> None:
+           m: int = 0, cov: Optional[Seen] = None,
+           trace: Optional[torch.Tensor] = None) -> None:
     n, cap = cfg.n_nodes, cfg.log_cap
     if not 1 <= n <= MAX_NODES or cap > MAX_CAP or cfg.ae_max > MAX_AE:
         raise ValueError(
@@ -261,6 +277,13 @@ def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         raise ValueError(
             f"tick_chunk: keys are {tuple(keys.shape)} {keys.dtype} on "
             f"{keys.device}, expected [{b}, 2] int64 on {dev}")
+    if trace is not None:
+        shape = (m, b, K8.record_width(cfg))
+        if (trace.device != dev or tuple(trace.shape) != shape
+                or trace.dtype != I32 or not trace.is_contiguous()):
+            raise ValueError(
+                f"tick_chunk: trace is {tuple(trace.shape)} {trace.dtype} on "
+                f"{trace.device}, expected contiguous {shape} int32 on {dev}")
     if cov is None:
         return
     bits = cov.fp.bitmap_bits
@@ -284,25 +307,33 @@ def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
 
 def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
             kn: Knobs, m: int, lib, stream, prof=None,
-            table=None, cov: Optional[Seen] = None, fp=None) -> tuple:
+            table=None, cov: Optional[Seen] = None, fp=None,
+            trace: Optional[torch.Tensor] = None) -> tuple:
     """Check the inputs, allocate the new state and launch ``lib``'s
     ``tick_launch`` for m ticks on ``stream`` (``tick_launch_profile``
     into ``prof`` when given): with ``cfg.metrics`` the metric leaves go
-    in and come out too, with ``cov`` the coverage arguments go in and
-    ``fp`` (int32 [m, B]) gets each lane-tick's flat seen index. Returns
-    (new state, launched)."""
-    _check(cfg, state, keys, m, cov)
+    in and come out too (and a spare row of the stamp rings, which a tile
+    past the batch's end works on), with ``cov`` the coverage arguments go
+    in and ``fp`` (int32 [m, B]) gets each lane-tick's flat seen index,
+    with ``trace`` (int32 [m, B, W]) each tick's trace rows. Returns (new
+    state, launched)."""
+    _check(cfg, state, keys, m, cov, trace)
+    if cfg.metrics and m > MAX_METRIC_TICKS:
+        raise ValueError(f"tick_chunk: K6-metrics runs at most "
+                         f"{MAX_METRIC_TICKS} ticks a launch, got {m}")
     dev, b = state.tick.device, state.tick.shape[0]
     n, cap = cfg.n_nodes, cfg.log_cap
     metrics = cfg.metrics
     # the new state: one allocation, each leaf a 16-byte aligned view (the
-    # metric leaves too when the kernel writes them)
+    # metric leaves too when the kernel writes them), then the spare row
     written = list(state[:METRIC_LEAF0] if not metrics else state)
     offs, nbytes = [], 0
     for x in written:
         offs.append(nbytes)
         nbytes += -(-x.numel() * x.element_size() // 16) * 16
-    buf = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    spare = nbytes
+    buf = torch.empty((nbytes + 4 * (n * cap + cap) * metrics,),
+                      dtype=torch.uint8, device=dev)
     outs = [buf[at:at + x.numel() * x.element_size()].view(x.dtype)
             .view(x.shape) for x, at in zip(written, offs)]
     launched = bool(b and m)
@@ -315,11 +346,11 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         ptr_out = np.asarray([y.data_ptr() for y in outs[:METRIC_LEAF0]],
                              dtype=np.int64)
         mptrs = None
-        if metrics:  # the metric leaves in, then out
+        if metrics:  # the metric leaves in, then out, then the spare row
             mptrs = np.asarray(
                 [x.data_ptr() for x in ins[METRIC_LEAF0:]]
-                + [y.data_ptr() for y in outs[METRIC_LEAF0:]],
-                dtype=np.int64)
+                + [y.data_ptr() for y in outs[METRIC_LEAF0:]]
+                + [buf.data_ptr() + spare], dtype=np.int64)
         cargs = None
         if cov is not None:
             ccfg, rows = cov.fp, cov.rows
@@ -339,7 +370,9 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                 draws.ctypes.data, len(draws), b, n, cap, cfg.ae_max, m,
                 RAFT_BUGS.index(cfg.bug), int(prng.partitionable()),
                 None if mptrs is None else mptrs.ctypes.data,
-                None if cargs is None else cargs.ctypes.data, stream)
+                None if cargs is None else cargs.ctypes.data,
+                None if trace is None else trace.data_ptr(),
+                0 if trace is None else trace.shape[2], stream)
         if prof is None:
             _build.check(lib.tick_launch(*args), "tick_launch")
         else:
@@ -353,16 +386,21 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
 
 def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                kn: Knobs, m: int, table=None,
-               cov: Optional[Seen] = None) -> ClusterState:
+               cov: Optional[Seen] = None,
+               trace: Optional[torch.Tensor] = None) -> ClusterState:
     """m ticks of every cluster: plain version on the CPU, kernel K6's
     variant on CUDA (``variant``; with ``cov``, then the credit pass).
     ``keys`` are the clusters' PRNG keys, ``kn`` the knobs, each field 0-d
     or a [B] row; ``table`` is ``knob_table(kn, B)`` on the device when the
     caller has it; ``cov`` the coverage pool's seen-set, whose ``seen``
-    and ``new_fps`` are updated in place."""
+    and ``new_fps`` are updated in place; ``trace`` an int32 [m, B,
+    ``kernels.trace.record_width(cfg)``] tensor that gets each tick's
+    trace rows."""
     dev = state.tick.device
     if dev.type == "cpu":
-        return tick_chunk_plain(cfg, state, keys, kn, m, cov)
+        if trace is not None:
+            _check(cfg, state, keys, m, cov, trace)
+        return tick_chunk_plain(cfg, state, keys, kn, m, cov, trace)
     if dev.type != "cuda":
         raise ValueError(f"tick_chunk: expected CPU or CUDA tensors, got {dev}")
     lib = _lib(variant(cfg.metrics, cov is not None))
@@ -370,11 +408,12 @@ def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
     fp = None if cov is None else torch.empty(
         (m, state.tick.shape[0]), dtype=I32, device=dev)
     out, launched = _launch(cfg, state, keys, kn, m, lib, stream,
-                            table=table, cov=cov, fp=fp)
+                            table=table, cov=cov, fp=fp, trace=trace)
     if launched:
         tick_chunk.launches += 1
         tick_chunk.metrics_launches += int(cfg.metrics)
         tick_chunk.coverage_launches += int(cov is not None)
+        tick_chunk.trace_launches += int(trace is not None)
         if cov is not None:
             K5.credit_pass(fp, cov.seen, cov.new_fps, cov.t, lib)
     return out
@@ -383,17 +422,20 @@ def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
 tick_chunk.launches = 0
 tick_chunk.metrics_launches = 0
 tick_chunk.coverage_launches = 0
+tick_chunk.trace_launches = 0
 
 
 def tick_chunk_profiled(cfg: SimConfig, state: ClusterState,
                         keys: torch.Tensor, kn: Knobs, m: int) -> tuple:
-    """K6's profile instance on CUDA tensors (a measurement, not counted in
+    """K6's profile instance on CUDA tensors, K6-metrics' with
+    ``cfg.metrics`` (a measurement, not counted in
     ``tick_chunk.launches``): the chunk's new state and each cluster's
     clock64() cycles per phase group, int64 [B, len(PHASES)]."""
     dev, b = state.tick.device, state.tick.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"tick_chunk_profiled runs on CUDA, got {dev}")
     prof = torch.zeros((b, len(PHASES)), dtype=torch.int64, device=dev)
-    out, _ = _launch(cfg, state, keys, kn, m, _lib("tick_profile"),
+    lib = _lib(variant(cfg.metrics, False) + "_profile")
+    out, _ = _launch(cfg, state, keys, kn, m, lib,
                      torch.cuda.current_stream(dev).cuda_stream, prof)
     return out, prof

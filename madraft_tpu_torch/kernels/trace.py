@@ -12,7 +12,9 @@ its launch and the note on its bound and design) and ``csrc/trace.cuh``
 W] buffer): the fields of ``tpusim.trace.TickRecord`` in order, each
 flattened (``field_shapes``). On CPU tensors it copies ``record_plain``'s rows
 in; on CUDA tensors it launches K8 or raises. ``record.launches`` counts
-its launches.
+its launches. The traced replay on the card does not launch it: K6-trace
+(``kernels/tick.py`` ``tick_chunk(..., trace=)``) writes the same rows
+from inside the tick, and ``record_plain`` is the plain version of both.
 """
 
 from __future__ import annotations

@@ -12,11 +12,12 @@ records into an event timeline (``decode_events``), a window of it around
 the first violation (``events_in_window``) or a Perfetto trace
 (``chrome_trace``).
 
-On the card the replay ticks the wide state with K6, one tick a launch
-(``kernels/tick.py``; K6-metrics with ``cfg.metrics``), and after each
-launch K8 (``kernels/trace.py``) writes the tick's row into a device
-buffer [T, 1, W] that the host copies once at the end; on the CPU the
-eager tick and K8's plain version. The contract is the reference's: the
+On the card the replay ticks the wide state with K6-trace: launches of up
+to ``engine.KERNEL_CHUNK`` ticks (``kernels/tick.py`` with ``trace``;
+K6-metrics with ``cfg.metrics``) that write each tick's row, K8's row
+(``kernels/trace.py``), into a device buffer [T, 1, W], which the host
+copies once at the end; on the CPU the eager tick and K8's plain
+version. The contract is the reference's: the
 traced final state equals ``replay_cluster``'s bit for bit (the same tick
 on the same stream; the packed carry is exact, so the port ticks the wide
 state throughout).
@@ -91,31 +92,30 @@ assert TickRecord._fields == tuple(
 
 def _traced_ticks(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                   kn, n_ticks: int, rows: torch.Tensor) -> ClusterState:
-    """n_ticks ticks of ``state``, each tick's K8 row into ``rows[i]``:
-    on the card K6 at one tick a launch (its knob table built once), on
-    the CPU the eager tick."""
-    from madraft_tpu_torch.tpusim.engine import tick_route
+    """n_ticks ticks of ``state``, each tick's row into ``rows[i]``: on
+    the card K6-trace launches of up to KERNEL_CHUNK ticks (the knob
+    table built once), on the CPU the eager tick and K8's plain
+    version."""
+    from madraft_tpu_torch.tpusim.engine import KERNEL_CHUNK, tick_route
 
-    kernel = tick_route(state.tick.device) == "kernel"
-    table = K6.knob_table(kn, keys.shape[0]) if kernel else None
+    if tick_route(state.tick.device) == "kernel":
+        table = K6.knob_table(kn, keys.shape[0])
+        for done in range(0, n_ticks, KERNEL_CHUNK):
+            m = min(KERNEL_CHUNK, n_ticks - done)
+            state = K6.tick_chunk(cfg, state, keys, kn, m, table,
+                                  trace=rows[done:done + m])
+        return state
     for i in range(n_ticks):
-        nxt = (K6.tick_chunk(cfg, state, keys, kn, 1, table) if kernel
-               else step_cluster(cfg, state, keys, kn))
+        nxt = step_cluster(cfg, state, keys, kn)
         K8.record(cfg, state, nxt, rows[i])
         state = nxt
     return state
 
 
-def replay_cluster_traced(cfg: SimConfig, seed: int, cluster_id: int,
-                          n_ticks: int, knobs=None, device=None) -> tuple:
-    """Re-run ONE cluster with the flight recorder on.
-
-    Returns ``(final_state, trace)``: the final wide ``ClusterState``
-    with a batch axis of 1, bit-identical to ``engine.replay_cluster``'s,
-    and a ``TickRecord`` of host numpy arrays with a leading [n_ticks]
-    axis. ``knobs``: an optional knob override (``engine.resolve_knobs``),
-    e.g. a coverage-pool row's mutated knobs, so the timeline decodes the
-    execution that row ran."""
+def traced_rows(cfg: SimConfig, seed: int, cluster_id: int, n_ticks: int,
+                knobs=None, device=None) -> tuple:
+    """``replay_cluster_traced``'s run without the decode: (final state,
+    the rows int32 [n_ticks, 1, W] on the run's device)."""
     from madraft_tpu_torch.tpusim.engine import (
         cluster_keys,
         resolve_device,
@@ -129,6 +129,20 @@ def replay_cluster_traced(cfg: SimConfig, seed: int, cluster_id: int,
                        dtype=torch.int32, device=dev)
     final = _traced_ticks(cfg, init_cluster(cfg, keys, kn), keys, kn,
                           int(n_ticks), rows)
+    return final, rows
+
+
+def replay_cluster_traced(cfg: SimConfig, seed: int, cluster_id: int,
+                          n_ticks: int, knobs=None, device=None) -> tuple:
+    """Re-run ONE cluster with the flight recorder on.
+
+    Returns ``(final_state, trace)``: the final wide ``ClusterState``
+    with a batch axis of 1, bit-identical to ``engine.replay_cluster``'s,
+    and a ``TickRecord`` of host numpy arrays with a leading [n_ticks]
+    axis. ``knobs``: an optional knob override (``engine.resolve_knobs``),
+    e.g. a coverage-pool row's mutated knobs, so the timeline decodes the
+    execution that row ran."""
+    final, rows = traced_rows(cfg, seed, cluster_id, n_ticks, knobs, device)
     return final, TickRecord(**K8.decode(cfg, rows[:, 0].cpu().numpy()))
 
 

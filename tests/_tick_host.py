@@ -22,7 +22,7 @@ CSRC = ROOT / "madraft_tpu_torch" / "csrc"
 def _typed(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tick_launch.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i,
-                                i, p, p, p]
+                                i, p, p, p, i, p]
     lib.tick_launch.restype = ctypes.c_int
     lib.credit_launch.argtypes = [p, p, p, i, i, i, p]
     lib.credit_launch.restype = ctypes.c_int

@@ -593,7 +593,7 @@ def _plant_metric_registers(s):
 
 @pytest.mark.parametrize("case", [
     "n3", "n5", "n7", "n3_cap16", "n5_cap16", "n7_cap16", "n5_forced_runtime",
-    "n5_legacy", "n5_wrap", "n5_registers", "n5_rows_bug"])
+    "n5_legacy", "n5_wrap", "n5_registers", "n5_rows_bug", "n5_4096"])
 def test_tick_metrics_kernel_equals_plain_every_chunk(dev, case):
     storm = config.storm_profiles()["storm"][0].replace(metrics=True)
     cfg = storm.replace(n_nodes=int(case[1]),
@@ -602,7 +602,7 @@ def test_tick_metrics_kernel_equals_plain_every_chunk(dev, case):
         cfg = cfg.replace(ae_max=K6.SHAPE_AE + 1)
     if case.endswith("bug"):
         cfg = cfg.replace(bug="commit_any_term")
-    b = 128
+    b = 4096 if case.endswith("4096") else 128  # 4096: the flagship's wave
     s, keys, kn = _k6_start(cfg, b, 7, "cpu",
                             _k6_rows(b) if "rows" in case else None)
     if "registers" in case:
@@ -783,6 +783,61 @@ def test_traced_replay_on_the_card_equals_the_cpu(dev, bug, metrics_on):
     for f in rg._fields:
         assert (getattr(rg, f) == getattr(rc, f)).all(), f
     assert trace.decode_events(rg) == trace.decode_events(rc)
+    # one K6-trace launch wrote the 150 rows; no K8 launch
+    launches = (K6.tick_chunk.launches, K6.tick_chunk.trace_launches,
+                K8.record.launches)
+    with prng.layout(True):
+        trace.replay_cluster_traced(cfg, 12345, 5, 150, device=dev)
+    assert (K6.tick_chunk.launches - launches[0],
+            K6.tick_chunk.trace_launches - launches[1],
+            K8.record.launches - launches[2]) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("case", [
+    "n5", "n5_metrics", "n3_cap16", "n7_metrics", "n5_runtime_metrics",
+    "bug_metrics", "wrap_metrics", "ragged_b1100"])
+def test_k6_trace_rows_equal_plain(dev, case):
+    """K6-trace (K6 with a trace buffer) against the eager tick with
+    record_plain: every row of every tick and the state after each
+    launch, 80 ticks in launches of 40 and 24 and 16."""
+    storm = config.storm_profiles()["storm"][0].replace(
+        metrics="metrics" in case)
+    cfg, b, seed, id0 = storm, 3, 7, 0
+    if case.startswith("n") and case[1].isdigit():
+        cfg = storm.replace(n_nodes=int(case[1]),
+                            **(_CAP16 if "cap16" in case else {}))
+    if "runtime" in case:
+        cfg = cfg.replace(ae_max=K6.SHAPE_AE + 1)
+    if case.startswith("bug"):  # explain's seed; cluster 32 violates at 87
+        cfg = config.storm_profiles()["durability"][0].replace(
+            bug="ack_before_fsync", metrics=True)
+        seed, id0 = 5, 30
+    if case == "ragged_b1100":
+        b = 1100
+    keys = engine.cluster_keys(seed, b, dev, id0=id0)
+    kn = cfg.knobs(dev)
+    s = state.init_cluster(cfg, keys, kn)
+    if "wrap" in case:
+        s = s._replace(tick=torch.tensor([2**31 - 10, -20, 1000],
+                                         dtype=torch.int32, device=dev))
+    w = K8.record_width(cfg)
+    with prng.layout(True):
+        for m in (40, 24, 16) if not case.startswith("bug") else (64,) * 2:
+            got_rows = torch.full((m, b, w), -7, dtype=torch.int32,
+                                  device=dev)
+            want_rows = got_rows.clone()
+            before = K6.tick_chunk.trace_launches
+            got = K6.tick_chunk(cfg, s, keys, kn, m, trace=got_rows)
+            assert K6.tick_chunk.trace_launches == before + 1
+            want = K6.tick_chunk_plain(cfg, s, keys, kn, m, trace=want_rows)
+            assert torch.equal(got_rows, want_rows)
+            d = state.first_divergence(int(want.tick[0]),
+                                       state.state_to_numpy(want),
+                                       state.state_to_numpy(got))
+            assert d is None, d
+            s = want
+    if case.startswith("bug"):
+        assert int(s.first_violation_tick[2]) == 87
 
 
 # ---- K9, the kv service tick, and the kv path on the card

@@ -258,7 +258,8 @@ def test_launch_marshals_the_state_and_refuses_what_it_cannot_run():
     assert a[9:16] == (4, 5, 64, cfg.ae_max, 3,
                        pcfg.RAFT_BUGS.index("no_truncate"), 0)
     assert a[16] is None and a[17] is None  # no metric leaves, no seen-set
-    assert len(a) == 19 and a[18] is None  # the stream
+    assert a[18] is None and a[19] == 0  # no trace rows
+    assert len(a) == 21 and a[20] is None  # the stream
     K6._launch(cfg, s, keys, cfg.knobs(), 3, lib, None)
     assert lib.args[15] == int(prng.partitionable())
     # the new state: every leaf a view of one fresh allocation

@@ -9,8 +9,10 @@ another) and driven through the wrapper's own marshalling:
 - K6-metrics equals the eager tick with metrics (its plain version) on
   every leaf, the metric leaves included, after every chunk: every
   template instance (n = 3, 5, 7 x cap 16, 64), the runtime one, a planted
-  bug, and metric registers planted at the int32 wrap with held, empty and
-  beaten worst-op registers;
+  bug, metric registers planted at the int32 wrap with held, empty and
+  beaten worst-op registers, submit stamps and latencies across the int32
+  tick wrap, and full rings at cap 64 (no compaction, a command a tick)
+  in a batch of seven, whose last tile works on the spare stamp rows;
 - K6-coverage plus the credit pass equal the per-tick ``seen_update_plain``
   loop on the stamps, the credits and the state: one seen-set row, shard
   rows on a 16-bit seen-set (many lanes on one bit a tick), the identity
@@ -132,11 +134,16 @@ _CAP16 = dict(log_cap=16, compact_every=4, uncommitted_cap=4)
 
 @pytest.mark.parametrize("case", [
     "n3_cap16", "n5_cap16", "n7_cap16", "n3", "n5", "n7", "n5_runtime",
-    "n5_bug", "registers", "registers_cap16"])
+    "n5_bug", "registers", "registers_cap16", "tick_wraps",
+    "full_ring_cap64"])
 def test_metrics_device_code_on_the_host_equals_plain(host, case):
     storm = pcfg.storm_profiles()["storm"][0].replace(metrics=True)
     cfg, b, ticks, chunk = storm, 8, 96, 48
-    if case[1].isdigit():
+    if case == "full_ring_cap64":  # leaders fill their rings by tick ~96
+        cfg = pcfg.SimConfig(metrics=True, compact_at_commit=False,
+                             p_client_cmd=1.0)
+        b, ticks, chunk = 7, 128, 64
+    elif case[1].isdigit():
         cfg = storm.replace(n_nodes=int(case[1]),
                             **(_CAP16 if "cap16" in case else {}))
     elif case.endswith("cap16"):
@@ -153,6 +160,10 @@ def test_metrics_device_code_on_the_host_equals_plain(host, case):
     s = pstate.init_cluster(cfg, keys, kn)
     if case.startswith("registers"):
         s = _plant_registers(s)
+    if case == "tick_wraps":  # ticks across the int32 and u32 wraps
+        s = s._replace(tick=torch.tensor(
+            [(2**31 - 10, -20, 1000)[i % 3] for i in range(b)],
+            dtype=I32))
     done = 0
     with threefry_layout(True):
         while done < ticks:
@@ -167,6 +178,8 @@ def test_metrics_device_code_on_the_host_equals_plain(host, case):
             s = want
     final = pstate.state_to_numpy(s)
     assert final["lat_hist"].sum() != 0 and final["ev_counts"].sum() != 0
+    if case == "full_ring_cap64":
+        assert (final["log_len"] - final["base"] == cfg.log_cap).any()
     if case.startswith("registers"):  # the sums wrapped; each kind met an op
         assert (final["lat_ticks"] < 0).any()
         assert (final["worst_lat"][2::3, 0] == 2**30).all()
@@ -235,7 +248,7 @@ def test_coverage_device_code_on_the_host_equals_plain(host, case):
             # the plain credit pass on the same indices and stamps
             assert torch.equal(K5.credit_plain(fp, seen_k, nf0.clone(), done),
                                nf_k)
-            per_warp = 32 // (16 if K6.instance(cfg) else 32)
+            per_warp = 2  # every instance runs two clusters a warp
             differs |= not torch.equal(
                 nf0 + _old_rule_credits(fp, seen0, done, b, per_warp), nf_k)
             done += m

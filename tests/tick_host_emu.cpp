@@ -8,8 +8,8 @@
 // ignored); tick_launch picks the same template instance and runs the
 // warps one after another (so a later warp's cluster stamps the coverage
 // seen-set after an earlier warp's whole chunk: the order a credit rule
-// must not depend on); tick_words draws a chunk's words as the kernel
-// does. -DMADRAFT_K6_METRICS and -DMADRAFT_K6_COVERAGE build the variants,
+// must not depend on; a trace buffer gets each tick's row, K6-trace);
+// tick_words draws a chunk's words as the kernel does. -DMADRAFT_K6_METRICS and -DMADRAFT_K6_COVERAGE build the variants,
 // as for tick.cu:
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared
@@ -144,6 +144,11 @@ inline int __clz(int x) {
   return x ? __builtin_clz(static_cast<unsigned>(x)) : 32;
 }
 
+// a tile's lanes add to one counter of their block
+inline int atomicAdd(int *a, int v) {
+  return std::atomic_ref<int>(*a).fetch_add(v);
+}
+
 // the two tiles of a warp stamp the seen-set from two threads
 inline int atomicMin(int *a, int v) {
   std::atomic_ref<int> r(*a);
@@ -201,7 +206,7 @@ void each_warp(const k6::Params &p, Body body) {
 
 template <int N_, int CAP_, int AE_>
 void run(const k6::Params &p) {
-  constexpr int kTile = N_ ? k6::kTile : 32;
+  constexpr int kTile = k6::kTile;
   each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
                           uint8_t *cl) {
     k6::run_cluster<N_, CAP_, AE_, kTile, false, kMet, kCov>(
@@ -216,7 +221,7 @@ void run_shape(const k6::Params &p) {
 
 template <int N_>
 void words(const k6::Params &p, const int *t1, uint32_t *out) {
-  constexpr int kTile = N_ ? k6::kTile : 32;
+  constexpr int kTile = k6::kTile;
   each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
                           uint8_t *cl) {
     k6::draw_chunk<N_, kTile>(p, cl, c, t1[c], active, tile, out);
@@ -230,9 +235,11 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            const void *kf, const void *ki, const int *draws,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
-                           const int64_t *mptrs, const int64_t *cov, void *) {
+                           const int64_t *mptrs, const int64_t *cov,
+                           void *trace, int trace_w, void *) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws) return 1;
   if ((mptrs != nullptr) != kMet || (cov != nullptr) != kCov) return 1;
+  if (kMet && m > k6::kMaxMetricTicks) return 1;
   k6::Params p;
   if (!k6::set_variant(p, mptrs, cov)) return 1;
   for (int l = 0; l < k6::kLeaves; ++l) {
@@ -243,7 +250,8 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
   }
   const int inst = k6::instance(n, cap, ae_max);
   if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
-                     draws))
+                     draws) ||
+      !k6::set_trace(p, trace, trace_w, kMet))
     return 1;
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);

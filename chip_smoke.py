@@ -43,14 +43,21 @@ the kv service tick, and K9-metrics against their plain version on every
 leaf after every tick (phase ``kv_k9``: n = 3, 5, 7, every kv bug, Puts,
 hints with ``retry_wait``, the open loop with the Zipf key, [B] knob rows
 mixing the bugs, states at mixed ticks, 32 clients and 64 keys, both
-layouts, 1100 clusters), and K10, the shard controller's service tick,
+layouts, 1100 clusters; K9 is off the path since K6-kv), K6-kv and
+K6-metrics-kv, K6 with the kv service tick after each raft tick of a
+chunk, against the plain route on every leaf after every launch, a short
+last one included (phase ``kv_k6kv``: the kv flagship's batch at tick 200
+and K9's cases, with ptxas's report of both builds), and K10, the shard
+controller's service tick,
 and K10-metrics the same way (phase ``ctrler_k10``: n = 3, 5, 7, each
 planted controller bug, 2 and 10 gids, one and three gids an op, a
 history that fills, [B] knob rows mixing the bugs, states at mixed ticks,
 32 clients, both layouts),
 drives the kv flagship (``kv-fuzz --storm --clusters 1024 --ticks 512``,
-twice, then with ``--metrics``: K6 and K9 once a tick, no draw chunk, K2,
-K4 or K5) and its eager-vs-kernel A/B (``kv_ab``), the ctrler flagship
+twice, then with ``--metrics``: K6-kv once a 256-tick chunk, no K6, K9,
+draw chunk, K2, K4 or K5, the report equal to the eager route's at the
+same depth and, over 32 ticks, to the CPU route's) and its
+eager-vs-kernel A/B (``kv_ab``), the ctrler flagship
 (``ctrler-fuzz --storm --clusters 1024 --ticks 512``, twice, then with
 ``--metrics``: K6 and K10 once a tick) and its A/B (``ctrler_ab``), holds
 K11, the shardkv service tick, and K11-metrics against their plain version
@@ -70,13 +77,15 @@ bound over ``ms``, the bound the larger of the bytes over the HBM rate and
 the 32-bit operations over the card's integer rate (phase ``card``). K6's
 clock64() split by phase group (``k6_phases``, its profile build) and its
 time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
-split by phase (``kv_phases``, its profile build) and the kv tick's
-(``profile_kv_tick``), the ctrler tick's (``profile_ctrler_tick``) and the
+split by phase (``kv_phases``, its profile build) and the kv tick's on
+K6-kv (``profile_kv_tick``), the ctrler tick's (``profile_ctrler_tick``) and the
 shardkv tick's in each mode (``profile_shardkv_tick[_live|_computed]``);
 ``k6_metrics_phases`` gives K6-metrics' split, grid, waves and ms a launch
 at 4096 clusters and at one wave, and ptxas's report of every K6 build;
-``k6_only()`` runs just those three K6 phases, and ``--k6-leg`` one leg of
-an A/B of K6's builds between two trees.
+``k6_only()`` runs just those three K6 phases, ``--k6-leg`` one leg of
+an A/B of K6's builds between two trees, and ``--kv-leg`` one leg of an
+A/B of the kv path (K6's builds, K9, K6-kv where the tree has it, the kv
+flagships' wall a tick).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -130,21 +139,33 @@ EXPLAIN = ["explain", "--profile", "durability", "--bug", "ack_before_fsync",
 EXPLAIN_FVT = 87
 EXPLAIN_STORM = ("storm", "", 12345, 5)
 # ticks of each K6-vs-plain case (phase tick_chunk), and of each case that
-# holds a template instance under one threefry layout
-K6_TICKS = 256
-K6_SHAPE_TICKS = 128
+# holds a template instance under one threefry layout (cut from 256 and
+# 128 to hold the script's time as it grew: five and two chunks of 32)
+K6_TICKS = 160
+K6_SHAPE_TICKS = 64
 # the device operations of one packed pool harvest: K7's scan and lane
 # kernels, K3's pack and the snapshot's copy to the host
 HARVEST_OPS = ("ids_kernel", "lane_kernel", "pack_kernel", "Memcpy DtoH")
 # the eager runs of the fuzz flagship's eager-vs-K6 A/B, cut to hold the
-# script's time (the eager tick is host-bound, its rate flat in depth)
-AB_EAGER_TICKS = 256
+# script's time (the eager tick is host-bound, its rate flat in depth), and
+# the eager tick's profiled windows (phases profile, profile_metrics,
+# profile_coverage)
+AB_EAGER_TICKS = 128
+EAGER_PROFILE_TICKS = 16
 # the report keys the metrics plane adds
 METRIC_KEYS = ("latency", "events", "worst_op")
 # the kv flagship's eager-vs-kernel A/B: the four runs' depth (the eager
 # route is host-bound, about 30 ms a tick at 1024 clusters, its rate flat
 # in depth)
 KV_AB_TICKS = 32
+# the kv flagship's batch on the CPU route beside K6-kv: its depth (the
+# CPU route takes about 0.3-0.5 s a tick at 1024 clusters)
+KV_CPU_TICKS = 32
+# K6-kv against the plain route (phase kv_k6kv): each comparison's
+# launches (ticks; a short last one) and the cases' clusters (past a whole
+# number of two-cluster warps)
+KV_K6KV_LAUNCHES = (16, 1, 7)
+KV_K6KV_CLUSTERS = 301
 # the kv flagship (bench.py's kv row at the flagship's depth), twice, and
 # with the metrics plane
 KV_FLAGSHIP = ["kv-fuzz", "--storm", "--clusters", "1024", "--ticks", "512",
@@ -331,11 +352,12 @@ def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
     the kernels' own execution, without the host's issue time or any
     other kernel the wrapper launches. After the script's long profiled
     windows CUPTI drops the first records of a window that starts cold (it
-    saw 43 of a window's 50 K11 launches, five windows in a row), so each
-    window opens, as ``_profiled``'s do, with a warm-up step (the warmup
-    calls; nothing they launch is kept) and a spin kernel before the timed
-    calls, and a window that still saw few or none of them is measured
-    again, up to ``attempts`` times."""
+    saw 43 of a window's 50 K11 launches, and 3 of 5 K6-kv launches, five
+    windows in a row), so each window opens, as ``_profiled``'s do, with a
+    warm-up step (the warmup calls; nothing they launch is kept) and
+    SPIN_KERNELS short spin kernels before the timed calls (the records
+    CUPTI drops, if any, are theirs), and a window that still saw few or
+    none of them is measured again, up to ``attempts`` times."""
     import re
 
     import torch
@@ -352,7 +374,8 @@ def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
                 fn(i)
             torch.cuda.synchronize()
             prof.step()
-            torch.cuda._sleep(1000)
+            for _ in range(SPIN_KERNELS):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             for i in range(iters):
                 fn(i)
@@ -371,6 +394,10 @@ def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
             return sum(us / n for n, us in seen.values()) / 1e3
     check(False, f"profiler saw {seen} launches of {names} over {iters} "
           f"calls in {attempts} windows: {[e.key[:80] for e in avgs][:12]}")
+
+
+# spin kernels that open each device_ms window, ahead of the timed calls
+SPIN_KERNELS = 16
 
 
 def rotations(nbytes_in: int) -> int:
@@ -424,34 +451,39 @@ def counters():
     from madraft_tpu_torch.kernels import tick as K6
     from madraft_tpu_torch.kernels import trace as K8
 
-    return {"threefry_hash_pairs": (K1.hash_pairs, "launches"),
-            "threefry_tick_blocks": (K1.tick_blocks, "launches"),
-            "oracle": (K2.oracle, "launches"),
-            "oracle_metrics": (K2.oracle, "metrics_launches"),
-            "pack_state": (K3.pack_state, "launches"),
-            "unpack_state": (K3.unpack_state, "launches"),
-            "latency_fold": (K4.latency_fold, "launches"),
-            "seen_update": (K5.seen_update, "launches"),
-            "tick_chunk": (K6.tick_chunk, "launches"),
-            "tick_chunk_metrics": (K6.tick_chunk, "metrics_launches"),
-            "tick_chunk_coverage": (K6.tick_chunk, "coverage_launches"),
-            "tick_chunk_trace": (K6.tick_chunk, "trace_launches"),
-            "credit_pass": (K5.credit_pass, "launches"),
-            "harvest": (K7.harvest, "launches"),
-            "record": (K8.record, "launches"),
-            "kv_tick": (K9.kv_tick, "launches"),
-            "kv_tick_metrics": (K9.kv_tick, "metrics_launches"),
-            "ctrler_tick": (K10.ctrler_tick, "launches"),
-            "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches"),
-            "shardkv_tick": (K11.shardkv_tick, "launches"),
-            "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches"),
-            "shardkv_tick_live": (K11.shardkv_tick, "live_launches"),
-            "shardkv_tick_computed": (K11.shardkv_tick,
-                                      "computed_launches"),
-            "shardkv_tick_metrics_live": (K11.shardkv_tick,
-                                          "live_metrics_launches"),
-            "shardkv_tick_metrics_computed": (K11.shardkv_tick,
-                                              "computed_metrics_launches")}
+    out = {"threefry_hash_pairs": (K1.hash_pairs, "launches"),
+           "threefry_tick_blocks": (K1.tick_blocks, "launches"),
+           "oracle": (K2.oracle, "launches"),
+           "oracle_metrics": (K2.oracle, "metrics_launches"),
+           "pack_state": (K3.pack_state, "launches"),
+           "unpack_state": (K3.unpack_state, "launches"),
+           "latency_fold": (K4.latency_fold, "launches"),
+           "seen_update": (K5.seen_update, "launches"),
+           "tick_chunk": (K6.tick_chunk, "launches"),
+           "tick_chunk_metrics": (K6.tick_chunk, "metrics_launches"),
+           "tick_chunk_coverage": (K6.tick_chunk, "coverage_launches"),
+           "tick_chunk_trace": (K6.tick_chunk, "trace_launches"),
+           "credit_pass": (K5.credit_pass, "launches"),
+           "harvest": (K7.harvest, "launches"),
+           "record": (K8.record, "launches"),
+           "kv_tick": (K9.kv_tick, "launches"),
+           "kv_tick_metrics": (K9.kv_tick, "metrics_launches"),
+           # K6-kv's (absent from an older tree: kv_leg's parent)
+           "kv_chunk": (getattr(K9, "kv_chunk", None), "launches"),
+           "kv_chunk_metrics": (getattr(K9, "kv_chunk", None),
+                                "metrics_launches"),
+           "ctrler_tick": (K10.ctrler_tick, "launches"),
+           "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches"),
+           "shardkv_tick": (K11.shardkv_tick, "launches"),
+           "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches"),
+           "shardkv_tick_live": (K11.shardkv_tick, "live_launches"),
+           "shardkv_tick_computed": (K11.shardkv_tick,
+                                     "computed_launches"),
+           "shardkv_tick_metrics_live": (K11.shardkv_tick,
+                                         "live_metrics_launches"),
+           "shardkv_tick_metrics_computed": (K11.shardkv_tick,
+                                             "computed_metrics_launches")}
+    return {k: v for k, v in out.items() if v[0] is not None}
 
 
 def read_counts() -> dict:
@@ -1486,9 +1518,11 @@ def main() -> int:
     emit({"phase": "profile_gates", "seed": 12345, "gates": gates})
 
     # ---- 6k. the kv path: K9 and K9-metrics against the plain service
-    # tick, then the kv flagships through the CLI (K6 and K9 once a tick)
-    # and the eager-vs-kernel A/B
+    # tick, K6-kv and K6-metrics-kv against the plain route, then the kv
+    # flagships through the CLI (K6-kv once a chunk) and the
+    # eager-vs-kernel A/B
     emit(_kv_k9(dev, errs))
+    emit(_kv_k6kv(dev, errs))
     kv_launches, kv_launches_m = _kv_path(dev)
 
     # ---- 6l. the ctrler path: K10 and K10-metrics against the plain
@@ -1946,9 +1980,11 @@ def main() -> int:
     check(torch.equal(k6t_rows, k6t_plain_rows),
           "K6-trace's rows differ from the plain version's at explain's "
           "shape")
-    # K9 and K9-metrics at the kv flagship's shape
+    # K9 and K9-metrics at the kv flagship's shape, and K6-kv and
+    # K6-metrics-kv a 256-tick chunk there
     kv_timing, kv_bytes = _kv_timing(dev)
     timing.update(kv_timing)
+    timing.update(_k6kv_timing(dev))
     # K10 and K10-metrics at the ctrler flagship's shape
     ctrler_timing, ctrler_bytes = _ctrler_timing(dev)
     timing.update(ctrler_timing)
@@ -2016,15 +2052,17 @@ def main() -> int:
     emit(_profile_kv_tick(dev, True))
     emit(_profile_ctrler_tick(dev, False))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
-    emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile"))
+    emit(_profile_ticks(fcfg, fs, fk, fkn, EAGER_PROFILE_TICKS, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
                         tick="kernel"))
-    emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_metrics"))
+    emit(_profile_ticks(mcfg, ms_, fk, fkn, EAGER_PROFILE_TICKS,
+                        "profile_metrics"))
     # a coverage tick: the flagship tick under [B] knob rows, then its
     # fingerprints: inside K6-coverage (and the credit pass), or K5
     for phase, route in (("profile_k6_coverage", "kernel"),
                          ("profile_coverage", "eager")):
-        emit(_profile_ticks(fcfg, fs, fk, cov_kn, chunk, phase, tick=route,
+        emit(_profile_ticks(fcfg, fs, fk, cov_kn, chunk if route == "kernel"
+                            else EAGER_PROFILE_TICKS, phase, tick=route,
                             cov=cov_at))
     del cov_at
     wide_bpl, packed_bpl = nbytes(*fs) / b, nbytes(*fp) / b
@@ -2097,6 +2135,11 @@ def main() -> int:
                     "madraft_tpu/tpusim/kv.py:425"),
         "kv_tick_metrics": ("K9-metrics", "madraft_tpu_torch/csrc/kv.cu",
                             "madraft_tpu/tpusim/metrics.py:65"),
+        "kv_chunk": ("K6-kv", "madraft_tpu_torch/csrc/tick.cu",
+                     "madraft_tpu/tpusim/kv.py:407"),
+        "kv_chunk_metrics": ("K6-metrics-kv",
+                             "madraft_tpu_torch/csrc/tick.cu",
+                             "madraft_tpu/tpusim/kv.py:407"),
         "ctrler_tick": ("K10", "madraft_tpu_torch/csrc/ctrler.cu",
                         "madraft_tpu/tpusim/ctrler.py:593"),
         "ctrler_tick_metrics": ("K10-metrics",
@@ -2142,7 +2185,10 @@ def main() -> int:
     launches["harvest_coverage"] = cov_launches["harvest"]
     launches["record"] = explain_launches["record"]
     launches["tick_chunk_trace"] = explain_launches["tick_chunk_trace"]
-    # K9's from the kv flagship, K9-metrics' from the kv metrics flagship
+    # K6-kv's from the kv flagship, K6-metrics-kv's from the kv metrics
+    # flagship; K9's there too (0: off the path since K6-kv)
+    launches["kv_chunk"] = kv_launches["kv_chunk"]
+    launches["kv_chunk_metrics"] = kv_launches_m["kv_chunk_metrics"]
     launches["kv_tick"] = kv_launches["kv_tick"]
     launches["kv_tick_metrics"] = kv_launches_m["kv_tick_metrics"]
     # K10's from the ctrler flagship, K10-metrics' from its metrics run
@@ -2403,11 +2449,69 @@ def k6_leg(label: str, tree: str = "") -> int:
     return 0
 
 
+def kv_leg(label: str, tree: str = "") -> int:
+    """One leg of an A/B of the kv path between two trees in one call: the
+    madraft_tpu_torch package of ``tree`` (a ``git archive`` of another
+    commit; this checkout's when empty), its kernels built into its own
+    build directory, measured by ``k6_timing`` (K6, K6-metrics,
+    K6-coverage), by ``_kv_timing`` (K9 and K9-metrics a tick), by
+    ``_k6kv_timing`` where the tree has K6-kv, and by the kv flagships'
+    wall a tick and cluster-steps/s (1024 x 512 from a warm process, two
+    runs each, metrics off and on); prints one JSON line. Run in turns,
+    for example parent, change, change, parent:
+
+        python3 chip_smoke.py --kv-leg parent _proof/parent
+        python3 chip_smoke.py --kv-leg change
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    if tree:
+        sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import madraft_tpu_torch
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import kv as K9
+
+    root = pathlib.Path(tree).resolve() if tree else ROOT
+    check(pathlib.Path(madraft_tpu_torch.__file__).is_relative_to(root),
+          f"kv_leg measures {madraft_tpu_torch.__file__}, not {root}")
+    for k, (fn, a) in counters().items():  # an older tree's lack some
+        if not hasattr(fn, a):
+            setattr(fn, a, 0)
+    k6kv = hasattr(K9, "kv_chunk")
+    _build.build_all(_build.SOURCES + (
+        "tick_metrics", "tick_coverage", _build.KV, "kv_metrics") + (
+        ("tick_kv", "tick_metrics_kv") if k6kv else ()))
+    dev = torch.device("cuda")
+    out = {"leg": label, "card": _smi(), "k6": k6_timing(dev),
+           "k9": {k: v[:3] for k, v in _kv_timing(dev)[0].items()},
+           "k6kv": ({k: v[:3] for k, v in _k6kv_timing(dev).items()}
+                    if k6kv else None), "flagships": {}}
+    ticks = _flag(KV_FLAGSHIP, "--ticks")
+    run_cli(KV_FLAGSHIP[:2] + ["--clusters", "1024", "--ticks", "16"])
+    for name, argv in (("kv", KV_FLAGSHIP[:-1]),
+                       ("kv_metrics", KV_FLAGSHIP[:-1] + ["--metrics"])):
+        rows = []
+        for _ in range(2):
+            rc, rep = run_cli(argv)
+            check(rc == 0 and rep["violating"] == 0,
+                  f"{name} flagship rc {rc}")
+            tele = rep["telemetry"]
+            rows.append({"wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+                         "steps_per_sec": tele["steps_per_sec"]})
+        out["flagships"][name] = rows
+    emit(out)
+    return 0
+
+
 # K6's builds (_build.VARIANTS): the kernel, its metrics, coverage and
-# metrics-coverage variants, and the profile instances of K6, K6-metrics
-# and K6-coverage
+# metrics-coverage variants, the profile instances of K6, K6-metrics and
+# K6-coverage, and K6-kv and K6-metrics-kv
 K6_BUILDS = ("tick", "tick_metrics", "tick_coverage", "tick_metrics_coverage",
-             "tick_profile", "tick_metrics_profile", "tick_coverage_profile")
+             "tick_profile", "tick_metrics_profile", "tick_coverage_profile",
+             "tick_kv", "tick_metrics_kv")
 # SASS opcode classes for _k6_sass: the 32-bit integer pipe's, the FMA
 # pipe's (IMAD and the float ops), memory, warp collectives, control
 SASS_CLASSES = {
@@ -2799,6 +2903,7 @@ def _k6_standin(tick_chunk):
 
     return types.SimpleNamespace(tick_chunk=tick_chunk,
                                  knob_table=K6.knob_table,
+                                 check_shape=K6.check_shape,
                                  variant=K6.variant, Seen=K6.Seen)
 
 
@@ -3061,15 +3166,22 @@ def _profiled(run, arm=None, cpu: bool = True, attempts: int = 5,
     step (``arm()``, which sets run()'s inputs up; nothing it launches is
     kept) and a spin kernel before run() (both left out of the result,
     with the step's own annotation), and an attempt that saw nothing, or
-    missed one of the device operations named in ``expect``, is made
-    again; after the last one a missing name fails the check."""
+    missed one of the device operations named in ``expect`` (a tuple of
+    names, or a mapping of a name to the exact count of its records the
+    window must hold), is made again; after the last one a missing name,
+    or a record count other than its mapping's, fails the check."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    want = expect if isinstance(expect, dict) else dict.fromkeys(expect)
     names = {k: re.compile(rf"(^|::|\s){re.escape(k)}(\(|<|\s|$)")
-             for k in expect}
+             for k in want}
+
+    def seen(k, kernels) -> bool:
+        got = sum(e.count for e in kernels if names[k].search(e.key))
+        return got > 0 if want[k] is None else got == want[k]
 
     acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
     for attempt in range(1, attempts + 1):
@@ -3092,12 +3204,11 @@ def _profiled(run, arm=None, cpu: bool = True, attempts: int = 5,
                 and not e.key.startswith("ProfilerStep")]
         kernels = [e for e in avgs if "CUDA" in str(getattr(
             e, "device_type", "")) and _dev_us(e) > 0]
-        missing = [k for k, name in names.items()
-                   if not any(name.search(e.key) for e in kernels)]
+        missing = [k for k in want if not seen(k, kernels)]
         if kernels and not missing:
             break
-    check(not missing, f"the profiler saw no {missing} in {attempts} "
-          f"windows: {[e.key[:80] for e in kernels]}")
+    check(not missing, f"the profiler missed {missing} (want {want}) in "
+          f"{attempts} windows: {[(e.key[:80], e.count) for e in kernels]}")
     return out, kernels, wall_ms, avgs, attempt
 
 
@@ -3514,17 +3625,119 @@ def _kv_k9(dev, errs: dict) -> dict:
             "max_abs_err": max(errs["kv_tick"], errs["kv_tick_metrics"])}
 
 
+def _kv_k6kv(dev, errs: dict) -> dict:
+    """Phase kv_k6kv: K6-kv and K6-metrics-kv against the plain route
+    (``step_cluster``, then the plain service tick) on the card, every
+    leaf after every launch of KV_K6KV_LAUNCHES ticks (the last a short
+    one): the kv flagship's batch at tick 200 in both builds, then K9's
+    cases (KV_K9_CASES, KV_K6KV_CLUSTERS clusters, a tile past the
+    batch's end) from KV_K9_WARM ticks in on K6-kv, each acking ops in
+    the compared ticks; and ptxas's report of both builds. Launches here
+    are not main-path launches."""
+    import torch
+
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import kv as K9
+    from madraft_tpu_torch.tpusim import config, engine, kv, prng
+
+    counts = read_counts()
+
+    def compare(cfg, kcfg, ks, keys, kn, kkn):
+        err, acked0 = 0.0, int(ks.clerk_acked.sum())
+        for m in KV_K6KV_LAUNCHES:
+            got = K9.kv_chunk(cfg, kcfg, ks, keys, kn, kkn, m)
+            want = K9.kv_chunk_plain(cfg, kcfg, ks, keys, kn, kkn, m)
+            err = max(err, _kv_err(got, want))
+            ks = want
+        return err, int(ks.clerk_acked.sum()) - acked0, ks
+
+    done = []
+    prng.set_partitionable(True)
+    for metrics_on in (False, True):
+        cfg, kcfg, ks, keys, kn, kkn = _kv_state(dev, metrics_on)
+        err, acked, ks = compare(cfg, kcfg, ks, keys, kn, kkn)
+        key = "kv_chunk_metrics" if metrics_on else "kv_chunk"
+        errs[key] = max(errs[key], err)
+        check(err == 0 and acked > 0,
+              f"K6-kv (metrics {metrics_on}) at the flagship's batch: err "
+              f"{err}, {acked} ops acked")
+        done.append({"case": "flagship_tick_200", "clusters": int(
+            keys.shape[0]), "metrics": metrics_on, "acked": acked})
+    b = KV_K6KV_CLUSTERS
+    hot = dict(config.profile_gates()["hot_key_openloop"]["workload"],
+               p_get=0.3, p_put=0.2)
+    for name, n, kw, metrics_on, flag in KV_K9_CASES:
+        kw = hot if kw == "hot_key" else kw
+        cfg, _ = _kv_cli_cfg(metrics_on)
+        cfg = cfg.replace(n_nodes=n)
+        if name.startswith("hot_key"):
+            cfg = config.storm_profiles()["hot_key_openloop"][0].replace(
+                p_client_cmd=0.0, compact_at_commit=False,
+                metrics=metrics_on)
+        kcfg = kv.KvConfig(**({} if kw == "rows" else kw))
+        with prng.layout(flag):
+            keys = engine.cluster_keys(11, b, dev)
+            kn = cfg.knobs(dev)
+            kkn = (kv_knob_rows(kcfg, b).to(dev) if kw == "rows"
+                   else kcfg.knobs(dev))
+            ks = kv.init_kv_cluster(cfg, kcfg, keys, kn)
+            if name != "storm_mixed_ticks":
+                ks = kv._advance_kv(cfg, kcfg, ks, keys, kn, kkn,
+                                    KV_K9_WARM)
+            else:
+                # two halves run to different ticks (a pool's lanes)
+                h = b // 2
+                ks = kv._advance_kv(cfg, kcfg, ks, keys, kn, kkn, 31)
+                tail = kv._advance_kv(
+                    cfg, kcfg, kv.init_kv_cluster(cfg, kcfg, keys[h:], kn),
+                    keys[h:], kn, kkn, 97)
+                ks = kv.KvState(*(
+                    type(x)(*(torch.cat([p[:h], q]) for p, q in zip(x, y)))
+                    if isinstance(x, tuple) else torch.cat([x[:h], y])
+                    for x, y in zip(ks, tail)))
+            err, acked, ks = compare(cfg, kcfg, ks, keys, kn, kkn)
+        key = "kv_chunk_metrics" if metrics_on else "kv_chunk"
+        errs[key] = max(errs[key], err)
+        check(err == 0, f"K6-kv differs from the plain route: case {name}")
+        check(acked > 0, f"kv_k6kv case {name}: no op acked in its ticks")
+        done.append({"case": name, "n_nodes": n, "metrics": metrics_on,
+                     "partitionable": flag,
+                     "violating": int((ks.raft.violations != 0).sum()),
+                     "acked_in_compared_ticks": acked})
+    prng.set_partitionable(True)
+    ptxas = {name: _build.ptxas(name) for name in ("tick_kv",
+                                                   "tick_metrics_kv")}
+    spills = {k: r["spills"] for k, r in ptxas.items() if r["spills"]}
+    check(not spills, f"K6-kv's builds spill: {spills}")
+    set_counts(counts)
+    return {"phase": "kv_k6kv", "launches": list(KV_K6KV_LAUNCHES),
+            "cases": done, "ptxas": ptxas,
+            "max_abs_err": max(errs["kv_chunk"], errs["kv_chunk_metrics"])}
+
+
+def _report_fields(out: dict) -> dict:
+    """A CLI report's deterministic fields: all but the telemetry and the
+    determinism check."""
+    return {k: v for k, v in out.items()
+            if k not in ("telemetry", "deterministic")}
+
+
 def _kv_path(dev) -> tuple:
     """The kv main path through the CLI: the kv flagship twice
-    (--check-deterministic), then with --metrics; the eager-vs-kernel A/B
-    at KV_AB_TICKS ticks. Returns (the flagship's launches, the
-    metrics flagship's)."""
+    (--check-deterministic), then with --metrics, each on K6-kv alone
+    (launches of up to KERNEL_CHUNK ticks, no K6 or K9 launch) and with
+    the report of the eager route on the card at the same depth (the
+    plain service tick after the eager raft tick); the CPU route's report
+    at the flagship's batch over KV_CPU_TICKS ticks beside the card's;
+    the eager-vs-kernel A/B at KV_AB_TICKS ticks. Returns (the flagship's
+    launches, the metrics flagship's)."""
     from madraft_tpu_torch.tpusim import engine, kv, prng
 
     prng.set_partitionable(True)
     ticks, b = _flag(KV_FLAGSHIP, "--ticks"), _flag(KV_FLAGSHIP, "--clusters")
     eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
                  "latency_fold", "seen_update")
+    advance = kv._advance_kv  # every kv run's ticks go through it
     runs = {}
     for label, argv in (("kv_flagship", KV_FLAGSHIP),
                         ("kv_metrics_flagship", KV_METRICS_FLAGSHIP)):
@@ -3534,18 +3747,29 @@ def _kv_path(dev) -> tuple:
         rc, out = run_cli(argv)
         wall = time.perf_counter() - t0
         ran = read_counts()
-        want = ticks * FLAGSHIP_RUNS
+        want = -(-ticks // engine.KERNEL_CHUNK) * FLAGSHIP_RUNS
         check(rc == 0 and out["violating"] == 0
               and out.get("deterministic") is True
               and out["acked_ops_mean"] > 0,
               f"{label} rc {rc}: {out}")
-        check(ran["tick_chunk"] == ran["kv_tick"] == want
-              and ran["tick_chunk_metrics"] == want * metrics_on
-              and ran["kv_tick_metrics"] == want * metrics_on
+        check(ran["kv_chunk"] == want
+              and ran["kv_chunk_metrics"] == want * metrics_on
+              and ran["tick_chunk"] == ran["kv_tick"] == 0
               and all(ran[k] == 0 for k in eager_off)
               and ran["harvest"] == ran["record"] == 0,
-              f"{label} launches {ran}: want K6 and K9 once a tick ({want}),"
-              " no draw chunk, K2, K4 or K5 launch")
+              f"{label} launches {ran}: want K6-kv once a "
+              f"{engine.KERNEL_CHUNK}-tick chunk ({want}), no K6, K9, draw "
+              "chunk, K2, K4 or K5 launch")
+        # the eager route on the card at the flagship's depth: the same
+        # report
+        kv._advance_kv = functools.partial(advance, tick="eager")
+        try:
+            rc_e, out_e = run_cli([x for x in argv
+                                   if x != "--check-deterministic"])
+        finally:
+            kv._advance_kv = advance
+        check(rc_e == 0 and _report_fields(out_e) == _report_fields(out),
+              f"{label}: the eager route's report differs from K6-kv's")
         tele = out["telemetry"]
         row = {"phase": label, "argv": argv, "rc": rc,
                "cluster_steps_per_s": tele["steps_per_sec"],
@@ -3555,6 +3779,9 @@ def _kv_path(dev) -> tuple:
                "compile_s": tele["compile_s"],
                "bytes_per_lane": tele["bytes_per_lane"],
                "acked_ops_mean": out["acked_ops_mean"],
+               "eager_route_report_equal": True,
+               "eager_route_wall_ms_per_tick": out_e["telemetry"][
+                   "execute_s"] / ticks * 1e3,
                "launches": {k: v for k, v in ran.items() if v}}
         if metrics_on:
             lat = out["latency"]
@@ -3576,11 +3803,33 @@ def _kv_path(dev) -> tuple:
         emit(row)
         runs[label] = ran
 
+    # the CPU route at the flagship's batch, KV_CPU_TICKS ticks, beside the
+    # card's K6-kv
+    cpu = {}
+    for metrics_on in (False, True):
+        argv = KV_FLAGSHIP[:2] + ["--clusters", str(b), "--ticks",
+                                  str(KV_CPU_TICKS), "--seed", "12345"] + [
+            "--metrics"] * metrics_on
+        set_counts()
+        rc_k, out_k = run_cli(argv)
+        ran = read_counts()
+        t0 = time.perf_counter()
+        rc_c, out_c = run_cli(argv + ["--platform", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        check(rc_k == rc_c == 0 and ran["kv_chunk"] == 1
+              and _report_fields(out_k) == _report_fields(out_c),
+              f"kv at {b} x {KV_CPU_TICKS} (metrics {metrics_on}): the CPU "
+              f"route's report differs from K6-kv's ({ran})")
+        cpu["metrics" if metrics_on else "plain"] = {
+            "report_equal": True, "cpu_route_s": round(cpu_s, 3),
+            "acked_ops_mean": out_c["acked_ops_mean"]}
+    emit({"phase": "kv_cpu_route", "clusters": b, "ticks": KV_CPU_TICKS,
+          **cpu})
+
     # the A/B: the flagship's shape at KV_AB_TICKS ticks, eager (the
-    # eager tick, the plain service tick) and kernel (K6 and K9) in turns
+    # eager tick, the plain service tick) and kernel (K6-kv) in turns
     cfg, kcfg = _kv_cli_cfg()
     ab, reps = [], []
-    advance = kv._advance_kv  # every kv run's ticks go through it
     for route in ("eager", "kernel", "kernel", "eager"):
         set_counts()
         kv._advance_kv = functools.partial(advance, tick=route)
@@ -3592,7 +3841,8 @@ def _kv_path(dev) -> tuple:
             kv._advance_kv = advance
         ran = read_counts()
         kernel = route == "kernel"
-        check((ran["tick_chunk"] == ran["kv_tick"] == KV_AB_TICKS * kernel)
+        check(ran["kv_chunk"] == int(kernel)
+              and ran["tick_chunk"] == ran["kv_tick"] == 0
               and (ran["oracle"] == KV_AB_TICKS * (not kernel)),
               f"kv A/B {route} launches {ran}")
         reps.append(rep)
@@ -3615,8 +3865,8 @@ def _kv_path(dev) -> tuple:
 
 
 def _kv_state(dev, metrics_on: bool, ticks: int = 200):
-    """The kv flagship's batch after ``ticks`` ticks on K6 and K9, and
-    its configs, keys and knobs."""
+    """The kv flagship's batch after ``ticks`` ticks on K6-kv, and its
+    configs, keys and knobs."""
     from madraft_tpu_torch.tpusim import engine, kv
 
     cfg, kcfg = _kv_cli_cfg(metrics_on)
@@ -3712,6 +3962,67 @@ def _kv_timing(dev) -> tuple:
     return out, counted
 
 
+def _k6kv_timing(dev) -> dict:
+    """K6-kv's and K6-metrics-kv's times at the kv flagship's shape, one
+    KERNEL_CHUNK-tick launch from tick 200: name -> (device ms, call ms,
+    plain ms, bytes, operations). The bytes: K6's state (the metric leaves
+    with metrics) and the kv state's service leaves read and written once,
+    the keys and both knob tables read once, and the log_val slots the
+    apply rounds read (this run's count, from the plain version's ticks,
+    though those reads hit the block K6-kv staged). The operations: per
+    cluster-tick K6's draws (2 + total hashes and a word each) and the
+    service tick's (57 hashes, the shadow and log scans, the apply
+    rounds), as K6's and K9's rows count them."""
+    import torch
+
+    from madraft_tpu_torch.kernels import kv as K9
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import engine, kv, step
+    from madraft_tpu_torch.tpusim.state import METRIC_LEAF0
+
+    counts = read_counts()
+    out = {}
+    m = engine.KERNEL_CHUNK
+    for name, metrics_on in (("kv_chunk", False), ("kv_chunk_metrics", True)):
+        cfg, kcfg, ks, keys, kn, kkn = _kv_state(dev, metrics_on)
+        b, n, cap = int(keys.shape[0]), cfg.n_nodes, cfg.log_cap
+        table, ktable = K6.knob_table(kn, b), K9.knob_table(kn, kkn, b)
+
+        def call(i):
+            return K9.kv_chunk(cfg, kcfg, ks, keys, kn, kkn, m, table,
+                               ktable)
+
+        # the plain version, its apply rounds counted on the device
+        rounds = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def plain(i):
+            k = ks
+            for _ in range(m):
+                pre = k.raft
+                s = step.step_cluster(cfg, pre, keys, kn)
+                k2 = kv._kv_service_tick(cfg, kcfg, k, pre.alive, pre.base,
+                                         pre.shadow_len, s, keys, kn, kkn)
+                reset = ~pre.alive | ~s.alive | (s.snap_installed_src >= 0)
+                rounds.add_((k2.applied - torch.where(
+                    reset, s.base, k.applied)).sum())
+                k = k2
+            return k
+
+        raft = ks.raft[:METRIC_LEAF0] if not metrics_on else ks.raft
+        total = step._block_total(n)
+        ops = b * m * ((2 + total) * OPS_PER_HASH + total
+                       + 57 * OPS_PER_HASH + 8 * cap
+                       + kcfg.n_clients * cap * 2
+                       + 30 * n * kcfg.apply_max)
+        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        nb = (2 * nbytes(*raft, *ks[1:]) + nbytes(keys, *table, *ktable)
+              + 4 * int(rounds))
+        out[name] = (device_ms(call, "tick_chunk_kernel", iters=10, warmup=1),
+                     cuda_ms(call, iters=5, warmup=1), plain_ms, nb, ops)
+    set_counts(counts)
+    return out
+
+
 def _kv_phases(dev) -> dict:
     """Where a K9 launch's time goes at the kv flagship's shape (tick 200
     to 201): the profile build's clock64() cycles a phase from each warp's
@@ -3752,18 +4063,19 @@ def _kv_phases(dev) -> dict:
             "median_total_cycles": float(np.median(ends[:, -1]))}
 
 
-def _profile_kv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
+def _profile_kv_tick(dev, metrics_on: bool, n_ticks: int = 512) -> dict:
     """Where a kv flagship tick's wall goes (torch.profiler, the window
     retry of ``_profiled``): the device operations a tick, the card's busy
-    share of the wall, and K6's and K9's shares, over n_ticks ticks from
-    tick 200 on K6 and K9."""
-    from madraft_tpu_torch.tpusim import kv
+    share of the wall, and K6-kv's share, over n_ticks ticks from tick 200
+    (the flagship's depth: two K6-kv launches)."""
+    from madraft_tpu_torch.tpusim import engine, kv
 
     cfg, kcfg, ks, keys, kn, kkn = _kv_state(dev, metrics_on)
     counts = read_counts()
+    # every K6-kv launch of the window, or the shares would be of a part
     _, kernels, wall_ms, _, attempts = _profiled(
         lambda: kv._advance_kv(cfg, kcfg, ks, keys, kn, kkn, n_ticks),
-        expect=("tick_chunk_kernel", "kv_kernel"))
+        expect={"tick_chunk_kernel": -(-n_ticks // engine.KERNEL_CHUNK)})
     set_counts(counts)
 
     def share(name):
@@ -3777,8 +4089,7 @@ def _profile_kv_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
             "wall_ms_per_tick": wall_ms / n_ticks,
             "device_busy_ms_per_tick": busy_ms / n_ticks,
             "device_busy_share": busy_ms / wall_ms,
-            "k6_share": share("tick_chunk_kernel"),
-            "k9_share": share("kv_kernel"),
+            "k6kv_share": share("tick_chunk_kernel"),
             "host_share": 1 - busy_ms / wall_ms,
             "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
             "top_device_ms_per_tick": {
@@ -4947,7 +5258,8 @@ def _shardkv_timing(dev) -> tuple:
                                     keys, kn, skn, table, plain=plain,
                                     ctrl=c)
 
-        out[name] = (device_ms(call, "shardkv_kernel"), cuda_ms(call),
+        out[name] = (device_ms(call, "shardkv_kernel"),
+                     cuda_ms(call),
                      cuda_ms(lambda i: call(i, True), iters=5, warmup=1),
                      counted[name]["total"], ops)
         del rot
@@ -5070,4 +5382,6 @@ if __name__ == "__main__":
         sys.exit(service_leg(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--k6-leg"]:
         sys.exit(k6_leg(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--kv-leg"]:
+        sys.exit(kv_leg(*sys.argv[2:4]))
     sys.exit(main())

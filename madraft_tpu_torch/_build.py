@@ -22,8 +22,9 @@ from pathlib import Path
 # the raft verbs' sources, built by the engine's set-up before a run
 SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick",
            "harvest", "trace")
-# K9's source: a kv run's set-up builds it or K9-metrics (kernels/kv.py
-# variant), and nothing else of the raft verbs' set-up builds it
+# K9's source (kernels/kv.py kv_tick, the per-tick service kernel, on no
+# run's path since K6-kv: a kv run's set-up builds tick_kv or
+# tick_metrics_kv, VARIANTS)
 KV = "kv"
 # K10's source: a ctrler run's set-up builds it or K10-metrics
 # (kernels/ctrler.py variant), as a kv run's builds K9
@@ -46,6 +47,11 @@ VARIANTS = {
                                       "-DMADRAFT_K6_PROFILE")),
     "tick_coverage_profile": ("tick", ("-DMADRAFT_K6_COVERAGE",
                                        "-DMADRAFT_K6_PROFILE")),
+    # K6-kv and K6-metrics-kv (kernels/kv.py kv_chunk): K6 with the kv
+    # service tick after each raft tick of a chunk, the builds a kv run's
+    # set-up builds
+    "tick_kv": ("tick", ("-DMADRAFT_K6_KV",)),
+    "tick_metrics_kv": ("tick", ("-DMADRAFT_K6_METRICS", "-DMADRAFT_K6_KV")),
     # K9-metrics (kernels/kv.py variant): the kv service tick with the
     # clerks' latency folds
     "kv_metrics": ("kv", ("-DMADRAFT_K9_METRICS",)),

@@ -21,7 +21,9 @@
 // and the per-key and per-client rows (B5': metrics.py fold_latencies_by,
 // clerk_phase_matrix, kv.py 662-679 and 830-849). The Python side is
 // kernels/kv.py, whose plain version is tpusim/kv.py _kv_service_tick; the
-// device code is kv.cuh.
+// device code is kv.cuh, whose phase functions K6-kv (tick.cu
+// -DMADRAFT_K6_KV) runs too. Since K6-kv no kv run launches K9: it is the
+// per-tick design K6-kv is held against, tested on its own.
 //
 // Bound. At the kv flagship's shape (B = 1024, n = 5, cap = 64, 4
 // clients, 4 keys) the tick must read and write every service leaf and
@@ -63,8 +65,8 @@
 // hashes are functions called, not inlined, and the copies keep 8 leaves'
 // loads in flight. Staging and writing back the 49 leaves take most of
 // it. The log rows' copy (5 KB a cluster read and written) is traffic
-// above the bound: appending into the raft tick's fresh output in place
-// would drop it (ROADMAP queue B, K6-kv).
+// above the bound; K6-kv, which keeps the kv leaves in K6's block for a
+// chunk and appends to the log rows in place, has neither.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -95,7 +97,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int c = blockIdx.x * (blockDim.x / 32) + warp;
   if (c >= p.b) return;  // the whole warp: no barrier waits on it
   int32_t *ws = reinterpret_cast<int32_t *>(smem + k9::kTableBytes) +
-                warp * p.words;
+                warp * p.L.words;
 #ifdef MADRAFT_K9_PROFILE
   const long long t0 = clock64();
 #endif
@@ -120,7 +122,7 @@ extern "C" int kv_launch(const int64_t *desc, int n_desc, void *stream) {
   k9::Params p;
   if (!k9::set_params(p, desc, n_desc))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = p.words * 4;
+  const int bytes = p.L.words * 4;
   if (k9::kTableBytes + bytes > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   int warps = kWarps;

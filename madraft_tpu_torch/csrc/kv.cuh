@@ -1,12 +1,23 @@
-// K9's device code: one kv service tick of one cluster, by the 32 lanes
-// of a warp (kv.cu holds the kernel, its launch and the note on what it
-// replaces, its bound and design). Built by nvcc through kv.cu, and by g++
-// through tests/kv_host_emu.cpp.
+// The kv service tick's device code (the JAX reference's _kv_service_tick),
+// once, for two kernels: K9 runs it on the 32 lanes of a warp, one tick a
+// launch (kv.cu holds that kernel, its launch and the note on what it
+// replaces, its bound and design), and K6-kv runs it on K6's 16-lane tile
+// after each raft tick of a chunk (tick.cuh, -DMADRAFT_K6_KV). Built by
+// nvcc through kv.cu and tick.cu, and by g++ through tests/kv_host_emu.cpp
+// and tests/tick_host_emu.cpp.
 //
-// The tick runs as seven phases (Phase), a warp barrier after each. Within
-// a phase the lanes share nothing but commutative updates of the warp's
-// shared region (atomic add, or, max): so the host runs a phase's 32 lanes
-// one after another, then the next phase, and gets the card's result.
+// The tick runs as phases (scan, apply, observe, clerks, submit), a warp
+// barrier after each. Each phase is a function of the lane and an
+// environment (K9Env here, tick.cuh KvEnv): the lane count, the cluster's
+// region (its rows of the service leaves and the tick's scratch, Layout),
+// the raft leaves the tick reads and writes, and the pre-tick values.
+// K9 stages its region from the inputs each tick and writes a new state,
+// so its pre-tick values are the inputs; K6-kv keeps the region for a
+// whole chunk and updates it in place, so it copies the two its phases
+// need after rewriting them (the truth's max seq, and the snapshots an
+// install adopts). Within a phase the lanes share nothing but commutative
+// updates of the region (atomic add, or, max): so K9's host build runs a
+// phase's lanes one after another, and gets the card's result.
 //
 // The arithmetic is the plain version's (tpusim/kv.py _kv_service_tick),
 // written per cluster: int32 values that may wrap are computed in uint32
@@ -30,10 +41,10 @@ constexpr bool kMetrics = true;
 constexpr bool kMetrics = false;
 #endif
 
-constexpr int kLanes = 32;
-constexpr int kMaxNodes = 16;    // a node a lane in kApply
+constexpr int kLanes = 32;       // K9: a warp a cluster
+constexpr int kMaxNodes = 16;    // a node a lane in apply
 constexpr int kMaxCap = 256;
-constexpr int kMaxClients = 32;  // a clerk a lane in kClerks
+constexpr int kMaxClients = 32;
 constexpr int kMaxKeys = 64;
 constexpr int kQueueSlots = 8;   // config.OPEN_QUEUE_SLOTS
 constexpr int kPhases = 4;       // config.LATENCY_PHASES
@@ -44,8 +55,8 @@ constexpr int kGet = 1, kPut = 2, kAppend = 0;
 constexpr int32_t kViolExactlyOnce = 8, kViolDiverge = 16, kViolStale = 32;
 constexpr uint32_t kSiteStart = 8, kSiteKind = 14, kSiteHint = 15;
 
-// The leaves K9 writes: the service leaves in KvState order, then the raft
-// leaves the service tick writes (kernels/kv.py LEAVES)
+// The leaves the service tick writes: the service leaves in KvState order,
+// then the raft leaves it writes (kernels/kv.py RAFT_WRITES)
 enum Leaf {
   kClerkSeq, kClerkOut, kClerkKey, kClerkKind, kClerkAcked, kClerkLeader,
   kClerkWait, kOpenArr, kOpenSrv, kOpenDrop, kOpenStamp, kClerkSub,
@@ -58,9 +69,11 @@ enum Leaf {
   kWorstPhases, kWorstKey, kWorstClient, kWorstSub,
   kLeaves
 };
+// The service leaves are the first kServiceLeaves
+constexpr int kServiceLeaves = kLogTerm;
 
-// The read-only inputs: the stepped raft state's leaves, the pre-tick
-// views, the keys and the knob table (kernels/kv.py READS)
+// K9's read-only inputs: the stepped raft state's leaves, the pre-tick
+// views, the keys and the knob table (kernels/kv.py RAFT_READS)
 enum Read {
   kTick, kTerm, kRole, kAlive, kBase, kCommit, kSnapSrc, kShadowVal,
   kShadowBase, kShadowLen, kPreAlive, kPreBase, kPreShadowLen, kKeys,
@@ -75,20 +88,21 @@ enum KnobI {
   kBugStaleRead, kBugStaleHint, kFlowCap, kNI
 };
 
-// The wrapper's descriptor (kernels/kv.py _descriptor): this header, the
-// kReads pointers, then 4 words a leaf (in, out, count a cluster, bytes an
-// element)
+// K9's descriptor (kernels/kv.py _launch): this header, the kReads
+// pointers, then 4 words a leaf (in, out, count a cluster, bytes an
+// element). K6-kv's (kernels/kv.py _side) has the header's kNc ..
+// kMetricsOn, the knob table's two pointers, then the same 4 words a leaf
 enum Desc {
   kB, kN, kCap, kNc, kNk, kApplyMax, kHb, kNph, kPartitionable, kMetricsOn,
   kHeader
 };
 
-// The phases of a tick, in order (run_phase)
+// K9's phases of a tick, in order (run_phase)
 enum Phase { kStage, kScan, kApply, kObserve, kClerks, kSubmit, kWriteBack,
              kTickPhases };
 
-// A worst-op candidate's words in the warp's region: mask, lat, key, sub,
-// then the kPhases phases
+// A worst-op candidate's words in the region: mask, lat, key, sub, then
+// the kPhases phases
 constexpr int kWorstWords = 4 + kPhases;
 
 // The tick's draw keys, from fold_in(cluster key, t): the four splits of
@@ -96,36 +110,27 @@ constexpr int kWorstWords = 4 + kPhases;
 // (the op's kind) and the first split of site 15 (hint following)
 constexpr int kDrawKeys = 6;
 
-// The stepped raft rows the tick reads by node, staged in the warp's
-// region (alive as 0 / 1)
+// K9's stepped raft rows by node, staged in the region (alive as 0 / 1)
 enum RaftRow { kRTerm, kRRole, kRAlive, kRBase, kRCommit, kRaftRows };
 
 // A leaf: its input and output, its count of elements a cluster, its
-// bytes an element, and its row's offset in a warp's region (-1 for a log
-// row: see Params)
+// bytes an element, and its row's offset in the region (-1 for a leaf the
+// region does not hold)
 struct LeafRef {
   const void *in;
   void *out;
   int count, bytes, off;
 };
 
-// The leaf table's copy in shared memory, before the warps' regions: the
-// copy loops read a leaf's fields at a runtime index, which the kernel's
-// parameters serve slowly
-constexpr int kTableBytes = (kLeaves * static_cast<int>(sizeof(LeafRef)) +
-                             15) / 16 * 16;
-// The leaves whose loads the copy loops keep in flight at once
-constexpr int kGroup = 8;
+// The run's shape
+struct Dims {
+  int n, cap, nc, nk, apply_max, hb, nph, part;
+};
 
-// The warp's shared region, in int32 words: every leaf but the two log
-// rows staged at its off (-1 for the log rows, which stay in device
-// memory: the tick reads n * apply_max of their slots and appends at most
-// nc), then the tick's scratch
-struct Params {
-  LeafRef leaf[kLeaves];
-  const void *read[kReads];
-  int b, n, cap, nc, nk, apply_max, hb, nph, partitionable;
-  int sh_val;     // [cap] the shadow window's values
+// The region's scratch after the leaves' rows, in int32 words from its
+// start (a size 0 where the kernel keeps none)
+struct Layout {
+  int sh_val;     // K9: [cap] the shadow window's values
   int viol;       // the tick's violation bits
   int flag;       // [nc] the clerk's op is in the live shadow
   int first;      // [n, nc] the first apply round a node observed the
@@ -136,58 +141,132 @@ struct Params {
   int worst;      // [2, nc, kWorstWords] the ack's and the serve's
                   // worst-op candidates
   int draws;      // [kDrawKeys, 2] the tick's draw keys
-  int raft;       // [kRaftRows, n] the stepped raft rows (RaftRow)
+  int raft;       // K9: [kRaftRows, n] the stepped raft rows (RaftRow)
+  int pre_base;   // K6-kv: [n] the pre-tick base
+  int pre_tmax;   // K6-kv: [nc] the pre-tick truth_max_seq
+  int snap_pre;   // K6-kv: [n, 2 nc + 2 nk] the pre-tick snapshots
+  int knobs;      // K6-kv: [kNF + kNI] the cluster's knob rows
   int words;      // the region's size
 };
+
+// Lays a region out for d: a row for each leaf with a region row (K9: all
+// but the two log rows; K6-kv, k6: the service leaves and the metric
+// leaves, whose raft leaves live in K6's block), each leaf's count and
+// bytes already set, then the scratch. False for a leaf K9 does not take
+inline bool lay_out(LeafRef *leaf, Layout &L, const Dims &d, bool k6) {
+  int words = 0;
+  for (int l = 0; l < kLeaves; ++l) {
+    const bool held = k6 ? (l < kServiceLeaves || l >= kLatHist)
+                         : (l != kLogTerm && l != kLogVal);
+    if (leaf[l].bytes != 1 && leaf[l].bytes != 4) return false;
+    if (leaf[l].count < 0 || leaf[l].count > (1 << 16)) return false;
+    leaf[l].off = held ? words : -1;
+    if (held) words += (leaf[l].count * leaf[l].bytes + 3) / 4;
+  }
+  auto take = [&](int size) {
+    const int at = words;
+    words += size;
+    return at;
+  };
+  L.sh_val = take(k6 ? 0 : d.cap);
+  L.viol = take(1);
+  L.flag = take(d.nc);
+  L.first = take(d.n * d.nc);
+  L.first_obs = take(d.n * d.nc);
+  L.target = take(d.nc);
+  L.retry = take(d.nc);
+  L.worst = take(2 * d.nc * kWorstWords);
+  L.draws = take(2 * kDrawKeys);
+  L.raft = take(k6 ? 0 : kRaftRows * d.n);
+  L.pre_base = take(k6 ? d.n : 0);
+  L.pre_tmax = take(k6 ? d.nc : 0);
+  L.snap_pre = take(k6 ? d.n * (2 * d.nc + 2 * d.nk) : 0);
+  L.knobs = take(k6 ? int(kNF) + int(kNI) : 0);
+  L.words = words;
+  return true;
+}
+
+// Dims from the descriptor header's words nc .. metrics_on (Desc kNc ..
+// kMetricsOn) and the raft shape; false when they are out of the
+// kernels' range or the metrics flag is not met (the build's)
+inline bool set_dims(Dims &d, const int64_t *h, int n, int cap, int part,
+                     bool met) {
+  d.n = n;
+  d.cap = cap;
+  d.nc = static_cast<int>(h[0]);
+  d.nk = static_cast<int>(h[kNk - kNc]);
+  d.apply_max = static_cast<int>(h[kApplyMax - kNc]);
+  d.hb = static_cast<int>(h[kHb - kNc]);
+  d.nph = static_cast<int>(h[kNph - kNc]);
+  d.part = part;
+  if (n < 1 || n > kMaxNodes || cap < 1 || cap > kMaxCap ||
+      (cap & (cap - 1)) || d.nc < 1 || d.nc > kMaxClients || d.nk < 1 ||
+      d.nk > kMaxKeys || d.apply_max < 0 ||
+      (h[kMetricsOn - kNc] != 0) != met)
+    return false;
+  return !met || (d.hb >= 1 && d.hb <= 31 && d.nph == kPhases);
+}
 
 template <typename T>
 inline T *ptr_of(int64_t w) {
   return reinterpret_cast<T *>(static_cast<intptr_t>(w));
 }
 
+// The leaves of a descriptor's 4 words a leaf (in, out, count, bytes)
+inline void set_leaves(LeafRef *leaf, const int64_t *g) {
+  for (int l = 0; l < kLeaves; ++l, g += 4)
+    leaf[l] = {ptr_of<const void>(g[0]), ptr_of<void>(g[1]),
+               static_cast<int>(g[2]), static_cast<int>(g[3]), -1};
+}
+
+// K9's parameters: the leaves, the reads, the shape and the region
+struct Params {
+  LeafRef leaf[kLeaves];
+  const void *read[kReads];
+  Dims d;
+  Layout L;
+  int b;
+};
+
 inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   constexpr int kWords = int(kHeader) + int(kReads) + 4 * int(kLeaves);
   if (n_desc != kWords) return false;
   p.b = static_cast<int>(d[kB]);
-  p.n = static_cast<int>(d[kN]);
-  p.cap = static_cast<int>(d[kCap]);
-  p.nc = static_cast<int>(d[kNc]);
-  p.nk = static_cast<int>(d[kNk]);
-  p.apply_max = static_cast<int>(d[kApplyMax]);
-  p.hb = static_cast<int>(d[kHb]);
-  p.nph = static_cast<int>(d[kNph]);
-  p.partitionable = static_cast<int>(d[kPartitionable]);
-  if (p.b < 1 || p.n < 1 || p.n > kMaxNodes || p.cap < 1 ||
-      p.cap > kMaxCap || (p.cap & (p.cap - 1)) || p.nc < 1 ||
-      p.nc > kMaxClients || p.nk < 1 || p.nk > kMaxKeys ||
-      p.apply_max < 0 || (d[kMetricsOn] != 0) != kMetrics)
+  if (p.b < 1 ||
+      !set_dims(p.d, d + kNc, static_cast<int>(d[kN]),
+                static_cast<int>(d[kCap]),
+                static_cast<int>(d[kPartitionable]), kMetrics))
     return false;
-  if (kMetrics && (p.hb < 1 || p.hb > 31 || p.nph != kPhases)) return false;
   for (int r = 0; r < kReads; ++r)
     p.read[r] = ptr_of<const void>(d[kHeader + r]);
-  int words = 0;
-  for (int l = 0; l < kLeaves; ++l) {
-    const int64_t *g = d + kHeader + kReads + 4 * l;
-    const bool log_row = l == kLogTerm || l == kLogVal;
-    p.leaf[l] = {ptr_of<const void>(g[0]), ptr_of<void>(g[1]),
-                 static_cast<int>(g[2]), static_cast<int>(g[3]),
-                 log_row ? -1 : words};
-    if (p.leaf[l].bytes != 1 && p.leaf[l].bytes != 4) return false;
-    if (p.leaf[l].count < 0 || p.leaf[l].count > (1 << 16)) return false;
-    if (!log_row) words += (p.leaf[l].count * p.leaf[l].bytes + 3) / 4;
-  }
-  p.sh_val = words;
-  p.viol = p.sh_val + p.cap;
-  p.flag = p.viol + 1;
-  p.first = p.flag + p.nc;
-  p.first_obs = p.first + p.n * p.nc;
-  p.target = p.first_obs + p.n * p.nc;
-  p.retry = p.target + p.nc;
-  p.worst = p.retry + p.nc;
-  p.draws = p.worst + 2 * p.nc * kWorstWords;
-  p.raft = p.draws + 2 * kDrawKeys;
-  p.words = p.raft + kRaftRows * p.n;
-  return true;
+  set_leaves(p.leaf, d + kHeader + kReads);
+  return lay_out(p.leaf, p.L, p.d, false);
+}
+
+// K6-kv's share of K6's parameters (tick.cuh Params::kv): the service
+// leaves in and out (a metric leaf's row has no in or out: K6 keeps the
+// metric leaves), the kv knob table, the shape, the region and its byte
+// offset in a cluster's block
+struct Side {
+  LeafRef leaf[kLeaves];
+  const float *kf;  // [B, kNF]
+  const int *ki;    // [B, kNI]
+  Dims d;
+  Layout L;
+  int off;
+};
+
+// Side from K6-kv's descriptor (kNc .. kMetricsOn, kf, ki, then 4 words a
+// leaf) at raft shape (n, cap); false where K6-kv does not take it
+inline bool set_side(Side &s, const int64_t *d, int n_desc, int n, int cap,
+                     int part, bool met) {
+  constexpr int kWords = int(kHeader) - int(kNc) + 2 + 4 * int(kLeaves);
+  if (n_desc != kWords) return false;
+  if (!set_dims(s.d, d, n, cap, part, met)) return false;
+  s.kf = ptr_of<const float>(d[kHeader - kNc]);
+  s.ki = ptr_of<const int>(d[kHeader - kNc + 1]);
+  set_leaves(s.leaf, d + kHeader - kNc + 2);
+  return lay_out(s.leaf, s.L, s.d, true);
 }
 
 // ------------------------------------------------------------- arithmetic
@@ -236,10 +315,11 @@ __device__ __forceinline__ float fdiv(float a, float b) {
 #endif
 }
 
-// The lanes' commutative updates of a word of the warp's region (on the
-// host the lanes run one after another)
+// The lanes' commutative updates of a word of the cluster's region (on
+// the host K9's lanes run one after another; K6-kv's run as threads, and
+// its host build defines MADRAFT_HOST_ATOMICS and the atomics' twins)
 __device__ __forceinline__ void shared_add(int32_t *a, int32_t v) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) || defined(MADRAFT_HOST_ATOMICS)
   atomicAdd(a, v);
 #else
   *a = wrap_add(*a, v);
@@ -247,7 +327,7 @@ __device__ __forceinline__ void shared_add(int32_t *a, int32_t v) {
 }
 
 __device__ __forceinline__ void shared_or(int32_t *a, int32_t v) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) || defined(MADRAFT_HOST_ATOMICS)
   atomicOr(a, v);
 #else
   *a |= v;
@@ -255,7 +335,7 @@ __device__ __forceinline__ void shared_or(int32_t *a, int32_t v) {
 }
 
 __device__ __forceinline__ void shared_max(int32_t *a, int32_t v) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) || defined(MADRAFT_HOST_ATOMICS)
   atomicMax(a, v);
 #else
   if (v > *a) *a = v;
@@ -341,10 +421,23 @@ __device__ __noinline__ int32_t randint_elem(uint32_t k0, uint32_t k1, int i,
   return madraft::randint_elem(k0, k1, i, size, minval, maxval, part);
 }
 
+
+// Draw key j (< kDrawKeys) of the tick from (k0, k1) = fold_in(cluster
+// key, t): its site folded in, then its split; into out[0..1]
+__device__ __forceinline__ void draw_key(uint32_t k0, uint32_t k1, int j,
+                                         int part, int32_t *out) {
+  fold_in(k0, k1, j < 4 ? kSiteStart : j == 4 ? kSiteKind : kSiteHint);
+  uint32_t d0 = k0, d1 = k1;
+  if (j < 4) split_key(k0, k1, 4, j, part, d0, d1);
+  if (j == 5) split_key(k0, k1, 2, 0, part, d0, d1);
+  out[0] = static_cast<int32_t>(d0);
+  out[1] = static_cast<int32_t>(d1);
+}
+
 // ------------------------------------------------------------ leaf access
-// A load from an input: the inputs stay as they are for the whole launch
-// (the state is written out of place), so the loads go through the
-// read-only cache and the compiler may issue them ahead of the stores
+// A load from an input of K9: the inputs stay as they are for the whole
+// launch (K9 writes a new state), so the loads go through the read-only
+// cache and the compiler may issue them ahead of the stores
 template <typename T>
 __device__ __forceinline__ T ld(const T *x) {
 #ifdef __CUDA_ARCH__
@@ -381,18 +474,98 @@ __device__ __forceinline__ Ro<T> read_row(const Params &p, int r, int c,
           static_cast<int64_t>(c) * count};
 }
 
-// The staged (new) row of leaf l in the warp's region ws
-template <typename T>
-__device__ __forceinline__ T *work(const Params &p, int32_t *ws, int l) {
-  return reinterpret_cast<T *>(ws + p.leaf[l].off);
-}
+// K9's environment for cluster c: its region ws in the warp's shared
+// memory (every leaf's new row but the two log rows, which K9 writes to
+// their outputs), the pre-tick values from the inputs, the stepped raft
+// rows staged in ws
+struct K9Env {
+  static constexpr bool kMet = kMetrics;
+  const Params &p;
+  int32_t *ws;
+  int c;
+  __device__ int lanes() const { return kLanes; }
+  __device__ const Dims &d() const { return p.d; }
+  __device__ const Layout &L() const { return p.L; }
+  __device__ int n() const { return p.d.n; }
+  __device__ int cap() const { return p.d.cap; }
+  // leaf l's row in the region (the tick's new values), a scratch word
+  __device__ int32_t *w(int l) const { return ws + p.leaf[l].off; }
+  __device__ int32_t *s(int off) const { return ws + off; }
+  __device__ uint8_t *wb(int l) const {
+    return reinterpret_cast<uint8_t *>(ws + p.leaf[l].off);
+  }
+  // leaf l's pre-tick row
+  __device__ Ro<int32_t> pre(int l) const { return in_row<int32_t>(p, l, c); }
+  __device__ Ro<uint8_t> pre_b(int l) const {
+    return in_row<uint8_t>(p, l, c);
+  }
+  // the stepped raft state
+  __device__ int32_t tick() const {
+    return read_row<int32_t>(p, kTick, c, 1)[0];
+  }
+  __device__ const int32_t *raft(int r) const {
+    return ws + p.L.raft + r * p.d.n;
+  }
+  __device__ const int32_t *term() const { return raft(kRTerm); }
+  __device__ const int32_t *role() const { return raft(kRRole); }
+  __device__ const int32_t *base() const { return raft(kRBase); }
+  __device__ const int32_t *commit() const { return raft(kRCommit); }
+  __device__ bool alive(int i) const { return raft(kRAlive)[i] != 0; }
+  __device__ int32_t snap_src(int i) const {
+    return read_row<int32_t>(p, kSnapSrc, c, p.d.n)[i];
+  }
+  __device__ const int32_t *shadow_val() const { return ws + p.L.sh_val; }
+  __device__ int32_t shadow_base() const {
+    return read_row<int32_t>(p, kShadowBase, c, 1)[0];
+  }
+  __device__ int32_t shadow_len() const {
+    return read_row<int32_t>(p, kShadowLen, c, 1)[0];
+  }
+  // the pre-tick views
+  __device__ bool pre_alive(int i) const {
+    return read_row<uint8_t>(p, kPreAlive, c, p.d.n)[i] != 0;
+  }
+  __device__ int32_t pre_base(int i) const {
+    return read_row<int32_t>(p, kPreBase, c, p.d.n)[i];
+  }
+  __device__ int32_t pre_shadow_len() const {
+    return read_row<int32_t>(p, kPreShadowLen, c, 1)[0];
+  }
+  __device__ float kf(int k) const {
+    return read_row<float>(p, kKnobF, c, kNF)[k];
+  }
+  __device__ int32_t ki(int k) const {
+    return read_row<int32_t>(p, kKnobI, c, kNI)[k];
+  }
+  // the log: node i's log_val row before the submits (the input), the
+  // log_len the submits move, an appended entry (to the outputs)
+  __device__ Ro<int32_t> log_val(int i) const {
+    return in_row<int32_t>(p, kLogVal, c) + i * p.d.cap;
+  }
+  __device__ int32_t *log_len() const { return w(kLogLen); }
+  __device__ void append(int i, int pos, int32_t term, int32_t val) const {
+    out_row<int32_t>(p, kLogTerm, c)[i * p.d.cap + pos] = term;
+    out_row<int32_t>(p, kLogVal, c)[i * p.d.cap + pos] = val;
+  }
+  __device__ int32_t &violations() const { return w(kViolations)[0]; }
+  __device__ int32_t &first_violation() const {
+    return w(kFirstViolation)[0];
+  }
+  // after the submits: the fsync watermark follows the log where it grew
+  // (state.durable_after_append) and the compaction floor is the apply
+  // cursor
+  __device__ void submitted() const {
+    const Ro<int32_t> log_len0 = pre(kLogLen);
+    const int32_t *len = w(kLogLen), *applied = w(kApplied);
+    int32_t *durable = w(kDurableLen), *floor_ = w(kCompactFloor);
+    for (int i = 0; i < p.d.n; ++i) {
+      if (len[i] > log_len0[i]) durable[i] = len[i];
+      floor_[i] = applied[i];
+    }
+  }
+};
 
-// A staged raft row (RaftRow) in the warp's region ws
-__device__ __forceinline__ const int32_t *raft_row(const Params &p,
-                                                   const int32_t *ws, int r) {
-  return ws + p.raft + r * p.n;
-}
-
+// ------------------------------------------------------- the service tick
 // The worst-op register's candidate: the argmax of where(mask, lat, -1)
 // over the clerks (the first on ties) with that clerk's fields
 struct Worst {
@@ -418,21 +591,21 @@ __device__ __forceinline__ void worst_see(Worst &w, int cl, bool mask,
 
 // The worst-op register after one fold: the clerks' candidates (cand,
 // [nc, kWorstWords]) reduced in client order, then the register updated
-__device__ __forceinline__ void worst_apply(const Params &p, int32_t *ws,
-                                            const int32_t *cand) {
+template <class E>
+__device__ __forceinline__ void worst_apply(const E &e, const int32_t *cand) {
   Worst w{};
-  for (int cl = 0; cl < p.nc; ++cl) {
+  for (int cl = 0; cl < e.d().nc; ++cl) {
     const int32_t *x = cand + cl * kWorstWords;
     worst_see(w, cl, x[0] != 0, x[1], x + 4, x[2], x[3]);
   }
-  int32_t *lat = work<int32_t>(p, ws, kWorstLat);
-  int32_t *sub = work<int32_t>(p, ws, kWorstSub);
+  int32_t *lat = e.w(kWorstLat);
+  int32_t *sub = e.w(kWorstSub);
   if (!(w.any && (w.lat > lat[0] || sub[0] == 0))) return;
   lat[0] = w.lat;
-  work<int32_t>(p, ws, kWorstKey)[0] = w.key;
-  work<int32_t>(p, ws, kWorstClient)[0] = w.client;
+  e.w(kWorstKey)[0] = w.key;
+  e.w(kWorstClient)[0] = w.client;
   sub[0] = w.sub;
-  int32_t *ph = work<int32_t>(p, ws, kWorstPhases);
+  int32_t *ph = e.w(kWorstPhases);
   for (int q = 0; q < kPhases; ++q) ph[q] = w.ph[q];
 }
 
@@ -449,33 +622,468 @@ __device__ __forceinline__ void worst_put(int32_t *x, bool mask, int32_t lat,
 // One acked op into the clerk folds (fold_latencies, fold_phases and the
 // per-key / per-client rows of fold_latencies_by); the clerks' lanes fold
 // at once, so every add is a shared one
-__device__ __forceinline__ void fold_op(const Params &p, int32_t *ws,
-                                        int32_t lat, const int32_t ph[],
-                                        int32_t key, int cl) {
-  const int hb = p.hb;
+template <class E>
+__device__ __forceinline__ void fold_op(const E &e, int32_t lat,
+                                        const int32_t ph[], int32_t key,
+                                        int cl) {
+  const int hb = e.d().hb;
   const int b = bucket_of(lat, hb);
-  shared_add(work<int32_t>(p, ws, kLatHist) + b, 1);
-  int32_t *phist = work<int32_t>(p, ws, kPhaseHist);
-  int32_t *pticks = work<int32_t>(p, ws, kPhaseTicks);
+  shared_add(e.w(kLatHist) + b, 1);
+  int32_t *phist = e.w(kPhaseHist);
+  int32_t *pticks = e.w(kPhaseTicks);
   for (int q = 0; q < kPhases; ++q) {
     shared_add(phist + q * hb + bucket_of(ph[q], hb), 1);
     shared_add(pticks + q, ph[q]);
   }
-  shared_add(work<int32_t>(p, ws, kLatTicks), lat);
-  if (key >= 0 && key < p.nk)
-    shared_add(work<int32_t>(p, ws, kKeyLatHist) + key * hb + b, 1);
-  shared_add(work<int32_t>(p, ws, kClientLatHist) + cl * hb + b, 1);
+  shared_add(e.w(kLatTicks), lat);
+  if (key >= 0 && key < e.d().nk)
+    shared_add(e.w(kKeyLatHist) + key * hb + b, 1);
+  shared_add(e.w(kClientLatHist) + cl * hb + b, 1);
 }
 
-// Element e of cluster c's input row of leaf g
+// The tick's scratch that starts cleared: the clerks' shadow flags and
+// the violation bits
+__device__ __forceinline__ void clear_tick(const Layout &L, int32_t *ws,
+                                           int nc, int lane, int lanes) {
+  for (int cl = lane; cl < nc; cl += lanes) ws[L.flag + cl] = 0;
+  if (lane == 0) ws[L.viol] = 0;
+}
+
+// Phase scan: the committed truth per key (a shadow lane a thread, each
+// deduped against the whole window), whether each clerk's op is in the
+// live shadow (a (clerk, lane) pair a thread), and the apply machines'
+// crash reset, compaction capture and install-snapshot (a table cell a
+// thread; an install adopts the sender's PRE-tick snapshot)
+template <class E>
+__device__ __forceinline__ void scan(const E &e, int lane) {
+  const Layout &L = e.L();
+  const int n = e.n(), cap = e.cap(), nc = e.d().nc, nk = e.d().nk;
+  const int lanes = e.lanes();
+  const int32_t *val = e.shadow_val();
+  const int32_t sh_base = e.shadow_base();
+  const int32_t sh_len = e.shadow_len();
+  const int32_t pre_len = e.pre_shadow_len();
+  const auto tmax0 = e.pre(kTruthMaxSeq);
+  int32_t *truth = e.w(kTruthCount);
+  int32_t *tmax = e.w(kTruthMaxSeq);
+  for (int q = lane; q < cap; q += lanes) {
+    const int32_t aq = shadow_abs(sh_base, q, cap);
+    const int32_t v = val[q];
+    if (!(aq > pre_len && aq <= sh_len && v != kNoop)) continue;
+    // a lane new this tick with the same value at an earlier index
+    bool dup_earlier = false;
+    for (int r = 0; r < cap; ++r) {
+      const int32_t ar = shadow_abs(sh_base, r, cap);
+      dup_earlier |= val[r] == v && ar > pre_len && ar < aq;
+    }
+    const Op o = unpack(v, nk, nc);
+    if (o.seq > tmax0[o.client] && !dup_earlier && o.kind != kGet)
+      shared_add(truth + o.key, 1);
+    shared_max(tmax + o.client, o.seq);
+  }
+
+  const auto clerk_seq0 = e.pre(kClerkSeq);
+  const auto clerk_key0 = e.pre(kClerkKey);
+  const auto clerk_kind0 = e.pre(kClerkKind);
+  for (int x = lane; x < nc * cap; x += lanes) {
+    const int cl = x / cap, i = x % cap;
+    const int32_t want = pack(cl, clerk_seq0[cl], clerk_key0[cl],
+                              clerk_kind0[cl], nk);
+    if (val[i] == want && shadow_abs(sh_base, i, cap) <= sh_len)
+      shared_or(e.s(L.flag) + cl, 1);
+  }
+
+  const int32_t *base = e.base();
+  for (int i = lane; i < n; i += lanes) {
+    const bool fresh = !e.pre_alive(i) || !e.alive(i);
+    const bool inst = e.snap_src(i) >= 0;
+    if (fresh || inst) e.w(kApplied)[i] = base[i];
+  }
+  // the live tables (nc columns: last_seq, apply_count; nk: key_hash,
+  // key_count) and their snapshots, a table after another
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int wd = g < 2 ? nc : nk;
+    const int live = kLastSeq + g, snap = kSnapLastSeq + g;
+    const auto sn0 = e.pre(snap);
+    int32_t *lv = e.w(live);
+    int32_t *sn = e.w(snap);
+    for (int x = lane; x < n * wd; x += lanes) {
+      const int i = x / wd, el = x % wd;
+      const bool fresh = !e.pre_alive(i) || !e.alive(i);
+      const int src = e.snap_src(i);
+      const bool inst = src >= 0;
+      const bool comp = base[i] != e.pre_base(i) && !inst && e.alive(i);
+      if (fresh) lv[x] = sn0[x];
+      if (comp) sn[x] = lv[x];
+      if (inst) {
+        // the sender's PRE-tick snapshot (0 for a sender out of range)
+        lv[x] = sn[x] = src < n ? sn0[src * wd + el] : 0;
+      }
+    }
+  }
+}
+
+// Phase apply: apply_max rounds of the apply loop, a node a thread (a
+// node's rounds are sequential, the nodes independent), then the node's
+// exactly-once check. The rounds' Get observations go to the scratch
+// (first, first_obs) for observe. The log rows are the raft tick's, read
+// before any submit appends
+template <class E>
+__device__ __forceinline__ void apply(const E &e, int lane) {
+  const Layout &L = e.L();
+  const int n = e.n(), cap = e.cap(), nc = e.d().nc, nk = e.d().nk;
+  const int apply_max = e.d().apply_max;
+  if (lane >= n) return;
+  const int i = lane;
+  const bool stale_read = e.ki(kBugStaleRead) != 0;
+  const bool uncommitted = e.ki(kBugApplyUncommitted) != 0;
+  const bool skip_dedup = e.ki(kBugSkipDedup) != 0;
+  const bool alive = e.alive(i);
+  const int32_t limit = uncommitted ? e.log_len()[i] : e.commit()[i];
+  const auto log_val0 = e.log_val(i);
+  const auto clerk_seq0 = e.pre(kClerkSeq);
+  int32_t *last_seq = e.w(kLastSeq) + i * nc;
+  int32_t *apply_count = e.w(kApplyCount) + i * nc;
+  int32_t *key_hash = e.w(kKeyHash) + i * nk;
+  int32_t *key_count = e.w(kKeyCount) + i * nk;
+  int32_t *first = e.s(L.first) + i * nc;
+  int32_t *first_obs = e.s(L.first_obs) + i * nc;
+  int32_t &applied = e.w(kApplied)[i];
+  int32_t viol = 0;
+  for (int cl = 0; cl < nc; ++cl) first[cl] = apply_max;
+  // one round that runs (the cursor below its limit): the cursor's slot
+  auto round_of = [&](int round, int32_t val) {
+    applied = wrap_add(applied, 1);
+    if (val == kNoop) return;
+    const Op o = unpack(val, nk, nc);
+    int32_t &ls = last_seq[o.client];
+    const int32_t prev = ls;
+    const bool dup = o.seq <= prev;
+    if (!stale_read && !dup && o.seq > wrap_add(prev, 1))
+      viol |= kViolExactlyOnce;
+    const bool d = skip_dedup || !dup;
+    if (d && o.kind != kGet) {
+      key_hash[o.key] = static_cast<int32_t>(
+          static_cast<uint32_t>(key_hash[o.key]) * 1000003u +
+          static_cast<uint32_t>(val));
+      key_count[o.key] = wrap_add(key_count[o.key], 1);
+    }
+    if (d) apply_count[o.client] = wrap_add(apply_count[o.client], 1);
+    ls = prev > o.seq ? prev : o.seq;
+    if (d && o.kind == kGet && o.seq == clerk_seq0[o.client] &&
+        key_count[o.key] >= 0 && first[o.client] == apply_max) {
+      first[o.client] = round;
+      first_obs[o.client] = key_count[o.key];
+    }
+  };
+  const auto slot = [&](uint32_t a) {
+    return static_cast<int>(a & static_cast<uint32_t>(cap - 1));
+  };
+  // a round that runs advances the cursor by one, and one that does not
+  // leaves it, so every later round, as it was: the first kAhead rounds'
+  // slots are the cursor's next ones, loaded at once
+  constexpr int kAhead = 8;
+  int32_t ahead[kAhead];
+  const uint32_t a0 = static_cast<uint32_t>(applied);
+#pragma unroll
+  for (int r = 0; r < kAhead; ++r)
+    ahead[r] = r < apply_max ? log_val0[slot(a0 + r)] : 0;
+#pragma unroll
+  for (int round = 0; round < kAhead; ++round) {
+    if (round >= apply_max || !(alive && applied < limit)) break;
+    round_of(round, ahead[round]);
+  }
+  for (int round = kAhead; round < apply_max && alive && applied < limit;
+       ++round)
+    round_of(round, log_val0[slot(static_cast<uint32_t>(applied))]);
+  // exactly-once: ops applied per client == highest seq applied
+  if (!stale_read && alive)
+    for (int cl = 0; cl < nc; ++cl)
+      if (apply_count[cl] != last_seq[cl]) viol |= kViolExactlyOnce;
+  if (viol) shared_or(e.s(L.viol), viol);
+}
+
+// Phase observe: each clerk's Get observation (the largest a node made
+// in the first round any made one), a clerk a thread; the agreement check
+// (equal cursors => identical applied state), a node pair a thread
+template <class E>
+__device__ __forceinline__ void observe(const E &e, int lane) {
+  const Layout &L = e.L();
+  const int n = e.n(), nc = e.d().nc, nk = e.d().nk;
+  const int apply_max = e.d().apply_max, lanes = e.lanes();
+  int32_t *get_obs = e.w(kClerkGetObs);
+  for (int cl = lane; cl < nc; cl += lanes) {
+    if (get_obs[cl] >= 0) continue;
+    int round = apply_max;
+    int32_t obs = -1;
+    for (int i = 0; i < n; ++i) {
+      const int r = e.s(L.first)[i * nc + cl];
+      const int32_t o = e.s(L.first_obs)[i * nc + cl];
+      if (r < round || (r == round && r < apply_max && o > obs)) {
+        round = r;
+        obs = o;
+      }
+    }
+    if (round < apply_max) get_obs[cl] = obs;
+  }
+  const int32_t *applied = e.w(kApplied);
+  const int32_t *key_hash = e.w(kKeyHash);
+  const int32_t *key_count = e.w(kKeyCount);
+  for (int x = lane; x < n * n; x += lanes) {
+    const int i = x / n, j = x % n;
+    if (!(i < j && applied[i] == applied[j] && applied[i] > 0 &&
+          e.alive(i) && e.alive(j)))
+      continue;
+    for (int k = 0; k < nk; ++k)
+      if (key_hash[i * nk + k] != key_hash[j * nk + k] ||
+          key_count[i * nk + k] != key_count[j * nk + k]) {
+        shared_or(e.s(L.viol), kViolDiverge);
+        break;
+      }
+  }
+}
+
+// Clerk cl of phase clerks: the ack, the stale-read oracle, the open-loop
+// arrival, a fresh op or a retry, the hint routing, the bug mode's local
+// serve, and the reply to the submit (the hint and the await countdown;
+// the reply reads nothing the submits write). It reads its own pre-tick
+// values before it writes any
+template <class E>
+__device__ __forceinline__ void clerk(const E &e, int cl) {
+  const Layout &L = e.L();
+  const int n = e.n(), nc = e.d().nc, nk = e.d().nk, part = e.d().part;
+  const int32_t t = e.tick();
+  const int32_t *term = e.term();
+  const int32_t *role = e.role();
+  const bool stale_read = e.ki(kBugStaleRead) != 0;
+  const int32_t *truth = e.w(kTruthCount);
+  const int32_t *k_count = e.w(kKeyCount);
+  int32_t *get_obs = e.w(kClerkGetObs);
+  int32_t viol = 0;
+
+  const int32_t ck = e.pre(kClerkKey)[cl];
+  const int32_t cs = e.pre(kClerkSeq)[cl];
+  const int32_t kind0 = e.pre(kClerkKind)[cl];
+  const bool out0 = e.pre_b(kClerkOut)[cl] != 0;
+  int32_t obs = get_obs[cl];
+  const int32_t truth_at = ck >= 0 && ck < nk ? truth[ck] : 0;
+  const bool in_shadow = e.s(L.flag)[cl] != 0;
+  const bool is_get = kind0 == kGet;
+  int32_t sub = 0, app = 0, cmt = 0, apl = 0;
+  if constexpr (E::kMet) {
+    sub = e.pre(kClerkSub)[cl];
+    app = e.pre(kClerkApp)[cl];
+    cmt = e.pre(kClerkCmt)[cl];
+    apl = e.pre(kClerkApl)[cl];
+    if (out0 && in_shadow && cmt == 0) cmt = t;
+    if (out0 && obs >= 0 && apl == 0) apl = t;
+  }
+  const bool newly = out0 && in_shadow && (!is_get || obs >= 0);
+  const bool done_get = newly && is_get;
+  if (done_get && (obs < e.pre(kClerkGetLo)[cl] || obs > truth_at))
+    viol |= kViolStale;
+  int32_t acked = newly ? cs : e.pre(kClerkAcked)[cl];
+  bool cout = out0 && !newly;
+  int32_t gets = wrap_add(e.pre(kGetsDone)[cl], done_get);
+  int32_t last_obs = done_get ? obs : e.pre(kClerkLastObs)[cl];
+  if constexpr (E::kMet) {
+    const int32_t e2e = wrap_sub(t, sub);
+    // clerk_phase_matrix: the stamps clamped monotone
+    const int32_t app_e = app > sub ? app : sub;
+    const int32_t cmt_e = cmt > app_e ? cmt : app_e;
+    const int32_t b3 = is_get ? (apl > cmt_e ? apl : cmt_e) : cmt_e;
+    const int32_t ph[kPhases] = {wrap_sub(app_e, sub), wrap_sub(cmt_e, app_e),
+                                 wrap_sub(b3, cmt_e), wrap_sub(t, b3)};
+    if (newly) fold_op(e, e2e, ph, ck, cl);
+    worst_put(e.s(L.worst) + cl * kWorstWords, newly, e2e, ph, ck, sub);
+  }
+
+  // the draws, from the tick's keys
+  uint32_t kk[kDrawKeys][2];
+  for (int j = 0; j < kDrawKeys; ++j) {
+    kk[j][0] = static_cast<uint32_t>(e.s(L.draws)[2 * j]);
+    kk[j][1] = static_cast<uint32_t>(e.s(L.draws)[2 * j + 1]);
+  }
+
+  // open-loop arrivals (from the start word's free low 9 bits)
+  const uint32_t w_start = bits_word(kk[0][0], kk[0][1], cl, nc, part);
+  const float u_start = madraft::as_float((w_start >> 9) | 0x3F800000u) - 1.0f;
+  const int32_t qcap = e.ki(kQueueCap);
+  const bool openloop = qcap > 0;
+  const bool arrive = openloop &&
+      fmul(static_cast<float>(w_start & 0x1FFu), 1.0f / 512.0f) <
+          e.kf(kOpenRate);
+  const int32_t arr0 = e.pre(kOpenArr)[cl];
+  const int32_t srv0 = e.pre(kOpenSrv)[cl];
+  const bool drop = arrive && wrap_sub(arr0, srv0) >= qcap;
+  const bool enq = arrive && !drop;
+  const int32_t arr = wrap_add(arr0, enq);
+  int32_t *stamp = E::kMet ? e.w(kOpenStamp) + cl * kQueueSlots : nullptr;
+  if (E::kMet && enq) stamp[floor_mod(arr0, kQueueSlots)] = t;
+  const bool start = !cout &&
+      (openloop ? arr > srv0 : u_start < e.kf(kPOp)) && cs < kSeqLim - 1;
+  const int32_t seq = start ? wrap_add(cs, 1) : cs;
+  const int32_t draw = randint_elem(kk[1][0], kk[1][1], cl, nc, 0, nk, part);
+  const int32_t ckey = start ? zipf_map(draw, nk, e.kf(kZipfA)) : ck;
+  const float u_kind = madraft::uniform(
+      bits_word(kk[4][0], kk[4][1], cl, nc, part));
+  const int32_t kind = !start ? kind0
+      : u_kind < e.kf(kPGet) ? kGet
+      : u_kind < fadd(e.kf(kPGet), e.kf(kPPut)) ? kPut : kAppend;
+  const int32_t truth_new = ckey >= 0 && ckey < nk ? truth[ckey] : 0;
+  const int32_t get_lo = start ? truth_new : e.pre(kClerkGetLo)[cl];
+  if (start) obs = -1;
+  if (E::kMet && start) {
+    sub = openloop ? stamp[floor_mod(srv0, kQueueSlots)] : t;
+    app = cmt = apl = 0;
+  }
+  cout = cout || start;
+  const float u_retry = madraft::uniform(
+      bits_word(kk[2][0], kk[2][1], cl, nc, part));
+  const int32_t wait0 = e.pre(kClerkWait)[cl];
+  bool rt = cout && (start || (u_retry < e.kf(kPRetry) && wait0 <= 0));
+  if constexpr (E::kMet) {
+    int32_t &rr = e.w(kClientRetries)[cl];
+    rr = wrap_add(rr, rt);
+  }
+  int32_t tgt = randint_elem(kk[3][0], kk[3][1], cl, nc, 0, n, part);
+  const int32_t leader0 = e.pre(kClerkLeader)[cl];
+  const float u_follow = madraft::uniform(
+      bits_word(kk[5][0], kk[5][1], cl, nc, part));
+  if (u_follow < e.kf(kPFollow) && leader0 >= 0)
+    tgt = leader0 > n - 1 ? n - 1 : leader0;
+
+  // the bug mode: the contacted node serves a Get from its own state
+  const int32_t local_cnt =
+      ckey >= 0 && ckey < nk ? k_count[tgt * nk + ckey] : 0;
+  const bool served = stale_read && rt && !start && kind == kGet &&
+                      e.alive(tgt);
+  if (served && (local_cnt < get_lo || local_cnt > truth_new))
+    viol |= kViolStale;
+  if (served) {
+    acked = seq;
+    cout = false;
+    gets = wrap_add(gets, 1);
+    rt = false;
+    last_obs = local_cnt;
+  }
+  if constexpr (E::kMet) {
+    const int32_t e2e_s = wrap_sub(t, sub);
+    const int32_t ph[kPhases] = {0, 0, e2e_s, 0};
+    if (served) fold_op(e, e2e_s, ph, ckey, cl);
+    worst_put(e.s(L.worst) + (nc + cl) * kWorstWords, served, e2e_s, ph,
+              ckey, sub);
+    e.w(kClerkSub)[cl] = sub;
+    e.w(kClerkApp)[cl] = app;
+    e.w(kClerkCmt)[cl] = cmt;
+    e.w(kClerkApl)[cl] = apl;
+  }
+  e.w(kClerkSeq)[cl] = seq;
+  e.wb(kClerkOut)[cl] = cout;
+  e.w(kClerkKey)[cl] = ckey;
+  e.w(kClerkKind)[cl] = kind;
+  e.w(kClerkAcked)[cl] = acked;
+  e.w(kOpenArr)[cl] = arr;
+  e.w(kOpenSrv)[cl] = wrap_add(srv0, openloop && start);
+  e.w(kOpenDrop)[cl] = wrap_add(e.pre(kOpenDrop)[cl], drop);
+  e.w(kClerkGetLo)[cl] = get_lo;
+  get_obs[cl] = obs;
+  e.w(kClerkLastObs)[cl] = last_obs;
+  e.w(kGetsDone)[cl] = gets;
+  e.s(L.target)[cl] = tgt;
+  e.s(L.retry)[cl] = rt;
+  if (viol) shared_or(e.s(L.viol), viol);
+
+  // the submit's reply: the leader hint (argmax picks the first node of
+  // the highest live leader term, 0 when there is none) and the countdown
+  int32_t lead_term = -1;
+  bool any_lead = false;
+  for (int i = 0; i < n; ++i)
+    if (e.alive(i) && role[i] == kLeader) {
+      any_lead = true;
+      if (term[i] > lead_term) lead_term = term[i];
+    }
+  int lead_node = 0;
+  for (int i = n - 1; i >= 0; --i)
+    if (e.alive(i) && role[i] == kLeader && term[i] == lead_term)
+      lead_node = i;
+  const bool is_lead = e.alive(tgt) && role[tgt] == kLeader;
+  int32_t hint;
+  if (e.ki(kBugStaleHint) != 0) {
+    int ring = (tgt + 1) % n;
+    if (any_lead && ring == lead_node) ring = (ring + 1) % n;
+    hint = ring;
+  } else {
+    hint = any_lead && term[tgt] == lead_term ? lead_node : -1;
+  }
+  e.w(kClerkLeader)[cl] =
+      !rt ? leader0 : is_lead ? tgt : e.alive(tgt) ? hint : -1;
+  e.w(kClerkWait)[cl] =
+      rt && is_lead ? e.ki(kRetryWait) : (wait0 - 1 > 0 ? wait0 - 1 : 0);
+}
+
+// Phase clerks: a clerk a thread (K6-kv's 16 lanes take clerks 16 on
+// twice)
+template <class E>
+__device__ __forceinline__ void clerks(const E &e, int lane) {
+  for (int cl = lane; cl < e.d().nc; cl += e.lanes()) clerk(e, cl);
+}
+
+// Phase submit, one thread: the worst-op register, the violation bits,
+// the submits appended at self-believed leaders one client after another
+// (client c's append reads the log_len client c - 1 moved), and the raft
+// leaves they move
+template <class E>
+__device__ __forceinline__ void submit(const E &e) {
+  const Layout &L = e.L();
+  const int cap = e.cap(), nc = e.d().nc;
+  const int32_t t = e.tick();
+  const int32_t *term = e.term();
+  const int32_t *role = e.role();
+  const int32_t *base = e.base();
+  const int32_t *commit = e.commit();
+  const int32_t flow_cap = e.ki(kFlowCap);
+  if constexpr (E::kMet) {
+    worst_apply(e, e.s(L.worst));
+    worst_apply(e, e.s(L.worst) + nc * kWorstWords);
+  }
+  const int32_t viol = e.s(L.viol)[0];
+  e.violations() |= viol;
+  int32_t &fvt = e.first_violation();
+  if (fvt < 0 && viol != 0) fvt = t;
+
+  int32_t *log_len = e.log_len();
+  for (int cl = 0; cl < nc; ++cl) {
+    const int i = e.s(L.target)[cl];
+    const bool ok = e.s(L.retry)[cl] && e.alive(i) && role[i] == kLeader &&
+                    wrap_sub(log_len[i], base[i]) < cap &&
+                    wrap_sub(log_len[i], commit[i]) < flow_cap;
+    if (!ok) continue;
+    const int pos = static_cast<int>(static_cast<uint32_t>(log_len[i]) &
+                                     static_cast<uint32_t>(cap - 1));
+    e.append(i, pos, term[i],
+             pack(cl, e.w(kClerkSeq)[cl], e.w(kClerkKey)[cl],
+                  e.w(kClerkKind)[cl], e.d().nk));
+    log_len[i] = wrap_add(log_len[i], 1);
+    if (E::kMet && e.wb(kClerkOut)[cl]) {
+      int32_t &app = e.w(kClerkApp)[cl];
+      if (app == 0) app = t;
+    }
+  }
+  e.submitted();
+}
+
+// ------------------------------------------------------------ K9's tick
+// The region's staged element e of leaf g (the truth's max seq clamped at
+// 0: the reference's max takes in a 0), its load from cluster c's input
+// row and its store to c's output row
 __device__ __forceinline__ int32_t load_elem(const LeafRef &g, int c, int e) {
   const int64_t at = static_cast<int64_t>(c) * g.count + e;
   return g.bytes == 4 ? ld(static_cast<const int32_t *>(g.in) + at)
                       : ld(static_cast<const uint8_t *>(g.in) + at);
 }
 
-// Element e of leaf g's staged row (the truth's max seq clamped at 0: the
-// reference's max takes in a 0)
 __device__ __forceinline__ void stage_elem(const LeafRef &g, int32_t *ws,
                                            int e, int32_t v, bool clamp) {
   if (g.bytes == 4)
@@ -484,7 +1092,6 @@ __device__ __forceinline__ void stage_elem(const LeafRef &g, int32_t *ws,
     reinterpret_cast<uint8_t *>(ws + g.off)[e] = static_cast<uint8_t>(v);
 }
 
-// Element e of leaf g's staged row to cluster c's output row
 __device__ __forceinline__ void store_elem(const LeafRef &g,
                                            const int32_t *ws, int c, int e) {
   const int64_t at = static_cast<int64_t>(c) * g.count + e;
@@ -495,45 +1102,45 @@ __device__ __forceinline__ void store_elem(const LeafRef &g,
         reinterpret_cast<const uint8_t *>(ws + g.off)[e];
 }
 
-// ------------------------------------------------------- the service tick
-// Phase kStage: every leaf's row from its input into the warp's region
-// (the two log rows straight to their outputs), the stepped raft rows,
-// the shadow window's values and the tick's draw keys, the scratch
+// The leaf table's copy in shared memory, before the warps' regions: the
+// copy loops read a leaf's fields at a runtime index, which the kernel's
+// parameters serve slowly
+constexpr int kTableBytes = (kLeaves * static_cast<int>(sizeof(LeafRef)) +
+                             15) / 16 * 16;
+// The leaves whose loads the copy loops keep in flight at once
+constexpr int kGroup = 8;
+
+// K9's phase kStage: every leaf's row from its input into the warp's
+// region (the two log rows straight to their outputs), the stepped raft
+// rows, the shadow window's values and the tick's draw keys, the scratch
 // cleared. The tick then updates the region, and reads the pre-tick
-// values from the inputs: the install path adopts the PRE-tick snapshots
-// after the compaction capture rewrote them, and the Get match reads the
-// pre-tick clerk_seq.
+// values from the inputs (K9Env)
 __device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
                                       int32_t *ws, int c, int lane) {
-  const int32_t sv = lane < p.cap ? read_row<int32_t>(p, kShadowVal, c,
-                                                      p.cap)[lane] : 0;
+  const Dims &d = p.d;
+  const Layout &L = p.L;
+  const int32_t sv = lane < d.cap ? read_row<int32_t>(p, kShadowVal, c,
+                                                      d.cap)[lane] : 0;
   int32_t rr[kRaftRows] = {};
-  if (lane < p.n) {
-    rr[kRTerm] = read_row<int32_t>(p, kTerm, c, p.n)[lane];
-    rr[kRRole] = read_row<int32_t>(p, kRole, c, p.n)[lane];
-    rr[kRAlive] = read_row<uint8_t>(p, kAlive, c, p.n)[lane] != 0;
-    rr[kRBase] = read_row<int32_t>(p, kBase, c, p.n)[lane];
-    rr[kRCommit] = read_row<int32_t>(p, kCommit, c, p.n)[lane];
+  if (lane < d.n) {
+    rr[kRTerm] = read_row<int32_t>(p, kTerm, c, d.n)[lane];
+    rr[kRRole] = read_row<int32_t>(p, kRole, c, d.n)[lane];
+    rr[kRAlive] = read_row<uint8_t>(p, kAlive, c, d.n)[lane] != 0;
+    rr[kRBase] = read_row<int32_t>(p, kBase, c, d.n)[lane];
+    rr[kRCommit] = read_row<int32_t>(p, kCommit, c, d.n)[lane];
   }
-  // the tick's keys (kDraws): fold_in(key, t), then the sites, a key a
-  // lane while the loads are in flight
+  // the tick's keys: fold_in(key, t), then the sites, a key a lane while
+  // the loads are in flight
   if (lane < kDrawKeys) {
     const Ro<uint32_t> key = read_row<uint32_t>(p, kKeys, c, 4);
     uint32_t k0 = key[0], k1 = key[2];  // the int64 words' low halves
     fold_in(k0, k1, static_cast<uint32_t>(
         read_row<int32_t>(p, kTick, c, 1)[0]));
-    const uint32_t site = lane < 4 ? kSiteStart
-                          : lane == 4 ? kSiteKind : kSiteHint;
-    fold_in(k0, k1, site);
-    uint32_t d0 = k0, d1 = k1;
-    if (lane < 4) split_key(k0, k1, 4, lane, p.partitionable, d0, d1);
-    if (lane == 5) split_key(k0, k1, 2, 0, p.partitionable, d0, d1);
-    ws[p.draws + 2 * lane] = static_cast<int32_t>(d0);
-    ws[p.draws + 2 * lane + 1] = static_cast<int32_t>(d1);
+    draw_key(k0, k1, lane, d.part, ws + L.draws + 2 * lane);
   }
-  if (lane < p.cap) ws[p.sh_val + lane] = sv;
-  if (lane < p.n)
-    for (int r = 0; r < kRaftRows; ++r) ws[p.raft + r * p.n + lane] = rr[r];
+  if (lane < d.cap) ws[L.sh_val + lane] = sv;
+  if (lane < d.n)
+    for (int r = 0; r < kRaftRows; ++r) ws[L.raft + r * d.n + lane] = rr[r];
   // every staged row's element `lane`, kGroup leaves' loads in flight at
   // once (a leaf's load and store after another's would wait out the
   // memory's latency once a leaf), then the rows' elements from kLanes on
@@ -569,447 +1176,13 @@ __device__ __forceinline__ void stage(const Params &p, const LeafRef *tab,
 #pragma unroll 4
     for (int e = lane; e < g.count; e += kLanes) dst[e] = src[e];
   }
-  const Ro<int32_t> shadow_val = read_row<int32_t>(p, kShadowVal, c, p.cap);
-  for (int i = lane + kLanes; i < p.cap; i += kLanes)
-    ws[p.sh_val + i] = shadow_val[i];
-  for (int cl = lane; cl < p.nc; cl += kLanes) ws[p.flag + cl] = 0;
-  if (lane == 0) ws[p.viol] = 0;
+  const Ro<int32_t> shadow_val = read_row<int32_t>(p, kShadowVal, c, d.cap);
+  for (int i = lane + kLanes; i < d.cap; i += kLanes)
+    ws[L.sh_val + i] = shadow_val[i];
+  clear_tick(L, ws, d.nc, lane, kLanes);
 }
 
-// Phase kScan: the committed truth per key (a shadow lane a thread, each
-// deduped against the whole window), whether each clerk's op is in the
-// live shadow (a (clerk, lane) pair a thread), and the apply machines'
-// crash reset, compaction capture and install-snapshot (a table cell a
-// thread)
-__device__ __forceinline__ void scan(const Params &p, int32_t *ws, int c,
-                                     int lane) {
-  const int n = p.n, cap = p.cap, nc = p.nc, nk = p.nk;
-  const int32_t *val = ws + p.sh_val;
-  const int32_t sh_base = read_row<int32_t>(p, kShadowBase, c, 1)[0];
-  const int32_t sh_len = read_row<int32_t>(p, kShadowLen, c, 1)[0];
-  const int32_t pre_len = read_row<int32_t>(p, kPreShadowLen, c, 1)[0];
-  const Ro<int32_t> tmax0 = in_row<int32_t>(p, kTruthMaxSeq, c);
-  int32_t *truth = work<int32_t>(p, ws, kTruthCount);
-  int32_t *tmax = work<int32_t>(p, ws, kTruthMaxSeq);
-  for (int q = lane; q < cap; q += kLanes) {
-    const int32_t aq = shadow_abs(sh_base, q, cap);
-    const int32_t v = val[q];
-    if (!(aq > pre_len && aq <= sh_len && v != kNoop)) continue;
-    // a lane new this tick with the same value at an earlier index
-    bool dup_earlier = false;
-    for (int r = 0; r < cap; ++r) {
-      const int32_t ar = shadow_abs(sh_base, r, cap);
-      dup_earlier |= val[r] == v && ar > pre_len && ar < aq;
-    }
-    const Op o = unpack(v, nk, nc);
-    if (o.seq > tmax0[o.client] && !dup_earlier && o.kind != kGet)
-      shared_add(truth + o.key, 1);
-    shared_max(tmax + o.client, o.seq);
-  }
-
-  const Ro<int32_t> clerk_seq0 = in_row<int32_t>(p, kClerkSeq, c);
-  const Ro<int32_t> clerk_key0 = in_row<int32_t>(p, kClerkKey, c);
-  const Ro<int32_t> clerk_kind0 = in_row<int32_t>(p, kClerkKind, c);
-  for (int x = lane; x < nc * cap; x += kLanes) {
-    const int cl = x / cap, i = x % cap;
-    const int32_t want = pack(cl, clerk_seq0[cl], clerk_key0[cl],
-                              clerk_kind0[cl], nk);
-    if (val[i] == want && shadow_abs(sh_base, i, cap) <= sh_len)
-      shared_or(ws + p.flag + cl, 1);
-  }
-
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const Ro<uint8_t> pre_alive = read_row<uint8_t>(p, kPreAlive, c, n);
-  const int32_t *base = raft_row(p, ws, kRBase);
-  const Ro<int32_t> pre_base = read_row<int32_t>(p, kPreBase, c, n);
-  const Ro<int32_t> snap_src = read_row<int32_t>(p, kSnapSrc, c, n);
-  for (int i = lane; i < n; i += kLanes) {
-    const bool fresh = !pre_alive[i] || !alive[i];
-    const bool inst = snap_src[i] >= 0;
-    if (fresh || inst) work<int32_t>(p, ws, kApplied)[i] = base[i];
-  }
-  // the live tables (nc columns: last_seq, apply_count; nk: key_hash,
-  // key_count) and their snapshots, a table after another
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const int w = g < 2 ? nc : nk;
-    const int live = kLastSeq + g, snap = kSnapLastSeq + g;
-    const Ro<int32_t> sn0 = in_row<int32_t>(p, snap, c);
-    int32_t *lv = work<int32_t>(p, ws, live);
-    int32_t *sn = work<int32_t>(p, ws, snap);
-    for (int x = lane; x < n * w; x += kLanes) {
-      const int i = x / w, e = x % w;
-      const bool fresh = !pre_alive[i] || !alive[i];
-      const bool inst = snap_src[i] >= 0;
-      const bool comp = base[i] != pre_base[i] && !inst && alive[i];
-      if (fresh) lv[x] = sn0[x];
-      if (comp) sn[x] = lv[x];
-      if (inst) {
-        // the sender's PRE-tick snapshot (0 for a sender out of range)
-        const int src = snap_src[i];
-        lv[x] = sn[x] = src < n ? sn0[src * w + e] : 0;
-      }
-    }
-  }
-}
-
-// Phase kApply: apply_max rounds of the apply loop, a node a thread (a
-// node's rounds are sequential, the nodes independent), then the node's
-// exactly-once check. The rounds' Get observations go to the scratch
-// (first, first_obs) for kObserve.
-__device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
-                                      int lane) {
-  const int n = p.n, cap = p.cap, nc = p.nc, nk = p.nk;
-  if (lane >= n) return;
-  const int i = lane;
-  const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
-  const bool stale_read = ki[kBugStaleRead] != 0;
-  const bool uncommitted = ki[kBugApplyUncommitted] != 0;
-  const bool skip_dedup = ki[kBugSkipDedup] != 0;
-  const bool alive = raft_row(p, ws, kRAlive)[i] != 0;
-  const int32_t limit = uncommitted ? in_row<int32_t>(p, kLogLen, c)[i]
-                                    : raft_row(p, ws, kRCommit)[i];
-  const Ro<int32_t> log_val0 = in_row<int32_t>(p, kLogVal, c) + i * cap;
-  const Ro<int32_t> clerk_seq0 = in_row<int32_t>(p, kClerkSeq, c);
-  int32_t *last_seq = work<int32_t>(p, ws, kLastSeq) + i * nc;
-  int32_t *apply_count = work<int32_t>(p, ws, kApplyCount) + i * nc;
-  int32_t *key_hash = work<int32_t>(p, ws, kKeyHash) + i * nk;
-  int32_t *key_count = work<int32_t>(p, ws, kKeyCount) + i * nk;
-  int32_t *first = ws + p.first + i * nc;
-  int32_t *first_obs = ws + p.first_obs + i * nc;
-  int32_t &applied = work<int32_t>(p, ws, kApplied)[i];
-  int32_t viol = 0;
-  for (int cl = 0; cl < nc; ++cl) first[cl] = p.apply_max;
-  // one round that runs (the cursor below its limit): the cursor's slot
-  auto round_of = [&](int round, int32_t val) {
-    applied = wrap_add(applied, 1);
-    if (val == kNoop) return;
-    const Op o = unpack(val, nk, nc);
-    int32_t &ls = last_seq[o.client];
-    const int32_t prev = ls;
-    const bool dup = o.seq <= prev;
-    if (!stale_read && !dup && o.seq > wrap_add(prev, 1))
-      viol |= kViolExactlyOnce;
-    const bool d = skip_dedup || !dup;
-    if (d && o.kind != kGet) {
-      key_hash[o.key] = static_cast<int32_t>(
-          static_cast<uint32_t>(key_hash[o.key]) * 1000003u +
-          static_cast<uint32_t>(val));
-      key_count[o.key] = wrap_add(key_count[o.key], 1);
-    }
-    if (d) apply_count[o.client] = wrap_add(apply_count[o.client], 1);
-    ls = prev > o.seq ? prev : o.seq;
-    if (d && o.kind == kGet && o.seq == clerk_seq0[o.client] &&
-        key_count[o.key] >= 0 && first[o.client] == p.apply_max) {
-      first[o.client] = round;
-      first_obs[o.client] = key_count[o.key];
-    }
-  };
-  const auto slot = [&](uint32_t a) {
-    return static_cast<int>(a & static_cast<uint32_t>(cap - 1));
-  };
-  // a round that runs advances the cursor by one, and one that does not
-  // leaves it, so every later round, as it was: the first kAhead rounds'
-  // slots are the cursor's next ones, loaded at once
-  constexpr int kAhead = 8;
-  int32_t ahead[kAhead];
-  const uint32_t a0 = static_cast<uint32_t>(applied);
-#pragma unroll
-  for (int r = 0; r < kAhead; ++r)
-    ahead[r] = r < p.apply_max ? log_val0[slot(a0 + r)] : 0;
-#pragma unroll
-  for (int round = 0; round < kAhead; ++round) {
-    if (round >= p.apply_max || !(alive && applied < limit)) break;
-    round_of(round, ahead[round]);
-  }
-  for (int round = kAhead; round < p.apply_max && alive && applied < limit;
-       ++round)
-    round_of(round, log_val0[slot(static_cast<uint32_t>(applied))]);
-  // exactly-once: ops applied per client == highest seq applied
-  if (!stale_read && alive)
-    for (int cl = 0; cl < nc; ++cl)
-      if (apply_count[cl] != last_seq[cl]) viol |= kViolExactlyOnce;
-  if (viol) shared_or(ws + p.viol, viol);
-}
-
-// Phase kObserve: each clerk's Get observation (the largest a node made
-// in the first round any made one), a clerk a thread; the agreement check
-// (equal cursors => identical applied state), a node pair a thread
-__device__ __forceinline__ void observe(const Params &p, int32_t *ws, int c,
-                                        int lane) {
-  const int n = p.n, nc = p.nc, nk = p.nk;
-  int32_t *get_obs = work<int32_t>(p, ws, kClerkGetObs);
-  for (int cl = lane; cl < nc; cl += kLanes) {
-    if (get_obs[cl] >= 0) continue;
-    int round = p.apply_max;
-    int32_t obs = -1;
-    for (int i = 0; i < n; ++i) {
-      const int r = ws[p.first + i * nc + cl];
-      const int32_t o = ws[p.first_obs + i * nc + cl];
-      if (r < round || (r == round && r < p.apply_max && o > obs)) {
-        round = r;
-        obs = o;
-      }
-    }
-    if (round < p.apply_max) get_obs[cl] = obs;
-  }
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const int32_t *applied = work<int32_t>(p, ws, kApplied);
-  const int32_t *key_hash = work<int32_t>(p, ws, kKeyHash);
-  const int32_t *key_count = work<int32_t>(p, ws, kKeyCount);
-  for (int x = lane; x < n * n; x += kLanes) {
-    const int i = x / n, j = x % n;
-    if (!(i < j && applied[i] == applied[j] && applied[i] > 0 && alive[i] &&
-          alive[j]))
-      continue;
-    for (int k = 0; k < nk; ++k)
-      if (key_hash[i * nk + k] != key_hash[j * nk + k] ||
-          key_count[i * nk + k] != key_count[j * nk + k]) {
-        shared_or(ws + p.viol, kViolDiverge);
-        break;
-      }
-  }
-}
-
-// Phase kClerks, a clerk a thread: the ack, the stale-read oracle, the
-// open-loop arrival, a fresh op or a retry, the hint routing, the bug
-// mode's local serve, and the reply to the submit (the hint and the await
-// countdown; the reply reads nothing the submits write)
-__device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
-                                       int lane) {
-  const int n = p.n, nc = p.nc, nk = p.nk, part = p.partitionable;
-  if (lane >= nc) return;
-  const int cl = lane;
-  const int32_t t = read_row<int32_t>(p, kTick, c, 1)[0];
-  const int32_t *term = raft_row(p, ws, kRTerm);
-  const int32_t *role = raft_row(p, ws, kRRole);
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const Ro<float> kf = read_row<float>(p, kKnobF, c, kNF);
-  const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
-  const bool stale_read = ki[kBugStaleRead] != 0;
-  const int32_t *truth = work<int32_t>(p, ws, kTruthCount);
-  const int32_t *k_count = work<int32_t>(p, ws, kKeyCount);
-  int32_t *get_obs = work<int32_t>(p, ws, kClerkGetObs);
-  int32_t viol = 0;
-
-  const int32_t ck = in_row<int32_t>(p, kClerkKey, c)[cl];
-  const int32_t cs = in_row<int32_t>(p, kClerkSeq, c)[cl];
-  const int32_t kind0 = in_row<int32_t>(p, kClerkKind, c)[cl];
-  const bool out0 = in_row<uint8_t>(p, kClerkOut, c)[cl] != 0;
-  int32_t obs = get_obs[cl];
-  const int32_t truth_at = ck >= 0 && ck < nk ? truth[ck] : 0;
-  const bool in_shadow = ws[p.flag + cl] != 0;
-  const bool is_get = kind0 == kGet;
-  int32_t sub = 0, app = 0, cmt = 0, apl = 0;
-  if (kMetrics) {
-    sub = in_row<int32_t>(p, kClerkSub, c)[cl];
-    app = in_row<int32_t>(p, kClerkApp, c)[cl];
-    cmt = in_row<int32_t>(p, kClerkCmt, c)[cl];
-    apl = in_row<int32_t>(p, kClerkApl, c)[cl];
-    if (out0 && in_shadow && cmt == 0) cmt = t;
-    if (out0 && obs >= 0 && apl == 0) apl = t;
-  }
-  const bool newly = out0 && in_shadow && (!is_get || obs >= 0);
-  const bool done_get = newly && is_get;
-  if (done_get && (obs < in_row<int32_t>(p, kClerkGetLo, c)[cl] ||
-                   obs > truth_at))
-    viol |= kViolStale;
-  int32_t acked = newly ? cs : in_row<int32_t>(p, kClerkAcked, c)[cl];
-  bool cout = out0 && !newly;
-  int32_t gets = wrap_add(in_row<int32_t>(p, kGetsDone, c)[cl], done_get);
-  int32_t last_obs = done_get ? obs : in_row<int32_t>(p, kClerkLastObs, c)[cl];
-  if (kMetrics) {
-    const int32_t e2e = wrap_sub(t, sub);
-    // clerk_phase_matrix: the stamps clamped monotone
-    const int32_t app_e = app > sub ? app : sub;
-    const int32_t cmt_e = cmt > app_e ? cmt : app_e;
-    const int32_t b3 = is_get ? (apl > cmt_e ? apl : cmt_e) : cmt_e;
-    const int32_t ph[kPhases] = {wrap_sub(app_e, sub), wrap_sub(cmt_e, app_e),
-                                 wrap_sub(b3, cmt_e), wrap_sub(t, b3)};
-    if (newly) fold_op(p, ws, e2e, ph, ck, cl);
-    worst_put(ws + p.worst + cl * kWorstWords, newly, e2e, ph, ck, sub);
-  }
-
-  // the draws, from the tick's keys (kStage)
-  uint32_t kk[kDrawKeys][2];
-  for (int j = 0; j < kDrawKeys; ++j) {
-    kk[j][0] = static_cast<uint32_t>(ws[p.draws + 2 * j]);
-    kk[j][1] = static_cast<uint32_t>(ws[p.draws + 2 * j + 1]);
-  }
-
-  // open-loop arrivals (from the start word's free low 9 bits)
-  const uint32_t w_start = bits_word(kk[0][0], kk[0][1], cl, nc, part);
-  const float u_start = madraft::as_float((w_start >> 9) | 0x3F800000u) - 1.0f;
-  const int32_t qcap = ki[kQueueCap];
-  const bool openloop = qcap > 0;
-  const bool arrive = openloop &&
-      fmul(static_cast<float>(w_start & 0x1FFu), 1.0f / 512.0f) < kf[kOpenRate];
-  const int32_t arr0 = in_row<int32_t>(p, kOpenArr, c)[cl];
-  const int32_t srv0 = in_row<int32_t>(p, kOpenSrv, c)[cl];
-  const bool drop = arrive && wrap_sub(arr0, srv0) >= qcap;
-  const bool enq = arrive && !drop;
-  const int32_t arr = wrap_add(arr0, enq);
-  int32_t *stamp = kMetrics ? work<int32_t>(p, ws, kOpenStamp) + cl * kQueueSlots
-                            : nullptr;
-  if (kMetrics && enq) stamp[floor_mod(arr0, kQueueSlots)] = t;
-  const bool start = !cout &&
-      (openloop ? arr > srv0 : u_start < kf[kPOp]) && cs < kSeqLim - 1;
-  const int32_t seq = start ? wrap_add(cs, 1) : cs;
-  const int32_t draw = randint_elem(kk[1][0], kk[1][1], cl, nc, 0,
-                                             nk, part);
-  const int32_t ckey = start ? zipf_map(draw, nk, kf[kZipfA]) : ck;
-  const float u_kind = madraft::uniform(
-      bits_word(kk[4][0], kk[4][1], cl, nc, part));
-  const int32_t kind = !start ? kind0
-      : u_kind < kf[kPGet] ? kGet
-      : u_kind < fadd(kf[kPGet], kf[kPPut]) ? kPut : kAppend;
-  const int32_t truth_new = ckey >= 0 && ckey < nk ? truth[ckey] : 0;
-  const int32_t get_lo = start ? truth_new : in_row<int32_t>(p, kClerkGetLo, c)[cl];
-  if (start) obs = -1;
-  if (kMetrics && start) {
-    sub = openloop ? stamp[floor_mod(srv0, kQueueSlots)] : t;
-    app = cmt = apl = 0;
-  }
-  cout = cout || start;
-  const float u_retry = madraft::uniform(
-      bits_word(kk[2][0], kk[2][1], cl, nc, part));
-  const int32_t wait0 = in_row<int32_t>(p, kClerkWait, c)[cl];
-  bool rt = cout && (start || (u_retry < kf[kPRetry] && wait0 <= 0));
-  if (kMetrics) {
-    int32_t &rr = work<int32_t>(p, ws, kClientRetries)[cl];
-    rr = wrap_add(rr, rt);
-  }
-  int32_t tgt = randint_elem(kk[3][0], kk[3][1], cl, nc, 0, n, part);
-  const int32_t leader0 = in_row<int32_t>(p, kClerkLeader, c)[cl];
-  const float u_follow = madraft::uniform(
-      bits_word(kk[5][0], kk[5][1], cl, nc, part));
-  if (u_follow < kf[kPFollow] && leader0 >= 0)
-    tgt = leader0 > n - 1 ? n - 1 : leader0;
-
-  // the bug mode: the contacted node serves a Get from its own state
-  const int32_t local_cnt =
-      ckey >= 0 && ckey < nk ? k_count[tgt * nk + ckey] : 0;
-  const bool served = stale_read && rt && !start && kind == kGet &&
-                      alive[tgt];
-  if (served && (local_cnt < get_lo || local_cnt > truth_new))
-    viol |= kViolStale;
-  if (served) {
-    acked = seq;
-    cout = false;
-    gets = wrap_add(gets, 1);
-    rt = false;
-    last_obs = local_cnt;
-  }
-  if (kMetrics) {
-    const int32_t e2e_s = wrap_sub(t, sub);
-    const int32_t ph[kPhases] = {0, 0, e2e_s, 0};
-    if (served) fold_op(p, ws, e2e_s, ph, ckey, cl);
-    worst_put(ws + p.worst + (nc + cl) * kWorstWords, served, e2e_s, ph,
-              ckey, sub);
-    work<int32_t>(p, ws, kClerkSub)[cl] = sub;
-    work<int32_t>(p, ws, kClerkApp)[cl] = app;
-    work<int32_t>(p, ws, kClerkCmt)[cl] = cmt;
-    work<int32_t>(p, ws, kClerkApl)[cl] = apl;
-  }
-  work<int32_t>(p, ws, kClerkSeq)[cl] = seq;
-  work<uint8_t>(p, ws, kClerkOut)[cl] = cout;
-  work<int32_t>(p, ws, kClerkKey)[cl] = ckey;
-  work<int32_t>(p, ws, kClerkKind)[cl] = kind;
-  work<int32_t>(p, ws, kClerkAcked)[cl] = acked;
-  work<int32_t>(p, ws, kOpenArr)[cl] = arr;
-  work<int32_t>(p, ws, kOpenSrv)[cl] = wrap_add(srv0, openloop && start);
-  work<int32_t>(p, ws, kOpenDrop)[cl] =
-      wrap_add(in_row<int32_t>(p, kOpenDrop, c)[cl], drop);
-  work<int32_t>(p, ws, kClerkGetLo)[cl] = get_lo;
-  get_obs[cl] = obs;
-  work<int32_t>(p, ws, kClerkLastObs)[cl] = last_obs;
-  work<int32_t>(p, ws, kGetsDone)[cl] = gets;
-  ws[p.target + cl] = tgt;
-  ws[p.retry + cl] = rt;
-  if (viol) shared_or(ws + p.viol, viol);
-
-  // the submit's reply: the leader hint (argmax picks the first node of
-  // the highest live leader term, 0 when there is none) and the countdown
-  int32_t lead_term = -1;
-  bool any_lead = false;
-  for (int i = 0; i < n; ++i)
-    if (alive[i] && role[i] == kLeader) {
-      any_lead = true;
-      if (term[i] > lead_term) lead_term = term[i];
-    }
-  int lead_node = 0;
-  for (int i = n - 1; i >= 0; --i)
-    if (alive[i] && role[i] == kLeader && term[i] == lead_term) lead_node = i;
-  const bool is_lead = alive[tgt] && role[tgt] == kLeader;
-  int32_t hint;
-  if (ki[kBugStaleHint] != 0) {
-    int ring = (tgt + 1) % n;
-    if (any_lead && ring == lead_node) ring = (ring + 1) % n;
-    hint = ring;
-  } else {
-    hint = any_lead && term[tgt] == lead_term ? lead_node : -1;
-  }
-  work<int32_t>(p, ws, kClerkLeader)[cl] =
-      !rt ? leader0 : is_lead ? tgt : alive[tgt] ? hint : -1;
-  work<int32_t>(p, ws, kClerkWait)[cl] =
-      rt && is_lead ? ki[kRetryWait] : (wait0 - 1 > 0 ? wait0 - 1 : 0);
-}
-
-// Phase kSubmit, one thread: the worst-op register, the violation bits,
-// the submits appended at self-believed leaders one client after another
-// (client c's append reads the log_len client c - 1 moved), and the raft
-// leaves they move
-__device__ __forceinline__ void submit(const Params &p, int32_t *ws, int c) {
-  const int n = p.n, cap = p.cap, nc = p.nc;
-  const int32_t t = read_row<int32_t>(p, kTick, c, 1)[0];
-  const int32_t *term = raft_row(p, ws, kRTerm);
-  const int32_t *role = raft_row(p, ws, kRRole);
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const int32_t *base = raft_row(p, ws, kRBase);
-  const int32_t *commit = raft_row(p, ws, kRCommit);
-  const int32_t flow_cap = read_row<int32_t>(p, kKnobI, c, kNI)[kFlowCap];
-  if (kMetrics) {
-    worst_apply(p, ws, ws + p.worst);
-    worst_apply(p, ws, ws + p.worst + nc * kWorstWords);
-  }
-  const int32_t viol = ws[p.viol];
-  work<int32_t>(p, ws, kViolations)[0] |= viol;
-  int32_t &fvt = work<int32_t>(p, ws, kFirstViolation)[0];
-  if (fvt < 0 && viol != 0) fvt = t;
-
-  int32_t *log_term = out_row<int32_t>(p, kLogTerm, c);
-  int32_t *log_val = out_row<int32_t>(p, kLogVal, c);
-  int32_t *log_len = work<int32_t>(p, ws, kLogLen);
-  for (int cl = 0; cl < nc; ++cl) {
-    const int i = ws[p.target + cl];
-    const bool ok = ws[p.retry + cl] && alive[i] && role[i] == kLeader &&
-                    wrap_sub(log_len[i], base[i]) < cap &&
-                    wrap_sub(log_len[i], commit[i]) < flow_cap;
-    if (!ok) continue;
-    const int pos = static_cast<int>(static_cast<uint32_t>(log_len[i]) &
-                                     static_cast<uint32_t>(cap - 1));
-    log_term[i * cap + pos] = term[i];
-    log_val[i * cap + pos] = pack(
-        cl, work<int32_t>(p, ws, kClerkSeq)[cl],
-        work<int32_t>(p, ws, kClerkKey)[cl],
-        work<int32_t>(p, ws, kClerkKind)[cl], p.nk);
-    log_len[i] = wrap_add(log_len[i], 1);
-    if (kMetrics && work<uint8_t>(p, ws, kClerkOut)[cl]) {
-      int32_t &app = work<int32_t>(p, ws, kClerkApp)[cl];
-      if (app == 0) app = t;
-    }
-  }
-  const Ro<int32_t> log_len0 = in_row<int32_t>(p, kLogLen, c);
-  int32_t *durable = work<int32_t>(p, ws, kDurableLen);
-  int32_t *floor_ = work<int32_t>(p, ws, kCompactFloor);
-  const int32_t *applied = work<int32_t>(p, ws, kApplied);
-  for (int i = 0; i < n; ++i) {
-    if (log_len[i] > log_len0[i]) durable[i] = log_len[i];
-    floor_[i] = applied[i];
-  }
-}
-
-// Phase kWriteBack: the region's rows to the leaves' outputs, kGroup
+// K9's phase kWriteBack: the region's rows to the leaves' outputs, kGroup
 // leaves at once, then the rows' elements from kLanes on
 __device__ __forceinline__ void write_back(const LeafRef *tab, int32_t *ws,
                                            int c, int lane) {
@@ -1031,19 +1204,20 @@ __device__ __forceinline__ void write_back(const LeafRef *tab, int32_t *ws,
   }
 }
 
-// Lane `lane` of cluster c's warp in phase `phase` (kSubmit runs on lane 0
-// alone); tab is the leaf table (p.leaf, or its copy in shared memory), ws
-// the warp's region of Params::words words
+// Lane `lane` of cluster c's warp in K9's phase `phase` (kSubmit runs on
+// lane 0 alone); tab is the leaf table (p.leaf, or its copy in shared
+// memory), ws the warp's region of Layout::words words
 __device__ __forceinline__ void run_phase(const Params &p,
                                           const LeafRef *tab, int32_t *ws,
                                           int c, int lane, int phase) {
+  const K9Env e{p, ws, c};
   switch (phase) {
     case kStage: stage(p, tab, ws, c, lane); break;
-    case kScan: scan(p, ws, c, lane); break;
-    case kApply: apply(p, ws, c, lane); break;
-    case kObserve: observe(p, ws, c, lane); break;
-    case kClerks: clerks(p, ws, c, lane); break;
-    case kSubmit: if (lane == 0) submit(p, ws, c); break;
+    case kScan: scan(e, lane); break;
+    case kApply: apply(e, lane); break;
+    case kObserve: observe(e, lane); break;
+    case kClerks: clerks(e, lane); break;
+    case kSubmit: if (lane == 0) submit(e); break;
     default: write_back(tab, ws, c, lane); break;
   }
 }

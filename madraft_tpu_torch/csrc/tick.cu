@@ -84,6 +84,28 @@
 // 4096, read again by the credit pass with the stamps it names), about 40
 // operations for the code and hash. Both flags give K6-metrics-coverage.
 //
+// K6-kv (B1 for kv: the reference's kv_step, madraft_tpu/tpusim/kv.py
+// 407-423, the raft tick then _kv_service_tick 425-989, scanned by
+// _kv_program 1226-1283; K9's function with K6's): -DMADRAFT_K6_KV (with
+// -DMADRAFT_K6_METRICS, K6-metrics-kv) runs the kv service tick after
+// every raft tick of the chunk, on the same tile (tick.cuh kv_tick, on
+// kv.cuh's phase functions, which K9 runs a warp a cluster). The service
+// leaves are staged into the cluster's block after K6's slots once a
+// chunk and written back once (1.6 KB a cluster at the kv flagship's n =
+// 5, cap = 64, 4 clients, 4 keys; 2.5 KB with metrics: 1024 clusters are
+// about 8 an SM, so the chain, not shared memory, limits it); the raft
+// leaves the service writes stay where K6 holds them (the log rows and
+// log_len in the block, appended in place; durable_len and compact_floor
+// in the node lane's registers; violations), and the clerks' metric sums
+// and the worst-op register sit in the kv region until metric_rows
+// writes the metric leaves once. Bound: per chunk K6's state and the
+// service leaves read and written once, the keys and both knob tables
+// (about 12 MB a 256-tick chunk at 1024 clusters, 4 us); per
+// cluster-tick K6's 2 + total hashes and the service's 57, 41 ALU
+// operations each (about 2 G operations, 0.12 ms): operations bound it.
+// A run of T kv ticks is ceil(T / 256) launches, where K6 and K9 made two
+// checked launches a tick.
+//
 // K6-trace (B10, the reference's traced scan, madraft_tpu/tpusim/trace.py
 // 160-195, with its per-tick record _pack_rows / _deliveries / _record
 // 108-158, kernel K8's function on its own): given a trace buffer, any
@@ -117,6 +139,11 @@ constexpr bool kMet = false;
 constexpr bool kCov = true;
 #else
 constexpr bool kCov = false;
+#endif
+#ifdef MADRAFT_K6_KV
+constexpr bool kKv = true;
+#else
+constexpr bool kKv = false;
 #endif
 
 // Lanes a cluster takes: k6::kTile (n <= 16), two clusters a warp
@@ -152,7 +179,7 @@ __global__ void __launch_bounds__(kWarps * k6::kWarp,
   if (first >= p.b) return;  // the whole warp leaves together
   const int tile = lane / kTile, b = first + tile;
   const bool active = b < p.b;  // else a copy of the last cluster, unwritten
-  k6::run_cluster<N_, CAP_, AE_, kTile, kProf, kMet, kCov>(
+  k6::run_cluster<N_, CAP_, AE_, kTile, kProf, kMet, kCov, kKv>(
       p, smem + static_cast<size_t>(warp * kPerWarp + tile) * p.cluster_bytes,
       active ? b : p.b - 1, active, k6::Tile<kTile>{lane % kTile, tile * kTile},
       prof);
@@ -216,8 +243,8 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
            int n_leaves, const void *keys, const void *kf, const void *ki,
            const int *draws, int n_draws, int b, int n, int cap, int ae_max,
            int m, int bug, int partitionable, const int64_t *mptrs,
-           const int64_t *cov, void *trace, int trace_w, void *stream,
-           long long *prof) {
+           const int64_t *cov, void *trace, int trace_w, const int64_t *kv,
+           int n_kv, void *stream, long long *prof) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws || b < 1 || m < 1 ||
       n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
       (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe || bug < 0 ||
@@ -236,7 +263,8 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
                      draws) ||
       (mptrs != nullptr) != kMet || (cov != nullptr) != kCov ||
       !k6::set_variant(p, mptrs, cov) ||
-      !k6::set_trace(p, trace, trace_w, kMet))
+      !k6::set_trace(p, trace, trace_w, kMet) ||
+      !k6::set_kv(p, kv, n_kv, partitionable, kMet, kKv))
     return static_cast<int>(cudaErrorInvalidValue);
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
@@ -270,18 +298,22 @@ __global__ void __launch_bounds__(kCreditThreads)
 // pointers in and out, then the spare stamp rows (the metrics variant's,
 // else null); cov: the coverage arguments (the coverage variant's, else
 // null: set_variant); trace: int32 [m, b, trace_w] rows, each tick's
-// flight-recorder row (null: none; trace_w held against the row's width).
-// Returns cudaGetLastError() after the launch.
+// flight-recorder row (null: none; trace_w held against the row's width;
+// K6-kv writes none); kv: K6-kv's descriptor of n_kv words (kv.cuh
+// set_side; the K6-kv builds', else null). Returns cudaGetLastError()
+// after the launch.
 extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            const int *kinds, int n_leaves, const void *keys,
                            const void *kf, const void *ki, const int *draws,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
                            const int64_t *mptrs, const int64_t *cov,
-                           void *trace, int trace_w, void *stream) {
+                           void *trace, int trace_w, const int64_t *kv,
+                           int n_kv, void *stream) {
   return launch<false>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                        n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                       mptrs, cov, trace, trace_w, stream, nullptr);
+                       mptrs, cov, trace, trace_w, kv, n_kv, stream,
+                       nullptr);
 }
 
 // The credit pass: fp [m, b] the launch's flat seen indices (-1: none),
@@ -334,10 +366,11 @@ extern "C" int tick_launch_profile(const int64_t *ins, const int64_t *outs,
                                    int ae_max, int m, int bug,
                                    int partitionable, const int64_t *mptrs,
                                    const int64_t *cov, void *trace,
-                                   int trace_w, void *stream, void *prof) {
+                                   int trace_w, const int64_t *kv, int n_kv,
+                                   void *stream, void *prof) {
   return launch<true>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                       n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                      mptrs, cov, trace, trace_w, stream,
+                      mptrs, cov, trace, trace_w, kv, n_kv, stream,
                       static_cast<long long *>(prof));
 }
 #endif

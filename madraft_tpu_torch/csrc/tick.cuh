@@ -31,8 +31,11 @@
 // the coverage fingerprint (kCov: after each tick the cluster's seen-set
 // bit is stamped with the run-wide tick and the bit's flat index kept for
 // the credit pass, credits()); tick.cu compiles each as its own build.
-// In any build a trace buffer (Params::trace, null elsewhere) gets each
-// tick's flight-recorder row (record(): K6-trace).
+// In any build but K6-kv a trace buffer (Params::trace, null elsewhere)
+// gets each tick's flight-recorder row (record(): K6-trace). A third flag
+// (kKv, the K6-kv builds) runs the kv service tick (kv.cuh's phases, the
+// reference's _kv_service_tick) after every raft tick, on the same tile,
+// with the kv leaves in the cluster's block for the chunk (kv_tick()).
 //
 // Arithmetic as the reference's: int32 wraps where it wraps there (sums
 // that can wrap go through uint32, the entry hash too), floor division and
@@ -45,6 +48,7 @@
 #include <cstdint>
 
 #include "coverage.cuh"
+#include "kv.cuh"
 #include "threefry.cuh"
 
 namespace k6 {
@@ -277,6 +281,9 @@ struct Params {
   // tick's flight-recorder row
   int *trace;
   int trace_w;
+  // K6-kv: the service leaves, the kv knobs, the shape and the region
+  // after K6's slots in a cluster's block (kv.cuh Side; unset elsewhere)
+  k9::Side kv;
 };
 
 __host__ __device__ constexpr int shape_elems(int kind, int n, int cap) {
@@ -370,6 +377,23 @@ inline bool set_trace(Params &p, void *trace, int w, bool met) {
   p.trace = static_cast<int *>(trace);
   p.trace_w = w;
   return !trace || w == trace_width(p.n, p.cap, met);
+}
+
+// Fills p's K6-kv side from its descriptor (kv.cuh set_side; null in
+// the other builds, on false) after set_shape and set_trace: the kv
+// region goes after K6's slots in a cluster's block. False where the
+// build and the descriptor disagree, for a descriptor K6-kv does not
+// take, or with a trace buffer (K6-kv writes no trace rows)
+inline bool set_kv(Params &p, const int64_t *kv, int n_kv, int part,
+                   bool met, bool on) {
+  if ((kv != nullptr) != on) return false;
+  if (!on) return true;
+  if (p.trace || !k9::set_side(p.kv, kv, n_kv, p.n, p.cap, part, met) ||
+      (met && p.kv.d.hb != kHist))
+    return false;
+  p.kv.off = p.cluster_bytes;
+  p.cluster_bytes += (4 * p.kv.L.words + 15) & ~15;
+  return true;
 }
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -527,6 +551,14 @@ struct Block {
     else
       return cl + p.off[S];
   }
+  // K6-kv's region, after the slots
+  __device__ __forceinline__ int32_t *kv() const {
+    if constexpr (N_ > 0)
+      return reinterpret_cast<int32_t *>(
+          cl + kSlotOffset<N_, CAP_, AE_, MET_, kSlots>);
+    else
+      return reinterpret_cast<int32_t *>(cl + p.kv.off);
+  }
 };
 template <int S, typename Blk>
 __device__ __forceinline__ int *I(const Blk &s) {
@@ -667,20 +699,35 @@ __device__ void own_store(const Blk &s, const Own &o, int d, int n) {
 // The keys of a chunk's ticks: at tick i of the chunk, tick t (as u32),
 // and every TILE ticks, tile lane l derives the key of tick t + l
 // (fold_in(fold_in(key, t), 0)) from cluster b's key, and a shuffle hands
-// tick i's key to the tile's lanes
-template <int TILE>
+// tick i's key to the tile's lanes. K6-kv (kKv) keeps fold_in(key, t + l)
+// too, the key the service tick's draws fold their sites into (svc)
+template <int TILE, bool kKv = false>
 struct TickKeys {
   uint32_t k0 = 0u, k1 = 0u;
+  uint32_t f0 = 0u, f1 = 0u;  // kKv: fold_in(key, t + lane)
   __device__ __forceinline__ void get(const Params &p, int b, int i,
                                       uint32_t t, const Tile<TILE> &tile,
                                       uint32_t &tk0, uint32_t &tk1) {
     if ((i & (TILE - 1)) == 0) {
       k0 = static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]);
       k1 = static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]);
-      madraft::tick_key(k0, k1, t + static_cast<uint32_t>(tile.lane));
+      if constexpr (kKv) {
+        madraft::fold_in(k0, k1, t + static_cast<uint32_t>(tile.lane));
+        f0 = k0;
+        f1 = k1;
+        madraft::fold_in(k0, k1, 0u);
+      } else {
+        madraft::tick_key(k0, k1, t + static_cast<uint32_t>(tile.lane));
+      }
     }
     tk0 = tile.shfl(k0, i & (TILE - 1));
     tk1 = tile.shfl(k1, i & (TILE - 1));
+  }
+  // kKv: tick i's fold_in(key, t), after get
+  __device__ __forceinline__ void svc(int i, const Tile<TILE> &tile,
+                                      uint32_t &s0, uint32_t &s1) const {
+    s0 = tile.shfl(f0, i & (TILE - 1));
+    s1 = tile.shfl(f1, i & (TILE - 1));
   }
 };
 
@@ -840,10 +887,13 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
 // latency : -1), the lowest slot on ties (a maximum over the tile, then
 // the least slot that holds it), and it replaces the register when it is
 // greater or the register is empty (worst_sub 0). A warp with no ack this
-// tick only scans its slots
-template <int CAP_, int TILE>
+// tick only scans its slots. In K6-kv (kKv) the register is the kv
+// region's rows (kv), where the service's clerks fold into it too: every
+// lane reads it, then tile lane 0 writes the candidate that wins
+template <int CAP_, int TILE, bool kKv = false>
 __device__ void fold(const Params &p, const Stamps &st,
-                     const Tile<TILE> &tile, int t, Meter &mt) {
+                     const Tile<TILE> &tile, int t, Meter &mt,
+                     int32_t *kv = nullptr) {
   const int cap = CAP_ ? CAP_ : p.cap, lane = tile.lane;
   const int *ss = st.shadow_sub();
   int best = kIntMin, best_k = kBig;  // best_k kBig: the lane has no slot
@@ -866,7 +916,21 @@ __device__ void fold(const Params &p, const Stamps &st,
   const bool any = tile.ballot(mine) != 0u;
   const int top = tile.max(best);
   const int at = tile.min(best == top ? best_k : kBig);
-  if (any) {
+  if constexpr (kKv) {
+    auto row = [&](int l) { return kv + p.kv.leaf[l].off; };
+    const int cand = any ? wsub(t, ss[at]) : 0;
+    const bool better =
+        any && (cand > row(k9::kWorstLat)[0] || row(k9::kWorstSub)[0] == 0);
+    __syncwarp();  // the register is read
+    if (better && lane == 0) {
+      row(k9::kWorstLat)[0] = cand;
+      row(k9::kWorstSub)[0] = ss[at];
+      row(k9::kWorstKey)[0] = -1;
+      row(k9::kWorstClient)[0] = -1;
+      for (int q = 0; q < kLatPhases; ++q)
+        row(k9::kWorstPhases)[q] = q == kReplicate ? cand : 0;
+    }
+  } else if (any) {
     const int cand = wsub(t, ss[at]);
     if (cand > mt.worst_lat || mt.worst_sub == 0) {
       mt.worst_lat = cand;
@@ -890,8 +954,10 @@ __device__ void fold(const Params &p, const Stamps &st,
 
 // One tick of the cluster (step.py step_cluster, with cfg.metrics as kMet)
 // under the tick's key (tk0, tk1); alive is the warp's mask of live nodes,
-// carried from tick to tick; st the metrics variant's stamp rings
-template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet>
+// carried from tick to tick; st the metrics variant's stamp rings; kKv
+// the K6-kv builds (the worst-op register in the kv region)
+template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet,
+          bool kKv = false>
 __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
                      const Stamps &st, Own &o, Meter &mt, unsigned &alive,
                      const Tile<TILE> &tile, Clock<kProf> &clk, uint32_t tk0,
@@ -1571,7 +1637,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
     }
   }
   __syncwarp();
-  if constexpr (kMet) fold<CAP_>(p, st, tile, t, mt);
+  if constexpr (kMet) fold<CAP_, TILE, kKv>(p, st, tile, t, mt, s.kv());
   clk.mark(P_ORACLE);
 
   // ------------------ compaction (691-705), background fsync (707-722)
@@ -1660,11 +1726,13 @@ __device__ void stamps_load(const Stamps &st, int lane) {
 // 0), so each phase row's mass is the acked count (step.py 666-685).
 // out(leaf, i, v) takes element i of cluster b's row of the leaf; the
 // tile's lanes all call this (its sums are tile reductions), and only a
-// tile that holds a cluster (active) writes
-template <int TILE, typename Out>
+// tile that holds a cluster (active) writes. K6-kv (kKv) adds the kv
+// region kv's sums of the clerks' folds, and its worst-op register is the
+// region's
+template <int TILE, bool kKv = false, typename Out>
 __device__ void metric_rows(const Params &p, int b, bool active,
                             const Tile<TILE> &tile, const Meter &mt,
-                            Out out) {
+                            Out out, const int32_t *kv = nullptr) {
   const int lane = tile.lane;
   int ev = 0;
 #pragma unroll
@@ -1678,11 +1746,16 @@ __device__ void metric_rows(const Params &p, int b, bool active,
   auto in = [&](int leaf, int size, int i) {
     return p.m_in[leaf][c * size + i];
   };
+  // the kv region's row of a metric leaf (K6-kv)
+  auto kv_row = [&](int l) { return kv + p.kv.leaf[l].off; };
   if (lane < kHist) {
-    out(M_LAT_HIST, lane, wadd(in(M_LAT_HIST, kHist, lane), mt.hist));
+    int lh = wadd(in(M_LAT_HIST, kHist, lane), mt.hist);
+    if constexpr (kKv) lh = wadd(lh, kv_row(k9::kLatHist)[lane]);
+    out(M_LAT_HIST, lane, lh);
     for (int ph = 0; ph < kLatPhases; ++ph) {
       const int i = ph * kHist + lane;
-      const int add = ph == kReplicate ? mt.hist : lane == 0 ? acked : 0;
+      int add = ph == kReplicate ? mt.hist : lane == 0 ? acked : 0;
+      if constexpr (kKv) add = wadd(add, kv_row(k9::kPhaseHist)[i]);
       out(M_PHASE_HIST, i, wadd(in(M_PHASE_HIST, kLatPhases * kHist, i),
                                 add));
     }
@@ -1690,31 +1763,47 @@ __device__ void metric_rows(const Params &p, int b, bool active,
   if (lane < kEvents)
     out(M_EV_COUNTS, lane, wadd(in(M_EV_COUNTS, kEvents, lane), ev));
   if (lane < kLatPhases) {
-    out(M_PHASE_TICKS, lane,
-        wadd(in(M_PHASE_TICKS, kLatPhases, lane),
-             lane == kReplicate ? lat_sum : 0));
-    out(M_WORST_PHASES, lane,
-        mt.worst_new ? (lane == kReplicate ? mt.worst_lat : 0)
-                     : in(M_WORST_PHASES, kLatPhases, lane));
+    int pt = lane == kReplicate ? lat_sum : 0;
+    if constexpr (kKv) pt = wadd(pt, kv_row(k9::kPhaseTicks)[lane]);
+    out(M_PHASE_TICKS, lane, wadd(in(M_PHASE_TICKS, kLatPhases, lane), pt));
+    if constexpr (kKv)
+      out(M_WORST_PHASES, lane, kv_row(k9::kWorstPhases)[lane]);
+    else
+      out(M_WORST_PHASES, lane,
+          mt.worst_new ? (lane == kReplicate ? mt.worst_lat : 0)
+                       : in(M_WORST_PHASES, kLatPhases, lane));
   }
   if (lane == 0) {
-    out(M_LAT_TICKS, 0, wadd(in(M_LAT_TICKS, 1, 0), lat_sum));
-    out(M_WORST_LAT, 0, mt.worst_new ? mt.worst_lat : in(M_WORST_LAT, 1, 0));
-    out(M_WORST_KEY, 0, mt.worst_new ? -1 : in(M_WORST_KEY, 1, 0));
-    out(M_WORST_CLIENT, 0, mt.worst_new ? -1 : in(M_WORST_CLIENT, 1, 0));
-    out(M_WORST_SUB, 0, mt.worst_new ? mt.worst_sub : in(M_WORST_SUB, 1, 0));
+    int lt = lat_sum;
+    if constexpr (kKv) lt = wadd(lt, kv_row(k9::kLatTicks)[0]);
+    out(M_LAT_TICKS, 0, wadd(in(M_LAT_TICKS, 1, 0), lt));
+    if constexpr (kKv) {
+      out(M_WORST_LAT, 0, kv_row(k9::kWorstLat)[0]);
+      out(M_WORST_KEY, 0, kv_row(k9::kWorstKey)[0]);
+      out(M_WORST_CLIENT, 0, kv_row(k9::kWorstClient)[0]);
+      out(M_WORST_SUB, 0, kv_row(k9::kWorstSub)[0]);
+    } else {
+      out(M_WORST_LAT, 0,
+          mt.worst_new ? mt.worst_lat : in(M_WORST_LAT, 1, 0));
+      out(M_WORST_KEY, 0, mt.worst_new ? -1 : in(M_WORST_KEY, 1, 0));
+      out(M_WORST_CLIENT, 0, mt.worst_new ? -1 : in(M_WORST_CLIENT, 1, 0));
+      out(M_WORST_SUB, 0,
+          mt.worst_new ? mt.worst_sub : in(M_WORST_SUB, 1, 0));
+    }
   }
 }
 
-// The chunk's metric registers out, into the metric leaves out
-template <int TILE>
+// The chunk's metric registers out, into the metric leaves out (K6-kv:
+// with the kv region kv's)
+template <int TILE, bool kKv = false>
 __device__ void write_metrics(const Params &p, int b, bool active,
-                              const Tile<TILE> &tile, const Meter &mt) {
+                              const Tile<TILE> &tile, const Meter &mt,
+                              const int32_t *kv = nullptr) {
   const int per[kMetricLeaves] = {0, 0, kHist, kEvents, kLatPhases * kHist,
                                   kLatPhases, 1, 1, kLatPhases, 1, 1, 1};
-  metric_rows(p, b, active, tile, mt, [&](int leaf, int i, int v) {
+  metric_rows<TILE, kKv>(p, b, active, tile, mt, [&](int leaf, int i, int v) {
     p.m_out[leaf][static_cast<size_t>(b) * per[leaf] + i] = v;
-  });
+  }, kv);
 }
 
 // K6-trace after tick i of the chunk: cluster b's flight-recorder row
@@ -1830,14 +1919,218 @@ __host__ __device__ inline int credits(const int *fp, const int *seen, int b,
   return k;
 }
 
+// K6-kv's environment for kv.cuh's phases on a cluster's tile: the kv
+// region kv (the service leaves' rows, updated in place for the chunk,
+// and the tick's scratch) in the cluster's block; the stepped raft state
+// K6's block as the tick left it, the raft leaves the service writes
+// (the log rows and log_len, violations, first_violation_tick) written
+// there in place; the pre-tick views as run_cluster kept them before the
+// tick (liveness a mask, base in the region, shadow_len). Two pre-tick
+// values the phases read after rewriting them come from copies
+// (kv_tick): the truth's max seqs, and the snapshot tables when a node
+// installs a snapshot this tick (an install adopts the sender's PRE-tick
+// snapshot, which its own compaction may have rewritten)
+template <int N_, int CAP_, int TILE, bool MET, typename Blk>
+struct KvEnv {
+  static constexpr bool kMet = MET;
+  const Params &p;
+  const Blk &blk;
+  int32_t *kv;
+  unsigned alive_m, pre_alive_m;
+  int pre_sl;
+  bool any_inst;
+  __device__ int lanes() const { return TILE; }
+  __device__ const k9::Dims &d() const { return p.kv.d; }
+  __device__ const k9::Layout &L() const { return p.kv.L; }
+  __device__ int n() const { return N_ ? N_ : p.n; }
+  __device__ int cap() const { return CAP_ ? CAP_ : p.cap; }
+  __device__ int32_t *w(int l) const { return kv + p.kv.leaf[l].off; }
+  __device__ uint8_t *wb(int l) const {
+    return reinterpret_cast<uint8_t *>(kv + p.kv.leaf[l].off);
+  }
+  __device__ int32_t *s(int off) const { return kv + off; }
+  __device__ const int32_t *pre(int l) const {
+    if (l == k9::kTruthMaxSeq) return kv + p.kv.L.pre_tmax;
+    if (l >= k9::kSnapLastSeq && l <= k9::kSnapKeyCount && any_inst) {
+      const int g = l - k9::kSnapLastSeq, nc = p.kv.d.nc, nk = p.kv.d.nk;
+      return kv + p.kv.L.snap_pre +
+             n() * (g < 2 ? g * nc : 2 * nc + (g - 2) * nk);
+    }
+    return w(l);
+  }
+  __device__ const uint8_t *pre_b(int l) const { return wb(l); }
+  __device__ int32_t tick() const { return I<L_TICK>(blk)[0]; }
+  __device__ const int32_t *term() const { return I<L_TERM>(blk); }
+  __device__ const int32_t *role() const { return I<L_ROLE>(blk); }
+  __device__ const int32_t *base() const { return I<L_BASE>(blk); }
+  __device__ const int32_t *commit() const { return I<L_COMMIT>(blk); }
+  __device__ bool alive(int i) const { return bit(alive_m, i); }
+  __device__ int32_t snap_src(int i) const {
+    return I<L_SNAP_INSTALLED_SRC>(blk)[i];
+  }
+  __device__ const int32_t *shadow_val() const {
+    return I<L_SHADOW_VAL>(blk);
+  }
+  __device__ int32_t shadow_base() const { return I<L_SHADOW_BASE>(blk)[0]; }
+  __device__ int32_t shadow_len() const { return I<L_SHADOW_LEN>(blk)[0]; }
+  __device__ bool pre_alive(int i) const { return bit(pre_alive_m, i); }
+  __device__ int32_t pre_base(int i) const {
+    return kv[p.kv.L.pre_base + i];
+  }
+  __device__ int32_t pre_shadow_len() const { return pre_sl; }
+  __device__ float kf(int k) const {
+    return reinterpret_cast<const float *>(kv + p.kv.L.knobs)[k];
+  }
+  __device__ int32_t ki(int k) const {
+    return kv[p.kv.L.knobs + k9::kNF + k];
+  }
+  __device__ const int32_t *log_val(int i) const {
+    return I<L_LOG_VAL>(blk) + i * cap();
+  }
+  __device__ int32_t *log_len() const { return I<L_LOG_LEN>(blk); }
+  __device__ void append(int i, int pos, int32_t term, int32_t val) const {
+    I<L_LOG_TERM>(blk)[i * cap() + pos] = term;
+    I<L_LOG_VAL>(blk)[i * cap() + pos] = val;
+  }
+  __device__ int32_t &violations() const { return I<L_VIOLATIONS>(blk)[0]; }
+  __device__ int32_t &first_violation() const {
+    return I<L_FIRST_VIOLATION_TICK>(blk)[0];
+  }
+  // the fsync watermark and the compaction floor are the node lanes'
+  // registers (Own): kv_tick sets them after the submits
+  __device__ void submitted() const {}
+};
+
+// K6-kv at the chunk's start: cluster b's service leaves into the kv
+// region, the clerks' metric sums cleared and the worst-op register from
+// the metric leaves in (K6-metrics-kv), the kv knob rows
+template <int TILE, bool kMet, typename Blk>
+__device__ void kv_stage(const Params &p, const Blk &s, int b, int lane) {
+  const k9::Side &kv = p.kv;
+  int32_t *ws = s.kv();
+  for (int l = 0; l < k9::kServiceLeaves; ++l) {
+    const k9::LeafRef &g = kv.leaf[l];
+    const size_t row = static_cast<size_t>(b) * g.count;
+    if (g.bytes == 4) {
+      const int *src = static_cast<const int *>(g.in) + row;
+      for (int i = lane; i < g.count; i += TILE) ws[g.off + i] = src[i];
+    } else {
+      const uint8_t *src = static_cast<const uint8_t *>(g.in) + row;
+      uint8_t *dst = reinterpret_cast<uint8_t *>(ws + g.off);
+      for (int i = lane; i < g.count; i += TILE) dst[i] = src[i];
+    }
+  }
+  if constexpr (kMet) {
+    for (int l = k9::kLatHist; l <= k9::kLatTicks; ++l)
+      for (int i = lane; i < kv.leaf[l].count; i += TILE)
+        ws[kv.leaf[l].off + i] = 0;
+    const int reg[] = {M_WORST_LAT, M_WORST_PHASES, M_WORST_KEY,
+                       M_WORST_CLIENT, M_WORST_SUB};
+    for (int r = 0; r < 5; ++r) {
+      const k9::LeafRef &g = kv.leaf[k9::kWorstLat + r];
+      for (int i = lane; i < g.count; i += TILE)
+        ws[g.off + i] = p.m_in[reg[r]][static_cast<size_t>(b) * g.count + i];
+    }
+  }
+  for (int i = lane; i < k9::kNF; i += TILE)
+    reinterpret_cast<float *>(ws + kv.L.knobs)[i] =
+        kv.kf[static_cast<size_t>(b) * k9::kNF + i];
+  for (int i = lane; i < k9::kNI; i += TILE)
+    ws[kv.L.knobs + k9::kNF + i] = kv.ki[static_cast<size_t>(b) * k9::kNI + i];
+  __syncwarp();
+}
+
+// K6-kv at the chunk's end: the service leaves out, for a tile that holds
+// a cluster (the metric leaves go with write_metrics)
+template <int TILE, typename Blk>
+__device__ void kv_write(const Params &p, const Blk &s, int b, int lane,
+                         bool active) {
+  if (!active) return;
+  const int32_t *ws = s.kv();
+  for (int l = 0; l < k9::kServiceLeaves; ++l) {
+    const k9::LeafRef &g = p.kv.leaf[l];
+    const size_t row = static_cast<size_t>(b) * g.count;
+    if (g.bytes == 4) {
+      int *dst = static_cast<int *>(g.out) + row;
+      for (int i = lane; i < g.count; i += TILE) dst[i] = ws[g.off + i];
+    } else {
+      uint8_t *dst = static_cast<uint8_t *>(g.out) + row;
+      const uint8_t *src = reinterpret_cast<const uint8_t *>(ws + g.off);
+      for (int i = lane; i < g.count; i += TILE) dst[i] = src[i];
+    }
+  }
+}
+
+// K6-kv after the raft tick: the kv service tick of the cluster on its
+// tile (the reference's _kv_service_tick after step_cluster), kv.cuh's
+// phases on KvEnv, a warp barrier after each; (s0, s1) is fold_in(key, t),
+// alive the post-tick liveness, pre_alive, pre_sl and the region's
+// pre_base row the pre-tick views. After the submits each node lane takes
+// the service's fsync watermark (the log's length where it grew,
+// state.durable_after_append) and compaction floor (the apply cursor)
+// into its registers, where the next raft tick reads them
+template <int N_, int CAP_, int AE_, int TILE, bool kMet>
+__device__ void kv_tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
+                        Own &o, unsigned alive, unsigned pre_alive,
+                        int pre_sl, const Tile<TILE> &tile, uint32_t s0,
+                        uint32_t s1) {
+  const int lane = tile.lane, n = N_ ? N_ : p.n, d = lane;
+  const bool node = lane < n;
+  const k9::Side &kv = p.kv;
+  const int nc = kv.d.nc, nk = kv.d.nk;
+  int32_t *ws = s.kv();
+  // the tick's draw keys and cleared scratch; the truth's pre-tick max
+  // seqs, then the max clamped at 0 (the reference's max takes in a 0)
+  if (lane < k9::kDrawKeys)
+    k9::draw_key(s0, s1, lane, p.partitionable, ws + kv.L.draws + 2 * lane);
+  k9::clear_tick(kv.L, ws, nc, lane, TILE);
+  int32_t *tmax = ws + kv.leaf[k9::kTruthMaxSeq].off;
+  for (int cl = lane; cl < nc; cl += TILE) {
+    const int32_t v = tmax[cl];
+    ws[kv.L.pre_tmax + cl] = v;
+    tmax[cl] = v < 0 ? 0 : v;
+  }
+  // the snapshot tables (four rows in a row in the region) as they were
+  // before the tick, where an install adopts one
+  const bool any_inst =
+      tile.ballot(node && I<L_SNAP_INSTALLED_SRC>(s)[d] >= 0) != 0u;
+  if (any_inst) {
+    const int32_t *snap = ws + kv.leaf[k9::kSnapLastSeq].off;
+    for (int i = lane; i < n * (2 * nc + 2 * nk); i += TILE)
+      ws[kv.L.snap_pre + i] = snap[i];
+  }
+  const int len0 = node ? I<L_LOG_LEN>(s)[d] : 0;  // before the submits
+  __syncwarp();
+  const KvEnv<N_, CAP_, TILE, kMet, Block<N_, CAP_, AE_, kMet>> e{
+      p, s, ws, alive, pre_alive, pre_sl, any_inst};
+  k9::scan(e, lane);
+  __syncwarp();
+  k9::apply(e, lane);
+  __syncwarp();
+  k9::observe(e, lane);
+  __syncwarp();
+  k9::clerks(e, lane);
+  __syncwarp();
+  if (lane == 0) k9::submit(e);
+  __syncwarp();
+  if (node) {
+    const int len = I<L_LOG_LEN>(s)[d];
+    if (len > len0) o.durable_len = len;
+    o.compact_floor = ws[kv.leaf[k9::kApplied].off + d];
+  }
+  __syncwarp();  // the region's rows are read before the next tick's
+}
+
 // The chunk for cluster b on a tile: stage in, m ticks, stage out (a
 // tile past the batch's end, !active, runs a copy of the last cluster and
 // writes nothing); the metrics variant also fills its stamp rings and
 // writes the metric registers, the coverage variant stamps the seen-set
-// after each tick, a trace buffer gets each tick's row; the profile
-// instance writes its per-phase sums to prof[b, kPhases]
+// after each tick, a trace buffer gets each tick's row, K6-kv (kKv) runs
+// the kv service tick after each tick with the kv leaves staged for the
+// chunk; the profile instance writes its per-phase sums to prof[b,
+// kPhases]
 template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet,
-          bool kCov>
+          bool kCov, bool kKv = false>
 __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
                             const Tile<TILE> &tile, long long *prof) {
   const Block<N_, CAP_, AE_, kMet> s{p, cl};
@@ -1845,6 +2138,7 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   Clock<kProf> clk;
   clk.start(lane);
   stage<TILE>(p, s, b, lane, true, active);
+  if constexpr (kKv) kv_stage<TILE, kMet>(p, s, b, lane);
   const Stamps st{p, b, active};
   if constexpr (kMet) stamps_load<TILE>(st, lane);
   Own o;
@@ -1855,12 +2149,25 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
     mt.worst_sub = p.m_in[M_WORST_SUB][b];
   }
   unsigned alive = tile.ballot(lane < n && B<L_ALIVE>(s)[lane]);
-  TickKeys<TILE> keys;
+  TickKeys<TILE, kKv> keys;
   clk.mark(P_STAGE);
   for (int i = 0; i < p.m; ++i) {
     uint32_t tk0, tk1;  // the block's tick is the chunk's first + i
     keys.get(p, b, i, static_cast<uint32_t>(I<L_TICK>(s)[0]) + 1u, tile, tk0,
              tk1);
+    if constexpr (kKv) {
+      uint32_t s0, s1;
+      keys.svc(i, tile, s0, s1);
+      // the pre-tick views the service tick reads
+      const unsigned pre_alive = alive;
+      const int pre_sl = I<L_SHADOW_LEN>(s)[0];
+      if (lane < n) s.kv()[p.kv.L.pre_base + lane] = I<L_BASE>(s)[lane];
+      tick<N_, CAP_, AE_, TILE, kProf, kMet, true>(p, s, st, o, mt, alive,
+                                                   tile, clk, tk0, tk1);
+      kv_tick<N_, CAP_, AE_, TILE, kMet>(p, s, o, alive, pre_alive, pre_sl,
+                                         tile, s0, s1);
+      continue;
+    }
     tick<N_, CAP_, AE_, TILE, kProf, kMet>(p, s, st, o, mt, alive, tile, clk,
                                            tk0, tk1);
     if constexpr (kCov) {  // the profile counts the stamp with compact
@@ -1874,7 +2181,8 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   if (lane < n) own_store(s, o, lane, n);
   __syncwarp();
   stage<TILE>(p, s, b, lane, false, active);
-  if constexpr (kMet) write_metrics<TILE>(p, b, active, tile, mt);
+  if constexpr (kKv) kv_write<TILE>(p, s, b, lane, active);
+  if constexpr (kMet) write_metrics<TILE, kKv>(p, b, active, tile, mt, s.kv());
   clk.mark(P_STAGE);
   if constexpr (kProf) {
     if (lane < kPhases && active) prof[b * kPhases + lane] = clk.acc;

@@ -117,12 +117,9 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
             f"{x.device}, expected contiguous {shape} {dtype} on {dev}")
 
 
-def _descriptor(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys,
-                table):
-    """Check the inputs and allocate the new state: (the launch's
-    descriptor, the new CtrlerState)."""
-    from madraft_tpu_torch.tpusim.ctrler import SERVICE, CtrlerState
-
+def check_shape(cfg: SimConfig, kcfg) -> None:
+    """Refuse a shape past what csrc/ctrler.cuh takes, naming the limit
+    (the kernel never hands a shape to the plain version)."""
     n, cap, nc = cfg.n_nodes, cfg.log_cap, kcfg.n_clients
     if (not 1 <= n <= MAX_NODES or cap > MAX_CAP or cap & (cap - 1)
             or not 1 <= nc <= MAX_CLIENTS
@@ -132,6 +129,16 @@ def _descriptor(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys,
             f"{MAX_CAP}, n_clients <= {MAX_CLIENTS} and n_configs <= "
             f"{MAX_CONFIGS}, got n={n} cap={cap} n_clients={nc} "
             f"n_configs={kcfg.n_configs}")
+
+
+def _descriptor(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys,
+                table):
+    """Check the inputs and allocate the new state: (the launch's
+    descriptor, the new CtrlerState)."""
+    from madraft_tpu_torch.tpusim.ctrler import SERVICE, CtrlerState
+
+    check_shape(cfg, kcfg)
+    n, cap, nc = cfg.n_nodes, cfg.log_cap, kcfg.n_clients
     dev, b = s.tick.device, s.tick.shape[0]
     if b == 0:
         raise ValueError("ctrler_tick: an empty batch")

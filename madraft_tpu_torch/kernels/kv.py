@@ -1,6 +1,21 @@
-"""Kernel K9: the kv service tick of a batch of clusters, one launch a tick.
+"""The kv service tick on the card: K6-kv, a chunk of kv ticks in one
+launch (``kv_chunk``), and K9, one service tick a launch (``kv_tick``).
 
-Replaces the JAX reference's service tick (B7),
+``kv_chunk(cfg, kcfg, ks, keys, kn, kkn, m)`` runs m kv ticks (the raft
+tick, then the service tick) of every cluster: on CPU tensors its plain
+version ``kv_chunk_plain`` (``step.step_cluster``, then
+``tpusim.kv._kv_service_tick``, a tick after another); on CUDA tensors
+the K6-kv build of ``csrc/tick.cu`` (``kernels.tick.variant(...,
+kv=True)``: ``-DMADRAFT_K6_KV``, with ``-DMADRAFT_K6_METRICS`` for
+``cfg.metrics``), which runs the service tick of ``csrc/kv.cuh`` on K6's
+tile after each raft tick, the kv leaves staged in the cluster's shared
+block for the chunk, or raises. ``kv_chunk.launches`` counts its
+launches, ``kv_chunk.metrics_launches`` those of K6-metrics-kv; a kv run
+on the card makes no ``tick_chunk`` and no ``kv_tick`` launch. The
+wrapper checks the leaves and builds the descriptor once a launch
+(``Side``) and returns the new ``KvState``.
+
+K9 replaces the JAX reference's service tick (B7),
 ``madraft_tpu/tpusim/kv.py`` ``_kv_service_tick`` (425-989), and with the
 metrics plane (K9-metrics, the build ``variant`` names) the clerks'
 latency folds inside it (B5': ``metrics.py`` ``fold_latencies_by`` and
@@ -16,18 +31,22 @@ route's baseline on the card), it returns the plain version's result
 (``tpusim.kv._kv_service_tick``); on CUDA tensors it launches K9 or
 raises. The kernel writes a new state (the inputs stay as they were) and
 hashes the tick's draws itself. ``kv_tick.launches`` counts its launches,
-``kv_tick.metrics_launches`` those of K9-metrics.
+``kv_tick.metrics_launches`` those of K9-metrics. No kv run launches K9
+since K6-kv: it is the per-tick design K6-kv is held against, with its
+own tests and ``chip_smoke.py`` phase.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
 from madraft_tpu_torch import _build
+from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim.config import SimConfig
 
@@ -105,6 +124,19 @@ def _lib(name: str):
     return lib
 
 
+def check_shape(cfg: SimConfig, kcfg, what: str = "kv_tick") -> None:
+    """Refuse a shape past what csrc/kv.cuh takes, naming the limit (the
+    kernel never hands a shape to the plain version)."""
+    n, cap = cfg.n_nodes, cfg.log_cap
+    nc, nk = kcfg.n_clients, kcfg.n_keys
+    if (not 1 <= n <= MAX_NODES or cap > MAX_CAP or cap & (cap - 1)
+            or not 1 <= nc <= MAX_CLIENTS or not 1 <= nk <= MAX_KEYS):
+        raise ValueError(
+            f"{what} takes n <= {MAX_NODES}, a power-of-two cap <= "
+            f"{MAX_CAP}, n_clients <= {MAX_CLIENTS} and n_keys <= "
+            f"{MAX_KEYS}, got n={n} cap={cap} n_clients={nc} n_keys={nk}")
+
+
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
     if (x.device != dev or tuple(x.shape) != shape or x.dtype != dtype
             or not x.is_contiguous()):
@@ -119,14 +151,9 @@ def _launch(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, pre_shadow_len,
     ``kv_launch``. Returns the new KvState."""
     from madraft_tpu_torch.tpusim.kv import SERVICE, KvState
 
+    check_shape(cfg, kcfg)
     n, cap = cfg.n_nodes, cfg.log_cap
     nc, nk = kcfg.n_clients, kcfg.n_keys
-    if (not 1 <= n <= MAX_NODES or cap > MAX_CAP or cap & (cap - 1)
-            or not 1 <= nc <= MAX_CLIENTS or not 1 <= nk <= MAX_KEYS):
-        raise ValueError(
-            f"kv_tick takes n <= {MAX_NODES}, a power-of-two cap <= "
-            f"{MAX_CAP}, n_clients <= {MAX_CLIENTS} and n_keys <= "
-            f"{MAX_KEYS}, got n={n} cap={cap} n_clients={nc} n_keys={nk}")
     dev, b = s.tick.device, s.tick.shape[0]
     if b == 0:
         raise ValueError("kv_tick: an empty batch")
@@ -202,3 +229,98 @@ def kv_tick(cfg: SimConfig, kcfg, ks, pre_alive: torch.Tensor,
 
 kv_tick.launches = 0
 kv_tick.metrics_launches = 0
+
+
+# ---------------------------------------------------------------- K6-kv
+class Side:
+    """K6-kv's share of a launch (``kernels.tick._launch(..., kv=)``): the
+    kv state's service leaves, checked once, K9's knob table, and the
+    descriptor ``csrc/kv.cuh`` ``set_side`` reads (the header's n_clients
+    .. metrics_on, the table's two pointers, then in, out, count and
+    bytes of each leaf of ``csrc/kv.cuh`` Leaf: a raft leaf the service
+    writes is K6's own, and a metric leaf K6's, so those carry their count
+    alone)."""
+
+    def __init__(self, cfg: SimConfig, kcfg, ks, table):
+        from madraft_tpu_torch.tpusim.kv import SERVICE
+
+        check_shape(cfg, kcfg, "kv_chunk")
+        dev, b = ks.raft.tick.device, ks.raft.tick.shape[0]
+        shapes = leaf_shapes(cfg, kcfg)
+        self.leaves = [getattr(ks, f) for f in SERVICE]
+        for name, x in zip(SERVICE, self.leaves):
+            lane, dtype = shapes[name]
+            _check(name, x, (b, *lane), dtype, dev)
+        kf, ki = table
+        _check("knob table (float32)", kf, (b, len(KNOB_F32)), torch.float32,
+               dev)
+        _check("knob table (int32)", ki, (b, len(KNOB_I32) + 1), I32, dev)
+        self.table = table
+        hb, nph = ((ks.raft.phase_hist.shape[2], ks.raft.phase_hist.shape[1])
+                   if cfg.metrics else (0, 0))
+        self.head = [kcfg.n_clients, kcfg.n_keys, kcfg.apply_max, hb, nph,
+                     int(prng.partitionable()), int(cfg.metrics)]
+        self.counts = [math.prod(shapes[f][0]) for f in RAFT_WRITES]
+
+    def descriptor(self, ins, outs) -> np.ndarray:
+        """The descriptor over the service leaves ``ins`` (contiguous) and
+        their new rows ``outs``."""
+        words = self.head + [self.table[0].data_ptr(),
+                             self.table[1].data_ptr()]
+        for x, y in zip(ins, outs):
+            words += [x.data_ptr(), y.data_ptr(), x[0].numel(),
+                      x.element_size()]
+        for count in self.counts:
+            words += [0, 0, count, 4]
+        return np.asarray(words, dtype=np.int64)
+
+    def state(self, raft, outs):
+        """The new ``KvState`` of the new raft state and service rows."""
+        from madraft_tpu_torch.tpusim.kv import KvState
+
+        return KvState(raft, *outs)
+
+
+def kv_chunk_plain(cfg: SimConfig, kcfg, ks, keys, kn, kkn, m: int):
+    """K6-kv's plain version: m kv ticks, each ``step.step_cluster`` then
+    ``tpusim.kv._kv_service_tick`` (K9's plain version) on its result."""
+    from madraft_tpu_torch.tpusim.kv import _kv_service_tick
+    from madraft_tpu_torch.tpusim.step import step_cluster
+
+    for _ in range(m):
+        pre = ks.raft
+        s = step_cluster(cfg, pre, keys, kn)
+        ks = _kv_service_tick(cfg, kcfg, ks, pre.alive, pre.base,
+                              pre.shadow_len, s, keys, kn, kkn)
+    return ks
+
+
+def kv_chunk(cfg: SimConfig, kcfg, ks, keys, kn, kkn, m: int, table=None,
+             ktable=None):
+    """m kv ticks of every cluster: the plain version on the CPU, K6-kv's
+    build for ``cfg.metrics`` on CUDA (one launch). ``table`` and
+    ``ktable`` are ``kernels.tick.knob_table(kn, B)`` and
+    ``knob_table(kn, kkn, B)`` on the device when the caller has them."""
+    dev = ks.raft.tick.device
+    if dev.type == "cpu":
+        return kv_chunk_plain(cfg, kcfg, ks, keys, kn, kkn, m)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_chunk: expected CPU or CUDA tensors, got {dev}")
+    b = keys.shape[0]
+    if table is None:
+        table = K6.knob_table(kn.to(dev), b)
+    if ktable is None:
+        ktable = knob_table(kn.to(dev), kkn.to(dev), b)
+    out, launched = K6._launch(
+        cfg, ks.raft, keys, kn, m, K6._lib(K6.variant(cfg.metrics, False,
+                                                      kv=True)),
+        torch.cuda.current_stream(dev).cuda_stream, table=table,
+        kv=Side(cfg, kcfg, ks, ktable))
+    if launched:
+        kv_chunk.launches += 1
+        kv_chunk.metrics_launches += int(cfg.metrics)
+    return out
+
+
+kv_chunk.launches = 0
+kv_chunk.metrics_launches = 0

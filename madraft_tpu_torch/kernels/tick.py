@@ -23,7 +23,9 @@ credits to ``cov.new_fps``. Both together give K6-metrics-coverage.
 With ``trace`` (an int32 [m, B, W] tensor, W = ``kernels.trace.
 record_width(cfg)``) any build also writes each tick's flight-recorder
 row (K8's row, ``kernels.trace.record_plain``) into ``trace[i]``: K6-trace,
-which the traced replay runs instead of K8 a tick.
+which the traced replay runs instead of K8 a tick. With ``kv`` (a
+``kernels.kv.Side``) ``_launch`` runs K6-kv, the kv service tick after
+each raft tick (``kernels.kv.kv_chunk``, ``variant(..., kv=True)``).
 
 The kernel reads the clusters' keys (``[B, 2]`` int64-held u32), the state
 leaves of ``LEAVES`` and the knobs as one float32 and one int32 ``[B, k]``
@@ -173,10 +175,12 @@ def metric_shapes(cfg: SimConfig) -> tuple:
             (reg,), (nph,), (reg,), (reg,), (reg,))
 
 
-def variant(metrics: bool, cov: bool) -> str:
+def variant(metrics: bool, cov: bool, kv: bool = False) -> str:
     """The build of csrc/tick.cu that runs the tick with the metrics plane
-    and / or the coverage fingerprint (``_build.VARIANTS``)."""
-    return "tick" + "_metrics" * bool(metrics) + "_coverage" * bool(cov)
+    and / or the coverage fingerprint, or with the kv service tick (K6-kv,
+    ``kernels.kv.kv_chunk``; ``_build.VARIANTS``)."""
+    return ("tick" + "_metrics" * bool(metrics) + "_coverage" * bool(cov)
+            + "_kv" * bool(kv))
 
 
 def draw_offsets(n: int) -> tuple:
@@ -237,7 +241,7 @@ def _lib(name: str = "tick"):
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         args = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, i,
-                p]
+                p, i, p]
         lib.tick_launch.argtypes = args
         lib.tick_launch.restype = ctypes.c_int
         lib.credit_launch.argtypes = [p, p, p, i, i, i, p]
@@ -249,14 +253,21 @@ def _lib(name: str = "tick"):
     return lib
 
 
-def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
-           m: int = 0, cov: Optional[Seen] = None,
-           trace: Optional[torch.Tensor] = None) -> None:
+def check_shape(cfg: SimConfig) -> None:
+    """Refuse a shape past what csrc/tick.cuh takes, naming the limit
+    (the kernel never hands a shape to the plain version)."""
     n, cap = cfg.n_nodes, cfg.log_cap
     if not 1 <= n <= MAX_NODES or cap > MAX_CAP or cfg.ae_max > MAX_AE:
         raise ValueError(
             f"tick kernel takes n <= {MAX_NODES}, cap <= {MAX_CAP} and "
             f"ae_max <= {MAX_AE}, got n={n} cap={cap} ae_max={cfg.ae_max}")
+
+
+def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
+           m: int = 0, cov: Optional[Seen] = None,
+           trace: Optional[torch.Tensor] = None) -> None:
+    check_shape(cfg)
+    n, cap = cfg.n_nodes, cfg.log_cap
     dev, b = state.tick.device, state.tick.shape[0]
     for (name, shape_class, dtype), x in zip(LEAVES, state):
         shape = (b, *_lane_shape(shape_class, n, cap))
@@ -308,15 +319,17 @@ def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
 def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
             kn: Knobs, m: int, lib, stream, prof=None,
             table=None, cov: Optional[Seen] = None, fp=None,
-            trace: Optional[torch.Tensor] = None) -> tuple:
+            trace: Optional[torch.Tensor] = None, kv=None) -> tuple:
     """Check the inputs, allocate the new state and launch ``lib``'s
     ``tick_launch`` for m ticks on ``stream`` (``tick_launch_profile``
     into ``prof`` when given): with ``cfg.metrics`` the metric leaves go
     in and come out too (and a spare row of the stamp rings, which a tile
     past the batch's end works on), with ``cov`` the coverage arguments go
     in and ``fp`` (int32 [m, B]) gets each lane-tick's flat seen index,
-    with ``trace`` (int32 [m, B, W]) each tick's trace rows. Returns (new
-    state, launched)."""
+    with ``trace`` (int32 [m, B, W]) each tick's trace rows, with ``kv``
+    (``kernels.kv.Side``: K6-kv) the kv state's service leaves go in and
+    come out too. Returns (new state, launched), the state a
+    ``tpusim.kv.KvState`` with ``kv``."""
     _check(cfg, state, keys, m, cov, trace)
     if cfg.metrics and m > MAX_METRIC_TICKS:
         raise ValueError(f"tick_chunk: K6-metrics runs at most "
@@ -327,6 +340,9 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
     # the new state: one allocation, each leaf a 16-byte aligned view (the
     # metric leaves too when the kernel writes them), then the spare row
     written = list(state[:METRIC_LEAF0] if not metrics else state)
+    n_raft = len(written)
+    if kv is not None:
+        written += kv.leaves
     offs, nbytes = [], 0
     for x in written:
         offs.append(nbytes)
@@ -341,6 +357,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         ins = [x if x.is_contiguous() else x.contiguous() for x in written]
         keys = keys if keys.is_contiguous() else keys.contiguous()
         kf, ki = knob_table(kn.to(dev), b) if table is None else table
+        ins, kv_ins, kv_outs = ins[:n_raft], ins[n_raft:], outs[n_raft:]
         ptr_in = np.asarray([x.data_ptr() for x in ins[:METRIC_LEAF0]],
                             dtype=np.int64)
         ptr_out = np.asarray([y.data_ptr() for y in outs[:METRIC_LEAF0]],
@@ -349,7 +366,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         if metrics:  # the metric leaves in, then out, then the spare row
             mptrs = np.asarray(
                 [x.data_ptr() for x in ins[METRIC_LEAF0:]]
-                + [y.data_ptr() for y in outs[METRIC_LEAF0:]]
+                + [y.data_ptr() for y in outs[METRIC_LEAF0:n_raft]]
                 + [buf.data_ptr() + spare], dtype=np.int64)
         cargs = None
         if cov is not None:
@@ -365,6 +382,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                             for _, sc, dt in LEAVES], dtype=np.int32)
         draws = np.asarray([off for _, off, _ in draw_offsets(n)],
                            dtype=np.int32)
+        side = None if kv is None else kv.descriptor(kv_ins, kv_outs)
         args = (ptr_in.ctypes.data, ptr_out.ctypes.data, kinds.ctypes.data,
                 len(LEAVES), keys.data_ptr(), kf.data_ptr(), ki.data_ptr(),
                 draws.ctypes.data, len(draws), b, n, cap, cfg.ae_max, m,
@@ -372,16 +390,21 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                 None if mptrs is None else mptrs.ctypes.data,
                 None if cargs is None else cargs.ctypes.data,
                 None if trace is None else trace.data_ptr(),
-                0 if trace is None else trace.shape[2], stream)
+                0 if trace is None else trace.shape[2],
+                None if side is None else side.ctypes.data,
+                0 if side is None else len(side), stream)
         if prof is None:
             _build.check(lib.tick_launch(*args), "tick_launch")
         else:
             _build.check(lib.tick_launch_profile(*args, prof.data_ptr()),
                          "tick_launch_profile")
     else:  # nothing to tick: the new state is the old one's copy
-        for y, x in zip(outs, state):
+        for y, x in zip(outs, written):
             y.copy_(x)
-    return ClusterState(*outs, *state[len(outs):]), launched
+    new = ClusterState(*outs[:n_raft], *state[n_raft:])
+    if kv is not None:
+        new = kv.state(new, outs[n_raft:])
+    return new, launched
 
 
 def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,

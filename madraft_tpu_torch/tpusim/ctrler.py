@@ -858,6 +858,7 @@ class CtrlerFuzzProgram:
                  ckn: Optional[CtrlerKnobs] = None):
         from madraft_tpu_torch.tpusim.engine import (
             _validate_knobs,
+            check_card_shape,
             resolve_device,
         )
 
@@ -865,6 +866,7 @@ class CtrlerFuzzProgram:
         self.cfg, self.kcfg = cfg, kcfg
         self.n_clusters, self.n_ticks = n_clusters, n_ticks
         self.device = resolve_device(device)
+        check_card_shape(self.device, cfg, K10, kcfg)
         self.kn = cfg.knobs(self.device) if kn is None else kn.to(self.device)
         self.ckn = (kcfg.knobs(self.device) if ckn is None
                     else ckn.to(self.device))
@@ -954,10 +956,15 @@ def ctrler_replay_cluster(cfg: SimConfig, kcfg: CtrlerConfig, seed: int,
                           device=None) -> CtrlerState:
     """Re-run one cluster alone from its (seed, cluster_id) stream; its
     final state with a batch axis of 1."""
-    from madraft_tpu_torch.tpusim.engine import cluster_keys, resolve_device
+    from madraft_tpu_torch.tpusim.engine import (
+        check_card_shape,
+        cluster_keys,
+        resolve_device,
+    )
 
     check_service_cfg(cfg, "ctrler")
     dev = resolve_device(device)
+    check_card_shape(dev, cfg, K10, kcfg)
     kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
     keys = cluster_keys(seed, 1, dev, id0=int(cluster_id))
     ks = init_ctrler_cluster(cfg, kcfg, keys, kn)

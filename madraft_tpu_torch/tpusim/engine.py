@@ -139,6 +139,25 @@ def tick_route(device: torch.device, tick: str = "kernel") -> str:
     return "eager"
 
 
+def check_card_shape(device: torch.device, cfg: SimConfig, service=None,
+                     kcfg=None) -> None:
+    """Refuse on a CUDA device, before anything is allocated there, a
+    shape the card's kernels do not take: K6's limits
+    (``K6.check_shape``) and, given a service's kernel module and its
+    config, that kernel's (``service.check_shape(cfg, kcfg)``). The card
+    runs no plain version in a kernel's place; the CPU runs any shape."""
+    if device.type != "cuda":
+        return
+    try:
+        K6.check_shape(cfg)
+        if service is not None:
+            service.check_shape(cfg, kcfg)
+    except ValueError as e:
+        raise ValueError(
+            f"{e}; the card runs this shape on no kernel, so run it on the "
+            "CPU (device='cpu', CLI: --platform cpu)") from None
+
+
 def _advance(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
              kn: Knobs, n_ticks: int, cov: Optional[K6.Seen] = None,
              tick: str = "kernel") -> ClusterState:
@@ -208,6 +227,7 @@ class FuzzProgram:
         self.n_clusters = n_clusters
         self.n_ticks = n_ticks
         self.device = resolve_device(device)
+        check_card_shape(self.device, cfg)
         self.kn = cfg.knobs(self.device) if kn is None else kn.to(self.device)
         _validate_knobs(self.kn)
         self.compile_s = None
@@ -386,6 +406,7 @@ def replay_cluster(cfg: SimConfig, seed: int, cluster_id: int, n_ticks: int,
     with the batch axis of length 1. The result is the same in either
     carry layout, so the replay ticks the wide state throughout."""
     dev = resolve_device(device)
+    check_card_shape(dev, cfg)
     kn = resolve_knobs(cfg, knobs, dev)
     keys = cluster_keys(seed, 1, dev, id0=int(cluster_id))
     return _run(cfg, keys, kn, n_ticks)
@@ -454,6 +475,7 @@ def make_sweep_fn(cfg: SimConfig, knobs: Knobs, n_clusters: int,
     ("uniform" | "per_cluster"); ``uniform_max_cells=0`` forces the
     per-cluster layout."""
     dev = resolve_device(device)
+    check_card_shape(dev, cfg)
     knobs = knobs.to(dev)
     _validate_knobs(knobs)
     kb = knobs.broadcast(n_clusters)
@@ -953,6 +975,7 @@ def run_pool(
     if budget_ticks is None and budget_seconds is None:
         budget_ticks = horizon
     dev = resolve_device(device)
+    check_card_shape(dev, cfg)
     if devices is not None:
         _pool_mesh(n_clusters, devices, dev)
     kn = cfg.knobs(dev)

@@ -4,13 +4,15 @@ the kv oracles for a batch of clusters, the twin of the reference's
 
 A kv tick is the raft tick, then the service tick (``_kv_service_tick``):
 the clerks' submits append to the log that the next raft tick reads, so
-the two alternate every tick. On the card (``engine.tick_route``) the raft
-tick is one launch of kernel K6 (``kernels.tick.tick_chunk`` with m = 1)
-and the service tick one launch of kernel K9 (``kernels.kv.kv_tick``,
-K9-metrics with the metrics plane on, which folds the clerks' latencies,
-the per-key and per-client axes among them, inside the kernel). On the
-CPU, or with ``tick="eager"``, the raft tick is ``step.step_cluster`` and
-the service tick this module's ``_kv_service_tick``, K9's plain version.
+the two alternate every tick. On the card (``engine.tick_route``) both
+run inside one launch of K6-kv for up to ``engine.KERNEL_CHUNK`` ticks
+(``kernels.kv.kv_chunk``: kernel K6 with the service tick after each raft
+tick on the same tile; with the metrics plane on, K6-metrics-kv, which
+folds the clerks' latencies, the per-key and per-client axes among them,
+inside the kernel). On the CPU, with ``tick="eager"``, or for a shape past
+the kernels' limits, the raft tick is ``step.step_cluster`` and the
+service tick this module's ``_kv_service_tick``, the plain version of K9
+(``kernels.kv.kv_tick``, the per-tick kernel K6-kv is held against).
 
 Batch-first like the rest of the port: a reference leaf ``[NC]`` is
 ``[B, NC]`` here, ``[N, NK]`` is ``[B, N, NK]``. Every knob of
@@ -639,39 +641,43 @@ def kv_step(cfg: SimConfig, kcfg: KvConfig, ks: KvState, keys: torch.Tensor,
             kn: Knobs, kkn: KvKnobs, tick: str = "kernel", table=None,
             ktable=None) -> KvState:
     """One kv tick of every cluster: the raft tick, then the service tick,
-    routed by ``engine.tick_route``: on the card K6 (one tick) and K9, with
-    ``table`` / ``ktable`` the knob tables a caller running many ticks
-    builds once (``K6.knob_table``, ``K9.knob_table``); on the CPU, or with
-    ``tick="eager"``, ``step_cluster`` and the plain service tick."""
+    routed by ``engine.tick_route``: on the card one K6-kv launch of one
+    tick (``K9.kv_chunk``), with ``table`` / ``ktable`` the knob tables a
+    caller running many ticks builds once (``K6.knob_table``,
+    ``K9.knob_table``); on the CPU, or with ``tick="eager"``,
+    ``step_cluster`` and the plain service tick."""
     from madraft_tpu_torch.tpusim.engine import tick_route
 
+    if tick_route(ks.raft.tick.device, tick) == "kernel":
+        return K9.kv_chunk(cfg, kcfg, ks, keys, kn, kkn, 1, table, ktable)
     pre = ks.raft
-    kernel = tick_route(pre.tick.device, tick) == "kernel"
-    if kernel:
-        s = K6.tick_chunk(cfg, pre, keys, kn, 1, table)
-    else:
-        s = step_cluster(cfg, pre, keys, kn)
-    # K6 returns a new state, so the pre-tick views are the old tensors
+    s = step_cluster(cfg, pre, keys, kn)
     return K9.kv_tick(cfg, kcfg, ks, pre.alive, pre.base, pre.shadow_len, s,
-                      keys, kn, kkn, ktable, plain=not kernel)
+                      keys, kn, kkn, plain=True)
 
 
 def _advance_kv(cfg: SimConfig, kcfg: KvConfig, ks: KvState,
                 keys: torch.Tensor, kn: Knobs, kkn: KvKnobs, n_ticks: int,
                 tick: str = "kernel") -> KvState:
-    """n_ticks kv ticks, routed as ``kv_step`` says; on the card both knob
-    tables are built once here. Every kv run goes through this function,
-    so ``functools.partial(_advance_kv, tick="eager")`` in its place runs
-    a whole program on the eager route (the A/B's baseline)."""
-    from madraft_tpu_torch.tpusim.engine import tick_route
+    """n_ticks kv ticks, routed as ``kv_step`` says: on the card K6-kv
+    launches of up to ``engine.KERNEL_CHUNK`` ticks (both knob tables
+    built once here), else a ``kv_step`` a tick. Every kv run goes through
+    this function, so ``functools.partial(_advance_kv, tick="eager")`` in
+    its place runs a whole program on the eager route (the A/B's
+    baseline)."""
+    from madraft_tpu_torch.tpusim.engine import KERNEL_CHUNK, tick_route
 
-    table = ktable = None
     if tick_route(ks.raft.tick.device, tick) == "kernel":
         b = keys.shape[0]
         table = K6.knob_table(kn, b)
         ktable = K9.knob_table(kn, kkn, b)
+        for done in range(0, n_ticks, KERNEL_CHUNK):
+            ks = K9.kv_chunk(cfg, kcfg, ks, keys, kn, kkn,
+                             min(KERNEL_CHUNK, n_ticks - done), table,
+                             ktable)
+        return ks
     for _ in range(n_ticks):
-        ks = kv_step(cfg, kcfg, ks, keys, kn, kkn, tick, table, ktable)
+        ks = kv_step(cfg, kcfg, ks, keys, kn, kkn, tick)
     return ks
 
 
@@ -739,8 +745,8 @@ def kv_report(final: KvState) -> KvFuzzReport:
 
 class KvFuzzProgram:
     """``fn(seed) -> final batched KvState`` for one config and shape, the
-    ``engine.FuzzProgram`` interface (``compile_timed`` builds the kernels
-    K6's and K9's builds for the run among them, before the first tick).
+    ``engine.FuzzProgram`` interface (``compile_timed`` builds the kernels,
+    the run's K6-kv build among them, before the first tick).
     ``kn`` / ``kkn`` override the configs' knobs (the sweep's [B] rows)."""
 
     def __init__(self, cfg: SimConfig, kcfg: KvConfig, n_clusters: int,
@@ -748,6 +754,7 @@ class KvFuzzProgram:
                  kkn: Optional[KvKnobs] = None):
         from madraft_tpu_torch.tpusim.engine import (
             _validate_knobs,
+            check_card_shape,
             resolve_device,
         )
 
@@ -755,6 +762,7 @@ class KvFuzzProgram:
         self.cfg, self.kcfg = cfg, kcfg
         self.n_clusters, self.n_ticks = n_clusters, n_ticks
         self.device = resolve_device(device)
+        check_card_shape(self.device, cfg, K9, kcfg)
         self.kn = cfg.knobs(self.device) if kn is None else kn.to(self.device)
         self.kkn = (kcfg.knobs(self.device) if kkn is None
                     else kkn.to(self.device))
@@ -768,7 +776,7 @@ class KvFuzzProgram:
         if self.compile_s is None:
             self.compile_s = _build_kernels(
                 self.device, self.cfg.metrics,
-                extra=(K9.variant(self.cfg.metrics),))
+                extra=(K6.variant(self.cfg.metrics, False, kv=True),))
         return self.compile_s
 
     def __call__(self, seed) -> KvState:
@@ -853,10 +861,15 @@ def kv_replay_cluster(cfg: SimConfig, kcfg: KvConfig, seed: int,
                       cluster_id: int, n_ticks: int, device=None) -> KvState:
     """Re-run one cluster alone from its (seed, cluster_id) stream; its
     final state with a batch axis of 1."""
-    from madraft_tpu_torch.tpusim.engine import cluster_keys, resolve_device
+    from madraft_tpu_torch.tpusim.engine import (
+        check_card_shape,
+        cluster_keys,
+        resolve_device,
+    )
 
     check_service_cfg(cfg, "KV")
     dev = resolve_device(device)
+    check_card_shape(dev, cfg, K9, kcfg)
     kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
     keys = cluster_keys(seed, 1, dev, id0=int(cluster_id))
     ks = init_kv_cluster(cfg, kcfg, keys, kn)

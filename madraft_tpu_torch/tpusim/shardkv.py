@@ -1711,6 +1711,7 @@ class ShardKvFuzzProgram:
                  skn: Optional[ShardKvKnobs] = None):
         from madraft_tpu_torch.tpusim.engine import (
             _validate_knobs,
+            check_card_shape,
             resolve_device,
         )
 
@@ -1718,6 +1719,7 @@ class ShardKvFuzzProgram:
         self.cfg, self.kcfg = cfg, kcfg
         self.n_clusters, self.n_ticks = n_clusters, n_ticks
         self.device = resolve_device(device)
+        check_card_shape(self.device, cfg, K11, kcfg)
         self.kn = cfg.knobs(self.device) if kn is None else kn.to(self.device)
         self.skn = (kcfg.knobs(self.device) if skn is None
                     else skn.to(self.device))

@@ -117,12 +117,14 @@ def traced_rows(cfg: SimConfig, seed: int, cluster_id: int, n_ticks: int,
     """``replay_cluster_traced``'s run without the decode: (final state,
     the rows int32 [n_ticks, 1, W] on the run's device)."""
     from madraft_tpu_torch.tpusim.engine import (
+        check_card_shape,
         cluster_keys,
         resolve_device,
         resolve_knobs,
     )
 
     dev = resolve_device(device)
+    check_card_shape(dev, cfg)
     kn = resolve_knobs(cfg, knobs, dev)
     keys = cluster_keys(seed, 1, dev, id0=int(cluster_id))
     rows = torch.empty((int(n_ticks), 1, K8.record_width(cfg)),

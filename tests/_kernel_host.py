@@ -11,29 +11,18 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
-import shutil
-import subprocess
 
-import pytest
 import torch
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-CSRC = ROOT / "madraft_tpu_torch" / "csrc"
+import _host_build
 
 
 def _compile(source: str, out: pathlib.Path, flags=()) -> ctypes.CDLL:
-    """g++ of tests/<source> into the shared library ``out``, loaded;
-    skips the test when there is no g++."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels' device code for the host")
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", *flags, "-I", str(CSRC), "-o", str(out),
-         str(ROOT / "tests" / source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    assert proc.returncode == 0, f"g++ failed:\n{proc.stdout}"
-    return ctypes.CDLL(str(out))
+    """g++ of tests/<source> as the shared library named like ``out`` (in
+    the run's cache: built once a run, ``_host_build``), loaded; skips the
+    test when there is no g++."""
+    path = _host_build.build(out.parent, {out.stem: (source, tuple(flags))})
+    return ctypes.CDLL(str(path[out.stem]))
 
 
 def build(out_dir: pathlib.Path) -> ctypes.CDLL:

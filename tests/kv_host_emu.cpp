@@ -27,7 +27,7 @@
 extern "C" int kv_launch(const int64_t *desc, int n_desc, void *) {
   static k9::Params p;
   if (!k9::set_params(p, desc, n_desc)) return 1;
-  std::vector<int32_t> region(p.words);
+  std::vector<int32_t> region(p.L.words);
   for (int c = 0; c < p.b; ++c) {
     // shared memory starts undefined: a word the tick reads before it
     // writes it shows as a mismatch

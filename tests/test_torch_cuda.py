@@ -911,14 +911,100 @@ def test_kv_kernel_refuses_what_it_does_not_take(dev):
 def test_kv_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
     cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **KV_BASE)
     kcfg = kv.KvConfig(p_put=0.2, bug_stale_read=True)
-    launches = (K6.tick_chunk.launches, K9.kv_tick.launches)
-    got = kv.kv_fuzz(cfg, kcfg, 5, 64, 120, device=dev)
+    launches = (K6.tick_chunk.launches, K9.kv_tick.launches,
+                K9.kv_chunk.launches, K9.kv_chunk.metrics_launches)
+    got = kv.kv_fuzz(cfg, kcfg, 5, 64, 300, device=dev)
+    # K6-kv a chunk of up to 256 ticks, no K6 or K9 launch
     assert (K6.tick_chunk.launches - launches[0],
-            K9.kv_tick.launches - launches[1]) == (120, 120)
-    want = kv.kv_fuzz(cfg, kcfg, 5, 64, 120, device="cpu")
+            K9.kv_tick.launches - launches[1],
+            K9.kv_chunk.launches - launches[2],
+            K9.kv_chunk.metrics_launches - launches[3]) == (
+                0, 0, 2, 2 * metrics_on)
+    want = kv.kv_fuzz(cfg, kcfg, 5, 64, 300, device="cpu")
     for f in want._fields:
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
+
+
+# ---- K6-kv: K6 with the kv service tick after each raft tick of a chunk
+@pytest.mark.parametrize("n_nodes,kw,metrics_on,partitionable", [
+    (5, {}, False, True),
+    (5, {"p_put": 0.2}, True, True),
+    (3, {"p_put": 0.2, "bug_skip_dedup": True}, True, False),
+    (7, {"bug_apply_uncommitted": True}, False, True),
+    (5, {"bug_stale_read": True, "p_get": 0.5, "p_put": 0.2}, True, True),
+    (5, {"bug_stale_hint": True, "p_follow_hint": 0.9, "retry_wait": 3},
+     False, False),
+    (5, {"open_rate": 0.25, "zipf_a": 3.0, "open_queue_cap": 8,
+         "p_get": 0.3, "p_put": 0.2}, True, True),
+    # 32 clients and 64 keys: two clerks a lane of the 16-lane tile
+    (7, {"n_clients": 32, "n_keys": 64, "p_put": 0.2}, True, True),
+])
+def test_k6_kv_kernel_equals_plain_every_launch(dev, n_nodes, kw, metrics_on,
+                                                partitionable):
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=metrics_on, **KV_BASE)
+    kcfg = kv.KvConfig(**kw)
+    b = 1101  # a tile past the batch's end
+    with prng.layout(partitionable):
+        keys = engine.cluster_keys(7, b, dev)
+        kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
+        ks = kv.init_kv_cluster(cfg, kcfg, keys, kn)
+        ks = K9.kv_chunk(cfg, kcfg, ks, keys, kn, kkn, 32)
+        acked, done = int(ks.clerk_acked.sum()), 32
+        for m in (16, 1, 7):
+            before = (K9.kv_chunk.launches, K9.kv_chunk.metrics_launches)
+            got = K9.kv_chunk(cfg, kcfg, ks, keys, kn, kkn, m)
+            assert (K9.kv_chunk.launches, K9.kv_chunk.metrics_launches) == (
+                before[0] + 1, before[1] + int(metrics_on))
+            want = K9.kv_chunk_plain(cfg, kcfg, ks, keys, kn, kkn, m)
+            done += m
+            d = kv.first_divergence(done, kv.kv_state_to_numpy(want),
+                                    kv.kv_state_to_numpy(got))
+            assert d is None, d
+            ks = want
+    assert ks.clerk_acked.sum() > acked
+
+
+def test_k6_kv_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.SimConfig(n_nodes=5, **KV_BASE)
+    kcfg = kv.KvConfig()
+    keys = engine.cluster_keys(1, 8, dev)
+    kn, kkn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = kv.init_kv_cluster(cfg, kcfg, keys, kn)
+    before = K9.kv_chunk.launches
+    with pytest.raises(ValueError, match="clerk_key"):
+        K9.kv_chunk(cfg, kcfg, ks._replace(clerk_key=ks.clerk_key.cpu()),
+                    keys, kn, kkn, 4)
+    with pytest.raises(ValueError, match="n_clients"):
+        K9.kv_chunk(cfg, kcfg.replace(n_clients=40), ks, keys, kn, kkn, 4)
+    # the metrics build refuses a metrics-off state
+    with pytest.raises(RuntimeError, match="tick_launch"):
+        K6._launch(cfg, ks.raft, keys, kn, 4,
+                   K6._lib(K6.variant(True, False, kv=True)),
+                   torch.cuda.current_stream(dev).cuda_stream,
+                   kv=K9.Side(cfg, kcfg, ks, K9.knob_table(kn, kkn, 8)))
+    assert K9.kv_chunk.launches == before
+
+
+@pytest.mark.parametrize("verb", ["fuzz", "kv-fuzz", "ctrler-fuzz",
+                                  "shardkv-fuzz"])
+def test_shapes_past_the_kernels_limits_are_refused_on_the_card(dev, verb,
+                                                                capsys):
+    # n = 17 nodes: past every kernel's layout, so the card refuses the run
+    # before any launch, naming the limit and the CPU route (no kernel's
+    # plain version runs on the card)
+    from madraft_tpu_torch.__main__ import main
+
+    launches = (K6.tick_chunk.launches, K2.oracle.launches,
+                K9.kv_chunk.launches, K10.ctrler_tick.launches,
+                K11.shardkv_tick.launches)
+    rc = main([verb, "--nodes", "17", "--clusters", "8", "--ticks", "64"])
+    err = capsys.readouterr().err
+    assert rc == 2, err
+    assert "n <= 16" in err and "--platform cpu" in err, err
+    assert (K6.tick_chunk.launches, K2.oracle.launches,
+            K9.kv_chunk.launches, K10.ctrler_tick.launches,
+            K11.shardkv_tick.launches) == launches
 
 
 # ---- K10, the shard controller's service tick, and the ctrler path

@@ -259,7 +259,8 @@ def test_launch_marshals_the_state_and_refuses_what_it_cannot_run():
                        pcfg.RAFT_BUGS.index("no_truncate"), 0)
     assert a[16] is None and a[17] is None  # no metric leaves, no seen-set
     assert a[18] is None and a[19] == 0  # no trace rows
-    assert len(a) == 21 and a[20] is None  # the stream
+    assert a[20] is None and a[21] == 0  # no kv side (K6-kv's)
+    assert len(a) == 23 and a[22] is None  # the stream
     K6._launch(cfg, s, keys, cfg.knobs(), 3, lib, None)
     assert lib.args[15] == int(prng.partitionable())
     # the new state: every leaf a view of one fresh allocation

@@ -9,8 +9,10 @@
 // warps one after another (so a later warp's cluster stamps the coverage
 // seen-set after an earlier warp's whole chunk: the order a credit rule
 // must not depend on; a trace buffer gets each tick's row, K6-trace);
-// tick_words draws a chunk's words as the kernel does. -DMADRAFT_K6_METRICS and -DMADRAFT_K6_COVERAGE build the variants,
-// as for tick.cu:
+// tick_words draws a chunk's words as the kernel does. -DMADRAFT_K6_METRICS,
+// -DMADRAFT_K6_COVERAGE and -DMADRAFT_K6_KV build the variants, as for
+// tick.cu (K6-kv's service phases, kv.cuh, update the region with the
+// shared atomics' twins below, MADRAFT_HOST_ATOMICS):
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared
 //       -I madraft_tpu_torch/csrc -o libtick_host.so tests/tick_host_emu.cpp
@@ -28,6 +30,8 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define MADRAFT_HOST_ATOMICS
 
 namespace {
 
@@ -149,6 +153,19 @@ inline int atomicAdd(int *a, int v) {
   return std::atomic_ref<int>(*a).fetch_add(v);
 }
 
+// K6-kv's lanes or and max into words of their region
+inline int atomicOr(int *a, int v) {
+  return std::atomic_ref<int>(*a).fetch_or(v);
+}
+
+inline int atomicMax(int *a, int v) {
+  std::atomic_ref<int> r(*a);
+  int old = r.load();
+  while (v > old && !r.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+
 // the two tiles of a warp stamp the seen-set from two threads
 inline int atomicMin(int *a, int v) {
   std::atomic_ref<int> r(*a);
@@ -180,6 +197,11 @@ constexpr bool kCov = true;
 #else
 constexpr bool kCov = false;
 #endif
+#ifdef MADRAFT_K6_KV
+constexpr bool kKv = true;
+#else
+constexpr bool kKv = false;
+#endif
 
 // Each warp of TILE-lane tiles in turn, as 32 threads: tile t of warp w
 // runs body(c, active, tile, its block) on cluster c = w * (32 / TILE) + t,
@@ -209,7 +231,7 @@ void run(const k6::Params &p) {
   constexpr int kTile = k6::kTile;
   each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
                           uint8_t *cl) {
-    k6::run_cluster<N_, CAP_, AE_, kTile, false, kMet, kCov>(
+    k6::run_cluster<N_, CAP_, AE_, kTile, false, kMet, kCov, kKv>(
         p, cl, c, active, tile, nullptr);
   });
 }
@@ -236,7 +258,8 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
                            const int64_t *mptrs, const int64_t *cov,
-                           void *trace, int trace_w, void *) {
+                           void *trace, int trace_w, const int64_t *kv,
+                           int n_kv, void *) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws) return 1;
   if ((mptrs != nullptr) != kMet || (cov != nullptr) != kCov) return 1;
   if (kMet && m > k6::kMaxMetricTicks) return 1;
@@ -251,7 +274,8 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
   const int inst = k6::instance(n, cap, ae_max);
   if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
                      draws) ||
-      !k6::set_trace(p, trace, trace_w, kMet))
+      !k6::set_trace(p, trace, trace_w, kMet) ||
+      !k6::set_kv(p, kv, n_kv, partitionable, kMet, kKv))
     return 1;
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);

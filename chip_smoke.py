@@ -52,14 +52,23 @@ controller's service tick,
 and K10-metrics the same way (phase ``ctrler_k10``: n = 3, 5, 7, each
 planted controller bug, 2 and 10 gids, one and three gids an op, a
 history that fills, [B] knob rows mixing the bugs, states at mixed ticks,
-32 clients, both layouts),
+32 clients, both layouts; K10 is off the path since K6-ctrler),
+K6-ctrler and K6-metrics-ctrler, K6 with the shard controller's service
+tick after each raft tick of a chunk, against the plain route on every
+leaf after every launch (phase ``ctrler_k6ctrler``: the ctrler flagship's
+batch at tick 200 and K10's cases, with ptxas's report of both builds
+and a launch on their (5, 32) instance beside the runtime one),
 drives the kv flagship (``kv-fuzz --storm --clusters 1024 --ticks 512``,
 twice, then with ``--metrics``: K6-kv once a 256-tick chunk, no K6, K9,
 draw chunk, K2, K4 or K5, the report equal to the eager route's at the
 same depth and, over 32 ticks, to the CPU route's) and its
 eager-vs-kernel A/B (``kv_ab``), the ctrler flagship
 (``ctrler-fuzz --storm --clusters 1024 --ticks 512``, twice, then with
-``--metrics``: K6 and K10 once a tick) and its A/B (``ctrler_ab``), holds
+``--metrics``: K6-ctrler once a 256-tick chunk, no K6, K10, draw chunk,
+K2, K4 or K5, the report equal to the eager route's at the same depth
+and, over 32 ticks, to the CPU route's), the sweep's knob rows and a
+replay on K6-ctrler (``ctrler_sweep_replay``) and its A/B
+(``ctrler_ab``), holds
 K11, the shardkv service tick, and K11-metrics against their plain version
 (phase ``shardkv_k11``: the schedule mode's cases as [B] rows; phase
 ``shardkv_ctrl_k11``: the live and computed controller modes with their
@@ -78,14 +87,17 @@ the 32-bit operations over the card's integer rate (phase ``card``). K6's
 clock64() split by phase group (``k6_phases``, its profile build) and its
 time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
 split by phase (``kv_phases``, its profile build) and the kv tick's on
-K6-kv (``profile_kv_tick``), the ctrler tick's (``profile_ctrler_tick``) and the
+K6-kv (``profile_kv_tick``), the ctrler tick's on K6-ctrler
+(``profile_ctrler_tick``) and the
 shardkv tick's in each mode (``profile_shardkv_tick[_live|_computed]``);
 ``k6_metrics_phases`` gives K6-metrics' split, grid, waves and ms a launch
 at 4096 clusters and at one wave, and ptxas's report of every K6 build;
 ``k6_only()`` runs just those three K6 phases, ``--k6-leg`` one leg of
 an A/B of K6's builds between two trees, and ``--kv-leg`` one leg of an
 A/B of the kv path (K6's builds, K9, K6-kv where the tree has it, the kv
-flagships' wall a tick).
+flagships' wall a tick), ``--ctrler-leg`` one leg of an A/B of the ctrler
+path (K6's builds, K6-kv, K10, K6-ctrler where the tree has it, the
+ctrler flagships' wall a tick).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -100,6 +112,7 @@ import contextlib
 import functools
 import io
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -208,6 +221,18 @@ CTRLER_FLAGSHIP = ["ctrler-fuzz", "--storm", "--clusters", "1024", "--ticks",
 CTRLER_METRICS_FLAGSHIP = CTRLER_FLAGSHIP + ["--metrics"]
 # the ctrler flagship's eager-vs-kernel A/B: the four runs' depth
 CTRLER_AB_TICKS = 32
+# the ctrler flagship's batch on the CPU route beside K6-ctrler: its depth
+CTRLER_CPU_TICKS = 32
+# the sweep's knob rows on K6-ctrler beside the eager route: the depth (the
+# planted bugs fire by then)
+CTRLER_SWEEP_TICKS = 128
+# K6-ctrler against the plain route (phase ctrler_k6ctrler): each
+# comparison's launches (ticks; a short last one) and the cases' clusters
+# (past a whole number of two-cluster warps, as many as K10's: some
+# cases create few configs a cluster in the compared ticks); the cases
+# are K10's
+CTRLER_K6C_LAUNCHES = (16, 1, 7)
+CTRLER_K6C_CLUSTERS = 1101
 # K10 against its plain version (phase ctrler_k10): clusters, the ticks a
 # case runs on K6 and K10 first (past the first elections and configs),
 # the ticks it compares, and the cases: (name, n, ctrler config ("rows":
@@ -344,20 +369,45 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def _cupti_room() -> str:
+    """Hands the card's cached, unused memory back before a profiler
+    window, and says how much is free. CUPTI keeps its kernel records in
+    device buffers of its own; when PyTorch's caching allocator holds
+    nearly all the card's memory, as it does late in this script, CUPTI
+    loses a window's first records or all of them (``cupti_probe.py``
+    shows it on a full cache and its cure by ``empty_cache``)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free"
+
+
 def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
               attempts: int = 5) -> float:
     """Mean device milliseconds of one launch of the CUDA kernel named
     ``kernel`` (or the sum over a tuple of names, the launches of one
-    call) over iters calls of fn(i), from torch.profiler's CUPTI trace:
-    the kernels' own execution, without the host's issue time or any
-    other kernel the wrapper launches. After the script's long profiled
-    windows CUPTI drops the first records of a window that starts cold (it
-    saw 43 of a window's 50 K11 launches, and 3 of 5 K6-kv launches, five
-    windows in a row), so each window opens, as ``_profiled``'s do, with a
-    warm-up step (the warmup calls; nothing they launch is kept) and
-    SPIN_KERNELS short spin kernels before the timed calls (the records
-    CUPTI drops, if any, are theirs), and a window that still saw few or
-    none of them is measured again, up to ``attempts`` times."""
+    call) over the calls of fn(i) it recorded, at least iters of them,
+    from torch.profiler's CUPTI trace: the kernels' own execution, without
+    the host's issue time or any other kernel the wrapper launches. Late
+    in a long process CUPTI loses the records of a window's first timed
+    launches (43 of a window's 50 K11 launches seen, 3 of 5 K6-kv, 7 of 10
+    K6-trace, 41 of 50 credit-pass launches, five windows in a row; in
+    one window the 6 of 10 K6-trace launches it kept were the last six,
+    after 150 ms of spin kernels and a sync), so each window opens, as
+    ``_profiled``'s do, with a warm-up step (the warmup calls; nothing they
+    launch is kept) and spin kernels (``_spins``), then makes iters //
+    2 + 2 more calls than iters, all timed, and closes with spin kernels;
+    a window that recorded fewer than iters launches is measured again,
+    up to ``attempts`` times, each with twice the previous window's timed
+    calls, since the loss takes a window's first launches and not its
+    last (K6-metrics' 256-tick launch, 4.4 ms: the first 5 of 9 lost, the
+    last 4 kept, five windows in a row); a failure names the recorded
+    launches' start times from the window's first event and the card's
+    free memory before it. Each window starts with ``_cupti_room``."""
     import re
 
     import torch
@@ -368,17 +418,18 @@ def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
         if attempt:
             time.sleep(0.5)  # CUPTI's buffers come back asynchronously
         torch.cuda.synchronize()
+        room = _cupti_room()
         with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
                 wait=0, warmup=1, active=1, repeat=1)) as prof:
             for i in range(warmup):
                 fn(i)
             torch.cuda.synchronize()
             prof.step()
-            for _ in range(SPIN_KERNELS):
-                torch.cuda._sleep(1000)
+            _spins()
             torch.cuda.synchronize()
-            for i in range(iters):
+            for i in range((iters + iters // 2 + 2) << attempt):
                 fn(i)
+            _spins()
             torch.cuda.synchronize()
             prof.step()
         avgs = prof.key_averages()
@@ -388,16 +439,31 @@ def device_ms(fn, kernel, iters: int = 50, warmup: int = 3,
             hits = [e for e in avgs if name.search(e.key)]
             seen[k] = (sum(e.count for e in hits),
                        sum(_dev_us(e) for e in hits))
-        # CUPTI may drop an activity record now and then; the mean is over
-        # the launches it recorded
-        if all(n >= iters * 9 // 10 and us > 0 for n, us in seen.values()):
+        # the mean is over the launches CUPTI recorded, iters at least
+        if all(n >= iters and us > 0 for n, us in seen.values()):
             return sum(us / n for n, us in seen.values()) / 1e3
-    check(False, f"profiler saw {seen} launches of {names} over {iters} "
-          f"calls in {attempts} windows: {[e.key[:80] for e in avgs][:12]}")
+    events = prof.events()
+    t0 = min((e.time_range.start for e in events), default=0)
+    starts = [round((e.time_range.start - t0) / 1e3, 3) for e in events
+              if any(k in e.name for k in names)]
+    check(False, f"profiler saw {seen} launches of {names}, {iters} wanted, "
+          f"in {attempts} windows: {[e.key[:80] for e in avgs][:12]}; "
+          f"the last window's launches start at {starts} ms; {room} before "
+          f"it")
 
 
-# spin kernels that open each device_ms window, ahead of the timed calls
+# spin kernels that open and close each device_ms window, around the
+# timed calls: SPIN_KERNELS short ones and one of about SPIN_LONG_MS
 SPIN_KERNELS = 16
+SPIN_LONG_MS = 20
+
+
+def _spins() -> None:
+    import torch
+
+    for _ in range(SPIN_KERNELS):
+        torch.cuda._sleep(1000)
+    torch.cuda._sleep(int(SPIN_LONG_MS * 2e6))  # cycles, at about 2 GHz
 
 
 def rotations(nbytes_in: int) -> int:
@@ -474,6 +540,10 @@ def counters():
                                 "metrics_launches"),
            "ctrler_tick": (K10.ctrler_tick, "launches"),
            "ctrler_tick_metrics": (K10.ctrler_tick, "metrics_launches"),
+           # K6-ctrler's (absent from an older tree: ctrler_leg's parent)
+           "ctrler_chunk": (getattr(K10, "ctrler_chunk", None), "launches"),
+           "ctrler_chunk_metrics": (getattr(K10, "ctrler_chunk", None),
+                                    "metrics_launches"),
            "shardkv_tick": (K11.shardkv_tick, "launches"),
            "shardkv_tick_metrics": (K11.shardkv_tick, "metrics_launches"),
            "shardkv_tick_live": (K11.shardkv_tick, "live_launches"),
@@ -1526,9 +1596,11 @@ def main() -> int:
     kv_launches, kv_launches_m = _kv_path(dev)
 
     # ---- 6l. the ctrler path: K10 and K10-metrics against the plain
-    # service tick, then the ctrler flagships through the CLI (K6 and K10
-    # once a tick) and the eager-vs-kernel A/B
+    # service tick, K6-ctrler and K6-metrics-ctrler against the plain
+    # route, then the ctrler flagships through the CLI (K6-ctrler once a
+    # chunk), the sweep rows, a replay and the eager-vs-kernel A/B
     emit(_ctrler_k10(dev, errs))
+    emit(_ctrler_k6ctrler(dev, errs))
     ctrler_launches, ctrler_launches_m = _ctrler_path(dev)
 
     # ---- 6m. the shardkv path: K11 and K11-metrics against the plain
@@ -1985,9 +2057,11 @@ def main() -> int:
     kv_timing, kv_bytes = _kv_timing(dev)
     timing.update(kv_timing)
     timing.update(_k6kv_timing(dev))
-    # K10 and K10-metrics at the ctrler flagship's shape
+    # K10 and K10-metrics at the ctrler flagship's shape, and K6-ctrler and
+    # K6-metrics-ctrler a 256-tick chunk there
     ctrler_timing, ctrler_bytes = _ctrler_timing(dev)
     timing.update(ctrler_timing)
+    timing.update(_k6ctrler_timing(dev))
     # K6 one tick a launch at explain's shape, as the traced replay runs it
     k6_one_tick_ms = device_ms(
         lambda i: K6.tick_chunk(k8_cfg, k8_prev, k8_keys, k8_kn, 1),
@@ -2051,6 +2125,7 @@ def main() -> int:
     emit(_profile_kv_tick(dev, False))
     emit(_profile_kv_tick(dev, True))
     emit(_profile_ctrler_tick(dev, False))
+    emit(_profile_ctrler_tick(dev, True))
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, EAGER_PROFILE_TICKS, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
@@ -2145,6 +2220,11 @@ def main() -> int:
         "ctrler_tick_metrics": ("K10-metrics",
                                 "madraft_tpu_torch/csrc/ctrler.cu",
                                 "madraft_tpu/tpusim/ctrler.py:750"),
+        "ctrler_chunk": ("K6-ctrler", "madraft_tpu_torch/csrc/tick.cu",
+                         "madraft_tpu/tpusim/ctrler.py:576"),
+        "ctrler_chunk_metrics": ("K6-metrics-ctrler",
+                                 "madraft_tpu_torch/csrc/tick.cu",
+                                 "madraft_tpu/tpusim/ctrler.py:576"),
         "shardkv_tick": ("K11", "madraft_tpu_torch/csrc/shardkv.cu",
                          "madraft_tpu/tpusim/shardkv.py:907"),
         "shardkv_tick_metrics": ("K11-metrics",
@@ -2191,7 +2271,11 @@ def main() -> int:
     launches["kv_chunk_metrics"] = kv_launches_m["kv_chunk_metrics"]
     launches["kv_tick"] = kv_launches["kv_tick"]
     launches["kv_tick_metrics"] = kv_launches_m["kv_tick_metrics"]
-    # K10's from the ctrler flagship, K10-metrics' from its metrics run
+    # K6-ctrler's from the ctrler flagship, K6-metrics-ctrler's from its
+    # metrics run; K10's there too (0: off the path since K6-ctrler)
+    launches["ctrler_chunk"] = ctrler_launches["ctrler_chunk"]
+    launches["ctrler_chunk_metrics"] = ctrler_launches_m[
+        "ctrler_chunk_metrics"]
     launches["ctrler_tick"] = ctrler_launches["ctrler_tick"]
     launches["ctrler_tick_metrics"] = ctrler_launches_m["ctrler_tick_metrics"]
     # K11's from the shardkv flagship, K11-metrics' from its metrics run
@@ -2506,12 +2590,78 @@ def kv_leg(label: str, tree: str = "") -> int:
     return 0
 
 
+def ctrler_leg(label: str, tree: str = "") -> int:
+    """One leg of an A/B of the ctrler path between two trees in one call:
+    the madraft_tpu_torch package of ``tree`` (a ``git archive`` of another
+    commit; this checkout's when empty), its kernels built into its own
+    build directory, measured by ``k6_timing`` (K6, K6-metrics,
+    K6-coverage), by ``_k6kv_timing`` (K6-kv a chunk, without its plain
+    version), by ``_ctrler_timing`` (K10 and K10-metrics a tick), by
+    ``_k6ctrler_timing`` where the tree has K6-ctrler (without its plain
+    version), and by the ctrler flagships' wall a tick and
+    cluster-steps/s (1024 x 512 from a warm process, two runs each,
+    metrics off and on); prints one JSON line. Run in turns, for example
+    parent, change, change, parent:
+
+        python3 chip_smoke.py --ctrler-leg parent _proof/parent
+        python3 chip_smoke.py --ctrler-leg change
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    if tree:
+        sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import madraft_tpu_torch
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import ctrler as K10
+
+    root = pathlib.Path(tree).resolve() if tree else ROOT
+    check(pathlib.Path(madraft_tpu_torch.__file__).is_relative_to(root),
+          f"ctrler_leg measures {madraft_tpu_torch.__file__}, not {root}")
+    for k, (fn, a) in counters().items():  # an older tree's lack some
+        if not hasattr(fn, a):
+            setattr(fn, a, 0)
+    k6ctrler = hasattr(K10, "ctrler_chunk")
+    _build.build_all(_build.SOURCES + (
+        "tick_metrics", "tick_coverage", "tick_kv", "tick_metrics_kv",
+        _build.CTRLER, "ctrler_metrics") + (
+        ("tick_ctrler", "tick_metrics_ctrler") if k6ctrler else ()))
+    dev = torch.device("cuda")
+    out = {"leg": label, "card": _smi(), "k6": k6_timing(dev),
+           "k6kv": {k: v[:2] for k, v in _k6kv_timing(
+               dev, plain=False).items()},
+           "k10": {k: v[:3] for k, v in _ctrler_timing(dev)[0].items()},
+           "k6ctrler": ({k: v[:2] for k, v in _k6ctrler_timing(
+               dev, plain=False).items()} if k6ctrler else None),
+           "flagships": {}}
+    ticks = _flag(CTRLER_FLAGSHIP, "--ticks")
+    run_cli(CTRLER_FLAGSHIP[:2] + ["--clusters", "1024", "--ticks", "16"])
+    for name, argv in (("ctrler", CTRLER_FLAGSHIP[:-1]),
+                       ("ctrler_metrics",
+                        CTRLER_FLAGSHIP[:-1] + ["--metrics"])):
+        rows = []
+        for _ in range(2):
+            rc, rep = run_cli(argv)
+            check(rc == 0 and rep["violating"] == 0,
+                  f"{name} flagship rc {rc}")
+            tele = rep["telemetry"]
+            rows.append({"wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+                         "steps_per_sec": tele["steps_per_sec"]})
+        out["flagships"][name] = rows
+    emit(out)
+    return 0
+
+
 # K6's builds (_build.VARIANTS): the kernel, its metrics, coverage and
 # metrics-coverage variants, the profile instances of K6, K6-metrics and
-# K6-coverage, and K6-kv and K6-metrics-kv
+# K6-coverage, K6-kv and K6-metrics-kv, and K6-ctrler and
+# K6-metrics-ctrler
 K6_BUILDS = ("tick", "tick_metrics", "tick_coverage", "tick_metrics_coverage",
              "tick_profile", "tick_metrics_profile", "tick_coverage_profile",
-             "tick_kv", "tick_metrics_kv")
+             "tick_kv", "tick_metrics_kv", "tick_ctrler",
+             "tick_metrics_ctrler")
 # SASS opcode classes for _k6_sass: the 32-bit integer pipe's, the FMA
 # pipe's (IMAD and the float ops), memory, warp collectives, control
 SASS_CLASSES = {
@@ -3164,12 +3314,14 @@ def _profiled(run, arm=None, cpu: bool = True, attempts: int = 5,
     (after the script's earlier windows it dropped a harvest's first
     kernel in ten windows of ten), so each window opens with a warm-up
     step (``arm()``, which sets run()'s inputs up; nothing it launches is
-    kept) and a spin kernel before run() (both left out of the result,
-    with the step's own annotation), and an attempt that saw nothing, or
+    kept) and spin kernels before and after run() (``_spins``: all left
+    out of the result, with the step's own annotation), and an attempt
+    that saw nothing, or
     missed one of the device operations named in ``expect`` (a tuple of
     names, or a mapping of a name to the exact count of its records the
     window must hold), is made again; after the last one a missing name,
-    or a record count other than its mapping's, fails the check."""
+    or a record count other than its mapping's, fails the check. Each
+    window starts with ``_cupti_room``."""
     import re
 
     import torch
@@ -3187,18 +3339,21 @@ def _profiled(run, arm=None, cpu: bool = True, attempts: int = 5,
     for attempt in range(1, attempts + 1):
         if attempt > 1:
             time.sleep(0.5)  # CUPTI's buffers come back asynchronously
+        room = _cupti_room()
         with profile(activities=acts, schedule=schedule(
                 wait=0, warmup=1, active=1, repeat=1)) as prof:
             if arm is not None:
                 arm()
             torch.cuda.synchronize()
             prof.step()
-            torch.cuda._sleep(1000)
+            _spins()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            _spins()  # outside the wall, as the first ones (device_ms)
+            torch.cuda.synchronize()
             prof.step()
         avgs = [e for e in prof.key_averages() if "spin_kernel" not in e.key
                 and not e.key.startswith("ProfilerStep")]
@@ -3208,7 +3363,8 @@ def _profiled(run, arm=None, cpu: bool = True, attempts: int = 5,
         if kernels and not missing:
             break
     check(not missing, f"the profiler missed {missing} (want {want}) in "
-          f"{attempts} windows: {[(e.key[:80], e.count) for e in kernels]}")
+          f"{attempts} windows: {[(e.key[:80], e.count) for e in kernels]}; "
+          f"{room} before the last")
     return out, kernels, wall_ms, avgs, attempt
 
 
@@ -3962,10 +4118,10 @@ def _kv_timing(dev) -> tuple:
     return out, counted
 
 
-def _k6kv_timing(dev) -> dict:
+def _k6kv_timing(dev, plain: bool = True) -> dict:
     """K6-kv's and K6-metrics-kv's times at the kv flagship's shape, one
     KERNEL_CHUNK-tick launch from tick 200: name -> (device ms, call ms,
-    plain ms, bytes, operations). The bytes: K6's state (the metric leaves
+    plain ms (None without ``plain``), bytes, operations). The bytes: K6's state (the metric leaves
     with metrics) and the kv state's service leaves read and written once,
     the keys and both knob tables read once, and the log_val slots the
     apply rounds read (this run's count, from the plain version's ticks,
@@ -3995,7 +4151,7 @@ def _k6kv_timing(dev) -> dict:
         # the plain version, its apply rounds counted on the device
         rounds = torch.zeros((), dtype=torch.int64, device=dev)
 
-        def plain(i):
+        def run_plain(i):
             k = ks
             for _ in range(m):
                 pre = k.raft
@@ -4014,7 +4170,8 @@ def _k6kv_timing(dev) -> dict:
                        + 57 * OPS_PER_HASH + 8 * cap
                        + kcfg.n_clients * cap * 2
                        + 30 * n * kcfg.apply_max)
-        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        plain_ms = (cuda_ms(run_plain, iters=1, warmup=0) if plain
+                    else None)
         nb = (2 * nbytes(*raft, *ks[1:]) + nbytes(keys, *table, *ktable)
               + 4 * int(rounds))
         out[name] = (device_ms(call, "tick_chunk_kernel", iters=10, warmup=1),
@@ -4109,6 +4266,39 @@ def _ctrler_cli_cfg(metrics: bool = False):
     return cfg, ctrler.CtrlerConfig(p_query=0.3, p_move=0.1)
 
 
+def _ctrler_case(dev, b: int, name: str, n: int, kw, metrics_on: bool):
+    """One of CTRLER_K10_CASES set up on the card, under the caller's
+    threefry layout: (cfg, kcfg, keys, kn, ckn, the state CTRLER_K10_WARM
+    ticks in; for ``storm_mixed_ticks`` two halves at ticks 31 and 97, a
+    pool's lanes)."""
+    import torch
+
+    from madraft_tpu_torch.tpusim import ctrler, engine
+
+    cfg, _ = _ctrler_cli_cfg(metrics_on)
+    cfg = cfg.replace(n_nodes=n)
+    kcfg = ctrler.CtrlerConfig(**({} if kw == "rows" else kw))
+    keys = engine.cluster_keys(11, b, dev)
+    kn = cfg.knobs(dev)
+    ckn = (ctrler_knob_rows(kcfg, b).to(dev) if kw == "rows"
+           else kcfg.knobs(dev))
+    ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+    if name != "storm_mixed_ticks":
+        ks = ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn,
+                                    CTRLER_K10_WARM)
+        return cfg, kcfg, keys, kn, ckn, ks
+    h = b // 2
+    ks = ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn, 31)
+    tail = ctrler._advance_ctrler(
+        cfg, kcfg, ctrler.init_ctrler_cluster(cfg, kcfg, keys[h:], kn),
+        keys[h:], kn, ckn, 97)
+    ks = ctrler.CtrlerState(*(
+        type(x)(*(torch.cat([p[:h], q]) for p, q in zip(x, y)))
+        if isinstance(x, tuple) else torch.cat([x[:h], y])
+        for x, y in zip(ks, tail)))
+    return cfg, kcfg, keys, kn, ckn, ks
+
+
 def _ctrler_k10(dev, errs: dict) -> dict:
     """Phase ctrler_k10: K10 and K10-metrics against the plain service
     tick on the card, every leaf after every one of CTRLER_K10_TICKS ticks
@@ -4117,40 +4307,17 @@ def _ctrler_k10(dev, errs: dict) -> dict:
     cases of CTRLER_K10_CASES, each creating configs and completing
     Queries in the compared ticks. Launches here are not main-path
     launches."""
-    import torch
-
     from madraft_tpu_torch.kernels import ctrler as K10
     from madraft_tpu_torch.kernels import tick as K6
-    from madraft_tpu_torch.tpusim import ctrler, engine, prng
+    from madraft_tpu_torch.tpusim import ctrler, prng
 
     counts = read_counts()
     b = CTRLER_K10_CLUSTERS
     done = []
     for name, n, kw, metrics_on, flag in CTRLER_K10_CASES:
-        cfg, _ = _ctrler_cli_cfg(metrics_on)
-        cfg = cfg.replace(n_nodes=n)
-        kcfg = ctrler.CtrlerConfig(**({} if kw == "rows" else kw))
         with prng.layout(flag):
-            keys = engine.cluster_keys(11, b, dev)
-            kn = cfg.knobs(dev)
-            ckn = (ctrler_knob_rows(kcfg, b).to(dev) if kw == "rows"
-                   else kcfg.knobs(dev))
-            ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
-            if name != "storm_mixed_ticks":
-                ks = ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn,
-                                            CTRLER_K10_WARM)
-            else:
-                # two halves run to different ticks (a pool's lanes)
-                h = b // 2
-                ks = ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn, 31)
-                tail = ctrler._advance_ctrler(
-                    cfg, kcfg,
-                    ctrler.init_ctrler_cluster(cfg, kcfg, keys[h:], kn),
-                    keys[h:], kn, ckn, 97)
-                ks = ctrler.CtrlerState(*(
-                    type(x)(*(torch.cat([p[:h], q]) for p, q in zip(x, y)))
-                    if isinstance(x, tuple) else torch.cat([x[:h], y])
-                    for x, y in zip(ks, tail)))
+            cfg, kcfg, keys, kn, ckn, ks = _ctrler_case(dev, b, name, n, kw,
+                                                        metrics_on)
             table = K10.knob_table(kn, ckn, b)
             err = 0.0
             start = [int(x.sum()) for x in (ks.clerk_acked, ks.w_cfg_num,
@@ -4187,11 +4354,124 @@ def _ctrler_k10(dev, errs: dict) -> dict:
                                errs["ctrler_tick_metrics"])}
 
 
+def _ctrler_k6ctrler(dev, errs: dict) -> dict:
+    """Phase ctrler_k6ctrler: K6-ctrler and K6-metrics-ctrler against the
+    plain route (``step_cluster``, then the plain service tick) on the
+    card, every leaf after every launch of CTRLER_K6C_LAUNCHES ticks (the
+    last a short one): the ctrler flagship's batch at tick 200 in both
+    builds, then K10's cases (CTRLER_K10_CASES, CTRLER_K6C_CLUSTERS
+    clusters, a tile past the batch's end) from CTRLER_K10_WARM ticks in
+    on K6-ctrler, each acking ops, creating configs and completing Queries
+    in the compared ticks; then ptxas's report of both builds, and a
+    256-tick launch of the flagship's batch on the builds' (5, 32)
+    instance beside one on the runtime instance (``ae_max`` one past
+    ``K6.SHAPE_AE``) and, on the (5, 32) instance, one with no walker step
+    (``walk_max`` 0) and one with no apply round (``apply_max`` 0): an
+    ablation estimate of the truth walker's and the apply rounds' shares
+    of a launch (not the same run: without the walker no Query acks,
+    without the rounds no config is made). Launches here are not main-path
+    launches."""
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import ctrler as K10
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import engine, prng
+
+    counts = read_counts()
+
+    def totals(ks):
+        return [int(x.sum()) for x in (ks.clerk_acked, ks.w_cfg_num,
+                                       ks.queries_done)]
+
+    def compare(cfg, kcfg, ks, keys, kn, ckn):
+        err, start = 0.0, totals(ks)
+        for m in CTRLER_K6C_LAUNCHES:
+            got = K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, m)
+            want = K10.ctrler_chunk_plain(cfg, kcfg, ks, keys, kn, ckn, m)
+            err = max(err, _kv_err(got, want))
+            ks = want
+        return err, [x - x0 for x, x0 in zip(totals(ks), start)], ks
+
+    done = []
+    prng.set_partitionable(True)
+    for metrics_on in (False, True):
+        cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, metrics_on)
+        err, (acked, configs, queries), ks = compare(cfg, kcfg, ks, keys, kn,
+                                                      ckn)
+        key = "ctrler_chunk_metrics" if metrics_on else "ctrler_chunk"
+        errs[key] = max(errs[key], err)
+        check(err == 0 and acked > 0,
+              f"K6-ctrler (metrics {metrics_on}) at the flagship's batch: "
+              f"err {err}, {acked} ops acked")
+        done.append({"case": "flagship_tick_200", "clusters": int(
+            keys.shape[0]), "metrics": metrics_on, "acked": acked,
+            "configs": configs, "queries": queries})
+    b = CTRLER_K6C_CLUSTERS
+    for name, n, kw, metrics_on, flag in CTRLER_K10_CASES:
+        with prng.layout(flag):
+            cfg, kcfg, keys, kn, ckn, ks = _ctrler_case(dev, b, name, n, kw,
+                                                        metrics_on)
+            err, (acked, configs, queries), ks = compare(cfg, kcfg, ks, keys,
+                                                          kn, ckn)
+        key = "ctrler_chunk_metrics" if metrics_on else "ctrler_chunk"
+        errs[key] = max(errs[key], err)
+        check(err == 0, f"K6-ctrler differs from the plain route: case {name}")
+        check(acked > 0 and configs > 0 and queries > 0,
+              f"ctrler_k6ctrler case {name}: in its compared ticks {acked} "
+              f"acks, {configs} configs, {queries} Queries")
+        done.append({"case": name, "n_nodes": n, "metrics": metrics_on,
+                     "partitionable": flag,
+                     "instance": K6.instance(cfg, ctrler=True),
+                     "violating": int((ks.raft.violations != 0).sum()),
+                     "configs_in_compared_ticks": configs,
+                     "queries_in_compared_ticks": queries,
+                     "installs": int(ks.raft.snap_install_count.sum())})
+    prng.set_partitionable(True)
+    ptxas = {name: _build.ptxas(name) for name in ("tick_ctrler",
+                                                   "tick_metrics_ctrler")}
+    # the flagship's batch from tick 200: a 256-tick launch on the (5, 32)
+    # instance and on the runtime one
+    cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, False)
+    table = K6.knob_table(kn, int(keys.shape[0]))
+    ctable = K10.knob_table(kn, ckn, int(keys.shape[0]))
+    m = engine.KERNEL_CHUNK
+    rcfg = cfg.replace(ae_max=K6.SHAPE_AE + 1)
+    instances = {}
+    for label, c, kc in (("instance_5x32", cfg, kcfg),
+                         ("runtime", rcfg, kcfg),
+                         ("walk_max_0", cfg, kcfg.replace(walk_max=0)),
+                         ("apply_max_0", cfg, kcfg.replace(apply_max=0))):
+        instances[label] = {
+            "instance": K6.instance(c, ctrler=True),
+            "ms": device_ms(lambda i, c=c, kc=kc: K10.ctrler_chunk(
+                c, kc, ks, keys, kn, ckn, m, table, ctable),
+                "tick_chunk_kernel", iters=5, warmup=1)}
+    full = instances["instance_5x32"]["ms"]
+    for label in ("walk_max_0", "apply_max_0"):
+        instances[label]["share_estimate"] = 1 - instances[label]["ms"] / full
+    set_counts(counts)
+    return {"phase": "ctrler_k6ctrler", "card": _smi(),
+            "launches": list(CTRLER_K6C_LAUNCHES), "clusters": b,
+            "cases": done, "ptxas": ptxas,
+            "spills": {k: r["spills"] for k, r in ptxas.items()
+                       if r["spills"]},
+            "flagship_launch_256_ticks": instances,
+            "max_abs_err": max(errs["ctrler_chunk"],
+                               errs["ctrler_chunk_metrics"])}
+
+
 def _ctrler_path(dev) -> tuple:
     """The ctrler main path through the CLI: the ctrler flagship twice
-    (--check-deterministic), then with --metrics; the eager-vs-kernel A/B
-    at CTRLER_AB_TICKS ticks. Returns (the flagship's launches, the
-    metrics flagship's)."""
+    (--check-deterministic), then with --metrics, each on K6-ctrler alone
+    (launches of up to KERNEL_CHUNK ticks, no K6 or K10 launch); the
+    flagship's report beside the eager route's on the card at the same
+    depth (the plain service tick after the eager raft tick: about a
+    minute, so the metrics flagship's is held to the CPU route's below and
+    K6-metrics-ctrler to its plain version in ctrler_k6ctrler); the CPU
+    route's report
+    at the flagship's batch over CTRLER_CPU_TICKS ticks beside the
+    card's; the sweep's [B] knob rows and ``ctrler_replay_cluster`` on
+    K6-ctrler; the eager-vs-kernel A/B at CTRLER_AB_TICKS ticks. Returns
+    (the flagship's launches, the metrics flagship's)."""
     from madraft_tpu_torch.kernels import tick as K6
     from madraft_tpu_torch.tpusim import ctrler, engine, prng
 
@@ -4199,8 +4479,9 @@ def _ctrler_path(dev) -> tuple:
     ticks = _flag(CTRLER_FLAGSHIP, "--ticks")
     b = _flag(CTRLER_FLAGSHIP, "--clusters")
     eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
-                 "latency_fold", "seen_update", "kv_tick", "harvest",
-                 "record")
+                 "latency_fold", "seen_update", "kv_tick", "kv_chunk",
+                 "harvest", "record", "tick_chunk", "ctrler_tick")
+    advance = ctrler._advance_ctrler  # every ctrler run's ticks go through it
     runs = {}
     for label, argv in (("ctrler_flagship", CTRLER_FLAGSHIP),
                         ("ctrler_metrics_flagship", CTRLER_METRICS_FLAGSHIP)):
@@ -4210,7 +4491,7 @@ def _ctrler_path(dev) -> tuple:
         rc, out = run_cli(argv)
         wall = time.perf_counter() - t0
         ran = read_counts()
-        want = ticks * FLAGSHIP_RUNS
+        want = -(-ticks // engine.KERNEL_CHUNK) * FLAGSHIP_RUNS
         check(rc == 0 and out["violating"] == 0
               and out.get("deterministic") is True
               and out["acked_ops_mean"] > 0
@@ -4218,12 +4499,28 @@ def _ctrler_path(dev) -> tuple:
               and out["queries_done_mean"] > 0
               and out["walker_stalled_mean"] == 0,
               f"{label} rc {rc}: {out}")
-        check(ran["tick_chunk"] == ran["ctrler_tick"] == want
-              and ran["tick_chunk_metrics"] == want * metrics_on
-              and ran["ctrler_tick_metrics"] == want * metrics_on
+        check(ran["ctrler_chunk"] == want
+              and ran["ctrler_chunk_metrics"] == want * metrics_on
               and all(ran[k] == 0 for k in eager_off),
-              f"{label} launches {ran}: want K6 and K10 once a tick "
-              f"({want}), no draw chunk, K2, K4, K5 or K9 launch")
+              f"{label} launches {ran}: want K6-ctrler once a "
+              f"{engine.KERNEL_CHUNK}-tick chunk ({want}), no K6, K10, draw "
+              "chunk, K2, K4, K5 or K9 launch")
+        eager = {}
+        if not metrics_on:
+            # the eager route on the card at the flagship's depth: the same
+            # report
+            ctrler._advance_ctrler = functools.partial(advance, tick="eager")
+            try:
+                rc_e, out_e = run_cli([x for x in argv
+                                       if x != "--check-deterministic"])
+            finally:
+                ctrler._advance_ctrler = advance
+            check(rc_e == 0 and _report_fields(out_e) == _report_fields(out),
+                  f"{label}: the eager route's report differs from "
+                  "K6-ctrler's")
+            eager = {"eager_route_report_equal": True,
+                     "eager_route_wall_ms_per_tick": out_e["telemetry"][
+                         "execute_s"] / ticks * 1e3}
         tele = out["telemetry"]
         row = {"phase": label, "argv": argv, "rc": rc,
                "cluster_steps_per_s": tele["steps_per_sec"],
@@ -4232,10 +4529,11 @@ def _ctrler_path(dev) -> tuple:
                "wall_s_both_runs": round(wall, 3),
                "compile_s": tele["compile_s"],
                "bytes_per_lane": tele["bytes_per_lane"],
-               "tick_instance": K6.instance(_ctrler_cli_cfg()[0]),
+               "tick_instance": K6.instance(_ctrler_cli_cfg()[0],
+                                            ctrler=True),
                "acked_ops_mean": out["acked_ops_mean"],
                "configs_created_mean": out["configs_created_mean"],
-               "queries_done_mean": out["queries_done_mean"],
+               "queries_done_mean": out["queries_done_mean"], **eager,
                "launches": {k: v for k, v in ran.items() if v}}
         if metrics_on:
             lat = out["latency"]
@@ -4253,11 +4551,78 @@ def _ctrler_path(dev) -> tuple:
         emit(row)
         runs[label] = ran
 
-    # the A/B: the flagship's shape at CTRLER_AB_TICKS ticks, eager (the
-    # eager tick, the plain service tick) and kernel (K6 and K10) in turns
+    # the CPU route at the flagship's batch, CTRLER_CPU_TICKS ticks, beside
+    # the card's K6-ctrler
+    cpu = {}
+    for metrics_on in (False, True):
+        argv = CTRLER_FLAGSHIP[:2] + ["--clusters", str(b), "--ticks",
+                                      str(CTRLER_CPU_TICKS), "--seed",
+                                      "12345"] + ["--metrics"] * metrics_on
+        set_counts()
+        rc_k, out_k = run_cli(argv)
+        ran = read_counts()
+        t0 = time.perf_counter()
+        rc_c, out_c = run_cli(argv + ["--platform", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        check(rc_k == rc_c == 0 and ran["ctrler_chunk"] == 1
+              and _report_fields(out_k) == _report_fields(out_c),
+              f"ctrler at {b} x {CTRLER_CPU_TICKS} (metrics {metrics_on}): "
+              f"the CPU route's report differs from K6-ctrler's ({ran})")
+        cpu["metrics" if metrics_on else "plain"] = {
+            "report_equal": True, "cpu_route_s": round(cpu_s, 3),
+            "acked_ops_mean": out_c["acked_ops_mean"]}
+    emit({"phase": "ctrler_cpu_route", "clusters": b,
+          "ticks": CTRLER_CPU_TICKS, **cpu})
+
+    # the sweep's [B] knob rows (the three bugs mixed) on K6-ctrler beside
+    # the eager route, and a cluster's replay beside its row of the batch
     cfg, kcfg = _ctrler_cli_cfg()
+    rows = ctrler_knob_rows(kcfg, b)
+    sweep = {}
+    for route in ("kernel", "eager"):
+        set_counts()
+        ctrler._advance_ctrler = functools.partial(advance, tick=route)
+        try:
+            fn = ctrler.make_ctrler_sweep_fn(cfg, cfg.knobs(), rows, kcfg, b,
+                                             CTRLER_SWEEP_TICKS, dev)
+            sweep[route] = (ctrler.ctrler_report(fn(12345)), read_counts())
+        finally:
+            ctrler._advance_ctrler = advance
+    from madraft_tpu_torch.__main__ import _reports_equal
+
+    ran = sweep["kernel"][1]
+    check(ran["ctrler_chunk"] == 1
+          and all(ran[k] == 0 for k in eager_off)
+          and _reports_equal(sweep["kernel"][0], sweep["eager"][0])
+          and sweep["kernel"][0].n_violating > 0,
+          f"ctrler sweep rows: launches {ran}, the eager route's report "
+          "differs, or no planted bug fired")
+    replay_ticks, cid = 300, 7
+    set_counts()
+    batch = ctrler.make_ctrler_fuzz_fn(cfg, kcfg, b, replay_ticks, dev)(12345)
+    one = ctrler.ctrler_replay_cluster(cfg, kcfg, 12345, cid, replay_ticks,
+                                       device=dev)
+    ran = read_counts()
+    want = 2 * -(-replay_ticks // engine.KERNEL_CHUNK)
+    err = max(max_abs_err(x[cid:cid + 1], y)
+              for x, y in zip(_kv_leaves(batch), _kv_leaves(one)))
+    check(ran["ctrler_chunk"] == want and all(ran[k] == 0 for k in eager_off)
+          and err == 0,
+          f"ctrler replay of cluster {cid}: launches {ran} (want {want} "
+          f"K6-ctrler), err {err} against the batch's row")
+    emit({"phase": "ctrler_sweep_replay", "clusters": b,
+          "sweep_ticks": CTRLER_SWEEP_TICKS,
+          "sweep_violating": sweep["kernel"][0].n_violating,
+          "sweep_eager_report_equal": True,
+          "sweep_launches": {k: v for k, v in sweep["kernel"][1].items()
+                             if v},
+          "replay_cluster": cid, "replay_ticks": replay_ticks,
+          "replay_launches": {k: v for k, v in ran.items() if v},
+          "replay_max_abs_err": err})
+
+    # the A/B: the flagship's shape at CTRLER_AB_TICKS ticks, eager (the
+    # eager tick, the plain service tick) and kernel (K6-ctrler) in turns
     ab, reps = [], []
-    advance = ctrler._advance_ctrler  # every ctrler run's ticks go through it
     for route in ("eager", "kernel", "kernel", "eager"):
         set_counts()
         ctrler._advance_ctrler = functools.partial(advance, tick=route)
@@ -4269,8 +4634,8 @@ def _ctrler_path(dev) -> tuple:
             ctrler._advance_ctrler = advance
         ran = read_counts()
         kernel = route == "kernel"
-        check((ran["tick_chunk"] == ran["ctrler_tick"]
-               == CTRLER_AB_TICKS * kernel)
+        check(ran["ctrler_chunk"] == int(kernel)
+              and ran["tick_chunk"] == ran["ctrler_tick"] == 0
               and (ran["oracle"] == CTRLER_AB_TICKS * (not kernel)),
               f"ctrler A/B {route} launches {ran}")
         reps.append(rep)
@@ -4279,8 +4644,6 @@ def _ctrler_path(dev) -> tuple:
                    "wall_ms_per_tick": tele["execute_s"] / CTRLER_AB_TICKS
                    * 1e3,
                    "launches": {k: v for k, v in ran.items() if v}})
-    from madraft_tpu_torch.__main__ import _reports_equal
-
     check(all(_reports_equal(reps[0], r) for r in reps[1:]),
           "ctrler A/B: the eager and the kernel route's reports differ")
     rate = {r: sum(x["cluster_steps_per_s"] for x in ab
@@ -4347,16 +4710,30 @@ def _ctrler_ops(cfg, kcfg, ks, written, rounds: int) -> int:
     restore (4 a cell), and the apply rounds and walker steps (a
     rebalance and its oracles each: 12 operations a (shard, gid) pair, 40
     for the rest)."""
-    b, n, cap, nc = ks.clerk_seq.shape[0], cfg.n_nodes, cfg.log_cap, \
-        kcfg.n_clients
+    return _ctrler_ops_of(cfg, kcfg, ks.clerk_seq.shape[0], 1,
+                          *(int(x) for x in _ctrler_counts(ks, written)),
+                          rounds)
+
+
+def _ctrler_counts(ks, written) -> tuple:
+    """The data-dependent counts of one ctrler service tick from ``ks`` to
+    ``written``, as device tensors: (clerks that started an op, clerks
+    outstanding after it, walker steps)."""
+    return ((written.clerk_seq != ks.clerk_seq).sum(),
+            written.clerk_out.sum(),
+            (written.w_frontier - ks.w_frontier).sum())
+
+
+def _ctrler_ops_of(cfg, kcfg, b: int, ticks: int, started: int,
+                   outstanding: int, steps: int, rounds: int) -> int:
+    """``_ctrler_ops`` over ``ticks`` ticks of b clusters from the ticks'
+    summed counts (``_ctrler_counts``) and apply rounds."""
+    n, cap, nc = cfg.n_nodes, cfg.log_cap, kcfg.n_clients
     ng, jm = kcfg.n_gids, kcfg.join_max
-    started = int((written.clerk_seq != ks.clerk_seq).sum())
-    outstanding = int(written.clerk_out.sum())
-    hashes = (b * (8 * 3 + nc) + started * (1 + 4 + 4 + 4 * jm)
+    hashes = (b * ticks * (8 * 3 + nc) + started * (1 + 4 + 4 + 4 * jm)
               + outstanding * (1 + 4))
-    steps = int((written.w_frontier - ks.w_frontier).sum())
     cells = n * (2 * nc + 2 * ng + 2 * 10 + 2 + 2 * kcfg.n_configs)
-    return (hashes * OPS_PER_HASH + b * (2 * nc * cap + 4 * cells)
+    return (hashes * OPS_PER_HASH + b * ticks * (2 * nc * cap + 4 * cells)
             + (rounds + steps) * (12 * 10 * ng + 40))
 
 
@@ -4409,19 +4786,86 @@ def _ctrler_timing(dev) -> tuple:
     return out, counted
 
 
-def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
+def _k6ctrler_timing(dev, plain: bool = True) -> dict:
+    """K6-ctrler's and K6-metrics-ctrler's times at the ctrler flagship's
+    shape, one KERNEL_CHUNK-tick launch from tick 200: name -> (device ms,
+    call ms, plain ms (None without ``plain``), bytes, operations). The
+    bytes: K6's state (the metric leaves with metrics) and the ctrler
+    state's service leaves read and written once, the keys and both knob
+    tables read once, and the log_val slots the apply rounds read (this
+    run's count, from the plain version's ticks, though those reads hit the
+    block K6-ctrler staged). The operations: per cluster-tick K6's draws (2
+    + total hashes and a word each), and per tick the service tick's on
+    this run's data as ``_ctrler_ops`` counts K10's (the plain version's
+    ticks, so counted only with ``plain``; else the bound is the bytes')."""
+    import torch
+
+    from madraft_tpu_torch.kernels import ctrler as K10
+    from madraft_tpu_torch.kernels import tick as K6
+    from madraft_tpu_torch.tpusim import ctrler, engine, step
+    from madraft_tpu_torch.tpusim.state import METRIC_LEAF0
+
+    counts = read_counts()
+    out = {}
+    m = engine.KERNEL_CHUNK
+    for name, metrics_on in (("ctrler_chunk", False),
+                             ("ctrler_chunk_metrics", True)):
+        cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, metrics_on)
+        b, n = int(keys.shape[0]), cfg.n_nodes
+        table, ctable = K6.knob_table(kn, b), K10.knob_table(kn, ckn, b)
+
+        def call(i):
+            return K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, m, table,
+                                    ctable)
+
+        # the plain version, its apply rounds and the service's counts
+        # summed on the device tick by tick (no sync inside the timing)
+        count = torch.zeros(4, dtype=torch.int64, device=dev)
+
+        def run_plain(i):
+            k = ks
+            for _ in range(m):
+                pre = k.raft
+                s = step.step_cluster(cfg, pre, keys, kn)
+                k2 = ctrler._ctrler_service_tick(cfg, kcfg, k, pre.alive,
+                                                 pre.base, s, keys, kn, ckn)
+                reset = ~pre.alive | ~s.alive | (s.snap_installed_src >= 0)
+                rounds = (k2.applied - torch.where(
+                    reset, s.base, k.applied)).sum()
+                count.add_(torch.stack([*_ctrler_counts(k, k2), rounds]))
+                k = k2
+            return k
+
+        raft = ks.raft[:METRIC_LEAF0] if not metrics_on else ks.raft
+        total = step._block_total(n)
+        plain_ms = cuda_ms(run_plain, iters=1, warmup=0) if plain else None
+        started, outstanding, steps, rounds = count.tolist()
+        ops = (b * m * ((2 + total) * OPS_PER_HASH + total)
+               + _ctrler_ops_of(cfg, kcfg, b, m, started, outstanding, steps,
+                                rounds))
+        nb = (2 * nbytes(*raft, *ks[1:]) + nbytes(keys, *table, *ctable)
+              + 4 * rounds)
+        out[name] = (device_ms(call, "tick_chunk_kernel", iters=10, warmup=1),
+                     cuda_ms(call, iters=5, warmup=1), plain_ms, nb, ops)
+    set_counts(counts)
+    return out
+
+
+def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 512) -> dict:
     """Where a ctrler flagship tick's wall goes (torch.profiler, the window
     retry of ``_profiled``): the device operations a tick, the card's busy
-    share of the wall and the host's, K6's and K10's shares and device
-    ms a tick, over n_ticks ticks from tick 200 on K6 and K10."""
-    from madraft_tpu_torch.tpusim import ctrler
+    share of the wall and the host's, K6-ctrler's share and device ms a
+    tick, over n_ticks ticks from tick 200 (the flagship's depth: two
+    K6-ctrler launches)."""
+    from madraft_tpu_torch.tpusim import ctrler, engine
 
     cfg, kcfg, ks, keys, kn, ckn = _ctrler_state(dev, metrics_on)
     counts = read_counts()
+    # every K6-ctrler launch of the window, or the shares would be of a part
     _, kernels, wall_ms, _, attempts = _profiled(
         lambda: ctrler._advance_ctrler(cfg, kcfg, ks, keys, kn, ckn,
                                        n_ticks),
-        expect=("tick_chunk_kernel", "ctrler_kernel"))
+        expect={"tick_chunk_kernel": -(-n_ticks // engine.KERNEL_CHUNK)})
     set_counts(counts)
 
     def dev_ms(name):
@@ -4436,10 +4880,9 @@ def _profile_ctrler_tick(dev, metrics_on: bool, n_ticks: int = 32) -> dict:
             "device_busy_ms_per_tick": busy_ms / n_ticks,
             "device_busy_share": busy_ms / wall_ms,
             "host_share": 1 - busy_ms / wall_ms,
-            "k6_ms_per_tick": dev_ms("tick_chunk_kernel") / n_ticks,
+            "k6ctrler_ms_per_tick": dev_ms("tick_chunk_kernel") / n_ticks,
+            "k6ctrler_share": dev_ms("tick_chunk_kernel") / wall_ms,
             "k10_ms_per_tick": dev_ms("ctrler_kernel") / n_ticks,
-            "k6_share": dev_ms("tick_chunk_kernel") / wall_ms,
-            "k10_share": dev_ms("ctrler_kernel") / wall_ms,
             "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
             "top_device_ms_per_tick": {
                 e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(
@@ -5378,10 +5821,18 @@ def _storm_cfg():
 
 
 if __name__ == "__main__":
+    # keep CUPTI attached across the script's profiler windows: torn down
+    # and attached again at each window (PyTorch's default), it lost more
+    # of a window's first kernel records the more windows the process had
+    # opened (``cupti_probe.py``; PyTorch sets the same where it profiles
+    # CUDA graphs)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     if sys.argv[1:2] == ["--service-leg"]:
         sys.exit(service_leg(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--k6-leg"]:
         sys.exit(k6_leg(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--kv-leg"]:
         sys.exit(kv_leg(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--ctrler-leg"]:
+        sys.exit(ctrler_leg(*sys.argv[2:4]))
     sys.exit(main())

@@ -26,11 +26,12 @@ SOURCES = ("threefry", "oracle", "pack", "metrics", "coverage", "tick",
 # run's path since K6-kv: a kv run's set-up builds tick_kv or
 # tick_metrics_kv, VARIANTS)
 KV = "kv"
-# K10's source: a ctrler run's set-up builds it or K10-metrics
-# (kernels/ctrler.py variant), as a kv run's builds K9
+# K10's source (kernels/ctrler.py ctrler_tick, the per-tick service
+# kernel, on no run's path since K6-ctrler: a ctrler run's set-up builds
+# tick_ctrler or tick_metrics_ctrler, VARIANTS)
 CTRLER = "ctrler"
 # K11's source: a shardkv run's set-up builds it or K11-metrics
-# (kernels/shardkv.py variant), as a ctrler run's builds K10
+# (kernels/shardkv.py variant)
 SHARDKV = "shardkv"
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
@@ -52,6 +53,12 @@ VARIANTS = {
     # set-up builds
     "tick_kv": ("tick", ("-DMADRAFT_K6_KV",)),
     "tick_metrics_kv": ("tick", ("-DMADRAFT_K6_METRICS", "-DMADRAFT_K6_KV")),
+    # K6-ctrler and K6-metrics-ctrler (kernels/ctrler.py ctrler_chunk): K6
+    # with the shard controller's service tick after each raft tick of a
+    # chunk, the builds a ctrler run's set-up builds
+    "tick_ctrler": ("tick", ("-DMADRAFT_K6_CTRLER",)),
+    "tick_metrics_ctrler": ("tick", ("-DMADRAFT_K6_METRICS",
+                                     "-DMADRAFT_K6_CTRLER")),
     # K9-metrics (kernels/kv.py variant): the kv service tick with the
     # clerks' latency folds
     "kv_metrics": ("kv", ("-DMADRAFT_K9_METRICS",)),

@@ -22,7 +22,10 @@
 // (clerk_phase_matrix) and the worst-op register (ctrler.py 750-795,
 // 857-864, 897-901). The Python side is kernels/ctrler.py, whose plain
 // version is tpusim/ctrler.py _ctrler_service_tick; the device code is
-// ctrler.cuh.
+// ctrler.cuh, whose phase functions K6-ctrler (tick.cu
+// -DMADRAFT_K6_CTRLER) runs too. Since K6-ctrler no ctrler run launches
+// K10: it is the per-tick design K6-ctrler is held against, tested on its
+// own.
 //
 // Bound. The tick must read and write every service leaf and every raft
 // leaf it writes but the two log rows, read the stepped raft leaves it
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(k10::kThreads, kMinBlocks)
 // The launch's shared bytes a block, after the opt-in above 48 KB; < 0 a
 // CUDA error, 0 a region past what a block may take
 int shared_bytes(const k10::Params &p) {
-  const int smem = k10::kPlanBytes + p.words * 4;
+  const int smem = k10::kPlanBytes + p.L.words * 4;
   if (smem > kSmemMax) return 0;
   if (smem > kSmemDefault) {
     const cudaError_t e = cudaFuncSetAttribute(

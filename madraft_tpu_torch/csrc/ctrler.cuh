@@ -1,13 +1,27 @@
-// K10's device code: one shard-controller service tick of one cluster, by
-// the kThreads threads of a block (ctrler.cu holds the kernel, its launch
-// and the note on what it replaces, its bound and design). Built by nvcc
-// through ctrler.cu, and by g++ through tests/ctrler_host_emu.cpp.
+// The shard controller's service tick's device code (the JAX reference's
+// _ctrler_service_tick), once, for two kernels: K10 runs it on the
+// kThreads threads of a block, one tick a launch (ctrler.cu holds that
+// kernel, its launch and the note on what it replaces, its bound and
+// design), and K6-ctrler runs it on K6's 16-lane tile after each raft tick
+// of a chunk (tick.cuh, -DMADRAFT_K6_CTRLER). Built by nvcc through
+// ctrler.cu and tick.cu, and by g++ through tests/ctrler_host_emu.cpp and
+// tests/tick_host_emu.cpp.
 //
-// The tick runs as six phases (Phase), a block barrier after each. Within
-// a phase the threads share nothing but commutative updates of the
-// block's shared region (atomic add, or): so the host runs a phase's
-// threads one after another, then the next phase, and gets the card's
-// result.
+// The tick runs as phases (restore, apply, clerks, submit; K10 stages its
+// region before them and writes it back after), a barrier after each.
+// Each phase is a function of the lane and an environment (K10Env here,
+// tick.cuh CtrlerEnv): the lane count and the lanes the walker and the
+// first clerk take, the cluster's region (its rows of the service leaves
+// and the tick's scratch, Layout), where each of the other rows lives, the
+// raft leaves the tick reads and writes, and the pre-tick values. K10
+// stages its region from the inputs each tick and writes a new state, so
+// its pre-tick values are the inputs; K6-ctrler keeps the region for a
+// whole chunk and updates it in place, so it copies the snapshot tables an
+// install adopts (the sender's PRE-tick snapshot, which its own compaction
+// may rewrite first) on a tick with an install. Within a phase the lanes
+// share nothing but commutative updates of the region (atomic add, or): so
+// K10's host build runs a phase's threads one after another, and gets the
+// card's result.
 //
 // The arithmetic is the plain version's (tpusim/ctrler.py
 // _ctrler_service_tick), written per cluster: int32 values that may wrap
@@ -31,15 +45,15 @@ constexpr bool kMetrics = true;
 constexpr bool kMetrics = false;
 #endif
 
-// A cluster's block: two warps (four took the same time and spilled at
-// the 64 registers that eight blocks of four warps leave a thread)
+// K10's block: two warps (four took the same time and spilled at the 64
+// registers that eight blocks of four warps leave a thread)
 constexpr int kThreads = 64;
 constexpr int kWalker = kThreads - 1;  // the truth walker's thread
 constexpr int kClerk0 = 32;      // the first clerk's thread in kClerks
 static_assert(kThreads >= 64 && kThreads % 32 == 0, "two warps or more");
-constexpr int kMaxNodes = 16;    // a node a thread in kApply
+constexpr int kMaxNodes = 16;    // a node a lane in apply
 constexpr int kMaxCap = 256;
-constexpr int kMaxClients = 32;  // a clerk a thread in kClerks
+constexpr int kMaxClients = 32;  // a clerk a thread in K10's kClerks
 constexpr int kShards = 10;      // ctrler.N_SHARDS
 constexpr int kMaxGids = kShards;
 constexpr int kMaxConfigs = 256;
@@ -54,8 +68,8 @@ constexpr int32_t kViolDiverge = 2048, kViolBalance = 4096,
 constexpr uint32_t kSiteStart = 24, kSiteKind = 27;
 constexpr uint32_t kHashW = 1000003u;
 
-// The leaves K10 writes: the service leaves in CtrlerState order, then the
-// raft leaves the service tick writes (kernels/ctrler.py RAFT_WRITES)
+// The leaves the service tick writes: the service leaves in CtrlerState
+// order, then the raft leaves it writes (kernels/ctrler.py RAFT_WRITES)
 enum Leaf {
   kClerkSeq, kClerkOut, kClerkArg, kClerkKind, kClerkAcked, kClerkQObs,
   kQueriesDone, kClerkSub, kClerkApp, kClerkCmt, kClerkApl, kApplied,
@@ -67,8 +81,18 @@ enum Leaf {
   kWorstPhases, kWorstKey, kWorstClient, kWorstSub,
   kLeaves
 };
+// The service leaves are the first kServiceLeaves
+constexpr int kServiceLeaves = kLogTerm;
 
-// The read-only inputs: the stepped raft state's leaves, the pre-tick
+// K6-ctrler keeps the nodes' two [n, n_configs] history tables in device
+// memory (the new state's rows: up to 16 KB each, which the tile's shared
+// block could not hold beside K6's at the largest shapes), every other
+// service leaf in its region
+__host__ __device__ constexpr bool in_device(int l) {
+  return l == kHist || l == kSnapHist;
+}
+
+// K10's read-only inputs: the stepped raft state's leaves, the pre-tick
 // views, the keys and the knob table (kernels/ctrler.py RAFT_READS)
 enum Read {
   kTick, kTerm, kRole, kAlive, kBase, kCommit, kSnapSrc, kShadowVal,
@@ -80,21 +104,23 @@ enum Read {
 enum KnobF { kPOp, kPQuery, kPMove, kPRetry, kNF };
 enum KnobI { kBugRotate, kBugGreedy, kBugReshuffle, kFlowCap, kNI };
 
-// The wrapper's descriptor (kernels/ctrler.py _launch): this header, the
-// kReads pointers, then 4 words a leaf (in, out, count a cluster, bytes an
-// element)
+// K10's descriptor (kernels/ctrler.py _launch): this header, the kReads
+// pointers, then 4 words a leaf (in, out, count a cluster, bytes an
+// element). K6-ctrler's (kernels/ctrler.py Side) has the header's kNc ..
+// kMetricsOn, the knob table's two pointers, its device rows (Side), then
+// the same 4 words a leaf
 enum Desc {
   kB, kN, kCap, kNc, kNg, kNcfg, kJoinMax, kArgLim, kApplyMax, kWalkMax,
   kHb, kNph, kPartitionable, kMetricsOn,
   kHeader
 };
 
-// The phases of a tick, in order (run_phase)
+// K10's phases of a tick, in order (run_phase)
 enum Phase { kStage, kRestore, kApply, kClerks, kSubmit, kWriteBack,
              kTickPhases };
 
-// A worst-op candidate's words in the block's region: mask, lat, key, sub,
-// then the kPhases phases
+// A worst-op candidate's words in the region: mask, lat, key, sub, then
+// the kPhases phases
 constexpr int kWorstWords = 4 + kPhases;
 
 // The tick's draw keys, from fold_in(cluster key, t): the seven splits of
@@ -102,38 +128,30 @@ constexpr int kWorstWords = 4 + kPhases;
 // the gid set, the gid count) and site 27 (the op's kind)
 constexpr int kDrawKeys = 8;
 
-// The stepped raft rows the tick reads by node, the install sources and
-// the pre-tick views, staged in the block's region (alive as 0 / 1)
+// K10's stepped raft rows by node, the install sources and the pre-tick
+// views, staged in the region (alive as 0 / 1)
 enum RaftRow { kRTerm, kRRole, kRAlive, kRBase, kRCommit, kRSnapSrc,
                kRPreAlive, kRPreBase, kRaftRows };
 
 // A leaf: its input and output, its count of elements a cluster, its
-// bytes an element, and its row's offset in words in the block's region
-// (-1 for a log row: see Params)
+// bytes an element, and its row's offset in words in the region (-1 for a
+// leaf the region does not hold)
 struct LeafRef {
   const void *in;
   void *out;
   int count, bytes, off;
 };
 
-using Plan = stage::Plan<kLeaves>;
+// The run's shape
+struct Dims {
+  int n, cap, nc, ng, ncfg, join_max, arg_lim, apply_max, walk_max, hb,
+      nph, part;
+};
 
-// The staging plan's copy in shared memory, before the block's region: the
-// copy loops read a row's fields at a runtime index, which the kernel's
-// parameters serve slowly
-constexpr int kPlanBytes = (static_cast<int>(sizeof(Plan)) + 15) / 16 * 16;
-
-// The block's shared region, in int32 words: every leaf but the two log
-// rows staged at its off (-1 for the log rows, which stay in device
-// memory: the tick reads n * apply_max of their slots and appends at most
-// nc; a bulk row's off a multiple of 4), then the tick's scratch
-struct Params {
-  LeafRef leaf[kLeaves];
-  Plan plan;       // the staged rows' copies (stage.cuh)
-  const void *read[kReads];
-  int b, n, cap, nc, ng, ncfg, join_max, arg_lim, apply_max, walk_max, hb,
-      nph, partitionable;
-  int sh_val;     // [cap] the shadow window's values
+// The region's scratch after the leaves' rows, in int32 words from its
+// start (a size 0 where the kernel keeps none)
+struct Layout {
+  int sh_val;     // K10: [cap] the shadow window's values
   int viol;       // the tick's violation bits
   int flag;       // [nc] the clerk's op is in the live shadow
   int first;      // [n, nc] the apply round a node answered the clerk's
@@ -143,55 +161,123 @@ struct Params {
   int retry;      // [nc] the clerk submits
   int worst;      // [nc, kWorstWords] the acks' worst-op candidates
   int draws;      // [kDrawKeys, 2] the tick's draw keys
-  int raft;       // [kRaftRows, n] the stepped raft rows (RaftRow)
-  int log_quads;  // the two log rows' 16-byte quads a cluster (0: copied
-                  // by words)
+  int raft;       // K10: [kRaftRows, n] the stepped raft rows (RaftRow)
+  int pre_base;   // K6-ctrler: [n] the pre-tick base
+  int snap_pre;   // K6-ctrler: the pre-tick snapshot tables held in the
+                  // region (snap_last_seq .. snap_cfg_num, as laid out)
+  int knobs;      // K6-ctrler: [kNF + kNI] the cluster's knob rows
   int words;      // the region's size
 };
+
+// The scratch after the leaves' rows (words of them) for d; k6: K6-ctrler's
+inline void lay_scratch(Layout &L, const Dims &d, int words, int snap_words,
+                        bool k6) {
+  auto take = [&](int size) {
+    const int at = words;
+    words += size;
+    return at;
+  };
+  L.sh_val = take(k6 ? 0 : d.cap);
+  L.viol = take(1);
+  L.flag = take(d.nc);
+  L.first = take(d.n * d.nc);
+  L.first_obs = take(d.n * d.nc);
+  L.target = take(d.nc);
+  L.retry = take(d.nc);
+  L.worst = take(d.nc * kWorstWords);
+  L.draws = take(2 * kDrawKeys);
+  L.raft = take(k6 ? 0 : kRaftRows * d.n);
+  L.pre_base = take(k6 ? d.n : 0);
+  L.snap_pre = take(k6 ? snap_words : 0);
+  L.knobs = take(k6 ? int(kNF) + int(kNI) : 0);
+  L.words = words;
+}
+
+// Dims from the descriptor header's words nc .. metrics_on (Desc kNc ..
+// kMetricsOn) and the raft shape; false when they are out of the
+// kernels' range or the metrics flag is not met (the build's)
+inline bool set_dims(Dims &d, const int64_t *h, int n, int cap, int part,
+                     bool met) {
+  d.n = n;
+  d.cap = cap;
+  d.nc = static_cast<int>(h[0]);
+  d.ng = static_cast<int>(h[kNg - kNc]);
+  d.ncfg = static_cast<int>(h[kNcfg - kNc]);
+  d.join_max = static_cast<int>(h[kJoinMax - kNc]);
+  d.arg_lim = static_cast<int>(h[kArgLim - kNc]);
+  d.apply_max = static_cast<int>(h[kApplyMax - kNc]);
+  d.walk_max = static_cast<int>(h[kWalkMax - kNc]);
+  d.hb = static_cast<int>(h[kHb - kNc]);
+  d.nph = static_cast<int>(h[kNph - kNc]);
+  d.part = part;
+  if (n < 1 || n > kMaxNodes || cap < 1 || cap > kMaxCap ||
+      (cap & (cap - 1)) || d.nc < 1 || d.nc > kMaxClients || d.ng < 2 ||
+      d.ng > kMaxGids || d.ncfg < 1 || d.ncfg > kMaxConfigs ||
+      d.join_max < 1 || d.join_max > d.ng || d.arg_lim < 1 ||
+      d.apply_max < 0 || d.walk_max < 0 ||
+      (h[kMetricsOn - kNc] != 0) != met)
+    return false;
+  return !met || (d.hb >= 1 && d.hb <= 31 && d.nph == kPhases);
+}
 
 template <typename T>
 inline T *ptr_of(int64_t w) {
   return reinterpret_cast<T *>(static_cast<intptr_t>(w));
 }
 
+// The leaves of a descriptor's 4 words a leaf (in, out, count, bytes);
+// false for a leaf's count or bytes out of range
+inline bool set_leaves(LeafRef *leaf, const int64_t *g) {
+  for (int l = 0; l < kLeaves; ++l, g += 4) {
+    leaf[l] = {ptr_of<const void>(g[0]), ptr_of<void>(g[1]),
+               static_cast<int>(g[2]), static_cast<int>(g[3]), -1};
+    if (leaf[l].bytes != 1 && leaf[l].bytes != 4) return false;
+    if (leaf[l].count < 0 || leaf[l].count > (1 << 16)) return false;
+  }
+  return true;
+}
+
+using Plan = stage::Plan<kLeaves>;
+
+// The staging plan's copy in shared memory, before K10's region: the copy
+// loops read a row's fields at a runtime index, which the kernel's
+// parameters serve slowly
+constexpr int kPlanBytes = (static_cast<int>(sizeof(Plan)) + 15) / 16 * 16;
+
+// K10's parameters: the leaves (every leaf but the two log rows staged in
+// the block's region at its off, a bulk row's off a multiple of 4; the log
+// rows stay in device memory: the tick reads n * apply_max of their slots
+// and appends at most nc), the staging plan, the reads, the shape and the
+// region
+struct Params {
+  LeafRef leaf[kLeaves];
+  Plan plan;       // the staged rows' copies (stage.cuh)
+  const void *read[kReads];
+  Dims d;
+  Layout L;
+  int b;
+  int log_quads;  // the two log rows' 16-byte quads a cluster (0: copied
+                  // by words)
+};
+
 inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   constexpr int kWords = int(kHeader) + int(kReads) + 4 * int(kLeaves);
   if (n_desc != kWords) return false;
   p.b = static_cast<int>(d[kB]);
-  p.n = static_cast<int>(d[kN]);
-  p.cap = static_cast<int>(d[kCap]);
-  p.nc = static_cast<int>(d[kNc]);
-  p.ng = static_cast<int>(d[kNg]);
-  p.ncfg = static_cast<int>(d[kNcfg]);
-  p.join_max = static_cast<int>(d[kJoinMax]);
-  p.arg_lim = static_cast<int>(d[kArgLim]);
-  p.apply_max = static_cast<int>(d[kApplyMax]);
-  p.walk_max = static_cast<int>(d[kWalkMax]);
-  p.hb = static_cast<int>(d[kHb]);
-  p.nph = static_cast<int>(d[kNph]);
-  p.partitionable = static_cast<int>(d[kPartitionable]);
-  if (p.b < 1 || p.n < 1 || p.n > kMaxNodes || p.cap < 1 ||
-      p.cap > kMaxCap || (p.cap & (p.cap - 1)) || p.nc < 1 ||
-      p.nc > kMaxClients || p.ng < 2 || p.ng > kMaxGids || p.ncfg < 1 ||
-      p.ncfg > kMaxConfigs || p.join_max < 1 || p.join_max > p.ng ||
-      p.arg_lim < 1 || p.apply_max < 0 || p.walk_max < 0 ||
-      (d[kMetricsOn] != 0) != kMetrics)
+  if (p.b < 1 ||
+      !set_dims(p.d, d + kNc, static_cast<int>(d[kN]),
+                static_cast<int>(d[kCap]),
+                static_cast<int>(d[kPartitionable]), kMetrics) ||
+      !set_leaves(p.leaf, d + kHeader + kReads))
     return false;
-  if (kMetrics && (p.hb < 1 || p.hb > 31 || p.nph != kPhases)) return false;
   for (int r = 0; r < kReads; ++r)
     p.read[r] = ptr_of<const void>(d[kHeader + r]);
   int words = 0;
   stage::Row rows[kLeaves];
   int n_rows = 0;
   for (int l = 0; l < kLeaves; ++l) {
-    const int64_t *g = d + kHeader + kReads + 4 * l;
-    const bool log_row = l == kLogTerm || l == kLogVal;
     LeafRef &x = p.leaf[l];
-    x = {ptr_of<const void>(g[0]), ptr_of<void>(g[1]),
-         static_cast<int>(g[2]), static_cast<int>(g[3]), -1};
-    if (x.bytes != 1 && x.bytes != 4) return false;
-    if (x.count < 0 || x.count > (1 << 16)) return false;
-    if (log_row) continue;
+    if (l == kLogTerm || l == kLogVal) continue;
     if (stage::bulk(x.in, x.out, x.count, x.bytes)) words = (words + 3) & ~3;
     x.off = words;
     rows[n_rows++] = {x.in, x.out, x.count, x.bytes, 4 * x.off, 0};
@@ -200,22 +286,58 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
   if (!stage::plan(p.plan, rows, n_rows)) return false;
   // the log rows move in quads where both are 16-byte rows at 16-byte
   // aligned inputs and outputs
-  bool quads = p.n * p.cap % 4 == 0;
+  const int n = p.d.n, cap = p.d.cap;
+  bool quads = n * cap % 4 == 0;
   for (int l = kLogTerm; l <= kLogVal; ++l)
     quads = quads && (reinterpret_cast<uintptr_t>(p.leaf[l].in) |
                       reinterpret_cast<uintptr_t>(p.leaf[l].out)) % 16 == 0;
-  p.log_quads = quads ? p.n * p.cap / 4 : 0;
-  p.sh_val = words;
-  p.viol = p.sh_val + p.cap;
-  p.flag = p.viol + 1;
-  p.first = p.flag + p.nc;
-  p.first_obs = p.first + p.n * p.nc;
-  p.target = p.first_obs + p.n * p.nc;
-  p.retry = p.target + p.nc;
-  p.worst = p.retry + p.nc;
-  p.draws = p.worst + p.nc * kWorstWords;
-  p.raft = p.draws + 2 * kDrawKeys;
-  p.words = p.raft + kRaftRows * p.n;
+  p.log_quads = quads ? n * cap / 4 : 0;
+  lay_scratch(p.L, p.d, words, 0, false);
+  return true;
+}
+
+// K6-ctrler's share of K6's parameters (tick.cuh Params::ctrler): the
+// service leaves in and out (a raft leaf's and a metric leaf's row has
+// no in or out: K6 keeps those leaves), the knob table, the device rows,
+// the shape and the region. The device rows: the two history tables'
+// rows are the new state's (in_device: staged there from the input at
+// the chunk's start); dev holds [B + 1, n * n_configs] words, cluster c's
+// row the copy of its pre-tick snap_hist on a tick with an install, then
+// the hist and snap_hist rows [2, n * n_configs] of a tile past the
+// batch's end (row B its copy), which writes nothing of the state
+struct Side {
+  LeafRef leaf[kLeaves];
+  const float *kf;  // [B, kNF]
+  const int *ki;    // [B, kNI]
+  int32_t *dev;
+  Dims d;
+  Layout L;
+};
+
+// Side from K6-ctrler's descriptor (kNc .. kMetricsOn, kf, ki, dev, then
+// 4 words a leaf) at raft shape (n, cap); false where K6-ctrler does not
+// take it. The region holds the service leaves but the history tables and
+// the metric leaves (the clerks' sums and the worst-op register), then
+// the scratch
+inline bool set_side(Side &s, const int64_t *d, int n_desc, int n, int cap,
+                     int part, bool met) {
+  constexpr int kWords = int(kHeader) - int(kNc) + 3 + 4 * int(kLeaves);
+  if (n_desc != kWords) return false;
+  if (!set_dims(s.d, d, n, cap, part, met)) return false;
+  s.kf = ptr_of<const float>(d[kHeader - kNc]);
+  s.ki = ptr_of<const int>(d[kHeader - kNc + 1]);
+  s.dev = ptr_of<int32_t>(d[kHeader - kNc + 2]);
+  if (!set_leaves(s.leaf, d + kHeader - kNc + 3)) return false;
+  int words = 0;
+  for (int l = 0; l < kLeaves; ++l) {
+    const bool held = (l < kServiceLeaves && !in_device(l)) || l >= kLatHist;
+    s.leaf[l].off = held ? words : -1;
+    if (held) words += (s.leaf[l].count * s.leaf[l].bytes + 3) / 4;
+  }
+  // the snapshot tables the region holds, in a row from snap_last_seq
+  const int snap_words = s.leaf[kSnapCfgNum].off + s.leaf[kSnapCfgNum].count -
+                         s.leaf[kSnapLastSeq].off;
+  lay_scratch(s.L, s.d, words, snap_words, true);
   return true;
 }
 
@@ -265,10 +387,12 @@ __device__ __forceinline__ float fmul(float a, float b) {
 #endif
 }
 
-// The threads' commutative updates of a word of the block's region (on
-// the host the threads run one after another)
+// The lanes' commutative updates of a word of the cluster's region (on
+// the host K10's threads run one after another; K6-ctrler's run as
+// threads, and its host build defines MADRAFT_HOST_ATOMICS and the
+// atomics' twins)
 __device__ __forceinline__ void shared_add(int32_t *a, int32_t v) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) || defined(MADRAFT_HOST_ATOMICS)
   atomicAdd(a, v);
 #else
   *a = wrap_add(*a, v);
@@ -276,7 +400,7 @@ __device__ __forceinline__ void shared_add(int32_t *a, int32_t v) {
 }
 
 __device__ __forceinline__ void shared_or(int32_t *a, int32_t v) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) || defined(MADRAFT_HOST_ATOMICS)
   atomicOr(a, v);
 #else
   *a |= v;
@@ -349,6 +473,17 @@ __device__ __noinline__ int32_t randint_elem(uint32_t k0, uint32_t k1, int i,
                                              int size, int32_t minval,
                                              int32_t maxval, int part) {
   return madraft::randint_elem(k0, k1, i, size, minval, maxval, part);
+}
+
+// Draw key j (< kDrawKeys) of the tick from (k0, k1) = fold_in(cluster
+// key, t): its site folded in, then its split; into out[0..1]
+__device__ __forceinline__ void draw_key(uint32_t k0, uint32_t k1, int j,
+                                         int part, int32_t *out) {
+  fold_in(k0, k1, j < 7 ? kSiteStart : kSiteKind);
+  uint32_t d0 = k0, d1 = k1;
+  if (j < 7) split_key(k0, k1, 7, j, part, d0, d1);
+  out[0] = static_cast<int32_t>(d0);
+  out[1] = static_cast<int32_t>(d1);
 }
 
 // --------------------------------------------------- the config service
@@ -534,8 +669,9 @@ __device__ __forceinline__ int32_t min_moves(int ng, uint32_t member,
   return moves;
 }
 
-// A controller state machine instance in the block's region: a node's rows
-// or the walker's
+// A controller state machine instance: a node's rows or the walker's (in
+// the region, or a history row in device memory: the environment's
+// machine())
 struct Machine {
   uint8_t *member;   // [ng] 0 / 1
   int32_t *owner;    // [kShards]
@@ -553,13 +689,13 @@ struct Applied {
 
 // Apply one committed log entry (ctrler.py _apply_entry) to the instance
 // m: the nodes and the walker share it, only tie_rot differs
-__device__ __noinline__ Applied apply_entry(const Params &p, Machine m,
+__device__ __noinline__ Applied apply_entry(const Dims &d, Machine m,
                                             int tie_rot, bool greedy,
                                             bool reshuffle, int32_t val) {
-  const int ng = p.ng;
+  const int ng = d.ng;
   Applied a{false, 0, 0, -1, 0};
   if (val == kNoop) return a;
-  const Op o = unpack(val, p.arg_lim, p.nc);
+  const Op o = unpack(val, d.arg_lim, d.nc);
   a.client = o.client;
   a.seq = o.seq;
   const int32_t prev = m.last_seq[o.client];
@@ -573,7 +709,7 @@ __device__ __noinline__ Applied apply_entry(const Params &p, Machine m,
     a.q_obs = m.hist[eff] & 0x7FFFFFFF;
     return a;
   }
-  if (num >= p.ncfg - 1) return a;  // the history is full
+  if (num >= d.ncfg - 1) return a;  // the history is full
   uint32_t member = 0;
   for (int g = 0; g < ng; ++g) member |= (m.member[g] ? 1u : 0u) << g;
   if (o.kind == kMove) {
@@ -620,9 +756,9 @@ __device__ __noinline__ Applied apply_entry(const Params &p, Machine m,
 }
 
 // ------------------------------------------------------------ leaf access
-// A load from an input: the inputs stay as they are for the whole launch
-// (the state is written out of place), so the loads go through the
-// read-only cache
+// A load from an input of K10: the inputs stay as they are for the whole
+// launch (K10 writes a new state), so the loads go through the read-only
+// cache
 template <typename T>
 __device__ __forceinline__ T ld(const T *x) {
 #ifdef __CUDA_ARCH__
@@ -659,42 +795,114 @@ __device__ __forceinline__ Ro<T> read_row(const Params &p, int r, int c,
           static_cast<int64_t>(c) * count};
 }
 
-// The staged (new) row of leaf l in the block's region ws
-template <typename T>
-__device__ __forceinline__ T *work(const Params &p, int32_t *ws, int l) {
-  return reinterpret_cast<T *>(ws + p.leaf[l].off);
-}
-
-// A staged raft row (RaftRow) in the block's region ws
-__device__ __forceinline__ const int32_t *raft_row(const Params &p,
-                                                   const int32_t *ws, int r) {
-  return ws + p.raft + r * p.n;
-}
-
-// Node i's state machine (or, with i < 0, the walker's) in the region
-__device__ __forceinline__ Machine machine(const Params &p, int32_t *ws,
-                                          int i) {
+// Node i's state machine (or, with i < 0, the walker's), its rows from
+// the environment e
+template <class E>
+__device__ __forceinline__ Machine machine_of(const E &e, int i) {
+  const Dims &d = e.d();
   if (i < 0)
-    return {work<uint8_t>(p, ws, kWMember), work<int32_t>(p, ws, kWOwner),
-            work<int32_t>(p, ws, kWHist), work<int32_t>(p, ws, kWCfgNum),
-            work<int32_t>(p, ws, kWLastSeq)};
-  return {work<uint8_t>(p, ws, kMember) + i * p.ng,
-          work<int32_t>(p, ws, kOwner) + i * kShards,
-          work<int32_t>(p, ws, kHist) + i * p.ncfg,
-          work<int32_t>(p, ws, kCfgNum) + i,
-          work<int32_t>(p, ws, kLastSeq) + i * p.nc};
+    return {e.template w<uint8_t>(kWMember), e.template w<int32_t>(kWOwner),
+            e.template w<int32_t>(kWHist), e.template w<int32_t>(kWCfgNum),
+            e.template w<int32_t>(kWLastSeq)};
+  return {e.template w<uint8_t>(kMember) + i * d.ng,
+          e.template w<int32_t>(kOwner) + i * kShards,
+          e.template w<int32_t>(kHist) + i * d.ncfg,
+          e.template w<int32_t>(kCfgNum) + i,
+          e.template w<int32_t>(kLastSeq) + i * d.nc};
 }
+
+// K10's environment for cluster c: its region ws in the block's shared
+// memory (every leaf's new row but the two log rows, which K10 writes to
+// their outputs), the pre-tick values from the inputs, the stepped raft
+// rows staged in ws
+struct K10Env {
+  static constexpr bool kMet = kMetrics;
+  const Params &p;
+  int32_t *ws;
+  int c;
+  __device__ int lanes() const { return kThreads; }
+  __device__ int walker() const { return kWalker; }
+  __device__ int clerk0() const { return kClerk0; }
+  __device__ const Dims &d() const { return p.d; }
+  __device__ const Layout &L() const { return p.L; }
+  // leaf l's row in the region (the tick's new values), a scratch word
+  template <typename T>
+  __device__ T *w(int l) const {
+    return reinterpret_cast<T *>(ws + p.leaf[l].off);
+  }
+  __device__ int32_t *s(int off) const { return ws + off; }
+  // leaf l's pre-tick row
+  template <typename T>
+  __device__ Ro<T> pre(int l) const { return in_row<T>(p, l, c); }
+  // the stepped raft state
+  __device__ int32_t tick() const {
+    return read_row<int32_t>(p, kTick, c, 1)[0];
+  }
+  __device__ const int32_t *raft(int r) const {
+    return ws + p.L.raft + r * p.d.n;
+  }
+  __device__ const int32_t *term() const { return raft(kRTerm); }
+  __device__ const int32_t *role() const { return raft(kRRole); }
+  __device__ const int32_t *base() const { return raft(kRBase); }
+  __device__ const int32_t *commit() const { return raft(kRCommit); }
+  __device__ bool alive(int i) const { return raft(kRAlive)[i] != 0; }
+  __device__ int32_t snap_src(int i) const { return raft(kRSnapSrc)[i]; }
+  __device__ const int32_t *shadow_val() const { return ws + p.L.sh_val; }
+  __device__ int32_t shadow_base() const {
+    return read_row<int32_t>(p, kShadowBase, c, 1)[0];
+  }
+  __device__ int32_t shadow_len() const {
+    return read_row<int32_t>(p, kShadowLen, c, 1)[0];
+  }
+  // the pre-tick views
+  __device__ bool pre_alive(int i) const { return raft(kRPreAlive)[i] != 0; }
+  __device__ int32_t pre_base(int i) const { return raft(kRPreBase)[i]; }
+  __device__ float kf(int k) const {
+    return read_row<float>(p, kKnobF, c, kNF)[k];
+  }
+  __device__ int32_t ki(int k) const {
+    return read_row<int32_t>(p, kKnobI, c, kNI)[k];
+  }
+  __device__ Machine machine(int i) const { return machine_of(*this, i); }
+  // the log: node i's log_val row before the submits (the input), the
+  // log_len the submits move, an appended entry (to the outputs)
+  __device__ Ro<int32_t> log_val(int i) const {
+    return in_row<int32_t>(p, kLogVal, c) + i * p.d.cap;
+  }
+  __device__ int32_t *log_len() const { return w<int32_t>(kLogLen); }
+  __device__ void append(int i, int pos, int32_t term, int32_t val) const {
+    out_row<int32_t>(p, kLogTerm, c)[i * p.d.cap + pos] = term;
+    out_row<int32_t>(p, kLogVal, c)[i * p.d.cap + pos] = val;
+  }
+  __device__ int32_t &violations() const { return w<int32_t>(kViolations)[0]; }
+  __device__ int32_t &first_violation() const {
+    return w<int32_t>(kFirstViolation)[0];
+  }
+  // after the submits: the fsync watermark follows the log where it grew
+  // (state.durable_after_append) and the compaction floor is the apply
+  // cursor
+  __device__ void submitted() const {
+    const Ro<int32_t> log_len0 = pre<int32_t>(kLogLen);
+    const int32_t *len = w<int32_t>(kLogLen), *applied = w<int32_t>(kApplied);
+    int32_t *durable = w<int32_t>(kDurableLen);
+    int32_t *floor_ = w<int32_t>(kCompactFloor);
+    for (int i = 0; i < p.d.n; ++i) {
+      if (len[i] > log_len0[i]) durable[i] = len[i];
+      floor_[i] = applied[i];
+    }
+  }
+};
 
 // The worst-op register after the acks' fold: the clerks' candidates
 // (cand, [nc, kWorstWords]) reduced in client order (the first of the
 // largest masked latency), then the register updated (metrics.py
 // update_worst)
-__device__ __forceinline__ void worst_apply(const Params &p, int32_t *ws,
-                                            const int32_t *cand) {
+template <class E>
+__device__ __forceinline__ void worst_apply(const E &e, const int32_t *cand) {
   bool any = false;
   int best_cl = 0;
   int32_t best = 0;
-  for (int cl = 0; cl < p.nc; ++cl) {
+  for (int cl = 0; cl < e.d().nc; ++cl) {
     const int32_t *x = cand + cl * kWorstWords;
     const int32_t v = x[0] ? x[1] : -1;
     if (cl == 0 || v > best) {
@@ -704,180 +912,133 @@ __device__ __forceinline__ void worst_apply(const Params &p, int32_t *ws,
     any |= x[0] != 0;
   }
   const int32_t *w = cand + best_cl * kWorstWords;
-  int32_t *lat = work<int32_t>(p, ws, kWorstLat);
-  int32_t *sub = work<int32_t>(p, ws, kWorstSub);
+  int32_t *lat = e.template w<int32_t>(kWorstLat);
+  int32_t *sub = e.template w<int32_t>(kWorstSub);
   if (!(any && (w[1] > lat[0] || sub[0] == 0))) return;
   lat[0] = w[1];
-  work<int32_t>(p, ws, kWorstKey)[0] = w[2];
-  work<int32_t>(p, ws, kWorstClient)[0] = best_cl;
+  e.template w<int32_t>(kWorstKey)[0] = w[2];
+  e.template w<int32_t>(kWorstClient)[0] = best_cl;
   sub[0] = w[3];
-  int32_t *ph = work<int32_t>(p, ws, kWorstPhases);
+  int32_t *ph = e.template w<int32_t>(kWorstPhases);
   for (int q = 0; q < kPhases; ++q) ph[q] = w[4 + q];
 }
 
 // ------------------------------------------------------- the service tick
-// Phase kStage: every leaf's row from its input into the block's region
-// by the staging plan (stage.cuh), the shadow window's values by cp.async
-// words, the two log rows straight to their outputs, the stepped raft
-// rows and the tick's draw keys, the scratch cleared; then the wait for
-// the copies. The tick then updates the region, and reads the pre-tick
-// values from the inputs where a cell's value may already have changed:
-// the install path adopts the sender's PRE-tick snapshot after the
-// compaction capture rewrote it.
-__device__ __forceinline__ void stage(const Params &p, const Plan &pl,
-                                      int32_t *ws, uint64_t *bar, int c,
-                                      int tid) {
-  const int n = p.n;
-  stage::load(pl, reinterpret_cast<unsigned char *>(ws), bar, c, tid,
-              kThreads);
-  const int32_t *sv = static_cast<const int32_t *>(p.read[kShadowVal]) +
-                      static_cast<int64_t>(c) * p.cap;
-  for (int i = tid; i < p.cap; i += kThreads)
-    stage::word_load(ws + p.sh_val + i, sv + i);
-  stage::copy_row(p.leaf[kLogTerm].in, p.leaf[kLogTerm].out, p.n * p.cap, c,
-                  p.log_quads > 0, tid, kThreads);
-  stage::copy_row(p.leaf[kLogVal].in, p.leaf[kLogVal].out, p.n * p.cap, c,
-                  p.log_quads > 0, tid, kThreads);
-  // the tick's keys (kDrawKeys): fold_in(key, t), then the sites, a key a
-  // thread while the copies are in flight
-  if (tid < kDrawKeys) {
-    const Ro<uint32_t> key = read_row<uint32_t>(p, kKeys, c, 4);
-    uint32_t k0 = key[0], k1 = key[2];  // the int64 words' low halves
-    fold_in(k0, k1, static_cast<uint32_t>(
-        read_row<int32_t>(p, kTick, c, 1)[0]));
-    fold_in(k0, k1, tid < 7 ? kSiteStart : kSiteKind);
-    uint32_t d0 = k0, d1 = k1;
-    if (tid < 7) split_key(k0, k1, 7, tid, p.partitionable, d0, d1);
-    ws[p.draws + 2 * tid] = static_cast<int32_t>(d0);
-    ws[p.draws + 2 * tid + 1] = static_cast<int32_t>(d1);
-  }
-  for (int i = tid; i < n; i += kThreads) {
-    int32_t *rr = ws + p.raft + i;
-    rr[kRTerm * n] = read_row<int32_t>(p, kTerm, c, n)[i];
-    rr[kRRole * n] = read_row<int32_t>(p, kRole, c, n)[i];
-    rr[kRAlive * n] = read_row<uint8_t>(p, kAlive, c, n)[i] != 0;
-    rr[kRBase * n] = read_row<int32_t>(p, kBase, c, n)[i];
-    rr[kRCommit * n] = read_row<int32_t>(p, kCommit, c, n)[i];
-    rr[kRSnapSrc * n] = read_row<int32_t>(p, kSnapSrc, c, n)[i];
-    rr[kRPreAlive * n] = read_row<uint8_t>(p, kPreAlive, c, n)[i] != 0;
-    rr[kRPreBase * n] = read_row<int32_t>(p, kPreBase, c, n)[i];
-  }
-  for (int cl = tid; cl < p.nc; cl += kThreads) ws[p.flag + cl] = 0;
-  if (tid == 0) ws[p.viol] = 0;
-  stage::wait(bar, pl.bulk_bytes);
+// The tick's scratch that starts cleared: the clerks' shadow flags and
+// the violation bits
+__device__ __forceinline__ void clear_tick(const Layout &L, int32_t *ws,
+                                           int nc, int lane, int lanes) {
+  for (int cl = lane; cl < nc; cl += lanes) ws[L.flag + cl] = 0;
+  if (lane == 0) ws[L.viol] = 0;
 }
 
 // One node table of the restore (the live rows `live`, their snapshot
-// `snap`, w elements a node), a cell a thread: the crash reset to the
-// persisted snapshot and the compaction capture from the staged rows (a
-// cell reads only itself), and the install of the sender's PRE-tick
-// snapshot from the input (`none` for a sender out of range)
-template <typename T>
-__device__ __forceinline__ void restore_table(const Params &p, int32_t *ws,
-                                              int c, int tid, int live,
-                                              int snap, int w, T none) {
-  const int n = p.n;
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const int32_t *base = raft_row(p, ws, kRBase);
-  const int32_t *pre_alive = raft_row(p, ws, kRPreAlive);
-  const int32_t *pre_base = raft_row(p, ws, kRPreBase);
-  const int32_t *snap_src = raft_row(p, ws, kRSnapSrc);
-  const Ro<T> sn0 = in_row<T>(p, snap, c);
-  T *lv = work<T>(p, ws, live);
-  T *sn = work<T>(p, ws, snap);
-  for (int x = tid; x < n * w; x += kThreads) {
+// `snap`, w elements a node), a cell a lane: the crash reset to the
+// persisted snapshot and the compaction capture (a cell reads only
+// itself), and the install of the sender's PRE-tick snapshot (`none` for
+// a sender out of range)
+template <typename T, class E>
+__device__ __forceinline__ void restore_table(const E &e, int lane,
+                                              int live, int snap, int w,
+                                              T none) {
+  const int n = e.d().n;
+  const auto sn0 = e.template pre<T>(snap);
+  T *lv = e.template w<T>(live);
+  T *sn = e.template w<T>(snap);
+  for (int x = lane; x < n * w; x += e.lanes()) {
     const int i = x / w;
-    const int32_t src = snap_src[i];
+    const int32_t src = e.snap_src(i);
     if (src >= 0) {
       lv[x] = sn[x] = src < n ? sn0[src * w + x % w] : none;
       continue;
     }
-    if (!pre_alive[i] || !alive[i]) lv[x] = sn[x];
-    if (base[i] != pre_base[i] && alive[i]) sn[x] = lv[x];
+    const bool alive = e.alive(i);
+    if (!e.pre_alive(i) || !alive) lv[x] = sn[x];
+    if (e.base()[i] != e.pre_base(i) && alive) sn[x] = lv[x];
   }
 }
 
-// Phase kRestore: whether each clerk's op is in the live shadow (a
-// (clerk, slot) pair a thread, the clerks' pre-tick rows from the region,
-// which no phase before kClerks writes), and the apply machines' crash
-// reset, compaction capture and install-snapshot (a table cell a thread)
-__device__ __forceinline__ void restore(const Params &p, int32_t *ws, int c,
-                                        int tid) {
-  const int n = p.n, cap = p.cap, nc = p.nc;
-  const int32_t *val = ws + p.sh_val;
-  const int32_t sh_base = read_row<int32_t>(p, kShadowBase, c, 1)[0];
-  const int32_t sh_len = read_row<int32_t>(p, kShadowLen, c, 1)[0];
-  const int32_t *clerk_seq = work<int32_t>(p, ws, kClerkSeq);
-  const int32_t *clerk_arg = work<int32_t>(p, ws, kClerkArg);
-  const int32_t *clerk_kind = work<int32_t>(p, ws, kClerkKind);
-  for (int x = tid; x < nc * cap; x += kThreads) {
+// Phase restore: whether each clerk's op is in the live shadow (a
+// (clerk, slot) pair a lane, the clerks' pre-tick rows from the region,
+// which no phase before clerks writes), and the apply machines' crash
+// reset, compaction capture and install-snapshot (a table cell a lane)
+template <class E>
+__device__ __forceinline__ void restore(const E &e, int lane) {
+  const Dims &d = e.d();
+  const int n = d.n, cap = d.cap, nc = d.nc;
+  const int32_t *val = e.shadow_val();
+  const int32_t sh_base = e.shadow_base();
+  const int32_t sh_len = e.shadow_len();
+  const int32_t *clerk_seq = e.template w<int32_t>(kClerkSeq);
+  const int32_t *clerk_arg = e.template w<int32_t>(kClerkArg);
+  const int32_t *clerk_kind = e.template w<int32_t>(kClerkKind);
+  for (int x = lane; x < nc * cap; x += e.lanes()) {
     const int cl = x / cap, i = x % cap;
     const int32_t want = pack(cl, clerk_seq[cl], clerk_arg[cl],
-                              clerk_kind[cl], p.arg_lim);
+                              clerk_kind[cl], d.arg_lim);
     if (val[i] == want && shadow_abs(sh_base, i, cap) <= sh_len)
-      shared_or(ws + p.flag + cl, 1);
+      shared_or(e.s(e.L().flag) + cl, 1);
   }
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const int32_t *base = raft_row(p, ws, kRBase);
-  const int32_t *pre_alive = raft_row(p, ws, kRPreAlive);
-  const int32_t *snap_src = raft_row(p, ws, kRSnapSrc);
-  for (int i = tid; i < n; i += kThreads)
-    if (!pre_alive[i] || !alive[i] || snap_src[i] >= 0)
-      work<int32_t>(p, ws, kApplied)[i] = base[i];
-  restore_table<int32_t>(p, ws, c, tid, kLastSeq, kSnapLastSeq, nc, 0);
-  restore_table<uint8_t>(p, ws, c, tid, kMember, kSnapMember, p.ng, 0);
-  restore_table<int32_t>(p, ws, c, tid, kOwner, kSnapOwner, kShards, -1);
-  restore_table<int32_t>(p, ws, c, tid, kCfgNum, kSnapCfgNum, 1, 0);
-  restore_table<int32_t>(p, ws, c, tid, kHist, kSnapHist, p.ncfg, 0);
+  for (int i = lane; i < n; i += e.lanes())
+    if (!e.pre_alive(i) || !e.alive(i) || e.snap_src(i) >= 0)
+      e.template w<int32_t>(kApplied)[i] = e.base()[i];
+  restore_table<int32_t>(e, lane, kLastSeq, kSnapLastSeq, nc, 0);
+  restore_table<uint8_t>(e, lane, kMember, kSnapMember, d.ng, 0);
+  restore_table<int32_t>(e, lane, kOwner, kSnapOwner, kShards, -1);
+  restore_table<int32_t>(e, lane, kCfgNum, kSnapCfgNum, 1, 0);
+  restore_table<int32_t>(e, lane, kHist, kSnapHist, d.ncfg, 0);
 }
 
-// Phase kApply: apply_max rounds of the apply loop, a node a thread (a
+// Phase apply: apply_max rounds of the apply loop, a node a lane (a
 // node's rounds are sequential, the nodes independent), each round's
 // Query answers to the scratch (first, first_obs) for the clerks; and on
-// the last thread (kWalker, the last warp) the truth walker's walk_max
-// steps over the staged shadow window, with the sticky stall
-__device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
-                                      int tid) {
-  const int n = p.n, cap = p.cap, nc = p.nc;
-  const Ro<int32_t> ki = read_row<int32_t>(p, kKnobI, c, kNI);
-  const bool greedy = ki[kBugGreedy] != 0;
-  const bool reshuffle = ki[kBugReshuffle] != 0;
+// the walker's lane the truth walker's walk_max steps over the shadow
+// window, with the sticky stall. The log rows are the raft tick's, read
+// before any submit appends
+template <class E>
+__device__ __forceinline__ void apply(const E &e, int lane) {
+  const Dims &d = e.d();
+  const Layout &L = e.L();
+  const int n = d.n, cap = d.cap, nc = d.nc;
+  const bool greedy = e.ki(kBugGreedy) != 0;
+  const bool reshuffle = e.ki(kBugReshuffle) != 0;
   int32_t viol = 0;
-  if (tid < n) {
-    const int i = tid;
-    const bool alive = raft_row(p, ws, kRAlive)[i] != 0;
-    const int32_t commit = raft_row(p, ws, kRCommit)[i];
-    const int rot = ki[kBugRotate] != 0 ? i : 0;
-    const Ro<int32_t> log_val0 = in_row<int32_t>(p, kLogVal, c) + i * cap;
-    const Ro<int32_t> clerk_seq0 = in_row<int32_t>(p, kClerkSeq, c);
-    const Machine m = machine(p, ws, i);
-    int32_t *first = ws + p.first + i * nc;
-    int32_t *first_obs = ws + p.first_obs + i * nc;
-    int32_t &applied = work<int32_t>(p, ws, kApplied)[i];
-    for (int cl = 0; cl < nc; ++cl) first[cl] = p.apply_max;
-    for (int round = 0; round < p.apply_max && alive && applied < commit;
+  if (lane < n) {
+    const int i = lane;
+    const bool alive = e.alive(i);
+    const int32_t commit = e.commit()[i];
+    const int rot = e.ki(kBugRotate) != 0 ? i : 0;
+    const auto log_val0 = e.log_val(i);
+    const auto clerk_seq0 = e.template pre<int32_t>(kClerkSeq);
+    const Machine m = e.machine(i);
+    int32_t *first = e.s(L.first) + i * nc;
+    int32_t *first_obs = e.s(L.first_obs) + i * nc;
+    int32_t &applied = e.template w<int32_t>(kApplied)[i];
+    for (int cl = 0; cl < nc; ++cl) first[cl] = d.apply_max;
+    for (int round = 0; round < d.apply_max && alive && applied < commit;
          ++round) {
       const int32_t val = log_val0[static_cast<int>(
           static_cast<uint32_t>(applied) & static_cast<uint32_t>(cap - 1))];
-      const Applied a = apply_entry(p, m, rot, greedy, reshuffle, val);
+      const Applied a = apply_entry(d, m, rot, greedy, reshuffle, val);
       viol |= a.viol;
       if (a.q_obs >= 0 && a.seq == clerk_seq0[a.client] &&
-          first[a.client] == p.apply_max) {
+          first[a.client] == d.apply_max) {
         first[a.client] = round;
         first_obs[a.client] = a.q_obs;
       }
       applied = wrap_add(applied, 1);
     }
   }
-  if (tid == kWalker) {
-    const int32_t sh_base = read_row<int32_t>(p, kShadowBase, c, 1)[0];
-    const int32_t sh_len = read_row<int32_t>(p, kShadowLen, c, 1)[0];
-    const Machine w = machine(p, ws, -1);
-    int32_t &frontier = work<int32_t>(p, ws, kWFrontier)[0];
-    uint8_t &stalled = work<uint8_t>(p, ws, kWStalled)[0];
-    int32_t *q_seq = work<int32_t>(p, ws, kWQSeq);
-    int32_t *q_obs = work<int32_t>(p, ws, kWQObs);
-    for (int step = 0; step < p.walk_max && frontier < sh_len; ++step) {
+  if (lane == e.walker()) {
+    const int32_t sh_base = e.shadow_base();
+    const int32_t sh_len = e.shadow_len();
+    const int32_t *sh_val = e.shadow_val();
+    const Machine w = e.machine(-1);
+    int32_t &frontier = e.template w<int32_t>(kWFrontier)[0];
+    uint8_t &stalled = e.template w<uint8_t>(kWStalled)[0];
+    int32_t *q_seq = e.template w<int32_t>(kWQSeq);
+    int32_t *q_obs = e.template w<int32_t>(kWQObs);
+    for (int step = 0; step < d.walk_max && frontier < sh_len; ++step) {
       const int pos = static_cast<int>(static_cast<uint32_t>(frontier) &
                                        static_cast<uint32_t>(cap - 1));
       // the entry needed was overwritten by the ring: the walk stops, and
@@ -886,8 +1047,7 @@ __device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
         stalled = 1;
         break;
       }
-      const Applied a = apply_entry(p, w, 0, greedy, reshuffle,
-                                    ws[p.sh_val + pos]);
+      const Applied a = apply_entry(d, w, 0, greedy, reshuffle, sh_val[pos]);
       viol |= a.viol;
       if (a.q_obs >= 0) {
         q_seq[a.client] = a.seq;
@@ -896,77 +1056,78 @@ __device__ __forceinline__ void apply(const Params &p, int32_t *ws, int c,
       frontier = wrap_add(frontier, 1);
     }
   }
-  if (viol) shared_or(ws + p.viol, viol);
+  if (viol) shared_or(e.s(L.viol), viol);
 }
 
 // Node i's divergence oracle: at the walker's frontier and alive, its
 // state machine must equal the walker's bit for bit
-__device__ __forceinline__ void diverge(const Params &p, int32_t *ws, int i) {
-  const Machine m = machine(p, ws, i), w = machine(p, ws, -1);
-  if (!(raft_row(p, ws, kRAlive)[i] &&
-        work<int32_t>(p, ws, kApplied)[i] ==
-            work<int32_t>(p, ws, kWFrontier)[0]))
+template <class E>
+__device__ __forceinline__ void diverge(const E &e, int i) {
+  const Dims &d = e.d();
+  const Machine m = e.machine(i), w = e.machine(-1);
+  if (!(e.alive(i) && e.template w<int32_t>(kApplied)[i] ==
+                          e.template w<int32_t>(kWFrontier)[0]))
     return;
   bool same = *m.cfg_num == *w.cfg_num;
-  for (int g = 0; g < p.ng; ++g) same &= m.member[g] == w.member[g];
+  for (int g = 0; g < d.ng; ++g) same &= m.member[g] == w.member[g];
   for (int s = 0; s < kShards; ++s) same &= m.owner[s] == w.owner[s];
-  for (int h = 0; h < p.ncfg; ++h) same &= m.hist[h] == w.hist[h];
-  for (int cl = 0; cl < p.nc; ++cl) same &= m.last_seq[cl] == w.last_seq[cl];
-  if (!same) shared_or(ws + p.viol, kViolDiverge);
+  for (int h = 0; h < d.ncfg; ++h) same &= m.hist[h] == w.hist[h];
+  for (int cl = 0; cl < d.nc; ++cl) same &= m.last_seq[cl] == w.last_seq[cl];
+  if (!same) shared_or(e.s(e.L().viol), kViolDiverge);
 }
 
-// Phase kClerks: the divergence oracle, a node a thread of the first
-// warp, and a clerk a thread from kClerk0 on: the Query answer (the
-// largest a node gave in the first round any gave one), the ack, the
-// query oracle, the metric folds, a fresh op or a retry and its target
-__device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
-                                       int tid) {
-  const int n = p.n, nc = p.nc, ng = p.ng, part = p.partitionable;
-  if (tid < n) diverge(p, ws, tid);
-  const int cl = tid - kClerk0;
-  if (cl < 0 || cl >= nc) return;
-  const int32_t t = read_row<int32_t>(p, kTick, c, 1)[0];
-  const Ro<float> kf = read_row<float>(p, kKnobF, c, kNF);
+// Clerk cl of phase clerks: the Query answer (the largest a node gave in
+// the first round any gave one), the ack, the query oracle, the metric
+// folds, a fresh op or a retry and its target. It reads its own pre-tick
+// values before it writes any
+template <class E>
+__device__ __forceinline__ void clerk(const E &e, int cl) {
+  const Dims &d = e.d();
+  const Layout &L = e.L();
+  const int n = d.n, nc = d.nc, ng = d.ng, part = d.part;
+  const int32_t t = e.tick();
   int32_t viol = 0;
 
-  const int32_t cs = in_row<int32_t>(p, kClerkSeq, c)[cl];
-  const int32_t kind0 = in_row<int32_t>(p, kClerkKind, c)[cl];
-  const bool out0 = in_row<uint8_t>(p, kClerkOut, c)[cl] != 0;
-  int32_t obs = work<int32_t>(p, ws, kClerkQObs)[cl];
+  const int32_t cs = e.template pre<int32_t>(kClerkSeq)[cl];
+  const int32_t kind0 = e.template pre<int32_t>(kClerkKind)[cl];
+  const bool out0 = e.template pre<uint8_t>(kClerkOut)[cl] != 0;
+  int32_t obs = e.template w<int32_t>(kClerkQObs)[cl];
   if (obs < 0) {
-    int round = p.apply_max;
+    int round = d.apply_max;
     for (int i = 0; i < n; ++i) {
-      const int r = ws[p.first + i * nc + cl];
-      const int32_t o = ws[p.first_obs + i * nc + cl];
-      if (r < round || (r == round && r < p.apply_max && o > obs)) {
+      const int r = e.s(L.first)[i * nc + cl];
+      const int32_t o = e.s(L.first_obs)[i * nc + cl];
+      if (r < round || (r == round && r < d.apply_max && o > obs)) {
         round = r;
         obs = o;
       }
     }
   }
-  const bool in_shadow = ws[p.flag + cl] != 0;
+  const bool in_shadow = e.s(L.flag)[cl] != 0;
   const bool is_q = kind0 == kQuery;
-  const bool ready = obs >= 0 && work<int32_t>(p, ws, kWQSeq)[cl] == cs;
+  const bool ready =
+      obs >= 0 && e.template w<int32_t>(kWQSeq)[cl] == cs;
   int32_t sub = 0, app = 0, cmt = 0, apl = 0;
-  if (kMetrics) {
-    sub = in_row<int32_t>(p, kClerkSub, c)[cl];
-    app = in_row<int32_t>(p, kClerkApp, c)[cl];
-    cmt = in_row<int32_t>(p, kClerkCmt, c)[cl];
-    apl = in_row<int32_t>(p, kClerkApl, c)[cl];
+  if constexpr (E::kMet) {
+    sub = e.template pre<int32_t>(kClerkSub)[cl];
+    app = e.template pre<int32_t>(kClerkApp)[cl];
+    cmt = e.template pre<int32_t>(kClerkCmt)[cl];
+    apl = e.template pre<int32_t>(kClerkApl)[cl];
     if (out0 && in_shadow && cmt == 0) cmt = t;
     if (out0 && ready && apl == 0) apl = t;
   }
   const bool newly = out0 && in_shadow && (!is_q || ready);
   const bool done_q = newly && is_q;
-  if (done_q && obs != work<int32_t>(p, ws, kWQObs)[cl]) viol |= kViolQuery;
-  const int32_t acked = newly ? cs : in_row<int32_t>(p, kClerkAcked, c)[cl];
+  if (done_q && obs != e.template w<int32_t>(kWQObs)[cl]) viol |= kViolQuery;
+  const int32_t acked =
+      newly ? cs : e.template pre<int32_t>(kClerkAcked)[cl];
   bool cout = out0 && !newly;
-  const int32_t done = wrap_add(in_row<int32_t>(p, kQueriesDone, c)[cl],
-                                done_q);
-  if (kMetrics) {
+  const int32_t done =
+      wrap_add(e.template pre<int32_t>(kQueriesDone)[cl], done_q);
+  if constexpr (E::kMet) {
     // the ack's submit->ack latency, its phases (clerk_phase_matrix: the
     // stamps clamped monotone) and its worst-op candidate (key -1)
-    const int hb = p.hb;
+    const int hb = d.hb;
     const int32_t e2e = wrap_sub(t, sub);
     const int32_t app_e = app > sub ? app : sub;
     const int32_t cmt_e = cmt > app_e ? cmt : app_e;
@@ -974,16 +1135,16 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
     const int32_t ph[kPhases] = {wrap_sub(app_e, sub), wrap_sub(cmt_e, app_e),
                                  wrap_sub(b3, cmt_e), wrap_sub(t, b3)};
     if (newly) {
-      shared_add(work<int32_t>(p, ws, kLatHist) + bucket_of(e2e, hb), 1);
-      int32_t *phist = work<int32_t>(p, ws, kPhaseHist);
-      int32_t *pticks = work<int32_t>(p, ws, kPhaseTicks);
+      shared_add(e.template w<int32_t>(kLatHist) + bucket_of(e2e, hb), 1);
+      int32_t *phist = e.template w<int32_t>(kPhaseHist);
+      int32_t *pticks = e.template w<int32_t>(kPhaseTicks);
       for (int q = 0; q < kPhases; ++q) {
         shared_add(phist + q * hb + bucket_of(ph[q], hb), 1);
         shared_add(pticks + q, ph[q]);
       }
-      shared_add(work<int32_t>(p, ws, kLatTicks), e2e);
+      shared_add(e.template w<int32_t>(kLatTicks), e2e);
     }
-    int32_t *x = ws + p.worst + cl * kWorstWords;
+    int32_t *x = e.s(L.worst) + cl * kWorstWords;
     x[0] = newly;
     x[1] = e2e;
     x[2] = -1;
@@ -991,21 +1152,21 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
     for (int q = 0; q < kPhases; ++q) x[4 + q] = ph[q];
   }
 
-  // the draws, from the tick's keys (kStage); each only where its value
-  // is used
+  // the draws, from the tick's keys; each only where its value is used
   uint32_t kk[kDrawKeys][2];
   for (int j = 0; j < kDrawKeys; ++j) {
-    kk[j][0] = static_cast<uint32_t>(ws[p.draws + 2 * j]);
-    kk[j][1] = static_cast<uint32_t>(ws[p.draws + 2 * j + 1]);
+    kk[j][0] = static_cast<uint32_t>(e.s(L.draws)[2 * j]);
+    kk[j][1] = static_cast<uint32_t>(e.s(L.draws)[2 * j + 1]);
   }
   const bool start =
       !cout && cs < kSeqLim - 1 &&
-      madraft::uniform(bits_word(kk[0][0], kk[0][1], cl, nc, part)) < kf[kPOp];
-  int32_t kind = kind0, arg = in_row<int32_t>(p, kClerkArg, c)[cl];
+      madraft::uniform(bits_word(kk[0][0], kk[0][1], cl, nc, part)) <
+          e.kf(kPOp);
+  int32_t kind = kind0, arg = e.template pre<int32_t>(kClerkArg)[cl];
   if (start) {
     const float u = madraft::uniform(
         bits_word(kk[7][0], kk[7][1], cl, nc, part));
-    const float pq = kf[kPQuery], pm = kf[kPMove];
+    const float pq = e.kf(kPQuery), pm = e.kf(kPMove);
     const float pqm = fadd(pq, pm);
     // Join / Leave split the residual mass evenly
     kind = u < pq ? kQuery
@@ -1015,14 +1176,14 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
     const int32_t raw = randint_elem(kk[1][0], kk[1][1], cl, nc, 0,
                                      kShards * ng, part);
     if (kind == kQuery) {
-      arg = raw % 4 == 0 ? p.arg_lim - 1
+      arg = raw % 4 == 0 ? d.arg_lim - 1
                          : randint_elem(kk[4][0], kk[4][1], cl, nc, 0,
-                                        p.ncfg + 1, part);
+                                        d.ncfg + 1, part);
     } else if (kind == kMove) {
       arg = raw;
     } else {
       // a gid set: the first gcnt of the clerk's join_max draws
-      const int jm = p.join_max;
+      const int jm = d.join_max;
       const int32_t cnt = randint_elem(kk[6][0], kk[6][1], cl, nc, 1, jm + 1,
                                        part);
       arg = 0;
@@ -1031,7 +1192,7 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
                                  0, ng, part);
     }
     obs = -1;
-    if (kMetrics) {
+    if constexpr (E::kMet) {
       sub = t;
       app = cmt = apl = 0;
     }
@@ -1039,89 +1200,138 @@ __device__ __forceinline__ void clerks(const Params &p, int32_t *ws, int c,
   cout = cout || start;
   const bool rt = cout && (start || madraft::uniform(bits_word(
                                         kk[2][0], kk[2][1], cl, nc, part)) <
-                                        kf[kPRetry]);
-  if (kMetrics) {
-    work<int32_t>(p, ws, kClerkSub)[cl] = sub;
-    work<int32_t>(p, ws, kClerkApp)[cl] = app;
-    work<int32_t>(p, ws, kClerkCmt)[cl] = cmt;
-    work<int32_t>(p, ws, kClerkApl)[cl] = apl;
+                                        e.kf(kPRetry));
+  if constexpr (E::kMet) {
+    e.template w<int32_t>(kClerkSub)[cl] = sub;
+    e.template w<int32_t>(kClerkApp)[cl] = app;
+    e.template w<int32_t>(kClerkCmt)[cl] = cmt;
+    e.template w<int32_t>(kClerkApl)[cl] = apl;
   }
-  work<int32_t>(p, ws, kClerkSeq)[cl] = start ? wrap_add(cs, 1) : cs;
-  work<uint8_t>(p, ws, kClerkOut)[cl] = cout;
-  work<int32_t>(p, ws, kClerkArg)[cl] = arg;
-  work<int32_t>(p, ws, kClerkKind)[cl] = kind;
-  work<int32_t>(p, ws, kClerkAcked)[cl] = acked;
-  work<int32_t>(p, ws, kClerkQObs)[cl] = obs;
-  work<int32_t>(p, ws, kQueriesDone)[cl] = done;
-  ws[p.target + cl] =
+  e.template w<int32_t>(kClerkSeq)[cl] = start ? wrap_add(cs, 1) : cs;
+  e.template w<uint8_t>(kClerkOut)[cl] = cout;
+  e.template w<int32_t>(kClerkArg)[cl] = arg;
+  e.template w<int32_t>(kClerkKind)[cl] = kind;
+  e.template w<int32_t>(kClerkAcked)[cl] = acked;
+  e.template w<int32_t>(kClerkQObs)[cl] = obs;
+  e.template w<int32_t>(kQueriesDone)[cl] = done;
+  e.s(L.target)[cl] =
       rt ? randint_elem(kk[3][0], kk[3][1], cl, nc, 0, n, part) : 0;
-  ws[p.retry + cl] = rt;
-  if (viol) shared_or(ws + p.viol, viol);
+  e.s(L.retry)[cl] = rt;
+  if (viol) shared_or(e.s(L.viol), viol);
 }
 
-// Phase kSubmit, one thread: the worst-op register, the violation bits,
-// the submits appended at self-believed leaders one clerk after another
+// Phase clerks: the divergence oracle, a node a lane, and the clerks, a
+// clerk a lane from the environment's clerk0() on (K10: the second warp;
+// K6-ctrler's 16 lanes take clerks 16 on twice)
+template <class E>
+__device__ __forceinline__ void clerks(const E &e, int lane) {
+  if (lane < e.d().n) diverge(e, lane);
+  for (int cl = lane - e.clerk0(); cl < e.d().nc; cl += e.lanes())
+    if (cl >= 0) clerk(e, cl);
+}
+
+// Phase submit, one lane: the worst-op register, the violation bits, the
+// submits appended at self-believed leaders one clerk after another
 // (clerk c's append reads the log_len clerk c - 1 moved), and the raft
 // leaves they move
-__device__ __forceinline__ void submit(const Params &p, int32_t *ws, int c) {
-  const int n = p.n, cap = p.cap, nc = p.nc;
-  const int32_t t = read_row<int32_t>(p, kTick, c, 1)[0];
-  const int32_t *term = raft_row(p, ws, kRTerm);
-  const int32_t *role = raft_row(p, ws, kRRole);
-  const int32_t *alive = raft_row(p, ws, kRAlive);
-  const int32_t *base = raft_row(p, ws, kRBase);
-  const int32_t *commit = raft_row(p, ws, kRCommit);
-  const int32_t flow_cap = read_row<int32_t>(p, kKnobI, c, kNI)[kFlowCap];
-  if (kMetrics) worst_apply(p, ws, ws + p.worst);
-  const int32_t viol = ws[p.viol];
-  work<int32_t>(p, ws, kViolations)[0] |= viol;
-  int32_t &fvt = work<int32_t>(p, ws, kFirstViolation)[0];
+template <class E>
+__device__ __forceinline__ void submit(const E &e) {
+  const Dims &d = e.d();
+  const Layout &L = e.L();
+  const int cap = d.cap, nc = d.nc;
+  const int32_t t = e.tick();
+  const int32_t *term = e.term();
+  const int32_t *role = e.role();
+  const int32_t *base = e.base();
+  const int32_t *commit = e.commit();
+  const int32_t flow_cap = e.ki(kFlowCap);
+  if constexpr (E::kMet) worst_apply(e, e.s(L.worst));
+  const int32_t viol = e.s(L.viol)[0];
+  e.violations() |= viol;
+  int32_t &fvt = e.first_violation();
   if (fvt < 0 && viol != 0) fvt = t;
 
-  int32_t *log_term = out_row<int32_t>(p, kLogTerm, c);
-  int32_t *log_val = out_row<int32_t>(p, kLogVal, c);
-  int32_t *log_len = work<int32_t>(p, ws, kLogLen);
+  int32_t *log_len = e.log_len();
   for (int cl = 0; cl < nc; ++cl) {
-    const int i = ws[p.target + cl];
-    const bool ok = ws[p.retry + cl] && alive[i] && role[i] == kLeader &&
+    const int i = e.s(L.target)[cl];
+    const bool ok = e.s(L.retry)[cl] && e.alive(i) && role[i] == kLeader &&
                     wrap_sub(log_len[i], base[i]) < cap &&
                     wrap_sub(log_len[i], commit[i]) < flow_cap;
     if (!ok) continue;
     const int pos = static_cast<int>(static_cast<uint32_t>(log_len[i]) &
                                      static_cast<uint32_t>(cap - 1));
-    log_term[i * cap + pos] = term[i];
-    log_val[i * cap + pos] = pack(
-        cl, work<int32_t>(p, ws, kClerkSeq)[cl],
-        work<int32_t>(p, ws, kClerkArg)[cl],
-        work<int32_t>(p, ws, kClerkKind)[cl], p.arg_lim);
+    e.append(i, pos, term[i],
+             pack(cl, e.template w<int32_t>(kClerkSeq)[cl],
+                  e.template w<int32_t>(kClerkArg)[cl],
+                  e.template w<int32_t>(kClerkKind)[cl], d.arg_lim));
     log_len[i] = wrap_add(log_len[i], 1);
-    if (kMetrics && work<uint8_t>(p, ws, kClerkOut)[cl]) {
-      int32_t &app = work<int32_t>(p, ws, kClerkApp)[cl];
+    if (E::kMet && e.template w<uint8_t>(kClerkOut)[cl]) {
+      int32_t &app = e.template w<int32_t>(kClerkApp)[cl];
       if (app == 0) app = t;
     }
   }
-  const Ro<int32_t> log_len0 = in_row<int32_t>(p, kLogLen, c);
-  int32_t *durable = work<int32_t>(p, ws, kDurableLen);
-  int32_t *floor_ = work<int32_t>(p, ws, kCompactFloor);
-  const int32_t *applied = work<int32_t>(p, ws, kApplied);
-  for (int i = 0; i < n; ++i) {
-    if (log_len[i] > log_len0[i]) durable[i] = log_len[i];
-    floor_[i] = applied[i];
-  }
+  e.submitted();
 }
 
-// Thread tid of cluster c's block in phase `phase` (kSubmit runs on
+// ------------------------------------------------------------ K10's tick
+// K10's phase kStage: every leaf's row from its input into the block's
+// region by the staging plan (stage.cuh), the shadow window's values by
+// cp.async words, the two log rows straight to their outputs, the stepped
+// raft rows and the tick's draw keys, the scratch cleared; then the wait
+// for the copies. The tick then updates the region, and reads the
+// pre-tick values from the inputs (K10Env)
+__device__ __forceinline__ void stage(const Params &p, const Plan &pl,
+                                      int32_t *ws, uint64_t *bar, int c,
+                                      int tid) {
+  const int n = p.d.n, cap = p.d.cap;
+  const Layout &L = p.L;
+  stage::load(pl, reinterpret_cast<unsigned char *>(ws), bar, c, tid,
+              kThreads);
+  const int32_t *sv = static_cast<const int32_t *>(p.read[kShadowVal]) +
+                      static_cast<int64_t>(c) * cap;
+  for (int i = tid; i < cap; i += kThreads)
+    stage::word_load(ws + L.sh_val + i, sv + i);
+  stage::copy_row(p.leaf[kLogTerm].in, p.leaf[kLogTerm].out, n * cap, c,
+                  p.log_quads > 0, tid, kThreads);
+  stage::copy_row(p.leaf[kLogVal].in, p.leaf[kLogVal].out, n * cap, c,
+                  p.log_quads > 0, tid, kThreads);
+  // the tick's keys (kDrawKeys): fold_in(key, t), then the sites, a key a
+  // thread while the copies are in flight
+  if (tid < kDrawKeys) {
+    const Ro<uint32_t> key = read_row<uint32_t>(p, kKeys, c, 4);
+    uint32_t k0 = key[0], k1 = key[2];  // the int64 words' low halves
+    fold_in(k0, k1, static_cast<uint32_t>(
+        read_row<int32_t>(p, kTick, c, 1)[0]));
+    draw_key(k0, k1, tid, p.d.part, ws + L.draws + 2 * tid);
+  }
+  for (int i = tid; i < n; i += kThreads) {
+    int32_t *rr = ws + L.raft + i;
+    rr[kRTerm * n] = read_row<int32_t>(p, kTerm, c, n)[i];
+    rr[kRRole * n] = read_row<int32_t>(p, kRole, c, n)[i];
+    rr[kRAlive * n] = read_row<uint8_t>(p, kAlive, c, n)[i] != 0;
+    rr[kRBase * n] = read_row<int32_t>(p, kBase, c, n)[i];
+    rr[kRCommit * n] = read_row<int32_t>(p, kCommit, c, n)[i];
+    rr[kRSnapSrc * n] = read_row<int32_t>(p, kSnapSrc, c, n)[i];
+    rr[kRPreAlive * n] = read_row<uint8_t>(p, kPreAlive, c, n)[i] != 0;
+    rr[kRPreBase * n] = read_row<int32_t>(p, kPreBase, c, n)[i];
+  }
+  clear_tick(L, ws, p.d.nc, tid, kThreads);
+  stage::wait(bar, pl.bulk_bytes);
+}
+
+// Thread tid of cluster c's block in K10's phase `phase` (kSubmit runs on
 // thread 0 alone); pl is the staging plan (its copy in shared memory), ws
-// the block's region of Params::words words, bar its mbarrier
+// the block's region of Layout::words words, bar its mbarrier
 __device__ __forceinline__ void run_phase(const Params &p, const Plan &pl,
                                           int32_t *ws, uint64_t *bar, int c,
                                           int tid, int phase) {
+  const K10Env e{p, ws, c};
   switch (phase) {
     case kStage: stage(p, pl, ws, bar, c, tid); break;
-    case kRestore: restore(p, ws, c, tid); break;
-    case kApply: apply(p, ws, c, tid); break;
-    case kClerks: clerks(p, ws, c, tid); break;
-    case kSubmit: if (tid == 0) submit(p, ws, c); break;
+    case kRestore: restore(e, tid); break;
+    case kApply: apply(e, tid); break;
+    case kClerks: clerks(e, tid); break;
+    case kSubmit: if (tid == 0) submit(e); break;
     default:
       stage::store(pl, reinterpret_cast<const unsigned char *>(ws), c, tid,
                    kThreads);

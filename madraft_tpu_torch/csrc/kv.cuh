@@ -245,15 +245,14 @@ inline bool set_params(Params &p, const int64_t *d, int n_desc) {
 
 // K6-kv's share of K6's parameters (tick.cuh Params::kv): the service
 // leaves in and out (a metric leaf's row has no in or out: K6 keeps the
-// metric leaves), the kv knob table, the shape, the region and its byte
-// offset in a cluster's block
+// metric leaves), the kv knob table, the shape and the region (tick.cuh
+// places it in a cluster's block)
 struct Side {
   LeafRef leaf[kLeaves];
   const float *kf;  // [B, kNF]
   const int *ki;    // [B, kNI]
   Dims d;
   Layout L;
-  int off;
 };
 
 // Side from K6-kv's descriptor (kNc .. kMetricsOn, kf, ki, then 4 words a

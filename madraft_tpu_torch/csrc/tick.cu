@@ -106,6 +106,33 @@
 // A run of T kv ticks is ceil(T / 256) launches, where K6 and K9 made two
 // checked launches a tick.
 //
+// K6-ctrler (B1 for the shard controller: the reference's ctrler_step,
+// madraft_tpu/tpusim/ctrler.py 576-591, the raft tick then
+// _ctrler_service_tick 593-954, scanned by _ctrler_program 1151-1206;
+// K10's function with K6's): -DMADRAFT_K6_CTRLER (with
+// -DMADRAFT_K6_METRICS, K6-metrics-ctrler) runs the controller's service
+// tick after every raft tick of the chunk, on the same tile (tick.cuh
+// ctrler_tick, on ctrler.cuh's phase functions, which K10 runs a block a
+// cluster). The service leaves are staged into the cluster's block after
+// K6's slots once a chunk and written back once, but for the nodes' two
+// [n, n_configs] history tables, which stay in the new state's rows in
+// device memory (up to 16 KB each at n = 16 and 256 configs: the block
+// could not hold them beside K6's at the largest shapes K10 takes; 480 B
+// each at the flagship, read by a node's Query and its divergence check,
+// written by a new config); an install's tick copies the snapshot tables
+// first, since the sender's pre-tick snapshot is the one adopted. The
+// raft leaves the service writes stay where K6 holds them, and the
+// clerks' metric sums and the worst-op register sit in the ctrler region
+// until metric_rows writes the metric leaves once, as in K6-kv. These
+// builds add the template instance (5, 32), ctrler-fuzz's ring. Bound:
+// per chunk K6's state and the service leaves read and written once, the
+// keys and both knob tables; per cluster-tick K6's 2 + total hashes and
+// the service's (the eight draw keys, the clerks' words), the shadow
+// search and the restore's cells, and a rebalance a node's apply round
+// and a walker step (chip_smoke.py _k6ctrler_timing counts this run's).
+// A run of T ctrler ticks is ceil(T / 256) launches, where K6 and K10
+// made two checked launches a tick.
+//
 // K6-trace (B10, the reference's traced scan, madraft_tpu/tpusim/trace.py
 // 160-195, with its per-tick record _pack_rows / _deliveries / _record
 // 108-158, kernel K8's function on its own): given a trace buffer, any
@@ -140,31 +167,45 @@ constexpr bool kCov = true;
 #else
 constexpr bool kCov = false;
 #endif
-#ifdef MADRAFT_K6_KV
-constexpr bool kKv = true;
+// The service tick the build runs after each raft tick (tick.cuh Svc)
+#if defined(MADRAFT_K6_KV) && defined(MADRAFT_K6_CTRLER)
+#error "one service a build"
+#elif defined(MADRAFT_K6_KV)
+constexpr int kSvc = k6::kSvcKv;
+#elif defined(MADRAFT_K6_CTRLER)
+constexpr int kSvc = k6::kSvcCtrler;
 #else
-constexpr bool kKv = false;
+constexpr int kSvc = k6::kNoSvc;
 #endif
+// The template instances of the build: the ctrler builds add (5, 32)
+constexpr int kBuildShapes =
+    kSvc == k6::kSvcCtrler ? k6::kCtrlerShapes : k6::kShapes;
 
 // Lanes a cluster takes: k6::kTile (n <= 16), two clusters a warp
 constexpr int kTile = k6::kTile;
 // Blocks an SM should hold (the launch bounds): as many blocks of
 // kWarps warps as a template instance's shared blocks let an SM hold
-// (228 KB, 1 KB a block reserved), at most 4 (32 clusters, what n = 5,
-// cap = 64 fits); 4 for the runtime instance. That caps a thread at 128
-// registers where 4 blocks fit, and gives the shapes whose shared blocks
-// fit fewer the registers that their occupancy leaves
+// (228 KB, 1 KB a block reserved), at most kMost (4: 32 clusters, what
+// n = 5, cap = 64 fits); kMost for the runtime instance. That caps a
+// thread at 128 registers where 4 blocks fit, and gives the shapes whose
+// shared blocks fit fewer the registers that their occupancy leaves.
+// K6-ctrler's service tick (a rebalance a node and on the walker's lane,
+// the clerks' draws) spilled 4-104 bytes under 128 registers: its builds
+// take kMost = 2 (16 clusters an SM, its flagship's 1024 clusters still
+// one wave), 136-220 registers, no spill, the same time a launch (H100:
+// 14.90 ms at the flagship against 14.76-14.95 with 4)
 template <int N_, int CAP_, int AE_>
 constexpr int blocks_per_sm() {
+  constexpr int kMost = kSvc == k6::kSvcCtrler ? 2 : 4;
   if constexpr (N_ == 0) {
-    return 4;
+    return kMost;
   } else {
     const int per_block = kWarps * (k6::kWarp / kTile) *
                               k6::slot_offset(k6::kSlots, N_, CAP_, AE_,
                                               kMet) +
                           1024;
     const int fit = 228 * 1024 / per_block;
-    return fit < 1 ? 1 : fit > 4 ? 4 : fit;
+    return fit < 1 ? 1 : fit > kMost ? kMost : fit;
   }
 }
 
@@ -179,7 +220,7 @@ __global__ void __launch_bounds__(kWarps * k6::kWarp,
   if (first >= p.b) return;  // the whole warp leaves together
   const int tile = lane / kTile, b = first + tile;
   const bool active = b < p.b;  // else a copy of the last cluster, unwritten
-  k6::run_cluster<N_, CAP_, AE_, kTile, kProf, kMet, kCov, kKv>(
+  k6::run_cluster<N_, CAP_, AE_, kTile, kProf, kMet, kCov, kSvc>(
       p, smem + static_cast<size_t>(warp * kPerWarp + tile) * p.cluster_bytes,
       active ? b : p.b - 1, active, k6::Tile<kTile>{lane % kTile, tile * kTile},
       prof);
@@ -225,13 +266,17 @@ int go_shape(const k6::Params &p, cudaStream_t stream, long long *prof,
 template <bool kProf>
 int dispatch(const k6::Params &p, cudaStream_t st, long long *prof,
              int *occ) {
-  switch (k6::instance(p.n, p.cap, p.ae_max)) {
+  switch (k6::instance(p.n, p.cap, p.ae_max, kBuildShapes)) {
     case 1: return go_shape<0, kProf>(p, st, prof, occ);
     case 2: return go_shape<1, kProf>(p, st, prof, occ);
     case 3: return go_shape<2, kProf>(p, st, prof, occ);
     case 4: return go_shape<3, kProf>(p, st, prof, occ);
     case 5: return go_shape<4, kProf>(p, st, prof, occ);
     case 6: return go_shape<5, kProf>(p, st, prof, occ);
+    case 7:
+      if constexpr (kBuildShapes > k6::kShapes)
+        return go_shape<6, kProf>(p, st, prof, occ);
+      [[fallthrough]];
     default: return go<0, 0, 0, kProf>(p, st, prof, occ);
   }
 }
@@ -243,8 +288,8 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
            int n_leaves, const void *keys, const void *kf, const void *ki,
            const int *draws, int n_draws, int b, int n, int cap, int ae_max,
            int m, int bug, int partitionable, const int64_t *mptrs,
-           const int64_t *cov, void *trace, int trace_w, const int64_t *kv,
-           int n_kv, void *stream, long long *prof) {
+           const int64_t *cov, void *trace, int trace_w, const int64_t *svc,
+           int n_svc, void *stream, long long *prof) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws || b < 1 || m < 1 ||
       n < 1 || n > k6::kMaxNodes || cap < 1 || cap > k6::kMaxCap ||
       (cap & (cap - 1)) || ae_max < 0 || ae_max > k6::kMaxAe || bug < 0 ||
@@ -258,13 +303,13 @@ int launch(const int64_t *ins, const int64_t *outs, const int *kinds,
     p.in[l] = reinterpret_cast<const void *>(ins[l]);
     p.out[l] = reinterpret_cast<void *>(outs[l]);
   }
-  const int inst = k6::instance(n, cap, ae_max);
+  const int inst = k6::instance(n, cap, ae_max, kBuildShapes);
   if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
                      draws) ||
       (mptrs != nullptr) != kMet || (cov != nullptr) != kCov ||
       !k6::set_variant(p, mptrs, cov) ||
       !k6::set_trace(p, trace, trace_w, kMet) ||
-      !k6::set_kv(p, kv, n_kv, partitionable, kMet, kKv))
+      !k6::set_service(p, svc, n_svc, partitionable, kMet, kSvc))
     return static_cast<int>(cudaErrorInvalidValue);
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
@@ -299,20 +344,20 @@ __global__ void __launch_bounds__(kCreditThreads)
 // else null); cov: the coverage arguments (the coverage variant's, else
 // null: set_variant); trace: int32 [m, b, trace_w] rows, each tick's
 // flight-recorder row (null: none; trace_w held against the row's width;
-// K6-kv writes none); kv: K6-kv's descriptor of n_kv words (kv.cuh
-// set_side; the K6-kv builds', else null). Returns cudaGetLastError()
-// after the launch.
+// a service build writes none); svc: a service build's descriptor of
+// n_svc words (K6-kv's kv.cuh set_side, K6-ctrler's ctrler.cuh set_side;
+// else null). Returns cudaGetLastError() after the launch.
 extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            const int *kinds, int n_leaves, const void *keys,
                            const void *kf, const void *ki, const int *draws,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
                            const int64_t *mptrs, const int64_t *cov,
-                           void *trace, int trace_w, const int64_t *kv,
-                           int n_kv, void *stream) {
+                           void *trace, int trace_w, const int64_t *svc,
+                           int n_svc, void *stream) {
   return launch<false>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                        n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                       mptrs, cov, trace, trace_w, kv, n_kv, stream,
+                       mptrs, cov, trace, trace_w, svc, n_svc, stream,
                        nullptr);
 }
 
@@ -328,10 +373,10 @@ extern "C" int credit_launch(const void *fp, const void *seen, void *new_fps,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance tick_launch runs for a shape: 1 + its index in tick.cuh's
-// shape list, 0 for the runtime one
+// The instance tick_launch runs for a shape in this build: 1 + its index
+// in tick.cuh's shape list, 0 for the runtime one
 extern "C" int tick_instance(int n, int cap, int ae_max) {
-  return k6::instance(n, cap, ae_max);
+  return k6::instance(n, cap, ae_max, kBuildShapes);
 }
 
 // How tick_launch lays a shape's clusters out in this build: out[0]
@@ -344,7 +389,7 @@ extern "C" int tick_grid(int n, int cap, int ae_max, int *out) {
     return static_cast<int>(cudaErrorInvalidValue);
   int draws[k6::kDraws];
   for (int i = 0; i < k6::kDraws; ++i) draws[i] = k6::draw_offset(i, n);
-  const int inst = k6::instance(n, cap, ae_max);
+  const int inst = k6::instance(n, cap, ae_max, kBuildShapes);
   k6::Params p;
   k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
                 draws);
@@ -366,11 +411,11 @@ extern "C" int tick_launch_profile(const int64_t *ins, const int64_t *outs,
                                    int ae_max, int m, int bug,
                                    int partitionable, const int64_t *mptrs,
                                    const int64_t *cov, void *trace,
-                                   int trace_w, const int64_t *kv, int n_kv,
-                                   void *stream, void *prof) {
+                                   int trace_w, const int64_t *svc,
+                                   int n_svc, void *stream, void *prof) {
   return launch<true>(ins, outs, kinds, n_leaves, keys, kf, ki, draws,
                       n_draws, b, n, cap, ae_max, m, bug, partitionable,
-                      mptrs, cov, trace, trace_w, kv, n_kv, stream,
+                      mptrs, cov, trace, trace_w, svc, n_svc, stream,
                       static_cast<long long *>(prof));
 }
 #endif

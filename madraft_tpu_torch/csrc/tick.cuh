@@ -31,11 +31,14 @@
 // the coverage fingerprint (kCov: after each tick the cluster's seen-set
 // bit is stamped with the run-wide tick and the bit's flat index kept for
 // the credit pass, credits()); tick.cu compiles each as its own build.
-// In any build but K6-kv a trace buffer (Params::trace, null elsewhere)
-// gets each tick's flight-recorder row (record(): K6-trace). A third flag
-// (kKv, the K6-kv builds) runs the kv service tick (kv.cuh's phases, the
-// reference's _kv_service_tick) after every raft tick, on the same tile,
-// with the kv leaves in the cluster's block for the chunk (kv_tick()).
+// In any build but a service's a trace buffer (Params::trace, null
+// elsewhere) gets each tick's flight-recorder row (record(): K6-trace). A
+// third parameter (kSvc) names a service tick that runs after every raft
+// tick, on the same tile, with the service's leaves in the cluster's block
+// for the chunk: kv's (kSvcKv, the K6-kv builds: kv.cuh's phases, the
+// reference's _kv_service_tick; kv_tick()) or the shard controller's
+// (kSvcCtrler, the K6-ctrler builds: ctrler.cuh's phases, the reference's
+// _ctrler_service_tick; ctrler_tick()).
 //
 // Arithmetic as the reference's: int32 wraps where it wraps there (sums
 // that can wrap go through uint32, the entry hash too), floor division and
@@ -48,6 +51,7 @@
 #include <cstdint>
 
 #include "coverage.cuh"
+#include "ctrler.cuh"
 #include "kv.cuh"
 #include "threefry.cuh"
 
@@ -64,6 +68,11 @@ constexpr int kFollower = 0, kCandidate = 1, kLeader = 2;
 constexpr int kNoopCmd = 1 << 30;
 constexpr int kViolDual = 1, kViolLogMatch = 2, kViolShadow = 4;
 constexpr int kViolPrefix = 512;
+
+// The service tick a build runs after each raft tick of a chunk (the
+// template parameter kSvc): none, kv's (K6-kv) or the shard controller's
+// (K6-ctrler)
+enum Svc { kNoSvc, kSvcKv, kSvcCtrler };
 
 // config.RAFT_BUGS, by index
 enum Bug { kNoBug, kCommitAnyTerm, kGrantAnyVote, kForgetVotedFor,
@@ -207,16 +216,23 @@ __host__ __device__ constexpr int draw_offset(int d, int n) {
 }
 
 // The template instances tick.cu compiles: (N, CAP) = (3 | 5 | 7, 16 |
-// 64), each for ae_max <= kShapeAe; instance 0 takes its shape at run time
+// 64), each for ae_max <= kShapeAe, and in the K6-ctrler builds (5, 32),
+// ctrler-fuzz's ring (kCtrlerShapes); instance 0 takes its shape at run
+// time
 constexpr int kShapes = 6;
+constexpr int kCtrlerShapes = kShapes + 1;
 constexpr int kShapeAe = 4;
-__host__ __device__ constexpr int shape_n(int i) { return 3 + 2 * (i / 2); }
-__host__ __device__ constexpr int shape_cap(int i) {
-  return i % 2 ? 64 : 16;
+__host__ __device__ constexpr int shape_n(int i) {
+  return i < kShapes ? 3 + 2 * (i / 2) : 5;
 }
-// The instance that runs (n, cap, ae_max): 1 + its index, or 0
-__host__ __device__ constexpr int instance(int n, int cap, int ae_max) {
-  for (int i = 0; i < kShapes; ++i)
+__host__ __device__ constexpr int shape_cap(int i) {
+  return i < kShapes ? (i % 2 ? 64 : 16) : 32;
+}
+// The instance that runs (n, cap, ae_max) in a build of `shapes`
+// instances: 1 + its index, or 0
+__host__ __device__ constexpr int instance(int n, int cap, int ae_max,
+                                           int shapes = kShapes) {
+  for (int i = 0; i < shapes; ++i)
     if (n == shape_n(i) && cap == shape_cap(i) && ae_max <= kShapeAe)
       return 1 + i;
   return 0;
@@ -281,9 +297,14 @@ struct Params {
   // tick's flight-recorder row
   int *trace;
   int trace_w;
-  // K6-kv: the service leaves, the kv knobs, the shape and the region
-  // after K6's slots in a cluster's block (kv.cuh Side; unset elsewhere)
-  k9::Side kv;
+  // A service build's side (set_service; unset elsewhere): the service
+  // leaves, its knobs, its shape and its region, which starts svc_off
+  // bytes into a cluster's block, after K6's slots
+  union {
+    k9::Side kv;       // K6-kv (kv.cuh Side)
+    k10::Side ctrler;  // K6-ctrler (ctrler.cuh Side)
+  };
+  int svc_off;
 };
 
 __host__ __device__ constexpr int shape_elems(int kind, int n, int cap) {
@@ -379,20 +400,31 @@ inline bool set_trace(Params &p, void *trace, int w, bool met) {
   return !trace || w == trace_width(p.n, p.cap, met);
 }
 
-// Fills p's K6-kv side from its descriptor (kv.cuh set_side; null in
-// the other builds, on false) after set_shape and set_trace: the kv
-// region goes after K6's slots in a cluster's block. False where the
-// build and the descriptor disagree, for a descriptor K6-kv does not
-// take, or with a trace buffer (K6-kv writes no trace rows)
-inline bool set_kv(Params &p, const int64_t *kv, int n_kv, int part,
-                   bool met, bool on) {
-  if ((kv != nullptr) != on) return false;
-  if (!on) return true;
-  if (p.trace || !k9::set_side(p.kv, kv, n_kv, p.n, p.cap, part, met) ||
-      (met && p.kv.d.hb != kHist))
-    return false;
-  p.kv.off = p.cluster_bytes;
-  p.cluster_bytes += (4 * p.kv.L.words + 15) & ~15;
+// Fills p's service side from its descriptor of n_svc words (kv.cuh or
+// ctrler.cuh set_side; null in the other builds) for the build's service
+// svc, after set_shape and set_trace: the service's region goes after
+// K6's slots in a cluster's block. False where the build and the
+// descriptor disagree, for a descriptor the build does not take, or with
+// a trace buffer (a service build writes no trace rows)
+inline bool set_service(Params &p, const int64_t *desc, int n_svc, int part,
+                        bool met, int svc) {
+  p.svc_off = p.cluster_bytes;
+  if ((desc != nullptr) != (svc != kNoSvc)) return false;
+  if (svc == kNoSvc) return true;
+  if (p.trace) return false;
+  int words = 0;
+  if (svc == kSvcKv) {
+    if (!k9::set_side(p.kv, desc, n_svc, p.n, p.cap, part, met) ||
+        (met && p.kv.d.hb != kHist))
+      return false;
+    words = p.kv.L.words;
+  } else {
+    if (!k10::set_side(p.ctrler, desc, n_svc, p.n, p.cap, part, met) ||
+        (met && p.ctrler.d.hb != kHist))
+      return false;
+    words = p.ctrler.L.words;
+  }
+  p.cluster_bytes += (4 * words + 15) & ~15;
   return true;
 }
 
@@ -551,13 +583,13 @@ struct Block {
     else
       return cl + p.off[S];
   }
-  // K6-kv's region, after the slots
-  __device__ __forceinline__ int32_t *kv() const {
+  // A service build's region, after the slots
+  __device__ __forceinline__ int32_t *svc() const {
     if constexpr (N_ > 0)
       return reinterpret_cast<int32_t *>(
           cl + kSlotOffset<N_, CAP_, AE_, MET_, kSlots>);
     else
-      return reinterpret_cast<int32_t *>(cl + p.kv.off);
+      return reinterpret_cast<int32_t *>(cl + p.svc_off);
   }
 };
 template <int S, typename Blk>
@@ -699,19 +731,20 @@ __device__ void own_store(const Blk &s, const Own &o, int d, int n) {
 // The keys of a chunk's ticks: at tick i of the chunk, tick t (as u32),
 // and every TILE ticks, tile lane l derives the key of tick t + l
 // (fold_in(fold_in(key, t), 0)) from cluster b's key, and a shuffle hands
-// tick i's key to the tile's lanes. K6-kv (kKv) keeps fold_in(key, t + l)
-// too, the key the service tick's draws fold their sites into (svc)
-template <int TILE, bool kKv = false>
+// tick i's key to the tile's lanes. A service build (kSvc) keeps
+// fold_in(key, t + l) too, the key the service tick's draws fold their
+// sites into (svc)
+template <int TILE, bool kSvc = false>
 struct TickKeys {
   uint32_t k0 = 0u, k1 = 0u;
-  uint32_t f0 = 0u, f1 = 0u;  // kKv: fold_in(key, t + lane)
+  uint32_t f0 = 0u, f1 = 0u;  // kSvc: fold_in(key, t + lane)
   __device__ __forceinline__ void get(const Params &p, int b, int i,
                                       uint32_t t, const Tile<TILE> &tile,
                                       uint32_t &tk0, uint32_t &tk1) {
     if ((i & (TILE - 1)) == 0) {
       k0 = static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b)]);
       k1 = static_cast<uint32_t>(p.keys[2 * static_cast<size_t>(b) + 1]);
-      if constexpr (kKv) {
+      if constexpr (kSvc) {
         madraft::fold_in(k0, k1, t + static_cast<uint32_t>(tile.lane));
         f0 = k0;
         f1 = k1;
@@ -723,7 +756,7 @@ struct TickKeys {
     tk0 = tile.shfl(k0, i & (TILE - 1));
     tk1 = tile.shfl(k1, i & (TILE - 1));
   }
-  // kKv: tick i's fold_in(key, t), after get
+  // kSvc: tick i's fold_in(key, t), after get
   __device__ __forceinline__ void svc(int i, const Tile<TILE> &tile,
                                       uint32_t &s0, uint32_t &s1) const {
     s0 = tile.shfl(f0, i & (TILE - 1));
@@ -877,6 +910,25 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
   return viol;
 }
 
+// A service build's region row of a metric leaf: m counts from lat_hist in
+// the order both services hold them (SvcMetric), after the service's own
+// leaves; the clerks' folds add to the sums there and the worst-op
+// register lives there for the chunk (metric_rows writes them out)
+enum SvcMetric { SM_LAT_HIST, SM_PHASE_HIST, SM_PHASE_TICKS, SM_LAT_TICKS,
+                 SM_WORST_LAT, SM_WORST_PHASES, SM_WORST_KEY,
+                 SM_WORST_CLIENT, SM_WORST_SUB, kSvcMetrics };
+static_assert(k9::kWorstSub - k9::kLatHist == SM_WORST_SUB &&
+                  k10::kWorstSub - k10::kLatHist == SM_WORST_SUB,
+              "the services' metric leaves in SvcMetric order");
+template <int kSvc>
+__device__ __forceinline__ int32_t *svc_metric(const Params &p, int32_t *svc,
+                                               int m) {
+  if constexpr (kSvc == kSvcKv)
+    return svc + p.kv.leaf[k9::kLatHist + m].off;
+  else
+    return svc + p.ctrler.leaf[k10::kLatHist + m].off;
+}
+
 // The tick's commit-latency fold (step.py 663-690; K4's function, which
 // the eager tick launches), on the shadow's record stamps the oracle just
 // wrote (in device memory, Stamps): each ring slot with a stamp sub > 0
@@ -887,13 +939,14 @@ __device__ __forceinline__ int ring_checks(const Blk &s,
 // latency : -1), the lowest slot on ties (a maximum over the tile, then
 // the least slot that holds it), and it replaces the register when it is
 // greater or the register is empty (worst_sub 0). A warp with no ack this
-// tick only scans its slots. In K6-kv (kKv) the register is the kv
-// region's rows (kv), where the service's clerks fold into it too: every
-// lane reads it, then tile lane 0 writes the candidate that wins
-template <int CAP_, int TILE, bool kKv = false>
+// tick only scans its slots. In a service build (kSvc) the register is
+// the service region's rows (svc), where the service's clerks fold into
+// it too: every lane reads it, then tile lane 0 writes the candidate that
+// wins
+template <int CAP_, int TILE, int kSvc = kNoSvc>
 __device__ void fold(const Params &p, const Stamps &st,
                      const Tile<TILE> &tile, int t, Meter &mt,
-                     int32_t *kv = nullptr) {
+                     int32_t *svc = nullptr) {
   const int cap = CAP_ ? CAP_ : p.cap, lane = tile.lane;
   const int *ss = st.shadow_sub();
   int best = kIntMin, best_k = kBig;  // best_k kBig: the lane has no slot
@@ -916,19 +969,19 @@ __device__ void fold(const Params &p, const Stamps &st,
   const bool any = tile.ballot(mine) != 0u;
   const int top = tile.max(best);
   const int at = tile.min(best == top ? best_k : kBig);
-  if constexpr (kKv) {
-    auto row = [&](int l) { return kv + p.kv.leaf[l].off; };
+  if constexpr (kSvc != kNoSvc) {
+    auto row = [&](int m) { return svc_metric<kSvc>(p, svc, m); };
     const int cand = any ? wsub(t, ss[at]) : 0;
     const bool better =
-        any && (cand > row(k9::kWorstLat)[0] || row(k9::kWorstSub)[0] == 0);
+        any && (cand > row(SM_WORST_LAT)[0] || row(SM_WORST_SUB)[0] == 0);
     __syncwarp();  // the register is read
     if (better && lane == 0) {
-      row(k9::kWorstLat)[0] = cand;
-      row(k9::kWorstSub)[0] = ss[at];
-      row(k9::kWorstKey)[0] = -1;
-      row(k9::kWorstClient)[0] = -1;
+      row(SM_WORST_LAT)[0] = cand;
+      row(SM_WORST_SUB)[0] = ss[at];
+      row(SM_WORST_KEY)[0] = -1;
+      row(SM_WORST_CLIENT)[0] = -1;
       for (int q = 0; q < kLatPhases; ++q)
-        row(k9::kWorstPhases)[q] = q == kReplicate ? cand : 0;
+        row(SM_WORST_PHASES)[q] = q == kReplicate ? cand : 0;
     }
   } else if (any) {
     const int cand = wsub(t, ss[at]);
@@ -954,10 +1007,10 @@ __device__ void fold(const Params &p, const Stamps &st,
 
 // One tick of the cluster (step.py step_cluster, with cfg.metrics as kMet)
 // under the tick's key (tk0, tk1); alive is the warp's mask of live nodes,
-// carried from tick to tick; st the metrics variant's stamp rings; kKv
-// the K6-kv builds (the worst-op register in the kv region)
+// carried from tick to tick; st the metrics variant's stamp rings; kSvc
+// a service build's (the worst-op register in the service's region)
 template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet,
-          bool kKv = false>
+          int kSvc = kNoSvc>
 __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
                      const Stamps &st, Own &o, Meter &mt, unsigned &alive,
                      const Tile<TILE> &tile, Clock<kProf> &clk, uint32_t tk0,
@@ -1637,7 +1690,7 @@ __device__ void tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
     }
   }
   __syncwarp();
-  if constexpr (kMet) fold<CAP_, TILE, kKv>(p, st, tile, t, mt, s.kv());
+  if constexpr (kMet) fold<CAP_, TILE, kSvc>(p, st, tile, t, mt, s.svc());
   clk.mark(P_ORACLE);
 
   // ------------------ compaction (691-705), background fsync (707-722)
@@ -1726,13 +1779,13 @@ __device__ void stamps_load(const Stamps &st, int lane) {
 // 0), so each phase row's mass is the acked count (step.py 666-685).
 // out(leaf, i, v) takes element i of cluster b's row of the leaf; the
 // tile's lanes all call this (its sums are tile reductions), and only a
-// tile that holds a cluster (active) writes. K6-kv (kKv) adds the kv
-// region kv's sums of the clerks' folds, and its worst-op register is the
-// region's
-template <int TILE, bool kKv = false, typename Out>
+// tile that holds a cluster (active) writes. A service build (kSvc) adds
+// the service region svc's sums of the clerks' folds, and its worst-op
+// register is the region's
+template <int TILE, int kSvc = kNoSvc, typename Out>
 __device__ void metric_rows(const Params &p, int b, bool active,
                             const Tile<TILE> &tile, const Meter &mt,
-                            Out out, const int32_t *kv = nullptr) {
+                            Out out, int32_t *svc = nullptr) {
   const int lane = tile.lane;
   int ev = 0;
 #pragma unroll
@@ -1746,16 +1799,17 @@ __device__ void metric_rows(const Params &p, int b, bool active,
   auto in = [&](int leaf, int size, int i) {
     return p.m_in[leaf][c * size + i];
   };
-  // the kv region's row of a metric leaf (K6-kv)
-  auto kv_row = [&](int l) { return kv + p.kv.leaf[l].off; };
+  // the service region's row of a metric leaf
+  auto svc_row = [&](int m) { return svc_metric<kSvc>(p, svc, m); };
+  constexpr bool kOn = kSvc != kNoSvc;
   if (lane < kHist) {
     int lh = wadd(in(M_LAT_HIST, kHist, lane), mt.hist);
-    if constexpr (kKv) lh = wadd(lh, kv_row(k9::kLatHist)[lane]);
+    if constexpr (kOn) lh = wadd(lh, svc_row(SM_LAT_HIST)[lane]);
     out(M_LAT_HIST, lane, lh);
     for (int ph = 0; ph < kLatPhases; ++ph) {
       const int i = ph * kHist + lane;
       int add = ph == kReplicate ? mt.hist : lane == 0 ? acked : 0;
-      if constexpr (kKv) add = wadd(add, kv_row(k9::kPhaseHist)[i]);
+      if constexpr (kOn) add = wadd(add, svc_row(SM_PHASE_HIST)[i]);
       out(M_PHASE_HIST, i, wadd(in(M_PHASE_HIST, kLatPhases * kHist, i),
                                 add));
     }
@@ -1764,10 +1818,10 @@ __device__ void metric_rows(const Params &p, int b, bool active,
     out(M_EV_COUNTS, lane, wadd(in(M_EV_COUNTS, kEvents, lane), ev));
   if (lane < kLatPhases) {
     int pt = lane == kReplicate ? lat_sum : 0;
-    if constexpr (kKv) pt = wadd(pt, kv_row(k9::kPhaseTicks)[lane]);
+    if constexpr (kOn) pt = wadd(pt, svc_row(SM_PHASE_TICKS)[lane]);
     out(M_PHASE_TICKS, lane, wadd(in(M_PHASE_TICKS, kLatPhases, lane), pt));
-    if constexpr (kKv)
-      out(M_WORST_PHASES, lane, kv_row(k9::kWorstPhases)[lane]);
+    if constexpr (kOn)
+      out(M_WORST_PHASES, lane, svc_row(SM_WORST_PHASES)[lane]);
     else
       out(M_WORST_PHASES, lane,
           mt.worst_new ? (lane == kReplicate ? mt.worst_lat : 0)
@@ -1775,13 +1829,13 @@ __device__ void metric_rows(const Params &p, int b, bool active,
   }
   if (lane == 0) {
     int lt = lat_sum;
-    if constexpr (kKv) lt = wadd(lt, kv_row(k9::kLatTicks)[0]);
+    if constexpr (kOn) lt = wadd(lt, svc_row(SM_LAT_TICKS)[0]);
     out(M_LAT_TICKS, 0, wadd(in(M_LAT_TICKS, 1, 0), lt));
-    if constexpr (kKv) {
-      out(M_WORST_LAT, 0, kv_row(k9::kWorstLat)[0]);
-      out(M_WORST_KEY, 0, kv_row(k9::kWorstKey)[0]);
-      out(M_WORST_CLIENT, 0, kv_row(k9::kWorstClient)[0]);
-      out(M_WORST_SUB, 0, kv_row(k9::kWorstSub)[0]);
+    if constexpr (kOn) {
+      out(M_WORST_LAT, 0, svc_row(SM_WORST_LAT)[0]);
+      out(M_WORST_KEY, 0, svc_row(SM_WORST_KEY)[0]);
+      out(M_WORST_CLIENT, 0, svc_row(SM_WORST_CLIENT)[0]);
+      out(M_WORST_SUB, 0, svc_row(SM_WORST_SUB)[0]);
     } else {
       out(M_WORST_LAT, 0,
           mt.worst_new ? mt.worst_lat : in(M_WORST_LAT, 1, 0));
@@ -1793,17 +1847,17 @@ __device__ void metric_rows(const Params &p, int b, bool active,
   }
 }
 
-// The chunk's metric registers out, into the metric leaves out (K6-kv:
-// with the kv region kv's)
-template <int TILE, bool kKv = false>
+// The chunk's metric registers out, into the metric leaves out (a
+// service build: with the service region svc's)
+template <int TILE, int kSvc = kNoSvc>
 __device__ void write_metrics(const Params &p, int b, bool active,
                               const Tile<TILE> &tile, const Meter &mt,
-                              const int32_t *kv = nullptr) {
+                              int32_t *svc = nullptr) {
   const int per[kMetricLeaves] = {0, 0, kHist, kEvents, kLatPhases * kHist,
                                   kLatPhases, 1, 1, kLatPhases, 1, 1, 1};
-  metric_rows<TILE, kKv>(p, b, active, tile, mt, [&](int leaf, int i, int v) {
+  metric_rows<TILE, kSvc>(p, b, active, tile, mt, [&](int leaf, int i, int v) {
     p.m_out[leaf][static_cast<size_t>(b) * per[leaf] + i] = v;
-  }, kv);
+  }, svc);
 }
 
 // K6-trace after tick i of the chunk: cluster b's flight-recorder row
@@ -2001,37 +2055,61 @@ struct KvEnv {
   __device__ void submitted() const {}
 };
 
+// A service build's metrics variant at the chunk's start: the clerks'
+// metric sums in the region ws cleared and the worst-op register from the
+// metric leaves in; leaf is the service's lat_hist leaf (SvcMetric order
+// from it)
+template <int TILE, typename Ref>
+__device__ void svc_metrics_in(const Params &p, const Ref *leaf, int32_t *ws,
+                               int b, int lane) {
+  for (int m = SM_LAT_HIST; m <= SM_LAT_TICKS; ++m)
+    for (int i = lane; i < leaf[m].count; i += TILE) ws[leaf[m].off + i] = 0;
+  const int reg[] = {M_WORST_LAT, M_WORST_PHASES, M_WORST_KEY,
+                     M_WORST_CLIENT, M_WORST_SUB};
+  for (int r = 0; r < 5; ++r) {
+    const Ref &g = leaf[SM_WORST_LAT + r];
+    for (int i = lane; i < g.count; i += TILE)
+      ws[g.off + i] = p.m_in[reg[r]][static_cast<size_t>(b) * g.count + i];
+  }
+}
+
+// A service leaf's row g of cluster b between its input or output and
+// the service region ws: in (load) or out
+template <int TILE, typename Ref>
+__device__ void svc_row_copy(const Ref &g, int32_t *ws, int b, int lane,
+                             bool load) {
+  const size_t row = static_cast<size_t>(b) * g.count;
+  if (g.bytes == 4) {
+    if (load) {
+      const int *src = static_cast<const int *>(g.in) + row;
+      for (int i = lane; i < g.count; i += TILE) ws[g.off + i] = src[i];
+    } else {
+      int *dst = static_cast<int *>(g.out) + row;
+      for (int i = lane; i < g.count; i += TILE) dst[i] = ws[g.off + i];
+    }
+  } else {
+    uint8_t *w8 = reinterpret_cast<uint8_t *>(ws + g.off);
+    if (load) {
+      const uint8_t *src = static_cast<const uint8_t *>(g.in) + row;
+      for (int i = lane; i < g.count; i += TILE) w8[i] = src[i];
+    } else {
+      uint8_t *dst = static_cast<uint8_t *>(g.out) + row;
+      for (int i = lane; i < g.count; i += TILE) dst[i] = w8[i];
+    }
+  }
+}
+
 // K6-kv at the chunk's start: cluster b's service leaves into the kv
 // region, the clerks' metric sums cleared and the worst-op register from
 // the metric leaves in (K6-metrics-kv), the kv knob rows
 template <int TILE, bool kMet, typename Blk>
 __device__ void kv_stage(const Params &p, const Blk &s, int b, int lane) {
   const k9::Side &kv = p.kv;
-  int32_t *ws = s.kv();
-  for (int l = 0; l < k9::kServiceLeaves; ++l) {
-    const k9::LeafRef &g = kv.leaf[l];
-    const size_t row = static_cast<size_t>(b) * g.count;
-    if (g.bytes == 4) {
-      const int *src = static_cast<const int *>(g.in) + row;
-      for (int i = lane; i < g.count; i += TILE) ws[g.off + i] = src[i];
-    } else {
-      const uint8_t *src = static_cast<const uint8_t *>(g.in) + row;
-      uint8_t *dst = reinterpret_cast<uint8_t *>(ws + g.off);
-      for (int i = lane; i < g.count; i += TILE) dst[i] = src[i];
-    }
-  }
-  if constexpr (kMet) {
-    for (int l = k9::kLatHist; l <= k9::kLatTicks; ++l)
-      for (int i = lane; i < kv.leaf[l].count; i += TILE)
-        ws[kv.leaf[l].off + i] = 0;
-    const int reg[] = {M_WORST_LAT, M_WORST_PHASES, M_WORST_KEY,
-                       M_WORST_CLIENT, M_WORST_SUB};
-    for (int r = 0; r < 5; ++r) {
-      const k9::LeafRef &g = kv.leaf[k9::kWorstLat + r];
-      for (int i = lane; i < g.count; i += TILE)
-        ws[g.off + i] = p.m_in[reg[r]][static_cast<size_t>(b) * g.count + i];
-    }
-  }
+  int32_t *ws = s.svc();
+  for (int l = 0; l < k9::kServiceLeaves; ++l)
+    svc_row_copy<TILE>(kv.leaf[l], ws, b, lane, true);
+  if constexpr (kMet)
+    svc_metrics_in<TILE>(p, kv.leaf + k9::kLatHist, ws, b, lane);
   for (int i = lane; i < k9::kNF; i += TILE)
     reinterpret_cast<float *>(ws + kv.L.knobs)[i] =
         kv.kf[static_cast<size_t>(b) * k9::kNF + i];
@@ -2046,19 +2124,8 @@ template <int TILE, typename Blk>
 __device__ void kv_write(const Params &p, const Blk &s, int b, int lane,
                          bool active) {
   if (!active) return;
-  const int32_t *ws = s.kv();
-  for (int l = 0; l < k9::kServiceLeaves; ++l) {
-    const k9::LeafRef &g = p.kv.leaf[l];
-    const size_t row = static_cast<size_t>(b) * g.count;
-    if (g.bytes == 4) {
-      int *dst = static_cast<int *>(g.out) + row;
-      for (int i = lane; i < g.count; i += TILE) dst[i] = ws[g.off + i];
-    } else {
-      uint8_t *dst = static_cast<uint8_t *>(g.out) + row;
-      const uint8_t *src = reinterpret_cast<const uint8_t *>(ws + g.off);
-      for (int i = lane; i < g.count; i += TILE) dst[i] = src[i];
-    }
-  }
+  for (int l = 0; l < k9::kServiceLeaves; ++l)
+    svc_row_copy<TILE>(p.kv.leaf[l], s.svc(), b, lane, false);
 }
 
 // K6-kv after the raft tick: the kv service tick of the cluster on its
@@ -2078,7 +2145,7 @@ __device__ void kv_tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
   const bool node = lane < n;
   const k9::Side &kv = p.kv;
   const int nc = kv.d.nc, nk = kv.d.nk;
-  int32_t *ws = s.kv();
+  int32_t *ws = s.svc();
   // the tick's draw keys and cleared scratch; the truth's pre-tick max
   // seqs, then the max clamped at 0 (the reference's max takes in a 0)
   if (lane < k9::kDrawKeys)
@@ -2121,16 +2188,221 @@ __device__ void kv_tick(const Params &p, const Block<N_, CAP_, AE_, kMet> &s,
   __syncwarp();  // the region's rows are read before the next tick's
 }
 
+// K6-ctrler's device rows of cluster b on a tile: the two history tables'
+// rows (the new state's; a tile past the batch's end, !active, works on
+// the side's spare rows, ctrler.cuh Side) and the row that takes the
+// pre-tick snap_hist an install adopts
+struct CtrlerRows {
+  int32_t *hist, *snap_hist, *snap_pre;
+};
+
+__device__ __forceinline__ CtrlerRows ctrler_rows(const Params &p, int b,
+                                                  bool active) {
+  const k10::Side &cs = p.ctrler;
+  const int w = cs.leaf[k10::kHist].count;
+  int32_t *spare = cs.dev + static_cast<size_t>(p.b + 1) * w;
+  auto out = [&](int l) {
+    return static_cast<int32_t *>(cs.leaf[l].out) + static_cast<size_t>(b) * w;
+  };
+  return {active ? out(k10::kHist) : spare,
+          active ? out(k10::kSnapHist) : spare + w,
+          cs.dev + static_cast<size_t>(active ? b : p.b) * w};
+}
+
+// K6-ctrler's environment for ctrler.cuh's phases on a cluster's tile:
+// the ctrler region ws (the service leaves' rows but the history tables,
+// updated in place for the chunk, the metric sums, the worst-op register
+// and the tick's scratch) in the cluster's block, the history tables'
+// rows in device memory (dev); the stepped raft state K6's block as the
+// tick left it, the raft leaves the service writes (the log rows and
+// log_len, violations, first_violation_tick) written there in place; the
+// pre-tick views as run_cluster kept them before the tick (liveness a
+// mask, base in the region). The phases read a clerk's and a table
+// cell's pre-tick values before they rewrite them; the snapshot tables an
+// install adopts come from copies (ctrler_tick) on a tick with an install
+// (the sender's PRE-tick snapshot, which its own compaction may rewrite)
+template <int N_, int CAP_, int TILE, bool MET, typename Blk>
+struct CtrlerEnv {
+  static constexpr bool kMet = MET;
+  const Params &p;
+  const Blk &blk;
+  int32_t *ws;
+  CtrlerRows dev;
+  unsigned alive_m, pre_alive_m;
+  bool any_inst;
+  __device__ int lanes() const { return TILE; }
+  __device__ int walker() const { return TILE - 1; }
+  __device__ int clerk0() const { return 0; }
+  __device__ const k10::Dims &d() const { return p.ctrler.d; }
+  __device__ const k10::Layout &L() const { return p.ctrler.L; }
+  __device__ int cap() const { return CAP_ ? CAP_ : p.cap; }
+  template <typename T>
+  __device__ T *w(int l) const {
+    int32_t *r = l == k10::kHist       ? dev.hist
+                 : l == k10::kSnapHist ? dev.snap_hist
+                                       : ws + p.ctrler.leaf[l].off;
+    return reinterpret_cast<T *>(r);
+  }
+  __device__ int32_t *s(int off) const { return ws + off; }
+  template <typename T>
+  __device__ const T *pre(int l) const {
+    if (!any_inst || l < k10::kSnapLastSeq || l > k10::kSnapHist)
+      return w<T>(l);
+    if (l == k10::kSnapHist) return reinterpret_cast<const T *>(dev.snap_pre);
+    const k10::LeafRef *leaf = p.ctrler.leaf;
+    return reinterpret_cast<const T *>(ws + p.ctrler.L.snap_pre + leaf[l].off -
+                                       leaf[k10::kSnapLastSeq].off);
+  }
+  __device__ int32_t tick() const { return I<L_TICK>(blk)[0]; }
+  __device__ const int32_t *term() const { return I<L_TERM>(blk); }
+  __device__ const int32_t *role() const { return I<L_ROLE>(blk); }
+  __device__ const int32_t *base() const { return I<L_BASE>(blk); }
+  __device__ const int32_t *commit() const { return I<L_COMMIT>(blk); }
+  __device__ bool alive(int i) const { return bit(alive_m, i); }
+  __device__ int32_t snap_src(int i) const {
+    return I<L_SNAP_INSTALLED_SRC>(blk)[i];
+  }
+  __device__ const int32_t *shadow_val() const {
+    return I<L_SHADOW_VAL>(blk);
+  }
+  __device__ int32_t shadow_base() const { return I<L_SHADOW_BASE>(blk)[0]; }
+  __device__ int32_t shadow_len() const { return I<L_SHADOW_LEN>(blk)[0]; }
+  __device__ bool pre_alive(int i) const { return bit(pre_alive_m, i); }
+  __device__ int32_t pre_base(int i) const {
+    return ws[p.ctrler.L.pre_base + i];
+  }
+  __device__ float kf(int k) const {
+    return reinterpret_cast<const float *>(ws + p.ctrler.L.knobs)[k];
+  }
+  __device__ int32_t ki(int k) const {
+    return ws[p.ctrler.L.knobs + k10::kNF + k];
+  }
+  __device__ k10::Machine machine(int i) const {
+    return k10::machine_of(*this, i);
+  }
+  __device__ const int32_t *log_val(int i) const {
+    return I<L_LOG_VAL>(blk) + i * cap();
+  }
+  __device__ int32_t *log_len() const { return I<L_LOG_LEN>(blk); }
+  __device__ void append(int i, int pos, int32_t term, int32_t val) const {
+    I<L_LOG_TERM>(blk)[i * cap() + pos] = term;
+    I<L_LOG_VAL>(blk)[i * cap() + pos] = val;
+  }
+  __device__ int32_t &violations() const { return I<L_VIOLATIONS>(blk)[0]; }
+  __device__ int32_t &first_violation() const {
+    return I<L_FIRST_VIOLATION_TICK>(blk)[0];
+  }
+  // the fsync watermark and the compaction floor are the node lanes'
+  // registers (Own): ctrler_tick sets them after the submits
+  __device__ void submitted() const {}
+};
+
+// K6-ctrler at the chunk's start: cluster b's service leaves into the
+// ctrler region, the history tables' rows from the input into their
+// device rows dev, the clerks' metric sums cleared and the worst-op
+// register from the metric leaves in (K6-metrics-ctrler), the ctrler knob
+// rows
+template <int TILE, bool kMet, typename Blk>
+__device__ void ctrler_stage(const Params &p, const Blk &s,
+                             const CtrlerRows &dev, int b, int lane) {
+  const k10::Side &cs = p.ctrler;
+  int32_t *ws = s.svc();
+  for (int l = 0; l < k10::kServiceLeaves; ++l) {
+    const k10::LeafRef &g = cs.leaf[l];
+    if (!k10::in_device(l)) {
+      svc_row_copy<TILE>(g, ws, b, lane, true);
+      continue;
+    }
+    const int *src = static_cast<const int *>(g.in) +
+                     static_cast<size_t>(b) * g.count;
+    int32_t *dst = l == k10::kHist ? dev.hist : dev.snap_hist;
+    for (int i = lane; i < g.count; i += TILE) dst[i] = src[i];
+  }
+  if constexpr (kMet)
+    svc_metrics_in<TILE>(p, cs.leaf + k10::kLatHist, ws, b, lane);
+  for (int i = lane; i < k10::kNF; i += TILE)
+    reinterpret_cast<float *>(ws + cs.L.knobs)[i] =
+        cs.kf[static_cast<size_t>(b) * k10::kNF + i];
+  for (int i = lane; i < k10::kNI; i += TILE)
+    ws[cs.L.knobs + k10::kNF + i] =
+        cs.ki[static_cast<size_t>(b) * k10::kNI + i];
+  __syncwarp();
+}
+
+// K6-ctrler at the chunk's end: the service leaves in the region out, for
+// a tile that holds a cluster (the history tables are already in their
+// output rows; the metric leaves go with write_metrics)
+template <int TILE, typename Blk>
+__device__ void ctrler_write(const Params &p, const Blk &s, int b, int lane,
+                             bool active) {
+  if (!active) return;
+  for (int l = 0; l < k10::kServiceLeaves; ++l)
+    if (!k10::in_device(l))
+      svc_row_copy<TILE>(p.ctrler.leaf[l], s.svc(), b, lane, false);
+}
+
+// K6-ctrler after the raft tick: the shard controller's service tick of
+// the cluster on its tile (the reference's _ctrler_service_tick after
+// step_cluster), ctrler.cuh's phases on CtrlerEnv, a warp barrier after
+// each; (s0, s1) is fold_in(key, t), alive the post-tick liveness,
+// pre_alive and the region's pre_base row the pre-tick views. On a tick
+// with an install the snapshot tables are copied first (the region's to
+// its snap_pre rows, snap_hist to its device row). After the submits each
+// node lane takes the service's fsync watermark (the log's length where
+// it grew, state.durable_after_append) and compaction floor (the apply
+// cursor) into its registers, where the next raft tick reads them
+template <int N_, int CAP_, int AE_, int TILE, bool kMet>
+__device__ void ctrler_tick(const Params &p,
+                            const Block<N_, CAP_, AE_, kMet> &s,
+                            const CtrlerRows &dev, Own &o, unsigned alive,
+                            unsigned pre_alive, const Tile<TILE> &tile,
+                            uint32_t s0, uint32_t s1) {
+  const int lane = tile.lane, n = N_ ? N_ : p.n, d = lane;
+  const bool node = lane < n;
+  const k10::Side &cs = p.ctrler;
+  int32_t *ws = s.svc();
+  if (lane < k10::kDrawKeys)
+    k10::draw_key(s0, s1, lane, p.partitionable, ws + cs.L.draws + 2 * lane);
+  k10::clear_tick(cs.L, ws, cs.d.nc, lane, TILE);
+  const bool any_inst =
+      tile.ballot(node && I<L_SNAP_INSTALLED_SRC>(s)[d] >= 0) != 0u;
+  if (any_inst) {
+    const int32_t *snap = ws + cs.leaf[k10::kSnapLastSeq].off;
+    for (int i = lane; i < cs.L.knobs - cs.L.snap_pre; i += TILE)
+      ws[cs.L.snap_pre + i] = snap[i];
+    for (int i = lane; i < cs.leaf[k10::kSnapHist].count; i += TILE)
+      dev.snap_pre[i] = dev.snap_hist[i];
+  }
+  const int len0 = node ? I<L_LOG_LEN>(s)[d] : 0;  // before the submits
+  __syncwarp();
+  const CtrlerEnv<N_, CAP_, TILE, kMet, Block<N_, CAP_, AE_, kMet>> e{
+      p, s, ws, dev, alive, pre_alive, any_inst};
+  k10::restore(e, lane);
+  __syncwarp();
+  k10::apply(e, lane);
+  __syncwarp();
+  k10::clerks(e, lane);
+  __syncwarp();
+  if (lane == 0) k10::submit(e);
+  __syncwarp();
+  if (node) {
+    const int len = I<L_LOG_LEN>(s)[d];
+    if (len > len0) o.durable_len = len;
+    o.compact_floor = ws[cs.leaf[k10::kApplied].off + d];
+  }
+  __syncwarp();  // the region's rows are read before the next tick's
+}
+
 // The chunk for cluster b on a tile: stage in, m ticks, stage out (a
 // tile past the batch's end, !active, runs a copy of the last cluster and
 // writes nothing); the metrics variant also fills its stamp rings and
 // writes the metric registers, the coverage variant stamps the seen-set
-// after each tick, a trace buffer gets each tick's row, K6-kv (kKv) runs
-// the kv service tick after each tick with the kv leaves staged for the
-// chunk; the profile instance writes its per-phase sums to prof[b,
-// kPhases]
+// after each tick, a trace buffer gets each tick's row, a service build
+// (kSvc) runs its service tick after each tick with its leaves staged for
+// the chunk (K6-kv, K6-ctrler); the profile instance writes its per-phase
+// sums to prof[b, kPhases]
 template <int N_, int CAP_, int AE_, int TILE, bool kProf, bool kMet,
-          bool kCov, bool kKv = false>
+          bool kCov, int kSvc = kNoSvc>
 __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
                             const Tile<TILE> &tile, long long *prof) {
   const Block<N_, CAP_, AE_, kMet> s{p, cl};
@@ -2138,7 +2410,12 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   Clock<kProf> clk;
   clk.start(lane);
   stage<TILE>(p, s, b, lane, true, active);
-  if constexpr (kKv) kv_stage<TILE, kMet>(p, s, b, lane);
+  [[maybe_unused]] CtrlerRows dev{};
+  if constexpr (kSvc == kSvcKv) kv_stage<TILE, kMet>(p, s, b, lane);
+  if constexpr (kSvc == kSvcCtrler) {
+    dev = ctrler_rows(p, b, active);
+    ctrler_stage<TILE, kMet>(p, s, dev, b, lane);
+  }
   const Stamps st{p, b, active};
   if constexpr (kMet) stamps_load<TILE>(st, lane);
   Own o;
@@ -2149,23 +2426,32 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
     mt.worst_sub = p.m_in[M_WORST_SUB][b];
   }
   unsigned alive = tile.ballot(lane < n && B<L_ALIVE>(s)[lane]);
-  TickKeys<TILE, kKv> keys;
+  TickKeys<TILE, kSvc != kNoSvc> keys;
   clk.mark(P_STAGE);
   for (int i = 0; i < p.m; ++i) {
     uint32_t tk0, tk1;  // the block's tick is the chunk's first + i
     keys.get(p, b, i, static_cast<uint32_t>(I<L_TICK>(s)[0]) + 1u, tile, tk0,
              tk1);
-    if constexpr (kKv) {
+    if constexpr (kSvc != kNoSvc) {
       uint32_t s0, s1;
       keys.svc(i, tile, s0, s1);
       // the pre-tick views the service tick reads
       const unsigned pre_alive = alive;
-      const int pre_sl = I<L_SHADOW_LEN>(s)[0];
-      if (lane < n) s.kv()[p.kv.L.pre_base + lane] = I<L_BASE>(s)[lane];
-      tick<N_, CAP_, AE_, TILE, kProf, kMet, true>(p, s, st, o, mt, alive,
-                                                   tile, clk, tk0, tk1);
-      kv_tick<N_, CAP_, AE_, TILE, kMet>(p, s, o, alive, pre_alive, pre_sl,
-                                         tile, s0, s1);
+      const int pre_base =
+          kSvc == kSvcKv ? p.kv.L.pre_base : p.ctrler.L.pre_base;
+      if (lane < n) s.svc()[pre_base + lane] = I<L_BASE>(s)[lane];
+      if constexpr (kSvc == kSvcKv) {
+        const int pre_sl = I<L_SHADOW_LEN>(s)[0];
+        tick<N_, CAP_, AE_, TILE, kProf, kMet, kSvc>(p, s, st, o, mt, alive,
+                                                     tile, clk, tk0, tk1);
+        kv_tick<N_, CAP_, AE_, TILE, kMet>(p, s, o, alive, pre_alive, pre_sl,
+                                           tile, s0, s1);
+      } else {
+        tick<N_, CAP_, AE_, TILE, kProf, kMet, kSvc>(p, s, st, o, mt, alive,
+                                                     tile, clk, tk0, tk1);
+        ctrler_tick<N_, CAP_, AE_, TILE, kMet>(p, s, dev, o, alive,
+                                               pre_alive, tile, s0, s1);
+      }
       continue;
     }
     tick<N_, CAP_, AE_, TILE, kProf, kMet>(p, s, st, o, mt, alive, tile, clk,
@@ -2181,8 +2467,10 @@ __device__ void run_cluster(const Params &p, uint8_t *cl, int b, bool active,
   if (lane < n) own_store(s, o, lane, n);
   __syncwarp();
   stage<TILE>(p, s, b, lane, false, active);
-  if constexpr (kKv) kv_write<TILE>(p, s, b, lane, active);
-  if constexpr (kMet) write_metrics<TILE, kKv>(p, b, active, tile, mt, s.kv());
+  if constexpr (kSvc == kSvcKv) kv_write<TILE>(p, s, b, lane, active);
+  if constexpr (kSvc == kSvcCtrler) ctrler_write<TILE>(p, s, b, lane, active);
+  if constexpr (kMet)
+    write_metrics<TILE, kSvc>(p, b, active, tile, mt, s.svc());
   clk.mark(P_STAGE);
   if constexpr (kProf) {
     if (lane < kPhases && active) prof[b * kPhases + lane] = clk.acc;

@@ -1,7 +1,24 @@
-"""Kernel K10: the shard controller's service tick of a batch of clusters,
-one launch a tick.
+"""The shard controller's service tick on the card: K6-ctrler, a chunk of
+ctrler ticks in one launch (``ctrler_chunk``), and K10, one service tick a
+launch (``ctrler_tick``).
 
-Replaces the JAX reference's service tick (B8),
+``ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, m)`` runs m ctrler ticks (the
+raft tick, then the service tick) of every cluster: on CPU tensors its
+plain version ``ctrler_chunk_plain`` (``step.step_cluster``, then
+``tpusim.ctrler._ctrler_service_tick``, a tick after another); on CUDA
+tensors the K6-ctrler build of ``csrc/tick.cu`` (``kernels.tick.variant(
+..., ctrler=True)``: ``-DMADRAFT_K6_CTRLER``, with ``-DMADRAFT_K6_METRICS``
+for ``cfg.metrics``), which runs the service tick of ``csrc/ctrler.cuh``
+on K6's tile after each raft tick, the ctrler leaves staged in the
+cluster's shared block for the chunk (the nodes' two history tables in
+the new state's rows in device memory), or raises.
+``ctrler_chunk.launches`` counts its launches,
+``ctrler_chunk.metrics_launches`` those of K6-metrics-ctrler; a ctrler run
+on the card makes no ``tick_chunk`` and no ``ctrler_tick`` launch. The
+wrapper checks the leaves and builds the descriptor once a launch
+(``Side``) and returns the new ``CtrlerState``.
+
+K10 replaces the JAX reference's service tick (B8),
 ``madraft_tpu/tpusim/ctrler.py`` ``_ctrler_service_tick`` (593-954) with
 ``_apply_entry`` (382-463), ``_rebalance`` (270-343), ``_min_moves``
 (345-360) and ``_hash_config`` (372-379), and with the metrics plane
@@ -20,18 +37,23 @@ route's baseline on the card), it returns the plain version's result
 (``tpusim.ctrler._ctrler_service_tick``); on CUDA tensors it launches K10
 or raises. The kernel writes a new state (the inputs stay as they were)
 and hashes the tick's draws itself. ``ctrler_tick.launches`` counts its
-launches, ``ctrler_tick.metrics_launches`` those of K10-metrics.
+launches, ``ctrler_tick.metrics_launches`` those of K10-metrics. No
+ctrler run launches K10 since K6-ctrler: it is the per-tick design
+K6-ctrler is held against, with its own tests and ``chip_smoke.py``
+phase.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
 from madraft_tpu_torch import _build
+from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.tpusim import prng
 from madraft_tpu_torch.tpusim.config import SimConfig
 
@@ -117,15 +139,16 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
             f"{x.device}, expected contiguous {shape} {dtype} on {dev}")
 
 
-def check_shape(cfg: SimConfig, kcfg) -> None:
+def check_shape(cfg: SimConfig, kcfg, what: str = "ctrler_chunk") -> None:
     """Refuse a shape past what csrc/ctrler.cuh takes, naming the limit
-    (the kernel never hands a shape to the plain version)."""
+    (the kernels never hand a shape to the plain version): K10's and
+    K6-ctrler's service limits are the same."""
     n, cap, nc = cfg.n_nodes, cfg.log_cap, kcfg.n_clients
     if (not 1 <= n <= MAX_NODES or cap > MAX_CAP or cap & (cap - 1)
             or not 1 <= nc <= MAX_CLIENTS
             or not 1 <= kcfg.n_configs <= MAX_CONFIGS):
         raise ValueError(
-            f"ctrler_tick takes n <= {MAX_NODES}, a power-of-two cap <= "
+            f"{what} takes n <= {MAX_NODES}, a power-of-two cap <= "
             f"{MAX_CAP}, n_clients <= {MAX_CLIENTS} and n_configs <= "
             f"{MAX_CONFIGS}, got n={n} cap={cap} n_clients={nc} "
             f"n_configs={kcfg.n_configs}")
@@ -137,7 +160,7 @@ def _descriptor(cfg: SimConfig, kcfg, ks, pre_alive, pre_base, s, keys,
     descriptor, the new CtrlerState)."""
     from madraft_tpu_torch.tpusim.ctrler import SERVICE, CtrlerState
 
-    check_shape(cfg, kcfg)
+    check_shape(cfg, kcfg, "ctrler_tick")
     n, cap, nc = cfg.n_nodes, cfg.log_cap, kcfg.n_clients
     dev, b = s.tick.device, s.tick.shape[0]
     if b == 0:
@@ -240,3 +263,101 @@ def ctrler_tick(cfg: SimConfig, kcfg, ks, pre_alive: torch.Tensor,
 
 ctrler_tick.launches = 0
 ctrler_tick.metrics_launches = 0
+
+
+# ------------------------------------------------------------ K6-ctrler
+class Side:
+    """K6-ctrler's share of a launch (``kernels.tick._launch(...,
+    side=)``): the ctrler state's service leaves, checked once, K10's knob
+    table, the device rows (``dev``: a copy row a cluster for the pre-tick
+    snap_hist an install adopts, and the spare history rows of a tile past
+    the batch's end) and the descriptor ``csrc/ctrler.cuh`` ``set_side``
+    reads (the header's n_clients .. metrics_on, the table's two pointers,
+    the device rows, then in, out, count and bytes of each leaf of
+    ``csrc/ctrler.cuh`` Leaf: a raft leaf the service writes is K6's own,
+    and a metric leaf K6's, so those carry their count alone)."""
+
+    def __init__(self, cfg: SimConfig, kcfg, ks, table):
+        from madraft_tpu_torch.tpusim.ctrler import SERVICE
+
+        check_shape(cfg, kcfg)
+        dev, b = ks.raft.tick.device, ks.raft.tick.shape[0]
+        shapes = leaf_shapes(cfg, kcfg)
+        self.leaves = [getattr(ks, f) for f in SERVICE]
+        for name, x in zip(SERVICE, self.leaves):
+            lane, dtype = shapes[name]
+            _check(name, x, (b, *lane), dtype, dev)
+        kf, ki = table
+        _check("knob table (float32)", kf, (b, len(KNOB_F32)), torch.float32,
+               dev)
+        _check("knob table (int32)", ki, (b, len(KNOB_I32) + 1), I32, dev)
+        self.table = table
+        hb, nph = ((ks.raft.phase_hist.shape[2], ks.raft.phase_hist.shape[1])
+                   if cfg.metrics else (0, 0))
+        self.head = [kcfg.n_clients, kcfg.n_gids, kcfg.n_configs,
+                     kcfg.join_max, kcfg._arg_lim, kcfg.apply_max,
+                     kcfg.walk_max, hb, nph, int(prng.partitionable()),
+                     int(cfg.metrics)]
+        self.counts = [math.prod(shapes[f][0]) for f in RAFT_WRITES]
+        self.dev = torch.empty(
+            ((b + 3) * cfg.n_nodes * kcfg.n_configs,), dtype=I32, device=dev)
+
+    def descriptor(self, ins, outs) -> np.ndarray:
+        """The descriptor over the service leaves ``ins`` (contiguous) and
+        their new rows ``outs``."""
+        return K6.side_words(
+            self.head, [x.data_ptr() for x in (*self.table, self.dev)], ins,
+            outs, self.counts)
+
+    def state(self, raft, outs):
+        """The new ``CtrlerState`` of the new raft state and service rows."""
+        from madraft_tpu_torch.tpusim.ctrler import CtrlerState
+
+        return CtrlerState(raft, *outs)
+
+
+def ctrler_chunk_plain(cfg: SimConfig, kcfg, ks, keys, kn, ckn, m: int):
+    """K6-ctrler's plain version: m ctrler ticks, each
+    ``step.step_cluster`` then ``tpusim.ctrler._ctrler_service_tick``
+    (K10's plain version) on its result."""
+    from madraft_tpu_torch.tpusim.ctrler import _ctrler_service_tick
+    from madraft_tpu_torch.tpusim.step import step_cluster
+
+    for _ in range(m):
+        pre = ks.raft
+        s = step_cluster(cfg, pre, keys, kn)
+        ks = _ctrler_service_tick(cfg, kcfg, ks, pre.alive, pre.base, s,
+                                  keys, kn, ckn)
+    return ks
+
+
+def ctrler_chunk(cfg: SimConfig, kcfg, ks, keys, kn, ckn, m: int,
+                 table=None, ctable=None):
+    """m ctrler ticks of every cluster: the plain version on the CPU,
+    K6-ctrler's build for ``cfg.metrics`` on CUDA (one launch). ``table``
+    and ``ctable`` are ``kernels.tick.knob_table(kn, B)`` and
+    ``knob_table(kn, ckn, B)`` on the device when the caller has them."""
+    dev = ks.raft.tick.device
+    if dev.type == "cpu":
+        return ctrler_chunk_plain(cfg, kcfg, ks, keys, kn, ckn, m)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"ctrler_chunk: expected CPU or CUDA tensors, got {dev}")
+    b = keys.shape[0]
+    if table is None:
+        table = K6.knob_table(kn.to(dev), b)
+    if ctable is None:
+        ctable = knob_table(kn.to(dev), ckn.to(dev), b)
+    out, launched = K6._launch(
+        cfg, ks.raft, keys, kn, m,
+        K6._lib(K6.variant(cfg.metrics, False, ctrler=True)),
+        torch.cuda.current_stream(dev).cuda_stream, table=table,
+        side=Side(cfg, kcfg, ks, ctable))
+    if launched:
+        ctrler_chunk.launches += 1
+        ctrler_chunk.metrics_launches += int(cfg.metrics)
+    return out
+
+
+ctrler_chunk.launches = 0
+ctrler_chunk.metrics_launches = 0

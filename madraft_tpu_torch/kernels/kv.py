@@ -233,7 +233,7 @@ kv_tick.metrics_launches = 0
 
 # ---------------------------------------------------------------- K6-kv
 class Side:
-    """K6-kv's share of a launch (``kernels.tick._launch(..., kv=)``): the
+    """K6-kv's share of a launch (``kernels.tick._launch(..., side=)``): the
     kv state's service leaves, checked once, K9's knob table, and the
     descriptor ``csrc/kv.cuh`` ``set_side`` reads (the header's n_clients
     .. metrics_on, the table's two pointers, then in, out, count and
@@ -265,14 +265,8 @@ class Side:
     def descriptor(self, ins, outs) -> np.ndarray:
         """The descriptor over the service leaves ``ins`` (contiguous) and
         their new rows ``outs``."""
-        words = self.head + [self.table[0].data_ptr(),
-                             self.table[1].data_ptr()]
-        for x, y in zip(ins, outs):
-            words += [x.data_ptr(), y.data_ptr(), x[0].numel(),
-                      x.element_size()]
-        for count in self.counts:
-            words += [0, 0, count, 4]
-        return np.asarray(words, dtype=np.int64)
+        return K6.side_words(self.head, [x.data_ptr() for x in self.table],
+                             ins, outs, self.counts)
 
     def state(self, raft, outs):
         """The new ``KvState`` of the new raft state and service rows."""
@@ -315,7 +309,7 @@ def kv_chunk(cfg: SimConfig, kcfg, ks, keys, kn, kkn, m: int, table=None,
         cfg, ks.raft, keys, kn, m, K6._lib(K6.variant(cfg.metrics, False,
                                                       kv=True)),
         torch.cuda.current_stream(dev).cuda_stream, table=table,
-        kv=Side(cfg, kcfg, ks, ktable))
+        side=Side(cfg, kcfg, ks, ktable))
     if launched:
         kv_chunk.launches += 1
         kv_chunk.metrics_launches += int(cfg.metrics)

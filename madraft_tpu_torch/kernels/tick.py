@@ -23,9 +23,12 @@ credits to ``cov.new_fps``. Both together give K6-metrics-coverage.
 With ``trace`` (an int32 [m, B, W] tensor, W = ``kernels.trace.
 record_width(cfg)``) any build also writes each tick's flight-recorder
 row (K8's row, ``kernels.trace.record_plain``) into ``trace[i]``: K6-trace,
-which the traced replay runs instead of K8 a tick. With ``kv`` (a
-``kernels.kv.Side``) ``_launch`` runs K6-kv, the kv service tick after
-each raft tick (``kernels.kv.kv_chunk``, ``variant(..., kv=True)``).
+which the traced replay runs instead of K8 a tick. With ``side`` (a
+service's side of a launch: ``kernels.kv.Side`` or
+``kernels.ctrler.Side``) ``_launch`` runs K6-kv or K6-ctrler, the
+service tick after each raft tick (``kernels.kv.kv_chunk``,
+``variant(..., kv=True)``; ``kernels.ctrler.ctrler_chunk``,
+``variant(..., ctrler=True)``).
 
 The kernel reads the clusters' keys (``[B, 2]`` int64-held u32), the state
 leaves of ``LEAVES`` and the knobs as one float32 and one int32 ``[B, k]``
@@ -34,8 +37,8 @@ and passes as ``table``). It hashes each tick's words itself, under
 ``prng.partitionable()``'s counter layout, and checks the offset of each
 draw in them against ``draw_offsets``. The planted bug is the index of
 ``cfg.bug`` in ``config.RAFT_BUGS``. The shapes in ``SHAPES`` (with
-``ae_max <= SHAPE_AE``) run a template instance compiled for them, every
-other shape a runtime one.
+``ae_max <= SHAPE_AE``; in the K6-ctrler builds ``CTRLER_SHAPES``) run a
+template instance compiled for them, every other shape a runtime one.
 
 On CPU tensors ``tick_chunk`` runs ``tick_chunk_plain``: the chunk's words
 from ``threefry.tick_blocks_plain``, then ``step.step_cluster`` once a
@@ -82,6 +85,9 @@ MAX_METRIC_TICKS = 65535
 # (n, cap) of the template instances (csrc/tick.cuh shape_n / shape_cap),
 # each for ae_max <= SHAPE_AE; instance i + 1, the runtime instance 0
 SHAPES = ((3, 16), (3, 64), (5, 16), (5, 64), (7, 16), (7, 64))
+# the K6-ctrler builds add (5, 32), ctrler-fuzz's ring (csrc/tick.cuh
+# kCtrlerShapes)
+CTRLER_SHAPES = SHAPES + ((5, 32),)
 SHAPE_AE = 4
 
 # Per-lane shape classes of csrc/tick.cuh (kOne .. kCap)
@@ -175,12 +181,28 @@ def metric_shapes(cfg: SimConfig) -> tuple:
             (reg,), (nph,), (reg,), (reg,), (reg,))
 
 
-def variant(metrics: bool, cov: bool, kv: bool = False) -> str:
+def variant(metrics: bool, cov: bool, kv: bool = False,
+            ctrler: bool = False) -> str:
     """The build of csrc/tick.cu that runs the tick with the metrics plane
     and / or the coverage fingerprint, or with the kv service tick (K6-kv,
-    ``kernels.kv.kv_chunk``; ``_build.VARIANTS``)."""
+    ``kernels.kv.kv_chunk``) or the shard controller's (K6-ctrler,
+    ``kernels.ctrler.ctrler_chunk``; ``_build.VARIANTS``)."""
     return ("tick" + "_metrics" * bool(metrics) + "_coverage" * bool(cov)
-            + "_kv" * bool(kv))
+            + "_kv" * bool(kv) + "_ctrler" * bool(ctrler))
+
+
+def side_words(head, ptrs, ins, outs, counts) -> np.ndarray:
+    """A service side's descriptor (``kernels.kv.Side``,
+    ``kernels.ctrler.Side``): the header words, the side's pointers, then
+    in, out, count and bytes of each service leaf (``ins`` contiguous,
+    ``outs`` their new rows) and a raft or metric leaf's count alone (K6
+    keeps those leaves)."""
+    words = [*head, *ptrs]
+    for x, y in zip(ins, outs):
+        words += [x.data_ptr(), y.data_ptr(), x[0].numel(), x.element_size()]
+    for count in counts:
+        words += [0, 0, count, 4]
+    return np.asarray(words, dtype=np.int64)
 
 
 def draw_offsets(n: int) -> tuple:
@@ -202,13 +224,15 @@ def knob_table(kn: Knobs, b: int) -> tuple:
     return f, i
 
 
-def instance(cfg: SimConfig) -> int:
+def instance(cfg: SimConfig, ctrler: bool = False) -> int:
     """The template instance that runs cfg's shape: 1 + its index in
-    SHAPES, or 0 for the runtime one."""
+    SHAPES (in CTRLER_SHAPES for a K6-ctrler build), or 0 for the runtime
+    one."""
+    shapes = CTRLER_SHAPES if ctrler else SHAPES
     shape = (cfg.n_nodes, cfg.log_cap)
-    if cfg.ae_max > SHAPE_AE or shape not in SHAPES:
+    if cfg.ae_max > SHAPE_AE or shape not in shapes:
         return 0
-    return 1 + SHAPES.index(shape)
+    return 1 + shapes.index(shape)
 
 
 def tick_chunk_plain(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
@@ -319,17 +343,18 @@ def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
 def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
             kn: Knobs, m: int, lib, stream, prof=None,
             table=None, cov: Optional[Seen] = None, fp=None,
-            trace: Optional[torch.Tensor] = None, kv=None) -> tuple:
+            trace: Optional[torch.Tensor] = None, side=None) -> tuple:
     """Check the inputs, allocate the new state and launch ``lib``'s
     ``tick_launch`` for m ticks on ``stream`` (``tick_launch_profile``
     into ``prof`` when given): with ``cfg.metrics`` the metric leaves go
     in and come out too (and a spare row of the stamp rings, which a tile
     past the batch's end works on), with ``cov`` the coverage arguments go
     in and ``fp`` (int32 [m, B]) gets each lane-tick's flat seen index,
-    with ``trace`` (int32 [m, B, W]) each tick's trace rows, with ``kv``
-    (``kernels.kv.Side``: K6-kv) the kv state's service leaves go in and
-    come out too. Returns (new state, launched), the state a
-    ``tpusim.kv.KvState`` with ``kv``."""
+    with ``trace`` (int32 [m, B, W]) each tick's trace rows, with ``side``
+    (a service's side: ``kernels.kv.Side`` for K6-kv,
+    ``kernels.ctrler.Side`` for K6-ctrler) the service state's leaves go
+    in and come out too. Returns (new state, launched), the state the
+    service's (``side.state``) with ``side``."""
     _check(cfg, state, keys, m, cov, trace)
     if cfg.metrics and m > MAX_METRIC_TICKS:
         raise ValueError(f"tick_chunk: K6-metrics runs at most "
@@ -341,8 +366,8 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
     # metric leaves too when the kernel writes them), then the spare row
     written = list(state[:METRIC_LEAF0] if not metrics else state)
     n_raft = len(written)
-    if kv is not None:
-        written += kv.leaves
+    if side is not None:
+        written += side.leaves
     offs, nbytes = [], 0
     for x in written:
         offs.append(nbytes)
@@ -357,7 +382,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         ins = [x if x.is_contiguous() else x.contiguous() for x in written]
         keys = keys if keys.is_contiguous() else keys.contiguous()
         kf, ki = knob_table(kn.to(dev), b) if table is None else table
-        ins, kv_ins, kv_outs = ins[:n_raft], ins[n_raft:], outs[n_raft:]
+        ins, svc_ins, svc_outs = ins[:n_raft], ins[n_raft:], outs[n_raft:]
         ptr_in = np.asarray([x.data_ptr() for x in ins[:METRIC_LEAF0]],
                             dtype=np.int64)
         ptr_out = np.asarray([y.data_ptr() for y in outs[:METRIC_LEAF0]],
@@ -382,7 +407,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                             for _, sc, dt in LEAVES], dtype=np.int32)
         draws = np.asarray([off for _, off, _ in draw_offsets(n)],
                            dtype=np.int32)
-        side = None if kv is None else kv.descriptor(kv_ins, kv_outs)
+        desc = None if side is None else side.descriptor(svc_ins, svc_outs)
         args = (ptr_in.ctypes.data, ptr_out.ctypes.data, kinds.ctypes.data,
                 len(LEAVES), keys.data_ptr(), kf.data_ptr(), ki.data_ptr(),
                 draws.ctypes.data, len(draws), b, n, cap, cfg.ae_max, m,
@@ -391,8 +416,8 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                 None if cargs is None else cargs.ctypes.data,
                 None if trace is None else trace.data_ptr(),
                 0 if trace is None else trace.shape[2],
-                None if side is None else side.ctypes.data,
-                0 if side is None else len(side), stream)
+                None if desc is None else desc.ctypes.data,
+                0 if desc is None else len(desc), stream)
         if prof is None:
             _build.check(lib.tick_launch(*args), "tick_launch")
         else:
@@ -402,8 +427,8 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
         for y, x in zip(outs, written):
             y.copy_(x)
     new = ClusterState(*outs[:n_raft], *state[n_raft:])
-    if kv is not None:
-        new = kv.state(new, outs[n_raft:])
+    if side is not None:
+        new = side.state(new, outs[n_raft:])
     return new, launched
 
 

@@ -6,13 +6,16 @@ model: Join / Leave / Move / Query, the closed-form canonical rebalance
 and the oracles CTRL_DIVERGE, CTRL_BALANCE, CTRL_MINIMAL and CTRL_QUERY).
 
 A ctrler tick is the raft tick, then the service tick
-(``_ctrler_service_tick``). On the card (``engine.tick_route``) the raft
-tick is one launch of kernel K6 (``kernels.tick.tick_chunk`` with m = 1)
-and the service tick one launch of kernel K10 (``kernels.ctrler.
-ctrler_tick``; K10-metrics with the metrics plane on, which folds the
-clerks' latencies and phases inside the kernel). On the CPU, or with
-``tick="eager"``, the raft tick is ``step.step_cluster`` and the service
-tick this module's ``_ctrler_service_tick``, K10's plain version.
+(``_ctrler_service_tick``). On the card (``engine.tick_route``) both run
+inside one launch of K6-ctrler for up to ``engine.KERNEL_CHUNK`` ticks
+(``kernels.ctrler.ctrler_chunk``: kernel K6 with the service tick after
+each raft tick on the same tile; with the metrics plane on,
+K6-metrics-ctrler, which folds the clerks' latencies and phases inside
+the kernel). On the CPU, or with ``tick="eager"``, the raft tick is
+``step.step_cluster`` and the service tick this module's
+``_ctrler_service_tick``, the plain version of K10
+(``kernels.ctrler.ctrler_tick``, the per-tick kernel K6-ctrler is held
+against).
 
 Batch-first like the rest of the port: a reference leaf ``[NC]`` is
 ``[B, NC]`` here, ``[N, NG]`` is ``[B, N, NG]`` and a scalar leaf is
@@ -748,41 +751,44 @@ def ctrler_step(cfg: SimConfig, kcfg: CtrlerConfig, ks: CtrlerState,
                 tick: str = "kernel", table=None,
                 ctable=None) -> CtrlerState:
     """One ctrler tick of every cluster: the raft tick, then the service
-    tick, routed by ``engine.tick_route``: on the card K6 (one tick) and
-    K10, with ``table`` / ``ctable`` the knob tables a caller running many
-    ticks builds once (``K6.knob_table``, ``K10.knob_table``); on the CPU,
-    or with ``tick="eager"``, ``step_cluster`` and the plain service
-    tick."""
+    tick, routed by ``engine.tick_route``: on the card one K6-ctrler
+    launch of one tick (``K10.ctrler_chunk``), with ``table`` / ``ctable``
+    the knob tables a caller running many ticks builds once
+    (``K6.knob_table``, ``K10.knob_table``); on the CPU, or with
+    ``tick="eager"``, ``step_cluster`` and the plain service tick."""
     from madraft_tpu_torch.tpusim.engine import tick_route
 
+    if tick_route(ks.raft.tick.device, tick) == "kernel":
+        return K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, 1, table,
+                                ctable)
     pre = ks.raft
-    kernel = tick_route(pre.tick.device, tick) == "kernel"
-    if kernel:
-        s = K6.tick_chunk(cfg, pre, keys, kn, 1, table)
-    else:
-        s = step_cluster(cfg, pre, keys, kn)
-    # K6 returns a new state, so the pre-tick views are the old tensors
+    s = step_cluster(cfg, pre, keys, kn)
     return K10.ctrler_tick(cfg, kcfg, ks, pre.alive, pre.base, s, keys, kn,
-                           ckn, ctable, plain=not kernel)
+                           ckn, plain=True)
 
 
 def _advance_ctrler(cfg: SimConfig, kcfg: CtrlerConfig, ks: CtrlerState,
                     keys: torch.Tensor, kn: Knobs, ckn: CtrlerKnobs,
                     n_ticks: int, tick: str = "kernel") -> CtrlerState:
-    """n_ticks ctrler ticks, routed as ``ctrler_step`` says; on the card
-    both knob tables are built once here. Every ctrler run goes through
-    this function, so ``functools.partial(_advance_ctrler,
-    tick="eager")`` in its place runs a whole program on the eager route
-    (the A/B's baseline)."""
-    from madraft_tpu_torch.tpusim.engine import tick_route
+    """n_ticks ctrler ticks, routed as ``ctrler_step`` says: on the card
+    K6-ctrler launches of up to ``engine.KERNEL_CHUNK`` ticks (both knob
+    tables built once here), else a ``ctrler_step`` a tick. Every ctrler
+    run goes through this function, so ``functools.partial(
+    _advance_ctrler, tick="eager")`` in its place runs a whole program on
+    the eager route (the A/B's baseline)."""
+    from madraft_tpu_torch.tpusim.engine import KERNEL_CHUNK, tick_route
 
-    table = ctable = None
     if tick_route(ks.raft.tick.device, tick) == "kernel":
         b = keys.shape[0]
         table = K6.knob_table(kn, b)
         ctable = K10.knob_table(kn, ckn, b)
+        for done in range(0, n_ticks, KERNEL_CHUNK):
+            ks = K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn,
+                                  min(KERNEL_CHUNK, n_ticks - done), table,
+                                  ctable)
+        return ks
     for _ in range(n_ticks):
-        ks = ctrler_step(cfg, kcfg, ks, keys, kn, ckn, tick, table, ctable)
+        ks = ctrler_step(cfg, kcfg, ks, keys, kn, ckn, tick)
     return ks
 
 
@@ -849,8 +855,8 @@ def ctrler_report(final: CtrlerState) -> CtrlerFuzzReport:
 class CtrlerFuzzProgram:
     """``fn(seed) -> final batched CtrlerState`` for one config and shape,
     the ``engine.FuzzProgram`` interface (``compile_timed`` builds the
-    kernels, K6's and K10's builds for the run among them, before the
-    first tick). ``kn`` / ``ckn`` override the configs' knobs (the
+    kernels, the run's K6-ctrler build among them, before the first
+    tick). ``kn`` / ``ckn`` override the configs' knobs (the
     sweep's [B] rows)."""
 
     def __init__(self, cfg: SimConfig, kcfg: CtrlerConfig, n_clusters: int,
@@ -880,7 +886,7 @@ class CtrlerFuzzProgram:
         if self.compile_s is None:
             self.compile_s = _build_kernels(
                 self.device, self.cfg.metrics,
-                extra=(K10.variant(self.cfg.metrics),))
+                extra=(K6.variant(self.cfg.metrics, False, ctrler=True),))
         return self.compile_s
 
     def __call__(self, seed) -> CtrlerState:

@@ -27,7 +27,7 @@
 extern "C" int ctrler_launch(const int64_t *desc, int n_desc, void *) {
   static k10::Params p;
   if (!k10::set_params(p, desc, n_desc)) return 1;
-  std::vector<int32_t> region(p.words);
+  std::vector<int32_t> region(p.L.words);
   uint64_t bar = 0;
   for (int c = 0; c < p.b; ++c) {
     // shared memory starts undefined: a word the tick reads before it

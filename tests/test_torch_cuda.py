@@ -982,7 +982,7 @@ def test_k6_kv_kernel_refuses_what_it_does_not_take(dev):
         K6._launch(cfg, ks.raft, keys, kn, 4,
                    K6._lib(K6.variant(True, False, kv=True)),
                    torch.cuda.current_stream(dev).cuda_stream,
-                   kv=K9.Side(cfg, kcfg, ks, K9.knob_table(kn, kkn, 8)))
+                   side=K9.Side(cfg, kcfg, ks, K9.knob_table(kn, kkn, 8)))
     assert K9.kv_chunk.launches == before
 
 
@@ -997,14 +997,14 @@ def test_shapes_past_the_kernels_limits_are_refused_on_the_card(dev, verb,
 
     launches = (K6.tick_chunk.launches, K2.oracle.launches,
                 K9.kv_chunk.launches, K10.ctrler_tick.launches,
-                K11.shardkv_tick.launches)
+                K10.ctrler_chunk.launches, K11.shardkv_tick.launches)
     rc = main([verb, "--nodes", "17", "--clusters", "8", "--ticks", "64"])
     err = capsys.readouterr().err
     assert rc == 2, err
     assert "n <= 16" in err and "--platform cpu" in err, err
     assert (K6.tick_chunk.launches, K2.oracle.launches,
             K9.kv_chunk.launches, K10.ctrler_tick.launches,
-            K11.shardkv_tick.launches) == launches
+            K10.ctrler_chunk.launches, K11.shardkv_tick.launches) == launches
 
 
 # ---- K10, the shard controller's service tick, and the ctrler path
@@ -1081,15 +1081,112 @@ def test_ctrler_kernel_refuses_what_it_does_not_take(dev):
 def test_ctrler_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
     cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **CTRLER_BASE)
     kcfg = ctrler.CtrlerConfig(bug_rotate_tiebreak=True)
-    launches = (K6.tick_chunk.launches, K10.ctrler_tick.launches)
+    launches = (K6.tick_chunk.launches, K10.ctrler_tick.launches,
+                K10.ctrler_chunk.launches, K10.ctrler_chunk.metrics_launches)
     got = ctrler.ctrler_fuzz(cfg, kcfg, 5, 64, 160, device=dev)
+    # one K6-ctrler launch for the 160 ticks, no K6 or K10 launch
     assert (K6.tick_chunk.launches - launches[0],
-            K10.ctrler_tick.launches - launches[1]) == (160, 160)
+            K10.ctrler_tick.launches - launches[1],
+            K10.ctrler_chunk.launches - launches[2],
+            K10.ctrler_chunk.metrics_launches - launches[3]) == (
+        0, 0, 1, int(metrics_on))
     want = ctrler.ctrler_fuzz(cfg, kcfg, 5, 64, 160, device="cpu")
     for f in want._fields:
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
     assert want.n_violating > 0
+
+
+# ---- K6-ctrler: K6 with the ctrler service tick after each raft tick of a
+# chunk
+@pytest.mark.parametrize("n_nodes,kw,metrics_on,partitionable", [
+    (5, {}, False, True),
+    (3, {"bug_rotate_tiebreak": True}, True, False),
+    (7, {"bug_greedy_rebalance": True}, False, True),
+    (5, {"bug_full_reshuffle": True}, True, True),
+    # ten gids, one an op, and a history that fills
+    (5, {"n_gids": 10, "join_max": 1, "n_configs": 6, "p_move": 0.2}, True,
+     False),
+    # 32 clients: two clerks a lane of the 16-lane tile
+    (7, {"n_clients": 32, "n_gids": 10}, True, True),
+])
+def test_k6_ctrler_kernel_equals_plain_every_launch(dev, n_nodes, kw,
+                                                    metrics_on,
+                                                    partitionable):
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=metrics_on,
+                           **CTRLER_BASE)
+    kcfg = ctrler.CtrlerConfig(**kw)
+    b = 1101  # a tile past the batch's end
+    with prng.layout(partitionable):
+        keys = engine.cluster_keys(7, b, dev)
+        kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+        ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+        ks = K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, 48)
+        start = [int(x.sum()) for x in (ks.clerk_acked, ks.w_cfg_num)]
+        done = 48
+        for m in (16, 1, 7):
+            before = (K10.ctrler_chunk.launches,
+                      K10.ctrler_chunk.metrics_launches)
+            got = K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, m)
+            assert (K10.ctrler_chunk.launches,
+                    K10.ctrler_chunk.metrics_launches) == (
+                before[0] + 1, before[1] + int(metrics_on))
+            want = K10.ctrler_chunk_plain(cfg, kcfg, ks, keys, kn, ckn, m)
+            done += m
+            d = ctrler.first_divergence(done,
+                                        ctrler.ctrler_state_to_numpy(want),
+                                        ctrler.ctrler_state_to_numpy(got))
+            assert d is None, d
+            ks = want
+    assert ks.clerk_acked.sum() > start[0] and ks.w_cfg_num.sum() > start[1]
+
+
+@pytest.mark.parametrize("n_nodes,cap,kw", [
+    # K10's largest tables: 16 nodes, a 256-slot ring, 32 clients, ten
+    # gids and 256 configs (two 16 KB history tables a cluster, which
+    # K6-ctrler keeps in device memory)
+    (16, 256, {"n_clients": 32, "n_gids": 10, "n_configs": 256}),
+    (9, 128, {"n_clients": 17, "n_configs": 100, "apply_max": 11,
+              "walk_max": 13}),
+])
+def test_k6_ctrler_takes_every_shape_k10_takes(dev, n_nodes, cap, kw):
+    cfg = config.SimConfig(n_nodes=n_nodes, metrics=True,
+                           **{**CTRLER_BASE, "log_cap": cap,
+                              "compact_every": cap // 4})
+    kcfg = ctrler.CtrlerConfig(**kw)
+    b = 37
+    keys = engine.cluster_keys(3, b, dev)
+    kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+    ks = K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, 40)
+    got = K10.ctrler_chunk(cfg, kcfg, ks, keys, kn, ckn, 6)
+    want = K10.ctrler_chunk_plain(cfg, kcfg, ks, keys, kn, ckn, 6)
+    d = ctrler.first_divergence(46, ctrler.ctrler_state_to_numpy(want),
+                                ctrler.ctrler_state_to_numpy(got))
+    assert d is None, d
+
+
+def test_k6_ctrler_kernel_refuses_what_it_does_not_take(dev):
+    cfg = config.SimConfig(n_nodes=5, **CTRLER_BASE)
+    kcfg = ctrler.CtrlerConfig()
+    keys = engine.cluster_keys(1, 8, dev)
+    kn, ckn = cfg.knobs(dev), kcfg.knobs(dev)
+    ks = ctrler.init_ctrler_cluster(cfg, kcfg, keys, kn)
+    before = K10.ctrler_chunk.launches
+    with pytest.raises(ValueError, match="clerk_arg"):
+        K10.ctrler_chunk(cfg, kcfg,
+                         ks._replace(clerk_arg=ks.clerk_arg.cpu()), keys, kn,
+                         ckn, 4)
+    with pytest.raises(ValueError, match="n_clients"):
+        K10.ctrler_chunk(cfg, kcfg.replace(n_clients=40), ks, keys, kn, ckn,
+                         4)
+    # the metrics build refuses a metrics-off state
+    with pytest.raises(RuntimeError, match="tick_launch"):
+        K6._launch(cfg, ks.raft, keys, kn, 4,
+                   K6._lib(K6.variant(True, False, ctrler=True)),
+                   torch.cuda.current_stream(dev).cuda_stream,
+                   side=K10.Side(cfg, kcfg, ks, K10.knob_table(kn, ckn, 8)))
+    assert K10.ctrler_chunk.launches == before
 
 
 @pytest.mark.parametrize("b,misaligned", [(1, True), (3, False), (131, True),

@@ -3,7 +3,7 @@ a chunk (``kernels/kv.py`` ``kv_chunk``, ``csrc/tick.cuh`` ``kv_tick`` on
 ``csrc/kv.cuh``'s phases), its device code built for the host with g++
 (``tests/tick_host_emu.cpp`` with ``-DMADRAFT_K6_KV``, the plain and
 metrics builds, module-scoped) and driven through the wrapper's own
-marshalling (``kernels.tick._launch(..., kv=kernels.kv.Side(...))``):
+marshalling (``kernels.tick._launch(..., side=kernels.kv.Side(...))``):
 
 - every ``KvState`` leaf, the raft leaves included, equals the plain
   route's (``step_cluster``, then ``_kv_service_tick``) after every
@@ -92,7 +92,7 @@ def launch(lib, cfg, kcfg, ks, keys, kn, kkn, m: int):
     b = keys.shape[0]
     out, launched = K6._launch(
         cfg, ks.raft, keys, kn, m, lib, None, table=K6.knob_table(kn, b),
-        kv=K9.Side(cfg, kcfg, ks, K9.knob_table(kn, kkn, b)))
+        side=K9.Side(cfg, kcfg, ks, K9.knob_table(kn, kkn, b)))
     assert launched
     return out
 
@@ -204,13 +204,13 @@ def test_k6_kv_refuses_what_it_does_not_take(host):
     # without the kv side or with trace rows
     with pytest.raises(RuntimeError, match="tick_launch"):
         K6._launch(cfg, ks.raft, keys, kn, 4, host["tick_metrics_kv"], None,
-                   kv=side)
+                   side=side)
     with pytest.raises(RuntimeError, match="tick_launch"):
         K6._launch(cfg, ks.raft, keys, kn, 4, host["tick_kv"], None)
     rows = torch.zeros((4, 3, K6.K8.record_width(cfg)), dtype=I32)
     with pytest.raises(RuntimeError, match="tick_launch"):
         K6._launch(cfg, ks.raft, keys, kn, 4, host["tick_kv"], None,
-                   trace=rows, kv=side)
+                   trace=rows, side=side)
     with pytest.raises(ValueError, match="n_keys"):
         K9.Side(cfg, kcfg.replace(n_keys=128), ks, side.table)
     with pytest.raises(ValueError, match="clerk_seq"):

@@ -10,9 +10,10 @@
 // seen-set after an earlier warp's whole chunk: the order a credit rule
 // must not depend on; a trace buffer gets each tick's row, K6-trace);
 // tick_words draws a chunk's words as the kernel does. -DMADRAFT_K6_METRICS,
-// -DMADRAFT_K6_COVERAGE and -DMADRAFT_K6_KV build the variants, as for
-// tick.cu (K6-kv's service phases, kv.cuh, update the region with the
-// shared atomics' twins below, MADRAFT_HOST_ATOMICS):
+// -DMADRAFT_K6_COVERAGE, -DMADRAFT_K6_KV and -DMADRAFT_K6_CTRLER build the
+// variants, as for tick.cu (the service phases of K6-kv and K6-ctrler,
+// kv.cuh and ctrler.cuh, update the region with the shared atomics' twins
+// below, MADRAFT_HOST_ATOMICS):
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared
 //       -I madraft_tpu_torch/csrc -o libtick_host.so tests/tick_host_emu.cpp
@@ -153,7 +154,7 @@ inline int atomicAdd(int *a, int v) {
   return std::atomic_ref<int>(*a).fetch_add(v);
 }
 
-// K6-kv's lanes or and max into words of their region
+// K6-kv's and K6-ctrler's lanes or and max into words of their region
 inline int atomicOr(int *a, int v) {
   return std::atomic_ref<int>(*a).fetch_or(v);
 }
@@ -197,11 +198,15 @@ constexpr bool kCov = true;
 #else
 constexpr bool kCov = false;
 #endif
-#ifdef MADRAFT_K6_KV
-constexpr bool kKv = true;
+#if defined(MADRAFT_K6_KV)
+constexpr int kSvc = k6::kSvcKv;
+#elif defined(MADRAFT_K6_CTRLER)
+constexpr int kSvc = k6::kSvcCtrler;
 #else
-constexpr bool kKv = false;
+constexpr int kSvc = k6::kNoSvc;
 #endif
+constexpr int kBuildShapes =
+    kSvc == k6::kSvcCtrler ? k6::kCtrlerShapes : k6::kShapes;
 
 // Each warp of TILE-lane tiles in turn, as 32 threads: tile t of warp w
 // runs body(c, active, tile, its block) on cluster c = w * (32 / TILE) + t,
@@ -231,7 +236,7 @@ void run(const k6::Params &p) {
   constexpr int kTile = k6::kTile;
   each_warp<kTile>(p, [&](int c, bool active, const k6::Tile<kTile> &tile,
                           uint8_t *cl) {
-    k6::run_cluster<N_, CAP_, AE_, kTile, false, kMet, kCov, kKv>(
+    k6::run_cluster<N_, CAP_, AE_, kTile, false, kMet, kCov, kSvc>(
         p, cl, c, active, tile, nullptr);
   });
 }
@@ -258,8 +263,8 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
                            int n_draws, int b, int n, int cap, int ae_max,
                            int m, int bug, int partitionable,
                            const int64_t *mptrs, const int64_t *cov,
-                           void *trace, int trace_w, const int64_t *kv,
-                           int n_kv, void *) {
+                           void *trace, int trace_w, const int64_t *svc,
+                           int n_svc, void *) {
   if (n_leaves != k6::kLeaves || n_draws != k6::kDraws) return 1;
   if ((mptrs != nullptr) != kMet || (cov != nullptr) != kCov) return 1;
   if (kMet && m > k6::kMaxMetricTicks) return 1;
@@ -271,11 +276,11 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
     p.in[l] = reinterpret_cast<const void *>(ins[l]);
     p.out[l] = reinterpret_cast<void *>(outs[l]);
   }
-  const int inst = k6::instance(n, cap, ae_max);
+  const int inst = k6::instance(n, cap, ae_max, kBuildShapes);
   if (!k6::set_shape(p, n, cap, ae_max, inst ? k6::kShapeAe : ae_max, kMet,
                      draws) ||
       !k6::set_trace(p, trace, trace_w, kMet) ||
-      !k6::set_kv(p, kv, n_kv, partitionable, kMet, kKv))
+      !k6::set_service(p, svc, n_svc, partitionable, kMet, kSvc))
     return 1;
   p.keys = static_cast<const long long *>(keys);
   p.kf = static_cast<const float *>(kf);
@@ -292,13 +297,19 @@ extern "C" int tick_launch(const int64_t *ins, const int64_t *outs,
     case 4: run_shape<3>(p); break;
     case 5: run_shape<4>(p); break;
     case 6: run_shape<5>(p); break;
+    case 7:
+      if constexpr (kBuildShapes > k6::kShapes) {
+        run_shape<6>(p);
+        break;
+      }
+      [[fallthrough]];
     default: run<0, 0, 0>(p);
   }
   return 0;
 }
 
 extern "C" int tick_instance(int n, int cap, int ae_max) {
-  return k6::instance(n, cap, ae_max);
+  return k6::instance(n, cap, ae_max, kBuildShapes);
 }
 
 extern "C" int credit_launch(const void *fp, const void *seen, void *new_fps,

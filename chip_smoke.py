@@ -73,11 +73,15 @@ K11, the shardkv service tick, and K11-metrics against their plain version
 (phase ``shardkv_k11``: the schedule mode's cases as [B] rows; phase
 ``shardkv_ctrl_k11``: the live and computed controller modes with their
 bugs as rows, and an edge batch with the controller walker's planted
-stall), drives the shardkv flagship (``shardkv-fuzz --storm --clusters 1024
---ticks 512``, twice, then with ``--metrics``: K6 over the groups and K11
-once a tick) and the same with ``--live-ctrler`` and with
-``--computed-ctrler`` (K6 twice a tick, the groups' and the controller
-clusters', K11 once), each with its A/B, runs the ``hot_key_openloop``
+stall), holds K6-shardkv and K6-metrics-shardkv against the plain route
+in each mode (phase ``shardkv_k6shardkv``), drives the shardkv flagship
+(``shardkv-fuzz --storm --clusters 1024 --ticks 512``, twice, then with
+``--metrics``: K6-shardkv once a 256-tick chunk, no K6 or K11, the report
+equal to the eager route's at 64 ticks (the whole flagship's in
+``tests/test_torch_cuda.py``) and, at 32 x 16, to the CPU route's) and
+the same with
+``--live-ctrler`` and with
+``--computed-ctrler``, each with its A/B, runs the ``hot_key_openloop``
 gate as a kv leg beside the raft gates, then
 times each kernel beside its plain version and its bound: ``ms`` is the kernel's own device time per launch (torch.profiler,
 matched by the CUDA function's name), ``call_ms`` the wrapper's time per
@@ -88,8 +92,8 @@ clock64() split by phase group (``k6_phases``, its profile build) and its
 time as the warps an SM grow (``k6_scaling``) follow, K9's clock64()
 split by phase (``kv_phases``, its profile build) and the kv tick's on
 K6-kv (``profile_kv_tick``), the ctrler tick's on K6-ctrler
-(``profile_ctrler_tick``) and the
-shardkv tick's in each mode (``profile_shardkv_tick[_live|_computed]``);
+(``profile_ctrler_tick``) and the shardkv tick's on K6-shardkv in each
+mode (``profile_shardkv_tick[_live|_computed]``);
 ``k6_metrics_phases`` gives K6-metrics' split, grid, waves and ms a launch
 at 4096 clusters and at one wave, and ptxas's report of every K6 build;
 ``k6_only()`` runs just those three K6 phases, ``--k6-leg`` one leg of
@@ -97,7 +101,9 @@ an A/B of K6's builds between two trees, and ``--kv-leg`` one leg of an
 A/B of the kv path (K6's builds, K9, K6-kv where the tree has it, the kv
 flagships' wall a tick), ``--ctrler-leg`` one leg of an A/B of the ctrler
 path (K6's builds, K6-kv, K10, K6-ctrler where the tree has it, the
-ctrler flagships' wall a tick).
+ctrler flagships' wall a tick), ``--shardkv-leg`` one leg of an A/B of the
+shardkv path (K6's builds, K6-kv, K6-ctrler, K11, K6-shardkv where the
+tree has it, the three shardkv flagships' wall a tick).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` from nvidia-smi, and last
@@ -291,6 +297,23 @@ SHARDKV_CTRL_EDGE = (37, 5, {"log_cap": 16, "compact_every": 4,
 # the controller flagships: the shardkv flagship with --live-ctrler or
 # --computed-ctrler
 SHARDKV_CTRL_FLAG = {"live": "--live-ctrler", "computed": "--computed-ctrler"}
+# K6-shardkv against shardkv_chunk_plain (phase shardkv_k6shardkv, once a
+# mode): the batches of shardkv_k11 / shardkv_ctrl_k11 from the same warm
+# ticks, compared after each launch of these lengths (the last a short
+# one)
+SHARDKV_K6S_LAUNCHES = (16, 1, 7)
+# the CPU route's batch and depth beside the card's K6-shardkv
+SHARDKV_CPU_DEPLOYMENTS, SHARDKV_CPU_TICKS = 32, 16
+# the eager route's depth beside K6-shardkv's report at the flagship's
+# batch, a mode: the eager tick there is 65-145 ms (H100; the plain
+# service tick a few thousand small operations), so the smoke holds its
+# time with 64 ticks and tests/test_torch_cuda.py runs the whole flagship
+# (test_k6_shardkv_flagship_equals_the_eager_route)
+SHARDKV_EAGER_TICKS = {"schedule": 64, "live": 64, "computed": 64}
+# the ticks of a K6-shardkv launch in the kernels line (the plain version,
+# whose per-tick counts give the bound, takes 0.07-0.15 s a tick at the
+# flagship's batch)
+SHARDKV_K6S_TIMED_TICKS = 16
 # the row cases of shardkv_knob_rows, deployment d taking case d % 7
 SHARDKV_ROW_CASES = ("clean", "skip_freeze", "drop_dup_table",
                      "serve_frozen", "puts", "open_zipf", "requery")
@@ -553,6 +576,16 @@ def counters():
                                          "live_metrics_launches"),
            "shardkv_tick_metrics_computed": (K11.shardkv_tick,
                                              "computed_metrics_launches")}
+    # K6-shardkv's (absent from an older tree: shardkv_leg's parent)
+    chunk = getattr(K11, "shardkv_chunk", None)
+    for name, a in (("shardkv_chunk", "launches"),
+                    ("shardkv_chunk_metrics", "metrics_launches"),
+                    ("shardkv_chunk_live", "live_launches"),
+                    ("shardkv_chunk_computed", "computed_launches"),
+                    ("shardkv_chunk_metrics_live", "live_metrics_launches"),
+                    ("shardkv_chunk_metrics_computed",
+                     "computed_metrics_launches")):
+        out[name] = (chunk, a)
     return {k: v for k, v in out.items() if v[0] is not None}
 
 
@@ -1603,18 +1636,14 @@ def main() -> int:
     emit(_ctrler_k6ctrler(dev, errs))
     ctrler_launches, ctrler_launches_m = _ctrler_path(dev)
 
-    # ---- 6m. the shardkv path: K11 and K11-metrics against the plain
-    # service tick, then the shardkv flagships through the CLI (K6 over
-    # the groups and K11 once a tick) and the eager-vs-kernel A/B
-    emit(_shardkv_k11(dev, errs))
-    shardkv_launches, shardkv_launches_m = _shardkv_path(dev)
-
-    # ---- 6n. the shardkv controller modes: K11's controller branches
-    # against the plain service tick, then the live and computed
-    # controller flagships through the CLI (K6 over the groups and over
-    # the controller clusters, K11 once a tick) and each mode's A/B
-    emit(_shardkv_ctrl_k11(dev, errs))
-    ctrl_launches = _shardkv_ctrl_path(dev)
+    # ---- 6m. the shardkv path: K11 and K11-metrics (off the path) against
+    # the plain service tick in each mode; then in each mode K6-shardkv and
+    # K6-metrics-shardkv against the plain route, the flagships through the
+    # CLI (K6-shardkv once a chunk), the eager and CPU routes' reports and
+    # the eager-vs-kernel A/B
+    # (in a child process of its own, with K6-shardkv's timing and the
+    # shardkv ticks' profiles: see _shardkv_section)
+    shardkv_launches, k6s_timing = _shardkv_section(errs)
 
     # ---- 7. kernel timing at the flagship shapes
     b, n_nodes = 4096, 5
@@ -2122,10 +2151,9 @@ def main() -> int:
     emit(_profile_harvest(fs, fk, fkn, config.CoverageConfig()))
     emit(_kv_phases(dev))
     emit(_ctrler_phases(dev))
-    emit(_profile_kv_tick(dev, False))
-    emit(_profile_kv_tick(dev, True))
-    emit(_profile_ctrler_tick(dev, False))
-    emit(_profile_ctrler_tick(dev, True))
+    # the kv and ctrler ticks' profiles and K11's timing, in a fresh
+    # process (see _child)
+    late = _child("--late-profiles", "late_profiles")
     emit(_profile_ticks(fcfg, fs, fk, fkn, chunk, "profile_k6", tick="kernel"))
     emit(_profile_ticks(fcfg, fs, fk, fkn, EAGER_PROFILE_TICKS, "profile"))
     emit(_profile_ticks(mcfg, ms_, fk, fkn, chunk, "profile_k6_metrics",
@@ -2155,19 +2183,19 @@ def main() -> int:
           "b4_harvest_bytes_per_lane": harvest_bpl,
           "b4_harvest_bound_ms": b * harvest_bpl / PEAK_BYTES_S * 1e3})
     emit(_harvest_routes(fs, fk, fkn, errs))
-    # K11 and K11-metrics at the shardkv flagship's shape, and where a
-    # shardkv tick's time goes: after K6's profiled phases, whose short
-    # windows lose CUPTI records more often after many long ones
-    shardkv_timing, shardkv_bytes = _shardkv_timing(dev)
+    # K11 and K11-metrics at the shardkv flagship's shape (timed in the
+    # late profiles' process)
+    shardkv_timing = {k: tuple(v) for k, v in late["shardkv_timing"].items()}
+    shardkv_bytes = late["shardkv_bytes"]
     timing.update(shardkv_timing)
+    # K6-shardkv and K6-metrics-shardkv a chunk there, in each mode (timed
+    # in the shardkv section's process)
+    timing.update(k6s_timing)
     emit({"phase": "shardkv_timing", "card": _smi(),
           "shardkv_tick_bytes": shardkv_bytes,
           **{k: dict(zip(("ms", "call_ms", "plain_ms", "bytes", "operations"),
                          v)) for k, v in shardkv_timing.items()}})
     emit(_shardkv_phases(dev))
-    emit(_profile_shardkv_tick(dev, False))
-    for mode in SHARDKV_CTRL_FLAG:
-        emit(_profile_shardkv_tick(dev, False, mode=mode))
 
     emit(card)
     # name: (label, source, the reference region it replaces)
@@ -2243,6 +2271,13 @@ def main() -> int:
             "K11-metrics computed controller",
             "madraft_tpu_torch/csrc/shardkv.cu",
             "madraft_tpu/tpusim/shardkv.py:1768"),
+        **{_k6s_name(metrics_on, mode): (
+            "K6-" + "metrics-" * metrics_on + "shardkv"
+            + ("" if mode == "schedule" else f" {mode} controller"),
+            "madraft_tpu_torch/csrc/tick.cu",
+            "madraft_tpu/tpusim/shardkv.py:876")
+           for metrics_on in (False, True)
+           for mode in ("schedule", *SHARDKV_CTRL_FLAG)},
     }
     # each kernel's launches on the path that runs it: the fuzz flagship
     # for K6 and K1's key hashes, the pool flagship for K3, the metrics
@@ -2278,16 +2313,16 @@ def main() -> int:
         "ctrler_chunk_metrics"]
     launches["ctrler_tick"] = ctrler_launches["ctrler_tick"]
     launches["ctrler_tick_metrics"] = ctrler_launches_m["ctrler_tick_metrics"]
-    # K11's from the shardkv flagship, K11-metrics' from its metrics run
-    launches["shardkv_tick"] = shardkv_launches["shardkv_tick"]
-    launches["shardkv_tick_metrics"] = shardkv_launches_m[
-        "shardkv_tick_metrics"]
-    # K11's controller rows from their modes' flagships, K11-metrics' in
-    # each mode from the mode's metrics run
-    for mode, (ran, ran_m) in ctrl_launches.items():
-        launches[f"shardkv_tick_{mode}"] = ran[f"shardkv_tick_{mode}"]
-        launches[f"shardkv_tick_metrics_{mode}"] = ran_m[
-            f"shardkv_tick_metrics_{mode}"]
+    # K6-shardkv's from each mode's flagship, K6-metrics-shardkv's from its
+    # metrics run; K11's rows there too (0: off the path since K6-shardkv)
+    for mode, runs in shardkv_launches.items():
+        tail = "" if mode == "schedule" else f"_{mode}"
+        for metrics_on in (False, True):
+            ran = runs[int(metrics_on)]
+            launches[_k6s_name(metrics_on, mode)] = ran[
+                _k6s_name(metrics_on, mode)]
+            name = "shardkv_tick" + "_metrics" * metrics_on + tail
+            launches[name] = ran[name]
     errs["harvest_coverage"] = errs["harvest"]
     rows = []
     for name, (ms, call_ms, plain_ms, nb, ops) in timing.items():
@@ -2650,6 +2685,74 @@ def ctrler_leg(label: str, tree: str = "") -> int:
             rows.append({"wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
                          "steps_per_sec": tele["steps_per_sec"]})
         out["flagships"][name] = rows
+    emit(out)
+    return 0
+
+
+def shardkv_leg(label: str, tree: str = "") -> int:
+    """One leg of an A/B of the shardkv path between two trees in one call:
+    the madraft_tpu_torch package of ``tree`` (a ``git archive`` of another
+    commit; this checkout's when empty), its kernels built into its own
+    build directory, measured by ``k6_timing`` (K6, K6-metrics,
+    K6-coverage), by ``_k6kv_timing`` and ``_k6ctrler_timing`` (K6-kv and
+    K6-ctrler a chunk, without their plain versions), by
+    ``_shardkv_timing`` (K11 and K11-metrics a tick in each mode), by
+    ``_k6shardkv_timing`` where the tree has K6-shardkv (without its plain
+    version), and by the three shardkv flagships' wall a tick and
+    deployment-steps/s (1024 x 512 from a warm process, two runs each);
+    prints one JSON line. Run in turns, for example parent, change,
+    change, parent:
+
+        python3 chip_smoke.py --shardkv-leg parent _proof/parent
+        python3 chip_smoke.py --shardkv-leg change
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    if tree:
+        sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import madraft_tpu_torch
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import shardkv as K11
+
+    root = pathlib.Path(tree).resolve() if tree else ROOT
+    check(pathlib.Path(madraft_tpu_torch.__file__).is_relative_to(root),
+          f"shardkv_leg measures {madraft_tpu_torch.__file__}, not {root}")
+    for k, (fn, a) in counters().items():  # an older tree's lack some
+        if not hasattr(fn, a):
+            setattr(fn, a, 0)
+    k6s = hasattr(K11, "shardkv_chunk")
+    _build.build_all(_build.SOURCES + (
+        "tick_metrics", "tick_coverage", "tick_kv", "tick_metrics_kv",
+        "tick_ctrler", "tick_metrics_ctrler", _build.SHARDKV,
+        "shardkv_metrics") + (
+        ("tick_shardkv", "tick_metrics_shardkv") if k6s else ()))
+    dev = torch.device("cuda")
+    out = {"leg": label, "card": _smi(), "k6": k6_timing(dev),
+           "k6kv": {k: v[:2] for k, v in _k6kv_timing(
+               dev, plain=False).items()},
+           "k6ctrler": {k: v[:2] for k, v in _k6ctrler_timing(
+               dev, plain=False).items()},
+           "k11": {k: v[:3] for k, v in _shardkv_timing(dev)[0].items()},
+           "k6shardkv": ({k: v[:2] for k, v in _k6shardkv_timing(
+               dev, plain=False).items()} if k6s else None),
+           "flagships": {}}
+    ticks = _flag(SHARDKV_FLAGSHIP, "--ticks")
+    run_cli(SHARDKV_FLAGSHIP[:2] + ["--clusters", "1024", "--ticks", "16"])
+    for mode in ("schedule", *SHARDKV_CTRL_FLAG):
+        argv = [x for x in _shardkv_flagship(mode)[0]
+                if x != "--check-deterministic"]
+        rows = []
+        for _ in range(2):
+            rc, rep = run_cli(argv)
+            check(rc == 0 and rep["violating"] == 0,
+                  f"shardkv {mode} flagship rc {rc}")
+            tele = rep["telemetry"]
+            rows.append({"wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
+                         "steps_per_sec": tele["steps_per_sec"]})
+        out["flagships"][mode] = rows
     emit(out)
     return 0
 
@@ -5136,57 +5239,332 @@ def _shardkv_k11(dev, errs: dict) -> dict:
                                errs["shardkv_tick_metrics"])}
 
 
-def _shardkv_path(dev) -> tuple:
-    """The shardkv main path through the CLI: the shardkv flagship twice
-    (--check-deterministic), then once with --metrics; the eager-vs-kernel
-    A/B at SHARDKV_AB_TICKS ticks. Returns (the flagship's launches, the
-    metrics flagship's)."""
-    from madraft_tpu_torch.kernels import tick as K6
+def _shardkv_k6shardkv(dev, errs: dict, mode: str) -> dict:
+    """Phase shardkv_k6shardkv (once a mode): K6-shardkv and
+    K6-metrics-shardkv against ``shardkv_chunk_plain`` on the card, every
+    leaf after every launch of SHARDKV_K6S_LAUNCHES ticks (the last a
+    short one): the mode's flagship batch from tick SHARDKV_K11_WARM with
+    the mode's row cases as [B] knob rows (shardkv_row_cases), metrics off
+    under the partitionable layout and on under the legacy one, then the
+    mode's edge batch (SHARDKV_K11_EDGE: five groups of seven, 32 clerks;
+    in a controller mode SHARDKV_CTRL_EDGE with the planted walker stall);
+    then ptxas's report of both builds, their layout at the flagship's
+    batch, and the ms of a 256-tick launch there (CUDA events). Launches
+    here are not main-path launches."""
+    import torch
+
+    from madraft_tpu_torch import _build
+    from madraft_tpu_torch.kernels import shardkv as K11
+    from madraft_tpu_torch.tpusim import engine, prng, shardkv
+
+    counts = read_counts()
+    ctrl = mode != "schedule"
+    b_flag = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    edge = SHARDKV_CTRL_EDGE if ctrl else SHARDKV_K11_EDGE
+    runs = (("flagship_rows", b_flag, False, True, "rows"),
+            ("flagship_rows_metrics_legacy", b_flag, True, False, "rows"),
+            ("edge", edge[0], True, True, "edge"))
+    done = []
+    for name, b, metrics_on, flag, kind in runs:
+        cfg, kcfg = _shardkv_cli_cfg(metrics_on, mode)
+        warm, rows = SHARDKV_K11_WARM, kind == "rows" or ctrl
+        if kind == "edge" and ctrl:
+            _, en, eraft, ekw, warm = SHARDKV_CTRL_EDGE
+            cfg, kcfg = cfg.replace(n_nodes=en, **eraft), kcfg.replace(**ekw)
+        elif kind == "edge":
+            _, en, ekw, warm = SHARDKV_K11_EDGE
+            cfg, kcfg = cfg.replace(n_nodes=en), kcfg.replace(**ekw)
+        with prng.layout(flag):
+            keys = engine.cluster_keys(12345, b, dev)
+            kn = cfg.knobs(dev)
+            skn = (shardkv_knob_rows(kcfg, b).to(dev) if rows
+                   else kcfg.knobs(dev))
+            st = shardkv._advance_shardkv(
+                cfg, kcfg, shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn,
+                                                        skn),
+                keys, kn, skn, warm)
+            if kind == "edge" and ctrl:
+                # every other controller's shadow slid past the walker's
+                # next entry
+                c, odd = st.ctrl, torch.arange(b, device=dev) % 2 == 0
+                base = torch.where(odd, torch.maximum(
+                    c.shadow_base, st.ctrl_w_frontier + 1), c.shadow_base)
+                st = st._replace(ctrl=c._replace(
+                    shadow_base=base,
+                    shadow_len=torch.where(odd, torch.maximum(
+                        c.shadow_len, base + 5), c.shadow_len)))
+            start, err = st, 0.0
+            for m in SHARDKV_K6S_LAUNCHES:
+                got = K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, m)
+                want = K11.shardkv_chunk_plain(cfg, kcfg, st, keys, kn, skn,
+                                               m)
+                err = max(err, _shardkv_err(got, want))
+                st = want
+        key = _k6s_name(metrics_on, mode)
+        errs[key] = max(errs[key], err)
+        check(err == 0, f"K6-shardkv differs from the plain route: {mode} "
+              f"{name}")
+        names = shardkv_row_cases(kcfg) if rows else ("edge",)
+        case = torch.arange(b, device=dev) % len(names)
+        per_case = _ctrl_case_report(st, start, case, names)
+        walked = {k: sum(d[f"{k}_in_compared_ticks"]
+                         for d in per_case.values())
+                  for k in ("installs", "acks")}
+        # the flagship's rows migrate in their compared ticks; an edge
+        # batch need only ack
+        check(walked["acks"] > 0 and (kind != "rows"
+                                      or walked["installs"] > 0),
+              f"shardkv_k6shardkv {mode} {name}: the compared ticks walked "
+              f"{per_case}")
+        if kind == "edge" and ctrl:
+            check(bool(st.ctrl_w_stalled[::2].all()),
+                  f"{mode} {name}: the planted walker stall did not stick")
+        done.append({"run": name, "deployments": b, "n_nodes": cfg.n_nodes,
+                     "groups": kcfg.n_groups, "log_cap": cfg.log_cap,
+                     "metrics": metrics_on, "partitionable": flag,
+                     "from_tick": warm,
+                     "instance": K11.chunk_instance(cfg), "cases": per_case})
+    prng.set_partitionable(True)
+    builds = {}
+    for metrics_on in (False, True):
+        build = K11.chunk_variant(metrics_on)
+        cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on,
+                                                      mode=mode)
+        tables = K11.chunk_tables(cfg, kcfg, kn, skn, int(keys.shape[0]))
+        m = engine.KERNEL_CHUNK
+        grid = K11.chunk_grid(cfg, kcfg, st, keys, m, tables,
+                              K11.chunk_lib(build))
+        builds[build] = {
+            "ptxas": _build.ptxas(build),
+            "grid": _resident(grid, int(keys.shape[0]), 1),
+            # CUDA events, not a profiler window (the kernels line has the
+            # profiler's ms)
+            "call_ms_256_ticks": cuda_ms(
+                lambda i: K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, m,
+                                            tables), iters=3, warmup=1)}
+    set_counts(counts)
+    return {"phase": "shardkv_k6shardkv", "mode": mode, "card": _smi(),
+            "launches": list(SHARDKV_K6S_LAUNCHES), "runs": done,
+            "builds": builds,
+            "spills": {k: r["ptxas"]["spills"] for k, r in builds.items()
+                       if r["ptxas"]["spills"]},
+            "max_abs_err": max(errs[_k6s_name(x, mode)]
+                               for x in (False, True))}
+
+
+def shardkv_section(t0: float = 0.0) -> int:
+    """The smoke's shardkv section (``--shardkv-section``): K11's phases
+    ``shardkv_k11`` and ``shardkv_ctrl_k11``, then in each mode
+    ``shardkv_k6shardkv`` and ``_shardkv_path``, in a child (``_child``),
+    its profiler windows first; prints the phase lines (stamped ``t0``
+    seconds into the script), then one line
+    ``{"shardkv_section": {"launches": mode -> [the flagship's, the metrics
+    flagship's], "errs": name -> max_abs_err}}``."""
+    import torch
+
+    global T0
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from madraft_tpu_torch.tpusim import prng
+
+    T0 = time.perf_counter() - t0
+    prng.set_partitionable(True)
+    dev = torch.device("cuda")
+    errs = {k: 0.0 for k in counters()}
+    # the profiler's windows first: K6-shardkv's device ms a launch, then
+    # where a flagship tick's wall goes in each mode
+    timing = _k6shardkv_timing(dev, between=lambda: [
+        emit(_profile_shardkv_tick(dev, False, mode=mode))
+        for mode in ("schedule", *SHARDKV_CTRL_FLAG)])
+    emit({"phase": "k6shardkv_timing", "card": _smi(),
+          "ticks": SHARDKV_K6S_TIMED_TICKS,
+          **{k: dict(zip(("ms", "call_ms", "plain_ms", "bytes",
+                          "operations"), v)) for k, v in timing.items()}})
+    emit(_shardkv_k11(dev, errs))
+    emit(_shardkv_ctrl_k11(dev, errs))
+    launches = {}
+    for mode in ("schedule", *SHARDKV_CTRL_FLAG):
+        emit(_shardkv_k6shardkv(dev, errs, mode))
+        launches[mode] = _shardkv_path(dev, mode)
+    print(json.dumps({"shardkv_section": {"launches": launches,
+                                          "errs": errs, "timing": timing}}),
+          flush=True)
+    return 0
+
+
+def _child(flag: str, key: str) -> dict:
+    """Runs ``python3 chip_smoke.py <flag> <seconds so far>`` in a child
+    process of its own, relays its phase lines, and returns the dict its
+    last line carries under ``key``. Late in this script's process
+    torch.profiler recorded no kernel at all in five windows of
+    ``profile_kv_tick`` (whole smokes on the card, 750-875 s in), where a
+    fresh process records them: the shardkv section and the late profile
+    phases run in children."""
+    import torch
+
+    torch.cuda.empty_cache()  # the child's room on the card
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+         str(time.perf_counter() - T0)], stdout=subprocess.PIPE, text=True)
+    result = None
+    for line in proc.stdout:
+        if line.startswith('{"' + key + '"'):
+            result = json.loads(line)[key]
+        else:
+            print(line, end="", flush=True)
+    check(proc.wait() == 0 and result is not None,
+          f"{flag}'s process failed (rc {proc.returncode})")
+    return result
+
+
+def _shardkv_section(errs: dict) -> tuple:
+    """``shardkv_section`` in a child (``_child``), its profiler windows
+    first: (mode -> (the flagship's launches, the metrics flagship's),
+    K6-shardkv's kernels-line timing); folds its errors into ``errs``."""
+    result = _child("--shardkv-section", "shardkv_section")
+    for k, v in result["errs"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    return ({mode: tuple(r) for mode, r in result["launches"].items()},
+            {k: tuple(v) for k, v in result["timing"].items()})
+
+
+def late_profiles(t0: float = 0.0) -> int:
+    """The smoke's late profiler phases (``--late-profiles``, in a child:
+    ``_child``): ``profile_kv_tick`` and ``profile_ctrler_tick`` metrics
+    off and on, then K11's timing (``_shardkv_timing``); prints the phase
+    lines, then ``{"late_profiles": {"shardkv_timing": ...,
+    "shardkv_bytes": ...}}``."""
+    import torch
+
+    global T0
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from madraft_tpu_torch.tpusim import prng
+
+    T0 = time.perf_counter() - t0
+    prng.set_partitionable(True)
+    dev = torch.device("cuda")
+    emit(_profile_kv_tick(dev, False))
+    emit(_profile_kv_tick(dev, True))
+    emit(_profile_ctrler_tick(dev, False))
+    emit(_profile_ctrler_tick(dev, True))
+    timing, counted = _shardkv_timing(dev)
+    print(json.dumps({"late_profiles": {"shardkv_timing": timing,
+                                        "shardkv_bytes": counted}}),
+          flush=True)
+    return 0
+
+
+def _k6s_name(metrics_on: bool, mode: str) -> str:
+    """The kernels line's name of K6-shardkv's build in a mode."""
+    return ("shardkv_chunk" + "_metrics" * metrics_on
+            + ("" if mode == "schedule" else f"_{mode}"))
+
+
+def _shardkv_flagship(mode: str) -> tuple:
+    """(the shardkv flagship in ``mode``, its metrics run)."""
+    flag = [SHARDKV_CTRL_FLAG[mode]] if mode != "schedule" else []
+    return SHARDKV_FLAGSHIP + flag, SHARDKV_METRICS_FLAGSHIP + flag
+
+
+def _shardkv_path(dev, mode: str) -> tuple:
+    """The shardkv main path in ``mode`` through the CLI: the flagship
+    twice (--check-deterministic), then once with --metrics, each on
+    K6-shardkv alone (launches of up to KERNEL_CHUNK ticks, no K6 or K11
+    launch); the flagship's report beside the eager route's on the card
+    (the eager raft ticks and the plain service tick) at
+    SHARDKV_EAGER_TICKS; the CPU route's report at
+    SHARDKV_CPU_DEPLOYMENTS x SHARDKV_CPU_TICKS
+    beside the card's, metrics off and on; the eager-vs-kernel A/B at
+    SHARDKV_AB_TICKS ticks. Returns (the flagship's launches, the metrics
+    flagship's)."""
+    from madraft_tpu_torch.kernels import shardkv as K11
     from madraft_tpu_torch.tpusim import engine, prng, shardkv
 
     prng.set_partitionable(True)
     ticks = _flag(SHARDKV_FLAGSHIP, "--ticks")
     b = _flag(SHARDKV_FLAGSHIP, "--clusters")
+    ctrl = mode != "schedule"
+    pre = "shardkv" if not ctrl else f"shardkv_{mode}"
     eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
-                 "latency_fold", "seen_update", "kv_tick", "ctrler_tick",
-                 "harvest", "record")
+                 "latency_fold", "seen_update", "kv_tick", "kv_chunk",
+                 "ctrler_tick", "ctrler_chunk", "harvest", "record",
+                 "tick_chunk", "shardkv_tick")
+    advance = shardkv._advance_shardkv  # every shardkv run's ticks
     runs = {}
     for label, argv, n_runs in (
-            ("shardkv_flagship", SHARDKV_FLAGSHIP, FLAGSHIP_RUNS),
-            ("shardkv_metrics_flagship", SHARDKV_METRICS_FLAGSHIP, 1)):
+            (f"{pre}_flagship", _shardkv_flagship(mode)[0], FLAGSHIP_RUNS),
+            (f"{pre}_metrics_flagship", _shardkv_flagship(mode)[1], 1)):
         metrics_on = "--metrics" in argv
         set_counts()
         t0 = time.perf_counter()
         rc, out = run_cli(argv)
         wall = time.perf_counter() - t0
         ran = read_counts()
-        want = ticks * n_runs
+        want = -(-ticks // engine.KERNEL_CHUNK) * n_runs
         check(rc == 0 and out["violating"] == 0
               and out.get("deterministic", n_runs == 1) is True
               and out["acked_ops_mean"] > 0 and out["installs_mean"] > 0
-              and out["deletes_mean"] > 0 and out["final_cfg_mean"] > 0,
+              and out["final_cfg_mean"] > 0
+              and (out["deletes_mean"] > 0 if not ctrl
+                   else out["ann_resolved_mean"] > 0),
               f"{label} rc {rc}: {out}")
-        check(ran["tick_chunk"] == ran["shardkv_tick"] == want
-              and ran["tick_chunk_metrics"] == want * metrics_on
-              and ran["shardkv_tick_metrics"] == want * metrics_on
+        check(ran["shardkv_chunk"] == want
+              and ran["shardkv_chunk_metrics"] == want * metrics_on
+              and all(ran[f"shardkv_chunk_{x}"] == want * (x == mode)
+                      for x in SHARDKV_CTRL_FLAG)
+              and all(ran[f"shardkv_chunk_metrics_{x}"]
+                      == want * (x == mode) * metrics_on
+                      for x in SHARDKV_CTRL_FLAG)
               and all(ran[k] == 0 for k in eager_off),
-              f"{label} launches {ran}: want K6 and K11 once a tick "
-              f"({want}), no draw chunk, K2, K4, K5, K9 or K10 launch")
+              f"{label} launches {ran}: want K6-shardkv once a "
+              f"{engine.KERNEL_CHUNK}-tick chunk ({want}), no K6, K11, draw "
+              "chunk, K2, K4, K5, K9 or K10 launch")
+        eager = {}
+        if not metrics_on:
+            # the eager route on the card at SHARDKV_EAGER_TICKS: the same
+            # report as K6-shardkv's at that depth
+            depth = SHARDKV_EAGER_TICKS[mode]
+            one = [x for x in argv if x != "--check-deterministic"]
+            one[one.index("--ticks") + 1] = str(depth)
+            want_rep = out if depth == ticks else run_cli(one)[1]
+            shardkv._advance_shardkv = functools.partial(advance,
+                                                         tick="eager")
+            try:
+                rc_e, out_e = run_cli(one)
+            finally:
+                shardkv._advance_shardkv = advance
+            check(rc_e == 0
+                  and _report_fields(out_e) == _report_fields(want_rep),
+                  f"{label}: the eager route's report at {depth} ticks "
+                  "differs from K6-shardkv's")
+            eager = {"eager_route_ticks": depth,
+                     "eager_route_report_equal": True,
+                     "eager_route_wall_ms_per_tick": out_e["telemetry"][
+                         "execute_s"] / depth * 1e3}
         tele = out["telemetry"]
-        row = {"phase": label, "argv": argv, "rc": rc,
+        row = {"phase": label, "argv": argv, "rc": rc, "mode": mode,
                "deployment_steps_per_s": tele["steps_per_sec"],
                "execute_s": tele["execute_s"],
                "wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
                "wall_s_all_runs": round(wall, 3),
                "compile_s": tele["compile_s"],
                "bytes_per_deployment": tele["bytes_per_lane"],
-               "tick_instance": K6.instance(_shardkv_cli_cfg()[0]),
+               "k6shardkv_instance": K11.chunk_instance(
+                   _shardkv_cli_cfg()[0]),
                "acked_ops_mean": out["acked_ops_mean"],
                "installs_mean": out["installs_mean"],
                "deletes_mean": out["deletes_mean"],
                "final_cfg_mean": out["final_cfg_mean"],
-               "frozen_left_mean": out["frozen_left_mean"],
+               "frozen_left_mean": out["frozen_left_mean"], **eager,
                "launches": {k: v for k, v in ran.items() if v}}
+        if ctrl:
+            row.update(ann_resolved_mean=out["ann_resolved_mean"],
+                       ctrl_walker_stalled_mean=out[
+                           "ctrl_walker_stalled_mean"],
+                       max_cfg_lag_mean=out["max_cfg_lag_mean"])
         if metrics_on:
             lat = out["latency"]
             check(all(k in out for k in METRIC_KEYS) and "phases" in lat,
@@ -5205,11 +5583,36 @@ def _shardkv_path(dev) -> tuple:
         emit(row)
         runs[label] = ran
 
+    # the CPU route at a small batch and depth beside the card's K6-shardkv
+    cpu = {}
+    for metrics_on in (False, True):
+        argv = (_shardkv_flagship(mode)[0][:2]
+                + ["--clusters", str(SHARDKV_CPU_DEPLOYMENTS), "--ticks",
+                   str(SHARDKV_CPU_TICKS), "--seed", "12345"]
+                + ([SHARDKV_CTRL_FLAG[mode]] if ctrl else [])
+                + ["--metrics"] * metrics_on)
+        set_counts()
+        rc_k, out_k = run_cli(argv)
+        ran = read_counts()
+        t0 = time.perf_counter()
+        rc_c, out_c = run_cli(argv + ["--platform", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        check(rc_k == rc_c == 0 and ran["shardkv_chunk"] == 1
+              and _report_fields(out_k) == _report_fields(out_c),
+              f"{pre} at {SHARDKV_CPU_DEPLOYMENTS} x {SHARDKV_CPU_TICKS} "
+              f"(metrics {metrics_on}): the CPU route's report differs from "
+              f"K6-shardkv's ({ran})")
+        cpu["metrics" if metrics_on else "plain"] = {
+            "report_equal": True, "cpu_route_s": round(cpu_s, 3),
+            "acked_ops_mean": out_c["acked_ops_mean"]}
+    emit({"phase": f"{pre}_cpu_route", "deployments":
+          SHARDKV_CPU_DEPLOYMENTS, "ticks": SHARDKV_CPU_TICKS, **cpu})
+
     # the A/B: the flagship's shape at SHARDKV_AB_TICKS ticks, eager (the
-    # eager tick, the plain service tick) and kernel (K6 and K11) in turns
-    cfg, kcfg = _shardkv_cli_cfg()
+    # eager raft ticks, the plain service tick) and kernel (K6-shardkv) in
+    # turns
+    cfg, kcfg = _shardkv_cli_cfg(False, mode)
     ab, reps = [], []
-    advance = shardkv._advance_shardkv  # every shardkv run's ticks
     for route in ("eager", "kernel", "kernel", "eager"):
         set_counts()
         shardkv._advance_shardkv = functools.partial(advance, tick=route)
@@ -5223,10 +5626,11 @@ def _shardkv_path(dev) -> tuple:
             shardkv._advance_shardkv = advance
         ran = read_counts()
         kernel = route == "kernel"
-        check((ran["tick_chunk"] == ran["shardkv_tick"]
-               == SHARDKV_AB_TICKS * kernel)
-              and (ran["oracle"] == SHARDKV_AB_TICKS * (not kernel)),
-              f"shardkv A/B {route} launches {ran}")
+        check(ran["shardkv_chunk"] == int(kernel)
+              and ran["tick_chunk"] == ran["shardkv_tick"] == 0
+              and (ran["oracle"]
+                   == (1 + ctrl) * SHARDKV_AB_TICKS * (not kernel)),
+              f"shardkv {mode} A/B {route} launches {ran}")
         reps.append(rep)
         ab.append({"route": route, "ticks": SHARDKV_AB_TICKS,
                    "deployment_steps_per_s": tele["steps_per_sec"],
@@ -5236,13 +5640,14 @@ def _shardkv_path(dev) -> tuple:
     from madraft_tpu_torch.__main__ import _reports_equal
 
     check(all(_reports_equal(reps[0], r) for r in reps[1:]),
-          "shardkv A/B: the eager and the kernel route's reports differ")
+          f"shardkv {mode} A/B: the eager and the kernel route's reports "
+          "differ")
     rate = {r: sum(x["deployment_steps_per_s"] for x in ab
                    if x["route"] == r) / 2 for r in ("eager", "kernel")}
-    emit({"phase": "shardkv_ab", "card": _smi(), "deployments": b,
+    emit({"phase": f"{pre}_ab", "card": _smi(), "deployments": b,
           "runs": ab, "reports_equal": True,
           "kernel_over_eager": rate["kernel"] / rate["eager"]})
-    return runs["shardkv_flagship"], runs["shardkv_metrics_flagship"]
+    return runs[f"{pre}_flagship"], runs[f"{pre}_metrics_flagship"]
 
 
 def _ctrl_case_report(st, start, case, names) -> dict:
@@ -5381,131 +5786,11 @@ def _shardkv_ctrl_k11(dev, errs: dict) -> dict:
                                for mode in ("live", "computed"))}
 
 
-def _shardkv_ctrl_path(dev) -> dict:
-    """The controller modes' main path through the CLI: each controller
-    flagship twice (--check-deterministic; K6 over the B x G group
-    clusters and over the B controller clusters, K11 once a tick), then
-    once with --metrics; each mode's eager-vs-kernel A/B at
-    SHARDKV_AB_TICKS ticks. Returns mode -> (the flagship's launches, the
-    metrics flagship's)."""
-    from madraft_tpu_torch.kernels import tick as K6
-    from madraft_tpu_torch.tpusim import engine, prng, shardkv
-
-    prng.set_partitionable(True)
-    ticks = _flag(SHARDKV_FLAGSHIP, "--ticks")
-    b = _flag(SHARDKV_FLAGSHIP, "--clusters")
-    eager_off = ("threefry_tick_blocks", "oracle", "oracle_metrics",
-                 "latency_fold", "seen_update", "kv_tick", "ctrler_tick",
-                 "harvest", "record")
-    out = {}
-    for mode, flag in SHARDKV_CTRL_FLAG.items():
-        other = "computed" if mode == "live" else "live"
-        runs = {}
-        for label, argv, n_runs in (
-                (f"shardkv_{mode}_flagship", SHARDKV_FLAGSHIP + [flag],
-                 FLAGSHIP_RUNS),
-                (f"shardkv_{mode}_metrics_flagship",
-                 SHARDKV_METRICS_FLAGSHIP + [flag], 1)):
-            metrics_on = "--metrics" in argv
-            set_counts()
-            t0 = time.perf_counter()
-            rc, rep = run_cli(argv)
-            wall = time.perf_counter() - t0
-            ran = read_counts()
-            want = ticks * n_runs
-            check(rc == 0 and rep["violating"] == 0
-                  and rep.get("deterministic", n_runs == 1) is True
-                  and rep["acked_ops_mean"] > 0 and rep["installs_mean"] > 0
-                  and rep["ann_resolved_mean"] > 0
-                  and rep["final_cfg_mean"] > 0,
-                  f"{label} rc {rc}: {rep}")
-            check(ran["tick_chunk"] == 2 * want
-                  and ran["shardkv_tick"] == ran[f"shardkv_tick_{mode}"]
-                  == want and ran[f"shardkv_tick_{other}"] == 0
-                  and ran["tick_chunk_metrics"] == 2 * want * metrics_on
-                  and ran["shardkv_tick_metrics"]
-                  == ran[f"shardkv_tick_metrics_{mode}"] == want * metrics_on
-                  and ran[f"shardkv_tick_metrics_{other}"] == 0
-                  and all(ran[k] == 0 for k in eager_off),
-                  f"{label} launches {ran}: want K6 twice a tick (the "
-                  f"groups, the controllers) and K11 once ({want}), no draw "
-                  "chunk, K2, K4, K5, K9 or K10 launch")
-            tele = rep["telemetry"]
-            row = {"phase": label, "argv": argv, "rc": rc, "mode": mode,
-                   "deployment_steps_per_s": tele["steps_per_sec"],
-                   "execute_s": tele["execute_s"],
-                   "wall_ms_per_tick": tele["execute_s"] / ticks * 1e3,
-                   "wall_s_all_runs": round(wall, 3),
-                   "compile_s": tele["compile_s"],
-                   "bytes_per_deployment": tele["bytes_per_lane"],
-                   "tick_instance": K6.instance(_shardkv_cli_cfg()[0]),
-                   "acked_ops_mean": rep["acked_ops_mean"],
-                   "installs_mean": rep["installs_mean"],
-                   "deletes_mean": rep["deletes_mean"],
-                   "final_cfg_mean": rep["final_cfg_mean"],
-                   "ann_resolved_mean": rep["ann_resolved_mean"],
-                   "ctrl_walker_stalled_mean":
-                       rep["ctrl_walker_stalled_mean"],
-                   "max_cfg_lag_mean": rep["max_cfg_lag_mean"],
-                   "launches": {k: v for k, v in ran.items() if v}}
-            if metrics_on:
-                lat = rep["latency"]
-                check(all(k in rep for k in METRIC_KEYS)
-                      and round(lat["ops"] / b, 2) == rep["acked_ops_mean"],
-                      f"{label} metrics report: {sorted(rep)}")
-                row.update(p50_ticks=lat["p50_ticks"],
-                           p99_ticks=lat["p99_ticks"], ops=lat["ops"],
-                           migration_ticks=lat["phases"]["migration"][
-                               "ticks_total"])
-            emit(row)
-            runs[label] = ran
-        # the A/B: the flagship's shape at SHARDKV_AB_TICKS ticks, eager
-        # and kernel in turns
-        cfg, kcfg = _shardkv_cli_cfg(False, mode)
-        ab, reps = [], []
-        advance = shardkv._advance_shardkv
-        for route in ("eager", "kernel", "kernel", "eager"):
-            set_counts()
-            shardkv._advance_shardkv = functools.partial(advance, tick=route)
-            try:
-                fn = shardkv.make_shardkv_fuzz_fn(cfg, kcfg, b,
-                                                  SHARDKV_AB_TICKS, dev)
-                rep, tele = engine.run_telemetry(fn, shardkv.shardkv_report,
-                                                 12345, b * SHARDKV_AB_TICKS,
-                                                 n_lanes=b)
-            finally:
-                shardkv._advance_shardkv = advance
-            ran = read_counts()
-            kernel = route == "kernel"
-            check((ran["tick_chunk"] == 2 * SHARDKV_AB_TICKS * kernel)
-                  and ran["shardkv_tick"] == SHARDKV_AB_TICKS * kernel
-                  and (ran["oracle"] == 2 * SHARDKV_AB_TICKS * (not kernel)),
-                  f"shardkv {mode} A/B {route} launches {ran}")
-            reps.append(rep)
-            ab.append({"route": route, "ticks": SHARDKV_AB_TICKS,
-                       "deployment_steps_per_s": tele["steps_per_sec"],
-                       "wall_ms_per_tick": tele["execute_s"]
-                       / SHARDKV_AB_TICKS * 1e3,
-                       "launches": {k: v for k, v in ran.items() if v}})
-        from madraft_tpu_torch.__main__ import _reports_equal
-
-        check(all(_reports_equal(reps[0], r) for r in reps[1:]),
-              f"shardkv {mode} A/B: the eager and the kernel route's "
-              "reports differ")
-        rate = {r: sum(x["deployment_steps_per_s"] for x in ab
-                       if x["route"] == r) / 2 for r in ("eager", "kernel")}
-        emit({"phase": f"shardkv_{mode}_ab", "card": _smi(),
-              "deployments": b, "runs": ab, "reports_equal": True,
-              "kernel_over_eager": rate["kernel"] / rate["eager"]})
-        out[mode] = (runs[f"shardkv_{mode}_flagship"],
-                     runs[f"shardkv_{mode}_metrics_flagship"])
-    return out
-
-
 def _shardkv_state(dev, metrics_on: bool, ticks: int = 200,
                    mode: str = "schedule"):
     """The shardkv flagship's batch (in ``mode``, _shardkv_cli_cfg) after
-    ``ticks`` ticks on K6 and K11, and its configs, keys and knobs."""
+    ``ticks`` ticks on the card's route, and its configs, keys and
+    knobs."""
     from madraft_tpu_torch.tpusim import engine, shardkv
 
     cfg, kcfg = _shardkv_cli_cfg(metrics_on, mode)
@@ -5710,30 +5995,101 @@ def _shardkv_timing(dev) -> tuple:
     return out, counted
 
 
-def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32,
+def _k6shardkv_timing(dev, plain: bool = True, between=None) -> dict:
+    """K6-shardkv's times at the shardkv flagship's shape in each mode and
+    build, one SHARDKV_K6S_TIMED_TICKS-tick launch from tick 200: name ->
+    (device ms, call ms, plain ms (None without ``plain``), bytes,
+    operations). The bytes: the groups' and, in a controller mode, the
+    controller's K6 state (the metric leaves with metrics) and the service
+    leaves the mode writes, read and written once; the keys, the three knob
+    tables and the schedule read once. The operations: per cluster-tick
+    K6's draws (2 + total hashes and a word each) over the B x G group
+    clusters (and the B controller clusters), and per tick the service
+    tick's on this run's data as ``_shardkv_ops`` counts K11's (from the
+    plain version's ticks, whose time includes that count's host reads;
+    without ``plain`` the bound is the bytes'). Every row's kernel is timed
+    before any plain route runs (``between()`` runs in between): see
+    ``_shardkv_section``."""
+    from madraft_tpu_torch.kernels import shardkv as K11
+    from madraft_tpu_torch.tpusim import shardkv, step
+
+    counts = read_counts()
+    m = SHARDKV_K6S_TIMED_TICKS
+    rows = {}
+    for mode in ("schedule", "live", "computed"):
+        for metrics_on in (False, True):
+            cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on,
+                                                          mode=mode)
+            tables = K11.chunk_tables(cfg, kcfg, kn, skn, int(keys.shape[0]))
+
+            def call(i, a=(cfg, kcfg, st, keys, kn, skn, m, tables)):
+                return K11.shardkv_chunk(*a)
+
+            rows[_k6s_name(metrics_on, mode)] = (
+                (cfg, kcfg, st, keys, kn, skn, tables, mode != "schedule"),
+                device_ms(call, "shardkv_chunk_kernel", iters=5, warmup=1),
+                cuda_ms(call, iters=3, warmup=1))
+    if between is not None:
+        between()
+    out = {}
+    for name, ((cfg, kcfg, st, keys, kn, skn, tables, ctrl), ms,
+               call_ms) in rows.items():
+        b, g = int(keys.shape[0]), kcfg.n_groups
+        gkeys = shardkv.group_keys(keys, g).reshape(-1, 2)
+        ckeys, gkn = shardkv.ctrl_keys(keys), shardkv._group_knobs(kn, g)
+        service_ops = []
+
+        def run_plain(i):
+            k = st
+            for _ in range(m):
+                pre = k.rafts
+                s = shardkv._unflat(step.step_cluster(
+                    cfg, shardkv._flat(pre), gkeys, gkn), b)
+                c = step.step_cluster(cfg, k.ctrl, ckeys, kn) if ctrl else None
+                k2 = shardkv._shardkv_service_tick(
+                    cfg, kcfg, k, pre.alive, pre.base, s, keys, kn, skn, c)
+                n_b = _shardkv_bytes(cfg, kcfg, k, s, keys, tables[2], k2, c)
+                service_ops.append(_shardkv_ops(
+                    cfg, kcfg, k, k2, n_b["log_val_slots_read"],
+                    n_b["shadow_slots_read"], n_b if ctrl else None))
+                k = k2
+            return k
+
+        plain_ms = cuda_ms(run_plain, iters=1, warmup=0) if plain else None
+        total = step._block_total(cfg.n_nodes)
+        ops = (b * (g + ctrl) * m * ((2 + total) * OPS_PER_HASH + total)
+               + sum(service_ops))
+        written = [getattr(st, f) for w, f in K11.writes(kcfg) if w == "st"]
+        nb = (2 * nbytes(*st.rafts, *(st.ctrl if ctrl else ()), *written)
+              + nbytes(keys, *tables[0], *tables[1], *tables[2], st.cfg_tick,
+                       st.cfg_owner, st.flip_a, st.flip_b))
+        out[name] = (ms, call_ms, plain_ms, nb, ops)
+    set_counts(counts)
+    return out
+
+
+def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 512,
                           mode: str = "schedule") -> dict:
     """Where a shardkv flagship tick's wall goes (torch.profiler, the
     window retry of ``_profiled``), in ``mode``: the device operations a
-    tick, the card's busy share of the wall and the host's, K6's (over
-    the groups, and in a controller mode a second launch over the
-    controller clusters) and K11's shares and device ms a tick, over
-    n_ticks ticks from tick 200 on K6 and K11."""
-    from madraft_tpu_torch.tpusim import shardkv
+    tick, the card's busy share of the wall and the host's, K6-shardkv's
+    share and device ms a tick, over n_ticks ticks from tick 200 (the
+    flagship's depth: two K6-shardkv launches)."""
+    from madraft_tpu_torch.tpusim import engine, shardkv
 
     cfg, kcfg, st, keys, kn, skn = _shardkv_state(dev, metrics_on,
                                                   mode=mode)
     counts = read_counts()
+    # every K6-shardkv launch of the window, or the shares would be of a
+    # part
     _, kernels, wall_ms, _, attempts = _profiled(
         lambda: shardkv._advance_shardkv(cfg, kcfg, st, keys, kn, skn,
                                          n_ticks),
-        expect=("tick_chunk_kernel", "shardkv_kernel"))
+        expect={"shardkv_chunk_kernel": -(-n_ticks // engine.KERNEL_CHUNK)})
     set_counts(counts)
 
     def dev_ms(name):
         return sum(_dev_us(e) for e in kernels if name in e.key) / 1e3
-
-    def calls(name):
-        return sum(e.count for e in kernels if name in e.key)
 
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     suffix = "_metrics" * metrics_on + ("" if mode == "schedule"
@@ -5748,11 +6104,10 @@ def _profile_shardkv_tick(dev, metrics_on: bool, n_ticks: int = 32,
             "device_busy_ms_per_tick": busy_ms / n_ticks,
             "device_busy_share": busy_ms / wall_ms,
             "host_share": 1 - busy_ms / wall_ms,
+            "k6shardkv_ms_per_tick": dev_ms("shardkv_chunk_kernel") / n_ticks,
+            "k6shardkv_share": dev_ms("shardkv_chunk_kernel") / wall_ms,
             "k6_ms_per_tick": dev_ms("tick_chunk_kernel") / n_ticks,
-            "k6_launches_per_tick": calls("tick_chunk_kernel") / n_ticks,
             "k11_ms_per_tick": dev_ms("shardkv_kernel") / n_ticks,
-            "k6_share": dev_ms("tick_chunk_kernel") / wall_ms,
-            "k11_share": dev_ms("shardkv_kernel") / wall_ms,
             "device_ops_per_tick": sum(e.count for e in kernels) / n_ticks,
             "top_device_ms_per_tick": {
                 e.key[:60]: _dev_us(e) / 1e3 / n_ticks for e in sorted(
@@ -5835,4 +6190,10 @@ if __name__ == "__main__":
         sys.exit(kv_leg(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ctrler-leg"]:
         sys.exit(ctrler_leg(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--shardkv-leg"]:
+        sys.exit(shardkv_leg(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--shardkv-section"]:
+        sys.exit(shardkv_section(*map(float, sys.argv[2:3])))
+    if sys.argv[1:2] == ["--late-profiles"]:
+        sys.exit(late_profiles(*map(float, sys.argv[2:3])))
     sys.exit(main())

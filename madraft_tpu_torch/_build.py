@@ -30,8 +30,9 @@ KV = "kv"
 # kernel, on no run's path since K6-ctrler: a ctrler run's set-up builds
 # tick_ctrler or tick_metrics_ctrler, VARIANTS)
 CTRLER = "ctrler"
-# K11's source: a shardkv run's set-up builds it or K11-metrics
-# (kernels/shardkv.py variant)
+# K11's source (kernels/shardkv.py shardkv_tick, the per-tick service
+# kernel, on no run's path since K6-shardkv: a shardkv run's set-up builds
+# tick_shardkv or tick_metrics_shardkv, VARIANTS)
 SHARDKV = "shardkv"
 # builds of a source with extra flags: name -> (source, flags). K6's
 # metrics and coverage variants (kernels/tick.py variant) are built at
@@ -59,6 +60,13 @@ VARIANTS = {
     "tick_ctrler": ("tick", ("-DMADRAFT_K6_CTRLER",)),
     "tick_metrics_ctrler": ("tick", ("-DMADRAFT_K6_METRICS",
                                      "-DMADRAFT_K6_CTRLER")),
+    # K6-shardkv and K6-metrics-shardkv (kernels/shardkv.py
+    # shardkv_chunk): a deployment a block, its groups' and controller's
+    # raft ticks then K11's service tick, each tick of a chunk, the builds
+    # a shardkv run's set-up builds
+    "tick_shardkv": ("tick", ("-DMADRAFT_K6_SHARDKV",)),
+    "tick_metrics_shardkv": ("tick", ("-DMADRAFT_K6_METRICS",
+                                      "-DMADRAFT_K6_SHARDKV")),
     # K9-metrics (kernels/kv.py variant): the kv service tick with the
     # clerks' latency folds
     "kv_metrics": ("kv", ("-DMADRAFT_K9_METRICS",)),

@@ -521,10 +521,11 @@ __device__ __noinline__ int32_t randint_elem(uint32_t k0, uint32_t k1, int i,
 // ------------------------------------------------------------ leaf access
 // A load from an input: the inputs stay as they are for the whole launch
 // (the state is written out of place), so the loads go through the
-// read-only cache
+// read-only cache; in K6-shardkv (MADRAFT_STAGE_IN_PLACE) the launch
+// rewrites them every tick, so they are plain loads
 template <typename T>
 __device__ __forceinline__ T ld(const T *x) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) && !defined(MADRAFT_STAGE_IN_PLACE)
   return __ldg(x);
 #else
   return *x;

@@ -16,6 +16,12 @@
 // The threads stride over each kind's concatenated units (a bulk row, a
 // word, a byte row's word), so every copy of the tick is in flight at
 // once and the block waits once, at the end of load().
+//
+// In place (MADRAFT_STAGE_IN_PLACE, K6-shardkv's builds of tick.cu, where
+// the service tick runs every tick of a chunk on rows that the launch
+// itself rewrote the tick before): every row is a word or byte row, every
+// load a plain coherent one (no TMA, no read-only cache, no cp.async), and
+// a row whose input is its output is not copied.
 
 #pragma once
 
@@ -55,6 +61,9 @@ struct Plan {
 // Whether a row of count elements of `bytes` bytes a cluster, at in and
 // out, moves as a bulk row (its region offset then 16-byte aligned)
 inline bool bulk(const void *in, const void *out, int count, int bytes) {
+#ifdef MADRAFT_STAGE_IN_PLACE
+  return false;
+#endif
   return bytes == 4 && count * 4 % 16 == 0 && count * 4 >= kBulkMin &&
          (reinterpret_cast<uintptr_t>(in) |
           reinterpret_cast<uintptr_t>(out)) % 16 == 0;
@@ -133,7 +142,7 @@ __device__ __forceinline__ void bulk_load(void *dst, const void *src,
 }
 
 __device__ __forceinline__ void word_load(void *dst, const void *src) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) && !defined(MADRAFT_STAGE_IN_PLACE)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
@@ -168,7 +177,7 @@ __device__ __forceinline__ void wait(uint64_t *bar, int bulk_bytes) {
 // Loads from an input, which stays as it is for the whole launch (the
 // state is written out of place): through the read-only cache
 __device__ __forceinline__ uint32_t ld_byte(const uint8_t *x) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) && !defined(MADRAFT_STAGE_IN_PLACE)
   return __ldg(x);
 #else
   return *x;
@@ -176,7 +185,7 @@ __device__ __forceinline__ uint32_t ld_byte(const uint8_t *x) {
 }
 
 __device__ __forceinline__ int32_t ld_word(const int32_t *x) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) && !defined(MADRAFT_STAGE_IN_PLACE)
   return __ldg(x);
 #else
   return *x;
@@ -185,7 +194,7 @@ __device__ __forceinline__ int32_t ld_word(const int32_t *x) {
 
 // 16 bytes of an input to an output
 __device__ __forceinline__ void copy16g(void *dst, const void *src) {
-#ifdef __CUDA_ARCH__
+#if defined(__CUDA_ARCH__) && !defined(MADRAFT_STAGE_IN_PLACE)
   *reinterpret_cast<uint4 *>(dst) = __ldg(reinterpret_cast<const uint4 *>(src));
 #else
   std::memcpy(dst, src, 16);
@@ -218,6 +227,7 @@ __device__ __forceinline__ void copy16(void *dst, const void *src) {
 __device__ __forceinline__ void copy_row(const void *in, void *out,
                                          int count, int c, bool quads,
                                          int tid, int T) {
+  if (in == out) return;  // in place: the row is already there
   const int64_t at = static_cast<int64_t>(c) * count;
   const int32_t *src = static_cast<const int32_t *>(in) + at;
   int32_t *dst = static_cast<int32_t *>(out) + at;

@@ -133,6 +133,32 @@
 // A run of T ctrler ticks is ceil(T / 256) launches, where K6 and K10
 // made two checked launches a tick.
 //
+// K6-shardkv (B1 for shardkv: the reference's shardkv_step,
+// madraft_tpu/tpusim/shardkv.py 876-905, the groups' and the
+// controller's raft ticks then _shardkv_service_tick 907-2140, scanned by
+// _shardkv_program 2559-2618; K11's function with K6's):
+// -DMADRAFT_K6_SHARDKV (with -DMADRAFT_K6_METRICS, K6-metrics-shardkv,
+// whose service tick is K11-metrics') runs a deployment a block: its G
+// group clusters and, in a controller mode, its controller cluster on
+// tiles of the block (a copy tile where the count is odd), each tick their
+// raft ticks, then K11's service tick over the block (tick.cuh
+// run_deployment; shardkv.cuh's phases, K11's own code, with its mode a
+// template parameter), m ticks a launch. The clusters' blocks sit in
+// shared memory beside K11's region (in device memory where they do not
+// fit: the largest shapes K11 takes); K11 stages its region from the new
+// state's rows and writes it back every tick, in place
+// (MADRAFT_STAGE_IN_PLACE: no TMA, coherent loads), so the tiles hand it
+// the rows it reads and writes through those rows (tick.cuh skv_export,
+// skv_import). The instances: (5, 64), the shardkv CLI's ring at the
+// flagship's n, and the runtime one, in each of the three modes. Bound:
+// per chunk the clusters' state and the service leaves read and written
+// once, the keys, knob tables and schedule read once; per cluster-tick
+// K6's hashes and per tick the service's operations on this run's data
+// (chip_smoke.py _k6shardkv_timing). Restaging K11's region every tick is
+// this design's cost, not the function's. A run of T shardkv ticks is
+// ceil(T / 256) launches, where K6 (twice in a controller mode) and K11
+// made two or three checked launches a tick.
+//
 // K6-trace (B10, the reference's traced scan, madraft_tpu/tpusim/trace.py
 // 160-195, with its per-tick record _pack_rows / _deliveries / _record
 // 108-158, kernel K8's function on its own): given a trace buffer, any
@@ -149,6 +175,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifdef MADRAFT_K6_SHARDKV
+// K11's service tick runs in place inside the chunk, K11-metrics' in the
+// metrics build
+#define MADRAFT_STAGE_IN_PLACE
+#ifdef MADRAFT_K6_METRICS
+#define MADRAFT_K11_METRICS
+#endif
+#endif
 #include "tick.cuh"
 
 namespace {
@@ -168,7 +202,8 @@ constexpr bool kCov = true;
 constexpr bool kCov = false;
 #endif
 // The service tick the build runs after each raft tick (tick.cuh Svc)
-#if defined(MADRAFT_K6_KV) && defined(MADRAFT_K6_CTRLER)
+#if defined(MADRAFT_K6_KV) + defined(MADRAFT_K6_CTRLER) + \
+        defined(MADRAFT_K6_SHARDKV) > 1
 #error "one service a build"
 #elif defined(MADRAFT_K6_KV)
 constexpr int kSvc = k6::kSvcKv;
@@ -183,6 +218,10 @@ constexpr int kBuildShapes =
 
 // Lanes a cluster takes: k6::kTile (n <= 16), two clusters a warp
 constexpr int kTile = k6::kTile;
+
+// ---- the per-cluster kernel and its entries: every build but
+// K6-shardkv's, which lays a deployment out a block (below)
+
 // Blocks an SM should hold (the launch bounds): as many blocks of
 // kWarps warps as a template instance's shared blocks let an SM hold
 // (228 KB, 1 KB a block reserved), at most kMost (4: 32 clusters, what
@@ -194,6 +233,7 @@ constexpr int kTile = k6::kTile;
 // take kMost = 2 (16 clusters an SM, its flagship's 1024 clusters still
 // one wave), 136-220 registers, no spill, the same time a launch (H100:
 // 14.90 ms at the flagship against 14.76-14.95 with 4)
+#ifndef MADRAFT_K6_SHARDKV
 template <int N_, int CAP_, int AE_>
 constexpr int blocks_per_sm() {
   constexpr int kMost = kSvc == k6::kSvcCtrler ? 2 : 4;
@@ -333,9 +373,11 @@ __global__ void __launch_bounds__(kCreditThreads)
   const int c = blockIdx.x * kCreditThreads + threadIdx.x;
   if (c < b) new_fps[c] += k6::credits(fp, seen, b, c, m, t0);
 }
+#endif  // MADRAFT_K6_SHARDKV
 
 }  // namespace
 
+#ifndef MADRAFT_K6_SHARDKV
 // kinds: the wrapper's leaf table (shape class, + 8 for a bool leaf), held
 // against the one compiled here; keys: [b, 2] int64-held u32 cluster keys;
 // draws: each draw's offset in a tick's words, held against tick.cuh's;
@@ -400,7 +442,133 @@ extern "C" int tick_grid(int n, int cap, int ae_max, int *out) {
   return dispatch<false>(p, nullptr, nullptr, out + 3);
 }
 
-#ifdef MADRAFT_K6_PROFILE
+#endif  // MADRAFT_K6_SHARDKV
+
+#ifdef MADRAFT_K6_SHARDKV
+namespace {
+
+// A block: up to five warps, the tiles of eight groups and the
+// controller's (K11's phases take its first k11::kThreads threads)
+constexpr int kSkvThreads = 160;
+
+template <int N_, int CAP_, int AE_, int M>
+__global__ void __launch_bounds__(kSkvThreads, 2)
+    shardkv_chunk_kernel(const k6::ShardKvParams *sp) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const size_t blocks = static_cast<size_t>(sp->tiles) * sp->g.cluster_bytes;
+  const bool in_shared = sp->blocks == nullptr;
+  int32_t *ws = reinterpret_cast<int32_t *>(smem + (in_shared ? blocks : 0));
+  k6::run_deployment<N_, CAP_, AE_, kTile, kMet, M>(
+      *sp, in_shared ? smem : sp->blocks + c * blocks, c, tid,
+      [] { __syncthreads(); },
+      [&](int phase) {
+        if (tid < k11::kThreads)
+          k11::run_phase<M>(sp->s, sp->s.plan, ws, nullptr, c, tid, phase);
+      });
+}
+
+// Launches the instance for sp (its copy on the card at dev), or with
+// occ, launches nothing and writes the blocks an SM can hold there
+template <int N_, int CAP_, int AE_, int M>
+int skv_go(const k6::ShardKvParams &sp, const k6::ShardKvParams *dev,
+           cudaStream_t stream, int *occ) {
+  auto kernel = shardkv_chunk_kernel<N_, CAP_, AE_, M>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sp.shared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (occ)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, kernel, sp.threads, sp.shared));
+  kernel<<<sp.b, sp.threads, sp.shared, stream>>>(dev);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M>
+int skv_mode(const k6::ShardKvParams &sp, const k6::ShardKvParams *dev,
+             cudaStream_t stream, int *occ) {
+  if (k6::shardkv_instance(sp.g.n, sp.g.cap, sp.g.ae_max))
+    return skv_go<5, 64, k6::kShapeAe, M>(sp, dev, stream, occ);
+  return skv_go<0, 0, 0, M>(sp, dev, stream, occ);
+}
+
+int skv_dispatch(const k6::ShardKvParams &sp, const k6::ShardKvParams *dev,
+                 cudaStream_t stream, int *occ) {
+  switch (sp.s.mode) {
+    case k11::kSchedule: return skv_mode<k11::kSchedule>(sp, dev, stream, occ);
+    case k11::kLive: return skv_mode<k11::kLive>(sp, dev, stream, occ);
+    default: return skv_mode<k11::kComputed>(sp, dev, stream, occ);
+  }
+}
+
+// The host copy of a launch's parameters (too large for a kernel's)
+k6::ShardKvParams g_skv;
+
+}  // namespace
+
+// K6-shardkv: m deployment ticks of b deployments of `groups` groups. ga
+// / ca: the group clusters' and (controller modes, else null) the
+// controller clusters' arguments (tick.cuh kClusterArgs words: the leaves
+// in and out, keys, knob tables, the metric leaves' pointers); kinds and
+// draws as tick_launch takes them; desc: K11's descriptor (shardkv.cuh
+// Desc), each service leaf's input the state in and its output the new
+// state, the raft leaves' both the new clusters' rows. With scratch null
+// writes the device scratch's bytes into *scratch_bytes and launches
+// nothing; else copies the parameters into the scratch (of
+// *scratch_bytes bytes) and launches. Returns a CUDA error, or
+// cudaErrorInvalidValue for arguments the build does not take
+extern "C" int shardkv_chunk_launch(const int64_t *ga, const int64_t *ca,
+                                    const int *kinds, int n_leaves,
+                                    const int *draws, int n_draws, int b,
+                                    int groups, int n, int cap, int ae_max,
+                                    int m, int bug, int partitionable,
+                                    const int64_t *desc, int n_desc,
+                                    void *scratch, int64_t *scratch_bytes,
+                                    void *stream) {
+  if (n_leaves != k6::kLeaves || n_draws != k6::kDraws ||
+      !k6::set_shardkv(g_skv, ga, ca, kinds, draws, b, groups, n, cap,
+                       ae_max, m, bug, partitionable, desc, n_desc, kMet))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = k6::shardkv_scratch(
+      g_skv, static_cast<uint8_t *>(scratch), kMet, kMaxShared);
+  if (!scratch) {
+    *scratch_bytes = static_cast<int64_t>(bytes);
+    return 0;
+  }
+  if (*scratch_bytes < static_cast<int64_t>(bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemcpyAsync(scratch, &g_skv, sizeof(g_skv),
+                                        cudaMemcpyHostToDevice, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return skv_dispatch(g_skv, static_cast<const k6::ShardKvParams *>(scratch),
+                      st, nullptr);
+}
+
+// How shardkv_chunk_launch lays these arguments out: out = [threads a
+// block, deployments a block, dynamic shared bytes a block, blocks an SM
+// holds (the occupancy API), 1 if the clusters' blocks are in shared
+// memory]
+extern "C" int shardkv_chunk_grid(const int64_t *ga, const int64_t *ca,
+                                  const int *kinds, int n_leaves,
+                                  const int *draws, int n_draws, int b,
+                                  int groups, int n, int cap, int ae_max,
+                                  int m, int bug, int partitionable,
+                                  const int64_t *desc, int n_desc, int *out) {
+  if (n_leaves != k6::kLeaves || n_draws != k6::kDraws ||
+      !k6::set_shardkv(g_skv, ga, ca, kinds, draws, b, groups, n, cap,
+                       ae_max, m, bug, partitionable, desc, n_desc, kMet))
+    return static_cast<int>(cudaErrorInvalidValue);
+  k6::shardkv_scratch(g_skv, nullptr, kMet, kMaxShared);
+  out[0] = g_skv.threads;
+  out[1] = 1;
+  out[2] = g_skv.shared;
+  out[4] = g_skv.shared > 4 * g_skv.s.words;  // the blocks beside the region
+  return skv_dispatch(g_skv, nullptr, nullptr, out + 3);
+}
+#endif  // MADRAFT_K6_SHARDKV
+
+#if defined(MADRAFT_K6_PROFILE) && !defined(MADRAFT_K6_SHARDKV)
 // The profile build's entry: tick_launch, and each cluster's clock64()
 // cycles per phase group summed over the chunk into prof [b, kPhases]
 extern "C" int tick_launch_profile(const int64_t *ins, const int64_t *outs,

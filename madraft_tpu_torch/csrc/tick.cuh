@@ -38,7 +38,10 @@
 // for the chunk: kv's (kSvcKv, the K6-kv builds: kv.cuh's phases, the
 // reference's _kv_service_tick; kv_tick()) or the shard controller's
 // (kSvcCtrler, the K6-ctrler builds: ctrler.cuh's phases, the reference's
-// _ctrler_service_tick; ctrler_tick()).
+// _ctrler_service_tick; ctrler_tick()). The K6-shardkv builds
+// (MADRAFT_K6_SHARDKV) run a deployment a block instead: its group
+// clusters' (and controller's) raft ticks on tiles of the block, then the
+// shardkv service tick of shardkv.cuh over the block (run_deployment()).
 //
 // Arithmetic as the reference's: int32 wraps where it wraps there (sums
 // that can wrap go through uint32, the entry hash too), floor division and
@@ -53,6 +56,9 @@
 #include "coverage.cuh"
 #include "ctrler.cuh"
 #include "kv.cuh"
+#ifdef MADRAFT_K6_SHARDKV
+#include "shardkv.cuh"
+#endif
 #include "threefry.cuh"
 
 namespace k6 {
@@ -660,7 +666,8 @@ struct Own {
 // the log_tick [n, cap] and shadow_sub [cap] leaves out (log_tick filled
 // from the state in at the chunk's start, shadow_sub written whole by the
 // oracle every tick), or the launch's spare rows for a tile that holds no
-// cluster. Replication, the no-op and injections write log_tick; the
+// cluster (in K6-shardkv's builds the rows of the deployment's copy
+// tile). Replication, the no-op and injections write log_tick; the
 // shadow's walk reads it and writes shadow_sub, which the fold reads
 // back. A lane reads another's writes only across a __syncwarp, which
 // orders them in device memory as in shared
@@ -668,15 +675,25 @@ struct Stamps {
   const Params &p;
   int b;        // the cluster
   bool active;  // the tile holds it
+#ifdef MADRAFT_K6_SHARDKV
+  int *spare;   // the copy tile's rows (ShardKvParams::spare)
+#endif
   // the rows' addresses, computed where they are used (held for the
   // chunk they would take four registers)
+  __device__ __forceinline__ int *spare_rows() const {
+#ifdef MADRAFT_K6_SHARDKV
+    return spare;
+#else
+    return p.spare;
+#endif
+  }
   __device__ __forceinline__ int *log_tick() const {
     return active ? p.m_out[M_LOG_TICK] + static_cast<size_t>(b) * p.n * p.cap
-                  : p.spare;
+                  : spare_rows();
   }
   __device__ __forceinline__ int *shadow_sub() const {
     return active ? p.m_out[M_SHADOW_SUB] + static_cast<size_t>(b) * p.cap
-                  : p.spare + p.n * p.cap;
+                  : spare_rows() + p.n * p.cap;
   }
 };
 
@@ -2499,5 +2516,302 @@ __device__ void draw_chunk(const Params &p, uint8_t *cl, int b, int t1,
     __syncwarp();
   }
 }
+
+#ifdef MADRAFT_K6_SHARDKV
+// ------------------------------------------------------------ K6-shardkv
+// A deployment a block: tile t < G runs group t's cluster (c * G + t of
+// the group clusters), tile G in a controller mode the controller's (c of
+// the controller clusters), and a last tile, where the count is odd, a
+// copy of group 0 that writes nothing (a warp's two tiles run the tick's
+// collectives together). Each tick the tiles run their raft ticks, write
+// the rows K11's service tick reads and writes to the new state's rows
+// (skv_export), the block runs K11's phases on them in place (shardkv.cuh
+// under MADRAFT_STAGE_IN_PLACE: a phase reads a leaf's pre-tick value
+// from its row, which only the tick's last phase rewrites), and the tiles
+// take the service's appends, log lengths, fsync watermarks and
+// compaction floors back (skv_import). The schedule mode's placeholder
+// controller has no tile: its leaves pass through.
+struct ShardKvParams {
+  Params g;       // the group clusters (b = B * G)
+  Params c;       // the controller clusters (b = B; controller modes)
+  k11::Params s;  // K11's, each leaf's input its output (the new state)
+  // each service leaf's input, copied to its output at the chunk's start
+  // (null where the input is the output: K6's raft leaves)
+  const void *svc_in[k11::kLeaves];
+  uint8_t *pre_alive;  // [B, G, n] the groups' pre-tick liveness (s reads)
+  int32_t *pre_base;   // [B, G, n] and bases
+  uint8_t *blocks;     // [B, tiles, cluster_bytes] the clusters' blocks in
+                       // device memory, or null: in shared memory
+  int *spare;          // metrics: [B, n * cap + cap] the copy tile's
+                       // stamp rows
+  int b, groups, tiles, m, shared, threads;
+};
+
+// The K6-shardkv template instances: the shardkv CLI's ring at the
+// flagship's n (5, 64) and the runtime one
+__host__ __device__ constexpr int shardkv_instance(int n, int cap,
+                                                   int ae_max) {
+  return n == 5 && cap == 64 && ae_max <= kShapeAe ? 1 : 0;
+}
+
+// The arguments of a cluster kind (groups or controller) as the wrapper
+// packs them: the kLeaves inputs, then outputs, the keys, the two knob
+// tables, then the metric leaves' inputs, outputs and the spare rows (0
+// outside the metrics builds)
+constexpr int kClusterArgs = 2 * kLeaves + 3 + 2 * kMetricLeaves + 1;
+
+// Fills p for b clusters of the shape from a's pointers; false for
+// arguments the build does not take
+inline bool set_clusters(Params &p, const int64_t *a, const int *kinds,
+                         const int *draws, int b, int n, int cap, int ae_max,
+                         int m, int bug, int part, bool met) {
+  for (int l = 0; l < kLeaves; ++l) {
+    if (kinds[l] != kLeafKind[l]) return false;
+    p.kind[l] = kinds[l];
+    p.in[l] = reinterpret_cast<const void *>(a[l]);
+    p.out[l] = reinterpret_cast<void *>(a[kLeaves + l]);
+  }
+  const int inst = shardkv_instance(n, cap, ae_max);
+  if (!set_shape(p, n, cap, ae_max, inst ? kShapeAe : ae_max, met, draws) ||
+      !set_variant(p, met ? a + 2 * kLeaves + 3 : nullptr, nullptr) ||
+      !set_trace(p, nullptr, 0, met) ||
+      !set_service(p, nullptr, 0, part, met, kNoSvc))
+    return false;
+  p.keys = reinterpret_cast<const long long *>(a[2 * kLeaves]);
+  p.kf = reinterpret_cast<const float *>(a[2 * kLeaves + 1]);
+  p.ki = reinterpret_cast<const int *>(a[2 * kLeaves + 2]);
+  p.b = b;
+  p.m = m;
+  p.bug = bug;
+  p.partitionable = part;
+  p.one = 1u;
+  return true;
+}
+
+// The launch's scratch in device memory, after the parameters: the
+// pre-tick rows, the copy tiles' stamp rows, and the blocks where they do
+// not fit beside K11's region in shared memory (max_shared: what a block
+// may take). Returns its bytes and sets sp's pointers from base (null:
+// the offsets alone), K11's reads of the pre-tick rows among them
+inline size_t shardkv_scratch(ShardKvParams &sp, uint8_t *base, bool met,
+                              int max_shared) {
+  auto up = [](size_t x) { return (x + 255) / 256 * 256; };
+  const size_t gn = static_cast<size_t>(sp.b) * sp.groups * sp.g.n;
+  const size_t ring = static_cast<size_t>(sp.g.n) * sp.g.cap + sp.g.cap;
+  const size_t blocks = static_cast<size_t>(sp.tiles) * sp.g.cluster_bytes;
+  const bool in_shared =
+      blocks + 4 * static_cast<size_t>(sp.s.words) <=
+      static_cast<size_t>(max_shared);
+  size_t at = up(sizeof(ShardKvParams));
+  auto take = [&](size_t bytes) {
+    uint8_t *x = base ? base + at : nullptr;
+    at += up(bytes);
+    return x;
+  };
+  sp.pre_alive = take(gn);
+  sp.pre_base = reinterpret_cast<int32_t *>(take(4 * gn));
+  sp.s.read[k11::kPreAlive] = sp.pre_alive;
+  sp.s.read[k11::kPreBase] = sp.pre_base;
+  sp.spare = met ? reinterpret_cast<int *>(take(4 * ring * sp.b)) : nullptr;
+  sp.blocks = in_shared ? nullptr : take(blocks * sp.b);
+  sp.shared = static_cast<int>((in_shared ? blocks : 0) + 4 * sp.s.words);
+  return at;
+}
+
+// Fills sp from the wrapper's arguments (ga / ca the groups' and the
+// controller's as set_clusters reads them, ca null in schedule mode; desc
+// K11's descriptor over the new state, each leaf's input the state in);
+// false for arguments the build does not take
+inline bool set_shardkv(ShardKvParams &sp, const int64_t *ga,
+                        const int64_t *ca, const int *kinds,
+                        const int *draws, int b, int groups, int n, int cap,
+                        int ae_max, int m, int bug, int part,
+                        const int64_t *desc, int n_desc, bool met) {
+  constexpr int kHead = int(k11::kHeader) + int(k11::kReads);
+  constexpr int kWords = kHead + 4 * k11::kLeaves;
+  if (n_desc != kWords || b < 1 || m < 1 || groups < 1 ||
+      (met && m > kMaxMetricTicks))
+    return false;
+  int64_t d[kWords];
+  for (int i = 0; i < kWords; ++i) d[i] = desc[i];
+  for (int l = 0; l < k11::kLeaves; ++l) {  // in place over the new state
+    int64_t *q = d + kHead + 4 * l;
+    sp.svc_in[l] = q[0] != q[1] && q[2] ? reinterpret_cast<const void *>(q[0])
+                                        : nullptr;
+    q[0] = q[1];
+  }
+  if (!k11::set_params(sp.s, d, n_desc) || sp.s.b != b ||
+      sp.s.g != groups || sp.s.n != n || sp.s.cap != cap ||
+      (ca != nullptr) != (sp.s.mode != k11::kSchedule) ||
+      !set_clusters(sp.g, ga, kinds, draws, b * groups, n, cap, ae_max, m,
+                    bug, part, met) ||
+      (ca && !set_clusters(sp.c, ca, kinds, draws, b, n, cap, ae_max, m, bug,
+                           part, met)))
+    return false;
+  if (!ca) sp.c = sp.g;  // never read
+  sp.b = b;
+  sp.groups = groups;
+  sp.tiles = (groups + (ca != nullptr) + 1) / 2 * 2;
+  sp.m = m;
+  // the block: K11's threads, or more where the tiles take more
+  const int warps = sp.tiles / (kWarp / kTile);
+  sp.threads = kWarp * (warps > k11::kThreads / kWarp ? warps
+                                                      : k11::kThreads / kWarp);
+  return true;
+}
+
+// Leaf l's row of cluster b from its block to the new state
+template <int TILE, typename Blk>
+__device__ void leaf_out(const Params &p, const Blk &s, int l, int b,
+                         int lane) {
+  const int e = shape_elems(p.kind[l], p.n, p.cap);
+  const size_t row = static_cast<size_t>(b) * e;
+  if (p.kind[l] & kBool) {
+    uint8_t *g = static_cast<uint8_t *>(p.out[l]) + row;
+    for (int i = lane; i < e; i += TILE) g[i] = s.B(l)[i];
+  } else {
+    int *g = static_cast<int *>(p.out[l]) + row;
+    for (int i = lane; i < e; i += TILE) g[i] = s.I(l)[i];
+  }
+}
+
+// After the raft tick: the rows of cluster b that K11 reads (its stepped
+// rows) and writes (the log rows and length, and from the node lanes'
+// registers the fsync watermark and compaction floor), into the new
+// state, where K11's reads and leaves point
+template <int TILE, typename Blk>
+__device__ void skv_export(const Params &p, const Blk &s, const Own &o, int b,
+                           int lane, int n) {
+  leaf_out<TILE>(p, s, L_TICK, b, lane);
+  leaf_out<TILE>(p, s, L_TERM, b, lane);
+  leaf_out<TILE>(p, s, L_ROLE, b, lane);
+  leaf_out<TILE>(p, s, L_ALIVE, b, lane);
+  leaf_out<TILE>(p, s, L_BASE, b, lane);
+  leaf_out<TILE>(p, s, L_COMMIT, b, lane);
+  leaf_out<TILE>(p, s, L_SNAP_INSTALLED_SRC, b, lane);
+  leaf_out<TILE>(p, s, L_SHADOW_VAL, b, lane);
+  leaf_out<TILE>(p, s, L_SHADOW_BASE, b, lane);
+  leaf_out<TILE>(p, s, L_SHADOW_LEN, b, lane);
+  leaf_out<TILE>(p, s, L_LOG_TERM, b, lane);
+  leaf_out<TILE>(p, s, L_LOG_VAL, b, lane);
+  leaf_out<TILE>(p, s, L_LOG_LEN, b, lane);
+  if (lane < n) {
+    const size_t r = static_cast<size_t>(b) * n + lane;
+    static_cast<int *>(p.out[L_DURABLE_LEN])[r] = o.durable_len;
+    static_cast<int *>(p.out[L_COMPACT_FLOOR])[r] = o.compact_floor;
+  }
+}
+
+// After the service tick: node lane d takes the entries the service
+// appended (the ring slots past its pre-service length), its log length,
+// fsync watermark and (a group's, floor) compaction floor; the caller
+// syncs the warp
+template <int CAP_, typename Blk>
+__device__ void skv_import(const Params &p, const Blk &s, Own &o, int b,
+                           int d, int n, bool floor) {
+  const int cap = CAP_ ? CAP_ : p.cap;
+  const size_t r = static_cast<size_t>(b) * n + d;
+  int *len = I<L_LOG_LEN>(s);
+  const int len1 = static_cast<const int *>(p.out[L_LOG_LEN])[r];
+  const int *term = static_cast<const int *>(p.out[L_LOG_TERM]) + r * cap;
+  const int *val = static_cast<const int *>(p.out[L_LOG_VAL]) + r * cap;
+  for (int a = len[d] + 1; a <= len1; ++a) {
+    const int k = slot(a, cap);
+    I<L_LOG_TERM>(s)[d * cap + k] = term[k];
+    I<L_LOG_VAL>(s)[d * cap + k] = val[k];
+  }
+  len[d] = len1;
+  o.durable_len = static_cast<const int *>(p.out[L_DURABLE_LEN])[r];
+  if (floor)
+    o.compact_floor = static_cast<const int *>(p.out[L_COMPACT_FLOOR])[r];
+}
+
+// Deployment c's chunk on thread tid of its block (sp.threads threads:
+// the tiles' lanes first), its clusters' blocks at `blocks`: the service
+// leaves' rows copied to the new state, the clusters staged, then m ticks
+// (the raft ticks, skv_export, a barrier, K11's phases with a barrier
+// after each, skv_import), then the clusters written out. sync() is the
+// block's barrier, svc(phase) this thread's share of K11's phase
+template <int N_, int CAP_, int AE_, int TILE, bool kMet, int M,
+          typename Sync, typename Svc>
+__device__ void run_deployment(const ShardKvParams &sp, uint8_t *blocks,
+                               int c, int tid, Sync sync, Svc svc) {
+  constexpr bool kCtrl = M != k11::kSchedule;
+  const int G = sp.groups, t = tid / TILE, lane = tid % TILE;
+  const bool raft = t < sp.tiles;
+  const bool is_ctrl = kCtrl && t == G;
+  const bool active = t < G + kCtrl;
+  const Params &p = is_ctrl ? sp.c : sp.g;
+  const int b = is_ctrl ? c : c * G + (active ? t : 0);
+  const int n = N_ ? N_ : p.n;
+  const Block<N_, CAP_, AE_, kMet> s{
+      p, blocks + static_cast<size_t>(raft ? t : 0) * p.cluster_bytes};
+  const Tile<TILE> tile{lane, t % (kWarp / TILE) * TILE};
+  for (int l = 0; l < k11::kLeaves; ++l) {
+    const k11::LeafRef &x = sp.s.leaf[l];
+    if (!sp.svc_in[l]) continue;
+    const size_t bytes = static_cast<size_t>(x.count) * x.bytes;
+    const uint8_t *src = static_cast<const uint8_t *>(sp.svc_in[l]) + c * bytes;
+    uint8_t *dst = static_cast<uint8_t *>(x.out) + c * bytes;
+    if (x.bytes == 4) {
+      for (size_t i = tid; i < bytes / 4; i += sp.threads)
+        reinterpret_cast<int32_t *>(dst)[i] =
+            reinterpret_cast<const int32_t *>(src)[i];
+    } else {
+      for (size_t i = tid; i < bytes; i += sp.threads) dst[i] = src[i];
+    }
+  }
+  const Stamps st{p, b, active,
+                  sp.spare ? sp.spare + static_cast<size_t>(c) *
+                                            (p.n * p.cap + p.cap)
+                           : nullptr};
+  Own o;
+  Meter mt;
+  unsigned alive = 0u;
+  TickKeys<TILE> keys;
+  Clock<false> clk;
+  if (raft) {
+    stage<TILE>(p, s, b, lane, true, active);
+    if constexpr (kMet) stamps_load<TILE>(st, lane);
+    if (lane < n) own_load(s, o, lane, n);
+    if constexpr (kMet) {
+      mt.worst_lat = p.m_in[M_WORST_LAT][b];
+      mt.worst_sub = p.m_in[M_WORST_SUB][b];
+    }
+    alive = tile.ballot(lane < n && B<L_ALIVE>(s)[lane]);
+  }
+  sync();  // the service leaves' rows are in place
+  for (int i = 0; i < sp.m; ++i) {
+    if (raft) {
+      uint32_t tk0, tk1;
+      keys.get(p, b, i, static_cast<uint32_t>(I<L_TICK>(s)[0]) + 1u, tile,
+               tk0, tk1);
+      if (active && !is_ctrl && lane < n) {
+        const size_t r = static_cast<size_t>(b) * n + lane;
+        sp.pre_alive[r] = bit(alive, lane);
+        sp.pre_base[r] = I<L_BASE>(s)[lane];
+      }
+      tick<N_, CAP_, AE_, TILE, false, kMet>(p, s, st, o, mt, alive, tile,
+                                             clk, tk0, tk1);
+      if (active) skv_export<TILE>(p, s, o, b, lane, n);
+    }
+    sync();
+    for (int phase = 0; phase < k11::kTickPhases; ++phase) {
+      svc(phase);
+      sync();
+    }
+    if (raft) {
+      if (active && lane < n) skv_import<CAP_>(p, s, o, b, lane, n, !is_ctrl);
+      __syncwarp();
+    }
+  }
+  if (raft) {
+    if (lane < n) own_store(s, o, lane, n);
+    __syncwarp();
+    stage<TILE>(p, s, b, lane, false, active);
+    if constexpr (kMet) write_metrics<TILE>(p, b, active, tile, mt);
+  }
+}
+#endif
 
 }  // namespace k6

@@ -1,9 +1,31 @@
-"""Kernel K11: the shardkv service tick of a batch of deployments, in any
-of the three config modes (the schedule, the live controller, the
-computed controller), one launch a tick.
+"""The shardkv service tick on the card: K6-shardkv, a chunk of shardkv
+ticks in one launch (``shardkv_chunk``), and K11, one service tick a
+launch (``shardkv_tick``), in any of the three config modes (the
+schedule, the live controller, the computed controller).
 
-Replaces the JAX reference's service tick (B9, and its controller
-branches, B9-rest), ``madraft_tpu/tpusim/shardkv.py``
+``shardkv_chunk(cfg, kcfg, st, keys, kn, skn, m)`` runs m deployment ticks
+(the groups' and, in a controller mode, the controller's raft ticks, then
+the service tick) of every deployment: on CPU tensors its plain version
+``shardkv_chunk_plain`` (``tpusim.shardkv.shardkv_step``'s eager route, a
+tick after another); on CUDA tensors the K6-shardkv build of
+``csrc/tick.cu`` (``chunk_variant``: ``-DMADRAFT_K6_SHARDKV``, with
+``-DMADRAFT_K6_METRICS`` for ``cfg.metrics``), a deployment a block,
+which runs K11's service tick (``csrc/shardkv.cuh``, its phases and its
+mode as K11's) after its clusters' raft ticks, or raises.
+``shardkv_chunk.launches`` counts its launches, ``metrics_launches`` those
+of K6-metrics-shardkv, ``live_launches`` / ``computed_launches`` those in
+a controller mode (``live_metrics_launches`` / ``computed_metrics_launches``
+K6-metrics-shardkv's there); a shardkv run on the card makes no
+``tick_chunk`` and no ``shardkv_tick`` launch. The wrapper checks the
+leaves and builds the launch's arguments once a launch and returns the
+new ``ShardKvState`` (the schedule mode's placeholder controller passes
+through).
+
+K11 (below) is the per-tick design K6-shardkv is held against, with its
+own tests and ``chip_smoke.py`` phases: one launch a tick. K11's device
+code is K6-shardkv's service tick. K11 replaces the JAX reference's
+service tick (B9, and its controller branches, B9-rest),
+``madraft_tpu/tpusim/shardkv.py``
 ``_shardkv_service_tick`` (907-2140), with the 4A rebalance of the
 computed controller (``ctrler.py`` ``_rebalance`` 270-343, through
 ``csrc/ctrler.cuh``'s ``rebalance``), and with the metrics plane
@@ -43,8 +65,9 @@ import numpy as np
 import torch
 
 from madraft_tpu_torch import _build
+from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.tpusim import prng
-from madraft_tpu_torch.tpusim.config import SimConfig
+from madraft_tpu_torch.tpusim.config import RAFT_BUGS, SimConfig
 
 I32, BOOL = torch.int32, torch.bool
 
@@ -355,3 +378,222 @@ shardkv_tick.live_launches = 0
 shardkv_tick.computed_launches = 0
 shardkv_tick.live_metrics_launches = 0
 shardkv_tick.computed_metrics_launches = 0
+
+
+# ------------------------------------------------------------ K6-shardkv
+# (n, cap) of K6-shardkv's template instance (csrc/tick.cuh
+# shardkv_instance), for ae_max <= kernels.tick.SHAPE_AE; every other
+# shape runs the runtime instance
+CHUNK_SHAPES = ((5, 64),)
+
+
+def chunk_instance(cfg: SimConfig) -> int:
+    """The K6-shardkv instance that runs cfg's clusters: 1 + its index in
+    CHUNK_SHAPES, or 0 for the runtime one."""
+    shape = (cfg.n_nodes, cfg.log_cap)
+    if cfg.ae_max > K6.SHAPE_AE or shape not in CHUNK_SHAPES:
+        return 0
+    return 1 + CHUNK_SHAPES.index(shape)
+
+
+def chunk_variant(metrics: bool) -> str:
+    """The K6-shardkv build of csrc/tick.cu for a run (``_build.VARIANTS``)."""
+    return "tick_metrics_shardkv" if metrics else "tick_shardkv"
+
+
+def chunk_lib(name: str):
+    """The loaded K6-shardkv library ``name`` (built first if needed),
+    its entries typed."""
+    return typed_chunk_lib(_build.library(name))
+
+
+def typed_chunk_lib(lib):
+    """``lib`` (a K6-shardkv build, on the card or the host's) with
+    ``shardkv_chunk_launch`` and ``shardkv_chunk_grid`` typed."""
+    if not getattr(lib, "_typed_chunk", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        head = [p, p, p, i, p, i, i, i, i, i, i, i, i, i, p, i]
+        lib.shardkv_chunk_launch.argtypes = head + [p, p, p]
+        lib.shardkv_chunk_launch.restype = i
+        if hasattr(lib, "shardkv_chunk_grid"):
+            lib.shardkv_chunk_grid.argtypes = head + [p]
+            lib.shardkv_chunk_grid.restype = i
+        lib._typed_chunk = True
+    return lib
+
+
+def chunk_tables(cfg: SimConfig, kcfg, kn, skn, b: int) -> tuple:
+    """The knob tables of a K6-shardkv launch of b deployments on kn's
+    device: (the group clusters' K6 table [B x G], the controller
+    clusters' [B], K11's). A caller running many chunks builds them once."""
+    from madraft_tpu_torch.tpusim.shardkv import _group_knobs
+
+    g = kcfg.n_groups
+    return (K6.knob_table(_group_knobs(kn, g), b * g), K6.knob_table(kn, b),
+            knob_table(kn, skn, b))
+
+
+def _chunk_args(cfg: SimConfig, kcfg, st, keys, m: int, tables) -> tuple:
+    """Check the inputs and allocate the new state of a K6-shardkv launch:
+    (the arguments of ``shardkv_chunk_launch`` before the scratch, the new
+    ShardKvState, what must stay alive until the launch). The service
+    leaves the mode writes come out in a fresh allocation (the kernel
+    copies them there first, then ticks them in place); the clusters'
+    raft leaves in K6's (``kernels.tick.cluster_args``), where K11's
+    descriptor points both their input and output."""
+    from madraft_tpu_torch.tpusim.shardkv import (
+        _flat,
+        _unflat,
+        ctrl_keys,
+        group_keys,
+    )
+
+    check_shape(cfg, kcfg)
+    g, n, cap = kcfg.n_groups, cfg.n_nodes, cfg.log_cap
+    dev, b = keys.device, keys.shape[0]
+    if b == 0:
+        raise ValueError("shardkv_chunk: an empty batch")
+    gtable, ctable, (kf, ki) = tables
+    shapes = leaf_shapes(cfg, kcfg)
+    gkeys = group_keys(keys, g).reshape(-1, 2)
+    gnew, ga, gin = K6.cluster_args(cfg, _flat(st.rafts), gkeys, m, gtable)
+    rafts = _unflat(gnew, b)
+    ctrl_on = mode(kcfg) != 0
+    ckeys = ctrl_keys(keys)
+    ctrl, ca, cin = (K6.cluster_args(cfg, st.ctrl, ckeys, m, ctable)
+                     if ctrl_on else (st.ctrl, None, None))
+    written = writes(kcfg)
+    for w, f in written:
+        if w == "st":
+            lane, dtype = shapes[(w, f)]
+            _check(f"st.{f}", getattr(st, f), (b, *lane), dtype, dev)
+    for f in ("cfg_tick", "cfg_owner", "flip_a", "flip_b"):
+        lane, dtype = shapes[("st", f)]
+        _check(f, getattr(st, f), (b, *lane), dtype, dev)
+    _check("keys", keys, (b, 2), torch.int64, dev)
+    _check("knob table (float32)", kf, (b, len(KNOB_F32)), torch.float32, dev)
+    _check("knob table (int32)", ki, (b, len(KNOB_I32) + 1), I32, dev)
+    # the service leaves' new rows: one allocation, each a 16-byte aligned
+    # view
+    svc = [f for w, f in written if w == "st"]
+    offs, nbytes = {}, 0
+    for f in svc:
+        x = getattr(st, f)
+        offs[f] = nbytes
+        nbytes += -(-x.numel() * x.element_size() // 16) * 16
+    buf = torch.empty((max(nbytes, 16),), dtype=torch.uint8, device=dev)
+    outs = {}
+    for f, at in offs.items():
+        x = getattr(st, f)
+        outs[f] = (buf[at:at + x.numel() * x.element_size()].view(x.dtype)
+                   .view(x.shape))
+    src = {"st": st, "s": rafts, "ctrl": ctrl}
+    reads = ([getattr(rafts, f).data_ptr() for f in RAFT_READS]
+             + [getattr(ctrl, f).data_ptr() if ctrl_on else 0
+                for f in CTRL_READS]
+             + [0, 0,  # the pre-tick views: the kernel's scratch rows
+                st.cfg_tick.data_ptr(), st.cfg_owner.data_ptr(),
+                st.flip_a.data_ptr(), st.flip_b.data_ptr(), keys.data_ptr(),
+                kf.data_ptr(), ki.data_ptr()])
+    hb = st.lat_hist.shape[1] if cfg.metrics else 0
+    head = [b, g, n, cap, kcfg.n_shards, kcfg.n_clients, kcfg.n_configs,
+            kcfg.apply_max, kcfg.walk_max, hb, int(prng.partitionable()),
+            int(cfg.metrics), mode(kcfg)]
+    leaves = []
+    for k in LEAVES:
+        x = getattr(src[k[0]], k[1])
+        if k not in written:  # the mode leaves it alone: count 0
+            leaves += [x.data_ptr(), x.data_ptr(), 0, x.element_size()]
+            continue
+        y = outs[k[1]] if k[0] == "st" else x
+        leaves += [x.data_ptr(), y.data_ptr(), x[0].numel(), x.element_size()]
+    desc = np.asarray(head + reads + leaves, dtype=np.int64)
+    kinds, draws = K6.leaf_tables(n)
+    args = (ga.ctypes.data, None if ca is None else ca.ctypes.data,
+            kinds.ctypes.data, len(kinds), draws.ctypes.data, len(draws), b,
+            g, n, cap, cfg.ae_max, m, RAFT_BUGS.index(cfg.bug),
+            int(prng.partitionable()), desc.ctypes.data, len(desc))
+    new = st._replace(rafts=rafts, ctrl=ctrl, **outs)
+    return args, new, (ga, ca, kinds, draws, desc, gin, cin)
+
+
+def _chunk_launch(cfg: SimConfig, kcfg, st, keys, m: int, tables, lib,
+                  stream):
+    """Check the inputs, allocate the new state and launch ``lib``'s
+    ``shardkv_chunk_launch`` (its scratch sized by a first call that
+    launches nothing). Returns the new ShardKvState."""
+    args, new, keep = _chunk_args(cfg, kcfg, st, keys, m, tables)
+    nbytes = ctypes.c_int64(0)
+    _build.check(lib.shardkv_chunk_launch(*args, None, ctypes.byref(nbytes),
+                                          stream), "shardkv_chunk_launch")
+    scratch = torch.empty((nbytes.value,), dtype=torch.uint8,
+                          device=keys.device)
+    _build.check(lib.shardkv_chunk_launch(*args, scratch.data_ptr(),
+                                          ctypes.byref(nbytes), stream),
+                 "shardkv_chunk_launch")
+    del keep
+    return new
+
+
+def chunk_grid(cfg: SimConfig, kcfg, st, keys, m: int, tables, lib) -> dict:
+    """How ``lib`` lays a K6-shardkv launch of these inputs out on the card
+    (``shardkv_chunk_grid``): threads and deployments a block, dynamic
+    shared bytes a block, the blocks an SM holds and whether the clusters'
+    blocks sit in shared memory."""
+    args, _, keep = _chunk_args(cfg, kcfg, st, keys, m, tables)
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.shardkv_chunk_grid(*args, out), "shardkv_chunk_grid")
+    del keep
+    return dict(zip(("threads_a_block", "deployments_a_block",
+                     "shared_bytes", "blocks_an_sm", "blocks_in_shared"),
+                    out))
+
+
+def shardkv_chunk_plain(cfg: SimConfig, kcfg, st, keys, kn, skn, m: int):
+    """K6-shardkv's plain version: m ticks of
+    ``tpusim.shardkv.shardkv_step``'s eager route (the groups' and the
+    controller's ``step_cluster``, then K11's plain version)."""
+    from madraft_tpu_torch.tpusim.shardkv import shardkv_step
+
+    for _ in range(m):
+        st = shardkv_step(cfg, kcfg, st, keys, kn, skn, tick="eager")
+    return st
+
+
+def shardkv_chunk(cfg: SimConfig, kcfg, st, keys, kn, skn, m: int,
+                  tables=None):
+    """m deployment ticks of every deployment: the plain version on the
+    CPU, K6-shardkv's build for ``cfg.metrics`` on CUDA (one launch).
+    ``tables`` is ``chunk_tables(cfg, kcfg, kn, skn, B)`` on the device
+    when the caller has it."""
+    dev = st.rafts.tick.device
+    if dev.type == "cpu":
+        return shardkv_chunk_plain(cfg, kcfg, st, keys, kn, skn, m)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"shardkv_chunk: expected CPU or CUDA tensors, got {dev}")
+    if m < 1:
+        raise ValueError(f"shardkv_chunk: m must be >= 1, got {m}")
+    if tables is None:
+        tables = chunk_tables(cfg, kcfg, kn.to(dev), skn.to(dev),
+                              keys.shape[0])
+    out = _chunk_launch(cfg, kcfg, st, keys, m, tables,
+                        chunk_lib(chunk_variant(cfg.metrics)),
+                        torch.cuda.current_stream(dev).cuda_stream)
+    shardkv_chunk.launches += 1
+    shardkv_chunk.metrics_launches += int(cfg.metrics)
+    shardkv_chunk.live_launches += int(kcfg.live_ctrler)
+    shardkv_chunk.computed_launches += int(kcfg.computed_ctrler)
+    shardkv_chunk.live_metrics_launches += int(kcfg.live_ctrler
+                                               and cfg.metrics)
+    shardkv_chunk.computed_metrics_launches += int(kcfg.computed_ctrler
+                                                   and cfg.metrics)
+    return out
+
+
+shardkv_chunk.launches = 0
+shardkv_chunk.metrics_launches = 0
+shardkv_chunk.live_launches = 0
+shardkv_chunk.computed_launches = 0
+shardkv_chunk.live_metrics_launches = 0
+shardkv_chunk.computed_metrics_launches = 0

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from madraft_tpu_torch import _build
@@ -44,9 +45,40 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK
 
 
+def _hash_numpy(k0, k1, x0, x1):
+    """hash_plain on CPU inputs, in numpy's uint32 (wrapping adds and
+    logical shifts: five array operations a round where the int64 tensors
+    take seven, each a fraction of a small tensor operation's cost)."""
+    k0, k1, x0, x1 = (
+        np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v,
+                   dtype=np.int64).astype(np.uint32)
+        for v in (k0, k1, x0, x1))
+    with np.errstate(over="ignore"):
+        ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
+        x0 = x0 + k0
+        x1 = x1 + k1
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = x0 + x1
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return (torch.from_numpy(np.asarray(x0, dtype=np.int64)),
+            torch.from_numpy(np.asarray(x1, dtype=np.int64)))
+
+
 def hash_plain(k0, k1, x0, x1):
     """threefry2x32 (20 rounds) on int64-held u32 words; all four inputs
-    broadcast. Returns the two output words."""
+    broadcast. Returns the two output words (on the CPU computed in numpy,
+    ``_hash_numpy``; on a device by ``_hash_tensors``)."""
+    if all(not isinstance(v, torch.Tensor) or v.device.type == "cpu"
+           for v in (k0, k1, x0, x1)):
+        return _hash_numpy(k0, k1, x0, x1)
+    return _hash_tensors(k0, k1, x0, x1)
+
+
+def _hash_tensors(k0, k1, x0, x1):
+    """hash_plain in int64 tensor operations, on any device."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + k0) & MASK
     x1 = (x1 + k1) & MASK

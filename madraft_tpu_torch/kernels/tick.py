@@ -28,7 +28,10 @@ service's side of a launch: ``kernels.kv.Side`` or
 ``kernels.ctrler.Side``) ``_launch`` runs K6-kv or K6-ctrler, the
 service tick after each raft tick (``kernels.kv.kv_chunk``,
 ``variant(..., kv=True)``; ``kernels.ctrler.ctrler_chunk``,
-``variant(..., ctrler=True)``).
+``variant(..., ctrler=True)``). ``cluster_args`` gives a batch of
+clusters' share of a K6-shardkv launch (``kernels.shardkv.shardkv_chunk``,
+whose builds of ``csrc/tick.cu`` lay a deployment's clusters out a
+block).
 
 The kernel reads the clusters' keys (``[B, 2]`` int64-held u32), the state
 leaves of ``LEAVES`` and the knobs as one float32 and one int32 ``[B, k]``
@@ -340,6 +343,21 @@ def _check(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                          f"{cov.t + m - 1} outside [0, {coverage.UNSEEN})")
 
 
+def _fresh(written, spare_words: int, dev) -> tuple:
+    """One allocation holding a 16-byte aligned view shaped like each
+    tensor of ``written``, then ``spare_words`` int32 words: (the views,
+    the allocation, the spare words' byte offset)."""
+    offs, nbytes = [], 0
+    for x in written:
+        offs.append(nbytes)
+        nbytes += -(-x.numel() * x.element_size() // 16) * 16
+    buf = torch.empty((nbytes + 4 * spare_words,), dtype=torch.uint8,
+                      device=dev)
+    outs = [buf[at:at + x.numel() * x.element_size()].view(x.dtype)
+            .view(x.shape) for x, at in zip(written, offs)]
+    return outs, buf, nbytes
+
+
 def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
             kn: Knobs, m: int, lib, stream, prof=None,
             table=None, cov: Optional[Seen] = None, fp=None,
@@ -368,15 +386,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
     n_raft = len(written)
     if side is not None:
         written += side.leaves
-    offs, nbytes = [], 0
-    for x in written:
-        offs.append(nbytes)
-        nbytes += -(-x.numel() * x.element_size() // 16) * 16
-    spare = nbytes
-    buf = torch.empty((nbytes + 4 * (n * cap + cap) * metrics,),
-                      dtype=torch.uint8, device=dev)
-    outs = [buf[at:at + x.numel() * x.element_size()].view(x.dtype)
-            .view(x.shape) for x, at in zip(written, offs)]
+    outs, buf, spare = _fresh(written, (n * cap + cap) * metrics, dev)
     launched = bool(b and m)
     if launched:
         ins = [x if x.is_contiguous() else x.contiguous() for x in written]
@@ -403,10 +413,7 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
                  coverage.node_alphabet(ccfg) & 0xFFFFFFFF,
                  int(coverage.identity_mapped(n, ccfg)), cov.t],
                 dtype=np.int64)
-        kinds = np.asarray([sc + (8 if dt == BOOL else 0)
-                            for _, sc, dt in LEAVES], dtype=np.int32)
-        draws = np.asarray([off for _, off, _ in draw_offsets(n)],
-                           dtype=np.int32)
+        kinds, draws = leaf_tables(n)
         desc = None if side is None else side.descriptor(svc_ins, svc_outs)
         args = (ptr_in.ctypes.data, ptr_out.ctypes.data, kinds.ctypes.data,
                 len(LEAVES), keys.data_ptr(), kf.data_ptr(), ki.data_ptr(),
@@ -430,6 +437,46 @@ def _launch(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
     if side is not None:
         new = side.state(new, outs[n_raft:])
     return new, launched
+
+
+def leaf_tables(n: int) -> tuple:
+    """(kinds, draws): the leaf table (shape class, + 8 for a bool leaf)
+    and each draw's offset at n nodes, as the launches check them."""
+    kinds = np.asarray([sc + (8 if dt == BOOL else 0) for _, sc, dt in LEAVES],
+                       dtype=np.int32)
+    draws = np.asarray([off for _, off, _ in draw_offsets(n)], dtype=np.int32)
+    return kinds, draws
+
+
+def cluster_args(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,
+                 m: int, table) -> tuple:
+    """A batch of clusters' share of a launch that writes their new state
+    (K6-shardkv's groups and controller, ``kernels.shardkv.shardkv_chunk``):
+    (the new state, one fresh allocation of 16-byte aligned leaves; the
+    int64 words ``csrc/tick.cuh`` ``set_clusters`` reads: the leaves in
+    and out, the keys, the two knob tables, then in the metrics variant
+    the metric leaves in and out and a spare row of the stamp rings, else
+    zeros; the contiguous inputs the words point at, which must stay alive
+    until the launch). The inputs are checked as ``tick_chunk`` checks
+    them."""
+    _check(cfg, state, keys, m)
+    n, cap, metrics = cfg.n_nodes, cfg.log_cap, cfg.metrics
+    written = list(state if metrics else state[:METRIC_LEAF0])
+    outs, buf, spare = _fresh(written, (n * cap + cap) * metrics,
+                              state.tick.device)
+    ins = [x if x.is_contiguous() else x.contiguous()
+           for x in (*written, keys, *table)]
+    words = ([x.data_ptr() for x in ins[:METRIC_LEAF0]]
+             + [y.data_ptr() for y in outs[:METRIC_LEAF0]]
+             + [x.data_ptr() for x in ins[len(written):]])
+    if metrics:
+        words += ([x.data_ptr() for x in ins[METRIC_LEAF0:len(written)]]
+                  + [y.data_ptr() for y in outs[METRIC_LEAF0:]]
+                  + [buf.data_ptr() + spare])
+    else:
+        words += [0] * (2 * len(METRIC_LEAVES) + 1)
+    new = ClusterState(*outs, *state[len(outs):])
+    return new, np.asarray(words, dtype=np.int64), ins
 
 
 def tick_chunk(cfg: SimConfig, state: ClusterState, keys: torch.Tensor,

@@ -17,15 +17,16 @@ stepped (``_ctrl_sim_cfg``).
 
 A deployment tick is the raft tick of every group (and of the controller
 cluster in a controller mode), then the service tick
-(``_shardkv_service_tick``). On the card (``engine.tick_route``) the
-groups' raft tick is one launch of kernel K6 over the deployments' groups
-viewed as B x G clusters (``kernels.tick.tick_chunk`` with m = 1, each
-group keyed by ``fold_in(key, 100 + g)``), the controllers' a second K6
-launch over the B controller clusters, and the service tick one launch of
-kernel K11 (``kernels.shardkv.shardkv_tick``; K11-metrics with the
-metrics plane on). On the CPU, or with ``tick="eager"``, the raft ticks
-are ``step.step_cluster`` over the same views and the service tick this
-module's ``_shardkv_service_tick``, K11's plain version.
+(``_shardkv_service_tick``). On the card (``engine.tick_route``) up to
+``engine.KERNEL_CHUNK`` deployment ticks are one launch of K6-shardkv
+(``kernels.shardkv.shardkv_chunk``; K6-metrics-shardkv with the metrics
+plane on): a deployment a block, its groups' raft ticks (each group keyed
+by ``fold_in(key, 100 + g)``) and its controller's, then kernel K11's
+service tick, each tick of the chunk. On the CPU, or with
+``tick="eager"``, the raft ticks are ``step.step_cluster`` over the
+deployments' groups viewed as B x G clusters (and over the B controller
+clusters) and the service tick this module's ``_shardkv_service_tick``,
+K11's plain version.
 
 Batch-first like the rest of the port: a reference leaf ``[G, N, NS]`` is
 ``[B, G, N, NS]`` here, a scalar leaf is ``[B]``, ``rafts`` is a
@@ -47,7 +48,6 @@ import numpy as np
 import torch
 
 from madraft_tpu_torch.kernels import shardkv as K11
-from madraft_tpu_torch.kernels import tick as K6
 from madraft_tpu_torch.kernels.oracle import lane_abs
 from madraft_tpu_torch.tpusim import ctrler as _ctrler
 from madraft_tpu_torch.tpusim import metrics as _m
@@ -1556,65 +1556,61 @@ def _shardkv_service_tick(cfg: SimConfig, kcfg: ShardKvConfig,
 
 def shardkv_step(cfg: SimConfig, kcfg: ShardKvConfig, st: ShardKvState,
                  keys: torch.Tensor, kn: Knobs, skn: ShardKvKnobs,
-                 tick: str = "kernel", gkeys=None, table=None,
-                 stable=None, ckeys=None, ctable=None) -> ShardKvState:
+                 tick: str = "kernel", gkeys=None, ckeys=None,
+                 tables=None) -> ShardKvState:
     """One tick of every deployment: the raft tick of its groups (and, in
     a controller mode, of its controller cluster), then the service tick,
-    routed by ``engine.tick_route``: on the card K6 over the B x G group
-    clusters (one tick), K6 over the B controller clusters and K11; on
-    the CPU, or with ``tick="eager"``, ``step_cluster`` over the same
-    views and the plain service tick. ``gkeys`` ([B x G, 2],
-    ``group_keys``), ``ckeys`` ([B, 2], ``ctrl_keys``), ``table`` and
-    ``ctable`` (K6's knob tables of the group and the controller
-    clusters) and ``stable`` (K11's) are what a caller running many
-    ticks builds once."""
+    routed by ``engine.tick_route``: on the card a K6-shardkv launch of one
+    tick (``tables``: ``kernels.shardkv.chunk_tables``); on the CPU, or
+    with ``tick="eager"``, ``step_cluster`` over the B x G group clusters
+    (and the B controller clusters) and the plain service tick.
+    ``gkeys`` ([B x G, 2], ``group_keys``) and ``ckeys`` ([B, 2],
+    ``ctrl_keys``) are what a caller running many eager ticks builds
+    once."""
     from madraft_tpu_torch.tpusim.engine import tick_route
 
+    if tick_route(st.rafts.tick.device, tick) == "kernel":
+        return K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, 1, tables)
     b, g = keys.shape[0], kcfg.n_groups
     if gkeys is None:
         gkeys = group_keys(keys, g).reshape(-1, 2)
     pre = st.rafts
-    flat = _flat(pre)
-    gkn = _group_knobs(kn, g)
-    kernel = tick_route(pre.tick.device, tick) == "kernel"
-    if kernel:
-        s = K6.tick_chunk(cfg, flat, gkeys, gkn, 1, table)
-    else:
-        s = step_cluster(cfg, flat, gkeys, gkn)
+    s = step_cluster(cfg, _flat(pre), gkeys, _group_knobs(kn, g))
     ctrl = None
     if _ctrl_mode(kcfg):
         if ckeys is None:
             ckeys = ctrl_keys(keys)
-        ctrl = (K6.tick_chunk(cfg, st.ctrl, ckeys, kn, 1, ctable) if kernel
-                else step_cluster(cfg, st.ctrl, ckeys, kn))
-    # K6 returns a new state, so the pre-tick views are the old tensors
+        ctrl = step_cluster(cfg, st.ctrl, ckeys, kn)
     return K11.shardkv_tick(cfg, kcfg, st, pre.alive, pre.base,
-                            _unflat(s, b), keys, kn, skn, stable,
-                            plain=not kernel, ctrl=ctrl)
+                            _unflat(s, b), keys, kn, skn, plain=True,
+                            ctrl=ctrl)
 
 
 def _advance_shardkv(cfg: SimConfig, kcfg: ShardKvConfig, st: ShardKvState,
                      keys: torch.Tensor, kn: Knobs, skn: ShardKvKnobs,
                      n_ticks: int, tick: str = "kernel") -> ShardKvState:
-    """n_ticks deployment ticks, routed as ``shardkv_step`` says; the
-    group and controller keys, and on the card the knob tables, are built
-    once here. Every shardkv run goes through this function, so
-    ``functools.partial(_advance_shardkv, tick="eager")`` in its place
-    runs a whole program on the eager route (the A/B's baseline)."""
-    from madraft_tpu_torch.tpusim.engine import tick_route
+    """n_ticks deployment ticks, routed as ``shardkv_step`` says: on the
+    card K6-shardkv launches of up to ``engine.KERNEL_CHUNK`` ticks (the
+    knob tables built once here), else the eager tick once a tick (the
+    group and controller keys built once here). Every shardkv run goes
+    through this function, so ``functools.partial(_advance_shardkv,
+    tick="eager")`` in its place runs a whole program on the eager route
+    (the A/B's baseline)."""
+    from madraft_tpu_torch.tpusim.engine import KERNEL_CHUNK, tick_route
 
     b, g = keys.shape[0], kcfg.n_groups
+    if tick_route(st.rafts.tick.device, tick) == "kernel":
+        tables = K11.chunk_tables(cfg, kcfg, kn, skn, b)
+        done = 0
+        while done < n_ticks:
+            m = min(KERNEL_CHUNK, n_ticks - done)
+            st = K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, m, tables)
+            done += m
+        return st
     gkeys = group_keys(keys, g).reshape(-1, 2)
     ckeys = ctrl_keys(keys)
-    table = stable = ctable = None
-    if tick_route(st.rafts.tick.device, tick) == "kernel":
-        table = K6.knob_table(_group_knobs(kn, g), b * g)
-        stable = K11.knob_table(kn, skn, b)
-        if _ctrl_mode(kcfg):
-            ctable = K6.knob_table(kn, b)
     for _ in range(n_ticks):
-        st = shardkv_step(cfg, kcfg, st, keys, kn, skn, tick, gkeys, table,
-                          stable, ckeys, ctable)
+        st = shardkv_step(cfg, kcfg, st, keys, kn, skn, tick, gkeys, ckeys)
     return st
 
 
@@ -1702,7 +1698,7 @@ def shardkv_report(final: ShardKvState) -> ShardKvFuzzReport:
 class ShardKvFuzzProgram:
     """``fn(seed) -> final batched ShardKvState`` for one config and
     shape, the ``engine.FuzzProgram`` interface (``compile_timed`` builds
-    the kernels, K6's and K11's builds for the run among them, before the
+    the kernels, K6-shardkv's build for the run among them, before the
     first tick). ``kn`` / ``skn`` override the configs' knobs (the
     sweep's [B] rows)."""
 
@@ -1732,7 +1728,7 @@ class ShardKvFuzzProgram:
         if self.compile_s is None:
             self.compile_s = _build_kernels(
                 self.device, self.cfg.metrics,
-                extra=(K11.variant(self.cfg.metrics),))
+                extra=(K11.chunk_variant(self.cfg.metrics),))
         return self.compile_s
 
     def __call__(self, seed) -> ShardKvState:

@@ -1,6 +1,7 @@
 """K6's device code built for the host (``tests/tick_host_emu.cpp``) with
 g++, in the builds ``csrc/tick.cu`` has: the plain one and the metrics,
-coverage and kv variants (``_build.VARIANTS``' flags), one g++ a build,
+coverage and service variants (``_build.VARIANTS``' flags; K6-shardkv's
+have ``shardkv_chunk_launch`` alone), one g++ a build,
 all started together, each built once a run and shared by the run's
 workers (``_host_build``). Each library has the kernel entries' C
 signatures, so ``kernels.tick._launch`` drives it as it drives the
@@ -16,6 +17,10 @@ from madraft_tpu_torch import _build
 
 
 def _typed(lib):
+    if not hasattr(lib, "tick_launch"):  # K6-shardkv's builds
+        from madraft_tpu_torch.kernels.shardkv import typed_chunk_lib
+
+        return typed_chunk_lib(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tick_launch.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, i, i,
                                 i, p, p, p, i, p, i, p]

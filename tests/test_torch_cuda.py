@@ -997,14 +997,16 @@ def test_shapes_past_the_kernels_limits_are_refused_on_the_card(dev, verb,
 
     launches = (K6.tick_chunk.launches, K2.oracle.launches,
                 K9.kv_chunk.launches, K10.ctrler_tick.launches,
-                K10.ctrler_chunk.launches, K11.shardkv_tick.launches)
+                K10.ctrler_chunk.launches, K11.shardkv_tick.launches,
+                K11.shardkv_chunk.launches)
     rc = main([verb, "--nodes", "17", "--clusters", "8", "--ticks", "64"])
     err = capsys.readouterr().err
     assert rc == 2, err
     assert "n <= 16" in err and "--platform cpu" in err, err
     assert (K6.tick_chunk.launches, K2.oracle.launches,
             K9.kv_chunk.launches, K10.ctrler_tick.launches,
-            K10.ctrler_chunk.launches, K11.shardkv_tick.launches) == launches
+            K10.ctrler_chunk.launches, K11.shardkv_tick.launches,
+            K11.shardkv_chunk.launches) == launches
 
 
 # ---- K10, the shard controller's service tick, and the ctrler path
@@ -1297,15 +1299,22 @@ def test_shardkv_kernel_refuses_what_it_does_not_take(dev):
     assert K11.shardkv_tick.launches == before
 
 
+def _shardkv_launches():
+    return (K6.tick_chunk.launches, K11.shardkv_tick.launches,
+            K11.shardkv_chunk.launches, K11.shardkv_chunk.metrics_launches)
+
+
 @pytest.mark.parametrize("metrics_on", [False, True])
 def test_shardkv_fuzz_on_the_card_equals_the_cpu(dev, metrics_on):
+    """A 512-tick run on the card is two K6-shardkv launches (no K6 or
+    K11 launch) and reports what the CPU's reports."""
     cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **SHARDKV_BASE)
     kcfg = shardkv.ShardKvConfig(cfg_interval=20, bug_serve_frozen=True)
-    launches = (K6.tick_chunk.launches, K11.shardkv_tick.launches)
-    got = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device=dev)
-    assert (K6.tick_chunk.launches - launches[0],
-            K11.shardkv_tick.launches - launches[1]) == (160, 160)
-    want = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device="cpu")
+    before = _shardkv_launches()
+    got = shardkv.shardkv_fuzz(cfg, kcfg, 5, 32, 512, device=dev)
+    assert tuple(x - y for x, y in zip(_shardkv_launches(), before)) == (
+        0, 0, 2, 2 * metrics_on)
+    want = shardkv.shardkv_fuzz(cfg, kcfg, 5, 32, 512, device="cpu")
     for f in want._fields:
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
@@ -1450,17 +1459,131 @@ def test_shardkv_ctrl_kernel_refuses_what_it_does_not_take(dev):
     {"live_ctrler": True, "bug_stale_ctrler_read": True, "p_phantom": 0.5},
     {"computed_ctrler": True, "bug_rotate_tiebreak": True}])
 def test_shardkv_ctrl_fuzz_on_the_card_equals_the_cpu(dev, kw):
-    """A controller mode's run on the card (K6 over the groups and K6 over
-    the controller clusters, then K11, every tick) reports what the CPU's
-    reports."""
+    """A controller mode's 512-tick run on the card (two K6-shardkv
+    launches, no K6 or K11 launch) reports what the CPU's reports."""
     cfg = config.SimConfig(n_nodes=5, metrics=True, **SHARDKV_BASE)
     kcfg = shardkv.ShardKvConfig(cfg_interval=16, **kw)
-    launches = (K6.tick_chunk.launches, K11.shardkv_tick.launches)
-    got = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device=dev)
-    assert (K6.tick_chunk.launches - launches[0],
-            K11.shardkv_tick.launches - launches[1]) == (320, 160)
-    want = shardkv.shardkv_fuzz(cfg, kcfg, 5, 64, 160, device="cpu")
+    before = _shardkv_launches()
+    got = shardkv.shardkv_fuzz(cfg, kcfg, 5, 32, 512, device=dev)
+    assert tuple(x - y for x, y in zip(_shardkv_launches(), before)) == (
+        0, 0, 2, 2)
+    want = shardkv.shardkv_fuzz(cfg, kcfg, 5, 32, 512, device="cpu")
     for f in want._fields:
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or (a == b).all(), f
     assert want.n_violating > 0 and (want.ann_resolved >= 2).any()
+
+
+# ---- K6-shardkv, the shardkv tick inside K6's chunk
+K6S_MODES = {"schedule": {}, "live": {"live_ctrler": True},
+             "computed": {"computed_ctrler": True}}
+
+
+def _k6s_vs_plain(cfg, kcfg, st, keys, kn, skn, launches):
+    """K6-shardkv against its plain version after every launch of
+    ``launches`` ticks (a launch each, counted); the last state."""
+    for t, m in enumerate(launches):
+        before = K11.shardkv_chunk.launches
+        got = K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, m)
+        assert K11.shardkv_chunk.launches == before + 1
+        want = K11.shardkv_chunk_plain(cfg, kcfg, st, keys, kn, skn, m)
+        d = shardkv.first_divergence(t, shardkv.shardkv_state_to_numpy(want),
+                                     shardkv.shardkv_state_to_numpy(got))
+        assert d is None, d
+        st = want
+    return st
+
+
+@pytest.mark.parametrize("metrics_on", [False, True])
+@pytest.mark.parametrize("mode", list(K6S_MODES))
+def test_k6_shardkv_kernel_equals_plain_every_launch(dev, mode, metrics_on):
+    """The mode's row cases as [B] knob rows, 37 deployments warmed 40
+    ticks on K6-shardkv, then launches of 16, 1 and 7 ticks held to the
+    plain route on every leaf."""
+    from chip_smoke import shardkv_knob_rows
+
+    cfg = config.SimConfig(n_nodes=5, metrics=metrics_on, **SHARDKV_BASE)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=12, **K6S_MODES[mode])
+    b = 37
+    with prng.layout(not metrics_on):
+        keys = engine.cluster_keys(5, b, dev)
+        kn, skn = cfg.knobs(dev), shardkv_knob_rows(kcfg, b).to(dev)
+        st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+        st = K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, 40)
+        st = _k6s_vs_plain(cfg, kcfg, st, keys, kn, skn, (16, 1, 7))
+    assert st.clerk_acked.sum() > 0 and st.installs_done.sum() > 0
+
+
+# shapes at K11's limits (kernels/shardkv.py check_shape) that its region
+# of shared memory holds: eight groups of sixteen nodes at cap 256 with 64
+# configs (32 in the computed mode, beside its map history), and 32 shards
+# with 32 clients; name -> (raft config, shardkv config, metrics)
+K6S_LIMITS = {
+    "live_g8_n16_cap256_configs64": (
+        dict(n_nodes=16, log_cap=256, compact_every=64),
+        dict(live_ctrler=True, n_groups=8, n_configs=64), True),
+    "computed_g8_n16_cap256": (
+        dict(n_nodes=16, log_cap=256, compact_every=64),
+        dict(computed_ctrler=True, n_groups=8, n_configs=32), False),
+    "schedule_shards32_clients32_configs64": (
+        dict(n_nodes=3, log_cap=16, compact_every=4),
+        dict(n_groups=2, n_shards=32, n_clients=32, n_configs=64), False),
+}
+
+
+@pytest.mark.parametrize("case", list(K6S_LIMITS))
+def test_k6_shardkv_takes_every_shape_k11_takes(dev, case):
+    """K6-shardkv at shapes K11 takes at its limits (K11 lays each out on
+    the card first): every leaf equals the plain route's after each launch;
+    with sixteen nodes at cap 256 the clusters' blocks go to device memory,
+    and eight groups with the controller take five warps."""
+    raft, kw, metrics_on = K6S_LIMITS[case]
+    cfg = config.SimConfig(p_client_cmd=0.0, compact_at_commit=False,
+                           metrics=metrics_on, **raft)
+    kcfg = shardkv.ShardKvConfig(cfg_interval=8, **kw)
+    K11.check_shape(cfg, kcfg)
+    b = 3
+    keys = engine.cluster_keys(9, b, dev)
+    kn, skn = cfg.knobs(dev), kcfg.knobs(dev)
+    st = shardkv.init_shardkv_cluster(cfg, kcfg, keys, kn, skn)
+    ctrl = st.ctrl if kcfg.live_ctrler or kcfg.computed_ctrler else None
+    K11.grid(cfg, kcfg, st, st.rafts.alive, st.rafts.base, st.rafts, keys,
+             K11.knob_table(kn, skn, b), K11._lib(K11.variant(metrics_on)),
+             ctrl)
+    tables = K11.chunk_tables(cfg, kcfg, kn, skn, b)
+    grid = K11.chunk_grid(cfg, kcfg, st, keys, 4, tables,
+                          K11.chunk_lib(K11.chunk_variant(metrics_on)))
+    if cfg.n_nodes == 16:
+        assert not grid["blocks_in_shared"]
+    if kcfg.n_groups == 8:
+        assert grid["threads_a_block"] == 160
+    st = K11.shardkv_chunk(cfg, kcfg, st, keys, kn, skn, 30)
+    st = _k6s_vs_plain(cfg, kcfg, st, keys, kn, skn, (4, 1, 3))
+    assert (st.rafts.commit > 0).any()
+
+
+@pytest.mark.parametrize("mode", list(K6S_MODES))
+def test_k6_shardkv_flagship_equals_the_eager_route(dev, mode):
+    """The shardkv flagships (shardkv-fuzz --storm, with the mode's flag,
+    1024 deployments x 512 ticks): K6-shardkv's report equals the eager
+    route's (the eager raft ticks, then the plain service tick) at the
+    whole depth, which chip_smoke.py checks at 64 ticks to hold its
+    time."""
+    from functools import partial
+
+    from chip_smoke import _shardkv_cli_cfg
+
+    cfg, kcfg = _shardkv_cli_cfg(False, mode)
+    reps = {}
+    advance = shardkv._advance_shardkv
+    for route in ("kernel", "eager"):
+        shardkv._advance_shardkv = partial(advance, tick=route)
+        try:
+            reps[route] = shardkv.shardkv_fuzz(cfg, kcfg, 12345, 1024, 512,
+                                               device=dev)
+        finally:
+            shardkv._advance_shardkv = advance
+    for f in reps["eager"]._fields:
+        a, b = getattr(reps["eager"], f), getattr(reps["kernel"], f)
+        assert (a is None and b is None) or (a == b).all(), f
+    assert reps["kernel"].installs.sum() > 0

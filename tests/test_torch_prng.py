@@ -154,3 +154,21 @@ def test_layout_setting_follows_jax_env_spelling(monkeypatch):
     monkeypatch.setenv("JAX_THREEFRY_PARTITIONABLE", "maybe")
     with pytest.raises(ValueError):
         prng._env_flag("JAX_THREEFRY_PARTITIONABLE", True)
+
+
+@pytest.mark.parametrize("shape", [(), (7, 1), (300, 12)])
+def test_hash_on_the_cpu_equals_the_tensor_route(shape):
+    """threefry's CPU route (numpy's uint32) gives the int64 tensor
+    route's words (the route CUDA tensors take), key and counter words
+    spanning the whole u32 range, broadcast."""
+    g = torch.Generator().manual_seed(3)
+
+    def words(s):
+        return torch.randint(0, 2**32, s, generator=g, dtype=torch.int64)
+
+    k0, k1 = words(shape), words(shape)
+    x0 = words(shape[-1:] if shape else ())
+    x1 = torch.full_like(x0, 2**32 - 1)
+    got = threefry.hash_plain(k0, k1, x0, x1)
+    want = threefry._hash_tensors(k0, k1, x0, x1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -13,18 +13,26 @@
 // -DMADRAFT_K6_COVERAGE, -DMADRAFT_K6_KV and -DMADRAFT_K6_CTRLER build the
 // variants, as for tick.cu (the service phases of K6-kv and K6-ctrler,
 // kv.cuh and ctrler.cuh, update the region with the shared atomics' twins
-// below, MADRAFT_HOST_ATOMICS):
+// below, MADRAFT_HOST_ATOMICS). -DMADRAFT_K6_SHARDKV builds K6-shardkv's
+// shardkv_chunk_launch alone: a deployment's tiles as 16 lanes each of
+// warps of 32 std::threads, a std::barrier the block's barrier, and K11's
+// phases (whose threads share only commutative updates) run by thread 0
+// for all of K11's threads one after another, reversed on odd
+// deployments, as tests/shardkv_host_emu.cpp runs them:
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fPIC -shared
 //       -I madraft_tpu_torch/csrc -o libtick_host.so tests/tick_host_emu.cpp
 //
 // (tests/_tick_host.py builds it so.)
 
+#include <algorithm>
+#include <array>
 #include <atomic>
 #include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstdint>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -184,6 +192,12 @@ inline long long clock64() {
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 
+#ifdef MADRAFT_K6_SHARDKV
+#define MADRAFT_STAGE_IN_PLACE
+#ifdef MADRAFT_K6_METRICS
+#define MADRAFT_K11_METRICS
+#endif
+#endif
 #include "tick.cuh"
 
 namespace {
@@ -208,6 +222,55 @@ constexpr int kSvc = k6::kNoSvc;
 constexpr int kBuildShapes =
     kSvc == k6::kSvcCtrler ? k6::kCtrlerShapes : k6::kShapes;
 
+#ifdef MADRAFT_K6_SHARDKV
+// Deployment after deployment: its tiles' lanes as threads, K11's phases
+// on thread 0 (see the header note)
+template <int N_, int CAP_, int AE_, int M>
+void run_skv(const k6::ShardKvParams &sp) {
+  const size_t bytes = static_cast<size_t>(sp.tiles) * sp.g.cluster_bytes;
+  std::vector<uint8_t> shared(bytes);
+  std::vector<int32_t> region(sp.s.words);
+  uint64_t bar = 0;
+  const int warps = sp.threads / 32;
+  for (int c = 0; c < sp.b; ++c) {
+    // shared memory starts undefined: a word read before it is written
+    // shows as a mismatch
+    std::fill(region.begin(), region.end(), 0x5A5A5A5A);
+    uint8_t *blocks = sp.blocks ? sp.blocks + c * bytes : shared.data();
+    std::barrier<> block(sp.threads);
+    std::vector<std::unique_ptr<std::barrier<>>> wbar;
+    std::vector<std::array<unsigned, 32>> wbuf(warps);
+    for (int w = 0; w < warps; ++w)
+      wbar.push_back(std::make_unique<std::barrier<>>(32));
+    std::vector<std::thread> lanes;
+    for (int tid = 0; tid < sp.threads; ++tid)
+      lanes.emplace_back([&, tid] {
+        warp = Warp{wbar[tid / 32].get(), wbuf[tid / 32].data(), tid % 32};
+        k6::run_deployment<N_, CAP_, AE_, k6::kTile, kMet, M>(
+            sp, blocks, c, tid, [&] { block.arrive_and_wait(); },
+            [&](int phase) {
+              if (tid != 0) return;
+              for (int k = 0; k < k11::kThreads; ++k)
+                k11::run_phase<M>(sp.s, sp.s.plan, region.data(), &bar, c,
+                                  c % 2 ? k11::kThreads - 1 - k : k, phase);
+            });
+      });
+    for (auto &x : lanes) x.join();
+  }
+}
+
+template <int M>
+void run_skv_mode(const k6::ShardKvParams &sp) {
+  if (k6::shardkv_instance(sp.g.n, sp.g.cap, sp.g.ae_max))
+    run_skv<5, 64, k6::kShapeAe, M>(sp);
+  else
+    run_skv<0, 0, 0, M>(sp);
+}
+
+k6::ShardKvParams g_skv;
+#endif
+
+#ifndef MADRAFT_K6_SHARDKV
 // Each warp of TILE-lane tiles in turn, as 32 threads: tile t of warp w
 // runs body(c, active, tile, its block) on cluster c = w * (32 / TILE) + t,
 // or on a copy of the last one when the batch ends first (as the kernel)
@@ -349,3 +412,38 @@ extern "C" int tick_words(const void *keys, const int *t1, int b, int n,
     words<0>(p, t1, w);
   return 0;
 }
+#endif  // MADRAFT_K6_SHARDKV
+
+#ifdef MADRAFT_K6_SHARDKV
+}  // namespace
+
+// tick.cu's shardkv_chunk_launch on the host: scratch is host memory
+// (the parameters' room in it unused), the stream ignored
+extern "C" int shardkv_chunk_launch(const int64_t *ga, const int64_t *ca,
+                                    const int *kinds, int n_leaves,
+                                    const int *draws, int n_draws, int b,
+                                    int groups, int n, int cap, int ae_max,
+                                    int m, int bug, int partitionable,
+                                    const int64_t *desc, int n_desc,
+                                    void *scratch, int64_t *scratch_bytes,
+                                    void *) {
+  if (n_leaves != k6::kLeaves || n_draws != k6::kDraws ||
+      !k6::set_shardkv(g_skv, ga, ca, kinds, draws, b, groups, n, cap,
+                       ae_max, m, bug, partitionable, desc, n_desc, kMet))
+    return 1;
+  const size_t bytes = k6::shardkv_scratch(
+      g_skv, static_cast<uint8_t *>(scratch), kMet, 227 * 1024);
+  if (!scratch) {
+    *scratch_bytes = static_cast<int64_t>(bytes);
+    return 0;
+  }
+  if (*scratch_bytes < static_cast<int64_t>(bytes)) return 1;
+  g_skv.threads = g_skv.tiles * k6::kTile;  // the tiles' lanes
+  switch (g_skv.s.mode) {
+    case k11::kSchedule: run_skv_mode<k11::kSchedule>(g_skv); break;
+    case k11::kLive: run_skv_mode<k11::kLive>(g_skv); break;
+    default: run_skv_mode<k11::kComputed>(g_skv); break;
+  }
+  return 0;
+}
+#endif
